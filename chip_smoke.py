@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame path and its distillation
+step on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -8,7 +9,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile both CUDA kernels from ``r2l_tpu_torch/kernels/csrc`` into
+2. Build: compile the five CUDA kernels from ``r2l_tpu_torch/kernels/csrc`` into
    ``build/`` and print the build time and the compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
    400x400 lego frame of the canonical W256/D88 student, random weights from
@@ -20,10 +21,31 @@ Phases, in order; any failure raises and exits non-zero:
    the kinds ``jnp`` (plain module, bf16), ``pe`` and ``int8``; K frames per
    kind, ms/frame from CUDA events, PSNR of each kernel kind's frames against
    the ``jnp`` frames, and the kernels' launch counts in that run.
+5. Training kernels vs plain versions on the card, at one canonical
+   distillation step's 81,920 rays (``sample_train`` of synthetic rays with
+   stratified depths): K3 (``train_fwd``) with f32 and bf16 weights, rgb
+   and every stash row; K4 (``train_fwd_int8``), rgb and the stash
+   q-values that differ; K5 (``bwd_group``) with f32 and bf16 weights and
+   with the int8 stash, one 4-block group and the whole body walk. Times
+   each kernel and its plain version with CUDA events.
+6. Training main path: synthetic ray shards (100 x 4096 rays, record dim 9)
+   written with ``write_ray_shards`` into a temporary directory and read
+   back through ``RayShardDataset``/``RayBatchLoader``; for the kinds
+   ``xla``, ``fused`` and ``fused_int8``, canonical W256/D88 distillation
+   steps through ``make_distill_step`` with the README's flags (81,920 rays,
+   hard ratio 0.2, hard_mul 20, warm-up 0.0001 over 200 steps): 2 warm-up
+   steps then 10 timed ones (CUDA events), the loss falling, the first
+   step's loss of the fused kinds against ``xla``'s on the same params,
+   batch and draws, two copies of a fused state run 3 steps bit-identical,
+   the peak device memory, one more step under torch.profiler (kernel time
+   by name and the card's idle share), and the K3/K4/K5 launch counts in
+   that run.
 
-Prints a JSON line of details (build time, main-path times), a JSON line of
-per-kernel results (``{"kernels": [...]}``), the nvidia-smi line, and as
-the last line ``{"ok": true, "device": {...}}``.
+Prints a JSON line of details, a JSON line of per-kernel results
+(``{"kernels": [...]}``: launches on the main path, max-abs error against
+the plain version, kernel and plain ms, the least time the card could take
+for the same work and what bounds it), the nvidia-smi line, and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -31,6 +53,7 @@ import json
 import subprocess
 import sys
 import time
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -56,13 +79,45 @@ TOL_PE_BF16 = 3e-2
 #   the plain version does, so most outputs agree bit for bit; a flipped
 #   requantize moves a few outputs (tests/test_pallas_int8_pe.py:45-46).
 TOL_INT8_MAX, TOL_INT8_RMS = 2.5e-2, 2.5e-3
-# K2 on the canary against the JAX reference's frozen output: the reference
-#   contracts acc*m+b and the ladder's 1-2s*s into FMAs where the port
-#   rounds each step (ROADMAP C), one f32 ulp on the CPU; on the card
-#   CUDA's sinf/cosf/expf differ from XLA's by ulps as well.
-TOL_CANARY = 1e-6
+# K2 on the canary: equal to its plain version on the card, bit for bit.
+#   Against the JAX reference's frozen output: the dequantize is one FMA on
+#   both sides (the CPU plain version reproduces the fixture bit for bit),
+#   but the card's sin/cos/exp differ from the CPU's by ulps, which leaves
+#   outputs one f32 ulp of [0.5, 1) apart (measured 5.96e-8; ROADMAP C).
+TOL_CANARY_PLAIN, TOL_CANARY_JAX = 0.0, 6e-8
 # Frames of a kernel kind against the plain jnp frames (PSNR, dB).
 MIN_PSNR = {"pe": 40.0, "int8": 35.0}
+
+# Training (phases 5-6): the README's distillation flags.
+N_RAND = 20 * 4096             # --N_rand 20: 81,920 rays per step
+HARD_RATIO, HARD_MUL = 0.2, 20.0
+WARMUP = "0.0001,200"
+N_SHARDS, SHARD_RAYS = 100, 4096
+TIMED_STEPS = 10
+# K3 f32: the same f32 chain as its plain version, sums in another order
+#   (K1's 1e-4 tightened: the first run measured 4.2e-7 on rgb, 0 on the
+#   stash).
+TOL_TRAIN_F32 = 1e-5
+# K3 bf16: rgb as K1 bf16; each stash row relative to its largest value (a
+#   flipped bf16 rounding propagates to the later rows).
+TOL_TRAIN_BF16 = 3e-2
+# K4 stash: exact int32 sums and the plain version's epilogue, so a q-value
+#   moves only where sinf/cosf or an f32 sum order flips a rounding: by one
+#   step, on under 0.1% of the values.
+MAX_Q_STEP, MAX_Q_SHARE = 1, 1e-3
+# K5 (tests/test_train_pallas.py:58, 88-92): f32 weights norm-relative
+#   1e-5, sums in another order; bf16 weights: a flipped bf16 rounding of
+#   dt1/dt2 propagates down the walk, norm-relative 1e-2 (the test's 5e-2
+#   tightened: the first run measured 2.4e-3 over the whole walk), and under
+#   2e-3 of the entries off by more than 5e-2 of the largest.
+TOL_GRAD_F32, TOL_GRAD_BF16, MAX_BAD_BF16 = 1e-5, 1e-2, 2e-3
+# First-step loss of a fused kind against xla's, relative
+#   (tests/test_train_pallas.py:119, 158).
+RTOL_LOSS = {"fused": 2e-2, "fused_int8": 5e-2}
+
+# The card's data-sheet peaks (H100 SXM, dense, at 700 W) and memory rate.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_S = 3.35e12
 
 
 def nvidia_smi() -> str:
@@ -106,6 +161,25 @@ def check(name: str, max_abs: float, rms: float, tol_max: float,
         raise AssertionError(f"{name} outside its tolerance")
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(ops: float, moved: int, kind: str) -> dict:
+    """The least time the card could take: the larger of ``ops`` at the
+    data-sheet peak of ``kind`` and ``moved`` bytes at the memory rate."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = moved / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def chain_ops(cfg, n: int, in_dim: int) -> float:
+    """Multiply-adds x 2 of the R2L chain (head, body, tail) for n rays."""
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    return 2.0 * n * (in_dim * W + nbl * W * W + W * cfg.output_dim)
+
+
 def lego_poses(k: int) -> np.ndarray:
     from r2l_tpu_torch.rays import pose_spherical
     return np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4]
@@ -138,11 +212,15 @@ def phase_kernels(model, cfg, sampler, poses, dev) -> dict:
         check(f"{label} vs plain", mx, rms, *tols)
         print(f"[check] {label} vs plain: {int((got != want).sum())} of "
               f"{got.numel()} outputs differ", flush=True)
+        kind = {"pe_f32": "f32", "pe": "bf16", "int8": "int8"}[key]
         out[key] = {
             "max_abs_err": mx,
             "ms": time_ms(lambda: kernel(fp, cfg, pts, dim_pts, EMBED_L)),
             "plain_ms": time_ms(lambda: plain(fp, cfg, pts, dim_pts,
-                                              EMBED_L))}
+                                              EMBED_L)),
+            **bound(chain_ops(cfg, pts.shape[0], cfg.input_dim),
+                    nbytes(pts, got, *fp), kind),
+            "library_ms": None}
         print(f"[time] {label}: kernel {out[key]['ms']:.3f} ms, plain "
               f"{out[key]['plain_ms']:.3f} ms at {pts.shape[0]} rays",
               flush=True)
@@ -158,19 +236,22 @@ def phase_canary(dev) -> float:
     case = np.load(fx / "int8_epilogue_canary_case.npz")
     want = torch.from_numpy(np.load(fx / "int8_epilogue_canary.npz")["rgb"])
     cfg = R2LConfig(input_dim=6 * (2 * 4 + 1), netdepth=8, netwidth=64)
-    model = R2L(cfg)
+    model = R2L(cfg, device=dev)
     model.load_state_dict(params_from_jax(
         {k: {"w": case[f"{k}_w"], "b": case[f"{k}_b"]}
          for k in ("head", "body", "tail")}, cfg))
-    model.to(dev)
     calib = torch.from_numpy(case["calib"]).to(dev)
     pts = torch.from_numpy(case["pts"]).to(dev)
     fp = F.calibrate_r2l_int8_pe(model, cfg, 6, 4, calib)
     got = F.fused_r2l_apply_int8_pe(fp, cfg, pts, 6, 4)
     plain = F.fused_r2l_apply_int8_pe_ref(fp, cfg, pts, 6, 4)
-    check("K2 canary vs plain on the card", *deltas(got, plain), TOL_CANARY)
+    check("K2 canary vs plain on the card", *deltas(got, plain),
+          TOL_CANARY_PLAIN)
     mx, rms = deltas(got.cpu(), want)
-    check("K2 canary vs the JAX fixture", mx, rms, TOL_CANARY)
+    print(f"[check] K2 canary vs the JAX fixture: "
+          f"{int((got.cpu() != want).sum())} of {want.numel()} outputs "
+          "differ", flush=True)
+    check("K2 canary vs the JAX fixture", mx, rms, TOL_CANARY_JAX)
     return mx
 
 
@@ -220,6 +301,319 @@ def phase_main_path(model, cfg, sampler, poses, dev) -> dict:
     return res
 
 
+def synthetic_rays(n: int, seed: int) -> np.ndarray:
+    """[n, 9] f32 records o(3) d(3) rgb(3): origins on the radius-4 sphere,
+    unit directions toward its centre jittered by up to ~0.3, and targets a
+    smooth seeded function of the ray, rgb = 0.5 + 0.45 sin(A d + B o/4 +
+    c) per channel (A, B [3, 3] and c [3] normal from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = -o / 4.0 + 0.3 * rng.uniform(-1.0, 1.0, size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    a, b, c = (np.random.default_rng(seed + 1).normal(size=sh)
+               for sh in ((3, 3), (3, 3), (3,)))
+    rgb = 0.5 + 0.45 * np.sin(d @ a + (o / 4.0) @ b + c)
+    return np.concatenate([o, d, rgb], axis=1).astype(np.float32)
+
+
+def grad_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(norm-relative error, share of entries off by more than 5e-2 of the
+    largest |want|)."""
+    got, want = got.double(), want.double()
+    rel = float((got - want).norm() / want.norm().clamp(min=1e-30))
+    bad = float(((got - want).abs()
+                 > 5e-2 * want.abs().max()).double().mean())
+    return rel, bad
+
+
+def check_grads(name: str, got, want, f32: bool) -> dict:
+    errs = [grad_err(g, w) for g, w in zip(got, want)]
+    rel, bad = max(e[0] for e in errs), max(e[1] for e in errs)
+    ok = rel <= (TOL_GRAD_F32 if f32 else TOL_GRAD_BF16) and (
+        f32 or bad <= MAX_BAD_BF16)
+    print(f"[check] {name}: worst norm-relative {rel:.3e} (tol "
+          f"{TOL_GRAD_F32 if f32 else TOL_GRAD_BF16:.0e})"
+          + ("" if f32 else f" share off {bad:.2e} (tol {MAX_BAD_BF16:.0e})")
+          + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"{name} outside its tolerance")
+    return {"norm_rel_err": rel, "share_off": bad,
+            "max_abs_err": float((got[0].double() - want[0].double())
+                                 .abs().max())}
+
+
+def train_points(cfg, sampler, dev) -> torch.Tensor:
+    """One canonical step's sample points: ``sample_train`` of synthetic
+    rays with stratified depths from a seeded generator."""
+    from r2l_tpu_torch.sampler import stratify_z
+    n = N_RAND
+    rec = torch.from_numpy(synthetic_rays(n, SEED + 10)).to(dev)
+    z = stratify_z(sampler.z_vals(dev), (n,),
+                   generator=torch.Generator(dev).manual_seed(SEED))
+    return sampler.sample_train(rec[:, 0:3], rec[:, 3:6], z).contiguous()
+
+
+def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
+    """K3, K4 and K5 against their plain versions at one step's rays."""
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.kernels import r2l_train as T
+    from r2l_tpu_torch.train import fused_int8_calib_points
+    dp, L, nb, W = N_SAMPLE * 3, EMBED_L, cfg.num_blocks, cfg.netwidth
+    pts = train_points(cfg, sampler, dev)
+    n = pts.shape[0]
+    ops = chain_ops(cfg, n, cfg.input_dim)
+    res, stashes = {}, {}
+
+    for wd, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd)
+        rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
+        rgb_p, stash_p = T.train_fwd_ref(fp, cfg, pts, dp, L)
+        tol = TOL_TRAIN_F32 if kind == "f32" else TOL_TRAIN_BF16
+        check(f"K3 {kind} rgb vs plain", *deltas(rgb, rgb_p), tol)
+        row = (stash.float() - stash_p.float()).abs().amax(dim=(1, 2))
+        if kind == "bf16":
+            row = row / stash_p.float().abs().amax(dim=(1, 2)).clamp(min=1)
+        check(f"K3 {kind} stash, worst of {stash.shape[0]} rows"
+              + (" (relative to the row's largest)" if kind == "bf16"
+                 else ""), float(row.max()), 0.0, tol)
+        del stash_p
+        res[f"train_fwd_{kind}"] = {
+            "max_abs_err": deltas(rgb, rgb_p)[0],
+            "stash_row_err": float(row.max()),
+            "ms": time_ms(lambda: T.train_fwd(fp, cfg, pts, dp, L)),
+            "plain_ms": time_ms(lambda: T.train_fwd_ref(fp, cfg, pts, dp, L)),
+            **bound(ops, nbytes(pts, rgb, stash, *fp), kind),
+            "library_ms": None}
+        stashes[kind] = (fp.body_w, stash)
+        torch.cuda.empty_cache()
+
+    calib = fused_int8_calib_points(H, W, FOCAL, N_SAMPLE, 2.0, 6.0, poses,
+                                    dev)
+    fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L, calib,
+                                  fold_requant=False)
+    rgb, stash = T.train_fwd_int8(fp8, cfg, pts, dp, L)
+    rgb_p, stash_p = T.train_fwd_int8_ref(fp8, cfg, pts, dp, L)
+    check("K4 rgb vs plain", *deltas(rgb, rgb_p), TOL_INT8_MAX, TOL_INT8_RMS)
+    dq = (stash.int() - stash_p.int()).abs()
+    n_diff, step = int((dq > 0).sum()), int(dq.max())
+    share = n_diff / dq.numel()
+    print(f"[check] K4 stash: {n_diff} of {dq.numel()} q-values differ "
+          f"({share:.2e}, tol {MAX_Q_SHARE:.0e}), by at most {step} "
+          f"(tol {MAX_Q_STEP})"
+          + (" ok" if share < MAX_Q_SHARE and step <= MAX_Q_STEP
+             else " FAILED"), flush=True)
+    if share >= MAX_Q_SHARE or step > MAX_Q_STEP:
+        raise AssertionError("K4 stash outside its tolerance")
+    del stash_p, dq
+    res["train_fwd_int8"] = {
+        "max_abs_err": deltas(rgb, rgb_p)[0], "stash_q_differ": n_diff,
+        "ms": time_ms(lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L)),
+        "plain_ms": time_ms(lambda: T.train_fwd_int8_ref(fp8, cfg, pts, dp,
+                                                         L)),
+        **bound(ops, nbytes(pts, rgb, stash, *fp8), "int8"),
+        "library_ms": None}
+    body_bf16 = stashes["bf16"][0]
+    stashes["int8"] = (body_bf16, stash)
+    scale8 = 1.0 / fp8.body_inv
+
+    dh = torch.randn((n, W), generator=torch.Generator(dev).manual_seed(
+        SEED + 2), device=dev)
+    cnt = 4
+    for kind in ("f32", "bf16", "int8"):
+        body_w, stash = stashes[kind]
+        scale = scale8 if kind == "int8" else None
+        b0 = nb - cnt
+
+        def group(fn):
+            return fn(body_w, stash, dh, cfg, b0, cnt, body_scale=scale)
+
+        def walk(fn):
+            g, dws, dbs, b = dh, [], [], nb
+            while b > 0:
+                c = min(cnt, b)
+                b -= c
+                g, dw, db = fn(body_w, stash, g, cfg, b, c, body_scale=scale)
+                dws.insert(0, dw)
+                dbs.insert(0, db)
+            return g, torch.cat(dws), torch.cat(dbs)
+
+        got, again = group(T.bwd_group), group(T.bwd_group)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K5 {kind}: two runs differ")
+        info = check_grads(f"K5 {kind}, blocks {b0}..{nb - 1} vs plain", got,
+                           group(T.bwd_group_ref), kind == "f32")
+        info_walk = check_grads(f"K5 {kind}, whole body walk vs plain",
+                                walk(T.bwd_group), walk(T.bwd_group_ref),
+                                kind == "f32")
+        moved = (nbytes(dh, *got, body_w[2 * b0:]) + nbytes(stash[0])
+                 * 2 * cnt + (nbytes(scale[2 * b0:]) if scale is not None
+                              else 0))
+        res[f"bwd_group_{kind}"] = {
+            **info, "walk_norm_rel_err": info_walk["norm_rel_err"],
+            "ms": time_ms(lambda: group(T.bwd_group)),
+            "plain_ms": time_ms(lambda: group(T.bwd_group_ref)),
+            "walk_ms": time_ms(lambda: walk(T.bwd_group), reps=2),
+            "walk_plain_ms": time_ms(lambda: walk(T.bwd_group_ref), reps=2),
+            **bound(4.0 * n * W * W * 2 * cnt, moved,
+                    "f32" if kind == "f32" else "bf16"),
+            "library_ms": None}
+        torch.cuda.empty_cache()
+    for key, r in res.items():
+        print(f"[time] {key}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}) at {n} rays"
+              + (f"; whole walk {r['walk_ms']:.3f} ms, plain "
+                 f"{r['walk_plain_ms']:.3f}" if "walk_ms" in r else ""),
+              flush=True)
+    del stashes
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_step(step, state, batch, draws, top: int = 12) -> dict:
+    """One step under torch.profiler: device time by kernel (the ``top``
+    largest) and the sum over all kernels. The profiler slows the host
+    several-fold, so the caller takes the idle share against the unprofiled
+    step time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA") or getattr(
+                e, "is_user_annotation", False):
+            continue   # a host op or a named range, not a kernel
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return {"kernel_ms": sum(r[0] for r in rows),
+            "top": [{"ms": ms, "calls": c, "name": k[:90]}
+                    for ms, c, k in rows[:top]]}
+
+
+def phase_train_main(cfg, sampler, poses, dev) -> dict:
+    """Canonical distillation steps through the entry points, per kind."""
+    from r2l_tpu_torch.data import (RayBatchLoader, RayShardDataset,
+                                    write_ray_shards)
+    from r2l_tpu_torch.hardmine import parse_hard_ratio
+    from r2l_tpu_torch.kernels import r2l_train as T
+    from r2l_tpu_torch.models import init_r2l
+    from r2l_tpu_torch.train import (DistillConfig, clone_train_state,
+                                     draw_step, fused_int8_calib_points,
+                                     fused_vjp_gate, init_train_state,
+                                     make_distill_step)
+    n_in, n_out = parse_hard_ratio(HARD_RATIO, N_RAND)
+    dcfg = DistillConfig(batch_size=N_RAND, n_hard_in=n_in, n_hard_out=n_out,
+                         hard_mul=HARD_MUL, warmup_lr=WARMUP, embed_L=EMBED_L,
+                         perturb=True)
+    calib = fused_int8_calib_points(H, W, FOCAL, N_SAMPLE, 2.0, 6.0, poses,
+                                    dev)
+    kinds = {"xla": {}, "fused": {"fused_vjp": True},
+             "fused_int8": {"fused_vjp": True, "fused_quantize": "int8",
+                            "fused_calib_pts": calib}}
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_ray_shards(tmp, synthetic_rays(N_SHARDS * SHARD_RAYS, SEED),
+                         shard_size=SHARD_RAYS,
+                         rng=np.random.default_rng(SEED))
+        ds = RayShardDataset(tmp)
+        if len(ds) != N_SHARDS * SHARD_RAYS or ds.record_dim != 9:
+            raise AssertionError(f"read back {len(ds)} x {ds.record_dim}")
+        loader = RayBatchLoader(ds, N_RAND - n_out, seed=SEED, workers=2)
+        try:
+            batches = [next(loader) for _ in range(3 + TIMED_STEPS + 3)]
+        finally:
+            loader.close()
+    draws = [draw_step(dcfg, N_SAMPLE, torch.Generator(dev).manual_seed(
+        100 + i)) for i in range(len(batches))]
+    for f in (T.train_fwd, T.train_fwd_int8, T.bwd_group):
+        f.launches = 0
+    for kind, kw in kinds.items():
+        if kw.get("fused_vjp") and not fused_vjp_gate(True, cfg, False):
+            raise AssertionError(f"{kind}: the fused gate refused W256/D88")
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+        state = init_train_state(model, dcfg, device=dev)
+        step = make_distill_step(cfg, dcfg, sampler, device=dev, **kw)
+        losses = []
+        for i in range(2):                      # warm-up, same draws per kind
+            state, m = step(state, batches[i], draws=draws[i])
+            losses.append(float(m["loss"]))
+        snap = (clone_train_state(state), clone_train_state(state))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        ms = []
+        for i in range(2, 2 + TIMED_STEPS):
+            state, m = step(state, batches[i], draws=draws[i])
+            ms.append(m["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+        losses += [float(x) for x in ms]
+        r = {"ms_per_step": start.elapsed_time(end) / TIMED_STEPS,
+             "wall_ms_per_step": wall, "losses": losses,
+             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if not all(np.isfinite(losses)) or not (
+                np.mean(losses[-3:]) < losses[0]):
+            raise AssertionError(f"{kind}: loss did not fall: {losses}")
+        if kind != "xla":
+            first = res["xla"]["losses"][0]
+            rel = abs(losses[0] - first) / abs(first)
+            ok = rel <= RTOL_LOSS[kind]
+            print(f"[check] {kind} first-step loss {losses[0]:.6f} vs xla "
+                  f"{first:.6f}: relative {rel:.2e} (tol "
+                  f"{RTOL_LOSS[kind]:.0e})" + (" ok" if ok else " FAILED"),
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{kind} first-step loss off xla's")
+            runs = []
+            for s0 in snap:
+                for i in range(2, 5):
+                    s0, _ = step(s0, batches[i], draws=draws[i])
+                runs.append(s0)
+            same = all(torch.equal(a, b) for a, b in zip(
+                runs[0].params.state_dict().values(),
+                runs[1].params.state_dict().values())) and torch.equal(
+                runs[0].pool.rays, runs[1].pool.rays)
+            print(f"[check] {kind}: two copies of the state, 3 steps each: "
+                  + ("bit-identical ok" if same else "DIFFER"), flush=True)
+            if not same:
+                raise AssertionError(f"{kind}: repeated steps differ")
+            r["repeat_bit_identical"] = same
+        r["profile"] = p = profile_step(step, state, batches[-1], draws[-1])
+        p["idle_share"] = max(0.0, 1.0 - p["kernel_ms"] / r["ms_per_step"])
+        print(f"[profile] train {kind}: kernels {p['kernel_ms']:.3f} ms of "
+              f"a {r['ms_per_step']:.3f} ms step (idle {p['idle_share']:.3f})",
+              flush=True)
+        for row in p["top"]:
+            print(f"[profile]   {row['ms']:8.3f} ms  x{row['calls']:<4d} "
+                  f"{row['name']}", flush=True)
+        print(f"[main] train {kind}: {r['ms_per_step']:.3f} ms/step (CUDA "
+              f"events; host {wall:.3f}), loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, peak {r['peak_mem_gb']:.2f} GB", flush=True)
+        res[kind] = r
+        del state, snap, model, step
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    res["launches"] = {"train_fwd": T.train_fwd.launches,
+                       "train_fwd_int8": T.train_fwd_int8.launches,
+                       "bwd_group": T.bwd_group.launches}
+    print(f"[main] training kernel launches: {res['launches']}", flush=True)
+    for name, count in res["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"the training path never launched {name}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -261,23 +655,43 @@ def main() -> int:
     kern = phase_kernels(model, cfg, sampler, poses, dev)
     canary = phase_canary(dev)
     main_res = phase_main_path(model, cfg, sampler, poses, dev)
+    tkern = phase_train_kernels(model, cfg, sampler, poses, dev)
+    del model
+    torch.cuda.empty_cache()
+    train = phase_train_main(cfg, sampler, poses, dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
         "model": "R2L W256 D88, 16 samples, L=10", "build_s": build_s,
         "pe_f32": kern["pe_f32"], "canary_max_abs_err": canary,
         "main_path": {k: v for k, v in main_res.items()
-                      if k != "launches"}}}))
+                      if k != "launches"},
+        "train_kernels": tkern,
+        "train_main_path": {k: v for k, v in train.items()
+                            if k != "launches"}}}))
     src = "r2l_tpu_torch/kernels/csrc/"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def entry(name, source, replaces, launches, r):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                **{k: r[k] for k in keys}}
+
+    tr = "r2l_tpu/kernels/r2l_train_pallas.py"
     print(json.dumps({"kernels": [
-        {"name": "fused_r2l_apply_pe", "route": "cuda",
-         "source": src + "r2l_pe_fused.cu",
-         "replaces": "r2l_tpu/kernels/r2l_pallas.py:164",
-         "launches": main_res["launches"]["pe"], **kern["pe"]},
-        {"name": "fused_r2l_apply_int8_pe", "route": "cuda",
-         "source": src + "r2l_int8_pe_fused.cu",
-         "replaces": "r2l_tpu/kernels/r2l_pallas.py:571",
-         "launches": main_res["launches"]["int8"], **kern["int8"]},
+        entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
+              "r2l_tpu/kernels/r2l_pallas.py:164",
+              main_res["launches"]["pe"], kern["pe"]),
+        entry("fused_r2l_apply_int8_pe", "r2l_int8_pe_fused.cu",
+              "r2l_tpu/kernels/r2l_pallas.py:571",
+              main_res["launches"]["int8"], kern["int8"]),
+        entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",
+              train["launches"]["train_fwd"], tkern["train_fwd_bf16"]),
+        entry("train_fwd_int8", "r2l_train_fwd_int8.cu", tr + ":182",
+              train["launches"]["train_fwd_int8"], tkern["train_fwd_int8"]),
+        entry("bwd_group", "r2l_bwd_group.cu", tr + ":356",
+              train["launches"]["bwd_group"], tkern["bwd_group_bf16"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ sources and flags, so an edited source is rebuilt. The library is loaded with
 No ``--use_fast_math``: the positional-encoding ladder doubles the error of
 ``sinf`` nine times, so the kernels use the accurate ``sinf``/``cosf``/
 ``expf``. FMA contraction stays on for the dot products; the epilogues that
-must round exactly like the plain versions use ``__fmul_rn``/``__fadd_rn``.
+must round exactly like the plain versions use ``__fmul_rn``/``__fadd_rn``,
+and ``__fmaf_rn`` for the int8 dequantize, which the plain versions compute
+as one fused multiply-add.
 """
 from __future__ import annotations
 
@@ -37,6 +39,13 @@ KERNELS = {
     "r2l_int8_pe_fused": ("r2l_int8_pe_fused_launch",
                           [_P, _I, _I, _I] + [_P] * 13
                           + [_I, _I, _I, _I, _I, _I, _P]),
+    "r2l_train_fwd": ("r2l_train_fwd_launch",
+                      [_P, _I, _I, _I] + [_P] * 8
+                      + [_I, _I, _I, _F, _I, _I, _I, _P]),
+    "r2l_train_fwd_int8": ("r2l_train_fwd_int8_launch",
+                           [_P, _I, _I, _I] + [_P] * 14 + [_I] * 5 + [_P]),
+    "r2l_bwd_group": ("r2l_bwd_group_launch",
+                      [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P]),
 }
 
 

@@ -1,7 +1,8 @@
-// Pieces shared by the two PE-fused R2L kernels (r2l_pe_fused.cu,
-// r2l_int8_pe_fused.cu): shared-memory row strides, the two thread layouts
-// over an output tile, the tensor-core instructions and the
-// positional-encoding ladder.
+// Pieces shared by the R2L kernels (r2l_pe_fused.cu, r2l_int8_pe_fused.cu,
+// r2l_train_fwd.cu, r2l_train_fwd_int8.cu, r2l_bwd_group.cu): shared-memory
+// row strides, the two thread layouts over an output tile, the tensor-core
+// instructions, the positional-encoding ladder, the int8 epilogue and the
+// coalesced tile store.
 //
 // Activations live in shared memory ray-major: row r of a [TT][ld] matrix
 // holds ray r's channels. Row strides are chosen so that the eight rows one
@@ -174,6 +175,35 @@ __device__ __forceinline__ void pe_ladder(float p, int L, Emit emit) {
 // The plain versions' sigmoid: 1 / (1 + exp(-x)) in f32.
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// round-half-even, clip to [-127, 127] (jnp.clip(jnp.round(y), -127, 127))
+__device__ __forceinline__ int8_t q8(float y) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
+}
+
+// int8 dequantize acc * m + b as one fused multiply-add, rounded once (as
+// XLA contracts it, and as the plain versions compute it in float64).
+__device__ __forceinline__ float dequant(int acc, float m, float b) {
+  return __fmaf_rn(__int2float_rn(acc), m, b);
+}
+
+// Copy a ray tile [TT][ld] of T from shared memory to rows row0.. of a
+// global ray-major [n][W] matrix (16 bytes per thread and step, neighbouring
+// threads on neighbouring addresses); rays at or past n are skipped. The
+// global rows and the shared rows must start 16-byte aligned.
+template <typename T, int W, int TT>
+__device__ __forceinline__ void store_tile(T* __restrict__ dst, const T* src,
+                                           int ld, int row0, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = W / kVec;
+  static_assert(W % kVec == 0, "row of whole 16-byte pieces");
+  for (int e = threadIdx.x; e < TT * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, v = e - r * kPerRow;
+    if (row0 + r < n)
+      reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * W)[v] =
+          reinterpret_cast<const uint4*>(src + r * ld)[v];
+  }
 }
 
 }  // namespace r2l

@@ -7,7 +7,7 @@
 //   * each PE part is quantized with its column's inverse scale,
 //     q = clip(round_half_even(x * inv), -127, 127);
 //   * every matmul is int8 x int8 -> int32, exact;
-//   * dequantize in f32 as acc*m + b (no FMA contraction), ReLU on inner
+//   * dequantize in f32 as acc*m + b (one fused multiply-add), ReLU on inner
 //     layers, whose output is already in the next layer's int8 units
 //     (the inverse scale is folded into m and b), so their requantize is
 //     round+clip only; the first layer of each block and the tail
@@ -35,75 +35,13 @@
 // weight tiles, fewer barriers than two per 128 input channels, and more
 // than one ray tile in flight per SM (each tile re-reads the whole weight
 // stack from L2).
-#include "r2l_common.cuh"
+#include "r2l_engines.cuh"
 
 namespace {
 
 using namespace r2l;
 
 constexpr int kTT = 64;  // rays per block
-
-// round-half-even, clip to [-127, 127] (jnp.clip(jnp.round(y), -127, 127))
-__device__ __forceinline__ int8_t q8(float y) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
-}
-
-// acc * m + b, each step rounded on its own.
-__device__ __forceinline__ float dequant(int acc, float m, float b) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), m), b);
-}
-
-template <int W>
-struct Engine {
-  using M = MmaMap<W, kTT>;
-  // input channels per weight stage: 128 where the width allows it
-  // (halves the barriers; PERF.md), else 64. Divides the padded head.
-  static constexpr int kKC = W >= 128 ? 128 : 64;
-  static constexpr int kLdw = ld_words(kKC);
-  static constexpr size_t kStageBytes = 2 * (size_t)W * kLdw * 4;
-
-  // acc = A W^T for A = smem int8 [64][lda] and W = global int8 [W][K]
-  // ([out, in], K a multiple of kKC): the packed rows give n-major stages
-  // directly (4 k-values per word), copied by cp.async one stage ahead.
-  // Ends with a barrier after the last use of A and the stages.
-  __device__ static void mm(int (&acc)[M::MT][M::NT][4], const int8_t* A,
-                            int lda, const int8_t* __restrict__ Wg, int K,
-                            uint32_t* Ws) {
-#pragma unroll
-    for (int mt = 0; mt < M::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < M::NT; ++nt)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[mt][nt][u] = 0;
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    const int n0 = M::n0(), lda32 = lda / 4;
-    const uint32_t* A32 = reinterpret_cast<const uint32_t*>(A);
-    pipelined_k_loop<W, kKC, kLdw>(
-        Wg, (size_t)K, K / kKC, Ws, [&](int st, const uint32_t* buf) {
-#pragma unroll
-          for (int s = 0; s < kKC / 32; ++s) {
-            uint32_t a[M::MT][4];
-#pragma unroll
-            for (int mt = 0; mt < M::MT; ++mt) {
-              const uint32_t* ap =
-                  A32 + (mt * 16 + g) * lda32 + st * (kKC / 4) + 8 * s + t;
-              a[mt][0] = ap[0];
-              a[mt][1] = ap[8 * lda32];
-              a[mt][2] = ap[4];
-              a[mt][3] = ap[8 * lda32 + 4];
-            }
-#pragma unroll
-            for (int nt = 0; nt < M::NT; ++nt) {
-              const uint32_t* bp = buf + (n0 + nt * 8 + g) * kLdw + 8 * s + t;
-              const uint32_t b0 = bp[0], b1 = bp[4];
-#pragma unroll
-              for (int mt = 0; mt < M::MT; ++mt)
-                mma_s8(acc[mt][nt], a[mt], b0, b1);
-            }
-          }
-        });
-  }
-};
 
 template <int W>
 __global__ void __launch_bounds__(kThreads, 1) r2l_int8_pe_fused_kernel(
@@ -116,7 +54,9 @@ __global__ void __launch_bounds__(kThreads, 1) r2l_int8_pe_fused_kernel(
     const float* __restrict__ tail_b, const float* __restrict__ tail_inv,
     float* __restrict__ out, int nb, int nl, int out_dim, int use_residual,
     int linear_tail, int ldx, size_t region) {
-  using E = Engine<W>;
+  // input channels per weight stage: 128 where the width allows it (halves
+  // the barriers; PERF.md), else 64.
+  using E = EngineS8<W, kTT, (W >= 128 ? 128 : 64)>;
   constexpr int ldh0 = ld_words(W * 4);      // f32 elements per row
   constexpr int ldh = 2 * ld_words(W * 2);   // bf16 elements per row
   constexpr int ldq = 4 * ld_words(W);       // int8 elements per row
@@ -237,7 +177,8 @@ cudaError_t launch(const float* pts, int n, int dp, int L,
   const size_t act_bytes = (size_t)kTT * (ld_words(W * 4) + ld_words(W * 2) +
                                           2 * ld_words(W)) * 4;
   const size_t region = x_bytes > act_bytes ? x_bytes : act_bytes;
-  const size_t smem = region + Engine<W>::kStageBytes;
+  const size_t smem =
+      region + EngineS8<W, kTT, (W >= 128 ? 128 : 64)>::kStageBytes;
   auto kern = r2l_int8_pe_fused_kernel<W>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

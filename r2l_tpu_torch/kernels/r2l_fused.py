@@ -26,6 +26,7 @@ CUDA kernel picks its own ray tile.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -108,6 +109,14 @@ def _pe_row_permutation(dim_pts: int, L: int) -> np.ndarray:
     return perm
 
 
+@functools.lru_cache(maxsize=None)
+def _pe_row_permutation_on(device: torch.device, dim_pts: int, L: int
+                           ) -> torch.Tensor:
+    """``_pe_row_permutation`` as an index tensor on ``device``, made once
+    (a copy to the card per call would wait for the card)."""
+    return torch.from_numpy(_pe_row_permutation(dim_pts, L)).to(device)
+
+
 def _pack(w_in_out: torch.Tensor, dtype: torch.dtype,
           pad_in: bool = False) -> torch.Tensor:
     """[in, out] (or [nbl, in, out]) -> contiguous [out, in] in ``dtype``,
@@ -141,7 +150,7 @@ def prepare_fused_params_pe(model: R2L, cfg: R2LConfig, dim_pts: int,
         raise ValueError(f"input_dim {cfg.input_dim} != dim_pts*(2L+1) = "
                          f"{dim_pts * (2 * L + 1)}")
     hw, hb, bw, bb, tw, tb = _stacked_weights(model)
-    perm = torch.from_numpy(_pe_row_permutation(dim_pts, L)).to(hw.device)
+    perm = _pe_row_permutation_on(hw.device, dim_pts, L)
     wd = weight_dtype
     return FusedParamsPE(
         head_w=_pack(hw[perm], wd, pad_in=True), head_b=hb.contiguous(),
@@ -265,10 +274,13 @@ fused_r2l_apply_pe.launches = 0
 def _quant_cols_scaled(w: torch.Tensor, s_in: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Absorb per-input-channel scales, then quantize per out column:
-    w [in, out], s_in [in] -> (int8 [in, out], dequant multiplier [out])."""
-    w_eff = w.float() * s_in[:, None]
-    ws = torch.clamp(w_eff.abs().amax(dim=0), min=1e-12) / 127.0
-    q = torch.clamp(torch.round(w_eff / ws), -127, 127).to(torch.int8)
+    w [..., in, out], s_in [..., in] -> (int8 [..., in, out], dequant
+    multiplier [..., out]); a leading axis quantizes a stack of layers at
+    once, each as on its own."""
+    w_eff = w.float() * s_in[..., :, None]
+    ws = torch.clamp(w_eff.abs().amax(dim=-2), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(w_eff / ws[..., None, :]), -127,
+                    127).to(torch.int8)
     return q, ws
 
 
@@ -310,9 +322,7 @@ def _calibrate(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     nb, nl = cfg.num_blocks, cfg.n_learnable
     rs = float(cfg.res_scale)
     head_w, head_b, body_w, body_b, tail_w, tail_b = _stacked_weights(model)
-    perm = torch.from_numpy(_pe_row_permutation(dim_pts, L)).to(
-        head_w.device)
-    head_w = head_w[perm]
+    head_w = head_w[_pe_row_permutation_on(head_w.device, dim_pts, L)]
 
     p = calib_pts.float()
     x = torch.cat([torch.sin(p * (2.0 ** j)) for j in range(L)]
@@ -337,27 +347,26 @@ def _calibrate(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     s_tail = _act_scale(h, margin)
 
     head_q, head_m = _quant_cols_scaled(head_w, s_x)
-    qs, ms, bs = [], [], []
-    for idx in range(nb * nl):
-        q, m = _quant_cols_scaled(body_w[idx], s_body[idx])
-        b = body_b[idx]
-        if idx % nl == nl - 1:                 # block tail: fold res_scale
-            m, b = m * rs, b * rs
-        elif fold_requant:                     # fold the next inverse scale
-            inv_next = 1.0 / s_body[idx + 1]
-            m, b = m * inv_next, b * inv_next
-        qs.append(q)
-        ms.append(m)
-        bs.append(b)
+    s_b = torch.stack(s_body)                      # [nb*nl, W]
+    body_q, m = _quant_cols_scaled(body_w, s_b)    # all layers at once
+    W = s_b.shape[1]
+    m = m.view(nb, nl, W)
+    b = body_b.clone().view(nb, nl, W)
+    m[:, nl - 1] *= rs                             # block tail: res_scale
+    b[:, nl - 1] *= rs
+    if fold_requant and nl > 1:                    # the next inverse scale
+        inv_next = 1.0 / s_b.view(nb, nl, W)[:, 1:]
+        m[:, :nl - 1] *= inv_next
+        b[:, :nl - 1] *= inv_next
     tail_q, tail_m = _quant_cols_scaled(tail_w, s_tail)
     i8 = torch.int8
     return FusedParamsInt8PE(
         head_q=_pack(head_q, i8, pad_in=True), head_m=head_m.contiguous(),
         head_b=head_b.contiguous(), head_inv=(1.0 / s_x).contiguous(),
-        body_q=_pack(torch.stack(qs), i8),
-        body_m=torch.stack(ms).contiguous(),
-        body_b=torch.stack(bs).contiguous(),
-        body_inv=(1.0 / torch.stack(s_body)).contiguous(),
+        body_q=_pack(body_q, i8),
+        body_m=m.reshape(nb * nl, W).contiguous(),
+        body_b=b.reshape(nb * nl, W).contiguous(),
+        body_inv=(1.0 / s_b).contiguous(),
         tail_q=_pack(tail_q, i8), tail_m=tail_m.contiguous(),
         tail_b=tail_b.contiguous(), tail_inv=(1.0 / s_tail).contiguous())
 
@@ -376,6 +385,17 @@ def _mm_int(q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return (q @ w_q[:, :q.shape[1]].double().T).float()
 
 
+def _dequant(acc: torch.Tensor, m: torch.Tensor,
+             b: torch.Tensor) -> torch.Tensor:
+    """acc*m + b as one fused multiply-add rounded once to f32, as the CUDA
+    epilogues compute it (``__fmaf_rn``) and as XLA on the CPU contracts it:
+    the product of two f32 values is exact in float64, so only the sum is
+    rounded before the final rounding to f32 (a double rounding that can
+    differ from a true FMA only when the float64 sum lands exactly on an
+    f32 midpoint)."""
+    return (acc.double() * m.double() + b.double()).float()
+
+
 def fused_r2l_apply_int8_pe_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
                                 pts: torch.Tensor, dim_pts: int,
                                 L: int = 10) -> torch.Tensor:
@@ -388,7 +408,7 @@ def fused_r2l_apply_int8_pe_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
     feats = sins + coss + [p]
     xq = torch.cat([_q8(f, fp.head_inv[k * dp:(k + 1) * dp])
                     for k, f in enumerate(feats)], dim=1)
-    h0 = torch.relu(_mm_int(xq, fp.head_q) * fp.head_m + fp.head_b)
+    h0 = torch.relu(_dequant(_mm_int(xq, fp.head_q), fp.head_m, fp.head_b))
     h = h0.to(torch.bfloat16)
     for i in range(nb):
         t = h
@@ -396,13 +416,15 @@ def fused_r2l_apply_int8_pe_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
             idx = i * nl + j
             q = (_q8(t.float(), fp.body_inv[idx]) if j == 0
                  else _q8(t))                  # folded: round + clip only
-            tf = _mm_int(q, fp.body_q[idx]) * fp.body_m[idx] + fp.body_b[idx]
+            tf = _dequant(_mm_int(q, fp.body_q[idx]), fp.body_m[idx],
+                          fp.body_b[idx])
             t = torch.relu(tf) if j < nl - 1 else tf.to(torch.bfloat16)
         h = (t.float() + h.float()).to(torch.bfloat16)
     hf = h.float()
     if cfg.use_residual:
         hf = hf + h0
-    out = _mm_int(_q8(hf, fp.tail_inv), fp.tail_q) * fp.tail_m + fp.tail_b
+    out = _dequant(_mm_int(_q8(hf, fp.tail_inv), fp.tail_q), fp.tail_m,
+                   fp.tail_b)
     return out if cfg.linear_tail else torch.sigmoid(out)
 
 

@@ -91,7 +91,8 @@ class _ResBlock(nn.Module):
 class R2L(nn.Module):
     """x [..., input_dim] -> [..., output_dim] f32 (``apply_r2l``)."""
 
-    def __init__(self, cfg: R2LConfig, device: torch.device | str = "cpu"):
+    def __init__(self, cfg: R2LConfig,
+                 device: torch.device | str = torch.device("cuda")):
         super().__init__()
         self.cfg = cfg
         Ws, D = cfg.widths, cfg.netdepth
@@ -149,10 +150,11 @@ class R2L(nn.Module):
 
 
 def init_r2l(cfg: R2LConfig, generator: torch.Generator,
-             device: torch.device | str = "cpu") -> R2L:
+             device: torch.device | str = torch.device("cuda")) -> R2L:
     """An ``R2L`` with the torch.nn.Linear default init U(±1/sqrt(fan_in))
     for every weight and bias, drawn from ``generator`` on its own device
-    (so a CPU generator gives the same weights on every target device)."""
+    (so a CPU generator gives the same weights on every target device).
+    The model lives on the card unless ``device`` says otherwise."""
     model = R2L(cfg, device)
     with torch.no_grad():
         for m in model.modules():

@@ -4,7 +4,8 @@ Counterpart of ``r2l_tpu/sampler.py:25-108``. A ray is ``n_sample`` points
 o + d*z for z evenly spaced in [near, far], flattened to a
 [n_ray, n_sample*3] vector: the input of the R2L light-field MLP.
 ``sample_train`` takes the per-ray depths ``z`` as an argument instead of a
-PRNG key, so a caller (or a test) decides the jitter.
+PRNG key, so a caller (or a test) decides the jitter; ``stratify_z`` makes
+the stratified depths from uniform draws or a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,33 @@ def even_z_vals(near: float, far: float, n_sample: int,
     if n_sample > 1:
         t[-1] = 1.0
     return near * (1.0 - t) + far * t
+
+
+def _strat_bounds(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-bin [lower, upper] bounds of the stratified jitter: the bins are
+    split at the midpoints of neighbouring depths."""
+    mids = 0.5 * (z[..., 1:] + z[..., :-1])
+    upper = torch.cat([mids, z[..., -1:]], dim=-1)
+    lower = torch.cat([z[..., :1], mids], dim=-1)
+    return lower, upper
+
+
+def stratify_z(z_vals: torch.Tensor, shape_prefix: tuple[int, ...],
+               u: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Stratified jitter of per-ray depths within their bins: z_vals
+    [..., n_sample] (broadcast to ``shape_prefix + (n_sample,)``) ->
+    lower + (upper - lower) * u.
+
+    ``u`` are the uniform draws in [0, 1) of that shape, drawn by the caller
+    (a test hands over JAX's); without them they are drawn from
+    ``generator`` on the depths' device."""
+    z = z_vals.expand(*shape_prefix, z_vals.shape[-1])
+    lower, upper = _strat_bounds(z)
+    if u is None:
+        u = torch.rand(z.shape, generator=generator, dtype=z.dtype,
+                       device=z.device)
+    return lower + (upper - lower) * u
 
 
 def ray_points(rays_o: torch.Tensor, rays_d: torch.Tensor,

@@ -40,7 +40,7 @@ def models(jcfg: JaxR2LConfig, seed: int = 0):
     """(JAX params, port cfg, port model) with the same weights."""
     params = jax_init_r2l(jax.random.key(seed), jcfg)
     cfg = torch_cfg(jcfg)
-    model = R2L(cfg)
+    model = R2L(cfg, device="cpu")
     model.load_state_dict(params_from_jax(np_tree(params), cfg))
     return params, cfg, model
 

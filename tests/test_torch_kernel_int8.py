@@ -123,7 +123,7 @@ def test_int8_canonical_shapes():
 def _canary_model():
     case = np.load(os.path.join(FIXTURES, "int8_epilogue_canary_case.npz"))
     cfg = R2LConfig(input_dim=6 * (2 * 4 + 1), netdepth=8, netwidth=64)
-    model = R2L(cfg)
+    model = R2L(cfg, device="cpu")
     model.load_state_dict(params_from_jax(
         {k: {"w": case[f"{k}_w"], "b": case[f"{k}_b"]}
          for k in ("head", "body", "tail")}, cfg))
@@ -141,37 +141,25 @@ def test_canary_case_fixture_is_build_case():
 
 def test_int8_epilogue_canary():
     """The port's int8 chain on the canary case against the JAX kernel's
-    frozen output. Not bit for bit: XLA on the CPU contracts the dequantize
-    acc*m+b into an FMA where the port rounds the product and the sum on
-    their own (ROADMAP C). Measured: 4 of 192 outputs 5.96e-8 apart (one
-    or two f32 ulp), and with FMA emulated in the tail the two agree bit
-    for bit."""
+    frozen output, bit for bit: the dequantize acc*m+b is one fused
+    multiply-add, as XLA on the CPU contracts it (it was 1 f32 ulp off in 4
+    of 192 outputs while the port rounded the product and the sum on their
+    own)."""
     cfg, model, case = _canary_model()
     want = np.load(os.path.join(FIXTURES, "int8_epilogue_canary.npz"))["rgb"]
     fp = F.calibrate_r2l_int8_pe(model, cfg, 6, 4, t(case["calib"]))
     got = n(F.fused_r2l_apply_int8_pe(fp, cfg, t(case["pts"]), 6, 4))
-    np.testing.assert_allclose(got, want, rtol=0, atol=5.97e-8)
-    assert int(np.sum(got != want)) <= 4
-    fused_tail = _tail_with_fma(fp, cfg, t(case["pts"]))
-    np.testing.assert_array_equal(n(fused_tail), want)
+    np.testing.assert_array_equal(got, want)
 
 
-def _tail_with_fma(fp, cfg, pts):
-    """The plain int8 chain with the tail's acc*m+b computed as one fused
-    multiply-add (f64 products of these integers and f32 scales are
-    exact), as XLA on the CPU computes it."""
-    captured = {}
-    mm = F._mm_int
-
-    def spy(q, w):
-        captured["acc"] = mm(q, w)
-        return captured["acc"]
-
-    F._mm_int = spy
-    try:
-        F.fused_r2l_apply_int8_pe_ref(fp, cfg, pts, 6, 4)
-    finally:
-        F._mm_int = mm
-    acc = captured["acc"].double()
-    return torch.sigmoid((acc * fp.tail_m.double()
-                          + fp.tail_b.double()).float())
+def test_dequant_is_one_rounding():
+    """``_dequant`` rounds acc*m+b once: where the f32 product alone would
+    round away the low bits that decide the sum, the result is the exact
+    value's nearest f32, not the twice-rounded one."""
+    acc = torch.tensor([16777215.0, 3.0, -7.0])
+    m = torch.tensor([1.0 + 2.0 ** -23, 1.0 / 3.0, 0.1])
+    b = torch.tensor([-16777215.0, -1.0, 0.7])
+    exact = acc.double() * m.double() + b.double()
+    np.testing.assert_array_equal(n(F._dequant(acc, m, b)),
+                                  exact.float().numpy())
+    assert float(F._dequant(acc, m, b)[0]) != float(acc[0] * m[0] + b[0])

@@ -84,16 +84,16 @@ def test_state_dict_names_match_params_to_torch_r2l(knob):
     ref = params_to_torch_r2l(params, jcfg)
     cfg = models(jcfg)[1]
     sd = params_from_jax(np_tree(params), cfg)
-    assert set(sd) == set(ref) == set(R2L(cfg).state_dict())
+    assert set(sd) == set(ref) == set(R2L(cfg, device="cpu").state_dict())
     for k, v in ref.items():
         np.testing.assert_array_equal(sd[k].numpy(), v)
 
 
 def test_init_r2l_is_seeded_and_bounded():
     cfg = R2LConfig(input_dim=54, netdepth=8, netwidth=64)
-    a = init_r2l(cfg, torch.Generator().manual_seed(0))
-    b = init_r2l(cfg, torch.Generator().manual_seed(0))
-    c = init_r2l(cfg, torch.Generator().manual_seed(1))
+    a = init_r2l(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = init_r2l(cfg, torch.Generator().manual_seed(0), "cpu")
+    c = init_r2l(cfg, torch.Generator().manual_seed(1), "cpu")
     for (k, va), vb, vc in zip(a.state_dict().items(),
                                b.state_dict().values(),
                                c.state_dict().values()):

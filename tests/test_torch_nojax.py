@@ -1,6 +1,7 @@
-"""The port never imports JAX: a fresh interpreter imports r2l_tpu_torch and
-every module in it, renders a frame on the CPU through each kind, and finds
-no ``jax`` in sys.modules."""
+"""The port never imports JAX nor the JAX package: a fresh interpreter imports
+r2l_tpu_torch and every module in it, renders a frame on the CPU through
+each kind, takes a distillation step of each kind, and finds neither
+``jax`` nor ``r2l_tpu`` in sys.modules."""
 import os
 import subprocess
 import sys
@@ -22,13 +23,26 @@ from r2l_tpu_torch.rays import pose_spherical
 from r2l_tpu_torch.sampler import PointSampler
 cfg = R2LConfig(input_dim=6 * 21, netdepth=6, netwidth=64,
                 compute_dtype=torch.bfloat16)
-model = init_r2l(cfg, torch.Generator().manual_seed(0))
+model = init_r2l(cfg, torch.Generator().manual_seed(0), "cpu")
 sampler = PointSampler(H=4, W=4, focal=5.0, n_sample=2, near=2.0, far=6.0)
 poses = np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4] for t in (0, 90)])
 for kw in ({"use_pallas": False}, {}, {"quantize": "int8"}):
     assert make_r2l_frame_fn(model, cfg, sampler, calib_poses=poses,
                              **kw)(poses[0]).shape == (4, 4, 3)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+from r2l_tpu_torch.train import (DistillConfig, fused_int8_calib_points,
+                                 init_train_state, make_distill_step)
+dcfg = DistillConfig(batch_size=32, n_hard_in=4, n_hard_out=8, hard_mul=2.0)
+calib = fused_int8_calib_points(32, 32, 40.0, 2, 2.0, 6.0, poses, "cpu")
+fresh = np.random.default_rng(0).uniform(size=(24, 9)).astype(np.float32)
+for kw in ({}, {"fused_vjp": True},
+           {"fused_vjp": True, "fused_quantize": "int8",
+            "fused_calib_pts": calib}):
+    state = init_train_state(model, dcfg, device="cpu")
+    step = make_distill_step(cfg, dcfg, sampler, device="cpu", **kw)
+    state, m = step(state, fresh)
+    assert state.step == 1 and bool(torch.isfinite(m["loss"]))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "r2l_tpu"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -40,17 +54,21 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 10 and bad.strip() == "[]"
+    assert int(n_modules) >= 15 and bad.strip() == "[]"
 
 
 def test_port_sources_name_no_jax_import():
-    """No ``import jax`` / ``from jax`` line anywhere in the package."""
+    """No ``import jax`` / ``from jax`` line, nor an import of the JAX
+    package, anywhere in the port or in chip_smoke.py."""
     pkg = os.path.join(REPO, "r2l_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(pkg):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    for ln in fh:
-                        s = ln.strip()
-                        assert not s.startswith(("import jax",
-                                                 "from jax")), (f, s)
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            for ln in fh:
+                s = ln.strip()
+                assert not s.startswith(("import jax", "from jax",
+                                         "import r2l_tpu ", "import r2l_tpu.",
+                                         "from r2l_tpu ", "from r2l_tpu.")), (
+                    path, s)
