@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame path and its distillation
-step on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame path, its distillation step
+and the NeRF teacher's pseudo-data generation on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,8 +9,9 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the five CUDA kernels from ``r2l_tpu_torch/kernels/csrc`` into
-   ``build/`` and print the build time and the compiler's register report.
+2. Build: compile the seven CUDA kernels from ``r2l_tpu_torch/kernels/csrc``
+   into ``build/`` and print the build time and the compiler's register
+   report.
 3. Kernel vs plain version on the card, at the main path's shape (one
    400x400 lego frame of the canonical W256/D88 student, random weights from
    a seeded generator): K1 with f32 and with bf16 weights, K2 (int8), each
@@ -40,6 +41,25 @@ Phases, in order; any failure raises and exits non-zero:
    the peak device memory, one more step under torch.profiler (kernel time
    by name and the card's idle share), and the K3/K4/K5 launch counts in
    that run.
+7. Teacher kernels vs plain versions on the card: the canonical NeRF teacher
+   (8x256, skip at 4, viewdirs, L=10/4; random weights from a seeded
+   generator, alpha_linear's bias raised by 1 so the density is positive),
+   a random datagen pose's 160,000 rays in the render's five padded
+   32,768-ray chunks, each with a coarse pass (S=64, stratified) and a
+   fine pass (S=192, sorted depths from sample_pdf): K6 with f32 and with
+   bf16 weights, K7 (int8, folded requantize), every output of the ten
+   launches against the plain version's, then the ten timed back to back
+   (CUDA events), kernel and plain.
+8. Datagen main path: ``generate_pseudo_data`` (``rand`` mode, the README's
+   teacher: 64 + 128 samples, perturb, white background, chunk 32768,
+   400x400 poses, focal 555.555 x U[1, 2)) into a temporary directory per
+   kind: ``f32`` (the default), ``bf16``, ``int8`` (``quantize='int8'``);
+   one warm-up pose then timed poses (CUDA events around them), the shard
+   names and shapes, the K6/K7 launches, the peak memory, and the first
+   pose's rgb column against ``render_frame_nerf`` (plain, f32) on the same
+   rays and draws (PSNR).
+9. Teacher frame: ``make_nerf_frame_fn(use_pallas=True)`` on 2 lego poses
+   against the plain path: ms/frame and PSNR.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -49,7 +69,9 @@ line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -115,6 +137,31 @@ TOL_GRAD_F32, TOL_GRAD_BF16, MAX_BAD_BF16 = 1e-5, 1e-2, 2e-3
 #   (tests/test_train_pallas.py:119, 158).
 RTOL_LOSS = {"fused": 2e-2, "fused_int8": 5e-2}
 
+# Teacher (phases 7-9): the README's datagen teacher (configs/lego.txt with
+# the CLI defaults).
+T_SAMPLES, T_FINE, T_CHUNK, T_FOCAL = 64, 128, 32768, 555.555
+DENSITY_FLOOR = 1.0   # added to alpha_linear's bias: an untrained teacher's
+#   density hovers around 0, where the last sample's alpha (its distance is
+#   1e10) flips between 0 and 1 at the smallest rounding change
+# K6/K7 against their plain versions, ((max-abs, RMS) of rgb, acc and
+#   weights, (max-abs, RMS) of depth, a sum of w*z with z up to 6). A
+#   weight of this teacher is about 0.005-0.06, so every limit sits well
+#   below a weight written one sample off or scaled a few percent wrong.
+#   K6 f32: the same f32 chain, sums in another order (measured 4.8e-7 /
+#   1.7e-8, depth 1.4e-6 / 5.4e-8). K6 bf16: the same bf16 roundings on
+#   both sides, an f32 sum order apart, so a flipped rounding moves an
+#   activation by one bf16 step (measured 1.6e-5 / 4.4e-7, depth 1.5e-5 /
+#   1.0e-6). K7: exact int32 sums, the same one-FMA dequantize and the
+#   same compositing on both sides (measured 0): a few f32 ulp.
+TOL_TEACHER = {"f32": ((1e-5, 1e-6), (1e-4, 1e-5)),
+               "bf16": ((1e-4, 1e-5), (6e-4, 6e-5)),
+               "int8": ((5e-7, 5e-8), (3e-6, 3e-7))}
+DATAGEN_POSES = {"f32": 2, "bf16": 4, "int8": 4}   # timed, after 1 warm-up
+# rgb of a datagen pose against the plain f32 render (PSNR, dB; measured
+#   131.9 / 89.6 / 70.1 on the seeded pose), and the fused f32 teacher
+#   frame against the plain one (f32; measured 131.9).
+MIN_PSNR_TEACHER = {"f32": 100.0, "bf16": 80.0, "int8": 60.0}
+
 # The card's data-sheet peaks (H100 SXM, dense, at 700 W) and memory rate.
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
@@ -162,7 +209,10 @@ def check(name: str, max_abs: float, rms: float, tol_max: float,
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+    """Bytes of the tensors among ``ts`` (a parameter tuple's flags are
+    skipped)."""
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
 
 
 def bound(ops: float, moved: int, kind: str) -> dict:
@@ -614,6 +664,299 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
     return res
 
 
+def teacher_models(kind: str, dev) -> tuple:
+    """(cfg, coarse, fine) canonical teachers of ``kind``'s compute dtype,
+    random weights from seeded generators plus the density floor."""
+    from r2l_tpu_torch.models import NeRFConfig, init_nerf
+    cfg = NeRFConfig(compute_dtype=torch.bfloat16 if kind == "bf16"
+                     else torch.float32)
+    models = []
+    for seed in (SEED + 30, SEED + 31):
+        m = init_nerf(cfg, torch.Generator().manual_seed(seed), dev)
+        with torch.no_grad():
+            m.alpha_linear.bias += DENSITY_FLOOR
+        models.append(m)
+    return (cfg, *models)
+
+
+def teacher_vcfg():
+    from r2l_tpu_torch.render import VolRenderConfig
+    return VolRenderConfig(n_coarse=T_SAMPLES, n_fine=T_FINE, perturb=True,
+                           white_bkgd=True, ray_chunk=T_CHUNK)
+
+
+def datagen_cfg(kind: str, n_pose: int):
+    from r2l_tpu_torch.datagen import DataGenConfig
+    return DataGenConfig(n_pose=n_pose, H=H, W=W, focal=T_FOCAL,
+                         save_every=n_pose, seed=SEED,
+                         quantize="int8" if kind == "int8" else "")
+
+
+def point_macs(cfg) -> int:
+    """Multiply-adds of the teacher MLP for one point (unpadded widths)."""
+    W_ = cfg.W
+    macs = cfg.input_ch * W_ + sum(
+        (W_ + cfg.input_ch if i in cfg.skips else W_) * W_
+        for i in range(cfg.D - 1))
+    if cfg.use_viewdirs:
+        return macs + W_ + W_ * W_ + (W_ + cfg.input_ch_views) * (W_ // 2) \
+            + (W_ // 2) * 3
+    return macs + W_ * cfg.output_ch
+
+
+def psnr_db(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = float((a.double() - b.double()).pow(2).mean())
+    return float("inf") if mse == 0 else float(-10.0 * np.log10(mse))
+
+
+def frame_chunks(vcfg, dev) -> tuple[list, int]:
+    """One datagen pose's rays in the render's padded 32,768-ray chunks,
+    each with its stratified coarse depths and its fine pass's sorted
+    depths (``sample_pdf`` on the plain f32 coarse weights):
+    ([(o, d, z64, z192)], the pose's ray count)."""
+    from r2l_tpu_torch.datagen import _pose_rays
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.render import _chunks, coarse_z, prepare_fused_teacher
+    from r2l_tpu_torch.volume import sample_pdf
+    ro, rd = (torch.from_numpy(a.reshape(-1, 3).copy()).to(dev)
+              for a in _pose_rays(np.random.default_rng(SEED + 20),
+                                  datagen_cfg("f32", 1), 4.0))
+    cfg32, mc32, _ = teacher_models("f32", dev)
+    fp32 = prepare_fused_teacher(mc32, None, cfg32, vcfg)[0]
+    g = torch.Generator(dev).manual_seed(SEED + 21)
+    chunks = []
+    for o, d, dr in _chunks(vcfg, ro, rd, None, g, True):
+        zc = coarse_z(vcfg, o.shape[0], dev, dr.u_strat).contiguous()
+        w = NR.fused_nerf_render_ref(fp32, cfg32, o, d, zc, vcfg.multires,
+                                     vcfg.multires_views, True)[3]
+        zf = sample_pdf(0.5 * (zc[:, 1:] + zc[:, :-1]), w[:, 1:-1], T_FINE,
+                        u=dr.u_pdf)
+        chunks.append((o, d, zc, torch.sort(torch.cat([zc, zf], -1),
+                                            -1).values.contiguous()))
+    return chunks, ro.shape[0]
+
+
+def phase_teacher_kernels(dev) -> dict:
+    """K6 (f32, bf16) and K7 against their plain versions over one datagen
+    frame's ten launches (coarse then fine per chunk, in the path's order),
+    every output checked; the ten timed back to back with CUDA events."""
+    from r2l_tpu_torch.datagen import int8_calibration_set
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.render import prepare_fused_teacher
+    vcfg = teacher_vcfg()
+    kw = dict(L_pts=vcfg.multires, L_views=vcfg.multires_views,
+              white_bkgd=True)
+    chunks, n = frame_chunks(vcfg, dev)
+    n_launch = 2 * len(chunks)
+    calib = tuple(torch.from_numpy(a).to(dev) for a in int8_calibration_set(
+        datagen_cfg("int8", 1), vcfg))
+    res = {}
+    for kind in ("f32", "bf16", "int8"):
+        cfg, mc, mf = teacher_models(kind, dev)
+        label = f"K{7 if kind == 'int8' else 6} {kind}"
+        fpc, fpf = prepare_fused_teacher(
+            mc, mf, cfg, vcfg, None, calib if kind == "int8" else None,
+            fold_requant=True)
+
+        def frame(fn, events=None):
+            outs = []
+            if events:
+                events[0].record()
+            for o, d, zc, zf in chunks:
+                for fp, z in ((fpc, zc), (fpf, zf)):
+                    outs.append(fn(fp, cfg, o, d, z, **kw))
+                    if events:
+                        events[len(outs)].record()
+            return outs
+
+        def timed(fn, reps):
+            """Mean ms of the frame's launches: (all, coarse, fine)."""
+            tot = [0.0, 0.0, 0.0]
+            for _ in range(reps):
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(n_launch + 1)]
+                frame(fn, ev)
+                torch.cuda.synchronize()
+                step = [ev[k].elapsed_time(ev[k + 1])
+                        for k in range(n_launch)]
+                for k, v in enumerate((ev[0].elapsed_time(ev[-1]),
+                                       sum(step[0::2]), sum(step[1::2]))):
+                    tot[k] += v / reps
+            return tot
+
+        got = frame(NR.fused_nerf_render)        # also the warm-up
+        want = frame(NR.fused_nerf_render_ref)   # also the warm-up
+        (tol, tol_rms), (tol_d, tol_d_rms) = TOL_TEACHER[kind]
+        r = {"max_abs_err": 0.0}
+        for p, S in ((0, T_SAMPLES), (1, T_SAMPLES + T_FINE)):
+            for j, what in enumerate(("rgb", "acc", "depth", "weights")):
+                a, b = (torch.cat([x[2 * i + p][j]
+                                   for i in range(len(chunks))])
+                        for x in (got, want))
+                mx, rms = deltas(a, b)
+                check(f"{label} frame S={S} {what} vs plain", mx, rms,
+                      *((tol_d, tol_d_rms) if what == "depth"
+                        else (tol, tol_rms)))
+                r["max_abs_err"] = max(r["max_abs_err"], mx)
+            differ = sum(int((g[0] != w[0]).sum())
+                         for g, w in zip(got[p::2], want[p::2]))
+            # what a limit must stay under: the size of a weight
+            r[f"weights_S{S}"] = ws = {"median": float(b[b > 0].median()),
+                                      "max": float(b.max())}
+            print(f"[check] {label} frame S={S}: {differ} of "
+                  f"{len(chunks) * chunks[0][0].numel()} rgb values differ; "
+                  f"plain weights > 0: median {ws['median']:.3e}, max "
+                  f"{ws['max']:.3e}", flush=True)
+        del got, want
+        r["ms"], r["coarse_ms"], r["fine_ms"] = timed(
+            NR.fused_nerf_render, 1 if kind == "f32" else 3)
+        r["plain_ms"], r["plain_coarse_ms"], r["plain_fine_ms"] = timed(
+            NR.fused_nerf_render_ref, 1)
+        # The work of the pose's n rays (the padded rays are not needed):
+        # both passes' points; o, d and both passes' depths read, both
+        # passes' rgb, acc, depth and weights written, both networks read.
+        S_all = 2 * T_SAMPLES + T_FINE
+        moved = 4 * n * (6 + S_all + 2 * 5 + S_all) + nbytes(*fpc, *fpf)
+        r.update(bound(2.0 * n * S_all * point_macs(cfg), moved, kind),
+                 library_ms=None, launches_timed=n_launch)
+        print(f"[time] {label}, one frame's {n_launch} launches back to "
+              f"back ({len(chunks)} chunks of {chunks[0][0].shape[0]} rays, "
+              f"S={T_SAMPLES} then {T_SAMPLES + T_FINE}): kernel "
+              f"{r['ms']:.3f} ms (coarse {r['coarse_ms']:.3f}, fine "
+              f"{r['fine_ms']:.3f}), plain {r['plain_ms']:.3f} ms (coarse "
+              f"{r['plain_coarse_ms']:.3f}, fine {r['plain_fine_ms']:.3f}), "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) for the "
+              f"pose's {n} rays", flush=True)
+        res[kind] = r
+        del fpc, fpf, mc, mf
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_datagen(dev) -> dict:
+    """``generate_pseudo_data`` per kind through its entry point."""
+    from r2l_tpu_torch.datagen import _pose_rays, generate_pseudo_data, \
+        pose_seed
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.render import render_frame_nerf
+    vcfg = teacher_vcfg()
+    res = {}
+    for kind, n_timed in DATAGEN_POSES.items():
+        cfg, mc, mf = teacher_models(kind, dev)
+        gcfg = datagen_cfg(kind, 1 + n_timed)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def progress(done, total):
+            if done == 1:
+                events[0].record()
+            if done == total:
+                events[1].record()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        NR.fused_nerf_render.launches = 0
+        NR.fused_nerf_render.launches_int8 = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            n_rays = generate_pseudo_data(mc, mf, cfg, vcfg, gcfg, tmp,
+                                          progress=progress, device=dev)
+            wall = time.perf_counter() - t0
+            launches = (NR.fused_nerf_render.launches_int8
+                        if kind == "int8" else NR.fused_nerf_render.launches)
+            other = (NR.fused_nerf_render.launches if kind == "int8"
+                     else NR.fused_nerf_render.launches_int8)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            names = sorted(os.listdir(tmp))
+            shards = [np.load(os.path.join(tmp, f), mmap_mode="r")
+                      for f in names]
+            shapes = [tuple(a.shape) for a in shards]
+            recs = np.concatenate(shards)
+        ms = events[0].elapsed_time(events[1]) / n_timed
+        print(f"[main] datagen {kind}: {ms:.3f} ms/pose over {n_timed} "
+              f"timed poses, {H * W / ms * 1e3:.0f} rays/s; K"
+              f"{7 if kind == 'int8' else 6} launches {launches}; shards "
+              f"{names} {shapes}; peak {peak:.2f} GB; host wall "
+              f"{wall:.1f} s for {1 + n_timed} poses", flush=True)
+        if launches <= 0 or other != 0:
+            raise AssertionError(f"datagen {kind}: launches {launches}, "
+                                 f"other kernel {other}")
+        if (n_rays != (1 + n_timed) * H * W or names != ["pseudo_000000.npy"]
+                or shapes != [((1 + n_timed) * H * W, 9)]
+                or recs.dtype != np.float32 or not np.isfinite(recs).all()):
+            raise AssertionError(f"datagen {kind}: wrote {n_rays} rays as "
+                                 f"{names} {shapes} {recs.dtype}")
+        # The first pose's records against the plain f32 render of the same
+        # rays with the same generator's draws.
+        ro, rd = (a.reshape(-1, 3) for a in _pose_rays(
+            np.random.default_rng(gcfg.seed), gcfg, 4.0))
+        mine = recs[(recs[:, :3] == ro[0]).all(1)]
+        if mine.shape[0] != H * W:
+            raise AssertionError(f"datagen {kind}: pose 0 has "
+                                 f"{mine.shape[0]} records")
+        ref = render_frame_nerf(
+            mc, mf, dataclasses.replace(cfg, compute_dtype=torch.float32),
+            vcfg, torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev),
+            generator=torch.Generator(dev).manual_seed(
+                pose_seed(gcfg.seed, 0)))["rgb"].cpu().numpy()
+        want = np.concatenate([ro, rd, ref], 1)
+        mine = mine[np.lexsort(mine[:, 3:6].T)]
+        want = want[np.lexsort(want[:, 3:6].T)]
+        if not np.array_equal(mine[:, :6], want[:, :6]):
+            raise AssertionError(f"datagen {kind}: pose 0's rays differ")
+        p = psnr_db(torch.from_numpy(mine[:, 6:9]),
+                    torch.from_numpy(want[:, 6:9]))
+        print(f"[check] datagen {kind}: pose 0 rgb vs plain f32 render, "
+              f"PSNR {p:.2f} dB (min {MIN_PSNR_TEACHER[kind]})"
+              + (" ok" if p >= MIN_PSNR_TEACHER[kind] else " FAILED"),
+              flush=True)
+        if p < MIN_PSNR_TEACHER[kind]:
+            raise AssertionError(f"datagen {kind}: PSNR {p}")
+        res[kind] = {"ms_per_pose": ms, "rays_per_s": H * W / ms * 1e3,
+                     "launches": launches, "timed_poses": n_timed,
+                     "shards": dict(zip(names, shapes)), "peak_mem_gb": peak,
+                     "psnr_vs_plain_f32": p, "host_wall_s": wall}
+        del mc, mf, recs, shards
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_teacher_frame(dev, poses) -> dict:
+    """The teacher's frame (``--test_teacher``), fused against plain."""
+    from r2l_tpu_torch.evaluate import make_nerf_frame_fn
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.sampler import PointSampler
+    cfg, mc, mf = teacher_models("f32", dev)
+    sampler = PointSampler(H=H, W=W, focal=FOCAL, n_sample=T_SAMPLES,
+                           near=2.0, far=6.0)
+    res, frames = {}, {}
+    NR.fused_nerf_render.launches = 0
+    for kind, fused in (("plain", False), ("fused", True)):
+        fn = make_nerf_frame_fn(mc, mf, cfg, teacher_vcfg(), sampler,
+                                use_pallas=fused, device=dev)
+        if fn.kind != kind:
+            raise AssertionError(f"asked for {kind}, got {fn.kind}")
+        fn(poses[0])
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        frames[kind] = torch.stack([fn(p) for p in poses[:2]])
+        end.record()
+        torch.cuda.synchronize()
+        res[kind] = {"ms_per_frame": start.elapsed_time(end) / 2}
+    f = frames["fused"]
+    if f.shape != (2, H, W, 3) or not torch.isfinite(f).all():
+        raise AssertionError(f"teacher frames {tuple(f.shape)}")
+    res["psnr_fused_vs_plain"] = p = psnr_db(f, frames["plain"])
+    res["launches"] = NR.fused_nerf_render.launches
+    print(f"[main] teacher frame (f32 weights): fused "
+          f"{res['fused']['ms_per_frame']:.3f} ms/frame, plain "
+          f"{res['plain']['ms_per_frame']:.3f} ms/frame, PSNR fused vs "
+          f"plain {p:.2f} dB, K6 launches {res['launches']}", flush=True)
+    if res["launches"] <= 0 or p < MIN_PSNR_TEACHER["f32"]:
+        raise AssertionError(f"teacher frame: {res}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -659,6 +1002,10 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train = phase_train_main(cfg, sampler, poses, dev)
+    torch.cuda.empty_cache()
+    teacher = phase_teacher_kernels(dev)
+    dgen = phase_datagen(dev)
+    tframe = phase_teacher_frame(dev, poses)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -668,7 +1015,11 @@ def main() -> int:
                       if k != "launches"},
         "train_kernels": tkern,
         "train_main_path": {k: v for k, v in train.items()
-                            if k != "launches"}}}))
+                            if k != "launches"},
+        "teacher": "NeRF 8x256 skip 4, viewdirs, L=10/4, 64+128 samples, "
+                   f"chunk {T_CHUNK}, white, density floor {DENSITY_FLOOR}",
+        "teacher_kernels": teacher, "datagen": dgen,
+        "teacher_frame": tframe}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -692,6 +1043,11 @@ def main() -> int:
               train["launches"]["train_fwd_int8"], tkern["train_fwd_int8"]),
         entry("bwd_group", "r2l_bwd_group.cu", tr + ":356",
               train["launches"]["bwd_group"], tkern["bwd_group_bf16"]),
+        *(entry(f"fused_nerf_render_{kind}", "nerf_render_int8.cu"
+                if kind == "int8" else "nerf_render.cu",
+                "r2l_tpu/kernels/nerf_render_pallas.py:336",
+                dgen[kind]["launches"], teacher[kind])
+          for kind in ("f32", "bf16", "int8")),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

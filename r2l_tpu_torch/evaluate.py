@@ -1,8 +1,9 @@
-"""The R2L student's frame path: pose -> [H, W, 3] frame.
+"""Frame paths: pose -> [H, W, 3] frame, for the R2L student and the NeRF
+teacher.
 
 Counterpart of ``r2l_tpu/evaluate.py`` (``_r2l_net_fn`` :52,
 ``_prepare_r2l`` :221, ``make_r2l_frame_fn`` :345, ``make_r2l_bench_fn``
-:444). The kinds are the JAX ones:
+:444, ``make_nerf_frame_fn`` :499). The student's kinds are the JAX ones:
 
 * ``jnp``: the plain ``R2L`` module over ``r2l_embed`` (eager PyTorch);
 * ``pe``: the PE-fused kernel ``fused_r2l_apply_pe``;
@@ -12,9 +13,14 @@ Everything runs on the device of the model's parameters. The TPU-only parts
 are not ported: the VMEM tile-fit model and the mesh sharding of rays.
 ``pallas_tile`` is accepted so that the CLI flags carry over, and ignored:
 the CUDA kernels choose their own ray tile.
+
+The teacher's frame (``make_nerf_frame_fn``, the ``--test_teacher`` path)
+renders through the fused volumetric kernel on the card, else through the
+plain volumetric path.
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
 from typing import Callable
 
@@ -26,8 +32,11 @@ from .kernels.r2l_fused import (calibrate_r2l_int8_pe,
                                 fused_kernel_supported,
                                 fused_r2l_apply_int8_pe, fused_r2l_apply_pe,
                                 prepare_fused_params_pe)
+from .models.nerf import NeRF, NeRFConfig
 from .models.r2l import R2L, R2LConfig
-from .rays import pose_spherical
+from .rays import ndc_rays, pose_spherical
+from .render import (VolRenderConfig, prepare_fused_teacher,
+                     render_frame_nerf, render_frame_nerf_fused)
 from .sampler import PointSampler
 
 
@@ -175,3 +184,62 @@ def make_r2l_bench_fn(model: R2L, cfg: R2LConfig, sampler: PointSampler,
 
     bench_fn.kind = kind
     return bench_fn
+
+
+def make_nerf_frame_fn(model_c: NeRF, model_f: NeRF | None,
+                       ncfg: NeRFConfig, vcfg: VolRenderConfig,
+                       sampler: PointSampler,
+                       ndc_params: tuple | None = None,
+                       use_pallas: bool = False,
+                       ncfg_fine: NeRFConfig | None = None,
+                       perturb_test: bool = False, with_disp: bool = False,
+                       device: torch.device | str = torch.device("cuda")
+                       ) -> Callable:
+    """c2w [3/4, 4] (tensor or array) -> frame [H, W, 3] f32 through the
+    volumetric teacher on ``device`` (the card unless told otherwise; the
+    models must be there). ``ndc_params = (H, W, focal)`` turns on the LLFF
+    NDC warp. With ``use_pallas`` on a CUDA device (and the positional
+    encoding on) each pass runs through the fused kernel, packed once here.
+
+    ``perturb_test`` jitters the depths with the sigma noise off (the
+    reference's test kwargs); the draws come from a generator seeded from
+    the pose's bits, so a frame is deterministic per pose (the role of the
+    JAX package's key, not its numbers). ``with_disp`` returns (rgb,
+    disp [H, W]). The function carries ``.kind``: 'fused' or 'plain'."""
+    device = torch.device(device)
+    if _model_device(model_c) != device:
+        raise ValueError(f"the teacher is on {_model_device(model_c)}, "
+                         f"expected {device}")
+    vcfg_t = dataclasses.replace(vcfg, perturb=perturb_test,
+                                 raw_noise_std=0.0)
+    model_f = model_f if model_f else None
+    fused = bool(use_pallas and device.type == "cuda" and vcfg.multires > 0)
+    packed = (prepare_fused_teacher(model_c, model_f, ncfg, vcfg_t,
+                                    ncfg_fine) if fused else None)
+
+    @torch.no_grad()
+    def frame_fn(c2w):
+        c2w = _as_f32(c2w, device)
+        rays_o, rays_d = sampler.frame_rays(c2w)
+        if ndc_params is not None:
+            h, w, f = ndc_params
+            rays_o, rays_d = ndc_rays(h, w, f, 1.0, rays_o, rays_d)
+        gen = None
+        if perturb_test:
+            bits = int(c2w.contiguous().view(torch.int32).sum())
+            gen = torch.Generator(device).manual_seed(bits & 0xFFFFFFFF)
+        kw = dict(generator=gen, ncfg_fine=ncfg_fine)
+        if fused:
+            out = render_frame_nerf_fused(model_c, model_f, ncfg, vcfg_t,
+                                          rays_o, rays_d, packed=packed,
+                                          **kw)
+        else:
+            out = render_frame_nerf(model_c, model_f, ncfg, vcfg_t, rays_o,
+                                    rays_d, **kw)
+        rgb = out["rgb"].reshape(sampler.H, sampler.W, 3)
+        if with_disp:
+            return rgb, out["disp"].reshape(sampler.H, sampler.W)
+        return rgb
+
+    frame_fn.kind = "fused" if fused else "plain"
+    return frame_fn

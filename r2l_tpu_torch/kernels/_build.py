@@ -46,6 +46,12 @@ KERNELS = {
                            [_P, _I, _I, _I] + [_P] * 14 + [_I] * 5 + [_P]),
     "r2l_bwd_group": ("r2l_bwd_group_launch",
                       [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P]),
+    "nerf_render": ("nerf_render_launch",
+                    [_P] * 3 + [_I] * 2 + [_P] * 2 + [_I] * 3 + [_P] * 10
+                    + [_I] * 5 + [_P] * 5),
+    "nerf_render_int8": ("nerf_render_int8_launch",
+                         [_P] * 3 + [_I] * 2 + [_P] * 5 + [_I] * 3
+                         + [_P] * 18 + [_I] * 5 + [_P] * 5),
 }
 
 

@@ -16,17 +16,21 @@ import torch
 from .rays import camera_ray_dirs, plucker
 
 
+def linspace01(n: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """``jnp.linspace(0, 1, n)`` in f32, bit for bit: t = i * (1/(n-1))
+    with an exact 1 at the end (``torch.linspace`` rounds differently)."""
+    step = torch.tensor(1.0, dtype=torch.float32) / max(n - 1, 1)
+    t = torch.arange(n, dtype=torch.float32, device=device) * step
+    if n > 1:
+        t[-1] = 1.0
+    return t
+
+
 def even_z_vals(near: float, far: float, n_sample: int,
                 device: torch.device | str = "cpu") -> torch.Tensor:
-    """Evenly spaced sample depths in [near, far], shape [n_sample].
-
-    ``near*(1-t) + far*t`` as in the reference, with t = i * (1/(n-1)) and
-    an exact 1 at the end: that is how ``jnp.linspace(0, 1, n)`` rounds
-    (``torch.linspace`` and ``linspace(near, far)`` round differently)."""
-    step = torch.tensor(1.0, dtype=torch.float32) / max(n_sample - 1, 1)
-    t = torch.arange(n_sample, dtype=torch.float32, device=device) * step
-    if n_sample > 1:
-        t[-1] = 1.0
+    """Evenly spaced sample depths in [near, far], shape [n_sample]:
+    ``near*(1-t) + far*t`` as in the reference, with ``linspace01``'s t."""
+    t = linspace01(n_sample, device)
     return near * (1.0 - t) + far * t
 
 

@@ -16,7 +16,11 @@ import torch
 
 from r2l_tpu.models import R2LConfig as JaxR2LConfig
 from r2l_tpu.models import init_r2l as jax_init_r2l
-from r2l_tpu_torch.models import R2L, R2LConfig, params_from_jax
+from r2l_tpu.models.nerf import NeRFConfig as JaxNeRFConfig
+from r2l_tpu.models.nerf import init_nerf as jax_init_nerf
+from r2l_tpu_torch.models import (NeRF, NeRFConfig, R2L, R2LConfig,
+                                  nerf_params_from_jax, params_from_jax)
+from r2l_tpu_torch.render import ChunkDraws
 
 torch.set_num_threads(2)
 
@@ -45,6 +49,25 @@ def models(jcfg: JaxR2LConfig, seed: int = 0):
     return params, cfg, model
 
 
+def torch_nerf_cfg(jcfg: JaxNeRFConfig) -> NeRFConfig:
+    """The port's teacher config for a JAX one (``precision`` has no
+    counterpart; ``compute_dtype`` becomes a torch dtype)."""
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(NeRFConfig)}
+    fields["compute_dtype"] = _DTYPES[jcfg.compute_dtype]
+    return NeRFConfig(**fields)
+
+
+def nerf_models(jcfg: JaxNeRFConfig, seed: int = 0):
+    """(JAX teacher params, port cfg, port ``NeRF``) with the same
+    weights."""
+    params = jax_init_nerf(jax.random.key(seed), jcfg)
+    cfg = torch_nerf_cfg(jcfg)
+    model = NeRF(cfg, device="cpu")
+    model.load_state_dict(nerf_params_from_jax(np_tree(params)))
+    return params, cfg, model
+
+
 def t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
 
@@ -67,3 +90,31 @@ def kernel_layout(name: str, jax_field, like: torch.Tensor) -> np.ndarray:
         a = a[0]
     return a[tuple(slice(0, s) for s in like.shape)]
 
+
+def jax_chunk_draws(key, vcfg, n_rays, fused=False):
+    """JAX's per-chunk draws: the keys render_frame_nerf(_fused) splits,
+    each chunk's split into (strat, noise, pdf, noise2) on the plain path
+    (render.py:131) and (strat, pdf) on the fused one (render.py:291); the
+    sigma noise is drawn where ``raw_noise_std > 0`` (volume.py:50)."""
+    chunk = min(vcfg.ray_chunk, n_rays)
+    n_chunks = -(-n_rays // chunk)
+    n_c, n_f = vcfg.n_coarse, vcfg.n_fine
+    noisy = vcfg.raw_noise_std > 0 and not fused
+    out = []
+    for kk in jax.random.split(key, n_chunks):
+        k_noise = k_noise2 = None
+        if fused:
+            k_strat, k_pdf = jax.random.split(kk)
+        else:
+            k_strat, k_noise, k_pdf, k_noise2 = jax.random.split(kk, 4)
+
+        def draw(f, k, m, use=True):
+            return t(f(k, (chunk, m), dtype=jnp.float32)) if use else None
+
+        out.append(ChunkDraws(
+            u_strat=draw(jax.random.uniform, k_strat, n_c),
+            noise=draw(jax.random.normal, k_noise, n_c, noisy),
+            u_pdf=draw(jax.random.uniform, k_pdf, n_f, n_f > 0),
+            noise2=draw(jax.random.normal, k_noise2, n_c + n_f,
+                        noisy and n_f > 0)))
+    return out

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from r2l_tpu_torch.evaluate import _calibration_points
+from r2l_tpu_torch.kernels import nerf_render as NR
 from r2l_tpu_torch.kernels import r2l_fused as F
 from r2l_tpu_torch.kernels import r2l_train as T
-from r2l_tpu_torch.models import R2L, R2LConfig, init_r2l, params_from_jax
+from r2l_tpu_torch.models import (NeRFConfig, R2L, R2LConfig, init_nerf,
+                                  init_r2l, params_from_jax)
 from r2l_tpu_torch.rays import pose_spherical
 from r2l_tpu_torch.sampler import PointSampler
 
@@ -272,3 +274,97 @@ def test_fused_apply_grads_match_plain(dev, kind):
     for k, g in grads["cuda"].items():
         ok, err = _grad_close(g, grads["cpu"][k], kind == "f32")
         assert ok, (k, err)
+
+
+# Teacher kernels (K6 f32/bf16, K7 int8): (D, W, skips, L_pts, L_views,
+# viewdirs). Ray counts are not multiples of a block's 8 (bf16, int8) or 4
+# (f32) rays, and S = 13 is not a multiple of the 8-sample group.
+NERF_CASES = {
+    "canonical": (8, 256, (4,), 10, 4, True),
+    "w128_noview": (4, 128, (1,), 6, 3, False),
+    "w128_skip0": (3, 128, (0,), 6, 3, True),
+}
+# K6 f32: the same f32 chain, sums in another order (depth sums w*z over
+# up to 6). K6 bf16: a flipped bf16 rounding propagates, as K1 bf16. K7: as
+# K2.
+TOL_NERF = {"f32": (1e-4, 1e-3), "bf16": (3e-2, 3e-2)}
+
+
+def _nerf_case(name, dev, kind, n=1003, S=64):
+    D, W, skips, Lp, Lv, vd = NERF_CASES[name]
+    cd = torch.bfloat16 if kind == "bf16" else torch.float32
+    cfg = NeRFConfig(D=D, W=W, skips=skips, input_ch=3 + 6 * Lp,
+                     input_ch_views=3 + 6 * Lv if vd else 0,
+                     use_viewdirs=vd, compute_dtype=cd)
+    model = init_nerf(cfg, torch.Generator().manual_seed(0), dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    o = torch.randn((n, 3), generator=g, device=dev)
+    o = 4.0 * o / o.norm(dim=-1, keepdim=True)
+    d = -o / 4.0 + 0.2 * torch.randn((n, 3), generator=g, device=dev)
+    z = torch.sort(2.0 + 4.0 * torch.rand((n, S), generator=g, device=dev),
+                   -1).values.contiguous()
+    calib = None
+    if kind == "int8":
+        pts = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)[::7]
+        vds = (d / d.norm(dim=-1, keepdim=True))[:, None].expand(
+            n, S, 3).reshape(-1, 3)[::7]
+        calib = (pts, vds if vd else None)
+    return cfg, model, o, d, z, Lp, Lv, calib
+
+
+@pytest.mark.parametrize("name", sorted(NERF_CASES))
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("S", [13, 64])
+def test_nerf_render_kernel_matches_plain(dev, name, kind, S):
+    cfg, model, o, d, z, Lp, Lv, calib = _nerf_case(name, dev, kind, S=S)
+    int8 = kind == "int8"
+    fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv, calib=calib,
+                               weight_dtype=cfg.compute_dtype,
+                               fold_requant=int8)
+    kw = dict(L_pts=Lp, L_views=Lv, white_bkgd=True)
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(NR.fused_nerf_render, counter)
+    got = NR.fused_nerf_render(fp, cfg, o, d, z, **kw)
+    torch.cuda.synchronize()
+    assert getattr(NR.fused_nerf_render, counter) == before + 1
+    want = NR.fused_nerf_render_ref(fp, cfg, o, d, z, **kw)
+    for what, g_, w_ in zip(("rgb", "acc", "depth", "weights"), got, want):
+        mx, rms = _deltas(g_, w_)
+        if int8:
+            assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (what, mx, rms)
+        else:
+            tol, tol_depth = TOL_NERF[kind]
+            assert mx < (tol_depth if what == "depth" else tol), (what, mx)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_nerf_render_int8_fold_and_unfolded_agree(dev, fold):
+    """K7 with and without the folded requantize, each against its plain
+    version (the JAX package found the two bit-identical on its TPU)."""
+    cfg, model, o, d, z, Lp, Lv, calib = _nerf_case("canonical", dev, "int8",
+                                                     n=517, S=24)
+    fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv, calib=calib,
+                               fold_requant=fold)
+    assert fp.fold_requant == fold
+    kw = dict(L_pts=Lp, L_views=Lv, white_bkgd=False)
+    got = NR.fused_nerf_render(fp, cfg, o, d, z, **kw)
+    want = NR.fused_nerf_render_ref(fp, cfg, o, d, z, **kw)
+    for g_, w_ in zip(got, want):
+        mx, rms = _deltas(g_, w_)
+        assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (mx, rms)
+
+
+def test_nerf_render_raises_instead_of_falling_back(dev):
+    cfg, model, o, d, z, Lp, Lv, _ = _nerf_case("w128_noview", dev, "f32")
+    fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv,
+                               weight_dtype=torch.float32)
+    kw = dict(L_pts=Lp, L_views=Lv)
+    with pytest.raises(TypeError):
+        NR.fused_nerf_render(fp._replace(pts_w=fp.pts_w.half()), cfg, o, d,
+                             z, **kw)
+    with pytest.raises(ValueError):
+        NR.fused_nerf_render(fp._replace(pts_b=fp.pts_b.cpu()), cfg, o, d,
+                             z, **kw)
+    narrow = dataclasses.replace(cfg, W=64)
+    with pytest.raises(ValueError):
+        NR.fused_nerf_render(fp, narrow, o, d, z, **kw)

@@ -1,7 +1,8 @@
 """The port never imports JAX nor the JAX package: a fresh interpreter imports
 r2l_tpu_torch and every module in it, renders a frame on the CPU through
-each kind, takes a distillation step of each kind, and finds neither
-``jax`` nor ``r2l_tpu`` in sys.modules."""
+each kind, takes a distillation step of each kind, renders a teacher frame
+and generates one pose of pseudo data (plain and int8-packed fused render on
+the CPU), and finds neither ``jax`` nor ``r2l_tpu`` in sys.modules."""
 import os
 import subprocess
 import sys
@@ -41,6 +42,28 @@ for kw in ({}, {"fused_vjp": True},
     step = make_distill_step(cfg, dcfg, sampler, device="cpu", **kw)
     state, m = step(state, fresh)
     assert state.step == 1 and bool(torch.isfinite(m["loss"]))
+import tempfile
+from r2l_tpu_torch.datagen import DataGenConfig, generate_pseudo_data
+from r2l_tpu_torch.evaluate import make_nerf_frame_fn
+from r2l_tpu_torch.models import NeRFConfig, init_nerf
+from r2l_tpu_torch.render import VolRenderConfig, render_frame_nerf_fused
+ncfg = NeRFConfig(D=3, W=32, skips=(1,), input_ch=27, input_ch_views=15)
+gen = torch.Generator().manual_seed(0)
+mc, mf = init_nerf(ncfg, gen, "cpu"), init_nerf(ncfg, gen, "cpu")
+vcfg = VolRenderConfig(n_coarse=4, n_fine=4, multires=4, multires_views=2,
+                       white_bkgd=True)
+frame = make_nerf_frame_fn(mc, mf, ncfg, vcfg, sampler, use_pallas=True,
+                           perturb_test=True, device="cpu")
+assert frame.kind == "plain" and frame(poses[0]).shape == (4, 4, 3)
+ro, rd = torch.zeros(6, 3), torch.randn(6, 3, generator=gen)
+calib = (torch.randn(40, 3, generator=gen), torch.randn(40, 3, generator=gen))
+out = render_frame_nerf_fused(mc, mf, ncfg, vcfg, ro, rd, int8_calib=calib,
+                              fold_requant=True)
+assert out["rgb"].shape == (6, 3)
+with tempfile.TemporaryDirectory() as tmp:
+    gcfg = DataGenConfig(n_pose=1, H=4, W=4, focal=5.0, save_every=1)
+    assert generate_pseudo_data(mc, mf, ncfg, vcfg, gcfg, tmp,
+                                device="cpu") == 16
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "r2l_tpu"))
 print(len(names), bad)
@@ -54,7 +77,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 15 and bad.strip() == "[]"
+    assert int(n_modules) >= 19 and bad.strip() == "[]"
 
 
 def test_port_sources_name_no_jax_import():
