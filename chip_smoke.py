@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame path, its distillation step
-and the NeRF teacher's pseudo-data generation on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame path and kernel API, its
+distillation steps, the NeRF teacher's pseudo-data generation and teacher
+training on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,37 +10,44 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the seven CUDA kernels from ``r2l_tpu_torch/kernels/csrc``
-   into ``build/`` and print the build time and the compiler's register
-   report.
+2. Build: compile the eight CUDA libraries from ``r2l_tpu_torch/kernels/
+   csrc`` into ``build/`` in parallel and print the build time and the
+   compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
    400x400 lego frame of the canonical W256/D88 student, random weights from
-   a seeded generator): K1 with f32 and with bf16 weights, K2 (int8), each
-   against its plain PyTorch version, then K2 on the frozen int8 canary
-   (``tests/fixtures/int8_epilogue_canary*.npz``). Times each kernel and its
-   plain version with CUDA events.
+   a seeded generator): K1 with f32 and with bf16 weights, K2 (int8), and K9
+   (``fused_r2l_apply`` on the frame's ``r2l_embed``-encoded rays) with f32
+   and bf16 weights, each against its plain PyTorch version, then K2 on the
+   frozen int8 canary (``tests/fixtures/int8_epilogue_canary*.npz``). Times
+   each kernel and its plain version with CUDA events.
 4. Main path: ``make_r2l_frame_fn`` and ``make_r2l_bench_fn`` at 400x400 for
    the kinds ``jnp`` (plain module, bf16), ``pe`` and ``int8``; K frames per
    kind, ms/frame from CUDA events, PSNR of each kernel kind's frames against
-   the ``jnp`` frames, and the kernels' launch counts in that run.
+   the ``jnp`` frames, and the kernels' launch counts in that run. Then the
+   exported kernel API (``kernels.prepare_fused_params`` and
+   ``kernels.fused_r2l_apply`` on ``r2l_embed(sample_test(pose))``), bf16
+   and f32 weights: ms/frame, PSNR against the ``jnp`` frames, K9 launches.
 5. Training kernels vs plain versions on the card, at one canonical
    distillation step's 81,920 rays (``sample_train`` of synthetic rays with
    stratified depths): K3 (``train_fwd``) with f32 and bf16 weights, rgb
-   and every stash row; K4 (``train_fwd_int8``), rgb and the stash
-   q-values that differ; K5 (``bwd_group``) with f32 and bf16 weights and
-   with the int8 stash, one 4-block group and the whole body walk. Times
-   each kernel and its plain version with CUDA events.
+   and every stash row; K4 (``train_fwd_int8``, ``stash_q=True``), rgb and
+   the stash q-values that differ; K8 (``stash_q=False``), rgb and every
+   bf16 stash row; K5 (``bwd_group``) with f32 and bf16 weights, the int8
+   stash, and K8's bf16 stash under bf16 and under f32 weights, one 4-block
+   group and the whole body walk. Times each kernel and its plain version
+   with CUDA events.
 6. Training main path: synthetic ray shards (100 x 4096 rays, record dim 9)
    written with ``write_ray_shards`` into a temporary directory and read
    back through ``RayShardDataset``/``RayBatchLoader``; for the kinds
-   ``xla``, ``fused`` and ``fused_int8``, canonical W256/D88 distillation
+   ``xla``, ``fused``, ``fused_int8`` and ``fused_int8_bf16stash``
+   (``fused_stash_q=False``), canonical W256/D88 distillation
    steps through ``make_distill_step`` with the README's flags (81,920 rays,
    hard ratio 0.2, hard_mul 20, warm-up 0.0001 over 200 steps): 2 warm-up
    steps then 10 timed ones (CUDA events), the loss falling, the first
    step's loss of the fused kinds against ``xla``'s on the same params,
    batch and draws, two copies of a fused state run 3 steps bit-identical,
    the peak device memory, one more step under torch.profiler (kernel time
-   by name and the card's idle share), and the K3/K4/K5 launch counts in
+   by name and the card's idle share), and the K3/K4/K8/K5 launch counts in
    that run.
 7. Teacher kernels vs plain versions on the card: the canonical NeRF teacher
    (8x256, skip at 4, viewdirs, L=10/4; random weights from a seeded
@@ -60,6 +68,20 @@ Phases, in order; any failure raises and exits non-zero:
    rays and draws (PSNR).
 9. Teacher frame: ``make_nerf_frame_fn(use_pallas=True)`` on 2 lego poses
    against the plain path: ms/frame and PSNR.
+10. Teacher training (plain autograd, no kernel, as in JAX) at
+   ``configs/lego.txt`` on 16 ray-traced 400x400 views of a coloured sphere
+   (no dataset exists): ``make_teacher_step`` (the canonical teacher, random
+   weights from seeded generators, with the density floor), 2 warm-up then
+   20 timed steps (CUDA events), the MSE of fixed evaluation rays falling
+   from before the first step to after the last, the peak memory; then
+   ``make_teacher_step_batched`` with fern's training flags on the same
+   images' ray pool (``datagen.images_to_ray_records``, shuffled; NDC off,
+   the poses are not forward-facing).
+11. Images-mode distillation: ``make_distill_step_images`` with the
+   README's images flags (and the rays command's learning-rate warm-up) on
+   the same images and poses, 2 warm-up then 30 timed steps, the loss
+   falling from the first pass over the images to the second, the peak
+   memory.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -133,9 +155,32 @@ MAX_Q_STEP, MAX_Q_SHARE = 1, 1e-3
 #   tightened: the first run measured 2.4e-3 over the whole walk), and under
 #   2e-3 of the entries off by more than 5e-2 of the largest.
 TOL_GRAD_F32, TOL_GRAD_BF16, MAX_BAD_BF16 = 1e-5, 1e-2, 2e-3
+# K8 stash rows, each relative to its largest value: K3 bf16's rule (a
+#   flipped bf16 rounding or requantize propagates to the later rows).
+TOL_K8_STASH = 3e-2
 # First-step loss of a fused kind against xla's, relative
 #   (tests/test_train_pallas.py:119, 158).
-RTOL_LOSS = {"fused": 2e-2, "fused_int8": 5e-2}
+RTOL_LOSS = {"fused": 2e-2, "fused_int8": 5e-2, "fused_int8_bf16stash": 5e-2}
+# K9 frames through the kernel API against the plain jnp frames (PSNR, dB).
+MIN_PSNR_API = 40.0
+K_API_F32 = 4          # f32-weight frames (K9 f32 is about 10x slower)
+
+# Teacher training (configs/lego.txt: no_batching, 64 + 128 samples,
+# N_rand 1024, lrate 5e-4, decay 500, precrop 500 at 0.5, white background)
+# on 16 ray-traced 400x400 views of a coloured unit sphere; then the
+# batched step with fern's training flags (configs/fern.txt: use_batching,
+# 64 + 64 samples, raw_noise_std 1, decay 250) on the same images' rays.
+N_TEACHER_IMAGES = 16
+TEACHER_WARMUP, TEACHER_TIMED = 2, 20
+EVAL_RAYS = 4096      # per image, of the first four, to measure progress
+# Images-mode distillation (README.md: --data_mode images, lego_noview.txt:
+# N_rand 1024 pixels, precrop 500 at 0.5, decay 500; W256/D88, 16 samples,
+# the CLI's f32 compute dtype), with the rays command's --warmup_lr
+# 0.0001,200: without a warm-up the first Adam step at 5e-4 saturates the
+# random-init student, whose loss then cycles with the images unchanged.
+# Two passes over the 16 images; the loss falls from the first to the
+# second (each image's loss differs, so whole passes are compared).
+IMAGES_WARMUP, IMAGES_TIMED, IMAGES_WARMUP_LR = 2, 30, "0.0001,200"
 
 # Teacher (phases 7-9): the README's datagen teacher (configs/lego.txt with
 # the CLI defaults).
@@ -274,6 +319,30 @@ def phase_kernels(model, cfg, sampler, poses, dev) -> dict:
         print(f"[time] {label}: kernel {out[key]['ms']:.3f} ms, plain "
               f"{out[key]['plain_ms']:.3f} ms at {pts.shape[0]} rays",
               flush=True)
+
+    from r2l_tpu_torch.encoding import r2l_embed
+    x = r2l_embed(pts, EMBED_L)
+    for kind, wd, tol, k1 in (("f32", torch.float32, TOL_PE_F32, "pe_f32"),
+                              ("bf16", torch.bfloat16, TOL_PE_BF16, "pe")):
+        fp = F.prepare_fused_params(model, cfg, weight_dtype=wd)
+        got = F.fused_r2l_apply(fp, cfg, x)
+        want = F.fused_r2l_apply_ref(fp, cfg, x)
+        mx, rms = deltas(got, want)
+        check(f"K9 {kind} vs plain", mx, rms, tol)
+        print(f"[check] K9 {kind} vs plain: {int((got != want).sum())} of "
+              f"{got.numel()} outputs differ", flush=True)
+        r = out[f"api_{kind}"] = {
+            "max_abs_err": mx,
+            "ms": time_ms(lambda: F.fused_r2l_apply(fp, cfg, x)),
+            "plain_ms": time_ms(lambda: F.fused_r2l_apply_ref(fp, cfg, x)),
+            **bound(chain_ops(cfg, x.shape[0], cfg.input_dim),
+                    nbytes(x, got, *fp), kind),
+            "library_ms": None}
+        print(f"[time] K9 {kind}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}), K1 {kind} {out[k1]['ms']:.3f} ms, at "
+              f"{x.shape[0]} rays of [{x.shape[1]}] f32", flush=True)
+        del fp
     return out
 
 
@@ -348,6 +417,47 @@ def phase_main_path(model, cfg, sampler, poses, dev) -> dict:
         if res[kind]["psnr_vs_jnp"] < MIN_PSNR[kind]:
             raise AssertionError(f"{kind} frames {res[kind]['psnr_vs_jnp']} "
                                  f"dB from jnp, below {MIN_PSNR[kind]}")
+    return res, frames["jnp"]
+
+
+def phase_api_frames(model, cfg, sampler, poses, jnp_frames, dev) -> dict:
+    """Frames through the exported kernel API (K9), as a caller of
+    ``r2l_tpu_torch.kernels`` computes them: the frame's points, encoded
+    outside, then ``fused_r2l_apply``; bf16 and f32 weights, K9's count set
+    to 0 before and read after each."""
+    from r2l_tpu_torch.encoding import r2l_embed
+    from r2l_tpu_torch.kernels import fused_r2l_apply, prepare_fused_params
+    res = {}
+    for kind, wd, k in (("bf16", torch.bfloat16, K),
+                        ("f32", torch.float32, K_API_F32)):
+        fp = prepare_fused_params(model, cfg, weight_dtype=wd)
+
+        def frame(pose):
+            pts = sampler.sample_test(torch.as_tensor(pose, device=dev))
+            return fused_r2l_apply(fp, cfg, r2l_embed(pts, EMBED_L)
+                                   ).reshape(H, W, 3)
+        frame(poses[0])                                  # warm-up
+        fused_r2l_apply.launches = 0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        f = torch.stack([frame(p) for p in poses[:k]])
+        end.record()
+        torch.cuda.synchronize()
+        launches = fused_r2l_apply.launches
+        if f.shape != (k, H, W, 3) or not torch.isfinite(f).all():
+            raise AssertionError(f"K9 {kind}: bad frames {tuple(f.shape)}")
+        p = psnr_db(f, jnp_frames[:k])
+        res[kind] = {"ms_per_frame": start.elapsed_time(end) / k,
+                     "frames": k, "psnr_vs_jnp": p, "launches": launches}
+        print(f"[main] kernel API {kind} (K9): "
+              f"{res[kind]['ms_per_frame']:.3f} ms/frame over {k} frames, "
+              f"PSNR vs jnp {p:.2f} dB (min {MIN_PSNR_API}), K9 launches "
+              f"{launches}" + (" ok" if p >= MIN_PSNR_API and launches > 0
+                               else " FAILED"), flush=True)
+        if launches <= 0 or p < MIN_PSNR_API:
+            raise AssertionError(f"kernel API {kind}: {res[kind]}")
+        del fp
     return res
 
 
@@ -442,8 +552,8 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
                                     dev)
     fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L, calib,
                                   fold_requant=False)
-    rgb, stash = T.train_fwd_int8(fp8, cfg, pts, dp, L)
-    rgb_p, stash_p = T.train_fwd_int8_ref(fp8, cfg, pts, dp, L)
+    rgb, stash = T.train_fwd_int8(fp8, cfg, pts, dp, L, stash_q=True)
+    rgb_p, stash_p = T.train_fwd_int8_ref(fp8, cfg, pts, dp, L, stash_q=True)
     check("K4 rgb vs plain", *deltas(rgb, rgb_p), TOL_INT8_MAX, TOL_INT8_RMS)
     dq = (stash.int() - stash_p.int()).abs()
     n_diff, step = int((dq > 0).sum()), int(dq.max())
@@ -458,21 +568,47 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
     del stash_p, dq
     res["train_fwd_int8"] = {
         "max_abs_err": deltas(rgb, rgb_p)[0], "stash_q_differ": n_diff,
-        "ms": time_ms(lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L)),
+        "ms": time_ms(lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L,
+                                               stash_q=True)),
         "plain_ms": time_ms(lambda: T.train_fwd_int8_ref(fp8, cfg, pts, dp,
-                                                         L)),
+                                                         L, stash_q=True)),
         **bound(ops, nbytes(pts, rgb, stash, *fp8), "int8"),
         "library_ms": None}
     body_bf16 = stashes["bf16"][0]
     stashes["int8"] = (body_bf16, stash)
     scale8 = 1.0 / fp8.body_inv
 
+    rgb, stash = T.train_fwd_int8(fp8, cfg, pts, dp, L, stash_q=False)
+    rgb_p, stash_p = T.train_fwd_int8_ref(fp8, cfg, pts, dp, L,
+                                          stash_q=False)
+    check("K8 rgb vs plain", *deltas(rgb, rgb_p), TOL_INT8_MAX, TOL_INT8_RMS)
+    if stash.dtype != torch.bfloat16 or stash.shape != stash_p.shape:
+        raise AssertionError(f"K8 stash {stash.dtype} {tuple(stash.shape)}")
+    row = torch.stack([(a.float() - b.float()).abs().max()
+                       / b.float().abs().max().clamp(min=1)
+                       for a, b in zip(stash, stash_p)])
+    check(f"K8 stash, worst of {stash.shape[0]} rows (relative to the row's "
+          "largest)", float(row.max()), 0.0, TOL_K8_STASH)
+    del stash_p
+    res["train_fwd_int8_bf16"] = {
+        "max_abs_err": deltas(rgb, rgb_p)[0],
+        "stash_row_err": float(row.max()),
+        "ms": time_ms(lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L,
+                                               stash_q=False)),
+        "plain_ms": time_ms(lambda: T.train_fwd_int8_ref(
+            fp8, cfg, pts, dp, L, stash_q=False)),
+        **bound(ops, nbytes(pts, rgb, stash, *fp8), "int8"),
+        "library_ms": None}
+    stashes["int8_bf16"] = (body_bf16, stash)
+    stashes["int8_bf16_f32w"] = (stashes["f32"][0], stash)
+
     dh = torch.randn((n, W), generator=torch.Generator(dev).manual_seed(
         SEED + 2), device=dev)
     cnt = 4
-    for kind in ("f32", "bf16", "int8"):
+    for kind in ("f32", "bf16", "int8", "int8_bf16", "int8_bf16_f32w"):
         body_w, stash = stashes[kind]
         scale = scale8 if kind == "int8" else None
+        f32 = body_w.dtype == torch.float32
         b0 = nb - cnt
 
         def group(fn):
@@ -492,10 +628,10 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"K5 {kind}: two runs differ")
         info = check_grads(f"K5 {kind}, blocks {b0}..{nb - 1} vs plain", got,
-                           group(T.bwd_group_ref), kind == "f32")
+                           group(T.bwd_group_ref), f32)
         info_walk = check_grads(f"K5 {kind}, whole body walk vs plain",
                                 walk(T.bwd_group), walk(T.bwd_group_ref),
-                                kind == "f32")
+                                f32)
         moved = (nbytes(dh, *got, body_w[2 * b0:]) + nbytes(stash[0])
                  * 2 * cnt + (nbytes(scale[2 * b0:]) if scale is not None
                               else 0))
@@ -506,7 +642,7 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
             "walk_ms": time_ms(lambda: walk(T.bwd_group), reps=2),
             "walk_plain_ms": time_ms(lambda: walk(T.bwd_group_ref), reps=2),
             **bound(4.0 * n * W * W * 2 * cnt, moved,
-                    "f32" if kind == "f32" else "bf16"),
+                    "f32" if f32 else "bf16"),
             "library_ms": None}
         torch.cuda.empty_cache()
     for key, r in res.items():
@@ -565,9 +701,10 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
                          perturb=True)
     calib = fused_int8_calib_points(H, W, FOCAL, N_SAMPLE, 2.0, 6.0, poses,
                                     dev)
-    kinds = {"xla": {}, "fused": {"fused_vjp": True},
-             "fused_int8": {"fused_vjp": True, "fused_quantize": "int8",
-                            "fused_calib_pts": calib}}
+    int8 = {"fused_vjp": True, "fused_quantize": "int8",
+            "fused_calib_pts": calib}
+    kinds = {"xla": {}, "fused": {"fused_vjp": True}, "fused_int8": int8,
+             "fused_int8_bf16stash": {**int8, "fused_stash_q": False}}
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         write_ray_shards(tmp, synthetic_rays(N_SHARDS * SHARD_RAYS, SEED),
@@ -585,6 +722,7 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
         100 + i)) for i in range(len(batches))]
     for f in (T.train_fwd, T.train_fwd_int8, T.bwd_group):
         f.launches = 0
+    T.train_fwd_int8.launches_bf16 = 0
     for kind, kw in kinds.items():
         if kw.get("fused_vjp") and not fused_vjp_gate(True, cfg, False):
             raise AssertionError(f"{kind}: the fused gate refused W256/D88")
@@ -656,6 +794,8 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
     torch.cuda.synchronize()
     res["launches"] = {"train_fwd": T.train_fwd.launches,
                        "train_fwd_int8": T.train_fwd_int8.launches,
+                       "train_fwd_int8_bf16":
+                           T.train_fwd_int8.launches_bf16,
                        "bwd_group": T.bwd_group.launches}
     print(f"[main] training kernel launches: {res['launches']}", flush=True)
     for name, count in res["launches"].items():
@@ -957,6 +1097,197 @@ def phase_teacher_frame(dev, poses) -> dict:
     return res
 
 
+def sphere_scene(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """n training views (images [n, H, W, 3] f32, poses [n, 3, 4]) of a unit
+    sphere at the origin coloured by its surface point (0.5 p + 0.5) on
+    white, ray-traced in numpy (the formula of the verify recipe's scene
+    generator, gen_scene.py, at 400x400 and the lego focal);
+    poses on the radius-4 sphere, theta U[-180, 180], phi U[-60, -20]."""
+    from r2l_tpu_torch.rays import pose_spherical
+    rng = np.random.default_rng(seed)
+    i, j = np.meshgrid(np.arange(W, dtype=np.float32),
+                       np.arange(H, dtype=np.float32), indexing="xy")
+    dirs = np.stack([(i - W / 2) / FOCAL, -(j - H / 2) / FOCAL,
+                     -np.ones_like(i)], -1)
+    images, poses = [], []
+    for _ in range(n):
+        c2w = pose_spherical(rng.uniform(-180, 180), rng.uniform(-60, -20),
+                             4.0)[:3, :4]
+        rd = dirs @ c2w[:3, :3].T
+        ro = np.broadcast_to(c2w[:3, 3], rd.shape)
+        b = np.sum(ro * rd, -1)
+        a = np.sum(rd * rd, -1)
+        c = np.sum(ro * ro, -1) - 1.0
+        disc = b * b - a * c
+        t = (-b - np.sqrt(np.maximum(disc, 0))) / a
+        col = np.clip((ro + rd * t[..., None]) * 0.5 + 0.5, 0, 1)
+        images.append(np.where((disc > 0)[..., None], col, 1.0))
+        poses.append(c2w)
+    return (np.stack(images).astype(np.float32),
+            np.stack(poses).astype(np.float32))
+
+
+def timed_steps(run, n_warm: int, n_timed: int) -> dict:
+    """``run(i) -> metrics`` for n_warm then n_timed steps: ms/step of the
+    timed ones (CUDA events), the losses, the peak memory."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [run(i)["loss"] for i in range(n_warm)]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses += [run(i)["loss"] for i in range(n_warm, n_warm + n_timed)]
+    end.record()
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    return {"ms_per_step": start.elapsed_time(end) / n_timed,
+            "losses": losses,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def check_falling(name: str, r: dict, k: int) -> None:
+    """The mean of the last k losses below the mean of the first k, all
+    finite."""
+    ls = r["losses"]
+    ok = all(np.isfinite(ls)) and np.mean(ls[-k:]) < np.mean(ls[:k])
+    print(f"[main] {name}: {r['ms_per_step']:.3f} ms/step (CUDA events), "
+          f"loss {np.mean(ls[:k]):.5f} -> {np.mean(ls[-k:]):.5f} (means of "
+          f"the first and last {k} of {len(ls)}), peak "
+          f"{r['peak_mem_gb']:.2f} GB"
+          + (" ok" if ok else " FAILED: the loss did not fall"), flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: loss did not fall: {ls}")
+
+
+def teacher_eval_batches(images, poses, dev) -> list:
+    """The teacher phases' fixed evaluation rays: 4,096 pixels of each of
+    the first four images, inside the precrop box, as [n, 9] records."""
+    from r2l_tpu_torch.train import _image_batch
+    g = torch.Generator(dev).manual_seed(SEED + 56)
+    hh, ww = (torch.randint(n // 4, 3 * n // 4, (EVAL_RAYS,), generator=g,
+                            device=dev) for n in (H, W))
+    return [_image_batch(images[k], poses[k], H, W, FOCAL, hh, ww)
+            for k in range(4)]
+
+
+def teacher_eval(state, cfg, vcfg, batches) -> float:
+    """Mean fine-pass MSE of deterministic renders (no jitter, no sigma
+    noise) of the fixed evaluation rays."""
+    from r2l_tpu_torch.render import render_rays_nerf
+    v = dataclasses.replace(vcfg, raw_noise_std=0.0)
+    with torch.no_grad():
+        return float(torch.stack([torch.mean((render_rays_nerf(
+            state.model_c, state.model_f, cfg, v, b[:, 0:3], b[:, 3:6]
+        ).rgb_map - b[:, 6:9]) ** 2) for b in batches]).mean())
+
+
+def phase_teacher_train(images, poses, dev) -> dict:
+    """``make_teacher_step`` (lego) and ``make_teacher_step_batched`` (fern's
+    flags) through their entry points, random weights from seeded
+    generators (lego's with the density floor: at random init its fine
+    network's density is 0 at every point, where ReLU passes no gradient,
+    and the loss of the evaluation rays does not move). Progress is the
+    evaluation rays' MSE before the first step and after the last: the
+    steps' own losses are of other images and pixels each step."""
+    from r2l_tpu_torch.datagen import images_to_ray_records
+    from r2l_tpu_torch.models import NeRFConfig, init_nerf
+    from r2l_tpu_torch.render import VolRenderConfig
+    from r2l_tpu_torch.train import (TeacherTrainConfig, init_teacher_state,
+                                     make_teacher_step,
+                                     make_teacher_step_batched)
+    cfg = NeRFConfig()
+    imgs = torch.from_numpy(images).to(dev)
+    pss = torch.from_numpy(poses).to(dev)
+    evals = teacher_eval_batches(imgs, pss, dev)
+    res = {}
+
+    def train(name, vcfg, tcfg, seed, floor, run_step):
+        g = torch.Generator().manual_seed(seed)
+        models = [init_nerf(cfg, g, dev) for _ in range(2)]
+        with torch.no_grad():
+            for m in models:
+                m.alpha_linear.bias += floor
+        box = [init_teacher_state(*models, tcfg)]
+        gen = torch.Generator(dev).manual_seed(seed + 1)
+        before = teacher_eval(box[0], cfg, vcfg, evals)
+
+        def run(i):
+            box[0], m = run_step(box[0], i, gen)
+            return m
+        r = timed_steps(run, TEACHER_WARMUP, TEACHER_TIMED)
+        r["eval_mse_before"] = before
+        r["eval_mse_after"] = after = teacher_eval(box[0], cfg, vcfg, evals)
+        ls, ok = r["losses"], after < before and all(np.isfinite(r["losses"]))
+        print(f"[main] {name}: {r['ms_per_step']:.3f} ms/step (CUDA events) "
+              f"over {TEACHER_TIMED} steps, MSE of the {4 * EVAL_RAYS} "
+              f"evaluation rays {before:.5f} -> {after:.5f} (the steps' "
+              f"losses {np.mean(ls[:3]):.5f} -> {np.mean(ls[-3:]):.5f}), "
+              f"peak {r['peak_mem_gb']:.2f} GB"
+              + (" ok" if ok else " FAILED: the loss did not fall"),
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: {r}")
+        return r
+
+    vcfg = VolRenderConfig(n_coarse=T_SAMPLES, n_fine=T_FINE, perturb=True,
+                           white_bkgd=True)
+    tcfg = TeacherTrainConfig(n_rand=1024, lrate=5e-4, lrate_decay=500,
+                              precrop_iters=500, precrop_frac=0.5)
+    step = make_teacher_step(cfg, vcfg, tcfg, H, W, FOCAL, device=dev)
+    res["images"] = train(
+        "teacher lego (make_teacher_step, 64+128 samples, 1024 rays)", vcfg,
+        tcfg, SEED + 50, DENSITY_FLOOR,
+        lambda st, i, gen: step(st, imgs, pss, generator=gen))
+
+    rng = np.random.default_rng(SEED + 53)
+    pool_np = images_to_ray_records(images, poses, H, W, FOCAL, device=dev)
+    pool = torch.from_numpy(pool_np[rng.permutation(len(pool_np))]).to(dev)
+    vcfg_b = VolRenderConfig(n_coarse=64, n_fine=64, perturb=True,
+                             raw_noise_std=1.0)
+    tcfg_b = TeacherTrainConfig(n_rand=1024, lrate=5e-4, lrate_decay=250)
+    step_b = make_teacher_step_batched(cfg, vcfg_b, tcfg_b, device=dev)
+    res["batched"] = train(
+        "teacher fern flags (make_teacher_step_batched, 64+64 samples, "
+        f"sigma noise 1, pool of {pool.shape[0]} rays)", vcfg_b, tcfg_b,
+        SEED + 54, 0.0,
+        lambda st, i, gen: step_b(st, pool, i * tcfg_b.n_rand,
+                                  generator=gen))
+    res["batched"]["pool_rays"] = int(pool.shape[0])
+    del pool
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_images_distill(images, poses, sampler, dev) -> dict:
+    """``make_distill_step_images`` with the README's images flags."""
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    from r2l_tpu_torch.train import (DistillConfig, init_train_state,
+                                     make_distill_step_images)
+    cfg = R2LConfig(compute_dtype=torch.float32)
+    dcfg = DistillConfig(batch_size=1024, lrate=5e-4, lrate_decay=500,
+                         warmup_lr=IMAGES_WARMUP_LR, embed_L=EMBED_L,
+                         perturb=True)
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED + 60), dev)
+    box = [init_train_state(model, dcfg, device=dev)]
+    step = make_distill_step_images(cfg, dcfg, sampler, H, W, FOCAL,
+                                    precrop_iters=500, precrop_frac=0.5,
+                                    device=dev)
+    imgs = torch.from_numpy(images).to(dev)
+    pss = torch.from_numpy(poses).to(dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 61)
+
+    def run(i):
+        k = i % imgs.shape[0]
+        box[0], m = step(box[0], imgs[k], pss[k], generator=gen)
+        return m
+    r = timed_steps(run, IMAGES_WARMUP, IMAGES_TIMED)
+    check_falling("images distill (make_distill_step_images, W256/D88 f32, "
+                  "1024 pixels)", r, k=len(images))
+    del box[0], model
+    torch.cuda.empty_cache()
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -997,7 +1328,9 @@ def main() -> int:
 
     kern = phase_kernels(model, cfg, sampler, poses, dev)
     canary = phase_canary(dev)
-    main_res = phase_main_path(model, cfg, sampler, poses, dev)
+    main_res, jnp_frames = phase_main_path(model, cfg, sampler, poses, dev)
+    api = phase_api_frames(model, cfg, sampler, poses, jnp_frames, dev)
+    del jnp_frames
     tkern = phase_train_kernels(model, cfg, sampler, poses, dev)
     del model
     torch.cuda.empty_cache()
@@ -1006,6 +1339,9 @@ def main() -> int:
     teacher = phase_teacher_kernels(dev)
     dgen = phase_datagen(dev)
     tframe = phase_teacher_frame(dev, poses)
+    images, img_poses = sphere_scene(N_TEACHER_IMAGES, SEED + 40)
+    ttrain = phase_teacher_train(images, img_poses, dev)
+    idist = phase_images_distill(images, img_poses, sampler, dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -1013,13 +1349,15 @@ def main() -> int:
         "pe_f32": kern["pe_f32"], "canary_max_abs_err": canary,
         "main_path": {k: v for k, v in main_res.items()
                       if k != "launches"},
+        "kernel_api_frames": api, "pe_bf16": kern["pe"],
         "train_kernels": tkern,
         "train_main_path": {k: v for k, v in train.items()
                             if k != "launches"},
         "teacher": "NeRF 8x256 skip 4, viewdirs, L=10/4, 64+128 samples, "
                    f"chunk {T_CHUNK}, white, density floor {DENSITY_FLOOR}",
         "teacher_kernels": teacher, "datagen": dgen,
-        "teacher_frame": tframe}}))
+        "teacher_frame": tframe,
+        "teacher_train": ttrain, "images_distill": idist}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1041,8 +1379,14 @@ def main() -> int:
               train["launches"]["train_fwd"], tkern["train_fwd_bf16"]),
         entry("train_fwd_int8", "r2l_train_fwd_int8.cu", tr + ":182",
               train["launches"]["train_fwd_int8"], tkern["train_fwd_int8"]),
+        entry("train_fwd_int8_bf16stash", "r2l_train_fwd_int8.cu",
+              tr + ":182", train["launches"]["train_fwd_int8_bf16"],
+              tkern["train_fwd_int8_bf16"]),
         entry("bwd_group", "r2l_bwd_group.cu", tr + ":356",
               train["launches"]["bwd_group"], tkern["bwd_group_bf16"]),
+        *(entry(f"fused_r2l_apply_{kind}", "r2l_fused.cu",
+                "r2l_tpu/kernels/r2l_pallas.py:270", api[kind]["launches"],
+                kern[f"api_{kind}"]) for kind in ("f32", "bf16")),
         *(entry(f"fused_nerf_render_{kind}", "nerf_render_int8.cu"
                 if kind == "int8" else "nerf_render.cu",
                 "r2l_tpu/kernels/nerf_render_pallas.py:336",

@@ -4,21 +4,26 @@ The JAX package ``r2l_tpu`` is the reference: every function here names the
 ``r2l_tpu`` function it reproduces, and ``tests/test_torch_*.py`` hold the
 two to the same output on the same inputs. This package never imports JAX.
 
-Three slices are ported, each through hand-written CUDA kernels for the
+Four slices are ported, each through hand-written CUDA kernels for the
 NVIDIA H100 (``kernels/csrc/*.cu``):
 
 1. The R2L student's novel-view frame: camera pose ->
    ``PointSampler.sample_test`` -> positional encoding -> deep residual MLP
    -> RGB frame (``evaluate.make_r2l_frame_fn``), through a PE-fused
-   bf16/f32 forward (K1) and a static-scale int8 forward (K2).
+   bf16/f32 forward (K1) and a static-scale int8 forward (K2); the same
+   chain on an input encoded outside is the exported kernel API
+   (``kernels.fused_r2l_apply``, K9).
 2. R2L distillation training, rays mode (``train.make_distill_step``): the
-   fused training forward with its stash (K3, int8 K4) and the backward
-   through a block group (K5).
+   fused training forward with its stash (K3; int8 K4 with an int8 stash,
+   K8 with a bf16 one) and the backward through a block group (K5).
 3. The NeRF teacher's volumetric render and pseudo-data generation
    (``render.render_frame_nerf_fused``, ``datagen.generate_pseudo_data``,
    ``evaluate.make_nerf_frame_fn``): the whole volumetric pass of a chunk of
    rays (points, encoding, the MLP, alpha compositing) in one kernel, f32/bf16
    weights (K6) or static-scale int8 (K7).
+4. The rest of training: teacher training (``train.make_teacher_step``,
+   ``train.make_teacher_step_batched``) and images-mode distillation
+   (``train.make_distill_step_images``), plain autograd as in JAX.
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 """

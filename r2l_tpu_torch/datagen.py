@@ -1,7 +1,9 @@
 """Pseudo-data generation: the frozen teacher renders random poses into ray
-shards (the ``rand`` mode).
+shards (the ``rand`` mode); real training images become ray records
+(``images_to_ray_records``, the teacher's batched ray pool).
 
-Counterpart of ``r2l_tpu/datagen.py:32-270, 331-332``: random spherical
+Counterpart of ``r2l_tpu/datagen.py:32-270, 331-332, 516-545``: random
+spherical
 poses with a random focal x [1, 2), full-frame teacher renders, records
 ``[o(3), d(3), rgb(3)(, depth)]`` per ray, shuffled and written as shards
 with the same names, layout and row order as the JAX package's. Poses and
@@ -16,8 +18,8 @@ the render only.
 Randomness: the stratified and inverse-CDF draws of pose ``i`` come from a
 ``torch.Generator`` on the device seeded ``seed*100003 + i`` (the role of
 the JAX package's ``_pose_key``, not its numbers), or from ``draws_fn``.
-The other datagen modes, and the ray sharding over several devices, are not
-ported yet.
+The other datagen modes (tworays, 3x3rays, rand images, patches, pseudo
+images), and the ray sharding over several devices, are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 
 from .data.rayshards import shuffle_rays, write_ray_shards
 from .models.nerf import NeRF, NeRFConfig
-from .rays import get_rand_pose, get_rays_np, ndc_rays
+from .rays import (donerf_ray_dirs, get_rand_pose, get_rays, get_rays_np,
+                   ndc_rays)
 from .render import (VolRenderConfig, prepare_fused_teacher,
                      render_frame_nerf, render_frame_nerf_fused)
 
@@ -228,3 +231,33 @@ def generate_pseudo_data(model_c: NeRF, model_f: NeRF | None,
     if errors:
         raise RuntimeError("pseudo-data writer failed") from errors[0]
     return total["rays"]
+
+
+def images_to_ray_records(images: np.ndarray, poses: np.ndarray, H: int,
+                          W: int, focal: float, ndc: bool = False,
+                          donerf: bool = False,
+                          device: torch.device | str = torch.device("cuda")
+                          ) -> np.ndarray:
+    """Training images [N, H, W, 3] and poses [N, 3|4, 4] -> ray records
+    [N*H*W, 9] (o, d, rgb) on the host, in image then row-major pixel order
+    (the offline converter; the teacher's ``use_batching`` pool). The rays
+    and the NDC warp are computed on ``device``, then copied to the host.
+    ``ndc`` stores NDC-warped rays (LLFF forward-facing); ``donerf`` makes
+    the rays in the DONeRF convention (half-pixel centres, unit directions
+    rotated by the pose on the host, as the JAX package does), which lines
+    converted shards up with given eval rays."""
+    dirs_cam = donerf_ray_dirs(H, W, focal) if donerf else None
+    records = []
+    for img, c2w in zip(images, poses):
+        c2w = np.asarray(c2w, np.float32)
+        if donerf:
+            rd = torch.from_numpy(dirs_cam @ c2w[:3, :3].T).to(device)
+            ro = torch.from_numpy(c2w[:3, -1]).to(device).expand(rd.shape)
+        else:
+            ro, rd = get_rays(H, W, focal, c2w, device=device)
+        if ndc:
+            ro, rd = ndc_rays(H, W, focal, 1.0, ro, rd)
+        records.append(np.concatenate([
+            ro.reshape(-1, 3).cpu().numpy(), rd.reshape(-1, 3).cpu().numpy(),
+            np.asarray(img, np.float32).reshape(-1, 3)], axis=1))
+    return np.concatenate(records, axis=0)

@@ -36,6 +36,9 @@ KERNELS = {
     "r2l_pe_fused": ("r2l_pe_fused_launch",
                      [_P, _I, _I, _I] + [_P] * 7
                      + [_I, _I, _I, _I, _F, _I, _I, _I, _P]),
+    "r2l_fused": ("r2l_fused_launch",
+                  [_P, _I, _I] + [_P] * 7
+                  + [_I, _I, _I, _I, _F, _I, _I, _I, _P]),
     "r2l_int8_pe_fused": ("r2l_int8_pe_fused_launch",
                           [_P, _I, _I, _I] + [_P] * 13
                           + [_I, _I, _I, _I, _I, _I, _P]),
@@ -43,9 +46,9 @@ KERNELS = {
                       [_P, _I, _I, _I] + [_P] * 8
                       + [_I, _I, _I, _F, _I, _I, _I, _P]),
     "r2l_train_fwd_int8": ("r2l_train_fwd_int8_launch",
-                           [_P, _I, _I, _I] + [_P] * 14 + [_I] * 5 + [_P]),
+                           [_P, _I, _I, _I] + [_P] * 14 + [_I] * 6 + [_P]),
     "r2l_bwd_group": ("r2l_bwd_group_launch",
-                      [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P]),
+                      [_P] * 11 + [_I, _I, _I, _F, _I, _I, _I, _P]),
     "nerf_render": ("nerf_render_launch",
                     [_P] * 3 + [_I] * 2 + [_P] * 2 + [_I] * 3 + [_P] * 10
                     + [_I] * 5 + [_P] * 5),

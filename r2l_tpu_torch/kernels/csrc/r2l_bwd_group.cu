@@ -1,5 +1,7 @@
 // K5: the R2L training backward through a group of ResMLP blocks, bf16 or
-// f32 weights, with a bf16/f32 stash or (body_scale) the int8 q-value stash.
+// f32 weights, with a stash in the weights' type, a bf16 stash under f32
+// weights (the int8 forward's bf16 stash, K8), or (body_scale) the int8
+// q-value stash.
 //
 // Replaces the Pallas TPU kernel r2l_tpu/kernels/r2l_train_pallas.py::
 // bwd_group. For blocks b_start+cnt-1 .. b_start, top-down, per ray:
@@ -290,20 +292,38 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dw_bf16_kernel(
 }
 
 // Pass 2, f32: scalar FMAs over a 64 x 64 tile, 16 rays per stage staged
-// ray-major; each thread owns 4 out x 4 in entries.
+// ray-major; each thread owns 4 out x 4 in entries. A bf16 stash (S) is
+// widened to f32 as it is staged.
 constexpr int kKR32 = 16;
 
+template <typename S>
+__device__ __forceinline__ float4 load4(const S* p);
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+template <>
+__device__ __forceinline__ float4 load4<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename S>
 __global__ void __launch_bounds__(kThreads) bwd_dw_f32_kernel(
-    const float* __restrict__ dts, const float* __restrict__ stash_h,
-    const float* __restrict__ stash_t, float* __restrict__ part, int n, int W,
+    const float* __restrict__ dts, const S* __restrict__ stash_h,
+    const S* __restrict__ stash_t, float* __restrict__ part, int n, int W,
     int cnt, int rays_per_split) {
   __shared__ __align__(16) float Gs[kKR32][64];
   __shared__ __align__(16) float As[kKR32][64];
   const DwTile<64, 64> tile(W, cnt, n, rays_per_split);
   const size_t rs = (size_t)n * W;
   const float* G = dts + (size_t)tile.l * rs;
-  const float* A =
-      ((tile.l & 1) ? stash_t : stash_h) + (size_t)(tile.l >> 1) * rs;
+  const S* A = ((tile.l & 1) ? stash_t : stash_h) + (size_t)(tile.l >> 1) * rs;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int lr = tid / 16, lv = tid % 16;  // loader: ray lr, channels 4lv..
   float acc[4][4];
@@ -319,9 +339,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dw_f32_kernel(
                  G + (size_t)(rb + lr) * W + tile.o0 + 4 * lv))
            : z;
     *reinterpret_cast<float4*>(&As[lr][4 * lv]) =
-        ok ? __ldg(reinterpret_cast<const float4*>(
-                 A + (size_t)(rb + lr) * W + tile.i0 + 4 * lv))
-           : z;
+        ok ? load4<S>(A + (size_t)(rb + lr) * W + tile.i0 + 4 * lv) : z;
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kKR32; ++k) {
@@ -389,9 +407,9 @@ cudaError_t launch(const void* w_t, const void* stash_h, const void* stash_t,
   const int rays_per_split = (n + splits - 1) / splits;
   if constexpr (sizeof(T) == 4) {
     const int grid = (W / 64) * (W / 64) * 2 * cnt * splits;
-    bwd_dw_f32_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(dts), static_cast<const float*>(stash_h),
-        static_cast<const float*>(stash_t), part, n, W, cnt, rays_per_split);
+    bwd_dw_f32_kernel<S><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(dts), static_cast<const S*>(stash_h),
+        static_cast<const S*>(stash_t), part, n, W, cnt, rays_per_split);
   } else {
     constexpr int BM = W % 128 == 0 ? 128 : 64;
     const int grid = (W / BM) * (W / BM) * 2 * cnt * splits;
@@ -412,8 +430,8 @@ cudaError_t launch(const void* w_t, const void* stash_h, const void* stash_t,
 // C entry point (loaded with ctypes by r2l_tpu_torch/kernels/_build.py).
 // w_t: the group's 2cnt weights, each transposed ([in][out]); stash_h and
 // stash_t: the group's stash rows of block inputs and inner activations,
-// [cnt][n][W] each; scale: their [2cnt][W] dequant scales (int8 stash) or
-// null. Scratch: dts [2cnt][n][W] in the weight type, dbp [ceil(n/32)]
+// [cnt][n][W] each, in the weight type or, with stash_bf16, bf16 under f32
+// weights; scale: their [2cnt][W] dequant scales (int8 stash) or null. Scratch: dts [2cnt][n][W] in the weight type, dbp [ceil(n/32)]
 // [2cnt][W] f32, part [splits][2cnt][W][W] f32. Returns a cudaError_t: a
 // launch's own error, or cudaErrorInvalidValue for a width or a combination
 // the kernels do not take.
@@ -421,8 +439,10 @@ extern "C" int r2l_bwd_group_launch(
     const void* w_t, const void* stash_h, const void* stash_t,
     const float* scale, const float* dh_in, float* dh_out, void* dts,
     float* dbp, float* part, float* dw, float* db, int n, int W, int cnt,
-    float res_scale, int weight_is_f32, int splits, void* stream) {
-  if (n <= 0 || cnt < 1 || splits < 1 || (weight_is_f32 && scale))
+    float res_scale, int weight_is_f32, int stash_bf16, int splits,
+    void* stream) {
+  if (n <= 0 || cnt < 1 || splits < 1 || (weight_is_f32 && scale) ||
+      (stash_bf16 && !weight_is_f32))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(w_t) | reinterpret_cast<uintptr_t>(stash_h) |
        reinterpret_cast<uintptr_t>(stash_t) | reinterpret_cast<uintptr_t>(dts) |
@@ -433,7 +453,13 @@ extern "C" int r2l_bwd_group_launch(
   w_t, stash_h, stash_t, scale, dh_in, dh_out, dts, dbp, part, dw, db, n,    \
       cnt, res_scale, splits, s
   using BF = __nv_bfloat16;
-  if (weight_is_f32) {
+  if (weight_is_f32 && stash_bf16) {
+    switch (W) {
+      case 64: return launch<EngineF32<64, 32>, 64, 32, BF>(R2L_ARGS);
+      case 128: return launch<EngineF32<128, 32>, 128, 32, BF>(R2L_ARGS);
+      case 256: return launch<EngineF32<256, 32>, 256, 32, BF>(R2L_ARGS);
+    }
+  } else if (weight_is_f32) {
     switch (W) {
       case 64: return launch<EngineF32<64, 32>, 64, 32, float>(R2L_ARGS);
       case 128: return launch<EngineF32<128, 32>, 128, 32, float>(R2L_ARGS);

@@ -1,7 +1,7 @@
-"""PE-fused R2L forward kernels: wrappers, plain versions and packing.
+"""R2L forward kernels: wrappers, plain versions and packing.
 
-Counterpart of ``r2l_tpu/kernels/r2l_pallas.py`` (:37-233 and :338-664).
-Two kernels carry the student frame:
+Counterpart of ``r2l_tpu/kernels/r2l_pallas.py``. Two kernels carry the
+student frame, and a third is the JAX package's exported kernel API:
 
 * ``fused_r2l_apply_pe`` (``csrc/r2l_pe_fused.cu``): positional encoding by
   the double-angle ladder, head Linear+ReLU, the ResMLP blocks, the global
@@ -12,6 +12,10 @@ Two kernels carry the student frame:
 * ``fused_r2l_apply_int8_pe`` (``csrc/r2l_int8_pe_fused.cu``): the same
   chain in static-scale int8 (``fold_requant=True, nobf16_inner=True`` of
   ``_int8_pe_chain``), with parameters from ``calibrate_r2l_int8_pe``.
+* ``fused_r2l_apply`` (``csrc/r2l_fused.cu``): K1's chain on an input
+  encoded outside (``r2l_embed``'s per-scalar order, parameters from
+  ``prepare_fused_params``), read unpadded and rounded once to the compute
+  dtype.
 
 Each public wrapper runs its plain PyTorch version for a tensor on the CPU
 only. For a CUDA tensor it launches the kernel or raises.
@@ -41,9 +45,11 @@ def _padded_in(in_dim: int) -> int:
     return -(-in_dim // K_ALIGN) * K_ALIGN
 
 
-class FusedParamsPE(NamedTuple):
-    """Kernel-layout parameters of ``fused_r2l_apply_pe`` (weights
-    [out, in], head columns freq-major and zero-padded)."""
+class FusedParams(NamedTuple):
+    """Kernel-layout parameters of ``fused_r2l_apply`` and
+    ``fused_r2l_apply_pe`` (weights [out, in], head columns zero-padded; in
+    ``r2l_embed``'s order from ``prepare_fused_params``, freq-major from
+    ``prepare_fused_params_pe``)."""
     head_w: torch.Tensor   # [W, in_pad]    weight dtype (bf16 or f32)
     head_b: torch.Tensor   # [W]            f32
     body_w: torch.Tensor   # [nb*nl, W, W]  weight dtype, [out, in]
@@ -140,22 +146,42 @@ def _stacked_weights(model: R2L) -> tuple[torch.Tensor, ...]:
 
 
 @torch.no_grad()
+def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
+             head_perm: torch.Tensor | None) -> FusedParams:
+    """The packing: weights [out, in] in ``weight_dtype``, the head's input
+    columns (taken in the order ``head_perm`` when given) zero-padded to
+    ``K_ALIGN``, a no-op on the product: the kernels pad their input with
+    zeros."""
+    _assert_fused_supported(cfg)
+    hw, hb, bw, bb, tw, tb = _stacked_weights(model)
+    if head_perm is not None:
+        hw = hw[head_perm]
+    wd = weight_dtype
+    return FusedParams(
+        head_w=_pack(hw, wd, pad_in=True), head_b=hb.contiguous(),
+        body_w=_pack(bw, wd), body_b=bb.contiguous(),
+        tail_w=_pack(tw, wd), tail_b=tb.contiguous())
+
+
+def prepare_fused_params(model: R2L, cfg: R2LConfig,
+                         weight_dtype: torch.dtype = torch.bfloat16
+                         ) -> FusedParams:
+    """Pack the model for ``fused_r2l_apply`` (head rows in
+    ``r2l_embed``'s per-scalar order)."""
+    return _prepare(model, cfg, weight_dtype, None)
+
+
 def prepare_fused_params_pe(model: R2L, cfg: R2LConfig, dim_pts: int,
                             L: int = 10,
                             weight_dtype: torch.dtype = torch.bfloat16
-                            ) -> FusedParamsPE:
+                            ) -> FusedParams:
     """Pack the model for the PE-fused kernel (freq-major head rows)."""
-    _assert_fused_supported(cfg)
     if cfg.input_dim != dim_pts * (2 * L + 1):
         raise ValueError(f"input_dim {cfg.input_dim} != dim_pts*(2L+1) = "
                          f"{dim_pts * (2 * L + 1)}")
-    hw, hb, bw, bb, tw, tb = _stacked_weights(model)
-    perm = _pe_row_permutation_on(hw.device, dim_pts, L)
-    wd = weight_dtype
-    return FusedParamsPE(
-        head_w=_pack(hw[perm], wd, pad_in=True), head_b=hb.contiguous(),
-        body_w=_pack(bw, wd), body_b=bb.contiguous(),
-        tail_w=_pack(tw, wd), tail_b=tb.contiguous())
+    perm = _pe_row_permutation_on(model.linears()[0].weight.device, dim_pts,
+                                  L)
+    return _prepare(model, cfg, weight_dtype, perm)
 
 
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -166,17 +192,15 @@ def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.float() @ w[:, :a.shape[1]].float().T
 
 
-def fused_r2l_apply_pe_ref(fp: FusedParamsPE, cfg: R2LConfig,
-                           pts: torch.Tensor, dim_pts: int,
-                           L: int = 10) -> torch.Tensor:
-    """Plain version of ``fused_r2l_apply_pe`` (Pallas ``_kernel_body``
-    with the PE kernel's input): pts [N, dim_pts] -> [N, out_dim] f32."""
-    cd = (torch.float32 if fp.head_w.dtype == torch.float32
-          else cfg.compute_dtype)
-    p = pts.float()
-    sins, coss = _pe_sin_cos_ladder(p, L)
-    x = torch.cat([s.to(cd) for s in sins] + [c.to(cd) for c in coss]
-                  + [p.to(cd)], dim=1)
+def _compute_dtype(fp: FusedParams, cfg: R2LConfig) -> torch.dtype:
+    """f32 with f32 weights, else the config's compute dtype."""
+    return (torch.float32 if fp.head_w.dtype == torch.float32
+            else cfg.compute_dtype)
+
+
+def _chain_ref(fp: FusedParams, cfg: R2LConfig, x: torch.Tensor,
+               cd: torch.dtype) -> torch.Tensor:
+    """Pallas ``_kernel_body`` on x [N, in_dim] in ``cd``."""
     h0 = torch.relu(_mm_f32(x, fp.head_w) + fp.head_b).to(cd)
     h = h0
     nl = cfg.n_learnable
@@ -192,6 +216,28 @@ def fused_r2l_apply_pe_ref(fp: FusedParamsPE, cfg: R2LConfig,
         h = (h.float() + h0.float()).to(cd)
     out = _mm_f32(h, fp.tail_w) + fp.tail_b
     return out if cfg.linear_tail else torch.sigmoid(out)
+
+
+def fused_r2l_apply_pe_ref(fp: FusedParams, cfg: R2LConfig,
+                           pts: torch.Tensor, dim_pts: int,
+                           L: int = 10) -> torch.Tensor:
+    """Plain version of ``fused_r2l_apply_pe`` (Pallas ``_kernel_body``
+    with the PE kernel's input): pts [N, dim_pts] -> [N, out_dim] f32."""
+    cd = _compute_dtype(fp, cfg)
+    p = pts.float()
+    sins, coss = _pe_sin_cos_ladder(p, L)
+    x = torch.cat([s.to(cd) for s in sins] + [c.to(cd) for c in coss]
+                  + [p.to(cd)], dim=1)
+    return _chain_ref(fp, cfg, x, cd)
+
+
+def fused_r2l_apply_ref(fp: FusedParams, cfg: R2LConfig,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``fused_r2l_apply`` (Pallas ``_kernel`` +
+    ``_kernel_body``): x [N, input_dim] of any float dtype, rounded once to
+    the compute dtype -> [N, out_dim] f32."""
+    cd = _compute_dtype(fp, cfg)
+    return _chain_ref(fp, cfg, x.to(cd), cd)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -217,7 +263,7 @@ def _raise_on_error(rc: int, kernel: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def fused_r2l_apply_pe(fp: FusedParamsPE, cfg: R2LConfig,
+def fused_r2l_apply_pe(fp: FusedParams, cfg: R2LConfig,
                        pts: torch.Tensor, dim_pts: int,
                        L: int = 10) -> torch.Tensor:
     """pts [N, dim_pts] raw sample points -> RGB [N, out_dim] f32.
@@ -228,22 +274,10 @@ def fused_r2l_apply_pe(fp: FusedParamsPE, cfg: R2LConfig,
         return fused_r2l_apply_pe_ref(fp, cfg, pts, dim_pts, L)
     from . import _build
     _assert_fused_supported(cfg)
-    dev, W, wd = pts.device, cfg.netwidth, fp.head_w.dtype
-    nbl = cfg.num_blocks * cfg.n_learnable
-    in_dim, out_dim = dim_pts * (2 * L + 1), fp.tail_w.shape[0]
-    if wd not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"weights must be bf16 or f32, got {wd}")
-    if wd == torch.bfloat16 and cfg.compute_dtype != torch.bfloat16:
-        raise TypeError("bf16 weights need compute_dtype=torch.bfloat16")
+    dev, W = pts.device, cfg.netwidth
+    out_dim = fp.tail_w.shape[0]
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
-    for name, t, dt, shape in (
-            ("head_w", fp.head_w, wd, (W, _padded_in(in_dim))),
-            ("head_b", fp.head_b, torch.float32, (W,)),
-            ("body_w", fp.body_w, wd, (nbl, W, W)),
-            ("body_b", fp.body_b, torch.float32, (nbl, W)),
-            ("tail_w", fp.tail_w, wd, (out_dim, W)),
-            ("tail_b", fp.tail_b, torch.float32, (out_dim,))):
-        _check(t, name, dt, shape, dev)
+    wd = _check_chain_params(fp, cfg, dim_pts * (2 * L + 1), dev)
     out = torch.empty((pts.shape[0], out_dim), dtype=torch.float32,
                       device=dev)
     if pts.shape[0] == 0:
@@ -265,6 +299,67 @@ def fused_r2l_apply_pe(fp: FusedParamsPE, cfg: R2LConfig,
 
 
 fused_r2l_apply_pe.launches = 0
+
+
+def _check_chain_params(fp: FusedParams, cfg: R2LConfig, in_dim: int,
+                        dev: torch.device) -> torch.dtype:
+    """Check the packed parameters the chain kernels take; -> their dtype."""
+    W, wd = cfg.netwidth, fp.head_w.dtype
+    nbl = cfg.num_blocks * cfg.n_learnable
+    if wd not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"weights must be bf16 or f32, got {wd}")
+    if wd == torch.bfloat16 and cfg.compute_dtype != torch.bfloat16:
+        raise TypeError("bf16 weights need compute_dtype=torch.bfloat16")
+    out_dim = fp.tail_w.shape[0]
+    for name, t, dt, shape in (
+            ("head_w", fp.head_w, wd, (W, _padded_in(in_dim))),
+            ("head_b", fp.head_b, torch.float32, (W,)),
+            ("body_w", fp.body_w, wd, (nbl, W, W)),
+            ("body_b", fp.body_b, torch.float32, (nbl, W)),
+            ("tail_w", fp.tail_w, wd, (out_dim, W)),
+            ("tail_b", fp.tail_b, torch.float32, (out_dim,))):
+        _check(t, name, dt, shape, dev)
+    return wd
+
+
+def fused_r2l_apply(fp: FusedParams, cfg: R2LConfig,
+                    x: torch.Tensor) -> torch.Tensor:
+    """x [N, input_dim] (encoded rays, any float dtype) -> RGB [N, out_dim]
+    f32 through K9; ``fp`` comes from ``prepare_fused_params``. x is rounded
+    once to the compute dtype (f32 with f32 weights). CPU tensors take the
+    plain version."""
+    if x.device.type == "cpu":
+        return fused_r2l_apply_ref(fp, cfg, x)
+    from . import _build
+    _assert_fused_supported(cfg)
+    dev, n, in_dim = x.device, x.shape[0], cfg.input_dim
+    if not x.is_floating_point():
+        raise TypeError(f"x must be a float tensor, got {x.dtype}")
+    wd = _check_chain_params(fp, cfg, in_dim, dev)
+    if x.dtype != torch.float32:
+        # the kernel reads f32: the compute dtype's value, exactly
+        x = x.to(_compute_dtype(fp, cfg)).float()
+    _check(x, "x", torch.float32, (n, in_dim), dev)
+    out = torch.empty((n, fp.tail_w.shape[0]), dtype=torch.float32,
+                      device=dev)
+    if n == 0:
+        return out
+    lib = _build.load("r2l_fused")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fused_r2l_apply.launches += 1
+        rc = lib.r2l_fused_launch(
+            _ptr(x), n, in_dim, _ptr(fp.head_w), _ptr(fp.head_b),
+            _ptr(fp.body_w), _ptr(fp.body_b), _ptr(fp.tail_w),
+            _ptr(fp.tail_b), _ptr(out), cfg.netwidth, cfg.num_blocks,
+            cfg.n_learnable, out.shape[1], float(cfg.res_scale),
+            int(cfg.use_residual), int(cfg.linear_tail),
+            int(wd == torch.float32), ctypes.c_void_p(stream))
+    _raise_on_error(rc, "r2l_fused")
+    return out
+
+
+fused_r2l_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------

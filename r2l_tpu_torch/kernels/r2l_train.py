@@ -7,12 +7,16 @@ Counterpart of ``r2l_tpu/kernels/r2l_train_pallas.py``. Three kernels:
   also writes the activation stash ``[2nb+1, N, W]`` in the compute dtype
   (rows 0..nb the block inputs h_0..h_nb, row nb+1+b block b's post-ReLU
   inner activation).
-* ``train_fwd_int8`` (``csrc/r2l_train_fwd_int8.cu``, K4): the static-scale
-  int8 chain with ``stash_q=True``: an f32 residual stream, and an int8
+* ``train_fwd_int8`` (``csrc/r2l_train_fwd_int8.cu``): the static-scale
+  int8 chain. K4 (``stash_q=True``): an f32 residual stream, and an int8
   stash of the q-values the matmuls consume (row nb: the tail input with
-  the global residual folded in).
+  the global residual folded in). K8 (``stash_q=False``, the function's
+  default): ``train_fwd``'s stash contract in bf16, the residual stream
+  rounded to bf16 each block.
 * ``bwd_group`` (``csrc/r2l_bwd_group.cu``, K5): the backward through a
-  group of blocks: dh, and dW/db summed over all rays in a fixed order.
+  group of blocks: dh, and dW/db summed over all rays in a fixed order. It
+  walks a stash in the weights' dtype, K8's bf16 stash under f32 weights,
+  or K4's int8 stash.
 
 Each public wrapper runs its plain PyTorch version (``*_ref``, the Pallas
 kernel body written out) for tensors on the CPU only. For a CUDA tensor it
@@ -23,9 +27,8 @@ the backward walks the body top-down through K5 in groups of
 are plain torch, as the JAX package leaves them to XLA. Gradients land in
 the ``R2L`` module's parameters (``nn.Linear``'s ``[out, in]`` layout).
 
-Only ``stash_q=True`` of ``train_fwd_int8`` is ported (the JAX default of
-the training path); the bf16-stash variant is still to port. The TPU's
-128-lane padding, ray ``tile`` and stash DMA ring are not ported.
+The TPU's 128-lane padding, ray ``tile`` and stash DMA ring are not
+ported.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.r2l import R2L, R2LConfig
-from .r2l_fused import (FusedParamsInt8PE, FusedParamsPE, _check, _dequant,
+from .r2l_fused import (FusedParams, FusedParamsInt8PE, _check, _dequant,
                         _mm_f32, _mm_int, _padded_in, _pe_row_permutation_on,
                         _pe_sin_cos_ladder, _ptr, _q8, _raise_on_error,
                         calibrate_r2l_int8_pe, fused_kernel_supported,
@@ -57,7 +60,7 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 # K3: train_fwd (r2l_train_pallas.py:54-177)
 # ---------------------------------------------------------------------------
 
-def train_fwd_ref(fp: FusedParamsPE, cfg: R2LConfig, pts: torch.Tensor,
+def train_fwd_ref(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
                   dim_pts: int, L: int = 10
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``train_fwd``: pts [N, dim_pts] -> (rgb [N, out]
@@ -87,7 +90,7 @@ def train_fwd_ref(fp: FusedParamsPE, cfg: R2LConfig, pts: torch.Tensor,
     return (out if cfg.linear_tail else torch.sigmoid(out)), stash
 
 
-def train_fwd(fp: FusedParamsPE, cfg: R2LConfig, pts: torch.Tensor,
+def train_fwd(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
               dim_pts: int, L: int = 10
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """PE-fused forward with the activation stash (K3): pts [N, dim_pts]
@@ -133,52 +136,67 @@ train_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4: train_fwd_int8, stash_q=True (r2l_train_pallas.py:182-351)
+# K4 and K8: train_fwd_int8 (r2l_train_pallas.py:182-351)
 # ---------------------------------------------------------------------------
 
 def train_fwd_int8_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
-                       pts: torch.Tensor, dim_pts: int, L: int = 10
+                       pts: torch.Tensor, dim_pts: int, L: int = 10,
+                       stash_q: bool = False
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``train_fwd_int8`` with ``stash_q=True``; ``fp``
-    from ``calibrate_r2l_int8_pe(..., fold_requant=False)``. pts [N,
-    dim_pts] -> (rgb [N, out] f32, stash [2nb+1, N, W] int8)."""
+    """Plain version of ``train_fwd_int8``; ``fp`` from
+    ``calibrate_r2l_int8_pe(..., fold_requant=False)``. pts [N, dim_pts] ->
+    (rgb [N, out] f32, stash [2nb+1, N, W]): int8 q-values with
+    ``stash_q``, else bf16 activations (``train_fwd``'s rows)."""
     nb, dp, n = cfg.num_blocks, dim_pts, pts.shape[0]
+    bf = torch.bfloat16
     p = pts.float()
     sins, coss = _pe_sin_cos_ladder(p, L)
     xq = torch.cat([_q8(f, fp.head_inv[k * dp:(k + 1) * dp])
                     for k, f in enumerate(sins + coss + [p])], dim=1)
-    stash = torch.empty((2 * nb + 1, n, cfg.netwidth), dtype=torch.int8,
+    stash = torch.empty((2 * nb + 1, n, cfg.netwidth),
+                        dtype=torch.int8 if stash_q else bf,
                         device=pts.device)
     h0 = torch.relu(_dequant(_mm_int(xq, fp.head_q), fp.head_m, fp.head_b))
-    h = h0
+    if stash_q:
+        h = h0
+    else:
+        h = h0.to(bf)                     # the chain runs on the bf16 h0
+        stash[0] = h
     for b in range(nb):
         l1, l2 = 2 * b, 2 * b + 1
-        q = _q8(h, fp.body_inv[l1])
-        stash[b] = q.to(torch.int8)
+        q = _q8(h.float(), fp.body_inv[l1])
+        if stash_q:
+            stash[b] = q.to(torch.int8)
         t1r = torch.relu(_dequant(_mm_int(q, fp.body_q[l1]), fp.body_m[l1],
                                   fp.body_b[l1]))
-        q = _q8(t1r, fp.body_inv[l2])
-        stash[nb + 1 + b] = q.to(torch.int8)
-        h = _dequant(_mm_int(q, fp.body_q[l2]), fp.body_m[l2],
-                     fp.body_b[l2]) + h
-    hf = h + h0 if cfg.use_residual else h
+        if not stash_q:
+            t1r = t1r.to(bf)               # rounded before it is quantized
+        q = _q8(t1r.float(), fp.body_inv[l2])
+        stash[nb + 1 + b] = q.to(torch.int8) if stash_q else t1r
+        t2 = _dequant(_mm_int(q, fp.body_q[l2]), fp.body_m[l2],
+                      fp.body_b[l2])
+        if stash_q:
+            h = t2 + h
+        else:
+            h = (t2 + h.float()).to(bf)
+            stash[b + 1] = h
+    hf = h.float() + h0 if cfg.use_residual else h.float()   # the f32 h0
     q = _q8(hf, fp.tail_inv)
-    stash[nb] = q.to(torch.int8)
+    if stash_q:
+        stash[nb] = q.to(torch.int8)
     out = _dequant(_mm_int(q, fp.tail_q), fp.tail_m, fp.tail_b)
     return (out if cfg.linear_tail else torch.sigmoid(out)), stash
 
 
 def train_fwd_int8(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
-                   dim_pts: int, L: int = 10, stash_q: bool = True
+                   dim_pts: int, L: int = 10, stash_q: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Static-scale int8 training forward (K4): pts [N, dim_pts] -> (rgb
-    [N, out_dim] f32, stash [2nb+1, N, W] int8 q-values). CPU tensors take
-    the plain version. Only ``stash_q=True`` is ported."""
-    if not stash_q:
-        raise NotImplementedError("train_fwd_int8(stash_q=False) is not "
-                                  "ported; only the int8 q-value stash is")
+    """Static-scale int8 training forward: pts [N, dim_pts] -> (rgb [N,
+    out_dim] f32, stash [2nb+1, N, W]). ``stash_q`` (K4): the int8 q-values;
+    otherwise (K8) the bf16 activations. CPU tensors take the plain
+    version."""
     if pts.device.type == "cpu":
-        return train_fwd_int8_ref(fp, cfg, pts, dim_pts, L)
+        return train_fwd_int8_ref(fp, cfg, pts, dim_pts, L, stash_q)
     from . import _build
     _assert_train_supported(cfg)
     dev, W = pts.device, cfg.netwidth
@@ -201,24 +219,30 @@ def train_fwd_int8(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
             ("tail_inv", fp.tail_inv, f32, (W,))):
         _check(t, name, dt, shape, dev)
     out = torch.empty((n, out_dim), dtype=f32, device=dev)
-    stash = torch.empty((2 * nb + 1, n, W), dtype=i8, device=dev)
+    stash = torch.empty((2 * nb + 1, n, W),
+                        dtype=i8 if stash_q else torch.bfloat16, device=dev)
     if n == 0:
         return out, stash
     lib = _build.load("r2l_train_fwd_int8")
     with torch.cuda.device(dev):
-        train_fwd_int8.launches += 1
+        if stash_q:
+            train_fwd_int8.launches += 1
+        else:
+            train_fwd_int8.launches_bf16 += 1
         rc = lib.r2l_train_fwd_int8_launch(
             _ptr(pts), n, dim_pts, L, _ptr(fp.head_q), _ptr(fp.head_m),
             _ptr(fp.head_b), _ptr(fp.head_inv), _ptr(fp.body_q),
             _ptr(fp.body_m), _ptr(fp.body_b), _ptr(fp.body_inv),
             _ptr(fp.tail_q), _ptr(fp.tail_m), _ptr(fp.tail_b),
             _ptr(fp.tail_inv), _ptr(out), _ptr(stash), W, nb, out_dim,
-            int(cfg.use_residual), int(cfg.linear_tail), _stream(dev))
+            int(cfg.use_residual), int(cfg.linear_tail), int(stash_q),
+            _stream(dev))
     _raise_on_error(rc, "r2l_train_fwd_int8")
     return out, stash
 
 
-train_fwd_int8.launches = 0
+train_fwd_int8.launches = 0        # K4, stash_q=True
+train_fwd_int8.launches_bf16 = 0   # K8, stash_q=False
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +266,7 @@ def bwd_group_ref(body_w: torch.Tensor, stash: torch.Tensor,
                   b_count: int, body_scale: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``bwd_group``: body_w [2nb, W, W] ``[out, in]`` in
-    the compute dtype, dh [N, W] f32 (the gradient at block
+    the compute dtype, stash in it (or bf16), dh [N, W] f32 (the gradient at block
     b_start+b_count-1's output) -> (dh at block b_start's input [N, W] f32,
     dW [2b_count, W, W] ``[out, in]`` f32, db [2b_count, W] f32)."""
     cd, nb, rs = body_w.dtype, cfg.num_blocks, cfg.res_scale
@@ -277,10 +301,12 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
               body_scale: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward through blocks [b_start, b_start+b_count) (K5); shapes as
-    ``bwd_group_ref``. ``body_scale`` [2nb, W] f32 (1/body_inv of the int8
-    calibration) reads the int8 stash of ``train_fwd_int8`` and dequantizes
-    it. Deterministic: the same inputs give bit-identical outputs. CPU
-    tensors take the plain version."""
+    ``bwd_group_ref``. The stash is in the weights' dtype, or bf16 under f32
+    weights (``train_fwd_int8``'s bf16 stash); ``body_scale`` [2nb, W] f32
+    (1/body_inv of the int8 calibration) reads the int8 stash of
+    ``train_fwd_int8(stash_q=True)`` and dequantizes it. Deterministic: the
+    same inputs give bit-identical outputs. CPU tensors take the plain
+    version."""
     if dh.device.type == "cpu":
         return bwd_group_ref(body_w, stash, dh, cfg, b_start, b_count,
                              body_scale)
@@ -297,8 +323,10 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
         raise TypeError("the int8 stash backward takes bf16 weights")
     _check(dh, "dh", torch.float32, (n, W), dev)
     _check(body_w, "body_w", cd, (2 * nb, W, W), dev)
-    _check(stash, "stash", torch.int8 if quant else cd, (2 * nb + 1, n, W),
-           dev)
+    stash_bf16 = (not quant and cd == torch.float32
+                  and stash.dtype == torch.bfloat16)
+    _check(stash, "stash", torch.int8 if quant else
+           (torch.bfloat16 if stash_bf16 else cd), (2 * nb + 1, n, W), dev)
     lo, hi = 2 * b_start, 2 * (b_start + b_count)
     if quant:
         _check(body_scale, "body_scale", torch.float32, (2 * nb, W), dev)
@@ -320,8 +348,8 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
             _ptr(stash[nb + 1 + b_start]),
             _ptr(scale) if quant else None, _ptr(dh), _ptr(dh_out),
             _ptr(dts), _ptr(dbp), _ptr(part), _ptr(dw), _ptr(db), n, W,
-            b_count, float(cfg.res_scale), int(cd == f32), splits,
-            _stream(dev))
+            b_count, float(cfg.res_scale), int(cd == f32), int(stash_bf16),
+            splits, _stream(dev))
     _raise_on_error(rc, "r2l_bwd_group")
     return dh_out, dw, db
 
@@ -348,18 +376,22 @@ class _Spec(NamedTuple):
     group_blocks: int
     cd: torch.dtype
     int8: bool
+    stash_q: bool
 
 
 def _run_fwd(spec: _Spec, model: R2L, fp, pts: torch.Tensor):
     """-> (rgb, stash, body weights in cd [2nb, W, W], scales): scales are
-    the int8 stash's (body [2nb, W], tail [W]) dequant multipliers, or
-    None."""
+    the int8 stash's (body [2nb, W], tail [W]) dequant multipliers, or None
+    for a bf16 or compute-dtype stash."""
     cfg = spec.cfg
     if spec.int8:
-        rgb, stash = train_fwd_int8(fp, cfg, pts, spec.dim_pts, spec.L)
+        rgb, stash = train_fwd_int8(fp, cfg, pts, spec.dim_pts, spec.L,
+                                    stash_q=spec.stash_q)
         _, body, _ = model.linears()
         body_w = torch.stack([m.weight.detach() for m in body]).to(spec.cd)
-        return rgb, stash, body_w, (1.0 / fp.body_inv, 1.0 / fp.tail_inv)
+        scales = ((1.0 / fp.body_inv, 1.0 / fp.tail_inv) if spec.stash_q
+                  else None)
+        return rgb, stash, body_w, scales
     fp = prepare_fused_params_pe(model, cfg, spec.dim_pts, spec.L,
                                  weight_dtype=spec.cd)
     rgb, stash = train_fwd(fp, cfg, pts, spec.dim_pts, spec.L)
@@ -377,6 +409,9 @@ def _bwd_core(spec: _Spec, model: R2L, pts, stash, rgb, body_w, scales,
         body_scale, tail_scale = scales
         hf = stash[nb].float() * tail_scale
     else:
+        # rebuilt from the stashed rows, as JAX does, also for the int8
+        # forward's bf16 stash (whose forward added the f32 h0): a
+        # straight-through tail edge
         body_scale = None
         hf = stash[nb].float()
         if cfg.use_residual:
@@ -445,18 +480,21 @@ def make_fused_train_apply(cfg: R2LConfig, dim_pts: int, L: int = 10,
                            compute_dtype: torch.dtype = torch.bfloat16,
                            quantize: str = "",
                            calib_pts: torch.Tensor | None = None,
+                           stash_q: bool = True,
                            external_calib: bool = False):
     """Build ``apply(model, pts) -> rgb`` whose backward is the fused
     kernels' (``pts`` are data: no gradient).
 
     ``quantize='int8'`` (needs ``calib_pts`` [n, dim_pts] on the model's
-    device): the forward is K4, with the static scales recalibrated from
-    the live parameters at every call (``calibrate_r2l_int8_pe``,
-    ``fold_requant=False``); the backward walks the int8 stash with the
-    same scales and the weights in ``compute_dtype`` (a straight-through
-    gradient). ``external_calib`` (int8 only) returns ``(apply_fp,
-    calibrate)`` instead: ``apply_fp(model, pts, fp)`` takes a calibration
-    made by ``calibrate(model)``, so that the caller decides how often to
+    device): the forward runs in int8, with the static scales recalibrated
+    from the live parameters at every call (``calibrate_r2l_int8_pe``,
+    ``fold_requant=False``), and the backward walks its stash with the
+    weights in ``compute_dtype`` (a straight-through gradient):
+    ``stash_q=True`` (the default, as in JAX) is K4's int8 q-value stash,
+    dequantized with the same scales; ``stash_q=False`` K8's bf16 stash.
+    ``external_calib`` (int8 only) returns ``(apply_fp, calibrate)``
+    instead: ``apply_fp(model, pts, fp)`` takes a calibration made by
+    ``calibrate(model)``, so that the caller decides how often to
     recalibrate.
     """
     _assert_train_supported(cfg)
@@ -465,7 +503,8 @@ def make_fused_train_apply(cfg: R2LConfig, dim_pts: int, L: int = 10,
         raise ValueError("int8 training needs calib_pts")
     if external_calib and not int8:
         raise ValueError("external_calib requires quantize='int8'")
-    spec = _Spec(cfg, dim_pts, L, group_blocks, compute_dtype, int8)
+    spec = _Spec(cfg, dim_pts, L, group_blocks, compute_dtype, int8,
+                 bool(int8 and stash_q))
 
     def calibrate(model: R2L) -> FusedParamsInt8PE:
         return calibrate_r2l_int8_pe(model, cfg, dim_pts, L, calib_pts,

@@ -20,7 +20,7 @@ import torch
 
 
 def camera_ray_dirs(H: int, W: int, focal: float,
-                    device: torch.device | str = "cpu") -> torch.Tensor:
+                    device: torch.device | str) -> torch.Tensor:
     """Per-pixel camera-frame ray directions, shape [H, W, 3] f32."""
     i = torch.arange(W, dtype=torch.float32, device=device)[None, :]
     j = torch.arange(H, dtype=torch.float32, device=device)[:, None]
@@ -61,15 +61,22 @@ def get_rays(H: int, W: int, focal: float, c2w,
     [H, W, 3] f32. ``trans_origin`` slides the origins along the unit ray
     direction. The rays live on ``device``: by default the pose's device
     for a tensor, and the card for a numpy pose (pass ``device="cpu"``
-    without one). The rotation is three products summed elementwise, so it
-    is full f32 whatever the matmul precision flags say."""
+    without one). The rotation is computed elementwise, in full f32 whatever
+    the matmul precision flags say, and rounds as XLA's einsum does on the
+    CPU: d0*r0, then two fused multiply-adds (float64 products of f32
+    values are exact), so the rays equal the JAX package's bit for bit."""
     if device is None:
         device = c2w.device if torch.is_tensor(c2w) else torch.device("cuda")
     if not torch.is_tensor(c2w):
         c2w = torch.from_numpy(np.asarray(c2w, np.float32))
     c2w = c2w.to(device=device, dtype=torch.float32)
-    dirs = camera_ray_dirs(H, W, focal * focal_scale, device)
-    rays_d = (dirs[..., None, :] * c2w[:3, :3]).sum(-1)
+    d = camera_ray_dirs(H, W, focal * focal_scale, device)[..., None, :]
+    r = c2w[:3, :3]
+    f64 = torch.float64
+    acc = d[..., 0] * r[:, 0]
+    for k in (1, 2):
+        acc = (d[..., k].to(f64) * r[:, k].to(f64) + acc.to(f64)).float()
+    rays_d = acc
     rays_o = c2w[:3, -1].expand(rays_d.shape)
     if trans_origin:
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)

@@ -122,13 +122,15 @@ def _fine_model(model_c, model_f, ncfg, ncfg_fine):
     return model_f, (ncfg_fine if ncfg_fine is not None else ncfg)
 
 
-@torch.no_grad()
 def render_rays_nerf(model_c: NeRF, model_f: NeRF | None, ncfg: NeRFConfig,
                      vcfg: VolRenderConfig, rays_o: torch.Tensor,
                      rays_d: torch.Tensor, draws: ChunkDraws | None = None,
                      ncfg_fine: NeRFConfig | None = None) -> VolOutputs:
     """The plain volumetric pass over a flat ray batch [n_ray, 3] x 2.
-    ``draws=None`` is deterministic (eval)."""
+    ``draws=None`` is deterministic (eval). Differentiable in the networks'
+    parameters (teacher training), with the gradient stopped where JAX
+    stops it: the coarse weights that place the fine samples, and those
+    samples."""
     n_ray = rays_o.shape[0]
     d = draws or ChunkDraws()
     viewdirs = None
@@ -143,9 +145,10 @@ def render_rays_nerf(model_c: NeRF, model_f: NeRF | None, ncfg: NeRFConfig,
         return VolOutputs(out_c.rgb_map, out_c.disp_map, out_c.acc_map,
                           out_c.depth_map, None, None, None)
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    z_samples = sample_pdf(z_mid, out_c.weights[..., 1:-1], vcfg.n_fine,
+    z_samples = sample_pdf(z_mid, out_c.weights[..., 1:-1].detach(),
+                           vcfg.n_fine,
                            det=(draws is None or not vcfg.perturb),
-                           u=d.u_pdf)
+                           u=d.u_pdf).detach()
     z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
     model, nf = _fine_model(model_c, model_f, ncfg, ncfg_fine)
     raw_f = _query_nerf(model, nf, vcfg,

@@ -16,7 +16,7 @@ import torch
 from .rays import camera_ray_dirs, plucker
 
 
-def linspace01(n: int, device: torch.device | str = "cpu") -> torch.Tensor:
+def linspace01(n: int, device: torch.device | str) -> torch.Tensor:
     """``jnp.linspace(0, 1, n)`` in f32, bit for bit: t = i * (1/(n-1))
     with an exact 1 at the end (``torch.linspace`` rounds differently)."""
     step = torch.tensor(1.0, dtype=torch.float32) / max(n - 1, 1)
@@ -27,7 +27,7 @@ def linspace01(n: int, device: torch.device | str = "cpu") -> torch.Tensor:
 
 
 def even_z_vals(near: float, far: float, n_sample: int,
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str) -> torch.Tensor:
     """Evenly spaced sample depths in [near, far], shape [n_sample]:
     ``near*(1-t) + far*t`` as in the reference, with ``linspace01``'s t."""
     t = linspace01(n_sample, device)
@@ -79,7 +79,7 @@ class PointSampler:
     near: float
     far: float
 
-    def z_vals(self, device: torch.device | str = "cpu") -> torch.Tensor:
+    def z_vals(self, device: torch.device | str) -> torch.Tensor:
         return even_z_vals(self.near, self.far, self.n_sample, device)
 
     def frame_rays(self, c2w: torch.Tensor

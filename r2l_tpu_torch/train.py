@@ -1,32 +1,47 @@
-"""R2L distillation training (rays data mode): one step is hard-pool
-augment -> stratified sampling -> forward -> MSE -> backward -> Adam with
-the warm-up/decay schedule -> pool update.
+"""Training: R2L distillation (rays and images data modes) and the NeRF
+teacher.
 
 Counterpart of ``r2l_tpu/train.py`` (``make_lr_schedule`` :35,
-``make_optimizer`` :56, ``DistillConfig`` :66, ``TrainState`` :136,
-``init_train_state`` :143, ``_r2l_inputs`` :152, ``distill_loss_fn`` :166,
-``_distill_core`` :187, ``make_distill_step`` :308) and of the fused-VJP
-gate and int8 calibration points of ``r2l_tpu/app.py:815-839``.
+``make_optimizer`` :56, ``DistillConfig`` :66, ``_patch_dims`` :103,
+``_patch_coords`` :121, ``TrainState`` :136, ``init_train_state`` :143,
+``_r2l_inputs`` :152, ``distill_loss_fn`` :166, ``_distill_core`` :187,
+``make_distill_step`` :308, ``make_distill_step_images`` :406,
+``TeacherTrainConfig`` :472, ``TeacherState`` :487, ``init_teacher_state``
+:494, ``make_teacher_step_batched`` :513, ``make_teacher_step`` :562) and of
+the fused-VJP gate and int8 calibration points of ``r2l_tpu/app.py:815-839``.
 
-Three kinds of step, chosen by the JAX flags:
+A distillation step is hard-pool augment -> stratified sampling -> forward
+-> MSE -> backward -> Adam with the warm-up/decay schedule -> pool update,
+in one of four kinds chosen by the JAX flags:
 
 * ``xla`` (``fused_vjp=False``): plain autograd through the ``R2L`` module;
 * ``fused`` (``fused_vjp=True``): the fused forward K3 and backward K5
   (``kernels/r2l_train.py``);
 * ``fused_int8`` (``fused_vjp=True, fused_quantize='int8'``): the int8
-  forward K4 with recalibrated scales, and K5 on the int8 stash.
+  forward K4 with recalibrated scales, and K5 on the int8 stash;
+  ``fused_stash_q=False`` (kind ``fused_int8_bf16stash``): the int8 forward
+  K8 with a bf16 stash, and K5 on it.
 
-The model and its Adam state are updated in place; ``TrainState.step``
-counts the updates. The random draws of a step (hard-pool slots, depth
-jitter) are explicit: passed in (``StepDraws``, a test hands over JAX's) or
-drawn from a ``torch.Generator``. ``scan_steps=k`` is a plain loop of k
-steps over ``batches [k, B, D]``. Not here: the images data mode, the
-checkpoints, the CLI loop and the mesh.
+The images data mode (``make_distill_step_images``) picks a step's pixels
+from one image on the device and runs the same step on their rays. The
+teacher steps (``make_teacher_step``: images, no_batching;
+``make_teacher_step_batched``: a ray pool, use_batching) render a ray batch
+with both networks (``render.render_rays_nerf``) and take Adam over both on
+fine + coarse MSE: plain autograd, as JAX leaves them to XLA.
+
+Models and Adam states are updated in place; a state's ``step`` counts the
+updates. The random draws of a step (hard-pool slots, depth jitter, pixels,
+the training image, the render's jitter and sigma noise) are explicit:
+passed in (``StepDraws``, ``ImageStepDraws``, ``TeacherStepDraws``; a test
+hands over JAX's) or drawn from a ``torch.Generator``. ``scan_steps=k`` is
+a plain loop of k steps. Not here: the checkpoints, the CLI loop and the
+mesh.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import sys
 from typing import Callable, NamedTuple
 
@@ -37,8 +52,10 @@ from .encoding import r2l_embed
 from .hardmine import (HardDraws, HardPool, draw_hard, init_pool,
                        sample_hard, update_pool)
 from .kernels.r2l_train import make_fused_train_apply
+from .models.nerf import NeRF, NeRFConfig
 from .models.r2l import R2L, R2LConfig
-from .rays import plucker
+from .rays import get_rays, ndc_rays, plucker
+from .render import ChunkDraws, VolRenderConfig, draw_chunk, render_rays_nerf
 from .sampler import PointSampler, stratify_z
 
 
@@ -107,6 +124,78 @@ class DistillConfig:
         return max(int(self.batch_size * self.hard_mul), 1)
 
 
+def _patch_dims(H: int, W: int, n: int) -> tuple[int, int]:
+    """Aspect-matched patch dimensions covering >= n pixels: the
+    reference's rand_patch sizes the patch [H*k, W*k] with k = sqrt(n/(H*W))
+    (<= n pixels); the width is rounded up, and a step takes the first n
+    row-major pixels of the patch."""
+    if n > H * W:
+        raise ValueError(f"N_rand {n} exceeds image pixels {H * W}")
+    k = math.sqrt(n / (H * W))
+    ph = max(1, min(H, int(H * k)))
+    pw = max(1, min(W, math.ceil(n / ph)))
+    if ph * pw < n:                     # pw hit W: grow the height
+        ph = min(H, math.ceil(n / pw))
+    return ph, pw
+
+
+class _Box(NamedTuple):
+    """A step's pixel box (the precrop's central crop, or the image):
+    top-left (hs, ws) and size (hn, wn)."""
+    hs: int
+    ws: int
+    hn: int
+    wn: int
+
+
+def _precrop_box(H: int, W: int, dH: int, dW: int, crop: bool) -> _Box:
+    """The central 2dH x 2dW crop while ``crop``, else the whole image."""
+    if crop:
+        return _Box(H // 2 - dH, W // 2 - dW, 2 * dH, 2 * dW)
+    return _Box(0, 0, H, W)
+
+
+def _pixel_coords(u: torch.Tensor, box: _Box, H: int, W: int, n: int,
+                  mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, cols) [n] of a step's pixels from its uniform draws ``u``:
+    ``rand_pixel``, u [n, 2]: each pixel uniform in the box; ``rand_patch``,
+    u [2]: a patch origin uniform in the box, then the first n row-major
+    pixels of the ``_patch_dims`` patch (``_patch_coords`` of the JAX
+    package). The f32 products are truncated toward zero, as JAX's
+    ``astype(int32)``."""
+    i32 = torch.int32
+    if mode == "rand_patch":
+        ph, pw = _patch_dims(H, W, n)
+        h0 = (box.hs + (u[0] * max(box.hn - ph, 1)).to(i32)).clamp(0, H - ph)
+        w0 = (box.ws + (u[1] * max(box.wn - pw, 1)).to(i32)).clamp(0, W - pw)
+        flat = torch.arange(n, dtype=i32, device=u.device)
+        return ((h0 + flat // pw).clamp(0, H - 1),
+                (w0 + flat % pw).clamp(0, W - 1))
+    return ((box.hs + (u[:, 0] * box.hn).to(i32)).clamp(0, H - 1),
+            (box.ws + (u[:, 1] * box.wn).to(i32)).clamp(0, W - 1))
+
+
+def draw_pixels(n: int, mode: str, generator: torch.Generator
+                ) -> torch.Tensor:
+    """A step's pixel draws: u [n, 2] (``rand_pixel``) or [2]
+    (``rand_patch``)."""
+    return torch.rand((2,) if mode == "rand_patch" else (n, 2),
+                      generator=generator, device=generator.device)
+
+
+def _image_batch(image: torch.Tensor, c2w, H: int, W: int, focal: float,
+                 hh: torch.Tensor, ww: torch.Tensor, ndc: bool = False
+                 ) -> torch.Tensor:
+    """[n, 9] records (o, d, rgb) of pixels (hh, ww) of ``image`` [H, W, 3]
+    seen from pose ``c2w``, rays NDC-warped when ``ndc``."""
+    rays_o, rays_d = get_rays(H, W, focal, c2w, device=image.device)
+    if ndc:
+        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+    hh, ww = hh.long(), ww.long()
+    return torch.cat([rays_o[hh, ww], rays_d[hh, ww],
+                      image[hh, ww].float()], dim=-1)
+
+
 class TrainState(NamedTuple):
     params: R2L                      # updated in place
     optimizer: torch.optim.Adam      # updated in place
@@ -120,6 +209,13 @@ class StepDraws(NamedTuple):
     without perturbation)."""
     hard: HardDraws | None
     z_u: torch.Tensor | None
+
+
+class ImageStepDraws(NamedTuple):
+    """The random draws of one images-mode step: the pixels' (``u_pix``,
+    see ``draw_pixels``), then the rays-mode step's on them (``core``)."""
+    u_pix: torch.Tensor
+    core: StepDraws
 
 
 def init_train_state(model: R2L, dcfg: DistillConfig, record_dim: int = 9,
@@ -234,6 +330,7 @@ def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
                       fused_group_blocks: int = 4, scan_steps: int = 1,
                       fused_quantize: str = "",
                       fused_calib_pts: torch.Tensor | None = None,
+                      fused_stash_q: bool = True,
                       fused_calib_every: int = 1,
                       device: torch.device | str = torch.device("cuda")):
     """The distillation step (rays mode).
@@ -249,8 +346,10 @@ def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
 
     ``fused_vjp``: the fused kernels (single device, canonical resmlp body,
     sampled points). ``fused_quantize='int8'`` runs the forward in int8
-    (needs ``fused_calib_pts``); ``fused_calib_every=N > 1`` with k > 1
-    recalibrates at the call's entry and then when ``step % N == 0``.
+    (needs ``fused_calib_pts``), stashing int8 q-values, or with
+    ``fused_stash_q=False`` bf16 dequantized activations;
+    ``fused_calib_every=N > 1`` with k > 1 recalibrates at the call's entry
+    and then when ``step % N == 0``.
     """
     device = torch.device(device)
     fused_apply = fused_calibrate = None
@@ -264,51 +363,285 @@ def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
         built = make_fused_train_apply(
             cfg, dim_pts, dcfg.embed_L, group_blocks=fused_group_blocks,
             compute_dtype=cfg.compute_dtype, quantize=fused_quantize,
-            calib_pts=fused_calib_pts, external_calib=external)
+            calib_pts=fused_calib_pts, stash_q=fused_stash_q,
+            external_calib=external)
         if external:
             fused_apply, fused_calibrate = built
         else:
             fused_apply = built
     schedule = make_lr_schedule(dcfg.lrate, dcfg.lrate_decay, dcfg.warmup_lr)
     n_fresh = dcfg.batch_size - dcfg.n_hard_out
-    gens: list[torch.Generator] = []
+    calib: dict = {}    # a k-step call's int8 parameters and its entry step
 
-    def draws_of(generator, draws, j: int | None) -> StepDraws:
-        if draws is not None:
-            return draws if j is None else draws[j]
-        if generator is None:
-            if not gens:
-                gens.append(torch.Generator(device).manual_seed(0))
-            generator = gens[0]
-        return draw_step(dcfg, sampler.n_sample, generator)
+    def enter(state):
+        calib.update(fp=fused_calibrate(state.params), entry=state.step)
 
-    def one(state, fresh, draws, fp=None):
+    def one(state, fresh, draws):
         fresh = torch.as_tensor(fresh, dtype=torch.float32, device=device)
         apply = fused_apply
-        if fp is not None:
+        if fused_calibrate is not None:
+            if (state.step % fused_calib_every == 0
+                    and state.step != calib["entry"]):
+                calib["fp"] = fused_calibrate(state.params)
+            fp = calib["fp"]
             apply = lambda m, x: fused_apply(m, x, fp)  # noqa: E731
         return _distill_core(state, fresh, draws, cfg, dcfg, sampler,
                              schedule, n_fresh, apply)
 
-    if scan_steps <= 1:
-        def step(state: TrainState, fresh, generator=None, draws=None):
-            return one(state, fresh, draws_of(generator, draws, None))
+    return _maybe_scan(
+        one, scan_steps, "distill",
+        lambda g, args: draw_step(dcfg, sampler.n_sample, g), device,
+        enter=enter if fused_calibrate is not None else None)
+
+
+_SCAN_ARGS = {
+    "distill": lambda a, j, stride: (a[0][j],),
+    "distill_images": lambda a, j, stride: (a[0][j], a[1][j]),
+    "teacher_images": lambda a, j, stride: a,
+    "teacher_batched": lambda a, j, stride: (a[0], a[1] + j * stride),
+}
+
+
+def _maybe_scan(one, n: int, mode: str, draw, device: torch.device,
+                stride: int = 0, enter=None):
+    """The step ``step(state, *args, generator=None, draws=None) -> (state,
+    metrics)`` that runs ``one(state, *args, draws)``, or, when ``n > 1``, a
+    plain loop of n such steps per call, metrics stacked [n]. ``mode`` says
+    how the call's arguments give each step's, as in JAX's ``_maybe_scan``:
+    ``distill`` (batches [n, ...]), ``distill_images`` (images and poses
+    [n, ...]), ``teacher_images`` (the same images and poses each step),
+    ``teacher_batched`` (the offset advances by ``stride`` each step). A
+    step's draws are ``draws`` (``draws[j]`` in a loop) when given, else
+    ``draw(generator, step_args)``, from ``generator`` or from the step's
+    own generator on ``device`` (seeded with 0 at its first use).
+    ``enter(state)`` runs at the start of each k-step call."""
+    gens: list[torch.Generator] = []
+
+    def draws_for(generator, draws, args):
+        if draws is not None:
+            return draws
+        if generator is None:
+            if not gens:
+                gens.append(torch.Generator(device).manual_seed(0))
+            generator = gens[0]
+        return draw(generator, args)
+
+    if n <= 1:
+        def step(state, *args, generator=None, draws=None):
+            return one(state, *args, draws_for(generator, draws, args))
         return step
 
-    def scan(state: TrainState, batches, generator=None, draws=None):
-        entry_step = state.step
-        fp = fused_calibrate(state.params) if fused_calibrate else None
+    def scan(state, *args, generator=None, draws=None):
+        if enter is not None:
+            enter(state)
         ms = []
-        for j in range(scan_steps):
-            if (fused_calibrate and state.step % fused_calib_every == 0
-                    and state.step != entry_step):
-                fp = fused_calibrate(state.params)
-            state, m = one(state, batches[j], draws_of(generator, draws, j),
-                           fp)
+        for j in range(n):
+            a = _SCAN_ARGS[mode](args, j, stride)
+            state, m = one(state, *a, draws_for(
+                generator, None if draws is None else draws[j], a))
             ms.append(m)
         return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     return scan
+
+
+def make_distill_step_images(cfg: R2LConfig, dcfg: DistillConfig,
+                             sampler: PointSampler, H: int, W: int,
+                             focal: float, precrop_iters: int = 0,
+                             precrop_frac: float = 0.5,
+                             select_pixel_mode: str = "rand_pixel",
+                             scan_steps: int = 1,
+                             device: torch.device | str = torch.device(
+                                 "cuda")):
+    """The distillation step of the images data mode: one (image [H, W, 3],
+    pose [3, 4]) per step; ``batch_size - n_hard_out`` pixels are chosen on
+    the device (the central ``precrop_frac`` crop for the first
+    ``precrop_iters`` steps; ``rand_pixel``, or ``rand_patch``: one patch),
+    their raw camera rays made with ``get_rays`` (the student takes raw rays
+    even for LLFF), and the rays-mode step (``_distill_core``: hard pool,
+    loss, Adam, pool update) runs on them.
+
+    ``scan_steps == 1``: ``step(state, image, pose, generator=None,
+    draws=None) -> (state, metrics)``; ``scan_steps = k > 1``: ``step(state,
+    images [k, H, W, 3], poses [k, 3, 4], generator=None, draws=None)``, the
+    same as k single steps. ``draws`` (an ``ImageStepDraws``, or a list of
+    k) are the steps' random draws; without them they come from
+    ``generator``, or from the step's own generator on ``device``.
+    """
+    device = torch.device(device)
+    schedule = make_lr_schedule(dcfg.lrate, dcfg.lrate_decay, dcfg.warmup_lr)
+    n_fresh = dcfg.batch_size - dcfg.n_hard_out
+    dH, dW = int(H // 2 * precrop_frac), int(W // 2 * precrop_frac)
+
+    def draw(g, args) -> ImageStepDraws:
+        return ImageStepDraws(draw_pixels(n_fresh, select_pixel_mode, g),
+                              draw_step(dcfg, sampler.n_sample, g))
+
+    def one(state, image, pose, draws: ImageStepDraws):
+        image = torch.as_tensor(image, dtype=torch.float32, device=device)
+        box = _precrop_box(H, W, dH, dW, state.step < precrop_iters)
+        hh, ww = _pixel_coords(draws.u_pix.to(device), box, H, W, n_fresh,
+                               select_pixel_mode)
+        fresh = _image_batch(image, pose, H, W, focal, hh, ww)
+        return _distill_core(state, fresh, draws.core, cfg, dcfg, sampler,
+                             schedule, n_fresh)
+
+    return _maybe_scan(one, scan_steps, "distill_images", draw, device)
+
+
+# ---------------------------------------------------------------------------
+# NeRF teacher training (r2l_tpu/train.py:471-638)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TeacherTrainConfig:
+    n_rand: int = 1024               # rays per step (--N_rand for nerf)
+    lrate: float = 5e-4
+    lrate_decay: int = 250
+    warmup_lr: str | None = None     # 'start,end_iter'
+    precrop_iters: int = 0
+    precrop_frac: float = 0.5
+    select_pixel_mode: str = "rand_pixel"  # or 'rand_patch'
+
+
+class TeacherState(NamedTuple):
+    model_c: NeRF                    # updated in place
+    model_f: NeRF | None             # None without a fine network
+    optimizer: torch.optim.Adam      # over both networks, updated in place
+    step: int                        # updates made so far
+
+
+class TeacherStepDraws(NamedTuple):
+    """The random draws of one teacher step: the training image's index
+    (0-d long; None in the batched mode), the pixels' (``draw_pixels``;
+    None in the batched mode) and the render's (``ChunkDraws`` of the
+    step's rays)."""
+    img_i: torch.Tensor | None
+    u_pix: torch.Tensor | None
+    render: ChunkDraws
+
+
+def _teacher_params(model_c: NeRF, model_f: NeRF | None) -> list:
+    return list(model_c.parameters()) + (
+        list(model_f.parameters()) if model_f is not None else [])
+
+
+def init_teacher_state(model_c: NeRF, model_f: NeRF | None,
+                       tcfg: TeacherTrainConfig) -> TeacherState:
+    """A fresh teacher state: Adam (optax's betas and eps) over the coarse
+    and the fine network's parameters, step 0."""
+    return TeacherState(model_c, model_f,
+                        make_optimizer(_teacher_params(model_c, model_f),
+                                       tcfg.lrate), 0)
+
+
+def _teacher_update(state: TeacherState, ncfg: NeRFConfig,
+                    vcfg: VolRenderConfig, rays_o: torch.Tensor,
+                    rays_d: torch.Tensor, target: torch.Tensor,
+                    draws: ChunkDraws, schedule, ncfg_fine
+                    ) -> tuple[TeacherState, dict]:
+    """One update on a ray batch: the volumetric render, loss = fine MSE +
+    coarse MSE, backward, Adam at the schedule's rate for the count before
+    this update. PSNR is the fine MSE's alone (the reference's log)."""
+    opt = state.optimizer
+    opt.zero_grad(set_to_none=True)
+    out = render_rays_nerf(state.model_c, state.model_f, ncfg, vcfg, rays_o,
+                           rays_d, draws, ncfg_fine=ncfg_fine)
+    loss_rgb = torch.mean((out.rgb_map - target) ** 2)
+    loss = loss_rgb
+    if out.rgb0 is not None:
+        loss = loss + torch.mean((out.rgb0 - target) ** 2)
+    loss.backward()
+    for group in opt.param_groups:
+        group["lr"] = schedule(state.step)
+    opt.step()
+    loss_rgb = loss_rgb.detach()
+    return state._replace(step=state.step + 1), {
+        "loss": loss.detach(),
+        "psnr": -10.0 * torch.log10(torch.clamp(loss_rgb, min=1e-12))}
+
+
+def make_teacher_step(ncfg: NeRFConfig, vcfg: VolRenderConfig,
+                      tcfg: TeacherTrainConfig, H: int, W: int, focal: float,
+                      ncfg_fine: NeRFConfig | None = None, ndc: bool = False,
+                      scan_steps: int = 1,
+                      device: torch.device | str = torch.device("cuda")):
+    """The teacher step over training images (``no_batching``, the lego
+    default): a random image, ``n_rand`` of its pixels (the central
+    ``precrop_frac`` crop for the first ``precrop_iters`` steps;
+    ``rand_pixel`` or one ``rand_patch``), their rays (NDC-warped with
+    ``ndc``, LLFF), the volumetric render of both networks, MSE of the fine
+    and the coarse pass, Adam.
+
+    ``step(state, images [N, H, W, 3], poses [N, 3|4, 4], generator=None,
+    draws=None) -> (state, metrics)``; with ``scan_steps = k > 1`` k such
+    steps, metrics stacked [k]. ``draws`` (a ``TeacherStepDraws``, or a list
+    of k) are the steps' random draws; without them they come from
+    ``generator``, or from the step's own generator on ``device``. Images
+    and poses should live on ``device``: a copy from the host each step
+    makes the host wait for the card.
+    """
+    device = torch.device(device)
+    schedule = make_lr_schedule(tcfg.lrate, tcfg.lrate_decay, tcfg.warmup_lr)
+    n, mode = tcfg.n_rand, tcfg.select_pixel_mode
+    fH, fW = int(H * tcfg.precrop_frac / 2), int(W * tcfg.precrop_frac / 2)
+
+    def draw(g, args) -> TeacherStepDraws:
+        return TeacherStepDraws(
+            torch.randint(0, len(args[0]), (1,), generator=g,
+                          device=g.device),
+            draw_pixels(n, mode, g), draw_chunk(vcfg, n, g))
+
+    def one(state, images, poses, draws: TeacherStepDraws):
+        images = torch.as_tensor(images, dtype=torch.float32, device=device)
+        poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
+        idx = torch.as_tensor(draws.img_i, device=device).reshape(1)
+        target_img = images.index_select(0, idx)[0]
+        c2w = poses.index_select(0, idx)[0]
+        box = _precrop_box(H, W, fH, fW, state.step < tcfg.precrop_iters)
+        hh, ww = _pixel_coords(draws.u_pix.to(device), box, H, W, n, mode)
+        batch = _image_batch(target_img, c2w, H, W, focal, hh, ww, ndc)
+        return _teacher_update(state, ncfg, vcfg, batch[:, 0:3],
+                               batch[:, 3:6], batch[:, 6:9], draws.render,
+                               schedule, ncfg_fine)
+
+    return _maybe_scan(one, scan_steps, "teacher_images", draw, device)
+
+
+def make_teacher_step_batched(ncfg: NeRFConfig, vcfg: VolRenderConfig,
+                              tcfg: TeacherTrainConfig,
+                              ncfg_fine: NeRFConfig | None = None,
+                              scan_steps: int = 1,
+                              device: torch.device | str = torch.device(
+                                  "cuda")):
+    """The teacher step over a pre-shuffled ray pool (``use_batching``, the
+    LLFF default): each step renders the ``n_rand`` records [o, d, rgb] of
+    ``ray_pool`` [N, 9] at ``offset`` (clamped so that the slice fits, as
+    ``dynamic_slice``); the caller advances the offset and reshuffles the
+    pool at the end of an epoch.
+
+    ``step(state, ray_pool, offset, generator=None, draws=None) -> (state,
+    metrics)``; with ``scan_steps = k > 1`` k steps at offsets ``offset +
+    j * n_rand``, metrics stacked [k]. ``draws``: a ``TeacherStepDraws``
+    (only ``render`` is read), or a list of k.
+    """
+    device = torch.device(device)
+    schedule = make_lr_schedule(tcfg.lrate, tcfg.lrate_decay, tcfg.warmup_lr)
+    n = tcfg.n_rand
+
+    def draw(g, args) -> TeacherStepDraws:
+        return TeacherStepDraws(None, None, draw_chunk(vcfg, n, g))
+
+    def one(state, ray_pool, offset: int, draws: TeacherStepDraws):
+        pool = torch.as_tensor(ray_pool, dtype=torch.float32, device=device)
+        start = min(max(int(offset), 0), pool.shape[0] - n)
+        batch = pool[start:start + n]
+        return _teacher_update(state, ncfg, vcfg, batch[:, 0:3],
+                               batch[:, 3:6], batch[:, 6:9], draws.render,
+                               schedule, ncfg_fine)
+
+    return _maybe_scan(one, scan_steps, "teacher_batched", draw, device,
+                       stride=n)
 
 
 def fused_vjp_gate(fused_train_vjp: bool, cfg: R2LConfig, plucker_: bool,

@@ -18,9 +18,11 @@ from r2l_tpu.models import R2LConfig as JaxR2LConfig
 from r2l_tpu.models import init_r2l as jax_init_r2l
 from r2l_tpu.models.nerf import NeRFConfig as JaxNeRFConfig
 from r2l_tpu.models.nerf import init_nerf as jax_init_nerf
+from r2l_tpu_torch.hardmine import HardDraws
 from r2l_tpu_torch.models import (NeRF, NeRFConfig, R2L, R2LConfig,
                                   nerf_params_from_jax, params_from_jax)
 from r2l_tpu_torch.render import ChunkDraws
+from r2l_tpu_torch.train import StepDraws
 
 torch.set_num_threads(2)
 
@@ -91,30 +93,48 @@ def kernel_layout(name: str, jax_field, like: torch.Tensor) -> np.ndarray:
     return a[tuple(slice(0, s) for s in like.shape)]
 
 
-def jax_chunk_draws(key, vcfg, n_rays, fused=False):
-    """JAX's per-chunk draws: the keys render_frame_nerf(_fused) splits,
-    each chunk's split into (strat, noise, pdf, noise2) on the plain path
-    (render.py:131) and (strat, pdf) on the fused one (render.py:291); the
-    sigma noise is drawn where ``raw_noise_std > 0`` (volume.py:50)."""
-    chunk = min(vcfg.ray_chunk, n_rays)
-    n_chunks = -(-n_rays // chunk)
+def jax_ray_draws(kk, vcfg, n, fused=False):
+    """The draws JAX's render_rays_nerf makes from a key for n rays: the key
+    split into (strat, noise, pdf, noise2) on the plain path (render.py:131)
+    and (strat, pdf) on the fused one (render.py:291); the sigma noise is
+    drawn where ``raw_noise_std > 0`` (volume.py:50)."""
     n_c, n_f = vcfg.n_coarse, vcfg.n_fine
     noisy = vcfg.raw_noise_std > 0 and not fused
-    out = []
-    for kk in jax.random.split(key, n_chunks):
-        k_noise = k_noise2 = None
-        if fused:
-            k_strat, k_pdf = jax.random.split(kk)
-        else:
-            k_strat, k_noise, k_pdf, k_noise2 = jax.random.split(kk, 4)
+    k_noise = k_noise2 = None
+    if fused:
+        k_strat, k_pdf = jax.random.split(kk)
+    else:
+        k_strat, k_noise, k_pdf, k_noise2 = jax.random.split(kk, 4)
 
-        def draw(f, k, m, use=True):
-            return t(f(k, (chunk, m), dtype=jnp.float32)) if use else None
+    def draw(f, k, m, use=True):
+        return t(f(k, (n, m), dtype=jnp.float32)) if use else None
 
-        out.append(ChunkDraws(
-            u_strat=draw(jax.random.uniform, k_strat, n_c),
-            noise=draw(jax.random.normal, k_noise, n_c, noisy),
-            u_pdf=draw(jax.random.uniform, k_pdf, n_f, n_f > 0),
-            noise2=draw(jax.random.normal, k_noise2, n_c + n_f,
-                        noisy and n_f > 0)))
-    return out
+    return ChunkDraws(
+        u_strat=draw(jax.random.uniform, k_strat, n_c),
+        noise=draw(jax.random.normal, k_noise, n_c, noisy),
+        u_pdf=draw(jax.random.uniform, k_pdf, n_f, n_f > 0),
+        noise2=draw(jax.random.normal, k_noise2, n_c + n_f,
+                    noisy and n_f > 0))
+
+
+def jax_chunk_draws(key, vcfg, n_rays, fused=False):
+    """JAX's per-chunk draws: the keys render_frame_nerf(_fused) splits,
+    each chunk's as ``jax_ray_draws``."""
+    chunk = min(vcfg.ray_chunk, n_rays)
+    n_chunks = -(-n_rays // chunk)
+    return [jax_ray_draws(kk, vcfg, chunk, fused)
+            for kk in jax.random.split(key, n_chunks)]
+
+
+def jax_step_draws(key, dcfg, n_sample):
+    """The draws JAX's _distill_core makes from a step's key: the hard-pool
+    offsets and shuffle (hardmine.sample_hard, stratified), then the depth
+    jitter."""
+    k_hard, k_perturb = jax.random.split(key)
+    k_off, k_shuf = jax.random.split(k_hard)
+    hard = HardDraws(
+        t(jax.random.uniform(k_off, (dcfg.n_hard_out,))),
+        torch.from_numpy(np.asarray(jax.random.permutation(
+            k_shuf, dcfg.n_hard_out), np.int64)))
+    z_u = t(jax.random.uniform(k_perturb, (dcfg.batch_size, n_sample)))
+    return StepDraws(hard, z_u)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from r2l_tpu_torch.encoding import r2l_embed
 from r2l_tpu_torch.evaluate import _calibration_points
 from r2l_tpu_torch.kernels import nerf_render as NR
 from r2l_tpu_torch.kernels import r2l_fused as F
@@ -82,6 +83,28 @@ def test_pe_kernel_matches_plain(dev, name, wd):
     assert F.fused_r2l_apply_pe.launches == before + 1
     want = F.fused_r2l_apply_pe_ref(fp, cfg, pts, dp, L)
     mx, _ = _deltas(got, want)
+    assert mx < (TOL_F32 if wd == torch.float32 else TOL_BF16), mx
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+def test_fused_kernel_matches_plain(dev, name, wd):
+    """K9 on the encoded rays (r2l_embed's order, the unpadded [N, in_dim]
+    input; 1000 rays, not a multiple of the ray tile)."""
+    cfg, model, _, _, pts, dp, L = _case(name, dev)
+    fp = F.prepare_fused_params(model, cfg, weight_dtype=wd)
+    x = r2l_embed(pts, L)
+    assert x.shape == (1000, cfg.input_dim)
+    before = F.fused_r2l_apply.launches
+    got = F.fused_r2l_apply(fp, cfg, x)
+    torch.cuda.synchronize()
+    assert F.fused_r2l_apply.launches == before + 1
+    mx, _ = _deltas(got, F.fused_r2l_apply_ref(fp, cfg, x))
+    assert mx < (TOL_F32 if wd == torch.float32 else TOL_BF16), mx
+    # a half-precision x is rounded to the compute dtype once, as the plain
+    # version rounds it
+    got = F.fused_r2l_apply(fp, cfg, x.half())
+    mx, _ = _deltas(got, F.fused_r2l_apply_ref(fp, cfg, x.half()))
     assert mx < (TOL_F32 if wd == torch.float32 else TOL_BF16), mx
 
 
@@ -198,10 +221,10 @@ def test_train_fwd_int8_kernel_matches_plain(dev, name):
                                  _calibration_points(sampler, poses, dev),
                                  fold_requant=False)
     before = T.train_fwd_int8.launches
-    rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L)
+    rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L, stash_q=True)
     torch.cuda.synchronize()
     assert T.train_fwd_int8.launches == before + 1
-    rgb_p, stash_p = T.train_fwd_int8_ref(fp, cfg, pts, dp, L)
+    rgb_p, stash_p = T.train_fwd_int8_ref(fp, cfg, pts, dp, L, stash_q=True)
     mx, rms = _deltas(rgb, rgb_p)
     assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (mx, rms)
     dq = (stash.int() - stash_p.int()).abs()
@@ -210,17 +233,46 @@ def test_train_fwd_int8_kernel_matches_plain(dev, name):
 
 
 @pytest.mark.parametrize("name", sorted(TRAIN_CASES))
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_train_fwd_int8_bf16_stash_kernel_matches_plain(dev, name):
+    """K8: the int8 forward with train_fwd's rows stashed in bf16."""
+    cfg, model, sampler, poses, pts, dp, L = _train_case(name, dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                 _calibration_points(sampler, poses, dev),
+                                 fold_requant=False)
+    before = T.train_fwd_int8.launches_bf16
+    rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L)
+    torch.cuda.synchronize()
+    assert T.train_fwd_int8.launches_bf16 == before + 1
+    rgb_p, stash_p = T.train_fwd_int8_ref(fp, cfg, pts, dp, L)
+    mx, rms = _deltas(rgb, rgb_p)
+    assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (mx, rms)
+    assert stash.dtype == stash_p.dtype == torch.bfloat16
+    d = (stash.float() - stash_p.float()).abs().amax(dim=(1, 2))
+    scale = stash_p.float().abs().amax(dim=(1, 2)).clamp(min=1.0)
+    assert float((d / scale).max()) < TOL_BF16, d
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_CASES))
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "f32_bf16stash"])
 def test_bwd_group_kernel_matches_plain(dev, name, kind):
-    cd = torch.float32 if kind == "f32" else torch.bfloat16
+    """K5 per stash: in the weights' dtype (f32, bf16), K4's int8 one, and
+    K8's bf16 one under f32 weights."""
+    cd = torch.float32 if kind.startswith("f32") else torch.bfloat16
     cfg, model, sampler, poses, pts, dp, L = _train_case(name, dev, cd)
     nb, W = cfg.num_blocks, cfg.netwidth
     scale = None
-    if kind == "int8":
+    if kind == "f32_bf16stash":
         fp = F.calibrate_r2l_int8_pe(
             model, cfg, dp, L, _calibration_points(sampler, poses, dev),
             fold_requant=False)
         _, stash = T.train_fwd_int8_ref(fp, cfg, pts, dp, L)
+        body_w = F.prepare_fused_params_pe(model, cfg, dp, L,
+                                           weight_dtype=cd).body_w
+    elif kind == "int8":
+        fp = F.calibrate_r2l_int8_pe(
+            model, cfg, dp, L, _calibration_points(sampler, poses, dev),
+            fold_requant=False)
+        _, stash = T.train_fwd_int8_ref(fp, cfg, pts, dp, L, stash_q=True)
         scale = 1.0 / fp.body_inv
         body_w = F.prepare_fused_params_pe(model, cfg, dp, L).body_w
     else:
@@ -239,23 +291,24 @@ def test_bwd_group_kernel_matches_plain(dev, name, kind):
                                body_scale=scale)
         for g, a, w, what in zip(got, again, want, ("dh", "dW", "db")):
             assert torch.equal(g, a), f"{what} differs between two runs"
-            ok, err = _grad_close(g, w, kind == "f32")
+            ok, err = _grad_close(g, w, kind.startswith("f32"))
             assert ok, (what, b0, cnt, err)
 
 
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "int8_bf16stash",
+                                  "int8_bf16stash_f32"])
 def test_fused_apply_grads_match_plain(dev, kind):
     """The autograd Function on the card (K3/K4 + K5) against the same
     Function on the CPU (the plain versions), same weights and points. At
     L=4: the card's and the CPU's sin/cos differ by ulps, which the
     doubling ladder grows by 2^(L-1) in the head's gradient (at L=10 that
     alone is 1.2e-4 norm-relative in f32)."""
-    cd = torch.float32 if kind == "f32" else torch.bfloat16
+    cd = torch.float32 if kind.endswith("f32") else torch.bfloat16
     cfg, model, sampler, poses, pts, dp, L = _train_case("w128_L4", dev, cd,
                                                          700)
     kw = {}
-    if kind == "int8":
-        kw = dict(quantize="int8",
+    if kind.startswith("int8"):
+        kw = dict(quantize="int8", stash_q=kind == "int8",
                   calib_pts=_calibration_points(sampler, poses, dev))
     tgt = torch.rand((pts.shape[0], 3), generator=torch.Generator(
         device=dev).manual_seed(2), device=dev)

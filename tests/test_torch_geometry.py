@@ -26,7 +26,7 @@ def _pose(theta, phi, radius=4.0):
 @pytest.mark.parametrize("H,W,focal", [(8, 8, 10.0), (12, 16, 14.5)])
 def test_camera_ray_dirs(H, W, focal):
     want = np.asarray(jrays.camera_ray_dirs(H, W, focal))
-    got = n(rays.camera_ray_dirs(H, W, focal))
+    got = n(rays.camera_ray_dirs(H, W, focal, "cpu"))
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
@@ -57,7 +57,7 @@ def test_sample_test(n_sample):
     got = n(ts.sample_test(t(c2w)))
     assert got.shape == want.shape == (64, 3 * n_sample)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-    np.testing.assert_allclose(n(ts.z_vals()), np.asarray(js.z_vals),
+    np.testing.assert_allclose(n(ts.z_vals("cpu")), np.asarray(js.z_vals),
                                rtol=0, atol=TOL)
     np.testing.assert_allclose(n(ts.sample_test_plucker(t(c2w))),
                                np.asarray(js.sample_test_plucker(
@@ -118,7 +118,7 @@ def test_r2l_embed(L, include_input):
 @pytest.mark.parametrize("n_sample", [1, 2, 16, 64])
 def test_even_z_vals_bitwise(n_sample):
     """near*(1-t)+far*t with jnp.linspace's own t, bit for bit."""
-    got = n(sampler.even_z_vals(2.0, 6.0, n_sample))
+    got = n(sampler.even_z_vals(2.0, 6.0, n_sample, "cpu"))
     np.testing.assert_array_equal(got, np.asarray(
         jsamp.even_z_vals(2.0, 6.0, n_sample)))
     assert got[0] == 2.0 and (n_sample == 1 or got[-1] == 6.0)

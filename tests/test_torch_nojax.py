@@ -1,8 +1,10 @@
 """The port never imports JAX nor the JAX package: a fresh interpreter imports
 r2l_tpu_torch and every module in it, renders a frame on the CPU through
-each kind, takes a distillation step of each kind, renders a teacher frame
-and generates one pose of pseudo data (plain and int8-packed fused render on
-the CPU), and finds neither ``jax`` nor ``r2l_tpu`` in sys.modules."""
+each kind and through the kernel API, takes a distillation step of each
+kind and one in the images data mode, renders a teacher frame, generates
+one pose of pseudo data (plain and int8-packed fused render on the CPU),
+takes a teacher step of each mode on images and their ray records, and finds
+neither ``jax`` nor ``r2l_tpu`` in sys.modules."""
 import os
 import subprocess
 import sys
@@ -30,6 +32,11 @@ poses = np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4] for t in (0, 90)])
 for kw in ({"use_pallas": False}, {}, {"quantize": "int8"}):
     assert make_r2l_frame_fn(model, cfg, sampler, calib_poses=poses,
                              **kw)(poses[0]).shape == (4, 4, 3)
+from r2l_tpu_torch.encoding import r2l_embed
+from r2l_tpu_torch.kernels import fused_r2l_apply, prepare_fused_params
+x = r2l_embed(sampler.sample_test(torch.from_numpy(poses[0])), 10)
+assert fused_r2l_apply(prepare_fused_params(model, cfg), cfg,
+                       x).shape == (16, 3)
 from r2l_tpu_torch.train import (DistillConfig, fused_int8_calib_points,
                                  init_train_state, make_distill_step)
 dcfg = DistillConfig(batch_size=32, n_hard_in=4, n_hard_out=8, hard_mul=2.0)
@@ -37,11 +44,20 @@ calib = fused_int8_calib_points(32, 32, 40.0, 2, 2.0, 6.0, poses, "cpu")
 fresh = np.random.default_rng(0).uniform(size=(24, 9)).astype(np.float32)
 for kw in ({}, {"fused_vjp": True},
            {"fused_vjp": True, "fused_quantize": "int8",
-            "fused_calib_pts": calib}):
+            "fused_calib_pts": calib},
+           {"fused_vjp": True, "fused_quantize": "int8",
+            "fused_calib_pts": calib, "fused_stash_q": False}):
     state = init_train_state(model, dcfg, device="cpu")
     step = make_distill_step(cfg, dcfg, sampler, device="cpu", **kw)
     state, m = step(state, fresh)
     assert state.step == 1 and bool(torch.isfinite(m["loss"]))
+from r2l_tpu_torch.train import make_distill_step_images
+img = torch.rand((4, 4, 3), generator=torch.Generator().manual_seed(1))
+step = make_distill_step_images(cfg, DistillConfig(batch_size=8), sampler,
+                                4, 4, 5.0, precrop_iters=1, device="cpu")
+state = init_train_state(model, DistillConfig(batch_size=8), device="cpu")
+state, m = step(state, img, torch.from_numpy(poses[0]))
+assert state.step == 1 and bool(torch.isfinite(m["loss"]))
 import tempfile
 from r2l_tpu_torch.datagen import DataGenConfig, generate_pseudo_data
 from r2l_tpu_torch.evaluate import make_nerf_frame_fn
@@ -64,6 +80,19 @@ with tempfile.TemporaryDirectory() as tmp:
     gcfg = DataGenConfig(n_pose=1, H=4, W=4, focal=5.0, save_every=1)
     assert generate_pseudo_data(mc, mf, ncfg, vcfg, gcfg, tmp,
                                 device="cpu") == 16
+from r2l_tpu_torch.datagen import images_to_ray_records
+from r2l_tpu_torch.train import (TeacherTrainConfig, init_teacher_state,
+                                 make_teacher_step, make_teacher_step_batched)
+imgs = np.random.default_rng(2).uniform(size=(2, 4, 4, 3)).astype(np.float32)
+tcfg = TeacherTrainConfig(n_rand=8, precrop_iters=1)
+st = init_teacher_state(mc, mf, tcfg)
+st, m = make_teacher_step(ncfg, vcfg, tcfg, 4, 4, 5.0, device="cpu")(
+    st, imgs, poses)
+pool = images_to_ray_records(imgs, poses, 4, 4, 5.0, device="cpu")
+assert pool.shape == (32, 9)
+st, m = make_teacher_step_batched(ncfg, vcfg, tcfg, device="cpu")(
+    st, pool, 8)
+assert st.step == 2 and bool(torch.isfinite(m["loss"]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "r2l_tpu"))
 print(len(names), bad)

@@ -86,15 +86,36 @@ def test_train_fwd_int8_ref_matches_pallas():
                                      tile=TILE, interpret=True, stash_q=True)
     fp = F.calibrate_r2l_int8_pe(model, cfg, DIM, L, t(pts),
                                  fold_requant=False)
-    rgb, stash = T.train_fwd_int8(fp, cfg, t(pts), DIM, L)
+    rgb, stash = T.train_fwd_int8(fp, cfg, t(pts), DIM, L, stash_q=True)
     d = n(rgb) - np.asarray(jrgb)
     assert np.abs(d).max() < TOL_INT8_MAX
     assert np.sqrt(np.mean(d * d)) < TOL_INT8_RMS
     assert stash.dtype == torch.int8
     dq = np.abs(stash.numpy().astype(np.int32) - np.asarray(jstash, np.int32))
     assert dq.max() <= 1 and np.mean(dq > 0) < MAX_Q_SHARE
-    with pytest.raises(NotImplementedError):
-        T.train_fwd_int8(fp, cfg, t(pts), DIM, L, stash_q=False)
+
+
+@pytest.mark.parametrize("cd", [jnp.float32, jnp.bfloat16])
+def test_train_fwd_int8_bf16_stash_ref_matches_pallas(cd):
+    """stash_q=False, the default of both: int8 matmuls, the bf16 stash of
+    train_fwd's rows (the residual stream rounded to bf16 each block). The
+    stash is bf16 whatever the compute dtype, as in JAX."""
+    jcfg, params, cfg, model, pts, _ = _case(cd)
+    jfp = JP.calibrate_r2l_int8_pe(params, jcfg, DIM, L,
+                                   calib_pts=jnp.asarray(pts))
+    jrgb, jstash = JT.train_fwd_int8(jfp, jcfg, jnp.asarray(pts), DIM, L,
+                                     tile=TILE, interpret=True)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, DIM, L, t(pts),
+                                 fold_requant=False)
+    rgb, stash = T.train_fwd_int8(fp, cfg, t(pts), DIM, L)
+    d = n(rgb) - np.asarray(jrgb)
+    assert np.abs(d).max() < TOL_INT8_MAX
+    assert np.sqrt(np.mean(d * d)) < TOL_INT8_RMS
+    want = np.asarray(jstash, np.float32)
+    assert stash.dtype == torch.bfloat16 and stash.shape == want.shape
+    row = np.abs(n(stash) - want).max(axis=(1, 2))
+    assert (row / np.maximum(np.abs(want).max(axis=(1, 2)), 1)).max() \
+        < TOL_BF16
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
@@ -136,6 +157,32 @@ def test_bwd_group_ref_matches_pallas(kind, b_start, b_count):
         assert ok, (what, err)
 
 
+@pytest.mark.parametrize("cd", [jnp.float32, jnp.bfloat16])
+def test_bwd_group_bf16_stash_ref_matches_pallas(cd):
+    """K5 on the int8 forward's bf16 stash: with f32 weights JAX walks the
+    bf16 rows in f32 (the pairing K5 takes on the card as well)."""
+    jcfg, params, cfg, model, pts, _ = _case(cd)
+    nb, W = cfg.num_blocks, cfg.netwidth
+    jfp = JP.calibrate_r2l_int8_pe(params, jcfg, DIM, L,
+                                   calib_pts=jnp.asarray(pts))
+    _, jstash = JT.train_fwd_int8(jfp, jcfg, jnp.asarray(pts), DIM, L,
+                                  tile=TILE, interpret=True)
+    assert jstash.dtype == jnp.bfloat16
+    stash = t(np.asarray(jstash, np.float32)).to(torch.bfloat16)
+    dh = np.random.default_rng(2).normal(size=(N, W)).astype(np.float32)
+    jbody = params["body"]["w"].reshape(2 * nb, W, W).astype(cd)
+    want = JT.bwd_group(jbody, jstash, jnp.asarray(dh), jcfg, 0, nb,
+                        tile=TILE, interpret=True)
+    body_w = F.prepare_fused_params_pe(
+        model, cfg, DIM, L, weight_dtype=cfg.compute_dtype).body_w
+    got = T.bwd_group(body_w, stash, t(dh), cfg, 0, nb)
+    for g, w, what in zip(got, (want[0], np.swapaxes(np.asarray(want[1]),
+                                                     -1, -2), want[2]),
+                          ("dh", "dW", "db")):
+        ok, err = _grad_ok(n(g), w, cd == jnp.float32)
+        assert ok, (what, err)
+
+
 def _jax_grads(fused_apply, params, pts, tgt):
     return jax.value_and_grad(lambda p: jnp.mean(
         (fused_apply(p, jnp.asarray(pts)) - tgt) ** 2))(params)
@@ -162,6 +209,30 @@ def test_fused_apply_grads_match_jax(kind):
     want = params_from_jax(np_tree(jgrads), cfg)
     for name, p in model.named_parameters():
         ok, err = _grad_ok(n(p.grad), want[name].numpy(), kind == "f32")
+        assert ok, (name, err)
+
+
+@pytest.mark.parametrize("cd", [jnp.float32, jnp.bfloat16])
+def test_fused_apply_bf16_stash_grads_match_jax(cd):
+    """stash_q=False: the int8 forward K8, K5 on its bf16 stash (with f32 or
+    bf16 weights), and the tail edge rebuilt from the stashed bf16 rows
+    (JAX's straight-through edge): loss and gradients against JAX's."""
+    jcfg, params, cfg, model, pts, tgt = _case(cd)
+    japply = JT.make_fused_train_apply(
+        jcfg, DIM, L, tile=TILE, group_blocks=2, compute_dtype=cd,
+        interpret=True, quantize="int8", calib_pts=jnp.asarray(pts),
+        stash_q=False)
+    jloss, jgrads = _jax_grads(japply, params, pts, tgt)
+    apply = T.make_fused_train_apply(cfg, DIM, L, group_blocks=2,
+                                     compute_dtype=cfg.compute_dtype,
+                                     quantize="int8", calib_pts=t(pts),
+                                     stash_q=False)
+    loss = torch.mean((apply(model, t(pts)) - t(tgt)) ** 2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-3)
+    want = params_from_jax(np_tree(jgrads), cfg)
+    for name, p in model.named_parameters():
+        ok, err = _grad_ok(n(p.grad), want[name].numpy(), False)
         assert ok, (name, err)
 
 

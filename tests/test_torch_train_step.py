@@ -12,13 +12,12 @@ import optax
 import pytest
 import torch
 
-from _torch_parity import models, n, np_tree, t
+from _torch_parity import jax_step_draws, models, n, np_tree, t
 from r2l_tpu import train as JTR
 from r2l_tpu.models import R2LConfig as JaxR2LConfig
 from r2l_tpu.rays import pose_spherical
 from r2l_tpu.sampler import PointSampler as JaxPointSampler
 from r2l_tpu_torch import train as TR
-from r2l_tpu_torch.hardmine import HardDraws
 from r2l_tpu_torch.kernels import r2l_train as T
 from r2l_tpu_torch.models import params_from_jax
 from r2l_tpu_torch.sampler import PointSampler
@@ -48,14 +47,7 @@ def _samplers():
 
 def _jax_draws(key, dcfg):
     """The draws JAX's _distill_core makes from a step's key."""
-    k_hard, k_perturb = jax.random.split(key)
-    k_off, k_shuf = jax.random.split(k_hard)
-    hard = HardDraws(
-        t(jax.random.uniform(k_off, (dcfg.n_hard_out,))),
-        torch.from_numpy(np.asarray(jax.random.permutation(
-            k_shuf, dcfg.n_hard_out), np.int64)))
-    z_u = t(jax.random.uniform(k_perturb, (dcfg.batch_size, 2)))
-    return TR.StepDraws(hard, z_u)
+    return jax_step_draws(key, dcfg, 2)
 
 
 @pytest.mark.parametrize("warmup", [None, "0.0001,200", (1e-5, 37)])
@@ -93,7 +85,7 @@ def test_adam_matches_optax():
                                    atol=1e-9)
 
 
-def _run_both(cd, fused, quantize="", steps=4, **step_kw):
+def _run_both(cd, fused, quantize="", steps=4, stash_q=True, **step_kw):
     """(JAX losses, port losses, JAX state, port state) of ``steps`` steps
     from the same params, batch and draws."""
     jcfg = JaxR2LConfig(input_dim=DIM * (2 * L + 1), netdepth=8,
@@ -112,12 +104,13 @@ def _run_both(cd, fused, quantize="", steps=4, **step_kw):
     jstep = JTR.make_distill_step(
         jcfg, jdcfg, jsampler, tx, fused_vjp=fused, fused_tile=32,
         fused_group_blocks=2, fused_quantize=quantize,
-        fused_calib_pts=jnp.asarray(calib) if quantize else None)
+        fused_calib_pts=jnp.asarray(calib) if quantize else None,
+        fused_stash_q=stash_q)
     state = TR.init_train_state(model, dcfg, device="cpu")
     step = TR.make_distill_step(
         cfg, dcfg, sampler, fused_vjp=fused, fused_group_blocks=2,
         fused_quantize=quantize, fused_calib_pts=t(calib) if quantize
-        else None, device="cpu", **step_kw)
+        else None, fused_stash_q=stash_q, device="cpu", **step_kw)
     jl, pl_, pools = [], [], []
     for i in range(steps):
         key = jax.random.key(10 + i)
@@ -154,6 +147,17 @@ def test_distill_step_int8_matches_jax():
     jl, pl_, _, _, _, _ = _run_both(jnp.bfloat16, True, quantize="int8",
                                     steps=3)
     np.testing.assert_allclose(pl_, jl, rtol=TOL_LOSS["bf16"])
+
+
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_distill_step_int8_bf16_stash_matches_jax(cd):
+    """fused_stash_q=False: three steps of the int8 forward with the bf16
+    stash (K8 + K5) against JAX's, with either compute dtype."""
+    jl, pl_, _, jstate, state, _ = _run_both(
+        jnp.float32 if cd == "f32" else jnp.bfloat16, True, quantize="int8",
+        steps=3, stash_q=False)
+    np.testing.assert_allclose(pl_, jl, rtol=TOL_LOSS["bf16"])
+    assert state.step == int(jstate.step) == 3
 
 
 def test_scan_steps_equal_single_steps():
