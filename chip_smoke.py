@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's student frame path and kernel API, its
-distillation steps, the NeRF teacher's pseudo-data generation and teacher
-training on one NVIDIA GPU.
+distillation steps, the NeRF teacher's pseudo-data generation, teacher
+training and the tensor-core probes on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -10,7 +10,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the eight CUDA libraries from ``r2l_tpu_torch/kernels/
+2. Build: compile the twelve CUDA libraries from ``r2l_tpu_torch/kernels/
    csrc`` into ``build/`` in parallel and print the build time and the
    compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
@@ -82,6 +82,18 @@ Phases, in order; any failure raises and exits non-zero:
    the same images and poses, 2 warm-up then 30 timed steps, the loss
    falling from the first pass over the images to the second, the peak
    memory.
+12. The exp/ probes (``r2l_tpu_torch.exp``) at their own sizes: the chain
+   (``probe_mxu.chain``) in modes full, lean and none, each single and dual
+   (dual bit for bit the single), 163,840 rays x 86 layers and, where the
+   random chain's output is of order one, 8 layers; ``bign``, 43 and 4
+   pairs; ``int8_chain`` at 4 and 8 layers (non-zero, bit for bit) and at
+   86; ``probe_shapes.unchained`` at every (M, K, N) of its runner in int8
+   and bf16, free, and chained at the square ones; each against its plain
+   version on the card, timed with it (and, for the bf16 shape, beside
+   ``torch.matmul`` of the 64 products). Then the two runners as a user
+   runs them (``probe_mxu.main``, ``probe_shapes.main``), their JSON
+   records on lines of their own, and the four kernels' launches in that
+   run.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -207,8 +219,33 @@ DATAGEN_POSES = {"f32": 2, "bf16": 4, "int8": 4}   # timed, after 1 warm-up
 #   frame against the plain one (f32; measured 131.9).
 MIN_PSNR_TEACHER = {"f32": 100.0, "bf16": 80.0, "int8": 60.0}
 
-# The card's data-sheet peaks (H100 SXM, dense, at 700 W) and memory rate.
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# Phase 12, the exp/ probes at their own sizes. Every bf16 check is
+#   relative to the largest |plain| output, (max-abs, RMS): the random
+#   chains decay, to ~1e-7 (none) and ~2e-14 (bigN) at full depth, and a
+#   zero or wrong output reads of order 1. Chain modes, dual and bigN: the
+#   same bf16 roundings, f32 sums in another order, so a flipped bf16
+#   rounding propagates through the layers (measured at 8 layers or 4 pairs
+#   4.0e-3..6.8e-3 / 8.4e-5..1.6e-4; at 86 layers or 43 pairs 5.7e-3 /
+#   2.3e-4 full, 5.7e-3 / 1.4e-4 lean, 1.9e-2 / 8.5e-4 none, 2.6e-2 /
+#   1.3e-3 bigN). The int8 chain and the int8 shapes: bit for bit.
+TOL_PROBE_BF16 = {"shallow": (3e-2, 1e-3), "deep": (5e-2, 5e-3)}
+# bf16 shapes. free: f32 sums of the same exact products in another order
+#   (measured 1.2e-6 / 2.4e-7 at worst). chained, 64 layers, on two seeds:
+#   bf16 roundings flipped by the f32 sum order (measured 2.2e-2..3.5e-2 /
+#   2.7e-3..4.6e-3 on the first); each is printed beside the plain version
+#   against itself with the channels permuted (the same function, its sums
+#   in another order), the spread that order alone makes. chained, 4
+#   layers, where a kernel that skipped the bf16 rounding between layers
+#   would show: a plain version without it reads 3e-3 / 8e-4 and differs in
+#   every row (CPU, 4,096 rows), the permuted plain 1.2e-3..2.0e-3 /
+#   6e-5..1.2e-4 in 5-16% of the rows.
+TOL_SHAPES_FREE, TOL_SHAPES_CHAINED = (1e-5, 2e-6), (1e-1, 1e-2)
+TOL_SHAPES_CHAINED_SHALLOW, MAX_SHAPES_DIFFER_SHARE = (5e-3, 4e-4), 0.5
+PROBE_SHAPES_SHALLOW = 4
+PROBE_INT8_DEPTHS = (4, 8)   # the check's depths: at 86 the output is 0
+
+# The card's memory rate (H100 SXM data sheet); its peaks are the probes'
+# table, r2l_tpu_torch/exp/_harness.py.
 HBM_BYTES_S = 3.35e12
 
 
@@ -263,6 +300,7 @@ def nbytes(*ts) -> int:
 def bound(ops: float, moved: int, kind: str) -> dict:
     """The least time the card could take: the larger of ``ops`` at the
     data-sheet peak of ``kind`` and ``moved`` bytes at the memory rate."""
+    from r2l_tpu_torch.exp._harness import PEAK_OPS
     t_ops = ops / PEAK_OPS[kind] * 1e3
     t_bytes = moved / HBM_BYTES_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -1288,6 +1326,217 @@ def phase_images_distill(images, poses, sampler, dev) -> dict:
     return r
 
 
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    deltas(got, want)
+    same = torch.equal(got, want)
+    print(f"[check] {name}: " + ("bit for bit ok" if same else
+                                 f"{int((got != want).sum())} values DIFFER"),
+          flush=True)
+    if not same:
+        raise AssertionError(f"{name} differs")
+
+
+def check_rel(name: str, got: torch.Tensor, want: torch.Tensor,
+              tol_max: float, tol_rms: float) -> dict:
+    """``check`` of the max-abs and RMS error relative to the largest
+    |want|; returns the absolute max-abs error and the relative pair."""
+    mx, rms = deltas(got, want)
+    top = float(want.abs().max())
+    check(f"{name}, relative to the largest |plain| {top:.3e}", mx / top,
+          rms / top, tol_max, tol_rms)
+    return {"max_abs_err": mx, "max_rel_err": mx / top,
+            "rms_rel_err": rms / top}
+
+
+def check_chained_bf16(PS, name: str, shape: tuple, gens: tuple,
+                       dev) -> dict:
+    """A chained bf16 shape against its plain version: at 64 layers on each
+    generator's inputs, beside the plain version against itself with the
+    channels permuted (its sums in another order); and at
+    PROBE_SHAPES_SHALLOW layers on the first's, with the share of rows that
+    differ."""
+    M, K, N = shape
+    perm = torch.randperm(K, generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    res = {}
+    for k, g in enumerate(gens):
+        x, w = PS.shape_inputs(M, K, N, torch.bfloat16, g, device=dev)
+        want = PS.unchained_ref(x, w, True)
+        alt = PS.unchained_ref(x[:, perm], w[:, perm][:, :, perm], True)
+        top = float(want.abs().max())
+        spread = [v / top for v in deltas(alt, want)]
+        r = res[f"inputs_{k}"] = check_rel(
+            f"{name} vs plain, inputs {k} (the plain version permuted: "
+            f"{spread[0]:.3e} / {spread[1]:.3e})", PS.unchained(x, w, True),
+            want, *TOL_SHAPES_CHAINED)
+        r["plain_permuted_rel_err"] = spread
+        if k == 0:
+            L = PROBE_SHAPES_SHALLOW
+            got, want = PS.unchained(x, w[:L], True), PS.unchained_ref(
+                x, w[:L], True)
+            r = res[f"{L}_layers"] = check_rel(
+                f"{name} vs plain, {L} layers", got, want,
+                *TOL_SHAPES_CHAINED_SHALLOW)
+            r["differ_share"] = float((got != want).double().mean())
+            print(f"[check] {name}, {L} layers: {r['differ_share']:.3f} of "
+                  f"the rows differ (limit {MAX_SHAPES_DIFFER_SHARE})",
+                  flush=True)
+            if r["differ_share"] > MAX_SHAPES_DIFFER_SHARE:
+                raise AssertionError(f"{name}: too many rows differ")
+    return res
+
+
+def probe_checks(dev) -> dict:
+    """Each probe kernel against its plain version at the probes' sizes,
+    timed (kernel, plain, and the library call where there is one)."""
+    from r2l_tpu_torch.exp import probe_mxu as PM
+    from r2l_tpu_torch.exp import probe_shapes as PS
+
+    def gen(k):
+        return torch.Generator().manual_seed(SEED + 70 + k)
+    x = torch.randn((PM.N_RAYS, PM.W), generator=gen(0)).to(dev)
+    out_bytes = x.numel() * 4
+    res = {}
+
+    # The random chains decay (0.05-scaled weights): at the probe's depth
+    # the outputs of none and bigN are about 1e-7 and smaller, so each is
+    # also checked at a depth whose output is of order one.
+    w, b = PM.variant_weights("full", gen(1), dev)
+    r = res["probe_chain"] = {"max_abs_err": 0.0}
+    for mode in PM.MODES:
+        check_rel(f"probe_chain {mode} vs plain, 8 layers", PM.chain(
+            x, w[:8], b[:8], mode), PM.chain_ref(x, w[:8], b[:8], mode),
+            *TOL_PROBE_BF16["shallow"])
+        got, want = PM.chain(x, w, b, mode), PM.chain_ref(x, w, b, mode)
+        c = check_rel(f"probe_chain {mode} vs plain ({PM.N_LAYERS} layers, "
+                      f"{x.shape[0]} rays)", got, want,
+                      *TOL_PROBE_BF16["deep"])
+        check_equal(f"probe_chain {mode}: dual vs single", PM.chain(
+            x, w, b, mode, dual=True), got)
+        r["max_abs_err"] = max(r["max_abs_err"], c["max_abs_err"])
+        r[mode] = {**c, "differ": int((got != want).sum()),
+                   "ms": time_ms(lambda: PM.chain(x, w, b, mode)),
+                   "dual_ms": time_ms(lambda: PM.chain(x, w, b, mode,
+                                                       dual=True))}
+        del got, want
+        print(f"[time] probe_chain {mode}: single {r[mode]['ms']:.3f} ms, "
+              f"dual {r[mode]['dual_ms']:.3f} ms", flush=True)
+    r["ms"] = r["full"]["ms"]
+    r["plain_ms"] = time_ms(lambda: PM.chain_ref(x, w, b, "full"), reps=1)
+    r.update(bound(PM.ops_per_frame("full"), nbytes(x, w, b) + out_bytes,
+                   "bf16"), library_ms=None)
+    del w, b
+
+    w1, w2 = PM.variant_weights("bigN", gen(2), dev)
+    check_rel("probe_bign vs plain, 4 pairs", PM.bign(x, w1[:4], w2[:4]),
+              PM.bign_ref(x, w1[:4], w2[:4]), *TOL_PROBE_BF16["shallow"])
+    c = check_rel(f"probe_bign vs plain ({PM.N_LAYERS // 2} pairs)",
+                  PM.bign(x, w1, w2), PM.bign_ref(x, w1, w2),
+                  *TOL_PROBE_BF16["deep"])
+    res["probe_bign"] = {
+        **c, "ms": time_ms(lambda: PM.bign(x, w1, w2)),
+        "plain_ms": time_ms(lambda: PM.bign_ref(x, w1, w2), reps=1),
+        **bound(PM.ops_per_frame("bigN"), nbytes(x, w1, w2) + out_bytes,
+                "bf16"), "library_ms": None}
+    del w1, w2
+
+    wq, s = PM.variant_weights("int8_static", gen(3), dev)
+    for L in (*PROBE_INT8_DEPTHS, PM.N_LAYERS):
+        got = PM.int8_chain(x, wq[:L], s[:L])
+        check_equal(f"probe_int8_chain vs plain, {L} layers", got,
+                    PM.int8_chain_ref(x, wq[:L], s[:L]))
+        nonzero = int((got != 0).sum())
+        print(f"[check] probe_int8_chain, {L} layers: {nonzero} of "
+              f"{got.numel()} outputs non-zero", flush=True)
+        if L in PROBE_INT8_DEPTHS and nonzero == 0:
+            raise AssertionError(f"probe_int8_chain at {L} layers is all 0")
+    res["probe_int8_chain"] = {
+        "max_abs_err": 0.0, "nonzero_at_86": nonzero,
+        "ms": time_ms(lambda: PM.int8_chain(x, wq, s)),
+        "plain_ms": time_ms(lambda: PM.int8_chain_ref(x, wq, s), reps=1),
+        **bound(PM.ops_per_frame("int8_static"),
+                nbytes(x, wq, s) + out_bytes, "int8"), "library_ms": None}
+    del got, wq, s, x
+
+    r = res["probe_shapes"] = {"max_abs_err": 0.0, "bf16_max_rel_err": 0.0,
+                               "bf16_chained": {}}
+    for i, (dtype, (M, K, N), chained) in enumerate(
+            [(dt, shape, False) for dt in (torch.int8, torch.bfloat16)
+             for shape in PS.SHAPES]
+            + [(dt, shape, True) for dt in (torch.int8, torch.bfloat16)
+               for shape in PS.SHAPES if shape[1] == shape[2]]):
+        name = f"probe_shapes {PS.shape_name(M, K, N, dtype, chained)}"
+        if dtype == torch.bfloat16 and chained:
+            c = r["bf16_chained"][name] = check_chained_bf16(
+                PS, name, (M, K, N), (gen(10 + i), gen(40 + i)), dev)
+            r["bf16_max_rel_err"] = max(r["bf16_max_rel_err"], *(
+                c[f"inputs_{k}"]["max_rel_err"] for k in (0, 1)))
+            continue
+        xs, ws = PS.shape_inputs(M, K, N, dtype, gen(10 + i), device=dev)
+        got = PS.unchained(xs, ws, chained)
+        want = PS.unchained_ref(xs, ws, chained)
+        if dtype == torch.int8:
+            check_equal(f"{name} vs plain", got, want)
+        else:
+            c = check_rel(f"{name} vs plain", got, want, *TOL_SHAPES_FREE)
+            r["bf16_max_rel_err"] = max(r["bf16_max_rel_err"],
+                                        c["max_rel_err"])
+        if (M, K, N) == PS.SHAPES[0] and not chained:
+            kind = "int8" if dtype == torch.int8 else "bf16"
+            t = {"ms": time_ms(lambda: PS.unchained(xs, ws)),
+                 "plain_ms": time_ms(lambda: PS.unchained_ref(xs, ws),
+                                     reps=1),
+                 **bound(2.0 * xs.shape[0] * K * N * ws.shape[0],
+                         nbytes(xs, ws, got), kind),
+                 "library_ms": None}
+            if kind == "bf16":   # the 64 products alone, [64, rows, N] bf16
+                wt = ws.transpose(1, 2)
+                t["library_ms"] = time_ms(lambda: torch.matmul(xs, wt))
+            r["int8" if kind == "int8" else "bf16"] = t
+            print(f"[time] {name}: kernel {t['ms']:.3f} ms, plain "
+                  f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms"
+                  + (f", torch.matmul of the 64 products (no sum) "
+                     f"{t['library_ms']:.3f} ms" if t["library_ms"] else ""),
+                  flush=True)
+        del xs, ws, got, want
+    r.update({k: r["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
+    for key in ("probe_chain", "probe_bign", "probe_int8_chain"):
+        q = res[key]
+        print(f"[time] {key}: kernel {q['ms']:.3f} ms, plain "
+              f"{q['plain_ms']:.3f} ms, bound {q['bound_ms']:.3f} ms "
+              f"({q['bound_by']})", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_probes(dev) -> dict:
+    """Phase 12: the probe kernels against their plain versions, then the
+    two probe runners as a user runs them (``probe_mxu.main``,
+    ``probe_shapes.main``: their JSON records print on lines of their own),
+    each kernel's count set to 0 just before the runners and read just
+    after."""
+    from r2l_tpu_torch.exp import probe_mxu as PM
+    from r2l_tpu_torch.exp import probe_shapes as PS
+    res = probe_checks(dev)
+    counted = {"probe_chain": PM.chain, "probe_bign": PM.bign,
+               "probe_int8_chain": PM.int8_chain,
+               "probe_shapes": PS.unchained}
+    for f in counted.values():
+        f.launches = 0
+    records = PM.main([]) + PS.main([])
+    torch.cuda.synchronize()
+    res["launches"] = {k: f.launches for k, f in counted.items()}
+    print(f"[main] probe kernel launches in the runners: {res['launches']}",
+          flush=True)
+    for name, count in res["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"the probe runners never launched {name}")
+    res["runners"] = {r["name"]: r.get("ms_per_frame") for r in records
+                     if "ms_per_frame" in r}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1342,6 +1591,7 @@ def main() -> int:
     images, img_poses = sphere_scene(N_TEACHER_IMAGES, SEED + 40)
     ttrain = phase_teacher_train(images, img_poses, dev)
     idist = phase_images_distill(images, img_poses, sampler, dev)
+    probes = phase_probes(dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -1357,7 +1607,8 @@ def main() -> int:
                    f"chunk {T_CHUNK}, white, density floor {DENSITY_FLOOR}",
         "teacher_kernels": teacher, "datagen": dgen,
         "teacher_frame": tframe,
-        "teacher_train": ttrain, "images_distill": idist}}))
+        "teacher_train": ttrain, "images_distill": idist,
+        "probes": probes}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1392,6 +1643,13 @@ def main() -> int:
                 "r2l_tpu/kernels/nerf_render_pallas.py:336",
                 dgen[kind]["launches"], teacher[kind])
           for kind in ("f32", "bf16", "int8")),
+        *(entry(name, f"{name}.cu", replaces, probes["launches"][name],
+                probes[name])
+          for name, replaces in (
+              ("probe_chain", "exp/probe_mxu.py:144"),
+              ("probe_bign", "exp/probe_mxu.py:188"),
+              ("probe_int8_chain", "exp/probe_mxu.py:225"),
+              ("probe_shapes", "exp/probe_shapes.py:55"))),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

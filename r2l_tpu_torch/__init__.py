@@ -4,7 +4,7 @@ The JAX package ``r2l_tpu`` is the reference: every function here names the
 ``r2l_tpu`` function it reproduces, and ``tests/test_torch_*.py`` hold the
 two to the same output on the same inputs. This package never imports JAX.
 
-Four slices are ported, each through hand-written CUDA kernels for the
+Five slices are ported, each through hand-written CUDA kernels for the
 NVIDIA H100 (``kernels/csrc/*.cu``):
 
 1. The R2L student's novel-view frame: camera pose ->
@@ -24,6 +24,11 @@ NVIDIA H100 (``kernels/csrc/*.cu``):
 4. The rest of training: teacher training (``train.make_teacher_step``,
    ``train.make_teacher_step_batched``) and images-mode distillation
    (``train.make_distill_step_images``), plain autograd as in JAX.
+5. The tensor-core probes of the JAX package's ``exp/`` (``exp.probe_mxu``,
+   ``exp.probe_shapes``): the 86-layer W256 chain with a full, lean or no
+   epilogue, single or as two warp groups in flight, at N=512 and in
+   static-scale int8, and 64 products by shape and dtype, on the engines K1
+   and K2 run; runners that time them by the probes' protocol.
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 """

@@ -55,6 +55,14 @@ KERNELS = {
     "nerf_render_int8": ("nerf_render_int8_launch",
                          [_P] * 3 + [_I] * 2 + [_P] * 5 + [_I] * 3
                          + [_P] * 18 + [_I] * 5 + [_P] * 5),
+    # the tensor-core probes of r2l_tpu_torch/exp/
+    "probe_chain": ("probe_chain_launch",
+                    [_P, _I, _P, _P, _P, _I, _I, _I, _P]),
+    "probe_bign": ("probe_bign_launch", [_P, _I, _P, _P, _P, _I, _P]),
+    "probe_int8_chain": ("probe_int8_chain_launch",
+                         [_P, _I, _P, _P, _F, _P, _I, _P]),
+    "probe_shapes": ("probe_shapes_launch",
+                     [_P, _I, _I, _I, _P, _I, _P, _I, _I, _P]),
 }
 
 

@@ -19,6 +19,15 @@ namespace r2l {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// The kThreads threads that run one block-wide product together, and their
+// barrier: the whole block by default. A kernel that runs several teams per
+// block passes its own type with the same two members (probe_chain.cu's
+// warp groups, each with a named barrier).
+struct BlockTeam {
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
 // Row stride, in 32-bit words, of a shared-memory matrix whose rows hold
 // `bytes` bytes: rounded up to 8 words, plus 4 (so 8 rows at this stride
 // start in 8 different 4-bank groups).
@@ -59,17 +68,19 @@ struct MmaMap {
   static constexpr int MT = TT / 16;
   static constexpr int NT = W / (8 * kWarps);
   static_assert(TT % 16 == 0 && NT >= 1 && NT * 8 * kWarps == W, "tile");
-  __device__ __forceinline__ static int n0() {
-    return (threadIdx.x / 32) * (W / kWarps);
+  template <typename Team = BlockTeam>
+  __device__ __forceinline__ static int n0(Team team = Team()) {
+    return (team.tid() / 32) * (W / kWarps);
   }
-  template <typename Acc, typename F>
-  __device__ __forceinline__ static void visit(Acc (&acc)[MT][NT][4], F f) {
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  template <typename Acc, typename F, typename Team = BlockTeam>
+  __device__ __forceinline__ static void visit(Acc (&acc)[MT][NT][4], F f,
+                                               Team team = Team()) {
+    const int lane = team.tid() % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const int r = mt * 16 + g, c = n0() + nt * 8 + 2 * t;
+        const int r = mt * 16 + g, c = n0(team) + nt * 8 + 2 * t;
         f(r, c, acc[mt][nt][0]);
         f(r, c + 1, acc[mt][nt][1]);
         f(r + 8, c, acc[mt][nt][2]);
@@ -123,19 +134,22 @@ __device__ __forceinline__ void cp_async_wait_prior() {  // all but the last
 // row stride `row_bytes`) in `nstage` stages: stage st holds columns
 // [st*S, (st+1)*S) of every row, S = kStageRowBytes bytes, n-major at `ldw`
 // words per row, in one of two shared-memory buffers. Stage st+1 is copied
-// (cp.async) while compute(st, stage) runs on stage st. Ends with a barrier
-// after the last compute. (Prefetching the next product's first stage as
-// well measured slower in both kernels: PERF.md.)
-template <int N, int kStageRowBytes, int ldw, typename Compute>
+// (cp.async) while compute(st, stage) runs on stage st, by the threads of
+// `team`. Ends with a team barrier after the last compute. (Prefetching the
+// next product's first stage as well measured slower in both kernels:
+// PERF.md.)
+template <int N, int kStageRowBytes, int ldw, typename Compute,
+          typename Team = BlockTeam>
 __device__ __forceinline__ void pipelined_k_loop(const void* Wg,
                                                  size_t row_bytes,
                                                  int nstage, uint32_t* Ws,
-                                                 Compute compute) {
+                                                 Compute compute,
+                                                 Team team = Team()) {
   constexpr int kPieces = kStageRowBytes / 16;
   const unsigned char* src = static_cast<const unsigned char*>(Wg);
   auto issue = [&](int st) {
     uint32_t* buf = Ws + (st & 1) * N * ldw;
-    for (int e = threadIdx.x; e < N * kPieces; e += kThreads) {
+    for (int e = team.tid(); e < N * kPieces; e += kThreads) {
       const int n = e / kPieces, p = e % kPieces;
       cp_async16(buf + n * ldw + 4 * p,
                  src + n * row_bytes + (size_t)st * kStageRowBytes + 16 * p);
@@ -149,9 +163,9 @@ __device__ __forceinline__ void pipelined_k_loop(const void* Wg,
     else
       cp_async_commit();  // an empty group keeps the wait count uniform
     cp_async_wait_prior();
-    __syncthreads();
+    team.sync();
     compute(st, Ws + (st & 1) * N * ldw);
-    __syncthreads();
+    team.sync();
   }
 }
 

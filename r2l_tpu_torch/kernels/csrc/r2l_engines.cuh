@@ -109,18 +109,21 @@ struct EngineBF16 {
   static constexpr size_t kStageBytes = 2 * (size_t)W * kLdw * 4;
 
   // acc = A W^T for A = smem [TT][lda] and W = global [W][K] ([out, in],
-  // K a multiple of kKC). Ends with a barrier after the last use of A and
-  // the stages.
+  // K a multiple of kKC), by the threads of `team` (the whole block by
+  // default). Ends with a team barrier after the last use of A and the
+  // stages.
+  template <typename Team = BlockTeam>
   __device__ static void mm(Acc& acc, const T* A, int lda,
-                            const T* __restrict__ Wg, int K, uint32_t* Ws) {
+                            const T* __restrict__ Wg, int K, uint32_t* Ws,
+                            Team team = Team()) {
 #pragma unroll
     for (int mt = 0; mt < M::MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < M::NT; ++nt)
 #pragma unroll
         for (int u = 0; u < 4; ++u) acc.v[mt][nt][u] = 0.f;
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    const int n0 = M::n0(), lda32 = lda / 2;
+    const int lane = team.tid() % 32, g = lane / 4, t = lane % 4;
+    const int n0 = M::n0(team), lda32 = lda / 2;
     const uint32_t* A32 = reinterpret_cast<const uint32_t*>(A);
     pipelined_k_loop<W, kKC * 2, kLdw>(
         Wg, (size_t)K * 2, K / kKC, Ws, [&](int st, const uint32_t* buf) {
@@ -145,12 +148,14 @@ struct EngineBF16 {
                 mma_bf16(acc.v[mt][nt], a[mt], b0, b1);
             }
           }
-        });
+        },
+        team);
   }
 
-  template <typename F>
-  __device__ __forceinline__ static void visit(Acc& acc, F f) {
-    M::visit(acc.v, f);
+  template <typename F, typename Team = BlockTeam>
+  __device__ __forceinline__ static void visit(Acc& acc, F f,
+                                               Team team = Team()) {
+    M::visit(acc.v, f, team);
   }
 };
 

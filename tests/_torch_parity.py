@@ -8,6 +8,8 @@ tier-1 runs six test workers on eight cores.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -138,3 +140,23 @@ def jax_step_draws(key, dcfg, n_sample):
             k_shuf, dcfg.n_hard_out), np.int64)))
     z_u = t(jax.random.uniform(k_perturb, (dcfg.batch_size, n_sample)))
     return StepDraws(hard, z_u)
+
+
+def load_exp_probe(name: str):
+    """``exp/<name>.py`` as a module. Importing a probe points JAX's
+    persistent compilation cache at a fixed directory
+    (``exp/probe_mxu.py:32-33``, ``exp/probe_shapes.py:18-19``); both
+    settings are restored right after, so no later test writes a cache."""
+    prev = (jax.config.jax_compilation_cache_dir,
+            jax.config.jax_persistent_cache_min_compile_time_secs)
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "exp", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"exp_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          prev[1])
+    return mod

@@ -421,3 +421,107 @@ def test_nerf_render_raises_instead_of_falling_back(dev):
     narrow = dataclasses.replace(cfg, W=64)
     with pytest.raises(ValueError):
         NR.fused_nerf_render(fp, narrow, o, d, z, **kw)
+
+
+# The exp/ probe kernels (r2l_tpu_torch/exp): chain modes, bigN, the int8
+# chain and the shape probe. 1000 rays or rows: not a multiple of a tile.
+# bf16 chains: a flipped bf16 rounding propagates (K1 bf16's bound). The int8
+# chain and the int8 shapes: exact int32 dots and the plain version's
+# roundings, so bit for bit. bf16 shapes, relative to the largest output:
+# free, f32 sums of the same exact products in another order; chained, a
+# flipped bf16 rounding propagates as in the chains (first run: 3.4e-3 at 8
+# layers).
+TOL_PROBE_SHAPES_BF16 = 1e-5
+
+
+def _probe_x(dev, n=1000, seed=3):
+    return torch.randn((n, 256), generator=torch.Generator().manual_seed(
+        seed)).to(dev)
+
+
+@pytest.mark.parametrize("mode", ["full", "lean", "none"])
+def test_probe_chain_matches_plain_and_dual_equals_single(dev, mode):
+    from r2l_tpu_torch.exp import probe_mxu as PM
+    x = _probe_x(dev)
+    w, b = PM.mk_weights(torch.Generator().manual_seed(4), 8, device=dev)
+    before = PM.chain.launches
+    got = PM.chain(x, w, b, mode)
+    dual = PM.chain(x, w, b, mode, dual=True)
+    torch.cuda.synchronize()
+    assert PM.chain.launches == before + 2
+    assert torch.equal(got, dual)
+    mx, _ = _deltas(got, PM.chain_ref(x, w, b, mode))
+    assert mx < TOL_BF16, mx
+
+
+def test_probe_bign_matches_plain(dev):
+    from r2l_tpu_torch.exp import probe_mxu as PM
+    x = _probe_x(dev)
+    w1, w2 = PM.variant_weights("bigN", torch.Generator().manual_seed(5),
+                                dev, n_layers=8)
+    before = PM.bign.launches
+    got = PM.bign(x, w1, w2)
+    torch.cuda.synchronize()
+    assert PM.bign.launches == before + 1
+    mx, _ = _deltas(got, PM.bign_ref(x, w1, w2))
+    assert mx < TOL_BF16, mx
+
+
+@pytest.mark.parametrize("n_layers", [4, 8])
+def test_probe_int8_chain_equals_plain(dev, n_layers):
+    from r2l_tpu_torch.exp import probe_mxu as PM
+    x = _probe_x(dev)
+    wq, s = PM.variant_weights("int8_static",
+                               torch.Generator().manual_seed(6), dev,
+                               n_layers=n_layers)
+    before = PM.int8_chain.launches
+    got = PM.int8_chain(x, wq, s)
+    torch.cuda.synchronize()
+    assert PM.int8_chain.launches == before + 1
+    assert torch.equal(got, PM.int8_chain_ref(x, wq, s))
+    assert float(got.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("K,N,chained", [(256, 256, False),
+                                         (512, 256, False),
+                                         (256, 512, False),
+                                         (1024, 256, False),
+                                         (256, 256, True), (512, 512, True)])
+def test_probe_shapes_matches_plain(dev, dtype, K, N, chained):
+    from r2l_tpu_torch.exp import probe_shapes as PS
+    x, w = PS.shape_inputs(1000, K, N, dtype, torch.Generator().manual_seed(
+        7), n_tiles=1, n_layers=8, device=dev)
+    before = PS.unchained.launches
+    got = PS.unchained(x, w, chained)
+    torch.cuda.synchronize()
+    assert PS.unchained.launches == before + 1
+    want = PS.unchained_ref(x, w, chained)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        mx, _ = _deltas(got, want)
+        tol = TOL_BF16 if chained else TOL_PROBE_SHAPES_BF16
+        assert mx <= tol * float(want.abs().max()), mx
+
+
+def test_probe_wrappers_raise_instead_of_falling_back(dev):
+    from r2l_tpu_torch.exp import probe_mxu as PM
+    from r2l_tpu_torch.exp import probe_shapes as PS
+    x = _probe_x(dev, 128)
+    w, b = PM.mk_weights(torch.Generator().manual_seed(8), 2, device=dev)
+    with pytest.raises(TypeError):
+        PM.chain(x.double(), w, b)
+    with pytest.raises(ValueError):
+        PM.chain(x, w, b.cpu())
+    with pytest.raises(ValueError):
+        PM.chain(x, w, b, mode="fast")
+    with pytest.raises(TypeError):
+        PM.int8_chain(x, w, b)
+    xs, ws = PS.shape_inputs(64, 256, 512, torch.int8,
+                             torch.Generator().manual_seed(9), n_tiles=1,
+                             n_layers=2, device=dev)
+    with pytest.raises(ValueError):   # chained needs a square shape
+        PS.unchained(xs, ws, chained=True)
+    with pytest.raises(TypeError):
+        PS.unchained(xs.float(), ws)

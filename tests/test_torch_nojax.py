@@ -3,8 +3,9 @@ r2l_tpu_torch and every module in it, renders a frame on the CPU through
 each kind and through the kernel API, takes a distillation step of each
 kind and one in the images data mode, renders a teacher frame, generates
 one pose of pseudo data (plain and int8-packed fused render on the CPU),
-takes a teacher step of each mode on images and their ray records, and finds
-neither ``jax`` nor ``r2l_tpu`` in sys.modules."""
+takes a teacher step of each mode on images and their ray records, runs each
+exp probe's plain version, and finds neither ``jax`` nor ``r2l_tpu`` in
+sys.modules."""
 import os
 import subprocess
 import sys
@@ -93,6 +94,17 @@ assert pool.shape == (32, 9)
 st, m = make_teacher_step_batched(ncfg, vcfg, tcfg, device="cpu")(
     st, pool, 8)
 assert st.step == 2 and bool(torch.isfinite(m["loss"]))
+from r2l_tpu_torch.exp import probe_mxu as PM, probe_shapes as PS
+x = torch.randn((8, 256), generator=torch.Generator().manual_seed(3))
+for name in PM.VARIANTS:
+    w = PM.variant_weights(name, torch.Generator().manual_seed(4), "cpu",
+                           n_layers=2)
+    assert bool(torch.isfinite(PM.make_variant(name, w)(x)))
+for dt in (torch.int8, torch.bfloat16):
+    xs, ws = PS.shape_inputs(4, 256, 256, dt, torch.Generator().manual_seed(5),
+                             n_tiles=2, n_layers=2, device="cpu")
+    for chained in (False, True):
+        assert PS.unchained(xs, ws, chained).shape == (8, 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "r2l_tpu"))
 print(len(names), bad)

@@ -1,0 +1,138 @@
+"""Port parity: the shape probe (r2l_tpu_torch/exp/probe_shapes.py) against
+exp/probe_shapes.py. The probe's kernel body (unchained_kernel) runs through
+pl.pallas_call with run_shape's block specs in TPU interpret mode on the
+CPU, on the probe's own inputs (jax.random from keys 0 and 1) carried over by
+weights_from_jax; the port's plain version runs on the same arrays. Each of
+main()'s shapes in both dtypes and its chained ones, cut to 2 tiles of 8 or
+32 rows and a few layers."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from _torch_parity import load_exp_probe
+from r2l_tpu_torch.exp import probe_shapes as S
+from r2l_tpu_torch.exp.probe_mxu import weights_from_jax
+
+JS = load_exp_probe("probe_shapes")
+N_TILES = 2
+# int8 (free and chained): exact int32 dots, the f32 sums over the layers
+#   in JAX's order, and a row sum whose integer terms fit f32 at these sizes
+#   (the port sums rows in float64, exact for integers): bit for bit.
+# bf16 free: XLA's f32 dots and its f32 row sum add in another order than
+#   torch's; relative to the largest output, as a row sum near zero makes a
+#   per-row relative error meaningless (measured up to 2.1e-7 at 4 layers).
+TOL_BF16_FREE = 1e-6
+# bf16 chained: the same bf16 roundings, f32 sums in another order, so a
+#   flipped rounding propagates, relative to the largest output, and the
+#   share of rows that differ (measured at 4 layers: 2.5e-8 in 1.6% of the
+#   rows at K=N=256, 4.9e-4 in 14% at 512, 0 for the non-square shape). A
+#   plain version that skipped the bf16 rounding between layers reads
+#   2.8e-3..3.8e-3 and differs in every row.
+TOL_BF16_CHAINED, MAX_DIFFER_SHARE = 1e-3, 0.5
+
+
+def _jax_inputs(M, K, N, jdt, n_layers):
+    """run_shape's inputs (exp/probe_shapes.py:57-67), n_layers of them."""
+    key = jax.random.key(0)
+    if jdt == jnp.int8:
+        w = jax.random.randint(key, (n_layers, K, N), -127, 127,
+                               jnp.int32).astype(jnp.int8)
+        x = jax.random.randint(jax.random.key(1), (N_TILES * M, K), -127,
+                               127, jnp.int32).astype(jnp.int8)
+    else:
+        w = (jax.random.normal(key, (n_layers, K, N), jnp.float32) * 0.05
+             ).astype(jdt)
+        x = jax.random.normal(jax.random.key(1), (N_TILES * M, K),
+                              jnp.float32).astype(jdt)
+    return x, w
+
+
+def _case(M, K, N, dtype, chained, n_layers, monkeypatch):
+    monkeypatch.setattr(JS, "N_LAYERS", n_layers)
+    jdt = jnp.int8 if dtype == torch.int8 else jnp.bfloat16
+    x, w = _jax_inputs(M, K, N, jdt, n_layers)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pl.pallas_call(
+            functools.partial(JS.unchained_kernel, chained=chained),
+            grid=(N_TILES,),
+            in_specs=[pl.BlockSpec((M, K), lambda i: (i, 0),
+                                   memory_space=pltpu.VMEM),
+                      pl.BlockSpec((n_layers, K, N), lambda i: (0, 0, 0),
+                                   memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec((M, 1), lambda i: (i, 0),
+                                   memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((N_TILES * M, 1), jnp.float32),
+        )(x, w))
+    xt = torch.from_numpy(np.asarray(x).astype(np.float32)).to(dtype)
+    got = S.unchained(xt, weights_from_jax(np.asarray(w))[0], chained)
+    return got.numpy(), want
+
+
+def _assert_close(got, want, dtype, chained):
+    assert got.shape == want.shape and np.isfinite(got).all()
+    if dtype == torch.int8:
+        np.testing.assert_array_equal(got, want)
+        return
+    tol = TOL_BF16_CHAINED if chained else TOL_BF16_FREE
+    d = np.abs(got - want)
+    assert d.max() <= tol * np.abs(want).max(), d.max()
+    if chained:
+        assert np.mean(d > 0) <= MAX_DIFFER_SHARE, np.mean(d > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", S.SHAPES)
+def test_free_shapes_match_pallas(M, K, N, dtype, monkeypatch):
+    """Every (M, K, N) of main(), 2 tiles of 8 rows, 2 layers."""
+    got, want = _case(8, K, N, dtype, False, 2, monkeypatch)
+    _assert_close(got, want, dtype, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(256, 256), (512, 512), (256, 512)])
+def test_chained_matches_pallas(K, N, dtype, monkeypatch):
+    """main()'s chained square shapes at 2 tiles of 32 rows, 4 layers, in
+    both dtypes; and a non-square one, where h stays x as in JAX. The int8
+    output is not zero (the wrap keeps it alive)."""
+    got, want = _case(32, K, N, dtype, True, 4, monkeypatch)
+    _assert_close(got, want, dtype, True)
+    assert np.abs(got).sum() > 0
+
+
+def test_int8_free_row_sums_exceed_f32_integers():
+    """The port's float64 row sum is exact where an f32 one would round: a
+    row of integers summing past 2^24."""
+    x = torch.full((1, 256), 127, dtype=torch.int8)
+    w = torch.full((2, 512, 256), 127, dtype=torch.int8)
+    w[1, 0, 0] = 126
+    got = float(S.unchained_ref(x, w)[0, 0])
+    exact = 2 * 512 * 256 * 127 * 127 - 127
+    assert got == float(np.float32(exact))
+
+
+def test_names_and_inputs_follow_the_probe():
+    assert S.shape_name(1024, 256, 256, torch.int8) == \
+        "free_int8_M1024_K256_N256"
+    assert S.shape_name(1024, 512, 512, torch.bfloat16, chained=True) == \
+        "chain_bfloat16_M1024_K512_N512"
+    x, w = S.shape_inputs(4, 256, 512, torch.int8,
+                          torch.Generator().manual_seed(0), n_tiles=2,
+                          n_layers=3, device="cpu")
+    assert x.shape == (8, 256) and w.shape == (3, 512, 256)
+    assert int(x.min()) >= -127 and int(x.max()) <= 126
+
+
+def test_runner_needs_a_gpu(capsys):
+    """Without CUDA the runner exits non-zero and prints no record."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    with pytest.raises(SystemExit) as e:
+        S.main([])
+    assert e.value.code == 1
+    assert capsys.readouterr().out == ""
