@@ -10,7 +10,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the twelve CUDA libraries from ``r2l_tpu_torch/kernels/
+2. Build: compile the fifteen CUDA libraries from ``r2l_tpu_torch/kernels/
    csrc`` into ``build/`` in parallel and print the build time and the
    compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
@@ -90,9 +90,25 @@ Phases, in order; any failure raises and exits non-zero:
    86; ``probe_shapes.unchained`` at every (M, K, N) of its runner in int8
    and bf16, free, and chained at the square ones; each against its plain
    version on the card, timed with it (and, for the bf16 shape, beside
-   ``torch.matmul`` of the 64 products). Then the two runners as a user
-   runs them (``probe_mxu.main``, ``probe_shapes.main``), their JSON
-   records on lines of their own, and the four kernels' launches in that
+   ``torch.matmul`` of the 64 products). The chained bf16 shapes at 4
+   layers print the share of rows that differ beside the same share for
+   the plain version with its channels permuted and for plain versions
+   summed in the kernel's k order (64- and 16-channel chunks), and one
+   mma.sync's f32 result against the round-to-nearest of its exact sum.
+   Then the two runners as a user runs them (``probe_mxu.main``,
+   ``probe_shapes.main``), their JSON records on lines of their own, and
+   the four kernels' launches in that run.
+13. K2's probes (``r2l_tpu_torch.exp``) at their own sizes: the ResMLP body
+   (``probe_int8.resmlp``) int8, folded and bf16 at 4 and 43 blocks on
+   163,840 rays, dual bit for bit the single; the wall
+   (``probe_wall.wall``) in its three modes at 4 and 86 layers; on one
+   400x400 lego frame of the canonical student packed as in phase 3, the
+   streams (``probe_pipe_lib.apply_int8_pe_streams``, S = 1, 2, 4) bit for
+   bit K2 and the epilogues (``probe_epi.apply_variant``, v0-v2, on the
+   folded and the unfolded packing), v0 bit for bit K2 unfolded and v2 bit
+   for bit v1; each against its plain version and timed with it. Then the
+   four runners as a user runs them (``probe_int8``, ``probe_wall``,
+   ``probe_pipe``, ``probe_epi``), and the four kernels' launches in that
    run.
 
 Prints a JSON line of details, a JSON line of per-kernel results
@@ -238,11 +254,30 @@ TOL_PROBE_BF16 = {"shallow": (3e-2, 1e-3), "deep": (5e-2, 5e-3)}
 #   layers, where a kernel that skipped the bf16 rounding between layers
 #   would show: a plain version without it reads 3e-3 / 8e-4 and differs in
 #   every row (CPU, 4,096 rows), the permuted plain 1.2e-3..2.0e-3 /
-#   6e-5..1.2e-4 in 5-16% of the rows.
+#   6e-5..1.2e-4 in 5-16% of the rows. The share of rows that differ: the
+#   kernel differs from every plain version summed in an IEEE order (cuBLAS,
+#   channels permuted, the kernel's own 64- or 16-channel k order) in
+#   7.0-8.4% of rows at K=N=256 and 28.1-29.9% at 512, while those differ
+#   among themselves in 3.6-5.6% and 12.3-16.6%: one mma.sync does not
+#   round its sum to nearest but truncates (96% of the differing results
+#   have the smaller magnitude; PERF.md section 2). Measured 0.286 at
+#   K=N=512 (H100, 700 W); the limit leaves room for other inputs, far below
+#   a skipped rounding's every row.
 TOL_SHAPES_FREE, TOL_SHAPES_CHAINED = (1e-5, 2e-6), (1e-1, 1e-2)
-TOL_SHAPES_CHAINED_SHALLOW, MAX_SHAPES_DIFFER_SHARE = (5e-3, 4e-4), 0.5
+TOL_SHAPES_CHAINED_SHALLOW, MAX_SHAPES_DIFFER_SHARE = (5e-3, 4e-4), 0.35
 PROBE_SHAPES_SHALLOW = 4
 PROBE_INT8_DEPTHS = (4, 8)   # the check's depths: at 86 the output is 0
+# Phase 13, K2's probes. The int8 bodies, the wall's modes, the streams and
+#   the epilogues: exact int32 dots and the plain versions' roundings, bit
+#   for bit (the streams also equal K2, v0 K2 unfolded, v2 v1); pipe and epi
+#   against the plain version at K2's bounds (the card's sinf/cosf against
+#   torch's flip a few requantizes, as phase 3 shows for K2). The bf16
+#   control at the chains' relative bounds (TOL_PROBE_BF16), at 4 blocks and
+#   43, with a tighter RMS at 4 blocks: the kernel read 7.3e-5 there (H100,
+#   700 W), and a plain version that skips the bf16 rounding of each block's
+#   t reads 6.2e-4 on this input (CPU), under the chains' 1e-3.
+PROBE_RESMLP_SHALLOW, PROBE_WALL_SHALLOW = 4, 4
+TOL_PROBE_RESMLP_BF16_SHALLOW = (TOL_PROBE_BF16["shallow"][0], 2.5e-4)
 
 # The card's memory rate (H100 SXM data sheet); its peaks are the probes'
 # table, r2l_tpu_torch/exp/_harness.py.
@@ -307,12 +342,6 @@ def bound(ops: float, moved: int, kind: str) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def chain_ops(cfg, n: int, in_dim: int) -> float:
-    """Multiply-adds x 2 of the R2L chain (head, body, tail) for n rays."""
-    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
-    return 2.0 * n * (in_dim * W + nbl * W * W + W * cfg.output_dim)
-
-
 def lego_poses(k: int) -> np.ndarray:
     from r2l_tpu_torch.rays import pose_spherical
     return np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4]
@@ -322,6 +351,7 @@ def lego_poses(k: int) -> np.ndarray:
 def phase_kernels(model, cfg, sampler, poses, dev) -> dict:
     """Each kernel against its plain version at one frame's rays."""
     from r2l_tpu_torch.evaluate import _calibration_points
+    from r2l_tpu_torch.exp._harness import chain_ops
     from r2l_tpu_torch.kernels import r2l_fused as F
     dim_pts = cfg.input_dim // (2 * EMBED_L + 1)
     pts = sampler.sample_test(torch.as_tensor(poses[3], device=dev))
@@ -556,6 +586,7 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
     """K3, K4 and K5 against their plain versions at one step's rays."""
     from r2l_tpu_torch.kernels import r2l_fused as F
     from r2l_tpu_torch.kernels import r2l_train as T
+    from r2l_tpu_torch.exp._harness import chain_ops
     from r2l_tpu_torch.train import fused_int8_calib_points
     dp, L, nb, W = N_SAMPLE * 3, EMBED_L, cfg.num_blocks, cfg.netwidth
     pts = train_points(cfg, sampler, dev)
@@ -1348,13 +1379,35 @@ def check_rel(name: str, got: torch.Tensor, want: torch.Tensor,
             "rms_rel_err": rms / top}
 
 
+def staged_chained_ref(x: torch.Tensor, w: torch.Tensor,
+                       chunk: int) -> torch.Tensor:
+    """The chained bf16 shape with every product summed in the kernel's own
+    k order: an f32 accumulator takes ``chunk`` input channels at a time,
+    each chunk's sum exact (float64) and rounded once as it is added (64:
+    the engine's cp.async stage; 16: one mma.sync, as an IEEE sum rounded
+    to nearest would give it)."""
+    h = x
+    for i in range(w.shape[0]):
+        hd, wd = h.double(), w[i].double()
+        acc = torch.zeros((h.shape[0], wd.shape[0]), dtype=torch.float32,
+                          device=h.device)
+        for k0 in range(0, h.shape[1], chunk):
+            acc = (acc.double() + hd[:, k0:k0 + chunk]
+                   @ wd[:, k0:k0 + chunk].T).float()
+        h = acc.to(torch.bfloat16)
+    return h.double().sum(dim=1, keepdim=True).float()
+
+
 def check_chained_bf16(PS, name: str, shape: tuple, gens: tuple,
                        dev) -> dict:
     """A chained bf16 shape against its plain version: at 64 layers on each
     generator's inputs, beside the plain version against itself with the
     channels permuted (its sums in another order); and at
     PROBE_SHAPES_SHALLOW layers on the first's, with the share of rows that
-    differ."""
+    differ, beside that share for the permuted plain version and for the
+    plain versions summed in the kernel's k order (``staged_chained_ref``,
+    64- and 16-channel chunks), each against the plain version and the
+    kernel."""
     M, K, N = shape
     perm = torch.randperm(K, generator=torch.Generator().manual_seed(
         SEED)).to(dev)
@@ -1372,17 +1425,36 @@ def check_chained_bf16(PS, name: str, shape: tuple, gens: tuple,
         r["plain_permuted_rel_err"] = spread
         if k == 0:
             L = PROBE_SHAPES_SHALLOW
-            got, want = PS.unchained(x, w[:L], True), PS.unchained_ref(
-                x, w[:L], True)
+            xs, ws = x, w[:L]
+            got, want = PS.unchained(xs, ws, True), PS.unchained_ref(
+                xs, ws, True)
             r = res[f"{L}_layers"] = check_rel(
                 f"{name} vs plain, {L} layers", got, want,
                 *TOL_SHAPES_CHAINED_SHALLOW)
             r["differ_share"] = float((got != want).double().mean())
+            others = {
+                "plain_permuted": PS.unchained_ref(
+                    xs[:, perm], ws[:, perm][:, :, perm], True),
+                "staged_64": staged_chained_ref(xs, ws, 64),
+                "staged_16": staged_chained_ref(xs, ws, 16)}
+            for key, o in others.items():
+                r[f"{key}_vs_plain_differ_share"] = float(
+                    (o != want).double().mean())
+                r[f"kernel_vs_{key}_differ_share"] = float(
+                    (got != o).double().mean())
+            print(f"[step0] {name}, {L} layers, share of rows that differ: "
+                  f"kernel vs plain {r['differ_share']:.4f}; "
+                  + "; ".join(
+                      f"{key} vs plain {r[f'{key}_vs_plain_differ_share']:.4f}"
+                      f", kernel vs {key} "
+                      f"{r[f'kernel_vs_{key}_differ_share']:.4f}"
+                      for key in others), flush=True)
             print(f"[check] {name}, {L} layers: {r['differ_share']:.3f} of "
                   f"the rows differ (limit {MAX_SHAPES_DIFFER_SHARE})",
                   flush=True)
             if r["differ_share"] > MAX_SHAPES_DIFFER_SHARE:
                 raise AssertionError(f"{name}: too many rows differ")
+            del others
     return res
 
 
@@ -1499,6 +1571,14 @@ def probe_checks(dev) -> dict:
                      f"{t['library_ms']:.3f} ms" if t["library_ms"] else ""),
                   flush=True)
         del xs, ws, got, want
+    for k in (16, 32):      # one mma.sync, and two in turn
+        m = r[f"mma_rounding_k{k}"] = PS.mma_rounding(k, device=dev)
+        print(f"[step0] one mma, k={k}: {m['differ_share']:.4f} of rows "
+              f"differ from the f32 round-to-nearest of the exact sum, by at "
+              f"most {m['max_ulp']:.1f} ulp of the result; "
+              f"{m['smaller_magnitude_share']:.3f} of those have the smaller "
+              f"magnitude; at most {m['max_err_in_top_ulp']:.2f} ulp of the "
+              f"largest product from the exact sum", flush=True)
     r.update({k: r["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
     for key in ("probe_chain", "probe_bign", "probe_int8_chain"):
@@ -1534,6 +1614,194 @@ def phase_probes(dev) -> dict:
             raise AssertionError(f"the probe runners never launched {name}")
     res["runners"] = {r["name"]: r.get("ms_per_frame") for r in records
                      if "ms_per_frame" in r}
+    return res
+
+
+def check_nonzero(name: str, got: torch.Tensor) -> None:
+    nonzero = int((got != 0).sum())
+    print(f"[check] {name}: {nonzero} of {got.numel()} outputs non-zero",
+          flush=True)
+    if nonzero == 0:
+        raise AssertionError(f"{name} is all 0")
+
+
+def k2_probe_checks(dev) -> dict:
+    """Phase 13's checks: each of K2's probe kernels against its plain
+    version at the probes' sizes, timed (kernel, plain)."""
+    from r2l_tpu_torch.evaluate import _calibration_points
+    from r2l_tpu_torch.exp._harness import chain_ops
+    from r2l_tpu_torch.exp import probe_epi as PE
+    from r2l_tpu_torch.exp import probe_int8 as PI
+    from r2l_tpu_torch.exp import probe_pipe_lib as PL
+    from r2l_tpu_torch.exp import probe_wall as PW
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    from r2l_tpu_torch.sampler import PointSampler
+    x = torch.randn((PI.N_RAYS, PI.W), generator=torch.Generator(
+        ).manual_seed(SEED + 80)).to(dev)
+    out_bytes = x.numel() * 4
+    res = {}
+
+    # The ResMLP body: int8 bit for bit at 2 and 43 blocks, dual bit for
+    # bit the single; the bf16 control at the chains' relative bounds.
+    r = res["probe_resmlp"] = {"max_abs_err": 0.0}
+    for name in ("int8_resmlp", "int8_resmlp_fold", "bf16_resmlp"):
+        body = PI.variant_body(name)[0]
+        w, m, b = PI.variant_weights(name, dev)
+        for nb, tols in ((PROBE_RESMLP_SHALLOW, TOL_PROBE_RESMLP_BF16_SHALLOW),
+                         (PI.N_BLOCKS, TOL_PROBE_BF16["deep"])):
+            ws = (w[:2 * nb], None if m is None else m[:2 * nb], b[:2 * nb])
+            label = f"probe_resmlp {body} vs plain, {nb} blocks"
+            got, want = PI.resmlp(x, *ws, body=body), PI.resmlp_ref(
+                x, *ws, body=body)
+            if body == "bf16":
+                c = check_rel(label, got, want, *tols)
+                r["bf16_max_rel_err" if nb == PI.N_BLOCKS
+                  else "bf16_shallow_max_rel_err"] = c["max_rel_err"]
+                r["bf16_max_abs_err"] = c["max_abs_err"]
+            else:
+                check_equal(label, got, want)
+            check_nonzero(label, got)
+            check_equal(f"probe_resmlp {body}, {nb} blocks: dual vs single",
+                        PI.resmlp(x, *ws, body=body, dual=True), got)
+            del got, want
+        r[body] = {"ms": time_ms(lambda: PI.resmlp(x, w, m, b, body=body)),
+                   "dual_ms": time_ms(lambda: PI.resmlp(x, w, m, b, body=body,
+                                                        dual=True)),
+                   "plain_ms": time_ms(lambda: PI.resmlp_ref(x, w, m, b,
+                                                             body=body),
+                                       reps=1),
+                   **bound(PI.ops_per_frame(), nbytes(x, w, m, b) + out_bytes,
+                           "bf16" if body == "bf16" else "int8"),
+                   "library_ms": None}
+        print(f"[time] probe_resmlp {body}: single {r[body]['ms']:.3f} ms, "
+              f"dual {r[body]['dual_ms']:.3f} ms, plain "
+              f"{r[body]['plain_ms']:.3f} ms, bound "
+              f"{r[body]['bound_ms']:.3f} ms", flush=True)
+        del w, m, b
+    r.update({k: r["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
+
+    # The wall: every mode bit for bit at 4 layers and 86; realistic decays
+    # to 0 by 8 layers (m = 1e-3), so it is non-zero only at 4.
+    w, m = PW.make_weights(torch.Generator().manual_seed(SEED + 81),
+                           device=dev)
+    r = res["probe_wall"] = {"max_abs_err": 0.0}
+    for mode in PW.MODES:
+        for L in (PROBE_WALL_SHALLOW, PW.N_LAYERS):
+            label = f"probe_wall {mode} vs plain, {L} layers"
+            got = PW.wall(x, w[:L], m[:L], mode)
+            check_equal(label, got, PW.wall_ref(x, w[:L], m[:L], mode))
+            if mode != "realistic" or L == PROBE_WALL_SHALLOW:
+                check_nonzero(label, got)
+            del got
+        r[mode] = {"ms": time_ms(lambda: PW.wall(x, w, m, mode)),
+                   "plain_ms": time_ms(lambda: PW.wall_ref(x, w, m, mode),
+                                       reps=1)}
+        print(f"[time] probe_wall {mode}: kernel {r[mode]['ms']:.3f} ms, "
+              f"plain {r[mode]['plain_ms']:.3f} ms", flush=True)
+    r.update(ms=r["mxu_only"]["ms"], plain_ms=r["mxu_only"]["plain_ms"],
+             **bound(PW.ops_per_frame(), nbytes(x, w) + out_bytes, "int8"),
+             library_ms=None)
+    del w, m, x
+
+    # K2 whole on one 400x400 lego frame of the canonical student, packed as
+    # phase 3 packs it (and unfolded, for the epilogue probe's v0).
+    cfg = R2LConfig(compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    sampler = PointSampler(H=H, W=W, focal=FOCAL, n_sample=N_SAMPLE,
+                           near=2.0, far=6.0)
+    poses = lego_poses(K)
+    dp = cfg.input_dim // (2 * EMBED_L + 1)
+    pts = sampler.sample_test(torch.as_tensor(poses[3], device=dev))
+    calib = _calibration_points(sampler, poses, dev)
+    fps = {fold: F.calibrate_r2l_int8_pe(model, cfg, dp, EMBED_L, calib,
+                                         fold_requant=fold)
+           for fold in (True, False)}
+    del model
+    ops = chain_ops(cfg, pts.shape[0], cfg.input_dim)
+    fp = fps[True]
+    k2 = F.fused_r2l_apply_int8_pe(fp, cfg, pts, dp, EMBED_L)
+    r = res["probe_pipe"] = {}
+    for s in PL.STREAMS:
+        got = PL.apply_int8_pe_streams(fp, cfg, pts, dp, EMBED_L, streams=s)
+        check_equal(f"probe_pipe S={s} vs K2", got, k2)
+        mx, rms = deltas(got, PL.apply_int8_pe_streams_ref(fp, cfg, pts, dp,
+                                                           EMBED_L))
+        check(f"probe_pipe S={s} vs plain", mx, rms, TOL_INT8_MAX,
+              TOL_INT8_RMS)
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), mx)
+        r[f"streams{s}_ms"] = time_ms(lambda: PL.apply_int8_pe_streams(
+            fp, cfg, pts, dp, EMBED_L, streams=s))
+    r["k2_ms"] = time_ms(lambda: F.fused_r2l_apply_int8_pe(
+        fp, cfg, pts, dp, EMBED_L))
+    r.update(ms=r["streams2_ms"], plain_ms=time_ms(
+        lambda: PL.apply_int8_pe_streams_ref(fp, cfg, pts, dp, EMBED_L),
+        reps=1), **bound(ops, nbytes(pts, k2, *fp), "int8"),
+        library_ms=None)
+    print(f"[time] probe_pipe: S=1 {r['streams1_ms']:.3f} ms, S=2 "
+          f"{r['streams2_ms']:.3f} ms, S=4 {r['streams4_ms']:.3f} ms, K2 "
+          f"{r['k2_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.3f} ms at {pts.shape[0]} rays", flush=True)
+
+    r = res["probe_epi"] = {"max_abs_err": 0.0}
+    for fold, fp in fps.items():
+        outs = {}
+        for v in PE.VARIANTS:
+            got = outs[v] = PE.apply_variant(fp, cfg, pts, dp, EMBED_L, v)
+            mx, rms = deltas(got, PE.apply_variant_ref(fp, cfg, pts, dp,
+                                                       EMBED_L, v))
+            check(f"probe_epi v{v} vs plain, fold_requant={fold}", mx, rms,
+                  TOL_INT8_MAX, TOL_INT8_RMS)
+            r["max_abs_err"] = max(r["max_abs_err"], mx)
+        check_equal(f"probe_epi v0 vs K2 unfolded, fold_requant={fold}",
+                    outs[0], F.fused_r2l_apply_int8_pe(
+                        fp, cfg, pts, dp, EMBED_L, fold_requant=False,
+                        nobf16_inner=False))
+        check_equal(f"probe_epi v2 vs v1, fold_requant={fold}", outs[2],
+                    outs[1])
+        del outs
+    fp = fps[True]     # the driver's packing
+    for v in PE.VARIANTS:
+        r[f"v{v}_ms"] = time_ms(lambda: PE.apply_variant(fp, cfg, pts, dp,
+                                                         EMBED_L, v))
+    r.update(ms=r["v1_ms"], plain_ms=time_ms(
+        lambda: PE.apply_variant_ref(fp, cfg, pts, dp, EMBED_L, 1), reps=1),
+        **bound(ops, nbytes(pts, k2, *fp), "int8"), library_ms=None)
+    print(f"[time] probe_epi: v0 {r['v0_ms']:.3f} ms, v1 {r['v1_ms']:.3f} "
+          f"ms, v2 {r['v2_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.3f} ms at {pts.shape[0]} rays", flush=True)
+    del fps, fp, k2
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_k2_probes(dev) -> dict:
+    """Phase 13: K2's probe kernels against their plain versions, then the
+    four runners as a user runs them (their JSON records print on lines of
+    their own), each kernel's count set to 0 just before the runners and
+    read just after."""
+    from r2l_tpu_torch.exp import probe_epi as PE
+    from r2l_tpu_torch.exp import probe_int8 as PI
+    from r2l_tpu_torch.exp import probe_pipe as PP
+    from r2l_tpu_torch.exp import probe_pipe_lib as PL
+    from r2l_tpu_torch.exp import probe_wall as PW
+    res = k2_probe_checks(dev)
+    counted = {"probe_resmlp": PI.resmlp, "probe_wall": PW.wall,
+               "probe_pipe": PL.apply_int8_pe_streams,
+               "probe_epi": PE.apply_variant}
+    for f in counted.values():
+        f.launches = 0
+    records = PI.main([]) + PW.main([]) + PP.main([]) + PE.main([])
+    torch.cuda.synchronize()
+    res["launches"] = {k: f.launches for k, f in counted.items()}
+    print(f"[main] K2 probe kernel launches in the runners: "
+          f"{res['launches']}", flush=True)
+    for name, count in res["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"the probe runners never launched {name}")
+    res["runners"] = {r.get("name", r.get("variant")): r["ms_per_frame"]
+                      for r in records if "ms_per_frame" in r}
     return res
 
 
@@ -1592,6 +1860,7 @@ def main() -> int:
     ttrain = phase_teacher_train(images, img_poses, dev)
     idist = phase_images_distill(images, img_poses, sampler, dev)
     probes = phase_probes(dev)
+    k2_probes = phase_k2_probes(dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -1608,7 +1877,7 @@ def main() -> int:
         "teacher_kernels": teacher, "datagen": dgen,
         "teacher_frame": tframe,
         "teacher_train": ttrain, "images_distill": idist,
-        "probes": probes}}))
+        "probes": probes, "k2_probes": k2_probes}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1650,6 +1919,13 @@ def main() -> int:
               ("probe_bign", "exp/probe_mxu.py:188"),
               ("probe_int8_chain", "exp/probe_mxu.py:225"),
               ("probe_shapes", "exp/probe_shapes.py:55"))),
+        *(entry(name, source, replaces, k2_probes["launches"][name],
+                k2_probes[name])
+          for name, source, replaces in (
+              ("probe_resmlp", "probe_resmlp.cu", "exp/probe_int8.py:201"),
+              ("probe_wall", "probe_int8_chain.cu", "exp/probe_wall.py:73"),
+              ("probe_pipe", "probe_pipe.cu", "exp/probe_pipe_lib.py:19"),
+              ("probe_epi", "probe_epi.cu", "exp/probe_epi.py:112"))),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

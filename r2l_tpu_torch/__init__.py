@@ -4,7 +4,7 @@ The JAX package ``r2l_tpu`` is the reference: every function here names the
 ``r2l_tpu`` function it reproduces, and ``tests/test_torch_*.py`` hold the
 two to the same output on the same inputs. This package never imports JAX.
 
-Five slices are ported, each through hand-written CUDA kernels for the
+Six slices are ported, each through hand-written CUDA kernels for the
 NVIDIA H100 (``kernels/csrc/*.cu``):
 
 1. The R2L student's novel-view frame: camera pose ->
@@ -29,6 +29,13 @@ NVIDIA H100 (``kernels/csrc/*.cu``):
    epilogue, single or as two warp groups in flight, at N=512 and in
    static-scale int8, and 64 products by shape and dtype, on the engines K1
    and K2 run; runners that time them by the probes' protocol.
+6. The probes of K2's int8 engine (``exp.probe_int8``, ``exp.probe_wall``,
+   ``exp.probe_pipe_lib`` with its driver ``exp.probe_pipe``,
+   ``exp.probe_epi``): its ResMLP body with the requantize folded or not,
+   two tiles in flight and a bf16 control; the bare product rate and a
+   minimal cast; K2 with its ray tile in S streams; K2 with three requantize
+   epilogues. K2 itself and these share ``kernels/csrc/r2l_int8_chain.cuh``,
+   and K2 takes the reference's ``fold_requant``/``nobf16_inner`` flags.
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 """

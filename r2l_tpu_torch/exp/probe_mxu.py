@@ -178,16 +178,46 @@ def bign(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
 bign.launches = 0
 
 
-def int8_chain_ref(x: torch.Tensor, wq: torch.Tensor,
-                   s: torch.Tensor) -> torch.Tensor:
+def int8_chain_ref(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
+                   inv: float = 1.0 / A_SCALE) -> torch.Tensor:
     """Plain version of ``int8_chain``: x [N, 256] f32 -> [N, 256] f32, the
-    int32 dots exact (``_mm_int``)."""
-    inv = torch.tensor(1.0 / A_SCALE, dtype=torch.float32, device=x.device)
+    int32 dots exact (``_mm_int``). ``inv`` is the input scale (1 / A_SCALE;
+    ``probe_wall``'s ``realistic`` mode passes 32)."""
+    inv_t = torch.tensor(inv, dtype=torch.float32, device=x.device)
     h = x.to(_BF16)
     for i in range(wq.shape[0]):
-        acc = _mm_int(_q8(h.float(), inv), wq[i])
+        acc = _mm_int(_q8(h.float(), inv_t), wq[i])
         h = torch.relu(acc * s[i]).to(_BF16)
     return h.float()
+
+
+def check_int8_chain_args(x: torch.Tensor, wq: torch.Tensor,
+                          s: torch.Tensor | None) -> None:
+    """The int8 chain kernel's arguments (``s`` may be None where the mode
+    does not read it)."""
+    dev, L = x.device, wq.shape[0]
+    _check_x(x)
+    _check(wq, "wq", torch.int8, (L, W, W), dev)
+    if s is not None:
+        _check(s, "s", torch.float32, (L, W), dev)
+
+
+def launch_int8_chain(x: torch.Tensor, wq: torch.Tensor,
+                      s: torch.Tensor | None, inv: float, mode: int,
+                      wrapper: Callable) -> torch.Tensor:
+    """One launch of ``csrc/probe_int8_chain.cu`` in ``mode`` (0 static, 1
+    mxu_only, 2 mincast) on checked CUDA tensors, counted in
+    ``wrapper.launches``."""
+    from ..kernels import _build
+    out = torch.empty_like(x)
+    lib = _build.load("probe_int8_chain")
+    with torch.cuda.device(x.device):
+        wrapper.launches += 1
+        rc = lib.probe_int8_chain_launch(
+            _ptr(x), x.shape[0], _ptr(wq), None if s is None else _ptr(s),
+            float(inv), _ptr(out), wq.shape[0], mode, _stream(x.device))
+    _raise_on_error(rc, "probe_int8_chain")
+    return out
 
 
 def int8_chain(x: torch.Tensor, wq: torch.Tensor,
@@ -199,20 +229,8 @@ def int8_chain(x: torch.Tensor, wq: torch.Tensor,
     CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return int8_chain_ref(x, wq, s)
-    from ..kernels import _build
-    dev, L = x.device, wq.shape[0]
-    _check_x(x)
-    _check(wq, "wq", torch.int8, (L, W, W), dev)
-    _check(s, "s", torch.float32, (L, W), dev)
-    out = torch.empty_like(x)
-    lib = _build.load("probe_int8_chain")
-    with torch.cuda.device(dev):
-        int8_chain.launches += 1
-        rc = lib.probe_int8_chain_launch(_ptr(x), x.shape[0], _ptr(wq),
-                                         _ptr(s), 1.0 / A_SCALE, _ptr(out), L,
-                                         _stream(dev))
-    _raise_on_error(rc, "probe_int8_chain")
-    return out
+    check_int8_chain_args(x, wq, s)
+    return launch_int8_chain(x, wq, s, 1.0 / A_SCALE, 0, int8_chain)
 
 
 int8_chain.launches = 0

@@ -121,6 +121,49 @@ def shape_inputs(M: int, K: int, N: int, dtype: torch.dtype,
     return x.to(device), w.to(device)
 
 
+def mma_rounding(k: int, rows: int = 1 << 16, seed: int = SEED,
+                 device="cuda") -> dict:
+    """How one ``mma.sync`` m16n8k16 (bf16 products, f32 accumulator)
+    rounds, read through ``unchained``'s free kernel: one product, K=128,
+    N=256, every weight 0 but output column 0's first ``k`` inputs (16: one
+    mma; 32: two, the second adding to the first's f32 result), so each
+    row's output is that column's accumulator (the later mmas and the row
+    sum add exact zeros). The inputs span a few binades, as a chain's
+    activations do. Against the f32 round-to-nearest of the exact sum
+    (for k = 32, of each mma's in turn): the share of rows that differ,
+    the largest difference in ulps of the result, the share of those with
+    the smaller magnitude, and the largest distance from the exact sum in
+    ulps of the largest product."""
+    if k not in (16, 32):
+        raise ValueError(f"k must be 16 or 32, got {k}")
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn((rows, 128), generator=g)
+         * torch.exp2(torch.randint(-4, 5, (rows, 128), generator=g).float())
+         ).to(torch.bfloat16)
+    w = torch.zeros((1, 256, 128), dtype=torch.bfloat16)
+    w[0, 0, :k] = torch.randn(k, generator=g).to(torch.bfloat16)
+    got = unchained(x.to(device), w.to(device)).cpu()[:, 0].double()
+    prods = x[:, :k].double() * w[0, 0, :k].double()
+    exact = prods.sum(dim=1)
+    rn = exact.float()
+    if k == 32:
+        rn = (prods[:, :16].sum(dim=1).float().double()
+              + prods[:, 16:].sum(dim=1)).float()
+    ulp = (torch.nextafter(rn.abs(), torch.tensor(float("inf")))
+           - rn.abs()).double()
+    top = prods.abs().max(dim=1).values.clamp_min(1e-30)
+    ulp_top = torch.exp2(torch.floor(torch.log2(top)) - 23)
+    differ = got != rn.double()
+    return {"k": k, "rows": rows,
+            "differ_share": float(differ.double().mean()),
+            "max_ulp": float(((got - rn.double()) / ulp).abs().max()),
+            "smaller_magnitude_share": float(
+                (got.abs() < rn.double().abs())[differ].double().mean())
+            if bool(differ.any()) else 0.0,
+            "max_err_in_top_ulp": float(((got - exact).abs()
+                                         / ulp_top).max())}
+
+
 def shape_name(M: int, K: int, N: int, dtype: torch.dtype,
                chained: bool = False) -> str:
     return (f"{'chain' if chained else 'free'}_{_NAMES[dtype]}_M{M}_K{K}"

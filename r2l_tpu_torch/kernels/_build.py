@@ -40,8 +40,7 @@ KERNELS = {
                   [_P, _I, _I] + [_P] * 7
                   + [_I, _I, _I, _I, _F, _I, _I, _I, _P]),
     "r2l_int8_pe_fused": ("r2l_int8_pe_fused_launch",
-                          [_P, _I, _I, _I] + [_P] * 13
-                          + [_I, _I, _I, _I, _I, _I, _P]),
+                          [_P, _I, _I, _I] + [_P] * 13 + [_I] * 8 + [_P]),
     "r2l_train_fwd": ("r2l_train_fwd_launch",
                       [_P, _I, _I, _I] + [_P] * 8
                       + [_I, _I, _I, _F, _I, _I, _I, _P]),
@@ -60,9 +59,15 @@ KERNELS = {
                     [_P, _I, _P, _P, _P, _I, _I, _I, _P]),
     "probe_bign": ("probe_bign_launch", [_P, _I, _P, _P, _P, _I, _P]),
     "probe_int8_chain": ("probe_int8_chain_launch",
-                         [_P, _I, _P, _P, _F, _P, _I, _P]),
+                         [_P, _I, _P, _P, _F, _P, _I, _I, _P]),
     "probe_shapes": ("probe_shapes_launch",
                      [_P, _I, _I, _I, _P, _I, _P, _I, _I, _P]),
+    "probe_resmlp": ("probe_resmlp_launch",
+                     [_P, _I, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P]),
+    "probe_pipe": ("probe_pipe_launch",
+                   [_P, _I, _I, _I] + [_P] * 13 + [_I] * 7 + [_P]),
+    "probe_epi": ("probe_epi_launch",
+                  [_P, _I, _I, _I] + [_P] * 13 + [_I] * 7 + [_P]),
 }
 
 

@@ -83,8 +83,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // One of the dual kernel's two warp groups, as the engine's team: its
 // thread index and its named barrier (ids 1 and 2; 0 is __syncthreads()).
 struct Group {
+  static constexpr int kCopyThreads = kThreads;
   int g, t;
   __device__ __forceinline__ int tid() const { return t; }
+  __device__ __forceinline__ int ctid() const { return t; }
   __device__ __forceinline__ void sync() const {
     asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(kThreads) : "memory");
   }

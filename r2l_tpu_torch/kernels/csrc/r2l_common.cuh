@@ -20,11 +20,28 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 // The kThreads threads that run one block-wide product together, and their
-// barrier: the whole block by default. A kernel that runs several teams per
-// block passes its own type with the same two members (probe_chain.cu's
-// warp groups, each with a named barrier).
+// barrier: the whole block by default. tid() is a thread's index in the
+// team (it picks the thread's fragments); ctid() and kCopyThreads are the
+// threads that copy the weight stages, which the barrier covers. A kernel
+// that runs several teams per block passes its own type with the same
+// members: probe_chain.cu's warp groups, each with its own stages and a
+// named barrier; StreamTeam below, whose teams share the block's stages.
 struct BlockTeam {
+  static constexpr int kCopyThreads = kThreads;
   __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ int ctid() const { return threadIdx.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+// One of S teams of kThreads threads in a block of S * kThreads, each
+// running its own rows through the same products: the whole block copies
+// each weight stage once and steps the stages together (one block barrier),
+// so the S teams' tensor-core work and epilogues interleave in the SM.
+template <int S>
+struct StreamTeam {
+  static constexpr int kCopyThreads = S * kThreads;
+  __device__ __forceinline__ int tid() const { return threadIdx.x % kThreads; }
+  __device__ __forceinline__ int ctid() const { return threadIdx.x; }
   __device__ __forceinline__ void sync() const { __syncthreads(); }
 };
 
@@ -134,8 +151,9 @@ __device__ __forceinline__ void cp_async_wait_prior() {  // all but the last
 // row stride `row_bytes`) in `nstage` stages: stage st holds columns
 // [st*S, (st+1)*S) of every row, S = kStageRowBytes bytes, n-major at `ldw`
 // words per row, in one of two shared-memory buffers. Stage st+1 is copied
-// (cp.async) while compute(st, stage) runs on stage st, by the threads of
-// `team`. Ends with a team barrier after the last compute. (Prefetching the
+// (cp.async, by the team's copying threads) while compute(st, stage) runs
+// on stage st, by the threads of `team`. Ends with a team barrier after the
+// last compute. (Prefetching the
 // next product's first stage as well measured slower in both kernels:
 // PERF.md.)
 template <int N, int kStageRowBytes, int ldw, typename Compute,
@@ -149,7 +167,7 @@ __device__ __forceinline__ void pipelined_k_loop(const void* Wg,
   const unsigned char* src = static_cast<const unsigned char*>(Wg);
   auto issue = [&](int st) {
     uint32_t* buf = Ws + (st & 1) * N * ldw;
-    for (int e = team.tid(); e < N * kPieces; e += kThreads) {
+    for (int e = team.ctid(); e < N * kPieces; e += Team::kCopyThreads) {
       const int n = e / kPieces, p = e % kPieces;
       cp_async16(buf + n * ldw + 4 * p,
                  src + n * row_bytes + (size_t)st * kStageRowBytes + 16 * p);

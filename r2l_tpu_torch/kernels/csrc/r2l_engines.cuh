@@ -169,19 +169,21 @@ struct EngineS8 {
 
   // acc = A W^T for A = smem int8 [TT][lda] and W = global int8 [W][K]
   // ([out, in], K a multiple of kKC): the packed rows give n-major stages
-  // directly (4 k-values per word), copied by cp.async one stage ahead.
-  // Ends with a barrier after the last use of A and the stages.
+  // directly (4 k-values per word), copied by cp.async one stage ahead, by
+  // the threads of `team` (the whole block by default). Ends with a team
+  // barrier after the last use of A and the stages.
+  template <typename Team = BlockTeam>
   __device__ static void mm(int (&acc)[M::MT][M::NT][4], const int8_t* A,
                             int lda, const int8_t* __restrict__ Wg, int K,
-                            uint32_t* Ws) {
+                            uint32_t* Ws, Team team = Team()) {
 #pragma unroll
     for (int mt = 0; mt < M::MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < M::NT; ++nt)
 #pragma unroll
         for (int u = 0; u < 4; ++u) acc[mt][nt][u] = 0;
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    const int n0 = M::n0(), lda32 = lda / 4;
+    const int lane = team.tid() % 32, g = lane / 4, t = lane % 4;
+    const int n0 = M::n0(team), lda32 = lda / 4;
     const uint32_t* A32 = reinterpret_cast<const uint32_t*>(A);
     pipelined_k_loop<W, kKC, kLdw>(
         Wg, (size_t)K, K / kKC, Ws, [&](int st, const uint32_t* buf) {
@@ -206,7 +208,8 @@ struct EngineS8 {
                 mma_s8(acc[mt][nt], a[mt], b0, b1);
             }
           }
-        });
+        },
+        team);
   }
 };
 

@@ -9,9 +9,11 @@ student frame, and a third is the JAX package's exported kernel API:
   biases f32, activations rounded to the compute dtype between layers, f32
   accumulation. Its plain version follows the Pallas ``_kernel_body``
   rounding points (bias added in f32 before the cast), not ``apply_r2l``'s.
-* ``fused_r2l_apply_int8_pe`` (``csrc/r2l_int8_pe_fused.cu``): the same
-  chain in static-scale int8 (``fold_requant=True, nobf16_inner=True`` of
-  ``_int8_pe_chain``), with parameters from ``calibrate_r2l_int8_pe``.
+* ``fused_r2l_apply_int8_pe`` (``csrc/r2l_int8_pe_fused.cu`` over
+  ``r2l_int8_chain.cuh``): the same chain in static-scale int8, in
+  ``_int8_pe_chain``'s three forms (``fold_requant``, ``nobf16_inner``; by
+  default the deployed ``True, True``), with parameters from
+  ``calibrate_r2l_int8_pe``.
 * ``fused_r2l_apply`` (``csrc/r2l_fused.cu``): K1's chain on an input
   encoded outside (``r2l_embed``'s per-scalar order, parameters from
   ``prepare_fused_params``), read unpadded and rounded once to the compute
@@ -491,13 +493,40 @@ def _dequant(acc: torch.Tensor, m: torch.Tensor,
     return (acc.double() * m.double() + b.double()).float()
 
 
-def fused_r2l_apply_int8_pe_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
-                                pts: torch.Tensor, dim_pts: int,
-                                L: int = 10) -> torch.Tensor:
-    """Plain version of ``fused_r2l_apply_int8_pe`` (Pallas
-    ``_int8_pe_chain`` with ``fold_requant=True, nobf16_inner=True``):
-    pts [N, dim_pts] -> [N, out_dim] f32."""
+# The int8 chain's requantize epilogues (csrc/r2l_int8_chain.cuh's kEpi):
+# K2's three forms by (fold_requant, nobf16_inner), and the bf16 quantize of
+# exp/probe_epi.py (v1; v2 with the inner ReLU as the clip's floor).
+EPILOGUES = ("deployed", "fold", "unfolded", "v1", "v2")
+
+
+def int8_epilogue(fold_requant: bool, nobf16_inner: bool) -> str:
+    """K2's epilogue for Pallas ``_int8_pe_chain``'s flags (``nobf16_inner``
+    acts only with ``fold_requant``)."""
+    if not fold_requant:
+        return "unfolded"
+    return "deployed" if nobf16_inner else "fold"
+
+
+def _q8_bf16(t: torch.Tensor, inv: torch.Tensor, lo: float) -> torch.Tensor:
+    """``clip(round(t_bf16 * inv.astype(bf16)), lo, 127)`` as XLA computes
+    it: the product of two bf16 values (exact in f32) rounded to bf16 before
+    the round-half-even; as float64 like ``_q8``."""
+    y = (t.to(torch.bfloat16).float()
+         * inv.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+    return torch.clamp(torch.round(y), lo, 127.0).double()
+
+
+def int8_pe_chain_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
+                      pts: torch.Tensor, dim_pts: int, L: int = 10,
+                      epilogue: str = "deployed") -> torch.Tensor:
+    """Plain version of the int8 chain (Pallas ``_int8_pe_chain``) with one
+    of the ``EPILOGUES``: pts [N, dim_pts] -> [N, out_dim] f32."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {EPILOGUES}, got "
+                         f"{epilogue!r}")
     nb, nl, dp = cfg.num_blocks, cfg.n_learnable, dim_pts
+    folded = epilogue in ("deployed", "fold")
+    bf16_q = epilogue in ("v1", "v2")
     p = pts.float()
     sins, coss = _pe_sin_cos_ladder(p, L)
     feats = sins + coss + [p]
@@ -509,11 +538,19 @@ def fused_r2l_apply_int8_pe_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
         t = h
         for j in range(nl):
             idx = i * nl + j
-            q = (_q8(t.float(), fp.body_inv[idx]) if j == 0
-                 else _q8(t))                  # folded: round + clip only
+            if folded and j > 0:             # round + clip only
+                q = _q8(t.float())
+            elif bf16_q:
+                q = _q8_bf16(t, fp.body_inv[idx],
+                             0.0 if epilogue == "v2" and j > 0 else -127.0)
+            else:
+                q = _q8(t.float(), fp.body_inv[idx])
             tf = _dequant(_mm_int(q, fp.body_q[idx]), fp.body_m[idx],
                           fp.body_b[idx])
-            t = torch.relu(tf) if j < nl - 1 else tf.to(torch.bfloat16)
+            if j < nl - 1 and epilogue != "v2":
+                tf = torch.relu(tf)
+            t = (tf if epilogue == "deployed" and j < nl - 1
+                 else tf.to(torch.bfloat16))
         h = (t.float() + h.float()).to(torch.bfloat16)
     hf = h.float()
     if cfg.use_residual:
@@ -523,22 +560,23 @@ def fused_r2l_apply_int8_pe_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
     return out if cfg.linear_tail else torch.sigmoid(out)
 
 
-def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
-                            pts: torch.Tensor, dim_pts: int,
-                            L: int = 10) -> torch.Tensor:
-    """pts [N, dim_pts] raw sample points -> RGB [N, out_dim] f32 through
-    the static-scale int8 kernel; ``fp`` comes from
-    ``calibrate_r2l_int8_pe(..., fold_requant=True)``. CPU tensors take the
-    plain version."""
-    if pts.device.type == "cpu":
-        return fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dim_pts, L)
-    from . import _build
-    _assert_fused_supported(cfg)
-    dev, W = pts.device, cfg.netwidth
-    nbl = cfg.num_blocks * cfg.n_learnable
+def fused_r2l_apply_int8_pe_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
+                                pts: torch.Tensor, dim_pts: int,
+                                L: int = 10, fold_requant: bool = True,
+                                nobf16_inner: bool = True) -> torch.Tensor:
+    """Plain version of ``fused_r2l_apply_int8_pe`` (Pallas
+    ``_int8_pe_chain`` with the same flags): pts [N, dim_pts] ->
+    [N, out_dim] f32."""
+    return int8_pe_chain_ref(fp, cfg, pts, dim_pts, L,
+                             int8_epilogue(fold_requant, nobf16_inner))
+
+
+def _check_int8_params(fp: FusedParamsInt8PE, cfg: R2LConfig,
+                       dim_pts: int, L: int, dev: torch.device) -> None:
+    """Check the packed int8 parameters the int8 chain kernels take."""
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
     in_dim, out_dim = dim_pts * (2 * L + 1), fp.tail_q.shape[0]
     f32, i8 = torch.float32, torch.int8
-    _check(pts, "pts", f32, (pts.shape[0], dim_pts), dev)
     for name, t, dt, shape in (
             ("head_q", fp.head_q, i8, (W, _padded_in(in_dim))),
             ("head_m", fp.head_m, f32, (W,)),
@@ -553,24 +591,53 @@ def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
             ("tail_b", fp.tail_b, f32, (out_dim,)),
             ("tail_inv", fp.tail_inv, f32, (W,))):
         _check(t, name, dt, shape, dev)
-    out = torch.empty((pts.shape[0], out_dim), dtype=f32, device=dev)
+
+
+def launch_int8_pe_chain(lib_name: str, wrapper, fp: FusedParamsInt8PE,
+                         cfg: R2LConfig, pts: torch.Tensor, dim_pts: int,
+                         L: int, *form: int) -> torch.Tensor:
+    """One launch of an entry point over ``csrc/r2l_int8_chain.cuh`` (K2's
+    ``r2l_int8_pe_fused``, ``probe_pipe``, ``probe_epi``) on CUDA tensors,
+    checked here, with the entry's own ints ``form`` (K2's flags, S, the
+    variant) before the stream; counted in ``wrapper.launches``."""
+    from . import _build
+    _assert_fused_supported(cfg)
+    dev = pts.device
+    _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
+    _check_int8_params(fp, cfg, dim_pts, L, dev)
+    out = torch.empty((pts.shape[0], fp.tail_q.shape[0]),
+                      dtype=torch.float32, device=dev)
     if pts.shape[0] == 0:
         return out
-    lib = _build.load("r2l_int8_pe_fused")
+    lib = _build.load(lib_name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fused_r2l_apply_int8_pe.launches += 1
-        rc = lib.r2l_int8_pe_fused_launch(
-            _ptr(pts), pts.shape[0], dim_pts, L,
-            _ptr(fp.head_q), _ptr(fp.head_m), _ptr(fp.head_b),
-            _ptr(fp.head_inv), _ptr(fp.body_q), _ptr(fp.body_m),
-            _ptr(fp.body_b), _ptr(fp.body_inv), _ptr(fp.tail_q),
-            _ptr(fp.tail_m), _ptr(fp.tail_b), _ptr(fp.tail_inv), _ptr(out),
-            W, cfg.num_blocks, cfg.n_learnable, out_dim,
-            int(cfg.use_residual), int(cfg.linear_tail),
+        wrapper.launches += 1
+        rc = getattr(lib, f"{lib_name}_launch")(
+            _ptr(pts), pts.shape[0], dim_pts, L, *(_ptr(t) for t in fp),
+            _ptr(out), cfg.netwidth, cfg.num_blocks, cfg.n_learnable,
+            out.shape[1], int(cfg.use_residual), int(cfg.linear_tail), *form,
             ctypes.c_void_p(stream))
-    _raise_on_error(rc, "r2l_int8_pe_fused")
+    _raise_on_error(rc, lib_name)
     return out
+
+
+def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
+                            pts: torch.Tensor, dim_pts: int,
+                            L: int = 10, fold_requant: bool = True,
+                            nobf16_inner: bool = True) -> torch.Tensor:
+    """pts [N, dim_pts] raw sample points -> RGB [N, out_dim] f32 through
+    the static-scale int8 kernel. The flags are Pallas ``_int8_pe_chain``'s;
+    the default is the deployed form, with ``fp`` from
+    ``calibrate_r2l_int8_pe(..., fold_requant=True)`` (``fold_requant``
+    here must match the calibration's). CPU tensors take the plain
+    version."""
+    if pts.device.type == "cpu":
+        return fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dim_pts, L,
+                                           fold_requant, nobf16_inner)
+    return launch_int8_pe_chain(
+        "r2l_int8_pe_fused", fused_r2l_apply_int8_pe, fp, cfg, pts, dim_pts,
+        L, int(fold_requant), int(nobf16_inner))
 
 
 fused_r2l_apply_int8_pe.launches = 0

@@ -160,3 +160,34 @@ def load_exp_probe(name: str):
         jax.config.update("jax_persistent_cache_min_compile_time_secs",
                           prev[1])
     return mod
+
+
+def int8_params_from_jax(jfp, like):
+    """JAX's int8 packing (``FusedParamsInt8PE``) in the port's kernel
+    layout, field by field (``kernel_layout``), shaped as the port's packing
+    ``like``: so both packages run the same int8 codes and scales."""
+    return type(like)(*(
+        torch.from_numpy(np.array(kernel_layout(
+            name, getattr(jfp, name), getattr(like, name)), order="C"))
+        for name in like._fields))
+
+
+def int8_case(dim_pts, L, W, D, side, seed=0, n_calib_poses=3, **cfg_kw):
+    """A small R2L case for the int8 chain's tests: (JAX cfg, JAX params,
+    port cfg, port model, calibration points, one pose's sample points), the
+    points as numpy f32 (``sample_test`` of JAX's sampler); ``cfg_kw`` go
+    to the config."""
+    from r2l_tpu.rays import pose_spherical
+    from r2l_tpu.sampler import PointSampler
+    jcfg = JaxR2LConfig(input_dim=dim_pts * (2 * L + 1), netdepth=D,
+                        netwidth=W, **cfg_kw)
+    params, cfg, model = models(jcfg, seed=seed)
+    sampler = PointSampler(H=side, W=side, focal=1.2 * side,
+                           n_sample=dim_pts // 3, near=2.0, far=6.0)
+    calib = np.concatenate([
+        np.asarray(sampler.sample_test(jnp.asarray(
+            pose_spherical(th, -30.0, 4.0)[:3, :4])))
+        for th in np.linspace(0, 360, n_calib_poses, endpoint=False)])
+    pts = np.asarray(sampler.sample_test(jnp.asarray(
+        pose_spherical(75.0, -40.0, 4.0)[:3, :4])))
+    return jcfg, params, cfg, model, calib, pts

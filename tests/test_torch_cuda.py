@@ -121,6 +121,23 @@ def test_int8_kernel_matches_plain(dev, name):
     assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (mx, rms)
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("fold_requant,nobf16_inner",
+                         [(True, False), (False, False)])
+def test_int8_kernel_forms_match_plain(dev, name, fold_requant,
+                                       nobf16_inner):
+    """K2's other two forms, each on the packing of its fold_requant."""
+    cfg, model, sampler, poses, pts, dp, L = _case(name, dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                 _calibration_points(sampler, poses, dev),
+                                 fold_requant=fold_requant)
+    kw = dict(fold_requant=fold_requant, nobf16_inner=nobf16_inner)
+    got = F.fused_r2l_apply_int8_pe(fp, cfg, pts, dp, L, **kw)
+    mx, rms = _deltas(got, F.fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dp, L,
+                                                         **kw))
+    assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (mx, rms)
+
+
 def test_int8_canary_on_card(dev):
     """The frozen canary: the kernel equals its plain version bit for bit
     and stays within one f32 ulp of [0.5, 1) of the JAX reference's output
@@ -432,6 +449,12 @@ def test_nerf_render_raises_instead_of_falling_back(dev):
 # flipped bf16 rounding propagates as in the chains (first run: 3.4e-3 at 8
 # layers).
 TOL_PROBE_SHAPES_BF16 = 1e-5
+# The bf16 ResMLP control at 4 blocks: RMS relative to the largest plain
+# output. chip_smoke's input read 7.3e-5 on the card (H100, 700 W); a plain
+# version that skips the bf16 rounding of each block's t reads 8.2e-4 on
+# this test's input and 6.2e-4 on chip_smoke's (CPU), so the max-abs bound
+# alone (7e-3 there) would not catch it.
+TOL_PROBE_BF16_RMS = 2.5e-4
 
 
 def _probe_x(dev, n=1000, seed=3):
@@ -505,6 +528,22 @@ def test_probe_shapes_matches_plain(dev, dtype, K, N, chained):
         assert mx <= tol * float(want.abs().max()), mx
 
 
+@pytest.mark.parametrize("k", [16, 32])
+def test_one_mma_truncates_its_f32_sum(dev, k):
+    """One mma.sync m16n8k16 (and two in turn) does not round its f32 sum to
+    nearest: where it differs from the round-to-nearest of the exact sum
+    (33% / 50% of rows, H100), it mostly has the smaller magnitude (96% /
+    91%; an IEEE sum in any order lands on either side about equally, as
+    the plain version on the CPU does): the products are aligned to the
+    largest and truncated. This is why the chained bf16 shapes differ from
+    every IEEE-ordered plain version in more rows than those differ among
+    themselves (ROADMAP C)."""
+    from r2l_tpu_torch.exp import probe_shapes as PS
+    r = PS.mma_rounding(k, device=dev)
+    assert r["differ_share"] > 0.1, r
+    assert r["smaller_magnitude_share"] > 0.8, r
+
+
 def test_probe_wrappers_raise_instead_of_falling_back(dev):
     from r2l_tpu_torch.exp import probe_mxu as PM
     from r2l_tpu_torch.exp import probe_shapes as PS
@@ -525,3 +564,122 @@ def test_probe_wrappers_raise_instead_of_falling_back(dev):
         PS.unchained(xs, ws, chained=True)
     with pytest.raises(TypeError):
         PS.unchained(xs.float(), ws)
+
+
+# K2's probes (r2l_tpu_torch/exp/probe_{int8,wall,pipe_lib,epi}.py): the
+# int8 bodies, the wall's modes, the streams and the epilogues are exact
+# int32 dots with the plain versions' roundings, so bit for bit (the
+# streams and the epilogue v0 also equal K2); the bf16 control as the bf16
+# chain.
+def _int8_probe_case(dev, n_rays=1000):
+    cfg = R2LConfig(input_dim=48 * 21, netdepth=8, netwidth=256,
+                    compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(10), dev)
+    sampler = PointSampler(H=40, W=25, focal=30.0, n_sample=16, near=2.0,
+                           far=6.0)
+    poses = np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4]
+                      for t in (0.0, 120.0, 240.0)])
+    calib = _calibration_points(sampler, poses, dev)
+    pts = sampler.sample_test(torch.as_tensor(poses[1], device=dev))
+    return cfg, model, calib, pts[:n_rays].contiguous()
+
+
+@pytest.mark.parametrize("body", ["int8", "int8_fold", "bf16"])
+def test_probe_resmlp_matches_plain_and_dual_equals_single(dev, body):
+    from r2l_tpu_torch.exp import probe_int8 as PI
+    x = _probe_x(dev)
+    w = PI.variant_weights({"int8": "int8_resmlp",
+                            "int8_fold": "int8_resmlp_fold",
+                            "bf16": "bf16_resmlp"}[body], dev, n_blocks=4)
+    before = PI.resmlp.launches
+    got = PI.resmlp(x, *w, body=body)
+    dual = PI.resmlp(x, *w, body=body, dual=True)
+    torch.cuda.synchronize()
+    assert PI.resmlp.launches == before + 2
+    assert torch.equal(got, dual)
+    want = PI.resmlp_ref(x, *w, body=body)
+    if body == "bf16":   # the residual stream grows to ~5, where one bf16
+        mx, rms = _deltas(got, want)    # step is 0.03: relative to its top,
+        top = float(want.abs().max())   # as chip_smoke's 4-block check
+        assert mx / top < TOL_BF16, mx
+        assert rms / top < TOL_PROBE_BF16_RMS, rms
+    else:
+        assert torch.equal(got, want)
+    assert float(got.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["mxu_only", "mincast", "realistic"])
+def test_probe_wall_equals_plain(dev, mode):
+    from r2l_tpu_torch.exp import probe_wall as PW
+    x = _probe_x(dev)
+    w, m = PW.make_weights(torch.Generator().manual_seed(11), 4, dev)
+    before = PW.wall.launches
+    got = PW.wall(x, w, m, mode)
+    torch.cuda.synchronize()
+    assert PW.wall.launches == before + 1
+    assert torch.equal(got, PW.wall_ref(x, w, m, mode))
+    assert float(got.abs().sum()) > 0
+
+
+def test_probe_wall_mincast_wraps_on_card(dev):
+    """Saturated inputs and weights of 3: the shifted sums leave the int8
+    range and wrap (381 -> 125), as the plain version and XLA wrap them."""
+    from r2l_tpu_torch.exp import probe_wall as PW
+    x = torch.full((1000, 256), 10.0, device=dev)
+    w = torch.full((1, 256, 256), 3, dtype=torch.int8, device=dev)
+    m = torch.full((1, 256), 1e-3, device=dev)
+    got = PW.wall(x, w, m, "mincast")
+    assert torch.equal(got, PW.wall_ref(x, w, m, "mincast"))
+    assert bool((got == 125.0).all())
+
+
+@pytest.mark.parametrize("streams", [1, 2, 4])
+def test_probe_pipe_equals_k2(dev, streams):
+    from r2l_tpu_torch.exp import probe_pipe_lib as PL
+    cfg, model, calib, pts = _int8_probe_case(dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, calib)
+    before = PL.apply_int8_pe_streams.launches
+    got = PL.apply_int8_pe_streams(fp, cfg, pts, 48, 10, streams=streams)
+    torch.cuda.synchronize()
+    assert PL.apply_int8_pe_streams.launches == before + 1
+    assert torch.equal(got, F.fused_r2l_apply_int8_pe(fp, cfg, pts, 48, 10))
+    assert torch.equal(got, PL.apply_int8_pe_streams_ref(fp, cfg, pts, 48,
+                                                         10))
+
+
+@pytest.mark.parametrize("fold", [True, False])
+def test_probe_epi_equals_plain(dev, fold):
+    from r2l_tpu_torch.exp import probe_epi as PE
+    cfg, model, calib, pts = _int8_probe_case(dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, calib,
+                                 fold_requant=fold)
+    before = PE.apply_variant.launches
+    outs = [PE.apply_variant(fp, cfg, pts, 48, 10, v) for v in PE.VARIANTS]
+    torch.cuda.synchronize()
+    assert PE.apply_variant.launches == before + 3
+    for v, got in zip(PE.VARIANTS, outs):
+        assert torch.equal(got, PE.apply_variant_ref(fp, cfg, pts, 48, 10, v))
+    assert torch.equal(outs[0], F.fused_r2l_apply_int8_pe(
+        fp, cfg, pts, 48, 10, fold_requant=False, nobf16_inner=False))
+    assert torch.equal(outs[2], outs[1])
+
+
+def test_int8_probe_wrappers_raise_instead_of_falling_back(dev):
+    from r2l_tpu_torch.exp import probe_epi as PE
+    from r2l_tpu_torch.exp import probe_int8 as PI
+    from r2l_tpu_torch.exp import probe_pipe_lib as PL
+    from r2l_tpu_torch.exp import probe_wall as PW
+    x = _probe_x(dev, 128)
+    w, m, b = PI.variant_weights("int8_resmlp", dev, n_blocks=1)
+    with pytest.raises(TypeError):     # int8 weights for the bf16 body
+        PI.resmlp(x, w, m, b, body="bf16")
+    with pytest.raises(ValueError):
+        PI.resmlp(x, w[:1], m[:1], b[:1])
+    with pytest.raises(ValueError):
+        PW.wall(x, w, m, "fast")
+    cfg, model, calib, pts = _int8_probe_case(dev, 128)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, calib)
+    with pytest.raises(ValueError):
+        PL.apply_int8_pe_streams(fp, cfg, pts, 48, 10, streams=8)
+    with pytest.raises(ValueError):
+        PE.apply_variant(fp, cfg, pts[:, :47], 48, 10, 1)

@@ -1,8 +1,8 @@
 """Port parity: the static-scale int8 kernel module (K2 of
 r2l_tpu_torch/kernels/r2l_fused.py) against r2l_tpu/kernels/r2l_pallas.py:
 calibration field by field, the plain int8 chain against the Pallas kernel
-in interpret mode (fold_requant=True, nobf16_inner=True), and the frozen
-epilogue canary."""
+in interpret mode (fold_requant=True, nobf16_inner=True, and K2's other two
+forms by its flags), and the frozen epilogue canary."""
 import os
 
 import jax
@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import kernel_layout, models, n, t
+from _torch_parity import (int8_case, int8_params_from_jax, kernel_layout,
+                           models, n, t)
 from r2l_tpu.kernels import r2l_pallas as JP
 from r2l_tpu.models import R2LConfig as JaxR2LConfig
 from r2l_tpu.rays import pose_spherical
@@ -24,6 +25,10 @@ FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 # requantize flipped by an ulp of a scale or of XLA's sin moves a few
 # outputs (the bounds of tests/test_pallas_int8_pe.py:45-46).
 TOL_MAX, TOL_RMS = 2.5e-2, 2.5e-3
+# K2's forms on JAX's own packing (carried over field by field): bit for bit
+# with a linear tail; with the sigmoid tail one f32 ulp of [0.5, 1), where
+# torch's and XLA's CPU sigmoid differ on a few outputs (ROADMAP C).
+TOL_SIGMOID = 6e-8
 # Calibration scales: f32 forwards summed in another order (relative).
 TOL_SCALE = 1e-5
 # Quantized weights: an ulp of a scale can carry w*s/ws across a rounding
@@ -100,6 +105,51 @@ def test_int8_ref_matches_pallas_interpret(dim_pts, L, W, D, side):
     assert np.sqrt(np.mean(d * d)) < TOL_RMS, np.sqrt(np.mean(d * d))
     np.testing.assert_array_equal(
         got, n(F.fused_r2l_apply_int8_pe_ref(fp, cfg, t(pts), dim_pts, L)))
+
+
+@pytest.mark.parametrize("linear_tail", [True, False])
+@pytest.mark.parametrize("fold_requant,nobf16_inner",
+                         [(True, True), (True, False), (False, False),
+                          (False, True)])
+def test_int8_flags_match_pallas_interpret(fold_requant, nobf16_inner,
+                                           linear_tail):
+    """K2's three forms (``nobf16_inner`` acts only with ``fold_requant``),
+    each on the packing calibrated with its ``fold_requant``, against the
+    Pallas kernel with the same flags on the same packing."""
+    jcfg, params, cfg, model, calib, pts = int8_case(
+        6, 4, 64, 8, 16, linear_tail=linear_tail)
+    jfp = JP.calibrate_r2l_int8_pe(params, jcfg, 6, 4,
+                                   calib_pts=jnp.asarray(calib),
+                                   fold_requant=fold_requant)
+    fp = int8_params_from_jax(jfp, F.calibrate_r2l_int8_pe(
+        model, cfg, 6, 4, t(calib), fold_requant=fold_requant))
+    want = np.asarray(JP.fused_r2l_apply_int8_pe(
+        jfp, jcfg, jnp.asarray(pts), 6, 4, tile=64, interpret=True,
+        fold_requant=fold_requant, nobf16_inner=nobf16_inner))
+    got = n(F.fused_r2l_apply_int8_pe(fp, cfg, t(pts), 6, 4,
+                                      fold_requant=fold_requant,
+                                      nobf16_inner=nobf16_inner))
+    assert got.shape == want.shape
+    if linear_tail:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.abs(got - want).max() <= TOL_SIGMOID
+    assert F.int8_epilogue(fold_requant, nobf16_inner) == (
+        "unfolded" if not fold_requant
+        else "deployed" if nobf16_inner else "fold")
+
+
+def test_int8_flags_are_three_functions():
+    """On one packing the three forms differ from each other."""
+    jcfg, params, cfg, model, calib, pts = int8_case(6, 4, 64, 8, 16,
+                                                      linear_tail=True)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, 6, 4, t(calib))
+    outs = [n(F.fused_r2l_apply_int8_pe(fp, cfg, t(pts), 6, 4,
+                                        fold_requant=f, nobf16_inner=b))
+            for f, b in ((True, True), (True, False), (False, False))]
+    assert not np.array_equal(outs[0], outs[1])
+    assert not np.array_equal(outs[0], outs[2])
+    assert not np.array_equal(outs[1], outs[2])
 
 
 def test_int8_canonical_shapes():

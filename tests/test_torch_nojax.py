@@ -4,7 +4,8 @@ each kind and through the kernel API, takes a distillation step of each
 kind and one in the images data mode, renders a teacher frame, generates
 one pose of pseudo data (plain and int8-packed fused render on the CPU),
 takes a teacher step of each mode on images and their ray records, runs each
-exp probe's plain version, and finds neither ``jax`` nor ``r2l_tpu`` in
+exp probe's plain version (the chain and shape probes, and K2's body, wall,
+streams and epilogue probes), and finds neither ``jax`` nor ``r2l_tpu`` in
 sys.modules."""
 import os
 import subprocess
@@ -105,6 +106,26 @@ for dt in (torch.int8, torch.bfloat16):
                              n_tiles=2, n_layers=2, device="cpu")
     for chained in (False, True):
         assert PS.unchained(xs, ws, chained).shape == (8, 1)
+from r2l_tpu_torch.exp import (probe_epi as PE, probe_int8 as PI,
+                               probe_pipe as PP, probe_pipe_lib as PL,
+                               probe_wall as PW)
+assert PP.apply_int8_pe_streams is PL.apply_int8_pe_streams
+for name in PI.VARIANTS:
+    assert bool(torch.isfinite(PI.make_variant(
+        name, PI.variant_weights(name, "cpu", n_blocks=1))(x)))
+w, m = PW.make_weights(torch.Generator().manual_seed(6), 2, "cpu")
+for mode in PW.MODES:
+    assert PW.wall(x, w, m, mode).shape == (8, 256)
+from r2l_tpu_torch.kernels.r2l_fused import calibrate_r2l_int8_pe
+cfg8 = R2LConfig(input_dim=6 * 21, netdepth=4, netwidth=256)
+model8 = init_r2l(cfg8, torch.Generator().manual_seed(7), "cpu")
+pts = sampler.sample_test(torch.from_numpy(poses[0]))
+fp8 = calibrate_r2l_int8_pe(model8, cfg8, 6, 10, pts)
+for s in PL.STREAMS:
+    assert PL.apply_int8_pe_streams(fp8, cfg8, pts, 6, 10,
+                                    streams=s).shape == (16, 3)
+for v in PE.VARIANTS:
+    assert PE.apply_variant(fp8, cfg8, pts, 6, 10, v).shape == (16, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "r2l_tpu"))
 print(len(names), bad)

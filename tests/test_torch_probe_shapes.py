@@ -128,6 +128,19 @@ def test_names_and_inputs_follow_the_probe():
     assert int(x.min()) >= -127 and int(x.max()) <= 126
 
 
+@pytest.mark.parametrize("k", [16, 32])
+def test_mma_rounding_of_the_plain_version_is_unbiased(k):
+    """``mma_rounding`` on the plain version (f32 sums in torch's CPU order):
+    where a sum differs from the round-to-nearest of the exact one, it lies
+    on either side about equally, within a few ulps of the largest product.
+    The card's tensor cores lie on the smaller side (tests/test_torch_cuda.
+    py::test_one_mma_truncates_its_f32_sum)."""
+    r = S.mma_rounding(k, rows=4096, device="cpu")
+    assert r["differ_share"] > 0.05, r
+    assert 0.3 < r["smaller_magnitude_share"] < 0.7, r
+    assert r["max_err_in_top_ulp"] <= k, r
+
+
 def test_runner_needs_a_gpu(capsys):
     """Without CUDA the runner exits non-zero and prints no record."""
     if torch.cuda.is_available():
