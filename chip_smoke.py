@@ -10,7 +10,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the fifteen CUDA libraries from ``r2l_tpu_torch/kernels/
+2. Build: compile the fourteen CUDA libraries from ``r2l_tpu_torch/kernels/
    csrc`` into ``build/`` in parallel and print the build time and the
    compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
@@ -35,7 +35,9 @@ Phases, in order; any failure raises and exits non-zero:
    bf16 stash row; K5 (``bwd_group``) with f32 and bf16 weights, the int8
    stash, and K8's bf16 stash under bf16 and under f32 weights, one 4-block
    group and the whole body walk. Times each kernel and its plain version
-   with CUDA events.
+   with CUDA events, and profiles one 4-block call of K5 on the int8 stash
+   and of the int8-dL/dx probe's kernel (phase 14) on the same inputs,
+   kernel time by name.
 6. Training main path: synthetic ray shards (100 x 4096 rays, record dim 9)
    written with ``write_ray_shards`` into a temporary directory and read
    back through ``RayShardDataset``/``RayBatchLoader``; for the kinds
@@ -110,6 +112,16 @@ Phases, in order; any failure raises and exits non-zero:
    four runners as a user runs them (``probe_int8``, ``probe_wall``,
    ``probe_pipe``, ``probe_epi``), and the four kernels' launches in that
    run.
+14. K5 with an int8 dL/dx (``probe_bwd_qdx``) at the driver's size (81,920
+   rays, W256, 43 blocks, K4's stash, 512-ray tiles): ``bwd_group_qdx``
+   against its plain version on the card, on the top 4-block group and on
+   the whole walk (ten groups of 4, one of 3), at the driver's body_scale
+   and at one of order one: dh and the dt scratch bit for bit, dW and db
+   norm-relative; two runs bit-identical; the top layer's dW and db equal
+   K5's (the shared passes); kernel, plain and walk times. Then the runner
+   as a user runs it (``probe_bwd_qdx.main``: the bf16 and qdx walks, their
+   cosines and times), and the kernel's launches: 11 in one walk, and in
+   the runner 11 per qdx walk it ran.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -278,6 +290,13 @@ PROBE_INT8_DEPTHS = (4, 8)   # the check's depths: at 86 the output is 0
 #   t reads 6.2e-4 on this input (CPU), under the chains' 1e-3.
 PROBE_RESMLP_SHALLOW, PROBE_WALL_SHALLOW = 4, 4
 TOL_PROBE_RESMLP_BF16_SHALLOW = (TOL_PROBE_BF16["shallow"][0], 2.5e-4)
+
+# Phase 14, the int8-dL/dx probe. dh and the dt scratch: exact int32 dots,
+#   IEEE quotients for the tile's scale and the column multipliers, and the
+#   one-FMA update on both sides, so bit for bit. dW and db: K5's passes over
+#   that scratch against the plain version's matmuls, sums in another order,
+#   norm-relative (K5 f32's bound).
+TOL_QDX_DW = 1e-5
 
 # The card's memory rate (H100 SXM data sheet); its peaks are the probes'
 # table, r2l_tpu_torch/exp/_harness.py.
@@ -714,6 +733,25 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
                     "f32" if f32 else "bf16"),
             "library_ms": None}
         torch.cuda.empty_cache()
+    # The passes of one 4-block call under torch.profiler: K5 on K4's int8
+    # stash, and the int8-dL/dx probe (phase 14) on the same inputs. Here,
+    # because after a profiled training step (phase 6) the profiler sees no
+    # kernel for the rest of the process.
+    from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
+    body_w, stash = stashes["int8"]
+    b0 = nb - cnt
+    passes = {}
+    for key, fn in (
+            ("bwd_group_int8", lambda: T.bwd_group(
+                body_w, stash, dh, cfg, b0, cnt, body_scale=scale8)),
+            ("bwd_group_qdx", lambda: PQ.bwd_group_qdx(
+                body_w, fp8.body_q, fp8.body_m, stash, dh, cfg, b0, cnt,
+                PQ.TILE, scale8))):
+        fn()
+        passes[key] = prof = profile_kernels(fn, top=4)
+        print(f"[profile] one 4-block call, {key}: " + "; ".join(
+            f"{r['name'][:48]} {r['ms']:.3f} ms x{r['calls']}"
+            for r in prof["top"]), flush=True)
     for key, r in res.items():
         print(f"[time] {key}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
@@ -721,21 +759,22 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
               + (f"; whole walk {r['walk_ms']:.3f} ms, plain "
                  f"{r['walk_plain_ms']:.3f}" if "walk_ms" in r else ""),
               flush=True)
+    res["passes"] = passes
     del stashes
     torch.cuda.empty_cache()
     return res
 
 
-def profile_step(step, state, batch, draws, top: int = 12) -> dict:
-    """One step under torch.profiler: device time by kernel (the ``top``
-    largest) and the sum over all kernels. The profiler slows the host
-    several-fold, so the caller takes the idle share against the unprofiled
-    step time."""
+def profile_kernels(fn, top: int = 12) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by kernel (the
+    ``top`` largest) and the sum over all kernels. The profiler slows the
+    host several-fold, so a caller takes an idle share against an
+    unprofiled time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, batch, draws=draws)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -846,7 +885,8 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
             if not same:
                 raise AssertionError(f"{kind}: repeated steps differ")
             r["repeat_bit_identical"] = same
-        r["profile"] = p = profile_step(step, state, batches[-1], draws[-1])
+        r["profile"] = p = profile_kernels(
+            lambda: step(state, batches[-1], draws=draws[-1]))
         p["idle_share"] = max(0.0, 1.0 - p["kernel_ms"] / r["ms_per_step"])
         print(f"[profile] train {kind}: kernels {p['kernel_ms']:.3f} ms of "
               f"a {r['ms_per_step']:.3f} ms step (idle {p['idle_share']:.3f})",
@@ -1805,6 +1845,157 @@ def phase_k2_probes(dev) -> dict:
     return res
 
 
+def phase_qdx(dev) -> dict:
+    """Phase 14: the int8-dL/dx kernel against its plain version at the
+    driver's size, timed, then the runner as a user runs it, the kernel's
+    count set to 0 just before and read just after."""
+    from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
+    from r2l_tpu_torch.exp._harness import PEAK_OPS
+    from r2l_tpu_torch.kernels import r2l_train as T
+    cfg, body_w, fp, stash, dh0 = PQ.setup(dev)
+    n, nb, W, gb = dh0.shape[0], cfg.num_blocks, cfg.netwidth, PQ.GB
+    scales = {"probe": 1.0 / fp.body_inv,
+              "unit": (torch.rand(fp.body_inv.shape, generator=torch.Generator(
+                  ).manual_seed(SEED + 90)) * 1.5 + 0.5).to(dev)}
+    res = {"max_abs_err": 0.0, "max_dw_rel_err": 0.0}
+
+    def group(fn, b0, cnt, kind, dh):
+        dts = torch.empty((2 * cnt, n, W), dtype=torch.bfloat16, device=dev)
+        out = fn(body_w, fp.body_q, fp.body_m, stash, dh, cfg, b0, cnt,
+                 PQ.TILE, scales[kind], dts)
+        return out, dts
+
+    def compare(label, got, want):
+        (dh, dw, db), dts = got
+        (dh_p, dw_p, db_p), dts_p = want
+        check_equal(f"{label}: dh vs plain", dh, dh_p)
+        check_equal(f"{label}: dt scratch vs plain", dts, dts_p)
+        res["max_abs_err"] = max(res["max_abs_err"], deltas(dw, dw_p)[0],
+                                 deltas(db, db_p)[0])
+        err = max(grad_err(dw, dw_p)[0], grad_err(db, db_p)[0])
+        check(f"{label}: dW, db norm-relative vs plain", err, 0.0, TOL_QDX_DW)
+        res["max_dw_rel_err"] = max(res["max_dw_rel_err"], err)
+
+    b0 = nb - gb
+    for kind in scales:
+        label = f"bwd_group_qdx, {kind} scale, blocks {b0}..{nb - 1}"
+        got = group(PQ.bwd_group_qdx, b0, gb, kind, dh0)
+        want = group(PQ.bwd_group_qdx_ref, b0, gb, kind, dh0)
+        compare(label, got, want)
+        again = group(PQ.bwd_group_qdx, b0, gb, kind, dh0)
+        for a, b in zip(got[0] + (got[1],), again[0] + (again[1],)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: two runs differ")
+        moved = float((got[0][0] != dh0).double().mean())
+        print(f"[check] {label}: two runs bit-identical; the group changed "
+              f"{moved:.4f} of dh's entries", flush=True)
+        res[f"{kind}_dh_changed"] = moved
+        if kind == "probe":
+            # where dW's gap to the plain version sits: each against dW in
+            # float64 from the kernel's own dt scratch
+            dts = got[1]
+            for name, dw in (("kernel", got[0][1]), ("plain", want[0][1])):
+                errs = []
+                for k in range(gb):
+                    h_in, t1r, _ = T._group_inputs(stash, nb, b0 + k,
+                                                   torch.bfloat16, scales[kind])
+                    for l, a in ((2 * k + 1, t1r), (2 * k, h_in)):
+                        errs.append(grad_err(
+                            dw[l], dts[l].double().T @ a.double())[0])
+                res[f"{name}_dw_rel_err_vs_f64"] = errs
+                print(f"[check] {label}: {name} dW per layer vs float64, "
+                      f"norm-relative {min(errs):.3e}..{max(errs):.3e}",
+                      flush=True)
+            _, dw5, db5 = T.bwd_group(body_w, stash, dh0, cfg, b0, gb,
+                                      body_scale=scales[kind])
+            check_equal(f"{label}: top layer's dW vs K5's", got[0][1][-1],
+                        dw5[-1])
+            check_equal(f"{label}: top layer's db vs K5's", got[0][2][-1],
+                        db5[-1])
+            del dw5, db5
+        del got, want, again
+        # the whole walk, group by group, the 3-block last group included
+        dh_k, dh_p, b = dh0, dh0, nb
+        while b > 0:
+            cnt = min(gb, b)
+            b -= cnt
+            got = group(PQ.bwd_group_qdx, b, cnt, kind, dh_k)
+            want = group(PQ.bwd_group_qdx_ref, b, cnt, kind, dh_p)
+            compare(f"bwd_group_qdx walk, {kind} scale, blocks "
+                    f"{b}..{b + cnt - 1}", got, want)
+            dh_k, dh_p = got[0][0], want[0][0]
+            del got, want
+        torch.cuda.empty_cache()
+
+    sc = scales["probe"]
+
+    def call(fn):
+        return fn(body_w, fp.body_q, fp.body_m, stash, dh0, cfg, b0, gb,
+                  PQ.TILE, sc)
+
+    ops = 2 * gb * PQ.walk_ops(cfg, n)     # per product kind, one call
+    t_ops = (ops / PEAK_OPS["int8"] + ops / PEAK_OPS["bf16"]) * 1e3
+    dh_out = call(PQ.bwd_group_qdx)
+    moved = (nbytes(dh0, *dh_out, fp.body_q[2 * b0:], fp.body_m[2 * b0:],
+                    sc[2 * b0:]) + nbytes(stash[0]) * 2 * gb)
+    t_bytes = moved / HBM_BYTES_S * 1e3
+    res.update(
+        ms=time_ms(lambda: call(PQ.bwd_group_qdx)),
+        plain_ms=time_ms(lambda: call(PQ.bwd_group_qdx_ref), reps=1),
+        k5_ms=time_ms(lambda: T.bwd_group(body_w, stash, dh0, cfg, b0, gb,
+                                          body_scale=sc)),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None)
+    for v in PQ.VARIANTS:
+        res[f"walk_{v}_ms"] = time_ms(lambda: PQ.walk(
+            v, cfg, body_w, fp, stash, dh0), reps=5)
+        res[f"walk_{v}_bound_ms"] = PQ.walk_bound_ms(v, cfg, n)
+    print(f"[time] bwd_group_qdx: kernel {res['ms']:.3f} ms per 4-block "
+          f"call (K5 {res['k5_ms']:.3f}), plain {res['plain_ms']:.3f} ms, "
+          f"bound {res['bound_ms']:.3f} ms ({res['bound_by']}); walk qdx "
+          f"{res['walk_qdx_ms']:.3f} ms (bound "
+          f"{res['walk_qdx_bound_ms']:.3f}), bf16 {res['walk_bf16_ms']:.3f} "
+          f"ms (bound {res['walk_bf16_bound_ms']:.3f}) at {n} rays",
+          flush=True)
+    del dh_out
+
+    PQ.bwd_group_qdx.launches = 0
+    PQ.walk("qdx", cfg, body_w, fp, stash, dh0)
+    torch.cuda.synchronize()
+    per_walk = PQ.bwd_group_qdx.launches
+    print(f"[check] bwd_group_qdx launches in one walk: {per_walk} (want "
+          f"{-(-nb // gb)})", flush=True)
+    if per_walk != -(-nb // gb):
+        raise AssertionError("a qdx walk launched the kernel "
+                             f"{per_walk} times")
+    del cfg, body_w, fp, stash, dh0, scales
+    torch.cuda.empty_cache()
+
+    PQ.bwd_group_qdx.launches = 0
+    records = PQ.main([])
+    torch.cuda.synchronize()
+    res["launches"] = PQ.bwd_group_qdx.launches
+    walks = 1 + PQ.N_WALKS * (1 + PQ.REPS)
+    print(f"[main] bwd_group_qdx launches in the runner: {res['launches']} "
+          f"({walks} qdx walks)", flush=True)
+    if res["launches"] != per_walk * walks:
+        raise AssertionError("the runner's launches are not 11 per walk")
+    rec = {r["name"]: r for r in records if "name" in r}
+    cos = rec["r3_qdx_cosine"]
+    for key in ("cos_dh", "min_cos_dw_group"):
+        ok = np.isfinite(cos[key]) and 0.0 < cos[key] <= 1.0
+        print(f"[check] runner {key} {cos[key]!r} in (0, 1]"
+              + (" ok" if ok else " FAILED"), flush=True)
+        if not ok:
+            raise AssertionError(f"runner {key} outside (0, 1]")
+    res["runner"] = {"cos_dh": cos["cos_dh"],
+                     "min_cos_dw_group": cos["min_cos_dw_group"],
+                     **{f"walk_{v}_ms": rec[f"r3_qdx_walk_{v}"]["ms"]
+                        for v in PQ.VARIANTS}}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1861,6 +2052,7 @@ def main() -> int:
     idist = phase_images_distill(images, img_poses, sampler, dev)
     probes = phase_probes(dev)
     k2_probes = phase_k2_probes(dev)
+    qdx = phase_qdx(dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -1877,7 +2069,7 @@ def main() -> int:
         "teacher_kernels": teacher, "datagen": dgen,
         "teacher_frame": tframe,
         "teacher_train": ttrain, "images_distill": idist,
-        "probes": probes, "k2_probes": k2_probes}}))
+        "probes": probes, "k2_probes": k2_probes, "bwd_qdx": qdx}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1924,8 +2116,11 @@ def main() -> int:
           for name, source, replaces in (
               ("probe_resmlp", "probe_resmlp.cu", "exp/probe_int8.py:201"),
               ("probe_wall", "probe_int8_chain.cu", "exp/probe_wall.py:73"),
-              ("probe_pipe", "probe_pipe.cu", "exp/probe_pipe_lib.py:19"),
-              ("probe_epi", "probe_epi.cu", "exp/probe_epi.py:112"))),
+              ("probe_pipe", "r2l_int8_pe_fused.cu",
+               "exp/probe_pipe_lib.py:19"),
+              ("probe_epi", "r2l_int8_pe_fused.cu", "exp/probe_epi.py:112"))),
+        entry("bwd_group_qdx", "r2l_bwd_qdx.cu", "exp/probe_bwd_qdx.py:70",
+              qdx["launches"], qdx),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

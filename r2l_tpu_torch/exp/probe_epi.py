@@ -9,9 +9,12 @@ Port of ``exp/probe_epi.py``: ``apply_variant`` is K2 whole (PE, head, the
       block too;
   v2  v1 with the inner ReLU folded into the clip's lower bound 0 (equal to
       v1 wherever every inverse scale is positive),
-through the hand-written CUDA kernel ``kernels/csrc/probe_epi.cu``
-(``r2l_int8_chain.cuh``'s forms). Mosaic refused v1 and v2 on the TPU, so
-the card's run is their first measurement.
+through the hand-written CUDA kernel of K2's chain
+(``kernels/csrc/r2l_int8_chain.cuh``, whose forms ``kEpiV1``/``kEpiV2``
+are launched through K2's entry point, ``r2l_int8_pe_fused.cu``; v0 is
+K2's ``fold_requant=False``). The plain version is K2's plain chain with
+this module's bf16 quantize as its hook. Mosaic refused v1 and v2 on the
+TPU, so the card's run is their first measurement.
 
 Its driver follows ``exp/probe_epi.py:158-200``: the canonical W256/D88
 student (random weights from a seeded generator), the int8 packing of
@@ -38,8 +41,9 @@ import argparse
 import torch
 
 from ..evaluate import _prepare_r2l
-from ..kernels.r2l_fused import (FusedParamsInt8PE, fused_r2l_apply_int8_pe,
-                                  int8_pe_chain_ref, launch_int8_pe_chain)
+from ..kernels.r2l_fused import (EPILOGUES, FusedParamsInt8PE,
+                                  fused_r2l_apply_int8_pe, int8_pe_chain_ref,
+                                  launch_int8_pe_chain)
 from ..models.r2l import R2LConfig, init_r2l
 from . import _harness
 
@@ -48,7 +52,32 @@ K = 16          # frames per call
 L = 10
 REPS = 4
 SEED = 0        # the student's weights
-_EPILOGUE = {0: "unfolded", 1: "v1", 2: "v2"}
+# each variant's form in csrc/r2l_int8_chain.cuh's Epi: K2's kUnfolded,
+# kEpiV1, kEpiV2
+_EPI_CODE = {0: EPILOGUES["unfolded"], 1: 3, 2: 4}
+
+
+def _q8_bf16(t: torch.Tensor, inv: torch.Tensor, lo: float) -> torch.Tensor:
+    """``clip(round(t_bf16 * inv.astype(bf16)), lo, 127)`` as XLA computes
+    it: the product of two bf16 values (exact in f32) rounded to bf16 before
+    the round-half-even; as float64, like the chain's ``_q8``."""
+    y = (t.to(torch.bfloat16).float()
+         * inv.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+    return torch.clamp(torch.round(y), lo, 127.0).double()
+
+
+def _quantize_v1(t: torch.Tensor, inv: torch.Tensor, j: int) -> torch.Tensor:
+    """v1's quantize of layer j's bf16 input t: the inner ReLU, then the
+    bf16 product."""
+    return _q8_bf16(torch.relu(t) if j > 0 else t, inv, -127.0)
+
+
+def _quantize_v2(t: torch.Tensor, inv: torch.Tensor, j: int) -> torch.Tensor:
+    """v2's: the inner ReLU as the clip's lower bound 0."""
+    return _q8_bf16(t, inv, 0.0 if j > 0 else -127.0)
+
+
+_QUANTIZE = {0: None, 1: _quantize_v1, 2: _quantize_v2}
 
 
 def apply_variant_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
@@ -58,7 +87,8 @@ def apply_variant_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
     [N, out_dim] f32."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant}")
-    return int8_pe_chain_ref(fp, cfg, pts, dim_pts, L, _EPILOGUE[variant])
+    return int8_pe_chain_ref(fp, cfg, pts, dim_pts, L, "unfolded",
+                             _QUANTIZE[variant])
 
 
 def apply_variant(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
@@ -73,8 +103,8 @@ def apply_variant(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
     if cfg.netwidth != 256:
         raise ValueError(f"the epilogue kernel takes width 256, got "
                          f"{cfg.netwidth}")
-    return launch_int8_pe_chain("probe_epi", apply_variant, fp, cfg, pts,
-                                dim_pts, L, variant)
+    return launch_int8_pe_chain(apply_variant, fp, cfg, pts, dim_pts, L,
+                                _EPI_CODE[variant])
 
 
 apply_variant.launches = 0

@@ -48,6 +48,8 @@ KERNELS = {
                            [_P, _I, _I, _I] + [_P] * 14 + [_I] * 6 + [_P]),
     "r2l_bwd_group": ("r2l_bwd_group_launch",
                       [_P] * 11 + [_I, _I, _I, _F, _I, _I, _I, _P]),
+    "r2l_bwd_qdx": ("r2l_bwd_qdx_launch",
+                    [_P] * 12 + [_I, _I, _I, _F, _I, _I, _P]),
     "nerf_render": ("nerf_render_launch",
                     [_P] * 3 + [_I] * 2 + [_P] * 2 + [_I] * 3 + [_P] * 10
                     + [_I] * 5 + [_P] * 5),
@@ -64,10 +66,6 @@ KERNELS = {
                      [_P, _I, _I, _I, _P, _I, _P, _I, _I, _P]),
     "probe_resmlp": ("probe_resmlp_launch",
                      [_P, _I, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P]),
-    "probe_pipe": ("probe_pipe_launch",
-                   [_P, _I, _I, _I] + [_P] * 13 + [_I] * 7 + [_P]),
-    "probe_epi": ("probe_epi_launch",
-                  [_P, _I, _I, _I] + [_P] * 13 + [_I] * 7 + [_P]),
 }
 
 

@@ -1,6 +1,6 @@
 // Pieces shared by the R2L kernels (r2l_pe_fused.cu, r2l_fused.cu,
 // r2l_int8_pe_fused.cu, r2l_train_fwd.cu, r2l_train_fwd_int8.cu,
-// r2l_bwd_group.cu): shared-memory
+// r2l_bwd_group.cu, r2l_bwd_qdx.cu): shared-memory
 // row strides, the two thread layouts over an output tile, the tensor-core
 // instructions, the positional-encoding ladder, the int8 epilogue and the
 // coalesced tile store.

@@ -1,6 +1,6 @@
-// K2's PE-fused static-scale int8 R2L forward, as a template shared by K2
-// (r2l_int8_pe_fused.cu) and the probes of its epilogue and its streams
-// (probe_epi.cu, probe_pipe.cu).
+// K2's PE-fused static-scale int8 R2L forward, as a template whose forms
+// are K2 and the probes of its epilogue and its streams (one entry point,
+// r2l_int8_pe_fused.cu).
 //
 // Every form computes r2l_tpu/kernels/r2l_pallas.py::_int8_pe_chain:
 //   * each PE part is quantized with its column's inverse scale,

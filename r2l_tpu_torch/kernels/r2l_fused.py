@@ -493,10 +493,10 @@ def _dequant(acc: torch.Tensor, m: torch.Tensor,
     return (acc.double() * m.double() + b.double()).float()
 
 
-# The int8 chain's requantize epilogues (csrc/r2l_int8_chain.cuh's kEpi):
-# K2's three forms by (fold_requant, nobf16_inner), and the bf16 quantize of
-# exp/probe_epi.py (v1; v2 with the inner ReLU as the clip's floor).
-EPILOGUES = ("deployed", "fold", "unfolded", "v1", "v2")
+# K2's requantize epilogues by (fold_requant, nobf16_inner), each with its
+# code in csrc/r2l_int8_chain.cuh's Epi (which also holds the epilogue
+# probe's forms, exp/probe_epi.py).
+EPILOGUES = {"deployed": 0, "fold": 1, "unfolded": 2}
 
 
 def int8_epilogue(fold_requant: bool, nobf16_inner: bool) -> str:
@@ -507,26 +507,26 @@ def int8_epilogue(fold_requant: bool, nobf16_inner: bool) -> str:
     return "deployed" if nobf16_inner else "fold"
 
 
-def _q8_bf16(t: torch.Tensor, inv: torch.Tensor, lo: float) -> torch.Tensor:
-    """``clip(round(t_bf16 * inv.astype(bf16)), lo, 127)`` as XLA computes
-    it: the product of two bf16 values (exact in f32) rounded to bf16 before
-    the round-half-even; as float64 like ``_q8``."""
-    y = (t.to(torch.bfloat16).float()
-         * inv.to(torch.bfloat16).float()).to(torch.bfloat16).float()
-    return torch.clamp(torch.round(y), lo, 127.0).double()
-
-
 def int8_pe_chain_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
                       pts: torch.Tensor, dim_pts: int, L: int = 10,
-                      epilogue: str = "deployed") -> torch.Tensor:
+                      epilogue: str = "deployed",
+                      quantize=None) -> torch.Tensor:
     """Plain version of the int8 chain (Pallas ``_int8_pe_chain``) with one
-    of the ``EPILOGUES``: pts [N, dim_pts] -> [N, out_dim] f32."""
+    of the ``EPILOGUES``: pts [N, dim_pts] -> [N, out_dim] f32.
+
+    ``quantize(t, inv, j) -> q`` (a probe's hook) replaces how layer j of a
+    block quantizes its input: t is that input in bf16 before any inner
+    ReLU (the residual stream for j = 0, else the previous layer's
+    dequantized output), inv the layer's inverse input scale, and q the
+    int8 codes as ``_q8`` gives them; the chain then applies no inner ReLU
+    itself, and ``epilogue`` must be ``"unfolded"``."""
     if epilogue not in EPILOGUES:
-        raise ValueError(f"epilogue must be one of {EPILOGUES}, got "
+        raise ValueError(f"epilogue must be one of {tuple(EPILOGUES)}, got "
                          f"{epilogue!r}")
+    if quantize is not None and epilogue != "unfolded":
+        raise ValueError("a quantize hook runs on the unfolded chain")
     nb, nl, dp = cfg.num_blocks, cfg.n_learnable, dim_pts
     folded = epilogue in ("deployed", "fold")
-    bf16_q = epilogue in ("v1", "v2")
     p = pts.float()
     sins, coss = _pe_sin_cos_ladder(p, L)
     feats = sins + coss + [p]
@@ -538,16 +538,15 @@ def int8_pe_chain_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
         t = h
         for j in range(nl):
             idx = i * nl + j
-            if folded and j > 0:             # round + clip only
+            if quantize is not None:
+                q = quantize(t, fp.body_inv[idx], j)
+            elif folded and j > 0:           # round + clip only
                 q = _q8(t.float())
-            elif bf16_q:
-                q = _q8_bf16(t, fp.body_inv[idx],
-                             0.0 if epilogue == "v2" and j > 0 else -127.0)
             else:
                 q = _q8(t.float(), fp.body_inv[idx])
             tf = _dequant(_mm_int(q, fp.body_q[idx]), fp.body_m[idx],
                           fp.body_b[idx])
-            if j < nl - 1 and epilogue != "v2":
+            if j < nl - 1 and quantize is None:
                 tf = torch.relu(tf)
             t = (tf if epilogue == "deployed" and j < nl - 1
                  else tf.to(torch.bfloat16))
@@ -593,13 +592,13 @@ def _check_int8_params(fp: FusedParamsInt8PE, cfg: R2LConfig,
         _check(t, name, dt, shape, dev)
 
 
-def launch_int8_pe_chain(lib_name: str, wrapper, fp: FusedParamsInt8PE,
-                         cfg: R2LConfig, pts: torch.Tensor, dim_pts: int,
-                         L: int, *form: int) -> torch.Tensor:
-    """One launch of an entry point over ``csrc/r2l_int8_chain.cuh`` (K2's
-    ``r2l_int8_pe_fused``, ``probe_pipe``, ``probe_epi``) on CUDA tensors,
-    checked here, with the entry's own ints ``form`` (K2's flags, S, the
-    variant) before the stream; counted in ``wrapper.launches``."""
+def launch_int8_pe_chain(wrapper, fp: FusedParamsInt8PE, cfg: R2LConfig,
+                         pts: torch.Tensor, dim_pts: int, L: int,
+                         epilogue: int, streams: int = 1) -> torch.Tensor:
+    """One launch of the int8 chain (``csrc/r2l_int8_pe_fused.cu`` over
+    ``r2l_int8_chain.cuh``: K2, ``probe_pipe``, ``probe_epi``) on CUDA
+    tensors, checked here, in the form (``epilogue``, the chain's Epi code;
+    ``streams`` per 64-ray tile); counted in ``wrapper.launches``."""
     from . import _build
     _assert_fused_supported(cfg)
     dev = pts.device
@@ -609,16 +608,16 @@ def launch_int8_pe_chain(lib_name: str, wrapper, fp: FusedParamsInt8PE,
                       dtype=torch.float32, device=dev)
     if pts.shape[0] == 0:
         return out
-    lib = _build.load(lib_name)
+    lib = _build.load("r2l_int8_pe_fused")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         wrapper.launches += 1
-        rc = getattr(lib, f"{lib_name}_launch")(
+        rc = lib.r2l_int8_pe_fused_launch(
             _ptr(pts), pts.shape[0], dim_pts, L, *(_ptr(t) for t in fp),
             _ptr(out), cfg.netwidth, cfg.num_blocks, cfg.n_learnable,
-            out.shape[1], int(cfg.use_residual), int(cfg.linear_tail), *form,
-            ctypes.c_void_p(stream))
-    _raise_on_error(rc, lib_name)
+            out.shape[1], int(cfg.use_residual), int(cfg.linear_tail),
+            epilogue, streams, ctypes.c_void_p(stream))
+    _raise_on_error(rc, "r2l_int8_pe_fused")
     return out
 
 
@@ -636,8 +635,8 @@ def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
         return fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dim_pts, L,
                                            fold_requant, nobf16_inner)
     return launch_int8_pe_chain(
-        "r2l_int8_pe_fused", fused_r2l_apply_int8_pe, fp, cfg, pts, dim_pts,
-        L, int(fold_requant), int(nobf16_inner))
+        fused_r2l_apply_int8_pe, fp, cfg, pts, dim_pts, L,
+        EPILOGUES[int8_epilogue(fold_requant, nobf16_inner)])
 
 
 fused_r2l_apply_int8_pe.launches = 0

@@ -683,3 +683,152 @@ def test_int8_probe_wrappers_raise_instead_of_falling_back(dev):
         PL.apply_int8_pe_streams(fp, cfg, pts, 48, 10, streams=8)
     with pytest.raises(ValueError):
         PE.apply_variant(fp, cfg, pts[:, :47], 48, 10, 1)
+
+
+# K5 after its passes 2 and 3 moved into r2l_bwd_dw.cuh (shared with the
+# int8-dL/dx probe): its outputs on fixed numpy inputs, as sha256 digests of
+# (dh, dW, db), are those the kernel gave before the move (NVIDIA H100 80GB
+# HBM3, nvcc of CUDA 12.8, torch 2.11; PERF.md section 6, PR 7). Every sum
+# has a fixed order, so the same code gives the same bits.
+K5_DIGESTS = {
+    "f32": "92fb510449d917d75a1c0733d1f3eb0a00e93b3c107457e55bed7ce6345e3917",
+    "bf16": "3e1288b487aa8d834e139311f419505e76cfe8ad3dd2c74e0fbd2a477b5c3793",
+    "int8": "f6f37a98aa0b488886e0896be590b8be255fb5e5ebb5ada2132effdc5a156cd3",
+    "f32_bf16stash":
+        "700cfea72956567bceb91bfe12fd97aa341b3bb75a2d78fdea9c874cca8524e1",
+}
+
+
+def _k5_fixed_inputs(kind, dev, n=1000, W=64, nb=3):
+    """Numpy-seeded K5 inputs (no kernel or matmul makes them): body_w
+    [2nb, W, W], a stash of the kind, body_scale (int8) and dh [n, W]."""
+    rng = np.random.default_rng(17)
+    cd = torch.float32 if kind.startswith("f32") else torch.bfloat16
+    body_w = torch.from_numpy((rng.normal(size=(2 * nb, W, W)) / 8.0
+                               ).astype(np.float32)).to(cd)
+    scale = None
+    if kind == "int8":
+        stash = torch.from_numpy(rng.integers(
+            -127, 128, (2 * nb + 1, n, W)).astype(np.int8))
+        scale = torch.from_numpy(rng.uniform(
+            0.005, 0.02, (2 * nb, W)).astype(np.float32)).to(dev)
+    else:
+        stash = torch.from_numpy(rng.normal(
+            size=(2 * nb + 1, n, W)).astype(np.float32)).to(
+            torch.bfloat16 if kind == "f32_bf16stash" else cd)
+    dh = torch.from_numpy(rng.normal(size=(n, W)).astype(np.float32))
+    cfg = R2LConfig(input_dim=48 * 21, netdepth=2 * nb + 2, netwidth=W,
+                    compute_dtype=cd)
+    return cfg, body_w.to(dev), stash.to(dev), scale, dh.to(dev)
+
+
+def k5_digest(kind, dev):
+    """sha256 of K5's (dh, dW, db) bytes on ``_k5_fixed_inputs``, the whole
+    body in one call."""
+    import hashlib
+    cfg, body_w, stash, scale, dh = _k5_fixed_inputs(kind, dev)
+    out = T.bwd_group(body_w, stash, dh, cfg, 0, cfg.num_blocks,
+                      body_scale=scale)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("kind", sorted(K5_DIGESTS))
+def test_bwd_group_unchanged_by_the_header_split(dev, kind):
+    assert k5_digest(kind, dev) == K5_DIGESTS[kind]
+
+
+# The int8-dL/dx probe (exp/probe_bwd_qdx.py): exact int32 dots, IEEE
+# quotients and the one-FMA update on both sides, so dh and the dt scratch
+# bit for bit; dW and db are K5's passes over the same scratch, against the
+# plain version's matmuls in another order (norm-relative 1e-5). At the
+# probe's body_scale (1/body_inv) dx is far below dh (ROADMAP C), so the
+# checks also run with a body_scale of order one, where dx moves dh.
+TOL_QDX_DW = 1e-5
+
+
+def _qdx_case(dev, n=1024, W=64):
+    cfg = R2LConfig(input_dim=48 * 21, netdepth=10, netwidth=W,
+                    compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(12), dev)
+    sampler = PointSampler(H=32, W=32, focal=30.0, n_sample=16, near=2.0,
+                           far=6.0)
+    poses = np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4]
+                      for t in (0.0, 120.0, 240.0)])
+    calib = _calibration_points(sampler, poses, dev)
+    pts = torch.rand((n, 48), generator=torch.Generator().manual_seed(13)
+                     ).to(dev) * 2.0 - 1.0
+    fp = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, calib,
+                                 fold_requant=False)
+    _, stash = T.train_fwd_int8(fp, cfg, pts, 48, 10, stash_q=True)
+    body_w = F.prepare_fused_params_pe(model, cfg, 48, 10).body_w
+    dh = torch.randn((n, W), generator=torch.Generator().manual_seed(14)
+                     ).to(dev) * 1e-3
+    unit = torch.rand(fp.body_inv.shape, generator=torch.Generator(
+        ).manual_seed(15)).to(dev) * 1.5 + 0.5
+    return cfg, fp, stash, body_w, dh, {"probe": 1.0 / fp.body_inv,
+                                        "unit": unit}
+
+
+def _rel_err(got, want):
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("kind", ["probe", "unit"])
+@pytest.mark.parametrize("tile", [64, 128, 512])
+def test_bwd_group_qdx_matches_plain(dev, tile, kind):
+    from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
+    cfg, fp, stash, body_w, dh, scales = _qdx_case(dev)
+    sc = scales[kind]
+    for b0, cnt in ((1, 3), (0, cfg.num_blocks)):
+        dts, dts_p = (torch.empty((2 * cnt,) + dh.shape, dtype=torch.bfloat16,
+                                  device=dev) for _ in range(2))
+        before = PQ.bwd_group_qdx.launches
+        got = PQ.bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash, dh, cfg,
+                               b0, cnt, tile, sc, dts)
+        again = PQ.bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash, dh,
+                                 cfg, b0, cnt, tile, sc)
+        torch.cuda.synchronize()
+        assert PQ.bwd_group_qdx.launches == before + 2
+        want = PQ.bwd_group_qdx_ref(body_w, fp.body_q, fp.body_m, stash, dh,
+                                    cfg, b0, cnt, tile, sc, dts_p)
+        for g, a in zip(got, again):
+            assert torch.equal(g, a), "two runs differ"
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(dts, dts_p)
+        assert _rel_err(got[1], want[1]) <= TOL_QDX_DW
+        assert _rel_err(got[2], want[2]) <= TOL_QDX_DW
+        if kind == "unit":
+            assert float((got[0] != dh).double().mean()) > 0.9
+
+
+def test_bwd_group_qdx_shares_k5s_dw_pass(dev):
+    """The top layer's dt2 is K5's: its dW and db from the shared passes
+    equal K5's bit for bit on the card."""
+    from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
+    cfg, fp, stash, body_w, dh, scales = _qdx_case(dev)
+    nb = cfg.num_blocks
+    _, dw, db = PQ.bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash, dh,
+                                 cfg, 0, nb, 512, scales["probe"])
+    _, dw5, db5 = T.bwd_group(body_w, stash, dh, cfg, 0, nb,
+                              body_scale=scales["probe"])
+    assert torch.equal(dw[-1], dw5[-1]) and torch.equal(db[-1], db5[-1])
+
+
+def test_bwd_group_qdx_raises_instead_of_falling_back(dev):
+    from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
+    cfg, fp, stash, body_w, dh, scales = _qdx_case(dev)
+    args = (body_w, fp.body_q, fp.body_m, stash, dh, cfg, 0, 2)
+    with pytest.raises(ValueError):     # a tile the cluster cannot take
+        PQ.bwd_group_qdx(*args, tile=1024, body_scale=scales["probe"])
+    with pytest.raises(ValueError):
+        PQ.bwd_group_qdx(*args, tile=32, body_scale=scales["probe"])
+    with pytest.raises(TypeError):      # the bf16 stash is not this probe's
+        PQ.bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash.bfloat16(), dh,
+                         cfg, 0, 2, 512, scales["probe"])
+    with pytest.raises(ValueError):
+        PQ.bwd_group_qdx(*args, tile=512, body_scale=scales["probe"].cpu())

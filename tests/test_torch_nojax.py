@@ -5,8 +5,9 @@ kind and one in the images data mode, renders a teacher frame, generates
 one pose of pseudo data (plain and int8-packed fused render on the CPU),
 takes a teacher step of each mode on images and their ray records, runs each
 exp probe's plain version (the chain and shape probes, and K2's body, wall,
-streams and epilogue probes), and finds neither ``jax`` nor ``r2l_tpu`` in
-sys.modules."""
+streams and epilogue probes, and the int8-dL/dx walk), and finds neither
+``jax`` nor ``r2l_tpu`` in sys.modules. The kernel sources include only the
+CUDA toolkit's headers and their own."""
 import os
 import subprocess
 import sys
@@ -126,6 +127,19 @@ for s in PL.STREAMS:
                                     streams=s).shape == (16, 3)
 for v in PE.VARIANTS:
     assert PE.apply_variant(fp8, cfg8, pts, 6, 10, v).shape == (16, 3)
+from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
+from r2l_tpu_torch.kernels.r2l_train import train_fwd_int8
+cfgq = R2LConfig(input_dim=6 * 21, netdepth=6, netwidth=32,
+                 compute_dtype=torch.bfloat16)
+modelq = init_r2l(cfgq, torch.Generator().manual_seed(8), "cpu")
+ptsq = torch.rand((64, 6), generator=torch.Generator().manual_seed(9))
+fpq = calibrate_r2l_int8_pe(modelq, cfgq, 6, 10, ptsq, fold_requant=False)
+_, stq = train_fwd_int8(fpq, cfgq, ptsq, 6, 10, stash_q=True)
+bwq = torch.stack([m.weight.detach() for m in modelq.linears()[1]]).bfloat16()
+dhq = torch.randn((64, 32), generator=torch.Generator().manual_seed(10))
+for v in PQ.VARIANTS:
+    dh, dws = PQ.walk(v, cfgq, bwq, fpq, stq, dhq, gb=2, tile=32)
+    assert dh.shape == (64, 32) and len(dws) == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "r2l_tpu"))
 print(len(names), bad)
@@ -157,3 +171,25 @@ def test_port_sources_name_no_jax_import():
                                          "import r2l_tpu ", "import r2l_tpu.",
                                          "from r2l_tpu ", "from r2l_tpu.")), (
                     path, s)
+
+
+def test_kernel_sources_include_only_cuda_and_their_own_headers():
+    """Every ``#include`` of ``r2l_tpu_torch/kernels/csrc`` names a system
+    header (``<...>``) or a header beside it: nothing of the JAX package,
+    ``exp/`` or PyTorch."""
+    csrc = os.path.join(REPO, "r2l_tpu_torch", "kernels", "csrc")
+    own = set(os.listdir(csrc))
+    n_includes = 0
+    for name in sorted(own):
+        with open(os.path.join(csrc, name)) as fh:
+            for ln in fh:
+                if not ln.startswith("#include"):
+                    continue
+                n_includes += 1
+                target = ln.split(None, 1)[1].strip()
+                if target.startswith("<"):
+                    assert not target.startswith(("<torch", "<ATen", "<c10")),\
+                        (name, target)
+                else:
+                    assert target.strip('"') in own, (name, target)
+    assert n_includes >= len(own)

@@ -85,7 +85,7 @@ def test_bf16_quantize_rounds_the_product_as_xla():
     want = np.asarray(q(tb, inv)).astype(np.float64)
     tt = torch.from_numpy(np.array(tb.astype(jnp.float32)))
     it = torch.from_numpy(np.array(inv))
-    got = F._q8_bf16(tt, it, -127.0).numpy()
+    got = P._q8_bf16(tt, it, -127.0).numpy()
     np.testing.assert_array_equal(got, want)
     unrounded = np.clip(np.round(
         tt.numpy() * it.bfloat16().float().numpy()), -127, 127)
