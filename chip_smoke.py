@@ -59,7 +59,10 @@ Phases, in order; any failure raises and exits non-zero:
    fine pass (S=192, sorted depths from sample_pdf): K6 with f32 and with
    bf16 weights, K7 (int8, folded requantize), every output of the ten
    launches against the plain version's, then the ten timed back to back
-   (CUDA events), kernel and plain.
+   (CUDA events), kernel and plain; beside each, its bound (K6 f32: the
+   3xTF32 bound it follows and the CUDA cores' f32 one), the weight bytes
+   its design reads from L2 in the frame, and its registers, spills (the
+   build log) and shared memory per block.
 8. Datagen main path: ``generate_pseudo_data`` (``rand`` mode, the README's
    teacher: 64 + 128 samples, perturb, white background, chunk 32768,
    400x400 poses, focal 555.555 x U[1, 2)) into a temporary directory per
@@ -232,10 +235,12 @@ DENSITY_FLOOR = 1.0   # added to alpha_linear's bias: an untrained teacher's
 #   weights, (max-abs, RMS) of depth, a sum of w*z with z up to 6). A
 #   weight of this teacher is about 0.005-0.06, so every limit sits well
 #   below a weight written one sample off or scaled a few percent wrong.
-#   K6 f32: the same f32 chain, sums in another order (measured 4.8e-7 /
-#   1.7e-8, depth 1.4e-6 / 5.4e-8). K6 bf16: the same bf16 roundings on
+#   K6 f32: each product as 3xTF32 on the tensor cores (about 21 mantissa
+#   bits, sums truncated) against true f32 (measured 8.3e-7 / 7.7e-8, depth
+#   2.4e-6 / 2.6e-7, H100, 700 W; 2% of these limits in the CPU emulation,
+#   tests/test_torch_nerf_staging.py). K6 bf16: the same bf16 roundings on
 #   both sides, an f32 sum order apart, so a flipped rounding moves an
-#   activation by one bf16 step (measured 1.6e-5 / 4.4e-7, depth 1.5e-5 /
+#   activation by one bf16 step (measured 1.4e-5 / 4.4e-7, depth 1.4e-5 /
 #   1.0e-6). K7: exact int32 sums, the same one-FMA dequantize and the
 #   same compositing on both sides (measured 0): a few f32 ulp.
 TOL_TEACHER = {"f32": ((1e-5, 1e-6), (1e-4, 1e-5)),
@@ -1063,11 +1068,27 @@ def phase_teacher_kernels(dev) -> dict:
             NR.fused_nerf_render_ref, 1)
         # The work of the pose's n rays (the padded rays are not needed):
         # both passes' points; o, d and both passes' depths read, both
-        # passes' rgb, acc, depth and weights written, both networks read.
+        # passes' rgb, acc, depth and weights written, both networks read
+        # (the packed fields once: the staged image is their copy).
         S_all = 2 * T_SAMPLES + T_FINE
-        moved = 4 * n * (6 + S_all + 2 * 5 + S_all) + nbytes(*fpc, *fpf)
-        r.update(bound(2.0 * n * S_all * point_macs(cfg), moved, kind),
-                 library_ms=None, launches_timed=n_launch)
+        moved = 4 * n * (6 + S_all + 2 * 5 + S_all) + nbytes(
+            *fpc[:-2], *fpf[:-2])
+        ops = 2.0 * n * S_all * point_macs(cfg)
+        r.update(bound(ops, moved, kind), library_ms=None,
+                 launches_timed=n_launch)
+        if kind == "f32":
+            # K6 f32 runs three TF32 products per multiply-add (3xTF32);
+            # beside that bound, the CUDA cores' true-f32 one
+            r["bound_cuda_cores_ms"] = r["bound_ms"]
+            r.update(bound(3 * ops, moved, "tf32"), engine="3xTF32")
+        wd = fpc.pts_w.dtype
+        l2 = sum(NR.staged_l2_bytes(cfg, wd, o.shape[0], z.shape[1],
+                                    vcfg.multires, vcfg.multires_views)
+                 for o, _, zc, zf in chunks for z in (zc, zf))
+        regs, spill = kernel_registers(kind)
+        r.update(l2_gb_per_frame=l2 / 1e9, registers=regs,
+                 spill_bytes=spill, smem_bytes=NR.kernel_smem(
+                     cfg, wd, vcfg.multires, vcfg.multires_views))
         print(f"[time] {label}, one frame's {n_launch} launches back to "
               f"back ({len(chunks)} chunks of {chunks[0][0].shape[0]} rays, "
               f"S={T_SAMPLES} then {T_SAMPLES + T_FINE}): kernel "
@@ -1076,10 +1097,39 @@ def phase_teacher_kernels(dev) -> dict:
               f"{r['plain_coarse_ms']:.3f}, fine {r['plain_fine_ms']:.3f}), "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) for the "
               f"pose's {n} rays", flush=True)
+        if kind == "f32":
+            print(f"[time] {label} bounds: 3xTF32 {r['bound_ms']:.3f} ms "
+                  f"(three TF32 products at 495 TFLOP/s), CUDA cores "
+                  f"{r['bound_cuda_cores_ms']:.3f} ms (f32 at 67 TFLOP/s); "
+                  f"this instance follows 3xTF32", flush=True)
+        rate = r["l2_gb_per_frame"] / r["ms"]
+        print(f"[time] {label} design: {r['l2_gb_per_frame']:.1f} GB of "
+              f"weights from L2 per frame ({rate:.2f} TB/s), {regs} "
+              f"registers, {spill} bytes spilled, "
+              f"{r['smem_bytes']} bytes of shared memory per block",
+              flush=True)
         res[kind] = r
         del fpc, fpf, mc, mf
         torch.cuda.empty_cache()
     return res
+
+
+def kernel_registers(kind: str) -> tuple[int, int]:
+    """(registers, spill-store bytes) of the canonical W256 instance of K6
+    (f32, bf16) or K7 (int8), from nvcc's build log."""
+    import re
+    from r2l_tpu_torch.kernels import _build
+    lib, inst = {"f32": ("nerf_render", "kernelIfLi256E"),
+                 "bf16": ("nerf_render", "kernelI13__nv_bfloat16Li256E"),
+                 "int8": ("nerf_render_int8", "kernelIaLi256E")}[kind]
+    log = _build.compiler_log(lib).splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and inst in line:
+            rest = "\n".join(log[i + 1:i + 5])
+            spill = re.search(r"(\d+) bytes spill stores", rest)
+            regs = re.search(r"Used (\d+) registers", rest)
+            return int(regs.group(1)), int(spill.group(1))
+    raise AssertionError(f"{lib}: no build log entry for {inst}")
 
 
 def phase_datagen(dev) -> dict:

@@ -29,8 +29,9 @@ from ..sampler import PointSampler
 K_REPS = 8
 LEGO_HW, LEGO_FOCAL = 400, 555.5555155968841   # the frame drivers' camera
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit (f32:
-# the tensor cores' TF32 rate is not used; 67 T/s is the FMA units').
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# 67 T/s is the FMA units'; tf32, the tensor cores' TF32 rate, bounds K6
+# f32's 3xTF32 products).
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 
 
 def require_cuda(prog: str) -> torch.device:

@@ -51,11 +51,11 @@ KERNELS = {
     "r2l_bwd_qdx": ("r2l_bwd_qdx_launch",
                     [_P] * 12 + [_I, _I, _I, _F, _I, _I, _P]),
     "nerf_render": ("nerf_render_launch",
-                    [_P] * 3 + [_I] * 2 + [_P] * 2 + [_I] * 3 + [_P] * 10
+                    [_P] * 3 + [_I] * 2 + [_P] * 2 + [_I] * 3 + [_P] * 5
                     + [_I] * 5 + [_P] * 5),
     "nerf_render_int8": ("nerf_render_int8_launch",
                          [_P] * 3 + [_I] * 2 + [_P] * 5 + [_I] * 3
-                         + [_P] * 18 + [_I] * 5 + [_P] * 5),
+                         + [_P] * 13 + [_I] * 5 + [_P] * 5),
     # the tensor-core probes of r2l_tpu_torch/exp/
     "probe_chain": ("probe_chain_launch",
                     [_P, _I, _P, _P, _P, _I, _I, _I, _P]),

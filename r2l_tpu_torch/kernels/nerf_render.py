@@ -9,7 +9,10 @@ gives rgb [N, 3], acc [N], depth [N] and the weights [N, S]. Two kernels:
 
 * K6 ``csrc/nerf_render.cu``: f32 or bf16 weights. bf16: the encoding is
   cast to bf16, each layer is an f32 dot plus the f32 bias, ReLU, cast to
-  bf16; sigma and rgb stay f32. f32: true f32 FMAs.
+  bf16; sigma and rgb stay f32. f32: each GEMM layer's product as 3xTF32
+  on the tensor cores (a_hi w_lo + a_lo w_hi + a_hi w_hi, about 21
+  mantissa bits), held to the plain version's true f32 at the f32 limits;
+  the heads in f32.
 * K7 ``csrc/nerf_render_int8.cu``: static-scale int8 (the R2L recipe): the
   point encoding is quantized with ``pe_inv``, every product is an exact
   int32 sum, dequantized as acc*m + b in one FMA, and requantized with the
@@ -22,14 +25,23 @@ tensor on the CPU only; for a CUDA tensor it launches K6 or K7, or raises.
 Port layout (not the TPU's transposed ``[feature, ray]`` one): weights
 ``[out, in]``; the point encoding in ``nerf_embed``'s own order
 ``[p, sin f0 p, cos f0 p, ...]`` zero-padded to ``kp`` columns (a multiple
-of 64, the kernels' weight stage); the skip layer's input is
+of 64); the skip layer's input is
 ``[encoding (kp) | h (W)]``; the view layer's is ``[feature (W) | view
 encoding]`` zero-padded to ``kv``, a multiple of 64. In int8 the padding
 columns have scale 1, as the JAX package's.
+
+The kernels read the GEMM weights from a staged image (``stage_weights``,
+made once per model by ``prepare_fused_nerf``): each layer cut into stages
+of ``STAGE_K`` input channels for all its outputs, each stage laid out as
+Hopper's ``wgmma`` reads B from shared memory (K-major 8-row x 16-byte core
+matrices, no swizzle), so one bulk copy moves it; f32 weights as their TF32
+high and low parts (3xTF32); the head weights (alpha, rgb or output_linear)
+after the layers.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -39,8 +51,14 @@ from ..volume import fma, ray_points
 from .r2l_fused import (_act_scale, _check, _dequant, _mm_int, _ptr, _q8,
                         _raise_on_error)
 
-K_STAGE = 64     # every weight's input axis is a multiple of this
+K_STAGE = 64     # every packed weight's input axis is a multiple of this
 ROWS = 1 << 18   # points per slice of the plain version's MLP
+# The kernels' weight stages: input channels per stage, by weight dtype
+# (128 bytes of each output row; f32's 64 bytes twice, high and low), and
+# points per block (one cluster is two blocks).
+STAGE_K = {torch.bfloat16: 64, torch.int8: 128, torch.float32: 16}
+BLOCK_POINTS = {torch.bfloat16: 128, torch.int8: 128, torch.float32: 64}
+SAMPLES_PER_GROUP = 8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -89,6 +107,8 @@ class FusedNeRFParams(NamedTuple):
     out_w: torch.Tensor    # [4, W] rgb logits then sigma (no viewdirs)
     out_m: torch.Tensor    # [4]
     out_b: torch.Tensor    # [4]
+    staged: torch.Tensor | None = None  # uint8: the kernels' weight image
+    #                                     (stage_weights)
     fold_requant: bool = False  # int8: the scales are folded into the
     #                             producers, requantize is round+clip
 
@@ -248,13 +268,228 @@ def prepare_fused_nerf(model: NeRF, cfg: NeRFConfig, L_pts: int = 10,
         out = (ow, om, model.output_linear.bias.detach().float()[:4])
     alpha, feat, views, rgb = (x or e for x in (alpha, feat, views, rgb))
     c = lambda t: t.contiguous()  # noqa: E731
-    return FusedNeRFParams(
+    fp = FusedNeRFParams(
         c(torch.cat(ws)), c(pts_m), c(pts_b),
         c(1.0 / s_pe) if int8 else empty, c(pts_inv),
         *map(c, alpha), *map(c, feat), c(h_inv), *map(c, views),
         c(hv_inv) if hv_inv is not None else empty, *map(c, rgb),
         c(hr_inv) if hr_inv is not None else empty, *map(c, out),
-        bool(int8 and fold_requant))
+        fold_requant=bool(int8 and fold_requant))
+    return fp._replace(staged=stage_weights(fp, cfg, L_pts, L_views))
+
+
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (hi, lo), both TF32 values (the low 13 mantissa bits zero):
+    hi = w rounded to TF32 (to nearest, ties away from zero: the card's
+    ``cvt.rna.tf32.f32``), lo = w - hi (exact in f32) rounded the same way;
+    hi + lo is within 2^-21 of w, relative."""
+    def rna(x):
+        b = x.contiguous().view(torch.int32)
+        return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(w.float())
+    return hi, rna(w.float() - hi)
+
+
+def stage_plan(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
+               L_views: int = 4) -> dict:
+    """The staged image's shape: 'layers', each GEMM layer's (outputs,
+    staged input width) in order (the D point layers, then with viewdirs
+    the feature and the view layer); the point and view encodings' widths
+    as staged ('kpe', 'kve', a multiple of ``STAGE_K``) and as packed
+    ('kp', 'kvw' = kv - W); 'gemm_bytes', the layers' bytes (the heads
+    follow them)."""
+    W = cfg.W
+    kp, kv, ks = layout(cfg, L_pts, L_views)
+    k = STAGE_K[dtype]
+    kpe = _round_up(kp, k)
+    kvw = kv - W if cfg.use_viewdirs else 0
+    kve = _round_up(kvw, k)
+    layers = [(W, kpe if i == 0 else (kpe + W if K != W else W))
+              for i, K in enumerate(ks)]
+    if cfg.use_viewdirs:
+        layers += [(W, W), (W // 2, W + kve)]
+    parts = 2 if dtype == torch.float32 else 1
+    es = torch.empty(0, dtype=dtype).element_size()
+    gemm = sum(n * kk for n, kk in layers) * es * parts
+    heads = (W + 3 * (W // 2) if cfg.use_viewdirs else 4 * W) * es
+    epi = _round_up(gemm + heads, 16)
+    table = len(layers) * (W // 2) * 16 if dtype == torch.int8 else 0
+    return {"layers": layers, "kp": kp, "kpe": kpe, "kvw": kvw, "kve": kve,
+            "gemm_bytes": gemm, "epi_off": epi, "nbytes": epi + table}
+
+
+def _gemm_mats(fp: FusedNeRFParams, cfg: NeRFConfig, L_pts: int,
+               L_views: int) -> tuple[list, list]:
+    """([N, K staged] weights of each GEMM layer, the head weights): the
+    encoding's columns padded from kp to kpe, the view encoding's from kvw
+    to kve, with zeros."""
+    W = cfg.W
+    plan = stage_plan(cfg, fp.pts_w.dtype, L_pts, L_views)
+    kp, kpe, kve = plan["kp"], plan["kpe"], plan["kve"]
+    _, _, ks = layout(cfg, L_pts, L_views)
+    mats, off = [], 0
+    for i, K in enumerate(ks):
+        w = fp.pts_w[off:off + W * K].view(W, K)
+        off += W * K
+        if i == 0:
+            w = _pad_cols(w, kpe)
+        elif K != W:
+            w = torch.cat([_pad_cols(w[:, :kp], kpe), w[:, kp:]], 1)
+        mats.append(w)
+    if not cfg.use_viewdirs:
+        return mats, [fp.out_w]
+    vw = fp.views_w
+    mats += [fp.feat_w, torch.cat([vw[:, :W], _pad_cols(vw[:, W:], kve)], 1)]
+    return mats, [fp.alpha_w, fp.rgb_w]
+
+
+def _core_matrices(x: torch.Tensor) -> torch.Tensor:
+    """Bytes [N, B] (B a multiple of 16) in wgmma's K-major core-matrix
+    order: byte (n, b) at ((n//8) * (B//16) + b//16) * 128 + (n%8) * 16 +
+    b%16."""
+    n, b = x.shape
+    return x.reshape(n // 8, 8, b // 16, 16).permute(0, 2, 1, 3).reshape(-1)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8).reshape(t.shape[0], -1) \
+        if t.dim() == 2 else t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def stage_weights(fp: FusedNeRFParams, cfg: NeRFConfig, L_pts: int = 10,
+                  L_views: int = 4) -> torch.Tensor:
+    """The kernels' weight image (uint8, a multiple of 16 bytes): each GEMM
+    layer's stages in order, each stage [N outputs x STAGE_K channels] in
+    ``_core_matrices`` order (f32: the TF32 high part's stage, then the low
+    part's), then the head weights in the weights' dtype, whole; int8 then
+    ``_epi_table`` from a 16-byte boundary."""
+    wd = fp.pts_w.dtype
+    k = STAGE_K[wd]
+    mats, heads = _gemm_mats(fp, cfg, L_pts, L_views)
+    parts = []
+    for w in mats:
+        for st in range(w.shape[1] // k):
+            chunk = w[:, st * k:(st + 1) * k]
+            for p in (tf32_split(chunk) if wd == torch.float32 else (chunk,)):
+                parts.append(_core_matrices(_bytes(p)))
+    parts += [_bytes(h).reshape(-1) for h in heads]
+    out = torch.cat(parts)
+    out = torch.nn.functional.pad(out, (0, -out.numel() % 16))
+    if wd == torch.int8:
+        out = torch.cat([out, _bytes(_epi_table(fp, cfg)).reshape(-1)])
+    return out.contiguous()
+
+
+def _epi_table(fp: FusedNeRFParams, cfg: NeRFConfig) -> torch.Tensor:
+    """int8: each GEMM layer's dequantize constants by column pair, [layers,
+    W/2, 4] f32 rows (m[c], b[c], m[c+1], b[c+1]); the view layer's W/2
+    columns padded with zeros."""
+    W = cfg.W
+    mbs = [(fp.pts_m[i], fp.pts_b[i]) for i in range(cfg.D)]
+    if cfg.use_viewdirs:
+        mbs += [(fp.feat_m, fp.feat_b), (fp.views_m, fp.views_b)]
+    rows = []
+    for m, b in mbs:
+        m, b = (torch.nn.functional.pad(x.float(), (0, W - x.numel()))
+                for x in (m, b))
+        rows.append(torch.stack([m[0::2], b[0::2], m[1::2], b[1::2]], -1))
+    return torch.stack(rows).contiguous()
+
+
+def unstage_weights(staged: torch.Tensor, cfg: NeRFConfig,
+                    dtype: torch.dtype, L_pts: int = 10, L_views: int = 4
+                    ) -> dict[str, torch.Tensor]:
+    """The packed fields back from a staged image: 'pts_w' (flat),
+    'feat_w', 'views_w' and the heads ('alpha_w', 'rgb_w' or 'out_w'); for
+    f32 the GEMM fields are the TF32 high parts, and '<field>_lo' the low
+    parts; for int8 also the dequantize constants ('pts_m', 'pts_b',
+    'feat_m', ...) from the column-pair table."""
+    W = cfg.W
+    plan = stage_plan(cfg, dtype, L_pts, L_views)
+    kp, kpe, kvw = plan["kp"], plan["kpe"], plan["kvw"]
+    k = STAGE_K[dtype]
+    es = torch.empty(0, dtype=dtype).element_size()
+    n_parts = 2 if dtype == torch.float32 else 1
+    pos = 0
+
+    def take(nbytes):
+        nonlocal pos
+        pos += nbytes
+        return staged[pos - nbytes:pos]
+
+    mats = []   # [(hi, lo)] or [(w,)]
+    for n, kk in plan["layers"]:
+        cols = [[] for _ in range(n_parts)]
+        for _ in range(kk // k):
+            for p in range(n_parts):
+                x = take(n * k * es).reshape(n // 8, k * es // 16, 8, 16)
+                cols[p].append(x.permute(0, 2, 1, 3).reshape(n, k * es)
+                               .contiguous().view(dtype))
+        mats.append([torch.cat(c, 1) for c in cols])
+
+    def unpad(w, i, cat):
+        if i == 0:
+            return w[:, :kp]
+        return torch.cat([w[:, :kp], w[:, kpe:]], 1) if cat else w
+
+    _, _, ks = layout(cfg, L_pts, L_views)
+    out = {}
+    for p, suffix in enumerate(("", "_lo")[:n_parts]):
+        out["pts_w" + suffix] = torch.cat([
+            unpad(m[p], i, ks[i] != W).reshape(-1)
+            for i, m in enumerate(mats[:cfg.D])])
+        if cfg.use_viewdirs:
+            out["feat_w" + suffix] = mats[cfg.D][p]
+            vw = mats[cfg.D + 1][p]
+            out["views_w" + suffix] = torch.cat([vw[:, :W],
+                                                 vw[:, W:W + kvw]], 1)
+    heads = ([("alpha_w", (W,)), ("rgb_w", (3, W // 2))]
+             if cfg.use_viewdirs else [("out_w", (4, W))])
+    for name, shape in heads:
+        nb = math.prod(shape) * es
+        out[name] = take(nb).clone().view(dtype).reshape(shape)
+    if dtype == torch.int8:   # the (m, b) column-pair table
+        t = staged[plan["epi_off"]:].clone().view(torch.float32).view(
+            len(plan["layers"]), W // 2, 4)
+        m, b = (torch.stack([t[..., k], t[..., k + 2]], -1).reshape(
+            len(plan["layers"]), W) for k in (0, 1))
+        out["pts_m"], out["pts_b"] = m[:cfg.D], b[:cfg.D]
+        if cfg.use_viewdirs:
+            out["feat_m"], out["feat_b"] = m[cfg.D], b[cfg.D]
+            out["views_m"], out["views_b"] = (x[cfg.D + 1, :W // 2]
+                                              for x in (m, b))
+    return out
+
+
+def kernel_smem(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
+                L_views: int = 4) -> int:
+    """The dynamic shared memory one block of K6 (f32, bf16) or K7 (int8)
+    takes at this shape, in bytes, from the kernel's own plan (builds the
+    library)."""
+    from . import _build
+    skips = sum(1 << s for s in cfg.skips)
+    vd = int(cfg.use_viewdirs)
+    if dtype == torch.int8:
+        fn = _build.load("nerf_render_int8").nerf_render_int8_smem
+        args = (cfg.W, cfg.D, skips, L_pts, L_views, vd)
+    else:
+        fn = _build.load("nerf_render").nerf_render_smem
+        args = (cfg.W, int(dtype == torch.float32), cfg.D, skips, L_pts,
+                L_views, vd)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    return int(fn(*args))
+
+
+def staged_l2_bytes(cfg: NeRFConfig, dtype: torch.dtype, n: int, S: int,
+                    L_pts: int = 10, L_views: int = 4) -> int:
+    """The weight bytes one launch reads from L2 by design: the GEMM layers'
+    stages once per 2-block cluster and group of 8 samples."""
+    per_block = BLOCK_POINTS[dtype] // SAMPLES_PER_GROUP
+    clusters = -(-(-(-n // per_block)) // 2)
+    groups = -(-S // SAMPLES_PER_GROUP)
+    return clusters * groups * stage_plan(cfg, dtype, L_pts,
+                                          L_views)["gemm_bytes"]
 
 
 def pe_ladder(p: torch.Tensor, L: int, width: int) -> torch.Tensor:
@@ -279,25 +514,31 @@ def _norm3(d: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(fma(z, z, fma(y, y, x * x)))
 
 
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.float() @ w.float().T
+
+
 def _heads_dense(fp: FusedNeRFParams, cfg: NeRFConfig, h: torch.Tensor,
-                 vpe: torch.Tensor | None, cd: torch.dtype):
-    """f32/bf16 heads: h [m, W] in cd -> (sigma [m], rgb logits [m, 3])."""
-    def lin(x, w, b):
-        return x.float() @ w.float().T + b
+                 vpe: torch.Tensor | None, cd: torch.dtype, mm=_mm_f32):
+    """f32/bf16 heads: h [m, W] in cd -> (sigma [m], rgb logits [m, 3]).
+    ``mm`` computes the feature and view layers' products."""
+    def lin(x, w, b, prod=_mm_f32):
+        return prod(x, w) + b
     if cfg.use_viewdirs:
         sigma = lin(h, fp.alpha_w[None], fp.alpha_b)[:, 0]
-        feat = lin(h, fp.feat_w, fp.feat_b).to(cd)
+        feat = lin(h, fp.feat_w, fp.feat_b, mm).to(cd)
         hv = torch.relu(lin(torch.cat([feat, vpe.to(cd)], -1), fp.views_w,
-                            fp.views_b)).to(cd)
+                            fp.views_b, mm)).to(cd)
         return sigma, lin(hv, fp.rgb_w, fp.rgb_b)
     out = lin(h, fp.out_w, fp.out_b)
     return out[:, 3], out[:, :3]
 
 
 def _mlp_dense(fp: FusedNeRFParams, cfg: NeRFConfig, pe: torch.Tensor,
-               vpe: torch.Tensor | None, ks: list[int]):
+               vpe: torch.Tensor | None, ks: list[int], mm=_mm_f32):
     """f32/bf16 chain on the points' encoding pe [m, kp] (and their rays'
-    view encoding vpe [m, kv - W]) -> (sigma [m], rgb logits [m, 3])."""
+    view encoding vpe [m, kv - W]) -> (sigma [m], rgb logits [m, 3]).
+    ``mm(x, w)`` computes the GEMM layers' products x w^T."""
     cd = fp.pts_w.dtype
     W = cfg.W
     x = pe.to(cd)
@@ -307,8 +548,8 @@ def _mlp_dense(fp: FusedNeRFParams, cfg: NeRFConfig, pe: torch.Tensor,
         off += W * K
         inp = x if i == 0 else (torch.cat([x, h], -1)
                                 if (i - 1) in cfg.skips else h)
-        h = torch.relu(inp.float() @ w.float().T + fp.pts_b[i]).to(cd)
-    return _heads_dense(fp, cfg, h, vpe, cd)
+        h = torch.relu(mm(inp, w) + fp.pts_b[i]).to(cd)
+    return _heads_dense(fp, cfg, h, vpe, cd, mm)
 
 
 def _mlp_int8(fp: FusedNeRFParams, cfg: NeRFConfig, pe: torch.Tensor,
@@ -346,10 +587,13 @@ def _mlp_int8(fp: FusedNeRFParams, cfg: NeRFConfig, pe: torch.Tensor,
 def fused_nerf_render_ref(fp: FusedNeRFParams, cfg: NeRFConfig,
                           rays_o: torch.Tensor, rays_d: torch.Tensor,
                           z_vals: torch.Tensor, L_pts: int = 10,
-                          L_views: int = 4, white_bkgd: bool = False):
+                          L_views: int = 4, white_bkgd: bool = False,
+                          mm=_mm_f32):
     """Plain version of the fused pass (the arithmetic of K6/K7 step for
     step): rays_o/d [N, 3], z_vals [N, S] sorted -> (rgb [N, 3], acc [N],
-    depth [N], weights [N, S]), all f32."""
+    depth [N], weights [N, S]), all f32. ``mm(x, w)``: the f32/bf16 GEMM
+    layers' product x w^T (f32 by default; a test passes an emulation of
+    K6 f32's 3xTF32)."""
     int8 = fp.pts_w.dtype == torch.int8
     n, S = z_vals.shape
     kp, kv, ks = layout(cfg, L_pts, L_views)
@@ -366,7 +610,7 @@ def fused_nerf_render_ref(fp: FusedNeRFParams, cfg: NeRFConfig,
         v = (vpe[torch.arange(rows.start, rows.stop, device=z.device) // S]
              if vpe is not None else None)
         s_, r_ = (_mlp_int8(fp, cfg, pe[rows], v, ks) if int8
-                  else _mlp_dense(fp, cfg, pe[rows], v, ks))
+                  else _mlp_dense(fp, cfg, pe[rows], v, ks, mm))
         sig.append(s_)
         raw.append(r_)
     sig = torch.cat(sig).view(n, S)
@@ -451,6 +695,11 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
         t = getattr(fp, name)
         dt = wd if name.endswith("_w") and shape != (0,) else f32
         _check(t, name, dt, shape, dev)
+    if fp.staged is None:
+        raise ValueError("fp has no staged weight image: pack it with "
+                         "prepare_fused_nerf")
+    _check(fp.staged, "staged", torch.uint8,
+           (stage_plan(cfg, wd, L_pts, L_views)["nbytes"],), dev)
     rgb = torch.empty((n, 3), dtype=f32, device=dev)
     acc = torch.empty((n,), dtype=f32, device=dev)
     depth = torch.empty((n,), dtype=f32, device=dev)
@@ -468,25 +717,21 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
             fused_nerf_render.launches_int8 += 1
             rc = lib.nerf_render_int8_launch(
                 P(rays_o), P(rays_d), P(z_vals), n, S,
-                P(fp.pts_w), P(fp.pts_m), P(fp.pts_b), P(fp.pe_inv),
+                P(fp.staged), P(fp.pts_m), P(fp.pts_b), P(fp.pe_inv),
                 P(fp.pts_inv), cfg.D, skips, cfg.W,
-                P(fp.alpha_w), P(fp.alpha_m), P(fp.alpha_b),
-                P(fp.feat_w), P(fp.feat_m), P(fp.feat_b), P(fp.h_inv),
-                P(fp.views_w), P(fp.views_m), P(fp.views_b),
-                P(fp.hv_inv), P(fp.rgb_w), P(fp.rgb_m), P(fp.rgb_b),
-                P(fp.hr_inv), P(fp.out_w), P(fp.out_m), P(fp.out_b),
-                *flags, int(fp.fold_requant), *outs, stream)
+                P(fp.alpha_m), P(fp.alpha_b), P(fp.feat_m), P(fp.feat_b),
+                P(fp.h_inv), P(fp.views_m), P(fp.views_b), P(fp.hv_inv),
+                P(fp.rgb_m), P(fp.rgb_b), P(fp.hr_inv), P(fp.out_m),
+                P(fp.out_b), *flags, int(fp.fold_requant), *outs, stream)
             _raise_on_error(rc, "nerf_render_int8")
         else:
             lib = _build.load("nerf_render")
             fused_nerf_render.launches += 1
             rc = lib.nerf_render_launch(
                 P(rays_o), P(rays_d), P(z_vals), n, S,
-                P(fp.pts_w), P(fp.pts_b), cfg.D, skips, cfg.W,
-                P(fp.alpha_w), P(fp.alpha_b), P(fp.feat_w), P(fp.feat_b),
-                P(fp.views_w), P(fp.views_b), P(fp.rgb_w), P(fp.rgb_b),
-                P(fp.out_w), P(fp.out_b), *flags, int(wd == f32), *outs,
-                stream)
+                P(fp.staged), P(fp.pts_b), cfg.D, skips, cfg.W,
+                P(fp.alpha_b), P(fp.feat_b), P(fp.views_b), P(fp.rgb_b),
+                P(fp.out_b), *flags, int(wd == f32), *outs, stream)
             _raise_on_error(rc, "nerf_render")
     return rgb, acc, depth, weights
 

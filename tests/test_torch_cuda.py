@@ -347,8 +347,10 @@ def test_fused_apply_grads_match_plain(dev, kind):
 
 
 # Teacher kernels (K6 f32/bf16, K7 int8): (D, W, skips, L_pts, L_views,
-# viewdirs). Ray counts are not multiples of a block's 8 (bf16, int8) or 4
-# (f32) rays, and S = 13 is not a multiple of the 8-sample group.
+# viewdirs). A block holds 16 rays (bf16, int8) or 8 (f32), two blocks a
+# cluster: 1003 rays fill no block, 48 leave the last bf16/int8 cluster half
+# empty (an odd number of blocks), 24 the last f32 one, 1 ray the only one;
+# S = 13 is not a multiple of the 8-sample group, 192 is the fine pass's.
 NERF_CASES = {
     "canonical": (8, 256, (4,), 10, 4, True),
     "w128_noview": (4, 128, (1,), 6, 3, False),
@@ -384,9 +386,11 @@ def _nerf_case(name, dev, kind, n=1003, S=64):
 
 @pytest.mark.parametrize("name", sorted(NERF_CASES))
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("S", [13, 64])
-def test_nerf_render_kernel_matches_plain(dev, name, kind, S):
-    cfg, model, o, d, z, Lp, Lv, calib = _nerf_case(name, dev, kind, S=S)
+@pytest.mark.parametrize("S,n", [(13, 1003), (64, 1003), (192, 1003),
+                                 (13, 48), (64, 24), (24, 1)])
+def test_nerf_render_kernel_matches_plain(dev, name, kind, S, n):
+    cfg, model, o, d, z, Lp, Lv, calib = _nerf_case(name, dev, kind, n=n,
+                                                     S=S)
     int8 = kind == "int8"
     fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv, calib=calib,
                                weight_dtype=cfg.compute_dtype,
@@ -424,6 +428,21 @@ def test_nerf_render_int8_fold_and_unfolded_agree(dev, fold):
         assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (mx, rms)
 
 
+@pytest.mark.parametrize("name,op", [("nerf_render", "HGMMA"),
+                                     ("nerf_render_int8", "IGMMA")])
+def test_nerf_kernels_run_on_wgmma(dev, name, op):
+    """The SASS of K6 (bf16, and f32 as TF32) holds HGMMA and K7's IGMMA:
+    the tensor cores' warpgroup products (wgmma), not mma.sync's HMMA/IMMA."""
+    import subprocess
+    from r2l_tpu_torch.kernels import _build
+    _build.load(name)
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._library_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+    assert op in sass
+    assert "HMMA" not in sass and "IMMA" not in sass
+
+
 def test_nerf_render_raises_instead_of_falling_back(dev):
     cfg, model, o, d, z, Lp, Lv, _ = _nerf_case("w128_noview", dev, "f32")
     fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv,
@@ -438,6 +457,11 @@ def test_nerf_render_raises_instead_of_falling_back(dev):
     narrow = dataclasses.replace(cfg, W=64)
     with pytest.raises(ValueError):
         NR.fused_nerf_render(fp, narrow, o, d, z, **kw)
+    with pytest.raises(ValueError):   # no staged image, or a stale one
+        NR.fused_nerf_render(fp._replace(staged=None), cfg, o, d, z, **kw)
+    with pytest.raises(ValueError):
+        NR.fused_nerf_render(fp._replace(staged=fp.staged[:-16]), cfg, o,
+                             d, z, **kw)
 
 
 # The exp/ probe kernels (r2l_tpu_torch/exp): chain modes, bigN, the int8
