@@ -19,7 +19,9 @@ Phases, in order; any failure raises and exits non-zero:
    (``fused_r2l_apply`` on the frame's ``r2l_embed``-encoded rays) with f32
    and bf16 weights, each against its plain PyTorch version, then K2 on the
    frozen int8 canary (``tests/fixtures/int8_epilogue_canary*.npz``). Times
-   each kernel and its plain version with CUDA events.
+   each kernel and its plain version with CUDA events; beside K1/K9 their
+   bound (f32: the 3xTF32 one they follow and the CUDA cores' f32 one)
+   and the weight bytes their design reads from L2 in the frame.
 4. Main path: ``make_r2l_frame_fn`` and ``make_r2l_bench_fn`` at 400x400 for
    the kinds ``jnp`` (plain module, bf16), ``pe`` and ``int8``; K frames per
    kind, ms/frame from CUDA events, PSNR of each kernel kind's frames against
@@ -27,6 +29,9 @@ Phases, in order; any failure raises and exits non-zero:
    exported kernel API (``kernels.prepare_fused_params`` and
    ``kernels.fused_r2l_apply`` on ``r2l_embed(sample_test(pose))``), bf16
    and f32 weights: ms/frame, PSNR against the ``jnp`` frames, K9 launches.
+   Then the frame at the CLI's default compute dtype (f32:
+   ``make_r2l_frame_fn``, kind ``pe``, K1 f32) on 4 poses: ms/frame, PSNR
+   against the plain f32 frames, K1 launches.
 5. Training kernels vs plain versions on the card, at one canonical
    distillation step's 81,920 rays (``sample_train`` of synthetic rays with
    stratified depths): K3 (``train_fwd``) with f32 and bf16 weights, rgb
@@ -155,8 +160,11 @@ K = 16                     # frames per kind on the main path
 SEED = 0
 
 # Kernel vs its plain version on the same inputs, on the card:
-# K1 f32: both compute in f32 and differ only in summation order across
-#   88 layers.
+# K1 f32 (and K9 f32): each head and body product as 3xTF32 on the tensor
+#   cores (a_hi w_lo + a_lo w_hi + a_hi w_hi, about 21 mantissa bits, sums
+#   truncated) against the plain version's true f32, across 88 layers; the
+#   CPU emulation reads 5.96e-7, 0.6% of this limit
+#   (tests/test_torch_r2l_staging.py), a single TF32 product 3.9e-4, over it.
 TOL_PE_F32 = 1e-4
 # K1 bf16: a one-ulp difference in a dot can flip a bf16 rounding of an
 #   activation, which then propagates (the bound of
@@ -207,6 +215,11 @@ RTOL_LOSS = {"fused": 2e-2, "fused_int8": 5e-2, "fused_int8_bf16stash": 5e-2}
 # K9 frames through the kernel API against the plain jnp frames (PSNR, dB).
 MIN_PSNR_API = 40.0
 K_API_F32 = 4          # f32-weight frames (K9 f32 is about 10x slower)
+# The student's frame at the CLI's default compute dtype (f32, K1 f32)
+# against the plain f32 frames (K1's plain version on the same points):
+# 3xTF32 against true f32 (the limit leaves room for the tensor cores'
+# truncating sums; measured: see PERF.md).
+MIN_PSNR_CLI_F32 = 100.0
 
 # Teacher training (configs/lego.txt: no_batching, 64 + 128 samples,
 # N_rand 1024, lrate 5e-4, decay 500, precrop 500 at 0.5, white background)
@@ -411,6 +424,9 @@ def phase_kernels(model, cfg, sampler, poses, dev) -> dict:
         print(f"[time] {label}: kernel {out[key]['ms']:.3f} ms, plain "
               f"{out[key]['plain_ms']:.3f} ms at {pts.shape[0]} rays",
               flush=True)
+        if key != "int8":
+            chain_design(out[key], label, cfg, kind, pts.shape[0],
+                         nbytes(pts, got, *fp))
 
     from r2l_tpu_torch.encoding import r2l_embed
     x = r2l_embed(pts, EMBED_L)
@@ -430,12 +446,40 @@ def phase_kernels(model, cfg, sampler, poses, dev) -> dict:
             **bound(chain_ops(cfg, x.shape[0], cfg.input_dim),
                     nbytes(x, got, *fp), kind),
             "library_ms": None}
+        chain_design(r, f"K9 {kind}", cfg, kind, x.shape[0],
+                     nbytes(x, got, *fp))
         print(f"[time] K9 {kind}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}), K1 {kind} {out[k1]['ms']:.3f} ms, at "
               f"{x.shape[0]} rays of [{x.shape[1]}] f32", flush=True)
         del fp
     return out
+
+
+def chain_design(r: dict, label: str, cfg, kind: str, n: int,
+                 moved: int) -> None:
+    """K1/K9's design beside a row of phase 3 (n rays, ``moved`` bytes in
+    and out): f32 runs three TF32 products per multiply-add (3xTF32), so
+    its bound is the tensor cores' TF32 one, with the CUDA cores' true-f32
+    bound beside it; the weight bytes the design reads from L2 in the
+    launch (the staged image once per cluster)."""
+    from r2l_tpu_torch.exp._harness import chain_ops
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    wd = torch.float32 if kind == "f32" else torch.bfloat16
+    if kind == "f32":
+        r["bound_cuda_cores_ms"] = r["bound_ms"]
+        r.update(bound(3 * chain_ops(cfg, n, cfg.input_dim), moved, "tf32"),
+                 engine="3xTF32")
+        print(f"[time] {label} bounds: 3xTF32 {r['bound_ms']:.3f} ms (three "
+              f"TF32 products at 495 TFLOP/s), CUDA cores "
+              f"{r['bound_cuda_cores_ms']:.3f} ms (f32 at 67 TFLOP/s); this "
+              "instance follows 3xTF32", flush=True)
+    else:
+        r["engine"] = "wgmma bf16"
+    r["l2_gb_per_frame"] = F.chain_l2_bytes(cfg, wd, n) / 1e9
+    print(f"[time] {label} design: {r['l2_gb_per_frame']:.2f} GB of weights "
+          f"from L2 per frame ({r['l2_gb_per_frame'] / r['ms']:.2f} TB/s), "
+          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
 
 
 def phase_canary(dev) -> float:
@@ -553,6 +597,53 @@ def phase_api_frames(model, cfg, sampler, poses, jnp_frames, dev) -> dict:
     return res
 
 
+def phase_cli_f32_frames(model, cfg, sampler, poses, dev) -> dict:
+    """The student's frame at the CLI's default compute dtype (f32), as a
+    user gets it: ``make_r2l_frame_fn`` with ``compute_dtype=float32`` picks
+    kind ``pe`` with f32 weights, so every frame runs K1 f32. K_API_F32
+    frames timed by CUDA events, K1's count set to 0 before and read after;
+    the frames against the plain f32 frames (K1's plain version on the same
+    points), PSNR."""
+    from r2l_tpu_torch.evaluate import make_r2l_frame_fn
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    dim_pts = cfg.input_dim // (2 * EMBED_L + 1)
+    k = K_API_F32
+    frame_fn = make_r2l_frame_fn(model, cfg32, sampler, embed_L=EMBED_L)
+    if frame_fn.kind != "pe":
+        raise AssertionError(f"the f32 frame took kind {frame_fn.kind}")
+    frame_fn(poses[0])                                   # warm-up
+    F.fused_r2l_apply_pe.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    f = torch.stack([frame_fn(p) for p in poses[:k]])
+    end.record()
+    torch.cuda.synchronize()
+    launches = F.fused_r2l_apply_pe.launches
+    if f.shape != (k, H, W, 3) or not torch.isfinite(f).all():
+        raise AssertionError(f"f32 frames: bad frames {tuple(f.shape)}")
+    fp = F.prepare_fused_params_pe(model, cfg32, dim_pts, EMBED_L,
+                                   weight_dtype=torch.float32, stage=False)
+    plain = torch.stack([F.fused_r2l_apply_pe_ref(
+        fp, cfg32, sampler.sample_test(torch.as_tensor(p, device=dev)),
+        dim_pts, EMBED_L)[:, :3].reshape(H, W, 3) for p in poses[:k]])
+    p = psnr_db(f, plain)
+    res = {"ms_per_frame": start.elapsed_time(end) / k, "frames": k,
+           "psnr_vs_plain_f32": min(p, 999.0), "launches": launches,
+           "max_abs_err": float((f.double() - plain.double()).abs().max())}
+    ok = launches > 0 and p >= MIN_PSNR_CLI_F32
+    print(f"[main] f32 frame (the CLI default, K1 f32): "
+          f"{res['ms_per_frame']:.3f} ms/frame over {k} frames, PSNR vs the "
+          f"plain f32 frames {p:.2f} dB (min {MIN_PSNR_CLI_F32}), max-abs "
+          f"{res['max_abs_err']:.3e}, K1 launches {launches}"
+          + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"f32 frames: {res}")
+    del fp, plain
+    return res
+
+
 def synthetic_rays(n: int, seed: int) -> np.ndarray:
     """[n, 9] f32 records o(3) d(3) rgb(3): origins on the radius-4 sphere,
     unit directions toward its centre jittered by up to ~0.3, and targets a
@@ -619,7 +710,8 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
     res, stashes = {}, {}
 
     for wd, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd)
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
+                                       stage=False)   # as the step packs
         rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
         rgb_p, stash_p = T.train_fwd_ref(fp, cfg, pts, dp, L)
         tol = TOL_TRAIN_F32 if kind == "f32" else TOL_TRAIN_BF16
@@ -2089,6 +2181,7 @@ def main() -> int:
     main_res, jnp_frames = phase_main_path(model, cfg, sampler, poses, dev)
     api = phase_api_frames(model, cfg, sampler, poses, jnp_frames, dev)
     del jnp_frames
+    cli_f32 = phase_cli_f32_frames(model, cfg, sampler, poses, dev)
     tkern = phase_train_kernels(model, cfg, sampler, poses, dev)
     del model
     torch.cuda.empty_cache()
@@ -2110,7 +2203,9 @@ def main() -> int:
         "pe_f32": kern["pe_f32"], "canary_max_abs_err": canary,
         "main_path": {k: v for k, v in main_res.items()
                       if k != "launches"},
-        "kernel_api_frames": api, "pe_bf16": kern["pe"],
+        "kernel_api_frames": api, "cli_f32_frames": cli_f32,
+        "pe_bf16": kern["pe"], "api_f32": kern["api_f32"],
+        "api_bf16": kern["api_bf16"],
         "train_kernels": tkern,
         "train_main_path": {k: v for k, v in train.items()
                             if k != "launches"},
@@ -2134,6 +2229,9 @@ def main() -> int:
         entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164",
               main_res["launches"]["pe"], kern["pe"]),
+        entry("fused_r2l_apply_pe_f32", "r2l_pe_fused.cu",
+              "r2l_tpu/kernels/r2l_pallas.py:164", cli_f32["launches"],
+              kern["pe_f32"]),
         entry("fused_r2l_apply_int8_pe", "r2l_int8_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:571",
               main_res["launches"]["int8"], kern["int8"]),

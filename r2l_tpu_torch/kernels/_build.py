@@ -30,15 +30,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # argtypes of each library's one entry point: pointers and the stream as
 # c_void_p, so ctypes does not cut them to 32 bits.
 KERNELS = {
     "r2l_pe_fused": ("r2l_pe_fused_launch",
                      [_P, _I, _I, _I] + [_P] * 7
-                     + [_I, _I, _I, _I, _F, _I, _I, _I, _P]),
+                     + [_LL, _I, _I, _I, _I, _F, _I, _I, _I, _P]),
     "r2l_fused": ("r2l_fused_launch",
                   [_P, _I, _I] + [_P] * 7
-                  + [_I, _I, _I, _I, _F, _I, _I, _I, _P]),
+                  + [_LL, _I, _I, _I, _I, _F, _I, _I, _I, _P]),
     "r2l_int8_pe_fused": ("r2l_int8_pe_fused_launch",
                           [_P, _I, _I, _I] + [_P] * 13 + [_I] * 8 + [_P]),
     "r2l_train_fwd": ("r2l_train_fwd_launch",

@@ -50,13 +50,12 @@ from ..models.nerf import NeRF, NeRFConfig
 from ..volume import fma, ray_points
 from .r2l_fused import (_act_scale, _check, _dequant, _mm_int, _ptr, _q8,
                         _raise_on_error)
+from .staging import STAGE_K, stage_matrices, tf32_split  # noqa: F401
 
 K_STAGE = 64     # every packed weight's input axis is a multiple of this
 ROWS = 1 << 18   # points per slice of the plain version's MLP
-# The kernels' weight stages: input channels per stage, by weight dtype
-# (128 bytes of each output row; f32's 64 bytes twice, high and low), and
-# points per block (one cluster is two blocks).
-STAGE_K = {torch.bfloat16: 64, torch.int8: 128, torch.float32: 16}
+# Points per block of the kernels (one cluster is two blocks); their weight
+# stages' input channels are staging.STAGE_K.
 BLOCK_POINTS = {torch.bfloat16: 128, torch.int8: 128, torch.float32: 64}
 SAMPLES_PER_GROUP = 8
 
@@ -278,18 +277,6 @@ def prepare_fused_nerf(model: NeRF, cfg: NeRFConfig, L_pts: int = 10,
     return fp._replace(staged=stage_weights(fp, cfg, L_pts, L_views))
 
 
-def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """f32 -> (hi, lo), both TF32 values (the low 13 mantissa bits zero):
-    hi = w rounded to TF32 (to nearest, ties away from zero: the card's
-    ``cvt.rna.tf32.f32``), lo = w - hi (exact in f32) rounded the same way;
-    hi + lo is within 2^-21 of w, relative."""
-    def rna(x):
-        b = x.contiguous().view(torch.int32)
-        return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
-    hi = rna(w.float())
-    return hi, rna(w.float() - hi)
-
-
 def stage_plan(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
                L_views: int = 4) -> dict:
     """The staged image's shape: 'layers', each GEMM layer's (outputs,
@@ -343,14 +330,6 @@ def _gemm_mats(fp: FusedNeRFParams, cfg: NeRFConfig, L_pts: int,
     return mats, [fp.alpha_w, fp.rgb_w]
 
 
-def _core_matrices(x: torch.Tensor) -> torch.Tensor:
-    """Bytes [N, B] (B a multiple of 16) in wgmma's K-major core-matrix
-    order: byte (n, b) at ((n//8) * (B//16) + b//16) * 128 + (n%8) * 16 +
-    b%16."""
-    n, b = x.shape
-    return x.reshape(n // 8, 8, b // 16, 16).permute(0, 2, 1, 3).reshape(-1)
-
-
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8).reshape(t.shape[0], -1) \
         if t.dim() == 2 else t.contiguous().reshape(-1).view(torch.uint8)
@@ -360,18 +339,14 @@ def stage_weights(fp: FusedNeRFParams, cfg: NeRFConfig, L_pts: int = 10,
                   L_views: int = 4) -> torch.Tensor:
     """The kernels' weight image (uint8, a multiple of 16 bytes): each GEMM
     layer's stages in order, each stage [N outputs x STAGE_K channels] in
-    ``_core_matrices`` order (f32: the TF32 high part's stage, then the low
-    part's), then the head weights in the weights' dtype, whole; int8 then
-    ``_epi_table`` from a 16-byte boundary."""
+    wgmma's core-matrix order (``staging.stage_matrices``; f32: the TF32
+    high part's stage, then the low part's), then the head weights in the
+    weights' dtype, whole; int8 then ``_epi_table`` from a 16-byte
+    boundary."""
     wd = fp.pts_w.dtype
     k = STAGE_K[wd]
     mats, heads = _gemm_mats(fp, cfg, L_pts, L_views)
-    parts = []
-    for w in mats:
-        for st in range(w.shape[1] // k):
-            chunk = w[:, st * k:(st + 1) * k]
-            for p in (tf32_split(chunk) if wd == torch.float32 else (chunk,)):
-                parts.append(_core_matrices(_bytes(p)))
+    parts = [stage_matrices(w, k) for w in mats]
     parts += [_bytes(h).reshape(-1) for h in heads]
     out = torch.cat(parts)
     out = torch.nn.functional.pad(out, (0, -out.numel() % 16))

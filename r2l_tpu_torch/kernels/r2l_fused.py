@@ -26,8 +26,14 @@ Kernel layout: weights are packed ``[out, in]`` (``nn.Linear``'s layout,
 the transpose of JAX's), so that a kernel copies each output channel's
 slice of a weight stage as contiguous 16-byte pieces; the head's input
 columns are zero-padded to a multiple of ``K_ALIGN`` for the same reason.
-The TPU kernels' 128-lane padding and ray ``tile`` are not ported: each
-CUDA kernel picks its own ray tile.
+K1 and K9 (``csrc/r2l_hopper.cuh``) read the head and body weights from a
+staged image instead (``stage_chain_weights``, made once per model by the
+frame entry points: ``prepare_fused_params``, and
+``prepare_fused_params_pe`` unless ``stage=False``, as the training step
+packs every step for K3, which reads the fields): each layer in stages laid
+out as Hopper's ``wgmma`` reads them (``staging.stage_matrices``), f32 as
+TF32 high and low parts. The TPU kernels' 128-lane padding and ray ``tile``
+are not ported: each CUDA kernel picks its own ray tile.
 """
 from __future__ import annotations
 
@@ -39,25 +45,46 @@ import numpy as np
 import torch
 
 from ..models.r2l import R2L, R2LConfig
+from .staging import stage_matrices, unstage_matrices
 
 K_ALIGN = 128  # head input columns are padded to a multiple of this
+# K1/K9's shape by weight dtype (csrc/r2l_hopper.cuh, Chain): input
+# channels per weight stage, rays per block, blocks per cluster (a cluster
+# reads each weight stage from L2 once for all its blocks).
+CHAIN_STAGE_K = {torch.bfloat16: 64, torch.float32: 16}
+CHAIN_BLOCK_RAYS = {torch.bfloat16: 128, torch.float32: 64}
+CHAIN_CLUSTER = {torch.bfloat16: 2, torch.float32: 2}
 
 
 def _padded_in(in_dim: int) -> int:
     return -(-in_dim // K_ALIGN) * K_ALIGN
 
 
-class FusedParams(NamedTuple):
-    """Kernel-layout parameters of ``fused_r2l_apply`` and
-    ``fused_r2l_apply_pe`` (weights [out, in], head columns zero-padded; in
-    ``r2l_embed``'s order from ``prepare_fused_params``, freq-major from
-    ``prepare_fused_params_pe``)."""
+class _ChainFields(NamedTuple):
     head_w: torch.Tensor   # [W, in_pad]    weight dtype (bf16 or f32)
     head_b: torch.Tensor   # [W]            f32
     body_w: torch.Tensor   # [nb*nl, W, W]  weight dtype, [out, in]
     body_b: torch.Tensor   # [nb*nl, W]     f32
     tail_w: torch.Tensor   # [out_dim, W]   weight dtype
     tail_b: torch.Tensor   # [out_dim]      f32
+
+
+class FusedParams(_ChainFields):
+    """Kernel-layout parameters of ``fused_r2l_apply`` and
+    ``fused_r2l_apply_pe`` (weights [out, in], head columns zero-padded; in
+    ``r2l_embed``'s order from ``prepare_fused_params``, freq-major from
+    ``prepare_fused_params_pe``); the fields are the JAX package's.
+
+    Beside them, not among them, ``staged``: K1/K9's weight image
+    (``stage_chain_weights``), or None where the packing did not stage.
+    ``_replace`` keeps it unless given ``staged=``."""
+    staged: torch.Tensor | None = None
+
+    def _replace(self, **kw) -> "FusedParams":
+        staged = kw.pop("staged", self.staged)
+        out = super()._replace(**kw)
+        out.staged = staged
+        return out
 
 
 class FusedParamsInt8PE(NamedTuple):
@@ -149,41 +176,107 @@ def _stacked_weights(model: R2L) -> tuple[torch.Tensor, ...]:
 
 @torch.no_grad()
 def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
-             head_perm: torch.Tensor | None) -> FusedParams:
+             head_perm: torch.Tensor | None, stage: bool) -> FusedParams:
     """The packing: weights [out, in] in ``weight_dtype``, the head's input
     columns (taken in the order ``head_perm`` when given) zero-padded to
     ``K_ALIGN``, a no-op on the product: the kernels pad their input with
-    zeros."""
+    zeros; with ``stage``, K1/K9's weight image beside them."""
     _assert_fused_supported(cfg)
     hw, hb, bw, bb, tw, tb = _stacked_weights(model)
     if head_perm is not None:
         hw = hw[head_perm]
     wd = weight_dtype
-    return FusedParams(
+    fp = FusedParams(
         head_w=_pack(hw, wd, pad_in=True), head_b=hb.contiguous(),
         body_w=_pack(bw, wd), body_b=bb.contiguous(),
         tail_w=_pack(tw, wd), tail_b=tb.contiguous())
+    if stage:
+        fp.staged = stage_chain_weights(fp)
+    return fp
 
 
 def prepare_fused_params(model: R2L, cfg: R2LConfig,
                          weight_dtype: torch.dtype = torch.bfloat16
                          ) -> FusedParams:
     """Pack the model for ``fused_r2l_apply`` (head rows in
-    ``r2l_embed``'s per-scalar order)."""
-    return _prepare(model, cfg, weight_dtype, None)
+    ``r2l_embed``'s per-scalar order), staged for K9."""
+    return _prepare(model, cfg, weight_dtype, None, stage=True)
 
 
 def prepare_fused_params_pe(model: R2L, cfg: R2LConfig, dim_pts: int,
                             L: int = 10,
-                            weight_dtype: torch.dtype = torch.bfloat16
-                            ) -> FusedParams:
-    """Pack the model for the PE-fused kernel (freq-major head rows)."""
+                            weight_dtype: torch.dtype = torch.bfloat16,
+                            stage: bool = True) -> FusedParams:
+    """Pack the model for the PE-fused kernel (freq-major head rows), staged
+    for K1 unless ``stage=False`` (K3, which the training step packs for
+    every step, reads the fields alone)."""
     if cfg.input_dim != dim_pts * (2 * L + 1):
         raise ValueError(f"input_dim {cfg.input_dim} != dim_pts*(2L+1) = "
                          f"{dim_pts * (2 * L + 1)}")
     perm = _pe_row_permutation_on(model.linears()[0].weight.device, dim_pts,
                                   L)
-    return _prepare(model, cfg, weight_dtype, perm)
+    return _prepare(model, cfg, weight_dtype, perm, stage)
+
+
+def chain_stage_plan(cfg: R2LConfig, dtype: torch.dtype) -> dict:
+    """K1/K9's staged image: 'kpad' (the head's input as staged), 'stage_k'
+    (input channels per stage), 'stage_bytes', 'stages' (the head's, then
+    each body layer's, in order) and 'nbytes'."""
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    kpad, k = _padded_in(cfg.input_dim), CHAIN_STAGE_K[dtype]
+    es = torch.empty(0, dtype=dtype).element_size()
+    stage_bytes = W * k * es * (2 if dtype == torch.float32 else 1)
+    stages = (kpad + nbl * W) // k
+    return {"kpad": kpad, "stage_k": k, "stage_bytes": stage_bytes,
+            "stages": stages, "nbytes": stages * stage_bytes}
+
+
+def stage_chain_weights(fp: FusedParams) -> torch.Tensor:
+    """K1/K9's weight image (uint8): the head's stages, then each body
+    layer's, in ``staging.stage_matrices`` order (f32: TF32 high and low);
+    the head's rows in ``fp``'s order (freq-major for K1)."""
+    k = CHAIN_STAGE_K[fp.head_w.dtype]
+    return torch.cat([stage_matrices(fp.head_w, k),
+                      stage_matrices(fp.body_w, k)])
+
+
+def unstage_chain_weights(staged: torch.Tensor, cfg: R2LConfig,
+                          dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """'head_w' [W, kpad] and 'body_w' [nb*nl, W, W] back from a staged
+    image; for f32 the TF32 high parts, and 'head_w_lo', 'body_w_lo' the
+    low parts."""
+    plan = chain_stage_plan(cfg, dtype)
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    k = plan["stage_k"]
+    cut = (plan["kpad"] // k) * plan["stage_bytes"]
+    out = {}
+    for name, img, shape in (("head_w", staged[:cut], (W, plan["kpad"])),
+                             ("body_w", staged[cut:], (nbl, W, W))):
+        for w, suffix in zip(unstage_matrices(img, shape, k, dtype),
+                             ("", "_lo")):
+            out[name + suffix] = w
+    return out
+
+
+def chain_l2_bytes(cfg: R2LConfig, dtype: torch.dtype, n: int) -> int:
+    """The weight bytes one K1/K9 launch on n rays reads from L2 by design:
+    the staged image once per cluster."""
+    blocks = -(-n // CHAIN_BLOCK_RAYS[dtype])
+    clusters = -(-blocks // CHAIN_CLUSTER[dtype])
+    return clusters * chain_stage_plan(cfg, dtype)["nbytes"]
+
+
+def _chain_scratch(cfg: R2LConfig, dtype: torch.dtype, n: int,
+                   dev: torch.device) -> torch.Tensor:
+    """K1/K9's h0 scratch for n rays: a [rows x W] tile of the weight dtype
+    for each block of the padded grid (none without the global
+    residual)."""
+    if not cfg.use_residual:
+        return torch.empty((0,), dtype=dtype, device=dev)
+    rows, c = CHAIN_BLOCK_RAYS[dtype], CHAIN_CLUSTER[dtype]
+    blocks = -(-(-(-n // rows)) // c) * c
+    return torch.empty((blocks * rows * cfg.netwidth,), dtype=dtype,
+                       device=dev)
 
 
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -201,15 +294,16 @@ def _compute_dtype(fp: FusedParams, cfg: R2LConfig) -> torch.dtype:
 
 
 def _chain_ref(fp: FusedParams, cfg: R2LConfig, x: torch.Tensor,
-               cd: torch.dtype) -> torch.Tensor:
-    """Pallas ``_kernel_body`` on x [N, in_dim] in ``cd``."""
-    h0 = torch.relu(_mm_f32(x, fp.head_w) + fp.head_b).to(cd)
+               cd: torch.dtype, mm=_mm_f32) -> torch.Tensor:
+    """Pallas ``_kernel_body`` on x [N, in_dim] in ``cd``; ``mm`` is the
+    head's and the body's product (the tail's is ``_mm_f32``)."""
+    h0 = torch.relu(mm(x, fp.head_w) + fp.head_b).to(cd)
     h = h0
     nl = cfg.n_learnable
     for i in range(cfg.num_blocks):
         acc = h
         for j in range(nl):
-            acc_f = _mm_f32(acc, fp.body_w[i * nl + j]) + fp.body_b[i * nl + j]
+            acc_f = mm(acc, fp.body_w[i * nl + j]) + fp.body_b[i * nl + j]
             if j < nl - 1:
                 acc_f = torch.relu(acc_f)
             acc = acc_f.to(cd)
@@ -222,15 +316,17 @@ def _chain_ref(fp: FusedParams, cfg: R2LConfig, x: torch.Tensor,
 
 def fused_r2l_apply_pe_ref(fp: FusedParams, cfg: R2LConfig,
                            pts: torch.Tensor, dim_pts: int,
-                           L: int = 10) -> torch.Tensor:
+                           L: int = 10, mm=_mm_f32) -> torch.Tensor:
     """Plain version of ``fused_r2l_apply_pe`` (Pallas ``_kernel_body``
-    with the PE kernel's input): pts [N, dim_pts] -> [N, out_dim] f32."""
+    with the PE kernel's input): pts [N, dim_pts] -> [N, out_dim] f32.
+    ``mm`` replaces the head's and the body's product (default: f32 sums of
+    the exact products)."""
     cd = _compute_dtype(fp, cfg)
     p = pts.float()
     sins, coss = _pe_sin_cos_ladder(p, L)
     x = torch.cat([s.to(cd) for s in sins] + [c.to(cd) for c in coss]
                   + [p.to(cd)], dim=1)
-    return _chain_ref(fp, cfg, x, cd)
+    return _chain_ref(fp, cfg, x, cd, mm)
 
 
 def fused_r2l_apply_ref(fp: FusedParams, cfg: R2LConfig,
@@ -265,39 +361,57 @@ def _raise_on_error(rc: int, kernel: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
+def _launch_chain(wrapper, lib_name: str, fp: FusedParams, cfg: R2LConfig,
+                  inp: torch.Tensor, front: tuple, wd: torch.dtype
+                  ) -> torch.Tensor:
+    """One launch of K1 or K9 (``csrc/r2l_hopper.cuh``) on the CUDA tensor
+    ``inp`` (points or encoded rays), the staged image checked here and a
+    fresh h0 scratch; ``front`` is the entry point's front-end arguments
+    (K1: dim_pts, L; K9: in_dim); counted in ``wrapper.launches``."""
+    from . import _build
+    dev, n, W = inp.device, inp.shape[0], cfg.netwidth
+    if fp.staged is None:
+        raise ValueError("fp has no staged weight image: pack it with "
+                         "prepare_fused_params or prepare_fused_params_pe "
+                         "(stage=True)")
+    _check(fp.staged, "staged", torch.uint8,
+           (chain_stage_plan(cfg, wd)["nbytes"],), dev)
+    out_dim = fp.tail_w.shape[0]
+    out = torch.empty((n, out_dim), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    h0 = _chain_scratch(cfg, wd, n, dev)
+    lib = _build.load(lib_name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        wrapper.launches += 1
+        rc = getattr(lib, lib_name + "_launch")(
+            _ptr(inp), n, *front, _ptr(fp.staged), _ptr(fp.head_b),
+            _ptr(fp.body_b), _ptr(fp.tail_w), _ptr(fp.tail_b), _ptr(out),
+            _ptr(h0), h0.numel(), W, cfg.num_blocks, cfg.n_learnable,
+            out_dim, float(cfg.res_scale), int(cfg.use_residual),
+            int(cfg.linear_tail), int(wd == torch.float32),
+            ctypes.c_void_p(stream))
+    _raise_on_error(rc, lib_name)
+    return out
+
+
 def fused_r2l_apply_pe(fp: FusedParams, cfg: R2LConfig,
                        pts: torch.Tensor, dim_pts: int,
                        L: int = 10) -> torch.Tensor:
     """pts [N, dim_pts] raw sample points -> RGB [N, out_dim] f32.
 
     Positional encoding runs inside the kernel; ``fp`` comes from
-    ``prepare_fused_params_pe``. CPU tensors take the plain version."""
+    ``prepare_fused_params_pe`` (staged). CPU tensors take the plain
+    version."""
     if pts.device.type == "cpu":
         return fused_r2l_apply_pe_ref(fp, cfg, pts, dim_pts, L)
-    from . import _build
     _assert_fused_supported(cfg)
-    dev, W = pts.device, cfg.netwidth
-    out_dim = fp.tail_w.shape[0]
+    dev = pts.device
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     wd = _check_chain_params(fp, cfg, dim_pts * (2 * L + 1), dev)
-    out = torch.empty((pts.shape[0], out_dim), dtype=torch.float32,
-                      device=dev)
-    if pts.shape[0] == 0:
-        return out
-    lib = _build.load("r2l_pe_fused")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fused_r2l_apply_pe.launches += 1
-        rc = lib.r2l_pe_fused_launch(
-            _ptr(pts), pts.shape[0], dim_pts, L,
-            _ptr(fp.head_w), _ptr(fp.head_b), _ptr(fp.body_w),
-            _ptr(fp.body_b), _ptr(fp.tail_w), _ptr(fp.tail_b), _ptr(out),
-            W, cfg.num_blocks, cfg.n_learnable, out_dim,
-            float(cfg.res_scale), int(cfg.use_residual),
-            int(cfg.linear_tail), int(wd == torch.float32),
-            ctypes.c_void_p(stream))
-    _raise_on_error(rc, "r2l_pe_fused")
-    return out
+    return _launch_chain(fused_r2l_apply_pe, "r2l_pe_fused", fp, cfg, pts,
+                         (dim_pts, L), wd)
 
 
 fused_r2l_apply_pe.launches = 0
@@ -332,7 +446,6 @@ def fused_r2l_apply(fp: FusedParams, cfg: R2LConfig,
     plain version."""
     if x.device.type == "cpu":
         return fused_r2l_apply_ref(fp, cfg, x)
-    from . import _build
     _assert_fused_supported(cfg)
     dev, n, in_dim = x.device, x.shape[0], cfg.input_dim
     if not x.is_floating_point():
@@ -342,23 +455,8 @@ def fused_r2l_apply(fp: FusedParams, cfg: R2LConfig,
         # the kernel reads f32: the compute dtype's value, exactly
         x = x.to(_compute_dtype(fp, cfg)).float()
     _check(x, "x", torch.float32, (n, in_dim), dev)
-    out = torch.empty((n, fp.tail_w.shape[0]), dtype=torch.float32,
-                      device=dev)
-    if n == 0:
-        return out
-    lib = _build.load("r2l_fused")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fused_r2l_apply.launches += 1
-        rc = lib.r2l_fused_launch(
-            _ptr(x), n, in_dim, _ptr(fp.head_w), _ptr(fp.head_b),
-            _ptr(fp.body_w), _ptr(fp.body_b), _ptr(fp.tail_w),
-            _ptr(fp.tail_b), _ptr(out), cfg.netwidth, cfg.num_blocks,
-            cfg.n_learnable, out.shape[1], float(cfg.res_scale),
-            int(cfg.use_residual), int(cfg.linear_tail),
-            int(wd == torch.float32), ctypes.c_void_p(stream))
-    _raise_on_error(rc, "r2l_fused")
-    return out
+    return _launch_chain(fused_r2l_apply, "r2l_fused", fp, cfg, x,
+                         (in_dim,), wd)
 
 
 fused_r2l_apply.launches = 0

@@ -393,7 +393,7 @@ def _run_fwd(spec: _Spec, model: R2L, fp, pts: torch.Tensor):
                   else None)
         return rgb, stash, body_w, scales
     fp = prepare_fused_params_pe(model, cfg, spec.dim_pts, spec.L,
-                                 weight_dtype=spec.cd)
+                                 weight_dtype=spec.cd, stage=False)
     rgb, stash = train_fwd(fp, cfg, pts, spec.dim_pts, spec.L)
     return rgb, stash, fp.body_w, None
 

@@ -173,6 +173,84 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         F.fused_r2l_apply_pe(fp, wide, pts, dp, L)
 
 
+# K1/K9 on the Hopper chain (csrc/r2l_hopper.cuh): 128-ray blocks in 2-block
+# clusters (bf16), 64-ray blocks in 4-block clusters (f32). Row counts that
+# leave the last block or cluster half-empty, and a 400x400 frame.
+CHAIN_ROWS = {"n1": 1, "n129": 129, "n257": 257, "frame": 160_000}
+
+
+def _chain_inputs(dev, kernel, wd, n):
+    if n == 160_000:   # the canonical width on a 400x400 frame's rays
+        cfg, model, _, poses, _, dp, L = _case("w256_canonical", dev)
+        sampler = PointSampler(H=400, W=400, focal=555.5555, n_sample=16,
+                               near=2.0, far=6.0)
+        pts = sampler.sample_test(torch.as_tensor(poses[1], device=dev))
+    else:
+        cfg, model, _, _, pts, dp, L = _case("w256_canonical", dev,
+                                             n_rays=n)
+    if wd == torch.float32:
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    assert pts.shape[0] == n
+    if kernel == "K1":
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd)
+        return (F.fused_r2l_apply_pe, F.fused_r2l_apply_pe_ref,
+                (fp, cfg, pts, dp, L))
+    fp = F.prepare_fused_params(model, cfg, weight_dtype=wd)
+    return (F.fused_r2l_apply, F.fused_r2l_apply_ref,
+            (fp, cfg, r2l_embed(pts, L)))
+
+
+@pytest.mark.parametrize("rows", sorted(CHAIN_ROWS))
+@pytest.mark.parametrize("kernel", ["K1", "K9"])
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+def test_chain_kernels_on_ragged_clusters(dev, rows, kernel, wd):
+    """K1 and K9 against their plain versions where the grid's last block
+    or cluster holds few rays (or none), and on a whole frame."""
+    kern, plain, args = _chain_inputs(dev, kernel, wd, CHAIN_ROWS[rows])
+    before = kern.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    mx, _ = _deltas(got, plain(*args))
+    assert mx < (TOL_F32 if wd == torch.float32 else TOL_BF16), mx
+
+
+@pytest.mark.parametrize("name", ["r2l_pe_fused", "r2l_fused"])
+def test_chain_kernels_run_on_wgmma(dev, name):
+    """The SASS of K1 and K9 (bf16, and f32 as TF32) holds HGMMA, the
+    tensor cores' warpgroup products (wgmma), and no mma.sync (HMMA)."""
+    import subprocess
+    from r2l_tpu_torch.kernels import _build
+    _build.load(name)
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._library_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+    assert "HGMMA" in sass
+    assert "HMMA" not in sass
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K9"])
+def test_chain_kernels_refuse_an_unstaged_image(dev, kernel):
+    """K1/K9 read their weights from the staged image only: without one (the
+    training step's packing), or with a short one, they raise and launch
+    nothing; nothing runs the plain version in their place."""
+    cfg, model, _, _, pts, dp, L = _case("w256_canonical", dev, n_rays=257)
+    if kernel == "K1":
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L)
+        unstaged = F.prepare_fused_params_pe(model, cfg, dp, L, stage=False)
+        kern, rest = F.fused_r2l_apply_pe, (cfg, pts, dp, L)
+    else:
+        fp = F.prepare_fused_params(model, cfg)
+        unstaged = fp._replace(staged=None)
+        kern, rest = F.fused_r2l_apply, (cfg, r2l_embed(pts, L))
+    assert fp.staged is not None and unstaged.staged is None
+    before = kern.launches
+    for bad in (unstaged, fp._replace(staged=fp.staged[:-16])):
+        with pytest.raises(ValueError):
+            kern(bad, *rest)
+    assert kern.launches == before
+
+
 # Training kernels (two layers per block): (netwidth, n_sample, L, knobs).
 TRAIN_CASES = {
     "w256_canonical": (256, 16, 10, {}),
