@@ -10,18 +10,21 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the fourteen CUDA libraries from ``r2l_tpu_torch/kernels/
+2. Build: compile the fifteen CUDA libraries from ``r2l_tpu_torch/kernels/
    csrc`` into ``build/`` in parallel and print the build time and the
    compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
    400x400 lego frame of the canonical W256/D88 student, random weights from
    a seeded generator): K1 with f32 and with bf16 weights, K2 (int8), and K9
    (``fused_r2l_apply`` on the frame's ``r2l_embed``-encoded rays) with f32
-   and bf16 weights, each against its plain PyTorch version, then K2 on the
-   frozen int8 canary (``tests/fixtures/int8_epilogue_canary*.npz``). Times
-   each kernel and its plain version with CUDA events; beside K1/K9 their
-   bound (f32: the 3xTF32 one they follow and the CUDA cores' f32 one)
-   and the weight bytes their design reads from L2 in the frame.
+   and bf16 weights, each against its plain PyTorch version; K2's three
+   forms bit for bit on the frame, and at W64 and W128 (8-layer students on
+   the frame's first 20,000 rays); then K2 on the frozen int8 canary
+   (``tests/fixtures/int8_epilogue_canary*.npz``). Times each kernel and
+   its plain version with CUDA events (K2 beside the pre-Hopper int8 chain
+   its probes keep); beside K1/K2/K9 their bound (f32: the 3xTF32 one they
+   follow and the CUDA cores' f32 one) and the weight bytes their design
+   reads from L2 in the frame.
 4. Main path: ``make_r2l_frame_fn`` and ``make_r2l_bench_fn`` at 400x400 for
    the kinds ``jnp`` (plain module, bf16), ``pe`` and ``int8``; K frames per
    kind, ms/frame from CUDA events, PSNR of each kernel kind's frames against
@@ -39,10 +42,15 @@ Phases, in order; any failure raises and exits non-zero:
    the stash q-values that differ; K8 (``stash_q=False``), rgb and every
    bf16 stash row; K5 (``bwd_group``) with f32 and bf16 weights, the int8
    stash, and K8's bf16 stash under bf16 and under f32 weights, one 4-block
-   group and the whole body walk. Times each kernel and its plain version
-   with CUDA events, and profiles one 4-block call of K5 on the int8 stash
-   and of the int8-dL/dx probe's kernel (phase 14) on the same inputs,
-   kernel time by name.
+   group and the whole body walk, K5 reading its weights from one image
+   staged per kind (``stage_bwd_weights``, as a training step stages it);
+   under f32 weights (3xTF32) the walk's margin: the kernel's and the plain
+   walk's (dh, dW, db) against float64, and the walk against plain for
+   three more seeds of the weights and dh. Times each kernel and its plain
+   version with CUDA events (K5 with its operations bound, f32's as
+   3xTF32, and the bytes bound of its scratch design), and
+   profiles one 4-block call of K5 on the int8 stash and of the int8-dL/dx
+   probe's kernel (phase 14) on the same inputs, kernel time by name.
 6. Training main path: synthetic ray shards (100 x 4096 rays, record dim 9)
    written with ``write_ray_shards`` into a temporary directory and read
    back through ``RayShardDataset``/``RayBatchLoader``; for the kinds
@@ -125,8 +133,9 @@ Phases, in order; any failure raises and exits non-zero:
    against its plain version on the card, on the top 4-block group and on
    the whole walk (ten groups of 4, one of 3), at the driver's body_scale
    and at one of order one: dh and the dt scratch bit for bit, dW and db
-   norm-relative; two runs bit-identical; the top layer's dW and db equal
-   K5's (the shared passes); kernel, plain and walk times. Then the runner
+   norm-relative; two runs bit-identical; the top layer's dW and db against
+   K5's (the probe keeps K5's pre-Hopper dW pass, so norm-relative); kernel,
+   plain and walk times. Then the runner
    as a user runs it (``probe_bwd_qdx.main``: the bf16 and qdx walks, their
    cosines and times), and the kernel's launches: 11 in one walk, and in
    the runner 11 per qdx walk it ran.
@@ -171,8 +180,10 @@ TOL_PE_F32 = 1e-4
 #   tests/test_pallas_pe.py:50).
 TOL_PE_BF16 = 3e-2
 # K2: int8 x int8 -> int32 is exact and the epilogue rounds step by step as
-#   the plain version does, so most outputs agree bit for bit; a flipped
-#   requantize moves a few outputs (tests/test_pallas_int8_pe.py:45-46).
+#   the plain version does; a flipped requantize would move a few outputs
+#   (the bounds of tests/test_pallas_int8_pe.py:45-46). On the card the
+#   plain version runs the card's sinf/cosf too, and phase 3 also holds
+#   K2's three forms to it bit for bit.
 TOL_INT8_MAX, TOL_INT8_RMS = 2.5e-2, 2.5e-3
 # K2 on the canary: equal to its plain version on the card, bit for bit.
 #   Against the JAX reference's frozen output: the dequantize is one FMA on
@@ -201,10 +212,14 @@ TOL_TRAIN_BF16 = 3e-2
 #   step, on under 0.1% of the values.
 MAX_Q_STEP, MAX_Q_SHARE = 1, 1e-3
 # K5 (tests/test_train_pallas.py:58, 88-92): f32 weights norm-relative
-#   1e-5, sums in another order; bf16 weights: a flipped bf16 rounding of
-#   dt1/dt2 propagates down the walk, norm-relative 1e-2 (the test's 5e-2
-#   tightened: the first run measured 2.4e-3 over the whole walk), and under
-#   2e-3 of the entries off by more than 5e-2 of the largest.
+#   1e-5, sums in another order; the products are 3xTF32, whose error grows
+#   with depth: over the canonical walk (43 blocks) the card reads 84-86%
+#   of the limit, the kernel's own (PERF.md section 2, the [margin] lines
+#   below); the limit stays the reference's. bf16 weights: a flipped bf16
+#   rounding of dt1/dt2 propagates down the walk, norm-relative 1e-2 (the
+#   test's 5e-2 tightened: the first run measured 2.4e-3 over the whole
+#   walk), and under 2e-3 of the entries off by more than 5e-2 of the
+#   largest.
 TOL_GRAD_F32, TOL_GRAD_BF16, MAX_BAD_BF16 = 1e-5, 1e-2, 2e-3
 # K8 stash rows, each relative to its largest value: K3 bf16's rule (a
 #   flipped bf16 rounding or requantize propagates to the later rows).
@@ -311,9 +326,10 @@ TOL_PROBE_RESMLP_BF16_SHALLOW = (TOL_PROBE_BF16["shallow"][0], 2.5e-4)
 
 # Phase 14, the int8-dL/dx probe. dh and the dt scratch: exact int32 dots,
 #   IEEE quotients for the tile's scale and the column multipliers, and the
-#   one-FMA update on both sides, so bit for bit. dW and db: K5's passes over
-#   that scratch against the plain version's matmuls, sums in another order,
-#   norm-relative (K5 f32's bound).
+#   one-FMA update on both sides, so bit for bit. dW and db: the pre-Hopper
+#   K5 passes (r2l_bwd_dw.cuh) over that scratch against the plain version's
+#   matmuls, and the top layer's against K5's wgmma pass, sums in other
+#   orders, norm-relative (K5 f32's bound).
 TOL_QDX_DW = 1e-5
 
 # The card's memory rate (H100 SXM data sheet); its peaks are the probes'
@@ -427,6 +443,7 @@ def phase_kernels(model, cfg, sampler, poses, dev) -> dict:
         if key != "int8":
             chain_design(out[key], label, cfg, kind, pts.shape[0],
                          nbytes(pts, got, *fp))
+    k2_forms(out["int8"], model, cfg, pts, calib, dp=dim_pts)
 
     from r2l_tpu_torch.encoding import r2l_embed
     x = r2l_embed(pts, EMBED_L)
@@ -454,6 +471,45 @@ def phase_kernels(model, cfg, sampler, poses, dev) -> dict:
               f"{x.shape[0]} rays of [{x.shape[1]}] f32", flush=True)
         del fp
     return out
+
+
+def k2_forms(r: dict, model, cfg, pts, calib, dp: int) -> None:
+    """K2 on wgmma s8 (phase 3): its three forms bit for bit against their
+    plain versions on the frame, and at W64 and W128 (8-layer students on
+    the frame's first 20,000 rays); its time beside the pre-Hopper int8
+    chain (``launch_int8_pe_chain`` at S = 1, the design K2's probes keep)
+    on the same frame, and the s8 image's L2 bytes by design."""
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    forms = (("deployed", True, True), ("fold", True, False),
+             ("unfolded", False, False))
+    cases = [("W256", cfg, model, pts)]
+    for w in (64, 128):
+        c = R2LConfig(netdepth=8, netwidth=w, compute_dtype=torch.bfloat16)
+        cases.append((f"W{w}", c, init_r2l(c, torch.Generator().manual_seed(
+            SEED + w), pts.device), pts[:20000].contiguous()))
+    for name, c, m, q in cases:
+        for form, fold, nob in forms:
+            fp = F.calibrate_r2l_int8_pe(m, c, dp, EMBED_L, calib,
+                                         fold_requant=fold)
+            got = F.fused_r2l_apply_int8_pe(fp, c, q, dp, EMBED_L, fold, nob)
+            want = F.fused_r2l_apply_int8_pe_ref(fp, c, q, dp, EMBED_L,
+                                                 fold, nob)
+            check(f"K2 {form} {name} vs plain", *deltas(got, want),
+                  TOL_INT8_MAX, TOL_INT8_RMS)
+            check_equal(f"K2 {form} {name} vs plain, bit for bit", got, want)
+            del fp, got, want
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, EMBED_L, calib)
+    r["old_chain_ms"] = time_ms(lambda: F.launch_int8_pe_chain(
+        F.fused_r2l_apply_int8_pe, fp, cfg, pts, dp, EMBED_L,
+        F.EPILOGUES["deployed"], 1))
+    r["l2_gb_per_frame"] = F.int8_chain_l2_bytes(cfg, dp, EMBED_L,
+                                                 pts.shape[0]) / 1e9
+    r["engine"] = "wgmma s8"
+    print(f"[time] K2 design: {r['l2_gb_per_frame']:.2f} GB of weights from "
+          f"L2 per frame; kernel {r['ms']:.3f} ms, the pre-Hopper chain "
+          f"{r['old_chain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']})", flush=True)
 
 
 def chain_design(r: dict, label: str, cfg, kind: str, n: int,
@@ -686,6 +742,87 @@ def check_grads(name: str, got, want, f32: bool) -> dict:
                                  .abs().max())}
 
 
+def k5_walk(fn, body_w, stash, dh, cfg, cnt, scale=None, staged=None):
+    """The whole body's backward through ``fn`` (K5, given its image
+    ``staged``, or its plain version), top-down in groups of ``cnt`` blocks:
+    (dh, dW, db) as one call over the body would give them."""
+    from r2l_tpu_torch.kernels import r2l_train as T
+    kw = {"staged": staged} if fn is T.bwd_group else {}
+    dws, dbs, b = [], [], cfg.num_blocks
+    while b > 0:
+        c = min(cnt, b)
+        b -= c
+        dh, dw, db = fn(body_w, stash, dh, cfg, b, c, body_scale=scale, **kw)
+        dws.insert(0, dw)
+        dbs.insert(0, db)
+    return dh, torch.cat(dws), torch.cat(dbs)
+
+
+def k5_walk_f64(body_w, stash, dh, cfg):
+    """``bwd_group_ref``'s whole-body walk (f32 weights, an f32 or bf16
+    stash) in float64, the function's roundings of dt to f32 kept: the
+    value both f32 walks approximate."""
+    from r2l_tpu_torch.kernels import r2l_train as T
+    nb, rs, f64 = cfg.num_blocks, cfg.res_scale, torch.float64
+    dh, dws, dbs = dh.to(f64), [], []
+    for b in range(nb - 1, -1, -1):
+        h_in, t1r, mask = T._group_inputs(stash, nb, b, body_w.dtype, None)
+        dt2 = (dh * rs).float().to(f64)
+        dt1 = torch.where(mask, dt2 @ body_w[2 * b + 1].to(f64),
+                          0.0).float().to(f64)
+        dws += [dt2.T @ t1r.to(f64), dt1.T @ h_in.to(f64)]
+        dbs += [dt2.sum(0), dt1.sum(0)]
+        dh = dh + dt1 @ body_w[2 * b].to(f64)
+    return dh, torch.stack(dws[::-1]), torch.stack(dbs[::-1])
+
+
+def k5_f32_margin(kind, body_w, stash, dh, cfg, walk, err, pts,
+                  dev) -> dict:
+    """Where K5 f32's whole-walk error (``err`` against the plain walk, at
+    ``dh``) sits: the kernel's walk (``walk(T.bwd_group, dh)``) and the
+    plain one each against float64, per output (dh, dW, db); then, for f32
+    weights on their own stash, the walk against the plain one for three
+    more seeds of the weights (their stash from ``pts`` by K3) and of dh,
+    each held to ``TOL_GRAD_F32``."""
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.kernels import r2l_train as T
+    from r2l_tpu_torch.models import init_r2l
+    exact = k5_walk_f64(body_w, stash, dh, cfg)
+    out = {}
+    for side, fn in (("kernel", T.bwd_group), ("plain", T.bwd_group_ref)):
+        out[f"{side}_vs_f64"] = [grad_err(g, e)[0]
+                                 for g, e in zip(walk(fn, dh), exact)]
+    del exact
+    print(f"[margin] K5 {kind} walk vs float64, norm-relative (dh, dW, db): "
+          + "; ".join(f"{side} " + " ".join(f"{e:.3e}" for e in
+                                            out[f"{side}_vs_f64"])
+                      for side in ("kernel", "plain")), flush=True)
+    if kind == "f32":
+        out["seeds"] = [err]
+        f32 = torch.float32
+        for s in (1, 2, 3):
+            model = init_r2l(cfg, torch.Generator().manual_seed(SEED + 20 + s),
+                             dev)
+            fp = F.prepare_fused_params_pe(model, cfg, N_SAMPLE * 3, EMBED_L,
+                                           weight_dtype=f32, stage=False)
+            _, st = T.train_fwd(fp, cfg, pts, N_SAMPLE * 3, EMBED_L)
+            g = torch.randn(dh.shape, generator=torch.Generator(
+                dev).manual_seed(SEED + 20 + s), device=dev)
+            img = T.stage_bwd_weights(fp.body_w)
+            sides = [k5_walk(fn, fp.body_w, st, g, cfg, 4, staged=img)
+                     for fn in (T.bwd_group, T.bwd_group_ref)]
+            info = check_grads(f"K5 {kind}, whole body walk vs plain, "
+                               f"weights and dh seed {s}", *sides, True)
+            out["seeds"].append(info["norm_rel_err"])
+            del model, fp, st, img, sides
+            torch.cuda.empty_cache()
+        print(f"[margin] K5 {kind} walk vs plain over 4 seeds of weights and "
+              f"dh: worst {max(out['seeds']):.3e}, "
+              f"{max(out['seeds']) / TOL_GRAD_F32:.0%} of {TOL_GRAD_F32:.0e}",
+              flush=True)
+    return out
+
+
 def train_points(cfg, sampler, dev) -> torch.Tensor:
     """One canonical step's sample points: ``sample_train`` of synthetic
     rays with stratified depths from a seeded generator."""
@@ -795,19 +932,15 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
         scale = scale8 if kind == "int8" else None
         f32 = body_w.dtype == torch.float32
         b0 = nb - cnt
+        img = T.stage_bwd_weights(body_w)   # once per step, as _bwd_core
+        kw = {"staged": img}
 
         def group(fn):
-            return fn(body_w, stash, dh, cfg, b0, cnt, body_scale=scale)
+            return fn(body_w, stash, dh, cfg, b0, cnt, body_scale=scale,
+                      **(kw if fn is T.bwd_group else {}))
 
-        def walk(fn):
-            g, dws, dbs, b = dh, [], [], nb
-            while b > 0:
-                c = min(cnt, b)
-                b -= c
-                g, dw, db = fn(body_w, stash, g, cfg, b, c, body_scale=scale)
-                dws.insert(0, dw)
-                dbs.insert(0, db)
-            return g, torch.cat(dws), torch.cat(dbs)
+        def walk(fn, g=dh):
+            return k5_walk(fn, body_w, stash, g, cfg, cnt, scale, img)
 
         got, again = group(T.bwd_group), group(T.bwd_group)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -817,18 +950,36 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
         info_walk = check_grads(f"K5 {kind}, whole body walk vs plain",
                                 walk(T.bwd_group), walk(T.bwd_group_ref),
                                 f32)
+        if f32:
+            info_walk["margin"] = k5_f32_margin(
+                kind, body_w, stash, dh, cfg, walk, info_walk["norm_rel_err"],
+                pts, dev)
         moved = (nbytes(dh, *got, body_w[2 * b0:]) + nbytes(stash[0])
                  * 2 * cnt + (nbytes(scale[2 * b0:]) if scale is not None
                               else 0))
+        # the scratch design's bytes: dh in and out, the inner stash rows of
+        # the mask, dt written and read back, the layer inputs of dW
+        dts_bytes = 2 * cnt * n * W * body_w.element_size()
+        scratch = (2 * nbytes(dh) + 3 * cnt * nbytes(stash[0])
+                   + 2 * dts_bytes)
         res[f"bwd_group_{kind}"] = {
             **info, "walk_norm_rel_err": info_walk["norm_rel_err"],
+            "walk_margin": info_walk.get("margin"),
             "ms": time_ms(lambda: group(T.bwd_group)),
             "plain_ms": time_ms(lambda: group(T.bwd_group_ref)),
             "walk_ms": time_ms(lambda: walk(T.bwd_group), reps=2),
             "walk_plain_ms": time_ms(lambda: walk(T.bwd_group_ref), reps=2),
-            **bound(4.0 * n * W * W * 2 * cnt, moved,
-                    "f32" if f32 else "bf16"),
+            "stage_ms": time_ms(lambda: T.stage_bwd_weights(body_w)),
+            # f32 weights: both passes three TF32 products per
+            # multiply-add (3xTF32); the CUDA cores' f32 bound beside it
+            **bound(4.0 * n * W * W * 2 * cnt * (3 if f32 else 1), moved,
+                    "tf32" if f32 else "bf16"),
+            **({"bound_cuda_cores_ms": bound(4.0 * n * W * W * 2 * cnt,
+                                             moved, "f32")["bound_ms"]}
+               if f32 else {}),
+            "bound_scratch_ms": scratch / HBM_BYTES_S * 1e3,
             "library_ms": None}
+        del img, kw
         torch.cuda.empty_cache()
     # The passes of one 4-block call under torch.profiler: K5 on K4's int8
     # stash, and the int8-dL/dx probe (phase 14) on the same inputs. Here,
@@ -838,9 +989,11 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
     body_w, stash = stashes["int8"]
     b0 = nb - cnt
     passes = {}
+    img = T.stage_bwd_weights(body_w)
     for key, fn in (
             ("bwd_group_int8", lambda: T.bwd_group(
-                body_w, stash, dh, cfg, b0, cnt, body_scale=scale8)),
+                body_w, stash, dh, cfg, b0, cnt, body_scale=scale8,
+                staged=img)),
             ("bwd_group_qdx", lambda: PQ.bwd_group_qdx(
                 body_w, fp8.body_q, fp8.body_m, stash, dh, cfg, b0, cnt,
                 PQ.TILE, scale8))):
@@ -853,8 +1006,14 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
         print(f"[time] {key}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}) at {n} rays"
+              + (f"; scratch-bytes bound {r['bound_scratch_ms']:.3f} ms, "
+                 f"staging {r['stage_ms']:.3f} ms a step"
+                 if "bound_scratch_ms" in r else "")
               + (f"; whole walk {r['walk_ms']:.3f} ms, plain "
-                 f"{r['walk_plain_ms']:.3f}" if "walk_ms" in r else ""),
+                 f"{r['walk_plain_ms']:.3f}" if "walk_ms" in r else "")
+              + (f"; 3xTF32 (CUDA cores' f32 bound "
+                 f"{r['bound_cuda_cores_ms']:.3f} ms)"
+                 if "bound_cuda_cores_ms" in r else ""),
               flush=True)
     res["passes"] = passes
     del stashes
@@ -2048,12 +2207,16 @@ def phase_qdx(dev) -> dict:
                 print(f"[check] {label}: {name} dW per layer vs float64, "
                       f"norm-relative {min(errs):.3e}..{max(errs):.3e}",
                       flush=True)
+            # the top layer's dt is the same on both sides; its dW and db
+            # are summed by the probe's pre-Hopper pass and by K5's wgmma
+            # pass, in other orders
             _, dw5, db5 = T.bwd_group(body_w, stash, dh0, cfg, b0, gb,
-                                      body_scale=scales[kind])
-            check_equal(f"{label}: top layer's dW vs K5's", got[0][1][-1],
-                        dw5[-1])
-            check_equal(f"{label}: top layer's db vs K5's", got[0][2][-1],
-                        db5[-1])
+                                      body_scale=scales[kind],
+                                      staged=T.stage_bwd_weights(body_w))
+            err = max(grad_err(got[0][1][-1], dw5[-1])[0],
+                      grad_err(got[0][2][-1], db5[-1])[0])
+            check(f"{label}: top layer's dW, db vs K5's, norm-relative", err,
+                  0.0, TOL_QDX_DW)
             del dw5, db5
         del got, want, again
         # the whole walk, group by group, the 3-block last group included
@@ -2076,6 +2239,7 @@ def phase_qdx(dev) -> dict:
                   PQ.TILE, sc)
 
     ops = 2 * gb * PQ.walk_ops(cfg, n)     # per product kind, one call
+    k5_img = T.stage_bwd_weights(body_w)
     t_ops = (ops / PEAK_OPS["int8"] + ops / PEAK_OPS["bf16"]) * 1e3
     dh_out = call(PQ.bwd_group_qdx)
     moved = (nbytes(dh0, *dh_out, fp.body_q[2 * b0:], fp.body_m[2 * b0:],
@@ -2085,7 +2249,7 @@ def phase_qdx(dev) -> dict:
         ms=time_ms(lambda: call(PQ.bwd_group_qdx)),
         plain_ms=time_ms(lambda: call(PQ.bwd_group_qdx_ref), reps=1),
         k5_ms=time_ms(lambda: T.bwd_group(body_w, stash, dh0, cfg, b0, gb,
-                                          body_scale=sc)),
+                                          body_scale=sc, staged=k5_img)),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=None)
@@ -2100,7 +2264,7 @@ def phase_qdx(dev) -> dict:
           f"{res['walk_qdx_bound_ms']:.3f}), bf16 {res['walk_bf16_ms']:.3f} "
           f"ms (bound {res['walk_bf16_bound_ms']:.3f}) at {n} rays",
           flush=True)
-    del dh_out
+    del dh_out, k5_img
 
     PQ.bwd_group_qdx.launches = 0
     PQ.walk("qdx", cfg, body_w, fp, stash, dh0)
@@ -2232,7 +2396,7 @@ def main() -> int:
         entry("fused_r2l_apply_pe_f32", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164", cli_f32["launches"],
               kern["pe_f32"]),
-        entry("fused_r2l_apply_int8_pe", "r2l_int8_pe_fused.cu",
+        entry("fused_r2l_apply_int8_pe", "r2l_int8_hopper.cu",
               "r2l_tpu/kernels/r2l_pallas.py:571",
               main_res["launches"]["int8"], kern["int8"]),
         entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",

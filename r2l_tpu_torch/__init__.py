@@ -34,8 +34,10 @@ NVIDIA H100 (``kernels/csrc/*.cu``):
    ``exp.probe_epi``): its ResMLP body with the requantize folded or not,
    two tiles in flight and a bf16 control; the bare product rate and a
    minimal cast; K2 with its ray tile in S streams; K2 with three requantize
-   epilogues. K2 itself and these share ``kernels/csrc/r2l_int8_chain.cuh``,
-   and K2 takes the reference's ``fold_requant``/``nobf16_inner`` flags.
+   epilogues. These run the pre-Hopper chain ``kernels/csrc/
+   r2l_int8_chain.cuh`` that they were written to measure; K2 itself runs on
+   Hopper's wgmma (``kernels/csrc/r2l_int8_hopper.cuh``) and takes the
+   reference's ``fold_requant``/``nobf16_inner`` flags.
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 """

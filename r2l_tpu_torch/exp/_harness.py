@@ -11,13 +11,28 @@ each ``sample_test`` of a pose then the variant and the frame's sum, one
 call to warm up, then the min of N calls. Rates and bounds are held against
 the H100's data-sheet peaks (dense, at 700 W), not the TPU's. Records are
 JSON lines on stdout and, with an ``out`` path, appended there.
+
+The design-run tools (``chain_variants.py`` for K1, ``int8_bwd_variants.py``
+for K2 and K5) share the rest: a variant is a copy of ``kernels/csrc`` with
+a few source edits (``edited_sources``), built with the repository's nvcc
+flags (``build_variants``) and swapped in for its kernel's library
+(``loading``), timed against the build in turns base / variant / variant /
+base (``in_turns``); ``--steps TREE ...`` times instead the four
+distillation kinds of ``chip_smoke.py``'s phase 6 in each checkout given
+(``time_steps``). ``variants_main`` is their command line.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import ctypes
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -175,3 +190,179 @@ def lego_frames(k: int, device):
                       for t in np.linspace(-180, 180, k, endpoint=False)])
     return sampler, torch.as_tensor(poses, dtype=torch.float32,
                                     device=device)
+
+
+def edited_sources(edits, csrc: Path, dst: Path) -> None:
+    """Copy ``csrc`` to ``dst`` with ``edits`` [(file, text, replacement)]
+    applied, each of whose texts must occur exactly once."""
+    shutil.copytree(csrc, dst)
+    for fname, text, repl in edits:
+        src = (dst / fname).read_text()
+        if src.count(text) != 1:
+            raise ValueError(f"{fname} holds {src.count(text)} copies of "
+                             f"{text[:60]!r}")
+        (dst / fname).write_text(src.replace(text, repl))
+
+
+def build_variants(jobs: dict, work: Path) -> dict:
+    """Build each variant's library in parallel, ``jobs`` mapping its name
+    to (edits, the library's name in ``_build.KERNELS``): name -> (CDLL,
+    the compiler's register and spill lines)."""
+    from ..kernels import _build
+    procs = {}
+    for name, (edits, lib) in jobs.items():
+        d = work / name
+        edited_sources(edits, _build.CSRC, d)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+             str(d / f"{lib}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    out = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(work / name / "lib.so"))
+        entry, argtypes = _build.KERNELS[jobs[name][1]]
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
+        out[name] = (lib, [ln.strip() for ln in log.splitlines()
+                           if "Used" in ln or "spill" in ln])
+    return out
+
+
+@contextlib.contextmanager
+def loading(lib):
+    """Inside the block every kernel library loads as ``lib``."""
+    from ..kernels import _build
+    keep = _build.load
+    _build.load = lambda _name: lib
+    try:
+        yield
+    finally:
+        _build.load = keep
+
+
+def in_turns(base: Callable, variant: Callable, swap, reps: int = 5):
+    """Time ``base`` and ``variant`` in turns base / variant / variant /
+    base, each side one call then ``reps`` timed with CUDA events, the
+    variant's inside ``swap()`` (a context manager): ([base ms, ...],
+    [variant ms, ...], the variant's last output)."""
+    ms = {"base": [], "variant": []}
+    got = None
+    for side in ("base", "variant", "variant", "base"):
+        run = base if side == "base" else variant
+        with swap() if side == "variant" else contextlib.nullcontext():
+            out = run()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            s.record()
+            for _ in range(reps):
+                run()
+            e.record()
+            torch.cuda.synchronize()
+        ms[side].append(s.elapsed_time(e) / reps)
+        if side == "variant":
+            got = out
+    return ms["base"], ms["variant"], got
+
+
+# The distillation steps in a checkout (argv[1]): its own code and
+# chip_smoke.py constants, phase 6's data, warm-up and timed steps.
+_STEPS = r"""
+import os, sys, tempfile
+tree = os.path.abspath(sys.argv[1])
+sys.path.insert(0, tree)
+import numpy as np, torch
+import chip_smoke as cs
+from r2l_tpu_torch.data import (RayBatchLoader, RayShardDataset,
+                                write_ray_shards)
+from r2l_tpu_torch.hardmine import parse_hard_ratio
+from r2l_tpu_torch.models import R2LConfig, init_r2l
+from r2l_tpu_torch.sampler import PointSampler
+from r2l_tpu_torch.train import (DistillConfig, draw_step,
+                                 fused_int8_calib_points, init_train_state,
+                                 make_distill_step)
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+cfg = R2LConfig(compute_dtype=torch.bfloat16)
+sampler = PointSampler(H=cs.H, W=cs.W, focal=cs.FOCAL, n_sample=cs.N_SAMPLE,
+                       near=2.0, far=6.0)
+n_in, n_out = parse_hard_ratio(cs.HARD_RATIO, cs.N_RAND)
+dcfg = DistillConfig(batch_size=cs.N_RAND, n_hard_in=n_in, n_hard_out=n_out,
+                     hard_mul=cs.HARD_MUL, warmup_lr=cs.WARMUP,
+                     embed_L=cs.EMBED_L, perturb=True)
+calib = fused_int8_calib_points(cs.H, cs.W, cs.FOCAL, cs.N_SAMPLE, 2.0, 6.0,
+                                cs.lego_poses(cs.K), dev)
+int8 = {"fused_vjp": True, "fused_quantize": "int8", "fused_calib_pts": calib}
+kinds = (("xla", {}), ("fused", {"fused_vjp": True}), ("fused_int8", int8),
+         ("fused_int8_bf16stash", {**int8, "fused_stash_q": False}))
+with tempfile.TemporaryDirectory() as tmp:
+    write_ray_shards(tmp, cs.synthetic_rays(cs.N_SHARDS * cs.SHARD_RAYS,
+                                            cs.SEED),
+                     shard_size=cs.SHARD_RAYS,
+                     rng=np.random.default_rng(cs.SEED))
+    loader = RayBatchLoader(RayShardDataset(tmp), cs.N_RAND - n_out,
+                            seed=cs.SEED, workers=2)
+    try:
+        batches = [next(loader) for _ in range(2 + cs.TIMED_STEPS)]
+    finally:
+        loader.close()
+draws = [draw_step(dcfg, cs.N_SAMPLE, torch.Generator(dev).manual_seed(
+    100 + i)) for i in range(len(batches))]
+for kind, kw in kinds:
+    model = init_r2l(cfg, torch.Generator().manual_seed(cs.SEED), dev)
+    state = init_train_state(model, dcfg, device=dev)
+    step = make_distill_step(cfg, dcfg, sampler, device=dev, **kw)
+    for i in range(2):
+        state, m = step(state, batches[i], draws=draws[i])
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize(); s.record()
+    for i in range(2, 2 + cs.TIMED_STEPS):
+        state, m = step(state, batches[i], draws=draws[i])
+    e.record(); torch.cuda.synchronize()
+    print(f"{kind} {s.elapsed_time(e) / cs.TIMED_STEPS} "
+          f"{float(m['loss'])}", flush=True)
+    del state, step, model
+    torch.cuda.empty_cache()
+"""
+
+
+def time_steps(trees, log: Log, prog: str) -> None:
+    """Time the four distillation kinds in each checkout of ``trees``, in
+    order, each in a process of its own with that checkout's code and
+    constants: one record per kind and checkout."""
+    require_cuda(prog)
+    log(device_record())
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", _STEPS, tree],
+                             cwd=tree, capture_output=True, text=True,
+                             env=dict(os.environ, PYTHONPATH=tree))
+        if out.returncode != 0:
+            raise RuntimeError(f"steps in {tree}:\n{out.stderr[-4000:]}")
+        for line in out.stdout.splitlines():
+            kind, ms, loss = line.split()
+            log({"name": f"steps_{kind}", "tree": tree,
+                 "ms_per_step": float(ms), "loss": float(loss)})
+
+
+def variants_main(prog: str, doc: str, variants: dict,
+                  time_variants: Callable, argv=None) -> None:
+    """A design-run tool's command line: ``--variants a,b`` (default all of
+    ``variants``) timed by ``time_variants(names, log)``, or ``--steps TREE
+    ...``; ``--out`` appends the records to a file."""
+    ap = argparse.ArgumentParser(prog=prog, description=doc.splitlines()[0])
+    ap.add_argument("--variants", default=",".join(variants))
+    ap.add_argument("--steps", nargs="+", metavar="TREE")
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    log = Log(args.out)
+    if args.steps:
+        time_steps(args.steps, log, prog)
+    else:
+        names = [n for n in args.variants.split(",") if n]
+        unknown = sorted(set(names) - set(variants))
+        if unknown:
+            raise SystemExit(f"unknown variants {unknown}")
+        time_variants(names, log)
+    log({"name": "done"})

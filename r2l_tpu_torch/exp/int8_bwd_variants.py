@@ -1,0 +1,251 @@
+"""K2's and K5's design alternatives, measured on the card: variant copies of
+their Hopper sources (``kernels/csrc/r2l_int8_hopper.cuh``,
+``r2l_bwd_hopper.cuh``) timed against the kernels as built.
+
+A variant is a copy of ``kernels/csrc`` with a few source edits
+(``VARIANTS``), built with the repository's nvcc flags and swapped in for
+the kernel's library. K2's are timed on one 400x400 lego frame of the
+canonical student (random weights, seed 0, the deployed int8 form); K5's
+on one 4-block call (the top group) at a distillation step's 81,920 rays on
+the bf16 stash of the canonical student and on its int8 stash, and the f32
+weights' own variants (``F32_ONLY``) on its f32 stash and on K8's bf16 one;
+each in turns base / variant / variant / base, CUDA events over 5 launches
+after one. A variant that keeps the function is held to the base's output
+(K2: bit for bit; K5: dh bit for bit, dW and db norm-relative); the
+timing-only ones, whose outputs are wrong by design, are not:
+
+* ``k2_cvt``: K2's epilogue with the conversion instructions (int32 to
+  f32, round, f32 to int) in place of the two-add forms;
+* ``k2_lockstep``: K2's two consumer warpgroups at the same layer, not
+  half a layer apart (the ping-pong: one's products under the other's
+  epilogue);
+* ``k2_tailf32``: the block tail's residual add in f32 and a rounding, not
+  one bf16 add (the same value);
+* ``k2_noepi``: without the inner layers' epilogues (timing only);
+* ``k2_nope``: without the head's positional encoding (timing only);
+* ``k2_nomma``: without them and the products (timing only);
+* ``k5_dbpass1``: db as column sums in pass 1 (shuffles and a
+  shared-memory pass), not as a product against ones in pass 2 (with the
+  mask from device memory: compare ``k5_maskdirect``);
+* ``k5_f32regs``: pass 1 with f32 weights storing dt from each thread's
+  registers, not from the whole shared-memory tile;
+* ``k5_dwscalar``: pass 2 with f32 weights on ``r2l_bwd_dw.cuh``'s scalar
+  FMAs (true f32), not 3xTF32 on wgmma;
+* ``k5_maskdirect``: pass 1 reading the stash's mask rows from device
+  memory, not prefetched into shared memory;
+* ``k5_nopark``: pass 1 without parking dh in device memory between a
+  block's two products (timing only);
+* ``k5_nomask``: pass 1 without reading the stash for the ReLU mask
+  (timing only);
+* ``k5_nodts``: pass 1 with bf16 weights without writing the dt scratch
+  (timing only).
+
+``--steps TREE ...`` times instead the four distillation kinds of
+``chip_smoke.py``'s phase 6 (``xla``, ``fused``, ``fused_int8``,
+``fused_int8_bf16stash``) in each checkout given, as ``chain_variants``
+does (``_harness.time_steps``).
+
+    python -m r2l_tpu_torch.exp.int8_bwd_variants [--variants k2_cvt,...] \\
+        [--out PATH]
+    python -m r2l_tpu_torch.exp.int8_bwd_variants --steps PARENT . . PARENT
+
+(on a GPU; the JSON records go to stdout and, with ``--out``, to PATH.)
+"""
+from __future__ import annotations
+
+import tempfile
+from pathlib import Path
+
+import torch
+
+from . import _harness
+
+K2 = "r2l_int8_hopper.cuh"
+K5 = "r2l_bwd_hopper.cuh"
+RING = "hopper_ring.cuh"
+
+I2F_ADDS = "  return __fsub_rn(__int_as_float(0x4B400000 + acc), 12582912.f);"
+Q8_ADDS = """  return __float_as_int(__fadd_rn(fminf(fmaxf(y, -127.f), 127.f),
+                                  12582912.f));"""
+TURN_WAIT = """      // warpgroup 0 leads, 1 follows half a layer behind
+      if (wg == 1) pair_sync(3);
+      else if (idx > 0) pair_sync(4);
+"""
+TURN_PASS = "      pair_arrive(wg == 0 ? 3 : 4);"
+TURN_END = "  if (wg == 0) pair_sync(4);  // warpgroup 1's last arrival"
+INNER_STORE = "            putq(r0 + 8 * h, c, x0, x1);"
+PE_STORE = "        put(r, p * ns + sl, q);"
+TAIL_ADD = "        const __nv_bfloat162 hn = __hadd2(tb, hs[at(h, c)]);"
+# the block tail's add in f32, then rounded to bf16
+TAIL_ADD_F32 = """        const float2 tv = __bfloat1622float2(tb);
+        const float2 hv = __bfloat1622float2(hs[at(h, c)]);
+        const __nv_bfloat162 hn = __floats2bfloat162_rn(__fadd_rn(tv.x, hv.x),
+                                                        __fadd_rn(tv.y, hv.y));"""
+MMA_S8 = "        Wgmma<N>::s8(d, da, db, st > 0 || j > 0 || accumulate);"
+PARK = """    // park dh, then dt2 = (dh * res_scale).cast(cd)
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int g = row0 + r0 + 8 * h;
+        if (g < a.n)"""
+RELOAD = """          d = *reinterpret_cast<const float2*>(a.dh_out + (size_t)g * W +
+                                               8 * j + 2 * t);"""
+MASK = "        live = stash2(p, sc ? sc + c : nullptr);"
+DT_REGS = "        if (!P::kStoreTile && g < a.n)"
+STORE_TILE = "  static constexpr bool kStoreTile = sizeof(T) == 4;"
+PREFETCH = "  static constexpr bool kPrefetch = sizeof(T) == 2;"
+KDB = "  static constexpr bool kDb = sizeof(T) == 4;"
+DW_TF32 = """    using D = DwTf32Shape<W>;
+    auto kern = bwd_dw_tf32_kernel<S, W>;
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, D::kSmem)) !=
+        cudaSuccess)
+      return err;
+    const int grid = (W / D::BN) * (W / D::BM) * 2 * cnt * splits;
+    kern<<<grid, D::kThreads, D::kSmem, stream>>>(
+        static_cast<const float*>(dts), static_cast<const S*>(stash_h),
+        static_cast<const S*>(stash_t), part, n, cnt, rays_per_split);"""
+# the f32 weights' pass 2 before 3xTF32: r2l_bwd_dw.cuh's scalar FMAs
+DW_SCALAR = """    const int grid = (W / 64) * (W / 64) * 2 * cnt * splits;
+    r2l::bwd::bwd_dw_f32_kernel<S><<<grid, r2l::kThreads, 0, stream>>>(
+        static_cast<const float*>(dts), static_cast<const S*>(stash_h),
+        static_cast<const S*>(stash_t), part, n, W, cnt, rays_per_split);"""
+F32_ONLY = ("k5_f32regs", "k5_dwscalar")   # variants of f32 weights' code
+
+# name: ([(file, text, replacement)], kernel ("k2" or "k5"), checked output)
+VARIANTS = {
+    "k2_cvt": ([(K2, I2F_ADDS, "  return __int2float_rn(acc);"),
+                (K2, Q8_ADDS, "  return (int)r2l::q8(y);")], "k2", True),
+    "k2_lockstep": ([(K2, TURN_WAIT, ""), (K2, TURN_PASS, ""),
+                     (K2, TURN_END, "")], "k2", True),
+    "k2_tailf32": ([(K2, TAIL_ADD, TAIL_ADD_F32)], "k2", True),
+    "k2_noepi": ([(K2, INNER_STORE, "")], "k2", False),
+    "k2_nope": ([(K2, PE_STORE, "        (void)q;")], "k2", False),
+    "k2_nomma": ([(K2, INNER_STORE, ""), (RING, MMA_S8, "        {}")], "k2",
+                 False),
+    # with the mask read from device memory: the column sums' buffer and
+    # the prefetched rows do not fit together (compare k5_maskdirect)
+    "k5_dbpass1": ([(K5, KDB, KDB.replace("sizeof(T) == 4", "true")),
+                    (K5, PREFETCH, PREFETCH.replace("sizeof(T) == 2",
+                                                    "false")),
+                    (K5, "  if (lane % 4 == 0) {  // every column of the "
+                         "ones product is db",
+                     "  if (false) {"),
+                    (K5, "sizeof(T) == 4 ? ntiles : splits", "ntiles")],
+                   "k5", True),
+    "k5_nopark": ([(K5, PARK, PARK.replace("if (g < a.n)", "if (false)")),
+                   (K5, RELOAD, "          d = make_float2(0.f, 0.f);")],
+                  "k5", False),
+    "k5_f32regs": ([(K5, STORE_TILE, STORE_TILE.replace("sizeof(T) == 4",
+                                                         "false"))],
+                   "k5", True),
+    "k5_dwscalar": ([(K5, DW_TF32, DW_SCALAR)], "k5", True),
+    "k5_maskdirect": ([(K5, PREFETCH, PREFETCH.replace("sizeof(T) == 2",
+                                                       "false"))], "k5",
+                      True),
+    "k5_nomask": ([(K5, MASK, "        live = make_float2(1.f, 1.f);")],
+                  "k5", False),
+    "k5_nodts": ([(K5, DT_REGS, "        if (false)")], "k5", False),
+}
+LIBS = {"k2": "r2l_int8_hopper", "k5": "r2l_bwd_group"}
+
+
+def k2_case(dev):
+    """(run, the base output) of K2's deployed form on a lego frame."""
+    from ..evaluate import _calibration_points
+    from ..kernels import r2l_fused as F
+    from ..models.r2l import R2LConfig, init_r2l
+    sampler, poses = _harness.lego_frames(16, dev)
+    pts = sampler.sample_test(poses[3])
+    cfg = R2LConfig(compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, _calibration_points(
+        sampler, poses.cpu().numpy(), dev))
+    return [("frame", lambda: F.fused_r2l_apply_int8_pe(fp, cfg, pts, 48,
+                                                       10))]
+
+
+def k5_cases(dev):
+    """[(name, run)] of K5's top 4-block group at 81,920 rays, on the bf16
+    stash (K3's) and the int8 stash (K4's) of the canonical student, and
+    under f32 weights on the f32 stash (K3 f32's) and K8's bf16 one."""
+    from ..kernels import r2l_fused as F
+    from ..kernels import r2l_train as T
+    from ..models.r2l import R2LConfig, init_r2l
+    cfg = R2LConfig(compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+    g = torch.Generator(dev).manual_seed(1)
+    n, nb, W = 81920, cfg.num_blocks, cfg.netwidth
+    pts = torch.rand((n, 48), generator=g, device=dev) * 2 - 1
+    fp = F.prepare_fused_params_pe(model, cfg, 48, 10, stage=False)
+    _, stash = T.train_fwd(fp, cfg, pts, 48, 10)
+    fp8 = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, pts[::64],
+                                  fold_requant=False, stage=False)
+    _, stash8 = T.train_fwd_int8(fp8, cfg, pts, 48, 10, stash_q=True)
+    dh = torch.randn((n, W), generator=g, device=dev)
+    img = T.stage_bwd_weights(fp.body_w)
+    fp32 = F.prepare_fused_params_pe(model, cfg, 48, 10, stage=False,
+                                     weight_dtype=torch.float32)
+    _, stash32 = T.train_fwd(fp32, cfg, pts, 48, 10)
+    img32 = T.stage_bwd_weights(fp32.body_w)
+    _, stash8b = T.train_fwd_int8(fp8, cfg, pts, 48, 10, stash_q=False)
+    return [(kind, lambda w=w, st=st, sc=sc, im=im: T.bwd_group(
+        w, st, dh, cfg, nb - 4, 4, body_scale=sc, staged=im))
+            for kind, w, st, sc, im in (
+                ("bf16", fp.body_w, stash, None, img),
+                ("int8", fp.body_w, stash8, 1.0 / fp8.body_inv, img),
+                ("f32", fp32.body_w, stash32, None, img32),
+                ("f32_bf16stash", fp32.body_w, stash8b, None, img32))]
+
+
+def agree(kernel: str, got, want) -> float:
+    """K2: the largest difference; K5: 0 for dh bit for bit (else inf),
+    then the worst norm-relative difference of dW and db."""
+    if kernel == "k2":
+        return float((got - want).abs().max())
+    if not torch.equal(got[0], want[0]):
+        return float("inf")
+    return max(float((a.double() - b.double()).norm() / b.double().norm())
+               for a, b in zip(got[1:], want[1:]))
+
+
+def time_variants(names, log, reps: int = 5) -> None:
+    from ..kernels import _build
+    dev = _harness.require_cuda("int8_bwd_variants")
+    log(_harness.device_record())
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = _harness.build_variants(
+            {n: (VARIANTS[n][0], LIBS[VARIANTS[n][1]]) for n in names},
+            Path(tmp))
+        for kernel in ("k2", "k5"):
+            mine = [n for n in names if VARIANTS[n][1] == kernel]
+            if not mine:
+                continue
+            _build.load(LIBS[kernel])
+            for case, run in (k2_case(dev) if kernel == "k2"
+                              else k5_cases(dev)):
+                want = run()
+                for name in mine:
+                    if case.startswith("f32") != (name in F32_ONLY):
+                        continue  # f32 weights: their own variants only
+                    base_ms, variant_ms, got = _harness.in_turns(
+                        run, run, lambda lib=libs[name][0]:
+                        _harness.loading(lib), reps)
+                    log({"name": f"{name}_{case}", "base_ms": base_ms,
+                         "variant_ms": variant_ms,
+                         "diff": agree(kernel, got, want)
+                         if VARIANTS[name][2] else None,
+                         "build": libs[name][1][:24]})
+                    del got
+                del want
+            torch.cuda.empty_cache()
+
+
+def main(argv=None) -> None:
+    _harness.variants_main("int8_bwd_variants", __doc__, VARIANTS,
+                           time_variants, argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,9 +10,10 @@ folded into block tails) and the gradient g at its output,
   u_q = clip(round_half_even(u * s), -127, 127);
   dx = (u_q @ q^T in int32) * ((1 / body_inv) / s).
 fc2's dx quantizes the raw f32 dh (m holds the res_scale), fc1's the
-masked f32 ``dt1r``; dW and db stay K5's bf16 products over the stash. The
-tile (512 rays) is a numerical parameter: another tile computes another
-function. The hand-written CUDA kernel (``kernels/csrc/r2l_bwd_qdx.cu``)
+masked f32 ``dt1r``; dW and db stay bf16 products over the stash, on the
+passes K5 ran before it moved to Hopper's wgmma (``r2l_bwd_dw.cuh``); the
+``bf16`` walk it is compared with runs K5 as it is now. The tile (512
+rays) is a numerical parameter: another tile computes another function. The hand-written CUDA kernel (``kernels/csrc/r2l_bwd_qdx.cu``)
 makes a 512-ray tile a cluster of eight 64-ray blocks that combine their
 maxima through distributed shared memory.
 
@@ -55,7 +56,8 @@ from ..kernels.r2l_fused import (FusedParamsInt8PE, _check, _dequant, _ptr,
                                   _q8, _raise_on_error,
                                   calibrate_r2l_int8_pe)
 from ..kernels.r2l_train import (_group_inputs, _stream, bwd_group,
-                                 dw_splits, train_fwd_int8)
+                                 dw_splits, stage_bwd_weights,
+                                 train_fwd_int8)
 from ..models.r2l import R2LConfig, init_r2l
 from ..rays import pose_spherical
 from ..sampler import PointSampler
@@ -217,6 +219,7 @@ def walk(variant: str, cfg: R2LConfig, body_w: torch.Tensor,
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
     body_scale = 1.0 / fp.body_inv
+    staged = stage_bwd_weights(body_w) if variant != "qdx" else None
     dh, dws, b = dh0, [], cfg.num_blocks
     while b > 0:
         cnt = min(gb, b)
@@ -227,7 +230,7 @@ def walk(variant: str, cfg: R2LConfig, body_w: torch.Tensor,
                                         body_scale=body_scale)
         else:
             dh, dw_g, _ = bwd_group(body_w, stash, dh, cfg, b, cnt,
-                                    body_scale=body_scale)
+                                    body_scale=body_scale, staged=staged)
         dws.append(dw_g)
     return dh, dws
 
@@ -269,7 +272,7 @@ def setup(device, n: int = B):
         pose_spherical(th, -30.0, 4.0)[:3, :4], dtype=torch.float32,
         device=device)) for th in (0.0, 90.0, 180.0, 270.0)])
     fp = calibrate_r2l_int8_pe(model, cfg, DIM_PTS, L, calib,
-                               fold_requant=False)
+                               fold_requant=False, stage=False)
     _, stash = train_fwd_int8(fp, cfg, pts, DIM_PTS, L, stash_q=True)
     body_w = torch.stack([m.weight.detach() for m in model.linears()[1]]
                          ).to(torch.bfloat16)

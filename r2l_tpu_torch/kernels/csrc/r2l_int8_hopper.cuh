@@ -1,0 +1,456 @@
+// K2 on Hopper: the student's PE-fused static-scale int8 chain on wgmma s8
+// (r2l_int8_hopper.cu). The probes of K2's epilogue and ray streams stay on
+// the pre-Hopper template r2l_int8_chain.cuh, the design they measure.
+//
+// The function is r2l_tpu/kernels/r2l_pallas.py::_int8_pe_chain, as the
+// plain version int8_pe_chain_ref computes it, bit for bit:
+//   * each PE part (the double-angle ladder, r2l::pe_ladder) is quantized
+//     with its column's inverse scale, q8(x * inv): round half even, clip
+//     to +-127, the product rounded on its own (__fmul_rn);
+//   * every product is int8 x int8 -> int32, exact;
+//   * dequantize acc * m + b as one FMA (r2l::dequant); ReLU on inner
+//     layers; the first layer of each block quantizes the bf16 residual
+//     stream with its inverse scale, the tail quantizes h (+ the f32 h0);
+//   * an inner layer's output becomes the next layer's int8 input in one of
+//     three forms (the reference's fold_requant / nobf16_inner flags):
+//     kDeployed q8(relu(t)) (the scale folded into m, b), kFold
+//     q8(bf16(relu(t))), kUnfolded q8(bf16(relu(t)) * inv);
+//   * the block tail is cast to bf16 and added to the bf16 residual stream
+//     in f32, rounded; h0 stays f32 for the global residual; the tail is an
+//     int8 dot, dequantized, then sigmoid.
+//
+// Design (the student's Hopper skeleton, r2l_hopper.cuh, on hopper_ring.cuh
+// and hopper_wgmma.cuh): a block owns 128 rays, two consumer warpgroups of
+// 64 (wgmma's M), and one producer warpgroup of which one thread copies the
+// weights. Two blocks form a cluster and share a ring of four slots into
+// which the staged s8 image (stage_int8_chain: the head's stages, then each
+// body layer's, KS = 128 input channels for all W outputs, 64 at W64, laid
+// out as wgmma reads B) is bulk-copied, each half multicast into both, so
+// the image is read from L2 once per 256 rays and no block barrier sits in
+// the k-loop. Products are wgmma m64nWk32 s8, both operands K-major in
+// shared memory: the activations Q [64 rays x W] int8 per warpgroup in the
+// core-matrix layout, written by the previous epilogue.
+//
+// The two consumer warpgroups run half a layer apart in the body (a
+// ping-pong): warpgroup 1 starts a layer's products when warpgroup 0's are
+// done, warpgroup 0 the next layer's when warpgroup 1's are, so one's
+// products run under the other's epilogue (measured on an H100: 4% faster
+// than both at once; PERF.md).
+//
+// Epilogues run on the accumulator registers, each column pair's (m, b)
+// one float4 of the image's table: dequantize, ReLU, requantize straight
+// into Q, int32 to f32 and the requantize's rounding by adds of 1.5 * 2^23
+// (the conversion instructions measured 11% slower). The block tail adds
+// the residual stream H, kept in shared memory as bf16 in the
+// accumulator's own order (each thread reads and writes only its own
+// values), by one bf16 add (f32 adds and a rounding, the same value,
+// measured 7% slower), and quantizes the next block's input in the same
+// pass: the old chain's separate requantize over H is gone. h0, in f32,
+// does not fit beside the ring: it is parked in a device-memory scratch in
+// the accumulator's order (the wrapper's, [blocks x 128 x W] f32) and read
+// back by the tail, which quantizes h (+ h0) and takes its dot products
+// (each thread's partial sums over its columns, then two quad shuffles).
+//
+// The head's input (1,008 int8 columns, padded to 1,024) does not fit
+// beside the ring either: it is produced in slices of 2W columns into Q and
+// H, which are free then, quantized as it is encoded, and the head
+// accumulates over the slices. The image orders the head's columns so that
+// a slice holds whole scalars (24 of the 48 at W256), so each scalar's
+// ladder runs once (in the fields' freq-major order every slice ran every
+// scalar's: the encoding measured 1.0 ms of a 5.4 ms frame, now 0.5).
+//
+// Shared memory at W256: Q 32 KB, H 64 KB, the ring 4 x 32 KB: 224 KB.
+//
+// What bounds it: 11.8 M int8 multiply-adds per ray at W256/D88, 1.89 T
+// operations per 400x400 frame, 0.953 ms at the card's 1,979 TOP/s.
+#pragma once
+
+#include "hopper_ring.cuh"
+#include "r2l_common.cuh"
+
+namespace r2l8h {
+
+using namespace hopper;
+using r2l::dequant;
+using r2l::q8;
+
+enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2 };
+
+// The ring's shape (hopper::Kind's members) at width W, and kC, the blocks
+// of a cluster.
+template <int W>
+struct Chain8 {
+  using Acc = int;
+  static constexpr int kKS = W >= 128 ? 128 : 64, kKSB = kKS, kWGs = 2;
+  static constexpr int kStages = 4, kParts = 1;
+  static constexpr bool kRegA = false;
+  static constexpr int kC = 2;
+};
+
+constexpr int kRows = 128;  // rays per block
+
+// Everything a launch needs, passed by value (the kernel parameter space).
+struct Args {
+  const float* pts;  // [n, dp]
+  int n, dp, L;
+  const unsigned char* staged;  // stage_int8_chain's image
+  const float* head_inv;  // [in_dim]
+  const float* body_inv;  // [nb * nl, W]
+  const int8_t* tail_q;                      // [out_dim, W]
+  const float *tail_m, *tail_b, *tail_inv;   // [out_dim], [out_dim], [W]
+  float* out;                                // [n, out_dim]
+  float* h0;  // scratch: [blocks * 128 * W] f32
+  int nb, nl, out_dim, use_residual, linear_tail;
+  // layout, set by plan()
+  const float4* mb;  // the image's epilogue table: the head's, each body
+                     // layer's (m[c], b[c], m[c+1], b[c+1]) per pair
+  int kpad, off_h, off_ring, off_bar, slot_bytes, stages, smem;
+};
+
+template <int W>
+inline void plan(Args& a) {
+  using K = Chain8<W>;
+  // the head as staged: slices of 2W columns, each of whole scalars' parts
+  // (sps scalars of P parts), the last one's columns rounded up to a stage
+  const int P = 2 * a.L + 1, sps = 2 * W / P;
+  const int nsl = (a.dp + sps - 1) / sps;
+  a.kpad = (nsl - 1) * 2 * W +
+           r2l::round_up((a.dp - (nsl - 1) * sps) * P, K::kKS);
+  a.off_h = kRows * W;                  // Q: [128][W] int8
+  a.off_ring = a.off_h + kRows * W * 2;  // H: [128][W] bf16
+  a.slot_bytes = W * K::kKSB;
+  a.off_bar = a.off_ring + K::kStages * a.slot_bytes;
+  a.smem = a.off_bar + 2 * K::kStages * 8;
+  a.stages = (a.kpad + a.nb * a.nl * W) / K::kKS;
+  a.mb = reinterpret_cast<const float4*>(a.staged +
+                                         (size_t)a.stages * a.slot_bytes);
+}
+
+inline long long blocks_of(int n) {
+  const long long blocks = (n + kRows - 1) / kRows;
+  return (blocks + 1) / 2 * 2;
+}
+
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+// The int32 sum of a body layer as f32: |acc| <= 256 * 127 * 127 < 2^22,
+// so the bits of 1.5 * 2^23 + acc, less 1.5 * 2^23, are exact (two
+// full-rate adds where the conversion runs at a quarter of the rate).
+__device__ __forceinline__ float i2f(int acc) {
+  return __fsub_rn(__int_as_float(0x4B400000 + acc), 12582912.f);
+}
+
+// q8 (round half even, clip to +-127) as the low byte of the result:
+// clipping first gives the same integer, and adding 1.5 * 2^23 rounds it
+// half to even into the float's low bits (as K7's q8i).
+__device__ __forceinline__ int q8b(float y) {
+  return __float_as_int(__fadd_rn(fminf(fmaxf(y, -127.f), 127.f),
+                                  12582912.f));
+}
+// q8b(relu(y)): the ReLU is the clip's floor
+__device__ __forceinline__ int q8b_relu(float y) {
+  return __float_as_int(__fadd_rn(fminf(fmaxf(y, 0.f), 127.f), 12582912.f));
+}
+
+// Named barriers 3 and 4 between the two consumer warpgroups (0 is the
+// block's, 1 and 2 each warpgroup's own): sync waits for the other
+// warpgroup's arrival, arrive does not wait.
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Each column pair (c, c + 1) of the thread's accumulator with its
+// epilogue constants p = (m[c], b[c], m[c+1], b[c+1]): f(j, c, p), four
+// pairs' constants loaded ahead of their use.
+template <int W, typename F>
+__device__ __forceinline__ void each_pair(const float4* mb, int t, F f) {
+#pragma unroll
+  for (int j0 = 0; j0 < W / 8; j0 += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p[q] = __ldg(mb + 4 * (j0 + q) + t);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f(j0 + q, 8 * (j0 + q) + 2 * t, p[q]);
+  }
+}
+
+template <int W, int kEpi>
+__global__ void __launch_bounds__(kWG * 3, 1)
+    r2l_int8_hopper_kernel(const Args a) {
+  using K = Chain8<W>;
+  constexpr int kC = K::kC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int wg = threadIdx.x / kWG, wtid = threadIdx.x % kWG;
+  const uint32_t rank = cluster_rank();
+  Ring ring;
+  ring.slots = smem_u32(smem + a.off_ring);
+  ring.full = smem_u32(smem + a.off_bar);
+  ring.empty = ring.full + 8 * K::kStages;
+  ring.slot_bytes = a.slot_bytes;
+
+  if (threadIdx.x == 0) ring_init<int8_t, kC, K>(ring);
+  __syncthreads();
+  cluster_sync();
+
+  if (wg == K::kWGs) {  // the producer: every stage, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (wtid == 0)
+      for (int it = 0; it < a.stages; ++it)
+        fill<int8_t, kC, K>(ring, it, a.staged + (size_t)it * a.slot_bytes,
+                            a.slot_bytes, rank);
+    cluster_sync();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int tile = blockIdx.x * K::kWGs + wg, row0 = tile * 64;
+  const int bar_id = 1 + wg;
+  unsigned char* Qm = smem + wg * 64 * W;
+  unsigned char* Hm = smem + a.off_h + wg * 64 * W * 2;
+  __nv_bfloat162* hs = reinterpret_cast<__nv_bfloat162*>(Hm);
+  float2* h0s = reinterpret_cast<float2*>(a.h0) + (size_t)tile * 64 * (W / 2);
+  const int lane = wtid % 32, r0 = 16 * (wtid / 32) + lane / 4;
+  const bool res = a.use_residual;
+
+  auto tiles_ready = [&]() {
+    fence_async_smem();
+    wg_bar(bar_id);
+  };
+  // the thread's pair (c, c + 1) of its row h (0: r0, 1: r0 + 8) in an
+  // accumulator-ordered tile
+  auto at = [&](int h, int c) { return ((c / 8) * 2 + h) * kWG + wtid; };
+  // a pair of q8b words into Q at (r, c), c even: their low bytes
+  auto putq = [&](int r, int c, int x0, int x1) {
+    *reinterpret_cast<uint16_t*>(Qm + cm_off(r, c, W)) =
+        (uint16_t)__byte_perm(x0, x1, 0x0040);
+  };
+
+  int acc[W / 2];
+  int it = 0;  // this warpgroup's place in the ring
+
+  // ---- the head, over the image's slices of 2W input columns: [0, W) in
+  // Q, [W, 2W) in H (an int8 tile of W columns). A slice holds whole
+  // scalars, freq-major: column p * ns + sl of slice i is part p (sin
+  // octave p, cos octave p - L, or the identity) of scalar i * sps + sl,
+  // quantized with its inverse scale (head_inv is freq-major over all
+  // scalars: p * dp + s); neighbouring lanes store neighbouring bytes. ----
+  const int P = 2 * a.L + 1, sps = 2 * W / P;
+  for (int i = 0, c0 = 0; c0 < a.kpad; ++i, c0 += 2 * W) {
+    const int ns = min(sps, a.dp - i * sps);            // scalars here
+    const int sw = min(2 * W, a.kpad - c0);             // columns here
+    if (c0 > 0) wg_bar(bar_id);  // every warp's product read the last slice
+    auto put = [&](int r, int c, int8_t q) {
+      unsigned char* t = Qm;
+      if (c >= W) {
+        t = Hm;
+        c -= W;
+      }
+      reinterpret_cast<int8_t*>(t)[cm_off(r, c, W)] = q;
+    };
+    for (int e = wtid; e < 64 * ns; e += kWG) {
+      const int r = e / ns, sl = e - r * ns, s = i * sps + sl;
+      const int g = row0 + r;
+      const float v = g < a.n ? a.pts[(size_t)g * a.dp + s] : 0.f;
+      auto emit = [&](int p, float x) {
+        const int8_t q = (int8_t)q8b(__fmul_rn(x, a.head_inv[p * a.dp + s]));
+        put(r, p * ns + sl, q);
+      };
+      r2l::pe_ladder(v, a.L, [&](int j, float sn, float cs) {
+        emit(j, sn);
+        emit(a.L + j, cs);
+      });
+      emit(2 * a.L, v);
+    }
+    const int z0 = ns * P, nz = sw - z0;  // the zero padding
+    if (nz > 0)
+      for (int e = wtid; e < 64 * nz; e += kWG) {
+        const int r = e / nz;
+        put(r, z0 + e - r * nz, 0);
+      }
+    tiles_ready();
+    product<int8_t, W, kC, K>(acc, Qm, W, W, Hm, W, sw, ring, it, wtid,
+                              c0 > 0);
+  }
+
+  // The tail on its quantized input: qval(h, c) gives the thread's q pair
+  // of row h at columns (c, c + 1); the outputs four at a time.
+  auto tail = [&](auto qval) {
+    for (int o0 = 0; o0 < a.out_dim; o0 += 4) {
+      int p[2][4] = {};
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int2 q = qval(j, h, c);
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            if (o0 + o >= a.out_dim) break;
+            dot2(p[h][o], q.x, q.y, head2(a.tail_q + (size_t)(o0 + o) * W + c));
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          if (o0 + o >= a.out_dim) break;
+          const int sum = quad_sum(p[h][o]);
+          const int g = row0 + r0 + 8 * h;
+          if (lane % 4 == 0 && g < a.n) {
+            const float v = dequant(sum, a.tail_m[o0 + o], a.tail_b[o0 + o]);
+            a.out[(size_t)g * a.out_dim + o0 + o] =
+                a.linear_tail ? v : r2l::sigmoid(v);
+          }
+        }
+    }
+  };
+  // the tail's input of h (+ h0): q8((h [+ h0]) * tail_inv)
+  auto tail_in = [&](float2 hv, int h, int c) -> int2 {
+    if (res) {
+      const float2 z = h0s[at(h, c)];
+      hv.x = __fadd_rn(hv.x, z.x);
+      hv.y = __fadd_rn(hv.y, z.y);
+    }
+    const float2 inv = ldg2(a.tail_inv + c);
+    return make_int2(q8(__fmul_rn(hv.x, inv.x)), q8(__fmul_rn(hv.y, inv.y)));
+  };
+
+  // ---- the head's epilogue: h0 (f32), H = bf16(h0), and the input of
+  // block 0's first layer. H's accumulator order crosses the rows of the
+  // slice it held, which other warps' products may still read: a barrier
+  // first. ----
+  wg_bar(bar_id);
+  const int t = lane % 4;
+  each_pair<W>(a.mb, t, [&](int j, int c, float4 p) {
+    const float2 inv =
+        a.nb > 0 ? ldg2(a.body_inv + c) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float x0 = fmaxf(dequant(acc[4 * j + 2 * h], p.x, p.y), 0.f);
+      const float x1 = fmaxf(dequant(acc[4 * j + 2 * h + 1], p.z, p.w), 0.f);
+      const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+      if (res) h0s[at(h, c)] = make_float2(x0, x1);
+      hs[at(h, c)] = hb;
+      if (a.nb > 0) {
+        const float2 hv = __bfloat1622float2(hb);
+        putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, inv.x)),
+             q8b(__fmul_rn(hv.y, inv.y)));
+      }
+    }
+  });
+  if (a.nb == 0) {  // no body: h = h0
+    tail([&](int, int h, int c) {
+      return tail_in(__bfloat1622float2(hs[at(h, c)]), h, c);
+    });
+    cluster_sync();
+    return;
+  }
+
+  // ---- the body ----
+  for (int blk = 0; blk < a.nb; ++blk) {
+    for (int jl = 0; jl < a.nl; ++jl) {
+      const int idx = blk * a.nl + jl;
+      const float4* mb = a.mb + (size_t)(1 + idx) * (W / 2);
+      tiles_ready();
+      // warpgroup 0 leads, 1 follows half a layer behind
+      if (wg == 1) pair_sync(3);
+      else if (idx > 0) pair_sync(4);
+      product<int8_t, W, kC, K>(acc, Qm, W, W, Qm, W, W, ring, it, wtid);
+      pair_arrive(wg == 0 ? 3 : 4);
+      if (jl + 1 < a.nl) {  // inner: ReLU, then the next layer's int8 input
+        const float* inv = a.body_inv + (size_t)(idx + 1) * W;
+        each_pair<W>(mb, t, [&](int j, int c, float4 p) {
+          float2 iv = make_float2(0.f, 0.f);
+          if (kEpi == kUnfolded) iv = ldg2(inv + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // t0, t1 before the ReLU
+            const float t0 = __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y);
+            const float t1 = __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w);
+            int x0, x1;
+            if (kEpi == kDeployed) {         // scale folded, no bf16
+              x0 = q8b_relu(t0);
+              x1 = q8b_relu(t1);
+            } else if (kEpi == kFold) {      // scale folded, through bf16
+              const float2 v = __bfloat1622float2(__floats2bfloat162_rn(t0, t1));
+              x0 = q8b_relu(v.x);
+              x1 = q8b_relu(v.y);
+            } else {                         // f32 multiply by the scale
+              const float2 v = __bfloat1622float2(
+                  __floats2bfloat162_rn(fmaxf(t0, 0.f), fmaxf(t1, 0.f)));
+              x0 = q8b(__fmul_rn(v.x, iv.x));
+              x1 = q8b(__fmul_rn(v.y, iv.y));
+            }
+            putq(r0 + 8 * h, c, x0, x1);
+          }
+        });
+        continue;
+      }
+      // block tail: bf16, + the block input in f32, bf16; then the next
+      // block's first-layer input, or (last block) the tail
+      // (the sum of two bf16 values rounded once to bf16 is the f32 sum
+      // rounded to bf16: an f32 rounding of it never lands on a bf16 tie)
+      auto block_out = [&](int j, int h, int c, float4 p) -> float2 {
+        const __nv_bfloat162 tb = __floats2bfloat162_rn(
+            __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y),
+            __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w));
+        const __nv_bfloat162 hn = __hadd2(tb, hs[at(h, c)]);
+        hs[at(h, c)] = hn;
+        return __bfloat1622float2(hn);
+      };
+      if (blk + 1 < a.nb) {
+        const float* inv = a.body_inv + (size_t)(blk + 1) * a.nl * W;
+        each_pair<W>(mb, t, [&](int j, int c, float4 p) {
+          const float2 iv = ldg2(inv + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 hv = block_out(j, h, c, p);
+            putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, iv.x)),
+                 q8b(__fmul_rn(hv.y, iv.y)));
+          }
+        });
+        continue;
+      }
+      // the last block: finish h, then the tail on h (+ h0)
+      each_pair<W>(mb, t, [&](int j, int c, float4 p) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) block_out(j, h, c, p);
+      });
+      tail([&](int, int h, int c) {
+        return tail_in(__bfloat1622float2(hs[at(h, c)]), h, c);
+      });
+    }
+  }
+  if (wg == 0) pair_sync(4);  // warpgroup 1's last arrival
+  cluster_sync();
+}
+
+// Launch over the n rays' blocks, padded to whole clusters, after checking
+// the h0 scratch (h0_elems floats; none without the global residual).
+template <int W, int kEpi>
+cudaError_t launch_as(Args a, long long h0_elems, cudaStream_t stream) {
+  plan<W>(a);
+  const long long blocks = blocks_of(a.n);
+  if (a.use_residual && h0_elems < blocks * kRows * W)
+    return cudaErrorInvalidValue;
+  return launch_cluster<int8_t, Chain8<W>::kC, Chain8<W>>(
+      r2l_int8_hopper_kernel<W, kEpi>, a, (int)blocks, a.smem, stream);
+}
+
+template <int kEpi>
+cudaError_t launch_width(const Args& a, int W, long long h0_elems,
+                         cudaStream_t stream) {
+  switch (W) {
+    case 64: return launch_as<64, kEpi>(a, h0_elems, stream);
+    case 128: return launch_as<128, kEpi>(a, h0_elems, stream);
+    case 256: return launch_as<256, kEpi>(a, h0_elems, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace r2l8h

@@ -9,11 +9,12 @@ student frame, and a third is the JAX package's exported kernel API:
   biases f32, activations rounded to the compute dtype between layers, f32
   accumulation. Its plain version follows the Pallas ``_kernel_body``
   rounding points (bias added in f32 before the cast), not ``apply_r2l``'s.
-* ``fused_r2l_apply_int8_pe`` (``csrc/r2l_int8_pe_fused.cu`` over
-  ``r2l_int8_chain.cuh``): the same chain in static-scale int8, in
-  ``_int8_pe_chain``'s three forms (``fold_requant``, ``nobf16_inner``; by
-  default the deployed ``True, True``), with parameters from
-  ``calibrate_r2l_int8_pe``.
+* ``fused_r2l_apply_int8_pe`` (``csrc/r2l_int8_hopper.cu``): the same
+  chain in static-scale int8 on wgmma s8, in ``_int8_pe_chain``'s three
+  forms (``fold_requant``, ``nobf16_inner``; by default the deployed
+  ``True, True``), with parameters from ``calibrate_r2l_int8_pe``. Its
+  probes (``launch_int8_pe_chain``) stay on the pre-Hopper template
+  ``csrc/r2l_int8_chain.cuh``.
 * ``fused_r2l_apply`` (``csrc/r2l_fused.cu``): K1's chain on an input
   encoded outside (``r2l_embed``'s per-scalar order, parameters from
   ``prepare_fused_params``), read unpadded and rounded once to the compute
@@ -32,8 +33,12 @@ frame entry points: ``prepare_fused_params``, and
 ``prepare_fused_params_pe`` unless ``stage=False``, as the training step
 packs every step for K3, which reads the fields): each layer in stages laid
 out as Hopper's ``wgmma`` reads them (``staging.stage_matrices``), f32 as
-TF32 high and low parts. The TPU kernels' 128-lane padding and ray ``tile``
-are not ported: each CUDA kernel picks its own ray tile.
+TF32 high and low parts. K2 reads ``head_q`` and ``body_q`` from an s8
+image staged the same way (``stage_int8_chain``, by
+``calibrate_r2l_int8_pe`` unless ``stage=False``, as the int8 training
+kinds calibrate every step for K4/K8, which read the fields). The TPU
+kernels' 128-lane padding and ray ``tile`` are not ported: each CUDA kernel
+picks its own ray tile.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ K_ALIGN = 128  # head input columns are padded to a multiple of this
 CHAIN_STAGE_K = {torch.bfloat16: 64, torch.float32: 16}
 CHAIN_BLOCK_RAYS = {torch.bfloat16: 128, torch.float32: 64}
 CHAIN_CLUSTER = {torch.bfloat16: 2, torch.float32: 2}
+INT8_BLOCK_RAYS = 128  # K2 (csrc/r2l_int8_hopper.cuh): rays per block
 
 
 def _padded_in(in_dim: int) -> int:
@@ -87,9 +93,7 @@ class FusedParams(_ChainFields):
         return out
 
 
-class FusedParamsInt8PE(NamedTuple):
-    """Static-scale int8 parameters (all scales folded, PE freq-major,
-    weights [out, in])."""
+class _Int8Fields(NamedTuple):
     head_q: torch.Tensor    # [W, in_pad] int8 (input scales absorbed)
     head_m: torch.Tensor    # [W] f32 dequant multiplier
     head_b: torch.Tensor    # [W] f32
@@ -102,6 +106,23 @@ class FusedParamsInt8PE(NamedTuple):
     tail_m: torch.Tensor    # [out_dim] f32
     tail_b: torch.Tensor    # [out_dim] f32
     tail_inv: torch.Tensor  # [W] f32
+
+
+class FusedParamsInt8PE(_Int8Fields):
+    """Static-scale int8 parameters (all scales folded, PE freq-major,
+    weights [out, in]); the fields are the JAX package's.
+
+    Beside them, not among them, ``staged``: K2's s8 weight image and
+    epilogue table (``stage_int8_chain``), or None where the calibration
+    did not stage.
+    ``_replace`` keeps it unless given ``staged=``."""
+    staged: torch.Tensor | None = None
+
+    def _replace(self, **kw) -> "FusedParamsInt8PE":
+        staged = kw.pop("staged", self.staged)
+        out = super()._replace(**kw)
+        out.staged = staged
+        return out
 
 
 def fused_kernel_supported(cfg: R2LConfig) -> bool:
@@ -487,7 +508,8 @@ def _act_scale(x: torch.Tensor, margin: float) -> torch.Tensor:
 @torch.no_grad()
 def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
                           calib_pts: torch.Tensor, margin: float = 1.1,
-                          fold_requant: bool = True) -> FusedParamsInt8PE:
+                          fold_requant: bool = True,
+                          stage: bool = True) -> FusedParamsInt8PE:
     """Calibrate per-(layer, channel) activation ranges on sample points and
     pack the int8 kernel parameters (a plain function, not a kernel).
 
@@ -495,8 +517,11 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     the ladder) records each layer's input max-abs; scales are
     max-abs * ``margin`` / 127. ``fold_requant`` pre-multiplies the next
     inner layer's inverse input scale into this layer's multiplier and
-    bias, so the kernel's inner requantize is round+clip only. TF32 is
-    switched off for the duration: it would move every scale.
+    bias, so the kernel's inner requantize is round+clip only. With
+    ``stage``, K2's s8 image is staged beside the fields (once per model:
+    the int8 training kinds, which calibrate every step for K4/K8, pass
+    ``stage=False``). TF32 is switched off for the duration: it would move
+    every scale.
     """
     _assert_fused_supported(cfg)
     prev = (torch.backends.cuda.matmul.allow_tf32,
@@ -504,11 +529,108 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        return _calibrate(model, cfg, dim_pts, L, calib_pts, margin,
-                          fold_requant)
+        fp = _calibrate(model, cfg, dim_pts, L, calib_pts, margin,
+                        fold_requant)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
+    if stage:
+        fp.staged = stage_int8_chain(fp, cfg, dim_pts, L)
+    return fp
+
+
+def int8_head_columns(cfg: R2LConfig, dim_pts: int, L: int) -> torch.Tensor:
+    """The head's columns in K2's image: slices of 2W columns, slice i
+    holding the ns scalars [i*sps, i*sps + ns) (sps = 2W // P, P = 2L+1
+    parts) freq-major, its column p*ns + sl part p of scalar i*sps + sl;
+    the last slice rounded up to whole stages. -> [kpad] int64 (CPU, made
+    once per shape): each column's index in the fields' freq-major order
+    (p * dim_pts + s), or -1 for a zero column."""
+    return _int8_head_columns(cfg.netwidth, dim_pts, L)
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_head_columns(W: int, dim_pts: int, L: int) -> torch.Tensor:
+    P, sw, k = 2 * L + 1, 2 * W, (128 if W >= 128 else 64)
+    sps = sw // P
+    if sps < 1:
+        raise ValueError(f"{P} encoding parts do not fit a {sw}-column slice")
+    nsl = -(-dim_pts // sps)
+    last = dim_pts - (nsl - 1) * sps
+    cols = np.full((nsl - 1) * sw + -(-(last * P) // k) * k, -1, np.int64)
+    for i in range(nsl):
+        ns = min(sps, dim_pts - i * sps)
+        p, sl = np.divmod(np.arange(P * ns), ns)
+        cols[i * sw:i * sw + P * ns] = p * dim_pts + i * sps + sl
+    return torch.from_numpy(cols)
+
+
+def int8_chain_stage_plan(cfg: R2LConfig, dim_pts: int, L: int) -> dict:
+    """K2's staged image: 'kpad' (the head's input as staged,
+    ``int8_head_columns``), 'stage_k' (input channels per stage: 128, or 64
+    at W64), 'stage_bytes', 'stages' (the head's, then each body layer's,
+    in order), 'weights_bytes', then the epilogue table's 'table_bytes'
+    (the head's and each body layer's (m[c], b[c], m[c+1], b[c+1]) per
+    column pair, f32) and 'nbytes'."""
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    kpad = int8_head_columns(cfg, dim_pts, L).numel()
+    k = 128 if W >= 128 else 64
+    stages = (kpad + nbl * W) // k
+    table = (1 + nbl) * W * 8
+    return {"kpad": kpad, "stage_k": k, "stage_bytes": W * k,
+            "stages": stages, "weights_bytes": stages * W * k,
+            "table_bytes": table, "nbytes": stages * W * k + table}
+
+
+def stage_int8_chain(fp: FusedParamsInt8PE, cfg: R2LConfig, dim_pts: int,
+                     L: int) -> torch.Tensor:
+    """K2's image (uint8): the head's stages (``head_q``'s columns in
+    ``int8_head_columns``' order), then each body layer's, in
+    ``staging.stage_matrices`` order (wgmma's K-major core matrices, the
+    input channels per stage of ``int8_chain_stage_plan``); then the
+    epilogue table, (m, b) interleaved per column, the head's row first."""
+    k = 128 if cfg.netwidth >= 128 else 64
+    cols = int8_head_columns(cfg, dim_pts, L).to(fp.head_q.device)
+    head = torch.where(cols >= 0, fp.head_q[:, cols.clamp(min=0)],
+                       torch.zeros((), dtype=torch.int8,
+                                   device=fp.head_q.device))
+    table = torch.cat([torch.stack([fp.head_m, fp.head_b], -1).reshape(-1),
+                       torch.stack([fp.body_m, fp.body_b], -1).reshape(-1)])
+    return torch.cat([stage_matrices(head.contiguous(), k),
+                      stage_matrices(fp.body_q, k),
+                      table.float().contiguous().view(torch.uint8)])
+
+
+def unstage_int8_chain(staged: torch.Tensor, cfg: R2LConfig, dim_pts: int,
+                       L: int) -> dict[str, torch.Tensor]:
+    """'head_q' [W, in_pad] (the fields' freq-major order, zero-padded),
+    'body_q' [nb*nl, W, W], 'head_m', 'head_b' [W] and 'body_m', 'body_b'
+    [nb*nl, W] back from K2's image."""
+    plan = int8_chain_stage_plan(cfg, dim_pts, L)
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    k = plan["stage_k"]
+    cut = (plan["kpad"] // k) * plan["stage_bytes"]
+    end = plan["weights_bytes"]
+    mb = staged[end:].clone().view(torch.float32).view(1 + nbl, W, 2)
+    staged_head = unstage_matrices(staged[:cut], (W, plan["kpad"]), k,
+                                   torch.int8)[0]
+    cols = int8_head_columns(cfg, dim_pts, L).to(staged.device)
+    head = torch.zeros((W, _padded_in(dim_pts * (2 * L + 1))),
+                       dtype=torch.int8, device=staged.device)
+    head[:, cols[cols >= 0]] = staged_head[:, cols >= 0]
+    return {"head_q": head,
+            "body_q": unstage_matrices(staged[cut:end], (nbl, W, W), k,
+                                       torch.int8)[0],
+            "head_m": mb[0, :, 0], "head_b": mb[0, :, 1],
+            "body_m": mb[1:, :, 0], "body_b": mb[1:, :, 1]}
+
+
+def int8_chain_l2_bytes(cfg: R2LConfig, dim_pts: int, L: int,
+                        n: int) -> int:
+    """The weight bytes one K2 launch on n rays reads from L2 by design: the
+    s8 weights of the image once per two-block cluster of 128-ray blocks."""
+    clusters = -(-(-(-n // INT8_BLOCK_RAYS)) // 2)
+    return clusters * int8_chain_stage_plan(cfg, dim_pts, L)["weights_bytes"]
 
 
 def _calibrate(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
@@ -592,8 +714,8 @@ def _dequant(acc: torch.Tensor, m: torch.Tensor,
 
 
 # K2's requantize epilogues by (fold_requant, nobf16_inner), each with its
-# code in csrc/r2l_int8_chain.cuh's Epi (which also holds the epilogue
-# probe's forms, exp/probe_epi.py).
+# code in csrc/r2l_int8_hopper.cuh's Epi and csrc/r2l_int8_chain.cuh's
+# (which also holds the epilogue probe's forms, exp/probe_epi.py).
 EPILOGUES = {"deployed": 0, "fold": 1, "unfolded": 2}
 
 
@@ -693,10 +815,11 @@ def _check_int8_params(fp: FusedParamsInt8PE, cfg: R2LConfig,
 def launch_int8_pe_chain(wrapper, fp: FusedParamsInt8PE, cfg: R2LConfig,
                          pts: torch.Tensor, dim_pts: int, L: int,
                          epilogue: int, streams: int = 1) -> torch.Tensor:
-    """One launch of the int8 chain (``csrc/r2l_int8_pe_fused.cu`` over
-    ``r2l_int8_chain.cuh``: K2, ``probe_pipe``, ``probe_epi``) on CUDA
-    tensors, checked here, in the form (``epilogue``, the chain's Epi code;
-    ``streams`` per 64-ray tile); counted in ``wrapper.launches``."""
+    """One launch of the pre-Hopper int8 chain (``csrc/r2l_int8_pe_fused.cu``
+    over ``r2l_int8_chain.cuh``: K2's probes ``probe_pipe`` and
+    ``probe_epi``) on CUDA tensors, checked here, in the form (``epilogue``,
+    the chain's Epi code; ``streams`` per 64-ray tile); counted in
+    ``wrapper.launches``."""
     from . import _build
     _assert_fused_supported(cfg)
     dev = pts.device
@@ -719,6 +842,45 @@ def launch_int8_pe_chain(wrapper, fp: FusedParamsInt8PE, cfg: R2LConfig,
     return out
 
 
+def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
+                        pts: torch.Tensor, dim_pts: int, L: int,
+                        epilogue: int) -> torch.Tensor:
+    """One launch of K2 (``csrc/r2l_int8_hopper.cu``) on CUDA tensors,
+    checked here, with a fresh f32 h0 scratch; counted in
+    ``fused_r2l_apply_int8_pe.launches``."""
+    from . import _build
+    _assert_fused_supported(cfg)
+    dev, n, W = pts.device, pts.shape[0], cfg.netwidth
+    _check(pts, "pts", torch.float32, (n, dim_pts), dev)
+    _check_int8_params(fp, cfg, dim_pts, L, dev)
+    if fp.staged is None:
+        raise ValueError("fp has no staged s8 image: calibrate it with "
+                         "calibrate_r2l_int8_pe(..., stage=True)")
+    _check(fp.staged, "staged", torch.uint8,
+           (int8_chain_stage_plan(cfg, dim_pts, L)["nbytes"],), dev)
+    out = torch.empty((n, fp.tail_q.shape[0]), dtype=torch.float32,
+                      device=dev)
+    if n == 0:
+        return out
+    blocks = -(-(-(-n // INT8_BLOCK_RAYS)) // 2) * 2
+    h0 = torch.empty((blocks * INT8_BLOCK_RAYS * W
+                      if cfg.use_residual else 0,),
+                     dtype=torch.float32, device=dev)
+    lib = _build.load("r2l_int8_hopper")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fused_r2l_apply_int8_pe.launches += 1
+        rc = lib.r2l_int8_hopper_launch(
+            _ptr(pts), n, dim_pts, L, _ptr(fp.staged), _ptr(fp.head_inv),
+            _ptr(fp.body_inv), _ptr(fp.tail_q), _ptr(fp.tail_m),
+            _ptr(fp.tail_b), _ptr(fp.tail_inv), _ptr(out),
+            _ptr(h0), h0.numel(), W, cfg.num_blocks, cfg.n_learnable,
+            out.shape[1], int(cfg.use_residual), int(cfg.linear_tail),
+            epilogue, ctypes.c_void_p(stream))
+    _raise_on_error(rc, "r2l_int8_hopper")
+    return out
+
+
 def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
                             pts: torch.Tensor, dim_pts: int,
                             L: int = 10, fold_requant: bool = True,
@@ -727,13 +889,14 @@ def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
     the static-scale int8 kernel. The flags are Pallas ``_int8_pe_chain``'s;
     the default is the deployed form, with ``fp`` from
     ``calibrate_r2l_int8_pe(..., fold_requant=True)`` (``fold_requant``
-    here must match the calibration's). CPU tensors take the plain
+    here must match the calibration's; the calibration stages K2's s8
+    image, without which the kernel raises). CPU tensors take the plain
     version."""
     if pts.device.type == "cpu":
         return fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dim_pts, L,
                                            fold_requant, nobf16_inner)
-    return launch_int8_pe_chain(
-        fused_r2l_apply_int8_pe, fp, cfg, pts, dim_pts, L,
+    return _launch_int8_hopper(
+        fp, cfg, pts, dim_pts, L,
         EPILOGUES[int8_epilogue(fold_requant, nobf16_inner)])
 
 

@@ -13,10 +13,12 @@ Counterpart of ``r2l_tpu/kernels/r2l_train_pallas.py``. Three kernels:
   the global residual folded in). K8 (``stash_q=False``, the function's
   default): ``train_fwd``'s stash contract in bf16, the residual stream
   rounded to bf16 each block.
-* ``bwd_group`` (``csrc/r2l_bwd_group.cu``, K5): the backward through a
-  group of blocks: dh, and dW/db summed over all rays in a fixed order. It
-  walks a stash in the weights' dtype, K8's bf16 stash under f32 weights,
-  or K4's int8 stash.
+* ``bwd_group`` (``csrc/r2l_bwd_group.cu`` over ``r2l_bwd_hopper.cuh``,
+  K5): the backward through a group of blocks: dh, and dW/db summed over
+  all rays in a fixed order. It walks a stash in the weights' dtype, K8's
+  bf16 stash under f32 weights, or K4's int8 stash, and reads the body
+  weights transposed from an image staged once per step
+  (``stage_bwd_weights``).
 
 Each public wrapper runs its plain PyTorch version (``*_ref``, the Pallas
 kernel body written out) for tensors on the CPU only. For a CUDA tensor it
@@ -38,11 +40,12 @@ from typing import NamedTuple
 import torch
 
 from ..models.r2l import R2L, R2LConfig
-from .r2l_fused import (FusedParams, FusedParamsInt8PE, _check, _dequant,
-                        _mm_f32, _mm_int, _padded_in, _pe_row_permutation_on,
-                        _pe_sin_cos_ladder, _ptr, _q8, _raise_on_error,
-                        calibrate_r2l_int8_pe, fused_kernel_supported,
-                        prepare_fused_params_pe)
+from .r2l_fused import (CHAIN_STAGE_K, FusedParams, FusedParamsInt8PE,
+                        _check, _dequant, _mm_f32, _mm_int, _padded_in,
+                        _pe_row_permutation_on, _pe_sin_cos_ladder, _ptr,
+                        _q8, _raise_on_error, calibrate_r2l_int8_pe,
+                        fused_kernel_supported, prepare_fused_params_pe)
+from .staging import stage_matrices, unstage_matrices
 
 
 def _assert_train_supported(cfg: R2LConfig) -> None:
@@ -296,17 +299,40 @@ def dw_splits(n: int) -> int:
     return max(1, min(16, n // 10240))
 
 
+def stage_bwd_weights(body_w: torch.Tensor) -> torch.Tensor:
+    """K5's weight image (uint8) of body_w [L, W, W] ``[out, in]`` in the
+    compute dtype: every layer's transpose [in, out], in stages of
+    ``CHAIN_STAGE_K`` input channels as wgmma reads B
+    (``staging.stage_matrices``; f32 as TF32 high and low parts), layer by
+    layer, so that the dh walk's dt W^T is the chain's A B^T. Made once per
+    training step (the weights change every step) for all the groups."""
+    k = CHAIN_STAGE_K[body_w.dtype]
+    return stage_matrices(body_w.transpose(1, 2).contiguous(), k)
+
+
+def unstage_bwd_weights(staged: torch.Tensor, shape: tuple,
+                        dtype: torch.dtype) -> list[torch.Tensor]:
+    """``stage_bwd_weights``' inverse: [body_w] (f32: the TF32 high and low
+    parts) of ``shape`` [L, W, W] ``[out, in]``."""
+    L, W, _ = shape
+    parts = unstage_matrices(staged, (L, W, W), CHAIN_STAGE_K[dtype], dtype)
+    return [p.transpose(1, 2).contiguous() for p in parts]
+
+
 def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
               cfg: R2LConfig, b_start: int, b_count: int,
-              body_scale: torch.Tensor | None = None
+              body_scale: torch.Tensor | None = None,
+              staged: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward through blocks [b_start, b_start+b_count) (K5); shapes as
     ``bwd_group_ref``. The stash is in the weights' dtype, or bf16 under f32
     weights (``train_fwd_int8``'s bf16 stash); ``body_scale`` [2nb, W] f32
     (1/body_inv of the int8 calibration) reads the int8 stash of
-    ``train_fwd_int8(stash_q=True)`` and dequantizes it. Deterministic: the
-    same inputs give bit-identical outputs. CPU tensors take the plain
-    version."""
+    ``train_fwd_int8(stash_q=True)`` and dequantizes it. ``staged`` is
+    ``stage_bwd_weights(body_w)``, made once per step by the caller that
+    walks every group; on the card it is required (a call without it
+    raises). Deterministic: the same inputs give bit-identical outputs. CPU
+    tensors take the plain version, which ignores ``staged``."""
     if dh.device.type == "cpu":
         return bwd_group_ref(body_w, stash, dh, cfg, b_start, b_count,
                              body_scale)
@@ -328,14 +354,21 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
     _check(stash, "stash", torch.int8 if quant else
            (torch.bfloat16 if stash_bf16 else cd), (2 * nb + 1, n, W), dev)
     lo, hi = 2 * b_start, 2 * (b_start + b_count)
+    layer_bytes = W * W * body_w.element_size() * (
+        2 if cd == torch.float32 else 1)
+    if staged is None:
+        raise ValueError("K5 reads its weights from the step's image: pass "
+                         "staged=stage_bwd_weights(body_w)")
+    _check(staged, "staged", torch.uint8, (2 * nb * layer_bytes,), dev)
+    first = lo * layer_bytes
     if quant:
         _check(body_scale, "body_scale", torch.float32, (2 * nb, W), dev)
         scale = body_scale[lo:hi].contiguous()
     f32 = torch.float32
-    w_t = body_w[lo:hi].transpose(1, 2).contiguous()
     dts = torch.empty((hi - lo, n, W), dtype=cd, device=dev)
-    dbp = torch.empty((-(-n // 32), hi - lo, W), dtype=f32, device=dev)
     splits = dw_splits(n)
+    dbp = torch.empty((max(-(-n // 64), splits), hi - lo, W), dtype=f32,
+                      device=dev)
     part = torch.empty((splits, hi - lo, W, W), dtype=f32, device=dev)
     dh_out = torch.empty((n, W), dtype=f32, device=dev)
     dw = torch.empty((hi - lo, W, W), dtype=f32, device=dev)
@@ -344,7 +377,7 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
     with torch.cuda.device(dev):
         bwd_group.launches += 1
         rc = lib.r2l_bwd_group_launch(
-            _ptr(w_t), _ptr(stash[b_start]),
+            ctypes.c_void_p(staged.data_ptr() + first), _ptr(stash[b_start]),
             _ptr(stash[nb + 1 + b_start]),
             _ptr(scale) if quant else None, _ptr(dh), _ptr(dh_out),
             _ptr(dts), _ptr(dbp), _ptr(part), _ptr(dw), _ptr(db), n, W,
@@ -426,12 +459,13 @@ def _bwd_core(spec: _Spec, model: R2L, pts, stash, rgb, body_w, scales,
     dh0_extra = dh if cfg.use_residual else None
 
     dws, dbs = [None] * nb, [None] * nb
+    staged = stage_bwd_weights(body_w)   # K5's image, once per step
     b = nb
     while b > 0:
         cnt = min(spec.group_blocks, b)
         b -= cnt
         dh, dw_g, db_g = bwd_group(body_w, stash, dh.contiguous(), cfg, b,
-                                   cnt, body_scale=body_scale)
+                                   cnt, body_scale=body_scale, staged=staged)
         for k in range(cnt):
             dws[b + k] = dw_g[2 * k:2 * k + 2]
             dbs[b + k] = db_g[2 * k:2 * k + 2]
@@ -508,7 +542,7 @@ def make_fused_train_apply(cfg: R2LConfig, dim_pts: int, L: int = 10,
 
     def calibrate(model: R2L) -> FusedParamsInt8PE:
         return calibrate_r2l_int8_pe(model, cfg, dim_pts, L, calib_pts,
-                                     fold_requant=False)
+                                     fold_requant=False, stage=False)
 
     def apply_fp(model: R2L, pts: torch.Tensor, fp) -> torch.Tensor:
         return _FusedTrainFn.apply(spec, model, fp, pts, *_params(model))

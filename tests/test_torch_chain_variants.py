@@ -5,6 +5,7 @@ fields. Their timing runs on a GPU only."""
 import pytest
 import torch
 
+from r2l_tpu_torch.exp import _harness
 from r2l_tpu_torch.exp import chain_variants as CV
 from r2l_tpu_torch.kernels import _build
 from r2l_tpu_torch.kernels import r2l_fused as F
@@ -16,7 +17,8 @@ from r2l_tpu_torch.models import R2LConfig, init_r2l
 def test_variant_edits_apply_once(name, tmp_path):
     """Each edit's text occurs once in the sources and the copy differs
     from them only where the edits say."""
-    CV.edited_sources(name, _build.CSRC, tmp_path / name)
+    _harness.edited_sources(CV.VARIANTS[name][0], _build.CSRC,
+                            tmp_path / name)
     for fname, text, repl in CV.VARIANTS[name][0]:
         src = (_build.CSRC / fname).read_text()
         got = (tmp_path / name / fname).read_text()

@@ -138,6 +138,37 @@ def test_int8_kernel_forms_match_plain(dev, name, fold_requant,
     assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (mx, rms)
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("fold_requant,nobf16_inner",
+                         [(True, True), (True, False), (False, False)])
+def test_int8_hopper_forms_bit_for_bit(dev, name, fold_requant,
+                                       nobf16_inner):
+    """K2 on wgmma s8 keeps every rounding of its plain version: its three
+    forms at W64, W128 and W256 equal it bit for bit, on 1,000 rays and on
+    a ragged 129 (one ray in the second block of a cluster)."""
+    cfg, model, sampler, poses, pts, dp, L = _case(name, dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                 _calibration_points(sampler, poses, dev),
+                                 fold_requant=fold_requant)
+    assert fp.staged is not None
+    kw = dict(fold_requant=fold_requant, nobf16_inner=nobf16_inner)
+    for q in (pts, pts[:129].contiguous()):
+        got = F.fused_r2l_apply_int8_pe(fp, cfg, q, dp, L, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, F.fused_r2l_apply_int8_pe_ref(
+            fp, cfg, q, dp, L, **kw))
+
+
+def test_int8_hopper_raises_without_its_image(dev):
+    """On the card, K2 refuses a calibration without the s8 image."""
+    cfg, model, sampler, poses, pts, dp, L = _case("w64_nl1_linear", dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                 _calibration_points(sampler, poses, dev),
+                                 stage=False)
+    with pytest.raises(ValueError, match="staged"):
+        F.fused_r2l_apply_int8_pe(fp, cfg, pts, dp, L)
+
+
 def test_int8_canary_on_card(dev):
     """The frozen canary: the kernel equals its plain version bit for bit
     and stays within one f32 ulp of [0.5, 1) of the JAX reference's output
@@ -376,10 +407,13 @@ def test_bwd_group_kernel_matches_plain(dev, name, kind):
         body_w = fp.body_w
     dh = torch.randn((pts.shape[0], W), generator=torch.Generator(
         device=dev).manual_seed(1), device=dev)
+    img = T.stage_bwd_weights(body_w)
     for b0, cnt in ((1, 3), (0, nb)):
         before = T.bwd_group.launches
-        got = T.bwd_group(body_w, stash, dh, cfg, b0, cnt, body_scale=scale)
-        again = T.bwd_group(body_w, stash, dh, cfg, b0, cnt, body_scale=scale)
+        got = T.bwd_group(body_w, stash, dh, cfg, b0, cnt, body_scale=scale,
+                          staged=img)
+        again = T.bwd_group(body_w, stash, dh, cfg, b0, cnt, body_scale=scale,
+                            staged=img)
         torch.cuda.synchronize()
         assert T.bwd_group.launches == before + 2
         want = T.bwd_group_ref(body_w, stash, dh, cfg, b0, cnt,
@@ -388,6 +422,49 @@ def test_bwd_group_kernel_matches_plain(dev, name, kind):
             assert torch.equal(g, a), f"{what} differs between two runs"
             ok, err = _grad_close(g, w, kind.startswith("f32"))
             assert ok, (what, b0, cnt, err)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "f32_bf16stash"])
+def test_bwd_group_needs_the_steps_image(dev, kind):
+    """K5 reads its weights from the step's image only (``stage_bwd_weights``
+    of every body layer, as ``_bwd_core`` makes it): without one, or with
+    one of another size, it raises and launches nothing; with it, a group
+    and the whole body each run twice to the same bits."""
+    cd = torch.float32 if kind.startswith("f32") else torch.bfloat16
+    name = sorted(TRAIN_CASES)[0]
+    cfg, model, sampler, poses, pts, dp, L = _train_case(name, dev, cd)
+    nb, W = cfg.num_blocks, cfg.netwidth
+    scale = None
+    if kind in ("int8", "f32_bf16stash"):
+        fp = F.calibrate_r2l_int8_pe(
+            model, cfg, dp, L, _calibration_points(sampler, poses, dev),
+            fold_requant=False, stage=False)
+        _, stash = T.train_fwd_int8_ref(fp, cfg, pts, dp, L,
+                                        stash_q=kind == "int8")
+        scale = 1.0 / fp.body_inv if kind == "int8" else None
+    else:
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=cd,
+                                       stage=False)
+        _, stash = T.train_fwd_ref(fp, cfg, pts, dp, L)
+    body_w = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=cd,
+                                       stage=False).body_w
+    img = T.stage_bwd_weights(body_w)
+    dh = torch.randn((pts.shape[0], W), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    before = T.bwd_group.launches
+    for bad in (None, img[:-1]):
+        with pytest.raises(ValueError, match="staged"):
+            T.bwd_group(body_w, stash, dh, cfg, nb - 1, 1, body_scale=scale,
+                        staged=bad)
+    assert T.bwd_group.launches == before
+    for b0, cnt in ((nb - 1, 1), (0, nb)):
+        a = T.bwd_group(body_w, stash, dh, cfg, b0, cnt, body_scale=scale,
+                        staged=img)
+        b = T.bwd_group(body_w, stash, dh, cfg, b0, cnt, body_scale=scale,
+                        staged=img)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "int8_bf16stash",
@@ -787,17 +864,18 @@ def test_int8_probe_wrappers_raise_instead_of_falling_back(dev):
         PE.apply_variant(fp, cfg, pts[:, :47], 48, 10, 1)
 
 
-# K5 after its passes 2 and 3 moved into r2l_bwd_dw.cuh (shared with the
-# int8-dL/dx probe): its outputs on fixed numpy inputs, as sha256 digests of
-# (dh, dW, db), are those the kernel gave before the move (NVIDIA H100 80GB
-# HBM3, nvcc of CUDA 12.8, torch 2.11; PERF.md section 6, PR 7). Every sum
-# has a fixed order, so the same code gives the same bits.
+# K5's outputs on fixed numpy inputs, as sha256 digests of (dh, dW, db), as
+# its Hopper passes give them (r2l_bwd_hopper.cuh, f32 weights' dW as
+# 3xTF32: NVIDIA H100 80GB HBM3, nvcc of CUDA 12.8; PERF.md section 6; the
+# pre-Hopper kernel's, pinned when its passes moved into r2l_bwd_dw.cuh,
+# differ: other sum orders). Every sum has a fixed order, so the same code
+# gives the same bits.
 K5_DIGESTS = {
-    "f32": "92fb510449d917d75a1c0733d1f3eb0a00e93b3c107457e55bed7ce6345e3917",
-    "bf16": "3e1288b487aa8d834e139311f419505e76cfe8ad3dd2c74e0fbd2a477b5c3793",
-    "int8": "f6f37a98aa0b488886e0896be590b8be255fb5e5ebb5ada2132effdc5a156cd3",
+    "f32": "48c15e99bae53214e613c64b401a7ed5f13e24143c5c9bd161a90408edc3f625",
+    "bf16": "1b2d6ed6ebc8bd11e158ddcf059ad65cf2ecfff5aaa1b63b585f8c0f6d30e6fa",
+    "int8": "9a3e973da431460fcca934604bb46e6c4022c87a1ce74ffbf579d79edcca80a2",
     "f32_bf16stash":
-        "700cfea72956567bceb91bfe12fd97aa341b3bb75a2d78fdea9c874cca8524e1",
+        "b9ca88b502ad2d55db9b532429f7cae0c448240c3378e3740dd06dfa0bf02e5f",
 }
 
 
@@ -830,7 +908,7 @@ def k5_digest(kind, dev):
     import hashlib
     cfg, body_w, stash, scale, dh = _k5_fixed_inputs(kind, dev)
     out = T.bwd_group(body_w, stash, dh, cfg, 0, cfg.num_blocks,
-                      body_scale=scale)
+                      body_scale=scale, staged=T.stage_bwd_weights(body_w))
     torch.cuda.synchronize()
     h = hashlib.sha256()
     for t in out:
@@ -838,8 +916,27 @@ def k5_digest(kind, dev):
     return h.hexdigest()
 
 
+def test_bwd_group_runs_on_wgmma(dev):
+    """K5's library holds its Hopper passes only: the dh walk and both dW
+    passes (bf16 weights', and f32 weights' as 3xTF32) are in its SASS, with
+    HGMMA and no mma.sync (HMMA); the pre-Hopper scalar f32 pass is not."""
+    import subprocess
+    from r2l_tpu_torch.kernels import _build
+    _build.load("r2l_bwd_group")
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._library_path(
+        "r2l_bwd_group"))], check=True, capture_output=True, text=True).stdout
+    for fn in ("bwd_dh_hopper_kernel", "bwd_dw_wgmma_kernel",
+               "bwd_dw_tf32_kernel"):
+        assert fn in sass, fn
+    assert "HGMMA" in sass and "HMMA" not in sass
+    assert "bwd_dw_f32_kernel" not in sass
+
+
 @pytest.mark.parametrize("kind", sorted(K5_DIGESTS))
 def test_bwd_group_unchanged_by_the_header_split(dev, kind):
+    """A regression pin: K5's (dh, dW, db) on fixed inputs equal the
+    digests recorded for its Hopper passes (``K5_DIGESTS``)."""
     assert k5_digest(kind, dev) == K5_DIGESTS[kind]
 
 
@@ -909,16 +1006,20 @@ def test_bwd_group_qdx_matches_plain(dev, tile, kind):
 
 
 def test_bwd_group_qdx_shares_k5s_dw_pass(dev):
-    """The top layer's dt2 is K5's: its dW and db from the shared passes
-    equal K5's bit for bit on the card."""
+    """The top layer's dt2 is the same on both sides, but its dW and db come
+    from two passes: the probe's (r2l_bwd_dw.cuh, K5's before it moved to
+    wgmma) and K5's wgmma pass, summing in other orders. They agree
+    norm-relative within TOL_QDX_DW."""
     from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
     cfg, fp, stash, body_w, dh, scales = _qdx_case(dev)
     nb = cfg.num_blocks
     _, dw, db = PQ.bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash, dh,
                                  cfg, 0, nb, 512, scales["probe"])
     _, dw5, db5 = T.bwd_group(body_w, stash, dh, cfg, 0, nb,
-                              body_scale=scales["probe"])
-    assert torch.equal(dw[-1], dw5[-1]) and torch.equal(db[-1], db5[-1])
+                              body_scale=scales["probe"],
+                              staged=T.stage_bwd_weights(body_w))
+    assert _rel_err(dw[-1], dw5[-1]) <= TOL_QDX_DW
+    assert _rel_err(db[-1], db5[-1]) <= TOL_QDX_DW
 
 
 def test_bwd_group_qdx_raises_instead_of_falling_back(dev):
