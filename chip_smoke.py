@@ -37,33 +37,43 @@ Phases, in order; any failure raises and exits non-zero:
    against the plain f32 frames, K1 launches.
 5. Training kernels vs plain versions on the card, at one canonical
    distillation step's 81,920 rays (``sample_train`` of synthetic rays with
-   stratified depths): K3 (``train_fwd``) with f32 and bf16 weights, rgb
-   and every stash row; K4 (``train_fwd_int8``, ``stash_q=True``), rgb and
-   the stash q-values that differ; K8 (``stash_q=False``), rgb and every
-   bf16 stash row; K5 (``bwd_group``) with f32 and bf16 weights, the int8
+   stratified depths), each reading its image staged as a step stages it:
+   K3 (``train_fwd``) with f32 and bf16 weights, rgb and every stash row,
+   and for f32 (3xTF32, each weight stage summed apart) the share of
+   ``TOL_TRAIN_F32`` that rgb and every row use, for the canonical weights
+   and three more seeds (``[margin]`` lines); K4 (``train_fwd_int8``,
+   ``stash_q=True``), rgb and the stash q-values that differ; K8
+   (``stash_q=False``), rgb and every bf16 stash row; K4 and K8 also how
+   many outputs differ at all (their design is bit for bit); the new
+   kernels' registers and spills; K5 (``bwd_group``) with f32 and bf16
+   weights, the int8
    stash, and K8's bf16 stash under bf16 and under f32 weights, one 4-block
    group and the whole body walk, K5 reading its weights from one image
    staged per kind (``stage_bwd_weights``, as a training step stages it);
    under f32 weights (3xTF32) the walk's margin: the kernel's and the plain
    walk's (dh, dW, db) against float64, and the walk against plain for
    three more seeds of the weights and dh. Times each kernel and its plain
-   version with CUDA events (K5 with its operations bound, f32's as
-   3xTF32, and the bytes bound of its scratch design), and
+   version with CUDA events (K3 f32 and K5 with their operations bound,
+   f32's as 3xTF32, K5 with the bytes bound of its scratch design; the
+   per-step staging of each image, and K3's packing and K4's calibration
+   with it), and
    profiles one 4-block call of K5 on the int8 stash and of the int8-dL/dx
    probe's kernel (phase 14) on the same inputs, kernel time by name.
 6. Training main path: synthetic ray shards (100 x 4096 rays, record dim 9)
    written with ``write_ray_shards`` into a temporary directory and read
    back through ``RayShardDataset``/``RayBatchLoader``; for the kinds
    ``xla``, ``fused``, ``fused_int8`` and ``fused_int8_bf16stash``
-   (``fused_stash_q=False``), canonical W256/D88 distillation
+   (``fused_stash_q=False``), in bf16, and ``fused_f32`` (``fused`` at the
+   CLI's default compute dtype, f32), canonical W256/D88 distillation
    steps through ``make_distill_step`` with the README's flags (81,920 rays,
    hard ratio 0.2, hard_mul 20, warm-up 0.0001 over 200 steps): 2 warm-up
    steps then 10 timed ones (CUDA events), the loss falling, the first
-   step's loss of the fused kinds against ``xla``'s on the same params,
+   step's loss of the bf16 fused kinds against ``xla``'s on the same
+   params,
    batch and draws, two copies of a fused state run 3 steps bit-identical,
    the peak device memory, one more step under torch.profiler (kernel time
    by name and the card's idle share), and the K3/K4/K8/K5 launch counts in
-   that run.
+   that run, per kind (each fused kind's forward once a step: 19).
 7. Teacher kernels vs plain versions on the card: the canonical NeRF teacher
    (8x256, skip at 4, viewdirs, L=10/4; random weights from a seeded
    generator, alpha_linear's bias raised by 1 so the density is positive),
@@ -804,7 +814,7 @@ def k5_f32_margin(kind, body_w, stash, dh, cfg, walk, err, pts,
             model = init_r2l(cfg, torch.Generator().manual_seed(SEED + 20 + s),
                              dev)
             fp = F.prepare_fused_params_pe(model, cfg, N_SAMPLE * 3, EMBED_L,
-                                           weight_dtype=f32, stage=False)
+                                           weight_dtype=f32)
             _, st = T.train_fwd(fp, cfg, pts, N_SAMPLE * 3, EMBED_L)
             g = torch.randn(dh.shape, generator=torch.Generator(
                 dev).manual_seed(SEED + 20 + s), device=dev)
@@ -834,8 +844,74 @@ def train_points(cfg, sampler, dev) -> torch.Tensor:
     return sampler.sample_train(rec[:, 0:3], rec[:, 3:6], z).contiguous()
 
 
+def k3_row_errs(stash, stash_p, kind: str) -> torch.Tensor:
+    """K3's error per stash row against the plain version's: max-abs (f32),
+    or relative to the row's largest value (bf16)."""
+    row = (stash.float() - stash_p.float()).abs().amax(dim=(1, 2))
+    if kind == "bf16":
+        row = row / stash_p.float().abs().amax(dim=(1, 2)).clamp(min=1)
+    return row
+
+
+def k3_margin_line(label: str, rgb_err: float, row: torch.Tensor,
+                   nb: int) -> dict:
+    """Print where K3 f32 sits against ``TOL_TRAIN_F32``: rgb, the worst
+    stash row (and which), the h rows' (0..nb) and the t rows' worst."""
+    worst, at = float(row.max()), int(row.argmax())
+    h_rows, t_rows = float(row[:nb + 1].max()), float(row[nb + 1:].max())
+    print(f"[margin] K3 f32 {label}: rgb {rgb_err:.3e} "
+          f"({rgb_err / TOL_TRAIN_F32:.0%} of {TOL_TRAIN_F32:.0e}); stash "
+          f"worst {worst:.3e} at row {at} ({worst / TOL_TRAIN_F32:.0%}); "
+          f"h rows {h_rows:.3e}, t rows {t_rows:.3e}", flush=True)
+    return {"rgb": rgb_err, "stash_worst": worst, "stash_worst_row": at,
+            "h_rows": h_rows, "t_rows": t_rows,
+            "rows": [float(x) for x in row]}
+
+
+def k3_f32_seeds(cfg, pts, dev, first: dict) -> dict:
+    """K3 f32 against its plain version at one step's rays for three more
+    seeds of the weights (``init_r2l`` seeds SEED + 21..23), rgb and every
+    stash row held to ``TOL_TRAIN_F32``; with ``first`` (the canonical
+    weights') the worst of the four."""
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.kernels import r2l_train as T
+    from r2l_tpu_torch.models import init_r2l
+    dp, L, nb = N_SAMPLE * 3, EMBED_L, cfg.num_blocks
+    out = {"seed 0": first}
+    for s in (1, 2, 3):
+        model = init_r2l(cfg, torch.Generator().manual_seed(SEED + 20 + s),
+                         dev)
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L,
+                                       weight_dtype=torch.float32)
+        rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
+        rgb_p, stash_p = T.train_fwd_ref(fp, cfg, pts, dp, L)
+        err = deltas(rgb, rgb_p)[0]
+        row = k3_row_errs(stash, stash_p, "f32")
+        out[f"seed {s}"] = k3_margin_line(f"weights seed {s}", err, row, nb)
+        check(f"K3 f32 weights seed {s}: rgb vs plain", err, 0.0,
+              TOL_TRAIN_F32)
+        check(f"K3 f32 weights seed {s}: stash, worst of {row.numel()} "
+              "rows", float(row.max()), 0.0, TOL_TRAIN_F32)
+        del model, fp, stash, stash_p
+        torch.cuda.empty_cache()
+    worst = max(max(v["rgb"], v["stash_worst"]) for v in out.values())
+    print(f"[margin] K3 f32 over 4 seeds of the weights, rgb and every stash "
+          f"row: worst {worst:.3e}, {worst / TOL_TRAIN_F32:.0%} of "
+          f"{TOL_TRAIN_F32:.0e}", flush=True)
+    out["worst"] = worst
+    return out
+
+
+def train_registers() -> dict:
+    """nvcc's register and spill lines of K3's and K4/K8's libraries."""
+    from r2l_tpu_torch.kernels import _build
+    return {lib: [ln.strip() for ln in _build.compiler_log(lib).splitlines()
+                  if "registers" in ln or "spill" in ln]
+            for lib in ("r2l_train_fwd", "r2l_train_fwd_int8")}
+
+
 def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
-    """K3, K4 and K5 against their plain versions at one step's rays."""
+    """K3, K4, K8 and K5 against their plain versions at one step's rays."""
     from r2l_tpu_torch.kernels import r2l_fused as F
     from r2l_tpu_torch.kernels import r2l_train as T
     from r2l_tpu_torch.exp._harness import chain_ops
@@ -844,39 +920,51 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
     pts = train_points(cfg, sampler, dev)
     n = pts.shape[0]
     ops = chain_ops(cfg, n, cfg.input_dim)
-    res, stashes = {}, {}
+    res, stashes = {"registers": train_registers()}, {}
 
     for wd, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
-                                       stage=False)   # as the step packs
+        # packed and staged as the step does it, every step
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd)
         rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
         rgb_p, stash_p = T.train_fwd_ref(fp, cfg, pts, dp, L)
         tol = TOL_TRAIN_F32 if kind == "f32" else TOL_TRAIN_BF16
         check(f"K3 {kind} rgb vs plain", *deltas(rgb, rgb_p), tol)
-        row = (stash.float() - stash_p.float()).abs().amax(dim=(1, 2))
-        if kind == "bf16":
-            row = row / stash_p.float().abs().amax(dim=(1, 2)).clamp(min=1)
+        row = k3_row_errs(stash, stash_p, kind)
         check(f"K3 {kind} stash, worst of {stash.shape[0]} rows"
               + (" (relative to the row's largest)" if kind == "bf16"
                  else ""), float(row.max()), 0.0, tol)
         del stash_p
-        res[f"train_fwd_{kind}"] = {
+        r = res[f"train_fwd_{kind}"] = {
             "max_abs_err": deltas(rgb, rgb_p)[0],
             "stash_row_err": float(row.max()),
             "ms": time_ms(lambda: T.train_fwd(fp, cfg, pts, dp, L)),
             "plain_ms": time_ms(lambda: T.train_fwd_ref(fp, cfg, pts, dp, L)),
+            # the step's packing and K1's image, and the image alone
+            "pack_ms": time_ms(lambda: F.prepare_fused_params_pe(
+                model, cfg, dp, L, weight_dtype=wd)),
+            "stage_ms": time_ms(lambda: F.stage_chain_weights(fp)),
             **bound(ops, nbytes(pts, rgb, stash, *fp), kind),
             "library_ms": None}
+        if kind == "f32":
+            # 3xTF32: three TF32 products per multiply-add; the CUDA cores'
+            # true-f32 bound beside it
+            r["bound_cuda_cores_ms"] = r["bound_ms"]
+            r.update(bound(3 * ops, nbytes(pts, rgb, stash, *fp), "tf32"))
+            r["margin"] = k3_f32_seeds(cfg, pts, dev, k3_margin_line(
+                "canonical weights (seed 0)", r["max_abs_err"], row, nb))
         stashes[kind] = (fp.body_w, stash)
         torch.cuda.empty_cache()
 
     calib = fused_int8_calib_points(H, W, FOCAL, N_SAMPLE, 2.0, 6.0, poses,
                                     dev)
     fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L, calib,
-                                  fold_requant=False)
-    rgb, stash = T.train_fwd_int8(fp8, cfg, pts, dp, L, stash_q=True)
+                                  fold_requant=False, stage=False)
+    fp8q = F.stage_int8_train(fp8, cfg, dp, L, True)
+    fp8b = F.stage_int8_train(fp8, cfg, dp, L, False)
+    rgb, stash = T.train_fwd_int8(fp8q, cfg, pts, dp, L, stash_q=True)
     rgb_p, stash_p = T.train_fwd_int8_ref(fp8, cfg, pts, dp, L, stash_q=True)
     check("K4 rgb vs plain", *deltas(rgb, rgb_p), TOL_INT8_MAX, TOL_INT8_RMS)
+    k48_bits("K4", rgb, rgb_p, stash, stash_p)
     dq = (stash.int() - stash_p.int()).abs()
     n_diff, step = int((dq > 0).sum()), int(dq.max())
     share = n_diff / dq.numel()
@@ -890,20 +978,28 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
     del stash_p, dq
     res["train_fwd_int8"] = {
         "max_abs_err": deltas(rgb, rgb_p)[0], "stash_q_differ": n_diff,
-        "ms": time_ms(lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L,
+        "ms": time_ms(lambda: T.train_fwd_int8(fp8q, cfg, pts, dp, L,
                                                stash_q=True)),
         "plain_ms": time_ms(lambda: T.train_fwd_int8_ref(fp8, cfg, pts, dp,
                                                          L, stash_q=True)),
+        # the step's calibration and K4's image, and the image alone
+        "calib_ms": time_ms(lambda: F.stage_int8_train(
+            F.calibrate_r2l_int8_pe(model, cfg, dp, L, calib,
+                                    fold_requant=False, stage=False),
+            cfg, dp, L, True)),
+        "stage_ms": time_ms(lambda: F.stage_int8_train(fp8, cfg, dp, L,
+                                                       True)),
         **bound(ops, nbytes(pts, rgb, stash, *fp8), "int8"),
         "library_ms": None}
     body_bf16 = stashes["bf16"][0]
     stashes["int8"] = (body_bf16, stash)
     scale8 = 1.0 / fp8.body_inv
 
-    rgb, stash = T.train_fwd_int8(fp8, cfg, pts, dp, L, stash_q=False)
+    rgb, stash = T.train_fwd_int8(fp8b, cfg, pts, dp, L, stash_q=False)
     rgb_p, stash_p = T.train_fwd_int8_ref(fp8, cfg, pts, dp, L,
                                           stash_q=False)
     check("K8 rgb vs plain", *deltas(rgb, rgb_p), TOL_INT8_MAX, TOL_INT8_RMS)
+    k48_bits("K8", rgb, rgb_p, stash, stash_p)
     if stash.dtype != torch.bfloat16 or stash.shape != stash_p.shape:
         raise AssertionError(f"K8 stash {stash.dtype} {tuple(stash.shape)}")
     row = torch.stack([(a.float() - b.float()).abs().max()
@@ -915,8 +1011,10 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
     res["train_fwd_int8_bf16"] = {
         "max_abs_err": deltas(rgb, rgb_p)[0],
         "stash_row_err": float(row.max()),
-        "ms": time_ms(lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L,
+        "ms": time_ms(lambda: T.train_fwd_int8(fp8b, cfg, pts, dp, L,
                                                stash_q=False)),
+        "stage_ms": time_ms(lambda: F.stage_int8_train(fp8, cfg, dp, L,
+                                                       False)),
         "plain_ms": time_ms(lambda: T.train_fwd_int8_ref(
             fp8, cfg, pts, dp, L, stash_q=False)),
         **bound(ops, nbytes(pts, rgb, stash, *fp8), "int8"),
@@ -1003,11 +1101,18 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
             f"{r['name'][:48]} {r['ms']:.3f} ms x{r['calls']}"
             for r in prof["top"]), flush=True)
     for key, r in res.items():
+        if key == "registers":
+            continue
         print(f"[time] {key}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}) at {n} rays"
-              + (f"; scratch-bytes bound {r['bound_scratch_ms']:.3f} ms, "
-                 f"staging {r['stage_ms']:.3f} ms a step"
+              + (f"; staging {r['stage_ms']:.3f} ms a step"
+                 if "stage_ms" in r else "")
+              + (f" (the step's packing with it {r['pack_ms']:.3f} ms)"
+                 if "pack_ms" in r else "")
+              + (f" (the step's calibration with it {r['calib_ms']:.3f} ms)"
+                 if "calib_ms" in r else "")
+              + (f"; scratch-bytes bound {r['bound_scratch_ms']:.3f} ms"
                  if "bound_scratch_ms" in r else "")
               + (f"; whole walk {r['walk_ms']:.3f} ms, plain "
                  f"{r['walk_plain_ms']:.3f}" if "walk_ms" in r else "")
@@ -1019,6 +1124,18 @@ def phase_train_kernels(model, cfg, sampler, poses, dev) -> dict:
     del stashes
     torch.cuda.empty_cache()
     return res
+
+
+def k48_bits(label: str, rgb, rgb_p, stash, stash_p) -> dict:
+    """Print how many of K4's or K8's outputs differ from the plain
+    version's at all (the design keeps every rounding: bit for bit)."""
+    d_rgb = int((rgb != rgb_p).sum())
+    d_st = int((stash.view(torch.uint8) != stash_p.view(torch.uint8)).sum())
+    print(f"[check] {label} vs plain, bit for bit: {d_rgb} of {rgb.numel()} "
+          f"rgb values and {d_st} of {stash.numel() * stash.element_size()} "
+          "stash bytes differ" + (" (bit for bit)" if d_rgb == d_st == 0
+                                  else ""), flush=True)
+    return {"rgb_differ": d_rgb, "stash_bytes_differ": d_st}
 
 
 def profile_kernels(fn, top: int = 12) -> dict:
@@ -1067,8 +1184,12 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
                                     dev)
     int8 = {"fused_vjp": True, "fused_quantize": "int8",
             "fused_calib_pts": calib}
+    # the four kinds in bf16, then `fused` at the CLI's default compute
+    # dtype, f32 (K3 f32 + K5 f32)
     kinds = {"xla": {}, "fused": {"fused_vjp": True}, "fused_int8": int8,
-             "fused_int8_bf16stash": {**int8, "fused_stash_q": False}}
+             "fused_int8_bf16stash": {**int8, "fused_stash_q": False},
+             "fused_f32": {"fused_vjp": True}}
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         write_ray_shards(tmp, synthetic_rays(N_SHARDS * SHARD_RAYS, SEED),
@@ -1084,16 +1205,25 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
             loader.close()
     draws = [draw_step(dcfg, N_SAMPLE, torch.Generator(dev).manual_seed(
         100 + i)) for i in range(len(batches))]
+    def counts():
+        return {"train_fwd": T.train_fwd.launches,
+                "train_fwd_int8": T.train_fwd_int8.launches,
+                "train_fwd_int8_bf16": T.train_fwd_int8.launches_bf16,
+                "bwd_group": T.bwd_group.launches}
+
     for f in (T.train_fwd, T.train_fwd_int8, T.bwd_group):
         f.launches = 0
     T.train_fwd_int8.launches_bf16 = 0
+    per_kind = {}
     for kind, kw in kinds.items():
-        if kw.get("fused_vjp") and not fused_vjp_gate(True, cfg, False):
+        kcfg = cfg32 if kind == "fused_f32" else cfg
+        if kw.get("fused_vjp") and not fused_vjp_gate(True, kcfg, False):
             raise AssertionError(f"{kind}: the fused gate refused W256/D88")
+        before = counts()
         torch.cuda.reset_peak_memory_stats(dev)
-        model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+        model = init_r2l(kcfg, torch.Generator().manual_seed(SEED), dev)
         state = init_train_state(model, dcfg, device=dev)
-        step = make_distill_step(cfg, dcfg, sampler, device=dev, **kw)
+        step = make_distill_step(kcfg, dcfg, sampler, device=dev, **kw)
         losses = []
         for i in range(2):                      # warm-up, same draws per kind
             state, m = step(state, batches[i], draws=draws[i])
@@ -1117,7 +1247,7 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
         if not all(np.isfinite(losses)) or not (
                 np.mean(losses[-3:]) < losses[0]):
             raise AssertionError(f"{kind}: loss did not fall: {losses}")
-        if kind != "xla":
+        if kind in RTOL_LOSS:   # the bf16 kinds against bf16 xla
             first = res["xla"]["losses"][0]
             rel = abs(losses[0] - first) / abs(first)
             ok = rel <= RTOL_LOSS[kind]
@@ -1127,6 +1257,7 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
                   flush=True)
             if not ok:
                 raise AssertionError(f"{kind} first-step loss off xla's")
+        if kind != "xla":
             runs = []
             for s0 in snap:
                 for i in range(2, 5):
@@ -1156,16 +1287,25 @@ def phase_train_main(cfg, sampler, poses, dev) -> dict:
         res[kind] = r
         del state, snap, model, step
         torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    res["launches"] = {"train_fwd": T.train_fwd.launches,
-                       "train_fwd_int8": T.train_fwd_int8.launches,
-                       "train_fwd_int8_bf16":
-                           T.train_fwd_int8.launches_bf16,
-                       "bwd_group": T.bwd_group.launches}
-    print(f"[main] training kernel launches: {res['launches']}", flush=True)
+        torch.cuda.synchronize()
+        per_kind[kind] = {k: v - before[k] for k, v in counts().items()}
+    res["launches"] = counts()
+    res["launches_per_kind"] = per_kind
+    print(f"[main] training kernel launches: {res['launches']}; per kind "
+          f"{per_kind}", flush=True)
     for name, count in res["launches"].items():
         if count <= 0:
             raise AssertionError(f"the training path never launched {name}")
+    # every fused step runs its forward once: warm-up, timed, the repeats'
+    # two copies of three steps, the profiled step
+    steps = 2 + TIMED_STEPS + 6 + 1
+    for kind, fwd in (("fused", "train_fwd"), ("fused_f32", "train_fwd"),
+                      ("fused_int8", "train_fwd_int8"),
+                      ("fused_int8_bf16stash", "train_fwd_int8_bf16")):
+        if per_kind[kind][fwd] != steps:
+            raise AssertionError(f"{kind}: {fwd} launched "
+                                 f"{per_kind[kind][fwd]} times in {steps} "
+                                 "steps")
     return res
 
 
@@ -2400,7 +2540,11 @@ def main() -> int:
               "r2l_tpu/kernels/r2l_pallas.py:571",
               main_res["launches"]["int8"], kern["int8"]),
         entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",
-              train["launches"]["train_fwd"], tkern["train_fwd_bf16"]),
+              train["launches_per_kind"]["fused"]["train_fwd"],
+              tkern["train_fwd_bf16"]),
+        entry("train_fwd_f32", "r2l_train_fwd.cu", tr + ":54",
+              train["launches_per_kind"]["fused_f32"]["train_fwd"],
+              tkern["train_fwd_f32"]),
         entry("train_fwd_int8", "r2l_train_fwd_int8.cu", tr + ":182",
               train["launches"]["train_fwd_int8"], tkern["train_fwd_int8"]),
         entry("train_fwd_int8_bf16stash", "r2l_train_fwd_int8.cu",

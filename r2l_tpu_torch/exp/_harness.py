@@ -18,8 +18,8 @@ a few source edits (``edited_sources``), built with the repository's nvcc
 flags (``build_variants``) and swapped in for its kernel's library
 (``loading``), timed against the build in turns base / variant / variant /
 base (``in_turns``); ``--steps TREE ...`` times instead the four
-distillation kinds of ``chip_smoke.py``'s phase 6 in each checkout given
-(``time_steps``). ``variants_main`` is their command line.
+distillation kinds of ``chip_smoke.py``'s phase 6, and ``fused`` at the
+CLI's default f32, in each checkout given (``time_steps``). ``variants_main`` is their command line.
 """
 from __future__ import annotations
 
@@ -204,15 +204,16 @@ def edited_sources(edits, csrc: Path, dst: Path) -> None:
         (dst / fname).write_text(src.replace(text, repl))
 
 
-def build_variants(jobs: dict, work: Path) -> dict:
+def build_variants(jobs: dict, work: Path, csrc: Path | None = None) -> dict:
     """Build each variant's library in parallel, ``jobs`` mapping its name
-    to (edits, the library's name in ``_build.KERNELS``): name -> (CDLL,
-    the compiler's register and spill lines)."""
+    to (edits, the library's name in ``_build.KERNELS``), from ``csrc``
+    (default: this checkout's ``kernels/csrc``): name -> (CDLL, the
+    compiler's register and spill lines)."""
     from ..kernels import _build
     procs = {}
     for name, (edits, lib) in jobs.items():
         d = work / name
-        edited_sources(edits, _build.CSRC, d)
+        edited_sources(edits, csrc or _build.CSRC, d)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
              str(d / f"{lib}.cu")], stdout=subprocess.PIPE,
@@ -270,7 +271,7 @@ def in_turns(base: Callable, variant: Callable, swap, reps: int = 5):
 # The distillation steps in a checkout (argv[1]): its own code and
 # chip_smoke.py constants, phase 6's data, warm-up and timed steps.
 _STEPS = r"""
-import os, sys, tempfile
+import dataclasses, os, sys, tempfile
 tree = os.path.abspath(sys.argv[1])
 sys.path.insert(0, tree)
 import numpy as np, torch
@@ -296,7 +297,9 @@ calib = fused_int8_calib_points(cs.H, cs.W, cs.FOCAL, cs.N_SAMPLE, 2.0, 6.0,
                                 cs.lego_poses(cs.K), dev)
 int8 = {"fused_vjp": True, "fused_quantize": "int8", "fused_calib_pts": calib}
 kinds = (("xla", {}), ("fused", {"fused_vjp": True}), ("fused_int8", int8),
-         ("fused_int8_bf16stash", {**int8, "fused_stash_q": False}))
+         ("fused_int8_bf16stash", {**int8, "fused_stash_q": False}),
+         ("fused_f32", {"fused_vjp": True}))
+cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
 with tempfile.TemporaryDirectory() as tmp:
     write_ray_shards(tmp, cs.synthetic_rays(cs.N_SHARDS * cs.SHARD_RAYS,
                                             cs.SEED),
@@ -311,9 +314,10 @@ with tempfile.TemporaryDirectory() as tmp:
 draws = [draw_step(dcfg, cs.N_SAMPLE, torch.Generator(dev).manual_seed(
     100 + i)) for i in range(len(batches))]
 for kind, kw in kinds:
-    model = init_r2l(cfg, torch.Generator().manual_seed(cs.SEED), dev)
+    kcfg = cfg32 if kind == "fused_f32" else cfg
+    model = init_r2l(kcfg, torch.Generator().manual_seed(cs.SEED), dev)
     state = init_train_state(model, dcfg, device=dev)
-    step = make_distill_step(cfg, dcfg, sampler, device=dev, **kw)
+    step = make_distill_step(kcfg, dcfg, sampler, device=dev, **kw)
     for i in range(2):
         state, m = step(state, batches[i], draws=draws[i])
     s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -329,7 +333,7 @@ for kind, kw in kinds:
 
 
 def time_steps(trees, log: Log, prog: str) -> None:
-    """Time the four distillation kinds in each checkout of ``trees``, in
+    """Time the five distillation kinds in each checkout of ``trees``, in
     order, each in a process of its own with that checkout's code and
     constants: one record per kind and checkout."""
     require_cuda(prog)
@@ -346,19 +350,40 @@ def time_steps(trees, log: Log, prog: str) -> None:
                  "ms_per_step": float(ms), "loss": float(loss)})
 
 
+def parent_libs(tree: str, names, work: Path) -> dict:
+    """The libraries ``names`` built from the sources of the checkout
+    ``tree`` (a parent's, unpacked with ``git archive``): name -> (CDLL,
+    register and spill lines)."""
+    return build_variants({n: ([], n) for n in names}, work,
+                          Path(tree) / "r2l_tpu_torch" / "kernels" / "csrc")
+
+
+def registers(name: str) -> list[str]:
+    """This checkout's register and spill lines of library ``name``."""
+    from ..kernels import _build
+    return [ln.strip() for ln in _build.compiler_log(name).splitlines()
+            if "Used" in ln or "spill" in ln]
+
+
 def variants_main(prog: str, doc: str, variants: dict,
-                  time_variants: Callable, argv=None) -> None:
+                  time_variants: Callable, argv=None,
+                  compare_parent: Callable | None = None) -> None:
     """A design-run tool's command line: ``--variants a,b`` (default all of
-    ``variants``) timed by ``time_variants(names, log)``, or ``--steps TREE
-    ...``; ``--out`` appends the records to a file."""
+    ``variants``) timed by ``time_variants(names, log)``, ``--steps TREE
+    ...``, or ``--parent TREE`` (``compare_parent(tree, log)``: this
+    checkout's kernels against a parent's, bit for bit); ``--out`` appends
+    the records to a file."""
     ap = argparse.ArgumentParser(prog=prog, description=doc.splitlines()[0])
     ap.add_argument("--variants", default=",".join(variants))
     ap.add_argument("--steps", nargs="+", metavar="TREE")
+    ap.add_argument("--parent", metavar="TREE")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     log = Log(args.out)
     if args.steps:
         time_steps(args.steps, log, prog)
+    elif args.parent and compare_parent is not None:
+        compare_parent(args.parent, log)
     else:
         names = [n for n in args.variants.split(",") if n]
         unknown = sorted(set(names) - set(variants))

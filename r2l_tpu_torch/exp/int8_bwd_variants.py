@@ -1,5 +1,5 @@
-"""K2's and K5's design alternatives, measured on the card: variant copies of
-their Hopper sources (``kernels/csrc/r2l_int8_hopper.cuh``,
+"""K2's, K4/K8's and K5's design alternatives, measured on the card: variant
+copies of their Hopper sources (``kernels/csrc/r2l_int8_hopper.cuh``,
 ``r2l_bwd_hopper.cuh``) timed against the kernels as built.
 
 A variant is a copy of ``kernels/csrc`` with a few source edits
@@ -38,12 +38,30 @@ timing-only ones, whose outputs are wrong by design, are not:
 * ``k5_nomask``: pass 1 without reading the stash for the ReLU mask
   (timing only);
 * ``k5_nodts``: pass 1 with bf16 weights without writing the dt scratch
-  (timing only).
+  (timing only);
+* ``k48_nostash``: K4 and K8 without their stash stores (timing only);
+* ``k48_lockstep``: K4's and K8's two consumer warpgroups at the same
+  layer, not half a layer apart (as ``k2_lockstep`` for K2);
+* ``k4_regstash``: K4's stash rows stored from the epilogues' registers
+  (each thread's column pairs, two bytes), not by bulk stores from Q;
+* ``k8_quadstash``: K8's stash rows stored 16 bytes a thread after a
+  transpose within the quad, not as each thread's 4-byte column pairs;
+* ``k4_ks128``: K4 at W256 with K2's 128-channel stages in a ring of two
+  32 KB slots, not four 16 KB slots of 64 channels (its image staged to
+  match).
 
-``--steps TREE ...`` times instead the four distillation kinds of
+K4/K8's (``k48_*``, ``k4_*``) are timed at a distillation step's 81,920
+rays (``chip_smoke.train_points``, the step's calibration points), each
+held bit for bit to the base where it keeps the function.
+
+``--parent TREE`` builds K2 from a parent checkout's sources and holds this
+checkout's to it on a frame in its three forms, bit for bit, in turns, with
+both builds' registers.
+
+``--steps TREE ...`` times instead the five distillation kinds of
 ``chip_smoke.py``'s phase 6 (``xla``, ``fused``, ``fused_int8``,
-``fused_int8_bf16stash``) in each checkout given, as ``chain_variants``
-does (``_harness.time_steps``).
+``fused_int8_bf16stash``, and ``fused_f32``) in each checkout given, as
+``chain_variants`` does (``_harness.time_steps``).
 
     python -m r2l_tpu_torch.exp.int8_bwd_variants [--variants k2_cvt,...] \\
         [--out PATH]
@@ -73,14 +91,16 @@ TURN_WAIT = """      // warpgroup 0 leads, 1 follows half a layer behind
 """
 TURN_PASS = "      pair_arrive(wg == 0 ? 3 : 4);"
 TURN_END = "  if (wg == 0) pair_sync(4);  // warpgroup 1's last arrival"
-INNER_STORE = "            putq(r0 + 8 * h, c, x0, x1);"
+INNER_STORE = "            putq(r, c, x0, x1);"
 PE_STORE = "        put(r, p * ns + sl, q);"
-TAIL_ADD = "        const __nv_bfloat162 hn = __hadd2(tb, hs[at(h, c)]);"
+TAIL_ADD = ("            hn = __hadd2(__floats2bfloat162_rn(t0, t1), "
+            "hs[at(h, c)]);")
 # the block tail's add in f32, then rounded to bf16
-TAIL_ADD_F32 = """        const float2 tv = __bfloat1622float2(tb);
-        const float2 hv = __bfloat1622float2(hs[at(h, c)]);
-        const __nv_bfloat162 hn = __floats2bfloat162_rn(__fadd_rn(tv.x, hv.x),
-                                                        __fadd_rn(tv.y, hv.y));"""
+TAIL_ADD_F32 = """            const float2 tv =
+                __bfloat1622float2(__floats2bfloat162_rn(t0, t1));
+            const float2 hv = __bfloat1622float2(hs[at(h, c)]);
+            hn = __floats2bfloat162_rn(__fadd_rn(tv.x, hv.x),
+                                       __fadd_rn(tv.y, hv.y));"""
 MMA_S8 = "        Wgmma<N>::s8(d, da, db, st > 0 || j > 0 || accumulate);"
 PARK = """    // park dh, then dt2 = (dh * res_scale).cast(cd)
 #pragma unroll
@@ -112,6 +132,44 @@ DW_SCALAR = """    const int grid = (W / 64) * (W / 64) * 2 * cnt * splits;
         static_cast<const float*>(dts), static_cast<const S*>(stash_h),
         static_cast<const S*>(stash_t), part, n, W, cnt, rays_per_split);"""
 F32_ONLY = ("k5_f32regs", "k5_dwscalar")   # variants of f32 weights' code
+STASH_Q = ("        *static_cast<uint16_t*>(p) = (uint16_t)__byte_perm(x0, "
+           "x1, 0x0040);")
+STASH_B = """      if (void* p = stash_at(row, r0 + 8 * h, 8 * j + 2 * (lane % 4)))
+        *static_cast<__nv_bfloat162*>(p) = v;"""
+# K8's pairs of four column groups traded within the quad, 16 bytes a lane
+STASH_B_QUAD = """      const int tq = lane % 4;
+      sb[h][j % 4] = *reinterpret_cast<const uint32_t*>(&v);
+      if (j % 4 != 3) return;
+      quad_transpose(sb[h], tq);
+      if (void* p = stash_at(row, r0 + 8 * h, 8 * (j - 3 + tq)))
+        *static_cast<uint4*>(p) =
+            make_uint4(sb[h][0], sb[h][1], sb[h][2], sb[h][3]);"""
+STASHB_DECL = ("  auto stashb = [&](int row, int j, int h, __nv_bfloat162 v) {")
+K4_STAGE = "      W >= 128 && !(W == 256 && kEpi == kTrainQ) ? 128 : 64;"
+K4_BULK = "      if (pend_row >= 0 && wtid == 0) {"
+K4_FREE = """      if (wtid == 0) bulk_wait_read<0>();
+      wg_bar(bar_id);"""
+K4_HEAD_Q = """        putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, inv.x)),
+             q8b(__fmul_rn(hv.y, inv.y)));"""
+K4_INNER_Q = "            putq(r, c, x0, x1);"
+K4_TAIL_Q = """            putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, iv.x)),
+                 q8b(__fmul_rn(hv.y, iv.y)));"""
+# K4's stash rows from the registers, as K8's
+K4_REG_STASH = [
+    (K2, K4_BULK, "      if (false) {"), (K2, K4_FREE, ""),
+    (K2, K4_HEAD_Q, """{
+        const int q0 = q8b(__fmul_rn(hv.x, inv.x));
+        const int q1 = q8b(__fmul_rn(hv.y, inv.y));
+        putq(r0 + 8 * h, c, q0, q1);
+        stashq(0, r0 + 8 * h, c, q0, q1);
+      }"""),
+    (K2, K4_INNER_Q, K4_INNER_Q + "\n            stashq(a.nb + 1 + blk, r, c, "
+                                  "x0, x1);"),
+    (K2, K4_TAIL_Q, """const int q0 = q8b(__fmul_rn(hv.x, iv.x));
+            const int q1 = q8b(__fmul_rn(hv.y, iv.y));
+            putq(r0 + 8 * h, c, q0, q1);
+            stashq(blk + 1, r0 + 8 * h, c, q0, q1);""")]
+K4_SLOTS = "  static constexpr int kStages = 4, kParts = 1;"
 
 # name: ([(file, text, replacement)], kernel ("k2" or "k5"), checked output)
 VARIANTS = {
@@ -147,8 +205,25 @@ VARIANTS = {
     "k5_nomask": ([(K5, MASK, "        live = make_float2(1.f, 1.f);")],
                   "k5", False),
     "k5_nodts": ([(K5, DT_REGS, "        if (false)")], "k5", False),
+    "k48_nostash": ([(K2, STASH_Q, "        (void)p;"),
+                     (K2, STASH_B, ""),
+                     (K2, K4_BULK, "      if (false) {")], "k48", False),
+    "k4_regstash": (K4_REG_STASH, "k48", True),
+    "k48_lockstep": ([(K2, TURN_WAIT, ""), (K2, TURN_PASS, ""),
+                      (K2, TURN_END, "")], "k48", True),
+    "k8_quadstash": ([(K2, STASH_B, STASH_B_QUAD),
+                      (K2, STASHB_DECL,
+                       "  uint32_t sb[2][4];\n" + STASHB_DECL)], "k48", True),
+    "k4_ks128": ([(K2, K4_STAGE, "      W >= 128 ? 128 : 64;"),
+                  (K2, K4_SLOTS, "  static constexpr int kStages = "
+                                 "kEpi == kTrainQ && W == 256 ? 2 : 4;\n"
+                                 "  static constexpr int kParts = 1;")],
+                 "k48", True),
 }
-LIBS = {"k2": "r2l_int8_hopper", "k5": "r2l_bwd_group"}
+LIBS = {"k2": "r2l_int8_hopper", "k5": "r2l_bwd_group",
+        "k48": "r2l_train_fwd_int8"}
+# a variant's K4 image stage width where it differs from the build's
+STAGE_K = {"k4_ks128": 128}
 
 
 def k2_case(dev):
@@ -178,18 +253,21 @@ def k5_cases(dev):
     g = torch.Generator(dev).manual_seed(1)
     n, nb, W = 81920, cfg.num_blocks, cfg.netwidth
     pts = torch.rand((n, 48), generator=g, device=dev) * 2 - 1
-    fp = F.prepare_fused_params_pe(model, cfg, 48, 10, stage=False)
+    fp = F.prepare_fused_params_pe(model, cfg, 48, 10)
     _, stash = T.train_fwd(fp, cfg, pts, 48, 10)
     fp8 = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, pts[::64],
                                   fold_requant=False, stage=False)
-    _, stash8 = T.train_fwd_int8(fp8, cfg, pts, 48, 10, stash_q=True)
+    _, stash8 = T.train_fwd_int8(F.stage_int8_train(fp8, cfg, 48, 10, True),
+                                 cfg, pts, 48, 10, stash_q=True)
     dh = torch.randn((n, W), generator=g, device=dev)
     img = T.stage_bwd_weights(fp.body_w)
-    fp32 = F.prepare_fused_params_pe(model, cfg, 48, 10, stage=False,
+    fp32 = F.prepare_fused_params_pe(model, cfg, 48, 10,
                                      weight_dtype=torch.float32)
     _, stash32 = T.train_fwd(fp32, cfg, pts, 48, 10)
     img32 = T.stage_bwd_weights(fp32.body_w)
-    _, stash8b = T.train_fwd_int8(fp8, cfg, pts, 48, 10, stash_q=False)
+    _, stash8b = T.train_fwd_int8(F.stage_int8_train(fp8, cfg, 48, 10,
+                                                     False),
+                                  cfg, pts, 48, 10, stash_q=False)
     return [(kind, lambda w=w, st=st, sc=sc, im=im: T.bwd_group(
         w, st, dh, cfg, nb - 4, 4, body_scale=sc, staged=im))
             for kind, w, st, sc, im in (
@@ -199,11 +277,41 @@ def k5_cases(dev):
                 ("f32_bf16stash", fp32.body_w, stash8b, None, img32))]
 
 
+def k48_cases(dev):
+    """[(name, run(fp), fp, stash_q)] of K4 and K8 at a step's 81,920 rays
+    (``chip_smoke.train_points``) of the canonical student, calibrated on
+    the step's calibration points."""
+    import chip_smoke as cs
+    from ..kernels import r2l_fused as F
+    from ..kernels import r2l_train as T
+    from ..models.r2l import R2LConfig, init_r2l
+    from ..sampler import PointSampler
+    from ..train import fused_int8_calib_points
+    cfg = R2LConfig(compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(cs.SEED), dev)
+    sampler = PointSampler(H=cs.H, W=cs.W, focal=cs.FOCAL,
+                           n_sample=cs.N_SAMPLE, near=2.0, far=6.0)
+    pts = cs.train_points(cfg, sampler, dev)
+    calib = fused_int8_calib_points(cs.H, cs.W, cs.FOCAL, cs.N_SAMPLE, 2.0,
+                                    6.0, cs.lego_poses(cs.K), dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, calib,
+                                 fold_requant=False, stage=False)
+    return [(kind, lambda f, q=q: T.train_fwd_int8(f, cfg, pts, 48, 10,
+                                                   stash_q=q),
+             fp, q, cfg) for kind, q in (("k4", True), ("k8", False))]
+
+
 def agree(kernel: str, got, want) -> float:
-    """K2: the largest difference; K5: 0 for dh bit for bit (else inf),
+    """K2: the largest difference; K4/K8: the largest rgb difference, or
+    inf where a stash byte differs; K5: 0 for dh bit for bit (else inf),
     then the worst norm-relative difference of dW and db."""
     if kernel == "k2":
         return float((got - want).abs().max())
+    if kernel == "k48":
+        if not torch.equal(got[1].view(torch.uint8),
+                           want[1].view(torch.uint8)):
+            return float("inf")
+        return float((got[0] - want[0]).abs().max())
     if not torch.equal(got[0], want[0]):
         return float("inf")
     return max(float((a.double() - b.double()).norm() / b.double().norm())
@@ -218,6 +326,9 @@ def time_variants(names, log, reps: int = 5) -> None:
         libs = _harness.build_variants(
             {n: (VARIANTS[n][0], LIBS[VARIANTS[n][1]]) for n in names},
             Path(tmp))
+        k48 = [n for n in names if VARIANTS[n][1] == "k48"]
+        if k48:
+            time_k48(k48, libs, log, dev, reps)
         for kernel in ("k2", "k5"):
             mine = [n for n in names if VARIANTS[n][1] == kernel]
             if not mine:
@@ -242,9 +353,78 @@ def time_variants(names, log, reps: int = 5) -> None:
             torch.cuda.empty_cache()
 
 
+def time_k48(names, libs, log, dev, reps: int = 5) -> None:
+    """K4/K8's variants, each case's image staged at the variant's stage
+    width (``STAGE_K``) on its side."""
+    from ..kernels import _build
+    from ..kernels import r2l_fused as F
+    _build.load("r2l_train_fwd_int8")
+    for case, run, fp, q, cfg in k48_cases(dev):
+        base_fp = F.stage_int8_train(fp, cfg, 48, 10, q)
+        want = run(base_fp)
+        for name in names:
+            if name.startswith("k4_") and not q or \
+                    name.startswith("k8_") and q:
+                continue
+            keep = F.int8_train_stage_k
+            if name in STAGE_K:
+                F.int8_train_stage_k = lambda W, sq, k=STAGE_K[name]: k
+            try:
+                var_fp = F.stage_int8_train(fp, cfg, 48, 10, q)
+            finally:
+                F.int8_train_stage_k = keep
+            base_ms, variant_ms, got = _harness.in_turns(
+                lambda: run(base_fp), lambda: run(var_fp),
+                lambda lib=libs[name][0]: _harness.loading(lib), reps)
+            log({"name": f"{name}_{case}", "base_ms": base_ms,
+                 "variant_ms": variant_ms,
+                 "diff": agree("k48", got, want)
+                 if VARIANTS[name][2] else None,
+                 "build": libs[name][1][:24]})
+            del got
+        del want
+        torch.cuda.empty_cache()
+
+
+def compare_parent(tree: str, log, reps: int = 5) -> None:
+    """K2 of this checkout against the parent's build on a lego frame, in
+    its three forms: bit for bit, in turns, with both builds'
+    registers."""
+    from ..evaluate import _calibration_points
+    from ..kernels import r2l_fused as F
+    from ..models.r2l import R2LConfig, init_r2l
+    dev = _harness.require_cuda("int8_bwd_variants")
+    log(_harness.device_record())
+    sampler, poses = _harness.lego_frames(16, dev)
+    pts = sampler.sample_test(poses[3])
+    cfg = R2LConfig(compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+    calib = _calibration_points(sampler, poses.cpu().numpy(), dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = _harness.parent_libs(tree, ("r2l_int8_hopper",),
+                                   Path(tmp))["r2l_int8_hopper"]
+        for form, fold, nob in (("deployed", True, True),
+                                ("fold", True, False),
+                                ("unfolded", False, False)):
+            fp = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, calib,
+                                         fold_requant=fold)
+
+            def run(fp=fp, fold=fold, nob=nob):
+                return F.fused_r2l_apply_int8_pe(fp, cfg, pts, 48, 10, fold,
+                                                 nob)
+            want = run()
+            base_ms, parent_ms, got = _harness.in_turns(
+                run, run, lambda: _harness.loading(lib[0]), reps)
+            log({"name": f"parent_r2l_int8_hopper_{form}",
+                 "base_ms": base_ms, "parent_ms": parent_ms,
+                 "bit_for_bit": bool(torch.equal(got, want)),
+                 "registers": _harness.registers("r2l_int8_hopper"),
+                 "parent_registers": lib[1]})
+
+
 def main(argv=None) -> None:
     _harness.variants_main("int8_bwd_variants", __doc__, VARIANTS,
-                           time_variants, argv)
+                           time_variants, argv, compare_parent)
 
 
 if __name__ == "__main__":

@@ -54,7 +54,8 @@ import torch
 
 from ..kernels.r2l_fused import (FusedParamsInt8PE, _check, _dequant, _ptr,
                                   _q8, _raise_on_error,
-                                  calibrate_r2l_int8_pe)
+                                  calibrate_r2l_int8_pe,
+                                  stage_int8_train)
 from ..kernels.r2l_train import (_group_inputs, _stream, bwd_group,
                                  dw_splits, stage_bwd_weights,
                                  train_fwd_int8)
@@ -271,8 +272,9 @@ def setup(device, n: int = B):
     calib = torch.cat([sub.sample_test(torch.as_tensor(
         pose_spherical(th, -30.0, 4.0)[:3, :4], dtype=torch.float32,
         device=device)) for th in (0.0, 90.0, 180.0, 270.0)])
-    fp = calibrate_r2l_int8_pe(model, cfg, DIM_PTS, L, calib,
-                               fold_requant=False, stage=False)
+    fp = stage_int8_train(calibrate_r2l_int8_pe(
+        model, cfg, DIM_PTS, L, calib, fold_requant=False, stage=False),
+        cfg, DIM_PTS, L, True)
     _, stash = train_fwd_int8(fp, cfg, pts, DIM_PTS, L, stash_q=True)
     body_w = torch.stack([m.weight.detach() for m in model.linears()[1]]
                          ).to(torch.bfloat16)

@@ -46,10 +46,11 @@ KERNELS = {
     "r2l_int8_pe_fused": ("r2l_int8_pe_fused_launch",
                           [_P, _I, _I, _I] + [_P] * 13 + [_I] * 8 + [_P]),
     "r2l_train_fwd": ("r2l_train_fwd_launch",
-                      [_P, _I, _I, _I] + [_P] * 8
+                      [_P, _I, _I, _I] + [_P] * 7 + [_LL, _P]
                       + [_I, _I, _I, _F, _I, _I, _I, _P]),
     "r2l_train_fwd_int8": ("r2l_train_fwd_int8_launch",
-                           [_P, _I, _I, _I] + [_P] * 14 + [_I] * 6 + [_P]),
+                           [_P, _I, _I, _I] + [_P] * 8 + [_LL, _P]
+                           + [_I] * 6 + [_P]),
     "r2l_bwd_group": ("r2l_bwd_group_launch",
                       [_P] * 11 + [_I, _I, _I, _F, _I, _I, _I, _P]),
     "r2l_bwd_qdx": ("r2l_bwd_qdx_launch",

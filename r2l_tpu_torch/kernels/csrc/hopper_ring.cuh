@@ -15,8 +15,15 @@
 // (a_hi w_lo + a_lo w_hi + a_hi w_hi, summed in f32 by wgmma m64nNk8 tf32
 // with A split in registers, the stage holding w_hi then w_lo). A stalled
 // barrier traps after ~10 s: a fault the launch reports, not a hung card.
+//
+// K4's stash rows leave shared memory the other way, by bulk stores
+// (cp.async.bulk to global, a bulk group per issuing thread): an s8
+// core-matrix tile through a 4-D tensor map, eight 8-row boxes a 64-row
+// tile (tile_map).
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -258,11 +265,25 @@ __device__ __forceinline__ void mm_ss(typename K::Acc (&d)[N / 2],
   release<kC>(ring, pend, wtid);
 }
 
+// A ring shape K with `static constexpr bool kSplit = true` has mm_rs sum
+// each stage's products apart (below); any other does not.
+template <typename K, typename = void>
+struct SplitSums : std::false_type {};
+template <typename K>
+struct SplitSums<K, std::void_t<decltype(K::kSplit)>>
+    : std::integral_constant<bool, K::kSplit> {};
+
 // The same for f32 weights as 3xTF32: per k8 step the warp's A fragment is
 // read from shared memory, split into high and low TF32 parts, and
 // a_hi w_lo, a_lo w_hi, a_hi w_hi are accumulated (the stage holds w_hi,
 // then w_lo). A sits in registers, so each stage's products complete
-// before the next stage's fragments are loaded.
+// before the next stage's fragments are loaded. With K::kSplit each
+// stage's products are summed apart, from zero, in parts of 64 of the N
+// outputs (two buffers of 32 accumulator registers, not 128 more), and
+// each part's sum is added to the running sum in f32 while the next part's
+// products run: the tensor cores truncate every sum they add a product
+// to, which at a running sum of 96 products a layer costs f32's last bits
+// (PERF.md; two halves one after the other measured 2% slower).
 template <int N, int kC, typename K>
 __device__ __forceinline__ void mm_rs(float (&d)[N / 2], const SrcRS& s,
                                       int kelems, const Ring& ring, int& it,
@@ -297,17 +318,52 @@ __device__ __forceinline__ void mm_rs(float (&d)[N / 2], const SrcRS& s,
     wgmma_fence();
     const uint32_t b = ring.slots + slot * ring.slot_bytes;
     const int part = N * K::kKSB;  // bytes of w_hi in the stage
+    if constexpr (SplitSums<K>::value) {
+      constexpr int NP = N / 64;
+      float s[2][32];
+      auto issue = [&](int p) {
+        const uint32_t bo = b + p * 64 * K::kKSB;  // the part's rows of w
 #pragma unroll
-    for (int j = 0; j < K::kKS / 8; ++j) {
-      const uint64_t bh = desc(b + j * 256, K::kKSB * 8);
-      const uint64_t bl = desc(b + part + j * 256, K::kKSB * 8);
-      Wgmma<N>::tf32(d, hi[j], bl, st > 0 || j > 0 || accumulate);
-      Wgmma<N>::tf32(d, lo[j], bh, 1);
-      Wgmma<N>::tf32(d, hi[j], bh, 1);
+        for (int j = 0; j < K::kKS / 8; ++j) {
+          const uint64_t bh = desc(bo + j * 256, K::kKSB * 8);
+          const uint64_t bl = desc(bo + part + j * 256, K::kKSB * 8);
+          Wgmma<64>::tf32(s[p % 2], hi[j], bl, j > 0);
+          Wgmma<64>::tf32(s[p % 2], lo[j], bh, 1);
+          Wgmma<64>::tf32(s[p % 2], hi[j], bh, 1);
+        }
+        wgmma_commit();
+      };
+      const bool add = st > 0 || accumulate;
+      issue(0);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        if (p + 1 < NP) {
+          wgmma_fence();  // the adds below read the other buffer last
+          issue(p + 1);
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_regs(s[p % 2]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          d[p * 32 + i] =
+              add ? __fadd_rn(d[p * 32 + i], s[p % 2][i]) : s[p % 2][i];
+      }
+      fence_regs(d);
+    } else {
+#pragma unroll
+      for (int j = 0; j < K::kKS / 8; ++j) {
+        const uint64_t bh = desc(b + j * 256, K::kKSB * 8);
+        const uint64_t bl = desc(b + part + j * 256, K::kKSB * 8);
+        Wgmma<N>::tf32(d, hi[j], bl, st > 0 || j > 0 || accumulate);
+        Wgmma<N>::tf32(d, lo[j], bh, 1);
+        Wgmma<N>::tf32(d, hi[j], bh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(d);
 #pragma unroll
     for (int j = 0; j < K::kKS / 8; ++j) {
       fence_regs(hi[j]);
@@ -357,6 +413,26 @@ __device__ __forceinline__ void visit(A (&d)[N / 2], int wtid, F f) {
   }
 }
 
+// v[q] of lane t of a quad becomes lane q's v[t] (two rounds of
+// exchanges with the lanes 1, then 2 apart): of four column groups of a
+// row, whose 8 columns the quad holds two each, each lane then holds one
+// group whole.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+#pragma unroll
+  for (int m = 1; m <= 2; m *= 2)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q & m) continue;
+      const bool up = t & m;
+      const uint32_t got =
+          __shfl_xor_sync(0xffffffffu, up ? v[q] : v[q + m], m);
+      if (up)
+        v[q] = got;
+      else
+        v[q + m] = got;
+    }
+}
+
 // Sum v over the quad that holds a row's columns.
 template <typename V>
 __device__ __forceinline__ V quad_sum(V v) {
@@ -393,6 +469,73 @@ __device__ __forceinline__ void dot2(int& p, int x0, int x1, int2 w) {
   p += x0 * w.x + x1 * w.y;
 }
 
+// ---- bulk stores ---------------------------------------------------------
+
+// One box of a tensor map from shared memory at src (128-byte aligned) to
+// global memory at the box's coordinates; rows past the tensor's extent
+// are not written.
+__device__ __forceinline__ void bulk_store_box(const CUtensorMap* map,
+                                               uint32_t src, int c0, int c1,
+                                               int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(
+          map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk groups but the newest N have read their source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... and completed their writes
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no link to libcuda), or null.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  return encode;
+}
+
+// A 4-D tensor map that writes s8 core-matrix tiles (8 rows x 16-byte core
+// matrices, the next core matrix along the row 128 bytes on: wgmma's
+// K-major layout without swizzle) into `rows` row-major [n][W] int8
+// matrices at base, one after another: dimensions (the 16 bytes of a
+// core-matrix row, the n rays, the W / 16 core matrices along a row, the
+// rows), so a box of (16, 8, W / 16, 1) is one 8-ray group of a tile, laid
+// out in shared memory as the tile holds it.
+inline cudaError_t tile_map(CUtensorMap* map, void* base, int n, int W,
+                            int rows) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {16, (cuuint64_t)n, (cuuint64_t)W / 16,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[3] = {(cuuint64_t)W, 16, (cuuint64_t)n * W};
+  const cuuint32_t box[4] = {16, 8, (cuuint32_t)(W / 16), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- the launch ----------------------------------------------------------
 
 // Launch `kern` over `blocks` blocks (padded to whole kC-block clusters) of
@@ -401,10 +544,11 @@ __device__ __forceinline__ void dot2(int& p, int x0, int x1, int2 w) {
 // registers within the block's allocation (the producer gives up 128 *
 // (regs - 40), the consumers take 128 * (232 - regs) each), and a cluster
 // that cannot be resident at this footprint would never be scheduled.
+// `more` are the kernel's parameters after `a`.
 template <typename T, int kC, typename K = Kind<T>, typename Kern,
-          typename Args>
+          typename Args, typename... More>
 cudaError_t launch_cluster(Kern kern, const Args& a, int blocks, int smem,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, const More&... more) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -429,7 +573,8 @@ cudaError_t launch_cluster(Kern kern, const Args& a, int blocks, int smem,
       cudaSuccess)
     return err;
   if (clusters < 1) return cudaErrorLaunchOutOfResources;
-  if ((err = cudaLaunchKernelEx(&cfg, kern, a)) != cudaSuccess) return err;
+  if ((err = cudaLaunchKernelEx(&cfg, kern, a, more...)) != cudaSuccess)
+    return err;
   return cudaGetLastError();
 }
 

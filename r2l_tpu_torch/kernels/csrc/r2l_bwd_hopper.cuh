@@ -727,16 +727,8 @@ __global__ void __launch_bounds__(DwTf32Shape<W>::kThreads, 1)
 // entry-point query: no link to libcuda).
 inline cudaError_t box_map(CUtensorMap* map, const void* base, int n, int W,
                            int layers) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (!encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess || !fn)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
+  const auto encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)n,
                               (cuuint64_t)layers};
   const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)n * W * 2};

@@ -1,9 +1,10 @@
 // The student's R2L chain on Hopper, one kernel template shared by K1
-// (r2l_pe_fused.cu: the positional encoding in the kernel) and K9
-// (r2l_fused.cu: the encoded input read from device memory), bf16 or f32
-// weights: head Linear+ReLU -> nb ResMLP blocks (nl Linear layers with ReLU
-// between, x res_scale, + block input) -> global residual -> Linear+sigmoid
-// tail -> [n, out_dim] f32.
+// (r2l_pe_fused.cu: the positional encoding in the kernel), K9
+// (r2l_fused.cu: the encoded input read from device memory) and K3
+// (r2l_train_fwd.cu: K1 with the training stash), bf16 or f32 weights: head
+// Linear+ReLU -> nb ResMLP blocks (nl Linear layers with ReLU between, x
+// res_scale, + block input) -> global residual -> Linear+sigmoid tail ->
+// [n, out_dim] f32.
 //
 // Rounding follows the Pallas `_kernel_body`: activations are rounded to
 // the weight type between layers, dots accumulate in f32, biases are added
@@ -34,7 +35,8 @@
 //
 // Products: bf16 wgmma m64nWk16 with both operands in shared memory; f32 as
 // 3xTF32 (a_hi w_lo + a_lo w_hi + a_hi w_hi by wgmma m64nWk8 tf32, A split
-// in registers): about 21 mantissa bits, far inside the f32 limit. The
+// in registers): about 21 mantissa bits, far inside K1's f32 limit (K3's
+// sums each stage apart: ChainTrainF32). The
 // head's input (K1: 1,008 columns padded to 1,024) does not fit beside the
 // ring: it is produced in slices of 2W columns into T | H, which are free
 // then, and the head accumulates over the slices. K1 encodes each slice by
@@ -52,6 +54,21 @@
 // is a whole warp's contiguous 128 or 256 bytes. The tail (W -> out_dim) is
 // a dot product of the final h, formed in the last block's epilogue: each
 // thread's partial sum over its columns, then two quad shuffles.
+//
+// K3 (kTrain) differs in three places. Its block output is (t * res_scale
+// + h) from the unrounded t (train_fwd's rounding, r2l_train.py); f32
+// sums each weight stage's products apart (ChainTrainF32); and what its
+// epilogues round also goes to the stash [2nb+1, n, W] of the weight type
+// (rows 0..nb the block inputs h_0..h_nb, row nb+1+b block b's inner
+// activation), 3.65 GB (bf16) or 7.3 GB (f32) a step's call, straight from
+// the registers with no barrier (kK3Stash). bf16 trades the pairs of four
+// column groups within the quad (quad_transpose) so that each thread
+// stores 16 bytes whole; f32 stores each thread's 8-byte pairs, as the
+// buffers of the transpose would spill its registers. Measured on an H100
+// (PERF.md): bf16 3.68 ms against 4.98 for pairs, 2.41 with no stores at
+// all; bulk stores from the tiles after the barrier that hands them to the
+// next product (tensor-map boxes of the core-matrix tiles; f32 row by row)
+// measured 1.6 (bf16) and 0.6 ms (f32) slower than these.
 #pragma once
 
 #include "hopper_ring.cuh"
@@ -79,6 +96,21 @@ template <> struct Chain<float> {
   static constexpr bool kRegA = true;
   static constexpr int kC = 2;
 };
+// K3's f32 chain: K1's, each weight stage's 3xTF32 products summed apart
+// and added to the running sum in f32 (hopper_ring.cuh, mm_rs): K3 f32 is
+// held to true f32 at 1e-5 on every stash row, which the products summed
+// by the tensor cores alone cross (PERF.md)
+struct ChainTrainF32 : Chain<float> {
+  static constexpr bool kSplit = true;
+};
+template <typename T, bool kTrain>
+struct ChainFor {
+  using type = Chain<T>;
+};
+template <>
+struct ChainFor<float, true> {
+  using type = ChainTrainF32;
+};
 
 // Everything a launch needs, passed by value (the kernel parameter space).
 struct Args {
@@ -92,6 +124,7 @@ struct Args {
   const float* tail_b;  // [out_dim]
   float* out;           // [n, out_dim]
   void* h0;             // scratch, [blocks * rows * W] of the weight type
+  void* stash;          // K3: [2nb+1, n, W] of the weight type
   int nb, nl, out_dim;
   float res_scale;
   int use_residual, linear_tail;
@@ -151,9 +184,9 @@ __device__ __forceinline__ float2 ldg2(const float* p) {
 }
 
 // A layer's epilogue over the warpgroup's accumulator: f(r, c, v[c],
-// v[c + 1], (b[c], b[c + 1])) for the thread's two rows and each of its
-// column pairs, the bias of four column pairs loaded ahead of their use
-// (each once, for both rows).
+// v[c + 1], (b[c], b[c + 1]), j, h) for the thread's two rows (h = 0, 1)
+// and each of its column pairs (c = 8j + 2t), the bias of four column
+// pairs loaded ahead of their use (each once, for both rows).
 template <int W, typename F>
 __device__ __forceinline__ void epilogue(float (&d)[W / 2], int wtid,
                                          const float* b, F f) {
@@ -167,16 +200,24 @@ __device__ __forceinline__ void epilogue(float (&d)[W / 2], int wtid,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int j = j0 + q, c = 8 * j + 2 * t;
-      f(r0, c, d[4 * j], d[4 * j + 1], bb[q]);
-      f(r0 + 8, c, d[4 * j + 2], d[4 * j + 3], bb[q]);
+      f(r0, c, d[4 * j], d[4 * j + 1], bb[q], j, 0);
+      f(r0 + 8, c, d[4 * j + 2], d[4 * j + 3], bb[q], j, 1);
     }
   }
 }
 
-template <typename T, int W, bool kPE>
+// K3's stash stores by weight type (PERF.md, design runs): after a
+// transpose within the quad, 16 bytes a thread (kStashQuad: bf16), or each
+// thread's column pairs (kStashPairs: f32, whose registers the quad's
+// buffers would spill).
+enum StashStore { kStashQuad, kStashPairs };
+template <typename T>
+constexpr StashStore kK3Stash = sizeof(T) == 2 ? kStashQuad : kStashPairs;
+
+template <typename T, int W, bool kPE, bool kTrain>
 __global__ void __launch_bounds__(kWG * (Chain<T>::kWGs + 1), 1)
     r2l_hopper_kernel(const Args a) {
-  using K = Chain<T>;
+  using K = typename ChainFor<T, kTrain>::type;
   using PT = Pair<T>;
   constexpr int kC = K::kC;
   constexpr int kU = K::kRegA ? 4 : 1;  // bytes per tile ld unit
@@ -216,10 +257,59 @@ __global__ void __launch_bounds__(kWG * (Chain<T>::kWGs + 1), 1)
   const int lane = wtid % 32, r0 = 16 * (wtid / 32) + lane / 4;
   const bool res = a.use_residual;
 
+  T* const stash = static_cast<T*>(a.stash);
   // make this warpgroup's tile writes visible to its next product
   auto tiles_ready = [&]() {
     if constexpr (!K::kRegA) fence_async_smem();
     wg_bar(bar_id);
+  };
+  // K3: (x0, x1) rounded to T into stash row `row` at (r, c), c even, from
+  // the registers
+  auto stash2 = [&](int row, int r, int c, float x0, float x1) {
+    if constexpr (kTrain) {
+      const int g = row0 + r;
+      if (g < a.n)
+        *reinterpret_cast<typename PT::P*>(
+            stash + ((size_t)row * a.n + g) * W + c) = PT::make(x0, x1);
+    }
+  };
+  // K3 from the registers: the pair (x0, x1) of column group j of the
+  // thread's row h in stash row `row`; with kStashQuad held until the
+  // group's fourth of four, then each lane stores one group whole (bf16
+  // 16 bytes, f32 32), a warp 64 (128) bytes of each of 8 rows
+  // [h][f32: x, y; bf16: the pair][j % 4]
+  [[maybe_unused]] uint32_t sq[2][2][4];
+  auto stash_pair = [&](int row, int j, int h, float x0, float x1) {
+    if constexpr (kTrain) {
+      const int g = row0 + r0 + 8 * h, tq = lane % 4;
+      if constexpr (kK3Stash<T> == kStashPairs) {
+        stash2(row, r0 + 8 * h, 8 * j + 2 * tq, x0, x1);
+        return;
+      }
+      if constexpr (sizeof(T) == 2) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+        sq[h][0][j % 4] = *reinterpret_cast<const uint32_t*>(&v);
+      } else {
+        sq[h][0][j % 4] = __float_as_uint(x0);
+        sq[h][1][j % 4] = __float_as_uint(x1);
+      }
+      if (j % 4 != 3) return;
+      uint4* p = reinterpret_cast<uint4*>(
+          stash + ((size_t)row * a.n + g) * W + 8 * (j - 3 + tq));
+      quad_transpose(sq[h][0], tq);
+      if constexpr (sizeof(T) == 2) {
+        if (g < a.n) *p = make_uint4(sq[h][0][0], sq[h][0][1], sq[h][0][2],
+                                     sq[h][0][3]);
+      } else {
+        quad_transpose(sq[h][1], tq);
+        if (g < a.n) {
+          p[0] = make_uint4(sq[h][0][0], sq[h][1][0], sq[h][0][1],
+                            sq[h][1][1]);
+          p[1] = make_uint4(sq[h][0][2], sq[h][1][2], sq[h][0][3],
+                            sq[h][1][3]);
+        }
+      }
+    }
   };
   // (r, c), (r, c + 1) of a tile, stored rounded to T / loaded
   auto put2 = [&](unsigned char* t, int r, int c, float x0, float x1) {
@@ -270,9 +360,11 @@ __global__ void __launch_bounds__(kWG * (Chain<T>::kWGs + 1), 1)
   auto h0_at = [&](int h, int c) -> typename PT::P& {
     return h0s[((c / 8) * 2 + h) * kWG + wtid];
   };
-  // the block output (t * res_scale + h) in f32 from the rounded t
+  // the block output (t * res_scale + h) in f32 from the rounded t (K3:
+  // the unrounded t)
   auto block_out = [&](float v, float b, float h) {
-    return __fadd_rn(__fmul_rn(rnd<T>(__fadd_rn(v, b)), a.res_scale), h);
+    const float t = __fadd_rn(v, b);
+    return __fadd_rn(__fmul_rn(kTrain ? t : rnd<T>(t), a.res_scale), h);
   };
 
   float acc[W / 2];
@@ -331,14 +423,15 @@ __global__ void __launch_bounds__(kWG * (Chain<T>::kWGs + 1), 1)
                          c0 > 0);
   }
 
-  // The tail on the final h: hval(h, r, c, v0, v1) gives the thread's
-  // final (rounded) h at (r, c), (r, c + 1) from its accumulator pair; the
-  // outputs four at a time.
+  // The tail on the final h: hval(h, r, c, v0, v1, first) gives the
+  // thread's final (rounded) h at (r, c), (r, c + 1) from its accumulator
+  // pair (first: in the first pass over the outputs); the outputs four at
+  // a time.
   auto tail = [&](auto hval) {
     for (int o0 = 0; o0 < a.out_dim; o0 += 4) {
       float p[2][4] = {};
       visit<W>(acc, wtid, [&](int h, int r, int c, float v0, float v1) {
-        const float2 x = hval(h, r, c, v0, v1);
+        const float2 x = hval(h, r, c, v0, v1, o0 == 0);
 #pragma unroll
         for (int o = 0; o < 4; ++o) {
           if (o0 + o >= a.out_dim) break;
@@ -362,10 +455,11 @@ __global__ void __launch_bounds__(kWG * (Chain<T>::kWGs + 1), 1)
   };
 
   if (a.nb == 0) {  // h = h0 (+ h0)
-    tail([&](int, int, int c, float v0, float v1) {
+    tail([&](int, int r, int c, float v0, float v1, bool first) {
       const float2 b = ldg2(a.head_b + c);
       float x0 = rnd<T>(fmaxf(__fadd_rn(v0, b.x), 0.f));
       float x1 = rnd<T>(fmaxf(__fadd_rn(v1, b.y), 0.f));
+      if (first) stash2(0, r, c, x0, x1);
       if (res) {
         x0 = rnd<T>(__fadd_rn(x0, x0));
         x1 = rnd<T>(__fadd_rn(x1, x1));
@@ -374,10 +468,12 @@ __global__ void __launch_bounds__(kWG * (Chain<T>::kWGs + 1), 1)
     });
   } else {
     epilogue<W>(acc, wtid, a.head_b,
-                [&](int r, int c, float v0, float v1, float2 b) {
+                [&](int r, int c, float v0, float v1, float2 b, int j,
+                    int h) {
                   const float x0 = fmaxf(__fadd_rn(v0, b.x), 0.f);
                   const float x1 = fmaxf(__fadd_rn(v1, b.y), 0.f);
                   put2(Hm, r, c, x0, x1);
+                  stash_pair(0, j, h, x0, x1);
                   if (res) h0_at((r >> 3) & 1, c) = PT::make(x0, x1);
                 });
   }
@@ -392,22 +488,29 @@ __global__ void __launch_bounds__(kWG * (Chain<T>::kWGs + 1), 1)
                            wtid);
       if (j + 1 < a.nl) {  // inner layer: ReLU, round, into T
         epilogue<W>(acc, wtid, b,
-                    [&](int r, int c, float v0, float v1, float2 bb) {
-                      put2(Tm, r, c, fmaxf(__fadd_rn(v0, bb.x), 0.f),
-                           fmaxf(__fadd_rn(v1, bb.y), 0.f));
+                    [&](int r, int c, float v0, float v1, float2 bb, int jj,
+                        int h) {
+                      const float x0 = fmaxf(__fadd_rn(v0, bb.x), 0.f);
+                      const float x1 = fmaxf(__fadd_rn(v1, bb.y), 0.f);
+                      put2(Tm, r, c, x0, x1);
+                      stash_pair(a.nb + 1 + blk, jj, h, x0, x1);
                     });
       } else if (blk + 1 < a.nb) {  // block tail, in place into H
         epilogue<W>(acc, wtid, b,
-                    [&](int r, int c, float v0, float v1, float2 bb) {
+                    [&](int r, int c, float v0, float v1, float2 bb, int jj,
+                        int h) {
                       const float2 hv = get2(Hm, r, c);
-                      put2(Hm, r, c, block_out(v0, bb.x, hv.x),
-                           block_out(v1, bb.y, hv.y));
+                      const float x0 = block_out(v0, bb.x, hv.x);
+                      const float x1 = block_out(v1, bb.y, hv.y);
+                      put2(Hm, r, c, x0, x1);
+                      stash_pair(blk + 1, jj, h, x0, x1);
                     });
       } else {  // the last block's tail, the global residual, the tail
-        tail([&](int h, int r, int c, float v0, float v1) {
+        tail([&](int h, int r, int c, float v0, float v1, bool first) {
           const float2 bb = ldg2(b + c), hv = get2(Hm, r, c);
           float x0 = rnd<T>(block_out(v0, bb.x, hv.x));
           float x1 = rnd<T>(block_out(v1, bb.y, hv.y));
+          if (first) stash2(a.nb, r, c, x0, x1);
           if (res) {
             const float2 z = PT::get(h0_at(h, c));
             x0 = rnd<T>(__fadd_rn(x0, z.x));
@@ -424,19 +527,19 @@ __global__ void __launch_bounds__(kWG * (Chain<T>::kWGs + 1), 1)
 // Launch over the n rays' blocks, padded to whole clusters, after checking
 // the shape and the scratch (h0_elems values of T; none without the global
 // residual).
-template <typename T, int W, bool kPE>
+template <typename T, int W, bool kPE, bool kTrain>
 cudaError_t launch_as(Args a, long long h0_elems, cudaStream_t stream) {
   plan<T, W>(a);
-  using K = Chain<T>;
+  using K = typename ChainFor<T, kTrain>::type;
   constexpr int rows = 64 * K::kWGs;
   const long long blocks = blocks_of<T>(a.n);
   if (a.use_residual && h0_elems < blocks * rows * W)
     return cudaErrorInvalidValue;
-  return launch_cluster<T, K::kC, K>(r2l_hopper_kernel<T, W, kPE>, a,
+  return launch_cluster<T, K::kC, K>(r2l_hopper_kernel<T, W, kPE, kTrain>, a,
                                      (int)blocks, a.smem, stream);
 }
 
-template <bool kPE>
+template <bool kPE, bool kTrain = false>
 cudaError_t launch(const Args& a, int W, int weight_is_f32,
                    long long h0_elems, cudaStream_t stream) {
   if (a.n <= 0 || a.in_dim <= 0 || a.nb < 0 || a.nl < 1 || a.out_dim < 1)
@@ -445,15 +548,16 @@ cudaError_t launch(const Args& a, int W, int weight_is_f32,
     return cudaErrorMisalignedAddress;
   if (weight_is_f32) {
     switch (W) {
-      case 64: return launch_as<float, 64, kPE>(a, h0_elems, stream);
-      case 128: return launch_as<float, 128, kPE>(a, h0_elems, stream);
-      case 256: return launch_as<float, 256, kPE>(a, h0_elems, stream);
+      case 64: return launch_as<float, 64, kPE, kTrain>(a, h0_elems, stream);
+      case 128: return launch_as<float, 128, kPE, kTrain>(a, h0_elems, stream);
+      case 256: return launch_as<float, 256, kPE, kTrain>(a, h0_elems, stream);
     }
   } else {
+    using BF = __nv_bfloat16;
     switch (W) {
-      case 64: return launch_as<__nv_bfloat16, 64, kPE>(a, h0_elems, stream);
-      case 128: return launch_as<__nv_bfloat16, 128, kPE>(a, h0_elems, stream);
-      case 256: return launch_as<__nv_bfloat16, 256, kPE>(a, h0_elems, stream);
+      case 64: return launch_as<BF, 64, kPE, kTrain>(a, h0_elems, stream);
+      case 128: return launch_as<BF, 128, kPE, kTrain>(a, h0_elems, stream);
+      case 256: return launch_as<BF, 256, kPE, kTrain>(a, h0_elems, stream);
     }
   }
   return cudaErrorInvalidValue;

@@ -1,6 +1,8 @@
 // K2 on Hopper: the student's PE-fused static-scale int8 chain on wgmma s8
-// (r2l_int8_hopper.cu). The probes of K2's epilogue and ray streams stay on
-// the pre-Hopper template r2l_int8_chain.cuh, the design they measure.
+// (r2l_int8_hopper.cu), and on the same kernel K4 and K8, the int8 training
+// forward with its stash (r2l_train_fwd_int8.cu; its forms are described
+// below K2's). The probes of K2's epilogue and ray streams stay on the
+// pre-Hopper template r2l_int8_chain.cuh, the design they measure.
 //
 // The function is r2l_tpu/kernels/r2l_pallas.py::_int8_pe_chain, as the
 // plain version int8_pe_chain_ref computes it, bit for bit:
@@ -63,6 +65,35 @@
 //
 // What bounds it: 11.8 M int8 multiply-adds per ray at W256/D88, 1.89 T
 // operations per 400x400 frame, 0.953 ms at the card's 1,979 TOP/s.
+//
+// K4 and K8 (kTrainQ, kTrainB): r2l_tpu/kernels/r2l_train_pallas.py::
+// train_fwd_int8 as train_fwd_int8_ref computes it, bit for bit, on K2's
+// head, ring, ping-pong and epilogue arithmetic, with four differences:
+//   * both layers of a block quantize their input with its inverse scale
+//     (calibrate_r2l_int8_pe(..., fold_requant=False)); K8's inner layer is
+//     kUnfolded's q8(bf16(relu(t)) * inv), K4's q8(relu(t) * inv), no bf16;
+//   * the block tail: K8 rounds h = bf16(t2 + float(h)) once from the f32
+//     t2 (K2 rounds t2 to bf16 first); K4 keeps h in f32, h = t2 + h
+//     (res_scale is folded into the tail's m and b);
+//   * the inverse scales come from the image (stage_int8_train: the s8
+//     weights, the (m, b) table, then every body layer's inverse input
+//     scale), staged after each per-step calibration;
+//   * the stash [2nb+1, n, W]: K4's rows are the q-values the products
+//     consume (row b block b's input, nb+1+b its inner activation, nb the
+//     tail's input with the global residual), which Q holds in the
+//     core-matrix layout once an epilogue wrote them: after the barrier
+//     that hands Q to the next product, one thread issues eight 8-ray boxes
+//     of it through a tensor map (bulk stores, streaming out behind the
+//     product), and waits until they have read Q before the next epilogue
+//     writes it; row nb, never in Q, goes from the registers. K8's rows
+//     (K3's in bf16: h_0, h_{b+1}, t1r) are never in a tile as they are
+//     stashed, so each epilogue stores them from the registers, each
+//     thread's column pairs (16 bytes a thread after a transpose within
+//     the quad, K3 bf16's, measured no faster here; PERF.md).
+// K4's f32 residual stream takes 128 KB (two warpgroups at W256), so its
+// ring has four 16 KB slots of 64 channels (Q 32 KB + H 128 KB + ring 64
+// KB = 224 KB); K8 keeps K2's layout (H bf16 64 KB, four 32 KB slots). Both
+// keep h0 in f32 in the device scratch, as K2.
 #pragma once
 
 #include "hopper_ring.cuh"
@@ -74,18 +105,28 @@ using namespace hopper;
 using r2l::dequant;
 using r2l::q8;
 
-enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2 };
+// K2's three forms, then the training forward's: K4 (int8 stash) and K8
+// (bf16 stash).
+enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2, kTrainQ = 3, kTrainB = 4 };
 
-// The ring's shape (hopper::Kind's members) at width W, and kC, the blocks
-// of a cluster.
-template <int W>
+// The ring's shape (hopper::Kind's members) at width W in form kEpi, and
+// kC, the blocks of a cluster: K4's f32 residual stream at W256 leaves room
+// for stages of 64 channels only.
+template <int W, int kEpi = kDeployed>
 struct Chain8 {
   using Acc = int;
-  static constexpr int kKS = W >= 128 ? 128 : 64, kKSB = kKS, kWGs = 2;
+  static constexpr int kKS =
+      W >= 128 && !(W == 256 && kEpi == kTrainQ) ? 128 : 64;
+  static constexpr int kKSB = kKS, kWGs = 2;
   static constexpr int kStages = 4, kParts = 1;
   static constexpr bool kRegA = false;
   static constexpr int kC = 2;
 };
+// the head's columns as staged are rounded to this (int8_head_columns)
+template <int W>
+constexpr int head_align() {
+  return W >= 128 ? 128 : 64;
+}
 
 constexpr int kRows = 128;  // rays per block
 
@@ -100,6 +141,7 @@ struct Args {
   const float *tail_m, *tail_b, *tail_inv;   // [out_dim], [out_dim], [W]
   float* out;                                // [n, out_dim]
   float* h0;  // scratch: [blocks * 128 * W] f32
+  void* stash;  // K4/K8: [2nb+1, n, W] int8 / bf16
   int nb, nl, out_dim, use_residual, linear_tail;
   // layout, set by plan()
   const float4* mb;  // the image's epilogue table: the head's, each body
@@ -107,23 +149,28 @@ struct Args {
   int kpad, off_h, off_ring, off_bar, slot_bytes, stages, smem;
 };
 
-template <int W>
+template <int W, int kEpi>
 inline void plan(Args& a) {
-  using K = Chain8<W>;
+  using K = Chain8<W, kEpi>;
   // the head as staged: slices of 2W columns, each of whole scalars' parts
-  // (sps scalars of P parts), the last one's columns rounded up to a stage
+  // (sps scalars of P parts), the last one's columns rounded up to 128 (64
+  // at W64)
   const int P = 2 * a.L + 1, sps = 2 * W / P;
   const int nsl = (a.dp + sps - 1) / sps;
   a.kpad = (nsl - 1) * 2 * W +
-           r2l::round_up((a.dp - (nsl - 1) * sps) * P, K::kKS);
-  a.off_h = kRows * W;                  // Q: [128][W] int8
-  a.off_ring = a.off_h + kRows * W * 2;  // H: [128][W] bf16
+           r2l::round_up((a.dp - (nsl - 1) * sps) * P, head_align<W>());
+  a.off_h = kRows * W;  // Q: [128][W] int8
+  // H: [128][W] bf16 (K4: f32)
+  a.off_ring = a.off_h + kRows * W * (kEpi == kTrainQ ? 4 : 2);
   a.slot_bytes = W * K::kKSB;
   a.off_bar = a.off_ring + K::kStages * a.slot_bytes;
   a.smem = a.off_bar + 2 * K::kStages * 8;
   a.stages = (a.kpad + a.nb * a.nl * W) / K::kKS;
   a.mb = reinterpret_cast<const float4*>(a.staged +
                                          (size_t)a.stages * a.slot_bytes);
+  if (kEpi >= kTrainQ)  // the image's inverse scales, after the table
+    a.body_inv = reinterpret_cast<const float*>(
+        a.mb + (size_t)(1 + a.nb * a.nl) * (W / 2));
 }
 
 inline long long blocks_of(int n) {
@@ -181,8 +228,10 @@ __device__ __forceinline__ void each_pair(const float4* mb, int t, F f) {
 
 template <int W, int kEpi>
 __global__ void __launch_bounds__(kWG * 3, 1)
-    r2l_int8_hopper_kernel(const Args a) {
-  using K = Chain8<W>;
+    r2l_int8_hopper_kernel(const Args a,
+                           const __grid_constant__ CUtensorMap stash_map) {
+  using K = Chain8<W, kEpi>;
+  constexpr bool kQ = kEpi == kTrainQ;  // K4: f32 h, int8 stash
   constexpr int kC = K::kC;
   extern __shared__ __align__(128) unsigned char smem[];
   const int wg = threadIdx.x / kWG, wtid = threadIdx.x % kWG;
@@ -211,15 +260,36 @@ __global__ void __launch_bounds__(kWG * 3, 1)
   const int tile = blockIdx.x * K::kWGs + wg, row0 = tile * 64;
   const int bar_id = 1 + wg;
   unsigned char* Qm = smem + wg * 64 * W;
-  unsigned char* Hm = smem + a.off_h + wg * 64 * W * 2;
+  unsigned char* Hm = smem + a.off_h + wg * 64 * W * (kQ ? 4 : 2);
   __nv_bfloat162* hs = reinterpret_cast<__nv_bfloat162*>(Hm);
+  float2* hf = reinterpret_cast<float2*>(Hm);  // K4's f32 h
   float2* h0s = reinterpret_cast<float2*>(a.h0) + (size_t)tile * 64 * (W / 2);
   const int lane = wtid % 32, r0 = 16 * (wtid / 32) + lane / 4;
   const bool res = a.use_residual;
 
+  // K4: the stash row Q holds for the bulk stores after the next barrier
+  // (-1: none)
+  int pend_row = -1;
   auto tiles_ready = [&]() {
     fence_async_smem();
     wg_bar(bar_id);
+    if constexpr (kQ) {
+      if (pend_row >= 0 && wtid == 0) {
+        for (int rg = 0; rg < 8; ++rg)
+          if (row0 + 8 * rg < a.n)
+            bulk_store_box(&stash_map, smem_u32(Qm + rg * 8 * W), 0,
+                           row0 + 8 * rg, 0, pend_row);
+        bulk_commit();
+      }
+      pend_row = -1;
+    }
+  };
+  // K4: Q's bulk stores have read it, for the epilogue that overwrites it
+  auto q_free = [&]() {
+    if constexpr (kQ) {
+      if (wtid == 0) bulk_wait_read<0>();
+      wg_bar(bar_id);
+    }
   };
   // the thread's pair (c, c + 1) of its row h (0: r0, 1: r0 + 8) in an
   // accumulator-ordered tile
@@ -228,6 +298,30 @@ __global__ void __launch_bounds__(kWG * 3, 1)
   auto putq = [&](int r, int c, int x0, int x1) {
     *reinterpret_cast<uint16_t*>(Qm + cm_off(r, c, W)) =
         (uint16_t)__byte_perm(x0, x1, 0x0040);
+  };
+  // K4/K8: the stash's pair (c, c + 1) of row r in stash row `row`
+  auto stash_at = [&](int row, int r, int c) -> void* {
+    const int g = row0 + r;
+    if (g >= a.n) return nullptr;
+    const size_t i = ((size_t)row * a.n + g) * W + c;
+    return kQ ? static_cast<void*>(static_cast<int8_t*>(a.stash) + i)
+              : static_cast<void*>(static_cast<__nv_bfloat16*>(a.stash) + i);
+  };
+  // K4: the low bytes of two q8 values into stash row `row` (the tail's
+  // input, never in Q)
+  auto stashq = [&](int row, int r, int c, int x0, int x1) {
+    if constexpr (kQ) {
+      if (void* p = stash_at(row, r, c))
+        *static_cast<uint16_t*>(p) = (uint16_t)__byte_perm(x0, x1, 0x0040);
+    }
+  };
+  // K8: the bf16 pair of column group j (columns 8j + 2t, + 1) of the
+  // thread's row h into stash row `row`
+  auto stashb = [&](int row, int j, int h, __nv_bfloat162 v) {
+    if constexpr (kEpi == kTrainB) {
+      if (void* p = stash_at(row, r0 + 8 * h, 8 * j + 2 * (lane % 4)))
+        *static_cast<__nv_bfloat162*>(p) = v;
+    }
   };
 
   int acc[W / 2];
@@ -278,7 +372,8 @@ __global__ void __launch_bounds__(kWG * 3, 1)
   }
 
   // The tail on its quantized input: qval(h, c) gives the thread's q pair
-  // of row h at columns (c, c + 1); the outputs four at a time.
+  // of row h at columns (c, c + 1) (K4 stores it to stash row nb in the
+  // first pass over the outputs); the outputs four at a time.
   auto tail = [&](auto qval) {
     for (int o0 = 0; o0 < a.out_dim; o0 += 4) {
       int p[2][4] = {};
@@ -288,6 +383,7 @@ __global__ void __launch_bounds__(kWG * 3, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int2 q = qval(j, h, c);
+          if (o0 == 0) stashq(a.nb, r0 + 8 * h, c, q.x, q.y);
 #pragma unroll
           for (int o = 0; o < 4; ++o) {
             if (o0 + o >= a.out_dim) break;
@@ -336,18 +432,28 @@ __global__ void __launch_bounds__(kWG * 3, 1)
       const float x1 = fmaxf(dequant(acc[4 * j + 2 * h + 1], p.z, p.w), 0.f);
       const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
       if (res) h0s[at(h, c)] = make_float2(x0, x1);
-      hs[at(h, c)] = hb;
-      if (a.nb > 0) {
-        const float2 hv = __bfloat1622float2(hb);
+      // K4 runs on the f32 h0, K2 and K8 on its bf16 rounding
+      const float2 hv = kQ ? make_float2(x0, x1) : __bfloat1622float2(hb);
+      if constexpr (kQ)
+        hf[at(h, c)] = hv;
+      else
+        hs[at(h, c)] = hb;
+      stashb(0, j, h, hb);
+      if (a.nb > 0)
         putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, inv.x)),
              q8b(__fmul_rn(hv.y, inv.y)));
-      }
     }
   });
+  pend_row = 0;  // K4: block 0's input
+  // the thread's final h at (c, c + 1) of its row h, as f32
+  auto h_of = [&](int h, int c) -> float2 {
+    if constexpr (kQ)
+      return hf[at(h, c)];
+    else
+      return __bfloat1622float2(hs[at(h, c)]);
+  };
   if (a.nb == 0) {  // no body: h = h0
-    tail([&](int, int h, int c) {
-      return tail_in(__bfloat1622float2(hs[at(h, c)]), h, c);
-    });
+    tail([&](int, int h, int c) { return tail_in(h_of(h, c), h, c); });
     cluster_sync();
     return;
   }
@@ -363,15 +469,17 @@ __global__ void __launch_bounds__(kWG * 3, 1)
       else if (idx > 0) pair_sync(4);
       product<int8_t, W, kC, K>(acc, Qm, W, W, Qm, W, W, ring, it, wtid);
       pair_arrive(wg == 0 ? 3 : 4);
+      q_free();
       if (jl + 1 < a.nl) {  // inner: ReLU, then the next layer's int8 input
         const float* inv = a.body_inv + (size_t)(idx + 1) * W;
         each_pair<W>(mb, t, [&](int j, int c, float4 p) {
           float2 iv = make_float2(0.f, 0.f);
-          if (kEpi == kUnfolded) iv = ldg2(inv + c);
+          if (kEpi >= kUnfolded) iv = ldg2(inv + c);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {  // t0, t1 before the ReLU
             const float t0 = __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y);
             const float t1 = __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w);
+            const int r = r0 + 8 * h;
             int x0, x1;
             if (kEpi == kDeployed) {         // scale folded, no bf16
               x0 = q8b_relu(t0);
@@ -380,28 +488,51 @@ __global__ void __launch_bounds__(kWG * 3, 1)
               const float2 v = __bfloat1622float2(__floats2bfloat162_rn(t0, t1));
               x0 = q8b_relu(v.x);
               x1 = q8b_relu(v.y);
+            } else if (kEpi == kTrainQ) {    // f32 multiply, no bf16
+              x0 = q8b(__fmul_rn(fmaxf(t0, 0.f), iv.x));
+              x1 = q8b(__fmul_rn(fmaxf(t1, 0.f), iv.y));
             } else {                         // f32 multiply by the scale
-              const float2 v = __bfloat1622float2(
-                  __floats2bfloat162_rn(fmaxf(t0, 0.f), fmaxf(t1, 0.f)));
+              const __nv_bfloat162 vb =
+                  __floats2bfloat162_rn(fmaxf(t0, 0.f), fmaxf(t1, 0.f));
+              const float2 v = __bfloat1622float2(vb);
               x0 = q8b(__fmul_rn(v.x, iv.x));
               x1 = q8b(__fmul_rn(v.y, iv.y));
+              stashb(a.nb + 1 + blk, j, h, vb);
             }
-            putq(r0 + 8 * h, c, x0, x1);
+            putq(r, c, x0, x1);
           }
         });
+        pend_row = a.nb + 1 + blk;  // K4: the inner activation's q
         continue;
       }
       // block tail: bf16, + the block input in f32, bf16; then the next
       // block's first-layer input, or (last block) the tail
       // (the sum of two bf16 values rounded once to bf16 is the f32 sum
-      // rounded to bf16: an f32 rounding of it never lands on a bf16 tie)
+      // rounded to bf16: an f32 rounding of it never lands on a bf16 tie).
+      // K8: the f32 t2 + the bf16 h in f32, rounded once; K4: h in f32.
+      // K8 stashes h_{blk+1} in stash row blk + 1.
       auto block_out = [&](int j, int h, int c, float4 p) -> float2 {
-        const __nv_bfloat162 tb = __floats2bfloat162_rn(
-            __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y),
-            __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w));
-        const __nv_bfloat162 hn = __hadd2(tb, hs[at(h, c)]);
-        hs[at(h, c)] = hn;
-        return __bfloat1622float2(hn);
+        const float t0 = __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y);
+        const float t1 = __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w);
+        if constexpr (kQ) {
+          const float2 ho = hf[at(h, c)];
+          const float2 hn = make_float2(__fadd_rn(t0, ho.x),
+                                        __fadd_rn(t1, ho.y));
+          hf[at(h, c)] = hn;
+          return hn;
+        } else {
+          __nv_bfloat162 hn;
+          if constexpr (kEpi == kTrainB) {
+            const float2 ho = __bfloat1622float2(hs[at(h, c)]);
+            hn = __floats2bfloat162_rn(__fadd_rn(t0, ho.x),
+                                       __fadd_rn(t1, ho.y));
+            stashb(blk + 1, j, h, hn);
+          } else {
+            hn = __hadd2(__floats2bfloat162_rn(t0, t1), hs[at(h, c)]);
+          }
+          hs[at(h, c)] = hn;
+          return __bfloat1622float2(hn);
+        }
       };
       if (blk + 1 < a.nb) {
         const float* inv = a.body_inv + (size_t)(blk + 1) * a.nl * W;
@@ -414,6 +545,7 @@ __global__ void __launch_bounds__(kWG * 3, 1)
                  q8b(__fmul_rn(hv.y, iv.y)));
           }
         });
+        pend_row = blk + 1;  // K4: the next block's input
         continue;
       }
       // the last block: finish h, then the tail on h (+ h0)
@@ -421,12 +553,13 @@ __global__ void __launch_bounds__(kWG * 3, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) block_out(j, h, c, p);
       });
-      tail([&](int, int h, int c) {
-        return tail_in(__bfloat1622float2(hs[at(h, c)]), h, c);
-      });
+      tail([&](int, int h, int c) { return tail_in(h_of(h, c), h, c); });
     }
   }
   if (wg == 0) pair_sync(4);  // warpgroup 1's last arrival
+  if constexpr (kQ) {  // every bulk store has written its row
+    if (wtid == 0) bulk_wait<0>();
+  }
   cluster_sync();
 }
 
@@ -434,12 +567,18 @@ __global__ void __launch_bounds__(kWG * 3, 1)
 // the h0 scratch (h0_elems floats; none without the global residual).
 template <int W, int kEpi>
 cudaError_t launch_as(Args a, long long h0_elems, cudaStream_t stream) {
-  plan<W>(a);
+  plan<W, kEpi>(a);
   const long long blocks = blocks_of(a.n);
   if (a.use_residual && h0_elems < blocks * kRows * W)
     return cudaErrorInvalidValue;
-  return launch_cluster<int8_t, Chain8<W>::kC, Chain8<W>>(
-      r2l_int8_hopper_kernel<W, kEpi>, a, (int)blocks, a.smem, stream);
+  using K = Chain8<W, kEpi>;
+  CUtensorMap map = {};  // K4's stash, through its Q tiles
+  if (kEpi == kTrainQ) {
+    const cudaError_t err = tile_map(&map, a.stash, a.n, W, 2 * a.nb + 1);
+    if (err != cudaSuccess) return err;
+  }
+  return launch_cluster<int8_t, K::kC, K>(
+      r2l_int8_hopper_kernel<W, kEpi>, a, (int)blocks, a.smem, stream, map);
 }
 
 template <int kEpi>

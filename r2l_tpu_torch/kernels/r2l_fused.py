@@ -14,7 +14,8 @@ student frame, and a third is the JAX package's exported kernel API:
   forms (``fold_requant``, ``nobf16_inner``; by default the deployed
   ``True, True``), with parameters from ``calibrate_r2l_int8_pe``. Its
   probes (``launch_int8_pe_chain``) stay on the pre-Hopper template
-  ``csrc/r2l_int8_chain.cuh``.
+  ``csrc/r2l_int8_chain.cuh``; the training forward K4/K8
+  (``r2l_train.train_fwd_int8``) runs on its template.
 * ``fused_r2l_apply`` (``csrc/r2l_fused.cu``): K1's chain on an input
   encoded outside (``r2l_embed``'s per-scalar order, parameters from
   ``prepare_fused_params``), read unpadded and rounded once to the compute
@@ -30,13 +31,16 @@ columns are zero-padded to a multiple of ``K_ALIGN`` for the same reason.
 K1 and K9 (``csrc/r2l_hopper.cuh``) read the head and body weights from a
 staged image instead (``stage_chain_weights``, made once per model by the
 frame entry points: ``prepare_fused_params``, and
-``prepare_fused_params_pe`` unless ``stage=False``, as the training step
-packs every step for K3, which reads the fields): each layer in stages laid
+``prepare_fused_params_pe`` unless ``stage=False``; the training step
+packs and stages every step for K3): each layer in stages laid
 out as Hopper's ``wgmma`` reads them (``staging.stage_matrices``), f32 as
-TF32 high and low parts. K2 reads ``head_q`` and ``body_q`` from an s8
-image staged the same way (``stage_int8_chain``, by
-``calibrate_r2l_int8_pe`` unless ``stage=False``, as the int8 training
-kinds calibrate every step for K4/K8, which read the fields). The TPU
+TF32 high and low parts; K3, the training forward on K1's chain, reads the
+same image, staged every training step (the weights change). K2 reads
+``head_q`` and ``body_q`` from an s8 image staged the same way
+(``stage_int8_chain``, by ``calibrate_r2l_int8_pe`` unless
+``stage=False``); K4/K8 from their own (``stage_int8_train``: their stage
+width, and the body's inverse scales beside the epilogue table), staged
+after each of the int8 training kinds' per-step calibrations. The TPU
 kernels' 128-lane padding and ray ``tile`` are not ported: each CUDA kernel
 picks its own ray tile.
 """
@@ -53,7 +57,7 @@ from ..models.r2l import R2L, R2LConfig
 from .staging import stage_matrices, unstage_matrices
 
 K_ALIGN = 128  # head input columns are padded to a multiple of this
-# K1/K9's shape by weight dtype (csrc/r2l_hopper.cuh, Chain): input
+# K1/K9/K3's shape by weight dtype (csrc/r2l_hopper.cuh, Chain): input
 # channels per weight stage, rays per block, blocks per cluster (a cluster
 # reads each weight stage from L2 once for all its blocks).
 CHAIN_STAGE_K = {torch.bfloat16: 64, torch.float32: 16}
@@ -112,16 +116,21 @@ class FusedParamsInt8PE(_Int8Fields):
     """Static-scale int8 parameters (all scales folded, PE freq-major,
     weights [out, in]); the fields are the JAX package's.
 
-    Beside them, not among them, ``staged``: K2's s8 weight image and
-    epilogue table (``stage_int8_chain``), or None where the calibration
-    did not stage.
-    ``_replace`` keeps it unless given ``staged=``."""
+    Beside them, not among them, ``staged``: an s8 weight image with its
+    epilogue table, or None where the calibration did not stage; and
+    ``staged_for``, the kernel it was staged for: "K2" (the frame,
+    ``stage_int8_chain``), "K4" or "K8" (the training forward,
+    ``stage_int8_train``). ``_replace`` keeps both unless given
+    ``staged=`` (and ``staged_for=``)."""
     staged: torch.Tensor | None = None
+    staged_for: str | None = None
 
     def _replace(self, **kw) -> "FusedParamsInt8PE":
         staged = kw.pop("staged", self.staged)
+        staged_for = kw.pop("staged_for", self.staged_for
+                            if staged is self.staged else None)
         out = super()._replace(**kw)
-        out.staged = staged
+        out.staged, out.staged_for = staged, staged_for
         return out
 
 
@@ -228,9 +237,9 @@ def prepare_fused_params_pe(model: R2L, cfg: R2LConfig, dim_pts: int,
                             L: int = 10,
                             weight_dtype: torch.dtype = torch.bfloat16,
                             stage: bool = True) -> FusedParams:
-    """Pack the model for the PE-fused kernel (freq-major head rows), staged
-    for K1 unless ``stage=False`` (K3, which the training step packs for
-    every step, reads the fields alone)."""
+    """Pack the model for the PE-fused kernels (freq-major head rows),
+    staged for K1 and K3 unless ``stage=False`` (the plain versions read
+    the fields alone)."""
     if cfg.input_dim != dim_pts * (2 * L + 1):
         raise ValueError(f"input_dim {cfg.input_dim} != dim_pts*(2L+1) = "
                          f"{dim_pts * (2 * L + 1)}")
@@ -518,10 +527,9 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     max-abs * ``margin`` / 127. ``fold_requant`` pre-multiplies the next
     inner layer's inverse input scale into this layer's multiplier and
     bias, so the kernel's inner requantize is round+clip only. With
-    ``stage``, K2's s8 image is staged beside the fields (once per model:
-    the int8 training kinds, which calibrate every step for K4/K8, pass
-    ``stage=False``). TF32 is switched off for the duration: it would move
-    every scale.
+    ``stage``, K2's s8 image is staged beside the fields (the int8 training
+    kinds pass ``stage=False`` and stage K4/K8's own, ``stage_int8_train``).
+    TF32 is switched off for the duration: it would move every scale.
     """
     _assert_fused_supported(cfg)
     prev = (torch.backends.cuda.matmul.allow_tf32,
@@ -535,7 +543,7 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
     if stage:
-        fp.staged = stage_int8_chain(fp, cfg, dim_pts, L)
+        fp.staged, fp.staged_for = stage_int8_chain(fp, cfg, dim_pts, L), "K2"
     return fp
 
 
@@ -583,13 +591,14 @@ def int8_chain_stage_plan(cfg: R2LConfig, dim_pts: int, L: int) -> dict:
 
 
 def stage_int8_chain(fp: FusedParamsInt8PE, cfg: R2LConfig, dim_pts: int,
-                     L: int) -> torch.Tensor:
+                     L: int, k: int | None = None) -> torch.Tensor:
     """K2's image (uint8): the head's stages (``head_q``'s columns in
     ``int8_head_columns``' order), then each body layer's, in
-    ``staging.stage_matrices`` order (wgmma's K-major core matrices, the
-    input channels per stage of ``int8_chain_stage_plan``); then the
-    epilogue table, (m, b) interleaved per column, the head's row first."""
-    k = 128 if cfg.netwidth >= 128 else 64
+    ``staging.stage_matrices`` order (wgmma's K-major core matrices, ``k``
+    input channels per stage, by default ``int8_chain_stage_plan``'s); then
+    the epilogue table, (m, b) interleaved per column, the head's row
+    first."""
+    k = k or (128 if cfg.netwidth >= 128 else 64)
     cols = int8_head_columns(cfg, dim_pts, L).to(fp.head_q.device)
     head = torch.where(cols >= 0, fp.head_q[:, cols.clamp(min=0)],
                        torch.zeros((), dtype=torch.int8,
@@ -602,16 +611,19 @@ def stage_int8_chain(fp: FusedParamsInt8PE, cfg: R2LConfig, dim_pts: int,
 
 
 def unstage_int8_chain(staged: torch.Tensor, cfg: R2LConfig, dim_pts: int,
-                       L: int) -> dict[str, torch.Tensor]:
+                       L: int, k: int | None = None
+                       ) -> dict[str, torch.Tensor]:
     """'head_q' [W, in_pad] (the fields' freq-major order, zero-padded),
     'body_q' [nb*nl, W, W], 'head_m', 'head_b' [W] and 'body_m', 'body_b'
-    [nb*nl, W] back from K2's image."""
+    [nb*nl, W] back from K2's image (staged ``k`` input channels per
+    stage, by default ``int8_chain_stage_plan``'s)."""
     plan = int8_chain_stage_plan(cfg, dim_pts, L)
     W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
-    k = plan["stage_k"]
-    cut = (plan["kpad"] // k) * plan["stage_bytes"]
+    k = k or plan["stage_k"]
+    cut = (plan["kpad"] // k) * W * k
     end = plan["weights_bytes"]
-    mb = staged[end:].clone().view(torch.float32).view(1 + nbl, W, 2)
+    mb = staged[end:end + plan["table_bytes"]].clone().view(
+        torch.float32).view(1 + nbl, W, 2)
     staged_head = unstage_matrices(staged[:cut], (W, plan["kpad"]), k,
                                    torch.int8)[0]
     cols = int8_head_columns(cfg, dim_pts, L).to(staged.device)
@@ -623,6 +635,54 @@ def unstage_int8_chain(staged: torch.Tensor, cfg: R2LConfig, dim_pts: int,
                                        torch.int8)[0],
             "head_m": mb[0, :, 0], "head_b": mb[0, :, 1],
             "body_m": mb[1:, :, 0], "body_b": mb[1:, :, 1]}
+
+
+def int8_train_stage_k(W: int, stash_q: bool) -> int:
+    """K4/K8's input channels per weight stage (``csrc/r2l_int8_hopper.cuh``,
+    ``Chain8``): K2's (128, 64 at W64), but 64 for K4 at W256, whose f32
+    residual stream leaves room for a 64 KB ring only."""
+    return 64 if W < 128 or (W == 256 and stash_q) else 128
+
+
+def int8_train_stage_plan(cfg: R2LConfig, dim_pts: int, L: int,
+                          stash_q: bool) -> dict:
+    """K4/K8's staged image (``stage_int8_train``): K2's plan at the kind's
+    stage width, then the body's inverse input scales ('inv_bytes',
+    [nb*nl, W] f32)."""
+    plan = dict(int8_chain_stage_plan(cfg, dim_pts, L))
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    k = int8_train_stage_k(W, stash_q)
+    plan.update(stage_k=k, stage_bytes=W * k,
+                stages=(plan["kpad"] + nbl * W) // k, inv_bytes=nbl * W * 4)
+    plan["nbytes"] += plan["inv_bytes"]
+    return plan
+
+
+def stage_int8_train(fp: FusedParamsInt8PE, cfg: R2LConfig, dim_pts: int,
+                     L: int, stash_q: bool) -> FusedParamsInt8PE:
+    """``fp`` (from ``calibrate_r2l_int8_pe(..., fold_requant=False)``)
+    with K4's (``stash_q``) or K8's image beside it: K2's image at the
+    kind's stage width (``int8_train_stage_k``), then ``body_inv`` [nb*nl,
+    W] f32, the inverse input scale of every body layer. Made after each
+    calibration (the int8 training kinds: every step)."""
+    k = int8_train_stage_k(cfg.netwidth, stash_q)
+    img = torch.cat([stage_int8_chain(fp, cfg, dim_pts, L, k),
+                     fp.body_inv.float().contiguous().view(torch.uint8)
+                     .reshape(-1)])
+    return fp._replace(staged=img, staged_for="K4" if stash_q else "K8")
+
+
+def unstage_int8_train(staged: torch.Tensor, cfg: R2LConfig, dim_pts: int,
+                       L: int, stash_q: bool) -> dict[str, torch.Tensor]:
+    """``unstage_int8_chain``'s fields back from K4's or K8's image, and
+    'body_inv' [nb*nl, W]."""
+    plan = int8_train_stage_plan(cfg, dim_pts, L, stash_q)
+    out = unstage_int8_chain(staged, cfg, dim_pts, L, plan["stage_k"])
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    start = plan["weights_bytes"] + plan["table_bytes"]
+    out["body_inv"] = staged[start:start + plan["inv_bytes"]].clone().view(
+        torch.float32).view(nbl, W)
+    return out
 
 
 def int8_chain_l2_bytes(cfg: R2LConfig, dim_pts: int, L: int,
@@ -853,8 +913,8 @@ def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
     dev, n, W = pts.device, pts.shape[0], cfg.netwidth
     _check(pts, "pts", torch.float32, (n, dim_pts), dev)
     _check_int8_params(fp, cfg, dim_pts, L, dev)
-    if fp.staged is None:
-        raise ValueError("fp has no staged s8 image: calibrate it with "
+    if fp.staged is None or fp.staged_for != "K2":
+        raise ValueError("fp has no staged s8 image for K2: calibrate it with "
                          "calibrate_r2l_int8_pe(..., stage=True)")
     _check(fp.staged, "staged", torch.uint8,
            (int8_chain_stage_plan(cfg, dim_pts, L)["nbytes"],), dev)

@@ -3,16 +3,19 @@ autograd Function of the distillation step.
 
 Counterpart of ``r2l_tpu/kernels/r2l_train_pallas.py``. Three kernels:
 
-* ``train_fwd`` (``csrc/r2l_train_fwd.cu``, K3): K1's PE-fused chain that
-  also writes the activation stash ``[2nb+1, N, W]`` in the compute dtype
-  (rows 0..nb the block inputs h_0..h_nb, row nb+1+b block b's post-ReLU
-  inner activation).
-* ``train_fwd_int8`` (``csrc/r2l_train_fwd_int8.cu``): the static-scale
-  int8 chain. K4 (``stash_q=True``): an f32 residual stream, and an int8
-  stash of the q-values the matmuls consume (row nb: the tail input with
-  the global residual folded in). K8 (``stash_q=False``, the function's
-  default): ``train_fwd``'s stash contract in bf16, the residual stream
-  rounded to bf16 each block.
+* ``train_fwd`` (``csrc/r2l_train_fwd.cu`` over K1's ``r2l_hopper.cuh``,
+  K3): K1's PE-fused chain that also writes the activation stash
+  ``[2nb+1, N, W]`` in the compute dtype (rows 0..nb the block inputs
+  h_0..h_nb, row nb+1+b block b's post-ReLU inner activation). It reads
+  K1's weight image (``stage_chain_weights``), staged every step.
+* ``train_fwd_int8`` (``csrc/r2l_train_fwd_int8.cu`` over K2's
+  ``r2l_int8_hopper.cuh``): the static-scale int8 chain. K4
+  (``stash_q=True``): an f32 residual stream, and an int8 stash of the
+  q-values the matmuls consume (row nb: the tail input with the global
+  residual folded in). K8 (``stash_q=False``, the function's default):
+  ``train_fwd``'s stash contract in bf16, the residual stream rounded to
+  bf16 each block. Each reads its own s8 image (``stage_int8_train``),
+  staged after every calibration.
 * ``bwd_group`` (``csrc/r2l_bwd_group.cu`` over ``r2l_bwd_hopper.cuh``,
   K5): the backward through a group of blocks: dh, and dW/db summed over
   all rays in a fixed order. It walks a stash in the weights' dtype, K8's
@@ -40,11 +43,14 @@ from typing import NamedTuple
 import torch
 
 from ..models.r2l import R2L, R2LConfig
-from .r2l_fused import (CHAIN_STAGE_K, FusedParams, FusedParamsInt8PE,
-                        _check, _dequant, _mm_f32, _mm_int, _padded_in,
-                        _pe_row_permutation_on, _pe_sin_cos_ladder, _ptr,
-                        _q8, _raise_on_error, calibrate_r2l_int8_pe,
-                        fused_kernel_supported, prepare_fused_params_pe)
+from .r2l_fused import (CHAIN_STAGE_K, INT8_BLOCK_RAYS, FusedParams,
+                        FusedParamsInt8PE, _chain_scratch, _check,
+                        _dequant, _mm_f32,
+                        _mm_int, _padded_in, _pe_row_permutation_on,
+                        _pe_sin_cos_ladder, _ptr, _q8, _raise_on_error,
+                        calibrate_r2l_int8_pe, chain_stage_plan,
+                        fused_kernel_supported, int8_train_stage_plan,
+                        prepare_fused_params_pe, stage_int8_train)
 from .staging import stage_matrices, unstage_matrices
 
 
@@ -64,10 +70,13 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 # ---------------------------------------------------------------------------
 
 def train_fwd_ref(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
-                  dim_pts: int, L: int = 10
+                  dim_pts: int, L: int = 10, mm=_mm_f32
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``train_fwd``: pts [N, dim_pts] -> (rgb [N, out]
-    f32, stash [2nb+1, N, W] in the weights' dtype)."""
+    f32, stash [2nb+1, N, W] in the weights' dtype). ``mm`` replaces the
+    head's and the body's product (default: f32 sums of the exact
+    products; the tail's stays ``_mm_f32``), as in
+    ``fused_r2l_apply_pe_ref``."""
     cd = fp.head_w.dtype
     nb, n = cfg.num_blocks, pts.shape[0]
     p = pts.float()
@@ -76,14 +85,14 @@ def train_fwd_ref(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
                   + [p.to(cd)], dim=1)
     stash = torch.empty((2 * nb + 1, n, cfg.netwidth), dtype=cd,
                         device=pts.device)
-    h0 = torch.relu(_mm_f32(x, fp.head_w) + fp.head_b).to(cd)
+    h0 = torch.relu(mm(x, fp.head_w) + fp.head_b).to(cd)
     stash[0] = h0
     h = h0
     for b in range(nb):
-        t1r = torch.relu(_mm_f32(h, fp.body_w[2 * b])
+        t1r = torch.relu(mm(h, fp.body_w[2 * b])
                          + fp.body_b[2 * b]).to(cd)
         stash[nb + 1 + b] = t1r
-        t2 = _mm_f32(t1r, fp.body_w[2 * b + 1]) + fp.body_b[2 * b + 1]
+        t2 = mm(t1r, fp.body_w[2 * b + 1]) + fp.body_b[2 * b + 1]
         h = (t2 * cfg.res_scale + h.float()).to(cd)
         stash[b + 1] = h
     hf = h.float()
@@ -98,8 +107,10 @@ def train_fwd(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """PE-fused forward with the activation stash (K3): pts [N, dim_pts]
     -> (rgb [N, out_dim] f32, stash [2nb+1, N, W] in the weights' dtype).
-    ``fp`` comes from ``prepare_fused_params_pe``. CPU tensors take the
-    plain version."""
+    ``fp`` comes from ``prepare_fused_params_pe``, staged: on the card K3
+    reads K1's weight image (``fp.staged``) and raises without it (the
+    training step stages it every step). CPU tensors take the plain
+    version, which reads the fields."""
     if pts.device.type == "cpu":
         return train_fwd_ref(fp, cfg, pts, dim_pts, L)
     from . import _build
@@ -118,19 +129,26 @@ def train_fwd(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
             ("tail_w", fp.tail_w, wd, (out_dim, W)),
             ("tail_b", fp.tail_b, torch.float32, (out_dim,))):
         _check(t, name, dt, shape, dev)
+    if fp.staged is None:
+        raise ValueError("K3 reads its weights from K1's image: pack them "
+                         "with prepare_fused_params_pe(..., stage=True)")
+    _check(fp.staged, "staged", torch.uint8,
+           (chain_stage_plan(cfg, wd)["nbytes"],), dev)
     out = torch.empty((n, out_dim), dtype=torch.float32, device=dev)
     stash = torch.empty((2 * nb + 1, n, W), dtype=wd, device=dev)
     if n == 0:
         return out, stash
+    h0 = _chain_scratch(cfg, wd, n, dev)
     lib = _build.load("r2l_train_fwd")
     with torch.cuda.device(dev):
         train_fwd.launches += 1
         rc = lib.r2l_train_fwd_launch(
-            _ptr(pts), n, dim_pts, L, _ptr(fp.head_w), _ptr(fp.head_b),
-            _ptr(fp.body_w), _ptr(fp.body_b), _ptr(fp.tail_w),
-            _ptr(fp.tail_b), _ptr(out), _ptr(stash), W, nb, out_dim,
-            float(cfg.res_scale), int(cfg.use_residual),
-            int(cfg.linear_tail), int(wd == torch.float32), _stream(dev))
+            _ptr(pts), n, dim_pts, L, _ptr(fp.staged), _ptr(fp.head_b),
+            _ptr(fp.body_b), _ptr(fp.tail_w), _ptr(fp.tail_b), _ptr(out),
+            _ptr(h0), h0.numel(), _ptr(stash), W, nb, out_dim,
+            float(cfg.res_scale),
+            int(cfg.use_residual), int(cfg.linear_tail),
+            int(wd == torch.float32), _stream(dev))
     _raise_on_error(rc, "r2l_train_fwd")
     return out, stash
 
@@ -196,8 +214,10 @@ def train_fwd_int8(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Static-scale int8 training forward: pts [N, dim_pts] -> (rgb [N,
     out_dim] f32, stash [2nb+1, N, W]). ``stash_q`` (K4): the int8 q-values;
-    otherwise (K8) the bf16 activations. CPU tensors take the plain
-    version."""
+    otherwise (K8) the bf16 activations. On the card the kernel reads the
+    kind's image (``stage_int8_train(fp, ..., stash_q)``) and raises
+    without it. CPU tensors take the plain version, which reads the
+    fields."""
     if pts.device.type == "cpu":
         return train_fwd_int8_ref(fp, cfg, pts, dim_pts, L, stash_q)
     from . import _build
@@ -221,11 +241,21 @@ def train_fwd_int8(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
             ("tail_b", fp.tail_b, f32, (out_dim,)),
             ("tail_inv", fp.tail_inv, f32, (W,))):
         _check(t, name, dt, shape, dev)
+    form = "K4" if stash_q else "K8"
+    if fp.staged is None or fp.staged_for != form:
+        raise ValueError(f"{form} reads its weights from its own image: "
+                         f"stage it with stage_int8_train(fp, ..., "
+                         f"stash_q={stash_q})")
+    _check(fp.staged, "staged", torch.uint8, (int8_train_stage_plan(
+        cfg, dim_pts, L, stash_q)["nbytes"],), dev)
     out = torch.empty((n, out_dim), dtype=f32, device=dev)
     stash = torch.empty((2 * nb + 1, n, W),
                         dtype=i8 if stash_q else torch.bfloat16, device=dev)
     if n == 0:
         return out, stash
+    blocks = -(-(-(-n // INT8_BLOCK_RAYS)) // 2) * 2
+    h0 = torch.empty((blocks * INT8_BLOCK_RAYS * W
+                      if cfg.use_residual else 0,), dtype=f32, device=dev)
     lib = _build.load("r2l_train_fwd_int8")
     with torch.cuda.device(dev):
         if stash_q:
@@ -233,13 +263,11 @@ def train_fwd_int8(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
         else:
             train_fwd_int8.launches_bf16 += 1
         rc = lib.r2l_train_fwd_int8_launch(
-            _ptr(pts), n, dim_pts, L, _ptr(fp.head_q), _ptr(fp.head_m),
-            _ptr(fp.head_b), _ptr(fp.head_inv), _ptr(fp.body_q),
-            _ptr(fp.body_m), _ptr(fp.body_b), _ptr(fp.body_inv),
+            _ptr(pts), n, dim_pts, L, _ptr(fp.staged), _ptr(fp.head_inv),
             _ptr(fp.tail_q), _ptr(fp.tail_m), _ptr(fp.tail_b),
-            _ptr(fp.tail_inv), _ptr(out), _ptr(stash), W, nb, out_dim,
-            int(cfg.use_residual), int(cfg.linear_tail), int(stash_q),
-            _stream(dev))
+            _ptr(fp.tail_inv), _ptr(out), _ptr(h0), h0.numel(),
+            _ptr(stash), W, nb, out_dim, int(cfg.use_residual),
+            int(cfg.linear_tail), int(stash_q), _stream(dev))
     _raise_on_error(rc, "r2l_train_fwd_int8")
     return out, stash
 
@@ -425,8 +453,9 @@ def _run_fwd(spec: _Spec, model: R2L, fp, pts: torch.Tensor):
         scales = ((1.0 / fp.body_inv, 1.0 / fp.tail_inv) if spec.stash_q
                   else None)
         return rgb, stash, body_w, scales
+    # K3's image of the live weights, once per step
     fp = prepare_fused_params_pe(model, cfg, spec.dim_pts, spec.L,
-                                 weight_dtype=spec.cd, stage=False)
+                                 weight_dtype=spec.cd)
     rgb, stash = train_fwd(fp, cfg, pts, spec.dim_pts, spec.L)
     return rgb, stash, fp.body_w, None
 
@@ -529,7 +558,8 @@ def make_fused_train_apply(cfg: R2LConfig, dim_pts: int, L: int = 10,
     ``external_calib`` (int8 only) returns ``(apply_fp, calibrate)``
     instead: ``apply_fp(model, pts, fp)`` takes a calibration made by
     ``calibrate(model)``, so that the caller decides how often to
-    recalibrate.
+    recalibrate. Each calibration stages the kind's image for K4/K8
+    (``stage_int8_train``); the bf16/f32 kind stages K3's every step.
     """
     _assert_train_supported(cfg)
     int8 = quantize == "int8"
@@ -541,8 +571,9 @@ def make_fused_train_apply(cfg: R2LConfig, dim_pts: int, L: int = 10,
                  bool(int8 and stash_q))
 
     def calibrate(model: R2L) -> FusedParamsInt8PE:
-        return calibrate_r2l_int8_pe(model, cfg, dim_pts, L, calib_pts,
-                                     fold_requant=False, stage=False)
+        fp = calibrate_r2l_int8_pe(model, cfg, dim_pts, L, calib_pts,
+                                   fold_requant=False, stage=False)
+        return stage_int8_train(fp, cfg, dim_pts, L, spec.stash_q)
 
     def apply_fp(model: R2L, pts: torch.Tensor, fp) -> torch.Tensor:
         return _FusedTrainFn.apply(spec, model, fp, pts, *_params(model))

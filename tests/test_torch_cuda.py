@@ -340,12 +340,18 @@ def test_train_fwd_kernel_matches_plain(dev, name, wd):
         assert float((d.values / scale).max()) < TOL_BF16, d
 
 
+def _train_int8(cfg, model, sampler, poses, dp, L, dev, stash_q):
+    """The int8 training kinds' calibration with K4's or K8's image."""
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                 _calibration_points(sampler, poses, dev),
+                                 fold_requant=False, stage=False)
+    return F.stage_int8_train(fp, cfg, dp, L, stash_q)
+
+
 @pytest.mark.parametrize("name", sorted(TRAIN_CASES))
 def test_train_fwd_int8_kernel_matches_plain(dev, name):
     cfg, model, sampler, poses, pts, dp, L = _train_case(name, dev)
-    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
-                                 _calibration_points(sampler, poses, dev),
-                                 fold_requant=False)
+    fp = _train_int8(cfg, model, sampler, poses, dp, L, dev, True)
     before = T.train_fwd_int8.launches
     rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L, stash_q=True)
     torch.cuda.synchronize()
@@ -362,9 +368,7 @@ def test_train_fwd_int8_kernel_matches_plain(dev, name):
 def test_train_fwd_int8_bf16_stash_kernel_matches_plain(dev, name):
     """K8: the int8 forward with train_fwd's rows stashed in bf16."""
     cfg, model, sampler, poses, pts, dp, L = _train_case(name, dev)
-    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
-                                 _calibration_points(sampler, poses, dev),
-                                 fold_requant=False)
+    fp = _train_int8(cfg, model, sampler, poses, dp, L, dev, False)
     before = T.train_fwd_int8.launches_bf16
     rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L)
     torch.cuda.synchronize()
@@ -376,6 +380,69 @@ def test_train_fwd_int8_bf16_stash_kernel_matches_plain(dev, name):
     d = (stash.float() - stash_p.float()).abs().amax(dim=(1, 2))
     scale = stash_p.float().abs().amax(dim=(1, 2)).clamp(min=1.0)
     assert float((d / scale).max()) < TOL_BF16, d
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_CASES))
+@pytest.mark.parametrize("stash_q", [True, False])
+def test_train_fwd_int8_bit_for_bit(dev, name, stash_q):
+    """K4 and K8 keep every rounding of their plain version: rgb and every
+    stash value bit for bit (int32 sums are exact, and the card runs the
+    same sinf/cosf on both sides), at W64, W128 and W256."""
+    cfg, model, sampler, poses, pts, dp, L = _train_case(name, dev)
+    fp = _train_int8(cfg, model, sampler, poses, dp, L, dev, stash_q)
+    rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L, stash_q=stash_q)
+    rgb_p, stash_p = T.train_fwd_int8_ref(fp, cfg, pts, dp, L,
+                                          stash_q=stash_q)
+    assert torch.equal(rgb, rgb_p)
+    assert torch.equal(stash.view(torch.uint8), stash_p.view(torch.uint8))
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4", "K8"])
+def test_train_kernels_refuse_an_unstaged_image(dev, kind):
+    """K3 reads K1's image and K4/K8 their own: without it, with a short
+    one, or (K4/K8) with K2's or the other kind's, they raise and launch
+    nothing; nothing runs the plain version in their place."""
+    cfg, model, sampler, poses, pts, dp, L = _train_case("w256_canonical",
+                                                        dev)
+    if kind == "K3":
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L)
+        bad = [F.prepare_fused_params_pe(model, cfg, dp, L, stage=False),
+               fp._replace(staged=fp.staged[:-16])]
+        run, counter = (lambda f: T.train_fwd(f, cfg, pts, dp, L),
+                        lambda: T.train_fwd.launches)
+    else:
+        q = kind == "K4"
+        fp = _train_int8(cfg, model, sampler, poses, dp, L, dev, q)
+        other = _train_int8(cfg, model, sampler, poses, dp, L, dev, not q)
+        k2 = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                     _calibration_points(sampler, poses, dev),
+                                     fold_requant=False)
+        bad = [fp._replace(staged=None), other, k2,
+               fp._replace(staged=fp.staged[:-16],
+                           staged_for=fp.staged_for)]
+        run = (lambda f: T.train_fwd_int8(f, cfg, pts, dp, L, stash_q=q))
+        counter = (lambda: T.train_fwd_int8.launches if q
+                   else T.train_fwd_int8.launches_bf16)
+    before = counter()
+    for b in bad:
+        with pytest.raises(ValueError):
+            run(b)
+    assert counter() == before
+
+
+@pytest.mark.parametrize("name,op", [("r2l_train_fwd", "HGMMA"),
+                                     ("r2l_train_fwd_int8", "IGMMA")])
+def test_train_kernels_run_on_wgmma(dev, name, op):
+    """The SASS of K3 (bf16, and f32 as TF32) holds HGMMA and K4/K8's
+    IGMMA: wgmma, not mma.sync's HMMA/IMMA."""
+    import subprocess
+    from r2l_tpu_torch.kernels import _build
+    _build.load(name)
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._library_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+    assert op in sass
+    assert "HMMA" not in sass and "IMMA" not in sass
 
 
 @pytest.mark.parametrize("name", sorted(TRAIN_CASES))
@@ -960,8 +1027,9 @@ def _qdx_case(dev, n=1024, W=64):
     calib = _calibration_points(sampler, poses, dev)
     pts = torch.rand((n, 48), generator=torch.Generator().manual_seed(13)
                      ).to(dev) * 2.0 - 1.0
-    fp = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, calib,
-                                 fold_requant=False)
+    fp = F.stage_int8_train(F.calibrate_r2l_int8_pe(
+        model, cfg, 48, 10, calib, fold_requant=False, stage=False),
+        cfg, 48, 10, True)
     _, stash = T.train_fwd_int8(fp, cfg, pts, 48, 10, stash_q=True)
     body_w = F.prepare_fused_params_pe(model, cfg, 48, 10).body_w
     dh = torch.randn((n, W), generator=torch.Generator().manual_seed(14)

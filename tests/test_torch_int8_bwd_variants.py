@@ -37,6 +37,20 @@ def test_timing_needs_a_card():
     assert e.value.code == 1
 
 
+@pytest.mark.parametrize("tool", ["int8_bwd_variants", "chain_variants"])
+def test_parent_check_needs_a_card(tool):
+    """``--parent TREE`` (this checkout's K1/K9 or K2 held bit for bit to a
+    parent's build) exits non-zero without a GPU, before it builds
+    anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from r2l_tpu_torch.exp import chain_variants as CV
+    mod = V if tool == "int8_bwd_variants" else CV
+    with pytest.raises(SystemExit) as e:
+        mod.main(["--parent", "no-such-tree"])
+    assert e.value.code == 1
+
+
 def test_an_edit_that_does_not_apply_is_refused(tmp_path):
     """A text that no longer occurs exactly once stops the copy."""
     with pytest.raises(ValueError, match="0 copies"):
@@ -60,7 +74,9 @@ def test_loading_swaps_every_library_and_restores_the_build():
 
 def test_steps_script_times_the_four_kinds():
     """The steps script (shared by both tools) compiles and names the four
-    distillation kinds of chip_smoke.py's phase 6."""
+    distillation kinds of chip_smoke.py's phase 6, and ``fused`` at the
+    CLI's default f32."""
     compile(_harness._STEPS, "<steps>", "exec")
-    for kind in ("xla", "fused", "fused_int8", "fused_int8_bf16stash"):
+    for kind in ("xla", "fused", "fused_int8", "fused_int8_bf16stash",
+                 "fused_f32"):
         assert f'("{kind}",' in _harness._STEPS

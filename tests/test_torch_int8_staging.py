@@ -62,6 +62,98 @@ def test_int8_image_unpacks_bit_for_bit(W, fold_requant):
         assert torch.equal(got[name], want), name
 
 
+@pytest.mark.parametrize("W", [64, 128, 256])
+@pytest.mark.parametrize("stash_q", [True, False])
+def test_int8_train_image_unpacks_bit_for_bit(W, stash_q):
+    """K4's and K8's image (``stage_int8_train``, after each calibration of
+    the int8 training kinds) holds K2's fields at the kind's stage width (64
+    input channels for K4 at W256, whose f32 residual stream leaves a 64 KB
+    ring; K2's elsewhere), then every body layer's inverse input scale,
+    each bit for bit; its size is ``int8_train_stage_plan``'s, it is marked
+    for its kernel, and the calibration's fields are untouched."""
+    cfg, _, _, bare = _calibrated(W, fold_requant=False, stage=False)
+    fp = F.stage_int8_train(bare, cfg, DP, L, stash_q)
+    plan = F.int8_train_stage_plan(cfg, DP, L, stash_q)
+    k = 64 if W == 64 or (W == 256 and stash_q) else 128
+    assert plan["stage_k"] == k and plan["stage_bytes"] == W * k
+    assert plan["stages"] == (256 + 6 * W) // k
+    assert fp.staged_for == ("K4" if stash_q else "K8")
+    assert fp.staged.dtype == torch.uint8
+    assert fp.staged.numel() == plan["nbytes"] == (
+        F.int8_chain_stage_plan(cfg, DP, L)["nbytes"] + 6 * W * 4)
+    got = F.unstage_int8_train(fp.staged, cfg, DP, L, stash_q)
+    assert sorted(got) == ["body_b", "body_inv", "body_m", "body_q",
+                           "head_b", "head_m", "head_q"]
+    for name in got:
+        want = getattr(fp, name)
+        assert got[name].dtype == want.dtype, name
+        assert got[name].shape == want.shape, name
+        assert torch.equal(got[name], want), name
+    for a, b in zip(fp, bare):
+        assert a is b
+
+
+def _fma32(x, m, b):
+    """f32 x * m + b as the card's ``__fmaf_rn`` (x * m exact in float64;
+    one rounding of the sum to float64, then to f32, as ``_dequant``)."""
+    return (x.astype(np.float64) * m + b).astype(np.float32)
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def test_training_tails_equal_the_plain_version():
+    """K4's and K8's block tails and K4's inner requantize as the kernel
+    computes them (``csrc/r2l_int8_hopper.cuh``, kTrainQ / kTrainB: the
+    int32 sum back by an add of 1.5 * 2^23, the one-FMA dequantize, q8b's
+    clip-then-add), emulated in f32, equal ``train_fwd_int8_ref``'s
+    arithmetic bit for bit: K8 h = bf16(t2 + float(h)) rounded once from
+    the f32 t2; K4 h = t2 + h in f32 and the next input q8(h * inv); K4's
+    inner q8(relu(t) * inv), no bf16. K2's tail (t2 rounded to bf16, then
+    one bf16 add) is another function: it differs from K8's on some of
+    these inputs, so K8 cannot reuse it."""
+    rng = np.random.default_rng(2)
+    n, lim = 200_000, 256 * 127 * 127
+    acc = rng.integers(-lim, lim + 1, n).astype(np.int32)
+    m = (rng.uniform(0.5, 2.0, n) * 2e-5).astype(np.float32)
+    b = rng.normal(0.0, 0.5, n).astype(np.float32)
+    inv = rng.uniform(2.0, 60.0, n).astype(np.float32)
+    h_bf = _bf16(rng.normal(0.0, 3.0, n).astype(np.float32))
+    h32 = rng.normal(0.0, 3.0, n).astype(np.float32)
+    magic = np.float32(12582912.0)
+    i2f = (np.int32(0x4B400000) + acc).view(np.float32) - magic
+    t2 = _fma32(i2f, m, b)                       # the kernel's t2 (f32)
+
+    def q8b(y):
+        bits = (np.clip(y, -127, 127).astype(np.float32) + magic).view(
+            np.int32)
+        return (bits & 0xFF).astype(np.uint8).view(np.int8)
+
+    # the plain version's pieces (r2l_train.train_fwd_int8_ref)
+    acc_t = torch.from_numpy(acc.astype(np.float32))
+    t2_p = F._dequant(acc_t, torch.from_numpy(m), torch.from_numpy(b))
+    assert np.array_equal(t2, t2_p.numpy())
+    # K8: one rounding of the f32 sum
+    k8 = _bf16((t2 + h_bf.float().numpy()).astype(np.float32))
+    assert torch.equal(k8, (t2_p + h_bf.float()).to(torch.bfloat16))
+    # K2's tail on the same inputs: another value on some of them
+    k2 = (torch.from_numpy(t2).to(torch.bfloat16).float()
+          + h_bf.float()).to(torch.bfloat16)
+    assert not torch.equal(k2, k8)
+    # K4: h in f32, then the next block's input
+    h4 = (t2 + h32).astype(np.float32)
+    h4_p = t2_p + torch.from_numpy(h32)
+    assert np.array_equal(h4, h4_p.numpy())
+    q4 = q8b((h4 * inv).astype(np.float32))
+    assert np.array_equal(q4, F._q8(h4_p, torch.from_numpy(inv)).to(
+        torch.int8).numpy())
+    # K4's inner layer: relu, the f32 multiply, no bf16
+    qi = q8b((np.maximum(t2, 0) * inv).astype(np.float32))
+    want = F._q8(torch.relu(t2_p), torch.from_numpy(inv)).to(torch.int8)
+    assert np.array_equal(qi, want.numpy())
+
+
 @pytest.mark.parametrize("W", [64, 256])
 def test_int8_stages_are_s8_core_matrices(W):
     """Stage s of a layer: byte b of output row n at ((n//8) * (B//16) +
@@ -126,30 +218,59 @@ def test_k2_without_its_image_raises():
 
 def test_the_frame_calibration_stages_and_training_does_not(monkeypatch):
     """The int8 frame's packing (``evaluate._prepare_r2l``, once per model)
-    stages K2's image; the int8 training kinds calibrate every step for
-    K4/K8, which read the fields, and make none."""
+    stages K2's image; the int8 training kinds' calibration, every step,
+    stages K4's or K8's own instead (``stage_int8_train``, once per
+    calibration, marked for its kernel). K4/K8 on a tensor that is not on
+    the CPU (the meta device) raise without their image, or with K2's or
+    the other kind's, before they build or launch anything."""
     from r2l_tpu_torch.evaluate import _prepare_r2l
     from r2l_tpu_torch.sampler import PointSampler
-    cfg = R2LConfig(input_dim=DP * (2 * L + 1), netdepth=8, netwidth=128,
+    cfg = R2LConfig(input_dim=DP * (2 * L + 1), netdepth=8, netwidth=256,
                     compute_dtype=torch.bfloat16)
     model = init_r2l(cfg, torch.Generator().manual_seed(0), CPU)
     sampler = PointSampler(H=16, W=16, focal=20.0, n_sample=DP // 3,
                            near=2.0, far=6.0)
     prepared, kind, _ = _prepare_r2l(model, cfg, sampler, L, False, True,
                                      "int8")
-    assert kind == "int8" and prepared.staged is not None
+    assert kind == "int8" and prepared.staged_for == "K2"
     assert torch.equal(prepared.staged,
                        F.stage_int8_chain(prepared, cfg, DP, L))
 
-    def refuse(*args):
-        raise AssertionError("the training calibration staged K2's image")
-    monkeypatch.setattr(F, "stage_int8_chain", refuse)
+    calls = []
+    real = F.stage_int8_train
+
+    def count(fp, cfg, dp, L, stash_q):
+        calls.append(stash_q)
+        return real(fp, cfg, dp, L, stash_q)
+    monkeypatch.setattr(T, "stage_int8_train", count)
     calib = torch.from_numpy(np.random.default_rng(1).uniform(
         -2, 2, (64, DP)).astype(np.float32))
-    _, calibrate = T.make_fused_train_apply(
-        cfg, DP, L, quantize="int8", calib_pts=calib, external_calib=True)
-    fp = calibrate(model)
-    assert fp.staged is None
+    meta = torch.device("meta")
+    pts = torch.zeros((4, DP), dtype=torch.float32, device=meta)
+    fps = {}
+    for stash_q in (True, False):
+        _, calibrate = T.make_fused_train_apply(
+            cfg, DP, L, quantize="int8", calib_pts=calib,
+            stash_q=stash_q, external_calib=True)
+        fp = fps[stash_q] = calibrate(model)
+        assert calls[-1] is stash_q
+        assert fp.staged_for == ("K4" if stash_q else "K8")
+        assert torch.equal(fp.staged, real(fp, cfg, DP, L, stash_q).staged)
+    assert calls == [True, False]
+    # at W256 the two kinds' images differ (64- and 128-channel stages)
+    assert not torch.equal(fps[True].staged, fps[False].staged)
+
+    def on_meta(fp, **kw):
+        moved = F.FusedParamsInt8PE(*(t.to(meta) for t in fp))
+        return moved._replace(**kw) if kw else moved
+    for stash_q in (True, False):
+        fp = fps[stash_q]
+        for bad in (on_meta(fp), on_meta(fp, staged=fp.staged.to(meta),
+                                         staged_for="K2"),
+                    on_meta(fp, staged=fp.staged.to(meta),
+                            staged_for="K8" if stash_q else "K4")):
+            with pytest.raises(ValueError, match="image"):
+                T.train_fwd_int8(bad, cfg, pts, DP, L, stash_q=stash_q)
 
 
 @pytest.mark.parametrize("W,dp,L,kpad", [(256, 48, 10, 1024),

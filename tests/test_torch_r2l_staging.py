@@ -139,6 +139,56 @@ def test_3xtf32_emulation_keeps_the_k1_f32_limit():
     assert mx > 0, "the emulation changed nothing"
 
 
+def _mm_3xtf32_stages(x, w, k=16):
+    """K3 f32's product (``csrc/hopper_ring.cuh``, mm_rs with ``kSplit``):
+    3xTF32 over each weight stage of k input channels, summed apart from
+    zero, the stages' sums added in order in f32."""
+    w = w[:, :x.shape[1]]
+    xh, xl = tf32_split(x.float())
+    wh, wl = tf32_split(w.float())
+    acc = None
+    for s in range(0, x.shape[1], k):
+        a, b, c, d = xh[:, s:s + k], xl[:, s:s + k], wh[:, s:s + k], \
+            wl[:, s:s + k]
+        part = a @ d.T + b @ c.T + a @ c.T
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def test_3xtf32_stage_sums_keep_the_k3_f32_limit():
+    """K3's plain version at the canonical f32 student (W256, D88, 16
+    samples, L=10, ``init_r2l`` seed 0) with its head and body products as
+    K3 f32 computes them (3xTF32, each 16-channel weight stage summed
+    apart and added in f32), on 1,024 of a step's rays (every 80th of
+    ``chip_smoke.train_points``), against the true-f32 plain version: rgb
+    and every one of the 87 stash rows within ``TOL_TRAIN_F32``, and not
+    equal to it. The emulation rounds where the tensor cores truncate, so
+    it checks the sums' order, not the card's margin (``chip_smoke.py``'s
+    ``[margin]`` lines)."""
+    from r2l_tpu_torch.sampler import PointSampler
+    cfg = R2LConfig()   # the CLI default compute dtype, f32
+    model = init_r2l(cfg, torch.Generator().manual_seed(cs.SEED), CPU)
+    sampler = PointSampler(H=cs.H, W=cs.W, focal=cs.FOCAL,
+                           n_sample=cs.N_SAMPLE, near=2.0, far=6.0)
+    pts = cs.train_points(cfg, sampler, CPU)[::80].contiguous()
+    assert pts.shape == (1024, 3 * cs.N_SAMPLE)
+    dp = 3 * cs.N_SAMPLE
+    fp = F.prepare_fused_params_pe(model, cfg, dp, cs.EMBED_L,
+                                   weight_dtype=torch.float32, stage=False)
+    rgb, stash = T.train_fwd_ref(fp, cfg, pts, dp, cs.EMBED_L)
+    rgb_e, stash_e = T.train_fwd_ref(fp, cfg, pts, dp, cs.EMBED_L,
+                                     mm=_mm_3xtf32_stages)
+    e_rgb = float((rgb_e.double() - rgb.double()).abs().max())
+    rows = (stash_e.double() - stash.double()).abs().amax(dim=(1, 2))
+    worst = float(rows.max())
+    print(f"K3 f32 stage sums (CPU emulation): rgb {e_rgb:.3e}, stash worst "
+          f"{worst:.3e} at row {int(rows.argmax())} "
+          f"({worst / cs.TOL_TRAIN_F32:.0%} of {cs.TOL_TRAIN_F32:.0e})")
+    assert rows.numel() == 2 * cfg.num_blocks + 1 == 87
+    assert e_rgb <= cs.TOL_TRAIN_F32 and worst <= cs.TOL_TRAIN_F32
+    assert worst > 0, "the emulation changed nothing"
+
+
 def test_chain_l2_bytes_and_scratch_follow_the_clusters():
     """A launch reads the staged image once per 2-block cluster: a 400x400
     frame's 160,000 rays are 625 clusters in bf16 (1,250 blocks of 128
@@ -188,27 +238,42 @@ def test_fields_stay_jax_and_the_image_stays_beside_them():
 
 
 def test_the_training_packing_does_not_stage(monkeypatch):
-    """The distillation step packs the weights for K3 every step: that
-    packing (``prepare_fused_params_pe(..., stage=False)``, as
-    ``r2l_train._run_fwd`` calls it) makes no staged image, while the frame
-    entry point's (``evaluate._prepare_r2l``) does."""
-    from r2l_tpu_torch.evaluate import _prepare_r2l
-    from r2l_tpu_torch.sampler import PointSampler
+    """The distillation step's packing for K3 stages K1's image of the live
+    weights, once per step (``r2l_train._run_fwd``), as K5's image is
+    staged once per step (``stage_bwd_weights``); and K3 on a tensor that
+    is not on the CPU (here the meta device, which no kernel runs on)
+    raises without that image, before it builds or launches anything."""
     cfg, model = _model(64, torch.bfloat16)
-    assert _pack("pe", model, cfg, torch.bfloat16).staged is not None
-    assert F.prepare_fused_params_pe(model, cfg, DP, L, stage=False
-                                     ).staged is None
-    sampler = PointSampler(H=4, W=4, focal=5.0, n_sample=DP // 3, near=2.0,
-                           far=6.0)
-    prepared, kind, _ = _prepare_r2l(model, cfg, sampler, L, False, True, "")
-    assert kind == "pe" and prepared.staged is not None
+    calls = {"fwd": 0, "bwd": 0}
+    real_fwd, real_bwd = F.stage_chain_weights, T.stage_bwd_weights
 
-    def refuse(fp):
-        raise AssertionError("the training step staged the weights")
-    monkeypatch.setattr(F, "stage_chain_weights", refuse)
+    def fwd(fp):
+        calls["fwd"] += 1
+        return real_fwd(fp)
+
+    def bwd(w):
+        calls["bwd"] += 1
+        return real_bwd(w)
+    monkeypatch.setattr(F, "stage_chain_weights", fwd)
+    monkeypatch.setattr(T, "stage_bwd_weights", bwd)
     pts = torch.from_numpy(np.random.default_rng(0).uniform(
         -2, 2, (32, DP)).astype(np.float32))
+    apply = T.make_fused_train_apply(cfg, DP, L, group_blocks=2)
+    for step in (1, 2):
+        rgb = apply(model, pts)
+        rgb.square().mean().backward()
+        assert calls == {"fwd": step, "bwd": step}
     spec = T._Spec(cfg, DP, L, 2, torch.bfloat16, False, False)
-    rgb, stash, body_w, scales = T._run_fwd(spec, model, None, pts)
-    assert rgb.shape == (32, 3) and scales is None
-    assert torch.isfinite(rgb).all()
+    _, _, body_w, scales = T._run_fwd(spec, model, None, pts)
+    assert calls["fwd"] == 3 and scales is None
+    fp = F.prepare_fused_params_pe(model, cfg, DP, L)
+    assert torch.equal(fp.staged, real_fwd(fp))
+    meta = torch.device("meta")
+    bare = F.FusedParams(*(t.to(meta) for t in fp))
+    assert bare.staged is None
+    with pytest.raises(ValueError, match="image"):
+        T.train_fwd(bare, cfg, pts.to(meta), DP, L)
+    short = bare._replace(staged=torch.zeros(16, dtype=torch.uint8,
+                                             device=meta))
+    with pytest.raises(ValueError, match="staged"):
+        T.train_fwd(short, cfg, pts.to(meta), DP, L)
