@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's student frame path and kernel API, its
 distillation steps, the NeRF teacher's pseudo-data generation, teacher
-training and the tensor-core probes on one NVIDIA GPU.
+training, the tensor-core probes, and the given-rays frames, evaluation and
+benchmarks on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -149,6 +150,23 @@ Phases, in order; any failure raises and exits non-zero:
    as a user runs it (``probe_bwd_qdx.main``: the bf16 and qdx walks, their
    cosines and times), and the kernel's launches: 11 in one walk, and in
    the runner 11 per qdx walk it ran.
+15. The frame path's remainder and evaluation, on the phase-4 student (made
+   again from the seed). (a) The 16 lego poses' own rays through
+   ``make_r2l_givenrays_frame_fn`` for ``pe`` and ``int8`` (calibrated on
+   those rays): ``pe`` equal to phase 4's pose frames bit for bit, ``int8``
+   against the ``jnp`` frames (PSNR); ms/frame through
+   ``make_r2l_givenrays_bench_fn(parts=...)``, its checksum the frames' sum.
+   (b) ``render_path_given_rays`` on 4 of those frames through the int8
+   frame function, the ``jnp`` frames as ground truth, LPIPS alex on seeded
+   weights, into a temporary directory: PSNR/v2/SSIM/FLIP/LPIPS, ms/frame,
+   the PNG files; K1/K2 launches in (a) and (b). Then SSIM, FLIP and LPIPS
+   alex timed on a 400x400 frame, and SSIM/FLIP/minmax FLIP of
+   ``tests/fixtures/metrics_golden.npz`` on the card against the fixture and
+   the CPU (with what TF32 convolutions would read). (c) The teacher's
+   benchmark (``make_nerf_bench_fn``, f32 weights, 2 poses), fused and
+   plain: ms/frame, the fused checksum against ``make_nerf_frame_fn``'s
+   frames, K6's launches. (d) ``python3 bench_cuda.py`` as a user runs it:
+   its JSON line on a line of its own, the int8 path and this card.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -341,6 +359,22 @@ TOL_PROBE_RESMLP_BF16_SHALLOW = (TOL_PROBE_BF16["shallow"][0], 2.5e-4)
 #   matmuls, and the top layer's against K5's wgmma pass, sums in other
 #   orders, norm-relative (K5 f32's bound).
 TOL_QDX_DW = 1e-5
+
+# Phase 15, the frame path's remainder and evaluation. A pe given-rays frame
+#   on a pose's own rays is that pose's frame bit for bit (sample_test is
+#   frame_rays then sample_train's even depths); int8, calibrated on the
+#   rays, holds MIN_PSNR["int8"] against the jnp frames. SSIM and FLIP on
+#   the card against the reference torch code's frozen values at the
+#   fixture's tolerances (tests/test_lpips_flip.py: SSIM rtol 2e-4 atol
+#   2e-5, FLIP rtol 2e-3 atol 2e-4), and against the CPU's at the port's
+#   bound against JAX (tests/test_torch_metrics.py, f32 sums in another
+#   order): measured 6e-8 (H100, 700 W), while TF32 convolutions move FLIP
+#   by 1.95e-4, inside the fixture's tolerance but not this one (printed
+#   beside). The teacher's benchmark checksum against the sum of its
+#   frames, relative (phase 4's rule).
+N_EVAL_FRAMES, N_NERF_BENCH = 4, 2
+GOLD_SSIM, GOLD_FLIP, CARD_VS_CPU = (2e-4, 2e-5), (2e-3, 2e-4), (1e-5, 1e-6)
+RTOL_CHECKSUM = 1e-4
 
 # The card's memory rate (H100 SXM data sheet); its peaks are the probes'
 # table, r2l_tpu_torch/exp/_harness.py.
@@ -619,7 +653,7 @@ def phase_main_path(model, cfg, sampler, poses, dev) -> dict:
         if res[kind]["psnr_vs_jnp"] < MIN_PSNR[kind]:
             raise AssertionError(f"{kind} frames {res[kind]['psnr_vs_jnp']} "
                                  f"dB from jnp, below {MIN_PSNR[kind]}")
-    return res, frames["jnp"]
+    return res, frames
 
 
 def phase_api_frames(model, cfg, sampler, poses, jnp_frames, dev) -> dict:
@@ -2442,6 +2476,239 @@ def phase_qdx(dev) -> dict:
     return res
 
 
+def givenrays_frames(fn, ros, rds) -> torch.Tensor:
+    f = torch.stack([fn(ro, rd) for ro, rd in zip(ros, rds)])
+    if f.shape != (len(ros), H, W, 3) or not torch.isfinite(f).all():
+        raise AssertionError(f"given-rays {fn.kind}: bad frames "
+                             f"{tuple(f.shape)}")
+    return f
+
+
+def golden_metrics(dev) -> dict:
+    """SSIM, FLIP and minmax FLIP of tests/fixtures/metrics_golden.npz on
+    the card against the reference's frozen values and the CPU's; beside
+    them, what SSIM and FLIP read with TF32 convolutions."""
+    from r2l_tpu_torch import flip as TF
+    from r2l_tpu_torch import metrics as TM
+    from r2l_tpu_torch.lpips import minmax_rescale
+    d = np.load(REPO / "tests" / "fixtures" / "metrics_golden.npz")
+
+    def values(device, impl=False):
+        gts = torch.from_numpy(d["gts"]).to(device)
+        imgs = torch.from_numpy(d["imgs"]).to(device)
+        if impl:   # the metrics' bodies under the caller's flags
+            return {"ssim": [float(TM._ssim_impl(i, g))
+                             for g, i in zip(gts, imgs)],
+                    "flip": [float(TF._flip_impl(g, i, TF.DEFAULT_PPD)
+                                   .mean()) for g, i in zip(gts, imgs)]}
+        g_mm = torch.clamp(minmax_rescale(gts), 0.0, 1.0)
+        i_mm = torch.clamp(minmax_rescale(imgs), 0.0, 1.0)
+        return {"ssim": [float(TM.ssim(i, g)) for g, i in zip(gts, imgs)],
+                "flip": [float(TF.flip(g, i)) for g, i in zip(gts, imgs)],
+                "flip_minmax": [float(TF.flip(g, i))
+                                for g, i in zip(g_mm, i_mm)]}
+
+    card, cpu = values(dev), values(torch.device("cpu"))
+    res = {"card": card, "cpu": cpu}
+    for name, gold in (("ssim", GOLD_SSIM), ("flip", GOLD_FLIP),
+                       ("flip_minmax", GOLD_FLIP)):
+        for label, ref, (rtol, atol) in (
+                ("the fixture", np.asarray(d[name], np.float64), gold),
+                ("the CPU", np.asarray(cpu[name]), CARD_VS_CPU)):
+            err = np.abs(np.asarray(card[name]) - ref)
+            ok = bool(np.all(err <= atol + rtol * np.abs(ref)))
+            print(f"[check] {name} on the card vs {label}: max-abs "
+                  f"{err.max():.3e} (rtol {rtol:.0e}, atol {atol:.0e})"
+                  + (" ok" if ok else " FAILED"), flush=True)
+            if not ok:
+                raise AssertionError(f"{name} on the card vs {label}")
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = values(dev, impl=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    res["tf32_max_abs"] = {
+        k: float(np.abs(np.asarray(tf32[k]) - np.asarray(card[k])).max())
+        for k in tf32}
+    print(f"[main] with TF32 convolutions the fixture would read SSIM "
+          f"{res['tf32_max_abs']['ssim']:.3e} and FLIP "
+          f"{res['tf32_max_abs']['flip']:.3e} max-abs from these", flush=True)
+    return res
+
+
+def phase_givenrays(cfg, sampler, poses, pose_frames, dev) -> dict:
+    """Phase 15 (a, b): the given-rays path on the K lego poses' own rays,
+    then the eval loop over N_EVAL_FRAMES of them, then the metrics on the
+    card."""
+    from r2l_tpu_torch.evaluate import (make_r2l_givenrays_bench_fn,
+                                        make_r2l_givenrays_frame_fn,
+                                        render_path_given_rays)
+    from r2l_tpu_torch.flip import flip
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.lpips import init_lpips, lpips
+    from r2l_tpu_torch.metrics import frame_metrics
+    from r2l_tpu_torch.models import init_r2l
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    pairs = [sampler.frame_rays(torch.as_tensor(p, dtype=torch.float32,
+                                                device=dev)) for p in poses]
+    ros = torch.stack([o for o, _ in pairs])
+    rds = torch.stack([d for _, d in pairs])
+    res, fns, given = {}, {}, {}
+    F.fused_r2l_apply_pe.launches = 0
+    F.fused_r2l_apply_int8_pe.launches = 0
+    for kind, quantize in (("pe", ""), ("int8", "int8")):
+        fn = make_r2l_givenrays_frame_fn(model, cfg, sampler, H, W,
+                                         embed_L=EMBED_L, quantize=quantize,
+                                         calib_rays=(ros, rds))
+        if fn.kind != kind:
+            raise AssertionError(f"given rays: asked for {kind}, got "
+                                 f"{fn.kind}")
+        fns[kind] = fn
+        f = given[kind] = givenrays_frames(fn, ros, rds).cpu()
+        bench = make_r2l_givenrays_bench_fn(model, cfg, sampler, H, W,
+                                            embed_L=EMBED_L, parts=fn.parts)
+        checksum = float(bench(ros, rds))
+        want = float(f.double().sum())
+        if abs(checksum - want) > RTOL_CHECKSUM * abs(want):
+            raise AssertionError(f"given rays {kind}: checksum {checksum} "
+                                 f"!= frame sum {want}")
+        ms = time_ms(lambda: bench(ros, rds), reps=2) / K
+        r = {"ms_per_frame": ms}
+        if kind == "pe":
+            r["pixels_differing_from_pose_frames"] = n_diff = int(
+                (f != pose_frames["pe"]).sum())
+            ok = n_diff == 0
+            what = f"{n_diff} pixels differ from phase 4's pose frames"
+        else:
+            r["psnr_vs_jnp"] = p = psnr_db(f, pose_frames["jnp"])
+            ok = p >= MIN_PSNR["int8"]
+            what = f"PSNR vs jnp {p:.2f} dB (min {MIN_PSNR['int8']})"
+        res[kind] = r
+        print(f"[main] given rays {kind}: {ms:.3f} ms/frame over {K} "
+              f"frames, {what}" + (" ok" if ok else " FAILED"), flush=True)
+        if not ok:
+            raise AssertionError(f"given rays {kind}: {r}")
+
+    lp = init_lpips(torch.Generator().manual_seed(SEED + 50), "alex",
+                    device=dev)
+    gt = pose_frames["jnp"][:N_EVAL_FRAMES].numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = render_path_given_rays(
+            None, cfg, sampler, ros[:N_EVAL_FRAMES].cpu().numpy(),
+            rds[:N_EVAL_FRAMES].cpu().numpy(), H, W, gt_images=gt,
+            savedir=tmp, lpips_params=lp, frame_fn=fns["int8"])
+        pngs = sorted(os.listdir(tmp))
+    want_pngs = sorted(f"{i:03d}{s}.png" for i in range(N_EVAL_FRAMES)
+                       for s in ("", "_err", "_gt"))
+    torch.cuda.synchronize()
+    res["launches"] = {"pe": F.fused_r2l_apply_pe.launches,
+                       "int8": F.fused_r2l_apply_int8_pe.launches}
+    res["eval"] = {k: getattr(ev, k) for k in (
+        "test_psnr", "test_psnr_v2", "test_ssim", "test_flip", "test_lpips",
+        "ms_per_frame")}
+    vals = [res["eval"][k] for k in ("test_psnr", "test_psnr_v2",
+                                     "test_ssim", "test_flip", "test_lpips")]
+    # the eval loop's frames are the int8 frames above: its PSNR (of the
+    # mean f32 MSE) is theirs, to f32 rounding
+    want_psnr = psnr_db(given["int8"][:N_EVAL_FRAMES], torch.from_numpy(gt))
+    ok = pngs == want_pngs and all(np.isfinite(v) for v in vals) \
+        and abs(ev.test_psnr - want_psnr) < 1e-3
+    print(f"[main] render_path_given_rays int8, {N_EVAL_FRAMES} frames vs "
+          f"the jnp frames: PSNR {ev.test_psnr:.4f} (v2 "
+          f"{ev.test_psnr_v2:.4f}) SSIM {ev.test_ssim:.6f} FLIP "
+          f"{ev.test_flip:.6f} LPIPS alex (seeded weights) "
+          f"{ev.test_lpips:.6f}, {ev.ms_per_frame:.3f} ms/frame, "
+          f"{len(pngs)} PNGs (PSNR of the same frames in float64 "
+          f"{want_psnr:.4f})" + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"render_path_given_rays: {res['eval']}, "
+                             f"{pngs}")
+    print(f"[main] given-rays launches: {res['launches']}", flush=True)
+    if min(res["launches"].values()) <= 0:
+        raise AssertionError("the given-rays path launched no kernel")
+
+    g = torch.from_numpy(gt[0]).to(dev)
+    img = givenrays_frames(fns["int8"], ros[:1], rds[:1])[0]
+    res["metric_ms"] = {
+        "frame_metrics": time_ms(lambda: frame_metrics(img, g)),
+        "flip": time_ms(lambda: flip(g, img)),
+        "lpips_alex": time_ms(lambda: lpips(lp, g, img))}
+    print("[time] metrics per 400x400 frame: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in res["metric_ms"].items()), flush=True)
+    res["golden"] = golden_metrics(dev)
+    del model, fns, ros, rds
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_nerf_bench(dev, poses) -> dict:
+    """Phase 15 (c): the teacher's benchmark (``make_nerf_bench_fn``) on
+    N_NERF_BENCH poses, fused and plain; the fused checksum against the sum
+    of ``make_nerf_frame_fn``'s frames, K6's launches in the fused run."""
+    from r2l_tpu_torch.evaluate import make_nerf_bench_fn, make_nerf_frame_fn
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.sampler import PointSampler
+    cfg, mc, mf = teacher_models("f32", dev)
+    sampler = PointSampler(H=H, W=W, focal=FOCAL, n_sample=T_SAMPLES,
+                           near=2.0, far=6.0)
+    k = N_NERF_BENCH
+    frame = make_nerf_frame_fn(mc, mf, cfg, teacher_vcfg(), sampler,
+                               use_pallas=True, device=dev)
+    want = sum(float(frame(p).double().sum()) for p in poses[:k])
+    res = {}
+    for kind, fused in (("fused", True), ("plain", False)):
+        bench = make_nerf_bench_fn(mc, mf, cfg, teacher_vcfg(), sampler,
+                                   use_pallas=fused, device=dev)
+        if bench.kind != kind:
+            raise AssertionError(f"teacher bench: asked for {kind}, got "
+                                 f"{bench.kind}")
+        if fused:
+            NR.fused_nerf_render.launches = 0
+            checksum = float(bench(poses[:k]))
+            res["launches"] = NR.fused_nerf_render.launches
+            if abs(checksum - want) > RTOL_CHECKSUM * abs(want) \
+                    or res["launches"] <= 0:
+                raise AssertionError(f"teacher bench: checksum {checksum} "
+                                     f"vs frames {want}, K6 launches "
+                                     f"{res['launches']}")
+        res[kind] = {"ms_per_frame": time_ms(lambda: bench(poses[:k]),
+                                             reps=1) / k}
+    print(f"[main] teacher benchmark (f32 weights, {k} poses): fused "
+          f"{res['fused']['ms_per_frame']:.3f} ms/frame, plain "
+          f"{res['plain']['ms_per_frame']:.3f} ms/frame, checksum = the "
+          f"frames' sum, K6 launches {res['launches']}", flush=True)
+    del mc, mf
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bench_cuda(smi: str, main_res: dict) -> dict:
+    """Phase 15 (d): ``python3 bench_cuda.py`` as a user runs it; its JSON
+    line on a line of its own, the int8 path and this card."""
+    out = subprocess.run([sys.executable, str(REPO / "bench_cuda.py")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"bench_cuda.py exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    print(line, flush=True)
+    rec = json.loads(line)
+    extra = rec["extra"]
+    ok = extra["path"] == "cuda-int8-pe-fused" and extra["device"] == smi
+    print(f"[main] bench_cuda.py: {rec['value']} {rec['unit']}, "
+          f"{extra['ms_per_frame']} ms/frame on the {extra['path']} path "
+          f"(phase 4's int8: {main_res['int8']['ms_per_frame']:.3f})"
+          + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"bench_cuda.py's record: {rec}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2482,9 +2749,10 @@ def main() -> int:
 
     kern = phase_kernels(model, cfg, sampler, poses, dev)
     canary = phase_canary(dev)
-    main_res, jnp_frames = phase_main_path(model, cfg, sampler, poses, dev)
-    api = phase_api_frames(model, cfg, sampler, poses, jnp_frames, dev)
-    del jnp_frames
+    main_res, frames = phase_main_path(model, cfg, sampler, poses, dev)
+    api = phase_api_frames(model, cfg, sampler, poses, frames["jnp"], dev)
+    pose_frames = {k: frames[k].cpu() for k in ("jnp", "pe")}
+    del frames
     cli_f32 = phase_cli_f32_frames(model, cfg, sampler, poses, dev)
     tkern = phase_train_kernels(model, cfg, sampler, poses, dev)
     del model
@@ -2500,6 +2768,10 @@ def main() -> int:
     probes = phase_probes(dev)
     k2_probes = phase_k2_probes(dev)
     qdx = phase_qdx(dev)
+    given = phase_givenrays(cfg, sampler, poses, pose_frames, dev)
+    del pose_frames
+    nbench = phase_nerf_bench(dev, poses)
+    bench_line = phase_bench_cuda(smi, main_res)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -2518,7 +2790,9 @@ def main() -> int:
         "teacher_kernels": teacher, "datagen": dgen,
         "teacher_frame": tframe,
         "teacher_train": ttrain, "images_distill": idist,
-        "probes": probes, "k2_probes": k2_probes, "bwd_qdx": qdx}}))
+        "probes": probes, "k2_probes": k2_probes, "bwd_qdx": qdx,
+        "givenrays": given, "nerf_bench": nbench,
+        "bench_cuda": bench_line}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2532,13 +2806,15 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164",
-              main_res["launches"]["pe"], kern["pe"]),
+              main_res["launches"]["pe"] + given["launches"]["pe"],
+              kern["pe"]),
         entry("fused_r2l_apply_pe_f32", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164", cli_f32["launches"],
               kern["pe_f32"]),
         entry("fused_r2l_apply_int8_pe", "r2l_int8_hopper.cu",
               "r2l_tpu/kernels/r2l_pallas.py:571",
-              main_res["launches"]["int8"], kern["int8"]),
+              main_res["launches"]["int8"] + given["launches"]["int8"],
+              kern["int8"]),
         entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused"]["train_fwd"],
               tkern["train_fwd_bf16"]),
@@ -2558,7 +2834,9 @@ def main() -> int:
         *(entry(f"fused_nerf_render_{kind}", "nerf_render_int8.cu"
                 if kind == "int8" else "nerf_render.cu",
                 "r2l_tpu/kernels/nerf_render_pallas.py:336",
-                dgen[kind]["launches"], teacher[kind])
+                dgen[kind]["launches"]
+                + (nbench["launches"] if kind == "f32" else 0),
+                teacher[kind])
           for kind in ("f32", "bf16", "int8")),
         *(entry(name, f"{name}.cu", replaces, probes["launches"][name],
                 probes[name])

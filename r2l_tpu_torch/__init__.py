@@ -4,8 +4,8 @@ The JAX package ``r2l_tpu`` is the reference: every function here names the
 ``r2l_tpu`` function it reproduces, and ``tests/test_torch_*.py`` hold the
 two to the same output on the same inputs. This package never imports JAX.
 
-Six slices are ported, each through hand-written CUDA kernels for the
-NVIDIA H100 (``kernels/csrc/*.cu``):
+Seven slices are ported, through hand-written CUDA kernels for the NVIDIA
+H100 (``kernels/csrc/*.cu``):
 
 1. The R2L student's novel-view frame: camera pose ->
    ``PointSampler.sample_test`` -> positional encoding -> deep residual MLP
@@ -38,6 +38,11 @@ NVIDIA H100 (``kernels/csrc/*.cu``):
    r2l_int8_chain.cuh`` that they were written to measure; K2 itself runs on
    Hopper's wgmma (``kernels/csrc/r2l_int8_hopper.cuh``) and takes the
    reference's ``fold_requant``/``nobf16_inner`` flags.
+7. The frame path's remainder and evaluation, through kernels ported above:
+   the DONeRF given-rays frames and their bench (K1, K2), the teacher's
+   benchmark (K6, K7), and the eval loop (``evaluate.render_path``,
+   ``evaluate.render_path_given_rays``) with SSIM (``metrics``), FLIP
+   (``flip``) and LPIPS (``lpips``) in plain PyTorch.
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 """

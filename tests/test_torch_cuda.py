@@ -189,6 +189,60 @@ def test_int8_canary_on_card(dev):
     assert float(np.abs(got.cpu().numpy() - want).max()) <= 6e-8
 
 
+def test_givenrays_pe_frame_is_the_pose_frame_bit_for_bit(dev):
+    """sample_test is frame_rays then sample_train's even depths, so K1 on
+    a pose's own rays, given, renders that pose's frame bit for bit."""
+    from r2l_tpu_torch.evaluate import (make_r2l_frame_fn,
+                                        make_r2l_givenrays_frame_fn)
+    cfg, model, sampler, poses, _, _, L = _case("w256_canonical", dev)
+    pose_fn = make_r2l_frame_fn(model, cfg, sampler, embed_L=L)
+    ray_fn = make_r2l_givenrays_frame_fn(model, cfg, sampler, sampler.H,
+                                         sampler.W, embed_L=L)
+    assert pose_fn.kind == ray_fn.kind == "pe"
+    before = F.fused_r2l_apply_pe.launches
+    for p in poses:
+        ro, rd = sampler.frame_rays(torch.as_tensor(p, dtype=torch.float32,
+                                                    device=dev))
+        assert torch.equal(ray_fn(ro, rd), pose_fn(p))
+    assert F.fused_r2l_apply_pe.launches - before == 2 * len(poses)
+
+
+def test_metrics_on_card_match_the_cpu_and_the_fixture(dev):
+    """SSIM and FLIP (and minmax FLIP) of tests/fixtures/metrics_golden.npz
+    on the card, with the caller's cuDNN TF32 flag on (PyTorch's default),
+    against the reference torch code's values at the fixture's tolerances
+    (tests/test_lpips_flip.py), and against the CPU's at the port's bound
+    against JAX (rtol 1e-5, atol 1e-6; measured 6e-8), which TF32
+    convolutions would cross (FLIP moves by 1.95e-4, H100, 700 W); the flag
+    comes back."""
+    from r2l_tpu_torch.flip import flip
+    from r2l_tpu_torch.lpips import minmax_rescale
+    from r2l_tpu_torch.metrics import ssim
+    d = np.load(os.path.join(FIXTURES, "metrics_golden.npz"))
+    gts, imgs = torch.from_numpy(d["gts"]), torch.from_numpy(d["imgs"])
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for i in range(len(gts)):
+            g, m = gts[i], imgs[i]
+            for got, cpu, want, (rtol, atol) in (
+                    (ssim(m.to(dev), g.to(dev)), ssim(m, g), d["ssim"][i],
+                     (2e-4, 2e-5)),
+                    (flip(g.to(dev), m.to(dev)), flip(g, m), d["flip"][i],
+                     (2e-3, 2e-4))):
+                np.testing.assert_allclose(float(got), float(cpu), 1e-5,
+                                           1e-6)
+                np.testing.assert_allclose(float(got), want, rtol, atol)
+        g_mm = torch.clamp(minmax_rescale(gts.to(dev)), 0.0, 1.0)
+        m_mm = torch.clamp(minmax_rescale(imgs.to(dev)), 0.0, 1.0)
+        for i, want in enumerate(d["flip_minmax"]):
+            np.testing.assert_allclose(float(flip(g_mm[i], m_mm[i])), want,
+                                       2e-3, 2e-4)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     """A CUDA tensor the kernel does not take raises; nothing runs the
     plain version in its place."""

@@ -5,8 +5,10 @@ kind and one in the images data mode, renders a teacher frame, generates
 one pose of pseudo data (plain and int8-packed fused render on the CPU),
 takes a teacher step of each mode on images and their ray records, runs each
 exp probe's plain version (the chain and shape probes, and K2's body, wall,
-streams and epilogue probes, and the int8-dL/dx walk), and finds neither
-``jax`` nor ``r2l_tpu`` in sys.modules. The kernel sources include only the
+streams and epilogue probes, and the int8-dL/dx walk), renders an int8
+given-rays frame and its bench checksum, computes SSIM, FLIP and LPIPS,
+imports ``bench_cuda.py``'s function, and finds neither ``jax`` nor
+``r2l_tpu`` in sys.modules. The kernel sources include only the
 CUDA toolkit's headers and their own."""
 import os
 import subprocess
@@ -140,6 +142,25 @@ dhq = torch.randn((64, 32), generator=torch.Generator().manual_seed(10))
 for v in PQ.VARIANTS:
     dh, dws = PQ.walk(v, cfgq, bwq, fpq, stq, dhq, gb=2, tile=32)
     assert dh.shape == (64, 32) and len(dws) == 1
+from r2l_tpu_torch.evaluate import (make_r2l_givenrays_bench_fn,
+                                    make_r2l_givenrays_frame_fn)
+ro, rd = sampler.frame_rays(torch.from_numpy(poses[0]))
+given = make_r2l_givenrays_frame_fn(model, cfg, sampler, 4, 4,
+                                    quantize="int8", calib_rays=(ro, rd))
+assert given.kind == "int8" and given(ro, rd).shape == (4, 4, 3)
+bench = make_r2l_givenrays_bench_fn(model, cfg, sampler, 4, 4,
+                                    parts=given.parts)
+assert bool(torch.isfinite(bench(ro[None], rd[None])))
+from r2l_tpu_torch.flip import flip
+from r2l_tpu_torch.lpips import init_lpips, lpips
+from r2l_tpu_torch.metrics import ssim
+a = torch.rand((33, 35, 3), generator=torch.Generator().manual_seed(11))
+b = torch.rand((33, 35, 3), generator=torch.Generator().manual_seed(12))
+lp = init_lpips(torch.Generator().manual_seed(13), "alex", device="cpu")
+for v in (ssim(a, b), flip(a, b), lpips(lp, a, b)):
+    assert bool(torch.isfinite(v))
+from bench_cuda import bench as bench_cuda_fn
+assert callable(bench_cuda_fn)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "r2l_tpu"))
 print(len(names), bad)
@@ -158,9 +179,10 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax_import():
     """No ``import jax`` / ``from jax`` line, nor an import of the JAX
-    package, anywhere in the port or in chip_smoke.py."""
+    package, anywhere in the port, chip_smoke.py or bench_cuda.py."""
     pkg = os.path.join(REPO, "r2l_tpu_torch")
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_cuda.py")]
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in paths:
