@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's student frame path and kernel API, its
 distillation steps, the NeRF teacher's pseudo-data generation, teacher
-training, the tensor-core probes, and the given-rays frames, evaluation and
-benchmarks on one NVIDIA GPU.
+training, the tensor-core probes, the given-rays frames, evaluation and
+benchmarks, and checkpoints, resume and export on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -167,6 +167,23 @@ Phases, in order; any failure raises and exits non-zero:
    plain: ms/frame, the fused checksum against ``make_nerf_frame_fn``'s
    frames, K6's launches. (d) ``python3 bench_cuda.py`` as a user runs it:
    its JSON line on a line of its own, the int8 path and this card.
+
+16. Checkpoints, resume and export (``r2l_tpu_torch.checkpoint``,
+   ``export``, ``tools.export_torch_ckpt``). (a) The phase-4 student (made
+   again from the seed) saved as a native .msgpack and exported from it as
+   a reference-schema .tar, each loaded (``load_r2l``) into a new R2L on the
+   card: file sizes, save, export and load ms; its ``pe`` (K1) and ``int8``
+   (K2) frames of 4 lego poses (``make_r2l_frame_fn`` made after the load)
+   equal to the original's bit for bit, and the K1/K2 launches. (b) At the
+   README's flags (81,920 rays, hard ratio 0.2, hard_mul 20), kinds
+   ``fused`` and ``fused_int8`` (calibrated every step): 3 steps, ``save``
+   with the pool, ``resume_distill`` into a state built afresh from other
+   weights, 2 steps; params, Adam's moments and counts and the pool equal to
+   5 straight steps bit for bit; save and restore ms, MB written, the
+   K3/K4/K5 launches. (c) Lego's teacher step at 1,024 rays: 2 steps, save,
+   ``resume_teacher`` into networks built afresh, 1 step; equal to 3
+   straight bit for bit. (d) ``export_onnx`` of the canonical student: its
+   own parity check, MB and seconds.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -375,6 +392,12 @@ TOL_QDX_DW = 1e-5
 N_EVAL_FRAMES, N_NERF_BENCH = 4, 2
 GOLD_SSIM, GOLD_FLIP, CARD_VS_CPU = (2e-4, 2e-5), (2e-3, 2e-4), (1e-5, 1e-6)
 RTOL_CHECKSUM = 1e-4
+
+# Phase 16, checkpoints: the loaded students' frames of CKPT_POSES lego
+#   poses and every resumed state (params, Adam's moments and counts, the
+#   pool) against the original's, bit for bit; lego's teacher step at
+#   CKPT_TEACHER_RAYS rays for its resume.
+CKPT_POSES, CKPT_TEACHER_RAYS = 4, 1024
 
 # The card's memory rate (H100 SXM data sheet); its peaks are the probes'
 # table, r2l_tpu_torch/exp/_harness.py.
@@ -2709,6 +2732,276 @@ def phase_bench_cuda(smi: str, main_res: dict) -> dict:
     return rec
 
 
+def check_states_equal(name: str, got: dict, want: dict) -> None:
+    """``check_equal`` over two ``train_snapshot``s, one line."""
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    print(f"[check] {name}: {len(want)} tensors "
+          + ("bit for bit ok" if not bad else f"DIFFER: {bad[:5]}"),
+          flush=True)
+    if bad or list(got) != list(want):
+        raise AssertionError(f"{name}: {bad[:5]} differ")
+
+
+def train_snapshot(state) -> dict:
+    """A distillation or teacher state's parameters, Adam moments and
+    counts, hard pool and step counts, as tensors."""
+    out = {}
+    nets = ([("", state.params)] if hasattr(state, "pool") else
+            [("c.", state.model_c), ("f.", state.model_f)])
+    for tag, net in nets:
+        for name, p in net.named_parameters():
+            st = state.optimizer.state[p]
+            out[tag + name] = p.detach()
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                out[f"{tag}{name}.{k}"] = st[k]
+    if hasattr(state, "pool"):
+        out.update({f"pool.{k}": getattr(state.pool, k)
+                    for k in state.pool._fields})
+    out["step"] = torch.tensor(state.step)
+    out["lr_count"] = torch.tensor(state.lr_count)
+    return out
+
+
+def ckpt_load_paths(cfg, sampler, poses, tmp: str, dev) -> dict:
+    """Phase 16 (a): the phase-4 student through a native .msgpack and a
+    reference-schema .tar (the export tool's), each loaded into a new R2L
+    on the card; its pe (K1) and int8 (K2) frames of CKPT_POSES poses
+    against the original's, bit for bit."""
+    from r2l_tpu_torch import checkpoint as C
+    from r2l_tpu_torch.evaluate import make_r2l_frame_fn
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.models import init_r2l, params_to_jax
+    from r2l_tpu_torch.tools.export_torch_ckpt import main as export_tar
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    native, tar = os.path.join(tmp, "r2l.msgpack"), os.path.join(tmp,
+                                                                 "r2l.tar")
+    res = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C.save_checkpoint(native, {"params": params_to_jax(model, cfg)},
+                      meta={"global_step": 0})
+    res["msgpack_save_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    export_tar(["--ckpt", native, "--out", tar])
+    res["tar_export_ms"] = (time.perf_counter() - t0) * 1e3
+    loaded = {}
+    arch = ("input_dim", "netwidth", "netdepth", "num_blocks", "n_learnable",
+            "linear_tail", "compute_dtype")
+    for kind, path in (("msgpack", native), ("tar", tar)):
+        t0 = time.perf_counter()
+        loaded[kind] = C.load_r2l(path, dev, compute_dtype=cfg.compute_dtype)
+        torch.cuda.synchronize()
+        res[f"{kind}_load_ms"] = (time.perf_counter() - t0) * 1e3
+        res[f"{kind}_mb"] = os.path.getsize(path) / 1e6
+        got = loaded[kind][1]
+        if any(getattr(got, a) != getattr(cfg, a) for a in arch):
+            raise AssertionError(f"{kind}: inferred {got}")
+    print(f"[ckpt] W256/D88 student: .msgpack {res['msgpack_mb']:.2f} MB "
+          f"saved in {res['msgpack_save_ms']:.1f} ms, loaded in "
+          f"{res['msgpack_load_ms']:.1f} ms; .tar {res['tar_mb']:.2f} MB "
+          f"exported in {res['tar_export_ms']:.1f} ms, loaded in "
+          f"{res['tar_load_ms']:.1f} ms", flush=True)
+    F.fused_r2l_apply_pe.launches = 0
+    F.fused_r2l_apply_int8_pe.launches = 0
+    for kind, quantize in (("pe", ""), ("int8", "int8")):
+        frames = {}
+        for src, (m, mcfg) in (("original", (model, cfg)),
+                               *((k, v[:2]) for k, v in loaded.items())):
+            fn = make_r2l_frame_fn(m, mcfg, sampler, embed_L=EMBED_L,
+                                   quantize=quantize, calib_poses=poses)
+            if fn.kind != kind:
+                raise AssertionError(f"asked for {kind}, got {fn.kind}")
+            frames[src] = torch.stack([fn(p) for p in poses[:CKPT_POSES]])
+        for src in loaded:
+            check_equal(f"{kind} frames of the student loaded from the "
+                        f"{src} vs the original's", frames[src],
+                        frames["original"])
+    torch.cuda.synchronize()
+    res["launches"] = {"pe": F.fused_r2l_apply_pe.launches,
+                       "int8": F.fused_r2l_apply_int8_pe.launches}
+    print(f"[main] checkpoint frames: K1/K2 launches {res['launches']}",
+          flush=True)
+    if min(res["launches"].values()) <= 0:
+        raise AssertionError("the loaded frames launched no kernel")
+    return res
+
+
+def ckpt_resume(cfg, sampler, poses, tmp: str, dev) -> dict:
+    """Phase 16 (b): distillation at the README's flags, kinds fused (K3 +
+    K5) and fused_int8 (K4 + K5, calibrated every step): 3 steps, a save
+    with the pool, a restore into a state built afresh from other weights,
+    2 steps; equal to 5 straight steps, bit for bit."""
+    from r2l_tpu_torch import checkpoint as C
+    from r2l_tpu_torch.hardmine import parse_hard_ratio
+    from r2l_tpu_torch.kernels import r2l_train as T
+    from r2l_tpu_torch.models import init_r2l
+    from r2l_tpu_torch.train import (DistillConfig, draw_step,
+                                     fused_int8_calib_points,
+                                     init_train_state, make_distill_step)
+    n_in, n_out = parse_hard_ratio(HARD_RATIO, N_RAND)
+    dcfg = DistillConfig(batch_size=N_RAND, n_hard_in=n_in, n_hard_out=n_out,
+                         hard_mul=HARD_MUL, warmup_lr=WARMUP, embed_L=EMBED_L,
+                         perturb=True)
+    n_fresh = N_RAND - n_out
+    rays = torch.from_numpy(synthetic_rays(5 * n_fresh, SEED + 60)).to(dev)
+    batches = rays.reshape(5, n_fresh, -1)
+    draws = [draw_step(dcfg, N_SAMPLE, torch.Generator(dev).manual_seed(
+        300 + i)) for i in range(5)]
+    calib = fused_int8_calib_points(H, W, FOCAL, N_SAMPLE, 2.0, 6.0, poses,
+                                    dev)
+    kinds = {"fused": {"fused_vjp": True},
+             "fused_int8": {"fused_vjp": True, "fused_quantize": "int8",
+                            "fused_calib_pts": calib,
+                            "fused_calib_every": 1}}
+    res = {}
+    for f in (T.train_fwd, T.train_fwd_int8, T.bwd_group):
+        f.launches = 0
+    for kind, kw in kinds.items():
+        step = make_distill_step(cfg, dcfg, sampler, device=dev, **kw)
+
+        def fresh(seed):
+            return init_train_state(init_r2l(cfg, torch.Generator(
+            ).manual_seed(seed), dev), dcfg, device=dev)
+        straight = fresh(SEED)
+        for i in range(5):
+            straight, _ = step(straight, batches[i], draws=draws[i])
+        half = fresh(SEED)
+        for i in range(3):
+            half, _ = step(half, batches[i], draws=draws[i])
+        path = os.path.join(tmp, f"{kind}.msgpack")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C.save(path, half, half.step, -1.0, -1, save_pool=True)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        del half
+        resumed = fresh(SEED + 1)
+        log = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed, _, _ = C.resume_distill(resumed, path, log=log.append)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if (resumed.step, resumed.lr_count) != (3, 3) or not any(
+                "restored hard-ray pool" in m for m in log):
+            raise AssertionError(f"{kind}: resume gave step "
+                                 f"{resumed.step}: {log}")
+        for i in range(3, 5):
+            resumed, _ = step(resumed, batches[i], draws=draws[i])
+        check_states_equal(f"{kind}: save at 3 + restore + 2 steps vs 5 "
+                           "straight (params, mu, nu, counts, pool)",
+                           train_snapshot(resumed), train_snapshot(straight))
+        res[kind] = {"save_ms": save_ms, "restore_ms": load_ms,
+                     "mb": os.path.getsize(path) / 1e6,
+                     "pool_size": int(resumed.pool.size)}
+        print(f"[ckpt] resume {kind}: full state {res[kind]['mb']:.2f} MB "
+              f"(pool of {resumed.pool.rays.shape[0]} rays, "
+              f"{res[kind]['pool_size']} held), saved in {save_ms:.1f} ms, "
+              f"restored in {load_ms:.1f} ms", flush=True)
+        del straight, resumed, step
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    res["launches"] = {"train_fwd": T.train_fwd.launches,
+                       "train_fwd_int8": T.train_fwd_int8.launches,
+                       "bwd_group": T.bwd_group.launches}
+    print(f"[main] resume: K3/K4/K5 launches {res['launches']}", flush=True)
+    if min(res["launches"].values()) <= 0:
+        raise AssertionError("the resumed steps launched no kernel")
+    return res
+
+
+def ckpt_teacher_resume(images, img_poses, tmp: str, dev) -> dict:
+    """Phase 16 (c): lego's teacher step at CKPT_TEACHER_RAYS rays: 2 steps,
+    save, restore into networks built afresh, 1 more; equal to 3 straight,
+    bit for bit."""
+    from r2l_tpu_torch import checkpoint as C
+    from r2l_tpu_torch.models import NeRFConfig, init_nerf
+    from r2l_tpu_torch.render import VolRenderConfig
+    from r2l_tpu_torch.train import (TeacherTrainConfig, init_teacher_state,
+                                     make_teacher_step)
+    cfg = NeRFConfig()
+    vcfg = VolRenderConfig(n_coarse=T_SAMPLES, n_fine=T_FINE, perturb=True,
+                           white_bkgd=True)
+    tcfg = TeacherTrainConfig(n_rand=CKPT_TEACHER_RAYS, lrate=5e-4,
+                              lrate_decay=500, precrop_iters=500,
+                              precrop_frac=0.5)
+    step = make_teacher_step(cfg, vcfg, tcfg, H, W, FOCAL, device=dev)
+    imgs = torch.from_numpy(images).to(dev)
+    pss = torch.from_numpy(img_poses).to(dev)
+
+    def fresh(seed):
+        g = torch.Generator().manual_seed(seed)
+        nets = [init_nerf(cfg, g, dev) for _ in range(2)]
+        with torch.no_grad():
+            for m in nets:
+                m.alpha_linear.bias += DENSITY_FLOOR
+        return init_teacher_state(*nets, tcfg)
+
+    def run(state, i):
+        return step(state, imgs, pss, generator=torch.Generator(
+            dev).manual_seed(400 + i))[0]
+    straight = fresh(SEED + 50)
+    for i in range(3):
+        straight = run(straight, i)
+    half = fresh(SEED + 50)
+    for i in range(2):
+        half = run(half, i)
+    path = os.path.join(tmp, "teacher.msgpack")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C.save(path, half, half.step, -1.0, -1)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    resumed = fresh(SEED + 51)
+    t0 = time.perf_counter()
+    resumed, _, _ = C.resume_teacher(resumed, path, log=lambda s: None)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    resumed = run(resumed, 2)
+    check_states_equal("teacher: save at 2 + restore + 1 step vs 3 "
+                       "straight (coarse, fine, mu, nu, counts)",
+                       train_snapshot(resumed), train_snapshot(straight))
+    res = {"save_ms": save_ms, "restore_ms": load_ms,
+           "mb": os.path.getsize(path) / 1e6, "rays": CKPT_TEACHER_RAYS}
+    print(f"[ckpt] resume teacher lego ({CKPT_TEACHER_RAYS} rays/step): "
+          f"{res['mb']:.2f} MB saved in {save_ms:.1f} ms, restored in "
+          f"{load_ms:.1f} ms", flush=True)
+    return res
+
+
+def ckpt_onnx(cfg, tmp: str, dev) -> dict:
+    """Phase 16 (d): ``export_onnx`` of the canonical student, with its own
+    parity check."""
+    from r2l_tpu_torch.export import export_onnx
+    from r2l_tpu_torch.models import init_r2l
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    log = []
+    t0 = time.perf_counter()
+    path = export_onnx(model, cfg, os.path.join(tmp, "onnx"), log=log.append)
+    res = {"s": time.perf_counter() - t0, "mb": os.path.getsize(path) / 1e6,
+           "log": log[-1]}
+    ok = "parity check passed" in log[-1]
+    print(f"[ckpt] ONNX export of the W256/D88 student: {res['mb']:.2f} MB "
+          f"in {res['s']:.2f} s: {log[-1]}" + (" ok" if ok else " FAILED"),
+          flush=True)
+    if not ok:
+        raise AssertionError(f"ONNX export: {log}")
+    return res
+
+
+def phase_checkpoints(cfg, sampler, poses, images, img_poses, dev) -> dict:
+    """Phase 16: checkpoints, resume and export on the card."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {"load": ckpt_load_paths(cfg, sampler, poses, tmp, dev)}
+        torch.cuda.empty_cache()
+        res["resume"] = ckpt_resume(cfg, sampler, poses, tmp, dev)
+        res["teacher"] = ckpt_teacher_resume(images, img_poses, tmp, dev)
+        torch.cuda.empty_cache()
+        res["onnx"] = ckpt_onnx(cfg, tmp, dev)
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"[main] phase 16 took {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2772,6 +3065,8 @@ def main() -> int:
     del pose_frames
     nbench = phase_nerf_bench(dev, poses)
     bench_line = phase_bench_cuda(smi, main_res)
+    torch.cuda.empty_cache()
+    ck = phase_checkpoints(cfg, sampler, poses, images, img_poses, dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -2792,7 +3087,7 @@ def main() -> int:
         "teacher_train": ttrain, "images_distill": idist,
         "probes": probes, "k2_probes": k2_probes, "bwd_qdx": qdx,
         "givenrays": given, "nerf_bench": nbench,
-        "bench_cuda": bench_line}}))
+        "bench_cuda": bench_line, "checkpoints": ck}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2806,28 +3101,35 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164",
-              main_res["launches"]["pe"] + given["launches"]["pe"],
+              main_res["launches"]["pe"] + given["launches"]["pe"]
+              + ck["load"]["launches"]["pe"],
               kern["pe"]),
         entry("fused_r2l_apply_pe_f32", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164", cli_f32["launches"],
               kern["pe_f32"]),
         entry("fused_r2l_apply_int8_pe", "r2l_int8_hopper.cu",
               "r2l_tpu/kernels/r2l_pallas.py:571",
-              main_res["launches"]["int8"] + given["launches"]["int8"],
+              main_res["launches"]["int8"] + given["launches"]["int8"]
+              + ck["load"]["launches"]["int8"],
               kern["int8"]),
         entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",
-              train["launches_per_kind"]["fused"]["train_fwd"],
+              train["launches_per_kind"]["fused"]["train_fwd"]
+              + ck["resume"]["launches"]["train_fwd"],
               tkern["train_fwd_bf16"]),
         entry("train_fwd_f32", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused_f32"]["train_fwd"],
               tkern["train_fwd_f32"]),
         entry("train_fwd_int8", "r2l_train_fwd_int8.cu", tr + ":182",
-              train["launches"]["train_fwd_int8"], tkern["train_fwd_int8"]),
+              train["launches"]["train_fwd_int8"]
+              + ck["resume"]["launches"]["train_fwd_int8"],
+              tkern["train_fwd_int8"]),
         entry("train_fwd_int8_bf16stash", "r2l_train_fwd_int8.cu",
               tr + ":182", train["launches"]["train_fwd_int8_bf16"],
               tkern["train_fwd_int8_bf16"]),
         entry("bwd_group", "r2l_bwd_group.cu", tr + ":356",
-              train["launches"]["bwd_group"], tkern["bwd_group_bf16"]),
+              train["launches"]["bwd_group"]
+              + ck["resume"]["launches"]["bwd_group"],
+              tkern["bwd_group_bf16"]),
         *(entry(f"fused_r2l_apply_{kind}", "r2l_fused.cu",
                 "r2l_tpu/kernels/r2l_pallas.py:270", api[kind]["launches"],
                 kern[f"api_{kind}"]) for kind in ("f32", "bf16")),

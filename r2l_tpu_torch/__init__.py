@@ -4,8 +4,8 @@ The JAX package ``r2l_tpu`` is the reference: every function here names the
 ``r2l_tpu`` function it reproduces, and ``tests/test_torch_*.py`` hold the
 two to the same output on the same inputs. This package never imports JAX.
 
-Seven slices are ported, through hand-written CUDA kernels for the NVIDIA
-H100 (``kernels/csrc/*.cu``):
+Eight slices are ported, through hand-written CUDA kernels for the NVIDIA
+H100 (``kernels/csrc/*.cu``) where the JAX package has a Pallas kernel:
 
 1. The R2L student's novel-view frame: camera pose ->
    ``PointSampler.sample_test`` -> positional encoding -> deep residual MLP
@@ -43,6 +43,10 @@ H100 (``kernels/csrc/*.cu``):
    benchmark (K6, K7), and the eval loop (``evaluate.render_path``,
    ``evaluate.render_path_given_rays``) with SSIM (``metrics``), FLIP
    (``flip``) and LPIPS (``lpips``) in plain PyTorch.
+8. Checkpoints, full-state resume and export (``checkpoint``, ``export``,
+   ``onnx_writer``, ``tools.export_torch_ckpt``): the JAX package's msgpack
+   files, byte for byte, and the reference's ``.tar`` files, read and
+   written; loaded weights reach the kernels above through the module.
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 """

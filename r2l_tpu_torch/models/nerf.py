@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ._layout import Entry, from_jax, host_tree, linear, named, to_jax
+
 
 @dataclasses.dataclass(frozen=True)
 class NeRFConfig:
@@ -111,23 +113,32 @@ def init_nerf(cfg: NeRFConfig, generator: torch.Generator,
     return model
 
 
-def nerf_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """``r2l_tpu`` teacher param pytree (numpy arrays, weights [in, out])
-    -> ``NeRF`` state_dict (weights [out, in])."""
-    def lin(p) -> dict[str, torch.Tensor]:
-        w, b = (np.array(p[k], np.float32) for k in ("w", "b"))
-        return {"weight": torch.from_numpy(np.array(w.T)),
-                "bias": torch.from_numpy(b)}
+def nerf_table(D: int, use_viewdirs: bool) -> list[Entry]:
+    """Each ``NeRF`` parameter's state_dict name and place in the JAX
+    pytree (``pts_linears`` and ``views_linears`` lists, the heads)."""
+    table = []
+    for i in range(D):
+        table += linear(f"pts_linears.{i}", ("pts_linears", i))
+    if use_viewdirs:
+        table += linear("views_linears.0", ("views_linears", 0))
+        for name in ("feature_linear", "alpha_linear", "rgb_linear"):
+            table += linear(name, (name,))
+    else:
+        table += linear("output_linear", ("output_linear",))
+    return table
 
-    sd = {}
-    named = [(f"pts_linears.{i}", p)
-             for i, p in enumerate(params["pts_linears"])]
-    named += [(f"views_linears.{i}", p)
-              for i, p in enumerate(params.get("views_linears", []))]
-    named += [(k, params[k]) for k in ("feature_linear", "alpha_linear",
-                                       "rgb_linear", "output_linear")
-              if k in params]
-    for name, p in named:
-        for k, v in lin(p).items():
-            sd[f"{name}.{k}"] = v
-    return sd
+
+def nerf_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``r2l_tpu`` teacher param pytree (numpy arrays, weights [in, out];
+    lists as lists or as a checkpoint's "0", "1", ... dicts) -> ``NeRF``
+    state_dict (weights [out, in])."""
+    table = nerf_table(len(params["pts_linears"]), "alpha_linear" in params)
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in from_jax(params, table).items()}
+
+
+def nerf_params_to_jax(model_c: NeRF) -> dict:
+    """The inverse of ``nerf_params_from_jax``: the teacher's parameters as
+    the ``r2l_tpu`` pytree of numpy f32 arrays."""
+    table = nerf_table(model_c.cfg.D, model_c.cfg.use_viewdirs)
+    return host_tree(to_jax(named(model_c), table))

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ._layout import Entry, from_jax, host_tree, linear, named, to_jax
+
 
 @dataclasses.dataclass(frozen=True)
 class R2LConfig:
@@ -167,12 +169,29 @@ def init_r2l(cfg: R2LConfig, generator: torch.Generator,
     return model
 
 
+def r2l_table(cfg: R2LConfig) -> list[Entry]:
+    """Each ``R2L`` parameter's state_dict name and place in the JAX pytree
+    (``head``, ``body`` stacked [n_block, n_learnable, ...] or a list for
+    the plain-MLP body, ``tail``)."""
+    table = linear("head.0", ("head",))
+    if cfg.body_arch == "mlp":
+        for k in range(cfg.netdepth - 2):
+            table += linear(f"body.{2 * k}", ("body", k))
+    else:
+        for i in range(cfg.num_blocks):
+            for j in range(cfg.n_learnable):
+                table += linear(f"body.{i}.body.{2 * j}", ("body",), (i, j))
+    return table + linear("tail" if cfg.linear_tail else "tail.0", ("tail",))
+
+
 def params_from_jax(np_params: dict, cfg: R2LConfig
                     ) -> dict[str, torch.Tensor]:
     """``r2l_tpu`` param pytree (numpy arrays) -> ``R2L`` state_dict.
 
     JAX stores weights [in, out] and ``nn.Linear`` [out, in], so every
     weight is transposed (``r2l_tpu/checkpoint.py::params_to_torch_r2l``).
+    A plain-MLP body may be a list or, as a checkpoint file holds it, a
+    dict keyed "0", "1", ....
     """
     def t(a) -> torch.Tensor:
         if not isinstance(a, np.ndarray):
@@ -180,19 +199,11 @@ def params_from_jax(np_params: dict, cfg: R2LConfig
                             f"{type(a).__name__}")
         return torch.from_numpy(np.array(a, np.float32))
 
-    sd = {"head.0.weight": t(np_params["head"]["w"].T),
-          "head.0.bias": t(np_params["head"]["b"])}
-    body = np_params["body"]
-    if isinstance(body, (list, tuple)):
-        for k, layer in enumerate(body):
-            sd[f"body.{2 * k}.weight"] = t(layer["w"].T)
-            sd[f"body.{2 * k}.bias"] = t(layer["b"])
-    else:
-        for i in range(cfg.num_blocks):
-            for j in range(cfg.n_learnable):
-                sd[f"body.{i}.body.{2 * j}.weight"] = t(body["w"][i, j].T)
-                sd[f"body.{i}.body.{2 * j}.bias"] = t(body["b"][i, j])
-    tail = "tail" if cfg.linear_tail else "tail.0"
-    sd[tail + ".weight"] = t(np_params["tail"]["w"].T)
-    sd[tail + ".bias"] = t(np_params["tail"]["b"])
-    return sd
+    return {k: t(v) for k, v in from_jax(np_params, r2l_table(cfg)).items()}
+
+
+def params_to_jax(model: R2L, cfg: R2LConfig | None = None) -> dict:
+    """The inverse of ``params_from_jax``: ``model``'s parameters as the
+    ``r2l_tpu`` pytree of numpy f32 arrays (weights [in, out], the ResMLP
+    body stacked [n_block, n_learnable, W, W])."""
+    return host_tree(to_jax(named(model), r2l_table(cfg or model.cfg)))

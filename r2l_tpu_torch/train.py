@@ -30,12 +30,15 @@ with both networks (``render.render_rays_nerf``) and take Adam over both on
 fine + coarse MSE: plain autograd, as JAX leaves them to XLA.
 
 Models and Adam states are updated in place; a state's ``step`` counts the
-updates. The random draws of a step (hard-pool slots, depth jitter, pixels,
-the training image, the render's jitter and sigma noise) are explicit:
+updates and drives the precrop and the int8 calibration cadence, and its
+``lr_count`` gives the learning rate: the two part only after a resume
+that restores the step without the optimizer (``checkpoint.py``). The
+random draws of a step (hard-pool slots, depth jitter, pixels, the training
+image, the render's jitter and sigma noise) are explicit:
 passed in (``StepDraws``, ``ImageStepDraws``, ``TeacherStepDraws``; a test
 hands over JAX's) or drawn from a ``torch.Generator``. ``scan_steps=k`` is
-a plain loop of k steps. Not here: the checkpoints, the CLI loop and the
-mesh.
+a plain loop of k steps. Not here: the CLI loop and the mesh; the
+checkpoints and resume are ``checkpoint.py``'s.
 """
 from __future__ import annotations
 
@@ -201,6 +204,9 @@ class TrainState(NamedTuple):
     optimizer: torch.optim.Adam      # updated in place
     step: int                        # updates made so far
     pool: HardPool
+    # the learning-rate schedule's count (optax's opt_state[1].count): the
+    # step's but for a resume that restores the step and not the optimizer
+    lr_count: int = 0
 
 
 class StepDraws(NamedTuple):
@@ -242,7 +248,7 @@ def clone_train_state(state: TrainState) -> TrainState:
                          state.optimizer.param_groups[0]["lr"])
     opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
     pool = HardPool(*(t.clone() for t in state.pool))
-    return TrainState(model, opt, state.step, pool)
+    return TrainState(model, opt, state.step, pool, state.lr_count)
 
 
 def draw_step(dcfg: DistillConfig, n_sample: int,
@@ -310,7 +316,7 @@ def _distill_core(state: TrainState, fresh: torch.Tensor, draws: StepDraws,
     loss.backward()
     # the schedule at the count before this update, as optax evaluates it
     for group in opt.param_groups:
-        group["lr"] = schedule(state.step)
+        group["lr"] = schedule(state.lr_count)
     opt.step()
 
     pool = state.pool
@@ -322,7 +328,8 @@ def _distill_core(state: TrainState, fresh: torch.Tensor, draws: StepDraws,
     rgb_mse = torch.mean(per_ray)
     metrics = {"loss": loss.detach(),
                "psnr": -10.0 * torch.log10(torch.clamp(rgb_mse, min=1e-12))}
-    return state._replace(step=state.step + 1, pool=pool), metrics
+    return state._replace(step=state.step + 1, lr_count=state.lr_count + 1,
+                          pool=pool), metrics
 
 
 def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
@@ -509,6 +516,7 @@ class TeacherState(NamedTuple):
     model_f: NeRF | None             # None without a fine network
     optimizer: torch.optim.Adam      # over both networks, updated in place
     step: int                        # updates made so far
+    lr_count: int = 0                # the schedule's count (``TrainState``)
 
 
 class TeacherStepDraws(NamedTuple):
@@ -553,10 +561,11 @@ def _teacher_update(state: TeacherState, ncfg: NeRFConfig,
         loss = loss + torch.mean((out.rgb0 - target) ** 2)
     loss.backward()
     for group in opt.param_groups:
-        group["lr"] = schedule(state.step)
+        group["lr"] = schedule(state.lr_count)
     opt.step()
     loss_rgb = loss_rgb.detach()
-    return state._replace(step=state.step + 1), {
+    return state._replace(step=state.step + 1,
+                          lr_count=state.lr_count + 1), {
         "loss": loss.detach(),
         "psnr": -10.0 * torch.log10(torch.clamp(loss_rgb, min=1e-12))}
 

@@ -1157,3 +1157,97 @@ def test_bwd_group_qdx_raises_instead_of_falling_back(dev):
                          cfg, 0, 2, 512, scales["probe"])
     with pytest.raises(ValueError):
         PQ.bwd_group_qdx(*args, tile=512, body_scale=scales["probe"].cpu())
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints on the card (chip_smoke.py phase 16 at a small width)
+# ---------------------------------------------------------------------------
+
+def _ckpt_student(dev):
+    cfg = R2LConfig(input_dim=48 * 21, netdepth=12, netwidth=128,
+                    compute_dtype=torch.bfloat16)
+    sampler = PointSampler(H=32, W=32, focal=40.0, n_sample=16, near=2.0,
+                           far=6.0)
+    return cfg, sampler, init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+
+
+def test_loaded_student_frames_equal_the_original(dev, tmp_path):
+    """A student saved as a native .msgpack and exported from it as a
+    reference .tar, each loaded into a new module on the card: its pe (K1)
+    and int8 (K2) frames equal the original's bit for bit, through the
+    kernels."""
+    from r2l_tpu_torch import checkpoint as C
+    from r2l_tpu_torch.evaluate import make_r2l_frame_fn
+    from r2l_tpu_torch.models import params_to_jax
+    from r2l_tpu_torch.tools.export_torch_ckpt import main as export_tar
+    cfg, sampler, model = _ckpt_student(dev)
+    native, tar = str(tmp_path / "s.msgpack"), str(tmp_path / "s.tar")
+    C.save_checkpoint(native, {"params": params_to_jax(model, cfg)})
+    assert export_tar(["--ckpt", native, "--out", tar]) == 0
+    poses = np.stack([pose_spherical(th, -30.0, 4.0)[:3, :4]
+                      for th in (0.0, 90.0)])
+    F.fused_r2l_apply_pe.launches = F.fused_r2l_apply_int8_pe.launches = 0
+    for path in (native, tar):
+        loaded, lcfg, _ = C.load_r2l(path, dev,
+                                     compute_dtype=torch.bfloat16)
+        for kind, quantize in (("pe", ""), ("int8", "int8")):
+            fns = [make_r2l_frame_fn(m, c, sampler, quantize=quantize,
+                                     calib_poses=poses)
+                   for m, c in ((model, cfg), (loaded, lcfg))]
+            assert [f.kind for f in fns] == [kind, kind]
+            for p in poses:
+                assert torch.equal(fns[1](p), fns[0](p)), (path, kind)
+    assert F.fused_r2l_apply_pe.launches > 0
+    assert F.fused_r2l_apply_int8_pe.launches > 0
+
+
+@pytest.mark.parametrize("kind", ["fused", "fused_int8"])
+def test_resume_on_card_equals_continuous(dev, kind, tmp_path):
+    """The fused steps (K3 + K5; K4 + K5 calibrated every step): 3 steps,
+    save with the pool, restore into a state built afresh, 2 steps; params,
+    Adam's moments and the pool equal 5 straight steps bit for bit."""
+    from r2l_tpu_torch import checkpoint as C
+    from r2l_tpu_torch.train import (DistillConfig, draw_step,
+                                     fused_int8_calib_points,
+                                     init_train_state, make_distill_step)
+    cfg, sampler, _ = _ckpt_student(dev)
+    dcfg = DistillConfig(batch_size=2048, n_hard_in=204, n_hard_out=409,
+                         hard_mul=4.0, warmup_lr="0.0001,3", embed_L=10)
+    kw = {"fused_vjp": True}
+    if kind == "fused_int8":
+        poses = np.stack([pose_spherical(th, -30.0, 4.0)[:3, :4]
+                          for th in (0.0, 120.0, 240.0)])
+        kw.update(fused_quantize="int8", fused_calib_every=1,
+                  fused_calib_pts=fused_int8_calib_points(
+                      32, 32, 40.0, 16, 2.0, 6.0, poses, dev))
+    step = make_distill_step(cfg, dcfg, sampler, device=dev, **kw)
+    g = torch.Generator(dev).manual_seed(1)
+    batches = torch.rand((5, 2048 - 409, 9), generator=g, device=dev)
+    draws = [draw_step(dcfg, 16, torch.Generator(dev).manual_seed(10 + i))
+             for i in range(5)]
+
+    def fresh(seed):
+        return init_train_state(init_r2l(cfg, torch.Generator().manual_seed(
+            seed), dev), dcfg, device=dev)
+
+    def run(state, steps):
+        for i in steps:
+            state, _ = step(state, batches[i], draws=draws[i])
+        return state
+
+    def snapshot(state):
+        out = [t for p in state.params.parameters() for t in (
+            p.detach(), state.optimizer.state[p]["exp_avg"],
+            state.optimizer.state[p]["exp_avg_sq"])]
+        return out + list(state.pool)
+
+    straight = run(fresh(0), range(5))
+    half = run(fresh(0), range(3))
+    C.save(str(tmp_path / "s.msgpack"), half, half.step, -1.0, -1,
+           save_pool=True)
+    resumed, _, _ = C.resume_distill(fresh(1), str(tmp_path / "s.msgpack"),
+                                     log=lambda s: None)
+    resumed = run(resumed, range(3, 5))
+    assert (resumed.step, resumed.lr_count) == (5, 5)
+    for a, b in zip(snapshot(resumed), snapshot(straight)):
+        assert torch.equal(a, b)

@@ -1,15 +1,16 @@
 """The port never imports JAX nor the JAX package: a fresh interpreter imports
 r2l_tpu_torch and every module in it, renders a frame on the CPU through
 each kind and through the kernel API, takes a distillation step of each
-kind and one in the images data mode, renders a teacher frame, generates
-one pose of pseudo data (plain and int8-packed fused render on the CPU),
-takes a teacher step of each mode on images and their ray records, runs each
-exp probe's plain version (the chain and shape probes, and K2's body, wall,
-streams and epilogue probes, and the int8-dL/dx walk), renders an int8
-given-rays frame and its bench checksum, computes SSIM, FLIP and LPIPS,
-imports ``bench_cuda.py``'s function, and finds neither ``jax`` nor
-``r2l_tpu`` in sys.modules. The kernel sources include only the
-CUDA toolkit's headers and their own."""
+kind, saves the state through the port's own msgpack codec and resumes it,
+exports the student to ONNX, takes a step in the images data mode, renders
+a teacher frame, generates one pose of pseudo data (plain and int8-packed
+fused render on the CPU), takes a teacher step of each mode on images and
+their ray records, runs each exp probe's plain version (the chain and shape
+probes, and K2's body, wall, streams and epilogue probes, and the int8-dL/dx
+walk), renders an int8 given-rays frame and its bench checksum, computes
+SSIM, FLIP and LPIPS, imports ``bench_cuda.py``'s function, and finds none
+of ``jax``, ``r2l_tpu``, ``flax`` and ``msgpack`` in sys.modules. The kernel
+sources include only the CUDA toolkit's headers and their own."""
 import os
 import subprocess
 import sys
@@ -56,6 +57,22 @@ for kw in ({}, {"fused_vjp": True},
     step = make_distill_step(cfg, dcfg, sampler, device="cpu", **kw)
     state, m = step(state, fresh)
     assert state.step == 1 and bool(torch.isfinite(m["loss"]))
+import tempfile
+from r2l_tpu_torch import checkpoint as ckpt
+from r2l_tpu_torch.export import export_onnx
+with tempfile.TemporaryDirectory() as tmp:
+    ckpt.save(tmp + "/s.msgpack", state, state.step, -1.0, -1,
+              save_pool=True)
+    back = init_train_state(init_r2l(cfg, torch.Generator().manual_seed(5),
+                                     "cpu"), dcfg, device="cpu")
+    back, _, _ = ckpt.resume_distill(back, tmp + "/s.msgpack",
+                                     log=lambda s: None)
+    assert back.step == back.lr_count == 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        back.params.state_dict().values(), model.state_dict().values()))
+    assert torch.equal(back.pool.rays, state.pool.rays)
+    assert export_onnx(model, cfg, tmp, log=lambda s: None).endswith(
+        "r2l.onnx")
 from r2l_tpu_torch.train import make_distill_step_images
 img = torch.rand((4, 4, 3), generator=torch.Generator().manual_seed(1))
 step = make_distill_step_images(cfg, DistillConfig(batch_size=8), sampler,
@@ -161,8 +178,8 @@ for v in (ssim(a, b), flip(a, b), lpips(lp, a, b)):
     assert bool(torch.isfinite(v))
 from bench_cuda import bench as bench_cuda_fn
 assert callable(bench_cuda_fn)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "r2l_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "r2l_tpu", "flax", "msgpack"))
 print(len(names), bad)
 assert not bad, bad
 """
