@@ -116,14 +116,19 @@ Phases, in order; any failure raises and exits non-zero:
    (dual bit for bit the single), 163,840 rays x 86 layers and, where the
    random chain's output is of order one, 8 layers; ``bign``, 43 and 4
    pairs; ``int8_chain`` at 4 and 8 layers (non-zero, bit for bit) and at
-   86; ``probe_shapes.unchained`` at every (M, K, N) of its runner in int8
-   and bf16, free, and chained at the square ones; each against its plain
-   version on the card, timed with it (and, for the bf16 shape, beside
-   ``torch.matmul`` of the 64 products). The chained bf16 shapes at 4
+   86; ``probe_shapes.unchained`` (on wgmma since its redesign) at every
+   (M, K, N) of its runner in int8 and bf16, free, and chained at the
+   square ones; each against its plain version on the card, timed with it
+   (and beside the library call: ``torch.matmul`` of the 64 bf16 products,
+   ``torch._int_mm`` of the 64 int8 ones). The chained bf16 shapes at 4
    layers print the share of rows that differ beside the same share for
    the plain version with its channels permuted and for plain versions
-   summed in the kernel's k order (64- and 16-channel chunks), and one
-   mma.sync's f32 result against the round-to-nearest of its exact sum.
+   summed in the kernel's k order (16-channel wgmma steps, and 64-channel
+   stages), and one mma.sync's and one wgmma's f32 result against the
+   round-to-nearest of its exact sum, each held to the truncation of
+   ROADMAP C and wgmma's reading to mma.sync's; the mma.sync instrument
+   (``probe_shapes.mma_sync_sum``) is first held against the plain version
+   at the runner's first bf16 shape.
    Then the two runners as a user runs them (``probe_mxu.main``,
    ``probe_shapes.main``), their JSON records on lines of their own, and
    the four kernels' launches in that run.
@@ -133,9 +138,10 @@ Phases, in order; any failure raises and exits non-zero:
    (``probe_wall.wall``) in its three modes at 4 and 86 layers; on one
    400x400 lego frame of the canonical student packed as in phase 3, the
    streams (``probe_pipe_lib.apply_int8_pe_streams``, S = 1, 2, 4) bit for
-   bit K2 and the epilogues (``probe_epi.apply_variant``, v0-v2, on the
-   folded and the unfolded packing), v0 bit for bit K2 unfolded and v2 bit
-   for bit v1; each against its plain version and timed with it. Then the
+   bit K2 and the epilogues (``probe_epi.apply_variant``, v0-v2 as forms of
+   K2's Hopper kernel, on the folded and the unfolded packing), v0 bit for
+   bit K2 unfolded and v2 bit for bit v1; each against its plain version
+   and timed with it, the epilogues beside K2 unfolded and deployed. Then the
    four runners as a user runs them (``probe_int8``, ``probe_wall``,
    ``probe_pipe``, ``probe_epi``), and the four kernels' launches in that
    run.
@@ -355,6 +361,14 @@ TOL_PROBE_BF16 = {"shallow": (3e-2, 1e-3), "deep": (5e-2, 5e-3)}
 #   a skipped rounding's every row.
 TOL_SHAPES_FREE, TOL_SHAPES_CHAINED = (1e-5, 2e-6), (1e-1, 1e-2)
 TOL_SHAPES_CHAINED_SHALLOW, MAX_SHAPES_DIFFER_SHARE = (5e-3, 4e-4), 0.35
+# One mma.sync's and one wgmma's f32 sum (probe_shapes.mma_rounding, k = 16
+#   and 32): the share of rows that differ from the f32 round-to-nearest of
+#   the exact sum, the share of those of the smaller magnitude (truncation;
+#   an IEEE sum lands on either side about equally, 51% on the CPU), and the
+#   largest distance from the exact sum, held to k ulps of the largest
+#   product. Measured 32.66% / 49.88%, 95.5% / 90.7%, 7.25 / 9.89 (H100,
+#   700 W); a kernel that returned zeros reads about 2^23 ulps.
+MIN_MMA_DIFFER_SHARE, MIN_MMA_TRUNCATED_SHARE = 0.1, 0.8
 PROBE_SHAPES_SHALLOW = 4
 PROBE_INT8_DEPTHS = (4, 8)   # the check's depths: at 86 the output is 0
 # Phase 13, K2's probes. The int8 bodies, the wall's modes, the streams and
@@ -568,8 +582,7 @@ def k2_forms(r: dict, model, cfg, pts, calib, dp: int) -> None:
             del fp, got, want
     fp = F.calibrate_r2l_int8_pe(model, cfg, dp, EMBED_L, calib)
     r["old_chain_ms"] = time_ms(lambda: F.launch_int8_pe_chain(
-        F.fused_r2l_apply_int8_pe, fp, cfg, pts, dp, EMBED_L,
-        F.EPILOGUES["deployed"], 1))
+        F.fused_r2l_apply_int8_pe, fp, cfg, pts, dp, EMBED_L, 1))
     r["l2_gb_per_frame"] = F.int8_chain_l2_bytes(cfg, dp, EMBED_L,
                                                  pts.shape[0]) / 1e9
     r["engine"] = "wgmma s8"
@@ -1919,11 +1932,12 @@ def check_rel(name: str, got: torch.Tensor, want: torch.Tensor,
 
 def staged_chained_ref(x: torch.Tensor, w: torch.Tensor,
                        chunk: int) -> torch.Tensor:
-    """The chained bf16 shape with every product summed in the kernel's own
-    k order: an f32 accumulator takes ``chunk`` input channels at a time,
-    each chunk's sum exact (float64) and rounded once as it is added (64:
-    the engine's cp.async stage; 16: one mma.sync, as an IEEE sum rounded
-    to nearest would give it)."""
+    """The chained bf16 shape with every product summed in a k order of the
+    kernel's: an f32 accumulator takes ``chunk`` input channels at a time,
+    each chunk's sum exact (float64) and rounded once as it is added (16:
+    one wgmma k16 step, the kernel's order, as an IEEE sum rounded to
+    nearest would give it; 64: the ring's stage, if each stage were summed
+    apart)."""
     h = x
     for i in range(w.shape[0]):
         hd, wd = h.double(), w[i].double()
@@ -1944,8 +1958,8 @@ def check_chained_bf16(PS, name: str, shape: tuple, gens: tuple,
     PROBE_SHAPES_SHALLOW layers on the first's, with the share of rows that
     differ, beside that share for the permuted plain version and for the
     plain versions summed in the kernel's k order (``staged_chained_ref``,
-    64- and 16-channel chunks), each against the plain version and the
-    kernel."""
+    16-channel wgmma steps and 64-channel stages), each against the plain
+    version and the kernel."""
     M, K, N = shape
     perm = torch.randperm(K, generator=torch.Generator().manual_seed(
         SEED)).to(dev)
@@ -2091,32 +2105,71 @@ def probe_checks(dev) -> dict:
             c = check_rel(f"{name} vs plain", got, want, *TOL_SHAPES_FREE)
             r["bf16_max_rel_err"] = max(r["bf16_max_rel_err"],
                                         c["max_rel_err"])
+            if (M, K, N) == PS.SHAPES[0] and not chained:
+                # mma_rounding's mma.sync instrument computes the function
+                c = r["mma_sync_vs_plain"] = check_rel(
+                    f"{name} on the mma.sync instrument vs plain",
+                    PS.mma_sync_sum(xs, ws), want, *TOL_SHAPES_FREE)
         if (M, K, N) == PS.SHAPES[0] and not chained:
             kind = "int8" if dtype == torch.int8 else "bf16"
-            t = {"ms": time_ms(lambda: PS.unchained(xs, ws)),
+            st = PS.stage_shape_weights(ws, False)   # once, as the runner
+            t = {"ms": time_ms(lambda: PS.unchained(xs, ws, False, st)),
+                 "staging_ms": time_ms(
+                     lambda: PS.stage_shape_weights(ws, False)),
                  "plain_ms": time_ms(lambda: PS.unchained_ref(xs, ws),
                                      reps=1),
                  **bound(2.0 * xs.shape[0] * K * N * ws.shape[0],
-                         nbytes(xs, ws, got), kind),
-                 "library_ms": None}
-            if kind == "bf16":   # the 64 products alone, [64, rows, N] bf16
+                         nbytes(xs, ws, got), kind)}
+            # the library call: the 64 products alone, without the sum
+            # (bf16 [64, rows, N]; int8 [rows, 64 N] int32)
+            if kind == "bf16":
                 wt = ws.transpose(1, 2)
+                t["library"] = "torch.matmul"
                 t["library_ms"] = time_ms(lambda: torch.matmul(xs, wt))
-            r["int8" if kind == "int8" else "bf16"] = t
-            print(f"[time] {name}: kernel {t['ms']:.3f} ms, plain "
-                  f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms"
-                  + (f", torch.matmul of the 64 products (no sum) "
-                     f"{t['library_ms']:.3f} ms" if t["library_ms"] else ""),
-                  flush=True)
+            else:
+                wt = ws.reshape(-1, K).t()   # [K, 64 N], column-major
+                t["library"] = "torch._int_mm"
+                t["library_ms"] = time_ms(lambda: torch._int_mm(xs, wt))
+            r[kind] = t
+            print(f"[time] {name}: kernel {t['ms']:.3f} ms (its weights' "
+                  f"staging, once per weights, {t['staging_ms']:.3f} ms), "
+                  f"plain {t['plain_ms']:.3f} ms, bound "
+                  f"{t['bound_ms']:.3f} ms, "
+                  f"{t['library']} of the 64 products (no sum) "
+                  f"{t['library_ms']:.3f} ms", flush=True)
         del xs, ws, got, want
-    for k in (16, 32):      # one mma.sync, and two in turn
-        m = r[f"mma_rounding_k{k}"] = PS.mma_rounding(k, device=dev)
-        print(f"[step0] one mma, k={k}: {m['differ_share']:.4f} of rows "
-              f"differ from the f32 round-to-nearest of the exact sum, by at "
-              f"most {m['max_ulp']:.1f} ulp of the result; "
-              f"{m['smaller_magnitude_share']:.3f} of those have the smaller "
-              f"magnitude; at most {m['max_err_in_top_ulp']:.2f} ulp of the "
-              f"largest product from the exact sum", flush=True)
+    # one instruction, and two in turn: mma.sync through the pre-Hopper
+    # instrument, wgmma through the kernel; each truncates (ROADMAP C), and
+    # wgmma reads as mma.sync to every digit
+    before = PS.mma_sync_sum.launches
+    for engine, key in (("mma.sync", "mma_rounding"),
+                        ("wgmma", "wgmma_rounding")):
+        for k in (16, 32):
+            m = r[f"{key}_k{k}"] = PS.mma_rounding(k, device=dev,
+                                                   engine=engine)
+            print(f"[step0] one {engine}, k={k}: {m['differ_share']:.4f} of "
+                  f"rows differ from the f32 round-to-nearest of the exact "
+                  f"sum, by at most {m['max_ulp']:.1f} ulp of the result; "
+                  f"{m['smaller_magnitude_share']:.3f} of those have the "
+                  f"smaller magnitude; at most "
+                  f"{m['max_err_in_top_ulp']:.2f} ulp of the largest product "
+                  f"from the exact sum", flush=True)
+            if not (m["differ_share"] > MIN_MMA_DIFFER_SHARE
+                    and m["smaller_magnitude_share"] > MIN_MMA_TRUNCATED_SHARE
+                    and m["max_err_in_top_ulp"] <= k):
+                raise AssertionError(f"one {engine}, k={k}: not the "
+                                     f"truncating sum of ROADMAP C: {m}")
+        if engine == "wgmma":
+            for k in (16, 32):
+                if ({**r[f"mma_rounding_k{k}"], "engine": "wgmma"}
+                        != r[f"wgmma_rounding_k{k}"]):
+                    raise AssertionError(f"one wgmma, k={k}, does not read "
+                                         f"as one mma.sync")
+    r["mma_sync_launches"] = PS.mma_sync_sum.launches - before
+    print(f"[main] mma.sync instrument launches: {r['mma_sync_launches']}",
+          flush=True)
+    if r["mma_sync_launches"] != 2:
+        raise AssertionError("mma_rounding did not read through mma.sync")
     r.update({k: r["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
     for key in ("probe_chain", "probe_bign", "probe_int8_chain"):
@@ -2300,15 +2353,26 @@ def k2_probe_checks(dev) -> dict:
                     outs[1])
         del outs
     fp = fps[True]     # the driver's packing
-    for v in PE.VARIANTS:
-        r[f"v{v}_ms"] = time_ms(lambda: PE.apply_variant(fp, cfg, pts, dp,
-                                                         EMBED_L, v))
+    runs = {f"v{v}": lambda v=v: PE.apply_variant(fp, cfg, pts, dp, EMBED_L,
+                                                  v) for v in PE.VARIANTS}
+    runs["k2_unfolded"] = lambda: F.fused_r2l_apply_int8_pe(
+        fp, cfg, pts, dp, EMBED_L, fold_requant=False, nobf16_inner=False)
+    runs["k2_deployed"] = lambda: F.fused_r2l_apply_int8_pe(
+        fp, cfg, pts, dp, EMBED_L)
+    times = {k: [] for k in runs}   # in turns, there and back
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            times[k].append(time_ms(runs[k]))
+    for k, ts in times.items():
+        r[f"{k}_ms"] = sum(ts) / len(ts)
     r.update(ms=r["v1_ms"], plain_ms=time_ms(
         lambda: PE.apply_variant_ref(fp, cfg, pts, dp, EMBED_L, 1), reps=1),
         **bound(ops, nbytes(pts, k2, *fp), "int8"), library_ms=None)
-    print(f"[time] probe_epi: v0 {r['v0_ms']:.3f} ms, v1 {r['v1_ms']:.3f} "
-          f"ms, v2 {r['v2_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-          f"{r['bound_ms']:.3f} ms at {pts.shape[0]} rays", flush=True)
+    print(f"[time] probe_epi (K2's Hopper forms): v0 {r['v0_ms']:.3f} ms, "
+          f"v1 {r['v1_ms']:.3f} ms, v2 {r['v2_ms']:.3f} ms, K2 unfolded "
+          f"{r['k2_unfolded_ms']:.3f} ms, K2 deployed "
+          f"{r['k2_deployed_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+          f"bound {r['bound_ms']:.3f} ms at {pts.shape[0]} rays", flush=True)
     del fps, fp, k2
     torch.cuda.empty_cache()
     return res
@@ -3154,7 +3218,7 @@ def main() -> int:
               ("probe_wall", "probe_int8_chain.cu", "exp/probe_wall.py:73"),
               ("probe_pipe", "r2l_int8_pe_fused.cu",
                "exp/probe_pipe_lib.py:19"),
-              ("probe_epi", "r2l_int8_pe_fused.cu", "exp/probe_epi.py:112"))),
+              ("probe_epi", "r2l_int8_hopper.cu", "exp/probe_epi.py:112"))),
         entry("bwd_group_qdx", "r2l_bwd_qdx.cu", "exp/probe_bwd_qdx.py:70",
               qdx["launches"], qdx),
     ]}))

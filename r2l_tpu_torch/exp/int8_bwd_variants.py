@@ -149,26 +149,22 @@ K4_STAGE = "      W >= 128 && !(W == 256 && kEpi == kTrainQ) ? 128 : 64;"
 K4_BULK = "      if (pend_row >= 0 && wtid == 0) {"
 K4_FREE = """      if (wtid == 0) bulk_wait_read<0>();
       wg_bar(bar_id);"""
-K4_HEAD_Q = """        putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, inv.x)),
-             q8b(__fmul_rn(hv.y, inv.y)));"""
+K4_HEAD_Q = """        const int2 q = q8_in<kEpi>(hv, inv);
+        putq(r0 + 8 * h, c, q.x, q.y);"""
 K4_INNER_Q = "            putq(r, c, x0, x1);"
-K4_TAIL_Q = """            putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, iv.x)),
-                 q8b(__fmul_rn(hv.y, iv.y)));"""
+K4_TAIL_Q = """            const int2 q = q8_in<kEpi>(block_out(j, h, c, p), iv);
+            putq(r0 + 8 * h, c, q.x, q.y);"""
 # K4's stash rows from the registers, as K8's
 K4_REG_STASH = [
     (K2, K4_BULK, "      if (false) {"), (K2, K4_FREE, ""),
-    (K2, K4_HEAD_Q, """{
-        const int q0 = q8b(__fmul_rn(hv.x, inv.x));
-        const int q1 = q8b(__fmul_rn(hv.y, inv.y));
-        putq(r0 + 8 * h, c, q0, q1);
-        stashq(0, r0 + 8 * h, c, q0, q1);
-      }"""),
+    (K2, K4_HEAD_Q, """        const int2 q = q8_in<kEpi>(hv, inv);
+        putq(r0 + 8 * h, c, q.x, q.y);
+        stashq(0, r0 + 8 * h, c, q.x, q.y);"""),
     (K2, K4_INNER_Q, K4_INNER_Q + "\n            stashq(a.nb + 1 + blk, r, c, "
                                   "x0, x1);"),
-    (K2, K4_TAIL_Q, """const int q0 = q8b(__fmul_rn(hv.x, iv.x));
-            const int q1 = q8b(__fmul_rn(hv.y, iv.y));
-            putq(r0 + 8 * h, c, q0, q1);
-            stashq(blk + 1, r0 + 8 * h, c, q0, q1);""")]
+    (K2, K4_TAIL_Q, """            const int2 q = q8_in<kEpi>(block_out(j, h, c, p), iv);
+            putq(r0 + 8 * h, c, q.x, q.y);
+            stashq(blk + 1, r0 + 8 * h, c, q.x, q.y);""")]
 K4_SLOTS = "  static constexpr int kStages = 4, kParts = 1;"
 
 # name: ([(file, text, replacement)], kernel ("k2" or "k5"), checked output)

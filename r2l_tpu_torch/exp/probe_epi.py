@@ -9,12 +9,12 @@ Port of ``exp/probe_epi.py``: ``apply_variant`` is K2 whole (PE, head, the
       block too;
   v2  v1 with the inner ReLU folded into the clip's lower bound 0 (equal to
       v1 wherever every inverse scale is positive),
-through the hand-written CUDA kernel of K2's chain
-(``kernels/csrc/r2l_int8_chain.cuh``, whose forms ``kEpiV1``/``kEpiV2``
-are launched through K2's entry point, ``r2l_int8_pe_fused.cu``; v0 is
-K2's ``fold_requant=False``). The plain version is K2's plain chain with
+through K2's Hopper kernel (``kernels/csrc/r2l_int8_hopper.cuh``, whose
+forms ``kEpiV1``/``kEpiV2`` are launched through K2's entry point,
+``r2l_int8_hopper.cu``, at width 256; v0 is K2's ``kUnfolded``, the
+``fold_requant=False`` form). The plain version is K2's plain chain with
 this module's bf16 quantize as its hook. Mosaic refused v1 and v2 on the
-TPU, so the card's run is their first measurement.
+TPU, so the card's runs are their only measurements.
 
 Its driver follows ``exp/probe_epi.py:158-200``: the canonical W256/D88
 student (random weights from a seeded generator), the int8 packing of
@@ -27,8 +27,9 @@ saturate: a fault of the reference (ROADMAP C), computed here as there. The
 TPU tile (800) is not ported.
 
 ``apply_variant`` runs its plain version for a CPU tensor only; for a CUDA
-tensor it launches the kernel or raises, and counts the launch in
-``apply_variant.launches``.
+tensor it launches the kernel or raises (also without K2's staged image,
+``FusedParamsInt8PE.staged``, which ``calibrate_r2l_int8_pe`` and so
+``setup`` make), and counts the launch in ``apply_variant.launches``.
 
     python -m r2l_tpu_torch.exp.probe_epi [--out PATH]
 
@@ -42,8 +43,8 @@ import torch
 
 from ..evaluate import _prepare_r2l
 from ..kernels.r2l_fused import (EPILOGUES, FusedParamsInt8PE,
-                                  fused_r2l_apply_int8_pe, int8_pe_chain_ref,
-                                  launch_int8_pe_chain)
+                                  _launch_int8_hopper,
+                                  fused_r2l_apply_int8_pe, int8_pe_chain_ref)
 from ..models.r2l import R2LConfig, init_r2l
 from . import _harness
 
@@ -52,9 +53,9 @@ K = 16          # frames per call
 L = 10
 REPS = 4
 SEED = 0        # the student's weights
-# each variant's form in csrc/r2l_int8_chain.cuh's Epi: K2's kUnfolded,
+# each variant's form in csrc/r2l_int8_hopper.cuh's Epi: K2's kUnfolded,
 # kEpiV1, kEpiV2
-_EPI_CODE = {0: EPILOGUES["unfolded"], 1: 3, 2: 4}
+_EPI_CODE = {0: EPILOGUES["unfolded"], 1: 5, 2: 6}
 
 
 def _q8_bf16(t: torch.Tensor, inv: torch.Tensor, lo: float) -> torch.Tensor:
@@ -103,8 +104,8 @@ def apply_variant(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
     if cfg.netwidth != 256:
         raise ValueError(f"the epilogue kernel takes width 256, got "
                          f"{cfg.netwidth}")
-    return launch_int8_pe_chain(apply_variant, fp, cfg, pts, dim_pts, L,
-                                _EPI_CODE[variant])
+    return _launch_int8_hopper(fp, cfg, pts, dim_pts, L, _EPI_CODE[variant],
+                               wrapper=apply_variant)
 
 
 apply_variant.launches = 0

@@ -4,8 +4,8 @@ Port of ``exp/probe_pipe_lib.py::apply_int8_pe_streams``: K2 whole (PE,
 head, the 43 blocks, tail) in its deployed form (``fold_requant`` +
 ``nobf16_inner``), with each ray tile split into S streams whose products
 are issued together per layer, so that one stream's epilogue can hide under
-another's tensor-core work. On the card (K2's chain,
-``kernels/csrc/r2l_int8_chain.cuh``, through K2's entry point
+another's tensor-core work. On the card (K2's pre-Hopper chain,
+``kernels/csrc/r2l_int8_chain.cuh``, through its entry point
 ``r2l_int8_pe_fused.cu``) S teams of 256 threads each own 64/S rays of a
 block's 64, sharing K2's weight stages. Rows never mix, so at every S the
 output is K2's bit for bit and the plain version is K2's.
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.r2l_fused import (EPILOGUES, FusedParamsInt8PE,
+from ..kernels.r2l_fused import (FusedParamsInt8PE,
                                   fused_r2l_apply_int8_pe_ref,
                                   launch_int8_pe_chain)
 from ..models.r2l import R2LConfig
@@ -45,11 +45,8 @@ def apply_int8_pe_streams(fp: FusedParamsInt8PE, cfg: R2LConfig,
         raise ValueError(f"streams must be one of {STREAMS}, got {streams}")
     if pts.device.type == "cpu":
         return apply_int8_pe_streams_ref(fp, cfg, pts, dim_pts, L)
-    if cfg.netwidth != 256:
-        raise ValueError(f"the streams kernel takes width 256, got "
-                         f"{cfg.netwidth}")
     return launch_int8_pe_chain(apply_int8_pe_streams, fp, cfg, pts,
-                                dim_pts, L, EPILOGUES["deployed"], streams)
+                                dim_pts, L, streams)
 
 
 apply_int8_pe_streams.launches = 0

@@ -44,7 +44,7 @@ KERNELS = {
                         [_P, _I, _I, _I] + [_P] * 9 + [_LL] + [_I] * 7
                         + [_P]),
     "r2l_int8_pe_fused": ("r2l_int8_pe_fused_launch",
-                          [_P, _I, _I, _I] + [_P] * 13 + [_I] * 8 + [_P]),
+                          [_P, _I, _I, _I] + [_P] * 13 + [_I] * 6 + [_P]),
     "r2l_train_fwd": ("r2l_train_fwd_launch",
                       [_P, _I, _I, _I] + [_P] * 7 + [_LL, _P]
                       + [_I, _I, _I, _F, _I, _I, _I, _P]),
@@ -69,6 +69,8 @@ KERNELS = {
                          [_P, _I, _P, _P, _F, _P, _I, _I, _P]),
     "probe_shapes": ("probe_shapes_launch",
                      [_P, _I, _I, _I, _P, _I, _P, _I, _I, _P]),
+    "probe_mma_sync": ("probe_mma_sync_launch",
+                       [_P, _I, _I, _I, _P, _I, _P, _P]),
     "probe_resmlp": ("probe_resmlp_launch",
                      [_P, _I, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P]),
 }

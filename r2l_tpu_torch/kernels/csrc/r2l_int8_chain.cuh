@@ -1,8 +1,9 @@
-// K2's PE-fused static-scale int8 R2L forward, as a template whose forms
-// are K2 and the probes of its epilogue and its streams (one entry point,
-// r2l_int8_pe_fused.cu).
+// K2's PE-fused static-scale int8 R2L forward as it ran before its Hopper
+// redesign (r2l_int8_hopper.cuh), kept as the design the probe of its ray
+// streams measures (one entry point, r2l_int8_pe_fused.cu), in K2's
+// deployed form at width 256.
 //
-// Every form computes r2l_tpu/kernels/r2l_pallas.py::_int8_pe_chain:
+// It computes r2l_tpu/kernels/r2l_pallas.py::_int8_pe_chain:
 //   * each PE part is quantized with its column's inverse scale,
 //     q = clip(round_half_even(x * inv), -127, 127);
 //   * every matmul is int8 x int8 -> int32, exact;
@@ -12,23 +13,9 @@
 //   * the block tail is cast to bf16 and added to the bf16 residual stream
 //     in f32; h0 stays f32 for the global residual; the tail is int8, then
 //     sigmoid.
-// The epilogue kEpi is how an inner layer's output becomes the next
-// layer's int8 input (and how the first layer of a block quantizes):
-//   kDeployed  fold_requant=True, nobf16_inner=True (K2 as deployed): the
-//              next inverse scale is folded into m and b, so the f32 ReLU
-//              output is rounded and clipped, no multiply, no bf16;
-//   kFold      fold_requant=True, nobf16_inner=False: the same through a
-//              bf16 cast;
-//   kUnfolded  fold_requant=False (exp/probe_epi.py's v0): the bf16 ReLU
-//              output times the next inverse scale in f32;
-//   kEpiV1     exp/probe_epi.py's v1: the bf16 output times the inverse
-//              scale cast to bf16, the product rounded to bf16 (as XLA
-//              computes a bf16 product), then round and clip; the first
-//              layer of a block quantizes the same way;
-//   kEpiV2     v1 with the inner ReLU folded into the clip's lower bound 0
-//              (equal to v1 wherever the inverse scales are positive).
-// The probe forms run on any packing (exp/probe_epi.py runs them on the
-// folded one and so scales inner layers twice: ROADMAP C).
+// Its epilogue is K2's deployed one (fold_requant=True, nobf16_inner=True):
+// the next inverse scale is folded into m and b, so an inner
+// layer's f32 ReLU output is rounded and clipped, no multiply, no bf16.
 //
 // Design: one thread block owns a tile of 64 rays and keeps it in shared
 // memory, ray-major, for all layers: the quantized input [64][in_dim]
@@ -67,8 +54,6 @@
 namespace r2l {
 namespace int8chain {
 
-enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2, kEpiV1 = 3, kEpiV2 = 4 };
-
 constexpr int kTT = 64;  // rays per block
 
 // input channels per weight stage: 128 where the width allows it (halves
@@ -79,14 +64,7 @@ using Engine = EngineS8<W, kTT, (W >= 128 ? 128 : 64)>;
 template <int S>
 using Team = typename std::conditional<S == 1, BlockTeam, StreamTeam<S>>::type;
 
-// bf16 x bf16 rounded to bf16 (exact in f32, then one rounding), then
-// round-half-even and clip to [lo, 127]: exp/probe_epi.py's bf16 quantize.
-__device__ __forceinline__ int8_t q8_bf16(float t, float inv, float lo) {
-  const float y = rnd<__nv_bfloat16>(__fmul_rn(t, rnd<__nv_bfloat16>(inv)));
-  return static_cast<int8_t>(fminf(fmaxf(rintf(y), lo), 127.f));
-}
-
-template <int W, int kEpi, int S>
+template <int W, int S>
 __global__ void __launch_bounds__(S * kThreads, 1) int8_pe_chain_kernel(
     const float* __restrict__ pts, int n, int dp, int L,
     const int8_t* __restrict__ head_q, const float* __restrict__ head_m,
@@ -150,9 +128,7 @@ __global__ void __launch_bounds__(S * kThreads, 1) int8_pe_chain_kernel(
       float hv = __bfloat162float(H[r * ldh + c]);
       if (blk < nb) {
         const float inv = body_inv[(size_t)blk * nl * W + c];
-        QA[r * ldq + c] = (kEpi == kEpiV1 || kEpi == kEpiV2)
-                              ? q8_bf16(hv, inv, -127.f)
-                              : q8(__fmul_rn(hv, inv));
+        QA[r * ldq + c] = q8(__fmul_rn(hv, inv));
       } else {
         if (use_residual) hv = __fadd_rn(hv, H0[r * ldh0 + c]);
         QA[r * ldq + c] = q8(__fmul_rn(hv, tail_inv[c]));
@@ -180,22 +156,8 @@ __global__ void __launch_bounds__(S * kThreads, 1) int8_pe_chain_kernel(
       const float* b = body_b + (size_t)idx * W;
       if (j < nl - 1) {  // inner: ReLU, then the next layer's int8 input
         int8_t* dst = src == QA ? QB : QA;
-        const float* inv = body_inv + (size_t)(idx + 1) * W;
-        E::M::visit(acc, [&](int r, int c, int a) {
-          const float t = dequant(a, m[c], b[c]);
-          int8_t q;
-          if (kEpi == kDeployed) {         // scale folded, no bf16
-            q = q8(fmaxf(t, 0.f));
-          } else if (kEpi == kFold) {      // scale folded, through bf16
-            q = q8(rnd<__nv_bfloat16>(fmaxf(t, 0.f)));
-          } else if (kEpi == kUnfolded) {  // f32 multiply by the scale
-            q = q8(__fmul_rn(rnd<__nv_bfloat16>(fmaxf(t, 0.f)), inv[c]));
-          } else if (kEpi == kEpiV1) {     // bf16 multiply
-            q = q8_bf16(rnd<__nv_bfloat16>(fmaxf(t, 0.f)), inv[c], -127.f);
-          } else {                         // v2: ReLU as the clip's floor
-            q = q8_bf16(rnd<__nv_bfloat16>(t), inv[c], 0.f);
-          }
-          dst[(r0 + r) * ldq + c] = q;
+        E::M::visit(acc, [&](int r, int c, int a) {  // scale folded
+          dst[(r0 + r) * ldq + c] = q8(fmaxf(dequant(a, m[c], b[c]), 0.f));
         }, team);
         src = dst;
       } else {  // block tail: bf16, + block input in f32, bf16
@@ -226,7 +188,7 @@ __global__ void __launch_bounds__(S * kThreads, 1) int8_pe_chain_kernel(
 // Launch one form. Shared memory: the larger of the quantized input and
 // the activations, then the two weight stages (208,896 bytes at W=256 and
 // the canonical 1,008 inputs, whatever S).
-template <int W, int kEpi, int S>
+template <int W, int S>
 cudaError_t launch(const float* pts, int n, int dp, int L,
                    const int8_t* head_q, const float* head_m,
                    const float* head_b, const float* head_inv,
@@ -243,7 +205,7 @@ cudaError_t launch(const float* pts, int n, int dp, int L,
                                           2 * ld_words(W)) * 4;
   const size_t region = x_bytes > act_bytes ? x_bytes : act_bytes;
   const size_t smem = region + Engine<W>::kStageBytes;
-  auto kern = int8_pe_chain_kernel<W, kEpi, S>;
+  auto kern = int8_pe_chain_kernel<W, S>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -272,7 +234,7 @@ inline cudaError_t check_args(int n, int dp, int L, int nb, int nl,
 }  // namespace int8chain
 }  // namespace r2l
 
-// The arguments of a launch<W, kEpi, S> call in a C entry point over this
+// The arguments of a launch<W, S> call in a C entry point over this
 // template, named as its parameters (with `s` the stream).
 #define R2L_INT8_CHAIN_ARGS                                                 \
   pts, n, dp, L, head_q, head_m, head_b, head_inv, body_q, body_m, body_b,  \

@@ -5,8 +5,10 @@
 // forms: fold_requant=True with nobf16_inner=True, the deployed form with
 // parameters from calibrate_r2l_int8_pe(..., fold_requant=True);
 // fold_requant=True alone; fold_requant=False, where nobf16_inner has no
-// effect). The kernel, its design and its bound are in r2l_int8_hopper.cuh:
-// this file instantiates its forms, each compiled once.
+// effect), and exp/probe_epi.py::apply_variant (v1 and v2 at width 256; its
+// v0 is K2's fold_requant=False). The kernel, its design and its bound are
+// in r2l_int8_hopper.cuh: this file instantiates its forms, each compiled
+// once.
 #include "r2l_int8_hopper.cuh"
 
 using namespace r2l8h;
@@ -16,8 +18,10 @@ using namespace r2l8h;
 // and the body's (m, b) epilogue table; h0: a scratch of
 // h0_elems floats ([blocks * 128 * W], blocks padded to whole 2-block
 // clusters; none without the global residual); epilogue: r2l_int8_hopper.
-// cuh's Epi. Returns a cudaError_t: the launch's own error, or
-// cudaErrorInvalidValue for a form, width or depth the kernel does not take.
+// cuh's Epi, K2's three forms at widths 64, 128 and 256, the epilogue
+// probe's kEpiV1 and kEpiV2 at 256. Returns a cudaError_t: the launch's own
+// error, or cudaErrorInvalidValue for a form, width or depth the kernel
+// does not take.
 extern "C" int r2l_int8_hopper_launch(
     const float* pts, int n, int dp, int L, const unsigned char* staged,
     const float* head_inv, const float* body_inv, const int8_t* tail_q,
@@ -56,5 +60,9 @@ extern "C" int r2l_int8_hopper_launch(
     case kFold: return launch_width<kFold>(a, W, h0_elems, s);
     case kUnfolded: return launch_width<kUnfolded>(a, W, h0_elems, s);
   }
+  if (W == 256 && epilogue == kEpiV1)
+    return launch_as<256, kEpiV1>(a, h0_elems, s);
+  if (W == 256 && epilogue == kEpiV2)
+    return launch_as<256, kEpiV2>(a, h0_elems, s);
   return cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 // K2 on Hopper: the student's PE-fused static-scale int8 chain on wgmma s8
-// (r2l_int8_hopper.cu), and on the same kernel K4 and K8, the int8 training
+// (r2l_int8_hopper.cu); on the same kernel K4 and K8, the int8 training
 // forward with its stash (r2l_train_fwd_int8.cu; its forms are described
-// below K2's). The probes of K2's epilogue and ray streams stay on the
-// pre-Hopper template r2l_int8_chain.cuh, the design they measure.
+// below K2's), and the probe of K2's requantize epilogue (two forms,
+// described last). The probe of K2's ray streams stays on the pre-Hopper
+// template r2l_int8_chain.cuh, the design it measures.
 //
 // The function is r2l_tpu/kernels/r2l_pallas.py::_int8_pe_chain, as the
 // plain version int8_pe_chain_ref computes it, bit for bit:
@@ -94,6 +95,19 @@
 // ring has four 16 KB slots of 64 channels (Q 32 KB + H 128 KB + ring 64
 // KB = 224 KB); K8 keeps K2's layout (H bf16 64 KB, four 32 KB slots). Both
 // keep h0 in f32 in the device scratch, as K2.
+//
+// The epilogue probe (kEpiV1, kEpiV2): exp/probe_epi.py::apply_variant's v1
+// and v2 as r2l_tpu_torch/exp/probe_epi.py::apply_variant_ref computes
+// them, bit for bit, on K2's kUnfolded packing and layout. Every body
+// layer's input is quantized as clip(round(bf16(t * bf16(inv))), lo, 127),
+// t a bf16 value: the product of two bf16 values is exact in f32 and is
+// rounded once to bf16 (q8b_bf16). That is three places here: the head's
+// epilogue (block 0's first layer) and the block tail (the next block's
+// first layer), t the bf16 residual stream and lo = -127; and the inner
+// epilogue, where v1 quantizes bf16(relu(t)) with lo = -127 and v2 bf16(t)
+// with lo = 0, the ReLU folded into the clip (equal to v1 wherever the
+// inverse scales are positive). The global tail's quantize stays K2's f32
+// one. v0 of the probe is kUnfolded itself.
 #pragma once
 
 #include "hopper_ring.cuh"
@@ -105,9 +119,21 @@ using namespace hopper;
 using r2l::dequant;
 using r2l::q8;
 
-// K2's three forms, then the training forward's: K4 (int8 stash) and K8
-// (bf16 stash).
-enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2, kTrainQ = 3, kTrainB = 4 };
+// K2's three forms, the training forward's: K4 (int8 stash) and K8 (bf16
+// stash), and the epilogue probe's v1 and v2.
+enum Epi {
+  kDeployed = 0, kFold = 1, kUnfolded = 2, kTrainQ = 3, kTrainB = 4,
+  kEpiV1 = 5, kEpiV2 = 6
+};
+
+// the forms that read each body layer's inverse scale from the image
+__host__ __device__ constexpr bool image_inv(int epi) {
+  return epi == kTrainQ || epi == kTrainB;
+}
+// the epilogue probe's forms: a bf16 product before every body layer
+__host__ __device__ constexpr bool bf16_quantize(int epi) {
+  return epi == kEpiV1 || epi == kEpiV2;
+}
 
 // The ring's shape (hopper::Kind's members) at width W in form kEpi, and
 // kC, the blocks of a cluster: K4's f32 residual stream at W256 leaves room
@@ -168,7 +194,7 @@ inline void plan(Args& a) {
   a.stages = (a.kpad + a.nb * a.nl * W) / K::kKS;
   a.mb = reinterpret_cast<const float4*>(a.staged +
                                          (size_t)a.stages * a.slot_bytes);
-  if (kEpi >= kTrainQ)  // the image's inverse scales, after the table
+  if (image_inv(kEpi))  // the image's inverse scales, after the table
     a.body_inv = reinterpret_cast<const float*>(
         a.mb + (size_t)(1 + a.nb * a.nl) * (W / 2));
 }
@@ -199,6 +225,37 @@ __device__ __forceinline__ int q8b(float y) {
 // q8b(relu(y)): the ReLU is the clip's floor
 __device__ __forceinline__ int q8b_relu(float y) {
   return __float_as_int(__fadd_rn(fminf(fmaxf(y, 0.f), 127.f), 12582912.f));
+}
+// The epilogue probe's quantize of a column pair of bf16 values t with
+// their bf16 inverse scales (inv_as): the exact f32 products, rounded to
+// bf16 together (one packed conversion), then clipped to [lo, 127] (which
+// also bounds a product far beyond the int8 range, or infinite) and
+// rounded half to even as q8b, into the low bytes.
+__device__ __forceinline__ int2 q8b_bf16(float2 t, float2 inv, float lo) {
+  const float2 y = __bfloat1622float2(
+      __floats2bfloat162_rn(__fmul_rn(t.x, inv.x), __fmul_rn(t.y, inv.y)));
+  return make_int2(
+      __float_as_int(__fadd_rn(fminf(fmaxf(y.x, lo), 127.f), 12582912.f)),
+      __float_as_int(__fadd_rn(fminf(fmaxf(y.y, lo), 127.f), 12582912.f)));
+}
+// A column pair's inverse scales as form kEpi multiplies by them: the
+// epilogue probe's rounded to bf16, once a pair for both of its rows.
+template <int kEpi>
+__device__ __forceinline__ float2 inv_as(float2 inv) {
+  if constexpr (bf16_quantize(kEpi))
+    return __bfloat1622float2(__floats2bfloat162_rn(inv.x, inv.y));
+  else
+    return inv;
+}
+// A block's first-layer input, a column pair of one row: the bf16 residual
+// stream v (K4: f32) times the layer's inverse scales (inv_as), in f32, or
+// as the probe's bf16 product.
+template <int kEpi>
+__device__ __forceinline__ int2 q8_in(float2 v, float2 inv) {
+  if constexpr (bf16_quantize(kEpi))
+    return q8b_bf16(v, inv, -127.f);
+  else
+    return make_int2(q8b(__fmul_rn(v.x, inv.x)), q8b(__fmul_rn(v.y, inv.y)));
 }
 
 // Named barriers 3 and 4 between the two consumer warpgroups (0 is the
@@ -424,8 +481,8 @@ __global__ void __launch_bounds__(kWG * 3, 1)
   wg_bar(bar_id);
   const int t = lane % 4;
   each_pair<W>(a.mb, t, [&](int j, int c, float4 p) {
-    const float2 inv =
-        a.nb > 0 ? ldg2(a.body_inv + c) : make_float2(0.f, 0.f);
+    const float2 inv = inv_as<kEpi>(
+        a.nb > 0 ? ldg2(a.body_inv + c) : make_float2(0.f, 0.f));
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float x0 = fmaxf(dequant(acc[4 * j + 2 * h], p.x, p.y), 0.f);
@@ -439,9 +496,10 @@ __global__ void __launch_bounds__(kWG * 3, 1)
       else
         hs[at(h, c)] = hb;
       stashb(0, j, h, hb);
-      if (a.nb > 0)
-        putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, inv.x)),
-             q8b(__fmul_rn(hv.y, inv.y)));
+      if (a.nb > 0) {
+        const int2 q = q8_in<kEpi>(hv, inv);
+        putq(r0 + 8 * h, c, q.x, q.y);
+      }
     }
   });
   pend_row = 0;  // K4: block 0's input
@@ -474,7 +532,7 @@ __global__ void __launch_bounds__(kWG * 3, 1)
         const float* inv = a.body_inv + (size_t)(idx + 1) * W;
         each_pair<W>(mb, t, [&](int j, int c, float4 p) {
           float2 iv = make_float2(0.f, 0.f);
-          if (kEpi >= kUnfolded) iv = ldg2(inv + c);
+          if (kEpi >= kUnfolded) iv = inv_as<kEpi>(ldg2(inv + c));
 #pragma unroll
           for (int h = 0; h < 2; ++h) {  // t0, t1 before the ReLU
             const float t0 = __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y);
@@ -491,6 +549,14 @@ __global__ void __launch_bounds__(kWG * 3, 1)
             } else if (kEpi == kTrainQ) {    // f32 multiply, no bf16
               x0 = q8b(__fmul_rn(fmaxf(t0, 0.f), iv.x));
               x1 = q8b(__fmul_rn(fmaxf(t1, 0.f), iv.y));
+            } else if (bf16_quantize(kEpi)) {  // bf16 multiply; v2: the
+              const bool v2 = kEpi == kEpiV2;  // ReLU as the clip's floor
+              const int2 q = q8b_bf16(
+                  __bfloat1622float2(__floats2bfloat162_rn(
+                      v2 ? t0 : fmaxf(t0, 0.f), v2 ? t1 : fmaxf(t1, 0.f))),
+                  iv, v2 ? 0.f : -127.f);
+              x0 = q.x;
+              x1 = q.y;
             } else {                         // f32 multiply by the scale
               const __nv_bfloat162 vb =
                   __floats2bfloat162_rn(fmaxf(t0, 0.f), fmaxf(t1, 0.f));
@@ -537,12 +603,11 @@ __global__ void __launch_bounds__(kWG * 3, 1)
       if (blk + 1 < a.nb) {
         const float* inv = a.body_inv + (size_t)(blk + 1) * a.nl * W;
         each_pair<W>(mb, t, [&](int j, int c, float4 p) {
-          const float2 iv = ldg2(inv + c);
+          const float2 iv = inv_as<kEpi>(ldg2(inv + c));
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float2 hv = block_out(j, h, c, p);
-            putq(r0 + 8 * h, c, q8b(__fmul_rn(hv.x, iv.x)),
-                 q8b(__fmul_rn(hv.y, iv.y)));
+            const int2 q = q8_in<kEpi>(block_out(j, h, c, p), iv);
+            putq(r0 + 8 * h, c, q.x, q.y);
           }
         });
         pend_row = blk + 1;  // K4: the next block's input

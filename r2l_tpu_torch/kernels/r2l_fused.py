@@ -12,10 +12,11 @@ student frame, and a third is the JAX package's exported kernel API:
 * ``fused_r2l_apply_int8_pe`` (``csrc/r2l_int8_hopper.cu``): the same
   chain in static-scale int8 on wgmma s8, in ``_int8_pe_chain``'s three
   forms (``fold_requant``, ``nobf16_inner``; by default the deployed
-  ``True, True``), with parameters from ``calibrate_r2l_int8_pe``. Its
-  probes (``launch_int8_pe_chain``) stay on the pre-Hopper template
-  ``csrc/r2l_int8_chain.cuh``; the training forward K4/K8
-  (``r2l_train.train_fwd_int8``) runs on its template.
+  ``True, True``), with parameters from ``calibrate_r2l_int8_pe``. The
+  training forward K4/K8 (``r2l_train.train_fwd_int8``) and the epilogue
+  probe (``exp/probe_epi.py``) run on its template; the stream probe
+  (``launch_int8_pe_chain``) stays on the pre-Hopper template
+  ``csrc/r2l_int8_chain.cuh``.
 * ``fused_r2l_apply`` (``csrc/r2l_fused.cu``): K1's chain on an input
   encoded outside (``r2l_embed``'s per-scalar order, parameters from
   ``prepare_fused_params``), read unpadded and rounded once to the compute
@@ -774,8 +775,9 @@ def _dequant(acc: torch.Tensor, m: torch.Tensor,
 
 
 # K2's requantize epilogues by (fold_requant, nobf16_inner), each with its
-# code in csrc/r2l_int8_hopper.cuh's Epi and csrc/r2l_int8_chain.cuh's
-# (which also holds the epilogue probe's forms, exp/probe_epi.py).
+# code in csrc/r2l_int8_hopper.cuh's Epi (which also holds the epilogue
+# probe's forms, exp/probe_epi.py); csrc/r2l_int8_chain.cuh keeps
+# "deployed" alone, for the stream probe.
 EPILOGUES = {"deployed": 0, "fold": 1, "unfolded": 2}
 
 
@@ -874,14 +876,17 @@ def _check_int8_params(fp: FusedParamsInt8PE, cfg: R2LConfig,
 
 def launch_int8_pe_chain(wrapper, fp: FusedParamsInt8PE, cfg: R2LConfig,
                          pts: torch.Tensor, dim_pts: int, L: int,
-                         epilogue: int, streams: int = 1) -> torch.Tensor:
+                         streams: int = 1) -> torch.Tensor:
     """One launch of the pre-Hopper int8 chain (``csrc/r2l_int8_pe_fused.cu``
-    over ``r2l_int8_chain.cuh``: K2's probes ``probe_pipe`` and
-    ``probe_epi``) on CUDA tensors, checked here, in the form (``epilogue``,
-    the chain's Epi code; ``streams`` per 64-ray tile); counted in
+    over ``r2l_int8_chain.cuh``: K2's stream probe ``probe_pipe``) on CUDA
+    tensors, checked here: K2's deployed form (``fp`` folded) at width
+    256, with ``streams`` per 64-ray tile; counted in
     ``wrapper.launches``."""
     from . import _build
     _assert_fused_supported(cfg)
+    if cfg.netwidth != 256:
+        raise ValueError(f"the pre-Hopper int8 chain takes width 256, got "
+                         f"{cfg.netwidth}")
     dev = pts.device
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     _check_int8_params(fp, cfg, dim_pts, L, dev)
@@ -895,19 +900,21 @@ def launch_int8_pe_chain(wrapper, fp: FusedParamsInt8PE, cfg: R2LConfig,
         wrapper.launches += 1
         rc = lib.r2l_int8_pe_fused_launch(
             _ptr(pts), pts.shape[0], dim_pts, L, *(_ptr(t) for t in fp),
-            _ptr(out), cfg.netwidth, cfg.num_blocks, cfg.n_learnable,
-            out.shape[1], int(cfg.use_residual), int(cfg.linear_tail),
-            epilogue, streams, ctypes.c_void_p(stream))
+            _ptr(out), cfg.num_blocks, cfg.n_learnable, out.shape[1],
+            int(cfg.use_residual), int(cfg.linear_tail), streams,
+            ctypes.c_void_p(stream))
     _raise_on_error(rc, "r2l_int8_pe_fused")
     return out
 
 
 def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
                         pts: torch.Tensor, dim_pts: int, L: int,
-                        epilogue: int) -> torch.Tensor:
-    """One launch of K2 (``csrc/r2l_int8_hopper.cu``) on CUDA tensors,
-    checked here, with a fresh f32 h0 scratch; counted in
-    ``fused_r2l_apply_int8_pe.launches``."""
+                        epilogue: int, wrapper=None) -> torch.Tensor:
+    """One launch of K2 (``csrc/r2l_int8_hopper.cu``) on CUDA tensors in
+    the form ``epilogue`` (its Epi code), checked here, with a fresh f32
+    h0 scratch; counted in ``wrapper.launches``
+    (``fused_r2l_apply_int8_pe`` by default)."""
+    wrapper = wrapper or fused_r2l_apply_int8_pe
     from . import _build
     _assert_fused_supported(cfg)
     dev, n, W = pts.device, pts.shape[0], cfg.netwidth
@@ -929,7 +936,7 @@ def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
     lib = _build.load("r2l_int8_hopper")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fused_r2l_apply_int8_pe.launches += 1
+        wrapper.launches += 1
         rc = lib.r2l_int8_hopper_launch(
             _ptr(pts), n, dim_pts, L, _ptr(fp.staged), _ptr(fp.head_inv),
             _ptr(fp.body_inv), _ptr(fp.tail_q), _ptr(fp.tail_m),

@@ -748,7 +748,7 @@ def test_nerf_render_raises_instead_of_falling_back(dev):
 # free, f32 sums of the same exact products in another order; chained, a
 # flipped bf16 rounding propagates as in the chains (first run: 3.4e-3 at 8
 # layers).
-TOL_PROBE_SHAPES_BF16 = 1e-5
+TOL_PROBE_SHAPES_BF16, TOL_PROBE_SHAPES_BF16_RMS = 1e-5, 2e-6
 # The bf16 ResMLP control at 4 blocks: RMS relative to the largest plain
 # output. chip_smoke's input read 7.3e-5 on the card (H100, 700 W); a plain
 # version that skips the bf16 rounding of each block's t reads 8.2e-4 on
@@ -837,11 +837,66 @@ def test_one_mma_truncates_its_f32_sum(dev, k):
     the plain version on the CPU does): the products are aligned to the
     largest and truncated. This is why the chained bf16 shapes differ from
     every IEEE-ordered plain version in more rows than those differ among
-    themselves (ROADMAP C)."""
+    themselves (ROADMAP C). The result stays within k ulps of the largest
+    product of the exact sum (7.25 / 9.89 measured; a kernel that returned
+    zeros would read about 2^23), and the
+    instrument equals the plain version at the probe's first bf16 shape
+    within the free shapes' limits, so the reading is of a kernel that
+    computes the function."""
     from r2l_tpu_torch.exp import probe_shapes as PS
+    before = PS.mma_sync_sum.launches
     r = PS.mma_rounding(k, device=dev)
+    assert PS.mma_sync_sum.launches == before + 1
+    assert r["engine"] == "mma.sync"
     assert r["differ_share"] > 0.1, r
     assert r["smaller_magnitude_share"] > 0.8, r
+    assert r["max_err_in_top_ulp"] <= k, r
+    # the instrument computes the function: the probe's first shape in bf16
+    # (one tile of rows) against the plain version, as the shape kernel
+    M, K, N = PS.SHAPES[0]
+    x, w = PS.shape_inputs(M, K, N, torch.bfloat16,
+                           torch.Generator().manual_seed(7), n_tiles=1,
+                           device=dev)
+    want = PS.unchained_ref(x, w)
+    mx, rms = _deltas(PS.mma_sync_sum(x, w), want)
+    top = float(want.abs().max())
+    assert mx <= TOL_PROBE_SHAPES_BF16 * top, mx
+    assert rms <= TOL_PROBE_SHAPES_BF16_RMS * top, rms
+
+
+@pytest.mark.parametrize("k", [16, 32])
+def test_one_wgmma_truncates_its_f32_sum_as_mma_sync(dev, k):
+    """One wgmma m64n128k16 (and two in turn), read through the redesigned
+    shape kernel, rounds its f32 sum as one mma.sync does: not to nearest,
+    the products aligned to the largest and truncated, in the same rows by
+    the same amounts (H100: 33% / 50% of rows differ from the
+    round-to-nearest of the exact sum, 96% / 91% of those toward zero;
+    ROADMAP C)."""
+    from r2l_tpu_torch.exp import probe_shapes as PS
+    before = PS.unchained.launches
+    r = PS.mma_rounding(k, device=dev, engine="wgmma")
+    assert PS.unchained.launches == before + 1
+    assert r["differ_share"] > 0.1, r
+    assert r["smaller_magnitude_share"] > 0.8, r
+    assert r == {**PS.mma_rounding(k, device=dev), "engine": "wgmma"}
+
+
+def test_probe_shapes_runs_on_wgmma(dev):
+    """The shape kernel's SASS holds HGMMA and IGMMA (wgmma bf16 and s8)
+    and no mma.sync (HMMA, IMMA); the mma.sync instrument holds HMMA."""
+    import subprocess
+    from r2l_tpu_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = {}
+    for name in ("probe_shapes", "probe_mma_sync"):
+        _build.load(name)
+        sass[name] = subprocess.run(
+            [tool, "-sass", str(_build._library_path(name))], check=True,
+            capture_output=True, text=True).stdout
+    assert "HGMMA" in sass["probe_shapes"] and "IGMMA" in sass["probe_shapes"]
+    assert "HMMA" not in sass["probe_shapes"]
+    assert "IMMA" not in sass["probe_shapes"]
+    assert "HMMA" in sass["probe_mma_sync"]
 
 
 def test_probe_wrappers_raise_instead_of_falling_back(dev):
@@ -864,6 +919,14 @@ def test_probe_wrappers_raise_instead_of_falling_back(dev):
         PS.unchained(xs, ws, chained=True)
     with pytest.raises(TypeError):
         PS.unchained(xs.float(), ws)
+    img = PS.stage_shape_weights(ws, False)
+    for bad in (img._replace(data=img.data[:-16]),   # a short image
+                PS.stage_shape_weights(ws, True),    # the other form's
+                PS.stage_shape_weights(ws.clone(), False)):  # other weights
+        with pytest.raises(ValueError):
+            PS.unchained(xs, ws, staged=bad)
+    with pytest.raises(TypeError):    # the mma.sync instrument is bf16
+        PS.mma_sync_sum(xs, ws)
 
 
 # K2's probes (r2l_tpu_torch/exp/probe_{int8,wall,pipe_lib,epi}.py): the
@@ -983,6 +1046,13 @@ def test_int8_probe_wrappers_raise_instead_of_falling_back(dev):
         PL.apply_int8_pe_streams(fp, cfg, pts, 48, 10, streams=8)
     with pytest.raises(ValueError):
         PE.apply_variant(fp, cfg, pts[:, :47], 48, 10, 1)
+    # v1 runs on K2's Hopper kernel, which reads the staged s8 image only
+    unstaged = F.calibrate_r2l_int8_pe(model, cfg, 48, 10, calib,
+                                       stage=False)
+    before = PE.apply_variant.launches
+    with pytest.raises(ValueError, match="staged"):
+        PE.apply_variant(unstaged, cfg, pts, 48, 10, 1)
+    assert PE.apply_variant.launches == before
 
 
 # K5's outputs on fixed numpy inputs, as sha256 digests of (dh, dW, db), as

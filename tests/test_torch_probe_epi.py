@@ -5,6 +5,8 @@ interpret=False) on the same int8 packing: JAX's calibration carried over
 field by field (tests/_torch_parity.py::int8_params_from_jax), both
 packings (fold_requant=True, as the driver uses it, and False), small R2L
 configs (width 64 and 256, depth 6-8), 256 rays in 64-ray tiles."""
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from _torch_parity import int8_case, int8_params_from_jax, load_exp_probe, n, t
 from r2l_tpu.kernels import r2l_pallas as JP
 from r2l_tpu_torch.exp import _harness
 from r2l_tpu_torch.exp import probe_epi as P
+from r2l_tpu_torch.kernels import _build
 from r2l_tpu_torch.kernels import r2l_fused as F
 
 JE = load_exp_probe("probe_epi")
@@ -90,6 +93,35 @@ def test_bf16_quantize_rounds_the_product_as_xla():
     unrounded = np.clip(np.round(
         tt.numpy() * it.bfloat16().float().numpy()), -127, 127)
     assert np.mean(unrounded != want) > 0.02
+
+
+def _epi_enum(header: str) -> dict[str, int]:
+    """A header's ``enum Epi {...}``: name -> code."""
+    body = re.search(r"enum Epi \{([^}]*)\}",
+                     (_build.CSRC / header).read_text()).group(1)
+    return {k.strip(): int(v) for k, v in
+            (e.split("=") for e in body.split(",") if e.strip())}
+
+
+def test_epilogue_codes_name_the_hopper_forms():
+    """The codes the wrappers pass are the headers' own: each variant's is
+    K2's Hopper ``kUnfolded``, ``kEpiV1``, ``kEpiV2``; K2's three forms
+    (``EPILOGUES``) are the Hopper header's; no two forms share a code. The
+    pre-Hopper chain keeps the stream probe's deployed form alone, with no
+    form code (its entry takes none) and none of the variants' names."""
+    hop = _epi_enum("r2l_int8_hopper.cuh")
+    old = (_build.CSRC / "r2l_int8_chain.cuh").read_text() + (
+        _build.CSRC / "r2l_int8_pe_fused.cu").read_text()
+    assert P._EPI_CODE == {0: hop["kUnfolded"], 1: hop["kEpiV1"],
+                           2: hop["kEpiV2"]}
+    names = {"deployed": "kDeployed", "fold": "kFold",
+             "unfolded": "kUnfolded"}
+    assert {hop[names[k]]: k for k in names} == {
+        v: k for k, v in F.EPILOGUES.items()}
+    for name in ("enum Epi", "kEpiV1", "kEpiV2", "kDeployed",
+                 "int epilogue"):
+        assert name not in old, name
+    assert len(set(hop.values())) == len(hop)
 
 
 def test_variants_refuse_others():

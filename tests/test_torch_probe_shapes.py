@@ -4,7 +4,10 @@ pl.pallas_call with run_shape's block specs in TPU interpret mode on the
 CPU, on the probe's own inputs (jax.random from keys 0 and 1) carried over by
 weights_from_jax; the port's plain version runs on the same arrays. Each of
 main()'s shapes in both dtypes and its chained ones, cut to 2 tiles of 8 or
-32 rows and a few layers."""
+32 rows and a few layers. Then the kernel's side that a CPU can check: its
+staged weight image (the stages its ring bulk-copies, in wgmma's B layout)
+and an emulation of its sum order, held to the limits ``chip_smoke.py``
+holds the card to."""
 import functools
 
 import jax
@@ -15,9 +18,11 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import chip_smoke as cs
 from _torch_parity import load_exp_probe
 from r2l_tpu_torch.exp import probe_shapes as S
 from r2l_tpu_torch.exp.probe_mxu import weights_from_jax
+from r2l_tpu_torch.kernels.staging import stage_matrices
 
 JS = load_exp_probe("probe_shapes")
 N_TILES = 2
@@ -149,3 +154,134 @@ def test_runner_needs_a_gpu(capsys):
         S.main([])
     assert e.value.code == 1
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("chained", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_staged_weights_round_trip_in_the_rings_order(dtype, chained):
+    """``stage_shape_weights`` unpacks to w bit for bit, and its stage ``it``
+    (of CHUNK outputs by STAGE_BYTES of K) is the block the kernel takes at
+    ring step ``it``: free, chunk by chunk, each through every layer;
+    chained, layer by layer, each through every chunk. Each stage is laid
+    out as wgmma reads B: byte (n, b) at ((n // 8) * 8 + b // 16) * 128 +
+    (n % 8) * 16 + b % 16."""
+    L, N, K = 3, 256, 256 if chained else 512
+    x, w = S.shape_inputs(4, K, N, dtype, torch.Generator().manual_seed(3),
+                          n_tiles=1, n_layers=L, device="cpu")
+    es = w.element_size()
+    img = S.stage_shape_weights(w, chained)
+    staged = img.data
+    assert staged.dtype == torch.uint8 and staged.numel() == w.numel() * es
+    assert img.chained == chained
+    assert torch.equal(S.unstage_shape_weights(img), w)
+    ks, slot = S.STAGE_BYTES // es, S.CHUNK * S.STAGE_BYTES
+    nst, chunks = K // ks, N // S.CHUNK
+    assert staged.numel() == chunks * L * nst * slot
+    for it in (0, 1, nst, nst + 1, chunks * L * nst - 1):
+        st, blk = it % nst, it // nst
+        layer, chunk = (divmod(blk, chunks) if chained
+                        else divmod(blk, L)[::-1])
+        want = w[layer, chunk * S.CHUNK:(chunk + 1) * S.CHUNK,
+                 st * ks:(st + 1) * ks].contiguous()
+        got = staged[it * slot:(it + 1) * slot]
+        assert torch.equal(got, stage_matrices(want, ks))
+        n, b = 9, 17
+        assert got[((n // 8) * 8 + b // 16) * 128 + (n % 8) * 16 + b % 16] \
+            == want.view(torch.uint8)[n, b]
+
+
+@pytest.mark.parametrize("case", ["other_form", "other_weights", "stale",
+                                  "short", "bare_bytes"])
+def test_an_image_of_other_weights_or_form_is_refused(case):
+    """``check_image`` (run before every launch) takes only
+    ``stage_shape_weights(w, chained)`` of w as it is now: an image in the
+    other form's order, of other weights of the same shape, of w before an
+    in-place write, cut short, or bare bytes without the tag each raise;
+    the image itself passes."""
+    _, w = S.shape_inputs(4, 256, 256, torch.int8,
+                          torch.Generator().manual_seed(4), n_tiles=1,
+                          n_layers=2, device="cpu")
+    img = S.stage_shape_weights(w, False)
+    S.check_image(img, w, False)
+    bad = {"other_form": lambda: S.stage_shape_weights(w, True),
+           "other_weights": lambda: S.stage_shape_weights(w.clone(), False),
+           "short": lambda: img._replace(data=img.data[:-16]),
+           "bare_bytes": lambda: img.data}
+    if case == "stale":
+        got = img
+        w[0, 0, 0] += 1
+    else:
+        got = bad[case]()
+    with pytest.raises(ValueError):
+        S.check_image(got, w, False)
+
+
+def _kernel_order(x: torch.Tensor, w: torch.Tensor,
+                  chained: bool) -> torch.Tensor:
+    """``unchained``'s kernel, its sums in the kernel's order on the CPU:
+    each product's accumulator takes 16 input channels at a time (bf16:
+    one wgmma k16 step; int8: exact in any order), each part's sum exact
+    and rounded once to f32 as it is added (an IEEE rounding: the card's
+    tensor cores truncate, ROADMAP C); free, the products added to the
+    running f32 sum in layer order; chained, each layer's output cast
+    before the next; the row sums in float64."""
+    h = x
+    acc_sum = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32)
+    for i in range(w.shape[0]):
+        hd, wd = h.double(), w[i].double()
+        acc = torch.zeros((h.shape[0], wd.shape[0]), dtype=torch.float32)
+        for k0 in range(0, h.shape[1], 16):
+            acc = (acc.double() + hd[:, k0:k0 + 16]
+                   @ wd[:, k0:k0 + 16].T).float()
+        if not chained:
+            acc_sum = acc_sum + acc
+        elif x.dtype == torch.int8:    # the int32 wraps modulo 256
+            q = acc.double().long()
+            h = ((q + 128) % 256 - 128).to(torch.int8)
+        else:
+            h = acc.to(torch.bfloat16)
+    return (h if chained else acc_sum).double().sum(
+        dim=1, keepdim=True).float()
+
+
+@pytest.mark.parametrize("chained", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_kernel_sum_order_keeps_the_probes_limits(dtype, chained):
+    """The kernel's sum order (``_kernel_order``) against the plain version
+    at chip_smoke's limits: int8 bit for bit in both forms; bf16 free within
+    ``TOL_SHAPES_FREE``; bf16 chained at 4 layers within
+    ``TOL_SHAPES_CHAINED_SHALLOW`` with at most ``MAX_SHAPES_DIFFER_SHARE``
+    of the rows differing, and equal bit for bit to ``chip_smoke.
+    staged_chained_ref`` in 16-channel parts, the reference the card's
+    share of differing rows is read beside."""
+    L = cs.PROBE_SHAPES_SHALLOW if chained else 8
+    x, w = S.shape_inputs(128, 256, 256, dtype,
+                          torch.Generator().manual_seed(5), n_tiles=4,
+                          n_layers=L, device="cpu")
+    got, want = _kernel_order(x, w, chained), S.unchained_ref(x, w, chained)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+        return
+    d = (got - want).double()
+    top = float(want.abs().max())
+    rel = (float(d.abs().max()) / top, float(d.pow(2).mean().sqrt()) / top)
+    if not chained:
+        assert rel[0] <= cs.TOL_SHAPES_FREE[0], rel
+        assert rel[1] <= cs.TOL_SHAPES_FREE[1], rel
+        return
+    assert rel[0] <= cs.TOL_SHAPES_CHAINED_SHALLOW[0], rel
+    assert rel[1] <= cs.TOL_SHAPES_CHAINED_SHALLOW[1], rel
+    assert float((got != want).double().mean()) \
+        <= cs.MAX_SHAPES_DIFFER_SHARE
+    assert torch.equal(got, cs.staged_chained_ref(x, w, 16))
+
+
+def test_mma_rounding_reads_either_engine():
+    """``mma_rounding`` names its engine; on the CPU both run the plain
+    version and read the same; another engine is refused."""
+    a = S.mma_rounding(16, rows=1024, device="cpu")
+    b = S.mma_rounding(16, rows=1024, device="cpu", engine="wgmma")
+    assert (a.pop("engine"), b.pop("engine")) == ("mma.sync", "wgmma")
+    assert a == b
+    with pytest.raises(ValueError, match="engine"):
+        S.mma_rounding(16, rows=64, device="cpu", engine="hmma")
