@@ -34,10 +34,11 @@ H100 (``kernels/csrc/*.cu``) where the JAX package has a Pallas kernel:
    ``exp.probe_epi``): its ResMLP body with the requantize folded or not,
    two tiles in flight and a bf16 control; the bare product rate and a
    minimal cast; K2 with its ray tile in S streams; K2 with three requantize
-   epilogues. These run the pre-Hopper chain ``kernels/csrc/
-   r2l_int8_chain.cuh`` that they were written to measure; K2 itself runs on
-   Hopper's wgmma (``kernels/csrc/r2l_int8_hopper.cuh``) and takes the
-   reference's ``fold_requant``/``nobf16_inner`` flags.
+   epilogues. The body and wall probes run K2's pre-Hopper engine
+   (``kernels/csrc/r2l_engines.cuh``); the streams and the epilogues are
+   forms of K2's Hopper kernel (``kernels/csrc/r2l_int8_hopper.cuh``, wgmma
+   s8), which also takes the reference's ``fold_requant``/``nobf16_inner``
+   flags.
 7. The frame path's remainder and evaluation, through kernels ported above:
    the DONeRF given-rays frames and their bench (K1, K2), the teacher's
    benchmark (K6, K7), and the eval loop (``evaluate.render_path``,

@@ -16,9 +16,6 @@ timing-only ones, whose outputs are wrong by design, are not:
 
 * ``k2_cvt``: K2's epilogue with the conversion instructions (int32 to
   f32, round, f32 to int) in place of the two-add forms;
-* ``k2_lockstep``: K2's two consumer warpgroups at the same layer, not
-  half a layer apart (the ping-pong: one's products under the other's
-  epilogue);
 * ``k2_tailf32``: the block tail's residual add in f32 and a rounding, not
   one bf16 add (the same value);
 * ``k2_noepi``: without the inner layers' epilogues (timing only);
@@ -29,8 +26,6 @@ timing-only ones, whose outputs are wrong by design, are not:
   mask from device memory: compare ``k5_maskdirect``);
 * ``k5_f32regs``: pass 1 with f32 weights storing dt from each thread's
   registers, not from the whole shared-memory tile;
-* ``k5_dwscalar``: pass 2 with f32 weights on ``r2l_bwd_dw.cuh``'s scalar
-  FMAs (true f32), not 3xTF32 on wgmma;
 * ``k5_maskdirect``: pass 1 reading the stash's mask rows from device
   memory, not prefetched into shared memory;
 * ``k5_nopark``: pass 1 without parking dh in device memory between a
@@ -40,8 +35,9 @@ timing-only ones, whose outputs are wrong by design, are not:
 * ``k5_nodts``: pass 1 with bf16 weights without writing the dt scratch
   (timing only);
 * ``k48_nostash``: K4 and K8 without their stash stores (timing only);
-* ``k48_lockstep``: K4's and K8's two consumer warpgroups at the same
-  layer, not half a layer apart (as ``k2_lockstep`` for K2);
+* ``k48_lockstep``: K4's and K8's two consumer warpgroups starting each
+  layer together, not half a layer apart (K2's lockstep is the stream
+  probe's S = 1, ``probe_pipe_lib``);
 * ``k4_regstash``: K4's stash rows stored from the epilogues' registers
   (each thread's column pairs, two bytes), not by bulk stores from Q;
 * ``k8_quadstash``: K8's stash rows stored 16 bytes a thread after a
@@ -85,14 +81,9 @@ RING = "hopper_ring.cuh"
 I2F_ADDS = "  return __fsub_rn(__int_as_float(0x4B400000 + acc), 12582912.f);"
 Q8_ADDS = """  return __float_as_int(__fadd_rn(fminf(fmaxf(y, -127.f), 127.f),
                                   12582912.f));"""
-TURN_WAIT = """      // warpgroup 0 leads, 1 follows half a layer behind
-      if (wg == 1) pair_sync(3);
-      else if (idx > 0) pair_sync(4);
-"""
-TURN_PASS = "      pair_arrive(wg == 0 ? 3 : 4);"
-TURN_END = "  if (wg == 0) pair_sync(4);  // warpgroup 1's last arrival"
+LOCKSTEP = "  constexpr bool kLockstep = kEpi == kStreams1;"
 INNER_STORE = "            putq(r, c, x0, x1);"
-PE_STORE = "        put(r, p * ns + sl, q);"
+PE_STORE = "      put(r, p * ns + sl, q);"
 TAIL_ADD = ("            hn = __hadd2(__floats2bfloat162_rn(t0, t1), "
             "hs[at(h, c)]);")
 # the block tail's add in f32, then rounded to bf16
@@ -116,22 +107,7 @@ DT_REGS = "        if (!P::kStoreTile && g < a.n)"
 STORE_TILE = "  static constexpr bool kStoreTile = sizeof(T) == 4;"
 PREFETCH = "  static constexpr bool kPrefetch = sizeof(T) == 2;"
 KDB = "  static constexpr bool kDb = sizeof(T) == 4;"
-DW_TF32 = """    using D = DwTf32Shape<W>;
-    auto kern = bwd_dw_tf32_kernel<S, W>;
-    if ((err = cudaFuncSetAttribute(
-             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, D::kSmem)) !=
-        cudaSuccess)
-      return err;
-    const int grid = (W / D::BN) * (W / D::BM) * 2 * cnt * splits;
-    kern<<<grid, D::kThreads, D::kSmem, stream>>>(
-        static_cast<const float*>(dts), static_cast<const S*>(stash_h),
-        static_cast<const S*>(stash_t), part, n, cnt, rays_per_split);"""
-# the f32 weights' pass 2 before 3xTF32: r2l_bwd_dw.cuh's scalar FMAs
-DW_SCALAR = """    const int grid = (W / 64) * (W / 64) * 2 * cnt * splits;
-    r2l::bwd::bwd_dw_f32_kernel<S><<<grid, r2l::kThreads, 0, stream>>>(
-        static_cast<const float*>(dts), static_cast<const S*>(stash_h),
-        static_cast<const S*>(stash_t), part, n, W, cnt, rays_per_split);"""
-F32_ONLY = ("k5_f32regs", "k5_dwscalar")   # variants of f32 weights' code
+F32_ONLY = ("k5_f32regs",)   # variants of f32 weights' code
 STASH_Q = ("        *static_cast<uint16_t*>(p) = (uint16_t)__byte_perm(x0, "
            "x1, 0x0040);")
 STASH_B = """      if (void* p = stash_at(row, r0 + 8 * h, 8 * j + 2 * (lane % 4)))
@@ -171,11 +147,9 @@ K4_SLOTS = "  static constexpr int kStages = 4, kParts = 1;"
 VARIANTS = {
     "k2_cvt": ([(K2, I2F_ADDS, "  return __int2float_rn(acc);"),
                 (K2, Q8_ADDS, "  return (int)r2l::q8(y);")], "k2", True),
-    "k2_lockstep": ([(K2, TURN_WAIT, ""), (K2, TURN_PASS, ""),
-                     (K2, TURN_END, "")], "k2", True),
     "k2_tailf32": ([(K2, TAIL_ADD, TAIL_ADD_F32)], "k2", True),
     "k2_noepi": ([(K2, INNER_STORE, "")], "k2", False),
-    "k2_nope": ([(K2, PE_STORE, "        (void)q;")], "k2", False),
+    "k2_nope": ([(K2, PE_STORE, "      (void)q;")], "k2", False),
     "k2_nomma": ([(K2, INNER_STORE, ""), (RING, MMA_S8, "        {}")], "k2",
                  False),
     # with the mask read from device memory: the column sums' buffer and
@@ -194,7 +168,6 @@ VARIANTS = {
     "k5_f32regs": ([(K5, STORE_TILE, STORE_TILE.replace("sizeof(T) == 4",
                                                          "false"))],
                    "k5", True),
-    "k5_dwscalar": ([(K5, DW_TF32, DW_SCALAR)], "k5", True),
     "k5_maskdirect": ([(K5, PREFETCH, PREFETCH.replace("sizeof(T) == 2",
                                                        "false"))], "k5",
                       True),
@@ -205,8 +178,8 @@ VARIANTS = {
                      (K2, STASH_B, ""),
                      (K2, K4_BULK, "      if (false) {")], "k48", False),
     "k4_regstash": (K4_REG_STASH, "k48", True),
-    "k48_lockstep": ([(K2, TURN_WAIT, ""), (K2, TURN_PASS, ""),
-                      (K2, TURN_END, "")], "k48", True),
+    "k48_lockstep": ([(K2, LOCKSTEP, LOCKSTEP.replace(
+        "kEpi == kStreams1", "true"))], "k48", True),
     "k8_quadstash": ([(K2, STASH_B, STASH_B_QUAD),
                       (K2, STASHB_DECL,
                        "  uint32_t sb[2][4];\n" + STASHB_DECL)], "k48", True),

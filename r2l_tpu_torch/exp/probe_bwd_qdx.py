@@ -10,12 +10,16 @@ folded into block tails) and the gradient g at its output,
   u_q = clip(round_half_even(u * s), -127, 127);
   dx = (u_q @ q^T in int32) * ((1 / body_inv) / s).
 fc2's dx quantizes the raw f32 dh (m holds the res_scale), fc1's the
-masked f32 ``dt1r``; dW and db stay bf16 products over the stash, on the
-passes K5 ran before it moved to Hopper's wgmma (``r2l_bwd_dw.cuh``); the
-``bf16`` walk it is compared with runs K5 as it is now. The tile (512
-rays) is a numerical parameter: another tile computes another function. The hand-written CUDA kernel (``kernels/csrc/r2l_bwd_qdx.cu``)
-makes a 512-ray tile a cluster of eight 64-ray blocks that combine their
-maxima through distributed shared memory.
+masked f32 ``dt1r``; dW and db stay bf16 products over the stash, on K5's
+own Hopper passes; the ``bf16`` walk it is compared with runs K5 whole.
+The tile (512 rays) is a numerical parameter: another tile computes another
+function. The hand-written CUDA kernel (``kernels/csrc/r2l_bwd_qdx.cu``)
+is K5's Hopper dh walk with both dx products on wgmma s8, reading each
+layer's q^T from an image staged once per calibration
+(``r2l_train.stage_qdx_weights``, passed as ``staged=``); a tile is one
+64-ray warpgroup (64 rays), a block (128), a 2-block cluster (256) or a
+4-block cluster (512), whose warps combine their maxima through
+distributed shared memory (``tile_members``).
 
 The probe's dequantize is a fault of the reference, computed here as
 there (ROADMAP C): the calibration packs w[i, j] ~ q[i, j] m[j] body_inv[i],
@@ -29,10 +33,12 @@ size: the canonical bf16 student (W256, 43 blocks), 81,920 random points,
 the int8 calibration of 4 poses through a 32x32 ``PointSampler``
 (``fold_requant=False``, as the probe calls JAX's default), K4's stash,
 dh0 = N(0, 1) * 1e-3, and groups of 4 blocks top-down (10 calls of 4 and
-one of 3). It records the cosine of dh and the smallest cosine of a dW
-group of the ``qdx`` walk against the ``bf16`` walk (K5), and each walk's
-ms (CUDA events, one warm-up, the min of 3 calls of 20 walks), beside the
-card's name and power limit. JAX's draws (``jax.random.key(0/4/7)``)
+one of 3). It stages each walk's weight image once (``stage_image``,
+its ms recorded apart, ``r3_qdx_stage``), and records the cosine of dh and
+the smallest cosine of a dW group of the ``qdx`` walk against the ``bf16``
+walk (K5), and each walk's ms on its staged image (CUDA events, one
+warm-up, the min of 3 calls of 20 walks), beside the card's name and power
+limit. JAX's draws (``jax.random.key(0/4/7)``)
 cannot be reproduced in torch: the weights, points and dh0 come from torch
 generators seeded 0, 4 and 7, so the cosines are those of other random
 draws of the same distributions.
@@ -48,6 +54,7 @@ tensors it launches the kernel or raises, and counts the launch in
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import numpy as np
 import torch
@@ -58,7 +65,7 @@ from ..kernels.r2l_fused import (FusedParamsInt8PE, _check, _dequant, _ptr,
                                   stage_int8_train)
 from ..kernels.r2l_train import (_group_inputs, _stream, bwd_group,
                                  dw_splits, stage_bwd_weights,
-                                 train_fwd_int8)
+                                 stage_qdx_weights, train_fwd_int8)
 from ..models.r2l import R2LConfig, init_r2l
 from ..rays import pose_spherical
 from ..sampler import PointSampler
@@ -70,8 +77,7 @@ TILE = 512       # rays per quantization scale
 GB = 4           # blocks per call
 DIM_PTS, L = 48, 10
 N_WALKS, REPS = 20, 3   # walks per timed call, timed calls
-KERNEL_TILE = 64        # rays per block of the kernel; a tile is a cluster
-MAX_CLUSTER = 8         # blocks per cluster (the portable limit)
+KERNEL_TILES = (64, 128, 256, 512)   # the kernel's tiles (tile_members)
 _LAUNCH_OUT_OF_RESOURCES = 701   # cudaErrorLaunchOutOfResources
 
 
@@ -79,6 +85,29 @@ def _check_tile(n: int, tile: int) -> None:
     if tile <= 0 or n % tile:
         raise ValueError(f"{n} rays are not a whole number of {tile}-ray "
                          "tiles")
+
+
+def tile_members(n: int, tile: int) -> list[dict]:
+    """The kernel's ray tiles over n rays (``csrc/r2l_bwd_qdx.cu``): a block
+    of 128 rays is two 64-ray warpgroups, warpgroup w rays [64 w, 64 w +
+    64); tile i is warpgroups [G i, G i + G), G = tile / 64, in the cluster
+    of blocks [C c, C c + C), C = max(2, tile / 128) (the grid padded to
+    whole clusters). -> per tile: 'rays' (first, end), 'warpgroups',
+    'blocks', 'cluster' (the cluster's blocks)."""
+    if tile not in KERNEL_TILES:
+        raise ValueError(f"the kernel takes a tile of {KERNEL_TILES} rays, "
+                         f"got {tile}")
+    _check_tile(n, tile)
+    G, C = tile // 64, max(2, tile // 128)
+    out = []
+    for i in range(n // tile):
+        wgs = list(range(G * i, G * (i + 1)))
+        blocks = sorted({w // 2 for w in wgs})
+        c = blocks[0] // C
+        out.append({"rays": (64 * wgs[0], 64 * wgs[-1] + 64),
+                    "warpgroups": wgs, "blocks": blocks,
+                    "cluster": list(range(C * c, C * c + C))})
+    return out
 
 
 def _qdx(g: torch.Tensor, m: torch.Tensor, q: torch.Tensor,
@@ -99,10 +128,12 @@ def bwd_group_qdx_ref(body_w: torch.Tensor, body_q: torch.Tensor,
                       dh: torch.Tensor, cfg: R2LConfig, b_start: int,
                       b_count: int, tile: int = TILE,
                       body_scale: torch.Tensor | None = None,
-                      dts: torch.Tensor | None = None
+                      dts: torch.Tensor | None = None,
+                      staged: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``bwd_group_qdx`` (``exp/probe_bwd_qdx.py:96-141``
-    written out): shapes and arguments as ``bwd_group_qdx``."""
+    written out): shapes and arguments as ``bwd_group_qdx``; ``staged`` is
+    not read."""
     if body_scale is None:
         raise ValueError("the qdx probe walks the int8 stash: pass "
                          "body_scale (1/body_inv)")
@@ -137,7 +168,8 @@ def bwd_group_qdx(body_w: torch.Tensor, body_q: torch.Tensor,
                   dh: torch.Tensor, cfg: R2LConfig, b_start: int,
                   b_count: int, tile: int = TILE,
                   body_scale: torch.Tensor | None = None,
-                  dts: torch.Tensor | None = None
+                  dts: torch.Tensor | None = None,
+                  staged: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward through blocks [b_start, b_start+b_count) with int8 dx
     products: body_w [2nb, W, W] bf16 (its dtype is the compute dtype; the
@@ -148,8 +180,10 @@ def bwd_group_qdx(body_w: torch.Tensor, body_q: torch.Tensor,
     number of tiles -> (dh [N, W] f32, dW [2b_count, W, W] ``[out, in]``
     f32, db [2b_count, W] f32). ``dts``, optional [2b_count, N, W] bf16,
     receives each layer's output gradient (dt2, dt1), the kernel's scratch.
-    Deterministic. CPU tensors take the plain version; on the card the tile
-    is 64 to 512 rays, a multiple of 64."""
+    ``staged`` is ``stage_qdx_weights(body_q)``, made once per calibration
+    by the caller that walks every group; on the card it is required (a
+    call without it raises). Deterministic. CPU tensors take the plain
+    version; on the card the tile is one of ``KERNEL_TILES``."""
     if dh.device.type == "cpu":
         return bwd_group_qdx_ref(body_w, body_q, body_m, stash, dh, cfg,
                                  b_start, b_count, tile, body_scale, dts)
@@ -159,10 +193,9 @@ def bwd_group_qdx(body_w: torch.Tensor, body_q: torch.Tensor,
                          "body_scale (1/body_inv)")
     dev, W, nb, n = dh.device, cfg.netwidth, cfg.num_blocks, dh.shape[0]
     _check_tile(n, tile)
-    if tile % KERNEL_TILE or tile // KERNEL_TILE > MAX_CLUSTER:
-        raise ValueError(f"the kernel takes a tile of {KERNEL_TILE} to "
-                         f"{KERNEL_TILE * MAX_CLUSTER} rays, a multiple of "
-                         f"{KERNEL_TILE}; got {tile}")
+    if tile not in KERNEL_TILES:
+        raise ValueError(f"the kernel takes a tile of {KERNEL_TILES} rays, "
+                         f"got {tile}")
     if not (0 <= b_start and b_count >= 1 and b_start + b_count <= nb):
         raise ValueError(f"blocks [{b_start}, {b_start + b_count}) outside "
                          f"[0, {nb})")
@@ -179,11 +212,15 @@ def bwd_group_qdx(body_w: torch.Tensor, body_q: torch.Tensor,
     if dts is None:
         dts = torch.empty((hi - lo, n, W), dtype=bf, device=dev)
     _check(dts, "dts", bf, (hi - lo, n, W), dev)
-    q_t = body_q[lo:hi].transpose(1, 2).contiguous()
+    if staged is None:
+        raise ValueError("the kernel reads its weights from the "
+                         "calibration's image: pass "
+                         "staged=stage_qdx_weights(body_q)")
+    _check(staged, "staged", torch.uint8, (2 * nb * W * W,), dev)
     m = body_m[lo:hi].contiguous()
     scale = body_scale[lo:hi].contiguous()
     splits = dw_splits(n)
-    dbp = torch.empty((n // KERNEL_TILE, hi - lo, W), dtype=f32, device=dev)
+    dbp = torch.empty((splits, hi - lo, W), dtype=f32, device=dev)
     part = torch.empty((splits, hi - lo, W, W), dtype=f32, device=dev)
     dh_out = torch.empty((n, W), dtype=f32, device=dev)
     dw = torch.empty((hi - lo, W, W), dtype=f32, device=dev)
@@ -192,14 +229,15 @@ def bwd_group_qdx(body_w: torch.Tensor, body_q: torch.Tensor,
     with torch.cuda.device(dev):
         bwd_group_qdx.launches += 1
         rc = lib.r2l_bwd_qdx_launch(
-            _ptr(q_t), _ptr(m), _ptr(stash[b_start]),
+            ctypes.c_void_p(staged.data_ptr() + lo * W * W), _ptr(m),
+            _ptr(stash[b_start]),
             _ptr(stash[nb + 1 + b_start]), _ptr(scale), _ptr(dh),
             _ptr(dh_out), _ptr(dts), _ptr(dbp), _ptr(part), _ptr(dw),
             _ptr(db), n, W, b_count, float(cfg.res_scale), tile, splits,
             _stream(dev))
     if rc == _LAUNCH_OUT_OF_RESOURCES:
         raise RuntimeError(
-            f"r2l_bwd_qdx: a cluster of {tile // KERNEL_TILE} blocks cannot "
+            f"r2l_bwd_qdx: a cluster of {max(2, tile // 128)} blocks cannot "
             f"be scheduled at the kernel's shared-memory footprint on "
             f"{torch.cuda.get_device_name(dev)}")
     _raise_on_error(rc, "r2l_bwd_qdx")
@@ -211,16 +249,19 @@ bwd_group_qdx.launches = 0
 
 def walk(variant: str, cfg: R2LConfig, body_w: torch.Tensor,
          fp: FusedParamsInt8PE, stash: torch.Tensor, dh0: torch.Tensor,
-         gb: int = GB, tile: int = TILE
+         gb: int = GB, tile: int = TILE, staged: torch.Tensor | None = None
          ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """The whole top-down group walk (``exp/probe_bwd_qdx.py::walk``): K5
     (``bf16``) or ``bwd_group_qdx`` (``qdx``) on every group of ``gb``
-    blocks -> (dh at the body's input, the groups' dW, top group first)."""
+    blocks -> (dh at the body's input, the groups' dW, top group first).
+    ``staged``: the variant's weight image (``stage_image``), staged here
+    when None."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
     body_scale = 1.0 / fp.body_inv
-    staged = stage_bwd_weights(body_w) if variant != "qdx" else None
+    if staged is None:
+        staged = stage_image(variant, body_w, fp)
     dh, dws, b = dh0, [], cfg.num_blocks
     while b > 0:
         cnt = min(gb, b)
@@ -228,12 +269,20 @@ def walk(variant: str, cfg: R2LConfig, body_w: torch.Tensor,
         if variant == "qdx":
             dh, dw_g, _ = bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash,
                                         dh, cfg, b, cnt, tile=tile,
-                                        body_scale=body_scale)
+                                        body_scale=body_scale, staged=staged)
         else:
             dh, dw_g, _ = bwd_group(body_w, stash, dh, cfg, b, cnt,
                                     body_scale=body_scale, staged=staged)
         dws.append(dw_g)
     return dh, dws
+
+
+def stage_image(variant: str, body_w: torch.Tensor,
+                fp: FusedParamsInt8PE) -> torch.Tensor:
+    """A variant's weight image, made once per weights: K5's of body_w
+    (``bf16``), the probe's of the calibration's body_q (``qdx``)."""
+    return (stage_qdx_weights(fp.body_q) if variant == "qdx"
+            else stage_bwd_weights(body_w))
 
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -293,9 +342,21 @@ def main(argv=None) -> list[dict]:
     recs = [log({**_harness.device_record(), "probe": "bwd_qdx"})]
     cfg, body_w, fp, stash, dh0 = setup(dev)
     n = dh0.shape[0]
+    images, stage_ms = {}, {}
+    for variant in VARIANTS:   # each image once per weights, timed apart
+        stage_image(variant, body_w, fp)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        images[variant] = stage_image(variant, body_w, fp)
+        end.record()
+        torch.cuda.synchronize()
+        stage_ms[variant] = start.elapsed_time(end)
+    recs.append(log({"name": "r3_qdx_stage", **{
+        f"{v}_ms": stage_ms[v] for v in VARIANTS}}))
 
     def run(variant):
-        return walk(variant, cfg, body_w, fp, stash, dh0, GB, TILE)
+        return walk(variant, cfg, body_w, fp, stash, dh0, GB, TILE,
+                    images[variant])
 
     dh_b, dws_b = run("bf16")
     dh_q, dws_q = run("qdx")

@@ -5,8 +5,8 @@ Port of ``exp/probe_pipe.py``'s driver. The canonical W256/D88 student
 (random weights from a seeded generator), calibrated in int8 with the
 folded requantize on 8 of 16 lego poses at 1/8 resolution; first a check
 that ``apply_int8_pe_streams`` at S = 2 and 4 equals K2 on 4,096 rays of
-pose 0 (bit for bit, where JAX allowed 1e-5); then ``control`` (S = 1, the
-pre-Hopper chain the streams split) and ``streams2``, ``streams4`` over the
+pose 0 (bit for bit, where JAX allowed 1e-5); then ``control`` (S = 1, K2
+in lockstep) and ``streams2`` (K2 itself), ``streams4`` over the
 16 400x400 lego frames, each frame
 ``sample_test`` -> the variant -> its sum, the min of 5 calls. The JAX
 probe's tiles (800, 1024, 1600, 2048) are TPU scheduling and are not

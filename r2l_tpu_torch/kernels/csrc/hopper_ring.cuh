@@ -10,7 +10,9 @@
 // ring's stages: each producer copies 1/kC of every stage into all of them
 // (.multicast::cluster), so a stage is read from L2 once per cluster; a slot
 // is refilled when the consumers of every block released it (remote mbarrier
-// arrives). Consumer warpgroups run wgmma on the slots: bf16 m64nNk16 and
+// arrives); a ring may also be shared by a pair of the cluster's blocks
+// only (Ring::base, the int8-dL/dx probe's 4-block clusters). Consumer
+// warpgroups run wgmma on the slots: bf16 m64nNk16 and
 // int8 m64nNk32 with both operands in shared memory; f32 as 3xTF32
 // (a_hi w_lo + a_lo w_hi + a_hi w_hi, summed in f32 by wgmma m64nNk8 tf32
 // with A split in registers, the stage holding w_hi then w_lo). A stalled
@@ -106,15 +108,18 @@ __device__ __forceinline__ void bar_arrive_cta(uint32_t bar, uint32_t cta) {
       "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
       "r"(cta) : "memory");
 }
-// Copy `bytes` from global src to dst in every block of a kC-block cluster;
-// each block's barrier at `bar` counts the bytes that land in it.
+// Copy `bytes` from global src to dst in the kC blocks of the cluster from
+// block `base` on; each block's barrier at `bar` counts the bytes that land
+// in it.
 template <int kC>
 __device__ __forceinline__ void bulk_copy_all(uint32_t dst, const void* src,
-                                              int bytes, uint32_t bar) {
+                                              int bytes, uint32_t bar,
+                                              uint32_t base = 0) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
       ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"((uint16_t)((1 << kC) - 1))
+      "l"(src), "r"(bytes), "r"(bar),
+      "h"((uint16_t)(((1 << kC) - 1) << base))
       : "memory");
 }
 __device__ __forceinline__ void wg_bar(int id) {
@@ -166,10 +171,12 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 
 // ---- the weight ring -----------------------------------------------------
 
-// The ring's slots and barriers in this block's shared memory.
+// The ring's slots and barriers in this block's shared memory, and the
+// first of the kC blocks that share it (0: the whole cluster's ring).
 struct Ring {
   uint32_t slots, full, empty;  // shared addresses
   int slot_bytes;
+  uint32_t base = 0;
 };
 
 // Initialise the ring's barriers (thread 0 of the block): a full barrier
@@ -186,27 +193,29 @@ __device__ __forceinline__ void ring_init(const Ring& ring) {
 }
 
 // The producer's step `it`: wait until slot it % kStages is free, then copy
-// this block's 1/kC of the stage of `bytes` at src into every block of the
-// cluster.
+// this block's 1/kC of the stage of `bytes` at src into every block that
+// shares the ring (`rank`: this block's in the cluster).
 template <typename T, int kC, typename K = Kind<T>>
 __device__ __forceinline__ void fill(const Ring& ring, int it,
                                      const unsigned char* src, int bytes,
                                      uint32_t rank) {
   const int slot = it % K::kStages, ph = (it / K::kStages) & 1;
-  const int part = bytes / kC;
+  const int part = bytes / kC, off = (int)(rank - ring.base) * part;
   bar_wait(ring.empty + 8 * slot, ph ^ 1);
   bar_expect_tx(ring.full + 8 * slot, bytes);
-  bulk_copy_all<kC>(ring.slots + slot * ring.slot_bytes + rank * part,
-                    src + rank * part, part, ring.full + 8 * slot);
+  bulk_copy_all<kC>(ring.slots + slot * ring.slot_bytes + off, src + off,
+                    part, ring.full + 8 * slot, ring.base);
 }
 
-// Release a slot to every block's producer (one thread of the warpgroup).
+// Release a slot to the producer of every block that shares the ring (one
+// thread of the warpgroup).
 template <int kC>
 __device__ __forceinline__ void release(const Ring& ring, int slot,
                                         int wtid) {
   if (wtid == 0) {
 #pragma unroll
-    for (int c = 0; c < kC; ++c) bar_arrive_cta(ring.empty + 8 * slot, c);
+    for (int c = 0; c < kC; ++c)
+      bar_arrive_cta(ring.empty + 8 * slot, ring.base + c);
   }
 }
 
@@ -538,11 +547,24 @@ inline cudaError_t tile_map(CUtensorMap* map, void* base, int n, int W,
 
 // ---- the launch ----------------------------------------------------------
 
+// The registers a thread of the producer and of a consumer warpgroup hold
+// after setmaxnreg: K::kProducerRegs and K::kConsumerRegs where the ring
+// shape K names them, else 40 and 232 (two consumer warpgroups).
+template <typename K, typename = void>
+struct Regs {
+  static constexpr int kProducer = 40, kConsumer = 232;
+};
+template <typename K>
+struct Regs<K, std::void_t<decltype(K::kConsumerRegs)>> {
+  static constexpr int kProducer = K::kProducerRegs;
+  static constexpr int kConsumer = K::kConsumerRegs;
+};
+
 // Launch `kern` over `blocks` blocks (padded to whole kC-block clusters) of
 // kWG * (kWGs + 1) threads and `smem` bytes, after checking what would keep
-// it from ever running: with two consumer warpgroups setmaxnreg moves
-// registers within the block's allocation (the producer gives up 128 *
-// (regs - 40), the consumers take 128 * (232 - regs) each), and a cluster
+// it from ever running: setmaxnreg moves registers within the block's
+// allocation (the producer gives up 128 * (regs - Regs<K>::kProducer), the
+// consumers take 128 * (Regs<K>::kConsumer - regs) each), and a cluster
 // that cannot be resident at this footprint would never be scheduled.
 // `more` are the kernel's parameters after `a`.
 template <typename T, int kC, typename K = Kind<T>, typename Kern,
@@ -566,7 +588,8 @@ cudaError_t launch_cluster(Kern kern, const Args& a, int blocks, int smem,
   cfg.numAttrs = 1;
   cudaFuncAttributes fa;
   if ((err = cudaFuncGetAttributes(&fa, kern)) != cudaSuccess) return err;
-  if (fa.numRegs * (int)cfg.blockDim.x < kWG * (40 + 232 * K::kWGs))
+  if (fa.numRegs * (int)cfg.blockDim.x <
+      kWG * (Regs<K>::kProducer + Regs<K>::kConsumer * K::kWGs))
     return cudaErrorLaunchOutOfResources;
   int clusters = 0;
   if ((err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg)) !=

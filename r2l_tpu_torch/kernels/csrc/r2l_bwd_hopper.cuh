@@ -1,5 +1,6 @@
 // K5 on Hopper: the dh walk (pass 1) on the student's Hopper skeleton, and
-// the dW pass (pass 2) on wgmma for bf16 weights (r2l_bwd_group.cu).
+// the dW pass (pass 2) on wgmma for bf16 weights (r2l_bwd_group.cu); passes
+// 2 and 3 also serve K5's int8-dL/dx probe (r2l_bwd_qdx.cu).
 //
 // Pass 1, per ray, for blocks b_start+cnt-1 .. b_start, top-down:
 //   dt2 = (dh * res_scale).cast(cd)
@@ -41,7 +42,7 @@
 // 3xTF32 on wgmma (bwd_dw_tf32_kernel below: TF32 reads both operands
 // K-major, so the stash is transposed on its way into shared memory) and
 // keep pass 1's db. The splits' (or tiles') partials of dW and db are then
-// summed in a fixed order (r2l_bwd_dw.cuh's pass 3), so two runs give
+// summed in a fixed order (pass 3, sum_parts), so two runs give
 // bit-identical outputs. Measured on an H100 (PERF.md): the bf16 pass is
 // bound by its loads (no faster without its products); TMA took it from
 // 0.56 ms to 0.24 a 4-block call against cp.async of 16-byte pieces; the
@@ -51,7 +52,6 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
-#include "r2l_bwd_dw.cuh"
 #include "r2l_hopper.cuh"
 
 namespace r2lbh {
@@ -741,6 +741,26 @@ inline cudaError_t box_map(CUtensorMap* map, const void* base, int n, int W,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Pass 3: out[j] = sum over p of in[p][j], p in order.
+__global__ void sum_parts_kernel(const float* __restrict__ in,
+                                 float* __restrict__ out, int parts,
+                                 size_t m) {
+  for (size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x; j < m;
+       j += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < parts; ++p) s = __fadd_rn(s, in[(size_t)p * m + j]);
+    out[j] = s;
+  }
+}
+
+inline cudaError_t sum_parts(const float* in, float* out, int parts,
+                             size_t m, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  const int grid = (int)((m + kThreads - 1) / kThreads);
+  sum_parts_kernel<<<grid, kThreads, 0, stream>>>(in, out, parts, m);
+  return cudaGetLastError();
+}
+
 // Passes 2 and 3 after pass 1: dW [2cnt][W][W] and db [2cnt][W] through the
 // partials `part` ([splits][2cnt][W][W]) and `dbp` (pass 1's ntiles for
 // f32 weights, else pass 2's splits).
@@ -788,10 +808,10 @@ cudaError_t dw_passes(const void* dts, const void* stash_h,
         n, cnt, rps);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = r2l::bwd::sum_parts(part, dw, splits, (size_t)2 * cnt * W * W,
+  if ((err = sum_parts(part, dw, splits, (size_t)2 * cnt * W * W,
                                  stream)) != cudaSuccess)
     return err;
-  return r2l::bwd::sum_parts(dbp, db, sizeof(T) == 4 ? ntiles : splits,
+  return sum_parts(dbp, db, sizeof(T) == 4 ? ntiles : splits,
                              (size_t)2 * cnt * W, stream);
 }
 

@@ -5,9 +5,11 @@
 // forms: fold_requant=True with nobf16_inner=True, the deployed form with
 // parameters from calibrate_r2l_int8_pe(..., fold_requant=True);
 // fold_requant=True alone; fold_requant=False, where nobf16_inner has no
-// effect), and exp/probe_epi.py::apply_variant (v1 and v2 at width 256; its
-// v0 is K2's fold_requant=False). The kernel, its design and its bound are
-// in r2l_int8_hopper.cuh: this file instantiates its forms, each compiled
+// effect), exp/probe_epi.py::apply_variant (v1 and v2 at width 256; its
+// v0 is K2's fold_requant=False), and exp/probe_pipe_lib.py::
+// apply_int8_pe_streams (S = 1 and 4 at width 256; its S = 2 is K2's
+// deployed form). The kernels, their design and their bound are in
+// r2l_int8_hopper.cuh: this file instantiates their forms, each compiled
 // once.
 #include "r2l_int8_hopper.cuh"
 
@@ -19,7 +21,9 @@ using namespace r2l8h;
 // h0_elems floats ([blocks * 128 * W], blocks padded to whole 2-block
 // clusters; none without the global residual); epilogue: r2l_int8_hopper.
 // cuh's Epi, K2's three forms at widths 64, 128 and 256, the epilogue
-// probe's kEpiV1 and kEpiV2 at 256. Returns a cudaError_t: the launch's own
+// probe's kEpiV1 and kEpiV2 and the stream probe's kStreams1 and kStreams4
+// at 256 (kStreams4 needs the h0 scratch, [blocks * 256 * W], with or
+// without the global residual). Returns a cudaError_t: the launch's own
 // error, or cudaErrorInvalidValue for a form, width or depth the kernel
 // does not take.
 extern "C" int r2l_int8_hopper_launch(
@@ -64,5 +68,9 @@ extern "C" int r2l_int8_hopper_launch(
     return launch_as<256, kEpiV1>(a, h0_elems, s);
   if (W == 256 && epilogue == kEpiV2)
     return launch_as<256, kEpiV2>(a, h0_elems, s);
+  if (W == 256 && epilogue == kStreams1)
+    return launch_as<256, kStreams1>(a, h0_elems, s);
+  if (W == 256 && epilogue == kStreams4)
+    return launch_as<256, kStreams4>(a, h0_elems, s);
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,8 @@
 // K2 on Hopper: the student's PE-fused static-scale int8 chain on wgmma s8
 // (r2l_int8_hopper.cu); on the same kernel K4 and K8, the int8 training
 // forward with its stash (r2l_train_fwd_int8.cu; its forms are described
-// below K2's), and the probe of K2's requantize epilogue (two forms,
-// described last). The probe of K2's ray streams stays on the pre-Hopper
-// template r2l_int8_chain.cuh, the design it measures.
+// below K2's), the probe of K2's requantize epilogue (two forms), and the
+// probe of its ray streams (two schedules beside K2's own), described last.
 //
 // The function is r2l_tpu/kernels/r2l_pallas.py::_int8_pe_chain, as the
 // plain version int8_pe_chain_ref computes it, bit for bit:
@@ -108,6 +107,35 @@
 // with lo = 0, the ReLU folded into the clip (equal to v1 wherever the
 // inverse scales are positive). The global tail's quantize stays K2's f32
 // one. v0 of the probe is kUnfolded itself.
+//
+// The stream probe (kStreams1, kStreams4): exp/probe_pipe_lib.py::
+// apply_int8_pe_streams, K2's deployed form with each ray tile split into S
+// streams whose products are issued before any of their epilogues runs, as
+// schedules of K2's consumer warpgroups, 64 rays each: rows never mix, so
+// every S gives K2's output bit for bit, on K2's image (stage_int8_chain).
+//   * S = 2 is K2's ping-pong itself (kDeployed): one warpgroup's products
+//     under the other's epilogue.
+//   * S = 1 (kStreams1), the control: K2 in lockstep, both warpgroups
+//     starting each layer's products together (a named barrier) and so
+//     running their epilogues together; K2 before its ping-pong. Built so
+//     rather than as one warpgroup a block, which would also halve the rays
+//     each weight stage serves: the interleave is then the only difference.
+//   * S = 4 (kStreams4): four consumer warpgroups a block (256 rays), each a
+//     turn behind the one before it (warpgroup k starts its products when
+//     k - 1's are done, 0 when 3's are). Shared memory at W256: Q 64 KB
+//     and H 128 KB leave room for a ring of two 16 KB slots only. Registers:
+//     five warpgroups leave a consumer 112 after setmaxnreg (the producer
+//     keeps 24), under the 128 of an m64n256 s32 accumulator, so each layer
+//     is two products of W/2 outputs (m64n128k32, 64 registers), each with
+//     its own turn and epilogue. A product reads the half of K2's image
+//     stages that holds its outputs (a stage's rows are its outputs, eight
+//     to a core-matrix row outermost, so each half is 16 KB of whole rows
+//     and a slot): the same image, in another order. The first half's int8
+//     outputs wait in 16 registers until the second half's product has
+//     read Q. The head is halved the same way: half 0 over every slice, its
+//     h0 parked in the device scratch (always allocated for this form), then
+//     half 1 from the last slice back (the last one still in Q | H), after
+//     which both halves' H and block 0's input are formed.
 #pragma once
 
 #include "hopper_ring.cuh"
@@ -120,11 +148,17 @@ using r2l::dequant;
 using r2l::q8;
 
 // K2's three forms, the training forward's: K4 (int8 stash) and K8 (bf16
-// stash), and the epilogue probe's v1 and v2.
+// stash), the epilogue probe's v1 and v2, and the stream probe's S = 1 and
+// S = 4 (its S = 2 is kDeployed).
 enum Epi {
   kDeployed = 0, kFold = 1, kUnfolded = 2, kTrainQ = 3, kTrainB = 4,
-  kEpiV1 = 5, kEpiV2 = 6
+  kEpiV1 = 5, kEpiV2 = 6, kStreams1 = 7, kStreams4 = 8
 };
+
+// the epilogue arithmetic of a form: the stream probe's is K2's deployed one
+__host__ __device__ constexpr int arith(int epi) {
+  return epi == kStreams1 || epi == kStreams4 ? kDeployed : epi;
+}
 
 // the forms that read each body layer's inverse scale from the image
 __host__ __device__ constexpr bool image_inv(int epi) {
@@ -147,6 +181,14 @@ struct Chain8 {
   static constexpr int kStages = 4, kParts = 1;
   static constexpr bool kRegA = false;
   static constexpr int kC = 2;
+  static constexpr int kN = W;  // outputs per product
+};
+// S = 4: four consumer warpgroups, two 16 KB slots, each product W/2
+// outputs (a slot: half of K2's stage), 24 / 112 registers after setmaxnreg
+template <int W>
+struct Chain8<W, kStreams4> : Chain8<W, kDeployed> {
+  static constexpr int kWGs = 4, kStages = 2, kN = W / 2;
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 112;
 };
 // the head's columns as staged are rounded to this (int8_head_columns)
 template <int W>
@@ -154,7 +196,6 @@ constexpr int head_align() {
   return W >= 128 ? 128 : 64;
 }
 
-constexpr int kRows = 128;  // rays per block
 
 // Everything a launch needs, passed by value (the kernel parameter space).
 struct Args {
@@ -185,22 +226,24 @@ inline void plan(Args& a) {
   const int nsl = (a.dp + sps - 1) / sps;
   a.kpad = (nsl - 1) * 2 * W +
            r2l::round_up((a.dp - (nsl - 1) * sps) * P, head_align<W>());
-  a.off_h = kRows * W;  // Q: [128][W] int8
-  // H: [128][W] bf16 (K4: f32)
-  a.off_ring = a.off_h + kRows * W * (kEpi == kTrainQ ? 4 : 2);
-  a.slot_bytes = W * K::kKSB;
+  const int rows = 64 * K::kWGs;  // rays per block
+  a.off_h = rows * W;  // Q: [rows][W] int8
+  // H: [rows][W] bf16 (K4: f32)
+  a.off_ring = a.off_h + rows * W * (kEpi == kTrainQ ? 4 : 2);
+  a.slot_bytes = K::kN * K::kKSB;
   a.off_bar = a.off_ring + K::kStages * a.slot_bytes;
   a.smem = a.off_bar + 2 * K::kStages * 8;
-  a.stages = (a.kpad + a.nb * a.nl * W) / K::kKS;
-  a.mb = reinterpret_cast<const float4*>(a.staged +
-                                         (size_t)a.stages * a.slot_bytes);
+  a.stages = (a.kpad + a.nb * a.nl * W) / K::kKS;  // the image's stages
+  a.mb = reinterpret_cast<const float4*>(
+      a.staged + (size_t)a.stages * W * K::kKS);
   if (image_inv(kEpi))  // the image's inverse scales, after the table
     a.body_inv = reinterpret_cast<const float*>(
         a.mb + (size_t)(1 + a.nb * a.nl) * (W / 2));
 }
 
-inline long long blocks_of(int n) {
-  const long long blocks = (n + kRows - 1) / kRows;
+// blocks of `rows` rays over n, padded to whole 2-block clusters
+inline long long blocks_of(int n, int rows) {
+  const long long blocks = (n + rows - 1) / rows;
   return (blocks + 1) / 2 * 2;
 }
 
@@ -283,12 +326,99 @@ __device__ __forceinline__ void each_pair(const float4* mb, int t, F f) {
   }
 }
 
+// The head's input slice i (sw columns from column 2W i of the image's
+// order) of a warpgroup's 64 rays from row0, into Q (the first W columns)
+// and H (the rest, an int8 tile of W columns). A slice holds whole
+// scalars, freq-major: column p * ns + sl of slice i is part p (sin octave
+// p, cos octave p - L, or the identity) of scalar i * sps + sl, quantized
+// with its inverse scale (head_inv is freq-major over all scalars: p * dp
+// + s); neighbouring lanes store neighbouring bytes.
+template <int W>
+__device__ __forceinline__ void encode_slice(const Args& a, int i, int sw,
+                                             unsigned char* Qm,
+                                             unsigned char* Hm, int row0,
+                                             int wtid) {
+  const int P = 2 * a.L + 1, sps = 2 * W / P;
+  const int ns = min(sps, a.dp - i * sps);  // scalars here
+  auto put = [&](int r, int c, int8_t q) {
+    unsigned char* t = Qm;
+    if (c >= W) {
+      t = Hm;
+      c -= W;
+    }
+    reinterpret_cast<int8_t*>(t)[cm_off(r, c, W)] = q;
+  };
+  for (int e = wtid; e < 64 * ns; e += kWG) {
+    const int r = e / ns, sl = e - r * ns, s = i * sps + sl;
+    const int g = row0 + r;
+    const float v = g < a.n ? a.pts[(size_t)g * a.dp + s] : 0.f;
+    auto emit = [&](int p, float x) {
+      const int8_t q = (int8_t)q8b(__fmul_rn(x, a.head_inv[p * a.dp + s]));
+      put(r, p * ns + sl, q);
+    };
+    r2l::pe_ladder(v, a.L, [&](int j, float sn, float cs) {
+      emit(j, sn);
+      emit(a.L + j, cs);
+    });
+    emit(2 * a.L, v);
+  }
+  const int z0 = ns * P, nz = sw - z0;  // the zero padding
+  if (nz > 0)
+    for (int e = wtid; e < 64 * nz; e += kWG) {
+      const int r = e / nz;
+      put(r, z0 + e - r * nz, 0);
+    }
+}
+
+// The tail of a warpgroup's 64 rays from row0 on its quantized input:
+// qval(h, c) gives the thread's q pair of its row h at columns (c, c + 1),
+// which seen(h, c, q) receives once (K4 stores it to stash row nb); the
+// outputs four at a time, each thread's partial sums over its columns, then
+// two quad shuffles.
+template <int W, typename QV, typename Seen>
+__device__ __forceinline__ void tail_dots(const Args& a, int row0, int wtid,
+                                          QV qval, Seen seen) {
+  const int lane = wtid % 32, r0 = 16 * (wtid / 32) + lane / 4;
+  for (int o0 = 0; o0 < a.out_dim; o0 += 4) {
+    int p[2][4] = {};
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int2 q = qval(h, c);
+        if (o0 == 0) seen(h, c, q);
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          if (o0 + o >= a.out_dim) break;
+          dot2(p[h][o], q.x, q.y, head2(a.tail_q + (size_t)(o0 + o) * W + c));
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        if (o0 + o >= a.out_dim) break;
+        const int sum = quad_sum(p[h][o]);
+        const int g = row0 + r0 + 8 * h;
+        if (lane % 4 == 0 && g < a.n) {
+          const float v = dequant(sum, a.tail_m[o0 + o], a.tail_b[o0 + o]);
+          a.out[(size_t)g * a.out_dim + o0 + o] =
+              a.linear_tail ? v : r2l::sigmoid(v);
+        }
+      }
+  }
+}
+
 template <int W, int kEpi>
 __global__ void __launch_bounds__(kWG * 3, 1)
     r2l_int8_hopper_kernel(const Args a,
                            const __grid_constant__ CUtensorMap stash_map) {
   using K = Chain8<W, kEpi>;
   constexpr bool kQ = kEpi == kTrainQ;  // K4: f32 h, int8 stash
+  constexpr int kA = arith(kEpi);       // the epilogue's arithmetic
+  constexpr bool kLockstep = kEpi == kStreams1;
   constexpr int kC = K::kC;
   extern __shared__ __align__(128) unsigned char smem[];
   const int wg = threadIdx.x / kWG, wtid = threadIdx.x % kWG;
@@ -385,83 +515,22 @@ __global__ void __launch_bounds__(kWG * 3, 1)
   int it = 0;  // this warpgroup's place in the ring
 
   // ---- the head, over the image's slices of 2W input columns: [0, W) in
-  // Q, [W, 2W) in H (an int8 tile of W columns). A slice holds whole
-  // scalars, freq-major: column p * ns + sl of slice i is part p (sin
-  // octave p, cos octave p - L, or the identity) of scalar i * sps + sl,
-  // quantized with its inverse scale (head_inv is freq-major over all
-  // scalars: p * dp + s); neighbouring lanes store neighbouring bytes. ----
-  const int P = 2 * a.L + 1, sps = 2 * W / P;
+  // Q, [W, 2W) in H (encode_slice) ----
   for (int i = 0, c0 = 0; c0 < a.kpad; ++i, c0 += 2 * W) {
-    const int ns = min(sps, a.dp - i * sps);            // scalars here
     const int sw = min(2 * W, a.kpad - c0);             // columns here
     if (c0 > 0) wg_bar(bar_id);  // every warp's product read the last slice
-    auto put = [&](int r, int c, int8_t q) {
-      unsigned char* t = Qm;
-      if (c >= W) {
-        t = Hm;
-        c -= W;
-      }
-      reinterpret_cast<int8_t*>(t)[cm_off(r, c, W)] = q;
-    };
-    for (int e = wtid; e < 64 * ns; e += kWG) {
-      const int r = e / ns, sl = e - r * ns, s = i * sps + sl;
-      const int g = row0 + r;
-      const float v = g < a.n ? a.pts[(size_t)g * a.dp + s] : 0.f;
-      auto emit = [&](int p, float x) {
-        const int8_t q = (int8_t)q8b(__fmul_rn(x, a.head_inv[p * a.dp + s]));
-        put(r, p * ns + sl, q);
-      };
-      r2l::pe_ladder(v, a.L, [&](int j, float sn, float cs) {
-        emit(j, sn);
-        emit(a.L + j, cs);
-      });
-      emit(2 * a.L, v);
-    }
-    const int z0 = ns * P, nz = sw - z0;  // the zero padding
-    if (nz > 0)
-      for (int e = wtid; e < 64 * nz; e += kWG) {
-        const int r = e / nz;
-        put(r, z0 + e - r * nz, 0);
-      }
+    encode_slice<W>(a, i, sw, Qm, Hm, row0, wtid);
     tiles_ready();
     product<int8_t, W, kC, K>(acc, Qm, W, W, Hm, W, sw, ring, it, wtid,
                               c0 > 0);
   }
 
-  // The tail on its quantized input: qval(h, c) gives the thread's q pair
-  // of row h at columns (c, c + 1) (K4 stores it to stash row nb in the
-  // first pass over the outputs); the outputs four at a time.
+  // The tail on its quantized input, qval(h, c) (tail_dots; K4 stores it
+  // to stash row nb).
   auto tail = [&](auto qval) {
-    for (int o0 = 0; o0 < a.out_dim; o0 += 4) {
-      int p[2][4] = {};
-#pragma unroll
-      for (int j = 0; j < W / 8; ++j) {
-        const int c = 8 * j + 2 * (lane % 4);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int2 q = qval(j, h, c);
-          if (o0 == 0) stashq(a.nb, r0 + 8 * h, c, q.x, q.y);
-#pragma unroll
-          for (int o = 0; o < 4; ++o) {
-            if (o0 + o >= a.out_dim) break;
-            dot2(p[h][o], q.x, q.y, head2(a.tail_q + (size_t)(o0 + o) * W + c));
-          }
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int o = 0; o < 4; ++o) {
-          if (o0 + o >= a.out_dim) break;
-          const int sum = quad_sum(p[h][o]);
-          const int g = row0 + r0 + 8 * h;
-          if (lane % 4 == 0 && g < a.n) {
-            const float v = dequant(sum, a.tail_m[o0 + o], a.tail_b[o0 + o]);
-            a.out[(size_t)g * a.out_dim + o0 + o] =
-                a.linear_tail ? v : r2l::sigmoid(v);
-          }
-        }
-    }
+    tail_dots<W>(a, row0, wtid, qval, [&](int h, int c, int2 q) {
+      stashq(a.nb, r0 + 8 * h, c, q.x, q.y);
+    });
   };
   // the tail's input of h (+ h0): q8((h [+ h0]) * tail_inv)
   auto tail_in = [&](float2 hv, int h, int c) -> int2 {
@@ -511,7 +580,7 @@ __global__ void __launch_bounds__(kWG * 3, 1)
       return __bfloat1622float2(hs[at(h, c)]);
   };
   if (a.nb == 0) {  // no body: h = h0
-    tail([&](int, int h, int c) { return tail_in(h_of(h, c), h, c); });
+    tail([&](int h, int c) { return tail_in(h_of(h, c), h, c); });
     cluster_sync();
     return;
   }
@@ -522,27 +591,29 @@ __global__ void __launch_bounds__(kWG * 3, 1)
       const int idx = blk * a.nl + jl;
       const float4* mb = a.mb + (size_t)(1 + idx) * (W / 2);
       tiles_ready();
-      // warpgroup 0 leads, 1 follows half a layer behind
-      if (wg == 1) pair_sync(3);
+      // warpgroup 0 leads, 1 follows half a layer behind; in lockstep (the
+      // stream probe's S = 1) both start each layer together
+      if (kLockstep) pair_sync(3);
+      else if (wg == 1) pair_sync(3);
       else if (idx > 0) pair_sync(4);
       product<int8_t, W, kC, K>(acc, Qm, W, W, Qm, W, W, ring, it, wtid);
-      pair_arrive(wg == 0 ? 3 : 4);
+      if (!kLockstep) pair_arrive(wg == 0 ? 3 : 4);
       q_free();
       if (jl + 1 < a.nl) {  // inner: ReLU, then the next layer's int8 input
         const float* inv = a.body_inv + (size_t)(idx + 1) * W;
         each_pair<W>(mb, t, [&](int j, int c, float4 p) {
           float2 iv = make_float2(0.f, 0.f);
-          if (kEpi >= kUnfolded) iv = inv_as<kEpi>(ldg2(inv + c));
+          if (kA >= kUnfolded) iv = inv_as<kEpi>(ldg2(inv + c));
 #pragma unroll
           for (int h = 0; h < 2; ++h) {  // t0, t1 before the ReLU
             const float t0 = __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y);
             const float t1 = __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w);
             const int r = r0 + 8 * h;
             int x0, x1;
-            if (kEpi == kDeployed) {         // scale folded, no bf16
+            if (kA == kDeployed) {           // scale folded, no bf16
               x0 = q8b_relu(t0);
               x1 = q8b_relu(t1);
-            } else if (kEpi == kFold) {      // scale folded, through bf16
+            } else if (kA == kFold) {        // scale folded, through bf16
               const float2 v = __bfloat1622float2(__floats2bfloat162_rn(t0, t1));
               x0 = q8b_relu(v.x);
               x1 = q8b_relu(v.y);
@@ -618,32 +689,278 @@ __global__ void __launch_bounds__(kWG * 3, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) block_out(j, h, c, p);
       });
-      tail([&](int, int h, int c) { return tail_in(h_of(h, c), h, c); });
+      tail([&](int h, int c) { return tail_in(h_of(h, c), h, c); });
     }
   }
-  if (wg == 0) pair_sync(4);  // warpgroup 1's last arrival
+  if (wg == 0 && !kLockstep) pair_sync(4);  // warpgroup 1's last arrival
   if constexpr (kQ) {  // every bulk store has written its row
     if (wtid == 0) bulk_wait<0>();
   }
   cluster_sync();
 }
 
+// Named barriers of the stream probe's S = 4 turns, 5 + k for warpgroup k
+// (1..4 are the warpgroups' own): k waits on its own, which k - 1 (3 for 0)
+// passes when its products are done.
+__device__ __forceinline__ void turn_sync(int k) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(5 + k) : "memory");
+}
+__device__ __forceinline__ void turn_arrive(int k) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(5 + k) : "memory");
+}
+
+// The stream probe at S = 4 (kStreams4, described at the top): K2's
+// deployed form, four consumer warpgroups a block, each product W/2
+// outputs of half of K2's image stages, each warpgroup a turn behind the
+// one before it.
+template <int W>
+__global__ void __launch_bounds__(kWG * 5, 1)
+    r2l_int8_streams4_kernel(const Args a) {
+  using K = Chain8<W, kStreams4>;
+  constexpr int kC = K::kC, kN = K::kN;   // outputs per product
+  constexpr int kSt = W / K::kKS;         // the image's stages a body layer
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int wg = threadIdx.x / kWG, wtid = threadIdx.x % kWG;
+  const uint32_t rank = cluster_rank();
+  Ring ring;
+  ring.slots = smem_u32(smem + a.off_ring);
+  ring.full = smem_u32(smem + a.off_bar);
+  ring.empty = ring.full + 8 * K::kStages;
+  ring.slot_bytes = a.slot_bytes;
+
+  if (threadIdx.x == 0) ring_init<int8_t, kC, K>(ring);
+  __syncthreads();
+  cluster_sync();
+
+  const int P = 2 * a.L + 1, sps = 2 * W / P;
+  const int nsl = (a.dp + sps - 1) / sps;
+  // the head's slices: half 0 from the first, half 1 from the last
+  auto slice = [&](int hf, int s) { return hf == 0 ? s : nsl - 1 - s; };
+  auto slice_cols = [&](int i) { return min(2 * W, a.kpad - i * 2 * W); };
+
+  if (wg == K::kWGs) {  // the producer: half-stages, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        K::kProducerRegs));
+    if (wtid == 0) {
+      int it = 0;
+      auto copy = [&](int g, int hf) {  // half hf of the image's stage g
+        fill<int8_t, kC, K>(ring, it++,
+                            a.staged + (size_t)g * W * K::kKS +
+                                hf * a.slot_bytes,
+                            a.slot_bytes, rank);
+      };
+      for (int hf = 0; hf < 2; ++hf)
+        for (int s = 0; s < nsl; ++s) {
+          const int i = slice(hf, s), g0 = i * 2 * W / K::kKS;
+          for (int g = g0; g < g0 + slice_cols(i) / K::kKS; ++g) copy(g, hf);
+        }
+      const int head = a.kpad / K::kKS;
+      for (int idx = 0; idx < a.nb * a.nl; ++idx)
+        for (int hf = 0; hf < 2; ++hf)
+          for (int st = 0; st < kSt; ++st) copy(head + idx * kSt + st, hf);
+    }
+    cluster_sync();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      K::kConsumerRegs));
+
+  const int tile = blockIdx.x * K::kWGs + wg, row0 = tile * 64;
+  const int bar_id = 1 + wg;
+  unsigned char* Qm = smem + wg * 64 * W;
+  unsigned char* Hm = smem + a.off_h + wg * 64 * W * 2;
+  __nv_bfloat162* hs = reinterpret_cast<__nv_bfloat162*>(Hm);
+  float2* h0s = reinterpret_cast<float2*>(a.h0) + (size_t)tile * 64 * (W / 2);
+  const int lane = wtid % 32, r0 = 16 * (wtid / 32) + lane / 4;
+  const int t = lane % 4;
+  auto tiles_ready = [&]() {
+    fence_async_smem();
+    wg_bar(bar_id);
+  };
+  auto at = [&](int h, int c) { return ((c / 8) * 2 + h) * kWG + wtid; };
+  auto putq = [&](int r, int c, uint32_t pair) {
+    *reinterpret_cast<uint16_t*>(Qm + cm_off(r, c, W)) = (uint16_t)pair;
+  };
+  // two q8b words as the pair of bytes putq stores
+  auto qpair = [](int x0, int x1) {
+    return (uint32_t)__byte_perm(x0, x1, 0x0040) & 0xFFFFu;
+  };
+
+  int acc[kN / 2];
+  int it = 0;  // this warpgroup's place in the ring
+
+  // ---- the head, half by half (half 1's first slice is half 0's last,
+  // still in Q | H) ----
+  for (int hf = 0; hf < 2; ++hf) {
+    for (int s = 0; s < nsl; ++s) {
+      const int i = slice(hf, s), sw = slice_cols(i);
+      if (hf == 0 || s > 0) {
+        if (hf > 0 || s > 0) wg_bar(bar_id);  // the last slice was read
+        encode_slice<W>(a, i, sw, Qm, Hm, row0, wtid);
+        tiles_ready();
+      }
+      product<int8_t, kN, kC, K>(acc, Qm, W, W, Hm, W, sw, ring, it, wtid,
+                                 s > 0);
+    }
+    if (hf == 0)  // half 0's h0, parked until Q and H are free
+      each_pair<kN>(a.mb, t, [&](int j, int c, float4 p) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          h0s[at(h, c)] = make_float2(
+              fmaxf(dequant(acc[4 * j + 2 * h], p.x, p.y), 0.f),
+              fmaxf(dequant(acc[4 * j + 2 * h + 1], p.z, p.w), 0.f));
+      });
+  }
+  // H = bf16(h0) and block 0's input, half 1 from the accumulator, half 0
+  // from the scratch (H's accumulator order crosses the rows of the slice
+  // it held, which other warps' products may still read: a barrier first)
+  wg_bar(bar_id);
+  auto head_out = [&](int h, int c, float x0, float x1, float2 inv) {
+    const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+    hs[at(h, c)] = hb;
+    if (a.nb > 0) {
+      const float2 hv = __bfloat1622float2(hb);
+      putq(r0 + 8 * h, c, qpair(q8b(__fmul_rn(hv.x, inv.x)),
+                                q8b(__fmul_rn(hv.y, inv.y))));
+    }
+  };
+  auto body_inv0 = [&](int c) {
+    return a.nb > 0 ? ldg2(a.body_inv + c) : make_float2(0.f, 0.f);
+  };
+  each_pair<kN>(a.mb + kN / 2, t, [&](int j, int c, float4 p) {
+    c += kN;
+    const float2 inv = body_inv0(c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float x0 = fmaxf(dequant(acc[4 * j + 2 * h], p.x, p.y), 0.f);
+      const float x1 = fmaxf(dequant(acc[4 * j + 2 * h + 1], p.z, p.w), 0.f);
+      h0s[at(h, c)] = make_float2(x0, x1);
+      head_out(h, c, x0, x1, inv);
+    }
+  });
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 inv = body_inv0(c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 x = h0s[at(h, c)];
+      head_out(h, c, x.x, x.y, inv);
+    }
+  }
+
+  // the tail's input of h (+ h0): q8((h [+ h0]) * tail_inv)
+  auto tail = [&]() {
+    tail_dots<W>(a, row0, wtid, [&](int h, int c) -> int2 {
+      float2 hv = __bfloat1622float2(hs[at(h, c)]);
+      if (a.use_residual) {
+        const float2 z = h0s[at(h, c)];
+        hv.x = __fadd_rn(hv.x, z.x);
+        hv.y = __fadd_rn(hv.y, z.y);
+      }
+      const float2 inv = ldg2(a.tail_inv + c);
+      return make_int2(q8(__fmul_rn(hv.x, inv.x)),
+                       q8(__fmul_rn(hv.y, inv.y)));
+    }, [](int, int, int2) {});
+  };
+  if (a.nb == 0) {  // no body: h = h0
+    tail();
+    cluster_sync();
+    return;
+  }
+
+  // ---- the body: per layer two products of kN outputs, each a turn ----
+  uint32_t pk[kN / 8];  // half 0's int8 outputs, until Q is free
+  for (int blk = 0; blk < a.nb; ++blk) {
+    for (int jl = 0; jl < a.nl; ++jl) {
+      const int idx = blk * a.nl + jl;
+      const bool inner = jl + 1 < a.nl, last = !inner && blk + 1 == a.nb;
+      const float4* mb = a.mb + (size_t)(1 + idx) * (W / 2);
+      const float* inv = a.body_inv + (size_t)(blk + 1) * a.nl * W;
+      tiles_ready();
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (wg > 0 || idx > 0 || hf > 0) turn_sync(wg);
+        product<int8_t, kN, kC, K>(acc, Qm, W, W, Qm, W, W, ring, it, wtid);
+        turn_arrive((wg + 1) % K::kWGs);
+        // a pair of q8b words of half hf's column c: half 0's wait in pk
+        auto out = [&](int j, int h, int c, int x0, int x1) {
+          const uint32_t v = qpair(x0, x1);
+          if (hf == 0)
+            pk[j] = h ? pk[j] | v << 16 : v;
+          else
+            putq(r0 + 8 * h, c, v);
+        };
+        if (inner) {  // ReLU, then the next layer's int8 input (folded)
+          each_pair<kN>(mb + hf * kN / 2, t, [&](int j, int c, float4 p) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float t0 = __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y);
+              const float t1 =
+                  __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w);
+              out(j, h, c + hf * kN, q8b_relu(t0), q8b_relu(t1));
+            }
+          });
+        } else {  // block tail: bf16, + the bf16 residual stream, bf16
+          each_pair<kN>(mb + hf * kN / 2, t, [&](int j, int c, float4 p) {
+            c += hf * kN;
+            const float2 iv = last ? make_float2(0.f, 0.f) : ldg2(inv + c);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float t0 = __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y);
+              const float t1 =
+                  __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w);
+              const __nv_bfloat162 hn =
+                  __hadd2(__floats2bfloat162_rn(t0, t1), hs[at(h, c)]);
+              hs[at(h, c)] = hn;
+              if (!last) {
+                const float2 v = __bfloat1622float2(hn);
+                out(j, h, c, q8b(__fmul_rn(v.x, iv.x)),
+                    q8b(__fmul_rn(v.y, iv.y)));
+              }
+            }
+          });
+        }
+      }
+      if (last) {
+        tail();
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)  // half 0's outputs, now Q is free
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          putq(r0 + 8 * h, 8 * j + 2 * t, pk[j] >> (16 * h));
+    }
+  }
+  if (wg == 0) turn_sync(0);  // warpgroup 3's last arrival
+  cluster_sync();
+}
+
 // Launch over the n rays' blocks, padded to whole clusters, after checking
-// the h0 scratch (h0_elems floats; none without the global residual).
+// the h0 scratch (h0_elems floats; none without the global residual, but
+// for S = 4, whose head parks half of h0 there).
 template <int W, int kEpi>
 cudaError_t launch_as(Args a, long long h0_elems, cudaStream_t stream) {
   plan<W, kEpi>(a);
-  const long long blocks = blocks_of(a.n);
-  if (a.use_residual && h0_elems < blocks * kRows * W)
-    return cudaErrorInvalidValue;
   using K = Chain8<W, kEpi>;
-  CUtensorMap map = {};  // K4's stash, through its Q tiles
-  if (kEpi == kTrainQ) {
-    const cudaError_t err = tile_map(&map, a.stash, a.n, W, 2 * a.nb + 1);
-    if (err != cudaSuccess) return err;
+  const long long blocks = blocks_of(a.n, 64 * K::kWGs);
+  if ((a.use_residual || kEpi == kStreams4) &&
+      h0_elems < blocks * 64 * K::kWGs * W)
+    return cudaErrorInvalidValue;
+  if constexpr (kEpi == kStreams4) {
+    return launch_cluster<int8_t, K::kC, K>(
+        r2l_int8_streams4_kernel<W>, a, (int)blocks, a.smem, stream);
+  } else {
+    CUtensorMap map = {};  // K4's stash, through its Q tiles
+    if (kEpi == kTrainQ) {
+      const cudaError_t err = tile_map(&map, a.stash, a.n, W, 2 * a.nb + 1);
+      if (err != cudaSuccess) return err;
+    }
+    return launch_cluster<int8_t, K::kC, K>(
+        r2l_int8_hopper_kernel<W, kEpi>, a, (int)blocks, a.smem, stream,
+        map);
   }
-  return launch_cluster<int8_t, K::kC, K>(
-      r2l_int8_hopper_kernel<W, kEpi>, a, (int)blocks, a.smem, stream, map);
 }
 
 template <int kEpi>

@@ -13,10 +13,9 @@ student frame, and a third is the JAX package's exported kernel API:
   chain in static-scale int8 on wgmma s8, in ``_int8_pe_chain``'s three
   forms (``fold_requant``, ``nobf16_inner``; by default the deployed
   ``True, True``), with parameters from ``calibrate_r2l_int8_pe``. The
-  training forward K4/K8 (``r2l_train.train_fwd_int8``) and the epilogue
-  probe (``exp/probe_epi.py``) run on its template; the stream probe
-  (``launch_int8_pe_chain``) stays on the pre-Hopper template
-  ``csrc/r2l_int8_chain.cuh``.
+  training forward K4/K8 (``r2l_train.train_fwd_int8``), the epilogue
+  probe (``exp/probe_epi.py``) and the stream probe
+  (``exp/probe_pipe_lib.py``) run on its template.
 * ``fused_r2l_apply`` (``csrc/r2l_fused.cu``): K1's chain on an input
   encoded outside (``r2l_embed``'s per-scalar order, parameters from
   ``prepare_fused_params``), read unpadded and rounded once to the compute
@@ -65,6 +64,10 @@ CHAIN_STAGE_K = {torch.bfloat16: 64, torch.float32: 16}
 CHAIN_BLOCK_RAYS = {torch.bfloat16: 128, torch.float32: 64}
 CHAIN_CLUSTER = {torch.bfloat16: 2, torch.float32: 2}
 INT8_BLOCK_RAYS = 128  # K2 (csrc/r2l_int8_hopper.cuh): rays per block
+# rays per block of K2's forms (Epi codes) that differ: the stream probe's
+# S = 4 (kStreams4), four 64-ray warpgroups, whose head parks half of h0 in
+# the scratch with or without the global residual
+INT8_FORM_BLOCK_RAYS = {8: 256}
 
 
 def _padded_in(in_dim: int) -> int:
@@ -775,9 +778,8 @@ def _dequant(acc: torch.Tensor, m: torch.Tensor,
 
 
 # K2's requantize epilogues by (fold_requant, nobf16_inner), each with its
-# code in csrc/r2l_int8_hopper.cuh's Epi (which also holds the epilogue
-# probe's forms, exp/probe_epi.py); csrc/r2l_int8_chain.cuh keeps
-# "deployed" alone, for the stream probe.
+# code in csrc/r2l_int8_hopper.cuh's Epi (which also holds the epilogue and
+# stream probes' forms, exp/probe_epi.py, exp/probe_pipe_lib.py).
 EPILOGUES = {"deployed": 0, "fold": 1, "unfolded": 2}
 
 
@@ -874,39 +876,6 @@ def _check_int8_params(fp: FusedParamsInt8PE, cfg: R2LConfig,
         _check(t, name, dt, shape, dev)
 
 
-def launch_int8_pe_chain(wrapper, fp: FusedParamsInt8PE, cfg: R2LConfig,
-                         pts: torch.Tensor, dim_pts: int, L: int,
-                         streams: int = 1) -> torch.Tensor:
-    """One launch of the pre-Hopper int8 chain (``csrc/r2l_int8_pe_fused.cu``
-    over ``r2l_int8_chain.cuh``: K2's stream probe ``probe_pipe``) on CUDA
-    tensors, checked here: K2's deployed form (``fp`` folded) at width
-    256, with ``streams`` per 64-ray tile; counted in
-    ``wrapper.launches``."""
-    from . import _build
-    _assert_fused_supported(cfg)
-    if cfg.netwidth != 256:
-        raise ValueError(f"the pre-Hopper int8 chain takes width 256, got "
-                         f"{cfg.netwidth}")
-    dev = pts.device
-    _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
-    _check_int8_params(fp, cfg, dim_pts, L, dev)
-    out = torch.empty((pts.shape[0], fp.tail_q.shape[0]),
-                      dtype=torch.float32, device=dev)
-    if pts.shape[0] == 0:
-        return out
-    lib = _build.load("r2l_int8_pe_fused")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        wrapper.launches += 1
-        rc = lib.r2l_int8_pe_fused_launch(
-            _ptr(pts), pts.shape[0], dim_pts, L, *(_ptr(t) for t in fp),
-            _ptr(out), cfg.num_blocks, cfg.n_learnable, out.shape[1],
-            int(cfg.use_residual), int(cfg.linear_tail), streams,
-            ctypes.c_void_p(stream))
-    _raise_on_error(rc, "r2l_int8_pe_fused")
-    return out
-
-
 def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
                         pts: torch.Tensor, dim_pts: int, L: int,
                         epilogue: int, wrapper=None) -> torch.Tensor:
@@ -929,9 +898,10 @@ def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
                       device=dev)
     if n == 0:
         return out
-    blocks = -(-(-(-n // INT8_BLOCK_RAYS)) // 2) * 2
-    h0 = torch.empty((blocks * INT8_BLOCK_RAYS * W
-                      if cfg.use_residual else 0,),
+    rays = INT8_FORM_BLOCK_RAYS.get(epilogue, INT8_BLOCK_RAYS)
+    blocks = -(-(-(-n // rays)) // 2) * 2
+    h0 = torch.empty((blocks * rays * W if cfg.use_residual
+                      or epilogue in INT8_FORM_BLOCK_RAYS else 0,),
                      dtype=torch.float32, device=dev)
     lib = _build.load("r2l_int8_hopper")
     with torch.cuda.device(dev):

@@ -347,6 +347,30 @@ def unstage_bwd_weights(staged: torch.Tensor, shape: tuple,
     return [p.transpose(1, 2).contiguous() for p in parts]
 
 
+def qdx_stage_k(W: int) -> int:
+    """Output channels per stage of ``stage_qdx_weights``' image: 128, or
+    64 at W64 (the int8-dL/dx probe's ring, ``csrc/r2l_bwd_qdx.cu``)."""
+    return 128 if W >= 128 else 64
+
+
+def stage_qdx_weights(body_q: torch.Tensor) -> torch.Tensor:
+    """The int8-dL/dx probe's weight image (uint8) of body_q [L, W, W]
+    ``[out, in]`` int8, as its dx products' wgmma reads B: every layer's
+    transpose [in, out], in stages of ``qdx_stage_k(W)`` output channels
+    (``staging.stage_matrices``), layer by layer, so that u_q q^T is the
+    chain's A B^T. Made once per calibration, for all the groups."""
+    k = qdx_stage_k(body_q.shape[-1])
+    return stage_matrices(body_q.transpose(1, 2).contiguous(), k)
+
+
+def unstage_qdx_weights(staged: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``stage_qdx_weights``' inverse: body_q of ``shape`` [L, W, W]
+    ``[out, in]``."""
+    L, W, _ = shape
+    return unstage_matrices(staged, (L, W, W), qdx_stage_k(W),
+                            torch.int8)[0].transpose(1, 2).contiguous()
+
+
 def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
               cfg: R2LConfig, b_start: int, b_count: int,
               body_scale: torch.Tensor | None = None,

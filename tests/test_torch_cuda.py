@@ -1058,9 +1058,8 @@ def test_int8_probe_wrappers_raise_instead_of_falling_back(dev):
 # K5's outputs on fixed numpy inputs, as sha256 digests of (dh, dW, db), as
 # its Hopper passes give them (r2l_bwd_hopper.cuh, f32 weights' dW as
 # 3xTF32: NVIDIA H100 80GB HBM3, nvcc of CUDA 12.8; PERF.md section 6; the
-# pre-Hopper kernel's, pinned when its passes moved into r2l_bwd_dw.cuh,
-# differ: other sum orders). Every sum has a fixed order, so the same code
-# gives the same bits.
+# pre-Hopper kernel's differed: other sum orders). Every sum has a fixed
+# order, so the same code gives the same bits.
 K5_DIGESTS = {
     "f32": "48c15e99bae53214e613c64b401a7ed5f13e24143c5c9bd161a90408edc3f625",
     "bf16": "1b2d6ed6ebc8bd11e158ddcf059ad65cf2ecfff5aaa1b63b585f8c0f6d30e6fa",
@@ -1124,6 +1123,25 @@ def test_bwd_group_runs_on_wgmma(dev):
     assert "bwd_dw_f32_kernel" not in sass
 
 
+@pytest.mark.parametrize("lib,ops", [
+    ("r2l_bwd_qdx", ("bwd_qdx_dh_kernel", "bwd_dw_wgmma_kernel", "IGMMA",
+                     "HGMMA")),
+    ("r2l_int8_hopper", ("r2l_int8_streams4_kernel", "IGMMA"))])
+def test_probe_kernels_run_on_wgmma(dev, lib, ops):
+    """The int8-dL/dx probe's library (its dh walk and K5's dW pass) and
+    K2's, which holds the stream probe's forms, are wgmma only: IGMMA (and
+    HGMMA) in their SASS, no mma.sync (HMMA, IMMA)."""
+    import subprocess
+    from r2l_tpu_torch.kernels import _build
+    _build.load(lib)
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._library_path(lib))],
+                          check=True, capture_output=True, text=True).stdout
+    for op in ops:
+        assert op in sass, op
+    assert "HMMA" not in sass and "IMMA" not in sass
+
+
 @pytest.mark.parametrize("kind", sorted(K5_DIGESTS))
 def test_bwd_group_unchanged_by_the_header_split(dev, kind):
     """A regression pin: K5's (dh, dW, db) on fixed inputs equal the
@@ -1133,8 +1151,9 @@ def test_bwd_group_unchanged_by_the_header_split(dev, kind):
 
 # The int8-dL/dx probe (exp/probe_bwd_qdx.py): exact int32 dots, IEEE
 # quotients and the one-FMA update on both sides, so dh and the dt scratch
-# bit for bit; dW and db are K5's passes over the same scratch, against the
-# plain version's matmuls in another order (norm-relative 1e-5). At the
+# bit for bit; dW and db are K5's wgmma passes over the same scratch,
+# against the plain version's matmuls in another order (norm-relative
+# 1e-5), and the top layer's, whose dt2 is K5's, equal to K5's. At the
 # probe's body_scale (1/body_inv) dx is far below dh (ROADMAP C), so the
 # checks also run with a body_scale of order one, where dx moves dh.
 TOL_QDX_DW = 1e-5
@@ -1161,7 +1180,8 @@ def _qdx_case(dev, n=1024, W=64):
     unit = torch.rand(fp.body_inv.shape, generator=torch.Generator(
         ).manual_seed(15)).to(dev) * 1.5 + 0.5
     return cfg, fp, stash, body_w, dh, {"probe": 1.0 / fp.body_inv,
-                                        "unit": unit}
+                                        "unit": unit}, T.stage_qdx_weights(
+        fp.body_q)
 
 
 def _rel_err(got, want):
@@ -1173,16 +1193,16 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("tile", [64, 128, 512])
 def test_bwd_group_qdx_matches_plain(dev, tile, kind):
     from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
-    cfg, fp, stash, body_w, dh, scales = _qdx_case(dev)
+    cfg, fp, stash, body_w, dh, scales, img = _qdx_case(dev)
     sc = scales[kind]
     for b0, cnt in ((1, 3), (0, cfg.num_blocks)):
         dts, dts_p = (torch.empty((2 * cnt,) + dh.shape, dtype=torch.bfloat16,
                                   device=dev) for _ in range(2))
         before = PQ.bwd_group_qdx.launches
         got = PQ.bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash, dh, cfg,
-                               b0, cnt, tile, sc, dts)
+                               b0, cnt, tile, sc, dts, staged=img)
         again = PQ.bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash, dh,
-                                 cfg, b0, cnt, tile, sc)
+                                 cfg, b0, cnt, tile, sc, staged=img)
         torch.cuda.synchronize()
         assert PQ.bwd_group_qdx.launches == before + 2
         want = PQ.bwd_group_qdx_ref(body_w, fp.body_q, fp.body_m, stash, dh,
@@ -1198,25 +1218,24 @@ def test_bwd_group_qdx_matches_plain(dev, tile, kind):
 
 
 def test_bwd_group_qdx_shares_k5s_dw_pass(dev):
-    """The top layer's dt2 is the same on both sides, but its dW and db come
-    from two passes: the probe's (r2l_bwd_dw.cuh, K5's before it moved to
-    wgmma) and K5's wgmma pass, summing in other orders. They agree
-    norm-relative within TOL_QDX_DW."""
+    """The top layer's dt2 is the same on both sides, and its dW and db come
+    from K5's own wgmma passes: they equal K5's bit for bit."""
     from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
-    cfg, fp, stash, body_w, dh, scales = _qdx_case(dev)
+    cfg, fp, stash, body_w, dh, scales, img = _qdx_case(dev)
     nb = cfg.num_blocks
     _, dw, db = PQ.bwd_group_qdx(body_w, fp.body_q, fp.body_m, stash, dh,
-                                 cfg, 0, nb, 512, scales["probe"])
+                                 cfg, 0, nb, 512, scales["probe"],
+                                 staged=img)
     _, dw5, db5 = T.bwd_group(body_w, stash, dh, cfg, 0, nb,
                               body_scale=scales["probe"],
                               staged=T.stage_bwd_weights(body_w))
-    assert _rel_err(dw[-1], dw5[-1]) <= TOL_QDX_DW
-    assert _rel_err(db[-1], db5[-1]) <= TOL_QDX_DW
+    assert torch.equal(dw[-1], dw5[-1])
+    assert torch.equal(db[-1], db5[-1])
 
 
 def test_bwd_group_qdx_raises_instead_of_falling_back(dev):
     from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
-    cfg, fp, stash, body_w, dh, scales = _qdx_case(dev)
+    cfg, fp, stash, body_w, dh, scales, img = _qdx_case(dev)
     args = (body_w, fp.body_q, fp.body_m, stash, dh, cfg, 0, 2)
     with pytest.raises(ValueError):     # a tile the cluster cannot take
         PQ.bwd_group_qdx(*args, tile=1024, body_scale=scales["probe"])
@@ -1227,6 +1246,11 @@ def test_bwd_group_qdx_raises_instead_of_falling_back(dev):
                          cfg, 0, 2, 512, scales["probe"])
     with pytest.raises(ValueError):
         PQ.bwd_group_qdx(*args, tile=512, body_scale=scales["probe"].cpu())
+    with pytest.raises(ValueError, match="staged"):   # no weight image
+        PQ.bwd_group_qdx(*args, tile=512, body_scale=scales["probe"])
+    with pytest.raises(ValueError):     # not a tile the kernel maps
+        PQ.bwd_group_qdx(*args, tile=192, body_scale=scales["probe"],
+                         staged=img)
 
 
 # ---------------------------------------------------------------------------

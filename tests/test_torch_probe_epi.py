@@ -104,23 +104,23 @@ def _epi_enum(header: str) -> dict[str, int]:
 
 
 def test_epilogue_codes_name_the_hopper_forms():
-    """The codes the wrappers pass are the headers' own: each variant's is
-    K2's Hopper ``kUnfolded``, ``kEpiV1``, ``kEpiV2``; K2's three forms
-    (``EPILOGUES``) are the Hopper header's; no two forms share a code. The
-    pre-Hopper chain keeps the stream probe's deployed form alone, with no
-    form code (its entry takes none) and none of the variants' names."""
+    """The codes the wrappers pass are the Hopper header's own: each
+    epilogue variant's is K2's ``kUnfolded``, ``kEpiV1``, ``kEpiV2``; each
+    stream count's ``kStreams1``, K2's ``kDeployed`` (S = 2 is K2's
+    ping-pong itself), ``kStreams4``; K2's three forms (``EPILOGUES``) are
+    the header's; no two forms share a code, and the only form of other
+    blocks a launch (``INT8_FORM_BLOCK_RAYS``) is S = 4's."""
+    from r2l_tpu_torch.exp import probe_pipe_lib as PL
     hop = _epi_enum("r2l_int8_hopper.cuh")
-    old = (_build.CSRC / "r2l_int8_chain.cuh").read_text() + (
-        _build.CSRC / "r2l_int8_pe_fused.cu").read_text()
     assert P._EPI_CODE == {0: hop["kUnfolded"], 1: hop["kEpiV1"],
                            2: hop["kEpiV2"]}
+    assert PL.STREAM_CODE == {1: hop["kStreams1"], 2: hop["kDeployed"],
+                              4: hop["kStreams4"]}
     names = {"deployed": "kDeployed", "fold": "kFold",
              "unfolded": "kUnfolded"}
     assert {hop[names[k]]: k for k in names} == {
         v: k for k, v in F.EPILOGUES.items()}
-    for name in ("enum Epi", "kEpiV1", "kEpiV2", "kDeployed",
-                 "int epilogue"):
-        assert name not in old, name
+    assert F.INT8_FORM_BLOCK_RAYS == {hop["kStreams4"]: 256}
     assert len(set(hop.values())) == len(hop)
 
 
