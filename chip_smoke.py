@@ -111,9 +111,11 @@ Phases, in order; any failure raises and exits non-zero:
    falling from the first pass over the images to the second, the peak
    memory.
 12. The exp/ probes (``r2l_tpu_torch.exp``) at their own sizes: the chain
-   (``probe_mxu.chain``) in modes full, lean and none, each single and dual
-   (dual bit for bit the single), 163,840 rays x 86 layers and, where the
-   random chain's output is of order one, 8 layers; ``bign``, 43 and 4
+   (``probe_mxu.chain``, on wgmma since its redesign) in modes full, lean
+   and none, each single and dual (dual bit for bit the single), 163,840
+   rays x 86 layers and, where the random chain's output is of order one,
+   8 layers, timed on its weights staged once (and the staging beside);
+   ``bign``, 43 and 4
    pairs; ``int8_chain`` at 4 and 8 layers (non-zero, bit for bit) and at
    86; ``probe_shapes.unchained`` (on wgmma since its redesign) at every
    (M, K, N) of its runner in int8 and bf16, free, and chained at the
@@ -132,8 +134,9 @@ Phases, in order; any failure raises and exits non-zero:
    ``probe_shapes.main``), their JSON records on lines of their own, and
    the four kernels' launches in that run.
 13. K2's probes (``r2l_tpu_torch.exp``) at their own sizes: the ResMLP body
-   (``probe_int8.resmlp``) int8, folded and bf16 at 4 and 43 blocks on
-   163,840 rays, dual bit for bit the single; the wall
+   (``probe_int8.resmlp``, on wgmma since its redesign) int8, folded and
+   bf16 at 4 and 43 blocks on 163,840 rays, dual bit for bit the single,
+   timed on its image staged once (and the staging beside); the wall
    (``probe_wall.wall``) in its three modes at 4 and 86 layers; on one
    400x400 lego frame of the canonical student packed as in phase 3, the
    streams (``probe_pipe_lib.apply_int8_pe_streams``, S = 1, 2, 4, schedules
@@ -2022,6 +2025,7 @@ def probe_checks(dev) -> dict:
     # the outputs of none and bigN are about 1e-7 and smaller, so each is
     # also checked at a depth whose output is of order one.
     w, b = PM.variant_weights("full", gen(1), dev)
+    img = PM.stage_chain(w)   # once, as the runner stages it
     r = res["probe_chain"] = {"max_abs_err": 0.0}
     for mode in PM.MODES:
         check_rel(f"probe_chain {mode} vs plain, 8 layers", PM.chain(
@@ -2035,17 +2039,21 @@ def probe_checks(dev) -> dict:
             x, w, b, mode, dual=True), got)
         r["max_abs_err"] = max(r["max_abs_err"], c["max_abs_err"])
         r[mode] = {**c, "differ": int((got != want).sum()),
-                   "ms": time_ms(lambda: PM.chain(x, w, b, mode)),
-                   "dual_ms": time_ms(lambda: PM.chain(x, w, b, mode,
-                                                       dual=True))}
+                   "ms": time_ms(lambda: PM.chain(x, w, b, mode,
+                                                  staged=img)),
+                   "dual_ms": time_ms(lambda: PM.chain(
+                       x, w, b, mode, dual=True, staged=img))}
         del got, want
         print(f"[time] probe_chain {mode}: single {r[mode]['ms']:.3f} ms, "
               f"dual {r[mode]['dual_ms']:.3f} ms", flush=True)
     r["ms"] = r["full"]["ms"]
+    r["staging_ms"] = time_ms(lambda: PM.stage_chain(w))
     r["plain_ms"] = time_ms(lambda: PM.chain_ref(x, w, b, "full"), reps=1)
     r.update(bound(PM.ops_per_frame("full"), nbytes(x, w, b) + out_bytes,
                    "bf16"), library_ms=None)
-    del w, b
+    print(f"[time] probe_chain: the weights' staging, once per weights, "
+          f"{r['staging_ms']:.3f} ms", flush=True)
+    del w, b, img
 
     w1, w2 = PM.variant_weights("bigN", gen(2), dev)
     check_rel("probe_bign vs plain, 4 pairs", PM.bign(x, w1[:4], w2[:4]),
@@ -2252,9 +2260,13 @@ def k2_probe_checks(dev) -> dict:
             check_equal(f"probe_resmlp {body}, {nb} blocks: dual vs single",
                         PI.resmlp(x, *ws, body=body, dual=True), got)
             del got, want
-        r[body] = {"ms": time_ms(lambda: PI.resmlp(x, w, m, b, body=body)),
-                   "dual_ms": time_ms(lambda: PI.resmlp(x, w, m, b, body=body,
-                                                        dual=True)),
+        img = PI.stage_resmlp(w, m, b, body)   # once, as the runner
+        r[body] = {"ms": time_ms(lambda: PI.resmlp(x, w, m, b, body=body,
+                                                   staged=img)),
+                   "dual_ms": time_ms(lambda: PI.resmlp(
+                       x, w, m, b, body=body, dual=True, staged=img)),
+                   "staging_ms": time_ms(lambda: PI.stage_resmlp(w, m, b,
+                                                                 body)),
                    "plain_ms": time_ms(lambda: PI.resmlp_ref(x, w, m, b,
                                                              body=body),
                                        reps=1),
@@ -2264,8 +2276,9 @@ def k2_probe_checks(dev) -> dict:
         print(f"[time] probe_resmlp {body}: single {r[body]['ms']:.3f} ms, "
               f"dual {r[body]['dual_ms']:.3f} ms, plain "
               f"{r[body]['plain_ms']:.3f} ms, bound "
-              f"{r[body]['bound_ms']:.3f} ms", flush=True)
-        del w, m, b
+              f"{r[body]['bound_ms']:.3f} ms, the weights' staging, once "
+              f"per weights, {r[body]['staging_ms']:.3f} ms", flush=True)
+        del w, m, b, img
     r.update({k: r["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
 

@@ -358,6 +358,41 @@ def parent_libs(tree: str, names, work: Path) -> dict:
                           Path(tree) / "r2l_tpu_torch" / "kernels" / "csrc")
 
 
+def parent_defines(tree: str, module: str, name: str) -> bool:
+    """Whether the checkout ``tree``'s ``r2l_tpu_torch/<module>.py``
+    defines the function ``name``: how a parent comparison tells a parent
+    whose kernel takes this checkout's arguments from an older one."""
+    src = Path(tree) / "r2l_tpu_torch" / f"{module}.py"
+    return f"def {name}(" in src.read_text()
+
+
+# Two builds of a bf16 probe each keep within 5e-2 of the plain version
+# (``chip_smoke.TOL_PROBE_BF16``'s deep limit, max-abs relative to the
+# largest |plain|), so they differ by at most twice that.
+PARENT_REL = 0.1
+
+
+def parent_probe(name: str, lib: str, new: Callable, old: Callable,
+                 parent_regs: list[str], exact: bool, log: Log,
+                 reps: int = 5) -> None:
+    """A probe of this checkout (``new``) against the parent's build of
+    its library ``lib`` (``old``, with the parent's register lines): held
+    to each other first, bit for bit where ``exact``, else within
+    PARENT_REL relative to the parent's largest |output| (AssertionError
+    if not), then timed in turns (``in_turns``, the parent's as the
+    variant)."""
+    got, want = new(), old()
+    diff = float((got - want).abs().max() / want.abs().max())
+    if (exact and not torch.equal(got, want)) or not diff <= PARENT_REL:
+        raise AssertionError(f"{name}: this checkout's output differs from "
+                             f"the parent's by {diff:.3e} relative")
+    del got, want
+    base_ms, parent_ms, _ = in_turns(new, old, contextlib.nullcontext, reps)
+    log({"name": f"parent_{name}", "base_ms": base_ms,
+         "parent_ms": parent_ms, "max_rel_diff": diff,
+         "registers": registers(lib), "parent_registers": parent_regs})
+
+
 def registers(name: str) -> list[str]:
     """This checkout's register and spill lines of library ``name``."""
     from ..kernels import _build

@@ -41,7 +41,9 @@ plain version (f32: max-abs, the share of ``chip_smoke.TOL_TRAIN_F32``):
 
 ``--parent TREE`` builds K1 and K9 from a parent checkout's sources and
 holds this checkout's to them on a frame, bit for bit, in turns, with both
-builds' registers.
+builds' registers; then the chain probe (``probe_mxu.chain``, K1's chain
+without its head, residual and tail) likewise at its runner's size, each
+mode single and dual (``compare_parent_chain``).
 
 ``--steps TREE ...`` times instead the five distillation kinds of
 ``chip_smoke.py``'s phase 6 (the four in bf16, and ``fused`` in f32) in
@@ -332,7 +334,8 @@ def time_variants(names, log, reps: int = 5) -> None:
 
 def compare_parent(tree: str, log, reps: int = 5) -> None:
     """K1 and K9 (bf16, f32) of this checkout against the parent's build on
-    a lego frame: bit for bit, in turns, with both builds' registers."""
+    a lego frame: bit for bit, in turns, with both builds' registers; then
+    the chain probe (``compare_parent_chain``)."""
     from ..encoding import r2l_embed
     from ..kernels import r2l_fused as F
     from ..models.r2l import R2LConfig, init_r2l
@@ -342,8 +345,8 @@ def compare_parent(tree: str, log, reps: int = 5) -> None:
     pts = sampler.sample_test(poses[3])
     x = r2l_embed(pts, 10)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = _harness.parent_libs(tree, ("r2l_pe_fused", "r2l_fused"),
-                                    Path(tmp))
+        libs = _harness.parent_libs(
+            tree, ("r2l_pe_fused", "r2l_fused", "probe_chain"), Path(tmp))
         for wd in (torch.bfloat16, torch.float32):
             cfg = R2LConfig(compute_dtype=wd)
             model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
@@ -364,6 +367,53 @@ def compare_parent(tree: str, log, reps: int = 5) -> None:
                      "bit_for_bit": bool(torch.equal(got, want)),
                      "registers": _harness.registers(lib),
                      "parent_registers": libs[lib][1]})
+        compare_parent_chain(tree, libs["probe_chain"], log, dev, reps)
+
+
+def parent_chain(tree: str, lib):
+    """The parent's build ``lib`` of the chain probe as a function (x, w, b,
+    mode, dual, img) -> out: through this checkout's ``probe_mxu.chain``
+    where the parent's takes the staged image too (its ``probe_mxu``
+    defines ``stage_chain``), else through the C interface from before the
+    image, which takes the packed weights."""
+    from . import probe_mxu as PM
+    if _harness.parent_defines(tree, "exp/probe_mxu", "stage_chain"):
+        def run(x, w, b, mode, dual, img):
+            with _harness.loading(lib):
+                return PM.chain(x, w, b, mode, dual, staged=img)
+        return run
+    from ..kernels.r2l_fused import _ptr, _raise_on_error
+    from ..kernels.r2l_train import _stream
+
+    def run(x, w, b, mode, dual, img):
+        out = torch.empty_like(x)
+        _raise_on_error(lib.probe_chain_launch(
+            _ptr(x), x.shape[0], _ptr(w), _ptr(b), _ptr(out), w.shape[0],
+            PM.MODES[mode], int(dual), _stream(x.device)),
+            "the parent's probe_chain")
+        return out
+    return run
+
+
+def compare_parent_chain(tree: str, lib, log, dev, reps: int = 5) -> None:
+    """The chain probe of this checkout against the parent's build ``lib``
+    (CDLL, register lines) at its runner's size (163,840 rays, 86 layers,
+    the weights staged once), in each mode single and dual
+    (``_harness.parent_probe``)."""
+    from . import probe_mxu as PM
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((PM.N_RAYS, PM.W), generator=gen).to(dev)
+    w, b = PM.variant_weights("full", gen, dev)
+    img = PM.stage_chain(w)
+    old = parent_chain(tree, lib[0])
+    for mode in PM.MODES:
+        for dual in (False, True):
+            _harness.parent_probe(
+                f"probe_chain_{mode}{'_dual' if dual else ''}",
+                "probe_chain",
+                lambda: PM.chain(x, w, b, mode, dual, staged=img),
+                lambda: old(x, w, b, mode, dual, img), lib[1], False, log,
+                reps)
 
 
 def main(argv=None) -> None:

@@ -52,7 +52,9 @@ held bit for bit to the base where it keeps the function.
 
 ``--parent TREE`` builds K2 from a parent checkout's sources and holds this
 checkout's to it on a frame in its three forms, bit for bit, in turns, with
-both builds' registers.
+both builds' registers; then the ResMLP body probe (``probe_int8.resmlp``,
+its int8 bodies on K2's chain and its bf16 control on K1's) likewise at its
+runner's size, each body single and dual (``compare_parent_resmlp``).
 
 ``--steps TREE ...`` times instead the five distillation kinds of
 ``chip_smoke.py``'s phase 6 (``xla``, ``fused``, ``fused_int8``,
@@ -358,7 +360,7 @@ def time_k48(names, libs, log, dev, reps: int = 5) -> None:
 def compare_parent(tree: str, log, reps: int = 5) -> None:
     """K2 of this checkout against the parent's build on a lego frame, in
     its three forms: bit for bit, in turns, with both builds'
-    registers."""
+    registers; then the ResMLP body probe (``compare_parent_resmlp``)."""
     from ..evaluate import _calibration_points
     from ..kernels import r2l_fused as F
     from ..models.r2l import R2LConfig, init_r2l
@@ -370,8 +372,9 @@ def compare_parent(tree: str, log, reps: int = 5) -> None:
     model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
     calib = _calibration_points(sampler, poses.cpu().numpy(), dev)
     with tempfile.TemporaryDirectory() as tmp:
-        lib = _harness.parent_libs(tree, ("r2l_int8_hopper",),
-                                   Path(tmp))["r2l_int8_hopper"]
+        libs = _harness.parent_libs(tree, ("r2l_int8_hopper",
+                                           "probe_resmlp"), Path(tmp))
+        lib = libs["r2l_int8_hopper"]
         for form, fold, nob in (("deployed", True, True),
                                 ("fold", True, False),
                                 ("unfolded", False, False)):
@@ -389,6 +392,56 @@ def compare_parent(tree: str, log, reps: int = 5) -> None:
                  "bit_for_bit": bool(torch.equal(got, want)),
                  "registers": _harness.registers("r2l_int8_hopper"),
                  "parent_registers": lib[1]})
+        compare_parent_resmlp(tree, libs["probe_resmlp"], log, dev, reps)
+
+
+def parent_resmlp(tree: str, lib):
+    """The parent's build ``lib`` of the ResMLP body probe as a function
+    (x, w, m, b, body, dual, img) -> out: through this checkout's
+    ``probe_int8.resmlp`` where the parent's takes the staged image too
+    (its ``probe_int8`` defines ``stage_resmlp``), else through the C
+    interface from before the image, which takes the packed w, m and b."""
+    from . import probe_int8 as PI
+    if _harness.parent_defines(tree, "exp/probe_int8", "stage_resmlp"):
+        def run(x, w, m, b, body, dual, img):
+            with _harness.loading(lib):
+                return PI.resmlp(x, w, m, b, body, dual, staged=img)
+        return run
+    from ..kernels.r2l_fused import _ptr, _raise_on_error
+    from ..kernels.r2l_train import _stream
+
+    def run(x, w, m, b, body, dual, img):
+        out = torch.empty_like(x)
+        _raise_on_error(lib.probe_resmlp_launch(
+            _ptr(x), x.shape[0], _ptr(w), None if m is None else _ptr(m),
+            _ptr(b), PI.INV_A, PI.RS, _ptr(out), w.shape[0] // 2,
+            PI.BODIES[body], int(dual), _stream(x.device)),
+            "the parent's probe_resmlp")
+        return out
+    return run
+
+
+def compare_parent_resmlp(tree: str, lib, log, dev, reps: int = 5) -> None:
+    """The ResMLP body probe of this checkout against the parent's build
+    ``lib`` (CDLL, register lines) at its runner's size (163,840 rays, 43
+    blocks, the weights staged once), each body single and dual, the int8
+    bodies bit for bit (``_harness.parent_probe``)."""
+    from . import probe_int8 as PI
+    x = torch.randn((PI.N_RAYS, PI.W),
+                    generator=torch.Generator().manual_seed(0)).to(dev)
+    old = parent_resmlp(tree, lib[0])
+    for name in ("int8_resmlp", "int8_resmlp_fold", "bf16_resmlp"):
+        body = PI.variant_body(name)[0]
+        w, m, b = PI.variant_weights(name, dev)
+        img = PI.stage_resmlp(w, m, b, body)
+        for dual in (False, True):
+            _harness.parent_probe(
+                f"probe_resmlp_{body}{'_dual' if dual else ''}",
+                "probe_resmlp",
+                lambda: PI.resmlp(x, w, m, b, body, dual, staged=img),
+                lambda: old(x, w, m, b, body, dual, img), lib[1],
+                body != "bf16", log, reps)
+        del w, m, b, img
 
 
 def main(argv=None) -> None:

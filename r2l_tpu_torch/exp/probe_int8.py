@@ -6,15 +6,20 @@ Port of ``exp/probe_int8.py``, which measured the real ResMLP epilogue
 to pick K2's design. It times 43 blocks of two W256 layers on [163840, 256]
 f32 (the residual stream in bf16, ``res_scale`` 0.5, the static activation
 scale A_SCALE = 2/127) through the hand-written CUDA kernel
-``kernels/csrc/probe_resmlp.cu`` (replaces ``make_runner``), one entry per
-distinct function of the JAX runner:
+``kernels/csrc/probe_resmlp.cu`` (replaces ``make_runner``): the int8
+bodies on K2's ``wgmma`` s8 chain, the control on K1's bf16 one, two 64-ray
+warpgroups a block, the weights a staged image (``stage_resmlp``: the
+layers' stages and the int8 bodies' epilogue table) bulk-copied into a ring
+shared by a 2-block cluster. One entry per distinct function of the JAX
+runner:
 
 * ``int8_resmlp`` (``resmlp_kernel``, fold=False): quantize, dot, one-FMA
   dequantize, ReLU, quantize, dot, dequantize + residual;
 * ``int8_resmlp_fold`` (fold=True): ReLU and the requantize folded into the
   int32 -> int8 step;
-* ``int8_resmlp_dual``: two 64-ray tiles in flight per block. JAX's
-  ``dual`` (the two half tiles one after the other) and
+* ``int8_resmlp_dual``: the block's two 64-ray warpgroups half a layer
+  apart (single: in lockstep), one tile's products under the other's
+  epilogue. JAX's ``dual`` (the two half tiles one after the other) and
   ``resmlp_kernel_interleaved`` (layer by layer) are the same function:
   rows never mix;
 * ``bf16_resmlp``, ``bf16_resmlp_dual`` (``bf16_kernel``): the bf16
@@ -46,6 +51,8 @@ import torch
 from ..kernels.r2l_fused import (_check, _dequant, _mm_f32, _mm_int, _ptr,
                                   _q8, _raise_on_error)
 from ..kernels.r2l_train import _stream
+from ..kernels.staging import (STAGE_K, Image, check_image, source,
+                               stage_matrices, unstage_matrices)
 from . import _harness
 
 N_BLOCKS = 43
@@ -118,15 +125,78 @@ def resmlp_ref(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor | None,
     return h.float()
 
 
+def epilogue_table(m: torch.Tensor, b: torch.Tensor,
+                   body: str) -> torch.Tensor:
+    """The int8 bodies' epilogue table [2 nb, 256, 2] f32, (m, b) per
+    column of each layer as the kernel's one-FMA dequantize takes them:
+    a block's first layer (m1, b1), or for ``int8_fold`` (m1 * INV_A,
+    b1 * INV_A); its second (m2 * RS, b2 * RS). Each product is the plain
+    version's, an f32 product rounded on its own."""
+    inv_a, rs = _f32(INV_A, m), _f32(RS, m)
+    m, b = m.clone(), b.clone()
+    if body == "int8_fold":
+        m[0::2], b[0::2] = m[0::2] * inv_a, b[0::2] * inv_a
+    m[1::2], b[1::2] = m[1::2] * rs, b[1::2] * rs
+    return torch.stack([m, b], -1).contiguous()
+
+
+def _staged_from(w, m, b, body: str) -> tuple:
+    """The tensors ``stage_resmlp`` stages for ``body``."""
+    return (w,) if body == "bf16" else (w, m, b)
+
+
+def stage_resmlp(w: torch.Tensor, m: torch.Tensor | None, b: torch.Tensor,
+                 body: str = "int8") -> Image:
+    """The image ``resmlp``'s kernel reads for ``body``: the weights w
+    [2 nb, 256, 256] (int8, or bf16 for the control; packed [out, in]),
+    layer by layer, each cut into stages of 128 bytes of each output row
+    (``staging.STAGE_K``) laid out as ``wgmma`` reads B
+    (``staging.stage_matrices``); for the int8
+    bodies the epilogue table of m and b (``epilogue_table``), tagged
+    with ``body`` and the tensors."""
+    if body not in BODIES:
+        raise ValueError(f"body must be one of {tuple(BODIES)}, got "
+                         f"{body!r}")
+    dtype = _BF16 if body == "bf16" else torch.int8
+    if w.dtype != dtype or w.dim() != 3 or tuple(w.shape[1:]) != (W, W):
+        raise ValueError(f"body {body} stages {dtype} [L, {W}, {W}] "
+                         f"weights, got {w.dtype} {tuple(w.shape)}")
+    table = None if body == "bf16" else epilogue_table(m, b, body)
+    return Image(stage_matrices(w.contiguous(), STAGE_K[dtype]), body,
+                 source(*_staged_from(w, m, b, body)), table)
+
+
+def unstage_resmlp(img: Image) -> torch.Tensor:
+    """``stage_resmlp``'s inverse for the weights: the image -> w [2 nb,
+    256, 256] of the type it was staged from."""
+    dtype = _BF16 if img.form == "bf16" else torch.int8
+    return unstage_matrices(img.data, img.source[0][2], STAGE_K[dtype],
+                            dtype)[0]
+
+
+def check_resmlp_image(img: Image, w: torch.Tensor,
+                       m: torch.Tensor | None, b: torch.Tensor,
+                       body: str) -> None:
+    """Raise ValueError unless ``img`` is ``stage_resmlp(w, m, b, body)``
+    of the tensors as they are now, whole."""
+    check_image(img, body, *_staged_from(w, m, b, body),
+                what=f"stage_resmlp(w, m, b, {body!r})")
+    if body != "bf16":
+        _check(img.table, "table", torch.float32, (w.shape[0], W, 2),
+               w.device)
+
+
 def resmlp(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor | None,
-           b: torch.Tensor, body: str = "int8",
-           dual: bool = False) -> torch.Tensor:
+           b: torch.Tensor, body: str = "int8", dual: bool = False,
+           staged: Image | None = None) -> torch.Tensor:
     """x [N, 256] f32 through the ResMLP body of ``w`` [2 nb, 256, 256]
     (int8 for the int8 bodies, bf16 for ``bf16``; packed [out, in]), ``m``
     [2 nb, 256] f32 (the int8 bodies' dequantize multipliers; None for
-    ``bf16``) and ``b`` [2 nb, 256] f32 -> [N, 256] f32. ``dual`` runs two
-    64-ray tiles per block (the same output, bit for bit). CPU tensors take
-    the plain version."""
+    ``bf16``) and ``b`` [2 nb, 256] f32 -> [N, 256] f32. ``dual`` runs the
+    block's two warpgroups half a layer apart (the same output, bit for
+    bit). ``staged`` is ``stage_resmlp(w, m, b, body)``, made here when not
+    given (a caller timing the kernel stages once); another body's or other
+    tensors' image raises. CPU tensors take the plain version."""
     if body not in BODIES:
         raise ValueError(f"body must be one of {tuple(BODIES)}, got "
                          f"{body!r}")
@@ -142,14 +212,18 @@ def resmlp(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor | None,
     _check(b, "b", torch.float32, (L, W), dev)
     if body != "bf16":
         _check(m, "m", torch.float32, (L, W), dev)
+    if staged is None:
+        staged = stage_resmlp(w, m, b, body)
+    check_resmlp_image(staged, w, m, b, body)
     out = torch.empty_like(x)
     lib = _build.load("probe_resmlp")
     with torch.cuda.device(dev):
         resmlp.launches += 1
         rc = lib.probe_resmlp_launch(
-            _ptr(x), x.shape[0], _ptr(w), None if body == "bf16" else _ptr(m),
-            _ptr(b), INV_A, RS, _ptr(out), L // 2, BODIES[body], int(dual),
-            _stream(dev))
+            _ptr(x), x.shape[0], _ptr(staged.data),
+            None if body == "bf16" else _ptr(staged.table),
+            _ptr(b) if body == "bf16" else None, INV_A, RS, _ptr(out),
+            L // 2, BODIES[body], int(dual), _stream(dev))
     _raise_on_error(rc, "probe_resmlp")
     return out
 
@@ -182,9 +256,13 @@ def variant_weights(name: str, device, n_blocks: int = N_BLOCKS) -> tuple:
 def make_variant(name: str, weights: tuple
                  ) -> Callable[[torch.Tensor], torch.Tensor]:
     """x -> the sum of variant ``name``'s output (the JAX runner's
-    ``apply_``), with ``weights`` from ``variant_weights``."""
+    ``apply_``), with ``weights`` from ``variant_weights`` (on the card
+    staged once, here)."""
     body, dual = variant_body(name)
-    return lambda x: resmlp(x, *weights, body=body, dual=dual).sum()
+    staged = (stage_resmlp(*weights, body=body)   # once
+              if weights[0].device.type == "cuda" else None)
+    return lambda x: resmlp(x, *weights, body=body, dual=dual,
+                            staged=staged).sum()
 
 
 def ops_per_frame(n_rays: int = N_RAYS, n_blocks: int = N_BLOCKS) -> float:

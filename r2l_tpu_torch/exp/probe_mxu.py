@@ -7,9 +7,11 @@ tail or encoding) through three hand-written CUDA kernels:
 * ``chain`` (``kernels/csrc/probe_chain.cu``, replaces ``make_chain``):
   modes ``full`` (f32 accumulation, + bias, ReLU, bf16; K1's inner layer),
   ``lean`` (the dot rounded to bf16, + the bias rounded to bf16, ReLU) and
-  ``none`` (the dot rounded to bf16), one 64-ray tile per SM as K1; with
-  ``dual=True`` two warp groups per block each walk their own 64-ray tile
-  (the probe's dual stream: two tiles in flight per SM);
+  ``none`` (the dot rounded to bf16), on K1's ``wgmma`` chain: two 64-ray
+  warpgroups a block, the weights a staged image (``stage_chain``)
+  bulk-copied into a ring shared by a 2-block cluster. The two warpgroups
+  run in lockstep, or with ``dual=True`` half a layer apart (the probe's
+  dual stream: one tile's products under the other's epilogue);
 * ``bign`` (``probe_bign.cu``, replaces ``make_bign``): 43 pairs of
   256 -> 512 -> 256 with ReLU;
 * ``int8_chain`` (``probe_int8_chain.cu``, replaces ``make_int8``): the
@@ -42,6 +44,8 @@ import torch
 from ..kernels.r2l_fused import (_check, _mm_f32, _mm_int, _ptr, _q8,
                                   _raise_on_error)
 from ..kernels.r2l_train import _stream
+from ..kernels.staging import (STAGE_K, Image, check_image, source,
+                               stage_matrices, unstage_matrices)
 from . import _harness
 
 N_LAYERS = 86          # the body of the canonical D=88 net (43 blocks x 2)
@@ -114,12 +118,40 @@ def _check_x(x: torch.Tensor) -> None:
         raise ValueError("x has no rays")
 
 
+def stage_chain(w: torch.Tensor) -> Image:
+    """The image ``chain``'s kernel bulk-copies: the bf16 weights w [L, 256,
+    256] (packed [out, in]), layer by layer, each cut into stages of 64
+    input channels (``staging.STAGE_K``) laid out as ``wgmma`` reads B
+    (``staging.stage_matrices``), tagged with w."""
+    if w.dtype != _BF16 or w.dim() != 3 or tuple(w.shape[1:]) != (W, W):
+        raise ValueError(f"the chain stages bf16 [L, {W}, {W}] weights, "
+                         f"got {w.dtype} {tuple(w.shape)}")
+    return Image(stage_matrices(w.contiguous(), STAGE_K[_BF16]), "chain",
+                 source(w))
+
+
+def unstage_chain(img: Image) -> torch.Tensor:
+    """``stage_chain``'s inverse: the image -> w [L, 256, 256] bf16."""
+    return unstage_matrices(img.data, img.source[0][2], STAGE_K[_BF16],
+                            _BF16)[0]
+
+
+def check_chain_image(img: Image, w: torch.Tensor) -> None:
+    """Raise ValueError unless ``img`` is ``stage_chain(w)`` of w as it is
+    now, whole."""
+    check_image(img, "chain", w, what="stage_chain(w)")
+
+
 def chain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-          mode: str = "full", dual: bool = False) -> torch.Tensor:
+          mode: str = "full", dual: bool = False,
+          staged: Image | None = None) -> torch.Tensor:
     """x [N, 256] f32 through the bf16 chain of ``w`` [L, 256, 256] bf16
     (packed [out, in]) and ``b`` [L, 256] f32 (unused, may be None, in
-    mode ``none``) -> [N, 256] f32. ``dual`` runs two warp groups per block
-    (the same output, bit for bit). CPU tensors take the plain version."""
+    mode ``none``) -> [N, 256] f32. ``dual`` runs the block's two
+    warpgroups half a layer apart (the same output, bit for bit).
+    ``staged`` is ``stage_chain(w)``, made here when not given (a caller
+    timing the kernel stages once); other weights' image raises. CPU
+    tensors take the plain version."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     if x.device.type == "cpu":
@@ -130,13 +162,17 @@ def chain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     _check(w, "w", _BF16, (L, W, W), dev)
     if mode != "none" or b is not None:
         _check(b, "b", torch.float32, (L, W), dev)
+    if staged is None:
+        staged = stage_chain(w)
+    check_chain_image(staged, w)
     out = torch.empty_like(x)
     lib = _build.load("probe_chain")
     with torch.cuda.device(dev):
         chain.launches += 1
         rc = lib.probe_chain_launch(
-            _ptr(x), x.shape[0], _ptr(w), None if b is None else _ptr(b),
-            _ptr(out), L, MODES[mode], int(dual), _stream(dev))
+            _ptr(x), x.shape[0], _ptr(staged.data),
+            None if b is None else _ptr(b), _ptr(out), L, MODES[mode],
+            int(dual), _stream(dev))
     _raise_on_error(rc, "probe_chain")
     return out
 
@@ -260,14 +296,17 @@ def make_variant(name: str, weights: tuple
                  ) -> Callable[[torch.Tensor], torch.Tensor]:
     """x -> the sum of variant ``name``'s output (the JAX factory's
     ``apply_``), with ``weights`` from ``variant_weights`` or
-    ``weights_from_jax``."""
+    ``weights_from_jax`` (on the card the chain's staged once, here)."""
     if name == "bigN":
         return lambda x: bign(x, *weights).sum()
     if name == "int8_static":
         return lambda x: int8_chain(x, *weights).sum()
     dual = name.startswith("dual_")
     mode = name.removeprefix("dual_")
-    return lambda x: chain(x, *weights, mode=mode, dual=dual).sum()
+    w, b = weights
+    staged = stage_chain(w) if w.device.type == "cuda" else None  # once
+    return lambda x: chain(x, w, b, mode=mode, dual=dual,
+                           staged=staged).sum()
 
 
 def ops_per_frame(name: str, n_rays: int = N_RAYS,

@@ -25,14 +25,13 @@ launch in ``.launches``.
 from __future__ import annotations
 
 import argparse
-from typing import NamedTuple
-
 import torch
 
 from ..kernels.r2l_fused import (_check, _mm_f32, _mm_int, _ptr,
                                   _raise_on_error)
 from ..kernels.r2l_train import _stream
-from ..kernels.staging import stage_matrices, unstage_matrices
+from ..kernels.staging import (Image, check_image as _check_image, source,
+                               stage_matrices, unstage_matrices)
 from . import _harness
 
 N_LAYERS = 64
@@ -88,60 +87,39 @@ def _chunked(w: torch.Tensor, chained: bool) -> torch.Tensor:
     return w if chained else w.transpose(0, 1)
 
 
-class ShapeImage(NamedTuple):
-    """``stage_shape_weights``' image: ``data`` the uint8 bytes the kernel
-    bulk-copies, ``chained`` the form whose order they are in, ``source``
-    the weights they were staged from (``_source``)."""
-    data: torch.Tensor
-    chained: bool
-    source: tuple
-
-
-def _source(w: torch.Tensor) -> tuple:
-    """What names w's contents: its storage, shape, type and version (an
-    in-place write bumps the version, so a stale image does not match)."""
-    return (w.device, w.data_ptr(), tuple(w.shape), w.dtype, w._version)
-
-
-def stage_shape_weights(w: torch.Tensor, chained: bool) -> ShapeImage:
+def stage_shape_weights(w: torch.Tensor, chained: bool) -> Image:
     """The image ``unchained``'s kernel bulk-copies: the weights w
     [L, N, K] (packed [out, in]) as [CHUNK, K] blocks in the kernel's
     order (``_chunked``), each cut into stages of STAGE_BYTES of K laid
     out as ``wgmma`` reads B (``staging.stage_matrices``), tagged with the
-    form and w."""
+    form (``chained``) and w."""
     L, N, K = w.shape
     if N % CHUNK or (K * w.element_size()) % STAGE_BYTES:
         raise ValueError(f"the image takes N % {CHUNK} == 0 and K of whole "
                          f"{STAGE_BYTES}-byte stages; got N={N}, K={K}")
-    return ShapeImage(stage_matrices(_chunked(w, chained).contiguous(),
-                                     STAGE_BYTES // w.element_size()),
-                      chained, _source(w))
+    return Image(stage_matrices(_chunked(w, chained).contiguous(),
+                                STAGE_BYTES // w.element_size()),
+                 chained, source(w))
 
 
-def unstage_shape_weights(img: ShapeImage) -> torch.Tensor:
+def unstage_shape_weights(img: Image) -> torch.Tensor:
     """``stage_shape_weights``' inverse: the image -> w [L, N, K] of the
     shape and type it was staged from."""
-    (L, N, K), dtype = img.source[2:4]
+    (L, N, K), dtype = img.source[0][2:4]
     es = torch.empty(0, dtype=dtype).element_size()
-    lead = (L, N // CHUNK) if img.chained else (N // CHUNK, L)
+    lead = (L, N // CHUNK) if img.form else (N // CHUNK, L)
     w = unstage_matrices(img.data, (*lead, CHUNK, K), STAGE_BYTES // es,
                          dtype)[0]
-    if not img.chained:
+    if not img.form:
         w = w.transpose(0, 1)
     return w.reshape(L, N, K)
 
 
-def check_image(img: ShapeImage, w: torch.Tensor, chained: bool) -> None:
+def check_image(img: Image, w: torch.Tensor, chained: bool) -> None:
     """Raise ValueError unless ``img`` is ``stage_shape_weights(w,
     chained)`` of w as it is now, whole."""
-    if not isinstance(img, ShapeImage):
-        raise ValueError("staged must be stage_shape_weights(w, chained)")
-    if img.chained != chained or img.source != _source(w):
-        raise ValueError(f"the image was staged for another form or other "
-                         f"weights (chained={img.chained}); give "
-                         f"stage_shape_weights(w, chained={chained})")
-    _check(img.data, "staged", torch.uint8,
-           (w.numel() * w.element_size(),), w.device)
+    _check_image(img, chained, w,
+                 what=f"stage_shape_weights(w, chained={chained})")
 
 
 def _fits(K: int, dtype: torch.dtype, chained: bool) -> bool:
@@ -152,7 +130,7 @@ def _fits(K: int, dtype: torch.dtype, chained: bool) -> bool:
 
 
 def unchained(x: torch.Tensor, w: torch.Tensor, chained: bool = False,
-              staged: torch.Tensor | None = None) -> torch.Tensor:
+              staged: Image | None = None) -> torch.Tensor:
     """x [rows, K] against the L products with ``w`` [L, N, K] (int8 or
     bf16 like x, packed [out, in]) -> [rows, 1] f32: free, the sum over N
     of the f32 sum of the products; chained (K = N), the sum over N of h

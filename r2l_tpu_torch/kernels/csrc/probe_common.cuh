@@ -1,9 +1,9 @@
-// Pieces shared by the tensor-core probe kernels (probe_chain.cu,
-// probe_bign.cu, probe_int8_chain.cu): a ray tile's input read from a
+// Pieces shared by the tensor-core probe kernels still on the pre-Hopper
+// engines (probe_bign.cu, probe_int8_chain.cu; the chain and ResMLP body
+// probes moved to wgmma, probe_hopper.cuh): a ray tile's input read from a
 // global ray-major [n][256] f32 matrix into shared memory as bf16, and the
 // tile's bf16 activations written back as f32. Both are spread over the
-// `nthr` threads of a group whose own index is `tid` (the whole block, or
-// one of probe_chain.cu's two warp groups).
+// `nthr` threads of a group whose own index is `tid` (the whole block).
 #pragma once
 
 #include "r2l_engines.cuh"

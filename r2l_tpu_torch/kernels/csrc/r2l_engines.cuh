@@ -25,27 +25,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 // The kThreads threads that run one block-wide product together, and their
-// barrier: the whole block by default. tid() is a thread's index in the
-// team (it picks the thread's fragments); ctid() and kCopyThreads are the
-// threads that copy the weight stages, which the barrier covers. A kernel
-// that runs several teams per block passes its own type with the same
-// members: probe_chain.cu's warp groups, each with its own stages and a
-// named barrier; StreamTeam below, whose teams share the block's stages.
+// barrier: the whole block. tid() is a thread's index in the team (it
+// picks the thread's fragments); ctid() and kCopyThreads are the threads
+// that copy the weight stages, which the barrier covers.
 struct BlockTeam {
   static constexpr int kCopyThreads = kThreads;
   __device__ __forceinline__ int tid() const { return threadIdx.x; }
-  __device__ __forceinline__ int ctid() const { return threadIdx.x; }
-  __device__ __forceinline__ void sync() const { __syncthreads(); }
-};
-
-// One of S teams of kThreads threads in a block of S * kThreads, each
-// running its own rows through the same products: the whole block copies
-// each weight stage once and steps the stages together (one block barrier),
-// so the S teams' tensor-core work and epilogues interleave in the SM.
-template <int S>
-struct StreamTeam {
-  static constexpr int kCopyThreads = S * kThreads;
-  __device__ __forceinline__ int tid() const { return threadIdx.x % kThreads; }
   __device__ __forceinline__ int ctid() const { return threadIdx.x; }
   __device__ __forceinline__ void sync() const { __syncthreads(); }
 };

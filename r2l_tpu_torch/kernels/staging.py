@@ -10,6 +10,8 @@ a_lo w_hi + a_hi w_hi), the high part's stage first.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 # Input channels per stage, by weight dtype: 128 bytes of each output row
@@ -51,6 +53,44 @@ def stage_matrices(w: torch.Tensor, k: int) -> torch.Tensor:
     lead_dims = list(range(d))
     return x.permute(*lead_dims, d + 3, d, d + 1, d + 4, d + 2,
                      d + 5).reshape(-1)
+
+
+def source(*tensors) -> tuple:
+    """What names the contents of ``tensors`` (None stays None): each one's
+    storage, shape, type and version (an in-place write bumps the version,
+    so an image staged before it does not match)."""
+    return tuple(None if t is None else (t.device, t.data_ptr(),
+                                         tuple(t.shape), t.dtype, t._version)
+                 for t in tensors)
+
+
+class Image(NamedTuple):
+    """A probe's staged weights: ``data`` the uint8 bytes its kernel
+    bulk-copies, ``form`` what they were staged for (the kernel's form or
+    body, whose order or table they hold), ``source`` the ``source`` of
+    the tensors they were staged from, and ``table`` an epilogue table
+    staged beside them, where the kernel takes one."""
+    data: torch.Tensor
+    form: object
+    source: tuple
+    table: torch.Tensor | None = None
+
+
+def check_image(img: Image, form, *tensors, what: str) -> None:
+    """Raise ValueError unless ``img`` was staged for ``form`` from
+    ``tensors`` as they are now, its data whole: the bytes of the first of
+    them, on its device. ``what`` names the staging call."""
+    if (not isinstance(img, Image) or img.form != form
+            or img.source != source(*tensors)):
+        raise ValueError(f"staged must be {what} of these tensors as they "
+                         f"are now")
+    w, d = tensors[0], img.data
+    nbytes = w.numel() * w.element_size()
+    if (d.dtype != torch.uint8 or tuple(d.shape) != (nbytes,)
+            or d.device != w.device or not d.is_contiguous()):
+        raise ValueError(f"the image of {what} holds {d.dtype} "
+                         f"{tuple(d.shape)} on {d.device}, not {nbytes} "
+                         f"contiguous bytes on {w.device}")
 
 
 def unstage_matrices(staged: torch.Tensor, shape: tuple, k: int,

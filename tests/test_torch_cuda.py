@@ -1126,11 +1126,15 @@ def test_bwd_group_runs_on_wgmma(dev):
 @pytest.mark.parametrize("lib,ops", [
     ("r2l_bwd_qdx", ("bwd_qdx_dh_kernel", "bwd_dw_wgmma_kernel", "IGMMA",
                      "HGMMA")),
-    ("r2l_int8_hopper", ("r2l_int8_streams4_kernel", "IGMMA"))])
+    ("r2l_int8_hopper", ("r2l_int8_streams4_kernel", "IGMMA")),
+    ("probe_resmlp", ("probe_s8_kernel", "probe_bf16_kernel", "IGMMA",
+                      "HGMMA")),
+    ("probe_chain", ("probe_bf16_kernel", "HGMMA"))])
 def test_probe_kernels_run_on_wgmma(dev, lib, ops):
-    """The int8-dL/dx probe's library (its dh walk and K5's dW pass) and
-    K2's, which holds the stream probe's forms, are wgmma only: IGMMA (and
-    HGMMA) in their SASS, no mma.sync (HMMA, IMMA)."""
+    """The int8-dL/dx probe's library (its dh walk and K5's dW pass), K2's,
+    which holds the stream probe's forms, the ResMLP body probe's (int8
+    bodies and the bf16 control) and the chain probe's are wgmma only:
+    IGMMA (and HGMMA) in their SASS, no mma.sync (HMMA, IMMA)."""
     import subprocess
     from r2l_tpu_torch.kernels import _build
     _build.load(lib)

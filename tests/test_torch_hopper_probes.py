@@ -1,19 +1,28 @@
-"""The stream probe's and the int8-dL/dx probe's Hopper forms, on the CPU:
-the layouts their kernels read (``r2l_train.stage_qdx_weights``' image of
-q^T, the S = 4 form's half-stages of K2's image), the int8-dL/dx kernel's
-tiles, and that neither translation unit reaches the pre-Hopper engines.
-The kernels themselves run on the card (``tests/test_torch_cuda.py``)."""
+"""The Hopper forms of the stream, int8-dL/dx, ResMLP body and chain probes,
+on the CPU: the layouts their kernels read (``r2l_train.stage_qdx_weights``'
+image of q^T, the S = 4 form's half-stages of K2's image, the body and
+chain probes' staged images and epilogue tables), the int8-dL/dx kernel's
+tiles, the bf16 bodies' k order held to ``chip_smoke.py``'s limits, that
+none of their translation units reaches the pre-Hopper engines, and how a
+parent comparison calls and holds a parent's build of the body and chain
+probes. The
+kernels themselves run on the card (``tests/test_torch_cuda.py``)."""
 import re
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
+from r2l_tpu_torch.exp import _harness
 from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
+from r2l_tpu_torch.exp import probe_int8 as PI
+from r2l_tpu_torch.exp import probe_mxu as PM
 from r2l_tpu_torch.exp import probe_pipe_lib as PL
 from r2l_tpu_torch.kernels import _build
 from r2l_tpu_torch.kernels import r2l_fused as F
 from r2l_tpu_torch.kernels import r2l_train as T
+from r2l_tpu_torch.kernels.staging import STAGE_K
 from r2l_tpu_torch.models import R2LConfig
 
 
@@ -132,13 +141,219 @@ def _translation_unit(name: str) -> str:
     return "\n".join(out)
 
 
-@pytest.mark.parametrize("lib", ["r2l_int8_hopper", "r2l_bwd_qdx"])
+@pytest.mark.parametrize("lib", ["r2l_int8_hopper", "r2l_bwd_qdx",
+                                 "probe_resmlp", "probe_chain"])
 def test_hopper_probes_reach_no_pre_hopper_engine(lib):
-    """K2's translation unit (which holds the stream probe's forms) and the
-    int8-dL/dx probe's include no pre-Hopper engine and issue no mma.sync:
-    wgmma only."""
+    """K2's translation unit (which holds the stream probe's forms), the
+    int8-dL/dx probe's, the ResMLP body probe's and the chain probe's
+    include no pre-Hopper engine (nor probe_common.cuh, which reaches one)
+    and issue no mma.sync: wgmma only."""
     tu = _translation_unit(lib)
-    assert "r2l_engines.cuh" not in tu
+    assert "r2l_engines.cuh" not in tu and "probe_common.cuh" not in tu
     assert "EngineS8" not in tu and "EngineBF16" not in tu
     assert "mma.sync" not in tu
     assert "wgmma.mma_async" in tu
+
+
+def _stages_read_back(img: np.ndarray, w: np.ndarray, k: int) -> None:
+    """Each layer's stages of ``img`` (``k`` input channels for all 256
+    outputs, in order), read as the kernel's B, are that layer's weights
+    [out, in]; the image holds them whole, nothing else."""
+    L, N, K = w.shape
+    es = w.dtype.itemsize
+    sb = N * k * es
+    assert img.size == L * (K // k) * sb
+    for l in range(L):
+        for st in range(K // k):
+            off = (l * (K // k) + st) * sb
+            got = _read_b(img[off:off + sb], N, k * es).view(w.dtype)
+            np.testing.assert_array_equal(got, w[l, :, st * k:(st + 1) * k])
+
+
+@pytest.mark.parametrize("body", sorted(PI.BODIES))
+def test_resmlp_image_reads_back_its_weights(body):
+    """``stage_resmlp``'s image: each layer's stages of 128 int8 (64 bf16)
+    input channels, read as the kernel's B, hold the weights; ``unstage``
+    gives them back whole."""
+    name = {"int8": "int8_resmlp", "int8_fold": "int8_resmlp_fold",
+            "bf16": "bf16_resmlp"}[body]
+    w, m, b = PI.variant_weights(name, "cpu", n_blocks=2)
+    img = PI.stage_resmlp(w, m, b, body)
+    wn = (w.view(torch.int16) if body == "bf16" else w).numpy()
+    _stages_read_back(img.data.numpy(), wn, STAGE_K[w.dtype])
+    assert torch.equal(PI.unstage_resmlp(img).view(torch.uint8),
+                       w.view(torch.uint8))
+    assert (img.table is None) == (body == "bf16")
+
+
+def test_chain_image_reads_back_its_weights():
+    """``stage_chain``'s image: each layer's four stages of 64 bf16 input
+    channels, read as the kernel's B, hold the weights; ``unstage`` gives
+    them back whole."""
+    w, _ = PM.mk_weights(torch.Generator().manual_seed(0), 3, device="cpu")
+    img = PM.stage_chain(w)
+    _stages_read_back(img.data.numpy(), w.view(torch.int16).numpy(),
+                      STAGE_K[torch.bfloat16])
+    assert torch.equal(PM.unstage_chain(img).view(torch.int16),
+                       w.view(torch.int16))
+
+
+@pytest.mark.parametrize("body", ["int8", "int8_fold"])
+def test_resmlp_table_is_the_plain_products(body):
+    """The epilogue table, as the kernel's one-FMA dequantize takes it: a
+    block's first layer (m1, b1), folded (m1 * inv_a, b1 * inv_a), its
+    second (m2 * rs, b2 * rs), each the plain version's f32 product bit for
+    bit; laid out as the kernel reads it, (m[c], b[c], m[c+1], b[c+1]) a
+    column pair."""
+    w, m, b = PI.variant_weights("int8_resmlp", "cpu", n_blocks=3)
+    table = PI.stage_resmlp(w, m, b, body).table
+    inv_a = torch.tensor(PI.INV_A, dtype=torch.float32)
+    rs = torch.tensor(PI.RS, dtype=torch.float32)
+    for i in range(3):
+        m1, b1, m2, b2 = m[2 * i], b[2 * i], m[2 * i + 1], b[2 * i + 1]
+        if body == "int8_fold":
+            m1, b1 = m1 * inv_a, b1 * inv_a
+        for l, (mm, bb) in enumerate(((m1, b1), (m2 * rs, b2 * rs))):
+            assert torch.equal(table[2 * i + l, :, 0], mm)
+            assert torch.equal(table[2 * i + l, :, 1], bb)
+    pairs = table.view(-1, 128, 4)    # the kernel's float4 a column pair
+    assert torch.equal(pairs[:, 5, 0], table[:, 10, 0])
+    assert torch.equal(pairs[:, 5, 3], table[:, 11, 1])
+
+
+@pytest.mark.parametrize("case", ["stale", "other_weights", "other_body",
+                                  "bare_bytes"])
+def test_a_stale_or_foreign_image_is_refused(case):
+    """The wrappers take only the image of the tensors they are given, as
+    they are: an edit after staging, another tensor, another body or the
+    bare bytes raise ValueError (the checks run on the CPU too)."""
+    w, m, b = PI.variant_weights("int8_resmlp", "cpu", n_blocks=1)
+    img = PI.stage_resmlp(w, m, b, "int8")
+    PI.check_resmlp_image(img, w, m, b, "int8")
+    wc, _ = PM.mk_weights(torch.Generator().manual_seed(1), 2, device="cpu")
+    cimg = PM.stage_chain(wc)
+    PM.check_chain_image(cimg, wc)
+    if case == "stale":
+        m[0, 0] += 1
+        wc[0, 0, 0] += 1
+    bad = {"stale": (img, cimg),
+           "other_weights": (PI.stage_resmlp(w.clone(), m, b, "int8"),
+                             PM.stage_chain(wc.clone())),
+           "other_body": (PI.stage_resmlp(w, m, b, "int8_fold"), cimg),
+           "bare_bytes": (img.data, cimg.data)}[case]
+    with pytest.raises(ValueError):
+        PI.check_resmlp_image(bad[0], w, m, b, "int8")
+    if case != "other_body":
+        with pytest.raises(ValueError):
+            PM.check_chain_image(bad[1], wc)
+
+
+def _mm_k16(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h [N, 256] bf16 times w [256 out, 256 in] bf16 in the kernels' k
+    order: an f32 accumulator takes one wgmma k16 step at a time, each
+    step's sum exact and rounded once to f32 as it is added (an IEEE
+    rounding; the card's tensor cores truncate, ROADMAP C)."""
+    hd, wd = h.double(), w.double()
+    acc = torch.zeros((h.shape[0], w.shape[0]), dtype=torch.float32)
+    for k0 in range(0, h.shape[1], 16):
+        acc = (acc.double() + hd[:, k0:k0 + 16]
+               @ wd[:, k0:k0 + 16].T).float()
+    return acc
+
+
+def _chain_k16(x, w, b, mode):
+    """``chain_ref`` with its products in the kernel's k order."""
+    h = x.to(torch.bfloat16)
+    for i in range(w.shape[0]):
+        acc = _mm_k16(h, w[i])
+        if mode == "full":
+            acc = torch.relu(acc + b[i])
+        elif mode == "lean":
+            acc = torch.relu(acc.to(torch.bfloat16).float()
+                             + b[i].to(torch.bfloat16).float())
+        h = acc.to(torch.bfloat16)
+    return h.float()
+
+
+def _control_k16(x, w, b):
+    """``resmlp_ref``'s bf16 control with its products in the kernel's k
+    order."""
+    rs = torch.tensor(PI.RS, dtype=torch.float32)
+    h = x.to(torch.bfloat16)
+    for i in range(w.shape[0] // 2):
+        t = torch.relu(_mm_k16(h, w[2 * i]) + b[2 * i]).to(torch.bfloat16)
+        h = ((_mm_k16(t, w[2 * i + 1]) + b[2 * i + 1]) * rs
+             + h.float()).to(torch.bfloat16)
+    return h.float()
+
+
+def _rel(got, want):
+    d = (got - want).double()
+    top = float(want.abs().max())
+    return float(d.abs().max()) / top, float(d.pow(2).mean().sqrt()) / top
+
+
+@pytest.mark.parametrize("depth", ["shallow", "deep"])
+@pytest.mark.parametrize("mode", sorted(PM.MODES))
+def test_chain_k_order_keeps_the_probes_limits(mode, depth):
+    """The chain's three modes with their sums in the kernel's k order
+    (16 channels a wgmma step) against the plain version, at chip_smoke's
+    inputs' scale and its limits: 8 layers within ``TOL_PROBE_BF16``'s
+    shallow pair, 86 within its deep one."""
+    L = 8 if depth == "shallow" else PM.N_LAYERS
+    g = torch.Generator().manual_seed(cs.SEED + 71)
+    w, b = PM.mk_weights(g, L, device="cpu")
+    x = torch.randn((256, PM.W), generator=g)
+    got, want = _chain_k16(x, w, b, mode), PM.chain_ref(x, w, b, mode)
+    tol = cs.TOL_PROBE_BF16[depth]
+    rel = _rel(got, want)
+    assert rel[0] <= tol[0] and rel[1] <= tol[1], rel
+
+
+@pytest.mark.parametrize("n_blocks", [cs.PROBE_RESMLP_SHALLOW,
+                                      PI.N_BLOCKS])
+def test_control_k_order_keeps_the_probes_limits(n_blocks):
+    """The ResMLP bf16 control with its sums in the kernel's k order against
+    the plain version at chip_smoke's limits: 4 blocks (8 layers) within
+    ``TOL_PROBE_RESMLP_BF16_SHALLOW``, 43 (86 layers) within
+    ``TOL_PROBE_BF16``'s deep pair."""
+    w, _, b = PI.variant_weights("bf16_resmlp", "cpu", n_blocks=n_blocks)
+    x = torch.randn((256, PI.W), generator=torch.Generator().manual_seed(
+        cs.SEED + 80))
+    got = _control_k16(x, w, b)
+    want = PI.resmlp_ref(x, w, None, b, body="bf16")
+    tol = (cs.TOL_PROBE_RESMLP_BF16_SHALLOW
+           if n_blocks == cs.PROBE_RESMLP_SHALLOW else cs.TOL_PROBE_BF16["deep"])
+    rel = _rel(got, want)
+    assert rel[0] <= tol[0] and rel[1] <= tol[1], rel
+
+
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("module,name", [("exp/probe_mxu", "stage_chain"),
+                                         ("exp/probe_int8", "stage_resmlp")])
+def test_parent_interface_is_read_from_its_sources(tmp_path, module, name,
+                                                   staged):
+    """A parent comparison calls a parent's chain or body probe through this
+    checkout's wrapper only where the parent's module defines the staging
+    (its kernel takes the image); an older parent's takes the packed
+    weights. This checkout's own sources read as staged."""
+    f = tmp_path / "r2l_tpu_torch" / f"{module}.py"
+    f.parent.mkdir(parents=True)
+    f.write_text(f"def {name if staged else 'other'}(w):\n    return w\n")
+    assert _harness.parent_defines(str(tmp_path), module, name) == staged
+    assert _harness.parent_defines(str(cs.REPO), module, name)
+
+
+@pytest.mark.parametrize("exact,delta", [(True, 1e-6), (False, 0.5),
+                                         (False, float("nan"))])
+def test_parent_probe_refuses_builds_that_disagree(exact, delta):
+    """``parent_probe`` holds this checkout's output to the parent's before
+    it times them: an int8 probe bit for bit, a bf16 one within PARENT_REL
+    (twice chip_smoke's deep limit) of the parent's largest |output|; a
+    NaN fails too."""
+    assert _harness.PARENT_REL == 2 * cs.TOL_PROBE_BF16["deep"][0]
+    want = torch.ones((4, PM.W))
+    got = want + delta
+    with pytest.raises(AssertionError, match="differs from the parent"):
+        _harness.parent_probe("p", "probe_chain", lambda: got, lambda: want,
+                              [], exact, _harness.Log(), reps=1)

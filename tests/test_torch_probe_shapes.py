@@ -172,7 +172,7 @@ def test_staged_weights_round_trip_in_the_rings_order(dtype, chained):
     img = S.stage_shape_weights(w, chained)
     staged = img.data
     assert staged.dtype == torch.uint8 and staged.numel() == w.numel() * es
-    assert img.chained == chained
+    assert img.form == chained
     assert torch.equal(S.unstage_shape_weights(img), w)
     ks, slot = S.STAGE_BYTES // es, S.CHUNK * S.STAGE_BYTES
     nst, chunks = K // ks, N // S.CHUNK
