@@ -115,9 +115,11 @@ Phases, in order; any failure raises and exits non-zero:
    and none, each single and dual (dual bit for bit the single), 163,840
    rays x 86 layers and, where the random chain's output is of order one,
    8 layers, timed on its weights staged once (and the staging beside);
-   ``bign``, 43 and 4
-   pairs; ``int8_chain`` at 4 and 8 layers (non-zero, bit for bit) and at
-   86; ``probe_shapes.unchained`` (on wgmma since its redesign) at every
+   ``bign`` (on wgmma since its redesign), 43 and 4 pairs, each reading
+   printed with its share of the limit; ``int8_chain`` (on wgmma since its
+   redesign) at 4 and 8 layers (non-zero, bit for bit) and at 86; both
+   timed on their images staged once (and the staging beside);
+   ``probe_shapes.unchained`` (on wgmma since its redesign) at every
    (M, K, N) of its runner in int8 and bf16, free, and chained at the
    square ones; each against its plain version on the card, timed with it
    (and beside the library call: ``torch.matmul`` of the 64 bf16 products,
@@ -137,7 +139,9 @@ Phases, in order; any failure raises and exits non-zero:
    (``probe_int8.resmlp``, on wgmma since its redesign) int8, folded and
    bf16 at 4 and 43 blocks on 163,840 rays, dual bit for bit the single,
    timed on its image staged once (and the staging beside); the wall
-   (``probe_wall.wall``) in its three modes at 4 and 86 layers; on one
+   (``probe_wall.wall``, on the int8 chain's wgmma kernel since its
+   redesign) in its three modes at 4 and 86 layers, timed on one image
+   staged once (and the staging beside); on one
    400x400 lego frame of the canonical student packed as in phase 3, the
    streams (``probe_pipe_lib.apply_int8_pe_streams``, S = 1, 2, 4, schedules
    of K2's Hopper kernel) bit for bit K2 and their plain version, timed in
@@ -2056,21 +2060,38 @@ def probe_checks(dev) -> dict:
     del w, b, img
 
     w1, w2 = PM.variant_weights("bigN", gen(2), dev)
-    check_rel("probe_bign vs plain, 4 pairs", PM.bign(x, w1[:4], w2[:4]),
-              PM.bign_ref(x, w1[:4], w2[:4]), *TOL_PROBE_BF16["shallow"])
-    c = check_rel(f"probe_bign vs plain ({PM.N_LAYERS // 2} pairs)",
-                  PM.bign(x, w1, w2), PM.bign_ref(x, w1, w2),
-                  *TOL_PROBE_BF16["deep"])
-    res["probe_bign"] = {
-        **c, "ms": time_ms(lambda: PM.bign(x, w1, w2)),
-        "plain_ms": time_ms(lambda: PM.bign_ref(x, w1, w2), reps=1),
-        **bound(PM.ops_per_frame("bigN"), nbytes(x, w1, w2) + out_bytes,
-                "bf16"), "library_ms": None}
-    del w1, w2
+    img = PM.stage_bign(w1, w2)   # once, as the runner stages it
+    r = res["probe_bign"] = {}
+    for depth, P in (("shallow", 4), ("deep", PM.N_LAYERS // 2)):
+        c = r[depth] = check_rel(
+            f"probe_bign vs plain, {P} pairs", PM.bign(
+                x, w1[:P], w2[:P], staged=img if P == w1.shape[0] else None),
+            PM.bign_ref(x, w1[:P], w2[:P]), *TOL_PROBE_BF16[depth])
+        c["share_of_limit"] = [c["max_rel_err"] / TOL_PROBE_BF16[depth][0],
+                               c["rms_rel_err"] / TOL_PROBE_BF16[depth][1]]
+        print(f"[margin] probe_bign, {P} pairs: max-abs "
+              f"{c['max_rel_err']:.3e} is {c['share_of_limit'][0]:.1%} of "
+              f"{TOL_PROBE_BF16[depth][0]:g}, RMS {c['rms_rel_err']:.3e} "
+              f"{c['share_of_limit'][1]:.1%} of {TOL_PROBE_BF16[depth][1]:g} "
+              f"(the tensor cores truncate each k16 step's sum; K = 512 "
+              f"in the second product)", flush=True)
+    r.update({k: r["deep"][k] for k in ("max_abs_err", "max_rel_err",
+                                         "rms_rel_err")})
+    r.update(ms=time_ms(lambda: PM.bign(x, w1, w2, staged=img)),
+             staging_ms=time_ms(lambda: PM.stage_bign(w1, w2)),
+             plain_ms=time_ms(lambda: PM.bign_ref(x, w1, w2), reps=1),
+             **bound(PM.ops_per_frame("bigN"),
+                     nbytes(x, w1, w2) + out_bytes, "bf16"),
+             library_ms=None)
+    print(f"[time] probe_bign: the weights' staging, once per weights, "
+          f"{r['staging_ms']:.3f} ms", flush=True)
+    del w1, w2, img
 
     wq, s = PM.variant_weights("int8_static", gen(3), dev)
+    img = PM.stage_int8_chain(wq, s)   # once, as the runner stages it
     for L in (*PROBE_INT8_DEPTHS, PM.N_LAYERS):
-        got = PM.int8_chain(x, wq[:L], s[:L])
+        got = PM.int8_chain(x, wq[:L], s[:L],
+                            staged=img if L == wq.shape[0] else None)
         check_equal(f"probe_int8_chain vs plain, {L} layers", got,
                     PM.int8_chain_ref(x, wq[:L], s[:L]))
         nonzero = int((got != 0).sum())
@@ -2080,11 +2101,15 @@ def probe_checks(dev) -> dict:
             raise AssertionError(f"probe_int8_chain at {L} layers is all 0")
     res["probe_int8_chain"] = {
         "max_abs_err": 0.0, "nonzero_at_86": nonzero,
-        "ms": time_ms(lambda: PM.int8_chain(x, wq, s)),
+        "ms": time_ms(lambda: PM.int8_chain(x, wq, s, staged=img)),
+        "staging_ms": time_ms(lambda: PM.stage_int8_chain(wq, s)),
         "plain_ms": time_ms(lambda: PM.int8_chain_ref(x, wq, s), reps=1),
         **bound(PM.ops_per_frame("int8_static"),
                 nbytes(x, wq, s) + out_bytes, "int8"), "library_ms": None}
-    del got, wq, s, x
+    print(f"[time] probe_int8_chain: the image's staging, once per "
+          f"weights, {res['probe_int8_chain']['staging_ms']:.3f} ms",
+          flush=True)
+    del got, wq, s, x, img
 
     r = res["probe_shapes"] = {"max_abs_err": 0.0, "bf16_max_rel_err": 0.0,
                                "bf16_chained": {}}
@@ -2227,6 +2252,7 @@ def k2_probe_checks(dev) -> dict:
     from r2l_tpu_torch.exp._harness import chain_ops
     from r2l_tpu_torch.exp import probe_epi as PE
     from r2l_tpu_torch.exp import probe_int8 as PI
+    from r2l_tpu_torch.exp import probe_mxu as PM
     from r2l_tpu_torch.exp import probe_pipe_lib as PL
     from r2l_tpu_torch.exp import probe_wall as PW
     from r2l_tpu_torch.kernels import r2l_fused as F
@@ -2286,24 +2312,30 @@ def k2_probe_checks(dev) -> dict:
     # to 0 by 8 layers (m = 1e-3), so it is non-zero only at 4.
     w, m = PW.make_weights(torch.Generator().manual_seed(SEED + 81),
                            device=dev)
+    img = PM.stage_int8_chain(w, m)   # once, for the three modes
     r = res["probe_wall"] = {"max_abs_err": 0.0}
     for mode in PW.MODES:
         for L in (PROBE_WALL_SHALLOW, PW.N_LAYERS):
             label = f"probe_wall {mode} vs plain, {L} layers"
-            got = PW.wall(x, w[:L], m[:L], mode)
+            got = PW.wall(x, w[:L], m[:L], mode,
+                          staged=img if L == w.shape[0] else None)
             check_equal(label, got, PW.wall_ref(x, w[:L], m[:L], mode))
             if mode != "realistic" or L == PROBE_WALL_SHALLOW:
                 check_nonzero(label, got)
             del got
-        r[mode] = {"ms": time_ms(lambda: PW.wall(x, w, m, mode)),
+        r[mode] = {"ms": time_ms(lambda: PW.wall(x, w, m, mode,
+                                                 staged=img)),
                    "plain_ms": time_ms(lambda: PW.wall_ref(x, w, m, mode),
                                        reps=1)}
         print(f"[time] probe_wall {mode}: kernel {r[mode]['ms']:.3f} ms, "
               f"plain {r[mode]['plain_ms']:.3f} ms", flush=True)
     r.update(ms=r["mxu_only"]["ms"], plain_ms=r["mxu_only"]["plain_ms"],
+             staging_ms=time_ms(lambda: PM.stage_int8_chain(w, m)),
              **bound(PW.ops_per_frame(), nbytes(x, w) + out_bytes, "int8"),
              library_ms=None)
-    del w, m, x
+    print(f"[time] probe_wall: the image's staging, once per weights, "
+          f"{r['staging_ms']:.3f} ms", flush=True)
+    del w, m, x, img
 
     # K2 whole on one 400x400 lego frame of the canonical student, packed as
     # phase 3 packs it (and unfolded, for the epilogue probe's v0).

@@ -27,15 +27,18 @@ H100 (``kernels/csrc/*.cu``) where the JAX package has a Pallas kernel:
 5. The tensor-core probes of the JAX package's ``exp/`` (``exp.probe_mxu``,
    ``exp.probe_shapes``): the 86-layer W256 chain with a full, lean or no
    epilogue, single or as two warp groups in flight, at N=512 and in
-   static-scale int8, and 64 products by shape and dtype, on the engines K1
-   and K2 run; runners that time them by the probes' protocol.
+   static-scale int8, and 64 products by shape and dtype, on K1's and K2's
+   wgmma chains (``kernels/csrc/probe_hopper.cuh``); runners that time them
+   by the probes' protocol. Only the instrument that reads how mma.sync
+   rounds (``probe_shapes.mma_rounding``) keeps the pre-Hopper bf16 engine
+   (``kernels/csrc/r2l_engines.cuh``).
 6. The probes of K2's int8 engine (``exp.probe_int8``, ``exp.probe_wall``,
    ``exp.probe_pipe_lib`` with its driver ``exp.probe_pipe``,
    ``exp.probe_epi``): its ResMLP body with the requantize folded or not,
    two tiles in flight and a bf16 control; the bare product rate and a
    minimal cast; K2 with its ray tile in S streams; K2 with three requantize
-   epilogues. The body and wall probes run K2's pre-Hopper engine
-   (``kernels/csrc/r2l_engines.cuh``); the streams and the epilogues are
+   epilogues. The body and wall probes run K2's wgmma s8 chain
+   (``kernels/csrc/probe_hopper.cuh``); the streams and the epilogues are
    forms of K2's Hopper kernel (``kernels/csrc/r2l_int8_hopper.cuh``, wgmma
    s8), which also takes the reference's ``fold_requant``/``nobf16_inner``
    flags.

@@ -382,14 +382,16 @@ def parent_probe(name: str, lib: str, new: Callable, old: Callable,
     if not), then timed in turns (``in_turns``, the parent's as the
     variant)."""
     got, want = new(), old()
-    diff = float((got - want).abs().max() / want.abs().max())
-    if (exact and not torch.equal(got, want)) or not diff <= PARENT_REL:
+    same = torch.equal(got, want)   # also where both are all 0
+    diff = 0.0 if same else float((got - want).abs().max()
+                                  / want.abs().max())
+    if (exact and not same) or not diff <= PARENT_REL:
         raise AssertionError(f"{name}: this checkout's output differs from "
                              f"the parent's by {diff:.3e} relative")
     del got, want
     base_ms, parent_ms, _ = in_turns(new, old, contextlib.nullcontext, reps)
     log({"name": f"parent_{name}", "base_ms": base_ms,
-         "parent_ms": parent_ms, "max_rel_diff": diff,
+         "parent_ms": parent_ms, "max_rel_diff": diff, "bit_for_bit": same,
          "registers": registers(lib), "parent_registers": parent_regs})
 
 

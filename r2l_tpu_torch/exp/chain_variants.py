@@ -43,7 +43,9 @@ plain version (f32: max-abs, the share of ``chip_smoke.TOL_TRAIN_F32``):
 holds this checkout's to them on a frame, bit for bit, in turns, with both
 builds' registers; then the chain probe (``probe_mxu.chain``, K1's chain
 without its head, residual and tail) likewise at its runner's size, each
-mode single and dual (``compare_parent_chain``).
+mode single and dual (``compare_parent_chain``), and bigN
+(``probe_mxu.bign``, the chain at N=512) at its runner's size
+(``compare_parent_bign``).
 
 ``--steps TREE ...`` times instead the five distillation kinds of
 ``chip_smoke.py``'s phase 6 (the four in bf16, and ``fused`` in f32) in
@@ -335,7 +337,8 @@ def time_variants(names, log, reps: int = 5) -> None:
 def compare_parent(tree: str, log, reps: int = 5) -> None:
     """K1 and K9 (bf16, f32) of this checkout against the parent's build on
     a lego frame: bit for bit, in turns, with both builds' registers; then
-    the chain probe (``compare_parent_chain``)."""
+    the chain probe and bigN (``compare_parent_chain``,
+    ``compare_parent_bign``)."""
     from ..encoding import r2l_embed
     from ..kernels import r2l_fused as F
     from ..models.r2l import R2LConfig, init_r2l
@@ -346,7 +349,8 @@ def compare_parent(tree: str, log, reps: int = 5) -> None:
     x = r2l_embed(pts, 10)
     with tempfile.TemporaryDirectory() as tmp:
         libs = _harness.parent_libs(
-            tree, ("r2l_pe_fused", "r2l_fused", "probe_chain"), Path(tmp))
+            tree, ("r2l_pe_fused", "r2l_fused", "probe_chain", "probe_bign"),
+            Path(tmp))
         for wd in (torch.bfloat16, torch.float32):
             cfg = R2LConfig(compute_dtype=wd)
             model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
@@ -368,6 +372,7 @@ def compare_parent(tree: str, log, reps: int = 5) -> None:
                      "registers": _harness.registers(lib),
                      "parent_registers": libs[lib][1]})
         compare_parent_chain(tree, libs["probe_chain"], log, dev, reps)
+        compare_parent_bign(tree, libs["probe_bign"], log, dev, reps)
 
 
 def parent_chain(tree: str, lib):
@@ -414,6 +419,49 @@ def compare_parent_chain(tree: str, lib, log, dev, reps: int = 5) -> None:
                 lambda: PM.chain(x, w, b, mode, dual, staged=img),
                 lambda: old(x, w, b, mode, dual, img), lib[1], False, log,
                 reps)
+
+
+def parent_bign(tree: str, lib):
+    """The parent's build ``lib`` of bigN as a function (x, w1, w2, img) ->
+    out: through this checkout's ``probe_mxu.bign`` where the parent's
+    takes the staged image too (its ``probe_mxu`` defines ``stage_bign``),
+    else through the C interface from before the image, which takes the
+    packed w1 and w2."""
+    from . import probe_mxu as PM
+    if _harness.parent_defines(tree, "exp/probe_mxu", "stage_bign"):
+        def run(x, w1, w2, img):
+            with _harness.loading(lib):
+                return PM.bign(x, w1, w2, staged=img)
+        return run
+    import ctypes
+    from ..kernels.r2l_fused import _ptr, _raise_on_error
+    from ..kernels.r2l_train import _stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.probe_bign_launch.argtypes = [P, I, P, P, P, I, P]
+
+    def run(x, w1, w2, img):
+        out = torch.empty_like(x)
+        _raise_on_error(lib.probe_bign_launch(
+            _ptr(x), x.shape[0], _ptr(w1), _ptr(w2), _ptr(out), w1.shape[0],
+            _stream(x.device)), "the parent's probe_bign")
+        return out
+    return run
+
+
+def compare_parent_bign(tree: str, lib, log, dev, reps: int = 5) -> None:
+    """bigN of this checkout against the parent's build ``lib`` (CDLL,
+    register lines) at its runner's size (163,840 rays, 43 pairs, the
+    weights staged once) (``_harness.parent_probe``)."""
+    from . import probe_mxu as PM
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((PM.N_RAYS, PM.W), generator=gen).to(dev)
+    w1, w2 = PM.variant_weights("bigN", gen, dev)
+    img = PM.stage_bign(w1, w2)
+    old = parent_bign(tree, lib[0])
+    _harness.parent_probe(
+        "probe_bign", "probe_bign",
+        lambda: PM.bign(x, w1, w2, staged=img),
+        lambda: old(x, w1, w2, img), lib[1], False, log, reps)
 
 
 def main(argv=None) -> None:

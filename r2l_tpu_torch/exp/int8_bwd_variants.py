@@ -50,11 +50,25 @@ K4/K8's (``k48_*``, ``k4_*``) are timed at a distillation step's 81,920
 rays (``chip_smoke.train_points``, the step's calibration points), each
 held bit for bit to the base where it keeps the function.
 
+The int8 chain probe's (``chain8_*``, library ``probe_int8_chain``: the
+static chain of ``probe_mxu.int8_chain`` and the wall's three modes) are
+timed at the runners' size (163,840 rays, 86 layers, each case's image
+staged once), each held bit for bit to the base:
+
+* ``chain8_sched``: every mode on the other schedule (the warpgroups in
+  lockstep where the build runs them half a layer apart, and the other way
+  round);
+* ``chain8_slots4``: K2's four ring slots in place of six;
+* ``chain8_mincastepi``: the static chain with mincast's epilogue (a shift
+  and a byte, no dequantize or quantize; timing only).
+
 ``--parent TREE`` builds K2 from a parent checkout's sources and holds this
 checkout's to it on a frame in its three forms, bit for bit, in turns, with
 both builds' registers; then the ResMLP body probe (``probe_int8.resmlp``,
 its int8 bodies on K2's chain and its bf16 control on K1's) likewise at its
-runner's size, each body single and dual (``compare_parent_resmlp``).
+runner's size, each body single and dual (``compare_parent_resmlp``), and
+the int8 chain probe, static and the wall's three modes
+(``compare_parent_int8_chain``).
 
 ``--steps TREE ...`` times instead the five distillation kinds of
 ``chip_smoke.py``'s phase 6 (``xla``, ``fused``, ``fused_int8``,
@@ -77,6 +91,7 @@ import torch
 from . import _harness
 
 K2 = "r2l_int8_hopper.cuh"
+CHAIN8 = "probe_int8_chain.cu"
 K5 = "r2l_bwd_hopper.cuh"
 RING = "hopper_ring.cuh"
 
@@ -144,6 +159,11 @@ K4_REG_STASH = [
             putq(r0 + 8 * h, c, q.x, q.y);
             stashq(blk + 1, r0 + 8 * h, c, q.x, q.y);""")]
 K4_SLOTS = "  static constexpr int kStages = 4, kParts = 1;"
+# the int8 chain's schedule of each mode (static, mxu_only, mincast) and
+# its ring, as built
+SCHED = "constexpr bool kPingPong[3] = {true, false, true};"
+CHAIN8_SLOTS = "kWGs = 2, kStages = 6;"
+CHAIN8_STATIC = "          if (kMode == kStatic) {"
 
 # name: ([(file, text, replacement)], kernel ("k2" or "k5"), checked output)
 VARIANTS = {
@@ -190,9 +210,15 @@ VARIANTS = {
                                  "kEpi == kTrainQ && W == 256 ? 2 : 4;\n"
                                  "  static constexpr int kParts = 1;")],
                  "k48", True),
+    "chain8_sched": ([(CHAIN8, SCHED, SCHED.replace(
+        "true, false, true", "false, true, false"))], "chain8", True),
+    "chain8_slots4": ([(CHAIN8, CHAIN8_SLOTS, CHAIN8_SLOTS.replace(
+        "kStages = 6", "kStages = 4"))], "chain8", True),
+    "chain8_mincastepi": ([(CHAIN8, CHAIN8_STATIC, "          if (false) {")],
+                          "chain8", False),
 }
 LIBS = {"k2": "r2l_int8_hopper", "k5": "r2l_bwd_group",
-        "k48": "r2l_train_fwd_int8"}
+        "k48": "r2l_train_fwd_int8", "chain8": "probe_int8_chain"}
 # a variant's K4 image stage width where it differs from the build's
 STAGE_K = {"k4_ks128": 128}
 
@@ -272,12 +298,33 @@ def k48_cases(dev):
              fp, q, cfg) for kind, q in (("k4", True), ("k8", False))]
 
 
+def chain8_cases(dev):
+    """[(name, run)] of the int8 chain probe at the runners' size: the
+    static chain (``probe_mxu.int8_chain`` on ``make_int8``'s weights) and
+    the wall's three modes (``probe_wall.make_weights``), each on its image
+    staged once."""
+    from . import probe_mxu as PM
+    from . import probe_wall as PW
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((PM.N_RAYS, PM.W), generator=gen).to(dev)
+    wq, s = PM.variant_weights("int8_static", gen, dev)
+    img = PM.stage_int8_chain(wq, s)
+    w, m = PW.make_weights(gen, device=dev)
+    wimg = PM.stage_int8_chain(w, m)
+    return [("static", lambda: PM.int8_chain(x, wq, s, staged=img))] + [
+        (mode, lambda mode=mode: PW.wall(x, w, m, mode, staged=wimg))
+        for mode in ("mxu_only", "mincast", "realistic")]
+
+
 def agree(kernel: str, got, want) -> float:
-    """K2: the largest difference; K4/K8: the largest rgb difference, or
-    inf where a stash byte differs; K5: 0 for dh bit for bit (else inf),
-    then the worst norm-relative difference of dW and db."""
+    """K2: the largest difference; the int8 chain: 0 bit for bit, else inf;
+    K4/K8: the largest rgb difference, or inf where a stash byte differs;
+    K5: 0 for dh bit for bit (else inf), then the worst norm-relative
+    difference of dW and db."""
     if kernel == "k2":
         return float((got - want).abs().max())
+    if kernel == "chain8":
+        return 0.0 if torch.equal(got, want) else float("inf")
     if kernel == "k48":
         if not torch.equal(got[1].view(torch.uint8),
                            want[1].view(torch.uint8)):
@@ -300,13 +347,13 @@ def time_variants(names, log, reps: int = 5) -> None:
         k48 = [n for n in names if VARIANTS[n][1] == "k48"]
         if k48:
             time_k48(k48, libs, log, dev, reps)
-        for kernel in ("k2", "k5"):
+        cases = {"k2": k2_case, "k5": k5_cases, "chain8": chain8_cases}
+        for kernel, make_cases in cases.items():
             mine = [n for n in names if VARIANTS[n][1] == kernel]
             if not mine:
                 continue
             _build.load(LIBS[kernel])
-            for case, run in (k2_case(dev) if kernel == "k2"
-                              else k5_cases(dev)):
+            for case, run in make_cases(dev):
                 want = run()
                 for name in mine:
                     if case.startswith("f32") != (name in F32_ONLY):
@@ -360,7 +407,8 @@ def time_k48(names, libs, log, dev, reps: int = 5) -> None:
 def compare_parent(tree: str, log, reps: int = 5) -> None:
     """K2 of this checkout against the parent's build on a lego frame, in
     its three forms: bit for bit, in turns, with both builds'
-    registers; then the ResMLP body probe (``compare_parent_resmlp``)."""
+    registers; then the ResMLP body probe and the int8 chain probe
+    (``compare_parent_resmlp``, ``compare_parent_int8_chain``)."""
     from ..evaluate import _calibration_points
     from ..kernels import r2l_fused as F
     from ..models.r2l import R2LConfig, init_r2l
@@ -373,7 +421,8 @@ def compare_parent(tree: str, log, reps: int = 5) -> None:
     calib = _calibration_points(sampler, poses.cpu().numpy(), dev)
     with tempfile.TemporaryDirectory() as tmp:
         libs = _harness.parent_libs(tree, ("r2l_int8_hopper",
-                                           "probe_resmlp"), Path(tmp))
+                                           "probe_resmlp",
+                                           "probe_int8_chain"), Path(tmp))
         lib = libs["r2l_int8_hopper"]
         for form, fold, nob in (("deployed", True, True),
                                 ("fold", True, False),
@@ -393,6 +442,8 @@ def compare_parent(tree: str, log, reps: int = 5) -> None:
                  "registers": _harness.registers("r2l_int8_hopper"),
                  "parent_registers": lib[1]})
         compare_parent_resmlp(tree, libs["probe_resmlp"], log, dev, reps)
+        compare_parent_int8_chain(tree, libs["probe_int8_chain"], log, dev,
+                                  reps)
 
 
 def parent_resmlp(tree: str, lib):
@@ -442,6 +493,60 @@ def compare_parent_resmlp(tree: str, lib, log, dev, reps: int = 5) -> None:
                 lambda: old(x, w, m, b, body, dual, img), lib[1],
                 body != "bf16", log, reps)
         del w, m, b, img
+
+
+def parent_int8_chain(tree: str, lib):
+    """The parent's build ``lib`` of the int8 chain probe as a function (x,
+    wq, s, inv, mode, img) -> out: through this checkout's launcher where
+    the parent's takes the staged image too (its ``probe_mxu`` defines
+    ``stage_int8_chain``), else through the C interface from before the
+    image, which takes the packed wq (the same argument types)."""
+    from . import probe_mxu as PM
+    from ..kernels.r2l_fused import _ptr, _raise_on_error
+    from ..kernels.r2l_train import _stream
+    if _harness.parent_defines(tree, "exp/probe_mxu", "stage_int8_chain"):
+        def run(x, wq, s, inv, mode, img):
+            with _harness.loading(lib):
+                return PM.launch_int8_chain(x, wq, s, img, inv, mode,
+                                            PM.int8_chain)
+        return run
+
+    def run(x, wq, s, inv, mode, img):
+        out = torch.empty_like(x)
+        _raise_on_error(lib.probe_int8_chain_launch(
+            _ptr(x), x.shape[0], _ptr(wq), _ptr(s), float(inv), _ptr(out),
+            wq.shape[0], mode, _stream(x.device)),
+            "the parent's probe_int8_chain")
+        return out
+    return run
+
+
+def compare_parent_int8_chain(tree: str, lib, log, dev,
+                              reps: int = 5) -> None:
+    """The int8 chain probe of this checkout against the parent's build
+    ``lib`` (CDLL, register lines) at the runners' size (163,840 rays, 86
+    layers, each image staged once): the static chain and the wall's three
+    modes, bit for bit (``_harness.parent_probe``). The static chains decay
+    to 0 by 86 layers, so they are also held at a depth where they do not
+    (8 layers static, 4 realistic)."""
+    from . import probe_mxu as PM
+    from . import probe_wall as PW
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((PM.N_RAYS, PM.W), generator=gen).to(dev)
+    old = parent_int8_chain(tree, lib[0])
+    wq, s = PM.variant_weights("int8_static", gen, dev)
+    w, m = PW.make_weights(gen, device=dev)
+    cases = [("static_8", (wq[:8], s[:8]), 1.0 / PM.A_SCALE, 0),
+             ("static", (wq, s), 1.0 / PM.A_SCALE, 0),
+             ("wall_realistic_4", (w[:4], m[:4]), PW.INV, 0)]
+    cases += [(f"wall_{k}", (w, m), PW.INV, v) for k, v in PW.MODES.items()]
+    for name, ws, inv, mode in cases:
+        img = PM.stage_int8_chain(*ws)
+        _harness.parent_probe(
+            f"probe_int8_chain_{name}", "probe_int8_chain",
+            lambda: PM.launch_int8_chain(x, *ws, img, inv, mode,
+                                         PM.int8_chain),
+            lambda: old(x, *ws, inv, mode, img), lib[1], True, log, reps)
 
 
 def main(argv=None) -> None:

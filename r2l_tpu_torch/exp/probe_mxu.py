@@ -13,9 +13,11 @@ tail or encoding) through three hand-written CUDA kernels:
   run in lockstep, or with ``dual=True`` half a layer apart (the probe's
   dual stream: one tile's products under the other's epilogue);
 * ``bign`` (``probe_bign.cu``, replaces ``make_bign``): 43 pairs of
-  256 -> 512 -> 256 with ReLU;
+  256 -> 512 -> 256 with ReLU, on the same bf16 chain (``stage_bign``),
+  the two warpgroups in lockstep;
 * ``int8_chain`` (``probe_int8_chain.cu``, replaces ``make_int8``): the
-  static-scale int8 chain on K2's engine.
+  static-scale int8 chain on K2's ``wgmma`` s8 chain
+  (``stage_int8_chain``: the weights and the scale table).
 
 JAX asks ``lean``, ``none`` and ``bigN`` for a bf16 accumulation, which
 neither ``mma.sync`` nor ``wgmma`` has: the port sums in f32 and rounds
@@ -190,10 +192,53 @@ def bign_ref(x: torch.Tensor, w1: torch.Tensor,
     return h.float()
 
 
-def bign(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+def stage_bign(w1: torch.Tensor, w2: torch.Tensor) -> Image:
+    """The image ``bign``'s kernel bulk-copies: per pair, W1's two 256-row
+    halves (four stages of 64 input channels each), then W2 (eight), each
+    stage laid out as ``wgmma`` reads B (``staging.stage_matrices``), from
+    ``w1`` [P, 512, 256] and ``w2`` [P, 256, 512] bf16 (packed [out, in]),
+    tagged with both."""
+    P = w1.shape[0]
+    if (w1.dtype != _BF16 or w2.dtype != _BF16 or w1.dim() != 3
+            or tuple(w1.shape[1:]) != (2 * W, W)
+            or tuple(w2.shape) != (P, W, 2 * W)):
+        raise ValueError(f"bign stages bf16 [P, {2 * W}, {W}] and [P, {W}, "
+                         f"{2 * W}] weights, got {w1.dtype} "
+                         f"{tuple(w1.shape)} and {w2.dtype} "
+                         f"{tuple(w2.shape)}")
+    k = STAGE_K[_BF16]
+    halves = stage_matrices(w1.contiguous().view(2 * P, W, W), k)
+    second = stage_matrices(w2.contiguous(), k)
+    data = torch.cat([halves.view(P, -1), second.view(P, -1)], 1)
+    return Image(data.view(-1), "bign", source(w1, w2))
+
+
+def unstage_bign(img: Image) -> tuple[torch.Tensor, torch.Tensor]:
+    """``stage_bign``'s inverse: the image -> (w1 [P, 512, 256], w2 [P,
+    256, 512]) bf16."""
+    P = img.source[0][2][0]
+    k = STAGE_K[_BF16]
+    pairs = img.data.view(P, 2, -1)
+    w1 = unstage_matrices(pairs[:, 0].reshape(-1), (2 * P, W, W), k,
+                          _BF16)[0]
+    w2 = unstage_matrices(pairs[:, 1].reshape(-1), (P, W, 2 * W), k,
+                          _BF16)[0]
+    return w1.view(P, 2 * W, W), w2
+
+
+def check_bign_image(img: Image, w1: torch.Tensor, w2: torch.Tensor) -> None:
+    """Raise ValueError unless ``img`` is ``stage_bign(w1, w2)`` of the
+    tensors as they are now, whole."""
+    check_image(img, "bign", w1, w2, what="stage_bign(w1, w2)", held=2)
+
+
+def bign(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+         staged: Image | None = None) -> torch.Tensor:
     """x [N, 256] f32 through pairs h <- relu(relu(h W1_p^T) W2_p^T) in bf16,
     ``w1`` [P, 512, 256] and ``w2`` [P, 256, 512] bf16 (packed [out, in])
-    -> [N, 256] f32. CPU tensors take the plain version."""
+    -> [N, 256] f32. ``staged`` is ``stage_bign(w1, w2)``, made here when
+    not given (a caller timing the kernel stages once); other weights'
+    image raises. CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return bign_ref(x, w1, w2)
     from ..kernels import _build
@@ -201,11 +246,14 @@ def bign(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     _check_x(x)
     _check(w1, "w1", _BF16, (P, 2 * W, W), dev)
     _check(w2, "w2", _BF16, (P, W, 2 * W), dev)
+    if staged is None:
+        staged = stage_bign(w1, w2)
+    check_bign_image(staged, w1, w2)
     out = torch.empty_like(x)
     lib = _build.load("probe_bign")
     with torch.cuda.device(dev):
         bign.launches += 1
-        rc = lib.probe_bign_launch(_ptr(x), x.shape[0], _ptr(w1), _ptr(w2),
+        rc = lib.probe_bign_launch(_ptr(x), x.shape[0], _ptr(staged.data),
                                    _ptr(out), P, _stream(dev))
     _raise_on_error(rc, "probe_bign")
     return out
@@ -227,46 +275,73 @@ def int8_chain_ref(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
     return h.float()
 
 
-def check_int8_chain_args(x: torch.Tensor, wq: torch.Tensor,
-                          s: torch.Tensor | None) -> None:
-    """The int8 chain kernel's arguments (``s`` may be None where the mode
-    does not read it)."""
+def stage_int8_chain(wq: torch.Tensor, s: torch.Tensor) -> Image:
+    """The image the int8 chain's kernel bulk-copies: the int8 weights wq
+    [L, 256, 256] (packed [out, in]), layer by layer, each cut into two
+    stages of 128 input channels (``staging.STAGE_K``) laid out as
+    ``wgmma`` reads B (``staging.stage_matrices``), with its scale table s
+    [L, 256] f32 (read by the static mode only), tagged with both."""
+    if wq.dtype != torch.int8 or wq.dim() != 3 or \
+            tuple(wq.shape[1:]) != (W, W):
+        raise ValueError(f"the int8 chain stages int8 [L, {W}, {W}] "
+                         f"weights, got {wq.dtype} {tuple(wq.shape)}")
+    _check(s, "s", torch.float32, (wq.shape[0], W), wq.device)
+    return Image(stage_matrices(wq.contiguous(), STAGE_K[torch.int8]),
+                 "int8_chain", source(wq, s), s.contiguous())
+
+
+def unstage_int8_chain(img: Image) -> torch.Tensor:
+    """``stage_int8_chain``'s inverse for the weights: the image -> wq [L,
+    256, 256] int8."""
+    return unstage_matrices(img.data, img.source[0][2], STAGE_K[torch.int8],
+                            torch.int8)[0]
+
+
+def check_int8_chain_image(img: Image, wq: torch.Tensor,
+                           s: torch.Tensor) -> None:
+    """Raise ValueError unless ``img`` is ``stage_int8_chain(wq, s)`` of the
+    tensors as they are now, whole."""
+    check_image(img, "int8_chain", wq, s, what="stage_int8_chain(wq, s)")
+
+
+def launch_int8_chain(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
+                      staged: Image | None, inv: float, mode: int,
+                      wrapper: Callable) -> torch.Tensor:
+    """One launch of ``csrc/probe_int8_chain.cu`` in ``mode`` (0 static, 1
+    mxu_only, 2 mincast) on ``staged`` (``stage_int8_chain(wq, s)``, made
+    here when None), after checking the arguments and the image, counted
+    in ``wrapper.launches``."""
+    from ..kernels import _build
     dev, L = x.device, wq.shape[0]
     _check_x(x)
     _check(wq, "wq", torch.int8, (L, W, W), dev)
-    if s is not None:
-        _check(s, "s", torch.float32, (L, W), dev)
-
-
-def launch_int8_chain(x: torch.Tensor, wq: torch.Tensor,
-                      s: torch.Tensor | None, inv: float, mode: int,
-                      wrapper: Callable) -> torch.Tensor:
-    """One launch of ``csrc/probe_int8_chain.cu`` in ``mode`` (0 static, 1
-    mxu_only, 2 mincast) on checked CUDA tensors, counted in
-    ``wrapper.launches``."""
-    from ..kernels import _build
+    _check(s, "s", torch.float32, (L, W), dev)
+    if staged is None:
+        staged = stage_int8_chain(wq, s)
+    check_int8_chain_image(staged, wq, s)
     out = torch.empty_like(x)
     lib = _build.load("probe_int8_chain")
     with torch.cuda.device(x.device):
         wrapper.launches += 1
         rc = lib.probe_int8_chain_launch(
-            _ptr(x), x.shape[0], _ptr(wq), None if s is None else _ptr(s),
+            _ptr(x), x.shape[0], _ptr(staged.data), _ptr(staged.table),
             float(inv), _ptr(out), wq.shape[0], mode, _stream(x.device))
     _raise_on_error(rc, "probe_int8_chain")
     return out
 
 
-def int8_chain(x: torch.Tensor, wq: torch.Tensor,
-               s: torch.Tensor) -> torch.Tensor:
+def int8_chain(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
+               staged: Image | None = None) -> torch.Tensor:
     """x [N, 256] f32 through the static-scale int8 chain: per layer
     q = clip(round_half_even(bf16(h) * (1 / A_SCALE)), ±127), an int32
     dot with ``wq`` [L, 256, 256] int8 (packed [out, in]), h =
     bf16(relu(f32(dot) * s[i])) with ``s`` [L, 256] f32 -> [N, 256] f32.
+    ``staged`` is ``stage_int8_chain(wq, s)``, made here when not given (a
+    caller timing the kernel stages once); other tensors' image raises.
     CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return int8_chain_ref(x, wq, s)
-    check_int8_chain_args(x, wq, s)
-    return launch_int8_chain(x, wq, s, 1.0 / A_SCALE, 0, int8_chain)
+    return launch_int8_chain(x, wq, s, staged, 1.0 / A_SCALE, 0, int8_chain)
 
 
 int8_chain.launches = 0
@@ -296,15 +371,18 @@ def make_variant(name: str, weights: tuple
                  ) -> Callable[[torch.Tensor], torch.Tensor]:
     """x -> the sum of variant ``name``'s output (the JAX factory's
     ``apply_``), with ``weights`` from ``variant_weights`` or
-    ``weights_from_jax`` (on the card the chain's staged once, here)."""
+    ``weights_from_jax`` (on the card staged once, here)."""
+    cuda = weights[0].device.type == "cuda"
     if name == "bigN":
-        return lambda x: bign(x, *weights).sum()
+        staged = stage_bign(*weights) if cuda else None   # once
+        return lambda x: bign(x, *weights, staged=staged).sum()
     if name == "int8_static":
-        return lambda x: int8_chain(x, *weights).sum()
+        staged = stage_int8_chain(*weights) if cuda else None
+        return lambda x: int8_chain(x, *weights, staged=staged).sum()
     dual = name.startswith("dual_")
     mode = name.removeprefix("dual_")
     w, b = weights
-    staged = stage_chain(w) if w.device.type == "cuda" else None  # once
+    staged = stage_chain(w) if cuda else None
     return lambda x: chain(x, w, b, mode=mode, dual=dual,
                            staged=staged).sum()
 

@@ -62,7 +62,7 @@ KERNELS = {
     # the tensor-core probes of r2l_tpu_torch/exp/
     "probe_chain": ("probe_chain_launch",
                     [_P, _I, _P, _P, _P, _I, _I, _I, _P]),
-    "probe_bign": ("probe_bign_launch", [_P, _I, _P, _P, _P, _I, _P]),
+    "probe_bign": ("probe_bign_launch", [_P, _I, _P, _P, _I, _P]),
     "probe_int8_chain": ("probe_int8_chain_launch",
                          [_P, _I, _P, _P, _F, _P, _I, _I, _P]),
     "probe_shapes": ("probe_shapes_launch",

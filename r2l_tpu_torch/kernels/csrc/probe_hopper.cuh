@@ -1,10 +1,13 @@
-// The Hopper skeleton of the two exp/ body probes: the bf16 chain
+// The Hopper skeleton of the exp/ body probes: the bf16 chain
 // (probe_chain.cu, exp/probe_mxu.py::make_chain) and the ResMLP body with
-// its bf16 control (probe_resmlp.cu, exp/probe_int8.py::make_runner).
-// Each is the body of a user kernel without its head, tail or encoding:
-// the chain K1's (r2l_hopper.cuh), the int8 body K2's (r2l_int8_hopper.cuh,
-// whose epilogue helpers it uses), on the same machinery (hopper_ring.cuh,
-// hopper_wgmma.cuh).
+// its bf16 control (probe_resmlp.cu, exp/probe_int8.py::make_runner),
+// whose kernels are here, and the chain at N=512 (probe_bign.cu,
+// make_bign) and the int8 chain in three modes (probe_int8_chain.cu,
+// make_int8 and exp/probe_wall.py::make), whose kernels are in their own
+// files on these pieces. Each is the body of a user kernel without its
+// head, tail or encoding: the bf16 chains K1's (r2l_hopper.cuh), the int8
+// ones K2's (r2l_int8_hopper.cuh, whose epilogue helpers they use), on the
+// same machinery (hopper_ring.cuh, hopper_wgmma.cuh).
 //
 // A block owns 128 rays: two consumer warpgroups of 64 (wgmma's M) and one
 // producer warpgroup, of which one thread bulk-copies the staged weight
@@ -157,6 +160,13 @@ __device__ __forceinline__ __nv_bfloat162& at2(unsigned char* t, int r,
                                                int c) {
   return *reinterpret_cast<__nv_bfloat162*>(t + cm_off(r, 2 * c, 2 * kW));
 }
+// The low bytes of two words (q8b's, or a wrapped int8 cast) into the
+// pair (r, c), c even, of a core-matrix tile of kW int8 a row.
+__device__ __forceinline__ void putq(unsigned char* q, int r, int c, int x0,
+                                     int x1) {
+  *reinterpret_cast<uint16_t*>(q + cm_off(r, c, kW)) =
+      (uint16_t)__byte_perm(x0, x1, 0x0040);
+}
 
 // ---- the bf16 chains: the probe chain's three modes, the control --------
 
@@ -304,15 +314,11 @@ __global__ void __launch_bounds__(kWG * 3, 1)
   const Turns<kDual> turns{wg};
   // the thread's pair (c, c + 1) of its row h in H, the accumulator's order
   auto at = [&](int h, int c) { return ((c / 8) * 2 + h) * kWG + wtid; };
-  // a pair of q8b words into Q at (r, c), c even: their low bytes
-  auto putq = [&](int r, int c, int x0, int x1) {
-    *reinterpret_cast<uint16_t*>(Qm + cm_off(r, c, kW)) =
-        (uint16_t)__byte_perm(x0, x1, 0x0040);
-  };
   // a block's input: q8(f32(h) * inv_a), the product rounded on its own
   auto quantize = [&](int h, int c, __nv_bfloat162 hb) {
     const float2 v = __bfloat1622float2(hb);
-    putq(r0 + 8 * h, c, q8b(__fmul_rn(v.x, inv)), q8b(__fmul_rn(v.y, inv)));
+    putq(Qm, r0 + 8 * h, c, q8b(__fmul_rn(v.x, inv)),
+         q8b(__fmul_rn(v.y, inv)));
   };
 
   each_own(row0, a.n, wtid, [&](int, int h, int c, int g) {
@@ -340,9 +346,10 @@ __global__ void __launch_bounds__(kWG * 3, 1)
             const float t0 = __fmaf_rn(i2f(acc[4 * j + 2 * h]), p.x, p.y);
             const float t1 = __fmaf_rn(i2f(acc[4 * j + 2 * h + 1]), p.z, p.w);
             if (kFold)  // clip(rint(t), 0, 127): the ReLU is the floor
-              putq(r0 + 8 * h, c, q8b_relu(t0), q8b_relu(t1));
+              putq(Qm, r0 + 8 * h, c, q8b_relu(t0), q8b_relu(t1));
             else        // q8(relu(t) * inv_a), no bf16 (K4's kTrainQ)
-              putq(r0 + 8 * h, c, q8b(__fmul_rn(fmaxf(t0, 0.f), inv)),
+              putq(Qm, r0 + 8 * h, c,
+                   q8b(__fmul_rn(fmaxf(t0, 0.f), inv)),
                    q8b(__fmul_rn(fmaxf(t1, 0.f), inv)));
           }
         });

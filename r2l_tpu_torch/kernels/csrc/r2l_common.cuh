@@ -1,7 +1,8 @@
 // Pieces shared by the R2L and NeRF kernels: the positional-encoding
 // ladder, the int8 quantize and dequantize, the sigmoid, cp.async. The
-// pre-Hopper engines' own pieces (thread layouts, mma.sync, their k-loop)
-// are in r2l_engines.cuh.
+// pre-Hopper bf16 engine that the mma.sync rounding instrument
+// (probe_mma_sync.cu) keeps (its thread layout, mma.sync, its k-loop) is in
+// r2l_engines.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

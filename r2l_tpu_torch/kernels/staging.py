@@ -76,16 +76,18 @@ class Image(NamedTuple):
     table: torch.Tensor | None = None
 
 
-def check_image(img: Image, form, *tensors, what: str) -> None:
+def check_image(img: Image, form, *tensors, what: str,
+                held: int = 1) -> None:
     """Raise ValueError unless ``img`` was staged for ``form`` from
-    ``tensors`` as they are now, its data whole: the bytes of the first of
-    them, on its device. ``what`` names the staging call."""
+    ``tensors`` as they are now, its data whole: the bytes of the first
+    ``held`` of them, on the first's device. ``what`` names the staging
+    call."""
     if (not isinstance(img, Image) or img.form != form
             or img.source != source(*tensors)):
         raise ValueError(f"staged must be {what} of these tensors as they "
                          f"are now")
     w, d = tensors[0], img.data
-    nbytes = w.numel() * w.element_size()
+    nbytes = sum(t.numel() * t.element_size() for t in tensors[:held])
     if (d.dtype != torch.uint8 or tuple(d.shape) != (nbytes,)
             or d.device != w.device or not d.is_contiguous()):
         raise ValueError(f"the image of {what} holds {d.dtype} "

@@ -778,31 +778,44 @@ def test_probe_chain_matches_plain_and_dual_equals_single(dev, mode):
 
 
 def test_probe_bign_matches_plain(dev):
+    """bigN on its image staged once (and staged per call: the same bits);
+    another weights' image raises before the launch."""
     from r2l_tpu_torch.exp import probe_mxu as PM
     x = _probe_x(dev)
     w1, w2 = PM.variant_weights("bigN", torch.Generator().manual_seed(5),
                                 dev, n_layers=8)
+    img = PM.stage_bign(w1, w2)
     before = PM.bign.launches
-    got = PM.bign(x, w1, w2)
+    got = PM.bign(x, w1, w2, staged=img)
     torch.cuda.synchronize()
     assert PM.bign.launches == before + 1
     mx, _ = _deltas(got, PM.bign_ref(x, w1, w2))
     assert mx < TOL_BF16, mx
+    assert torch.equal(PM.bign(x, w1, w2), got)
+    with pytest.raises(ValueError):
+        PM.bign(x, w1, w2, staged=PM.stage_bign(w1, w2.clone()))
+    assert PM.bign.launches == before + 2
 
 
 @pytest.mark.parametrize("n_layers", [4, 8])
 def test_probe_int8_chain_equals_plain(dev, n_layers):
+    """The int8 chain on its image staged once, bit for bit; another
+    weights' image raises before the launch."""
     from r2l_tpu_torch.exp import probe_mxu as PM
     x = _probe_x(dev)
     wq, s = PM.variant_weights("int8_static",
                                torch.Generator().manual_seed(6), dev,
                                n_layers=n_layers)
+    img = PM.stage_int8_chain(wq, s)
     before = PM.int8_chain.launches
-    got = PM.int8_chain(x, wq, s)
+    got = PM.int8_chain(x, wq, s, staged=img)
     torch.cuda.synchronize()
     assert PM.int8_chain.launches == before + 1
     assert torch.equal(got, PM.int8_chain_ref(x, wq, s))
     assert float(got.abs().sum()) > 0
+    with pytest.raises(ValueError):
+        PM.int8_chain(x, wq, s, staged=PM.stage_int8_chain(wq.clone(), s))
+    assert PM.int8_chain.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
@@ -973,15 +986,22 @@ def test_probe_resmlp_matches_plain_and_dual_equals_single(dev, body):
 
 @pytest.mark.parametrize("mode", ["mxu_only", "mincast", "realistic"])
 def test_probe_wall_equals_plain(dev, mode):
+    """Each mode on the image staged once for the three, bit for bit;
+    another weights' image raises before the launch."""
+    from r2l_tpu_torch.exp import probe_mxu as PM
     from r2l_tpu_torch.exp import probe_wall as PW
     x = _probe_x(dev)
     w, m = PW.make_weights(torch.Generator().manual_seed(11), 4, dev)
+    img = PM.stage_int8_chain(w, m)
     before = PW.wall.launches
-    got = PW.wall(x, w, m, mode)
+    got = PW.wall(x, w, m, mode, staged=img)
     torch.cuda.synchronize()
     assert PW.wall.launches == before + 1
     assert torch.equal(got, PW.wall_ref(x, w, m, mode))
     assert float(got.abs().sum()) > 0
+    with pytest.raises(ValueError):
+        PW.wall(x, w, m, mode, staged=PM.stage_int8_chain(w.clone(), m))
+    assert PW.wall.launches == before + 1
 
 
 def test_probe_wall_mincast_wraps_on_card(dev):
@@ -1129,12 +1149,15 @@ def test_bwd_group_runs_on_wgmma(dev):
     ("r2l_int8_hopper", ("r2l_int8_streams4_kernel", "IGMMA")),
     ("probe_resmlp", ("probe_s8_kernel", "probe_bf16_kernel", "IGMMA",
                       "HGMMA")),
-    ("probe_chain", ("probe_bf16_kernel", "HGMMA"))])
+    ("probe_chain", ("probe_bf16_kernel", "HGMMA")),
+    ("probe_bign", ("probe_bign_kernel", "HGMMA")),
+    ("probe_int8_chain", ("probe_int8_chain_kernel", "IGMMA"))])
 def test_probe_kernels_run_on_wgmma(dev, lib, ops):
     """The int8-dL/dx probe's library (its dh walk and K5's dW pass), K2's,
     which holds the stream probe's forms, the ResMLP body probe's (int8
-    bodies and the bf16 control) and the chain probe's are wgmma only:
-    IGMMA (and HGMMA) in their SASS, no mma.sync (HMMA, IMMA)."""
+    bodies and the bf16 control), the chain probe's, bigN's and the int8
+    chain's (make_int8 and the wall) are wgmma only: IGMMA (or HGMMA) in
+    their SASS, no mma.sync (HMMA, IMMA)."""
     import subprocess
     from r2l_tpu_torch.kernels import _build
     _build.load(lib)

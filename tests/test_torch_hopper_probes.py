@@ -1,12 +1,13 @@
-"""The Hopper forms of the stream, int8-dL/dx, ResMLP body and chain probes,
-on the CPU: the layouts their kernels read (``r2l_train.stage_qdx_weights``'
-image of q^T, the S = 4 form's half-stages of K2's image, the body and
-chain probes' staged images and epilogue tables), the int8-dL/dx kernel's
-tiles, the bf16 bodies' k order held to ``chip_smoke.py``'s limits, that
-none of their translation units reaches the pre-Hopper engines, and how a
-parent comparison calls and holds a parent's build of the body and chain
-probes. The
-kernels themselves run on the card (``tests/test_torch_cuda.py``)."""
+"""The Hopper forms of the stream, int8-dL/dx, ResMLP body, chain, bigN and
+int8 chain probes, on the CPU: the layouts their kernels read
+(``r2l_train.stage_qdx_weights``' image of q^T, the S = 4 form's
+half-stages of K2's image, the probes' staged images and epilogue and scale
+tables), the int8-dL/dx kernel's tiles, the bf16 bodies' k order held to
+``chip_smoke.py``'s limits, the int8 wall's one accumulator, that none of
+their translation units reaches the pre-Hopper engine (which only the
+mma.sync instrument keeps), and how a parent comparison calls and holds a
+parent's build of the probes. The kernels themselves run on the card
+(``tests/test_torch_cuda.py``)."""
 import re
 
 import numpy as np
@@ -19,6 +20,7 @@ from r2l_tpu_torch.exp import probe_bwd_qdx as PQ
 from r2l_tpu_torch.exp import probe_int8 as PI
 from r2l_tpu_torch.exp import probe_mxu as PM
 from r2l_tpu_torch.exp import probe_pipe_lib as PL
+from r2l_tpu_torch.exp import probe_wall as PW
 from r2l_tpu_torch.kernels import _build
 from r2l_tpu_torch.kernels import r2l_fused as F
 from r2l_tpu_torch.kernels import r2l_train as T
@@ -142,17 +144,34 @@ def _translation_unit(name: str) -> str:
 
 
 @pytest.mark.parametrize("lib", ["r2l_int8_hopper", "r2l_bwd_qdx",
-                                 "probe_resmlp", "probe_chain"])
+                                 "probe_resmlp", "probe_chain", "probe_bign",
+                                 "probe_int8_chain"])
 def test_hopper_probes_reach_no_pre_hopper_engine(lib):
     """K2's translation unit (which holds the stream probe's forms), the
-    int8-dL/dx probe's, the ResMLP body probe's and the chain probe's
-    include no pre-Hopper engine (nor probe_common.cuh, which reaches one)
-    and issue no mma.sync: wgmma only."""
+    int8-dL/dx probe's, the ResMLP body probe's, the chain probe's, bigN's
+    and the int8 chain's include no pre-Hopper engine and issue no
+    mma.sync: wgmma only."""
     tu = _translation_unit(lib)
     assert "r2l_engines.cuh" not in tu and "probe_common.cuh" not in tu
     assert "EngineS8" not in tu and "EngineBF16" not in tu
     assert "mma.sync" not in tu
     assert "wgmma.mma_async" in tu
+
+
+def test_only_the_mma_sync_instrument_keeps_the_pre_hopper_engine():
+    """``probe_common.cuh`` is gone; of every library, only the mma.sync
+    rounding instrument's translation unit reaches ``r2l_engines.cuh``,
+    which holds the bf16 engine alone (no int8 or f32 engine, no team
+    parameter)."""
+    assert not (_build.CSRC / "probe_common.cuh").exists()
+    reach = {name for name in _build.KERNELS
+             if "r2l_engines.cuh" in _translation_unit(name)}
+    assert reach == {"probe_mma_sync"}
+    engines = re.sub(r"//[^\n]*", "",
+                     (_build.CSRC / "r2l_engines.cuh").read_text())
+    assert "EngineBF16" in engines and "mma.sync" in engines
+    for gone in ("EngineS8", "EngineF32", "TileMap", "Team", "mma_s8"):
+        assert gone not in engines, gone
 
 
 def _stages_read_back(img: np.ndarray, w: np.ndarray, k: int) -> None:
@@ -196,6 +215,70 @@ def test_chain_image_reads_back_its_weights():
                       STAGE_K[torch.bfloat16])
     assert torch.equal(PM.unstage_chain(img).view(torch.int16),
                        w.view(torch.int16))
+
+
+def test_bign_image_reads_back_its_weights():
+    """``stage_bign``'s image: per pair, W1's two 256-row halves (four
+    stages of 64 bf16 input channels each), then W2's eight stages, each
+    read as the kernel's B holding those weights; ``unstage`` gives both
+    back whole."""
+    P = 3
+    g = torch.Generator().manual_seed(0)
+    w1, w2 = PM.variant_weights("bigN", g, "cpu", n_layers=2 * P)
+    img = PM.stage_bign(w1, w2)
+    data = img.data.numpy().reshape(P, 2, -1)
+    k = STAGE_K[torch.bfloat16]
+    for p in range(P):
+        _stages_read_back(data[p, 0], w1[p].view(torch.int16).numpy()
+                          .reshape(2, PM.W, PM.W), k)
+        _stages_read_back(data[p, 1], w2[p:p + 1].view(torch.int16).numpy(),
+                          k)
+    b1, b2 = PM.unstage_bign(img)
+    assert torch.equal(b1.view(torch.int16), w1.view(torch.int16))
+    assert torch.equal(b2.view(torch.int16), w2.view(torch.int16))
+
+
+@pytest.mark.parametrize("which", ["int8_static", "wall"])
+def test_int8_chain_image_reads_back_its_weights(which):
+    """``stage_int8_chain``'s image: each layer's two stages of 128 int8
+    input channels, read as the kernel's B, hold the weights; ``unstage``
+    gives them back whole; the scale table is the scales as given."""
+    if which == "wall":
+        wq, s = PW.make_weights(torch.Generator().manual_seed(0), 3, "cpu")
+    else:
+        wq, s = PM.variant_weights(which, torch.Generator().manual_seed(0),
+                                   "cpu", n_layers=3)
+    img = PM.stage_int8_chain(wq, s)
+    _stages_read_back(img.data.numpy(), wq.numpy(), STAGE_K[torch.int8])
+    assert torch.equal(PM.unstage_int8_chain(img), wq)
+    assert torch.equal(img.table, s)
+
+
+@pytest.mark.parametrize("case", ["stale", "other_weights", "other_probe",
+                                  "bare_bytes"])
+def test_a_stale_or_foreign_bign_or_int8_chain_image_is_refused(case):
+    """bigN's and the int8 chain's wrappers take only the image of the
+    tensors they are given, as they are: an edit after staging (of W2, of
+    the scales), another tensor, the other probe's image or the bare bytes
+    raise ValueError."""
+    g = torch.Generator().manual_seed(2)
+    w1, w2 = PM.variant_weights("bigN", g, "cpu", n_layers=4)
+    wq, s = PM.variant_weights("int8_static", g, "cpu", n_layers=2)
+    bimg, qimg = PM.stage_bign(w1, w2), PM.stage_int8_chain(wq, s)
+    PM.check_bign_image(bimg, w1, w2)
+    PM.check_int8_chain_image(qimg, wq, s)
+    if case == "stale":
+        w2[0, 0, 0] += 1
+        s[0, 0] += 1
+    bad = {"stale": (bimg, qimg),
+           "other_weights": (PM.stage_bign(w1, w2.clone()),
+                             PM.stage_int8_chain(wq, s.clone())),
+           "other_probe": (qimg, bimg),
+           "bare_bytes": (bimg.data, qimg.data)}[case]
+    with pytest.raises(ValueError):
+        PM.check_bign_image(bad[0], w1, w2)
+    with pytest.raises(ValueError):
+        PM.check_int8_chain_image(bad[1], wq, s)
 
 
 @pytest.mark.parametrize("body", ["int8", "int8_fold"])
@@ -287,6 +370,17 @@ def _control_k16(x, w, b):
     return h.float()
 
 
+def _bign_k16(x, w1, w2):
+    """``bign_ref`` with its products in the kernel's k order: the second
+    product's K = 512 summed as one accumulator over 32 k16 steps, a's
+    first half (from A0) then its second."""
+    h = x.to(torch.bfloat16)
+    for p in range(w1.shape[0]):
+        a = torch.relu(_mm_k16(h, w1[p])).to(torch.bfloat16)
+        h = torch.relu(_mm_k16(a, w2[p])).to(torch.bfloat16)
+    return h.float()
+
+
 def _rel(got, want):
     d = (got - want).double()
     top = float(want.abs().max())
@@ -310,6 +404,51 @@ def test_chain_k_order_keeps_the_probes_limits(mode, depth):
     assert rel[0] <= tol[0] and rel[1] <= tol[1], rel
 
 
+@pytest.mark.parametrize("depth", ["shallow", "deep"])
+def test_bign_k_order_keeps_the_probes_limits(depth):
+    """bigN with its sums in the kernel's k order (16 channels a wgmma step,
+    K = 512 in the second product of each pair) against the plain version,
+    at chip_smoke's inputs' scale and its limits: 4 pairs within
+    ``TOL_PROBE_BF16``'s shallow pair, 43 within its deep one."""
+    P = 4 if depth == "shallow" else PM.N_LAYERS // 2
+    g = torch.Generator().manual_seed(cs.SEED + 72)
+    w1, w2 = PM.variant_weights("bigN", g, "cpu", n_layers=2 * P)
+    x = torch.randn((256, PM.W), generator=g)
+    got, want = _bign_k16(x, w1, w2), PM.bign_ref(x, w1, w2)
+    tol = cs.TOL_PROBE_BF16[depth]
+    rel = _rel(got, want)
+    assert rel[0] <= tol[0] and rel[1] <= tol[1], rel
+
+
+@pytest.mark.parametrize("case", ["probe", "largest_sum"])
+def test_mxu_only_as_one_accumulator_equals_the_plain_version(case):
+    """The wall's ``mxu_only`` as its kernel computes it, every layer's
+    product added into one int32 accumulator and converted to f32 once,
+    equals ``wall_ref`` (an f32 sum layer by layer) bit for bit: on the
+    probe's weights at full depth, and where the sum is the largest the
+    probe's weights allow, 86 * 256 * 127 * 4 (every q 127, every weight
+    -4), still below 2^24."""
+    L = PW.N_LAYERS
+    if case == "probe":
+        w, m = PW.make_weights(torch.Generator().manual_seed(cs.SEED + 81),
+                               L, "cpu")
+        x = torch.randn((256, PW.W), generator=torch.Generator(
+            ).manual_seed(cs.SEED + 80))
+    else:
+        w = torch.full((L, PW.W, PW.W), -4, dtype=torch.int8)
+        m = torch.full((L, PW.W), PW.M_SCALE)
+        x = torch.full((64, PW.W), 10.0)
+    q = F._q8(x, torch.tensor(PW.INV)).to(torch.int64)
+    acc = torch.zeros((x.shape[0], PW.W), dtype=torch.int64)
+    for i in range(L):
+        acc += q @ w[i].to(torch.int64).T
+    got = acc.to(torch.int32).float()
+    want = PW.wall_ref(x, w, m, "mxu_only")
+    assert torch.equal(got, want)
+    if case == "largest_sum":
+        assert int(acc.abs().max()) == L * PW.W * 127 * 4 < 2 ** 24
+
+
 @pytest.mark.parametrize("n_blocks", [cs.PROBE_RESMLP_SHALLOW,
                                       PI.N_BLOCKS])
 def test_control_k_order_keeps_the_probes_limits(n_blocks):
@@ -330,7 +469,10 @@ def test_control_k_order_keeps_the_probes_limits(n_blocks):
 
 @pytest.mark.parametrize("staged", [True, False])
 @pytest.mark.parametrize("module,name", [("exp/probe_mxu", "stage_chain"),
-                                         ("exp/probe_int8", "stage_resmlp")])
+                                         ("exp/probe_int8", "stage_resmlp"),
+                                         ("exp/probe_mxu", "stage_bign"),
+                                         ("exp/probe_mxu",
+                                          "stage_int8_chain")])
 def test_parent_interface_is_read_from_its_sources(tmp_path, module, name,
                                                    staged):
     """A parent comparison calls a parent's chain or body probe through this
@@ -357,3 +499,17 @@ def test_parent_probe_refuses_builds_that_disagree(exact, delta):
     with pytest.raises(AssertionError, match="differs from the parent"):
         _harness.parent_probe("p", "probe_chain", lambda: got, lambda: want,
                               [], exact, _harness.Log(), reps=1)
+
+
+def test_parent_probe_holds_equal_all_zero_outputs(monkeypatch):
+    """Two builds whose outputs are both all 0 (the static int8 chains decay
+    to 0 by 86 layers) agree bit for bit, with no 0 / 0 in the check; the
+    record says so."""
+    monkeypatch.setattr(_harness, "in_turns",
+                        lambda *a, **k: ([1.0], [1.0], None))
+    recs = []
+    zeros = torch.zeros((4, PM.W))
+    _harness.parent_probe("p", "probe_int8_chain", lambda: zeros,
+                          lambda: zeros.clone(), [], True, recs.append,
+                          reps=1)
+    assert recs[0]["bit_for_bit"] and recs[0]["max_rel_diff"] == 0.0
