@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's student frame path and kernel API, its
 distillation steps, the NeRF teacher's pseudo-data generation, teacher
 training, the tensor-core probes, the given-rays frames, evaluation and
-benchmarks, and checkpoints, resume and export on one NVIDIA GPU.
+benchmarks, checkpoints, resume and export, and the command line on one
+NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -198,6 +199,25 @@ Phases, in order; any failure raises and exits non-zero:
    straight bit for bit. (d) ``export_onnx`` of the canonical student: its
    own parity check, MB and seconds.
 
+17. The command line (``main_cuda.py``'s ``app.train`` and
+   ``r2l_tpu_torch.tools.create_data``) on 11 ray-traced 400x400 views of
+   the sphere written as a Blender folder (PNGs, transforms_*.json), read
+   back by the port's loader: the teacher at configs/lego.txt's widths (30
+   steps, sigma noise 1, a test eval through K6, teacher.msgpack); every
+   create_data mode from it (2 poses each; ``rand`` also as a subprocess
+   of the tool, with the same teacher PSNR and the same shards byte for
+   byte; ``rand --quantize int8`` through K7; ``convert_rays``); rays-mode
+   distillation of the canonical student (README flags, bf16) with
+   ``--fused_train_vjp`` (K3 + K5) and ``--fused_train_int8`` (K4 + K5),
+   20 steps each with a test eval and ckpt_best; images mode (f32, phase
+   10's dtype) on the spiral images; from ckpt_best ``--render_only --render_test`` as a subprocess
+   of main_cuda.py and in process (PSNR equal to the training-time eval),
+   ``--quantize int8`` (K2), ``--benchmark``, ``--convert_to_onnx``, and
+   ``tools.verify_released_ckpt`` on ckpt_best (its K1 path's PSNR that of
+   ``--render_only``). ``[main] cli`` lines: wall s, ms/step (the host wall between the
+   [TRAIN] lines) or ms/frame beside the direct calls' of phases 4, 6, 8
+   and 10, PSNR, peak memory, launches; K1-K7 must each launch.
+
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
 the plain version, kernel and plain ms, the least time the card could take
@@ -206,14 +226,18 @@ line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 import tempfile
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -3123,6 +3147,344 @@ def phase_checkpoints(cfg, sampler, poses, images, img_poses, dev) -> dict:
     return res
 
 
+# Phase 17, the command line on the card: a 400x400 sphere scene written as
+# a Blender folder (PNG and transforms_*.json), then main_cuda.py's
+# app.train and the create-data tool as a user runs them (README.md's flags:
+# configs/lego.txt's teacher, the canonical student, bf16 compute, depth
+# and poses cut to fit the phase). Two commands run as subprocesses of the
+# real entries; the rest in process, so the launch counters can be read.
+CLI_SPLITS = (("train", 8), ("val", 1), ("test", 2))
+CLI_TEACHER_STEPS, CLI_DISTILL_STEPS, CLI_IMAGES_STEPS = 30, 20, 10
+CLI_POSES = 2          # per create_data mode
+CLI_MODES = ("rand", "spiral_evenly_spaced", "rand_tworays", "3x3rays",
+             "rand_images", "16x16patches")
+CLI_STUDENT = (f"--model_name R2L --config {REPO}/configs/lego_noview.txt "
+               "--half_res 0 --n_sample_per_ray 16 --netwidth 256 "
+               "--netdepth 88 --use_residual --trial.ON --trial.body_arch "
+               "resmlp --compute_dtype bfloat16").split()
+CLI_TEACHER = (f"--config {REPO}/configs/lego.txt --model_name nerf "
+               "--half_res 0").split()
+CLI_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+
+def cli_counts() -> dict:
+    """The launch counters of the kernels the command line reaches."""
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.kernels import r2l_train as T
+    return {"K1": F.fused_r2l_apply_pe.launches,
+            "K2": F.fused_r2l_apply_int8_pe.launches,
+            "K3": T.train_fwd.launches, "K4": T.train_fwd_int8.launches,
+            "K5": T.bwd_group.launches, "K6": NR.fused_nerf_render.launches,
+            "K7": NR.fused_nerf_render.launches_int8}
+
+
+def write_blender_scene(base: Path, images: np.ndarray,
+                        poses: np.ndarray) -> None:
+    """Sphere views as a Blender folder: 8-bit PNGs through the port's own
+    writer and transforms_{train,val,test}.json at the lego focal."""
+    from r2l_tpu_torch.evaluate import to8b, write_png
+    cax = 2.0 * float(np.arctan(0.5 * W / FOCAL))
+    i = 0
+    for split, n in CLI_SPLITS:
+        (base / split).mkdir(parents=True)
+        frames = []
+        for k in range(n):
+            write_png(str(base / split / f"r_{k}.png"), to8b(images[i]))
+            c2w = np.concatenate([poses[i], [[0.0, 0.0, 0.0, 1.0]]])
+            frames.append({"file_path": f"./{split}/r_{k}",
+                           "transform_matrix": c2w.tolist()})
+            i += 1
+        with open(base / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": cax, "frames": frames}, f)
+
+
+def cli_inproc(fn, dev) -> tuple:
+    """Run ``fn()`` (an entry's in-process call): (its result, {wall_s,
+    peak_gb, launches of each kernel in the call})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = cli_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t0,
+                 "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                 "launches": {k: v - before[k]
+                              for k, v in cli_counts().items()
+                              if v != before[k]}}
+
+
+def cli_subprocess(argv: list) -> tuple[str, float]:
+    """Run an entry as a user does (``python3 <argv>``) from the checkout:
+    (its stdout, wall seconds); a non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *argv], cwd=REPO,
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        print(out.stdout[-3000:], out.stderr[-3000:], sep="\n", flush=True)
+        raise AssertionError(f"cli: {' '.join(argv[:3])} exited "
+                             f"{out.returncode}")
+    return out.stdout, wall
+
+
+def cli_log(exps: Path, name: str) -> str:
+    (path,) = exps.glob(f"{name}-*/log/log.txt")
+    return path.read_text()
+
+
+def cli_weights(exps: Path, name: str, file: str) -> str:
+    (path,) = exps.glob(f"{name}-*/weights/{file}")
+    return str(path)
+
+
+def cli_found(pattern: str, text: str, what: str) -> list:
+    got = re.findall(pattern, text)
+    if not got:
+        raise AssertionError(f"cli: no {what} in the output")
+    return got
+
+
+def cli_step_ms(marks: list, n_iters: int) -> float:
+    """The CLI's ms/step as its user sees it: the host wall between the
+    [TRAIN] lines at n/2 and at n over the steps between (the second line
+    is printed after its metrics are read back, which waits for the card,
+    so the steps' device time is inside)."""
+    t = dict(marks)
+    h = n_iters // 2
+    return (t[n_iters] - t[h]) * 1e3 / (n_iters - h)
+
+
+def cli_line(name: str, r: dict, extra: str) -> None:
+    print(f"[main] cli {name}: {r['wall_s']:.2f} s wall, {extra}, peak "
+          f"{r['peak_gb']:.2f} GB, launches {r['launches']}", flush=True)
+
+
+def phase_cli(dev, direct: dict) -> dict:
+    """Phase 17: the port's command line on the card (see CLI_* above).
+    ``direct`` holds the direct calls' numbers of phases 4, 6, 8 and 10 to
+    print beside the CLI's."""
+    from r2l_tpu_torch import app
+    from r2l_tpu_torch import logging_ as LG
+    from r2l_tpu_torch.configs import parse_args
+    from r2l_tpu_torch.tools import create_data as tcd
+    from r2l_tpu_torch.tools import verify_released_ckpt as tvr
+    t_phase = time.perf_counter()
+    res: dict = {}
+    marks: list = []   # (iteration, host time) of each [TRAIN] line
+    log_print = LG.Logger.print
+
+    def print_marked(self, *msg, **kw):
+        m = re.match(r"\[TRAIN\] Iter (\d+)/", " ".join(map(str, msg)))
+        if m:
+            marks.append((int(m.group(1)), time.perf_counter()))
+        return log_print(self, *msg, **kw)
+    n_views = sum(n for _, n in CLI_SPLITS)
+    images, poses = sphere_scene(n_views, SEED + 70)
+    start = cli_counts()
+    with mock.patch.object(LG.Logger, "print", print_marked), \
+            tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        scene, exps = tmp / "scene", tmp / "exps"
+        write_blender_scene(scene, images, poses)
+        common = ["--datadir", str(scene), "--testskip", "1",
+                  "--experiments_dir", str(exps)]
+
+        def run(name, argv):
+            marks.clear()
+            out, r = cli_inproc(lambda: app.train(parse_args(
+                argv + ["--experiment_name", name])), dev)
+            res[name] = r
+            return out, r
+
+        # the teacher at lego's widths; sigma noise keeps a random-init
+        # teacher's ReLUs alive (the verify recipe's dead-ReLU collapse)
+        n = CLI_TEACHER_STEPS
+        (_, tbest), r = run("teacher", CLI_TEACHER + common + [
+            "--N_iters", str(n), "--i_print", str(n // 2), "--i_testset",
+            str(n), "--i_weights", str(n), "--raw_noise_std", "1"])
+        r["ms_per_step"] = cli_step_ms(marks, n)
+        r["psnr_v2"] = tbest
+        cli_line("main_cuda.py --model_name nerf (lego, 64+128 samples)", r,
+                 f"{r['ms_per_step']:.3f} ms/step (host wall, steps "
+                 f"{n // 2 + 1}-{n}) vs phase 10's direct {direct['teacher_ms']:.3f}, "
+                 f"test PSNRv2 {tbest:.4f}")
+        teacher = cli_weights(exps, "teacher", "teacher.msgpack")
+
+        # create_data: rand through the tool's entry as a subprocess and in
+        # process (the same teacher PSNR and the same shards), then every
+        # other mode, rand with the int8 teacher, and convert_rays
+        dargv = CLI_TEACHER + common + [
+            "--teacher_ckpt", teacher, "--n_pose_kd", str(CLI_POSES),
+            "--create_data_chunk", str(CLI_POSES)]
+        out, wall = cli_subprocess(
+            ["-m", "r2l_tpu_torch.tools.create_data", *dargv,
+             "--create_data", "rand", "--test_teacher", "--datadir_kd",
+             str(tmp / "rand_sub"), "--experiment_name", "cd_sub"])
+        psnr_sub = cli_found(r"teacher test PSNR ([0-9.]+)", out,
+                             "teacher PSNR")[-1]
+        res["create_data_subprocess"] = {"wall_s": wall}
+        dirs = {}
+        for mode in CLI_MODES + ("rand_int8", "convert_rays"):
+            name = f"cd_{mode}"
+            flags = ["--create_data", mode.replace("_int8", "")]
+            if mode == "rand":
+                flags += ["--test_teacher"]
+            if mode == "rand_int8":
+                flags += ["--quantize", "int8"]
+            dirs[mode] = tmp / mode
+            _, r = cli_inproc(lambda: tcd.main(
+                dargv + flags + ["--datadir_kd", str(dirs[mode]),
+                                 "--experiment_name", name]), dev)
+            res[name] = r
+            files = sorted(os.listdir(dirs[mode]))
+            if not files:
+                raise AssertionError(f"cli create_data {mode}: no files")
+            r["files"] = files
+            kind = "K7" if mode == "rand_int8" else "K6"
+            r["ms_per_pose"] = r["wall_s"] * 1e3 / CLI_POSES
+            extra = (f"{r['ms_per_pose']:.1f} ms/pose (host wall, packing "
+                     f"included) vs phase 8's direct "
+                     f"{direct['datagen_ms'][kind]:.1f}, files {files}")
+            if mode == "convert_rays":
+                extra = f"files {files}"
+            if mode == "rand":
+                psnr_in = cli_found(r"teacher test PSNR ([0-9.]+)",
+                                    cli_log(exps, name), "teacher PSNR")[-1]
+                same = all((dirs[mode] / f).read_bytes()
+                           == (tmp / "rand_sub" / f).read_bytes()
+                           for f in files) and sorted(
+                    os.listdir(tmp / "rand_sub")) == files
+                ok = psnr_in == psnr_sub and same
+                print(f"[check] cli create_data rand: teacher PSNR "
+                      f"subprocess {psnr_sub} in process {psnr_in}, shards "
+                      + ("equal byte for byte" if same else "DIFFER")
+                      + (" ok" if ok else " FAILED"), flush=True)
+                if not ok:
+                    raise AssertionError("cli create_data rand: the "
+                                         "subprocess and in-process runs "
+                                         "differ")
+                r["teacher_psnr"] = float(psnr_in)
+                extra += (f", teacher test PSNR {psnr_in} (the wall holds "
+                          "--test_teacher's 2 frames)")
+            cli_line(f"create_data {mode}", r, extra)
+
+        # distillation, rays mode on the rand shards: fused (K3 + K5), then
+        # fused int8 (K4 + K5); images mode on the spiral images
+        n = CLI_DISTILL_STEPS
+        rays = CLI_STUDENT + common + [
+            "--data_mode", "rays", "--datadir_kd", str(dirs["rand"]),
+            "--N_rand", "20", "--hard_ratio", "0.2", "--hard_mul", "20",
+            "--warmup_lr", "0.0001,200", "--N_iters", str(n), "--i_print",
+            str(n // 2), "--i_testset", str(n), "--fused_train_vjp"]
+        for name, extra_flags, kind in (
+                ("distill", [], "fused"),
+                ("distill_int8", ["--fused_train_int8"], "fused_int8")):
+            (_, best), r = run(name, rays + extra_flags)
+            log = cli_log(exps, name)
+            r["ms_per_step"] = cli_step_ms(marks, n)
+            r["psnr_v2"] = best
+            r["test_psnr"] = cli_found(r"\[TEST\] Iter \d+ TestPSNR "
+                                       r"([0-9.]+)", log, "[TEST]")[-1]
+            d = direct["train"][kind]
+            cli_line(f"main_cuda.py --data_mode rays ({kind})", r,
+                     f"{r['ms_per_step']:.3f} ms/step (host wall, "
+                     f"steps {n // 2 + 1}-{n}) vs phase 6's direct "
+                     f"{d['ms_per_step']:.3f} (host {d['wall_ms_per_step']:.3f})"
+                     f", test PSNR {r['test_psnr']} PSNRv2 {best:.4f}")
+        n = CLI_IMAGES_STEPS
+        (_, best), r = run("images", CLI_STUDENT + common + [
+            "--data_mode", "images", "--datadir_kd",
+            str(dirs["spiral_evenly_spaced"]), "--N_rand", "1024",
+            "--pseudo_ratio", "0.5", "--warmup_lr", "0.0001,200",
+            "--N_iters", str(n), "--i_print", str(n // 2), "--i_testset",
+            str(n), "--compute_dtype", "float32"])
+        r["ms_per_step"] = cli_step_ms(marks, n)
+        cli_line("main_cuda.py --data_mode images (f32, phase 10's dtype)",
+                 r, f"{r['ms_per_step']:.3f} ms/step (host wall, steps "
+                 f"{n // 2 + 1}-{n}) vs phase 10's direct "
+                 f"{direct['images_ms']:.3f}, PSNRv2 {best:.4f}")
+
+        # from the checkpoint: --render_only as a subprocess of main_cuda.py
+        # and in process (both equal to the training-time eval), int8,
+        # --benchmark, --convert_to_onnx
+        best_ckpt = cli_weights(exps, "distill", "ckpt_best.msgpack")
+        ro = CLI_STUDENT + common + ["--render_only", "--render_test",
+                                     "--pretrained_ckpt", best_ckpt]
+        out, wall = cli_subprocess(["main_cuda.py", *ro,
+                                    "--experiment_name", "ro_sub"])
+        psnr_sub = cli_found(r"render_only: PSNR ([0-9.]+)", out,
+                             "render_only PSNR")[-1]
+        res["render_only_subprocess"] = {"wall_s": wall, "psnr": psnr_sub}
+        rres, r = run("render_only", ro)
+        r.update(psnr=rres.test_psnr, psnr_v2=rres.test_psnr_v2,
+                 ms_per_frame=rres.ms_per_frame)
+        train_eval = res["distill"]["test_psnr"]
+        ok = (psnr_sub == train_eval == f"{rres.test_psnr:.4f}"
+              and rres.test_psnr_v2 == res["distill"]["psnr_v2"])
+        print(f"[check] cli --render_only from ckpt_best: PSNR subprocess "
+              f"{psnr_sub}, in process {rres.test_psnr:.4f} (PSNRv2 "
+              f"{rres.test_psnr_v2!r}), training-time eval {train_eval} "
+              f"(PSNRv2 {res['distill']['psnr_v2']!r})"
+              + (" equal ok" if ok else " FAILED"), flush=True)
+        if not ok:
+            raise AssertionError("cli: --render_only differs from the "
+                                 "training-time eval")
+        cli_line("main_cuda.py --render_only --render_test (K1 bf16)", r,
+                 f"{rres.ms_per_frame:.3f} ms/frame vs phase 4's direct "
+                 f"{direct['frame_ms']['pe']:.3f}, PSNR {rres.test_psnr:.4f};"
+                 f" the subprocess {wall:.1f} s wall")
+        qres, r = run("render_int8", ro + ["--quantize", "int8"])
+        r.update(psnr=qres.test_psnr, ms_per_frame=qres.ms_per_frame)
+        cli_line("main_cuda.py --render_only --quantize int8 (K2)", r,
+                 f"{qres.ms_per_frame:.3f} ms/frame vs phase 4's direct "
+                 f"{direct['frame_ms']['int8']:.3f}, PSNR "
+                 f"{qres.test_psnr:.4f} (bf16 {rres.test_psnr:.4f})")
+        fps, r = run("benchmark", CLI_STUDENT + common + [
+            "--benchmark", "--pretrained_ckpt", best_ckpt])
+        r["ms_per_frame"] = 1e3 / fps
+        cli_line("main_cuda.py --benchmark (K1 bf16)", r,
+                 f"{r['ms_per_frame']:.3f} ms/frame vs phase 4's direct "
+                 f"{direct['frame_ms']['pe']:.3f}")
+        path, r = run("onnx", CLI_STUDENT + common + [
+            "--convert_to_onnx", "--pretrained_ckpt", best_ckpt])
+        r["mb"] = os.path.getsize(path) / 1e6
+        cli_line("main_cuda.py --convert_to_onnx", r,
+                 f"{r['mb']:.2f} MB ONNX, parity checked")
+        # the released-checkpoint harness on ckpt_best, report-only: its
+        # pallas path (K1 bf16) renders the --render_only frames
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, r = cli_inproc(lambda: tvr.main([
+                "--ckpt", best_ckpt, "--datadir", str(scene), "--paths",
+                "xla,pallas,int8"]), dev)
+        rep = json.loads(out.getvalue().strip().splitlines()[-1])
+        res["verify_released_ckpt"] = r
+        r["results"] = rep["results"]
+        pallas = rep["results"]["pallas"]["psnr"]
+        ok = rc == 0 and f"{pallas:.4f}" == f"{rres.test_psnr:.4f}"
+        cli_line("verify_released_ckpt --paths xla,pallas,int8", r,
+                 "PSNR " + ", ".join(f"{k} {v['psnr']:.4f}" for k, v in
+                                     rep["results"].items())
+                 + f"; pallas = --render_only's {rres.test_psnr:.4f}"
+                 + (" ok" if ok else " FAILED"))
+        if not ok:
+            raise AssertionError(f"verify_released_ckpt: rc {rc}, {rep}")
+    res["launches"] = {k: v - start[k] for k, v in cli_counts().items()}
+    res["phase_s"] = time.perf_counter() - t_phase
+    missing = [k for k in CLI_KERNELS if res["launches"][k] <= 0]
+    print(f"[main] cli launches in phase 17: {res['launches']}"
+          + (f" FAILED: never launched {missing}" if missing else " ok")
+          + f"; phase 17 took {res['phase_s']:.1f} s", flush=True)
+    if missing:
+        raise AssertionError(f"cli: kernels never launched: {missing}")
+    return res
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3188,6 +3550,14 @@ def main() -> int:
     bench_line = phase_bench_cuda(smi, main_res)
     torch.cuda.empty_cache()
     ck = phase_checkpoints(cfg, sampler, poses, images, img_poses, dev)
+    torch.cuda.empty_cache()
+    cli = phase_cli(dev, {
+        "teacher_ms": ttrain["images"]["ms_per_step"],
+        "images_ms": idist["ms_per_step"],
+        "datagen_ms": {"K6": dgen["f32"]["ms_per_pose"],
+                       "K7": dgen["int8"]["ms_per_pose"]},
+        "train": {k: train[k] for k in ("fused", "fused_int8")},
+        "frame_ms": {k: main_res[k]["ms_per_frame"] for k in ("pe", "int8")}})
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -3208,7 +3578,8 @@ def main() -> int:
         "teacher_train": ttrain, "images_distill": idist,
         "probes": probes, "k2_probes": k2_probes, "bwd_qdx": qdx,
         "givenrays": given, "nerf_bench": nbench,
-        "bench_cuda": bench_line, "checkpoints": ck}}))
+        "bench_cuda": bench_line, "checkpoints": ck,
+        "cli": {k: v for k, v in cli.items()}}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3223,7 +3594,7 @@ def main() -> int:
         entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164",
               main_res["launches"]["pe"] + given["launches"]["pe"]
-              + ck["load"]["launches"]["pe"],
+              + ck["load"]["launches"]["pe"] + cli["launches"]["K1"],
               kern["pe"]),
         entry("fused_r2l_apply_pe_f32", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164", cli_f32["launches"],
@@ -3231,25 +3602,28 @@ def main() -> int:
         entry("fused_r2l_apply_int8_pe", "r2l_int8_hopper.cu",
               "r2l_tpu/kernels/r2l_pallas.py:571",
               main_res["launches"]["int8"] + given["launches"]["int8"]
-              + ck["load"]["launches"]["int8"],
+              + ck["load"]["launches"]["int8"] + cli["launches"]["K2"],
               kern["int8"]),
         entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused"]["train_fwd"]
-              + ck["resume"]["launches"]["train_fwd"],
+              + ck["resume"]["launches"]["train_fwd"]
+              + cli["launches"]["K3"],
               tkern["train_fwd_bf16"]),
         entry("train_fwd_f32", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused_f32"]["train_fwd"],
               tkern["train_fwd_f32"]),
         entry("train_fwd_int8", "r2l_train_fwd_int8.cu", tr + ":182",
               train["launches"]["train_fwd_int8"]
-              + ck["resume"]["launches"]["train_fwd_int8"],
+              + ck["resume"]["launches"]["train_fwd_int8"]
+              + cli["launches"]["K4"],
               tkern["train_fwd_int8"]),
         entry("train_fwd_int8_bf16stash", "r2l_train_fwd_int8.cu",
               tr + ":182", train["launches"]["train_fwd_int8_bf16"],
               tkern["train_fwd_int8_bf16"]),
         entry("bwd_group", "r2l_bwd_group.cu", tr + ":356",
               train["launches"]["bwd_group"]
-              + ck["resume"]["launches"]["bwd_group"],
+              + ck["resume"]["launches"]["bwd_group"]
+              + cli["launches"]["K5"],
               tkern["bwd_group_bf16"]),
         *(entry(f"fused_r2l_apply_{kind}", "r2l_fused.cu",
                 "r2l_tpu/kernels/r2l_pallas.py:270", api[kind]["launches"],
@@ -3258,7 +3632,9 @@ def main() -> int:
                 if kind == "int8" else "nerf_render.cu",
                 "r2l_tpu/kernels/nerf_render_pallas.py:336",
                 dgen[kind]["launches"]
-                + (nbench["launches"] if kind == "f32" else 0),
+                + (nbench["launches"] + cli["launches"]["K6"]
+                   if kind == "f32" else 0)
+                + (cli["launches"]["K7"] if kind == "int8" else 0),
                 teacher[kind])
           for kind in ("f32", "bf16", "int8")),
         *(entry(name, f"{name}.cu", replaces, probes["launches"][name],

@@ -4,7 +4,7 @@ The JAX package ``r2l_tpu`` is the reference: every function here names the
 ``r2l_tpu`` function it reproduces, and ``tests/test_torch_*.py`` hold the
 two to the same output on the same inputs. This package never imports JAX.
 
-Eight slices are ported, through hand-written CUDA kernels for the NVIDIA
+Nine slices are ported, through hand-written CUDA kernels for the NVIDIA
 H100 (``kernels/csrc/*.cu``) where the JAX package has a Pallas kernel:
 
 1. The R2L student's novel-view frame: camera pose ->
@@ -51,6 +51,10 @@ H100 (``kernels/csrc/*.cu``) where the JAX package has a Pallas kernel:
    ``onnx_writer``, ``tools.export_torch_ckpt``): the JAX package's msgpack
    files, byte for byte, and the reference's ``.tar`` files, read and
    written; loaded weights reach the kernels above through the module.
+9. The command line (``app``, ``configs``, ``logging_``, ``flops``, the
+   dataset loaders under ``data/`` with their own PNG decoder, the datagen
+   modes): ``main_cuda.py``, ``tools.create_data`` and
+   ``tools.verify_released_ckpt``, on the card unless ``--platform cpu``.
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 """

@@ -1,4 +1,5 @@
-"""The R2L training data path (ray shards and the batch loader)."""
+"""The R2L training data path (ray shards and the batch loader); the
+dataset loaders are the modules ``blender``, ``llff`` and ``deepvoxels``."""
 from .rayshards import (RayBatchLoader, RayShardDataset, get_pseudo_ratio,
                         shuffle_rays, write_ray_shards)
 

@@ -1372,3 +1372,50 @@ def test_resume_on_card_equals_continuous(dev, kind, tmp_path):
     assert (resumed.step, resumed.lr_count) == (5, 5)
     for a, b in zip(snapshot(resumed), snapshot(straight)):
         assert torch.equal(a, b)
+
+
+def test_cli_render_only_on_card(dev, tmp_path):
+    """main_cuda.py --render_only --render_test on the card, on the 32x32
+    synthetic scene: as a subprocess of the entry (exit 0, a PSNR line), and
+    in process, where K1's counter moves and the frames are bit for bit
+    make_r2l_frame_fn's on the same checkpoint's weights."""
+    import subprocess
+    import sys
+
+    from _torch_scene import write_scene
+    from r2l_tpu_torch import app
+    from r2l_tpu_torch import checkpoint as C
+    from r2l_tpu_torch.configs import args_to_r2l_config, parse_args
+    from r2l_tpu_torch.evaluate import make_r2l_frame_fn
+    from r2l_tpu_torch.models import params_to_jax
+    scene = write_scene(str(tmp_path / "scene"))
+    flags = ("--model_name R2L --n_sample_per_ray 16 --netwidth 128 "
+             "--netdepth 12 --use_residual --trial.ON --trial.body_arch "
+             f"resmlp --compute_dtype bfloat16 --dataset_type blender "
+             f"--datadir {scene} --white_bkgd --testskip 1 "
+             f"--experiments_dir {tmp_path / 'exps'}").split()
+    cfg = args_to_r2l_config(parse_args(flags))
+    model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+    path = str(tmp_path / "student.msgpack")
+    C.save_checkpoint(path, {"params": params_to_jax(model, cfg)})
+    argv = flags + ["--render_only", "--render_test", "--pretrained_ckpt",
+                    path]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "main_cuda.py", *argv], cwd=repo,
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=repo))
+    assert out.returncode == 0, out.stderr[-2000:]
+    (psnr,) = [ln.split("PSNR ")[1].split()[0] for ln in
+               out.stdout.splitlines() if "render_only: PSNR" in ln]
+    F.fused_r2l_apply_pe.launches = 0
+    res = app.train(parse_args(argv))
+    assert F.fused_r2l_apply_pe.launches > 0
+    assert f"{res.test_psnr:.4f}" == psnr
+    ns = app.load_dataset(parse_args(argv), app.Logger(
+        experiments_dir=str(tmp_path / "exps")))
+    sampler = PointSampler(H=ns.H, W=ns.W, focal=ns.focal, n_sample=16,
+                           near=ns.near, far=ns.far)
+    frame_fn = make_r2l_frame_fn(model, cfg, sampler, calib_poses=ns.poses)
+    assert frame_fn.kind == "pe"
+    want = np.stack([frame_fn(p).cpu().numpy() for p in ns.poses[ns.i_test]])
+    np.testing.assert_array_equal(res.frames, want)

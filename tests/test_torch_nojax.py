@@ -8,8 +8,11 @@ fused render on the CPU), takes a teacher step of each mode on images and
 their ray records, runs each exp probe's plain version (the chain and shape
 probes, and K2's body, wall, streams and epilogue probes, and the int8-dL/dx
 walk), renders an int8 given-rays frame and its bench checksum, computes
-SSIM, FLIP and LPIPS, imports ``bench_cuda.py``'s function, and finds none
-of ``jax``, ``r2l_tpu``, ``flax`` and ``msgpack`` in sys.modules. The kernel
+SSIM, FLIP and LPIPS, imports ``bench_cuda.py``'s function, parses the
+command line and maps it to a student config, runs each datagen mode other
+than ``rand``, decodes a PNG and area-resizes it, counts FLOPs, imports
+``main_cuda.py`` and the create-data tool, and finds none of ``jax``,
+``r2l_tpu``, ``flax`` and ``msgpack`` in sys.modules. The kernel
 sources include only the CUDA toolkit's headers and their own."""
 import os
 import subprocess
@@ -178,6 +181,30 @@ for v in (ssim(a, b), flip(a, b), lpips(lp, a, b)):
     assert bool(torch.isfinite(v))
 from bench_cuda import bench as bench_cuda_fn
 assert callable(bench_cuda_fn)
+import main_cuda
+from r2l_tpu_torch.configs import args_to_r2l_config, parse_args
+from r2l_tpu_torch.tools import create_data
+assert callable(main_cuda.train) and callable(create_data.main)
+a = parse_args(["--config", "configs/lego.txt", "--netwidth", "64",
+                "--trial.ON", "--trial.body_arch", "resmlp"])
+assert args_to_r2l_config(a).netwidth == 64
+from r2l_tpu_torch import datagen as DG
+from r2l_tpu_torch.flops import count_params, flops_per_pixel_from_params
+with tempfile.TemporaryDirectory() as tmp:
+    g = DG.DataGenConfig(n_pose=1, H=16, W=16, focal=20.0, save_every=1)
+    for fn in (DG.generate_tworays, DG.generate_3x3rays,
+               DG.generate_rand_images, DG.generate_patches,
+               DG.generate_pseudo_images):
+        kw = {"n_pose": 1} if fn is DG.generate_pseudo_images else {}
+        assert fn(mc, mf, ncfg, vcfg, g, tmp, device="cpu", **kw) >= 1
+    from r2l_tpu_torch.data.imageio_ import read_image, resize_area
+    from r2l_tpu_torch.evaluate import write_png
+    img = (np.random.default_rng(3).uniform(size=(8, 6, 3)) * 255
+           ).astype(np.uint8)
+    write_png(tmp + "/i.png", img)
+    assert (read_image(tmp + "/i.png") == img).all()
+    assert resize_area(img, 3, 4).shape == (4, 3, 3)
+assert count_params(model) > 0 and flops_per_pixel_from_params(model) > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "r2l_tpu", "flax", "msgpack"))
 print(len(names), bad)
@@ -191,15 +218,17 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 19 and bad.strip() == "[]"
+    assert int(n_modules) >= 28 and bad.strip() == "[]"
 
 
 def test_port_sources_name_no_jax_import():
     """No ``import jax`` / ``from jax`` line, nor an import of the JAX
-    package, anywhere in the port, chip_smoke.py or bench_cuda.py."""
+    package, anywhere in the port, chip_smoke.py, bench_cuda.py or
+    main_cuda.py."""
     pkg = os.path.join(REPO, "r2l_tpu_torch")
     paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "bench_cuda.py")]
+             os.path.join(REPO, "bench_cuda.py"),
+             os.path.join(REPO, "main_cuda.py")]
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in paths:
