@@ -218,6 +218,30 @@ Phases, in order; any failure raises and exits non-zero:
    [TRAIN] lines) or ms/frame beside the direct calls' of phases 4, 6, 8
    and 10, PSNR, peak memory, launches; K1-K7 must each launch.
 
+18. JPEG scenes and several devices. (a) Every JPEG fixture of
+   tests/fixtures/jpeg/ (4:4:4, 4:2:2, 4:2:0, grey, a restart interval,
+   odd sizes, EXIF-tagged, the 8 views of the synthetic LLFF scene at
+   504x378, one 4032x3024 image) decoded on this host, which has no
+   imageio, to imageio's sha256 digests, each decode timed. (b) The command
+   line on that LLFF scene at configs/fern.txt's flags (the teacher, 30
+   steps, use_batching and NDC, eval through K6), ``create_data rand``
+   (sigma noise 1: the plain render, as JAX routes it) and ``rand
+   --trans_origin fixed`` (origins 30 units out), rays distillation at
+   fern_noview.txt's and the README's student flags with
+   ``--fused_train_vjp`` (K3 + K5), ``--render_only`` from ckpt_best (K1,
+   equal to the training eval). (c) One NCCL rank through ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1 main_cuda.py
+   --mesh data:1``: distillation with ``--fused_train_vjp`` takes the plain
+   step with the gate's warning, as JAX does under a mesh, its losses and
+   TestPSNR equal to the plain step's in this process; ``--render_only``
+   equal to (b)'s; ``--benchmark``. A one-rank group takes the sharded
+   path (the batch checksum, the gradients' and the loss's all_reduce, the
+   rays' all_gather run over NCCL). (d) A one-rank NCCL group in this
+   process: ``make_r2l_frame_fn(mesh=)`` in pe (K1) and int8 (K2), and two
+   hard-mined plain distillation steps with ``mesh=`` at the CLI's batch,
+   bit for bit the unsharded calls, with their launches and the NCCL
+   collectives counted. K1, K3 and K5 must launch.
+
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
 the plain version, kernel and plain ms, the least time the card could take
@@ -232,6 +256,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3485,6 +3510,340 @@ def phase_cli(dev, direct: dict) -> dict:
 
 
 
+# Phase 18, JPEG scenes and several devices: the JPEG fixtures decoded on
+# host against imageio's digests (no image package is needed); the
+# command line on the synthetic LLFF scene of tests/fixtures/jpeg/llff (8
+# views at 504x378 in images_8/, JPEG as LLFF ships them) at
+# configs/fern.txt's and fern_noview.txt's flags with the steps cut; one
+# NCCL rank through torchrun (--mesh data:1); a one-rank NCCL group in this
+# process, whose sharded frames and distillation steps (their collectives
+# issued on the card) are bit for bit the unsharded ones.
+LLFF_DIR = REPO / "tests" / "fixtures" / "jpeg"
+LLFF_TEACHER = (f"--config {REPO}/configs/fern.txt --model_name nerf"
+                ).split()
+LLFF_STUDENT = (f"--model_name R2L --config {REPO}/configs/fern_noview.txt "
+                "--n_sample_per_ray 16 --netwidth 256 --netdepth 88 "
+                "--use_residual --trial.ON --trial.body_arch resmlp "
+                "--compute_dtype bfloat16").split()
+LLFF_TEACHER_STEPS, LLFF_DISTILL_STEPS, LLFF_MESH_STEPS = 30, 20, 10
+LLFF_POSES = 2
+LLFF_KERNELS = ("K1", "K3", "K5")
+
+
+def phase_jpeg() -> dict:
+    """The fixtures' arrays against imageio's sha256 (digests.json), each
+    decode timed on this host."""
+    import hashlib
+
+    from r2l_tpu_torch.data.imageio_ import read_image
+    with open(LLFF_DIR / "digests.json") as f:
+        digests = json.load(f)
+    res = {}
+    for name, want in sorted(digests.items()):
+        t0 = time.perf_counter()
+        a = read_image(str(LLFF_DIR / name))
+        ms = (time.perf_counter() - t0) * 1e3
+        ok = (list(a.shape) == want["shape"] and hashlib.sha256(
+            a.tobytes()).hexdigest() == want["sha256"])
+        res[name] = {"shape": list(a.shape), "ms": ms, "equal": ok}
+        if not ok:
+            raise AssertionError(f"jpeg {name}: not imageio's array")
+    llff = [v["ms"] for k, v in res.items() if k.startswith("llff/")]
+    full = res["full_4032x3024.jpg"]["ms"]
+    print(f"[check] jpeg: {len(res)} fixtures decode to imageio's digests "
+          "ok (4:4:4, 4:2:2, 4:2:0, grey, restart interval, odd sizes, "
+          "EXIF-tagged, the LLFF scene, full size)", flush=True)
+    print(f"[time] jpeg decode on this host: {np.median(llff):.1f} ms per "
+          f"504x378 LLFF view (median of {len(llff)}), {full:.0f} ms per "
+          "4032x3024 image", flush=True)
+    return {"files": res, "llff_ms": float(np.median(llff)),
+            "full_ms": full}
+
+
+def torchrun(argv: list) -> tuple[str, float]:
+    """main_cuda.py as one NCCL rank: ``torch.distributed.run --standalone
+    --nproc_per_node 1`` (a rendezvous on localhost)."""
+    return cli_subprocess(["-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", "main_cuda.py", *argv])
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """The ``torch.distributed`` collectives issued inside the block, by
+    name (the mesh helpers call them through the module)."""
+    import collections
+
+    import torch.distributed as dist
+    calls = collections.Counter()
+
+    def wrap(name, real):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real(*a, **kw)
+        return call
+    with mock.patch.multiple(dist, **{
+            k: wrap(k, getattr(dist, k))
+            for k in ("all_gather", "all_reduce", "broadcast")}):
+        yield calls
+
+
+def world1_checks(dev, tmp: Path) -> dict:
+    """A one-rank NCCL group in this process, whose mesh takes the sharded
+    paths: ``make_r2l_frame_fn(mesh=)`` in pe (K1) and int8 (K2) on 4 poses
+    of the canonical student at 400x400, and two hard-mined steps of the
+    plain distillation step with ``mesh=`` at the CLI's batch (gradients
+    and loss all_reduced, per-ray losses all_gathered), each against the
+    unsharded calls, bit for bit, with the NCCL collectives counted."""
+    import torch.distributed as dist
+
+    from r2l_tpu_torch.evaluate import make_r2l_frame_fn
+    from r2l_tpu_torch.hardmine import parse_hard_ratio
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    from r2l_tpu_torch.parallel import make_mesh, sharded
+    from r2l_tpu_torch.sampler import PointSampler
+    from r2l_tpu_torch.train import (DistillConfig, init_train_state,
+                                     make_distill_step)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                            rank=0, world_size=1)
+    out = {}
+
+    def report(what, same, calls, extra=""):
+        ok = same and sum(calls.values()) > 0
+        print(f"[check] world-1 NCCL mesh {mesh.shape}: {what} "
+              + ("bit for bit the unsharded" if same else
+                 "DIFFERS from the unsharded")
+              + f", NCCL collectives {dict(sorted(calls.items()))}{extra}"
+              + (" ok" if ok else " FAILED"), flush=True)
+        return ok
+
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        if not sharded(mesh):
+            raise AssertionError("a one-rank NCCL mesh must shard")
+        cfg = R2LConfig(compute_dtype=torch.bfloat16)
+        model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+        sampler = PointSampler(H=H, W=W, focal=FOCAL, n_sample=N_SAMPLE,
+                               near=2.0, far=6.0)
+        poses = lego_poses(4)
+        for kind, kw, key in (("pe", {}, "K1"),
+                              ("int8", {"quantize": "int8"}, "K2")):
+            one = make_r2l_frame_fn(model, cfg, sampler, calib_poses=poses,
+                                    **kw)
+            sh = make_r2l_frame_fn(model, cfg, sampler, calib_poses=poses,
+                                   mesh=mesh, **kw)
+            want = [one(p) for p in poses]
+            before = cli_counts()[key]
+            with counted_collectives() as calls:
+                got = [sh(p) for p in poses]
+                torch.cuda.synchronize()
+            n = cli_counts()[key] - before
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            out[kind] = {"launches": n, "bit_for_bit": same,
+                         "collectives": dict(calls)}
+            if not (report(f"make_r2l_frame_fn(mesh=) {kind} on 4 poses",
+                           same, calls, f", {key} launched {n} times")
+                    and n > 0 and calls["all_gather"] > 0):
+                raise AssertionError(f"world-1 sharded {kind} frames")
+
+        n_in, n_out = parse_hard_ratio(HARD_RATIO, N_RAND)
+        dcfg = DistillConfig(batch_size=N_RAND, n_hard_in=n_in,
+                             n_hard_out=n_out, hard_mul=HARD_MUL,
+                             warmup_lr=WARMUP, embed_L=EMBED_L, perturb=True)
+        fresh = torch.from_numpy(synthetic_rays(N_RAND - n_out, SEED)).to(
+            dev)
+
+        def steps(m):
+            net = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+            state = init_train_state(net, dcfg, device=dev)
+            step = make_distill_step(cfg, dcfg, sampler, device=dev, mesh=m)
+            g = torch.Generator(dev).manual_seed(SEED)
+            losses = []
+            for _ in range(2):
+                state, ms = step(state, fresh, generator=g)
+                losses.append(ms["loss"])
+            torch.cuda.synchronize()
+            return [*losses, *state.params.parameters(), *state.pool]
+
+        want = steps(None)
+        with counted_collectives() as calls:
+            got = steps(mesh)
+        same = len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        out["distill"] = {"bit_for_bit": same, "collectives": dict(calls),
+                          "loss": [float(x) for x in got[:2]]}
+        if not (report(f"2 distillation steps (mesh=, {N_RAND} rays, hard "
+                       "pool): losses, parameters and pool", same, calls,
+                       f", losses {out['distill']['loss']}")
+                and calls["all_reduce"] > 0 and calls["all_gather"] > 0):
+            raise AssertionError("world-1 sharded distillation steps")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_llff_mesh(dev, cli: dict) -> dict:
+    """Phase 18 (see LLFF_* above). ``cli`` holds phase 17's numbers to
+    print beside."""
+    from r2l_tpu_torch import app
+    from r2l_tpu_torch import logging_ as LG
+    from r2l_tpu_torch.configs import parse_args
+    from r2l_tpu_torch.tools import create_data as tcd
+    t_phase = time.perf_counter()
+    res: dict = {"jpeg": phase_jpeg()}
+    marks: list = []
+    log_print = LG.Logger.print
+
+    def print_marked(self, *msg, **kw):
+        m = re.match(r"\[TRAIN\] Iter (\d+)/", " ".join(map(str, msg)))
+        if m:
+            marks.append((int(m.group(1)), time.perf_counter()))
+        return log_print(self, *msg, **kw)
+    start = cli_counts()
+    with mock.patch.object(LG.Logger, "print", print_marked), \
+            tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        scene, exps = tmp / "llff", tmp / "exps"
+        shutil.copytree(LLFF_DIR / "llff", scene)
+        common = ["--datadir", str(scene), "--experiments_dir", str(exps)]
+
+        def run(name, argv):
+            marks.clear()
+            out, r = cli_inproc(lambda: app.train(parse_args(
+                argv + ["--experiment_name", name])), dev)
+            res[name] = r
+            return out, r
+
+        n = LLFF_TEACHER_STEPS
+        (_, tbest), r = run("llff_teacher", LLFF_TEACHER + common + [
+            "--N_iters", str(n), "--i_print", str(n // 2), "--i_testset",
+            str(n), "--i_weights", str(n)])
+        r.update(ms_per_step=cli_step_ms(marks, n), psnr_v2=tbest)
+        cli_line("main_cuda.py fern.txt teacher (LLFF JPEG scene, "
+                 "use_batching, NDC)", r,
+                 f"{r['ms_per_step']:.3f} ms/step (host wall, steps "
+                 f"{n // 2 + 1}-{n}) vs phase 17's lego teacher "
+                 f"{cli['teacher']['ms_per_step']:.3f}, test PSNRv2 "
+                 f"{tbest:.4f}")
+        teacher = cli_weights(exps, "llff_teacher", "teacher.msgpack")
+        dargv = LLFF_TEACHER + common + [
+            "--teacher_ckpt", teacher, "--n_pose_kd", str(LLFF_POSES),
+            "--create_data_chunk", str(LLFF_POSES), "--create_data", "rand"]
+        rand = tmp / "rand"
+        _, r = cli_inproc(lambda: tcd.main(dargv + [
+            "--datadir_kd", str(rand), "--experiment_name", "llff_cd"]), dev)
+        r["ms_per_pose"] = r["wall_s"] * 1e3 / LLFF_POSES
+        res["llff_create_data"] = r
+        cli_line("create_data rand (LLFF, sigma noise 1: the plain render "
+                 "as in JAX)", r, f"{r['ms_per_pose']:.1f} ms/pose, files "
+                 f"{sorted(os.listdir(rand))}")
+        tro = tmp / "rand_tro"
+        _, r = cli_inproc(lambda: tcd.main(dargv + [
+            "--n_pose_kd", "1", "--trans_origin", "fixed", "--datadir_kd",
+            str(tro), "--experiment_name", "llff_tro"]), dev)
+        rec = np.concatenate([np.load(tro / f) for f in os.listdir(tro)])
+        near = float(np.linalg.norm(rec[:, :3], axis=1).min())
+        res["llff_trans_origin"] = dict(r, min_origin_norm=near)
+        ok = near > 25.0
+        cli_line("create_data rand --trans_origin fixed (LLFF)", r,
+                 f"{r['wall_s'] * 1e3:.1f} ms/pose, {rec.shape[0]} rays, "
+                 f"origins >= {near:.2f} from the scene centre (30 along "
+                 "each ray)" + (" ok" if ok else " FAILED"))
+        if not ok:
+            raise AssertionError("--trans_origin fixed moved no origin")
+
+        n = LLFF_DISTILL_STEPS
+        rays = LLFF_STUDENT + common + [
+            "--data_mode", "rays", "--datadir_kd", str(rand), "--N_rand",
+            "20", "--hard_ratio", "0.2", "--hard_mul", "20", "--warmup_lr",
+            "0.0001,200", "--N_iters", str(n), "--i_print", str(n // 2),
+            "--i_testset", str(n)]
+        (_, best), r = run("llff_distill", rays + ["--fused_train_vjp"])
+        log = cli_log(exps, "llff_distill")
+        r.update(ms_per_step=cli_step_ms(marks, n), psnr_v2=best,
+                 test_psnr=cli_found(r"\[TEST\] Iter \d+ TestPSNR ([0-9.]+)",
+                                     log, "[TEST]")[-1])
+        cli_line("main_cuda.py --data_mode rays --fused_train_vjp (LLFF, "
+                 "K3 + K5)", r, f"{r['ms_per_step']:.3f} ms/step vs phase "
+                 f"17's {cli['distill']['ms_per_step']:.3f}, test PSNR "
+                 f"{r['test_psnr']} PSNRv2 {best:.4f}")
+        best_ckpt = cli_weights(exps, "llff_distill", "ckpt_best.msgpack")
+        ro = LLFF_STUDENT + common + ["--render_only", "--render_test",
+                                      "--pretrained_ckpt", best_ckpt]
+        rres, r = run("llff_render_only", ro)
+        r.update(psnr=rres.test_psnr, ms_per_frame=rres.ms_per_frame)
+        train_eval = res["llff_distill"]["test_psnr"]
+        ok = f"{rres.test_psnr:.4f}" == train_eval
+        cli_line("main_cuda.py --render_only --render_test (LLFF, K1 bf16)",
+                 r, f"{rres.ms_per_frame:.3f} ms/frame, PSNR "
+                 f"{rres.test_psnr:.4f} = the training eval {train_eval}"
+                 + (" ok" if ok else " FAILED"))
+        if not ok:
+            raise AssertionError("llff --render_only differs from the eval")
+
+        # one NCCL rank through torchrun: the mesh takes the plain step (the
+        # fused gate's warning), the run equals the plain step in process
+        n = LLFF_MESH_STEPS
+        mesh_rays = LLFF_STUDENT + common + [
+            "--data_mode", "rays", "--datadir_kd", str(rand), "--N_rand",
+            "20", "--hard_ratio", "0.2", "--hard_mul", "20", "--warmup_lr",
+            "0.0001,200", "--N_iters", str(n), "--i_print", str(n // 2),
+            "--i_testset", str(n)]
+        out, wall = torchrun(mesh_rays + ["--mesh", "data:1",
+                                          "--fused_train_vjp",
+                                          "--experiment_name", "tr_distill"])
+        warned = "--fused_train_vjp requires a single device" in out
+        # the batch checksum's all_gather: the mesh took the sharded path
+        meshed = ("mesh: {'data': 1} over 1 process (nccl)" in out and
+                  "batch checksums agree across 1 ranks" in out)
+        (_, pbest), r = run("llff_plain", mesh_rays)
+        plain_log = cli_log(exps, "llff_plain")
+        pick = r"\[TRAIN\].* loss ([0-9.]+)|TestPSNR ([0-9.]+)"
+        a = re.findall(pick, out)
+        b = re.findall(pick, plain_log)
+        same = bool(a) and a == b
+        res["torchrun_distill"] = {"wall_s": wall, "warned": warned,
+                                   "mesh": meshed, "equal": same}
+        print(f"[check] torchrun --nproc_per_node 1 main_cuda.py --mesh "
+              f"data:1 --fused_train_vjp: {wall:.1f} s wall, mesh and "
+              f"checksum lines {meshed}, fused gate warning {warned}, "
+              "[TRAIN] losses (gradients all_reduced over NCCL) and "
+              "TestPSNR " + ("equal to" if same else "DIFFER from")
+              + " the plain step's in this process"
+              + (" ok" if warned and meshed and same else " FAILED"),
+              flush=True)
+        if not (warned and meshed and same):
+            print(out[-3000:], flush=True)
+            raise AssertionError("torchrun distill")
+        out, wall = torchrun(ro + ["--mesh", "data:1", "--experiment_name",
+                                   "tr_ro"])
+        psnr = cli_found(r"render_only: PSNR ([0-9.]+)", out, "PSNR")[-1]
+        same = psnr == f"{rres.test_psnr:.4f}"
+        res["torchrun_render_only"] = {"wall_s": wall, "psnr": psnr,
+                                       "equal": same}
+        print(f"[check] torchrun --mesh data:1 --render_only: PSNR {psnr}, "
+              f"in process {rres.test_psnr:.4f}"
+              + (" equal ok" if same else " FAILED"), flush=True)
+        if not same:
+            raise AssertionError("torchrun render_only")
+        out, wall = torchrun(LLFF_STUDENT + common + [
+            "--benchmark", "--pretrained_ckpt", best_ckpt, "--mesh",
+            "data:1", "--experiment_name", "tr_bench"])
+        ms = float(cli_found(r"benchmark: ([0-9.]+) ms/frame", out,
+                             "benchmark")[-1])
+        res["torchrun_benchmark"] = {"wall_s": wall, "ms_per_frame": ms}
+        print(f"[main] torchrun --mesh data:1 --benchmark (LLFF 504x378, "
+              f"K1 bf16): {ms:.3f} ms/frame, {wall:.1f} s wall", flush=True)
+        res["world1"] = world1_checks(dev, tmp)
+    res["launches"] = {k: v - start[k] for k, v in cli_counts().items()}
+    res["phase_s"] = time.perf_counter() - t_phase
+    missing = [k for k in LLFF_KERNELS if res["launches"][k] <= 0]
+    print(f"[main] launches in phase 18: {res['launches']}"
+          + (f" FAILED: never launched {missing}" if missing else " ok")
+          + f"; phase 18 took {res['phase_s']:.1f} s", flush=True)
+    if missing:
+        raise AssertionError(f"phase 18: kernels never launched: {missing}")
+    return res
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3558,6 +3917,8 @@ def main() -> int:
                        "K7": dgen["int8"]["ms_per_pose"]},
         "train": {k: train[k] for k in ("fused", "fused_int8")},
         "frame_ms": {k: main_res[k]["ms_per_frame"] for k in ("pe", "int8")}})
+    torch.cuda.empty_cache()
+    llff = phase_llff_mesh(dev, cli)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -3579,7 +3940,8 @@ def main() -> int:
         "probes": probes, "k2_probes": k2_probes, "bwd_qdx": qdx,
         "givenrays": given, "nerf_bench": nbench,
         "bench_cuda": bench_line, "checkpoints": ck,
-        "cli": {k: v for k, v in cli.items()}}}))
+        "cli": {k: v for k, v in cli.items()},
+        "llff_mesh": llff}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3594,20 +3956,20 @@ def main() -> int:
         entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164",
               main_res["launches"]["pe"] + given["launches"]["pe"]
-              + ck["load"]["launches"]["pe"] + cli["launches"]["K1"],
-              kern["pe"]),
+              + ck["load"]["launches"]["pe"] + cli["launches"]["K1"]
+              + llff["launches"]["K1"], kern["pe"]),
         entry("fused_r2l_apply_pe_f32", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164", cli_f32["launches"],
               kern["pe_f32"]),
         entry("fused_r2l_apply_int8_pe", "r2l_int8_hopper.cu",
               "r2l_tpu/kernels/r2l_pallas.py:571",
               main_res["launches"]["int8"] + given["launches"]["int8"]
-              + ck["load"]["launches"]["int8"] + cli["launches"]["K2"],
-              kern["int8"]),
+              + ck["load"]["launches"]["int8"] + cli["launches"]["K2"]
+              + llff["launches"]["K2"], kern["int8"]),
         entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused"]["train_fwd"]
               + ck["resume"]["launches"]["train_fwd"]
-              + cli["launches"]["K3"],
+              + cli["launches"]["K3"] + llff["launches"]["K3"],
               tkern["train_fwd_bf16"]),
         entry("train_fwd_f32", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused_f32"]["train_fwd"],
@@ -3623,7 +3985,7 @@ def main() -> int:
         entry("bwd_group", "r2l_bwd_group.cu", tr + ":356",
               train["launches"]["bwd_group"]
               + ck["resume"]["launches"]["bwd_group"]
-              + cli["launches"]["K5"],
+              + cli["launches"]["K5"] + llff["launches"]["K5"],
               tkern["bwd_group_bf16"]),
         *(entry(f"fused_r2l_apply_{kind}", "r2l_fused.cu",
                 "r2l_tpu/kernels/r2l_pallas.py:270", api[kind]["launches"],
@@ -3633,7 +3995,7 @@ def main() -> int:
                 "r2l_tpu/kernels/nerf_render_pallas.py:336",
                 dgen[kind]["launches"]
                 + (nbench["launches"] + cli["launches"]["K6"]
-                   if kind == "f32" else 0)
+                   + llff["launches"]["K6"] if kind == "f32" else 0)
                 + (cli["launches"]["K7"] if kind == "int8" else 0),
                 teacher[kind])
           for kind in ("f32", "bf16", "int8")),

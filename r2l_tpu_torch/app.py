@@ -29,10 +29,25 @@ pseudo data K6 (K7 for an int8 teacher), ``--fused_train_vjp`` K3 + K5,
 ``--use_pallas 0`` takes the plain paths, a teacher with sigma noise
 renders its training-time data on the plain path.
 
-Not here (ROADMAP A6): ``--mesh``, ``--multihost``, ``--num_cpu_devices``
-above 1 and the automatic data-parallel mesh raise ``SystemExit``; so does
-``--trans_origin``. ``--steps_per_dispatch K`` is a plain loop of K steps,
-the same result as K single steps. ``--convert_to_onnx`` writes ONNX only.
+Several devices: one process per device over ``torch.distributed``
+(``parallel/``). ``torchrun --nproc_per_node N main_cuda.py --mesh data:N``
+runs N NCCL ranks on N cards (no ``--mesh`` under a launcher: ``data:N``,
+JAX's ``_auto_mesh`` of a GPU host); ``--multihost`` asks for a launcher;
+``--num_cpu_devices N --platform cpu`` (JAX's virtual CPU devices) starts N
+gloo ranks of the same command (``main_cuda.py`` and ``create_data`` do
+it; ``train`` in process takes a launched rank). ``--mesh data:D,model:M``
+shards the batch over ``data`` and the student's width over ``model``
+(plain steps), each frame's rays over ``data``; the batch and hard counts
+are aligned to the mesh as JAX aligns them. With a mesh, training and
+datagen take the plain paths as JAX does (the fused kernels and K6 under
+data parallelism are ROADMAP's, after the port), the frames run K1/K2 and
+K6/K7 per rank on their shard. Rank 0 alone logs to the console and writes
+checkpoints, PNGs and videos; its PSNR is broadcast for the best-checkpoint
+gate; the ranks check that they drew the same batch at the first step and
+after every loader rebuild. One process on a host with several cards uses
+one and says how to launch over all. ``--steps_per_dispatch K`` is a plain
+loop of K steps, the same result as K single steps. ``--convert_to_onnx``
+writes ONNX only.
 """
 from __future__ import annotations
 
@@ -40,13 +55,15 @@ import dataclasses
 import math
 import os
 import time
+import zlib
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import checkpoint as ckpt
-from .configs import args_to_r2l_config
+from .configs import args_to_r2l_config, parse_mesh_spec
 from .data.imageio_ import resize_area
 from .data.rayshards import RayBatchLoader, RayShardDataset
 from .encoding import nerf_embed_dim
@@ -58,7 +75,10 @@ from .hardmine import parse_hard_ratio
 from .logging_ import AverageMeter, Logger, LossLine, Timer, check_path
 from .models.nerf import NeRFConfig, init_nerf
 from .models.r2l import R2L, init_r2l, params_from_jax
-from .rays import get_novel_poses
+from .parallel.dist import init_distributed, launched
+from .parallel.mesh import (Mesh, broadcast_value, make_mesh, replicate_,
+                            sharded)
+from .rays import get_novel_poses, set_default_trans_origin
 from .render import VolRenderConfig
 from .sampler import PointSampler
 from .train import (DistillConfig, TeacherTrainConfig, fused_int8_calib_points,
@@ -67,38 +87,97 @@ from .train import (DistillConfig, TeacherTrainConfig, fused_int8_calib_points,
                     make_lr_schedule, make_teacher_step,
                     make_teacher_step_batched)
 
-A6 = "multi-device runs are not ported yet (ROADMAP A6)"
-
-
 # ---------------------------------------------------------------------------
 # Devices
 # ---------------------------------------------------------------------------
 
 def apply_platform(args) -> torch.device:
     """The device of the run from ``--platform``: ``auto`` the CUDA card
-    (raises without one), ``cpu`` the host, ``tpu`` raises. The flags of
-    multi-device runs raise (ROADMAP A6); none is ignored."""
-    if getattr(args, "mesh", ""):
-        raise SystemExit(f"--mesh {args.mesh!r}: {A6}")
-    if getattr(args, "multihost", False):
-        raise SystemExit(f"--multihost: {A6}")
-    if getattr(args, "num_cpu_devices", 0) > 1:
-        raise SystemExit(f"--num_cpu_devices {args.num_cpu_devices}: {A6}")
-    if getattr(args, "trans_origin", ""):
-        raise SystemExit("--trans_origin is not ported to the port's "
-                         "command line (ROADMAP A5)")
+    (raises without one), ``cpu`` the host, ``tpu`` raises. A process
+    launched as a rank (torchrun; ``--num_cpu_devices``'s ranks) joins its
+    process group here, NCCL on the card (its device ``cuda:LOCAL_RANK``),
+    gloo on the host; ``--multihost`` without a launcher raises, and so does
+    ``--num_cpu_devices`` > 1 outside the command line that launches its
+    ranks."""
     platform = getattr(args, "platform", "auto")
+    n_cpu = getattr(args, "num_cpu_devices", 0) or 0
+    if platform == "cpu" and n_cpu > 1 and not launched():
+        raise SystemExit(
+            f"--num_cpu_devices {n_cpu}: the command line starts {n_cpu} gloo"
+            " ranks of itself (python main_cuda.py / python -m "
+            "r2l_tpu_torch.tools.create_data ... --platform cpu "
+            f"--num_cpu_devices {n_cpu}); in process, call train from "
+            "ranks started by r2l_tpu_torch.parallel.spawn_ranks or torchrun"
+            " (see the port's README section)")
     if platform == "tpu":
         raise SystemExit("--platform tpu: this is the PyTorch/CUDA port "
                          "(r2l_tpu_torch); use --platform auto for the CUDA "
                          "card or --platform cpu")
-    if platform == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+    if platform != "cpu" and not torch.cuda.is_available():
         raise SystemExit("--platform auto: no CUDA device is available "
                          "(torch.cuda.is_available() is false); pass "
                          "--platform cpu to run on the host")
+    init_distributed(platform, bool(getattr(args, "multihost", False)))
+    if platform == "cpu":
+        return torch.device("cpu")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def run_mesh(args, logger, device: torch.device) -> Mesh | None:
+    """The run's mesh: ``--mesh``, or ``data:WORLD_SIZE`` for ranks started
+    without one; None for a lone process without ``--mesh`` (which, on a
+    host with several cards, uses one and says how to use all)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    axes = parse_mesh_spec(getattr(args, "mesh", ""))
+    if not axes and world > 1:
+        axes = {"data": world}
+    if not axes:
+        n = torch.cuda.device_count() if device.type == "cuda" else 0
+        if n > 1:
+            logger.print(
+                f"NOTE: {n} CUDA devices visible; this process uses one. To "
+                f"run over all: torchrun --nproc_per_node {n} main_cuda.py "
+                f"--mesh data:{n} ...")
+        return None
+    try:
+        mesh = make_mesh(axes)
+    except ValueError as e:
+        raise SystemExit(
+            f"--mesh {args.mesh!r}: {e}; start that many ranks (torchrun "
+            "--nproc_per_node N main_cuda.py ..., or --num_cpu_devices N "
+            "--platform cpu)") from None
+    logger.print(f"mesh: {mesh.shape} over {world} process"
+                 f"{'es' if world > 1 else ''} ("
+                 f"{dist.get_backend() if dist.is_initialized() else 'none'})")
+    return mesh
+
+
+def _main(mesh: Mesh | None) -> bool:
+    """Whether this process writes files (rank 0, or a lone process)."""
+    return mesh is None or mesh.rank == 0
+
+
+def assert_batch_identical(batch: np.ndarray, mesh: Mesh | None,
+                           logger) -> None:
+    """The data contract of a multi-rank run: every rank drew the same
+    global batch (same seed, same shard files). A CRC of the batch is
+    gathered from every rank; differing values raise (``r2l_tpu/app.py:
+    1092-1111``). Nothing to check without a process group."""
+    if not sharded(mesh):
+        return
+    h = zlib.crc32(np.ascontiguousarray(batch).tobytes())
+    t = torch.tensor([h], dtype=torch.int64, device=mesh.device)
+    parts = [torch.empty_like(t) for _ in range(mesh.world)]
+    dist.all_gather(parts, t)
+    got = [int(x.item()) for x in parts]
+    if len(set(got)) != 1:
+        raise RuntimeError(
+            "multi-rank data contract violated: per-rank batch checksums "
+            f"differ ({got}). Every rank must draw the identical global "
+            "batch — check for per-rank --seed skew or unsynced "
+            "--datadir_kd contents.")
+    logger.print("multi-rank data contract OK: batch checksums agree "
+                 f"across {mesh.world} ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +229,18 @@ def load_dataset(args, logger):
         # --focal_scale applies at every get_rays call in the reference
         # (`helpers:231-257`) == a global focal rescale.
         ns.focal = ns.focal * args.focal_scale
+    if args.trans_origin and args.trans_origin != "fixed":
+        try:
+            float(args.trans_origin)
+        except ValueError:
+            raise SystemExit(f"--trans_origin {args.trans_origin!r}: 'fixed' "
+                             "or a number (the origins' slide along the "
+                             "unit ray, reference `helpers:214-227`)"
+                             ) from None
+    # --trans_origin: the same global application (`helpers:214-227,
+    # 248-252`), a module default every get_rays reads; set on every load so
+    # that one run's value does not outlive it in the process
+    set_default_trans_origin(getattr(args, "trans_origin", "") or "")
     trial = getattr(args, "trial", None)
     if trial is not None:  # trial.near/far override (`main.py:957-960`)
         if getattr(trial, "near", -1) > 0:
@@ -241,11 +332,12 @@ def _eval_render_setup(args, ns, test_gt):
 # Model factories (reference create_nerf, main.py:407-553)
 # ---------------------------------------------------------------------------
 
-def build_r2l(args, logger, device: torch.device):
+def build_r2l(args, logger, device: torch.device, mesh: Mesh | None = None):
     """(cfg, model, start_step): the student of the flags, initialised
     from ``--seed`` (a CPU generator, the same weights on every device), or
     loaded from ``--pretrained_ckpt`` (native; a reference ``.tar``, whose
-    shapes set the architecture)."""
+    shapes set the architecture); with a mesh, rank 0's weights on every
+    rank."""
     cfg = args_to_r2l_config(args)
     start_step = 0
     if args.pretrained_ckpt:
@@ -278,13 +370,16 @@ def build_r2l(args, logger, device: torch.device):
     else:
         model = init_r2l(cfg, torch.Generator().manual_seed(args.seed),
                          device)
+    if mesh is not None:
+        replicate_(model, mesh)
     logger.print(f"R2L model: {count_params(model)/1e6:.2f}M params, "
                  f"{flops_per_pixel_from_params(model)/1e6:.2f}M "
                  "FLOPs/pixel")
     return cfg, model, start_step
 
 
-def build_teacher(args, logger, device: torch.device):
+def build_teacher(args, logger, device: torch.device,
+                  mesh: Mesh | None = None):
     """(ncfg, ncfg_fine, coarse, fine or None, start_step): the NeRF
     teacher of the flags, initialised from ``--seed`` (coarse then fine
     from one CPU generator) or loaded from ``--teacher_ckpt`` /
@@ -319,6 +414,10 @@ def build_teacher(args, logger, device: torch.device):
         else:
             ckpt.drop_cached_checkpoint()
         logger.print(f"Loaded teacher ckpt {path} (step {start_step})")
+    if mesh is not None:
+        for m in (mc, mf):
+            if m is not None:
+                replicate_(m, mesh)
     # Complexity print, reference `main.py:541-552` (nerf branch:
     # per-point FLOPs x (N_samples + N_samples + N_importance)).
     n_par = count_params(mc) + (count_params(mf) if mf is not None else 0)
@@ -402,12 +501,17 @@ def _summary(res: EvalResult) -> str:
             f"SSIM {res.test_ssim:.4f} FLIP {res.test_flip:.4f}{lp}")
 
 
-def run_render_only(args, ns, logger, device: torch.device) -> EvalResult:
+def run_render_only(args, ns, logger, device: torch.device,
+                    mesh: Mesh | None = None) -> EvalResult:
+    """Render the test split or the video path from a checkpoint; with a
+    mesh each frame's rays split over ``data``, rank 0 writes."""
     H, W, focal = _render_downsample(args, ns.H, ns.W, ns.focal)
-    savedir = os.path.join(
-        logger.exp_dir,
-        f"render_only_{'test' if args.render_test else 'path'}")
-    os.makedirs(savedir, exist_ok=True)
+    savedir = None
+    if _main(mesh):
+        savedir = os.path.join(
+            logger.exp_dir,
+            f"render_only_{'test' if args.render_test else 'path'}")
+        os.makedirs(savedir, exist_ok=True)
 
     if args.model_name in ("R2L", "nerf_v3.2") and args.given_render_path_rays:
         # DONeRF precomputed-ray path (reference `main.py:207-270`),
@@ -415,7 +519,7 @@ def run_render_only(args, ns, logger, device: torch.device) -> EvalResult:
         from .evaluate import (load_given_render_path_rays,
                                make_r2l_givenrays_frame_fn,
                                render_path_given_rays)
-        cfg, model, _ = build_r2l(args, logger, device)
+        cfg, model, _ = build_r2l(args, logger, device, mesh)
         ro, rd, gt = load_given_render_path_rays(args.given_render_path_rays)
         # The ray file fixes the frame resolution — --render_factor
         # cannot downsample precomputed rays.
@@ -438,7 +542,7 @@ def run_render_only(args, ns, logger, device: torch.device) -> EvalResult:
             model, cfg, sampler, H, W, embed_L=args.multires,
             plucker=args.plucker, use_pallas=args.use_pallas,
             pallas_tile=args.pallas_tile, quantize=args.quantize,
-            calib_rays=(ro, rd))
+            calib_rays=(ro, rd), mesh=mesh)
         res = render_path_given_rays(model, cfg, sampler, ro, rd, H, W,
                                      gt_images=gt, savedir=savedir,
                                      embed_L=args.multires,
@@ -454,15 +558,16 @@ def run_render_only(args, ns, logger, device: torch.device) -> EvalResult:
         else:
             logger.print(f"given-rays: rendered {len(res.frames)} frames "
                          f"({ms_label})")
-        write_video(os.path.join(savedir, "video.mp4"), res.frames)
-        if gt is not None:
-            write_video(os.path.join(savedir, "video_error.mp4"),
-                        np.abs(res.frames - np.asarray(gt, np.float32)
-                               [:, :H, :W]))
+        if savedir is not None:
+            write_video(os.path.join(savedir, "video.mp4"), res.frames)
+            if gt is not None:
+                write_video(os.path.join(savedir, "video_error.mp4"),
+                            np.abs(res.frames - np.asarray(gt, np.float32)
+                                   [:, :H, :W]))
         return res
 
     if args.model_name in ("R2L", "nerf_v3.2"):
-        cfg, model, _ = build_r2l(args, logger, device)
+        cfg, model, _ = build_r2l(args, logger, device, mesh)
         sampler = PointSampler(H=H, W=W, focal=focal,
                                n_sample=args.n_sample_per_ray,
                                near=ns.near, far=ns.far)
@@ -470,9 +575,9 @@ def run_render_only(args, ns, logger, device: torch.device) -> EvalResult:
             model, cfg, sampler, embed_L=args.multires,
             plucker=args.plucker, use_pallas=args.use_pallas,
             pallas_tile=args.pallas_tile, quantize=args.quantize,
-            calib_poses=ns.poses)
+            calib_poses=ns.poses, mesh=mesh)
     else:
-        ncfg, ncfg_fine, mc, mf, _ = build_teacher(args, logger, device)
+        ncfg, ncfg_fine, mc, mf, _ = build_teacher(args, logger, device, mesh)
         vcfg = vol_config(args, ns)
         sampler = PointSampler(H=H, W=W, focal=focal,
                                n_sample=args.N_samples,
@@ -484,7 +589,7 @@ def run_render_only(args, ns, logger, device: torch.device) -> EvalResult:
                                       ndc_params, use_pallas=args.use_pallas,
                                       ncfg_fine=ncfg_fine,
                                       perturb_test=args.perturb_test > 0,
-                                      device=device)
+                                      device=device, mesh=mesh)
     logger.print(f"inference path: {frame_fn.kind}")
 
     if args.render_test:
@@ -504,6 +609,8 @@ def run_render_only(args, ns, logger, device: torch.device) -> EvalResult:
     if res.test_psnr is not None:
         logger.print(f"render_only: {_summary(res)} "
                      f"({res.ms_per_frame:.3f} ms/frame)")
+    if savedir is None:
+        return res
     write_video(os.path.join(savedir, "video.mp4"), res.frames)
     if gt is not None:
         # The reference also writes the |render - gt| error video when
@@ -513,15 +620,17 @@ def run_render_only(args, ns, logger, device: torch.device) -> EvalResult:
     return res
 
 
-def run_benchmark(args, ns, logger, device: torch.device) -> float:
+def run_benchmark(args, ns, logger, device: torch.device,
+                  mesh: Mesh | None = None) -> float:
     """Frame-latency benchmark (reference `main.py:1124-1133`, 100 reps):
     K frames rendered one after another per call with a scalar checksum
     read back (which waits for the card), repeated until ~100 frames (20
-    for the teacher); the fastest call per frame."""
+    for the teacher); the fastest call per frame. With a mesh every rank
+    renders its shard of each frame; the time is rank 0's."""
     from .evaluate import make_nerf_bench_fn, make_r2l_bench_fn
     H, W, focal = _render_downsample(args, ns.H, ns.W, ns.focal)
     if args.model_name == "nerf":
-        ncfg, ncfg_fine, mc, mf, _ = build_teacher(args, logger, device)
+        ncfg, ncfg_fine, mc, mf, _ = build_teacher(args, logger, device, mesh)
         vcfg = vol_config(args, ns)
         sampler = PointSampler(H=H, W=W, focal=focal,
                                n_sample=args.N_samples,
@@ -531,12 +640,12 @@ def run_benchmark(args, ns, logger, device: torch.device) -> float:
                                       ndc_params, use_pallas=args.use_pallas,
                                       ncfg_fine=ncfg_fine,
                                       perturb_test=args.perturb_test > 0,
-                                      device=device)
+                                      device=device, mesh=mesh)
         # A teacher frame is ~25x an R2L frame: 4 frames per call, fewer
         # reps.
         K, frames_target = 4, 20
     else:
-        cfg, model, _ = build_r2l(args, logger, device)
+        cfg, model, _ = build_r2l(args, logger, device, mesh)
         sampler = PointSampler(H=H, W=W, focal=focal,
                                n_sample=args.n_sample_per_ray,
                                near=ns.near, far=ns.far)
@@ -546,7 +655,7 @@ def run_benchmark(args, ns, logger, device: torch.device) -> float:
                                      use_pallas=args.use_pallas,
                                      pallas_tile=args.pallas_tile,
                                      quantize=args.quantize,
-                                     calib_poses=ns.poses)
+                                     calib_poses=ns.poses, mesh=mesh)
         K, frames_target = 16, 100
     poses = np.stack([np.asarray(p, np.float32)[:3, :4]
                       for p in ns.video_poses[:K]])
@@ -579,11 +688,11 @@ def run_export(args, ns, logger, device: torch.device) -> str:
     return path
 
 
-def _student_frame_fn(args, model, cfg, sampler, ns):
+def _student_frame_fn(args, model, cfg, sampler, ns, mesh=None):
     return make_r2l_frame_fn(
         model, cfg, sampler, embed_L=args.multires, plucker=args.plucker,
         use_pallas=args.use_pallas, pallas_tile=args.pallas_tile,
-        quantize=args.quantize, calib_poses=ns.poses)
+        quantize=args.quantize, calib_poses=ns.poses, mesh=mesh)
 
 
 def _test_line(i, res, best_psnr, best_step, hist_psnr, lr, t_eval, timer):
@@ -605,11 +714,15 @@ def _train_line(i, n_iters, data_time, batch_time, loss, psnr, lr):
             f"loss {loss:.6f} hist_psnr {psnr:.4f} LR {lr:.10f}")
 
 
-def run_distill(args, ns, logger, device: torch.device):
+def run_distill(args, ns, logger, device: torch.device,
+                mesh: Mesh | None = None):
     """R2L distillation training (reference `main.py:1175-1513`,
-    data_mode='rays' or 'images'). Returns (state, best_psnr)."""
+    data_mode='rays' or 'images'). Returns (state, best_psnr). With a mesh
+    the plain step shards the batch over ``data`` (the width over
+    ``model``); every rank draws the same batches."""
     images_mode = args.data_mode == "images"
-    cfg, model, start = build_r2l(args, logger, device)
+    writes = _main(mesh)
+    cfg, model, start = build_r2l(args, logger, device, mesh)
     if images_mode:
         # images mode: N_rand counts PIXELS per step (`main.py:1267-1302`).
         batch_size = args.N_rand
@@ -619,8 +732,11 @@ def run_distill(args, ns, logger, device: torch.device):
         # values are taken as a direct ray count.
         batch_size = args.N_rand * 4096 if args.N_rand < 512 else args.N_rand
     n_hard_in, n_hard_out = parse_hard_ratio(args.hard_ratio, batch_size)
+    # the fresh part of the batch shards evenly over the mesh's processes
+    # (JAX aligns to its device count when a mesh is built)
     batch_size, n_hard_in, n_hard_out = _align_hard_counts(
-        batch_size, n_hard_in, n_hard_out, 1, log=logger.print)
+        batch_size, n_hard_in, n_hard_out,
+        1 if mesh is None else mesh.world, log=logger.print)
     dcfg = DistillConfig(
         batch_size=batch_size, lrate=args.lrate, lrate_decay=args.lrate_decay,
         warmup_lr=args.warmup_lr or None, lw_rgb=args.lw_rgb,
@@ -710,11 +826,11 @@ def run_distill(args, ns, logger, device: torch.device):
                     precrop_iters=args.precrop_iters,
                     precrop_frac=args.precrop_frac,
                     select_pixel_mode=args.select_pixel_mode,
-                    scan_steps=k, device=device)
+                    scan_steps=k, device=device, mesh=mesh)
             return _step_cache[k]
     else:
         fused_vjp = fused_vjp_gate(args.fused_train_vjp, cfg, args.plucker,
-                                   1, logger.print)
+                                   1, logger.print, mesh=mesh)
         fq, fcalib = "", None
         if fused_vjp and args.fused_train_int8:
             # int8 training forward (straight-through backward): calib
@@ -730,7 +846,8 @@ def run_distill(args, ns, logger, device: torch.device):
                 _step_cache[k] = make_distill_step(
                     cfg, step_dcfg, sampler, fused_vjp=fused_vjp,
                     scan_steps=k, fused_quantize=fq, fused_calib_pts=fcalib,
-                    fused_calib_every=args.fused_calib_every, device=device)
+                    fused_calib_every=args.fused_calib_every, device=device,
+                    mesh=None if fused_vjp else mesh)
             return _step_cache[k]
         logger.print("distill step: "
                      + (("fused_int8 (K4 + K5)" if fq else "fused (K3 + K5)")
@@ -745,7 +862,15 @@ def run_distill(args, ns, logger, device: torch.device):
                      near=ns.near, far=ns.far))
 
     def frame_fn():
-        return _student_frame_fn(args, state.params, cfg, eval_sampler, ns)
+        return _student_frame_fn(args, state.params, cfg, eval_sampler, ns,
+                                 mesh)
+
+    def save(name, step):
+        # the hard pool is replicated on every rank (global semantics), so
+        # rank 0's is the whole pool: nothing to gather first
+        if writes:
+            ckpt.save(os.path.join(logger.weights_dir, name), state, step,
+                      best_psnr, best_step, save_pool=dcfg.n_hard_out > 0)
 
     if args.test_pretrained and args.pretrained_ckpt:
         # Evaluate the loaded checkpoint before training
@@ -774,6 +899,9 @@ def run_distill(args, ns, logger, device: torch.device):
     n_pseudo_img, n_seen_img = 0, 0
     K = _resolve_steps_per_dispatch(args)
     i = start
+    # the ranks' data contract is checked at the first step and after each
+    # loader rebuild (the JAX package checks the first step alone)
+    check_batch = True
     while i < args.N_iters:
         t_iter = time.perf_counter()
         k = min(K, _next_event(i, (args.i_print, args.i_img,
@@ -788,6 +916,11 @@ def run_distill(args, ns, logger, device: torch.device):
                 n_seen_img += 1
                 imgs.append(np.array(img, np.float32))   # a copy of
                 poses_b.append(np.array(pose, np.float32))  # the mmap
+            if check_batch:
+                assert_batch_identical(np.concatenate(
+                    [np.stack(imgs).ravel(), np.stack(poses_b).ravel()]),
+                    mesh, logger)
+                check_batch = False
             data_time.update((time.perf_counter() - t_iter) / k, n=k)
             if k == 1:
                 state, ms = step_k(1)(state, imgs[0], poses_b[0],
@@ -801,6 +934,9 @@ def run_distill(args, ns, logger, device: torch.device):
             else:
                 host_batch = np.stack([np.asarray(next(loader))
                                        for _ in range(k)])
+            if check_batch:
+                assert_batch_identical(host_batch, mesh, logger)
+                check_batch = False
             data_time.update((time.perf_counter() - t_iter) / k, n=k)
             state, ms = step_k(k)(state, host_batch, generator=gen)
         i += k
@@ -827,14 +963,14 @@ def run_distill(args, ns, logger, device: torch.device):
             # the reference — its nerf-pytorch meaning).
             res = render_path(frame_fn(), test_poses[:1],
                               gt_images=test_gt[:1], compute_flip=False,
-                              savedir=logger.gen_img_dir)
+                              savedir=logger.gen_img_dir if writes else None)
             logger.print(f"[i_img] iter {i} PSNR {res.test_psnr:.4f}")
 
         if _fires(i, args.i_testset) or i == args.N_iters:
             # [TEST]'s TrainHistPSNR reads the EMA: fold the backlog first
             fold()
             testsavedir = None
-            if args.save_testset:
+            if args.save_testset and writes:
                 # every rendered test frame (+gt/err), as the reference's
                 # testset_<ExpID>_iter<i> dir (`main.py:1443-1454`)
                 testsavedir = os.path.join(logger.gen_img_dir,
@@ -845,12 +981,11 @@ def run_distill(args, ns, logger, device: torch.device):
                               savedir=testsavedir,
                               flip_rescale=args.flip_rescale)
             t_eval = time.perf_counter() - t_eval
-            if res.test_psnr_v2 > best_psnr:  # best on v2 (`main.py:1458`)
-                best_psnr, best_step = float(res.test_psnr_v2), i
-                ckpt.save(os.path.join(logger.weights_dir,
-                                       "ckpt_best.msgpack"),
-                          state, i, best_psnr, best_step,
-                          save_pool=dcfg.n_hard_out > 0)
+            # every rank takes rank 0's branch (`r2l_tpu/app.py:1028-1036`)
+            psnr_v2 = broadcast_value(float(res.test_psnr_v2), mesh)
+            if psnr_v2 > best_psnr:  # best on v2 (`main.py:1458`)
+                best_psnr, best_step = psnr_v2, i
+                save("ckpt_best.msgpack", i)
                 logger.print(f"[eval] new best {best_psnr:.4f} @ {i}")
             logger.print(_test_line(
                 i, res, best_psnr, best_step,
@@ -860,19 +995,18 @@ def run_distill(args, ns, logger, device: torch.device):
                 logger.print(f'Saved rendered test images: "{testsavedir}"')
 
         if _fires(i, args.i_weights) or i == args.N_iters:
-            name = (f"ckpt_{i:07d}.msgpack"
-                    if args.save_intermediate_models else "ckpt.msgpack")
-            ckpt.save(os.path.join(logger.weights_dir, name), state, i,
-                      best_psnr, best_step, save_pool=dcfg.n_hard_out > 0)
+            save(f"ckpt_{i:07d}.msgpack" if args.save_intermediate_models
+                 else "ckpt.msgpack", i)
 
         if _fires(i, args.i_video) and i < args.N_iters:
             # Periodic novel-view video (reference `main.py:1427-1441`).
             vres = render_path(frame_fn(), ns.video_poses)
-            out = write_video(
-                os.path.join(logger.gen_img_dir,
-                             f"video_{args.video_tag}_iter{i}.mp4"),
-                vres.frames)
-            logger.print(f"[video] iter {i} -> {out}")
+            if writes:
+                out = write_video(
+                    os.path.join(logger.gen_img_dir,
+                                 f"video_{args.video_tag}_iter{i}.mp4"),
+                    vres.frames)
+                logger.print(f"[video] iter {i} -> {out}")
 
         # Periodic dataset reload to pick up freshly generated pseudo data
         # (reference --i_update_data, `main.py:1220-1229,1254-1262`).
@@ -885,6 +1019,7 @@ def run_distill(args, ns, logger, device: torch.device):
                 loader.close()
                 dataset, loader = make_loader(args.seed + i, i)
                 logger.print(f"reloaded ray dataset: {len(dataset)} rays")
+            check_batch = True
 
     fold()  # drain the metric backlog (N_iters % i_print != 0)
     if loader is not None:
@@ -892,12 +1027,15 @@ def run_distill(args, ns, logger, device: torch.device):
     return state, best_psnr
 
 
-def run_teacher_train(args, ns, logger, device: torch.device):
+def run_teacher_train(args, ns, logger, device: torch.device,
+                      mesh: Mesh | None = None):
     """NeRF teacher training (reference §3.2 call stack): ``use_batching``
     (a shuffled ray pool of every training image, reshuffled each epoch) or
     ``--no_batching`` (one random image per step). Returns (state,
-    best_psnr)."""
-    ncfg, ncfg_fine, mc, mf, start = build_teacher(args, logger, device)
+    best_psnr). With a mesh each step's rays shard over ``data``, the
+    networks replicated (the reference's DataParallel)."""
+    writes = _main(mesh)
+    ncfg, ncfg_fine, mc, mf, start = build_teacher(args, logger, device, mesh)
     vcfg = vol_config(args, ns)
     tcfg = TeacherTrainConfig(
         n_rand=args.N_rand, lrate=args.lrate, lrate_decay=args.lrate_decay,
@@ -952,14 +1090,14 @@ def run_teacher_train(args, ns, logger, device: torch.device):
         if k not in _cache_b:
             _cache_b[k] = make_teacher_step_batched(
                 ncfg, vcfg, tcfg, ncfg_fine=ncfg_fine, scan_steps=k,
-                device=device)
+                device=device, mesh=mesh)
         return _cache_b[k]
 
     def step_k_i(k: int):
         if k not in _cache_i:
             _cache_i[k] = make_teacher_step(
                 ncfg, vcfg, tcfg, ns.H, ns.W, ns.focal, ncfg_fine=ncfg_fine,
-                ndc=ns.ndc, scan_steps=k, device=device)
+                ndc=ns.ndc, scan_steps=k, device=device, mesh=mesh)
         return _cache_i[k]
 
     images = torch.from_numpy(np.asarray(ns.images[ns.i_train],
@@ -994,11 +1132,12 @@ def run_teacher_train(args, ns, logger, device: torch.device):
             state.model_c, state.model_f, ncfg, vcfg, sampler, ndc_params,
             use_pallas=args.use_pallas, ncfg_fine=ncfg_fine,
             perturb_test=args.perturb_test > 0, with_disp=with_disp,
-            device=device)
+            device=device, mesh=mesh)
 
     def save_teacher(name, step):
-        ckpt.save(os.path.join(logger.weights_dir, name), state, step,
-                  best_psnr, best_step)
+        if writes:
+            ckpt.save(os.path.join(logger.weights_dir, name), state, step,
+                      best_psnr, best_step)
 
     K = _resolve_steps_per_dispatch(args)
     i = start
@@ -1041,14 +1180,14 @@ def run_teacher_train(args, ns, logger, device: torch.device):
             # (--i_img; the nerf-pytorch behaviour the flag descends from).
             res = render_path(eval_frame_fn(), test_poses[:1],
                               gt_images=test_gt[:1], compute_flip=False,
-                              savedir=logger.gen_img_dir)
+                              savedir=logger.gen_img_dir if writes else None)
             logger.print(f"[i_img] iter {i} PSNR {res.test_psnr:.4f}")
         if _fires(i, args.i_testset) or i == args.N_iters:
             # The full test split, best-selected on PSNRv2
             # (`main.py:1442-1471`).
             fold()
             testsavedir = None
-            if args.save_testset:
+            if args.save_testset and writes:
                 testsavedir = os.path.join(logger.gen_img_dir,
                                            f"testset_iter{i}")
                 os.makedirs(testsavedir, exist_ok=True)
@@ -1057,8 +1196,9 @@ def run_teacher_train(args, ns, logger, device: torch.device):
                               gt_images=test_gt, savedir=testsavedir,
                               flip_rescale=args.flip_rescale)
             t_eval = time.perf_counter() - t_eval
-            if res.test_psnr_v2 > best_psnr:
-                best_psnr, best_step = float(res.test_psnr_v2), i
+            psnr_v2 = broadcast_value(float(res.test_psnr_v2), mesh)
+            if psnr_v2 > best_psnr:
+                best_psnr, best_step = psnr_v2, i
                 save_teacher("teacher_best.msgpack", i)
                 logger.print(f"[eval] new best {best_psnr:.4f} @ {i}")
             logger.print(_test_line(
@@ -1070,20 +1210,21 @@ def run_teacher_train(args, ns, logger, device: torch.device):
             # Periodic novel-view video + disparity video
             # (reference `main.py:1472-1497`).
             vres = render_path(eval_frame_fn(with_disp=True), ns.video_poses)
-            out = write_video(
-                os.path.join(logger.gen_img_dir,
-                             f"video_{args.video_tag}_iter{i}.mp4"),
-                vres.frames)
-            logger.print(f"[video] iter {i} -> {out}")
-            if vres.disp_frames is not None:
-                # normalized as the reference does: disps / max(disps)
-                d = np.nan_to_num(vres.disp_frames, nan=0.0, posinf=0.0)
-                d = d / max(float(d.max()), 1e-10)
-                out_d = write_video(
+            if writes:
+                out = write_video(
                     os.path.join(logger.gen_img_dir,
-                                 f"video_{args.video_tag}_iter{i}_disp.mp4"),
-                    np.repeat(d[..., None], 3, axis=-1))
-                logger.print(f"[video] iter {i} disp -> {out_d}")
+                                 f"video_{args.video_tag}_iter{i}.mp4"),
+                    vres.frames)
+                logger.print(f"[video] iter {i} -> {out}")
+                if vres.disp_frames is not None:
+                    # normalized as the reference does: disps / max(disps)
+                    d = np.nan_to_num(vres.disp_frames, nan=0.0, posinf=0.0)
+                    d = d / max(float(d.max()), 1e-10)
+                    name = f"video_{args.video_tag}_iter{i}_disp.mp4"
+                    out_d = write_video(
+                        os.path.join(logger.gen_img_dir, name),
+                        np.repeat(d[..., None], 3, axis=-1))
+                    logger.print(f"[video] iter {i} disp -> {out_d}")
         if _fires(i, args.i_weights) or i == args.N_iters:
             # the full training state (the reference saves the optimizer
             # for the teacher too, `main.py:1516-1542`)
@@ -1102,7 +1243,10 @@ def train(args):
     """Run the mode the flags ask for; returns its result (the render's
     ``EvalResult``, the benchmark's FPS, the export's path, or (state,
     best_psnr) of a training run)."""
+    joined = dist.is_initialized()
     device = apply_platform(args)
+    joined = not joined and dist.is_initialized()   # this call joined
+    rank = dist.get_rank() if dist.is_initialized() else 0
     if device.type == "cuda":
         # full f32 in every plain f32 matmul and convolution (the
         # metrics' too)
@@ -1111,10 +1255,12 @@ def train(args):
     logger = Logger(
         experiment_name=args.experiment_name or args.expname or "r2l",
         experiments_dir=args.experiments_dir, debug=args.debug,
-        resume_time_id=args.resume_TimeID, args=args)
+        resume_time_id=args.resume_TimeID, args=args,
+        main_process=rank == 0, rank=rank)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "host CPU")
     logger.print(f"device: {device} ({name}), torch {torch.__version__}")
+    mesh = run_mesh(args, logger, device)
 
     if args.debug_nans:
         # The reference keeps torch's set_detect_anomaly on (`model:4`,
@@ -1131,15 +1277,16 @@ def train(args):
     try:
         ns = load_dataset(args, logger)
         if args.render_only:
-            out = run_render_only(args, ns, logger, device)
+            out = run_render_only(args, ns, logger, device, mesh)
         elif args.benchmark:
-            out = run_benchmark(args, ns, logger, device)
+            out = run_benchmark(args, ns, logger, device, mesh)
         elif args.convert_to_onnx:
-            out = run_export(args, ns, logger, device)
+            out = run_export(args, ns, logger, device) if _main(mesh) \
+                else None
         elif args.model_name == "nerf":
-            out = run_teacher_train(args, ns, logger, device)
+            out = run_teacher_train(args, ns, logger, device, mesh)
         else:
-            out = run_distill(args, ns, logger, device)
+            out = run_distill(args, ns, logger, device, mesh)
     finally:
         if prof is not None:
             prof.stop()
@@ -1149,4 +1296,6 @@ def train(args):
         if args.debug_nans:
             torch.autograd.set_detect_anomaly(False)
         logger.close()
+        if joined:
+            dist.destroy_process_group()
     return out

@@ -13,8 +13,10 @@ not imported here. Downscaled image caches (`images_{factor}/`) are built
 with ``imageio_.resize_area`` (cv2's INTER_AREA on 8-bit RGB, as the JAX
 package builds them with cv2) instead of the reference's imagemagick
 ``mogrify`` shell-out, and written as PNG; images are read by
-``imageio_.read_image``. JPEG decoding is not ported: a ``.JPG`` source or
-cache raises, naming the file (ROADMAP A5).
+``imageio_.read_image`` (PNG, or baseline JPEG as LLFF ships them). The
+cache applies a JPEG's EXIF orientation, as ``cv2.imread`` does there; the
+images themselves are read as ``imageio.imread`` reads them, which ignores
+it.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import os
 
 import numpy as np
 
-from .imageio_ import image_files, read_image, resize_area
+from .imageio_ import (apply_orientation, image_files, jpeg_orientation,
+                       read_image, resize_area)
 
 
 def _normalize(v: np.ndarray) -> np.ndarray:
@@ -161,7 +164,8 @@ def _as_rgb8(img: np.ndarray) -> np.ndarray:
 
 
 def _minify(basedir: str, factor: int) -> str:
-    """Build (or reuse) the images_{factor} cache with the area resize."""
+    """Build (or reuse) the images_{factor} cache with the area resize, as
+    the JAX package's ``_minify_cv2`` does (cv2.imread, INTER_AREA, PNG)."""
     from ..evaluate import write_png
     imgdir = os.path.join(basedir, f"images_{factor}")
     srcdir = os.path.join(basedir, "images")
@@ -170,7 +174,11 @@ def _minify(basedir: str, factor: int) -> str:
         return imgdir
     os.makedirs(imgdir, exist_ok=True)
     for f in src_files:
-        img = _as_rgb8(np.asarray(read_image(f)))
+        img = np.asarray(read_image(f))
+        if f.lower().endswith((".jpg", ".jpeg")):
+            # cv2.imread turns a JPEG upright from its EXIF orientation
+            img = apply_orientation(img, jpeg_orientation(f))
+        img = _as_rgb8(img)
         h, w = img.shape[:2]
         out = resize_area(img, w // factor, h // factor)
         name = os.path.splitext(os.path.basename(f))[0] + ".png"

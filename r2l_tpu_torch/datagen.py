@@ -38,8 +38,9 @@ at full precision, as the JAX package does.
 Randomness: the stratified and inverse-CDF draws of pose ``i`` come from a
 ``torch.Generator`` on the device seeded ``pose_seed(seed, i)`` (the role of
 the JAX package's ``_pose_key``, not its numbers), or from ``draws_fn(i,
-rays_o, rays_d)`` (tests hand over JAX's). The ray sharding over several
-devices is not ported (ROADMAP A6).
+rays_o, rays_d)`` (tests hand over JAX's). ``rand`` splits each pose
+batch's rays over a ``mesh``'s ``data`` axis (one process per device); rank
+0 writes the shards.
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ from .data.rayshards import shuffle_rays, write_ray_shards
 from .models.nerf import NeRF, NeRFConfig
 from .rays import (donerf_ray_dirs, get_novel_poses, get_rand_pose, get_rays,
                    get_rays_np, ndc_rays)
+from .parallel.mesh import Mesh, gather_rows, shard_rows, sharded
 from .render import (VolRenderConfig, prepare_fused_teacher,
                      render_frame_nerf, render_frame_nerf_fused)
 
@@ -202,7 +204,8 @@ def generate_pseudo_data(model_c: NeRF, model_f: NeRF | None,
                          pose_fn: Callable | None = None, ndc: bool = False,
                          ncfg_fine: NeRFConfig | None = None,
                          device: torch.device | str = torch.device("cuda"),
-                         draws_fn: Callable | None = None) -> int:
+                         draws_fn: Callable | None = None,
+                         mesh: Mesh | None = None) -> int:
     """Render ``n_pose`` random views with the teacher and write ray shards
     to ``datadir``; returns the number of rays written.
 
@@ -212,14 +215,21 @@ def generate_pseudo_data(model_c: NeRF, model_f: NeRF | None,
     unless told otherwise; the models must be there too). ``draws_fn(i,
     rays_o, rays_d)`` may return the per-chunk draws of the batch that
     starts at pose ``i`` instead of the generator's (tests hand over
-    JAX's)."""
+    JAX's).
+
+    ``mesh``: every rank draws the same poses and renders its rows of a
+    pose batch's rays (split over ``data``), the rows are gathered, and
+    rank 0 alone writes the shards: the files of one process, row for row
+    (a perturbed render draws its jitter per shard). With a mesh the
+    renders take the plain volumetric path, as the JAX package's GSPMD
+    datagen does."""
     device = torch.device(device)
     rng = np.random.default_rng(gcfg.seed)
     H, W = gcfg.H, gcfg.W
     ld = "depth" if gcfg.learn_depth is True else (gcfg.learn_depth or "")
     record_dim = 9 + {"": 0, "depth": 1, "surface": 3}[ld]
     ppb = max(gcfg.poses_per_batch, 1)
-    use_fused = _fused_gate(gcfg, vcfg, device)
+    use_fused = _fused_gate(gcfg, vcfg, device) and mesh is None
     if gcfg.quantize == "int8" and not use_fused:
         warnings.warn(
             "--quantize int8 requested for datagen but the fused TPU path "
@@ -240,12 +250,30 @@ def generate_pseudo_data(model_c: NeRF, model_f: NeRF | None,
 
     render = _renderer(model_c, model_f, ncfg, vcfg, gcfg, device, use_fused,
                        packed, ncfg_fine, draws_fn, ndc=ndc)
+    if sharded(mesh):
+        render_all = render
 
+        def render(ro, rd, i):
+            n = ro.shape[0]
+            rgb, depth = render_all(
+                shard_rows(torch.from_numpy(ro), mesh, "data", 0.0).numpy(),
+                shard_rows(torch.from_numpy(rd), mesh, "data", 1.0).numpy(),
+                i)
+            return gather_rows(rgb, mesh, n), gather_rows(depth, mesh, n)
+
+    writes = mesh is None or mesh.rank == 0
     writer_q: queue.Queue = queue.Queue(maxsize=2)
     total, errors = {"rays": 0}, []
     wt = threading.Thread(target=_writer, daemon=True,
                           args=(datadir, gcfg, writer_q, total, errors))
-    wt.start()
+    if writes:
+        wt.start()
+
+    def flush(rays: np.ndarray) -> None:
+        if writes:
+            writer_q.put(rays)
+        else:       # a rank that writes nothing counts the rays
+            total["rays"] += rays.shape[0]
     buf: list[np.ndarray] = []
     done = 0
     try:
@@ -269,13 +297,14 @@ def generate_pseudo_data(model_c: NeRF, model_f: NeRF | None,
             if progress is not None:
                 progress(done, gcfg.n_pose)
             if sum(b.shape[0] for b in buf) >= gcfg.save_every * H * W:
-                writer_q.put(np.concatenate(buf, axis=0))
+                flush(np.concatenate(buf, axis=0))
                 buf = []
         if buf:
-            writer_q.put(np.concatenate(buf, axis=0))
+            flush(np.concatenate(buf, axis=0))
     finally:
-        writer_q.put(None)
-        wt.join()
+        if writes:
+            writer_q.put(None)
+            wt.join()
     if errors:
         raise RuntimeError("pseudo-data writer failed") from errors[0]
     return total["rays"]

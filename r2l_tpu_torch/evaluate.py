@@ -13,10 +13,14 @@ Counterpart of ``r2l_tpu/evaluate.py`` (``to8b`` :31, ``EvalResult`` :36,
 * ``pe``: the PE-fused kernel ``fused_r2l_apply_pe``;
 * ``int8``: the static-scale int8 kernel ``fused_r2l_apply_int8_pe``.
 
-Everything runs on the device of the model's parameters. The TPU-only parts
-are not ported: the VMEM tile-fit model and the mesh sharding of rays.
-``pallas_tile`` is accepted so that the CLI flags carry over, and ignored:
-the CUDA kernels choose their own ray tile.
+Everything runs on the device of the model's parameters. ``mesh=`` (a
+``parallel.make_mesh`` of one process per device) splits each frame's
+rays over its ``data`` axis, as the JAX package's ``_shard_rays`` does:
+each rank runs its kind (K1 or K2 for the student, K6/K7 or the plain
+volumetric pass for the teacher) on its own padded shard, and the shards
+are gathered back in order. The VMEM tile-fit model is TPU-only and not
+ported; ``pallas_tile`` is accepted so that the CLI flags carry over, and
+ignored: the CUDA kernels choose their own ray tile.
 
 The teacher's frame (``make_nerf_frame_fn``, the ``--test_teacher`` path)
 and its benchmark (``make_nerf_bench_fn``) render through the fused
@@ -49,6 +53,7 @@ from .kernels.r2l_fused import (calibrate_r2l_int8_pe,
 from .lpips import lpips, minmax_rescale
 from .models.nerf import NeRF, NeRFConfig
 from .models.r2l import R2L, R2LConfig
+from .parallel.mesh import Mesh, gather_rows, shard_rows, sharded
 from .rays import ndc_rays, plucker as plucker_fn, pose_spherical
 from .render import (VolRenderConfig, prepare_fused_teacher,
                      render_frame_nerf, render_frame_nerf_fused)
@@ -177,21 +182,40 @@ def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
     return model, "jnp", dim_pts
 
 
+def _shard_rays(mesh: Mesh | None, fn: Callable, arrays: tuple,
+                fills: tuple):
+    """``fn(*arrays)`` with the leading ray axis of each array split over
+    the mesh's ``data`` axis (padded with its fill value), its outputs (a
+    tensor or a tuple) gathered back and sliced to the ray count; ``fn``
+    on the whole arrays without such an axis."""
+    if not sharded(mesh):
+        return fn(*arrays)
+    n = arrays[0].shape[0]
+    out = fn(*(shard_rows(a, mesh, "data", v) for a, v in zip(arrays,
+                                                                fills)))
+    if isinstance(out, tuple):
+        return tuple(gather_rows(o, mesh, n) for o in out)
+    return gather_rows(out, mesh, n)
+
+
 def _frame(net: Callable, prepared, sampler: PointSampler, plucker: bool,
-           c2w: torch.Tensor) -> torch.Tensor:
+           c2w: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
     pts = (sampler.sample_test_plucker(c2w) if plucker
            else sampler.sample_test(c2w))
     # learn_depth models emit 4 channels; frames keep RGB
-    return net(prepared, pts)[:, :3].reshape(sampler.H, sampler.W, 3)
+    rgb = _shard_rays(mesh, lambda p: net(prepared, p), (pts,), (0.0,))
+    return rgb[:, :3].reshape(sampler.H, sampler.W, 3)
 
 
 def make_r2l_frame_fn(model: R2L, cfg: R2LConfig, sampler: PointSampler,
                       embed_L: int = 10, plucker: bool = False,
                       use_pallas: bool = True, pallas_tile: int = 512,
-                      quantize: str = "", calib_poses=None
+                      quantize: str = "", calib_poses=None,
+                      mesh: Mesh | None = None
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """c2w [3/4, 4] (tensor or array) -> frame [H, W, 3] f32 on the model's
-    device. The returned function carries ``.kind`` (the chosen path)."""
+    device, its rays split over the ``mesh``'s ``data`` axis when given.
+    The returned function carries ``.kind`` (the chosen path)."""
     prepared, kind, dim_pts = _prepare_r2l(
         model, cfg, sampler, embed_L, plucker, use_pallas, quantize,
         calib_poses=calib_poses)
@@ -200,7 +224,8 @@ def make_r2l_frame_fn(model: R2L, cfg: R2LConfig, sampler: PointSampler,
 
     @torch.no_grad()
     def frame_fn(c2w) -> torch.Tensor:
-        return _frame(net, prepared, sampler, plucker, _as_f32(c2w, device))
+        return _frame(net, prepared, sampler, plucker, _as_f32(c2w, device),
+                      mesh)
 
     frame_fn.kind = kind
     return frame_fn
@@ -229,10 +254,12 @@ def _givenrays_calib_pts(sampler: PointSampler, plucker: bool,
 
 def _givenrays_frame(net: Callable, prepared, sampler: PointSampler,
                      plucker: bool, H: int, W: int, rays_o: torch.Tensor,
-                     rays_d: torch.Tensor) -> torch.Tensor:
+                     rays_d: torch.Tensor, mesh: Mesh | None = None
+                     ) -> torch.Tensor:
     pts = (plucker_fn(rays_o, rays_d) if plucker
            else sampler.sample_train(rays_o, rays_d))
-    return net(prepared, pts)[:, :3].reshape(H, W, 3)
+    rgb = _shard_rays(mesh, lambda p: net(prepared, p), (pts,), (0.0,))
+    return rgb[:, :3].reshape(H, W, 3)
 
 
 def make_r2l_givenrays_frame_fn(model: R2L, cfg: R2LConfig,
@@ -240,13 +267,14 @@ def make_r2l_givenrays_frame_fn(model: R2L, cfg: R2LConfig,
                                 embed_L: int = 10, plucker: bool = False,
                                 use_pallas: bool = True,
                                 pallas_tile: int = 512, quantize: str = "",
-                                calib_rays=None) -> Callable:
+                                calib_rays=None, mesh: Mesh | None = None
+                                ) -> Callable:
     """(rays_o [H*W, 3], rays_d [H*W, 3]) -> frame [H, W, 3] f32 on the
     model's device, for the DONeRF given-rays path, through the same kinds
-    as ``make_r2l_frame_fn``: the points are the rays' Plücker coordinates
-    or ``sample_train`` with the even depths (on a pose's own rays, the
-    points of ``sample_test``). The rays are tensors or arrays, each copied
-    once to the device.
+    (and ``mesh`` split) as ``make_r2l_frame_fn``: the points are the rays'
+    Plücker coordinates or ``sample_train`` with the even depths (on a
+    pose's own rays, the points of ``sample_test``). The rays are tensors
+    or arrays, each copied once to the device.
 
     ``calib_rays = (rays_o, rays_d)`` span the deployment rays; int8
     calibrates on a subsample of them (``_givenrays_calib_pts``). The
@@ -265,7 +293,7 @@ def make_r2l_givenrays_frame_fn(model: R2L, cfg: R2LConfig,
     def frame_fn(rays_o, rays_d) -> torch.Tensor:
         return _givenrays_frame(net, prepared, sampler, plucker, H, W,
                                 _as_f32(rays_o, device).reshape(-1, 3),
-                                _as_f32(rays_d, device).reshape(-1, 3))
+                                _as_f32(rays_d, device).reshape(-1, 3), mesh)
 
     frame_fn.kind, frame_fn.parts = kind, parts
     return frame_fn
@@ -276,7 +304,8 @@ def make_r2l_givenrays_bench_fn(model: R2L, cfg: R2LConfig,
                                 embed_L: int = 10, plucker: bool = False,
                                 use_pallas: bool = True,
                                 pallas_tile: int = 512, quantize: str = "",
-                                calib_rays=None, parts=None) -> Callable:
+                                calib_rays=None, parts=None,
+                                mesh: Mesh | None = None) -> Callable:
     """(rays_o [K, H*W, 3], rays_d [K, H*W, 3]) -> scalar checksum of the K
     given-rays frames, rendered one after another with no host
     synchronisation (``make_r2l_bench_fn``'s protocol). ``parts`` (a frame
@@ -295,7 +324,7 @@ def make_r2l_givenrays_bench_fn(model: R2L, cfg: R2LConfig,
     def bench_fn(ros, rds) -> torch.Tensor:
         ros, rds = _as_f32(ros, device), _as_f32(rds, device)
         return _checksum((_givenrays_frame(net, prepared, sampler, plucker,
-                                           H, W, ro, rd)
+                                           H, W, ro, rd, mesh)
                           for ro, rd in zip(ros, rds)), device)
 
     bench_fn.kind = kind
@@ -305,7 +334,8 @@ def make_r2l_givenrays_bench_fn(model: R2L, cfg: R2LConfig,
 def make_r2l_bench_fn(model: R2L, cfg: R2LConfig, sampler: PointSampler,
                       embed_L: int = 10, plucker: bool = False,
                       use_pallas: bool = True, pallas_tile: int = 512,
-                      quantize: str = "", calib_poses=None
+                      quantize: str = "", calib_poses=None,
+                      mesh: Mesh | None = None
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """poses [K, 3/4, 4] -> scalar checksum (sum of every pixel of the K
     frames), rendered one after another with no host synchronisation: the
@@ -319,7 +349,7 @@ def make_r2l_bench_fn(model: R2L, cfg: R2LConfig, sampler: PointSampler,
 
     @torch.no_grad()
     def bench_fn(poses) -> torch.Tensor:
-        return _checksum((_frame(net, prepared, sampler, plucker, c2w)
+        return _checksum((_frame(net, prepared, sampler, plucker, c2w, mesh)
                           for c2w in _as_f32(poses, device)), device)
 
     bench_fn.kind = kind
@@ -333,8 +363,8 @@ def make_nerf_frame_fn(model_c: NeRF, model_f: NeRF | None,
                        use_pallas: bool = False,
                        ncfg_fine: NeRFConfig | None = None,
                        perturb_test: bool = False, with_disp: bool = False,
-                       device: torch.device | str = torch.device("cuda")
-                       ) -> Callable:
+                       device: torch.device | str = torch.device("cuda"),
+                       mesh: Mesh | None = None) -> Callable:
     """c2w [3/4, 4] (tensor or array) -> frame [H, W, 3] f32 through the
     volumetric teacher on ``device`` (the card unless told otherwise; the
     models must be there). ``ndc_params = (H, W, focal)`` turns on the LLFF
@@ -345,7 +375,10 @@ def make_nerf_frame_fn(model_c: NeRF, model_f: NeRF | None,
     reference's test kwargs); the draws come from a generator seeded from
     the pose's bits, so a frame is deterministic per pose (the role of the
     JAX package's key, not its numbers). ``with_disp`` returns (rgb,
-    disp [H, W]). The function carries ``.kind``: 'fused' or 'plain'."""
+    disp [H, W]). ``mesh`` splits the rays over its ``data`` axis (each
+    rank renders its shard, fused or plain; with ``perturb_test`` a shard's
+    jitter is not the one-process frame's, the same distribution). The
+    function carries ``.kind``: 'fused' or 'plain'."""
     device = torch.device(device)
     if _model_device(model_c) != device:
         raise ValueError(f"the teacher is on {_model_device(model_c)}, "
@@ -369,16 +402,21 @@ def make_nerf_frame_fn(model_c: NeRF, model_f: NeRF | None,
             bits = int(c2w.contiguous().view(torch.int32).sum())
             gen = torch.Generator(device).manual_seed(bits & 0xFFFFFFFF)
         kw = dict(generator=gen, ncfg_fine=ncfg_fine)
-        if fused:
-            out = render_frame_nerf_fused(model_c, model_f, ncfg, vcfg_t,
-                                          rays_o, rays_d, packed=packed,
-                                          **kw)
-        else:
-            out = render_frame_nerf(model_c, model_f, ncfg, vcfg_t, rays_o,
-                                    rays_d, **kw)
-        rgb = out["rgb"].reshape(sampler.H, sampler.W, 3)
+
+        def run(ro, rd):
+            if fused:
+                out = render_frame_nerf_fused(model_c, model_f, ncfg, vcfg_t,
+                                              ro, rd, packed=packed, **kw)
+            else:
+                out = render_frame_nerf(model_c, model_f, ncfg, vcfg_t, ro,
+                                        rd, **kw)
+            return out["rgb"], out["disp"]
+
+        # padded rays get unit-ish directions so that they stay normalizable
+        rgb, disp = _shard_rays(mesh, run, (rays_o, rays_d), (0.0, 1.0))
+        rgb = rgb.reshape(sampler.H, sampler.W, 3)
         if with_disp:
-            return rgb, out["disp"].reshape(sampler.H, sampler.W)
+            return rgb, disp.reshape(sampler.H, sampler.W)
         return rgb
 
     frame_fn.kind = "fused" if fused else "plain"
@@ -392,8 +430,8 @@ def make_nerf_bench_fn(model_c: NeRF, model_f: NeRF | None,
                        use_pallas: bool = False,
                        ncfg_fine: NeRFConfig | None = None,
                        perturb_test: bool = False,
-                       device: torch.device | str = torch.device("cuda")
-                       ) -> Callable:
+                       device: torch.device | str = torch.device("cuda"),
+                       mesh: Mesh | None = None) -> Callable:
     """The teacher's benchmark (``--benchmark --model_name nerf``): poses
     [K, 3/4, 4] -> scalar checksum of the K volumetric frames, rendered one
     after another with no host synchronisation (with ``perturb_test`` each
@@ -404,7 +442,7 @@ def make_nerf_bench_fn(model_c: NeRF, model_f: NeRF | None,
     packed once here. The function carries ``.kind``."""
     frame = make_nerf_frame_fn(model_c, model_f, ncfg, vcfg, sampler,
                                ndc_params, use_pallas, ncfg_fine,
-                               perturb_test, device=device)
+                               perturb_test, device=device, mesh=mesh)
     device = torch.device(device)
 
     @torch.no_grad()
@@ -585,7 +623,8 @@ def render_path_given_rays(model: R2L, cfg: R2LConfig,
                            lpips_rescale: str = "standard",
                            flip_rescale: str = "standard",
                            compute_flip: bool = True,
-                           logger=None, frame_fn=None) -> EvalResult:
+                           logger=None, frame_fn=None,
+                           mesh: Mesh | None = None) -> EvalResult:
     """The DONeRF path: ``render_path`` over frames of precomputed rays
     [N, H*W, 3], through ``make_r2l_givenrays_frame_fn`` (int8 calibrated
     on these rays) or a prebuilt ``frame_fn`` whose packing a caller shares
@@ -594,7 +633,8 @@ def render_path_given_rays(model: R2L, cfg: R2LConfig,
         frame_fn = make_r2l_givenrays_frame_fn(
             model, cfg, sampler, H, W, embed_L=embed_L, plucker=plucker,
             use_pallas=use_pallas, pallas_tile=pallas_tile,
-            quantize=quantize, calib_rays=(all_rays_o, all_rays_d))
+            quantize=quantize, calib_rays=(all_rays_o, all_rays_d),
+            mesh=mesh)
     if logger is not None:
         logger.print(f"given-rays inference path: {frame_fn.kind}")
     inputs = [(all_rays_o[i], all_rays_d[i])

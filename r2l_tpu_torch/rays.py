@@ -4,9 +4,10 @@ Counterpart of ``r2l_tpu/rays.py`` (``camera_ray_dirs`` :22,
 ``donerf_ray_dirs`` :37, ``get_rays`` :72, ``get_rays_np`` :95,
 ``ndc_rays`` :122, ``plucker`` :145, the numpy pose helpers :159-241). The
 numpy helpers are copied here because the JAX module imports jax at module
-scope. ``trans_origin`` is an
-argument here (the JAX module reads a module-wide default set from the
-CLI).
+scope. ``--trans_origin`` is, as in the JAX module, one module-wide default
+(``set_default_trans_origin``, set by the CLI's ``load_dataset``) that every
+``get_rays``/``get_rays_np`` call reads unless given a value; the samplers'
+frame rays do not read it, in either package.
 
 Conventions (identical to the reference):
   * pixel (i, j) -> camera-frame direction [(i - W/2)/f, -(j - H/2)/f, -1]
@@ -53,13 +54,26 @@ def _trans_origin_scale(trans_origin: str) -> float:
     return 30.0 if trans_origin == "fixed" else float(trans_origin)
 
 
+# --trans_origin applies at every get_rays call in the reference (it reads
+# the global args inside helpers.get_rays, `helpers:214-227, 248-252`): one
+# module default, as r2l_tpu/rays.py:59-69 keeps it.
+_DEFAULT_TRANS_ORIGIN = ""
+
+
+def set_default_trans_origin(value: str) -> None:
+    """The ``trans_origin`` that ``get_rays``/``get_rays_np`` use when not
+    given one ('' turns it off)."""
+    global _DEFAULT_TRANS_ORIGIN
+    _DEFAULT_TRANS_ORIGIN = value or ""
+
+
 def get_rays(H: int, W: int, focal: float, c2w,
-             focal_scale: float = 1.0, trans_origin: str = "",
+             focal_scale: float = 1.0, trans_origin: str | None = None,
              device: torch.device | str | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-frame rays of pose ``c2w`` [3/4, 4]: (rays_o, rays_d), each
-    [H, W, 3] f32. ``trans_origin`` slides the origins along the unit ray
-    direction. The rays live on ``device``: by default the pose's device
+    [H, W, 3] f32. ``trans_origin`` ('fixed' or a number; None: the module
+    default) slides the origins along the unit ray direction. The rays live on ``device``: by default the pose's device
     for a tensor, and the card for a numpy pose (pass ``device="cpu"``
     without one). The rotation is computed elementwise, in full f32 whatever
     the matmul precision flags say, and rounds as XLA's einsum does on the
@@ -78,6 +92,8 @@ def get_rays(H: int, W: int, focal: float, c2w,
         acc = (d[..., k].to(f64) * r[:, k].to(f64) + acc.to(f64)).float()
     rays_d = acc
     rays_o = c2w[:3, -1].expand(rays_d.shape)
+    if trans_origin is None:
+        trans_origin = _DEFAULT_TRANS_ORIGIN
     if trans_origin:
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         rays_o = rays_o + _trans_origin_scale(trans_origin) * unit
@@ -85,11 +101,13 @@ def get_rays(H: int, W: int, focal: float, c2w,
 
 
 def get_rays_np(H: int, W: int, focal: float, c2w,
-                focal_scale: float = 1.0, trans_origin: str = ""
+                focal_scale: float = 1.0, trans_origin: str | None = None
                 ) -> tuple[np.ndarray, np.ndarray]:
     """The numpy twin of ``get_rays`` (host-side ray generation for the
     pose loops of pseudo-data generation); the same arithmetic as the JAX
     package's, so the two give the same bits."""
+    if trans_origin is None:
+        trans_origin = _DEFAULT_TRANS_ORIGIN
     f = focal * focal_scale
     i = np.arange(W, dtype=np.float32)[None, :]
     j = np.arange(H, dtype=np.float32)[:, None]

@@ -19,15 +19,24 @@ the fused kernel on the card (K6, K7 for int8). ``--test_teacher`` renders
 the test split first and reports the teacher's PSNR (reference
 `create_data.py:723-742`). A teacher checkpoint is required unless
 ``--allow_random_teacher``.
+
+Several devices (as ``main_cuda.py``: torchrun's ranks, or ``--platform cpu
+--num_cpu_devices N``): ``rand`` splits each pose batch's rays over the
+mesh's ``data`` axis (``--mesh``, else ``data:WORLD_SIZE``) and rank 0
+writes the shards, the files of one process; the other modes, which the JAX
+package runs on one device, and ``convert_rays`` run on rank 0 alone.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 import numpy as np
+import torch.distributed as dist
 
-from ..app import apply_platform, build_teacher, load_dataset, vol_config
+from ..app import (apply_platform, build_teacher, load_dataset, run_mesh,
+                   vol_config)
 from ..configs import parse_args
 from ..data.rayshards import write_ray_shards
 from ..datagen import (DataGenConfig, generate_3x3rays, generate_patches,
@@ -36,6 +45,7 @@ from ..datagen import (DataGenConfig, generate_3x3rays, generate_patches,
                        images_to_ray_records)
 from ..evaluate import make_nerf_frame_fn, render_path
 from ..logging_ import Logger
+from ..parallel.dist import python_entry, run_cli
 from ..sampler import PointSampler
 
 # The reference hand-codes this phi >= 0 exclusion list for ficus
@@ -110,12 +120,28 @@ def convert_rays(args, ns, datadir_kd, logger, device) -> int:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    rc = run_cli(argv, python_entry("r2l_tpu_torch.tools.create_data"),
+                 args.platform, args.num_cpu_devices)
+    if rc is not None:
+        return rc
+    joined = not dist.is_initialized()
+    try:
+        return _run(args)
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
     device = apply_platform(args)
+    rank = dist.get_rank() if dist.is_initialized() else 0
     logger = Logger(experiment_name=args.experiment_name or "create_data",
                     experiments_dir=args.experiments_dir, debug=args.debug,
-                    args=args)
+                    args=args, main_process=rank == 0, rank=rank)
     logger.print(f"device: {device}")
+    mesh = run_mesh(args, logger, device)
     ns = load_dataset(args, logger)
     datadir_kd = args.datadir_kd or (args.datadir + "_pseudo")
     if ":" in datadir_kd:
@@ -130,7 +156,8 @@ def main(argv=None) -> int:
                      f"the {old!r} copy-seed step is unnecessary here)")
 
     if args.create_data == "convert_rays":
-        convert_rays(args, ns, datadir_kd, logger, device)
+        if rank == 0:
+            convert_rays(args, ns, datadir_kd, logger, device)
         logger.close()
         return 0
 
@@ -160,14 +187,14 @@ def main(argv=None) -> int:
             mc, mf, ncfg, vcfg, sampler,
             (ns.H, ns.W, ns.focal) if ns.ndc else None,
             use_pallas=args.use_pallas, ncfg_fine=ncfg_fine,
-            perturb_test=args.perturb_test > 0, device=device)
+            perturb_test=args.perturb_test > 0, device=device, mesh=mesh)
         res = render_path(frame_fn, ns.poses[ns.i_test],
                           gt_images=ns.images[ns.i_test],
                           compute_flip=False, logger=logger)
         logger.print(f"teacher test PSNR {res.test_psnr:.4f} "
                      f"({frame_fn.kind})")
 
-    if args.rm_existing_data and os.path.isdir(datadir_kd):
+    if args.rm_existing_data and os.path.isdir(datadir_kd) and rank == 0:
         # npz too: rand_images/patches write .npz batches — stale
         # old-teacher data must not survive an explicit wipe
         for f in os.listdir(datadir_kd):
@@ -205,8 +232,10 @@ def main(argv=None) -> int:
         total = generate_pseudo_data(
             mc, mf, ncfg, vcfg, gcfg, datadir_kd, pose_fn=pose_fn,
             ndc=ns.ndc, progress=lambda i, n: (i % 50 == 0 and logger.print(
-                f"pose {i}/{n}")), **kw)
+                f"pose {i}/{n}")), mesh=mesh, **kw)
         logger.print(f"generated {total} pseudo rays in {datadir_kd}")
+    elif rank != 0:
+        logger.print(f"--create_data {mode}: rank 0 writes this mode")
     elif mode == "spiral_evenly_spaced":
         n = generate_pseudo_images(mc, mf, ncfg, vcfg, gcfg, datadir_kd,
                                    n_pose=n_pose, **kw)

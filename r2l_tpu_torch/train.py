@@ -37,8 +37,19 @@ random draws of a step (hard-pool slots, depth jitter, pixels, the training
 image, the render's jitter and sigma noise) are explicit:
 passed in (``StepDraws``, ``ImageStepDraws``, ``TeacherStepDraws``; a test
 hands over JAX's) or drawn from a ``torch.Generator``. ``scan_steps=k`` is
-a plain loop of k steps. Not here: the CLI loop and the mesh; the
-checkpoints and resume are ``checkpoint.py``'s.
+a plain loop of k steps. Not here: the CLI loop; the checkpoints and
+resume are ``checkpoint.py``'s.
+
+``mesh=`` (``parallel.make_mesh``, one process per device) runs the plain
+steps data-parallel as JAX's GSPMD steps do: every rank draws the same
+global batch and the same draws, takes its rows of the batch over
+``data`` (the student's width split over ``model`` when the mesh has one,
+``parallel.apply_r2l_tp``), the gradients are summed to the global batch
+mean (``parallel.sync_grads``) and every rank applies the same Adam
+update; the per-ray losses are gathered, so the hard pool, replicated,
+takes the single-device step's rays and pointer. The fused kinds take no
+mesh, as in JAX. A mesh without a process group is the unsharded step; a
+one-rank group takes the sharded path, its collectives over one rank.
 """
 from __future__ import annotations
 
@@ -57,6 +68,8 @@ from .hardmine import (HardDraws, HardPool, draw_hard, init_pool,
 from .kernels.r2l_train import make_fused_train_apply
 from .models.nerf import NeRF, NeRFConfig
 from .models.r2l import R2L, R2LConfig
+from .parallel.mesh import (Mesh, all_reduce_, apply_r2l_tp, gather_rows,
+                            r2l_param_shardings, sharded, sync_grads)
 from .rays import get_rays, ndc_rays, plucker
 from .render import ChunkDraws, VolRenderConfig, draw_chunk, render_rays_nerf
 from .sampler import PointSampler, stratify_z
@@ -297,11 +310,26 @@ def distill_loss_fn(model: R2L, cfg: R2LConfig, dcfg: DistillConfig,
     return loss, per_ray
 
 
+def _rows(n: int, mesh: Mesh) -> slice:
+    """This rank's rows of an n-row global batch split over ``data``."""
+    d = mesh.size("data")
+    if n % d:
+        raise ValueError(f"a batch of {n} rays does not split over the "
+                         f"{d}-way data axis (the CLI aligns the counts)")
+    return slice(mesh.index("data") * (n // d),
+                 (mesh.index("data") + 1) * (n // d))
+
+
 def _distill_core(state: TrainState, fresh: torch.Tensor, draws: StepDraws,
                   cfg: R2LConfig, dcfg: DistillConfig, sampler: PointSampler,
                   schedule: Callable[[int], float], n_fresh: int,
-                  fused_apply=None) -> tuple[TrainState, dict]:
-    """One step: hard-pool augment -> grad -> Adam -> pool refresh."""
+                  fused_apply=None, mesh: Mesh | None = None
+                  ) -> tuple[TrainState, dict]:
+    """One step: hard-pool augment -> grad -> Adam -> pool refresh. With a
+    sharded mesh the loss runs on this rank's rows of the global batch
+    (the student's width split over ``model``), scaled to its share of the
+    global mean, so the gradients summed over the mesh are the global
+    batch's; the loss is summed and the per-ray MSE gathered back."""
     if dcfg.n_hard_out > 0:
         hard, idx = sample_hard(state.pool, dcfg.n_hard_out, fresh,
                                 mode=dcfg.hard_sample, draws=draws.hard)
@@ -311,9 +339,22 @@ def _distill_core(state: TrainState, fresh: torch.Tensor, draws: StepDraws,
         batch = fresh
     model, opt = state.params, state.optimizer
     opt.zero_grad(set_to_none=True)
-    loss, per_ray = distill_loss_fn(model, cfg, dcfg, sampler, batch,
-                                    draws.z_u, fused_apply)
-    loss.backward()
+    if sharded(mesh):
+        n = batch.shape[0]
+        rows = _rows(n, mesh)
+        loss, per_ray = distill_loss_fn(
+            model, cfg, dcfg, sampler, batch[rows],
+            None if draws.z_u is None else draws.z_u[rows],
+            lambda m, p: apply_r2l_tp(m, r2l_embed(p, dcfg.embed_L), mesh))
+        loss = loss * ((rows.stop - rows.start) / n)
+        loss.backward()
+        sync_grads(model, mesh, r2l_param_shardings(mesh, model))
+        loss = all_reduce_(loss.detach().clone(), mesh)
+        per_ray = gather_rows(per_ray.detach(), mesh, n)
+    else:
+        loss, per_ray = distill_loss_fn(model, cfg, dcfg, sampler, batch,
+                                        draws.z_u, fused_apply)
+        loss.backward()
     # the schedule at the count before this update, as optax evaluates it
     for group in opt.param_groups:
         group["lr"] = schedule(state.lr_count)
@@ -339,7 +380,8 @@ def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
                       fused_calib_pts: torch.Tensor | None = None,
                       fused_stash_q: bool = True,
                       fused_calib_every: int = 1,
-                      device: torch.device | str = torch.device("cuda")):
+                      device: torch.device | str = torch.device("cuda"),
+                      mesh: Mesh | None = None):
     """The distillation step (rays mode).
 
     ``scan_steps == 1``: ``step(state, fresh, generator=None, draws=None)
@@ -356,10 +398,15 @@ def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
     (needs ``fused_calib_pts``), stashing int8 q-values, or with
     ``fused_stash_q=False`` bf16 dequantized activations;
     ``fused_calib_every=N > 1`` with k > 1 recalibrates at the call's entry
-    and then when ``step % N == 0``.
+    and then when ``step % N == 0``. ``mesh``: data (and model) parallel
+    over the mesh's processes (the module docstring); not with
+    ``fused_vjp``.
     """
     device = torch.device(device)
     fused_apply = fused_calibrate = None
+    if fused_vjp and mesh is not None:
+        raise ValueError("fused_vjp is single-device: the fused kernels "
+                         "take no mesh")
     if fused_vjp:
         if dcfg.plucker:
             raise ValueError("fused_vjp takes sampled points, not Plücker "
@@ -393,7 +440,7 @@ def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
             fp = calib["fp"]
             apply = lambda m, x: fused_apply(m, x, fp)  # noqa: E731
         return _distill_core(state, fresh, draws, cfg, dcfg, sampler,
-                             schedule, n_fresh, apply)
+                             schedule, n_fresh, apply, mesh)
 
     return _maybe_scan(
         one, scan_steps, "distill",
@@ -459,7 +506,8 @@ def make_distill_step_images(cfg: R2LConfig, dcfg: DistillConfig,
                              select_pixel_mode: str = "rand_pixel",
                              scan_steps: int = 1,
                              device: torch.device | str = torch.device(
-                                 "cuda")):
+                                 "cuda"),
+                             mesh: Mesh | None = None):
     """The distillation step of the images data mode: one (image [H, W, 3],
     pose [3, 4]) per step; ``batch_size - n_hard_out`` pixels are chosen on
     the device (the central ``precrop_frac`` crop for the first
@@ -473,7 +521,9 @@ def make_distill_step_images(cfg: R2LConfig, dcfg: DistillConfig,
     images [k, H, W, 3], poses [k, 3, 4], generator=None, draws=None)``, the
     same as k single steps. ``draws`` (an ``ImageStepDraws``, or a list of
     k) are the steps' random draws; without them they come from
-    ``generator``, or from the step's own generator on ``device``.
+    ``generator``, or from the step's own generator on ``device``. With a
+    ``mesh`` every rank picks the same pixels and the step shards them, as
+    the rays step does.
     """
     device = torch.device(device)
     schedule = make_lr_schedule(dcfg.lrate, dcfg.lrate_decay, dcfg.warmup_lr)
@@ -491,7 +541,7 @@ def make_distill_step_images(cfg: R2LConfig, dcfg: DistillConfig,
                                select_pixel_mode)
         fresh = _image_batch(image, pose, H, W, focal, hh, ww)
         return _distill_core(state, fresh, draws.core, cfg, dcfg, sampler,
-                             schedule, n_fresh)
+                             schedule, n_fresh, mesh=mesh)
 
     return _maybe_scan(one, scan_steps, "distill_images", draw, device)
 
@@ -546,20 +596,39 @@ def init_teacher_state(model_c: NeRF, model_f: NeRF | None,
 def _teacher_update(state: TeacherState, ncfg: NeRFConfig,
                     vcfg: VolRenderConfig, rays_o: torch.Tensor,
                     rays_d: torch.Tensor, target: torch.Tensor,
-                    draws: ChunkDraws, schedule, ncfg_fine
-                    ) -> tuple[TeacherState, dict]:
+                    draws: ChunkDraws, schedule, ncfg_fine,
+                    mesh: Mesh | None = None) -> tuple[TeacherState, dict]:
     """One update on a ray batch: the volumetric render, loss = fine MSE +
     coarse MSE, backward, Adam at the schedule's rate for the count before
-    this update. PSNR is the fine MSE's alone (the reference's log)."""
+    this update. PSNR is the fine MSE's alone (the reference's log). With
+    a sharded mesh each rank renders its rows of the batch (and of the
+    draws), its MSEs scaled to their share of the global mean, and the
+    gradients are summed over ``data``."""
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
+    share = 1.0
+    if sharded(mesh):
+        rows = _rows(rays_o.shape[0], mesh)
+        share = (rows.stop - rows.start) / rays_o.shape[0]
+        rays_o, rays_d, target = rays_o[rows], rays_d[rows], target[rows]
+        draws = ChunkDraws(*(None if t is None else t[rows] for t in draws))
     out = render_rays_nerf(state.model_c, state.model_f, ncfg, vcfg, rays_o,
                            rays_d, draws, ncfg_fine=ncfg_fine)
-    loss_rgb = torch.mean((out.rgb_map - target) ** 2)
+
+    def mse(rgb):
+        return torch.mean((rgb - target) ** 2) * share
+
+    loss_rgb = mse(out.rgb_map)
     loss = loss_rgb
     if out.rgb0 is not None:
-        loss = loss + torch.mean((out.rgb0 - target) ** 2)
+        loss = loss + mse(out.rgb0)
     loss.backward()
+    if sharded(mesh):
+        sync_grads(torch.nn.ModuleList(
+            [m for m in (state.model_c, state.model_f) if m is not None]),
+            mesh)
+        loss = all_reduce_(loss.detach().clone(), mesh)
+        loss_rgb = all_reduce_(loss_rgb.detach().clone(), mesh)
     for group in opt.param_groups:
         group["lr"] = schedule(state.lr_count)
     opt.step()
@@ -574,7 +643,8 @@ def make_teacher_step(ncfg: NeRFConfig, vcfg: VolRenderConfig,
                       tcfg: TeacherTrainConfig, H: int, W: int, focal: float,
                       ncfg_fine: NeRFConfig | None = None, ndc: bool = False,
                       scan_steps: int = 1,
-                      device: torch.device | str = torch.device("cuda")):
+                      device: torch.device | str = torch.device("cuda"),
+                      mesh: Mesh | None = None):
     """The teacher step over training images (``no_batching``, the lego
     default): a random image, ``n_rand`` of its pixels (the central
     ``precrop_frac`` crop for the first ``precrop_iters`` steps;
@@ -588,7 +658,8 @@ def make_teacher_step(ncfg: NeRFConfig, vcfg: VolRenderConfig,
     of k) are the steps' random draws; without them they come from
     ``generator``, or from the step's own generator on ``device``. Images
     and poses should live on ``device``: a copy from the host each step
-    makes the host wait for the card.
+    makes the host wait for the card. ``mesh``: data parallel (the module
+    docstring).
     """
     device = torch.device(device)
     schedule = make_lr_schedule(tcfg.lrate, tcfg.lrate_decay, tcfg.warmup_lr)
@@ -612,7 +683,7 @@ def make_teacher_step(ncfg: NeRFConfig, vcfg: VolRenderConfig,
         batch = _image_batch(target_img, c2w, H, W, focal, hh, ww, ndc)
         return _teacher_update(state, ncfg, vcfg, batch[:, 0:3],
                                batch[:, 3:6], batch[:, 6:9], draws.render,
-                               schedule, ncfg_fine)
+                               schedule, ncfg_fine, mesh)
 
     return _maybe_scan(one, scan_steps, "teacher_images", draw, device)
 
@@ -622,7 +693,8 @@ def make_teacher_step_batched(ncfg: NeRFConfig, vcfg: VolRenderConfig,
                               ncfg_fine: NeRFConfig | None = None,
                               scan_steps: int = 1,
                               device: torch.device | str = torch.device(
-                                  "cuda")):
+                                  "cuda"),
+                              mesh: Mesh | None = None):
     """The teacher step over a pre-shuffled ray pool (``use_batching``, the
     LLFF default): each step renders the ``n_rand`` records [o, d, rgb] of
     ``ray_pool`` [N, 9] at ``offset`` (clamped so that the slice fits, as
@@ -632,7 +704,8 @@ def make_teacher_step_batched(ncfg: NeRFConfig, vcfg: VolRenderConfig,
     ``step(state, ray_pool, offset, generator=None, draws=None) -> (state,
     metrics)``; with ``scan_steps = k > 1`` k steps at offsets ``offset +
     j * n_rand``, metrics stacked [k]. ``draws``: a ``TeacherStepDraws``
-    (only ``render`` is read), or a list of k.
+    (only ``render`` is read), or a list of k. ``mesh``: data parallel (the
+    module docstring).
     """
     device = torch.device(device)
     schedule = make_lr_schedule(tcfg.lrate, tcfg.lrate_decay, tcfg.warmup_lr)
@@ -647,18 +720,21 @@ def make_teacher_step_batched(ncfg: NeRFConfig, vcfg: VolRenderConfig,
         batch = pool[start:start + n]
         return _teacher_update(state, ncfg, vcfg, batch[:, 0:3],
                                batch[:, 3:6], batch[:, 6:9], draws.render,
-                               schedule, ncfg_fine)
+                               schedule, ncfg_fine, mesh)
 
     return _maybe_scan(one, scan_steps, "teacher_batched", draw, device,
                        stride=n)
 
 
 def fused_vjp_gate(fused_train_vjp: bool, cfg: R2LConfig, plucker_: bool,
-                   n_devices: int = 1, log=None) -> bool:
-    """Whether ``--fused_train_vjp`` takes the fused step: a single device,
+                   n_devices: int = 1, log=None, mesh: Mesh | None = None
+                   ) -> bool:
+    """Whether ``--fused_train_vjp`` takes the fused step: a single device
+    and no mesh (JAX's ``mesh is None``, so a mesh of one process too),
     sampled points (not Plücker), netwidth % 128 == 0 and the canonical
     two-layer resmlp body; otherwise the plain step, with a warning."""
-    ok = bool(fused_train_vjp and n_devices == 1 and not plucker_
+    ok = bool(fused_train_vjp and n_devices == 1 and mesh is None
+              and not plucker_
               and cfg.netwidth % 128 == 0 and cfg.n_learnable == 2
               and cfg.body_arch == "resmlp")
     if fused_train_vjp and not ok:

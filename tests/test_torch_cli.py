@@ -311,13 +311,23 @@ def test_steps_per_dispatch_equals_single_steps(scene, pseudo, tmp_path,
     _tree_equal(trees[0], trees[1])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data:2"], ["--multihost"],
-                                  ["--num_cpu_devices", "2"],
-                                  ["--platform", "tpu"],
-                                  ["--trans_origin", "fixed"]])
-def test_unported_flags_raise(scene, tmp_path, flag):
+@pytest.mark.parametrize("flag,why", [
+    (["--mesh", "data:2"], "needs 2 processes"),
+    (["--multihost"], "no launcher environment"),
+    (["--num_cpu_devices", "2"], "starts 2 gloo ranks"),
+    (["--platform", "tpu"], "PyTorch/CUDA port"),
+    (["--trans_origin", "abc"], "'fixed' or a number")],
+    ids=[f"flag{i}" for i in range(5)])
+def test_unported_flags_raise(scene, tmp_path, flag, why):
+    """What the port's command line refuses, with the reason: a mesh larger
+    than the process group, --multihost without a launcher, in-process
+    --num_cpu_devices (the command line starts its ranks;
+    tests/test_torch_multihost.py), --platform tpu, a --trans_origin that is
+    neither 'fixed' nor a number. The multi-device flags and --trans_origin
+    themselves run (tests/test_torch_sharding.py,
+    test_torch_trans_origin.py)."""
     argv = _common(scene, tmp_path, "x") + STUDENT + flag
-    with pytest.raises(SystemExit, match="ROADMAP|port"):
+    with pytest.raises(SystemExit, match=why):
         app.train(parse_args(argv))
 
 

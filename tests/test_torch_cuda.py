@@ -1419,3 +1419,102 @@ def test_cli_render_only_on_card(dev, tmp_path):
     assert frame_fn.kind == "pe"
     want = np.stack([frame_fn(p).cpu().numpy() for p in ns.poses[ns.i_test]])
     np.testing.assert_array_equal(res.frames, want)
+
+
+def test_jpeg_fixtures_decode_to_their_digests(dev):
+    """The JPEG decoder beside the card, with no image package: every
+    fixture's array has the sha256 of imageio's (tests/fixtures/jpeg/)."""
+    import hashlib
+    import json
+
+    from r2l_tpu_torch.data.imageio_ import read_image
+    root = os.path.join(FIXTURES, "jpeg")
+    with open(os.path.join(root, "digests.json")) as f:
+        digests = json.load(f)
+    for name, want in digests.items():
+        a = read_image(os.path.join(root, name))
+        assert list(a.shape) == want["shape"], name
+        assert hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"], name
+
+
+def test_world1_sharded_frames_equal_unsharded(dev, tmp_path):
+    """A one-rank NCCL group (mesh data:1, model:1): the pe (K1) and int8
+    (K2) frames through ``mesh=`` split and all_gather their rays on the
+    card, are bit for bit the unsharded ones, and each launches its
+    kernel."""
+    import torch.distributed as dist
+
+    from _torch_mesh import counted_collectives
+    from r2l_tpu_torch.evaluate import make_r2l_frame_fn
+    from r2l_tpu_torch.parallel import make_mesh
+    dist.init_process_group("nccl", init_method="file://" + str(
+        tmp_path / "rdv"), rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        cfg = R2LConfig(input_dim=48 * 21, netdepth=12, netwidth=256,
+                        compute_dtype=torch.bfloat16)
+        model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+        sampler = PointSampler(H=64, W=64, focal=80.0, n_sample=16,
+                               near=2.0, far=6.0)
+        poses = np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4]
+                          for t in (0.0, 90.0)]).astype(np.float32)
+        for kw, fn in (({}, F.fused_r2l_apply_pe),
+                       ({"quantize": "int8"}, F.fused_r2l_apply_int8_pe)):
+            one = make_r2l_frame_fn(model, cfg, sampler, calib_poses=poses,
+                                    **kw)
+            sh = make_r2l_frame_fn(model, cfg, sampler, calib_poses=poses,
+                                   mesh=mesh, **kw)
+            fn.launches = 0
+            with counted_collectives() as calls:
+                got = sh(poses[0])
+            assert fn.launches > 0 and calls["all_gather"] > 0
+            assert torch.equal(got, one(poses[0]))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_world1_sharded_distill_step_equals_unsharded(dev, tmp_path):
+    """A one-rank NCCL group: two hard-mined distillation steps with
+    ``mesh=`` all_reduce the gradients and the loss and all_gather the
+    per-ray losses on the card, and are bit for bit the unsharded steps:
+    losses, parameters and the hard pool."""
+    import torch.distributed as dist
+
+    from _torch_mesh import counted_collectives
+    from r2l_tpu_torch import train as TR
+    from r2l_tpu_torch.parallel import make_mesh
+    dist.init_process_group("nccl", init_method="file://" + str(
+        tmp_path / "rdv"), rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        cfg = R2LConfig(input_dim=16 * 3 * 21, netdepth=8, netwidth=128,
+                        compute_dtype=torch.bfloat16)
+        dcfg = TR.DistillConfig(batch_size=1024, n_hard_in=64,
+                                n_hard_out=128, hard_mul=2.0, embed_L=10)
+        sampler = PointSampler(H=64, W=64, focal=80.0, n_sample=16,
+                               near=2.0, far=6.0)
+        fresh = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(896, 9)).astype(np.float32)).to(dev)
+
+        def run(m):
+            model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+            state = TR.init_train_state(model, dcfg, device=dev)
+            step = TR.make_distill_step(cfg, dcfg, sampler, device=dev,
+                                        mesh=m)
+            g = torch.Generator(dev).manual_seed(3)
+            losses = []
+            for _ in range(2):
+                state, ms = step(state, fresh, generator=g)
+                losses.append(ms["loss"])
+            return [*losses, *state.params.parameters(), *state.pool]
+
+        want = run(None)
+        with counted_collectives() as calls:
+            got = run(mesh)
+        torch.cuda.synchronize()
+        assert calls["all_reduce"] > 0 and calls["all_gather"] > 0
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -171,19 +171,23 @@ def test_llff_matches_jax(tmp_path, factor, spherify):
 
 
 def test_jpeg_raises_naming_the_file(tmp_path):
+    """JPEG decoding is ported (tests/test_torch_jpeg.py); a kind it does
+    not decode (progressive) raises, naming the file and the marker, from
+    the loader and by its first bytes under a .png name."""
+    from PIL import Image
     a = _llff_scene(str(tmp_path / "a"), n=2)
     os.makedirs(os.path.join(a, "images_2"))
     for k in range(2):
         img = np.zeros((16, 20, 3), np.uint8)
-        imageio.imwrite(os.path.join(a, "images_2", f"im_{k:03d}.JPG"), img,
-                        format="JPEG")
-    with pytest.raises(NotImplementedError,
-                       match=r"im_000\.JPG.*ROADMAP A5"):
+        Image.fromarray(img).save(os.path.join(a, "images_2",
+                                               f"im_{k:03d}.JPG"),
+                                  progressive=True)
+    with pytest.raises(ValueError, match=r"im_000\.JPG.*progressive.*0xC2"):
         load_llff_data(a, factor=2)
     # a JPEG under a .png name is caught by its first bytes
     p = str(tmp_path / "x.png")
     shutil.copy(os.path.join(a, "images_2", "im_000.JPG"), p)
-    with pytest.raises(NotImplementedError, match="x.png"):
+    with pytest.raises(ValueError, match="x.png"):
         IO.read_image(p)
 
 

@@ -10,7 +10,9 @@ probes, and K2's body, wall, streams and epilogue probes, and the int8-dL/dx
 walk), renders an int8 given-rays frame and its bench checksum, computes
 SSIM, FLIP and LPIPS, imports ``bench_cuda.py``'s function, parses the
 command line and maps it to a student config, runs each datagen mode other
-than ``rand``, decodes a PNG and area-resizes it, counts FLOPs, imports
+than ``rand``, decodes a PNG and area-resizes it, decodes a JPEG fixture
+to its recorded digest, runs a data-parallel step and a sharded frame on a
+one-rank gloo group (``r2l_tpu_torch.parallel``), counts FLOPs, imports
 ``main_cuda.py`` and the create-data tool, and finds none of ``jax``,
 ``r2l_tpu``, ``flax`` and ``msgpack`` in sys.modules. The kernel
 sources include only the CUDA toolkit's headers and their own."""
@@ -204,6 +206,26 @@ with tempfile.TemporaryDirectory() as tmp:
     write_png(tmp + "/i.png", img)
     assert (read_image(tmp + "/i.png") == img).all()
     assert resize_area(img, 3, 4).shape == (4, 3, 3)
+    import hashlib, json
+    from r2l_tpu_torch.data.imageio_ import read_jpeg
+    with open("tests/fixtures/jpeg/digests.json") as f:
+        dig = json.load(f)["s420.jpg"]
+    a = read_jpeg("tests/fixtures/jpeg/s420.jpg")
+    assert hashlib.sha256(a.tobytes()).hexdigest() == dig["sha256"]
+    import torch.distributed as dist
+    from r2l_tpu_torch.parallel import gather_rows, make_mesh, shard_rows
+    dist.init_process_group("gloo", init_method="file://" + tmp + "/rdv",
+                            rank=0, world_size=1)
+    mesh = make_mesh({"data": 1, "model": 1})
+    x = torch.arange(10.0).reshape(5, 2)
+    assert torch.equal(gather_rows(shard_rows(x, mesh), mesh, 5), x)
+    state = init_train_state(model, dcfg, device="cpu")
+    state, m = make_distill_step(cfg, dcfg, sampler, device="cpu",
+                                 mesh=mesh)(state, fresh)
+    assert bool(torch.isfinite(m["loss"]))
+    assert make_r2l_frame_fn(model, cfg, sampler, mesh=mesh)(
+        poses[0]).shape == (4, 4, 3)
+    dist.destroy_process_group()
 assert count_params(model) > 0 and flops_per_pixel_from_params(model) > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "r2l_tpu", "flax", "msgpack"))
