@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's student frame path and kernel API, its
 distillation steps, the NeRF teacher's pseudo-data generation, teacher
 training, the tensor-core probes, the given-rays frames, evaluation and
-benchmarks, checkpoints, resume and export, and the command line on one
-NVIDIA GPU.
+benchmarks, checkpoints, resume and export, the command line, and the
+exp/ drivers on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -241,6 +241,24 @@ Phases, in order; any failure raises and exits non-zero:
    hard-mined plain distillation steps with ``mesh=`` at the CLI's batch,
    bit for bit the unsharded calls, with their launches and the NCCL
    collectives counted. K1, K3 and K5 must launch.
+
+19. The exp/ drivers that reach no kernel of their own
+   (``r2l_tpu_torch/exp/``), each through its ``main(argv)`` in this
+   process at the JAX drivers' full shapes (only frames or steps per call
+   and timed calls cut, by the drivers' own options): the int8 student
+   frame decomposed, end to end, batched over 16 frames and in K2's three
+   epilogues; the teacher frame in K6 bf16 / K7 / plain, K7 folded, its
+   decomposition (coarse, pdf, fine, residual) and two ray chunks; the
+   distillation step by kind and group size, in int8, decomposed, by
+   calibration cadence, by hard-sample mode; the step's pieces outside the
+   kernels; the teacher's training step; ``dbg_int8_engage`` on a teacher
+   checkpoint saved here. ``[main] exp <driver> <variant>`` lines (ms and
+   the share of the data-sheet peak), the records in
+   ``build/exp_records.jsonl``, the drivers' checks (``probe_batch``'s
+   batched rgb against the frames', K7 against K6 and folded against
+   unfolded at K7's datagen PSNR bound, K2's epilogue forms against their
+   plain versions, the training losses falling) and K2-K8's launches in
+   the phase, each > 0.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -3844,6 +3862,211 @@ def phase_llff_mesh(dev, cli: dict) -> dict:
         raise AssertionError(f"phase 18: kernels never launched: {missing}")
     return res
 
+
+# Phase 19, the exp/ drivers that reach no kernel of their own
+# (r2l_tpu_torch/exp/, ROADMAP A7), each through its own main(argv) in this
+# process at the JAX drivers' full shapes: the student frame decomposed,
+# end to end, batched and in K2's three epilogues; the teacher frame in
+# K6/K7, folded, decomposed and at two chunks, and dbg_int8_engage on a
+# teacher checkpoint this phase saves; the distillation step by kind,
+# int8, decomposed, by calibration cadence and group size, by hard-sample
+# mode; the step's non-kernel pieces; the teacher's training step. Only
+# frames or steps per call and the number of timed calls are cut (the
+# drivers' own options; their defaults are the JAX drivers' values).
+EXP_DRIVERS = (
+    ("probe_decomp", []), ("probe_e2e", []), ("probe_batch", []),
+    ("probe_epi2", []),
+    ("probe_teacher_int8", ["--frames", "2", "--reps", "1"]),
+    ("probe_teacher_fold", ["--reps", "2"]),
+    ("probe_teacher_decomp", ["--reps", "2"]),
+    ("probe_teacher_chunk", ["--reps", "2"]),
+    ("probe_train", ["--steps", "10", "--reps", "3"]),
+    ("probe_train_int8", ["--steps", "10", "--reps", "3"]),
+    ("probe_train_decomp", ["--steps", "10", "--reps", "3"]),
+    ("probe_calib_dispatch", ["--dispatches", "1", "--reps", "2"]),
+    ("probe_strat", ["--steps", "10", "--reps", "3"]),
+    ("probe_mine", []),
+    ("probe_teacher_step", ["--steps", "16", "--reps", "2"]))
+EXP_KERNELS = ("K2", "K3", "K4", "K5", "K6", "K7", "K8")
+# The drivers' own checks: probe_batch's batched rgb against the frames'
+# (K2's frame bounds; the same rays in another batch, so bit for bit is
+# expected) and its two checksums (K2's RMS bound summed over the values);
+# K7 against K6 on a teacher frame, and K7 folded against unfolded, at
+# K7's datagen bound (PSNR); K2's epilogue forms against their
+# plain versions at K2's bounds; the losses of probe_train's and
+# probe_strat's steps finite and each kind's last loss within
+# RTOL_LOSS["fused_int8"] of the plain step's. (They rise, not fall: the
+# JAX drivers' configuration, lr 5e-4 with no warm-up on a random W256/D88
+# student and uniform targets, saturates the sigmoid tail in the first
+# steps, at a loss near 1/3, in every kind; JAX's own driver logged
+# 0.33439 for its plain step on the TPU, exp/probe_train.jsonl.)
+MIN_PSNR_EXP_K7 = MIN_PSNR_TEACHER["int8"]
+
+
+def exp_counts() -> dict:
+    """K2-K8's launch counters (K6: bf16 and f32; phase 19 runs bf16)."""
+    from r2l_tpu_torch.kernels import r2l_train as T
+    return {**cli_counts(), "K8": T.train_fwd_int8.launches_bf16}
+
+
+def exp_line(driver: str, rec: dict) -> None:
+    """``[main] exp <driver> <variant>``: ms and, where the record has one,
+    the share of the data-sheet peak."""
+    name = rec.get("name", rec.get("variant"))
+    if name == "decomp_summary":
+        print(f"[main] exp {driver} {name} (ms/frame): " + ", ".join(
+            f"{k} {rec[k]:.3f}" for k in ("full", "coarse", "pdf", "fine",
+                                          "residual_epilogue")), flush=True)
+        return
+    unit = next((k for k in ("ms_per_frame", "ms_per_step", "ms_per_iter",
+                             "ms") if k in rec), None)
+    if unit is None or name in ("device", "done", "best", "checksums"):
+        return
+    share = next((f", {100 * v:.1f}% of the {k[4:]} peak"
+                  for k, v in rec.items() if k.startswith("mfu_")), "")
+    print(f"[main] exp {driver} {name}: {rec[unit]:.3f} "
+          f"{unit.replace('ms_per_', 'ms/')}{share}", flush=True)
+
+
+def exp_checks(recs: dict) -> None:
+    """The drivers' checks on their records (AssertionError if one
+    fails)."""
+    for driver, rs in recs.items():
+        bad = [r for r in rs if "error" in r]
+        if bad:
+            raise AssertionError(f"{driver} logged error rows: {bad}")
+    b = next(r for r in recs["probe_batch"] if r.get("name") == "batched")
+    c = next(r for r in recs["probe_batch"] if r.get("name") == "checksums")
+    n_values = H * W * 3 * 16            # the driver's 16 frames' rgb
+    ok = (b["max_abs_err_vs_frames"] <= TOL_INT8_MAX
+          and b["rms_err_vs_frames"] <= TOL_INT8_RMS
+          and abs(c["laxmap"] - c["batched"]) <= n_values * TOL_INT8_RMS)
+    print(f"[check] exp probe_batch: batched rgb vs each frame's max-abs "
+          f"{b['max_abs_err_vs_frames']:.3e} RMS "
+          f"{b['rms_err_vs_frames']:.3e} (K2's {TOL_INT8_MAX}/"
+          f"{TOL_INT8_RMS}), bit for bit {b['bit_for_bit']}; checksums "
+          f"{c['laxmap']!r} / {c['batched']!r} (relative {c['rel_diff']:.2e}"
+          ", f32 sums in another order; K2's RMS bound summed over the "
+          "values)" + (" ok" if ok else " FAILED"),
+          flush=True)
+    if not ok:
+        raise AssertionError("probe_batch: batched rgb differs")
+    for driver, name, tag in (
+            ("probe_teacher_int8", "fused_int8", "bf16"),
+            ("probe_teacher_fold", "r3_int8_folded", "ctrl")):
+        r = next(r for r in recs[driver] if r.get("name") == name)
+        ok = r[f"psnr_vs_{tag}"] >= MIN_PSNR_EXP_K7
+        print(f"[check] exp {driver} {name} vs {tag} on frame 0: PSNR "
+              f"{r[f'psnr_vs_{tag}']:.2f} dB (>= {MIN_PSNR_EXP_K7}), max-abs "
+              f"{r[f'rgb_err_vs_{tag}_max']:.3e}"
+              + (" ok" if ok else " FAILED"), flush=True)
+        if not ok:
+            raise AssertionError(f"{driver} {name}")
+    rerun = next(r for r in recs["probe_teacher_fold"]
+                 if r.get("name") == "r3_int8_unfolded_rerun")
+    print(f"[check] exp probe_teacher_fold rerun bit for bit the control: "
+          f"{rerun['bit_for_bit_vs_ctrl']}", flush=True)
+    if not rerun["bit_for_bit_vs_ctrl"]:
+        raise AssertionError("probe_teacher_fold: the rerun differs")
+    for r in recs["probe_epi2"]:
+        if "max_abs_err_vs_plain" not in r:
+            continue
+        ok = (r["max_abs_err_vs_plain"] <= TOL_INT8_MAX
+              and r["rms_err_vs_plain"] <= TOL_INT8_RMS)
+        print(f"[check] exp probe_epi2 {r['variant']} vs its plain version, "
+              f"pose 0: max-abs {r['max_abs_err_vs_plain']:.3e} RMS "
+              f"{r['rms_err_vs_plain']:.3e}, bit for bit {r['bit_for_bit']}"
+              f" (plain {r['plain_ms']:.1f} ms)" + (" ok" if ok else
+                                                   " FAILED"), flush=True)
+        if not ok:
+            raise AssertionError(f"probe_epi2 {r['variant']}")
+    for driver in ("probe_train", "probe_strat"):
+        steps = [r for r in recs[driver] if "loss" in r]
+        for r in steps:
+            xla = next(x for x in steps if "xla" in x["name"] and x.get(
+                "hard_sample") == r.get("hard_sample"))
+            ok = (np.isfinite(r["loss"]) and np.isfinite(r["loss_first"])
+                  and abs(r["loss"] - xla["loss"])
+                  <= RTOL_LOSS["fused_int8"] * xla["loss"])
+            print(f"[check] exp {driver} {r['name']}: loss "
+                  f"{r['loss_first']:.5f} -> {r['loss']:.5f}, finite, "
+                  f"{'=' if r is xla else 'vs'} the plain step's "
+                  f"{xla['loss']:.5f}" + (" ok" if ok else " FAILED"),
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{driver} {r['name']}: loss")
+
+
+def exp_teacher_ckpt(path: str, dev) -> None:
+    """A lego-shaped teacher checkpoint (``checkpoint.save`` of a fresh
+    ``TeacherState``, the networks of exp/_teacher.py from a seed, with
+    its density floor)."""
+    from r2l_tpu_torch import checkpoint
+    from r2l_tpu_torch.exp import _teacher
+    from r2l_tpu_torch.train import TeacherTrainConfig, init_teacher_state
+    mc, mf = _teacher.networks(_teacher.nerf_cfg(),
+                               torch.Generator().manual_seed(SEED + 50), dev)
+    checkpoint.save(path, init_teacher_state(mc, mf, TeacherTrainConfig()),
+                    0, -1.0, -1)
+
+
+def phase_exp(dev) -> dict:
+    """Phase 19: every ported exp/ driver's main(argv) in process, its
+    records as ``[main] exp`` lines, the drivers' checks, dbg_int8_engage
+    on a checkpoint saved here, and K2-K8's launches in the phase."""
+    import importlib
+    t_phase = time.perf_counter()
+    records = REPO / "build" / "exp_records.jsonl"
+    records.parent.mkdir(parents=True, exist_ok=True)
+    records.unlink(missing_ok=True)
+    start = exp_counts()
+    recs, secs = {}, {}
+    for driver, argv in EXP_DRIVERS:
+        mod = importlib.import_module(f"r2l_tpu_torch.exp.{driver}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            recs[driver] = mod.main(argv + ["--out", str(records)])
+        torch.cuda.synchronize()
+        secs[driver] = time.perf_counter() - t0
+        for r in recs[driver]:
+            exp_line(driver, r)
+        print(f"[main] exp {driver}: {secs[driver]:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "teacher.msgpack")
+        exp_teacher_ckpt(path, dev)
+        from r2l_tpu_torch.exp import dbg_int8_engage
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            dbg = dbg_int8_engage.main(["--ckpt", path, "--out",
+                                        str(records)])
+        secs["dbg_int8_engage"] = time.perf_counter() - t0
+    lines = [ln for ln in out.getvalue().splitlines()
+             if not ln.startswith("{")]
+    for ln in lines:
+        print(f"[main] exp dbg_int8_engage | {ln}", flush=True)
+    if len(lines) != 5 or not np.isfinite(dbg["int8_vs_bf16_max"]):
+        raise AssertionError("dbg_int8_engage printed " + repr(lines))
+    exp_checks(recs)
+    res = {"ms": {d: {r.get("name", r.get("variant")): r[u]
+                      for r in rs for u in ("ms_per_frame", "ms_per_step",
+                                            "ms_per_iter", "ms") if u in r}
+                  for d, rs in recs.items()},
+           "dbg_int8_engage": dbg, "seconds": secs,
+           "launches": {k: v - start[k] for k, v in exp_counts().items()
+                        if k in EXP_KERNELS}}
+    res["phase_s"] = time.perf_counter() - t_phase
+    missing = [k for k in EXP_KERNELS if res["launches"][k] <= 0]
+    print(f"[main] phase 19's records: {records}", flush=True)
+    print(f"[main] launches in phase 19: {res['launches']}"
+          + (f" FAILED: never launched {missing}" if missing else " ok")
+          + f"; phase 19 took {res['phase_s']:.1f} s", flush=True)
+    if missing:
+        raise AssertionError(f"phase 19: kernels never launched: {missing}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3919,6 +4142,8 @@ def main() -> int:
         "frame_ms": {k: main_res[k]["ms_per_frame"] for k in ("pe", "int8")}})
     torch.cuda.empty_cache()
     llff = phase_llff_mesh(dev, cli)
+    torch.cuda.empty_cache()
+    exp = phase_exp(dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -3941,7 +4166,7 @@ def main() -> int:
         "givenrays": given, "nerf_bench": nbench,
         "bench_cuda": bench_line, "checkpoints": ck,
         "cli": {k: v for k, v in cli.items()},
-        "llff_mesh": llff}}))
+        "llff_mesh": llff, "exp_drivers": exp}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3965,28 +4190,28 @@ def main() -> int:
               "r2l_tpu/kernels/r2l_pallas.py:571",
               main_res["launches"]["int8"] + given["launches"]["int8"]
               + ck["load"]["launches"]["int8"] + cli["launches"]["K2"]
-              + llff["launches"]["K2"], kern["int8"]),
+              + llff["launches"]["K2"] + exp["launches"]["K2"], kern["int8"]),
         entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused"]["train_fwd"]
               + ck["resume"]["launches"]["train_fwd"]
-              + cli["launches"]["K3"] + llff["launches"]["K3"],
-              tkern["train_fwd_bf16"]),
+              + cli["launches"]["K3"] + llff["launches"]["K3"]
+              + exp["launches"]["K3"], tkern["train_fwd_bf16"]),
         entry("train_fwd_f32", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused_f32"]["train_fwd"],
               tkern["train_fwd_f32"]),
         entry("train_fwd_int8", "r2l_train_fwd_int8.cu", tr + ":182",
               train["launches"]["train_fwd_int8"]
               + ck["resume"]["launches"]["train_fwd_int8"]
-              + cli["launches"]["K4"],
+              + cli["launches"]["K4"] + exp["launches"]["K4"],
               tkern["train_fwd_int8"]),
         entry("train_fwd_int8_bf16stash", "r2l_train_fwd_int8.cu",
-              tr + ":182", train["launches"]["train_fwd_int8_bf16"],
-              tkern["train_fwd_int8_bf16"]),
+              tr + ":182", train["launches"]["train_fwd_int8_bf16"]
+              + exp["launches"]["K8"], tkern["train_fwd_int8_bf16"]),
         entry("bwd_group", "r2l_bwd_group.cu", tr + ":356",
               train["launches"]["bwd_group"]
               + ck["resume"]["launches"]["bwd_group"]
-              + cli["launches"]["K5"] + llff["launches"]["K5"],
-              tkern["bwd_group_bf16"]),
+              + cli["launches"]["K5"] + llff["launches"]["K5"]
+              + exp["launches"]["K5"], tkern["bwd_group_bf16"]),
         *(entry(f"fused_r2l_apply_{kind}", "r2l_fused.cu",
                 "r2l_tpu/kernels/r2l_pallas.py:270", api[kind]["launches"],
                 kern[f"api_{kind}"]) for kind in ("f32", "bf16")),
@@ -3996,7 +4221,9 @@ def main() -> int:
                 dgen[kind]["launches"]
                 + (nbench["launches"] + cli["launches"]["K6"]
                    + llff["launches"]["K6"] if kind == "f32" else 0)
-                + (cli["launches"]["K7"] if kind == "int8" else 0),
+                + (cli["launches"]["K7"] + exp["launches"]["K7"]
+                   if kind == "int8" else 0)
+                + (exp["launches"]["K6"] if kind == "bf16" else 0),
                 teacher[kind])
           for kind in ("f32", "bf16", "int8")),
         *(entry(name, f"{name}.cu", replaces, probes["launches"][name],

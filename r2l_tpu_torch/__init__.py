@@ -4,7 +4,7 @@ The JAX package ``r2l_tpu`` is the reference: every function here names the
 ``r2l_tpu`` function it reproduces, and ``tests/test_torch_*.py`` hold the
 two to the same output on the same inputs. This package never imports JAX.
 
-Nine slices are ported, through hand-written CUDA kernels for the NVIDIA
+Ten slices are ported, through hand-written CUDA kernels for the NVIDIA
 H100 (``kernels/csrc/*.cu``) where the JAX package has a Pallas kernel:
 
 1. The R2L student's novel-view frame: camera pose ->
@@ -55,6 +55,11 @@ H100 (``kernels/csrc/*.cu``) where the JAX package has a Pallas kernel:
    dataset loaders under ``data/`` with their own PNG decoder, the datagen
    modes): ``main_cuda.py``, ``tools.create_data`` and
    ``tools.verify_released_ckpt``, on the card unless ``--platform cpu``.
+10. The ``exp/`` drivers that reach no kernel of their own
+   (``exp.probe_decomp``, ``exp.probe_teacher_decomp``,
+   ``exp.probe_train_decomp`` and the rest, ``exp/__init__.py``): the
+   student frame, the teacher frame and the training step decomposed and
+   swept over the kernels above, at the JAX drivers' sizes.
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 """

@@ -116,27 +116,12 @@ def time_variant(name: str, rep: Callable[[int], torch.Tensor], log: Log,
     ms per frame (min of 3 calls after a warm-up, CUDA events), the
     checksum, and with ``ops_per_frame`` the rate and its share of the
     ``peak`` kind's data-sheet rate."""
-    def run() -> torch.Tensor:
-        return torch.stack([rep(i) for i in range(K_REPS)]).sum()
-
-    t0 = time.time()
-    checksum = float(run())
-    warmup_s = time.time() - t0
-    times = []
-    for _ in range(3):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = min(times) / K_REPS
-    rec = {"name": name, "ms_per_frame": ms, "warmup_s": warmup_s,
-           "checksum": checksum}
-    if ops_per_frame:
-        rec["tflops"] = ops_per_frame / ms / 1e9
-        rec[f"mfu_{peak}"] = ops_per_frame / (ms * 1e-3) / PEAK_OPS[peak]
-        rec["bound_ms"] = bound_ms(ops_per_frame, peak)
+    t, out = time_calls(
+        lambda: torch.stack([rep(i) for i in range(K_REPS)]).sum(), 3,
+        K_REPS)
+    rec = rate({"name": name, "ms_per_frame": t["ms"],
+                "warmup_s": t["warmup_s"], "checksum": float(out)},
+               ops_per_frame, peak, t["ms"])
     rec.update(extra or {})
     return log(rec)
 
@@ -157,39 +142,110 @@ def time_frames(key: str, name: str, net: Callable[[torch.Tensor],
             total += net(sampler.sample_test(c2w)).sum()
         return total
 
-    k = poses.shape[0]
+    t, out = time_calls(render_k, reps, poses.shape[0])
+    rec = rate({key: name, "ms_per_frame": t["ms"], "fps": 1000.0 / t["ms"],
+                "warmup_s": t["warmup_s"], "checksum": float(out),
+                "all_ms": t["all_ms"]}, ops_per_frame, peak, t["ms"])
+    rec.update(extra or {})
+    return log(rec)
+
+
+def lego_poses(k: int) -> np.ndarray:
+    """k poses ``pose_spherical(theta, -30, 4)`` [k, 3, 4] f32, theta evenly
+    over the circle from -180 (the frame drivers' cameras)."""
+    return np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4]
+                     for t in np.linspace(-180, 180, k, endpoint=False)])
+
+
+def lego_frames(k: int, device, hw: int = LEGO_HW,
+                focal: float = LEGO_FOCAL):
+    """The frame drivers' scene (``exp/probe_pipe.py``, ``exp/probe_epi.py``):
+    the lego 400x400 ``PointSampler`` (16 samples, near 2, far 6; a test
+    passes a smaller ``hw``) and ``lego_poses(k)`` as a [k, 3, 4] f32
+    tensor on ``device``."""
+    sampler = PointSampler(H=hw, W=hw, focal=focal, n_sample=16, near=2.0,
+                           far=6.0)
+    return sampler, torch.as_tensor(lego_poses(k), dtype=torch.float32,
+                                    device=device)
+
+
+def parse(argv, prog: str, doc: str, variants: tuple = (),
+          **counts: int) -> argparse.Namespace:
+    """A driver's command line: ``--out`` and one integer option per entry
+    of ``counts`` (its default the JAX driver's value), such as ``--frames``
+    or ``--steps``: a smaller value only cuts the work per call or the
+    number of timed calls. With ``variants``, the names given as arguments
+    (``args.variant``, all of them when none is given) pick which run. The
+    namespace carries ``prog``."""
+    ap = argparse.ArgumentParser(prog=prog, description=doc.splitlines()[0])
+    if variants:
+        ap.add_argument("variant", nargs="*",
+                        help=f"of {', '.join(variants)} (default all)")
+    for name, default in counts.items():
+        ap.add_argument(f"--{name}", type=int, default=default,
+                        help=f"default {default}")
+    ap.add_argument("--out", help="also append the JSON records to this file")
+    args = ap.parse_args(argv)
+    args.prog = prog
+    if variants:
+        unknown = sorted(set(args.variant) - set(variants))
+        if unknown:
+            ap.error(f"unknown variants {unknown}")
+        args.variant = list(args.variant or variants)
+    return args
+
+
+def time_calls(fn: Callable[[], object], reps: int, per: int = 1,
+               warm: bool = True) -> tuple[dict, object]:
+    """Time ``fn()`` (a call of ``per`` frames, steps or iterations, queued
+    back to back): one call to warm up (and build) unless ``warm`` is
+    False, then ``reps`` calls, each between two CUDA events with one
+    synchronisation. -> ({"ms": the fastest call / per, "all_ms": every
+    call's / per, "warmup_s"}, the first call's output)."""
     t0 = time.time()
-    checksum = float(render_k())
+    out = fn() if warm else None
+    torch.cuda.synchronize()
     warmup_s = time.time() - t0
     times = []
     for _ in range(reps):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        render_k()
+        got = fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = min(times) / k
-    rec = {key: name, "ms_per_frame": ms, "fps": 1000.0 / ms,
-           "warmup_s": warmup_s, "checksum": checksum,
-           "all_ms": [t / k for t in sorted(times)],
-           "bound_ms": bound_ms(ops_per_frame, peak),
-           f"mfu_{peak}": ops_per_frame / (ms * 1e-3) / PEAK_OPS[peak]}
+        times.append(start.elapsed_time(end) / per)
+        out = got if out is None else out
+    return {"ms": min(times), "all_ms": sorted(times),
+            "warmup_s": warmup_s}, out
+
+
+def rate(rec: dict, ops: float | None, peak: str, ms: float) -> dict:
+    """Add to ``rec`` the rate of ``ops`` operations in ``ms`` and its share
+    of the data-sheet ``peak`` (``mfu_<peak>``, ``bound_ms``)."""
+    if ops:
+        rec["tflops"] = ops / ms / 1e9
+        rec[f"mfu_{peak}"] = ops / (ms * 1e-3) / PEAK_OPS[peak]
+        rec["bound_ms"] = bound_ms(ops, peak)
+    return rec
+
+
+def timed(name: str, fn: Callable[[], torch.Tensor], reps: int, per: int,
+          log: Log, unit: str = "ms_per_frame", ops: float | None = None,
+          peak: str = "int8", extra: dict | None = None) -> dict:
+    """One record of ``time_calls(fn, reps, per)``: ``unit`` (ms per frame,
+    step or iteration), every call's, the warm-up, the checksum (the first
+    call's scalar output), frames/s for frames, and with ``ops`` (per
+    frame) the rate and share of ``peak``."""
+    t, out = time_calls(fn, reps, per)
+    rec = {"name": name, unit: t["ms"], "all_ms": t["all_ms"],
+           "warmup_s": t["warmup_s"]}
+    if torch.is_tensor(out) and out.numel() == 1:
+        rec["checksum"] = float(out)
+    if unit == "ms_per_frame":
+        rec["fps"] = 1000.0 / t["ms"]
+    rate(rec, ops, peak, t["ms"])
     rec.update(extra or {})
     return log(rec)
-
-
-def lego_frames(k: int, device):
-    """The frame drivers' scene (``exp/probe_pipe.py``, ``exp/probe_epi.py``):
-    the lego 400x400 ``PointSampler`` (16 samples, near 2, far 6) and k
-    poses ``pose_spherical(theta, -30, 4)`` evenly over the circle, as a
-    [k, 3, 4] f32 tensor on ``device``."""
-    sampler = PointSampler(H=LEGO_HW, W=LEGO_HW, focal=LEGO_FOCAL,
-                           n_sample=16, near=2.0, far=6.0)
-    poses = np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4]
-                      for t in np.linspace(-180, 180, k, endpoint=False)])
-    return sampler, torch.as_tensor(poses, dtype=torch.float32,
-                                    device=device)
 
 
 def edited_sources(edits, csrc: Path, dst: Path) -> None:

@@ -191,3 +191,92 @@ def int8_case(dim_pts, L, W, D, side, seed=0, n_calib_poses=3, **cfg_kw):
     pts = np.asarray(sampler.sample_test(jnp.asarray(
         pose_spherical(75.0, -40.0, 4.0)[:3, :4])))
     return jcfg, params, cfg, model, calib, pts
+
+
+def _exp_path(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "exp", f"{name}.py")
+
+
+def _literal(node):
+    """A node's value where it is made of constants: literals, tuples,
+    lists, dicts, ``dict(k=v)`` calls, arithmetic of constants; a name
+    reads as ``"<name>"``."""
+    import ast
+    if isinstance(node, ast.Name):
+        return f"<{node.id}>"
+    if isinstance(node, ast.Call) and getattr(node.func, "id", "") == "dict":
+        return {k.arg: _literal(k.value) for k in node.keywords}
+    if isinstance(node, ast.Tuple):
+        return tuple(_literal(e) for e in node.elts)
+    if isinstance(node, ast.List):
+        return [_literal(e) for e in node.elts]
+    if isinstance(node, ast.Dict):
+        return {_literal(k): _literal(v) for k, v in zip(node.keys,
+                                                          node.values)}
+    if any(isinstance(n, ast.Name) for n in ast.walk(node)):
+        raise ValueError(ast.dump(node))
+    return eval(compile(ast.Expression(node), "<exp>", "eval"), {})
+
+
+def exp_assigned(name: str) -> dict:
+    """``{name: value}`` of every assignment of a constant expression in
+    ``exp/<name>.py``, at any scope (``a, b = 1, 2`` too), and of every
+    ``for name in <constants>`` (the tuple; ``for a, b in`` under
+    ``"a,b"``), the first one of each name kept; read from the source,
+    so a driver that runs at import does not run."""
+    import ast
+    out = {}
+    with open(_exp_path(name)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Assign, ast.For)):
+            try:
+                value = _literal(node.value if isinstance(node, ast.Assign)
+                                 else node.iter)
+            except (ValueError, SyntaxError, NameError, TypeError):
+                continue
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for tgt in targets:
+                if isinstance(tgt, ast.Name):
+                    out.setdefault(tgt.id, value)
+                elif isinstance(node, ast.For) and isinstance(tgt,
+                                                              ast.Tuple):
+                    out.setdefault(",".join(getattr(e, "id", "_")
+                                            for e in tgt.elts), value)
+                elif (isinstance(tgt, ast.Tuple) and isinstance(node,
+                                                                ast.Assign)
+                      and isinstance(value, tuple)
+                      and len(value) == len(tgt.elts)):
+                    for e, v in zip(tgt.elts, value):
+                        if isinstance(e, ast.Name):
+                            out.setdefault(e.id, v)
+    return out
+
+
+def exp_calls(name: str, callee: str) -> list[dict]:
+    """The constant keyword arguments of each call of ``callee`` in
+    ``exp/<name>.py``, in source order (names read as ``"<name>"``; the
+    positional ones under ``"_args"``, None where not constant)."""
+    import ast
+    with open(_exp_path(name)) as f:
+        tree = ast.parse(f.read())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call) and (
+        getattr(n.func, "id", None) == callee
+        or getattr(n.func, "attr", None) == callee)]
+    out = []
+    for n in sorted(calls, key=lambda c: (c.lineno, c.col_offset)):
+        kw = {"_args": []}
+        for a in n.args:
+            try:
+                kw["_args"].append(_literal(a))
+            except (ValueError, SyntaxError, NameError, TypeError):
+                kw["_args"].append(None)
+        for k in n.keywords:
+            try:
+                kw[k.arg] = _literal(k.value)
+            except (ValueError, SyntaxError, NameError, TypeError):
+                kw[k.arg] = None
+        out.append(kw)
+    return out

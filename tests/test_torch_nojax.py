@@ -7,7 +7,11 @@ a teacher frame, generates one pose of pseudo data (plain and int8-packed
 fused render on the CPU), takes a teacher step of each mode on images and
 their ray records, runs each exp probe's plain version (the chain and shape
 probes, and K2's body, wall, streams and epilogue probes, and the int8-dL/dx
-walk), renders an int8 given-rays frame and its bench checksum, computes
+walk), runs the bodies of the exp drivers that reach no kernel of their
+own (the int8 frame, its batched call against the frames, K2's epilogue
+forms, the teacher frame's decomposition, a hard-sampling draw, the
+training pieces, dbg_int8_engage on a saved teacher), renders an int8
+given-rays frame and its bench checksum, computes
 SSIM, FLIP and LPIPS, imports ``bench_cuda.py``'s function, parses the
 command line and maps it to a student config, runs each datagen mode other
 than ``rand``, decodes a PNG and area-resizes it, decodes a JPEG fixture
@@ -227,6 +231,44 @@ with tempfile.TemporaryDirectory() as tmp:
         poses[0]).shape == (4, 4, 3)
     dist.destroy_process_group()
 assert count_params(model) > 0 and flops_per_pixel_from_params(model) > 0
+from r2l_tpu_torch.exp import (_teacher as XT, dbg_int8_engage as XG,
+                               probe_batch as XB, probe_decomp as XD,
+                               probe_epi2 as XE, probe_mine as XM,
+                               probe_teacher_decomp as XTD,
+                               probe_train_decomp as XTR, _train as XR)
+cfgx = R2LConfig(netdepth=4, netwidth=64, compute_dtype=torch.bfloat16)
+cx, fpx, dpx, smx, psx = XD.setup("cpu", torch.Generator().manual_seed(0), 2,
+                                  cfgx, hw=4, focal=5.0)
+assert bool(torch.isfinite(XD.full(fpx, cx, dpx, smx, psx)))
+assert XB.compare(fpx, cx, dpx, smx, psx)["max_abs_err_vs_frames"] < 2.5e-2
+cx, fps, smx, psx = XE.setup("cpu", torch.Generator().manual_seed(1), 2,
+                             cfgx, hw=4, focal=5.0, calib_hw=4)
+for _, fold, nb in XE.FORMS:
+    assert XE.form(fps, cx, smx.sample_test(psx[0]), fold, nb).shape == (16, 3)
+ncx = XT.nerf_cfg(D=3, W=32, skips=(1,))
+ncx, vcx, packs, rox, rdx = XTD.setup("cpu", torch.Generator().manual_seed(2),
+                                      ncx, hw=4, focal=5.0, chunk=8,
+                                      n_calib=32)
+vcx = XT.vol_cfg(8, 8, 8)
+for name in XTD.VARIANTS:
+    assert bool(torch.isfinite(XTD.frames(name, packs, ncx, vcx, rox, rdx, 2)))
+gx = torch.Generator().manual_seed(3)
+idx = XM.draw("sample_strat", gx, 64, 8)
+assert float(XM.pick(torch.ones(64, 9), torch.zeros(1), idx)) == 8.0
+dcx = XR.distill_config(64, 4, 8)
+smr = XR.sampler(4, 5.0)
+calx = XR.calib_points("cpu", 4, 5.0)
+_, mx = XR.student(torch.Generator().manual_seed(4), "cpu", cfgx)
+fns = XTR.pieces(mx, cfgx, dcx, smr, calx, torch.rand(64, 48),
+                 torch.rand(64, 9), torch.rand(64, 16))
+for name in XTR.PIECES:
+    assert bool(torch.isfinite(fns[name]()))
+with tempfile.TemporaryDirectory() as tmp:
+    ckpt.save(tmp + "/t.msgpack", init_teacher_state(mc, mf, tcfg), 0, -1.0,
+              -1)
+    shape, ncg, vcg, gc, gf = XG.load(tmp + "/t.msgpack", "cpu")
+    assert (shape["D"], shape["L"], shape["Lv"]) == (3, 4, 2)
+    assert XG.engage(ncg, vcg, gc, gf, "cpu", hw=4, focal=5.0)["bf16_max"] > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "r2l_tpu", "flax", "msgpack"))
 print(len(names), bad)
@@ -245,8 +287,9 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax_import():
     """No ``import jax`` / ``from jax`` line, nor an import of the JAX
-    package, anywhere in the port, chip_smoke.py, bench_cuda.py or
-    main_cuda.py."""
+    package or of its ``exp/`` drivers, anywhere in the port (its own
+    ``exp`` drivers import each other relatively), chip_smoke.py,
+    bench_cuda.py or main_cuda.py."""
     pkg = os.path.join(REPO, "r2l_tpu_torch")
     paths = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "bench_cuda.py"),
@@ -259,8 +302,9 @@ def test_port_sources_name_no_jax_import():
                 s = ln.strip()
                 assert not s.startswith(("import jax", "from jax",
                                          "import r2l_tpu ", "import r2l_tpu.",
-                                         "from r2l_tpu ", "from r2l_tpu.")), (
-                    path, s)
+                                         "from r2l_tpu ", "from r2l_tpu.",
+                                         "import exp", "from exp ",
+                                         "from exp.")), (path, s)
 
 
 def test_kernel_sources_include_only_cuda_and_their_own_headers():
