@@ -260,6 +260,23 @@ Phases, in order; any failure raises and exits non-zero:
    plain versions, the training losses falling) and K2-K8's launches in
    the phase, each > 0.
 
+20. Shapes the kernels refuse (ROADMAP C1), through the entry points a user
+   calls, at full size: a W512/D88 student (16 samples, L=10, bf16) renders a
+   400x400 frame with ``use_pallas`` and with ``--quantize int8``, and takes
+   one ``--fused_train_vjp`` distillation step at 81,920 rays through
+   ``fused_vjp_gate`` (which refuses it: the plain step); an ``lrelu``
+   W256/D88 student a frame and a step; a W64/D8 teacher (coarse and fine,
+   viewdirs, 64 + 128 samples) one ``rand`` datagen pose and one
+   ``make_nerf_frame_fn`` frame. Each runs plain (kind ``jnp``/``plain``,
+   finite, the gates' warnings captured) and launches no kernel; each wrapper
+   called directly at W512 (W64 for K6) raises NotImplementedError with its
+   counter unchanged, and ``make_distill_step(fused_vjp=True)`` at W512
+   raises ValueError. Then the canonical W256/D88 student's frames (pe,
+   int8) and fused step and the README's teacher's datagen poses (f32,
+   int8) launch K1, K2, K3, K5, K6 and K7 as before. ``[main] refused``
+   lines: ms of each plain path (CUDA events), beside the card's name and
+   power limit.
+
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
 the plain version, kernel and plain ms, the least time the card could take
@@ -279,6 +296,7 @@ import subprocess
 import sys
 import time
 import tempfile
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -4067,6 +4085,417 @@ def phase_exp(dev) -> dict:
     return res
 
 
+# Phase 20: shapes off the kernels' native widths (ROADMAP C1), at full
+# size. A narrower student or teacher runs on the kernels at the next width,
+# its extra channels zero; a wider one, or other activations, renders plain
+# where the JAX package renders it plain, and raises NotImplementedError
+# where the JAX package runs a kernel that the port's kernels do not take.
+WIDE = 512                 # wider than every kernel width
+PADDED_WIDTH = 96          # a student width the frame kernels take at 128
+PADDED_TEACHER_W = 64      # a teacher width K6/K7 take at 128
+
+
+def refused_counts() -> dict:
+    """Every student and teacher kernel's launch counter (K1-K9)."""
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    return {**exp_counts(), "K9": F.fused_r2l_apply.launches}
+
+
+def moved_since(start: dict) -> dict:
+    return {k: v - start[k] for k, v in refused_counts().items()
+            if v != start[k]}
+
+
+def refused_frames(label: str, cfg, model, sampler, poses, res) -> None:
+    """``make_r2l_frame_fn`` with ``use_pallas`` and with int8 on a student
+    that neither the port's kernels nor the JAX package's take: kind jnp,
+    finite 400x400 frames, the int8 request's frame the same plain forward
+    bit for bit, no launch; the gates' warnings and the plain frame's ms
+    into ``res``."""
+    from r2l_tpu_torch.evaluate import make_r2l_frame_fn
+    frames = {}
+    for flags, quantize in (("pe", ""), ("int8", "int8")):
+        c0 = refused_counts()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            fn = make_r2l_frame_fn(model, cfg, sampler, embed_L=EMBED_L,
+                                   quantize=quantize, calib_poses=poses)
+        warns = [ln for ln in err.getvalue().splitlines()
+                 if ln.startswith("WARNING")]
+        if fn.kind != "jnp":
+            raise AssertionError(f"{label} {flags}: kind {fn.kind}")
+        frames[flags] = f = fn(poses[0])
+        if f.shape != (H, W, 3) or not torch.isfinite(f).all():
+            raise AssertionError(f"{label} {flags}: frame {tuple(f.shape)}")
+        ms = time_ms(lambda: fn(poses[0]), reps=2)
+        torch.cuda.synchronize()
+        if moved_since(c0):
+            raise AssertionError(f"{label} {flags}: launched "
+                                 f"{moved_since(c0)}")
+        res[f"{label}_frame_{flags}"] = {"ms_per_frame": ms,
+                                         "warnings": warns}
+        print(f"[main] plain {label} frame ({flags} flags): kind jnp, "
+              f"{ms:.3f} ms/frame; warnings {warns}", flush=True)
+    if not torch.equal(frames["pe"], frames["int8"]):
+        raise AssertionError(f"{label}: the int8 request's plain frame "
+                             "differs from the pe request's")
+
+
+def distill_cfg():
+    from r2l_tpu_torch.hardmine import parse_hard_ratio
+    from r2l_tpu_torch.train import DistillConfig
+    n_in, n_out = parse_hard_ratio(HARD_RATIO, N_RAND)
+    return DistillConfig(batch_size=N_RAND, n_hard_in=n_in, n_hard_out=n_out,
+                         hard_mul=HARD_MUL, warmup_lr=WARMUP,
+                         embed_L=EMBED_L, perturb=True), n_out
+
+
+def refused_step(label: str, cfg, sampler, dev, res) -> None:
+    """One ``--fused_train_vjp`` distillation step at the README's 81,920
+    rays of a student whose activations the training kernels do not take,
+    through the app's gate: the plain (xla) step with the gate's warning,
+    loss finite, no launch; one warm-up, two timed."""
+    from r2l_tpu_torch.models import init_r2l
+    from r2l_tpu_torch.train import (fused_vjp_gate, init_train_state,
+                                     make_distill_step)
+    dcfg, n_out = distill_cfg()
+    logs = []
+    fused = fused_vjp_gate(True, cfg, False, log=logs.append)
+    if fused or len(logs) != 1:
+        raise AssertionError(f"{label}: the gate took {fused}, {logs}")
+    c0 = refused_counts()
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    state = init_train_state(model, dcfg, device=dev)
+    step = make_distill_step(cfg, dcfg, sampler, fused_vjp=fused, device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    rays = np.split(synthetic_rays(3 * (N_RAND - n_out), SEED + 60), 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, m = step(state, rays[0], generator=gen)
+    losses = [float(m["loss"])]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for r in rays[1:]:
+        state, m = step(state, r, generator=gen)
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    ms = start.elapsed_time(end) / 2
+    if not np.isfinite(losses).all() or moved_since(c0):
+        raise AssertionError(f"{label} step: losses {losses}, launched "
+                             f"{moved_since(c0)}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    res[f"{label}_step"] = {"ms_per_step": ms, "losses": losses,
+                            "peak_mem_gb": peak, "warning": logs[0]}
+    print(f"[main] plain {label} step (--fused_train_vjp): the gate took "
+          f"the plain step, {ms:.3f} ms/step, losses {losses}, peak "
+          f"{peak:.2f} GB; warning {logs[0]!r}", flush=True)
+
+
+def expect_not_implemented(what: str, call) -> str:
+    """``call()`` raises NotImplementedError and launches nothing; -> its
+    message."""
+    c0 = refused_counts()
+    try:
+        call()
+    except NotImplementedError as e:
+        torch.cuda.synchronize()
+        if moved_since(c0):
+            raise AssertionError(f"{what}: launched {moved_since(c0)}")
+        print(f"[check] {what}: NotImplementedError ({e}) ok", flush=True)
+        return str(e)
+    raise AssertionError(f"{what} did not raise")
+
+
+def wide_paths(sampler, poses, dev) -> None:
+    """What the JAX package runs on its kernels and the port's kernels do
+    not take raises before anything is packed: a W512/D6 student's frames,
+    a W512/D88 ``--fused_train_vjp`` step (which JAX's gate admits), a
+    W512 teacher's frame and datagen pose."""
+    from r2l_tpu_torch.datagen import generate_pseudo_data
+    from r2l_tpu_torch.evaluate import make_nerf_frame_fn, make_r2l_frame_fn
+    from r2l_tpu_torch.models import NeRFConfig, R2LConfig, init_nerf, init_r2l
+    from r2l_tpu_torch.train import fused_vjp_gate, make_distill_step
+    cfg = R2LConfig(netdepth=6, netwidth=WIDE, compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    for quantize in ("", "int8"):
+        expect_not_implemented(
+            f"W{WIDE}/D6 frame (quantize={quantize!r})",
+            lambda: make_r2l_frame_fn(model, cfg, sampler, embed_L=EMBED_L,
+                                      quantize=quantize, calib_poses=poses))
+    deep = R2LConfig(netwidth=WIDE, compute_dtype=torch.bfloat16)
+    if not fused_vjp_gate(True, deep, False):
+        raise AssertionError("JAX's gate refused W512/D88")
+    expect_not_implemented(
+        f"W{WIDE}/D88 --fused_train_vjp step",
+        lambda: make_distill_step(deep, distill_cfg()[0], sampler,
+                                  fused_vjp=True, device=dev))
+    tcfg = NeRFConfig(W=WIDE)
+    mc = init_nerf(tcfg, torch.Generator().manual_seed(SEED + 52), dev)
+    expect_not_implemented(
+        f"W{WIDE} teacher frame",
+        lambda: make_nerf_frame_fn(mc, mc, tcfg, teacher_vcfg(), sampler,
+                                   use_pallas=True, device=dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        expect_not_implemented(
+            f"W{WIDE} teacher datagen",
+            lambda: generate_pseudo_data(mc, mc, tcfg, teacher_vcfg(),
+                                         datagen_cfg("f32", 1), tmp,
+                                         device=dev))
+
+
+def padded_frames(sampler, poses, dev, res) -> dict:
+    """A bf16 W96/D88 student: K1 and K2 at 128, one launch a 400x400
+    frame, the frame's points within K1 bf16's and K2's bounds of each
+    kernel's plain version on the same packing; the ms of each frame and
+    of the plain (``use_pallas=False``) one. -> the frames' launches."""
+    from r2l_tpu_torch.evaluate import _prepare_r2l, make_r2l_frame_fn
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    cfg = R2LConfig(netwidth=PADDED_WIDTH, compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED + 53), dev)
+    pts = sampler.sample_test(torch.as_tensor(poses[0], device=dev))
+    plain = make_r2l_frame_fn(model, cfg, sampler, embed_L=EMBED_L,
+                              use_pallas=False)
+    ms_plain = time_ms(lambda: plain(poses[0]), reps=2)
+    launched = {}
+    for kernel, quantize in (("K1", ""), ("K2", "int8")):
+        fn = make_r2l_frame_fn(model, cfg, sampler, embed_L=EMBED_L,
+                               quantize=quantize, calib_poses=poses)
+        prepared, kind, dp = _prepare_r2l(model, cfg, sampler, EMBED_L,
+                                          False, True, quantize,
+                                          calib_poses=poses)
+        c0 = refused_counts()
+        f = fn(poses[0])
+        torch.cuda.synchronize()
+        moved = moved_since(c0)
+        launched.update(moved)
+        if kind != (quantize or "pe") or moved != {kernel: 1} \
+                or f.shape != (H, W, 3) or not torch.isfinite(f).all():
+            raise AssertionError(f"W{PADDED_WIDTH} {kernel}: kind {kind}, "
+                                 f"launched {moved}, {tuple(f.shape)}")
+        if quantize:
+            width = prepared.body_q.shape[-1]
+            mx, rms = deltas(
+                F.fused_r2l_apply_int8_pe(prepared, cfg, pts, dp, EMBED_L),
+                F.fused_r2l_apply_int8_pe_ref(prepared, cfg, pts, dp,
+                                              EMBED_L))
+            ok = mx < TOL_INT8_MAX and rms < TOL_INT8_RMS
+        else:
+            width = prepared.body_w.shape[-1]
+            mx, rms = deltas(
+                F.fused_r2l_apply_pe(prepared, cfg, pts, dp, EMBED_L),
+                F.fused_r2l_apply_pe_ref(prepared, cfg, pts, dp, EMBED_L))
+            ok = mx < TOL_PE_BF16
+        ms = time_ms(lambda: fn(poses[0]), reps=2)
+        res[f"w{PADDED_WIDTH}_frame_{kind}"] = {
+            "ms_per_frame": ms, "plain_ms_per_frame": ms_plain,
+            "packed_width": width, "max_abs_err": mx, "rms_err": rms}
+        print(f"[check] W{PADDED_WIDTH}/D88 {kernel} frame at width {width}:"
+              f" 1 launch, {ms:.3f} ms/frame (plain frame {ms_plain:.3f}), "
+              f"max {mx:.3g} rms {rms:.3g} against its plain version"
+              + (" ok" if ok and width == 128 else " FAILED"), flush=True)
+        if not ok or width != 128:
+            raise AssertionError(f"W{PADDED_WIDTH} {kernel}: {mx} {rms}")
+    return launched
+
+
+def padded_teacher(poses, dev, res) -> dict:
+    """A W64/D8 teacher (the README's depth, skip and samples, the density
+    floor): K6 and K7 at 128, one datagen pose each (10 launches: 5 chunks,
+    a coarse and a fine pass), and the fused f32 frame against the plain
+    one by PSNR; the ms of the fused and the plain frame. -> the pose's
+    and the frame's launches."""
+    from r2l_tpu_torch.datagen import generate_pseudo_data
+    from r2l_tpu_torch.evaluate import make_nerf_frame_fn
+    from r2l_tpu_torch.models import NeRFConfig, init_nerf
+    from r2l_tpu_torch.sampler import PointSampler
+    cfg = NeRFConfig(W=PADDED_TEACHER_W)
+    mc, mf = (init_nerf(cfg, torch.Generator().manual_seed(SEED + s), dev)
+              for s in (50, 51))
+    with torch.no_grad():
+        for m in (mc, mf):
+            m.alpha_linear.bias += DENSITY_FLOOR
+    vcfg = teacher_vcfg()
+    launched = {"K6": 0, "K7": 0}
+    for kernel, kind in (("K6", "f32"), ("K7", "int8")):
+        c0 = refused_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            n_rays = generate_pseudo_data(mc, mf, cfg, vcfg,
+                                          datagen_cfg(kind, 1), tmp,
+                                          device=dev)
+            end.record()
+            torch.cuda.synchronize()
+            recs = np.load(os.path.join(tmp, "pseudo_000000.npy"))
+        moved = moved_since(c0)
+        launched[kernel] += moved.get(kernel, 0)
+        if n_rays != H * W or recs.shape != (H * W, 9) \
+                or not np.isfinite(recs).all() or moved != {kernel: 10}:
+            raise AssertionError(f"W64 datagen {kind}: {n_rays} rays, "
+                                 f"{recs.shape}, launched {moved}")
+        ms = start.elapsed_time(end)
+        res[f"teacher_w64_datagen_{kind}"] = {"ms_first_pose": ms}
+        print(f"[check] W{PADDED_TEACHER_W} teacher datagen ({kind}): "
+              f"{kernel} at width 128, 10 launches, {ms:.3f} ms (first "
+              "pose, CUDA events) ok", flush=True)
+    sampler = PointSampler(H=H, W=W, focal=FOCAL, n_sample=T_SAMPLES,
+                           near=2.0, far=6.0)
+    fn = make_nerf_frame_fn(mc, mf, cfg, vcfg, sampler, use_pallas=True,
+                            device=dev)
+    plain = make_nerf_frame_fn(mc, mf, cfg, vcfg, sampler, device=dev)
+    c0 = refused_counts()
+    f = fn(poses[0])
+    torch.cuda.synchronize()
+    moved = moved_since(c0)
+    launched["K6"] += moved.get("K6", 0)
+    p = psnr_db(f, plain(poses[0]))
+    ms, ms_plain = (time_ms(lambda g=g: g(poses[0]), reps=1)
+                    for g in (fn, plain))
+    ok = fn.kind == "fused" and moved == {"K6": 10} \
+        and p >= MIN_PSNR_TEACHER["f32"]
+    res["teacher_w64_frame"] = {"ms_per_frame": ms,
+                                "plain_ms_per_frame": ms_plain, "psnr": p}
+    print(f"[check] W{PADDED_TEACHER_W} teacher frame: kind {fn.kind}, "
+          f"launched {moved}, {ms:.3f} ms/frame (plain {ms_plain:.3f}), "
+          f"PSNR {p:.1f} dB against the plain frame"
+          + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"W64 teacher frame: {fn.kind} {moved} {p}")
+    return launched
+
+
+def refused_wrappers(dev) -> None:
+    """Each wrapper called directly at W512 on CUDA tensors:
+    NotImplementedError, no counter moved."""
+    from r2l_tpu_torch.encoding import r2l_embed
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.kernels import r2l_train as T
+    from r2l_tpu_torch.models import NeRFConfig, R2LConfig, init_r2l
+    from r2l_tpu_torch.sampler import PointSampler
+    cfg = R2LConfig(netdepth=8, netwidth=WIDE, compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    sampler = PointSampler(H=64, W=64, focal=80.0, n_sample=N_SAMPLE,
+                           near=2.0, far=6.0)
+    pts = sampler.sample_test(torch.as_tensor(lego_poses(1)[0], device=dev))
+    dp, L, n, nb = 3 * N_SAMPLE, EMBED_L, pts.shape[0], cfg.num_blocks
+    fp = F.prepare_fused_params_pe(model, cfg, dp, L, stage=False)
+    fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L, pts, stage=False)
+    stash = torch.zeros((2 * nb + 1, n, WIDE), dtype=torch.bfloat16,
+                        device=dev)
+    dh = torch.zeros((n, WIDE), device=dev)
+    tcfg = NeRFConfig(W=WIDE)
+    z = torch.linspace(2.0, 6.0, T_SAMPLES, device=dev).expand(n, -1)
+    ones = torch.ones((n, 3), device=dev)
+    calls = {"K1": lambda: F.fused_r2l_apply_pe(fp, cfg, pts, dp, L),
+             "K9": lambda: F.fused_r2l_apply(fp, cfg, r2l_embed(pts, L)),
+             "K2": lambda: F.fused_r2l_apply_int8_pe(fp8, cfg, pts, dp, L),
+             "K3": lambda: T.train_fwd(fp, cfg, pts, dp, L),
+             "K4": lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, True),
+             "K8": lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, False),
+             "K5": lambda: T.bwd_group(fp.body_w, stash, dh, cfg, 0, 1),
+             "K6": lambda: NR.fused_nerf_render(None, tcfg, ones, ones,
+                                                z.contiguous())}
+    for name, call in calls.items():
+        expect_not_implemented(f"{name} at W{WIDE}", call)
+
+
+def canonical_paths(sampler, poses, dev) -> dict:
+    """The canonical W256/D88 student's pe and int8 frames and one fused
+    step, and one datagen pose of the README's teacher in f32 and int8:
+    each launches its kernels (K1, K2, K3 + K5, K6, K7), counted from 0."""
+    from r2l_tpu_torch.datagen import generate_pseudo_data
+    from r2l_tpu_torch.evaluate import make_r2l_frame_fn
+    from r2l_tpu_torch.hardmine import parse_hard_ratio
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    from r2l_tpu_torch.train import (DistillConfig, fused_vjp_gate,
+                                     init_train_state, make_distill_step)
+    cfg = R2LConfig(compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    got = {}
+    for kernel, quantize in (("K1", ""), ("K2", "int8")):
+        c0 = refused_counts()
+        fn = make_r2l_frame_fn(model, cfg, sampler, embed_L=EMBED_L,
+                               quantize=quantize, calib_poses=poses)
+        fn(poses[0])
+        torch.cuda.synchronize()
+        got[kernel] = refused_counts()[kernel] - c0[kernel]
+    n_in, n_out = parse_hard_ratio(HARD_RATIO, N_RAND)
+    dcfg = DistillConfig(batch_size=N_RAND, n_hard_in=n_in, n_hard_out=n_out,
+                         hard_mul=HARD_MUL, warmup_lr=WARMUP, embed_L=EMBED_L,
+                         perturb=True)
+    if not fused_vjp_gate(True, cfg, False):
+        raise AssertionError("the fused gate refused W256/D88")
+    c0 = refused_counts()
+    state = init_train_state(model, dcfg, device=dev)
+    step = make_distill_step(cfg, dcfg, sampler, fused_vjp=True, device=dev)
+    state, m = step(state, synthetic_rays(N_RAND - n_out, SEED + 70),
+                    generator=torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    c1 = refused_counts()
+    got["K3"], got["K5"] = (c1[k] - c0[k] for k in ("K3", "K5"))
+    del state, step, model
+    torch.cuda.empty_cache()
+    for kernel, kind in (("K6", "f32"), ("K7", "int8")):
+        tcfg, mc, mf = teacher_models(kind, dev)
+        c0 = refused_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            generate_pseudo_data(mc, mf, tcfg, teacher_vcfg(),
+                                 datagen_cfg(kind, 1), tmp, device=dev)
+        torch.cuda.synchronize()
+        got[kernel] = refused_counts()[kernel] - c0[kernel]
+        del mc, mf
+    torch.cuda.empty_cache()
+    # one 400x400 frame is one launch; a fused step launches K3 once and K5
+    # once per 4-block group of the 43 blocks; a datagen pose 5 chunks, each
+    # a coarse and a fine pass
+    want = {"K1": 1, "K2": 1, "K3": 1, "K5": -(-43 // 4), "K6": 10,
+            "K7": 10}
+    print(f"[main] canonical paths in phase 20: launches {got} (expected "
+          f"{want})" + (" ok" if got == want else " FAILED"), flush=True)
+    if got != want:
+        raise AssertionError(f"canonical launches {got}, expected {want}")
+    return got
+
+
+def phase_refused(smi: str, sampler, poses, dev) -> dict:
+    """Phase 20: shapes off the kernels' native widths, at full size: the
+    padded ones launch their kernels, the ones both packages render plain
+    launch nothing, the ones only the JAX package's kernels take raise; the
+    canonical paths launch as before."""
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    t_phase = time.perf_counter()
+    res = {"device": smi}
+    padded = padded_frames(sampler, poses, dev, res)
+    torch.cuda.empty_cache()
+    padded.update(padded_teacher(poses, dev, res))
+    torch.cuda.empty_cache()
+    cfgs = {f"w{WIDE}_d88": R2LConfig(netwidth=WIDE,
+                                      compute_dtype=torch.bfloat16),
+            "lrelu": R2LConfig(act="lrelu", inact="lrelu",
+                               compute_dtype=torch.bfloat16)}
+    for label, cfg in cfgs.items():
+        model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+        refused_frames(label, cfg, model, sampler, poses, res)
+        del model
+        torch.cuda.empty_cache()
+    refused_step("lrelu", cfgs["lrelu"], sampler, dev, res)
+    torch.cuda.empty_cache()
+    wide_paths(sampler, poses, dev)
+    torch.cuda.empty_cache()
+    refused_wrappers(dev)
+    res["canonical_launches"] = canonical_paths(sampler, poses, dev)
+    res["launches"] = {k: v + padded.get(k, 0)
+                       for k, v in res["canonical_launches"].items()}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[main] phase 20 took {res['phase_s']:.1f} s ({smi})", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4144,6 +4573,8 @@ def main() -> int:
     llff = phase_llff_mesh(dev, cli)
     torch.cuda.empty_cache()
     exp = phase_exp(dev)
+    torch.cuda.empty_cache()
+    refused = phase_refused(smi, sampler, poses, dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -4166,7 +4597,7 @@ def main() -> int:
         "givenrays": given, "nerf_bench": nbench,
         "bench_cuda": bench_line, "checkpoints": ck,
         "cli": {k: v for k, v in cli.items()},
-        "llff_mesh": llff, "exp_drivers": exp}}))
+        "llff_mesh": llff, "exp_drivers": exp, "refused_shapes": refused}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4177,12 +4608,13 @@ def main() -> int:
                 **{k: r[k] for k in keys}}
 
     tr = "r2l_tpu/kernels/r2l_train_pallas.py"
+    p20 = refused["launches"]
     print(json.dumps({"kernels": [
         entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164",
               main_res["launches"]["pe"] + given["launches"]["pe"]
               + ck["load"]["launches"]["pe"] + cli["launches"]["K1"]
-              + llff["launches"]["K1"], kern["pe"]),
+              + llff["launches"]["K1"] + p20["K1"], kern["pe"]),
         entry("fused_r2l_apply_pe_f32", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164", cli_f32["launches"],
               kern["pe_f32"]),
@@ -4190,12 +4622,13 @@ def main() -> int:
               "r2l_tpu/kernels/r2l_pallas.py:571",
               main_res["launches"]["int8"] + given["launches"]["int8"]
               + ck["load"]["launches"]["int8"] + cli["launches"]["K2"]
-              + llff["launches"]["K2"] + exp["launches"]["K2"], kern["int8"]),
+              + llff["launches"]["K2"] + exp["launches"]["K2"] + p20["K2"],
+              kern["int8"]),
         entry("train_fwd", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused"]["train_fwd"]
               + ck["resume"]["launches"]["train_fwd"]
               + cli["launches"]["K3"] + llff["launches"]["K3"]
-              + exp["launches"]["K3"], tkern["train_fwd_bf16"]),
+              + exp["launches"]["K3"] + p20["K3"], tkern["train_fwd_bf16"]),
         entry("train_fwd_f32", "r2l_train_fwd.cu", tr + ":54",
               train["launches_per_kind"]["fused_f32"]["train_fwd"],
               tkern["train_fwd_f32"]),
@@ -4211,7 +4644,7 @@ def main() -> int:
               train["launches"]["bwd_group"]
               + ck["resume"]["launches"]["bwd_group"]
               + cli["launches"]["K5"] + llff["launches"]["K5"]
-              + exp["launches"]["K5"], tkern["bwd_group_bf16"]),
+              + exp["launches"]["K5"] + p20["K5"], tkern["bwd_group_bf16"]),
         *(entry(f"fused_r2l_apply_{kind}", "r2l_fused.cu",
                 "r2l_tpu/kernels/r2l_pallas.py:270", api[kind]["launches"],
                 kern[f"api_{kind}"]) for kind in ("f32", "bf16")),
@@ -4220,8 +4653,9 @@ def main() -> int:
                 "r2l_tpu/kernels/nerf_render_pallas.py:336",
                 dgen[kind]["launches"]
                 + (nbench["launches"] + cli["launches"]["K6"]
-                   + llff["launches"]["K6"] if kind == "f32" else 0)
-                + (cli["launches"]["K7"] + exp["launches"]["K7"]
+                   + llff["launches"]["K6"] + p20["K6"] if kind == "f32"
+                   else 0)
+                + (cli["launches"]["K7"] + exp["launches"]["K7"] + p20["K7"]
                    if kind == "int8" else 0)
                 + (exp["launches"]["K6"] if kind == "bf16" else 0),
                 teacher[kind])

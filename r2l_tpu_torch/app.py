@@ -472,8 +472,8 @@ def _align_hard_counts(batch_size: int, n_hard_in: int, n_hard_out: int,
     evenly over ``n_dev`` devices while keeping the hard-mining
     invariants: n_in <= n_out, and no pool draw without pool inserts.
     Prefers shrinking the pool draw; when the draw cannot absorb the
-    remainder, shrinks the batch itself. The port runs on one device
-    (n_dev = 1: nothing changes) until ROADMAP A6."""
+    remainder, shrinks the batch itself. ``n_dev`` is the mesh's process
+    count, one per device (1 without a mesh: nothing changes)."""
     fresh = batch_size - n_hard_out
     r = fresh % n_dev
     if r:

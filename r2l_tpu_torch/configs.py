@@ -18,11 +18,16 @@ reader, with the reference's post-parse normalization (`option.py:360-386`):
   * ``video_tag`` default derived from ``n_pose_video``.
 
 The flags added by the JAX package (mesh axes, compute dtype, the kernel
-toggle, ...) keep their text; how the port reads them is ``app.py``'s:
-``--platform auto`` is the card, ``cpu`` the CPU, ``tpu`` an error, and the
-multi-device flags (``--mesh``, ``--multihost``, ``--num_cpu_devices`` > 1)
-raise. ``args_to_r2l_config`` builds the port's ``R2LConfig``, the compute
-dtype as a torch dtype.
+toggle, ...) keep their names, defaults and choices; their help says what
+the port does with them, which is ``app.py``'s: ``--platform auto`` is the
+card, ``cpu`` the CPU, ``tpu`` an error. The multi-device flags run one
+process per device over ``torch.distributed``: ``--mesh data:D,model:M``
+splits the batch and the rays over ``data`` and the student's width over
+``model`` (``torchrun --nproc_per_node N main_cuda.py --mesh data:N`` on N
+cards), ``--multihost`` joins the process group a launcher set up, and
+``--num_cpu_devices N --platform cpu`` starts N gloo ranks of the same
+command on the host. ``args_to_r2l_config`` builds the port's
+``R2LConfig``, the compute dtype as a torch dtype.
 """
 from __future__ import annotations
 
@@ -171,8 +176,8 @@ def build_parser() -> argparse.ArgumentParser:
     add('--layerwise_netwidths2', type=str, default='')
     add('--render_iters', type=int, default=1)
     add('--convert_to_onnx', type=_bool, nargs='?', const=True,
-        default=False, help='export the model (StableHLO/TF SavedModel '
-        'on this framework) + run the numerical parity check')
+        default=False, help='export the student to ONNX (--export_dir) '
+        'and run the numerical parity check on the written file')
     add('--benchmark', type=_bool, nargs='?', const=True, default=False)
     add('--use_bn', type=_bool, nargs='?', const=True, default=False)
     add('--shuffle_input', type=_bool, nargs='?', const=True, default=False)
@@ -224,8 +229,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     # --- flags the JAX package added (not in the reference) ---
     add('--mesh', type=str, default='',
-        help="multi-device axes in the JAX package; not ported here "
-             "(ROADMAP A6): any value raises")
+        help="device mesh, e.g. 'data:4' or 'data:2,model:2': one "
+             "process per device over torch.distributed (torchrun "
+             "--nproc_per_node N main_cuda.py --mesh data:N); the batch "
+             "and each frame's rays split over data, the student's width "
+             "over model")
     add('--compute_dtype', type=str, default='float32',
         choices=['float32', 'bfloat16'],
         help='activation dtype for the R2L student (f32 renders through '
@@ -252,8 +260,9 @@ def build_parser() -> argparse.ArgumentParser:
     add('--export_dir', type=str, default='',
         help='output dir for --convert_to_onnx (ONNX export)')
     add('--multihost', type=_bool, nargs='?', const=True, default=False,
-        help="multi-host runs in the JAX package; not ported here "
-             "(ROADMAP A6): raises")
+        help="join the process group a launcher (torchrun) set up "
+             "across hosts, one process per device; without a launcher "
+             "it exits with a message")
     add('--pseudo_ratio_schedule', type=str, default='',
         help="linear pseudo/real mixing schedule, e.g. '1:0.2,500000:0.9' "
              "(reference get_pseudo_ratio, main.py:811-828); overrides "
@@ -267,7 +276,10 @@ def build_parser() -> argparse.ArgumentParser:
         default=False,
         help='route distillation forward+backward through the fused '
              'training kernels (K3 forward, K5 backward; single device, '
-             'canonical resmlp body, netwidth % 128 == 0)')
+             'sampled points, the canonical two-layer resmlp body with '
+             'ReLU activations, netwidth 128 or 256); other netwidths '
+             'that are multiples of 128 stop with an error on the card, '
+             'any other student takes the plain step with a warning')
     add('--fused_train_int8', type=_bool, nargs='?', const=True,
         default=False,
         help='with --fused_train_vjp: run the training forward in int8 '
@@ -303,8 +315,9 @@ def build_parser() -> argparse.ArgumentParser:
              "runs the whole CLI on the host (the kernels' plain "
              "versions), 'tpu' raises (the JAX package's)")
     add('--num_cpu_devices', type=int, default=0,
-        help='virtual host devices in the JAX package; values above 1 '
-             'raise here (ROADMAP A6)')
+        help='with --platform cpu: N > 1 starts N gloo ranks of the '
+             'same command on the host, one per virtual device (the '
+             "JAX package's virtual CPU devices); 0 or 1 is one process")
     add('--lpips_rescale', type=str, default='standard',
         choices=['standard', 'minmax'],
         help="LPIPS input rescale: 'standard' maps [0,1] via 2x-1 (the "

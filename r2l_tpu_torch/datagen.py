@@ -31,7 +31,9 @@ numpy in the JAX package's order, so the files have the same names, shapes
 and row order. Each render runs on the device, through the fused
 volumetric kernel (``render_frame_nerf_fused``: K6, or K7 for an int8
 teacher) when the device is CUDA, ``use_pallas`` is on, the sigma noise is
-off and the positional encoding is on, else through the plain path. The
+off and the positional encoding is on (the JAX package's conditions), else
+through the plain path; on the fused path a teacher the kernels do not take
+raises before anything is packed (``check_teacher_supported``). The
 int8 teacher is wired into ``rand`` only; the other modes warn and render
 at full precision, as the JAX package does.
 
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 
 from .data.rayshards import shuffle_rays, write_ray_shards
+from .kernels.nerf_render import check_teacher_supported
 from .models.nerf import NeRF, NeRFConfig
 from .rays import (donerf_ray_dirs, get_novel_poses, get_rand_pose, get_rays,
                    get_rays_np, ndc_rays)
@@ -154,12 +157,24 @@ def _writer(datadir: str, gcfg: DataGenConfig, q: queue.Queue,
             pass
 
 
-def _fused_gate(gcfg: DataGenConfig, vcfg: VolRenderConfig,
-                device: torch.device) -> bool:
-    """Whether the renders take the fused kernel: ``use_pallas`` on a CUDA
-    device, no sigma noise, the positional encoding on."""
-    return bool(gcfg.use_pallas and device.type == "cuda"
-                and vcfg.raw_noise_std == 0.0 and vcfg.multires > 0)
+def _fused_refusal(gcfg: DataGenConfig, vcfg: VolRenderConfig,
+                   device: torch.device, mesh: Mesh | None = None
+                   ) -> str | None:
+    """None when the renders take the fused kernels K6/K7 (the JAX
+    package's conditions, with the card for its chip), else why not:
+    ``use_pallas`` off, a device other than the CUDA card, a mesh, sigma
+    noise or the positional encoding off."""
+    if not gcfg.use_pallas:
+        return "--use_pallas 0"
+    if device.type != "cuda":
+        return f"the {device.type} device"
+    if mesh is not None:
+        return "the rays are sharded over a mesh"
+    if vcfg.raw_noise_std != 0.0:
+        return "sigma noise, raw_noise_std > 0"
+    if vcfg.multires <= 0:
+        return "no positional encoding"
+    return None
 
 
 def _renderer(model_c: NeRF, model_f: NeRF | None, ncfg: NeRFConfig,
@@ -229,13 +244,15 @@ def generate_pseudo_data(model_c: NeRF, model_f: NeRF | None,
     ld = "depth" if gcfg.learn_depth is True else (gcfg.learn_depth or "")
     record_dim = 9 + {"": 0, "depth": 1, "surface": 3}[ld]
     ppb = max(gcfg.poses_per_batch, 1)
-    use_fused = _fused_gate(gcfg, vcfg, device) and mesh is None
-    if gcfg.quantize == "int8" and not use_fused:
+    refusal = _fused_refusal(gcfg, vcfg, device, mesh)
+    use_fused = refusal is None
+    if use_fused:
+        check_teacher_supported(ncfg, ncfg_fine)
+    elif gcfg.quantize == "int8":
         warnings.warn(
-            "--quantize int8 requested for datagen but the fused TPU path "
-            "is unavailable (CPU backend, mesh sharding, or "
-            "raw_noise_std > 0) — generating with the full-precision "
-            "teacher instead", stacklevel=2)
+            "--quantize int8 requested for datagen but the fused kernels "
+            f"(K6/K7) do not take this run ({refusal}) — generating with "
+            "the full-precision teacher instead", stacklevel=2)
     packed = None
     if use_fused:
         int8_calib = None
@@ -355,7 +372,9 @@ def _make_rgb_renderer(model_c: NeRF, model_f: NeRF | None,
             "datagen mode's fused path — this mode renders with the "
             "full-precision teacher", stacklevel=3)
     device = torch.device(device)
-    fused = _fused_gate(gcfg, vcfg, device)
+    fused = _fused_refusal(gcfg, vcfg, device) is None
+    if fused:
+        check_teacher_supported(ncfg, ncfg_fine)
     packed = (prepare_fused_teacher(model_c, model_f, ncfg, vcfg, ncfg_fine)
               if fused else None)
     render = _renderer(model_c, model_f, ncfg, vcfg, gcfg, device, fused,

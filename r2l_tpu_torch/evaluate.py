@@ -20,11 +20,18 @@ each rank runs its kind (K1 or K2 for the student, K6/K7 or the plain
 volumetric pass for the teacher) on its own padded shard, and the shards
 are gathered back in order. The VMEM tile-fit model is TPU-only and not
 ported; ``pallas_tile`` is accepted so that the CLI flags carry over, and
-ignored: the CUDA kernels choose their own ray tile.
+ignored: the CUDA kernels choose their own ray tile. The kernels' own
+shapes decide (``kernels.r2l_fused.fused_frame_supported``); a student
+they do not take renders ``jnp``, with a warning, where the JAX package
+renders it plain too (``_reference_fits``), and raises on the card where
+the JAX package runs it on its kernel.
 
 The teacher's frame (``make_nerf_frame_fn``, the ``--test_teacher`` path)
 and its benchmark (``make_nerf_bench_fn``) render through the fused
-volumetric kernel on the card, else through the plain volumetric path.
+volumetric kernel on the card, else through the plain volumetric path; a
+teacher the kernels do not take raises on the card
+(``check_teacher_supported``), as the JAX package renders every teacher
+fused on its chip.
 
 ``render_path`` writes 8-bit RGB PNGs with a writer of its own
 (``write_png``: ``zlib`` and ``struct``), so evaluation needs no image
@@ -46,7 +53,9 @@ import torch
 from . import metrics as M
 from .encoding import r2l_embed
 from .flip import flip as flip_metric
-from .kernels.r2l_fused import (calibrate_r2l_int8_pe,
+from .kernels.nerf_render import check_teacher_supported
+from .kernels.r2l_fused import (calibrate_r2l_int8_pe, frame_shapes_text,
+                                fused_frame_supported,
                                 fused_kernel_supported,
                                 fused_r2l_apply_int8_pe, fused_r2l_apply_pe,
                                 prepare_fused_params_pe)
@@ -137,6 +146,59 @@ def _calibration_points(sampler: PointSampler, calib_poses,
         sub.sample_test(_as_f32(p, device)) for p in poses])
 
 
+# The JAX package's budget for its PE-fused kernels' weights and ray tile
+# (r2l_tpu/evaluate.py, _VMEM_BUDGET): it renders plain a student whose
+# weights leave no room there for a 128-ray tile.
+_REFERENCE_BUDGET = 14 << 20
+
+
+def _reference_fits(cfg: R2LConfig, dim_pts: int, int8: bool) -> bool:
+    """Whether the JAX package renders this student on its PE-fused kernel
+    (its int8 one with ``int8``): its ``_pe_kernel_tile_fit`` is not 0. A
+    rule of the reference, copied to decide where the port's plain path
+    stands in for a kernel, not a limit of the port's kernels."""
+    W, in_pad = cfg.netwidth, -(-cfg.input_dim // 128) * 128
+    nl = cfg.num_blocks * cfg.n_learnable
+    wsize = 1 if int8 else (2 if cfg.compute_dtype == torch.bfloat16 else 4)
+    scale_rows = ((in_pad + 2 * W + 3 * nl * W + W + 2 * 128) * 4 if int8
+                  else 0)
+    wbytes = ((in_pad * W + nl * W * W + W * 128) * wsize
+              + (W * (nl + 1) + 128) * 4 + scale_rows)
+    per_ray = in_pad * wsize + dim_pts * 4 * 2 + 128 * 4 * 2 + W * 4 * 2
+    return (_REFERENCE_BUDGET - wbytes) // per_ray >= 128
+
+
+def _takes_kernel(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
+                  int8: bool) -> bool:
+    """Whether the frame runs on its kernel (K2 with ``int8``, else K1):
+    where the port's kernels take the student (``fused_frame_supported``),
+    and on the CPU (their plain versions) wherever the JAX package's
+    kernel does. False where neither takes it: the JAX package renders it
+    plain too. On the card, a student that the JAX package runs on its
+    kernel and the port's kernels do not take raises NotImplementedError."""
+    if fused_frame_supported(cfg, int8, L):
+        return True
+    if not _reference_fits(cfg, dim_pts, int8):
+        return False
+    if _model_device(model).type == "cpu":
+        return True
+    raise NotImplementedError(
+        f"the {'int8 ' if int8 else ''}fused kernel "
+        f"({'K2' if int8 else 'K1'}) takes {frame_shapes_text(int8)}; "
+        f"got netwidth {cfg.netwidth}, act={cfg.act!r} n_learnable="
+        f"{cfg.n_learnable}, L={L}, which the JAX package renders on its "
+        "kernel (ROADMAP C1)")
+
+
+def _plain_warning(int8: bool, cfg: R2LConfig, then: str) -> str:
+    kernel = "int8 fused kernel (K2)" if int8 else "fused kernel (K1)"
+    return (f"WARNING: the {kernel} takes {frame_shapes_text(int8)}"
+            f", not netwidth {cfg.netwidth} with {cfg.num_blocks} blocks of "
+            f"{cfg.n_learnable} layers, and the JAX package renders this "
+            f"model plain too (its weights exceed that kernel's budget "
+            f"there) — {then}")
+
+
 def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
                  embed_L: int, plucker: bool, use_pallas: bool,
                  quantize: str, calib_poses=None, calib_pts=None):
@@ -146,7 +208,11 @@ def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
 
     The rules are the JAX ones: non-canonical activations go to the plain
     module; int8 with Plücker inputs falls back to ``pe``; int8 with
-    ``use_pallas=False`` goes to the plain module. ``calib_poses``
+    ``use_pallas=False`` goes to the plain module; int8 at a shape that no
+    int8 kernel takes warns and tries ``pe``, and ``pe`` at a shape that no
+    PE-fused kernel takes warns and goes to the plain module
+    (``_takes_kernel``). A student narrower than the kernels' widths runs
+    on them padded (``kernels.r2l_fused.kernel_width``). ``calib_poses``
     [M, 3/4, 4] are the deployment poses int8 calibrates on;
     ``calib_pts`` [M, dim_pts] (sample points, tensor or array) win over
     them (the given-rays path calibrates on its own rays)."""
@@ -165,6 +231,11 @@ def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
               "--use_pallas 0 was given — rendering with the plain XLA "
               "forward instead.", file=sys.stderr)
         quantize = ""
+    if (quantize == "int8" and not plucker
+            and not _takes_kernel(model, cfg, dim_pts, embed_L, True)):
+        print(_plain_warning(True, cfg, "trying the PE-fused kernel."),
+              file=sys.stderr)
+        quantize = ""
     if quantize == "int8" and not plucker:
         device = _model_device(model)
         calib_pts = (_as_f32(calib_pts, device) if calib_pts is not None
@@ -173,6 +244,10 @@ def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
                                          calib_pts=calib_pts,
                                          fold_requant=True)
         return prepared, "int8", dim_pts
+    if use_pallas and not _takes_kernel(model, cfg, dim_pts, embed_L, False):
+        print(_plain_warning(False, cfg, "rendering through the plain "
+                             "forward."), file=sys.stderr)
+        return model, "jnp", dim_pts
     if use_pallas:
         wd = (torch.bfloat16 if cfg.compute_dtype == torch.bfloat16
               else torch.float32)
@@ -369,7 +444,9 @@ def make_nerf_frame_fn(model_c: NeRF, model_f: NeRF | None,
     volumetric teacher on ``device`` (the card unless told otherwise; the
     models must be there). ``ndc_params = (H, W, focal)`` turns on the LLFF
     NDC warp. With ``use_pallas`` on a CUDA device (and the positional
-    encoding on) each pass runs through the fused kernel, packed once here.
+    encoding on) each pass runs through the fused kernel, packed once here;
+    a teacher the kernels do not take raises NotImplementedError first
+    (``kernels.nerf_render.check_teacher_supported``).
 
     ``perturb_test`` jitters the depths with the sigma noise off (the
     reference's test kwargs); the draws come from a generator seeded from
@@ -387,6 +464,8 @@ def make_nerf_frame_fn(model_c: NeRF, model_f: NeRF | None,
                                  raw_noise_std=0.0)
     model_f = model_f if model_f else None
     fused = bool(use_pallas and device.type == "cuda" and vcfg.multires > 0)
+    if fused:
+        check_teacher_supported(ncfg, ncfg_fine)
     packed = (prepare_fused_teacher(model_c, model_f, ncfg, vcfg_t,
                                     ncfg_fine) if fused else None)
 

@@ -21,6 +21,13 @@ gives rgb [N, 3], acc [N], depth [N] and the weights [N, S]. Two kernels:
 
 ``fused_nerf_render`` runs the plain version ``fused_nerf_render_ref`` for a
 tensor on the CPU only; for a CUDA tensor it launches K6 or K7, or raises.
+The kernels are built for the widths of ``NERF_KERNEL_WIDTHS``;
+``prepare_fused_nerf`` pads a narrower teacher with zero channels to the
+next of them (``teacher_kernel_width``), so K6/K7 take every width up to
+the widest. A teacher they do not take (``fused_teacher_supported``: a
+wider one, D > ``NERF_KERNEL_MAX_D``, a skip after the last layer) raises
+NotImplementedError before any launch (``check_teacher_supported``, which
+the teacher's entry points call before they pack).
 
 Port layout (not the TPU's transposed ``[feature, ray]`` one): weights
 ``[out, in]``; the point encoding in ``nerf_embed``'s own order
@@ -41,6 +48,7 @@ after the layers.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -49,7 +57,7 @@ import torch
 from ..models.nerf import NeRF, NeRFConfig
 from ..volume import fma, ray_points
 from .r2l_fused import (_act_scale, _check, _dequant, _mm_int, _ptr, _q8,
-                        _raise_on_error)
+                        _raise_on_error, pads)
 from .staging import STAGE_K, stage_matrices, tf32_split  # noqa: F401
 
 K_STAGE = 64     # every packed weight's input axis is a multiple of this
@@ -58,6 +66,13 @@ ROWS = 1 << 18   # points per slice of the plain version's MLP
 # stages' input channels are staging.STAGE_K.
 BLOCK_POINTS = {torch.bfloat16: 128, torch.int8: 128, torch.float32: 64}
 SAMPLES_PER_GROUP = 8
+# The teacher shapes K6/K7 are built for: the ``case`` labels of the launch
+# switches in csrc/nerf_render.cu and csrc/nerf_render_int8.cu, and their
+# depth limit; any other returns cudaErrorInvalidValue. A narrower teacher
+# is packed at the next width (``teacher_kernel_width``).
+# tests/test_torch_gates.py reads them there.
+NERF_KERNEL_WIDTHS = (128, 256)
+NERF_KERNEL_MAX_D = 31
 
 
 def _round_up(x: int, m: int) -> int:
@@ -119,6 +134,66 @@ def _pad_cols(w: torch.Tensor, cols: int, fill: float = 0.0) -> torch.Tensor:
     return out
 
 
+def teacher_kernel_width(W: int) -> int | None:
+    """The width K6/K7 run a W-wide teacher at: the narrowest of
+    ``NERF_KERNEL_WIDTHS`` that holds it, or None above the widest.
+    ``prepare_fused_nerf`` pads the network with zero channels (the view
+    layer to half that width), which ReLU keeps at zero and every later
+    layer and head reads through zero weights, so the padded pass computes
+    the W-wide teacher."""
+    return next((k for k in NERF_KERNEL_WIDTHS if k >= W), None)
+
+
+def teacher_kernel_cfg(cfg: NeRFConfig) -> NeRFConfig:
+    """``cfg`` at its kernel width (``cfg`` itself above the widest)."""
+    Wk = teacher_kernel_width(cfg.W)
+    return cfg if Wk in (None, cfg.W) else dataclasses.replace(cfg, W=Wk)
+
+
+@torch.no_grad()
+def _padded_teacher(model: NeRF, cfg: NeRFConfig, pad: bool | None
+                    ) -> tuple[NeRF, NeRFConfig]:
+    """With ``pad`` (``r2l_fused.pads``: by default where the model lies on
+    the card), ``model`` at its ``teacher_kernel_width``: a ``NeRF`` of that
+    width holding the weights and biases in its leading channels, zeros
+    elsewhere (``model`` itself where it is already there)."""
+    weight = model.pts_linears[0].weight
+    kcfg = teacher_kernel_cfg(cfg) if pads(pad, weight) else cfg
+    if kcfg is cfg:
+        return model, cfg
+    W, Wk, c = cfg.W, kcfg.W, cfg.input_ch
+    out = NeRF(kcfg, device=weight.device)
+    for m in out.modules():
+        if isinstance(m, torch.nn.Linear):
+            m.weight.zero_()
+            m.bias.zero_()
+
+    def put(dst, src, rows: int, cols: list[tuple[int, int, int]]):
+        """dst's first ``rows`` outputs from src: each (dst column, src
+        column, count) range of the inputs."""
+        dst.bias[:rows] = src.bias
+        for d0, s0, k in cols:
+            dst.weight[:rows, d0:d0 + k] = src.weight[:, s0:s0 + k]
+
+    for i, (d, m) in enumerate(zip(out.pts_linears, model.pts_linears)):
+        if i == 0:
+            put(d, m, W, [(0, 0, c)])
+        elif (i - 1) in cfg.skips:      # [encoding | h]
+            put(d, m, W, [(0, 0, c), (c, c, W)])
+        else:
+            put(d, m, W, [(0, 0, W)])
+    if cfg.use_viewdirs:
+        put(out.alpha_linear, model.alpha_linear, 1, [(0, 0, W)])
+        put(out.feature_linear, model.feature_linear, W, [(0, 0, W)])
+        put(out.views_linears[0], model.views_linears[0], W // 2,
+            [(0, 0, W), (Wk, W, cfg.input_ch_views)])   # [feature | views]
+        put(out.rgb_linear, model.rgb_linear, 3, [(0, 0, W // 2)])
+    else:
+        put(out.output_linear, model.output_linear, cfg.output_ch,
+            [(0, 0, W)])
+    return out, kcfg
+
+
 def _quant_rows_scaled(wt: torch.Tensor, s_in: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """wt [out, in] f32, s_in [in] -> (int8 [out, in], per-row multiplier
@@ -162,8 +237,8 @@ def _calib_forward(model: NeRF, cfg: NeRFConfig, L_pts: int, L_views: int,
 def prepare_fused_nerf(model: NeRF, cfg: NeRFConfig, L_pts: int = 10,
                        L_views: int = 4, calib: tuple | None = None,
                        weight_dtype: torch.dtype = torch.bfloat16,
-                       margin: float = 1.1, fold_requant: bool = False
-                       ) -> FusedNeRFParams:
+                       margin: float = 1.1, fold_requant: bool = False,
+                       pad: bool | None = None) -> FusedNeRFParams:
     """Pack a ``NeRF`` for the fused pass (``prepare_fused_nerf_t``).
 
     ``calib = (pts [n, 3], viewdirs [n, 3] | None)`` switches to
@@ -177,8 +252,11 @@ def prepare_fused_nerf(model: NeRF, cfg: NeRFConfig, L_pts: int = 10,
     requantizes are round+clip only; the view encoding's scale is not
     folded (it has no producer). The result records it, and the weights'
     dtype records int8, so the render takes neither as an argument. TF32
-    is switched off for the calibration.
+    is switched off for the calibration. ``pad`` (by default where the
+    model lies on the card) packs a teacher narrower than the kernels'
+    widths at its ``teacher_kernel_width``.
     """
+    model, cfg = _padded_teacher(model, cfg, pad)
     W, D = cfg.W, cfg.D
     kp, kv, ks = layout(cfg, L_pts, L_views)
     dev = model.pts_linears[0].weight.device
@@ -569,6 +647,7 @@ def fused_nerf_render_ref(fp: FusedNeRFParams, cfg: NeRFConfig,
     depth [N], weights [N, S]), all f32. ``mm(x, w)``: the f32/bf16 GEMM
     layers' product x w^T (f32 by default; a test passes an emulation of
     K6 f32's 3xTF32)."""
+    cfg = _packed_cfg(fp, cfg)
     int8 = fp.pts_w.dtype == torch.int8
     n, S = z_vals.shape
     kp, kv, ks = layout(cfg, L_pts, L_views)
@@ -609,14 +688,34 @@ def fused_nerf_render_ref(fp: FusedNeRFParams, cfg: NeRFConfig,
     return rgb, acc, depth, weights
 
 
-def _check_supported(cfg: NeRFConfig) -> None:
-    if cfg.W not in (128, 256):
-        raise ValueError(f"the fused NeRF kernels take W 128 or 256, got "
-                         f"{cfg.W}")
-    if cfg.D > 31 or any(not 0 <= s < cfg.D - 1 for s in cfg.skips):
-        raise ValueError(f"the fused NeRF kernels take D <= 31 and skips "
-                         f"before the last layer; got D={cfg.D} skips="
-                         f"{cfg.skips}")
+def _packed_cfg(fp: FusedNeRFParams, cfg: NeRFConfig) -> NeRFConfig:
+    """``cfg`` at the width ``fp`` was packed at (``prepare_fused_nerf``'s
+    ``pad``)."""
+    W = fp.pts_b.shape[-1]
+    return cfg if W == cfg.W else dataclasses.replace(cfg, W=W)
+
+
+def fused_teacher_supported(cfg: NeRFConfig) -> bool:
+    """Whether K6/K7 take the teacher network ``cfg``: a
+    ``teacher_kernel_width``, 1 <= D <= ``NERF_KERNEL_MAX_D`` and every
+    skip before the last layer (the skips travel as a D-1-bit mask)."""
+    return (teacher_kernel_width(cfg.W) is not None
+            and 1 <= cfg.D <= NERF_KERNEL_MAX_D
+            and all(0 <= s < cfg.D - 1 for s in cfg.skips))
+
+
+def check_teacher_supported(*cfgs: NeRFConfig | None) -> None:
+    """Raise NotImplementedError, before anything is packed or launched,
+    where K6/K7 do not take one of the teacher networks ``cfgs`` (None
+    skipped: a teacher without a fine network)."""
+    for cfg in cfgs:
+        if cfg is not None and not fused_teacher_supported(cfg):
+            raise NotImplementedError(
+                f"the fused NeRF kernels (K6/K7) take W up to "
+                f"{NERF_KERNEL_WIDTHS[-1]} (run at "
+                f"{' or '.join(map(str, NERF_KERNEL_WIDTHS))} with zero "
+                f"channels), D <= {NERF_KERNEL_MAX_D} and skips before the "
+                f"last layer; got W={cfg.W} D={cfg.D} skips={cfg.skips}")
 
 
 def _field_shapes(cfg: NeRFConfig, L_pts: int, L_views: int, int8: bool
@@ -656,8 +755,8 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
         return fused_nerf_render_ref(fp, cfg, rays_o, rays_d, z_vals, L_pts,
                                      L_views, white_bkgd)
     from . import _build
-    _check_supported(cfg)
-    dev = z_vals.device
+    check_teacher_supported(cfg)
+    cfg, dev = teacher_kernel_cfg(cfg), z_vals.device
     n, S = z_vals.shape
     f32, wd = torch.float32, fp.pts_w.dtype
     int8 = wd == torch.int8

@@ -22,7 +22,12 @@ student frame, and a third is the JAX package's exported kernel API:
   dtype.
 
 Each public wrapper runs its plain PyTorch version for a tensor on the CPU
-only. For a CUDA tensor it launches the kernel or raises.
+only. For a CUDA tensor it launches the kernel or raises. The kernels are
+built for the widths of ``R2L_KERNEL_WIDTHS``; the frame packers pad a
+narrower student with zero channels to the next of them
+(``kernel_width``), so K1/K9/K2 take every width up to the widest. A shape
+they do not take (``fused_frame_supported``: a wider student, other
+activations) raises NotImplementedError before any launch.
 
 Kernel layout: weights are packed ``[out, in]`` (``nn.Linear``'s layout,
 the transpose of JAX's), so that a kernel copies each output channel's
@@ -47,6 +52,7 @@ picks its own ray tile.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -138,6 +144,39 @@ class FusedParamsInt8PE(_Int8Fields):
         return out
 
 
+# The widths the chain kernels are built for: the ``case`` labels of the
+# launch switches of K1/K9/K3 (csrc/r2l_hopper.cuh, ``launch``) and of
+# K2/K4/K8 (csrc/r2l_int8_hopper.cuh, ``launch_width``); any other width
+# returns cudaErrorInvalidValue. tests/test_torch_gates.py reads them there.
+R2L_KERNEL_WIDTHS = (64, 128, 256)
+# What the chain kernels hardcode, for messages.
+_CANONICAL = ("ReLU head and in-block activations, no block "
+              "out-activation, a resmlp body")
+
+
+def kernel_width(W: int) -> int | None:
+    """The width the frame kernels (K1/K9/K2) run a W-wide student at: the
+    narrowest of ``R2L_KERNEL_WIDTHS`` that holds it, or None above the
+    widest. The frame packers pad the weights with zero channels, which
+    ReLU keeps at zero and every later layer reads through zero weights,
+    so the padded chain computes the W-wide network."""
+    return next((k for k in R2L_KERNEL_WIDTHS if k >= W), None)
+
+
+def kernel_cfg(cfg: R2LConfig) -> R2LConfig:
+    """``cfg`` at its kernel width (``cfg`` itself above the widest)."""
+    Wk = kernel_width(cfg.netwidth)
+    return (cfg if Wk in (None, cfg.netwidth)
+            else dataclasses.replace(cfg, netwidth=Wk))
+
+
+def pads(pad: bool | None, weight: torch.Tensor) -> bool:
+    """A packer's ``pad``: None pads for the kernels, where the model's
+    ``weight`` lies on the card; on the CPU the plain versions take the
+    student's own width."""
+    return weight.device.type == "cuda" if pad is None else pad
+
+
 def fused_kernel_supported(cfg: R2LConfig) -> bool:
     """The kernels hardcode the canonical activations (ReLU head and
     in-block, no block out-activation, ResMLP body)."""
@@ -145,12 +184,46 @@ def fused_kernel_supported(cfg: R2LConfig) -> bool:
             and cfg.outact == "none" and cfg.body_arch == "resmlp")
 
 
-def _assert_fused_supported(cfg: R2LConfig) -> None:
-    if not fused_kernel_supported(cfg):
+def fused_frame_supported(cfg: R2LConfig, int8: bool = False,
+                          L: int = 10) -> bool:
+    """Whether the student's frame kernels (K1/K9, or K2 with ``int8``)
+    take ``cfg`` with an ``L``-frequency encoding: the canonical activations
+    and body (``fused_kernel_supported``), a ``kernel_width``, at least one
+    layer per block and one frequency (csrc/r2l_hopper.cuh ``launch``,
+    csrc/r2l_pe_fused.cu), and for int8 one scalar's 2L+1 encoding parts
+    within a head slice of twice the kernel width
+    (csrc/r2l_int8_hopper.cu)."""
+    Wk = kernel_width(cfg.netwidth)
+    return (fused_kernel_supported(cfg) and Wk is not None
+            and cfg.n_learnable >= 1 and L >= 1
+            and (not int8 or 2 * L + 1 <= 2 * Wk))
+
+
+def frame_shapes_text(int8: bool = False) -> str:
+    """The shapes ``fused_frame_supported`` admits, for messages."""
+    return (f"netwidth up to {R2L_KERNEL_WIDTHS[-1]} (run at "
+            f"{', '.join(map(str, R2L_KERNEL_WIDTHS))} with zero channels), "
+            f"{_CANONICAL} of one or more layers per block"
+            + (" and 2L+1 <= 2 * that width" if int8 else ""))
+
+
+def _refuse(ok: bool, kernel: str, shapes: str, cfg: R2LConfig,
+            L: int | None = None) -> None:
+    """Raise NotImplementedError, before anything of ``kernel`` is packed
+    or launched, where its predicate ``ok`` refuses ``cfg``; ``shapes``
+    says what it takes."""
+    if not ok:
         raise NotImplementedError(
-            f"fused kernel supports act/inact='relu', outact='none', "
-            f"body_arch='resmlp'; got act={cfg.act!r} inact={cfg.inact!r} "
-            f"outact={cfg.outact!r} body_arch={cfg.body_arch!r}")
+            f"{kernel} takes {shapes}; got netwidth {cfg.netwidth}, "
+            f"act={cfg.act!r} inact={cfg.inact!r} outact={cfg.outact!r} "
+            f"body_arch={cfg.body_arch!r} n_learnable={cfg.n_learnable}"
+            + (f", L={L}" if L is not None else ""))
+
+
+def _refuse_frame(cfg: R2LConfig, kernel: str, int8: bool = False,
+                  L: int = 10) -> None:
+    _refuse(fused_frame_supported(cfg, int8, L), kernel,
+            frame_shapes_text(int8), cfg, L)
 
 
 def _pe_sin_cos_ladder(p: torch.Tensor, L: int
@@ -197,26 +270,41 @@ def _pack(w_in_out: torch.Tensor, dtype: torch.dtype,
     return w.contiguous()
 
 
-def _stacked_weights(model: R2L) -> tuple[torch.Tensor, ...]:
+def _stacked_weights(model: R2L, width: int | None = None
+                     ) -> tuple[torch.Tensor, ...]:
     """(head_w [in, W], head_b, body_w [nb*nl, W, W], body_b,
-    tail_w [W, out], tail_b), f32, weights [in, out] as in JAX."""
+    tail_w [W, out], tail_b), f32, weights [in, out] as in JAX; with
+    ``width``, every W axis zero-padded to it (``kernel_width``)."""
     head, body, tail = model.linears()
     body_w = torch.stack([m.weight.detach().T for m in body]).float()
     body_b = torch.stack([m.bias.detach() for m in body]).float()
-    return (head.weight.detach().T.float(), head.bias.detach().float(),
-            body_w, body_b, tail.weight.detach().T.float(),
-            tail.bias.detach().float())
+    out = (head.weight.detach().T.float(), head.bias.detach().float(),
+           body_w, body_b, tail.weight.detach().T.float(),
+           tail.bias.detach().float())
+    pad = (width or body_b.shape[-1]) - body_b.shape[-1]
+    if pad == 0:
+        return out
+    F_ = torch.nn.functional
+    hw, hb, bw, bb, tw, tb = out
+    return (F_.pad(hw, (0, pad)), F_.pad(hb, (0, pad)),
+            F_.pad(bw, (0, pad, 0, pad)), F_.pad(bb, (0, pad)),
+            F_.pad(tw, (0, 0, 0, pad)), tb)
 
 
 @torch.no_grad()
 def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
-             head_perm: torch.Tensor | None, stage: bool) -> FusedParams:
+             head_perm: torch.Tensor | None, stage: bool,
+             pad: bool | None) -> FusedParams:
     """The packing: weights [out, in] in ``weight_dtype``, the head's input
     columns (taken in the order ``head_perm`` when given) zero-padded to
     ``K_ALIGN``, a no-op on the product: the kernels pad their input with
-    zeros; with ``stage``, K1/K9's weight image beside them."""
-    _assert_fused_supported(cfg)
-    hw, hb, bw, bb, tw, tb = _stacked_weights(model)
+    zeros; with ``pad`` (``pads``), the width zero-padded to
+    ``kernel_width``; with ``stage``, K1/K9's weight image beside them."""
+    _refuse(fused_kernel_supported(cfg), "the fused kernels' packing",
+            _CANONICAL, cfg)
+    pad = pads(pad, model.linears()[0].weight)
+    hw, hb, bw, bb, tw, tb = _stacked_weights(
+        model, kernel_cfg(cfg).netwidth if pad else None)
     if head_perm is not None:
         hw = hw[head_perm]
     wd = weight_dtype
@@ -230,26 +318,30 @@ def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
 
 
 def prepare_fused_params(model: R2L, cfg: R2LConfig,
-                         weight_dtype: torch.dtype = torch.bfloat16
-                         ) -> FusedParams:
+                         weight_dtype: torch.dtype = torch.bfloat16,
+                         pad: bool | None = None) -> FusedParams:
     """Pack the model for ``fused_r2l_apply`` (head rows in
-    ``r2l_embed``'s per-scalar order), staged for K9."""
-    return _prepare(model, cfg, weight_dtype, None, stage=True)
+    ``r2l_embed``'s per-scalar order), staged for K9; with ``pad``
+    (``pads``: on the card by default) at its ``kernel_width``."""
+    return _prepare(model, cfg, weight_dtype, None, stage=True, pad=pad)
 
 
 def prepare_fused_params_pe(model: R2L, cfg: R2LConfig, dim_pts: int,
                             L: int = 10,
                             weight_dtype: torch.dtype = torch.bfloat16,
-                            stage: bool = True) -> FusedParams:
+                            stage: bool = True,
+                            pad: bool | None = None) -> FusedParams:
     """Pack the model for the PE-fused kernels (freq-major head rows),
     staged for K1 and K3 unless ``stage=False`` (the plain versions read
-    the fields alone)."""
+    the fields alone); with ``pad`` (``pads``: on the card by default) at
+    its ``kernel_width`` (the training step passes False: its gradients
+    are the model's own shapes)."""
     if cfg.input_dim != dim_pts * (2 * L + 1):
         raise ValueError(f"input_dim {cfg.input_dim} != dim_pts*(2L+1) = "
                          f"{dim_pts * (2 * L + 1)}")
     perm = _pe_row_permutation_on(model.linears()[0].weight.device, dim_pts,
                                   L)
-    return _prepare(model, cfg, weight_dtype, perm, stage)
+    return _prepare(model, cfg, weight_dtype, perm, stage, pad)
 
 
 def chain_stage_plan(cfg: R2LConfig, dtype: torch.dtype) -> dict:
@@ -440,8 +532,8 @@ def fused_r2l_apply_pe(fp: FusedParams, cfg: R2LConfig,
     version."""
     if pts.device.type == "cpu":
         return fused_r2l_apply_pe_ref(fp, cfg, pts, dim_pts, L)
-    _assert_fused_supported(cfg)
-    dev = pts.device
+    _refuse_frame(cfg, "K1 (fused_r2l_apply_pe)", L=L)
+    cfg, dev = kernel_cfg(cfg), pts.device
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     wd = _check_chain_params(fp, cfg, dim_pts * (2 * L + 1), dev)
     return _launch_chain(fused_r2l_apply_pe, "r2l_pe_fused", fp, cfg, pts,
@@ -480,7 +572,8 @@ def fused_r2l_apply(fp: FusedParams, cfg: R2LConfig,
     plain version."""
     if x.device.type == "cpu":
         return fused_r2l_apply_ref(fp, cfg, x)
-    _assert_fused_supported(cfg)
+    _refuse_frame(cfg, "K9 (fused_r2l_apply)")
+    cfg = kernel_cfg(cfg)
     dev, n, in_dim = x.device, x.shape[0], cfg.input_dim
     if not x.is_floating_point():
         raise TypeError(f"x must be a float tensor, got {x.dtype}")
@@ -522,7 +615,8 @@ def _act_scale(x: torch.Tensor, margin: float) -> torch.Tensor:
 def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
                           calib_pts: torch.Tensor, margin: float = 1.1,
                           fold_requant: bool = True,
-                          stage: bool = True) -> FusedParamsInt8PE:
+                          stage: bool = True,
+                          pad: bool | None = None) -> FusedParamsInt8PE:
     """Calibrate per-(layer, channel) activation ranges on sample points and
     pack the int8 kernel parameters (a plain function, not a kernel).
 
@@ -533,16 +627,22 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     bias, so the kernel's inner requantize is round+clip only. With
     ``stage``, K2's s8 image is staged beside the fields (the int8 training
     kinds pass ``stage=False`` and stage K4/K8's own, ``stage_int8_train``).
-    TF32 is switched off for the duration: it would move every scale.
+    ``pad`` packs at the ``kernel_width`` (a zero channel's scales are the
+    floor's, its codes 0), as ``prepare_fused_params_pe``. TF32 is switched
+    off for the duration: it would move every scale.
     """
-    _assert_fused_supported(cfg)
+    _refuse(fused_kernel_supported(cfg), "the fused kernels' packing",
+            _CANONICAL, cfg)
+    if pads(pad, model.linears()[0].weight):
+        cfg = kernel_cfg(cfg)
+    width = cfg.netwidth
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         fp = _calibrate(model, cfg, dim_pts, L, calib_pts, margin,
-                        fold_requant)
+                        fold_requant, width)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
@@ -699,10 +799,12 @@ def int8_chain_l2_bytes(cfg: R2LConfig, dim_pts: int, L: int,
 
 def _calibrate(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
                calib_pts: torch.Tensor, margin: float,
-               fold_requant: bool) -> FusedParamsInt8PE:
+               fold_requant: bool, width: int | None = None
+               ) -> FusedParamsInt8PE:
     nb, nl = cfg.num_blocks, cfg.n_learnable
     rs = float(cfg.res_scale)
-    head_w, head_b, body_w, body_b, tail_w, tail_b = _stacked_weights(model)
+    head_w, head_b, body_w, body_b, tail_w, tail_b = _stacked_weights(
+        model, width)
     head_w = head_w[_pe_row_permutation_on(head_w.device, dim_pts, L)]
 
     p = calib_pts.float()
@@ -885,7 +987,8 @@ def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
     (``fused_r2l_apply_int8_pe`` by default)."""
     wrapper = wrapper or fused_r2l_apply_int8_pe
     from . import _build
-    _assert_fused_supported(cfg)
+    _refuse_frame(cfg, "K2 (fused_r2l_apply_int8_pe)", int8=True, L=L)
+    cfg = kernel_cfg(cfg)
     dev, n, W = pts.device, pts.shape[0], cfg.netwidth
     _check(pts, "pts", torch.float32, (n, dim_pts), dev)
     _check_int8_params(fp, cfg, dim_pts, L, dev)

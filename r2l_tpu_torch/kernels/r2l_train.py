@@ -25,12 +25,14 @@ Counterpart of ``r2l_tpu/kernels/r2l_train_pallas.py``. Three kernels:
 
 Each public wrapper runs its plain PyTorch version (``*_ref``, the Pallas
 kernel body written out) for tensors on the CPU only. For a CUDA tensor it
-launches the kernel or raises. ``make_fused_train_apply`` wraps them in a
-``torch.autograd.Function``: the forward is K3 (or K4 after a calibration),
-the backward walks the body top-down through K5 in groups of
-``group_blocks`` blocks, and the head, tail and positional-encoding edges
-are plain torch, as the JAX package leaves them to XLA. Gradients land in
-the ``R2L`` module's parameters (``nn.Linear``'s ``[out, in]`` layout).
+launches the kernel or raises; a shape the kernels do not take
+(``fused_train_supported``) raises NotImplementedError before any launch.
+``make_fused_train_apply`` wraps them in a ``torch.autograd.Function``:
+the forward is K3 (or K4 after a calibration), the backward walks the body
+top-down through K5 in groups of ``group_blocks`` blocks, and the head,
+tail and positional-encoding edges are plain torch, as the JAX package
+leaves them to XLA. Gradients land in the ``R2L`` module's parameters
+(``nn.Linear``'s ``[out, in]`` layout).
 
 The TPU's 128-lane padding, ray ``tile`` and stash DMA ring are not
 ported.
@@ -48,17 +50,39 @@ from .r2l_fused import (CHAIN_STAGE_K, INT8_BLOCK_RAYS, FusedParams,
                         _dequant, _mm_f32,
                         _mm_int, _padded_in, _pe_row_permutation_on,
                         _pe_sin_cos_ladder, _ptr, _q8, _raise_on_error,
+                        _CANONICAL, R2L_KERNEL_WIDTHS, _refuse,
                         calibrate_r2l_int8_pe, chain_stage_plan,
                         fused_kernel_supported, int8_train_stage_plan,
                         prepare_fused_params_pe, stage_int8_train)
 from .staging import stage_matrices, unstage_matrices
 
 
-def _assert_train_supported(cfg: R2LConfig) -> None:
-    if not (fused_kernel_supported(cfg) and cfg.n_learnable == 2):
-        raise NotImplementedError(
-            "the fused training kernels take the canonical two-layer "
-            "resmlp body with ReLU activations and no block out-activation")
+def fused_train_supported(cfg: R2LConfig, int8: bool = False,
+                          L: int = 10) -> bool:
+    """Whether the training kernels (K3, K4/K8 with ``int8``, K5) take
+    ``cfg``: the canonical activations and body (``fused_kernel_supported``)
+    with two layers per block, a width of ``R2L_KERNEL_WIDTHS`` itself (the
+    step's gradients are the model's, so nothing is padded; K5's launch
+    switch in csrc/r2l_bwd_group.cu has K1's and K2's widths), one
+    frequency or more, and for int8 2L+1 <= 2W (K2's head slice)."""
+    W = cfg.netwidth
+    return (fused_kernel_supported(cfg) and W in R2L_KERNEL_WIDTHS
+            and cfg.n_learnable == 2 and L >= 1
+            and (not int8 or 2 * L + 1 <= 2 * W))
+
+
+def train_shapes_text() -> str:
+    """The shapes ``fused_train_supported`` admits, for messages."""
+    return (f"netwidth {', '.join(map(str, R2L_KERNEL_WIDTHS))}, "
+            f"{_CANONICAL} of two layers per block")
+
+
+def check_train_supported(cfg: R2LConfig, kernel: str, int8: bool = False,
+                          L: int = 10) -> None:
+    """Raise NotImplementedError, before anything of ``kernel`` is packed
+    or launched on the card, where ``fused_train_supported`` refuses."""
+    _refuse(fused_train_supported(cfg, int8, L), kernel, train_shapes_text(),
+            cfg, L)
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
@@ -114,7 +138,7 @@ def train_fwd(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
     if pts.device.type == "cpu":
         return train_fwd_ref(fp, cfg, pts, dim_pts, L)
     from . import _build
-    _assert_train_supported(cfg)
+    check_train_supported(cfg, "K3 (train_fwd)", L=L)
     dev, W, wd = pts.device, cfg.netwidth, fp.head_w.dtype
     nb, n = cfg.num_blocks, pts.shape[0]
     in_dim, out_dim = dim_pts * (2 * L + 1), fp.tail_w.shape[0]
@@ -221,7 +245,7 @@ def train_fwd_int8(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
     if pts.device.type == "cpu":
         return train_fwd_int8_ref(fp, cfg, pts, dim_pts, L, stash_q)
     from . import _build
-    _assert_train_supported(cfg)
+    check_train_supported(cfg, "K4/K8 (train_fwd_int8)", int8=True, L=L)
     dev, W = pts.device, cfg.netwidth
     nb, n = cfg.num_blocks, pts.shape[0]
     in_dim, out_dim = dim_pts * (2 * L + 1), fp.tail_q.shape[0]
@@ -389,6 +413,7 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
         return bwd_group_ref(body_w, stash, dh, cfg, b_start, b_count,
                              body_scale)
     from . import _build
+    check_train_supported(cfg, "K5 (bwd_group)")
     dev, W, nb, n = dh.device, cfg.netwidth, cfg.num_blocks, dh.shape[0]
     cd = body_w.dtype
     if cd not in (torch.bfloat16, torch.float32):
@@ -479,7 +504,7 @@ def _run_fwd(spec: _Spec, model: R2L, fp, pts: torch.Tensor):
         return rgb, stash, body_w, scales
     # K3's image of the live weights, once per step
     fp = prepare_fused_params_pe(model, cfg, spec.dim_pts, spec.L,
-                                 weight_dtype=spec.cd)
+                                 weight_dtype=spec.cd, pad=False)
     rgb, stash = train_fwd(fp, cfg, pts, spec.dim_pts, spec.L)
     return rgb, stash, fp.body_w, None
 
@@ -585,7 +610,9 @@ def make_fused_train_apply(cfg: R2LConfig, dim_pts: int, L: int = 10,
     recalibrate. Each calibration stages the kind's image for K4/K8
     (``stage_int8_train``); the bf16/f32 kind stages K3's every step.
     """
-    _assert_train_supported(cfg)
+    _refuse(fused_kernel_supported(cfg) and cfg.n_learnable == 2,
+            "the fused training step", f"{_CANONICAL} of two layers per "
+            "block (on the CPU at any width)", cfg)
     int8 = quantize == "int8"
     if int8 and calib_pts is None:
         raise ValueError("int8 training needs calib_pts")
@@ -596,7 +623,8 @@ def make_fused_train_apply(cfg: R2LConfig, dim_pts: int, L: int = 10,
 
     def calibrate(model: R2L) -> FusedParamsInt8PE:
         fp = calibrate_r2l_int8_pe(model, cfg, dim_pts, L, calib_pts,
-                                   fold_requant=False, stage=False)
+                                   fold_requant=False, stage=False,
+                                   pad=False)
         return stage_int8_train(fp, cfg, dim_pts, L, spec.stash_q)
 
     def apply_fp(model: R2L, pts: torch.Tensor, fp) -> torch.Tensor:

@@ -65,7 +65,8 @@ import torch
 from .encoding import r2l_embed
 from .hardmine import (HardDraws, HardPool, draw_hard, init_pool,
                        sample_hard, update_pool)
-from .kernels.r2l_train import make_fused_train_apply
+from .kernels.r2l_fused import fused_kernel_supported
+from .kernels.r2l_train import check_train_supported, make_fused_train_apply
 from .models.nerf import NeRF, NeRFConfig
 from .models.r2l import R2L, R2LConfig
 from .parallel.mesh import (Mesh, all_reduce_, apply_r2l_tp, gather_rows,
@@ -394,9 +395,12 @@ def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
     ``device`` (seeded with 0 at the first call).
 
     ``fused_vjp``: the fused kernels (single device, canonical resmlp body,
-    sampled points). ``fused_quantize='int8'`` runs the forward in int8
-    (needs ``fused_calib_pts``), stashing int8 q-values, or with
-    ``fused_stash_q=False`` bf16 dequantized activations;
+    sampled points; on the card the shapes of
+    ``kernels.r2l_train.fused_train_supported``, else NotImplementedError
+    here, before anything is packed; the CPU runs the kernels' plain
+    versions at any width). ``fused_quantize='int8'`` runs
+    the forward in int8 (needs ``fused_calib_pts``), stashing int8
+    q-values, or with ``fused_stash_q=False`` bf16 dequantized activations;
     ``fused_calib_every=N > 1`` with k > 1 recalibrates at the call's entry
     and then when ``step % N == 0``. ``mesh``: data (and model) parallel
     over the mesh's processes (the module docstring); not with
@@ -411,6 +415,9 @@ def make_distill_step(cfg: R2LConfig, dcfg: DistillConfig,
         if dcfg.plucker:
             raise ValueError("fused_vjp takes sampled points, not Plücker "
                              "rays")
+        if device.type != "cpu":
+            check_train_supported(cfg, "the fused step (fused_vjp)",
+                                  fused_quantize == "int8", dcfg.embed_L)
         dim_pts = cfg.input_dim // (2 * dcfg.embed_L + 1)
         external = bool(fused_calib_every > 1 and fused_quantize == "int8"
                         and scan_steps > 1)
@@ -729,19 +736,29 @@ def make_teacher_step_batched(ncfg: NeRFConfig, vcfg: VolRenderConfig,
 def fused_vjp_gate(fused_train_vjp: bool, cfg: R2LConfig, plucker_: bool,
                    n_devices: int = 1, log=None, mesh: Mesh | None = None
                    ) -> bool:
-    """Whether ``--fused_train_vjp`` takes the fused step: a single device
-    and no mesh (JAX's ``mesh is None``, so a mesh of one process too),
-    sampled points (not Plücker), netwidth % 128 == 0 and the canonical
-    two-layer resmlp body; otherwise the plain step, with a warning."""
+    """Whether ``--fused_train_vjp`` takes the fused step: JAX's rule (a
+    single device and no mesh, so a mesh of one process too, sampled points
+    rather than Plücker rays, netwidth % 128 == 0 and the canonical
+    two-layer resmlp body), else the plain step with JAX's warning; and the
+    ReLU activations the training kernels hardcode, which JAX's gate does
+    not ask (its kernels assert them), else the plain step with a warning
+    of its own. A width JAX's rule admits and the kernels do not take
+    raises in ``make_distill_step`` on the card."""
+    log = log or (lambda s: print(s, file=sys.stderr))
     ok = bool(fused_train_vjp and n_devices == 1 and mesh is None
               and not plucker_
               and cfg.netwidth % 128 == 0 and cfg.n_learnable == 2
               and cfg.body_arch == "resmlp")
     if fused_train_vjp and not ok:
-        (log or (lambda s: print(s, file=sys.stderr)))(
-            "WARNING: --fused_train_vjp requires a single device, "
+        log("WARNING: --fused_train_vjp requires a single device, "
             "non-Plücker rays, netwidth % 128 == 0 and the canonical "
             "2-layer resmlp body — using the XLA step.")
+    elif ok and not fused_kernel_supported(cfg):
+        log(f"WARNING: --fused_train_vjp: the training kernels take ReLU "
+            f"head and in-block activations and no block out-activation, "
+            f"not act={cfg.act!r} inact={cfg.inact!r} outact="
+            f"{cfg.outact!r} — using the XLA step.")
+        return False
     return ok
 
 

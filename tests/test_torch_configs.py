@@ -3,6 +3,7 @@
 import dataclasses
 import glob
 import os
+import re
 
 import jax.numpy as jnp
 import pytest
@@ -175,3 +176,26 @@ def test_logging_matches_jax(tmp_path):
                                                   "weights"]
         assert open(os.path.join(lg.log_dir, "log.txt")).read().endswith(
             "hello 3\n")
+
+
+# Words that a help string of a flag the port runs must not say: the port
+# runs every flag but ``--platform tpu`` (which exits, as its help says),
+# and exports ONNX alone.
+STALE_HELP = re.compile(r"not ported|raise|StableHLO|SavedModel|TFLite",
+                        re.I)
+
+
+@pytest.mark.parametrize("action", [
+    a for a in TC.build_parser()._actions
+    if a.help and a.option_strings and a.option_strings != ["--platform"]],
+    ids=lambda a: a.option_strings[0])
+def test_help_describes_what_the_port_runs(action):
+    assert not STALE_HELP.search(action.help), action.help
+
+
+def test_module_docstring_says_the_multi_device_flags_run():
+    doc = " ".join(TC.__doc__.split())
+    assert "torch.distributed" in doc
+    for flag in ("--mesh", "--multihost", "--num_cpu_devices"):
+        assert flag in doc
+    assert not STALE_HELP.search(doc), doc

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from r2l_tpu_torch import evaluate as TE
+from r2l_tpu_torch import train as TR
 from r2l_tpu_torch.encoding import r2l_embed
 from r2l_tpu_torch.evaluate import _calibration_points
 from r2l_tpu_torch.kernels import nerf_render as NR
@@ -34,12 +36,14 @@ TOL_F32, TOL_BF16 = 1e-4, 3e-2
 TOL_INT8_MAX, TOL_INT8_RMS = 2.5e-2, 2.5e-3
 
 # (netwidth, n_learnable, n_sample (dim_pts/3), L, other knobs): the
-# canonical layout, then the other widths and depths the kernels take.
+# canonical layout, then the other widths and depths the kernels take, and a
+# width they take padded (W96 packed at 128 with zero channels).
 CASES = {
     "w256_canonical": (256, 2, 16, 10, {}),
     "w128_nl3_dim6": (128, 3, 2, 10, {"res_scale": 0.5}),
     "w64_nl1_linear": (64, 1, 16, 4, {"use_residual": False,
                                       "linear_tail": True}),
+    "w96_padded": (96, 2, 16, 10, {}),
 }
 
 
@@ -254,8 +258,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         F.fused_r2l_apply_pe(fp._replace(head_b=fp.head_b.cpu()), cfg, pts,
                              dp, L)
     wide = dataclasses.replace(cfg, netwidth=96)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):   # a packing of another width
         F.fused_r2l_apply_pe(fp, wide, pts, dp, L)
+    wider = dataclasses.replace(cfg, netwidth=512)
+    with pytest.raises(NotImplementedError):   # a width K1 does not take
+        F.fused_r2l_apply_pe(fp, wider, pts, dp, L)
 
 
 # K1/K9 on the Hopper chain (csrc/r2l_hopper.cuh): 128-ray blocks in 2-block
@@ -631,6 +638,7 @@ NERF_CASES = {
     "canonical": (8, 256, (4,), 10, 4, True),
     "w128_noview": (4, 128, (1,), 6, 3, False),
     "w128_skip0": (3, 128, (0,), 6, 3, True),
+    "w64_padded": (4, 64, (2,), 6, 3, True),   # packed at 128
 }
 # K6 f32: the same f32 chain, sums in another order (depth sums w*z over
 # up to 6). K6 bf16: a flipped bf16 rounding propagates, as K1 bf16. K7: as
@@ -730,9 +738,9 @@ def test_nerf_render_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         NR.fused_nerf_render(fp._replace(pts_b=fp.pts_b.cpu()), cfg, o, d,
                              z, **kw)
-    narrow = dataclasses.replace(cfg, W=64)
-    with pytest.raises(ValueError):
-        NR.fused_nerf_render(fp, narrow, o, d, z, **kw)
+    wide = dataclasses.replace(cfg, W=512)
+    with pytest.raises(NotImplementedError):   # a width K6 does not take
+        NR.fused_nerf_render(fp, wide, o, d, z, **kw)
     with pytest.raises(ValueError):   # no staged image, or a stale one
         NR.fused_nerf_render(fp._replace(staged=None), cfg, o, d, z, **kw)
     with pytest.raises(ValueError):
@@ -1518,3 +1526,200 @@ def test_world1_sharded_distill_step_equals_unsharded(dev, tmp_path):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+# Shapes off the kernels' native widths. A narrower student or teacher runs
+# on the kernels padded (the cases above); a W512 student, an lrelu one and a
+# W512 teacher make each wrapper raise NotImplementedError before any launch;
+# the gates send a model that the JAX package renders plain to the plain
+# path, and raise where the JAX package runs a kernel that the port's do not
+# take, which the kernels' launch counters show untouched.
+
+def _counters():
+    return (F.fused_r2l_apply_pe.launches, F.fused_r2l_apply.launches,
+            F.fused_r2l_apply_int8_pe.launches, T.train_fwd.launches,
+            T.train_fwd_int8.launches, T.train_fwd_int8.launches_bf16,
+            T.bwd_group.launches, NR.fused_nerf_render.launches,
+            NR.fused_nerf_render.launches_int8)
+
+
+def _student(dev, depth=6, **kw):
+    """A student of W512 (or ``kw``) and ``depth``, 16 samples, L=10, its
+    sampler, poses and a pose's points."""
+    cfg = R2LConfig(netdepth=depth, **{"netwidth": 512, **kw})
+    model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+    sampler = PointSampler(H=40, W=25, focal=30.0, n_sample=16, near=2.0,
+                           far=6.0)
+    poses = np.stack([pose_spherical(t, -30.0, 4.0)[:3, :4]
+                      for t in (0.0, 120.0, 240.0)])
+    pts = sampler.sample_test(torch.as_tensor(poses[1], device=dev))
+    return cfg, model, sampler, poses, pts.contiguous()
+
+
+@pytest.mark.parametrize("kw", [{}, {"netwidth": 256, "act": "lrelu"}],
+                         ids=["w512", "lrelu"])
+def test_wrappers_refuse_shapes_before_launching(dev, kw):
+    cfg, model, _, _, pts = _student(dev, **kw)
+    dp, L, nb, n = 48, 10, cfg.num_blocks, pts.shape[0]
+    relu = dataclasses.replace(cfg, act="relu")   # the packers' own check
+    fp = F.prepare_fused_params_pe(model, relu, dp, L, stage=False)
+    fp8 = F.calibrate_r2l_int8_pe(model, relu, dp, L, pts, stage=False)
+    W = cfg.netwidth
+    stash = torch.zeros((2 * nb + 1, n, W), dtype=torch.bfloat16,
+                        device=dev)
+    dh = torch.zeros((n, W), dtype=torch.float32, device=dev)
+    calls = [lambda: F.fused_r2l_apply_pe(fp, cfg, pts, dp, L),
+             lambda: F.fused_r2l_apply(fp, cfg, r2l_embed(pts, L)),
+             lambda: F.fused_r2l_apply_int8_pe(fp8, cfg, pts, dp, L),
+             lambda: T.train_fwd(fp, cfg, pts, dp, L),
+             lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, stash_q=True),
+             lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, stash_q=False),
+             lambda: T.bwd_group(fp.body_w, stash, dh, cfg, 0, 1)]
+    before = _counters()
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="64, 128, 256"):
+            call()
+    torch.cuda.synchronize()
+    assert _counters() == before
+
+
+def test_teacher_wrapper_refuses_w512_before_launching(dev):
+    cfg, model, o, d, z, Lp, Lv, _ = _nerf_case("w128_noview", dev, "bf16")
+    fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv)
+    before = _counters()
+    with pytest.raises(NotImplementedError, match="W up to 256"):
+        NR.fused_nerf_render(fp, dataclasses.replace(cfg, W=512), o, d, z,
+                             L_pts=Lp, L_views=Lv)
+    assert _counters() == before
+
+
+@pytest.mark.parametrize("case", ["w96", "w512_d88", "lrelu"])
+@pytest.mark.parametrize("quantize", ["", "int8"])
+def test_student_frames_off_the_native_widths(dev, case, quantize):
+    """``use_pallas`` (and int8): a bf16 W96 student runs on K1/K2 at 128
+    (one launch a frame; on the frame's points within K1 bf16's and K2's
+    bounds of the kernel's plain version on the same packing); W512/D88
+    and lrelu, which the JAX package renders plain, render plain (kind
+    ``jnp``, the ``use_pallas=False`` frame bit for bit, no launch)."""
+    kw = {"w96": dict(netwidth=96, compute_dtype=torch.bfloat16),
+          "w512_d88": dict(depth=88),
+          "lrelu": dict(netwidth=256, act="lrelu", inact="lrelu")}[case]
+    cfg, model, sampler, poses, _ = _student(dev, **kw)
+    before = _counters()
+    fn = TE.make_r2l_frame_fn(model, cfg, sampler, quantize=quantize,
+                              calib_poses=poses)
+    plain = TE.make_r2l_frame_fn(model, cfg, sampler, use_pallas=False)
+    got = fn(poses[0])
+    torch.cuda.synchronize()
+    assert got.shape == (40, 25, 3) and torch.isfinite(got).all()
+    if case == "w96":
+        assert fn.kind == (quantize or "pe")
+        counter = (F.fused_r2l_apply_int8_pe if quantize
+                   else F.fused_r2l_apply_pe)
+        assert counter.launches == before[2 if quantize else 0] + 1
+        prepared, _, dp = TE._prepare_r2l(model, cfg, sampler, 10, False,
+                                          True, quantize, calib_poses=poses)
+        assert prepared.tail_b.shape[0] == 3
+        pts = sampler.sample_test(torch.as_tensor(poses[0], device=dev))
+        if quantize:
+            assert prepared.body_q.shape[-1] == 128
+            mx, rms = _deltas(
+                F.fused_r2l_apply_int8_pe(prepared, cfg, pts, dp, 10),
+                F.fused_r2l_apply_int8_pe_ref(prepared, cfg, pts, dp, 10))
+            assert mx < TOL_INT8_MAX and rms < TOL_INT8_RMS, (mx, rms)
+        else:
+            assert prepared.body_w.shape[-1] == 128
+            mx, _ = _deltas(
+                F.fused_r2l_apply_pe(prepared, cfg, pts, dp, 10),
+                F.fused_r2l_apply_pe_ref(prepared, cfg, pts, dp, 10))
+            assert mx < TOL_BF16, mx
+    else:
+        assert fn.kind == "jnp"
+        assert _counters() == before
+        assert torch.equal(got, plain(poses[0]))
+
+
+@pytest.mark.parametrize("quantize", ["", "int8"])
+def test_wide_student_that_jax_runs_on_its_kernel_raises(dev, quantize):
+    """A W512/D6 student, which the JAX package renders on its kernels:
+    NotImplementedError before anything is packed, no launch."""
+    cfg, model, sampler, poses, _ = _student(dev)
+    before = _counters()
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        TE.make_r2l_frame_fn(model, cfg, sampler, quantize=quantize,
+                             calib_poses=poses)
+    assert _counters() == before
+
+
+@pytest.mark.parametrize("kw", [{}, {"netwidth": 256, "act": "lrelu",
+                                     "inact": "lrelu"}],
+                         ids=["w512", "lrelu"])
+def test_fused_step_off_the_training_kernels(dev, kw):
+    """--fused_train_vjp: W512 passes JAX's gate and the fused step raises
+    NotImplementedError up front; lrelu takes the plain step with the
+    gate's warning, and the fused step raises too; the plain step runs no
+    kernel."""
+    cfg, model, sampler, _, _ = _student(dev, **kw)
+    dcfg = TR.DistillConfig(batch_size=1024)
+    logs = []
+    assert TR.fused_vjp_gate(True, cfg, False, log=logs.append) == (
+        "act" not in kw)
+    assert len(logs) == ("act" in kw)
+    with pytest.raises(NotImplementedError):
+        TR.make_distill_step(cfg, dcfg, sampler, fused_vjp=True, device=dev)
+    before = _counters()
+    state = TR.init_train_state(model, dcfg, device=dev)
+    step = TR.make_distill_step(cfg, dcfg, sampler, device=dev)
+    rng = np.random.default_rng(0)
+    o = rng.normal(size=(1024, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    dirs = -o / 4.0 + 0.3 * rng.uniform(-1.0, 1.0, size=(1024, 3))
+    fresh = np.concatenate([o, dirs / np.linalg.norm(dirs, axis=1,
+                                                     keepdims=True),
+                            rng.uniform(size=(1024, 3))], 1)
+    state, m = step(state, fresh.astype(np.float32),
+                    generator=torch.Generator(dev).manual_seed(0))
+    assert np.isfinite(float(m["loss"]))
+    torch.cuda.synchronize()
+    assert _counters() == before
+
+
+def test_w64_teacher_runs_on_the_kernels(dev):
+    """A W64 teacher: the frame function packs it at 128 and renders it
+    through K6 (kind 'fused', one launch a pass: the coarse and the fine
+    one of a chunk), within chip_smoke.py's bound of the plain frame (f32,
+    PSNR >= 100 dB; the density floor of its teachers, without which a ray
+    whose last sample has no density flips its last alpha at any rounding:
+    4.7e-4 on one value of this frame); datagen's gate takes it; a W512
+    teacher raises before packing."""
+    from r2l_tpu_torch import datagen
+    from r2l_tpu_torch.render import VolRenderConfig
+    cfg = NeRFConfig(D=4, W=64, skips=(2,))
+    mc, mf = (init_nerf(cfg, torch.Generator().manual_seed(s), dev)
+              for s in (0, 1))
+    with torch.no_grad():
+        for m in (mc, mf):
+            m.alpha_linear.bias += 1.0
+    vcfg = VolRenderConfig(n_coarse=16, n_fine=16, white_bkgd=True)
+    sampler = PointSampler(H=40, W=25, focal=30.0, n_sample=16, near=2.0,
+                           far=6.0)
+    pose = pose_spherical(30.0, -30.0, 4.0)[:3, :4]
+    fn = TE.make_nerf_frame_fn(mc, mf, cfg, vcfg, sampler, use_pallas=True,
+                               device=dev)
+    plain = TE.make_nerf_frame_fn(mc, mf, cfg, vcfg, sampler, device=dev)
+    assert fn.kind == "fused" and plain.kind == "plain"
+    before = NR.fused_nerf_render.launches
+    got = fn(pose)
+    torch.cuda.synchronize()
+    chunks = -(-40 * 25 // vcfg.ray_chunk)
+    assert NR.fused_nerf_render.launches == before + 2 * chunks
+    want = plain(pose)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    mse = float((got.double() - want.double()).pow(2).mean())
+    assert mse == 0 or -10.0 * np.log10(mse) >= 100.0, mse
+    gcfg = datagen.DataGenConfig(n_pose=1, H=4, W=4, focal=5.0)
+    assert datagen._fused_refusal(gcfg, vcfg, dev) is None
+    wide = dataclasses.replace(cfg, W=512)
+    with pytest.raises(NotImplementedError, match="W up to 256"):
+        TE.make_nerf_frame_fn(mc, mf, wide, vcfg, sampler, use_pallas=True,
+                              device=dev)
