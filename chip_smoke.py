@@ -12,7 +12,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the fifteen CUDA libraries from ``r2l_tpu_torch/kernels/
+2. Build: compile the sixteen CUDA libraries from ``r2l_tpu_torch/kernels/
    csrc`` into ``build/`` in parallel and print the build time and the
    compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
@@ -260,22 +260,40 @@ Phases, in order; any failure raises and exits non-zero:
    plain versions, the training losses falling) and K2-K8's launches in
    the phase, each > 0.
 
-20. Shapes the kernels refuse (ROADMAP C1), through the entry points a user
-   calls, at full size: a W512/D88 student (16 samples, L=10, bf16) renders a
-   400x400 frame with ``use_pallas`` and with ``--quantize int8``, and takes
-   one ``--fused_train_vjp`` distillation step at 81,920 rays through
-   ``fused_vjp_gate`` (which refuses it: the plain step); an ``lrelu``
-   W256/D88 student a frame and a step; a W64/D8 teacher (coarse and fine,
-   viewdirs, 64 + 128 samples) one ``rand`` datagen pose and one
-   ``make_nerf_frame_fn`` frame. Each runs plain (kind ``jnp``/``plain``,
-   finite, the gates' warnings captured) and launches no kernel; each wrapper
-   called directly at W512 (W64 for K6) raises NotImplementedError with its
-   counter unchanged, and ``make_distill_step(fused_vjp=True)`` at W512
-   raises ValueError. Then the canonical W256/D88 student's frames (pe,
+20. Shapes off the kernels' native widths (ROADMAP C1), through the entry
+   points a user calls, at full size: a W96/D88 student's frames on K1/K2
+   at 128 and a W64/D8 teacher (coarse and fine, viewdirs, 64 + 128
+   samples) on K6/K7 at 128, against their plain versions; a W512/D88
+   student (16 samples, L=10, bf16), which the JAX package renders plain,
+   renders a 400x400 frame with ``use_pallas`` and with ``--quantize
+   int8``, and an ``lrelu`` W256/D88 student a frame and a
+   ``--fused_train_vjp`` step (which ``fused_vjp_gate`` refuses: the
+   plain step): each plain (kind ``jnp``, finite, the gates' warnings
+   captured), launching no kernel. A W512/D6 student's frames, which the
+   JAX package renders on its kernels, run on the frame kernels' wide form
+   (one launch of K1's or K2's a frame); a W512/D88 ``--fused_train_vjp``
+   step, a W512 teacher's frame and datagen pose, and each training and
+   teacher wrapper called directly at W512 raise NotImplementedError with
+   no counter moved. Then the canonical W256/D88 student's frames (pe,
    int8) and fused step and the README's teacher's datagen poses (f32,
    int8) launch K1, K2, K3, K5, K6 and K7 as before. ``[main] refused``
    lines: ms of each plain path (CUDA events), beside the card's name and
    power limit.
+
+21. Wide student frames (ROADMAP C1, frame side), at full size: 400x400
+   lego frames, 16 samples, L=10, seeded weights, for each width the
+   deepest student the JAX package renders on a kernel there: W512/D24
+   bf16, W512/D50 int8, W512/D12 f32, W384/D44 bf16, W1024/D6 bf16,
+   W1024/D12 int8, each through ``make_r2l_frame_fn`` (``--quantize int8``
+   for int8) on the frame kernels' wide form (``csrc/r2l_wide.cu``; one
+   launch of K1's or K2's a frame, none of K1 or K2), then on the frame's
+   points against its plain version on the card: K1 bf16 3e-2, f32 1e-4,
+   K2's three forms bit for bit and within 2.5e-2 / 2.5e-3. At W512/D24
+   the kernel API (``r2l_embed`` + ``fused_r2l_apply``, bf16 and f32
+   weights, K9's wide form, 3e-2 / 1e-4), ``make_r2l_bench_fn`` (int8) and
+   ``make_r2l_givenrays_frame_fn``, each on its wide form. ``[main] wide``
+   lines: ms/frame, kernel and plain ms (CUDA events), the bound and what
+   sets it, max-abs, beside the card's name and power limit.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -4087,18 +4105,22 @@ def phase_exp(dev) -> dict:
 
 # Phase 20: shapes off the kernels' native widths (ROADMAP C1), at full
 # size. A narrower student or teacher runs on the kernels at the next width,
-# its extra channels zero; a wider one, or other activations, renders plain
-# where the JAX package renders it plain, and raises NotImplementedError
-# where the JAX package runs a kernel that the port's kernels do not take.
+# its extra channels zero; a wider student's frame runs on the frame
+# kernels' wide form (phase 21); a wider one, or other activations, renders
+# plain where the JAX package renders it plain, and raises
+# NotImplementedError where the JAX package runs a kernel that the port's
+# kernels do not take (the training and teacher kernels above W256).
 WIDE = 512                 # wider than every kernel width
 PADDED_WIDTH = 96          # a student width the frame kernels take at 128
 PADDED_TEACHER_W = 64      # a teacher width K6/K7 take at 128
 
 
 def refused_counts() -> dict:
-    """Every student and teacher kernel's launch counter (K1-K9)."""
+    """Every student and teacher kernel's launch counter (K1-K9, and the
+    frame kernels' wide forms)."""
     from r2l_tpu_torch.kernels import r2l_fused as F
-    return {**exp_counts(), "K9": F.fused_r2l_apply.launches}
+    return {**exp_counts(), "K9": F.fused_r2l_apply.launches,
+            **wide_counts()}
 
 
 def moved_since(start: dict) -> dict:
@@ -4208,22 +4230,36 @@ def expect_not_implemented(what: str, call) -> str:
     raise AssertionError(f"{what} did not raise")
 
 
-def wide_paths(sampler, poses, dev) -> None:
-    """What the JAX package runs on its kernels and the port's kernels do
-    not take raises before anything is packed: a W512/D6 student's frames,
-    a W512/D88 ``--fused_train_vjp`` step (which JAX's gate admits), a
-    W512 teacher's frame and datagen pose."""
+def wide_paths(sampler, poses, dev) -> dict:
+    """A W512/D6 student's frames, which the JAX package renders on its
+    kernels, run on the frame kernels' wide form (one launch a frame of
+    K1's or K2's, none of K1 or K2); what the JAX package runs on its
+    kernels and the port's kernels do not take raises before anything is
+    packed: a W512/D88 ``--fused_train_vjp`` step (which JAX's gate
+    admits), a W512 teacher's frame and datagen pose. -> the frames'
+    launches."""
     from r2l_tpu_torch.datagen import generate_pseudo_data
     from r2l_tpu_torch.evaluate import make_nerf_frame_fn, make_r2l_frame_fn
     from r2l_tpu_torch.models import NeRFConfig, R2LConfig, init_nerf, init_r2l
     from r2l_tpu_torch.train import fused_vjp_gate, make_distill_step
     cfg = R2LConfig(netdepth=6, netwidth=WIDE, compute_dtype=torch.bfloat16)
     model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
-    for quantize in ("", "int8"):
-        expect_not_implemented(
-            f"W{WIDE}/D6 frame (quantize={quantize!r})",
-            lambda: make_r2l_frame_fn(model, cfg, sampler, embed_L=EMBED_L,
-                                      quantize=quantize, calib_poses=poses))
+    launched = {}
+    for quantize, kernel in (("", "K1w"), ("int8", "K2w")):
+        fn = make_r2l_frame_fn(model, cfg, sampler, embed_L=EMBED_L,
+                               quantize=quantize, calib_poses=poses)
+        c0 = refused_counts()
+        f = fn(poses[0])
+        torch.cuda.synchronize()
+        moved = moved_since(c0)
+        ok = (fn.kind == (quantize or "pe") and moved == {kernel: 1}
+              and f.shape == (H, W, 3) and bool(torch.isfinite(f).all()))
+        print(f"[check] W{WIDE}/D6 frame (quantize={quantize!r}): kind "
+              f"{fn.kind}, launched {moved}, on the wide form"
+              + (" ok" if ok else " FAILED"), flush=True)
+        if not ok:
+            raise AssertionError(f"W{WIDE}/D6 frame: {fn.kind} {moved}")
+        launched[kernel] = 1
     deep = R2LConfig(netwidth=WIDE, compute_dtype=torch.bfloat16)
     if not fused_vjp_gate(True, deep, False):
         raise AssertionError("JAX's gate refused W512/D88")
@@ -4243,6 +4279,7 @@ def wide_paths(sampler, poses, dev) -> None:
             lambda: generate_pseudo_data(mc, mc, tcfg, teacher_vcfg(),
                                          datagen_cfg("f32", 1), tmp,
                                          device=dev))
+    return launched
 
 
 def padded_frames(sampler, poses, dev, res) -> dict:
@@ -4369,9 +4406,9 @@ def padded_teacher(poses, dev, res) -> dict:
 
 
 def refused_wrappers(dev) -> None:
-    """Each wrapper called directly at W512 on CUDA tensors:
-    NotImplementedError, no counter moved."""
-    from r2l_tpu_torch.encoding import r2l_embed
+    """Each training and teacher wrapper called directly at W512 on CUDA
+    tensors: NotImplementedError, no counter moved (the frame wrappers take
+    W512 on their wide form: phase 21)."""
     from r2l_tpu_torch.kernels import nerf_render as NR
     from r2l_tpu_torch.kernels import r2l_fused as F
     from r2l_tpu_torch.kernels import r2l_train as T
@@ -4391,10 +4428,7 @@ def refused_wrappers(dev) -> None:
     tcfg = NeRFConfig(W=WIDE)
     z = torch.linspace(2.0, 6.0, T_SAMPLES, device=dev).expand(n, -1)
     ones = torch.ones((n, 3), device=dev)
-    calls = {"K1": lambda: F.fused_r2l_apply_pe(fp, cfg, pts, dp, L),
-             "K9": lambda: F.fused_r2l_apply(fp, cfg, r2l_embed(pts, L)),
-             "K2": lambda: F.fused_r2l_apply_int8_pe(fp8, cfg, pts, dp, L),
-             "K3": lambda: T.train_fwd(fp, cfg, pts, dp, L),
+    calls = {"K3": lambda: T.train_fwd(fp, cfg, pts, dp, L),
              "K4": lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, True),
              "K8": lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, False),
              "K5": lambda: T.bwd_group(fp.body_w, stash, dh, cfg, 0, 1),
@@ -4465,8 +4499,9 @@ def canonical_paths(sampler, poses, dev) -> dict:
 def phase_refused(smi: str, sampler, poses, dev) -> dict:
     """Phase 20: shapes off the kernels' native widths, at full size: the
     padded ones launch their kernels, the ones both packages render plain
-    launch nothing, the ones only the JAX package's kernels take raise; the
-    canonical paths launch as before."""
+    launch nothing, a W512/D6 student's frames run on the frame kernels'
+    wide form, the training and teacher shapes only the JAX package's
+    kernels take raise; the canonical paths launch as before."""
     from r2l_tpu_torch.models import R2LConfig, init_r2l
     t_phase = time.perf_counter()
     res = {"device": smi}
@@ -4485,14 +4520,228 @@ def phase_refused(smi: str, sampler, poses, dev) -> dict:
         torch.cuda.empty_cache()
     refused_step("lrelu", cfgs["lrelu"], sampler, dev, res)
     torch.cuda.empty_cache()
-    wide_paths(sampler, poses, dev)
+    wide = wide_paths(sampler, poses, dev)
     torch.cuda.empty_cache()
     refused_wrappers(dev)
     res["canonical_launches"] = canonical_paths(sampler, poses, dev)
     res["launches"] = {k: v + padded.get(k, 0)
                        for k, v in res["canonical_launches"].items()}
+    res["launches"].update(wide)
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"[main] phase 20 took {res['phase_s']:.1f} s ({smi})", flush=True)
+    return res
+
+
+# Phase 21: wide student frames (ROADMAP C1, frame side), at full size: for
+# each width the deepest student the JAX package renders on a kernel there
+# (its _pe_kernel_tile_fit at L=10; tests/test_torch_wide.py), seeded
+# weights, through the entry points a user calls, on the frame kernels'
+# wide form (csrc/r2l_wide.cu), each held against its plain version on the
+# card at K1's, K9's and K2's tolerances.
+WIDE_FRAMES = (   # (label, width, depth, compute dtype, kind)
+    ("W512/D24 bf16", 512, 24, torch.bfloat16, "pe"),
+    ("W512/D50 int8", 512, 50, torch.bfloat16, "int8"),
+    ("W512/D12 f32", 512, 12, torch.float32, "pe"),
+    ("W384/D44 bf16", 384, 44, torch.bfloat16, "pe"),
+    ("W1024/D6 bf16", 1024, 6, torch.bfloat16, "pe"),
+    ("W1024/D12 int8", 1024, 12, torch.bfloat16, "int8"),
+)
+WIDE_API = ("W512/D24", 512, 24)   # the kernel API rows (K9's wide form)
+
+
+def wide_counts() -> dict:
+    """The launch counters of the frame kernels' wide forms."""
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    return {"K1w": F.fused_r2l_apply_pe_wide.launches,
+            "K9w": F.fused_r2l_apply_wide.launches,
+            "K2w": F.fused_r2l_apply_int8_pe_wide.launches}
+
+
+def wide_student(width: int, depth: int, dtype, dev):
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    cfg = R2LConfig(netdepth=depth, netwidth=width, compute_dtype=dtype)
+    return cfg, init_r2l(cfg, torch.Generator().manual_seed(
+        SEED + width + depth), dev)
+
+
+def wide_row(smi: str, label: str, kind: str, cfg, fp, pts, dp: int,
+             run, plain, tol: tuple, ops_kind: str, frame_ms=None,
+             launches: int = 0) -> dict:
+    """One ``[main] wide`` row: ``run()`` (the kernel on the frame's points,
+    or for K9 ``pts`` its encoded rays) against ``plain()`` (its plain
+    version) within ``tol``, both timed, and the bound of the work (f32:
+    three TF32 products a multiply-add)."""
+    from r2l_tpu_torch.exp._harness import chain_ops
+    got, want = run(), plain()
+    mx, rms = deltas(got, want)
+    check(f"{label} {kind} wide vs plain", mx, rms, *tol)
+    ops = chain_ops(cfg, pts.shape[0], dp * (2 * EMBED_L + 1))
+    r = {"max_abs_err": mx, "rms_err": rms, "ms": time_ms(run),
+         "plain_ms": time_ms(plain, reps=1),
+         **bound(3 * ops if ops_kind == "tf32" else ops,
+                 nbytes(pts, got, fp.staged), ops_kind),
+         "library_ms": None, "launches": launches}
+    if frame_ms is not None:
+        r["ms_per_frame"] = frame_ms
+    print(f"[main] wide {label} {kind}: "
+          + (f"{frame_ms:.3f} ms/frame, " if frame_ms is not None else "")
+          + f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.3f} ms ({r['bound_by']}, {ops / 1e12:.3f} "
+          f"T{'OP' if ops_kind == 'int8' else 'FLOP'}), max-abs {mx:.3e} "
+          f"({smi})", flush=True)
+    return r
+
+
+def wide_frames(smi: str, sampler, poses, dev) -> dict:
+    """Each WIDE_FRAMES student through ``make_r2l_frame_fn`` (int8 with
+    --quantize int8): its kind, one frame a launch of its wide form and none
+    of K1/K2 (counted from 0 around the frame and its timed calls), then the
+    wide form on the frame's points against its plain version (int8: K2's
+    three forms, each bit for bit and within K2's bounds)."""
+    from r2l_tpu_torch.evaluate import (_calibration_points, _prepare_r2l,
+                                        make_r2l_frame_fn)
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    out = {}
+    for label, width, depth, dtype, kind in WIDE_FRAMES:
+        cfg, model = wide_student(width, depth, dtype, dev)
+        quantize = "int8" if kind == "int8" else ""
+        fn = make_r2l_frame_fn(model, cfg, sampler, embed_L=EMBED_L,
+                               quantize=quantize, calib_poses=poses)
+        c0 = refused_counts()
+        f = fn(poses[0])
+        torch.cuda.synchronize()
+        moved = moved_since(c0)
+        key = "K2w" if kind == "int8" else "K1w"
+        if fn.kind != kind or moved != {key: 1} or f.shape != (H, W, 3) \
+                or not torch.isfinite(f).all():
+            raise AssertionError(f"{label}: kind {fn.kind}, launched "
+                                 f"{moved}")
+        frame_ms = time_ms(lambda: fn(poses[0]), reps=2)
+        torch.cuda.synchronize()
+        launches = moved_since(c0)
+        if launches != {key: 4}:   # the frame, a warm-up and 2 timed
+            raise AssertionError(f"{label}: launched {launches}")
+        prepared, _, dp = _prepare_r2l(model, cfg, sampler, EMBED_L, False,
+                                       True, quantize, calib_poses=poses)
+        pts = sampler.sample_test(torch.as_tensor(poses[0], device=dev))
+        if kind == "pe":
+            f32 = dtype == torch.float32
+            out[label] = wide_row(
+                smi, label, kind, cfg, prepared, pts, dp,
+                lambda: F.fused_r2l_apply_pe(prepared, cfg, pts, dp, EMBED_L),
+                lambda: F.fused_r2l_apply_pe_ref(prepared, cfg, pts, dp,
+                                                 EMBED_L),
+                (TOL_PE_F32 if f32 else TOL_PE_BF16, None),
+                "tf32" if f32 else "bf16", frame_ms, launches=4)
+        else:
+            unfolded = F.calibrate_r2l_int8_pe(
+                model, cfg, dp, EMBED_L,
+                calib_pts=_calibration_points(sampler, poses, dev),
+                fold_requant=False)
+            for form, fold, nob in (("deployed", True, True),
+                                    ("fold", True, False),
+                                    ("unfolded", False, False)):
+                fp = prepared if fold else unfolded
+                args = (fp, cfg, pts, dp, EMBED_L, fold, nob)
+                r = wide_row(
+                    smi, label, f"int8 {form}", cfg, fp, pts, dp,
+                    lambda: F.fused_r2l_apply_int8_pe(*args),
+                    lambda: F.fused_r2l_apply_int8_pe_ref(*args),
+                    (TOL_INT8_MAX, TOL_INT8_RMS), "int8",
+                    frame_ms if form == "deployed" else None,
+                    launches=4 if form == "deployed" else 0)
+                check_equal(f"{label} int8 {form} wide vs plain",
+                            F.fused_r2l_apply_int8_pe(*args),
+                            F.fused_r2l_apply_int8_pe_ref(*args))
+                out[f"{label} {form}"] = r
+            del unfolded
+        del model, prepared, fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_api_and_paths(smi: str, sampler, poses, dev) -> dict:
+    """At W512/D24: the kernel API (``prepare_fused_params`` and
+    ``fused_r2l_apply`` on ``r2l_embed`` of the frame's points) with bf16
+    and f32 weights on K9's wide form, one launch each, within K9's
+    tolerances of the plain version; ``make_r2l_bench_fn`` (int8) and
+    ``make_r2l_givenrays_frame_fn`` on K2's and K1's wide forms."""
+    from r2l_tpu_torch.encoding import r2l_embed
+    from r2l_tpu_torch.evaluate import (make_r2l_bench_fn,
+                                        make_r2l_givenrays_frame_fn)
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    label, width, depth = WIDE_API
+    cfg, model = wide_student(width, depth, torch.bfloat16, dev)
+    pts = sampler.sample_test(torch.as_tensor(poses[0], device=dev))
+    dp = pts.shape[1]
+    out = {}
+    for kind, wd, tol, ops_kind in (("f32", torch.float32, TOL_PE_F32,
+                                     "tf32"),
+                                    ("bf16", torch.bfloat16, TOL_PE_BF16,
+                                     "bf16")):
+        fp = F.prepare_fused_params(model, cfg, weight_dtype=wd)
+        c0 = refused_counts()
+        x = r2l_embed(pts, EMBED_L)
+        F.fused_r2l_apply(fp, cfg, x)
+        torch.cuda.synchronize()
+        if moved_since(c0) != {"K9w": 1}:
+            raise AssertionError(f"K9 {kind} at {label}: launched "
+                                 f"{moved_since(c0)}")
+        out[f"api_{kind}"] = wide_row(   # x: the encoded rays read
+            smi, label, f"K9 {kind}", cfg, fp, x, dp,
+            lambda: F.fused_r2l_apply(fp, cfg, x),
+            lambda: F.fused_r2l_apply_ref(fp, cfg, x), (tol, None),
+            ops_kind, launches=1)
+        del fp, x
+    c0 = refused_counts()
+    bench = make_r2l_bench_fn(model, cfg, sampler, embed_L=EMBED_L,
+                              quantize="int8", calib_poses=poses)
+    total = float(bench(poses[:2]))
+    torch.cuda.synchronize()
+    moved = moved_since(c0)
+    ok = bench.kind == "int8" and moved == {"K2w": 2} and np.isfinite(total)
+    print(f"[check] {label} make_r2l_bench_fn int8: kind {bench.kind}, "
+          f"checksum {total:.6g}, launched {moved}"
+          + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"{label} bench: {bench.kind} {moved}")
+    out["bench_launches"] = moved
+    c0 = refused_counts()
+    given = make_r2l_givenrays_frame_fn(model, cfg, sampler, H, W,
+                                        embed_L=EMBED_L)
+    ro, rd = sampler.frame_rays(torch.as_tensor(poses[0], dtype=torch.float32,
+                                                device=dev))
+    f = given(ro, rd)
+    torch.cuda.synchronize()
+    moved = moved_since(c0)
+    ok = (given.kind == "pe" and moved == {"K1w": 1}
+          and f.shape == (H, W, 3) and bool(torch.isfinite(f).all()))
+    print(f"[check] {label} make_r2l_givenrays_frame_fn: kind {given.kind},"
+          f" launched {moved}" + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"{label} given rays: {given.kind} {moved}")
+    out["givenrays_launches"] = moved
+    return out
+
+
+def phase_wide(smi: str, sampler, poses, dev) -> dict:
+    """Phase 21: wide student frames at full size (WIDE_FRAMES, WIDE_API);
+    the wide forms' launches on the phase's entry points."""
+    t_phase = time.perf_counter()
+    res = {"device": smi, "frames": wide_frames(smi, sampler, poses, dev)}
+    res.update(wide_api_and_paths(smi, sampler, poses, dev))
+    fr = res["frames"]
+    res["launches"] = {
+        "K1w_bf16": sum(r["launches"] for k, r in fr.items()
+                        if "bf16" in k) + res["givenrays_launches"]["K1w"],
+        "K1w_f32": fr["W512/D12 f32"]["launches"],
+        "K2w": sum(r["launches"] for k, r in fr.items() if "int8" in k)
+        + res["bench_launches"]["K2w"],
+        "K9w_bf16": res["api_bf16"]["launches"],
+        "K9w_f32": res["api_f32"]["launches"]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[main] phase 21 took {res['phase_s']:.1f} s, wide launches "
+          f"{res['launches']} ({smi})", flush=True)
     return res
 
 
@@ -4575,6 +4824,8 @@ def main() -> int:
     exp = phase_exp(dev)
     torch.cuda.empty_cache()
     refused = phase_refused(smi, sampler, poses, dev)
+    torch.cuda.empty_cache()
+    wide = phase_wide(smi, sampler, poses, dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -4597,7 +4848,8 @@ def main() -> int:
         "givenrays": given, "nerf_bench": nbench,
         "bench_cuda": bench_line, "checkpoints": ck,
         "cli": {k: v for k, v in cli.items()},
-        "llff_mesh": llff, "exp_drivers": exp, "refused_shapes": refused}}))
+        "llff_mesh": llff, "exp_drivers": exp, "refused_shapes": refused,
+        "wide_frames": wide}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4609,6 +4861,7 @@ def main() -> int:
 
     tr = "r2l_tpu/kernels/r2l_train_pallas.py"
     p20 = refused["launches"]
+    wl, wf = wide["launches"], wide["frames"]
     print(json.dumps({"kernels": [
         entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
               "r2l_tpu/kernels/r2l_pallas.py:164",
@@ -4677,6 +4930,18 @@ def main() -> int:
               ("probe_epi", "r2l_int8_hopper.cu", "exp/probe_epi.py:112"))),
         entry("bwd_group_qdx", "r2l_bwd_qdx.cu", "exp/probe_bwd_qdx.py:70",
               qdx["launches"], qdx),
+        entry("fused_r2l_apply_pe_wide", "r2l_wide.cu",
+              "r2l_tpu/kernels/r2l_pallas.py:164",
+              wl["K1w_bf16"] + p20["K1w"], wf["W512/D24 bf16"]),
+        entry("fused_r2l_apply_pe_wide_f32", "r2l_wide.cu",
+              "r2l_tpu/kernels/r2l_pallas.py:164", wl["K1w_f32"],
+              wf["W512/D12 f32"]),
+        entry("fused_r2l_apply_int8_pe_wide", "r2l_wide.cu",
+              "r2l_tpu/kernels/r2l_pallas.py:571", wl["K2w"] + p20["K2w"],
+              wf["W512/D50 int8 deployed"]),
+        *(entry(f"fused_r2l_apply_wide_{kind}", "r2l_wide.cu",
+                "r2l_tpu/kernels/r2l_pallas.py:270", wl[f"K9w_{kind}"],
+                wide[f"api_{kind}"]) for kind in ("bf16", "f32")),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

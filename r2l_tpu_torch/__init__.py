@@ -12,7 +12,9 @@ H100 (``kernels/csrc/*.cu``) where the JAX package has a Pallas kernel:
    -> RGB frame (``evaluate.make_r2l_frame_fn``), through a PE-fused
    bf16/f32 forward (K1) and a static-scale int8 forward (K2); the same
    chain on an input encoded outside is the exported kernel API
-   (``kernels.fused_r2l_apply``, K9).
+   (``kernels.fused_r2l_apply``, K9). A student wider than those kernels'
+   256 channels runs on their wide form (``kernels/csrc/r2l_wide.cu``: one
+   pass a layer), at any width the JAX package renders on its kernels.
 2. R2L distillation training, rays mode (``train.make_distill_step``): the
    fused training forward with its stash (K3; int8 K4 with an int8 stash,
    K8 with a bf16 one) and the backward through a block group (K5).

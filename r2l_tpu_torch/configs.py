@@ -245,14 +245,18 @@ def build_parser() -> argparse.ArgumentParser:
              "plain paths full f32)")
     add('--use_pallas', type=_bool, nargs='?', const=True, default=True,
         help='use the fused inference kernels (K1/K2, K6/K7) when '
-             'rendering')
+             'rendering: a student of any netwidth the JAX package renders '
+             'on its kernels (up to 256 on K1/K2, wider on their wide '
+             'form at the next multiple of 128); one it renders plain, '
+             'plain with a warning')
     add('--pallas_tile', type=int, default=800)
     add('--poses_per_batch', type=int, default=8,
         help='poses per device render in create_data --create_data rand')
     add('--quantize', type=str, default='', choices=['', 'int8'],
-        help='int8: static-scale quantized inference kernel (K2; per-'
-             'channel weight scales, per-(layer, channel) activation '
-             'scales calibrated on sample rays at build time)')
+        help='int8: static-scale quantized inference kernel (K2, and '
+             'its wide form above netwidth 256; per-channel weight '
+             'scales, per-(layer, channel) activation scales calibrated '
+             'on sample rays at build time)')
     add('--seed', type=int, default=0)
     add('--ckpt_format', type=str, default='native',
         choices=['native', 'torch'],

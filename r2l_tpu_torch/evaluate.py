@@ -20,11 +20,12 @@ each rank runs its kind (K1 or K2 for the student, K6/K7 or the plain
 volumetric pass for the teacher) on its own padded shard, and the shards
 are gathered back in order. The VMEM tile-fit model is TPU-only and not
 ported; ``pallas_tile`` is accepted so that the CLI flags carry over, and
-ignored: the CUDA kernels choose their own ray tile. The kernels' own
-shapes decide (``kernels.r2l_fused.fused_frame_supported``); a student
-they do not take renders ``jnp``, with a warning, where the JAX package
-renders it plain too (``_reference_fits``), and raises on the card where
-the JAX package runs it on its kernel.
+ignored: the CUDA kernels choose their own ray tile. The JAX package's
+rule decides plain against kernel (``_reference_fits``): a student it
+renders on its kernel runs on the port's (K1/K2, at a width above theirs
+on their wide form, ``kernels.r2l_fused.wide_form``), and one it renders
+plain renders ``jnp`` with a warning, except that the kernels keep every
+student of their own widths (canonical f32 runs on K1 f32).
 
 The teacher's frame (``make_nerf_frame_fn``, the ``--test_teacher`` path)
 and its benchmark (``make_nerf_bench_fn``) render through the fused
@@ -58,7 +59,7 @@ from .kernels.r2l_fused import (calibrate_r2l_int8_pe, frame_shapes_text,
                                 fused_frame_supported,
                                 fused_kernel_supported,
                                 fused_r2l_apply_int8_pe, fused_r2l_apply_pe,
-                                prepare_fused_params_pe)
+                                prepare_fused_params_pe, wide_form)
 from .lpips import lpips, minmax_rescale
 from .models.nerf import NeRF, NeRFConfig
 from .models.r2l import R2L, R2LConfig
@@ -168,35 +169,26 @@ def _reference_fits(cfg: R2LConfig, dim_pts: int, int8: bool) -> bool:
     return (_REFERENCE_BUDGET - wbytes) // per_ray >= 128
 
 
-def _takes_kernel(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
-                  int8: bool) -> bool:
-    """Whether the frame runs on its kernel (K2 with ``int8``, else K1):
-    where the port's kernels take the student (``fused_frame_supported``),
-    and on the CPU (their plain versions) wherever the JAX package's
-    kernel does. False where neither takes it: the JAX package renders it
-    plain too. On the card, a student that the JAX package runs on its
-    kernel and the port's kernels do not take raises NotImplementedError."""
-    if fused_frame_supported(cfg, int8, L):
-        return True
-    if not _reference_fits(cfg, dim_pts, int8):
-        return False
-    if _model_device(model).type == "cpu":
-        return True
-    raise NotImplementedError(
-        f"the {'int8 ' if int8 else ''}fused kernel "
-        f"({'K2' if int8 else 'K1'}) takes {frame_shapes_text(int8)}; "
-        f"got netwidth {cfg.netwidth}, act={cfg.act!r} n_learnable="
-        f"{cfg.n_learnable}, L={L}, which the JAX package renders on its "
-        "kernel (ROADMAP C1)")
+def _takes_kernel(cfg: R2LConfig, dim_pts: int, L: int, int8: bool
+                  ) -> bool:
+    """Whether the frame runs on its kernel (K2 with ``int8``, else K1;
+    each on its wide form above their widths): wherever the JAX package's
+    kernel takes the student (``_reference_fits``), and, the recorded
+    exception, wherever the port's kernels take it at their own widths
+    (``wide_form`` false: canonical f32 runs on K1 f32, which JAX renders
+    plain). False elsewhere: the JAX package renders it plain too."""
+    return _reference_fits(cfg, dim_pts, int8) or (
+        fused_frame_supported(cfg, int8, L)
+        and not wide_form(cfg.netwidth, int8, L))
 
 
 def _plain_warning(int8: bool, cfg: R2LConfig, then: str) -> str:
     kernel = "int8 fused kernel (K2)" if int8 else "fused kernel (K1)"
-    return (f"WARNING: the {kernel} takes {frame_shapes_text(int8)}"
-            f", not netwidth {cfg.netwidth} with {cfg.num_blocks} blocks of "
-            f"{cfg.n_learnable} layers, and the JAX package renders this "
-            f"model plain too (its weights exceed that kernel's budget "
-            f"there) — {then}")
+    return (f"WARNING: the {kernel} takes {frame_shapes_text(int8)}; the "
+            f"JAX package renders this model (netwidth {cfg.netwidth} with "
+            f"{cfg.num_blocks} blocks of {cfg.n_learnable} layers) plain "
+            f"(its weights exceed that kernel's budget there), and so does "
+            f"the port (ROADMAP F3) — {then}")
 
 
 def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
@@ -212,7 +204,8 @@ def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
     int8 kernel takes warns and tries ``pe``, and ``pe`` at a shape that no
     PE-fused kernel takes warns and goes to the plain module
     (``_takes_kernel``). A student narrower than the kernels' widths runs
-    on them padded (``kernels.r2l_fused.kernel_width``). ``calib_poses``
+    on them padded, a wider one on their wide form at the next multiple of
+    128 (``kernels.r2l_fused.kernel_width``). ``calib_poses``
     [M, 3/4, 4] are the deployment poses int8 calibrates on;
     ``calib_pts`` [M, dim_pts] (sample points, tensor or array) win over
     them (the given-rays path calibrates on its own rays)."""
@@ -232,7 +225,7 @@ def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
               "forward instead.", file=sys.stderr)
         quantize = ""
     if (quantize == "int8" and not plucker
-            and not _takes_kernel(model, cfg, dim_pts, embed_L, True)):
+            and not _takes_kernel(cfg, dim_pts, embed_L, True)):
         print(_plain_warning(True, cfg, "trying the PE-fused kernel."),
               file=sys.stderr)
         quantize = ""
@@ -244,7 +237,7 @@ def _prepare_r2l(model: R2L, cfg: R2LConfig, sampler: PointSampler,
                                          calib_pts=calib_pts,
                                          fold_requant=True)
         return prepared, "int8", dim_pts
-    if use_pallas and not _takes_kernel(model, cfg, dim_pts, embed_L, False):
+    if use_pallas and not _takes_kernel(cfg, dim_pts, embed_L, False):
         print(_plain_warning(False, cfg, "rendering through the plain "
                              "forward."), file=sys.stderr)
         return model, "jnp", dim_pts

@@ -43,6 +43,9 @@ KERNELS = {
     "r2l_int8_hopper": ("r2l_int8_hopper_launch",
                         [_P, _I, _I, _I] + [_P] * 9 + [_LL] + [_I] * 7
                         + [_P]),
+    "r2l_wide": ("r2l_wide_launch",
+                 [_P] + [_I] * 6 + [_P] * 11 + [_LL] + [_I] * 5 + [_F]
+                 + [_I] * 3 + [_P]),
     "r2l_train_fwd": ("r2l_train_fwd_launch",
                       [_P, _I, _I, _I] + [_P] * 7 + [_LL, _P]
                       + [_I, _I, _I, _F, _I, _I, _I, _P]),

@@ -25,9 +25,16 @@ Each public wrapper runs its plain PyTorch version for a tensor on the CPU
 only. For a CUDA tensor it launches the kernel or raises. The kernels are
 built for the widths of ``R2L_KERNEL_WIDTHS``; the frame packers pad a
 narrower student with zero channels to the next of them
-(``kernel_width``), so K1/K9/K2 take every width up to the widest. A shape
-they do not take (``fused_frame_supported``: a wider student, other
-activations) raises NotImplementedError before any launch.
+(``kernel_width``). A wider student runs on the wide form of the same
+three kernels (``csrc/r2l_wide.cu``: one pass a layer over activations in
+device memory, ``fused_r2l_apply_pe_wide``, ``fused_r2l_apply_wide``,
+``fused_r2l_apply_int8_pe_wide``), packed at the next multiple of
+``WIDE_CHANNELS`` and staged by ``stage_wide_chain``; so does an int8
+student whose 2L+1 encoding parts overflow the head slice of every K2
+width (K2 takes a narrower one at the first width whose slice holds
+them). A shape they do not take (``fused_frame_supported``: other
+activations, no layer in a block, no frequency) raises
+NotImplementedError before any launch.
 
 Kernel layout: weights are packed ``[out, in]`` (``nn.Linear``'s layout,
 the transpose of JAX's), so that a kernel copies each output channel's
@@ -129,9 +136,10 @@ class FusedParamsInt8PE(_Int8Fields):
     Beside them, not among them, ``staged``: an s8 weight image with its
     epilogue table, or None where the calibration did not stage; and
     ``staged_for``, the kernel it was staged for: "K2" (the frame,
-    ``stage_int8_chain``), "K4" or "K8" (the training forward,
-    ``stage_int8_train``). ``_replace`` keeps both unless given
-    ``staged=`` (and ``staged_for=``)."""
+    ``stage_int8_chain``), "wide" (K2's wide form, ``stage_wide_chain``),
+    "K4" or "K8" (the training forward, ``stage_int8_train``).
+    ``_replace`` keeps both unless given ``staged=`` (and
+    ``staged_for=``)."""
     staged: torch.Tensor | None = None
     staged_for: str | None = None
 
@@ -149,24 +157,46 @@ class FusedParamsInt8PE(_Int8Fields):
 # K2/K4/K8 (csrc/r2l_int8_hopper.cuh, ``launch_width``); any other width
 # returns cudaErrorInvalidValue. tests/test_torch_gates.py reads them there.
 R2L_KERNEL_WIDTHS = (64, 128, 256)
+# The wide form (csrc/r2l_wide.cuh, kWideChannels) runs at multiples of
+# this; tests/test_torch_gates.py reads it there.
+WIDE_CHANNELS = 128
 # What the chain kernels hardcode, for messages.
 _CANONICAL = ("ReLU head and in-block activations, no block "
               "out-activation, a resmlp body")
 
 
-def kernel_width(W: int) -> int | None:
+def _chain_width(W: int, int8: bool, L: int) -> int | None:
+    """The narrowest of ``R2L_KERNEL_WIDTHS`` that holds W (for K2 also one
+    scalar's 2L+1 encoding parts in its head slice of twice that width),
+    or None."""
+    return next((k for k in R2L_KERNEL_WIDTHS
+                 if k >= W and (not int8 or 2 * L + 1 <= 2 * k)), None)
+
+
+def wide_form(W: int, int8: bool = False, L: int = 10) -> bool:
+    """Whether the frame kernels run a W-wide student (K2 with ``int8``, at
+    ``L`` frequencies) on their wide form (``csrc/r2l_wide.cu``): wider than
+    the widest of ``R2L_KERNEL_WIDTHS``, or in int8 where no K2 width's
+    head slice holds one scalar's 2L+1 encoding parts."""
+    return _chain_width(W, int8, L) is None
+
+
+def kernel_width(W: int, int8: bool = False, L: int = 10) -> int:
     """The width the frame kernels (K1/K9/K2) run a W-wide student at: the
-    narrowest of ``R2L_KERNEL_WIDTHS`` that holds it, or None above the
-    widest. The frame packers pad the weights with zero channels, which
-    ReLU keeps at zero and every later layer reads through zero weights,
-    so the padded chain computes the W-wide network."""
-    return next((k for k in R2L_KERNEL_WIDTHS if k >= W), None)
+    narrowest of ``R2L_KERNEL_WIDTHS`` that takes it, or on the wide form
+    (``wide_form``) the next multiple of ``WIDE_CHANNELS``. The frame
+    packers pad the weights with zero channels, which ReLU keeps at zero
+    and every later layer reads through zero weights, so the padded chain
+    computes the W-wide network."""
+    Wk = _chain_width(W, int8, L)
+    return -(-W // WIDE_CHANNELS) * WIDE_CHANNELS if Wk is None else Wk
 
 
-def kernel_cfg(cfg: R2LConfig) -> R2LConfig:
-    """``cfg`` at its kernel width (``cfg`` itself above the widest)."""
-    Wk = kernel_width(cfg.netwidth)
-    return (cfg if Wk in (None, cfg.netwidth)
+def kernel_cfg(cfg: R2LConfig, int8: bool = False, L: int = 10
+               ) -> R2LConfig:
+    """``cfg`` at its ``kernel_width``."""
+    Wk = kernel_width(cfg.netwidth, int8, L)
+    return (cfg if Wk == cfg.netwidth
             else dataclasses.replace(cfg, netwidth=Wk))
 
 
@@ -188,23 +218,21 @@ def fused_frame_supported(cfg: R2LConfig, int8: bool = False,
                           L: int = 10) -> bool:
     """Whether the student's frame kernels (K1/K9, or K2 with ``int8``)
     take ``cfg`` with an ``L``-frequency encoding: the canonical activations
-    and body (``fused_kernel_supported``), a ``kernel_width``, at least one
-    layer per block and one frequency (csrc/r2l_hopper.cuh ``launch``,
-    csrc/r2l_pe_fused.cu), and for int8 one scalar's 2L+1 encoding parts
-    within a head slice of twice the kernel width
-    (csrc/r2l_int8_hopper.cu)."""
-    Wk = kernel_width(cfg.netwidth)
-    return (fused_kernel_supported(cfg) and Wk is not None
-            and cfg.n_learnable >= 1 and L >= 1
-            and (not int8 or 2 * L + 1 <= 2 * Wk))
+    and body (``fused_kernel_supported``), at least one layer per block and
+    one frequency (csrc/r2l_hopper.cuh ``launch``, csrc/r2l_pe_fused.cu,
+    csrc/r2l_wide.cu), at any width: ``kernel_width`` names the kernel
+    width or the wide form's."""
+    return fused_kernel_supported(cfg) and cfg.n_learnable >= 1 and L >= 1
 
 
 def frame_shapes_text(int8: bool = False) -> str:
     """The shapes ``fused_frame_supported`` admits, for messages."""
-    return (f"netwidth up to {R2L_KERNEL_WIDTHS[-1]} (run at "
-            f"{', '.join(map(str, R2L_KERNEL_WIDTHS))} with zero channels), "
-            f"{_CANONICAL} of one or more layers per block"
-            + (" and 2L+1 <= 2 * that width" if int8 else ""))
+    return (f"any netwidth: up to {R2L_KERNEL_WIDTHS[-1]} at "
+            f"{', '.join(map(str, R2L_KERNEL_WIDTHS))} with zero channels"
+            + (" (K2: the first whose 2L+1 <= 2 * width)" if int8 else "")
+            + f", else on the wide form at the next multiple of "
+            f"{WIDE_CHANNELS}; {_CANONICAL} of one or more layers per block "
+            "and L >= 1")
 
 
 def _refuse(ok: bool, kernel: str, shapes: str, cfg: R2LConfig,
@@ -299,7 +327,9 @@ def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
     columns (taken in the order ``head_perm`` when given) zero-padded to
     ``K_ALIGN``, a no-op on the product: the kernels pad their input with
     zeros; with ``pad`` (``pads``), the width zero-padded to
-    ``kernel_width``; with ``stage``, K1/K9's weight image beside them."""
+    ``kernel_width``; with ``stage``, K1/K9's weight image beside them, or
+    the wide form's (``stage_wide_chain``) for a student wider than their
+    widths, at a width it takes."""
     _refuse(fused_kernel_supported(cfg), "the fused kernels' packing",
             _CANONICAL, cfg)
     pad = pads(pad, model.linears()[0].weight)
@@ -313,7 +343,11 @@ def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
         body_w=_pack(bw, wd), body_b=bb.contiguous(),
         tail_w=_pack(tw, wd), tail_b=tb.contiguous())
     if stage:
-        fp.staged = stage_chain_weights(fp)
+        W = fp.body_b.shape[-1]
+        if not wide_form(W):
+            fp.staged = stage_chain_weights(fp)
+        elif W % WIDE_CHANNELS == 0:
+            fp.staged = stage_wide_chain(fp)
     return fp
 
 
@@ -528,11 +562,14 @@ def fused_r2l_apply_pe(fp: FusedParams, cfg: R2LConfig,
     """pts [N, dim_pts] raw sample points -> RGB [N, out_dim] f32.
 
     Positional encoding runs inside the kernel; ``fp`` comes from
-    ``prepare_fused_params_pe`` (staged). CPU tensors take the plain
-    version."""
+    ``prepare_fused_params_pe`` (staged). A student wider than
+    ``R2L_KERNEL_WIDTHS`` runs on the wide form
+    (``fused_r2l_apply_pe_wide``). CPU tensors take the plain version."""
     if pts.device.type == "cpu":
         return fused_r2l_apply_pe_ref(fp, cfg, pts, dim_pts, L)
     _refuse_frame(cfg, "K1 (fused_r2l_apply_pe)", L=L)
+    if wide_form(cfg.netwidth):
+        return fused_r2l_apply_pe_wide(fp, cfg, pts, dim_pts, L)
     cfg, dev = kernel_cfg(cfg), pts.device
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     wd = _check_chain_params(fp, cfg, dim_pts * (2 * L + 1), dev)
@@ -568,11 +605,14 @@ def fused_r2l_apply(fp: FusedParams, cfg: R2LConfig,
                     x: torch.Tensor) -> torch.Tensor:
     """x [N, input_dim] (encoded rays, any float dtype) -> RGB [N, out_dim]
     f32 through K9; ``fp`` comes from ``prepare_fused_params``. x is rounded
-    once to the compute dtype (f32 with f32 weights). CPU tensors take the
-    plain version."""
+    once to the compute dtype (f32 with f32 weights). A student wider than
+    ``R2L_KERNEL_WIDTHS`` runs on the wide form (``fused_r2l_apply_wide``).
+    CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return fused_r2l_apply_ref(fp, cfg, x)
     _refuse_frame(cfg, "K9 (fused_r2l_apply)")
+    if wide_form(cfg.netwidth):
+        return fused_r2l_apply_wide(fp, cfg, x)
     cfg = kernel_cfg(cfg)
     dev, n, in_dim = x.device, x.shape[0], cfg.input_dim
     if not x.is_floating_point():
@@ -626,7 +666,8 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     inner layer's inverse input scale into this layer's multiplier and
     bias, so the kernel's inner requantize is round+clip only. With
     ``stage``, K2's s8 image is staged beside the fields (the int8 training
-    kinds pass ``stage=False`` and stage K4/K8's own, ``stage_int8_train``).
+    kinds pass ``stage=False`` and stage K4/K8's own, ``stage_int8_train``);
+    on the wide form (``wide_form``) the image is ``stage_wide_chain``'s.
     ``pad`` packs at the ``kernel_width`` (a zero channel's scales are the
     floor's, its codes 0), as ``prepare_fused_params_pe``. TF32 is switched
     off for the duration: it would move every scale.
@@ -634,7 +675,7 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     _refuse(fused_kernel_supported(cfg), "the fused kernels' packing",
             _CANONICAL, cfg)
     if pads(pad, model.linears()[0].weight):
-        cfg = kernel_cfg(cfg)
+        cfg = kernel_cfg(cfg, int8=True, L=L)
     width = cfg.netwidth
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -646,8 +687,12 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
-    if stage:
+    if not stage:
+        return fp
+    if not wide_form(width, True, L):
         fp.staged, fp.staged_for = stage_int8_chain(fp, cfg, dim_pts, L), "K2"
+    elif width % WIDE_CHANNELS == 0:
+        fp.staged, fp.staged_for = stage_wide_chain(fp), "wide"
     return fp
 
 
@@ -988,7 +1033,11 @@ def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
     wrapper = wrapper or fused_r2l_apply_int8_pe
     from . import _build
     _refuse_frame(cfg, "K2 (fused_r2l_apply_int8_pe)", int8=True, L=L)
-    cfg = kernel_cfg(cfg)
+    _refuse(not wide_form(cfg.netwidth, True, L), "K2",
+            f"netwidth up to {R2L_KERNEL_WIDTHS[-1]} with 2L+1 <= 2 * its "
+            "kernel width (fused_r2l_apply_int8_pe_wide takes the rest)",
+            cfg, L)
+    cfg = kernel_cfg(cfg, int8=True, L=L)
     dev, n, W = pts.device, pts.shape[0], cfg.netwidth
     _check(pts, "pts", torch.float32, (n, dim_pts), dev)
     _check_int8_params(fp, cfg, dim_pts, L, dev)
@@ -1030,14 +1079,261 @@ def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
     the default is the deployed form, with ``fp`` from
     ``calibrate_r2l_int8_pe(..., fold_requant=True)`` (``fold_requant``
     here must match the calibration's; the calibration stages K2's s8
-    image, without which the kernel raises). CPU tensors take the plain
-    version."""
+    image, without which the kernel raises). The wide form
+    (``fused_r2l_apply_int8_pe_wide``) takes a student wider than
+    ``R2L_KERNEL_WIDTHS``, or whose 2L+1 encoding parts overflow every K2
+    width's head slice (``wide_form``). CPU tensors take the plain version."""
     if pts.device.type == "cpu":
         return fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dim_pts, L,
                                            fold_requant, nobf16_inner)
+    if wide_form(cfg.netwidth, True, L):
+        return fused_r2l_apply_int8_pe_wide(fp, cfg, pts, dim_pts, L,
+                                            fold_requant, nobf16_inner)
     return _launch_int8_hopper(
         fp, cfg, pts, dim_pts, L,
         EPILOGUES[int8_epilogue(fold_requant, nobf16_inner)])
 
 
 fused_r2l_apply_int8_pe.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The wide form of K1, K9 and K2 (csrc/r2l_wide.cu)
+# ---------------------------------------------------------------------------
+
+WIDE_TILE = 128  # a staged tile: 128 output channels x 128 bytes of input
+_WIDE_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+# The most scratch one wide call takes: more rays than fit run in passes
+# (a 400x400 frame is one pass up to W2304 in int8, W1024 in f32).
+WIDE_SCRATCH_BYTES = 4 << 30
+
+
+def wide_stage_plan(cfg: R2LConfig, dtype: torch.dtype,
+                    in_dim: int | None = None) -> dict:
+    """The wide form's image of ``cfg`` (at its width) in ``dtype`` (bf16,
+    f32 or int8) for a head of ``in_dim`` inputs (``cfg.input_dim`` by
+    default): 'kpad' (the head's input as staged, ``K_ALIGN``-padded),
+    'head_bytes', 'layer_bytes' (a body layer's), 'weights_bytes', then
+    for int8 the epilogue table's 'table_bytes' (the head's and each body
+    layer's (m, b) a channel, f32), and 'nbytes'."""
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    kpad = _padded_in(cfg.input_dim if in_dim is None else in_dim)
+    es = torch.empty(0, dtype=dtype).element_size()
+    head, layer = W * kpad * es, W * W * es
+    table = (1 + nbl) * W * 8 if dtype == torch.int8 else 0
+    weights = head + nbl * layer
+    return {"kpad": kpad, "head_bytes": head, "layer_bytes": layer,
+            "weights_bytes": weights, "table_bytes": table,
+            "nbytes": weights + table}
+
+
+def _tiles(w: torch.Tensor) -> torch.Tensor:
+    """[..., N, K] of any dtype -> its uint8 tiles, matrix by matrix: tile
+    (o, k) (outputs [128 o, 128 o + 128), bytes [128 k, 128 k + 128) of
+    each row) at o * (K bytes / 128) + k, its 128 rows in order."""
+    b = w.contiguous().view(torch.uint8)
+    *lead, n, kb = b.shape
+    t = b.reshape(*lead, n // WIDE_TILE, WIDE_TILE, kb // WIDE_TILE,
+                  WIDE_TILE)
+    return t.transpose(-3, -2).reshape(-1)
+
+
+def _untiles(img: torch.Tensor, shape: tuple, dtype: torch.dtype
+             ) -> torch.Tensor:
+    """``_tiles``' inverse: matrices of ``shape`` [..., N, K] in ``dtype``."""
+    *lead, n, k = shape
+    kb = k * torch.empty(0, dtype=dtype).element_size()
+    t = img.reshape(*lead, n // WIDE_TILE, kb // WIDE_TILE, WIDE_TILE,
+                    WIDE_TILE)
+    return t.transpose(-3, -2).reshape(*lead, n, kb).contiguous().view(dtype)
+
+
+def stage_wide_chain(fp: FusedParams | FusedParamsInt8PE) -> torch.Tensor:
+    """The wide form's image (uint8): the head's tiles (``head_w`` or
+    ``head_q`` [W, in_pad], its columns in the fields' order: freq-major
+    from ``prepare_fused_params_pe`` and ``calibrate_r2l_int8_pe``,
+    ``r2l_embed``'s from ``prepare_fused_params``), then each body layer's,
+    each in ``_tiles`` order; for int8 then the epilogue table, (m, b)
+    interleaved a channel, the head's row first (K2's). W must be a
+    multiple of ``WIDE_CHANNELS``."""
+    if isinstance(fp, FusedParamsInt8PE):
+        table = torch.cat([
+            torch.stack([fp.head_m, fp.head_b], -1).reshape(-1),
+            torch.stack([fp.body_m, fp.body_b], -1).reshape(-1)])
+        return torch.cat([_tiles(fp.head_q), _tiles(fp.body_q),
+                          table.float().contiguous().view(torch.uint8)])
+    return torch.cat([_tiles(fp.head_w), _tiles(fp.body_w)])
+
+
+def unstage_wide_chain(staged: torch.Tensor, cfg: R2LConfig,
+                       dtype: torch.dtype, in_dim: int | None = None
+                       ) -> dict[str, torch.Tensor]:
+    """The fields back from a wide image: 'head_w' [W, kpad] and 'body_w'
+    [nb*nl, W, W] in ``dtype``, or for int8 'head_q', 'body_q' and
+    'head_m', 'head_b' [W], 'body_m', 'body_b' [nb*nl, W]."""
+    plan = wide_stage_plan(cfg, dtype, in_dim)
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    cut, end = plan["head_bytes"], plan["weights_bytes"]
+    head = _untiles(staged[:cut], (W, plan["kpad"]), dtype)
+    body = _untiles(staged[cut:end], (nbl, W, W), dtype)
+    if dtype != torch.int8:
+        return {"head_w": head, "body_w": body}
+    mb = staged[end:end + plan["table_bytes"]].clone().view(
+        torch.float32).view(1 + nbl, W, 2)
+    return {"head_q": head, "body_q": body,
+            "head_m": mb[0, :, 0], "head_b": mb[0, :, 1],
+            "body_m": mb[1:, :, 0], "body_b": mb[1:, :, 1]}
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
+def wide_scratch_bytes(rows: int, W: int, dtype: torch.dtype, nl: int,
+                       use_residual: bool) -> int:
+    """The scratch one wide call needs for passes of ``rows`` rays
+    (``csrc/r2l_wide.cuh``, scratch_bytes): bf16/f32 two h, min(nl-1, 2) t
+    and (with the global residual) h0 of the compute type; int8 two code
+    buffers, two bf16 h and an f32 h0; each [rows, W], 256-byte aligned."""
+    e = rows * W
+    if dtype == torch.int8:
+        return (2 * _aligned(e) + 2 * _aligned(2 * e)
+                + (_aligned(4 * e) if use_residual else 0))
+    es = 4 if dtype == torch.float32 else 2
+    return (2 + min(nl - 1, 2) + int(use_residual)) * _aligned(e * es)
+
+
+def _need_wide_image(fp, int8: bool) -> None:
+    """Raise ValueError where ``fp`` carries no image of the wide form."""
+    if getattr(fp, "staged", None) is None or (
+            int8 and fp.staged_for != "wide"):
+        raise ValueError(
+            "fp has no staged image of the wide form: pack it with "
+            "prepare_fused_params, prepare_fused_params_pe or "
+            "calibrate_r2l_int8_pe (stage=True) at its kernel width")
+
+
+def wide_rows(n: int, W: int, dtype: torch.dtype, nl: int,
+              use_residual: bool) -> int:
+    """Rays a pass of a wide call on n rays: all of them, or as many as
+    keep the scratch within ``WIDE_SCRATCH_BYTES``."""
+    per_4096 = wide_scratch_bytes(4096, W, dtype, nl, use_residual)
+    return min(n, max(WIDE_CHANNELS, WIDE_SCRATCH_BYTES * 4096 // per_4096))
+
+
+def _launch_wide(wrapper, fp: FusedParams | FusedParamsInt8PE,
+                 cfg: R2LConfig, inp: torch.Tensor, dim_pts: int, L: int,
+                 in_dim: int, epilogue: int) -> torch.Tensor:
+    """One call of the wide form (``csrc/r2l_wide.cu``: the head, each body
+    layer and the tail, a pass each, over the rays in ``wide_rows``
+    passes) on the CUDA tensor ``inp`` (points with ``dim_pts``, else
+    encoded rays), ``cfg`` at its width, the image checked here and a
+    fresh scratch; counted in ``wrapper.launches``."""
+    from . import _build
+    int8 = isinstance(fp, FusedParamsInt8PE)
+    wd = fp.head_q.dtype if int8 else fp.head_w.dtype
+    dev, n, W = inp.device, inp.shape[0], cfg.netwidth
+    _check(fp.staged, "staged", torch.uint8,
+           (wide_stage_plan(cfg, wd, in_dim)["nbytes"],), dev)
+    tail_w = fp.tail_q if int8 else fp.tail_w
+    out = torch.empty((n, tail_w.shape[0]), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    rows = wide_rows(n, W, wd, cfg.n_learnable, cfg.use_residual)
+    scratch = torch.empty((wide_scratch_bytes(
+        rows, W, wd, cfg.n_learnable, cfg.use_residual),),
+        dtype=torch.uint8, device=dev)
+    def q8(name):    # int8's scales
+        return _ptr(getattr(fp, name)) if int8 else None
+
+    def bias(name):  # bf16/f32's biases (int8's are in the image)
+        return None if int8 else _ptr(getattr(fp, name))
+    lib = _build.load("r2l_wide")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        wrapper.launches += 1
+        rc = lib.r2l_wide_launch(
+            _ptr(inp), n, dim_pts, L, in_dim, int(dim_pts > 0),
+            _WIDE_TYPES[wd], _ptr(fp.staged), bias("head_b"),
+            bias("body_b"), q8("head_inv"), q8("body_inv"), _ptr(tail_w),
+            q8("tail_m"), _ptr(fp.tail_b), q8("tail_inv"), _ptr(out),
+            _ptr(scratch),
+            scratch.numel(), rows, W, cfg.num_blocks, cfg.n_learnable,
+            out.shape[1], float(cfg.res_scale), int(cfg.use_residual),
+            int(cfg.linear_tail), epilogue, ctypes.c_void_p(stream))
+    _raise_on_error(rc, "r2l_wide")
+    return out
+
+
+def fused_r2l_apply_pe_wide(fp: FusedParams, cfg: R2LConfig,
+                            pts: torch.Tensor, dim_pts: int,
+                            L: int = 10) -> torch.Tensor:
+    """K1's wide form: pts [N, dim_pts] -> RGB [N, out_dim] f32, the
+    encoding in the head's pass (``fp`` from ``prepare_fused_params_pe`` at
+    its ``kernel_width``, staged). ``fused_r2l_apply_pe`` sends every
+    student wider than ``R2L_KERNEL_WIDTHS`` here. CPU tensors take the
+    plain version."""
+    if pts.device.type == "cpu":
+        return fused_r2l_apply_pe_ref(fp, cfg, pts, dim_pts, L)
+    _refuse_frame(cfg, "K1's wide form (fused_r2l_apply_pe_wide)", L=L)
+    _need_wide_image(fp, False)
+    cfg, dev, in_dim = kernel_cfg(cfg), pts.device, dim_pts * (2 * L + 1)
+    _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
+    _check_chain_params(fp, cfg, in_dim, dev)
+    return _launch_wide(fused_r2l_apply_pe_wide, fp, cfg, pts, dim_pts, L,
+                        in_dim, 0)
+
+
+fused_r2l_apply_pe_wide.launches = 0
+
+
+def fused_r2l_apply_wide(fp: FusedParams, cfg: R2LConfig,
+                         x: torch.Tensor) -> torch.Tensor:
+    """K9's wide form: x [N, input_dim] (encoded rays, any float dtype,
+    rounded once to the compute dtype) -> RGB [N, out_dim] f32 (``fp`` from
+    ``prepare_fused_params`` at its ``kernel_width``); ``fused_r2l_apply``
+    sends every student wider than ``R2L_KERNEL_WIDTHS`` here. CPU tensors
+    take the plain version."""
+    if x.device.type == "cpu":
+        return fused_r2l_apply_ref(fp, cfg, x)
+    _refuse_frame(cfg, "K9's wide form (fused_r2l_apply_wide)")
+    _need_wide_image(fp, False)
+    cfg = kernel_cfg(cfg)
+    dev, n, in_dim = x.device, x.shape[0], cfg.input_dim
+    if not x.is_floating_point():
+        raise TypeError(f"x must be a float tensor, got {x.dtype}")
+    _check_chain_params(fp, cfg, in_dim, dev)
+    if x.dtype != torch.float32:
+        x = x.to(_compute_dtype(fp, cfg)).float()
+    _check(x, "x", torch.float32, (n, in_dim), dev)
+    return _launch_wide(fused_r2l_apply_wide, fp, cfg, x, 0, 0, in_dim, 0)
+
+
+fused_r2l_apply_wide.launches = 0
+
+
+def fused_r2l_apply_int8_pe_wide(fp: FusedParamsInt8PE, cfg: R2LConfig,
+                                 pts: torch.Tensor, dim_pts: int,
+                                 L: int = 10, fold_requant: bool = True,
+                                 nobf16_inner: bool = True) -> torch.Tensor:
+    """K2's wide form in ``_int8_pe_chain``'s three forms (the flags as in
+    ``fused_r2l_apply_int8_pe``, ``fp`` from ``calibrate_r2l_int8_pe`` at
+    its ``kernel_width``, staged): the plain version's codes, sums and
+    epilogues, bit for bit. ``fused_r2l_apply_int8_pe`` sends every
+    ``wide_form`` student here. CPU tensors take the plain version."""
+    if pts.device.type == "cpu":
+        return fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dim_pts, L,
+                                           fold_requant, nobf16_inner)
+    _refuse_frame(cfg, "K2's wide form (fused_r2l_apply_int8_pe_wide)",
+                  int8=True, L=L)
+    _need_wide_image(fp, True)
+    cfg, dev = kernel_cfg(cfg, int8=True, L=L), pts.device
+    _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
+    _check_int8_params(fp, cfg, dim_pts, L, dev)
+    return _launch_wide(
+        fused_r2l_apply_int8_pe_wide, fp, cfg, pts, dim_pts, L,
+        dim_pts * (2 * L + 1),
+        EPILOGUES[int8_epilogue(fold_requant, nobf16_inner)])
+
+
+fused_r2l_apply_int8_pe_wide.launches = 0

@@ -56,8 +56,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _case(name, dev, compute_dtype=torch.bfloat16, n_rays=1000):
-    W, nl, n_sample, L, kw = CASES[name]
+def _case(name, dev, compute_dtype=torch.bfloat16, n_rays=1000,
+          cases=CASES):
+    W, nl, n_sample, L, kw = cases[name]
     dp = 3 * n_sample
     cfg = R2LConfig(input_dim=dp * (2 * L + 1), netdepth=12, netwidth=W,
                     n_learnable=nl, compute_dtype=compute_dtype, **kw)
@@ -173,6 +174,95 @@ def test_int8_hopper_raises_without_its_image(dev):
         F.fused_r2l_apply_int8_pe(fp, cfg, pts, dp, L)
 
 
+# The frame kernels' wide form (csrc/r2l_wide.cu): students wider than 256,
+# in the layouts above; W300 packed at 384 with zero channels.
+WIDE_CASES = {
+    "w384_canonical": (384, 2, 16, 10, {}),
+    "w512_nl3_dim6": (512, 3, 2, 10, {"res_scale": 0.5}),
+    "w300_nl1_linear": (300, 1, 16, 4, {"use_residual": False,
+                                         "linear_tail": True}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+def test_wide_pe_kernel_matches_plain(dev, name, wd, monkeypatch):
+    """K1 above W256 runs on its wide form (one launch of its counter, none
+    of K1's), within K1's bounds of the plain version; with the scratch cut
+    to passes of 128 rays, the one pass's output bit for bit."""
+    cfg, model, _, _, pts, dp, L = _case(name, dev, cases=WIDE_CASES)
+    fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd)
+    before = (F.fused_r2l_apply_pe.launches,
+              F.fused_r2l_apply_pe_wide.launches)
+    got = F.fused_r2l_apply_pe(fp, cfg, pts, dp, L)
+    torch.cuda.synchronize()
+    assert (F.fused_r2l_apply_pe.launches,
+            F.fused_r2l_apply_pe_wide.launches) == (before[0], before[1] + 1)
+    mx, _ = _deltas(got, F.fused_r2l_apply_pe_ref(fp, cfg, pts, dp, L))
+    assert mx < (TOL_F32 if wd == torch.float32 else TOL_BF16), mx
+    monkeypatch.setattr(F, "WIDE_SCRATCH_BYTES", 1)
+    assert F.wide_rows(pts.shape[0], F.kernel_width(cfg.netwidth), wd,
+                       cfg.n_learnable, cfg.use_residual) == 128
+    assert torch.equal(got, F.fused_r2l_apply_pe(fp, cfg, pts, dp, L))
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+def test_wide_fused_kernel_matches_plain(dev, name, wd):
+    """K9 above W256: its wide form on the encoded rays, within K9's
+    bounds of the plain version."""
+    cfg, model, _, _, pts, dp, L = _case(name, dev, cases=WIDE_CASES)
+    fp = F.prepare_fused_params(model, cfg, weight_dtype=wd)
+    x = r2l_embed(pts, L)
+    before = (F.fused_r2l_apply.launches, F.fused_r2l_apply_wide.launches)
+    got = F.fused_r2l_apply(fp, cfg, x)
+    torch.cuda.synchronize()
+    assert (F.fused_r2l_apply.launches,
+            F.fused_r2l_apply_wide.launches) == (before[0], before[1] + 1)
+    mx, _ = _deltas(got, F.fused_r2l_apply_ref(fp, cfg, x))
+    assert mx < (TOL_F32 if wd == torch.float32 else TOL_BF16), mx
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+@pytest.mark.parametrize("fold_requant,nobf16_inner",
+                         [(True, True), (True, False), (False, False)])
+def test_wide_int8_forms_bit_for_bit(dev, name, fold_requant,
+                                     nobf16_inner):
+    """K2's wide form keeps every rounding of the plain version: its three
+    forms equal it bit for bit, on 1,000 rays and on a ragged 129."""
+    cfg, model, sampler, poses, pts, dp, L = _case(name, dev,
+                                                   cases=WIDE_CASES)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                 _calibration_points(sampler, poses, dev),
+                                 fold_requant=fold_requant)
+    assert fp.staged_for == "wide"
+    kw = dict(fold_requant=fold_requant, nobf16_inner=nobf16_inner)
+    before = (F.fused_r2l_apply_int8_pe.launches,
+              F.fused_r2l_apply_int8_pe_wide.launches)
+    for q in (pts, pts[:129].contiguous()):
+        got = F.fused_r2l_apply_int8_pe(fp, cfg, q, dp, L, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, F.fused_r2l_apply_int8_pe_ref(
+            fp, cfg, q, dp, L, **kw))
+    assert (F.fused_r2l_apply_int8_pe.launches,
+            F.fused_r2l_apply_int8_pe_wide.launches) == (before[0],
+                                                         before[1] + 2)
+
+
+def test_wide_form_raises_without_its_image(dev):
+    """On the card, the wide form refuses a packing without its image."""
+    cfg, model, sampler, poses, pts, dp, L = _case("w384_canonical", dev,
+                                                   cases=WIDE_CASES)
+    fp = F.prepare_fused_params_pe(model, cfg, dp, L, stage=False)
+    with pytest.raises(ValueError, match="image of the wide form"):
+        F.fused_r2l_apply_pe(fp, cfg, pts, dp, L)
+    fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                  _calibration_points(sampler, poses, dev),
+                                  stage=False)
+    with pytest.raises(ValueError, match="image of the wide form"):
+        F.fused_r2l_apply_int8_pe(fp8, cfg, pts, dp, L)
+
+
 def test_int8_canary_on_card(dev):
     """The frozen canary: the kernel equals its plain version bit for bit
     and stays within one f32 ulp of [0.5, 1) of the JAX reference's output
@@ -261,7 +351,7 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):   # a packing of another width
         F.fused_r2l_apply_pe(fp, wide, pts, dp, L)
     wider = dataclasses.replace(cfg, netwidth=512)
-    with pytest.raises(NotImplementedError):   # a width K1 does not take
+    with pytest.raises(ValueError):   # K1's wide form, on a W256 packing
         F.fused_r2l_apply_pe(fp, wider, pts, dp, L)
 
 
@@ -1529,18 +1619,22 @@ def test_world1_sharded_distill_step_equals_unsharded(dev, tmp_path):
 
 
 # Shapes off the kernels' native widths. A narrower student or teacher runs
-# on the kernels padded (the cases above); a W512 student, an lrelu one and a
-# W512 teacher make each wrapper raise NotImplementedError before any launch;
-# the gates send a model that the JAX package renders plain to the plain
-# path, and raise where the JAX package runs a kernel that the port's do not
-# take, which the kernels' launch counters show untouched.
+# on the kernels padded (the cases above), a wider student's frame on the
+# frame kernels' wide form; an lrelu student, and a W512 student's training
+# step or teacher, make each wrapper raise NotImplementedError before any
+# launch; the gates send a model that the JAX package renders plain to the
+# plain path, and raise where the JAX package runs a kernel that the port's
+# do not take, which the kernels' launch counters show untouched.
 
 def _counters():
     return (F.fused_r2l_apply_pe.launches, F.fused_r2l_apply.launches,
             F.fused_r2l_apply_int8_pe.launches, T.train_fwd.launches,
             T.train_fwd_int8.launches, T.train_fwd_int8.launches_bf16,
             T.bwd_group.launches, NR.fused_nerf_render.launches,
-            NR.fused_nerf_render.launches_int8)
+            NR.fused_nerf_render.launches_int8,
+            F.fused_r2l_apply_pe_wide.launches,
+            F.fused_r2l_apply_wide.launches,
+            F.fused_r2l_apply_int8_pe_wide.launches)
 
 
 def _student(dev, depth=6, **kw):
@@ -1576,7 +1670,11 @@ def test_wrappers_refuse_shapes_before_launching(dev, kw):
              lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, stash_q=False),
              lambda: T.bwd_group(fp.body_w, stash, dh, cfg, 0, 1)]
     before = _counters()
-    for call in calls:
+    for i, call in enumerate(calls):
+        if i < 3 and not kw:   # the frame wrappers: W512 on the wide form,
+            with pytest.raises(ValueError, match="image of the wide form"):
+                call()         # which has no image in an unstaged packing
+            continue
         with pytest.raises(NotImplementedError, match="64, 128, 256"):
             call()
     torch.cuda.synchronize()
@@ -1640,15 +1738,33 @@ def test_student_frames_off_the_native_widths(dev, case, quantize):
 
 
 @pytest.mark.parametrize("quantize", ["", "int8"])
-def test_wide_student_that_jax_runs_on_its_kernel_raises(dev, quantize):
+def test_wide_student_that_jax_runs_on_its_kernel_runs_on_the_wide_form(
+        dev, quantize):
     """A W512/D6 student, which the JAX package renders on its kernels:
-    NotImplementedError before anything is packed, no launch."""
-    cfg, model, sampler, poses, _ = _student(dev)
+    the frame function's kind is JAX's, and a frame is one launch of the
+    wide form (K1's or K2's), within the bounds of its plain version on the
+    same packing, and no launch of K1 or K2 themselves."""
+    cfg, model, sampler, poses, pts = _student(dev)
+    fn = TE.make_r2l_frame_fn(model, cfg, sampler, quantize=quantize,
+                              calib_poses=poses)
+    assert fn.kind == (quantize or "pe")
     before = _counters()
-    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
-        TE.make_r2l_frame_fn(model, cfg, sampler, quantize=quantize,
-                             calib_poses=poses)
-    assert _counters() == before
+    got = fn(poses[0])
+    torch.cuda.synchronize()
+    assert got.shape == (40, 25, 3) and torch.isfinite(got).all()
+    moved = [b - a for a, b in zip(before, _counters())]
+    assert moved == [0] * 9 + ([0, 0, 1] if quantize else [1, 0, 0])
+    prepared, _, dp = TE._prepare_r2l(model, cfg, sampler, 10, False, True,
+                                      quantize, calib_poses=poses)
+    if quantize:
+        mx, rms = _deltas(
+            F.fused_r2l_apply_int8_pe(prepared, cfg, pts, dp, 10),
+            F.fused_r2l_apply_int8_pe_ref(prepared, cfg, pts, dp, 10))
+        assert mx == 0.0, mx
+    else:
+        mx, _ = _deltas(F.fused_r2l_apply_pe(prepared, cfg, pts, dp, 10),
+                        F.fused_r2l_apply_pe_ref(prepared, cfg, pts, dp, 10))
+        assert mx < TOL_BF16, mx
 
 
 @pytest.mark.parametrize("kw", [{}, {"netwidth": 256, "act": "lrelu",

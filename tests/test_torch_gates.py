@@ -3,16 +3,19 @@ the JAX package's paths.
 
 One predicate per kernel family (``r2l_fused.fused_frame_supported``,
 ``r2l_train.fused_train_supported``, ``nerf_render.fused_teacher_supported``)
-is held to the launch switches of ``csrc/``. A student or teacher narrower
+is held to the launch switches of ``csrc/``, and the frame kernels' wide
+form (``csrc/r2l_wide.cu``) to its limits. A student or teacher narrower
 than the kernels' widths is packed at the next of them with zero channels,
-and computes what the unpadded network does. The three gates above them
+and computes what the unpadded network does; a wider student runs on the
+frame kernels' wide form. The three gates above them
 (``evaluate._prepare_r2l``, ``evaluate.make_nerf_frame_fn`` with
 ``datagen``, ``train.fused_vjp_gate``) take the JAX package's path: its
 kind and frame where its kernels and the port's agree, the plain path
 with a warning where neither takes the shape, and on the card an error
-where the JAX package runs a kernel that the port's do not take. The
-wrappers refuse such a shape on a device tensor before any launch (a meta
-tensor stands in for the card's here)."""
+where the JAX package runs a kernel that the port's do not take (the
+training and teacher kernels above W256). The wrappers refuse such a
+shape on a device tensor before any launch (a meta tensor stands in for
+the card's here)."""
 import ast
 import dataclasses
 import functools
@@ -102,6 +105,16 @@ def test_predicate_widths_are_the_launch_switches(name, after, switches,
                                                   want):
     got = _switch_widths(_source(name), after)
     assert got == [tuple(want)] * switches
+    # above them the frame kernels' wide form: any multiple of its
+    # channels, one layer a block or more, up to 8 outputs
+    wide = _source("r2l_wide.cuh")
+    assert re.findall(r"constexpr int kWideChannels = (\d+);", wide) == [
+        str(F.WIDE_CHANNELS)]
+    assert re.findall(r"\bkBN = (\w+)", wide) == [
+        "kWideChannels"]
+    entry = _source("r2l_wide.cu")
+    for limit in ("W % kWideChannels != 0", "nl < 1", "out_dim > kMaxOut"):
+        assert limit in entry, limit
 
 
 @pytest.mark.parametrize("name", ["nerf_render.cu", "nerf_render_int8.cu"])
@@ -139,13 +152,13 @@ def _r2l(**kw) -> R2LConfig:
     (dict(netwidth=64, n_learnable=1), False, 10, True, False),
     (dict(netwidth=128, n_learnable=3), False, 10, True, False),
     (dict(netwidth=256, n_learnable=0), False, 10, False, False),
-    (dict(netwidth=512), False, 10, False, False),
-    (dict(netwidth=384), True, 10, False, False),
+    (dict(netwidth=512), False, 10, True, False),
+    (dict(netwidth=384), True, 10, True, False),
     (dict(netwidth=256, act="lrelu"), False, 10, False, False),
     (dict(netwidth=256, inact="lrelu"), False, 10, False, False),
     (dict(netwidth=256, outact="relu"), False, 10, False, False),
     (dict(netwidth=256, body_arch="mlp"), False, 10, False, False),
-    (dict(netwidth=64), True, 64, False, False),
+    (dict(netwidth=64), True, 64, True, False),
     (dict(netwidth=48), True, 63, True, False),
     (dict(netwidth=64), False, 64, True, True),
     (dict(netwidth=64), False, 0, False, False),
@@ -158,13 +171,16 @@ def test_student_predicates(kw, int8, L, frame, train):
 
 @pytest.mark.parametrize("width,want", [
     (8, 64), (32, 64), (64, 64), (65, 128), (96, 128), (128, 128),
-    (200, 256), (256, 256), (257, None), (512, None)])
+    (200, 256), (256, 256), (257, 384), (512, 512)])
 def test_kernel_width_is_the_next_kernel(width, want):
+    """The frame kernels' width (above 256 their wide form's, at the next
+    multiple of 128); the teacher kernels' (none above 256)."""
     assert F.kernel_width(width) == want
+    assert F.wide_form(width) == (width > 256)
     cfg = _r2l(netwidth=width)
-    assert F.kernel_cfg(cfg).netwidth == (want or width)
-    assert (F.kernel_cfg(cfg) is cfg) == (want in (None, width))
-    t_want = None if want is None else max(want, 128)
+    assert F.kernel_cfg(cfg).netwidth == want
+    assert (F.kernel_cfg(cfg) is cfg) == (want == width)
+    t_want = None if width > 256 else max(want, 128)
     assert NR.teacher_kernel_width(width) == t_want
     tcfg = NeRFConfig(W=width)
     assert NR.teacher_kernel_cfg(tcfg).W == (t_want or width)
@@ -206,8 +222,8 @@ def _student(width, dtype, depth=6, **kw):
 CASES = {   # name: (width, depth, extra config, warnings of pe, of int8)
     # narrower than a kernel width: K1/K2 at 128, as JAX's kernels
     "w96": (96, 6, {}, [], []),
-    # wider than the kernels: JAX's kernels take it, so does the port on
-    # the CPU (the kernels' plain versions); the card raises (below)
+    # wider than the kernels: JAX's kernels take it, so does the port (on
+    # the card the kernels' wide form; here their plain versions)
     "w512": (512, 6, {}, [], []),
     # the README's depth at W512: JAX's kernels do not fit it, both plain
     "w512_d88": (512, 88, {}, [K1_WARNING], [K2_WARNING, K1_WARNING]),
@@ -243,8 +259,9 @@ def test_student_frame_takes_jaxs_path(case, flags, dtype, capsys):
     assert len(warnings) == len(want)
     for got, prefix in zip(warnings, want):
         assert got.startswith(prefix), got
-        assert f"not netwidth {width}" in got and "64, 128, 256" in got
-        assert "JAX package renders this model plain too" in got
+        assert f"(netwidth {width} with" in got and "64, 128, 256" in got
+        assert "JAX package renders this model" in got
+        assert "and so does the port" in got
     jfn = JE.make_r2l_frame_fn(params, jcfg, jsampler, use_pallas=True,
                                quantize=quantize, calib_poses=POSES)
     deep = depth > 6 and dtype == "bf16"
@@ -292,21 +309,41 @@ def test_student_bench_and_givenrays_inherit_the_gate(case, capsys):
 
 
 @pytest.mark.parametrize("quantize", ["", "int8"])
-@pytest.mark.parametrize("depth,raises", [(6, True), (88, False)])
-def test_wide_student_on_the_card(depth, raises, quantize, monkeypatch,
+@pytest.mark.parametrize("depth,on_kernel", [(6, True), (88, False)])
+def test_wide_student_on_the_card(depth, on_kernel, quantize, monkeypatch,
                                   capsys):
     """The gate as on the card (the model's device read as CUDA; nothing
-    is packed or launched): a W512 student that the JAX package renders
-    on its kernels raises NotImplementedError before anything is packed;
+    is launched): a W512 student that the JAX package renders on its
+    kernels is packed for the frame kernels' wide form (the packer run on
+    the CPU at the wide width, ``pad=True``, its image the wide form's);
     one that it renders plain goes plain with the warnings."""
     _, _, cfg, model = _student(512, jnp.bfloat16, depth)
     monkeypatch.setattr(TE, "_model_device", lambda m: torch.device("cuda"))
-    monkeypatch.setattr(TE, "calibrate_r2l_int8_pe", None)
-    monkeypatch.setattr(TE, "prepare_fused_params_pe", None)
+    packed = []
+
+    def packer(real):
+        return lambda *a, **k: packed.append(real(*a, pad=True, **k)) or \
+            packed[-1]
+    monkeypatch.setattr(TE, "calibrate_r2l_int8_pe",
+                        packer(F.calibrate_r2l_int8_pe) if on_kernel
+                        else None)
+    monkeypatch.setattr(TE, "prepare_fused_params_pe",
+                        packer(F.prepare_fused_params_pe) if on_kernel
+                        else None)
+    monkeypatch.setattr(TE, "_calibration_points", lambda s, p, d: torch.zeros(
+        (64, 48)).uniform_(-1.5, 1.5, generator=torch.Generator().manual_seed(
+            0)))
     sampler = PointSampler(**SAMPLER)
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP C1"):
-            TE._prepare_r2l(model, cfg, sampler, 10, False, True, quantize)
+    if on_kernel:
+        prepared, kind, _ = TE._prepare_r2l(model, cfg, sampler, 10, False,
+                                            True, quantize)
+        assert kind == ("int8" if quantize else "pe")
+        assert packed == [prepared] and F.wide_form(512)
+        wd = torch.int8 if quantize else torch.bfloat16
+        assert prepared.staged.numel() == F.wide_stage_plan(cfg, wd)[
+            "nbytes"]
+        if quantize:
+            assert prepared.staged_for == "wide"
         return
     capsys.readouterr()
     _, kind, _ = TE._prepare_r2l(model, cfg, sampler, 10, False, True,
@@ -615,12 +652,13 @@ LRELU = _r2l(netwidth=256, act="lrelu")
 NARROW = _r2l(netwidth=96)
 WRAPPERS = {
     "K1": (lambda cfg: F.fused_r2l_apply_pe(None, cfg, _meta(8, 48), 48, 10),
-           lambda: [F.fused_r2l_apply_pe]),
+           lambda: [F.fused_r2l_apply_pe, F.fused_r2l_apply_pe_wide]),
     "K9": (lambda cfg: F.fused_r2l_apply(None, cfg, _meta(8, 1008)),
-           lambda: [F.fused_r2l_apply]),
+           lambda: [F.fused_r2l_apply, F.fused_r2l_apply_wide]),
     "K2": (lambda cfg: F.fused_r2l_apply_int8_pe(None, cfg, _meta(8, 48),
                                                  48, 10),
-           lambda: [F.fused_r2l_apply_int8_pe]),
+           lambda: [F.fused_r2l_apply_int8_pe,
+                    F.fused_r2l_apply_int8_pe_wide]),
     "K3": (lambda cfg: T.train_fwd(None, cfg, _meta(8, 48), 48, 10),
            lambda: [T.train_fwd]),
     "K4/K8": (lambda cfg: T.train_fwd_int8(None, cfg, _meta(8, 48), 48, 10),
@@ -641,12 +679,18 @@ def _counts(fns) -> list[int]:
     (k, NARROW) for k in ("K3", "K4/K8", "K5")],
     ids=lambda x: x if isinstance(x, str) else f"w{x.netwidth}_{x.act}")
 def test_student_wrappers_refuse_before_any_launch(kernel, cfg):
-    """W512 and lrelu: every wrapper; W96: the training kernels, which pad
-    nothing (the frame kernels take it at 128)."""
+    """lrelu: every wrapper; W512 and W96: the training kernels, which pad
+    nothing (the frame kernels take W96 at 128, and W512 on their wide
+    form: given no packing, it stops at its image before any launch)."""
     call, fns = WRAPPERS[kernel]
     before = _counts(fns())
-    with pytest.raises(NotImplementedError, match="64, 128, 256"):
-        call(cfg)
+    if cfg is WIDE and kernel in ("K1", "K9", "K2"):
+        assert F.fused_frame_supported(cfg, kernel == "K2")
+        with pytest.raises(ValueError, match="image of the wide form"):
+            call(cfg)
+    else:
+        with pytest.raises(NotImplementedError, match="64, 128, 256"):
+            call(cfg)
     assert _counts(fns()) == before
 
 
