@@ -12,7 +12,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the sixteen CUDA libraries from ``r2l_tpu_torch/kernels/
+2. Build: compile the eighteen CUDA libraries from ``r2l_tpu_torch/kernels/
    csrc`` into ``build/`` in parallel and print the build time and the
    compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
@@ -271,10 +271,11 @@ Phases, in order; any failure raises and exits non-zero:
    plain step): each plain (kind ``jnp``, finite, the gates' warnings
    captured), launching no kernel. A W512/D6 student's frames, which the
    JAX package renders on its kernels, run on the frame kernels' wide form
-   (one launch of K1's or K2's a frame); a W512/D88 ``--fused_train_vjp``
-   step, a W512 teacher's frame and datagen pose, and each training and
-   teacher wrapper called directly at W512 raise NotImplementedError with
-   no counter moved. Then the canonical W256/D88 student's frames (pe,
+   (one launch of K1's or K2's a frame); a W512 teacher's frame and
+   datagen pose, and the teacher wrapper called directly at W512, raise
+   NotImplementedError with no counter moved (the W512/D88
+   ``--fused_train_vjp`` step runs on the training kernels' wide form:
+   phase 22). Then the canonical W256/D88 student's frames (pe,
    int8) and fused step and the README's teacher's datagen poses (f32,
    int8) launch K1, K2, K3, K5, K6 and K7 as before. ``[main] refused``
    lines: ms of each plain path (CUDA events), beside the card's name and
@@ -294,6 +295,26 @@ Phases, in order; any failure raises and exits non-zero:
    ``make_r2l_givenrays_frame_fn``, each on its wide form. ``[main] wide``
    lines: ms/frame, kernel and plain ms (CUDA events), the bound and what
    sets it, max-abs, beside the card's name and power limit.
+
+22. Wide training steps (ROADMAP C1, training side), at full size: the
+   W512/D88 student (43 blocks), which JAX's ``--fused_train_vjp`` gate
+   admits and trains on its kernels, at 81,920 rays a step. The training
+   kernels' wide form (``csrc/r2l_wide_train.cu``: K3, K4/K8;
+   ``csrc/r2l_wide_bwd.cu``: K5) on one step's points against its plain
+   version: K3 bf16 (3e-2) and f32 (1e-5, ``[margin]`` lines over two
+   seeds of the weights), K4 and K8 bit for bit, K5 on the five stash
+   kinds of phase 5 (a 4-block group run twice to the same bits, and the
+   whole walk; f32 with a ``[margin]`` line against float64), each timed
+   beside its plain version, its bound and its image's staging. Then
+   ``make_distill_step`` in xla, ``fused``, ``fused_int8``,
+   ``fused_int8_bf16stash`` and ``fused_f32``: one wide K3/K4/K8 launch and
+   11 of K5 a step and none of the chain kernels, the first-step loss of
+   the bf16 fused kinds against xla's (``RTOL_LOSS``), two copies of the
+   state run 2 steps bit-identical, 3 timed steps, peak memory; a
+   W1024/D6 and a W384/D44 fused step beside their xla step. ``[main]
+   wide train`` lines: ms/step, the wide kernels' ms for a step (the
+   forward and the K5 walk), the plain versions' and the bound, peak
+   memory, beside the card's name and power limit.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -1306,7 +1327,8 @@ def k48_bits(label: str, rgb, rgb_p, stash, stash_p) -> dict:
     """Print how many of K4's or K8's outputs differ from the plain
     version's at all (the design keeps every rounding: bit for bit)."""
     d_rgb = int((rgb != rgb_p).sum())
-    d_st = int((stash.view(torch.uint8) != stash_p.view(torch.uint8)).sum())
+    d_st = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+               for a, b in zip(stash, stash_p))   # a row at a time
     print(f"[check] {label} vs plain, bit for bit: {d_rgb} of {rgb.numel()} "
           f"rgb values and {d_st} of {stash.numel() * stash.element_size()} "
           "stash bytes differ" + (" (bit for bit)" if d_rgb == d_st == 0
@@ -4106,10 +4128,11 @@ def phase_exp(dev) -> dict:
 # Phase 20: shapes off the kernels' native widths (ROADMAP C1), at full
 # size. A narrower student or teacher runs on the kernels at the next width,
 # its extra channels zero; a wider student's frame runs on the frame
-# kernels' wide form (phase 21); a wider one, or other activations, renders
-# plain where the JAX package renders it plain, and raises
-# NotImplementedError where the JAX package runs a kernel that the port's
-# kernels do not take (the training and teacher kernels above W256).
+# kernels' wide form (phase 21), its training step on the training
+# kernels' (phase 22); a wider one, or other activations, renders plain
+# where the JAX package renders it plain, and raises NotImplementedError
+# where the JAX package runs a kernel that the port's kernels do not take
+# (the teacher kernels above W256).
 WIDE = 512                 # wider than every kernel width
 PADDED_WIDTH = 96          # a student width the frame kernels take at 128
 PADDED_TEACHER_W = 64      # a teacher width K6/K7 take at 128
@@ -4117,10 +4140,10 @@ PADDED_TEACHER_W = 64      # a teacher width K6/K7 take at 128
 
 def refused_counts() -> dict:
     """Every student and teacher kernel's launch counter (K1-K9, and the
-    frame kernels' wide forms)."""
+    frame and training kernels' wide forms)."""
     from r2l_tpu_torch.kernels import r2l_fused as F
     return {**exp_counts(), "K9": F.fused_r2l_apply.launches,
-            **wide_counts()}
+            **wide_counts(), **wide_train_counts()}
 
 
 def moved_since(start: dict) -> dict:
@@ -4235,13 +4258,12 @@ def wide_paths(sampler, poses, dev) -> dict:
     kernels, run on the frame kernels' wide form (one launch a frame of
     K1's or K2's, none of K1 or K2); what the JAX package runs on its
     kernels and the port's kernels do not take raises before anything is
-    packed: a W512/D88 ``--fused_train_vjp`` step (which JAX's gate
-    admits), a W512 teacher's frame and datagen pose. -> the frames'
-    launches."""
+    packed: a W512 teacher's frame and datagen pose (the W512/D88
+    ``--fused_train_vjp`` step runs on the training kernels' wide form:
+    phase 22). -> the frames' launches."""
     from r2l_tpu_torch.datagen import generate_pseudo_data
     from r2l_tpu_torch.evaluate import make_nerf_frame_fn, make_r2l_frame_fn
     from r2l_tpu_torch.models import NeRFConfig, R2LConfig, init_nerf, init_r2l
-    from r2l_tpu_torch.train import fused_vjp_gate, make_distill_step
     cfg = R2LConfig(netdepth=6, netwidth=WIDE, compute_dtype=torch.bfloat16)
     model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
     launched = {}
@@ -4260,13 +4282,6 @@ def wide_paths(sampler, poses, dev) -> dict:
         if not ok:
             raise AssertionError(f"W{WIDE}/D6 frame: {fn.kind} {moved}")
         launched[kernel] = 1
-    deep = R2LConfig(netwidth=WIDE, compute_dtype=torch.bfloat16)
-    if not fused_vjp_gate(True, deep, False):
-        raise AssertionError("JAX's gate refused W512/D88")
-    expect_not_implemented(
-        f"W{WIDE}/D88 --fused_train_vjp step",
-        lambda: make_distill_step(deep, distill_cfg()[0], sampler,
-                                  fused_vjp=True, device=dev))
     tcfg = NeRFConfig(W=WIDE)
     mc = init_nerf(tcfg, torch.Generator().manual_seed(SEED + 52), dev)
     expect_not_implemented(
@@ -4406,36 +4421,19 @@ def padded_teacher(poses, dev, res) -> dict:
 
 
 def refused_wrappers(dev) -> None:
-    """Each training and teacher wrapper called directly at W512 on CUDA
-    tensors: NotImplementedError, no counter moved (the frame wrappers take
-    W512 on their wide form: phase 21)."""
+    """The teacher wrapper called directly at W512 on CUDA tensors:
+    NotImplementedError, no counter moved (the frame wrappers take W512 on
+    their wide form, phase 21, and the training wrappers on theirs, phase
+    22)."""
     from r2l_tpu_torch.kernels import nerf_render as NR
-    from r2l_tpu_torch.kernels import r2l_fused as F
-    from r2l_tpu_torch.kernels import r2l_train as T
-    from r2l_tpu_torch.models import NeRFConfig, R2LConfig, init_r2l
-    from r2l_tpu_torch.sampler import PointSampler
-    cfg = R2LConfig(netdepth=8, netwidth=WIDE, compute_dtype=torch.bfloat16)
-    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
-    sampler = PointSampler(H=64, W=64, focal=80.0, n_sample=N_SAMPLE,
-                           near=2.0, far=6.0)
-    pts = sampler.sample_test(torch.as_tensor(lego_poses(1)[0], device=dev))
-    dp, L, n, nb = 3 * N_SAMPLE, EMBED_L, pts.shape[0], cfg.num_blocks
-    fp = F.prepare_fused_params_pe(model, cfg, dp, L, stage=False)
-    fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L, pts, stage=False)
-    stash = torch.zeros((2 * nb + 1, n, WIDE), dtype=torch.bfloat16,
-                        device=dev)
-    dh = torch.zeros((n, WIDE), device=dev)
+    n = 64 * 64
+    from r2l_tpu_torch.models import NeRFConfig
     tcfg = NeRFConfig(W=WIDE)
     z = torch.linspace(2.0, 6.0, T_SAMPLES, device=dev).expand(n, -1)
     ones = torch.ones((n, 3), device=dev)
-    calls = {"K3": lambda: T.train_fwd(fp, cfg, pts, dp, L),
-             "K4": lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, True),
-             "K8": lambda: T.train_fwd_int8(fp8, cfg, pts, dp, L, False),
-             "K5": lambda: T.bwd_group(fp.body_w, stash, dh, cfg, 0, 1),
-             "K6": lambda: NR.fused_nerf_render(None, tcfg, ones, ones,
-                                                z.contiguous())}
-    for name, call in calls.items():
-        expect_not_implemented(f"{name} at W{WIDE}", call)
+    expect_not_implemented(
+        f"K6 at W{WIDE}", lambda: NR.fused_nerf_render(
+            None, tcfg, ones, ones, z.contiguous()))
 
 
 def canonical_paths(sampler, poses, dev) -> dict:
@@ -4500,8 +4498,8 @@ def phase_refused(smi: str, sampler, poses, dev) -> dict:
     """Phase 20: shapes off the kernels' native widths, at full size: the
     padded ones launch their kernels, the ones both packages render plain
     launch nothing, a W512/D6 student's frames run on the frame kernels'
-    wide form, the training and teacher shapes only the JAX package's
-    kernels take raise; the canonical paths launch as before."""
+    wide form, the teacher shapes only the JAX package's kernels take
+    raise; the canonical paths launch as before."""
     from r2l_tpu_torch.models import R2LConfig, init_r2l
     t_phase = time.perf_counter()
     res = {"device": smi}
@@ -4745,6 +4743,399 @@ def phase_wide(smi: str, sampler, poses, dev) -> dict:
     return res
 
 
+# Phase 22: wide training steps (ROADMAP C1, training side), at full size:
+# the W512/D88 student (the README's depth at 512, 43 blocks), which JAX's
+# --fused_train_vjp gate admits and trains on its kernels, at the canonical
+# 81,920 rays a step, through make_distill_step in the four fused kinds and
+# xla, on the training kernels' wide form (csrc/r2l_wide_train.cu, K3 and
+# K4/K8; csrc/r2l_wide_bwd.cu, K5); each wide kernel against its plain
+# version on one step's points at the training kernels' tolerances; then a
+# W1024/D6 and a W384/D44 fused step.
+WIDE_TRAIN_DEPTH = 88
+WIDE_TRAIN_TIMED = 3         # timed steps a kind, after the first
+WIDE_TRAIN_REPEAT = 2        # steps each of the two copies runs
+WIDE_TRAIN_OTHERS = (("W1024/D6", 1024, 6), ("W384/D44", 384, 44))
+
+
+def wide_train_counts() -> dict:
+    """The launch counters of the training kernels' wide forms."""
+    from r2l_tpu_torch.kernels import r2l_train as T
+    return {"K3w": T.train_fwd_wide.launches,
+            "K4w": T.train_fwd_int8_wide.launches,
+            "K8w": T.train_fwd_int8_wide.launches_bf16,
+            "K5w": T.bwd_group_wide.launches}
+
+
+def wide_k5_row(kind: str, body_w, stash, dh, cfg, scale, img) -> dict:
+    """K5's wide form on one stash kind: the top 4-block group twice (bit
+    for bit) and against its plain version, timed with it; for f32 weights
+    the whole walk against the plain walk and both against float64
+    (``[margin]``)."""
+    from r2l_tpu_torch.kernels import r2l_train as T
+    nb, n, W, cnt = cfg.num_blocks, dh.shape[0], cfg.netwidth, 4
+    b0, f32 = nb - cnt, body_w.dtype == torch.float32
+
+    def group(fn):
+        kw = {"staged": img} if fn is T.bwd_group else {}
+        return fn(body_w, stash, dh, cfg, b0, cnt, body_scale=scale, **kw)
+
+    def walk(fn):
+        return k5_walk(fn, body_w, stash, dh, cfg, cnt, scale, img)
+
+    got, again = group(T.bwd_group), group(T.bwd_group)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K5 wide {kind}: two runs differ")
+    info = check_grads(f"K5 wide {kind}, blocks {b0}..{nb - 1} vs plain",
+                       got, group(T.bwd_group_ref), f32)
+    w_got = walk(T.bwd_group)
+    info_walk = check_grads(f"K5 wide {kind}, whole body walk vs plain",
+                            w_got, walk(T.bwd_group_ref), f32)
+    if f32:
+        exact = k5_walk_f64(body_w, stash, dh, cfg)
+        sides = {"kernel": [grad_err(g, e)[0] for g, e in zip(w_got, exact)],
+                 "plain": [grad_err(g, e)[0] for g, e in
+                           zip(walk(T.bwd_group_ref), exact)]}
+        del exact
+        info_walk["vs_f64"] = sides
+        print(f"[margin] K5 wide {kind} W{W}/D{2 * nb + 2}: walk vs plain "
+              f"{info_walk['norm_rel_err']:.3e} "
+              f"({info_walk['norm_rel_err'] / TOL_GRAD_F32:.0%} of "
+              f"{TOL_GRAD_F32:.0e}); vs float64 (dh, dW, db): " + "; ".join(
+                  f"{k} " + " ".join(f"{e:.3e}" for e in v)
+                  for k, v in sides.items()), flush=True)
+    del w_got
+    moved = (nbytes(dh, *got, body_w[2 * b0:]) + nbytes(stash[0]) * 2 * cnt
+             + (nbytes(scale[2 * b0:]) if scale is not None else 0))
+    ops = 4.0 * n * W * W * 2 * cnt
+    return {**info, "walk_norm_rel_err": info_walk["norm_rel_err"],
+            "walk_vs_f64": info_walk.get("vs_f64"),
+            "ms": time_ms(lambda: group(T.bwd_group)),
+            "plain_ms": time_ms(lambda: group(T.bwd_group_ref)),
+            "walk_ms": time_ms(lambda: walk(T.bwd_group), reps=1),
+            "stage_ms": time_ms(lambda: T.stage_bwd_weights(body_w)),
+            **bound(3 * ops if f32 else ops, moved, "tf32" if f32 else "bf16"),
+            "library_ms": None}
+
+
+def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
+    """Phase 22's kernels against their plain versions at one step's points
+    (81,920 rays) of the W512/D88 student: K3's wide form (bf16, f32 with
+    its ``[margin]`` lines over two seeds of the weights), K4's and K8's bit
+    for bit, K5's on the five stash kinds of phase 5; each timed beside its
+    plain version and its bound, and each image's staging."""
+    from r2l_tpu_torch.exp._harness import chain_ops
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.kernels import r2l_train as T
+    from r2l_tpu_torch.models import init_r2l
+    from r2l_tpu_torch.train import fused_int8_calib_points
+    dp, L, nb, width = N_SAMPLE * 3, EMBED_L, cfg.num_blocks, cfg.netwidth
+    pts = train_points(cfg, sampler, dev)
+    n = pts.shape[0]
+    ops = chain_ops(cfg, n, cfg.input_dim)
+    res, stashes = {}, {}
+    for wd, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
+                                       pad=False)
+        c0 = wide_train_counts()["K3w"]
+        rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
+        if wide_train_counts()["K3w"] != c0 + 1:
+            raise AssertionError("train_fwd did not take its wide form")
+        rgb_p, stash_p = T.train_fwd_ref(fp, cfg, pts, dp, L)
+        tol = TOL_TRAIN_F32 if kind == "f32" else TOL_TRAIN_BF16
+        err = deltas(rgb, rgb_p)[0]
+        check(f"K3 wide {kind} rgb vs plain", err, 0.0, tol)
+        row = k3_row_errs(stash, stash_p, kind)
+        check(f"K3 wide {kind} stash, worst of {stash.shape[0]} rows"
+              + (" (relative to the row's largest)" if kind == "bf16"
+                 else ""), float(row.max()), 0.0, tol)
+        del stash_p
+        moved = nbytes(pts, rgb, stash, fp.staged, fp.head_b, fp.body_b,
+                       fp.tail_w, fp.tail_b)
+        r = res[f"train_fwd_wide_{kind}"] = {
+            "max_abs_err": err, "stash_row_err": float(row.max()),
+            "ms": time_ms(lambda: T.train_fwd(fp, cfg, pts, dp, L), reps=2),
+            "plain_ms": time_ms(lambda: T.train_fwd_ref(fp, cfg, pts, dp, L),
+                                reps=1),
+            "stage_ms": time_ms(lambda: F.stage_wide_chain(fp)),
+            **bound(3 * ops if kind == "f32" else ops, moved,
+                    "tf32" if kind == "f32" else "bf16"),
+            "library_ms": None}
+        if kind == "f32":
+            r["margin"] = {"seed 0": k3_margin_line(
+                f"wide W{width}/D{WIDE_TRAIN_DEPTH} (seed 0)", err, row, nb)}
+            m1 = init_r2l(cfg, torch.Generator().manual_seed(SEED + 81), dev)
+            fp1 = F.prepare_fused_params_pe(m1, cfg, dp, L, weight_dtype=wd,
+                                            pad=False)
+            rgb1, st1 = T.train_fwd(fp1, cfg, pts, dp, L)
+            rgb1p, st1p = T.train_fwd_ref(fp1, cfg, pts, dp, L)
+            e1, row1 = deltas(rgb1, rgb1p)[0], k3_row_errs(st1, st1p, "f32")
+            r["margin"]["seed 1"] = k3_margin_line(
+                f"wide W{width}/D{WIDE_TRAIN_DEPTH} (weights seed 1)", e1, row1,
+                nb)
+            check("K3 wide f32 weights seed 1: rgb and every stash row vs "
+                  "plain", max(e1, float(row1.max())), 0.0, TOL_TRAIN_F32)
+            del m1, fp1, rgb1, st1, rgb1p, st1p
+        stashes[kind] = (fp.body_w, stash)
+        del fp
+        torch.cuda.empty_cache()
+
+    calib = fused_int8_calib_points(H, W, FOCAL, N_SAMPLE, 2.0, 6.0,
+                                    poses, dev)
+    fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L, calib,
+                                  fold_requant=False, stage=False, pad=False)
+    for q, name in ((True, "train_fwd_int8_wide"),
+                    (False, "train_fwd_int8_wide_bf16")):
+        fpq = F.stage_int8_train(fp8, cfg, dp, L, q)
+        if fpq.staged_for != "wide":
+            raise AssertionError(f"{name}: staged for {fpq.staged_for}")
+        label = "K4" if q else "K8"
+        rgb, stash = T.train_fwd_int8(fpq, cfg, pts, dp, L, stash_q=q)
+        rgb_p, stash_p = T.train_fwd_int8_ref(fp8, cfg, pts, dp, L,
+                                              stash_q=q)
+        check(f"{label} wide rgb vs plain", *deltas(rgb, rgb_p),
+              TOL_INT8_MAX, TOL_INT8_RMS)
+        bits = k48_bits(f"{label} wide", rgb, rgb_p, stash, stash_p)
+        if bits["rgb_differ"] or bits["stash_bytes_differ"]:
+            raise AssertionError(f"{label} wide: not bit for bit")
+        del stash_p
+        res[name] = {
+            "max_abs_err": deltas(rgb, rgb_p)[0], **bits,
+            "ms": time_ms(lambda: T.train_fwd_int8(fpq, cfg, pts, dp, L,
+                                                   stash_q=q), reps=2),
+            "plain_ms": time_ms(lambda: T.train_fwd_int8_ref(
+                fp8, cfg, pts, dp, L, stash_q=q), reps=1),
+            "stage_ms": time_ms(lambda: F.stage_int8_train(fp8, cfg, dp, L,
+                                                           q)),
+            **bound(ops, nbytes(pts, rgb, stash, fpq.staged, fp8.head_inv,
+                                fp8.body_inv, fp8.tail_q, fp8.tail_m,
+                                fp8.tail_b, fp8.tail_inv), "int8"),
+            "library_ms": None}
+        stashes["int8" if q else "int8_bf16"] = (stashes["bf16"][0], stash)
+        del fpq
+    stashes["int8_bf16_f32w"] = (stashes["f32"][0], stashes["int8_bf16"][1])
+    scale8 = 1.0 / fp8.body_inv
+    torch.cuda.empty_cache()
+
+    dh = torch.randn((n, width), generator=torch.Generator(dev).manual_seed(
+        SEED + 2), device=dev)
+    for kind in ("bf16", "f32", "int8", "int8_bf16", "int8_bf16_f32w"):
+        body_w, stash = stashes.pop(kind)
+        img = T.stage_bwd_weights(body_w)
+        res[f"bwd_group_wide_{kind}"] = wide_k5_row(
+            kind, body_w, stash, dh, cfg, scale8 if kind == "int8" else None,
+            img)
+        del body_w, stash, img
+        torch.cuda.empty_cache()
+    for key, r in res.items():
+        print(f"[time] wide {key}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}) at {n} rays; staging {r['stage_ms']:.3f} ms"
+              + (f"; whole walk {r['walk_ms']:.3f} ms" if "walk_ms" in r
+                 else ""), flush=True)
+    return res
+
+
+def wide_train_step(label: str, cfg, dcfg, sampler, kw: dict, batches,
+                    draws, dev, timed: int, repeat: int) -> dict:
+    """``make_distill_step`` on ``cfg`` with ``kw``: the first step's loss
+    and the wide forms' launches in it, ``repeat`` steps on two copies of
+    the state after it (bit-identical), then ``timed`` steps (CUDA events);
+    the peak memory."""
+    from r2l_tpu_torch.models import init_r2l
+    from r2l_tpu_torch.train import (clone_train_state, init_train_state,
+                                     make_distill_step)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    state = init_train_state(model, dcfg, device=dev)
+    step = make_distill_step(cfg, dcfg, sampler, device=dev, **kw)
+    c0, n0 = wide_train_counts(), refused_counts()
+    state, m = step(state, batches[0], draws=draws[0])
+    torch.cuda.synchronize()
+    launched = {k: v - c0[k] for k, v in wide_train_counts().items()}
+    narrow = {k: v - n0[k] for k, v in refused_counts().items()
+              if k in ("K3", "K4", "K5", "K8") and v != n0[k]}
+    if narrow:
+        raise AssertionError(f"{label}: the chain kernels launched {narrow}")
+    r = {"first_loss": float(m["loss"]), "launches_first_step": launched}
+    if repeat:
+        runs = []
+        for s0 in (clone_train_state(state), clone_train_state(state)):
+            for i in range(1, 1 + repeat):
+                s0, _ = step(s0, batches[i], draws=draws[i])
+            runs.append(s0)
+        same = all(torch.equal(a, b) for a, b in zip(
+            runs[0].params.state_dict().values(),
+            runs[1].params.state_dict().values())) and torch.equal(
+            runs[0].pool.rays, runs[1].pool.rays)
+        print(f"[check] {label}: two copies of the state, {repeat} steps "
+              "each: " + ("bit-identical ok" if same else "DIFFER"),
+              flush=True)
+        if not same:
+            raise AssertionError(f"{label}: repeated steps differ")
+        r["repeat_bit_identical"] = same
+        del runs
+    c1 = wide_train_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    losses = []
+    for i in range(1, 1 + timed):
+        state, m = step(state, batches[i], draws=draws[i])
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    losses = [r["first_loss"]] + [float(x) for x in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    r.update(ms_per_step=start.elapsed_time(end) / timed, losses=losses,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             launches_timed={k: v - c1[k]
+                             for k, v in wide_train_counts().items()})
+    del state, step, model
+    torch.cuda.empty_cache()
+    return r
+
+
+def wide_train_steps(smi: str, cfg, sampler, poses, dev) -> dict:
+    """The W512/D88 student's step in xla and the four fused kinds (and
+    ``fused`` at the CLI's default f32), then a W1024/D6 and a W384/D44
+    fused bf16 step beside their xla step: the first-step losses against
+    xla's, one wide K3/K4/K8 launch and ceil(nb / 4) of K5 a step, none of
+    the chain kernels, bit-identical repeats, ms/step, peak memory."""
+    from r2l_tpu_torch.train import (draw_step, fused_int8_calib_points,
+                                     fused_vjp_gate)
+    dcfg, n_out = distill_cfg()
+    calib = fused_int8_calib_points(H, W, FOCAL, N_SAMPLE, 2.0, 6.0,
+                                    poses, dev)
+    int8 = {"fused_vjp": True, "fused_quantize": "int8",
+            "fused_calib_pts": calib}
+    kinds = {"xla": {}, "fused": {"fused_vjp": True}, "fused_int8": int8,
+             "fused_int8_bf16stash": {**int8, "fused_stash_q": False},
+             "fused_f32": {"fused_vjp": True}}
+    fwd = {"fused": "K3w", "fused_f32": "K3w", "fused_int8": "K4w",
+           "fused_int8_bf16stash": "K8w"}
+    k = 1 + max(WIDE_TRAIN_TIMED, WIDE_TRAIN_REPEAT)
+    batches = np.split(synthetic_rays(k * (N_RAND - n_out), SEED + 80), k)
+    draws = [draw_step(dcfg, N_SAMPLE, torch.Generator(dev).manual_seed(
+        300 + i)) for i in range(k)]
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    out, groups = {}, -(-cfg.num_blocks // 4)
+    for kind, kw in kinds.items():
+        kcfg = cfg32 if kind == "fused_f32" else cfg
+        if kw and not fused_vjp_gate(True, kcfg, False):
+            raise AssertionError(f"{kind}: the fused gate refused W512/D88")
+        r = out[kind] = wide_train_step(
+            f"W{cfg.netwidth}/D{WIDE_TRAIN_DEPTH} {kind}", kcfg, dcfg,
+            sampler, kw, batches, draws, dev, WIDE_TRAIN_TIMED,
+            WIDE_TRAIN_REPEAT if kw else 0)
+        want = ({k2: 0 for k2 in ("K3w", "K4w", "K8w", "K5w")} if not kw
+                else {**{k2: 0 for k2 in ("K3w", "K4w", "K8w")},
+                      fwd[kind]: 1, "K5w": groups})
+        if r["launches_first_step"] != want:
+            raise AssertionError(f"{kind}: launched {r['launches_first_step']}"
+                                 f", expected {want}")
+        if kind in RTOL_LOSS:
+            first = out["xla"]["first_loss"]
+            rel = abs(r["first_loss"] - first) / abs(first)
+            ok = rel <= RTOL_LOSS[kind]
+            print(f"[check] W{cfg.netwidth}/D{WIDE_TRAIN_DEPTH} {kind} "
+                  f"first-step loss {r['first_loss']:.6f} vs xla "
+                  f"{first:.6f}: relative {rel:.2e} (tol "
+                  f"{RTOL_LOSS[kind]:.0e})" + (" ok" if ok else " FAILED"),
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{kind} first-step loss off xla's")
+            r["rel_to_xla"] = rel
+        print(f"[main] wide train W{cfg.netwidth}/D{WIDE_TRAIN_DEPTH} {kind}:"
+              f" {r['ms_per_step']:.3f} ms/step (CUDA events), first loss "
+              f"{r['first_loss']:.6f}, launches a step "
+              f"{r['launches_first_step']}, peak {r['peak_mem_gb']:.2f} GB "
+              f"({smi})", flush=True)
+    from r2l_tpu_torch.models import R2LConfig
+    for label, width, depth in WIDE_TRAIN_OTHERS:
+        ocfg = R2LConfig(netdepth=depth, netwidth=width,
+                         compute_dtype=torch.bfloat16)
+        rows = {}
+        for kind, kw in (("xla", {}), ("fused", {"fused_vjp": True})):
+            rows[kind] = wide_train_step(f"{label} {kind}", ocfg, dcfg,
+                                         sampler, kw, batches, draws, dev, 2,
+                                         WIDE_TRAIN_REPEAT if kw else 0)
+        r = rows["fused"]
+        want = {"K3w": 1, "K4w": 0, "K8w": 0,
+                "K5w": -(-ocfg.num_blocks // 4)}
+        rel = abs(r["first_loss"] - rows["xla"]["first_loss"]) / abs(
+            rows["xla"]["first_loss"])
+        ok = r["launches_first_step"] == want and rel <= RTOL_LOSS["fused"]
+        print(f"[check] {label} fused step: launches {r['launches_first_step']}"
+              f" (expected {want}), first loss {r['first_loss']:.6f} vs xla "
+              f"{rows['xla']['first_loss']:.6f} (relative {rel:.2e}, tol "
+              f"{RTOL_LOSS['fused']:.0e})" + (" ok" if ok else " FAILED"),
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{label} fused step")
+        for kind, rr in rows.items():
+            print(f"[main] wide train {label} {kind}: {rr['ms_per_step']:.3f}"
+                  f" ms/step, peak {rr['peak_mem_gb']:.2f} GB ({smi})",
+                  flush=True)
+        out[label] = rows
+    return out
+
+
+def phase_wide_train(smi: str, sampler, poses, dev) -> dict:
+    """Phase 22: wide training steps at full size; ``[main] wide train``
+    lines with ms/step beside the wide kernels' time for one step (the
+    forward and the K5 walk), their plain time and bound, and peak memory,
+    beside the card's name and power limit."""
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    t_phase = time.perf_counter()
+    cfg = R2LConfig(netdepth=WIDE_TRAIN_DEPTH, netwidth=WIDE,
+                    compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+    kern = wide_train_kernels(cfg, model, sampler, poses, dev)
+    del model
+    torch.cuda.empty_cache()
+    steps = wide_train_steps(smi, cfg, sampler, poses, dev)
+    nb = cfg.num_blocks
+    walk_calls = -(-nb // 4)
+    for kind, fk, bk in (("fused", "train_fwd_wide_bf16", "bwd_group_wide_bf16"),
+                         ("fused_f32", "train_fwd_wide_f32",
+                          "bwd_group_wide_f32"),
+                         ("fused_int8", "train_fwd_int8_wide",
+                          "bwd_group_wide_int8"),
+                         ("fused_int8_bf16stash", "train_fwd_int8_wide_bf16",
+                          "bwd_group_wide_int8_bf16")):
+        f, b, r = kern[fk], kern[bk], steps[kind]
+        # the K5 walk: 10 calls of 4 blocks and one of 3, bounded as 11
+        # calls of the timed 4-block group
+        r["kernel_ms"] = f["ms"] + b["walk_ms"]
+        r["plain_kernel_ms"] = f["plain_ms"] + b["plain_ms"] * nb / 4
+        r["bound_kernel_ms"] = f["bound_ms"] + b["bound_ms"] * nb / 4
+        print(f"[main] wide train W{WIDE}/D{WIDE_TRAIN_DEPTH} {kind}: "
+              f"{r['ms_per_step']:.3f} ms/step; kernels {r['kernel_ms']:.3f} "
+              f"ms (forward {f['ms']:.3f} + K5 walk {b['walk_ms']:.3f}, "
+              f"{walk_calls} calls), plain {r['plain_kernel_ms']:.3f} ms, "
+              f"bound {r['bound_kernel_ms']:.3f} ms; peak "
+              f"{r['peak_mem_gb']:.2f} GB ({smi})", flush=True)
+    res = {"device": smi, "kernels": kern, "steps": steps,
+           "phase_s": time.perf_counter() - t_phase}
+
+    def launched(r, key):   # the first step's and the timed steps'
+        return r["launches_first_step"][key] + r["launches_timed"][key]
+    fused = [steps["fused"]] + [steps[lab]["fused"]
+                                for lab, _, _ in WIDE_TRAIN_OTHERS]
+    res["launches"] = {
+        "K3w_bf16": sum(launched(r, "K3w") for r in fused),
+        "K3w_f32": launched(steps["fused_f32"], "K3w"),
+        "K4w": launched(steps["fused_int8"], "K4w"),
+        "K8w": launched(steps["fused_int8_bf16stash"], "K8w"),
+        "K5w": sum(launched(r, "K5w") for r in fused + [
+            steps[k] for k in ("fused_f32", "fused_int8",
+                               "fused_int8_bf16stash")])}
+    print(f"[main] phase 22 took {res['phase_s']:.1f} s, wide training "
+          f"launches {res['launches']} ({smi})", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4826,6 +5217,8 @@ def main() -> int:
     refused = phase_refused(smi, sampler, poses, dev)
     torch.cuda.empty_cache()
     wide = phase_wide(smi, sampler, poses, dev)
+    torch.cuda.empty_cache()
+    wtrain = phase_wide_train(smi, sampler, poses, dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -4849,7 +5242,7 @@ def main() -> int:
         "bench_cuda": bench_line, "checkpoints": ck,
         "cli": {k: v for k, v in cli.items()},
         "llff_mesh": llff, "exp_drivers": exp, "refused_shapes": refused,
-        "wide_frames": wide}}))
+        "wide_frames": wide, "wide_train": wtrain}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4942,6 +5335,19 @@ def main() -> int:
         *(entry(f"fused_r2l_apply_wide_{kind}", "r2l_wide.cu",
                 "r2l_tpu/kernels/r2l_pallas.py:270", wl[f"K9w_{kind}"],
                 wide[f"api_{kind}"]) for kind in ("bf16", "f32")),
+        *(entry(name, source, tr + line, wtrain["launches"][key],
+                wtrain["kernels"][res])
+          for name, source, line, key, res in (
+              ("train_fwd_wide", "r2l_wide_train.cu", ":54", "K3w_bf16",
+               "train_fwd_wide_bf16"),
+              ("train_fwd_wide_f32", "r2l_wide_train.cu", ":54", "K3w_f32",
+               "train_fwd_wide_f32"),
+              ("train_fwd_int8_wide", "r2l_wide_train.cu", ":182", "K4w",
+               "train_fwd_int8_wide"),
+              ("train_fwd_int8_wide_bf16stash", "r2l_wide_train.cu", ":182",
+               "K8w", "train_fwd_int8_wide_bf16"),
+              ("bwd_group_wide", "r2l_wide_bwd.cu", ":356", "K5w",
+               "bwd_group_wide_bf16"))),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -281,9 +281,10 @@ def build_parser() -> argparse.ArgumentParser:
         help='route distillation forward+backward through the fused '
              'training kernels (K3 forward, K5 backward; single device, '
              'sampled points, the canonical two-layer resmlp body with '
-             'ReLU activations, netwidth 128 or 256); other netwidths '
-             'that are multiples of 128 stop with an error on the card, '
-             'any other student takes the plain step with a warning')
+             'ReLU activations, any netwidth that is a multiple of 128: '
+             '128 and 256 on the chain kernels, wider on their wide '
+             'form); any other student takes the plain step with a '
+             'warning')
     add('--fused_train_int8', type=_bool, nargs='?', const=True,
         default=False,
         help='with --fused_train_vjp: run the training forward in int8 '

@@ -46,6 +46,11 @@ KERNELS = {
     "r2l_wide": ("r2l_wide_launch",
                  [_P] + [_I] * 6 + [_P] * 11 + [_LL] + [_I] * 5 + [_F]
                  + [_I] * 3 + [_P]),
+    "r2l_wide_train": ("r2l_wide_train_fwd_launch",
+                       [_P] + [_I] * 5 + [_P] * 12 + [_LL] + [_I] * 3 + [_F]
+                       + [_I] * 2 + [_P]),
+    "r2l_wide_bwd": ("r2l_wide_bwd_launch",
+                     [_P] * 11 + [_I] * 3 + [_F] + [_I] * 3 + [_P]),
     "r2l_train_fwd": ("r2l_train_fwd_launch",
                       [_P, _I, _I, _I] + [_P] * 7 + [_LL, _P]
                       + [_I, _I, _I, _F, _I, _I, _I, _P]),

@@ -34,6 +34,26 @@
 // once a (ray, scalar) a slice up to the highest octave the slice holds;
 // K9 reads x [n, in_dim] f32 and rounds it to the compute type.
 //
+// The training kernels' wide form (r2l_wide_train.cu: K3, K4/K8; r2l_wide_bwd.cu:
+// K5) runs the same passes with epilogues of their own:
+//   K3 (bf16/f32): each layer's output goes straight to its stash row (h_0
+//   to row 0, block b's inner t to row nb+1+b, its output h to row b+1);
+//   a block's end adds its t2 to h before rounding it (`train`, as
+//   train_fwd_ref, where the frame rounds t2 first); the tail reads rows nb
+//   and 0 and rounds their sum (wide_tail's h0).
+//   K4 (kTrainQ): an f32 residual stream in a buffer of its own, every code
+//   a product reads written to the stash (rows b and nb+1+b, and row nb the
+//   tail's). K8 (kTrainB): the bf16 stream and bf16 rows to the stash, and
+//   the next product's codes made in the epilogue into one of two scratch
+//   buffers (the A loader stays the s8 one).
+//   K5: dt1 = (t1 > 0 ? dt2 W2^T : 0) rounded (kBwdMask, the mask read from
+//   the stash in its own type), dh += dt1 W1^T in f32 with the next block's
+//   dt2 = dh * res_scale rounded (kBwdDh), against the transposed weights.
+// Training's f32 passes sum each k8 step's three TF32 products apart, from
+// zero, and add that to the running sum in f32 (kSplit): the tensor cores
+// truncate every sum they add to, which over a long sum costs f32's last
+// bits (PERF.md, K3's and K5's margins).
+//
 // What bounds it: the products (2 W^2 operations a ray a layer) at the
 // card's tensor rate; a pass also reads its input and writes its output,
 // n * W * (element size) bytes each way, 164 MB at W512 bf16 on a
@@ -53,9 +73,11 @@ namespace r2lw {
 
 enum Type { kBF16 = 0, kF32 = 1, kS8 = 2 };
 enum Src { kBody = 0, kPE = 1, kX = 2 };   // where a pass's input comes from
-enum Kind { kHead = 0, kInner = 1, kBlockEnd = 2 };
-// K2's forms (r2l_fused.py, EPILOGUES)
-enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2 };
+// a pass's layer: the forward's three, then the backward's two (K5)
+enum Kind { kHead = 0, kInner = 1, kBlockEnd = 2, kBwdMask = 3, kBwdDh = 4 };
+// K2's forms (r2l_fused.py, EPILOGUES), then the int8 training forward's
+// (K4: q-value stash, K8: bf16 stash)
+enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2, kTrainQ = 3, kTrainB = 4 };
 
 // The widths the wide form runs at are multiples of this (its block's
 // output channels); r2l_fused.py's WIDE_CHANNELS.
@@ -91,6 +113,10 @@ struct Params {
   void* out;               // bf16/f32 kInner: t; int8: the next codes
   void* h0;                // kHead: written; a final kBlockEnd: read
   const float* inv;        // int8: the next product's inverse scales
+  int train;               // bf16/f32 kBlockEnd: t2 added unrounded (K3)
+  const void* mask;        // kBwdMask: the stash's t1 row [n, W]
+  const float* mask_scale; // its int8 dequant scales [W], or null
+  int mask_type;           // its Type
 };
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -147,8 +173,9 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint32_t* p) {
 // One 32-byte step of K for the warp's 64 x 32 outputs: A [rows][lda words]
 // from row 0 of the block, B [channels][kLd words]; fragment (g, t) holds
 // word t and t + 4 of its rows g and g + 8 (the m16n8 layouts of all three
-// types, in words), loaded by ldmatrix.
-template <int T>
+// types, in words), loaded by ldmatrix. kSplit (f32): the step's products
+// summed apart and added in f32.
+template <int T, bool kSplit = false>
 __device__ __forceinline__ void mma_step(Acc<T> (&acc)[4][4][4],
                                          const uint32_t* A, int lda,
                                          const uint32_t* B, int kw, int wm,
@@ -180,9 +207,18 @@ __device__ __forceinline__ void mma_step(Acc<T> (&acc)[4][4][4],
       for (int k = 0; k < 4; ++k) tf32_split(a[k], ah[k], al[k]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        mma_tf32(acc[i][j], al, bh[j]);
-        mma_tf32(acc[i][j], ah, bl[j]);
-        mma_tf32(acc[i][j], ah, bh[j]);
+        if constexpr (kSplit) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(d, al, bh[j]);
+          mma_tf32(d, ah, bl[j]);
+          mma_tf32(d, ah, bh[j]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[i][j][k] = __fadd_rn(acc[i][j][k], d[k]);
+        } else {
+          mma_tf32(acc[i][j], al, bh[j]);
+          mma_tf32(acc[i][j], ah, bl[j]);
+          mma_tf32(acc[i][j], ah, bh[j]);
+        }
       }
     }
   } else {
@@ -255,7 +291,8 @@ __device__ __forceinline__ void epilogue_float(const Params& p, int row,
     float h[2];
     load2<T>(p.hin, o, h);
     for (int k = 0; k < 2; ++k)
-      v[k] = rnd<T>(__fadd_rn(__fmul_rn(rnd<T>(v[k]), p.res_scale), h[k]));
+      v[k] = rnd<T>(__fadd_rn(
+          __fmul_rn(p.train ? v[k] : rnd<T>(v[k]), p.res_scale), h[k]));
     if (p.final_ && p.use_residual) load2<T>(p.h0, o, h0);
   }
   if (p.final_ && p.use_residual)
@@ -306,8 +343,97 @@ __device__ __forceinline__ void epilogue_s8(const Params& p, int row, int col,
   *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) = q;
 }
 
+// The int8 training forward's epilogue (r2l_train.py, train_fwd_int8_ref,
+// fold_requant=False) of outputs (row, col), (row, col + 1). K4 (kTrainQ):
+// the f32 residual stream h in its own buffer (hout, read back as hin at a
+// block's end), no bf16 rounding; K8 (kTrainB): the inner t and the stream
+// rounded to bf16 and written to their stash rows (hout). h0 is the head's
+// f32 output for the global residual; out takes the codes of the next
+// product or, at the last block's end, the tail's.
+__device__ __forceinline__ void epilogue_train_s8(const Params& p, int row,
+                                                  int col, int a0, int a1) {
+  const size_t o = (size_t)row * p.W + col;
+  const float4 mb = *reinterpret_cast<const float4*>(p.bias + 2 * col);
+  const float v[2] = {r2l::dequant(a0, mb.x, mb.y),
+                      r2l::dequant(a1, mb.z, mb.w)};
+  const bool q = p.epilogue == kTrainQ;
+  float x[2];  // what the next product quantizes, times its scale
+  if (p.kind == kInner) {
+    for (int k = 0; k < 2; ++k) {
+      x[k] = fmaxf(v[k], 0.f);
+      if (!q) x[k] = bf16r(x[k]);
+    }
+    if (!q) store2<kBF16>(p.hout, o, x);
+  } else {
+    float h[2], h0[2] = {0.f, 0.f};
+    if (p.kind == kHead) {
+      for (int k = 0; k < 2; ++k) {
+        h0[k] = fmaxf(v[k], 0.f);
+        h[k] = q ? h0[k] : bf16r(h0[k]);
+      }
+      if (p.use_residual) store2<kF32>(p.h0, o, h0);
+    } else {
+      float hin[2];
+      if (q)
+        load2<kF32>(p.hin, o, hin);
+      else
+        load2<kBF16>(p.hin, o, hin);
+      for (int k = 0; k < 2; ++k) {
+        h[k] = __fadd_rn(v[k], hin[k]);
+        if (!q) h[k] = bf16r(h[k]);
+      }
+      if (p.final_ && p.use_residual) load2<kF32>(p.h0, o, h0);
+    }
+    if (q)
+      store2<kF32>(p.hout, o, h);
+    else
+      store2<kBF16>(p.hout, o, h);
+    for (int k = 0; k < 2; ++k)
+      x[k] = p.final_ && p.use_residual ? __fadd_rn(h[k], h0[k]) : h[k];
+  }
+  const char2 c = make_char2(r2l::q8(__fmul_rn(x[0], p.inv[col])),
+                             r2l::q8(__fmul_rn(x[1], p.inv[col + 1])));
+  *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) = c;
+}
+
+// K5's epilogues (r2l_train.py, bwd_group_ref) of outputs (row, col),
+// (row, col + 1), the sums acc of a product against a transposed weight:
+// kBwdMask dt1 = (t1 > 0 ? acc : 0) rounded to T, t1 read from the stash
+// in its own type (int8: q * scale); kBwdDh dh = hin + acc in f32 to hout,
+// and (out given) the next block's dt2 = dh * res_scale rounded to T.
+template <int T>
+__device__ __forceinline__ void epilogue_bwd(const Params& p, int row,
+                                             int col, float a0, float a1) {
+  const size_t o = (size_t)row * p.W + col;
+  float v[2] = {a0, a1};
+  if (p.kind == kBwdMask) {
+    float m[2];
+    if (p.mask_type == kS8) {
+      const char2 q = *reinterpret_cast<const char2*>(
+          static_cast<const int8_t*>(p.mask) + o);
+      m[0] = __fmul_rn((float)q.x, p.mask_scale[col]);
+      m[1] = __fmul_rn((float)q.y, p.mask_scale[col + 1]);
+    } else if (p.mask_type == kBF16) {
+      load2<kBF16>(p.mask, o, m);
+    } else {
+      load2<kF32>(p.mask, o, m);
+    }
+    for (int k = 0; k < 2; ++k) v[k] = m[k] > 0.f ? rnd<T>(v[k]) : 0.f;
+    store2<T>(p.out, o, v);
+    return;
+  }
+  float d[2];
+  load2<kF32>(p.hin, o, d);
+  for (int k = 0; k < 2; ++k) d[k] = __fadd_rn(d[k], v[k]);
+  store2<kF32>(p.hout, o, d);
+  if (p.out) {
+    for (int k = 0; k < 2; ++k) v[k] = rnd<T>(__fmul_rn(d[k], p.res_scale));
+    store2<T>(p.out, o, v);
+  }
+}
+
 // One pass: the block's 128 rays x 128 output channels of one layer.
-template <int T, int S>
+template <int T, int S, bool kSplit = false>
 __global__ void __launch_bounds__(kThreads) wide_layer(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int es = elem_bytes(T);
@@ -438,7 +564,7 @@ __global__ void __launch_bounds__(kThreads) wide_layer(const Params p) {
     const uint32_t* B = sB + (kt % kStages) * kBN * kLd;
 #pragma unroll
     for (int kw = 0; kw < kBKW; kw += 8)
-      mma_step<T>(acc, A, lda, B, kw, wm, wn, lane);
+      mma_step<T, kSplit>(acc, A, lda, B, kw, wm, wn, lane);
   }
 
   const int g = lane >> 2, t = lane & 3;
@@ -451,22 +577,32 @@ __global__ void __launch_bounds__(kThreads) wide_layer(const Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + wn * 32 + j * 8 + 2 * t;
-        if constexpr (T == kS8)
-          epilogue_s8(p, row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        else
+        if constexpr (T == kS8) {
+          if (p.epilogue >= kTrainQ)
+            epilogue_train_s8(p, row, col, acc[i][j][2 * h],
+                              acc[i][j][2 * h + 1]);
+          else
+            epilogue_s8(p, row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        } else if (p.kind >= kBwdMask) {
+          epilogue_bwd<T>(p, row, col, acc[i][j][2 * h],
+                          acc[i][j][2 * h + 1]);
+        } else {
           epilogue_float<T>(p, row, col, acc[i][j][2 * h],
                             acc[i][j][2 * h + 1]);
+        }
       }
     }
 }
 
 // The tail: out[r, o] = sigmoid(h[r] . tail_w[o] + tail_b[o]) (int8: the
 // codes' exact int32 dot, dequantized by one FMA); a warp a ray, 16 bytes a
-// lane a step, the sums reduced by shuffles.
+// lane a step, the sums reduced by shuffles. bf16/f32 with h0 (K3): the
+// input is h + h0 rounded to T (the global residual of the stash's rows).
 template <int T>
 __global__ void __launch_bounds__(256)
     wide_tail(const void* h, int n, int W, const void* tw, const float* tm,
-              const float* tb, int out_dim, int linear_tail, float* out) {
+              const float* tb, int out_dim, int linear_tail, float* out,
+              const void* h0 = nullptr) {
   constexpr int es = elem_bytes(T), per = 16 / es;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -479,7 +615,29 @@ __global__ void __launch_bounds__(256)
   const unsigned char* wb = static_cast<const unsigned char*>(tw);
   for (int c = lane * per; c < W; c += 32 * per) {
     const uint4 hv = *reinterpret_cast<const uint4*>(hr + (size_t)c * es);
-    const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
+    uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
+    if constexpr (T != kS8) {
+      if (h0) {
+        const uint4 gv = *reinterpret_cast<const uint4*>(
+            static_cast<const unsigned char*>(h0) + ((size_t)row * W + c) * es);
+        const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if constexpr (T == kBF16) {
+            const float2 a = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&hw[k]));
+            const float2 b = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&gw[k]));
+            const __nv_bfloat162 r = __floats2bfloat162_rn(
+                __fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+            hw[k] = *reinterpret_cast<const uint32_t*>(&r);
+          } else {
+            hw[k] = __float_as_uint(__fadd_rn(__uint_as_float(hw[k]),
+                                              __uint_as_float(gw[k])));
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int o = 0; o < kMaxOut; ++o) {
       if (o >= out_dim) break;
@@ -560,16 +718,17 @@ long long scratch_bytes(long long rows, int W, int nl, int use_residual) {
   return bufs * aligned(e * elem_bytes(T));
 }
 
-template <int T, int S>
+template <int T, int S, bool kSplit = false>
 cudaError_t pass(const Params& p, cudaStream_t st) {
   constexpr int smem =
       ((S == kBody ? kStages * kBM * kLd : kBM * kLdSlice) +
        kStages * kBN * kLd) * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      wide_layer<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wide_layer<T, S, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)((p.n + kBM - 1) / kBM) * (p.W / kBN);
-  wide_layer<T, S><<<(unsigned)blocks, kThreads, smem, st>>>(p);
+  wide_layer<T, S, kSplit><<<(unsigned)blocks, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 

@@ -181,6 +181,17 @@ def wide_form(W: int, int8: bool = False, L: int = 10) -> bool:
     return _chain_width(W, int8, L) is None
 
 
+def wide_train_form(W: int, int8: bool = False, L: int = 10) -> bool:
+    """Whether the training kernels run a W-wide student (K4/K8 with
+    ``int8``, at ``L`` frequencies) on their wide form
+    (``csrc/r2l_wide_train.cu``, ``csrc/r2l_wide_bwd.cu``): a width other
+    than ``R2L_KERNEL_WIDTHS`` (training pads nothing: the gradients are the
+    model's), or in int8 one whose 2L+1 encoding parts overflow K4's head
+    slice of twice the width. The wide form itself takes multiples of
+    ``WIDE_CHANNELS``; K5 depends on the width alone (``int8=False``)."""
+    return not (W in R2L_KERNEL_WIDTHS and (not int8 or 2 * L + 1 <= 2 * W))
+
+
 def kernel_width(W: int, int8: bool = False, L: int = 10) -> int:
     """The width the frame kernels (K1/K9/K2) run a W-wide student at: the
     narrowest of ``R2L_KERNEL_WIDTHS`` that takes it, or on the wide form
@@ -813,8 +824,14 @@ def stage_int8_train(fp: FusedParamsInt8PE, cfg: R2LConfig, dim_pts: int,
     with K4's (``stash_q``) or K8's image beside it: K2's image at the
     kind's stage width (``int8_train_stage_k``), then ``body_inv`` [nb*nl,
     W] f32, the inverse input scale of every body layer. Made after each
-    calibration (the int8 training kinds: every step)."""
-    k = int8_train_stage_k(cfg.netwidth, stash_q)
+    calibration (the int8 training kinds: every step). A student on the
+    training kernels' wide form (``wide_train_form``, at a multiple of
+    ``WIDE_CHANNELS``) gets the wide form's image instead
+    (``stage_wide_chain``, staged for "wide"; both kinds read it)."""
+    W = cfg.netwidth
+    if wide_train_form(W, True, L) and W % WIDE_CHANNELS == 0:
+        return fp._replace(staged=stage_wide_chain(fp), staged_for="wide")
+    k = int8_train_stage_k(W, stash_q)
     img = torch.cat([stage_int8_chain(fp, cfg, dim_pts, L, k),
                      fp.body_inv.float().contiguous().view(torch.uint8)
                      .reshape(-1)])

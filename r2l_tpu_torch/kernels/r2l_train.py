@@ -23,6 +23,17 @@ Counterpart of ``r2l_tpu/kernels/r2l_train_pallas.py``. Three kernels:
   weights transposed from an image staged once per step
   (``stage_bwd_weights``).
 
+The chain kernels are built for the widths of ``R2L_KERNEL_WIDTHS``. Every
+other multiple of ``WIDE_CHANNELS`` (and an int8 student whose 2L+1
+encoding parts overflow K4's head slice) runs on the wide form of the same
+three (``wide_train_form``; ``csrc/r2l_wide_train.cu``, ``r2l_wide_bwd.cu``
+over the frame's wide passes, ``r2l_wide.cuh``): ``train_fwd_wide``,
+``train_fwd_int8_wide`` and ``bwd_group_wide``, each with its own launch
+counter, to which the three wrappers send such a student. They read the
+wide form's images: K3 ``stage_wide_chain``'s of the live weights (staged
+by the step's packing), K4/K8 the calibration's (``stage_int8_train``), K5
+the step's ``stage_bwd_weights`` in the wide form's tiles.
+
 Each public wrapper runs its plain PyTorch version (``*_ref``, the Pallas
 kernel body written out) for tensors on the CPU only. For a CUDA tensor it
 launches the kernel or raises; a shape the kernels do not take
@@ -45,15 +56,19 @@ from typing import NamedTuple
 import torch
 
 from ..models.r2l import R2L, R2LConfig
-from .r2l_fused import (CHAIN_STAGE_K, INT8_BLOCK_RAYS, FusedParams,
-                        FusedParamsInt8PE, _chain_scratch, _check,
+from .r2l_fused import (CHAIN_STAGE_K, INT8_BLOCK_RAYS, WIDE_CHANNELS,
+                        _WIDE_TYPES, FusedParams, FusedParamsInt8PE,
+                        _aligned, _chain_scratch, _check,
+                        _check_chain_params, _check_int8_params,
                         _dequant, _mm_f32,
-                        _mm_int, _padded_in, _pe_row_permutation_on,
+                        _mm_int, _need_wide_image, _padded_in,
+                        _pe_row_permutation_on,
                         _pe_sin_cos_ladder, _ptr, _q8, _raise_on_error,
-                        _CANONICAL, R2L_KERNEL_WIDTHS, _refuse,
-                        calibrate_r2l_int8_pe, chain_stage_plan,
+                        _CANONICAL, R2L_KERNEL_WIDTHS, _refuse, _tiles,
+                        _untiles, calibrate_r2l_int8_pe, chain_stage_plan,
                         fused_kernel_supported, int8_train_stage_plan,
-                        prepare_fused_params_pe, stage_int8_train)
+                        prepare_fused_params_pe, stage_int8_train,
+                        wide_stage_plan, wide_train_form)
 from .staging import stage_matrices, unstage_matrices
 
 
@@ -61,20 +76,24 @@ def fused_train_supported(cfg: R2LConfig, int8: bool = False,
                           L: int = 10) -> bool:
     """Whether the training kernels (K3, K4/K8 with ``int8``, K5) take
     ``cfg``: the canonical activations and body (``fused_kernel_supported``)
-    with two layers per block, a width of ``R2L_KERNEL_WIDTHS`` itself (the
-    step's gradients are the model's, so nothing is padded; K5's launch
-    switch in csrc/r2l_bwd_group.cu has K1's and K2's widths), one
-    frequency or more, and for int8 2L+1 <= 2W (K2's head slice)."""
-    W = cfg.netwidth
-    return (fused_kernel_supported(cfg) and W in R2L_KERNEL_WIDTHS
-            and cfg.n_learnable == 2 and L >= 1
-            and (not int8 or 2 * L + 1 <= 2 * W))
+    with two layers per block and one frequency or more, at a width of
+    ``R2L_KERNEL_WIDTHS`` on the chain kernels (for int8 with 2L+1 <= 2W,
+    K4's head slice; the launch switches of csrc/) or at any multiple of
+    ``WIDE_CHANNELS`` on their wide form (``wide_train_form``). The step's
+    gradients are the model's, so nothing is padded: with ReLU bodies this
+    admits every width JAX's ``--fused_train_vjp`` gate does (netwidth %
+    128 == 0), and W64."""
+    return (fused_kernel_supported(cfg) and cfg.n_learnable == 2 and L >= 1
+            and (not wide_train_form(cfg.netwidth, int8, L)
+                 or cfg.netwidth % WIDE_CHANNELS == 0))
 
 
 def train_shapes_text() -> str:
     """The shapes ``fused_train_supported`` admits, for messages."""
-    return (f"netwidth {', '.join(map(str, R2L_KERNEL_WIDTHS))}, "
-            f"{_CANONICAL} of two layers per block")
+    return (f"netwidth {', '.join(map(str, R2L_KERNEL_WIDTHS))} on the chain "
+            f"kernels (int8: 2L+1 <= 2 * netwidth), else any multiple of "
+            f"{WIDE_CHANNELS} on their wide form; {_CANONICAL} of two layers "
+            "per block and L >= 1")
 
 
 def check_train_supported(cfg: R2LConfig, kernel: str, int8: bool = False,
@@ -133,12 +152,15 @@ def train_fwd(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
     -> (rgb [N, out_dim] f32, stash [2nb+1, N, W] in the weights' dtype).
     ``fp`` comes from ``prepare_fused_params_pe``, staged: on the card K3
     reads K1's weight image (``fp.staged``) and raises without it (the
-    training step stages it every step). CPU tensors take the plain
-    version, which reads the fields."""
+    training step stages it every step). A ``wide_train_form`` student runs
+    on ``train_fwd_wide``. CPU tensors take the plain version, which reads
+    the fields."""
     if pts.device.type == "cpu":
         return train_fwd_ref(fp, cfg, pts, dim_pts, L)
     from . import _build
     check_train_supported(cfg, "K3 (train_fwd)", L=L)
+    if wide_train_form(cfg.netwidth):
+        return train_fwd_wide(fp, cfg, pts, dim_pts, L)
     dev, W, wd = pts.device, cfg.netwidth, fp.head_w.dtype
     nb, n = cfg.num_blocks, pts.shape[0]
     in_dim, out_dim = dim_pts * (2 * L + 1), fp.tail_w.shape[0]
@@ -240,12 +262,15 @@ def train_fwd_int8(fp: FusedParamsInt8PE, cfg: R2LConfig, pts: torch.Tensor,
     out_dim] f32, stash [2nb+1, N, W]). ``stash_q`` (K4): the int8 q-values;
     otherwise (K8) the bf16 activations. On the card the kernel reads the
     kind's image (``stage_int8_train(fp, ..., stash_q)``) and raises
-    without it. CPU tensors take the plain version, which reads the
-    fields."""
+    without it; a ``wide_train_form`` student runs on
+    ``train_fwd_int8_wide``. CPU tensors take the plain version, which reads
+    the fields."""
     if pts.device.type == "cpu":
         return train_fwd_int8_ref(fp, cfg, pts, dim_pts, L, stash_q)
     from . import _build
     check_train_supported(cfg, "K4/K8 (train_fwd_int8)", int8=True, L=L)
+    if wide_train_form(cfg.netwidth, True, L):
+        return train_fwd_int8_wide(fp, cfg, pts, dim_pts, L, stash_q)
     dev, W = pts.device, cfg.netwidth
     nb, n = cfg.num_blocks, pts.shape[0]
     in_dim, out_dim = dim_pts * (2 * L + 1), fp.tail_q.shape[0]
@@ -356,8 +381,14 @@ def stage_bwd_weights(body_w: torch.Tensor) -> torch.Tensor:
     compute dtype: every layer's transpose [in, out], in stages of
     ``CHAIN_STAGE_K`` input channels as wgmma reads B
     (``staging.stage_matrices``; f32 as TF32 high and low parts), layer by
-    layer, so that the dh walk's dt W^T is the chain's A B^T. Made once per
-    training step (the weights change every step) for all the groups."""
+    layer, so that the dh walk's dt W^T is the chain's A B^T; on the wide
+    form (``wide_train_form``, a multiple of ``WIDE_CHANNELS``) the same
+    transposes in its tiles (``r2l_fused._tiles``, f32 as f32). Made once
+    per training step (the weights change every step) for all the
+    groups."""
+    W = body_w.shape[-1]
+    if wide_train_form(W) and W % WIDE_CHANNELS == 0:
+        return _tiles(body_w.transpose(1, 2).contiguous())
     k = CHAIN_STAGE_K[body_w.dtype]
     return stage_matrices(body_w.transpose(1, 2).contiguous(), k)
 
@@ -365,8 +396,12 @@ def stage_bwd_weights(body_w: torch.Tensor) -> torch.Tensor:
 def unstage_bwd_weights(staged: torch.Tensor, shape: tuple,
                         dtype: torch.dtype) -> list[torch.Tensor]:
     """``stage_bwd_weights``' inverse: [body_w] (f32: the TF32 high and low
-    parts) of ``shape`` [L, W, W] ``[out, in]``."""
+    parts; the wide form's f32 tiles: the weights themselves) of ``shape``
+    [L, W, W] ``[out, in]``."""
     L, W, _ = shape
+    if wide_train_form(W) and W % WIDE_CHANNELS == 0:
+        return [_untiles(staged, (L, W, W), dtype).transpose(1, 2)
+                .contiguous()]
     parts = unstage_matrices(staged, (L, W, W), CHAIN_STAGE_K[dtype], dtype)
     return [p.transpose(1, 2).contiguous() for p in parts]
 
@@ -395,25 +430,12 @@ def unstage_qdx_weights(staged: torch.Tensor, shape: tuple) -> torch.Tensor:
                             torch.int8)[0].transpose(1, 2).contiguous()
 
 
-def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
-              cfg: R2LConfig, b_start: int, b_count: int,
-              body_scale: torch.Tensor | None = None,
-              staged: torch.Tensor | None = None
-              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward through blocks [b_start, b_start+b_count) (K5); shapes as
-    ``bwd_group_ref``. The stash is in the weights' dtype, or bf16 under f32
-    weights (``train_fwd_int8``'s bf16 stash); ``body_scale`` [2nb, W] f32
-    (1/body_inv of the int8 calibration) reads the int8 stash of
-    ``train_fwd_int8(stash_q=True)`` and dequantizes it. ``staged`` is
-    ``stage_bwd_weights(body_w)``, made once per step by the caller that
-    walks every group; on the card it is required (a call without it
-    raises). Deterministic: the same inputs give bit-identical outputs. CPU
-    tensors take the plain version, which ignores ``staged``."""
-    if dh.device.type == "cpu":
-        return bwd_group_ref(body_w, stash, dh, cfg, b_start, b_count,
-                             body_scale)
-    from . import _build
-    check_train_supported(cfg, "K5 (bwd_group)")
+def _check_bwd(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
+               cfg: R2LConfig, b_start: int, b_count: int,
+               body_scale: torch.Tensor | None
+               ) -> tuple[torch.dtype, bool]:
+    """Check K5's arguments (either form) on the card; -> (the weights'
+    dtype, whether the stash is K8's bf16 one under f32 weights)."""
     dev, W, nb, n = dh.device, cfg.netwidth, cfg.num_blocks, dh.shape[0]
     cd = body_w.dtype
     if cd not in (torch.bfloat16, torch.float32):
@@ -430,6 +452,38 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
                   and stash.dtype == torch.bfloat16)
     _check(stash, "stash", torch.int8 if quant else
            (torch.bfloat16 if stash_bf16 else cd), (2 * nb + 1, n, W), dev)
+    if quant:
+        _check(body_scale, "body_scale", torch.float32, (2 * nb, W), dev)
+    return cd, stash_bf16
+
+
+def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
+              cfg: R2LConfig, b_start: int, b_count: int,
+              body_scale: torch.Tensor | None = None,
+              staged: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward through blocks [b_start, b_start+b_count) (K5); shapes as
+    ``bwd_group_ref``. The stash is in the weights' dtype, or bf16 under f32
+    weights (``train_fwd_int8``'s bf16 stash); ``body_scale`` [2nb, W] f32
+    (1/body_inv of the int8 calibration) reads the int8 stash of
+    ``train_fwd_int8(stash_q=True)`` and dequantizes it. ``staged`` is
+    ``stage_bwd_weights(body_w)``, made once per step by the caller that
+    walks every group; on the card it is required (a call without it
+    raises). Deterministic: the same inputs give bit-identical outputs. A
+    ``wide_train_form`` student runs on ``bwd_group_wide``. CPU tensors
+    take the plain version, which ignores ``staged``."""
+    if dh.device.type == "cpu":
+        return bwd_group_ref(body_w, stash, dh, cfg, b_start, b_count,
+                             body_scale)
+    from . import _build
+    check_train_supported(cfg, "K5 (bwd_group)")
+    if wide_train_form(cfg.netwidth):
+        return bwd_group_wide(body_w, stash, dh, cfg, b_start, b_count,
+                              body_scale, staged)
+    dev, W, nb, n = dh.device, cfg.netwidth, cfg.num_blocks, dh.shape[0]
+    cd, stash_bf16 = _check_bwd(body_w, stash, dh, cfg, b_start, b_count,
+                                body_scale)
+    quant = body_scale is not None
     lo, hi = 2 * b_start, 2 * (b_start + b_count)
     layer_bytes = W * W * body_w.element_size() * (
         2 if cd == torch.float32 else 1)
@@ -439,7 +493,6 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
     _check(staged, "staged", torch.uint8, (2 * nb * layer_bytes,), dev)
     first = lo * layer_bytes
     if quant:
-        _check(body_scale, "body_scale", torch.float32, (2 * nb, W), dev)
         scale = body_scale[lo:hi].contiguous()
     f32 = torch.float32
     dts = torch.empty((hi - lo, n, W), dtype=cd, device=dev)
@@ -465,6 +518,181 @@ def bwd_group(body_w: torch.Tensor, stash: torch.Tensor, dh: torch.Tensor,
 
 
 bwd_group.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The wide form of K3, K4/K8 and K5 (csrc/r2l_wide_train.cu, r2l_wide_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _refuse_wide(cfg: R2LConfig, kernel: str, int8: bool = False,
+                 L: int = 10) -> None:
+    """Raise NotImplementedError, before any launch, where the training
+    kernels refuse ``cfg`` or its width is not one the wide form takes."""
+    _refuse(fused_train_supported(cfg, int8, L)
+            and cfg.netwidth % WIDE_CHANNELS == 0, kernel,
+            f"a multiple of {WIDE_CHANNELS} as netwidth, {_CANONICAL} of two "
+            "layers per block and L >= 1", cfg, L)
+
+
+def wide_train_scratch_bytes(n: int, W: int, int8: bool, stash_q: bool,
+                             use_residual: bool) -> int:
+    """The scratch one wide training forward on n rays needs
+    (``csrc/r2l_wide_train.cu``, k48_scratch): none for K3; K4 an f32
+    residual stream, K8 two code buffers, and with the global residual an
+    f32 h0; each [n, W], 256-byte aligned."""
+    if not int8:
+        return 0
+    e = n * W
+    return ((_aligned(4 * e) if stash_q else 2 * _aligned(e))
+            + (_aligned(4 * e) if use_residual else 0))
+
+
+def _launch_train_wide(wrapper, fp, cfg: R2LConfig, pts: torch.Tensor,
+                       dim_pts: int, L: int, stash_q: bool,
+                       counter: str = "launches"
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One call of the wide training forward (``csrc/r2l_wide_train.cu``)
+    on the CUDA tensor ``pts``, the parameters and the image checked by the
+    caller; counted in ``wrapper.<counter>``."""
+    from . import _build
+    int8 = isinstance(fp, FusedParamsInt8PE)
+    dev, W, nb, n = pts.device, cfg.netwidth, cfg.num_blocks, pts.shape[0]
+    wd = torch.int8 if int8 else fp.head_w.dtype
+    tail_w = fp.tail_q if int8 else fp.tail_w
+    out = torch.empty((n, tail_w.shape[0]), dtype=torch.float32, device=dev)
+    stash = torch.empty((2 * nb + 1, n, W), dtype=(
+        (torch.int8 if stash_q else torch.bfloat16) if int8 else wd),
+        device=dev)
+    if n == 0:
+        return out, stash
+    scratch = torch.empty((wide_train_scratch_bytes(
+        n, W, int8, stash_q, cfg.use_residual),), dtype=torch.uint8,
+        device=dev)
+
+    def field(name, use):
+        return _ptr(getattr(fp, name)) if use else None
+    lib = _build.load("r2l_wide_train")
+    with torch.cuda.device(dev):
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        rc = lib.r2l_wide_train_fwd_launch(
+            _ptr(pts), n, dim_pts, L, _WIDE_TYPES[wd], int(stash_q),
+            _ptr(fp.staged), field("head_b", not int8),
+            field("body_b", not int8), field("head_inv", int8),
+            field("body_inv", int8), _ptr(tail_w), field("tail_m", int8),
+            _ptr(fp.tail_b), field("tail_inv", int8), _ptr(out),
+            _ptr(stash), _ptr(scratch), scratch.numel(), W, nb,
+            out.shape[1], float(cfg.res_scale), int(cfg.use_residual),
+            int(cfg.linear_tail), _stream(dev))
+    _raise_on_error(rc, "r2l_wide_train")
+    return out, stash
+
+
+def train_fwd_wide(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
+                   dim_pts: int, L: int = 10
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's wide form: pts [N, dim_pts] -> (rgb [N, out_dim] f32, stash
+    [2nb+1, N, W] in the weights' dtype), one pass a layer, each writing
+    its output to its stash row. ``fp`` from ``prepare_fused_params_pe(...,
+    pad=False)``, staged (the wide form's image, ``stage_wide_chain``);
+    without the image it raises. ``train_fwd`` sends every
+    ``wide_train_form`` student here. CPU tensors take the plain version."""
+    if pts.device.type == "cpu":
+        return train_fwd_ref(fp, cfg, pts, dim_pts, L)
+    _refuse_wide(cfg, "K3's wide form (train_fwd_wide)", L=L)
+    _need_wide_image(fp, False)
+    dev, in_dim = pts.device, dim_pts * (2 * L + 1)
+    _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
+    wd = _check_chain_params(fp, cfg, in_dim, dev)
+    _check(fp.staged, "staged", torch.uint8,
+           (wide_stage_plan(cfg, wd, in_dim)["nbytes"],), dev)
+    return _launch_train_wide(train_fwd_wide, fp, cfg, pts, dim_pts, L,
+                              False)
+
+
+train_fwd_wide.launches = 0
+
+
+def train_fwd_int8_wide(fp: FusedParamsInt8PE, cfg: R2LConfig,
+                        pts: torch.Tensor, dim_pts: int, L: int = 10,
+                        stash_q: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's (``stash_q``) and K8's wide form: ``train_fwd_int8``'s contract
+    and its plain version's roundings bit for bit, one pass a layer (K4:
+    the codes written to the stash rows and an f32 residual stream in a
+    scratch; K8: the bf16 rows to the stash, the codes to a scratch).
+    ``fp`` from ``calibrate_r2l_int8_pe(..., fold_requant=False)`` with the
+    wide form's image (``stage_int8_train``, staged for "wide"); without it
+    it raises. ``train_fwd_int8`` sends every ``wide_train_form`` student
+    here. CPU tensors take the plain version."""
+    if pts.device.type == "cpu":
+        return train_fwd_int8_ref(fp, cfg, pts, dim_pts, L, stash_q)
+    _refuse_wide(cfg, "K4/K8's wide form (train_fwd_int8_wide)", True, L)
+    _need_wide_image(fp, True)
+    dev = pts.device
+    _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
+    _check_int8_params(fp, cfg, dim_pts, L, dev)
+    _check(fp.staged, "staged", torch.uint8, (wide_stage_plan(
+        cfg, torch.int8, dim_pts * (2 * L + 1))["nbytes"],), dev)
+    return _launch_train_wide(train_fwd_int8_wide, fp, cfg, pts, dim_pts, L,
+                              stash_q,
+                              "launches" if stash_q else "launches_bf16")
+
+
+train_fwd_int8_wide.launches = 0        # K4, stash_q=True
+train_fwd_int8_wide.launches_bf16 = 0   # K8, stash_q=False
+
+
+def bwd_group_wide(body_w: torch.Tensor, stash: torch.Tensor,
+                   dh: torch.Tensor, cfg: R2LConfig, b_start: int,
+                   b_count: int, body_scale: torch.Tensor | None = None,
+                   staged: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's wide form: ``bwd_group``'s signature and contract (the same
+    inputs give bit-identical outputs), two passes a block for dh against
+    the transposed weights, then dW and db summed over ``dw_splits(n)``
+    ranges of rays and the ranges added in order. ``staged`` is
+    ``stage_bwd_weights(body_w)`` (the wide form's tiles); without it it
+    raises. ``bwd_group`` sends every ``wide_train_form`` student here.
+    CPU tensors take the plain version."""
+    if dh.device.type == "cpu":
+        return bwd_group_ref(body_w, stash, dh, cfg, b_start, b_count,
+                             body_scale)
+    from . import _build
+    _refuse_wide(cfg, "K5's wide form (bwd_group_wide)")
+    if staged is None:
+        raise ValueError("K5's wide form reads its weights from the step's "
+                         "image of the wide form: pass "
+                         "staged=stage_bwd_weights(body_w)")
+    dev, W, nb, n = dh.device, cfg.netwidth, cfg.num_blocks, dh.shape[0]
+    cd, _ = _check_bwd(body_w, stash, dh, cfg, b_start, b_count, body_scale)
+    quant, f32 = body_scale is not None, torch.float32
+    layer_bytes = W * W * body_w.element_size()
+    _check(staged, "staged", torch.uint8, (2 * nb * layer_bytes,), dev)
+    lo, hi = 2 * b_start, 2 * (b_start + b_count)
+    if quant:
+        scale = body_scale[lo:hi].contiguous()
+    splits = dw_splits(n)
+    dts = torch.empty((hi - lo, n, W), dtype=cd, device=dev)
+    part = torch.empty((splits, hi - lo, W, W), dtype=f32, device=dev)
+    dbp = torch.empty((splits, hi - lo, W), dtype=f32, device=dev)
+    dh_out = torch.empty((n, W), dtype=f32, device=dev)
+    dw = torch.empty((hi - lo, W, W), dtype=f32, device=dev)
+    db = torch.empty((hi - lo, W), dtype=f32, device=dev)
+    lib = _build.load("r2l_wide_bwd")
+    with torch.cuda.device(dev):
+        bwd_group_wide.launches += 1
+        rc = lib.r2l_wide_bwd_launch(
+            ctypes.c_void_p(staged.data_ptr() + lo * layer_bytes),
+            _ptr(stash[b_start]), _ptr(stash[nb + 1 + b_start]),
+            _ptr(scale) if quant else None, _ptr(dh), _ptr(dh_out),
+            _ptr(dts), _ptr(part), _ptr(dbp), _ptr(dw), _ptr(db), n, W,
+            b_count, float(cfg.res_scale), int(cd == f32),
+            _WIDE_TYPES[stash.dtype], splits, _stream(dev))
+    _raise_on_error(rc, "r2l_wide_bwd")
+    return dh_out, dw, db
+
+
+bwd_group_wide.launches = 0
 
 
 # ---------------------------------------------------------------------------

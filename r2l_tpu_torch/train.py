@@ -742,8 +742,8 @@ def fused_vjp_gate(fused_train_vjp: bool, cfg: R2LConfig, plucker_: bool,
     two-layer resmlp body), else the plain step with JAX's warning; and the
     ReLU activations the training kernels hardcode, which JAX's gate does
     not ask (its kernels assert them), else the plain step with a warning
-    of its own. A width JAX's rule admits and the kernels do not take
-    raises in ``make_distill_step`` on the card."""
+    of its own. Every width JAX's rule admits is one the training kernels
+    take (above 256 on their wide form)."""
     log = log or (lambda s: print(s, file=sys.stderr))
     ok = bool(fused_train_vjp and n_devices == 1 and mesh is None
               and not plucker_

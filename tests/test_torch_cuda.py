@@ -445,8 +445,9 @@ TRAIN_CASES = {
 TOL_GRAD_F32, TOL_GRAD_BF16, MAX_BAD_BF16 = 1e-5, 5e-2, 2e-3
 
 
-def _train_case(name, dev, compute_dtype=torch.bfloat16, n_rays=1000):
-    W, n_sample, L, kw = TRAIN_CASES[name]
+def _train_case(name, dev, compute_dtype=torch.bfloat16, n_rays=1000,
+                cases=TRAIN_CASES):
+    W, n_sample, L, kw = cases[name]
     dp = 3 * n_sample
     cfg = R2LConfig(input_dim=dp * (2 * L + 1), netdepth=12, netwidth=W,
                     compute_dtype=compute_dtype, **kw)
@@ -717,6 +718,146 @@ def test_fused_apply_grads_match_plain(dev, kind):
     for k, g in grads["cuda"].items():
         ok, err = _grad_close(g, grads["cpu"][k], kind == "f32")
         assert ok, (k, err)
+
+
+# The training kernels' wide form (csrc/r2l_wide_train.cu, r2l_wide_bwd.cu):
+# every width the chain kernels do not take, at the training kernels'
+# tolerances above; a W128 int8 step whose 2L+1 overflows K4's head slice.
+WIDE_TRAIN_CASES = {
+    "w384": (384, 16, 10, {}),
+    "w512_res_half": (512, 2, 10, {"res_scale": 0.5}),
+    "w640_linear": (640, 16, 4, {"use_residual": False,
+                                 "linear_tail": True}),
+}
+
+
+def _wide_train_case(name, dev, compute_dtype=torch.bfloat16):
+    return _train_case(name, dev, compute_dtype, cases=WIDE_TRAIN_CASES)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_TRAIN_CASES))
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+def test_wide_train_fwd_kernel_matches_plain(dev, name, wd):
+    cfg, model, _, _, pts, dp, L = _wide_train_case(name, dev)
+    fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
+                                   pad=False)
+    before = (T.train_fwd.launches, T.train_fwd_wide.launches)
+    rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
+    torch.cuda.synchronize()
+    assert (T.train_fwd.launches, T.train_fwd_wide.launches) == (
+        before[0], before[1] + 1)
+    rgb_p, stash_p = T.train_fwd_ref(fp, cfg, pts, dp, L)
+    mx, _ = _deltas(rgb, rgb_p)
+    d = (stash.float() - stash_p.float()).abs().amax(dim=(1, 2))
+    if wd == torch.float32:
+        assert mx < TOL_F32 and float(d.max()) < TOL_F32, (mx, d)
+    else:
+        assert mx < TOL_BF16, mx
+        scale = stash_p.float().abs().amax(dim=(1, 2)).clamp(min=1.0)
+        assert float((d / scale).max()) < TOL_BF16, d
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_TRAIN_CASES) + ["w128_L128"])
+@pytest.mark.parametrize("stash_q", [True, False])
+def test_wide_train_fwd_int8_bit_for_bit(dev, name, stash_q):
+    """K4's and K8's wide form keep every rounding of their plain version:
+    rgb and every stash value bit for bit; at W128 with 2L+1 = 257 (over
+    K4's head slice) the wrappers take the wide form too."""
+    if name == "w128_L128":
+        cfg, model, sampler, poses, pts, dp, _ = _train_case("w128_L4", dev)
+        # points within +-1.5: the calibration's sin(p * 2^127) stays
+        # finite in f32
+        L, pts = 128, (pts * (1.5 / pts.abs().max())).contiguous()
+        cfg = dataclasses.replace(cfg, input_dim=dp * (2 * L + 1))
+        model = init_r2l(cfg, torch.Generator().manual_seed(0), dev)
+        assert T.wide_train_form(128, True, L)
+    else:
+        cfg, model, sampler, poses, pts, dp, L = _wide_train_case(name, dev)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L, pts[:500],
+                                 fold_requant=False, stage=False, pad=False)
+    fp = F.stage_int8_train(fp, cfg, dp, L, stash_q)
+    assert fp.staged_for == "wide"
+    before = (T.train_fwd_int8_wide.launches,
+              T.train_fwd_int8_wide.launches_bf16)
+    rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L, stash_q=stash_q)
+    torch.cuda.synchronize()
+    after = (T.train_fwd_int8_wide.launches,
+             T.train_fwd_int8_wide.launches_bf16)
+    assert after == (before[0] + stash_q, before[1] + (not stash_q))
+    rgb_p, stash_p = T.train_fwd_int8_ref(fp, cfg, pts, dp, L,
+                                          stash_q=stash_q)
+    assert torch.equal(rgb, rgb_p)
+    assert torch.equal(stash.view(torch.uint8), stash_p.view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_TRAIN_CASES))
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "f32_bf16stash"])
+def test_wide_bwd_group_kernel_matches_plain(dev, name, kind):
+    """K5's wide form per stash kind: a group and the whole body, each run
+    twice to the same bits and against the plain version."""
+    cd = torch.float32 if kind.startswith("f32") else torch.bfloat16
+    cfg, model, sampler, poses, pts, dp, L = _wide_train_case(name, dev, cd)
+    nb, W = cfg.num_blocks, cfg.netwidth
+    scale = None
+    if kind in ("int8", "f32_bf16stash"):
+        fp = F.calibrate_r2l_int8_pe(
+            model, cfg, dp, L, _calibration_points(sampler, poses, dev),
+            fold_requant=False, stage=False, pad=False)
+        _, stash = T.train_fwd_int8_ref(fp, cfg, pts, dp, L,
+                                        stash_q=kind == "int8")
+        scale = 1.0 / fp.body_inv if kind == "int8" else None
+    else:
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=cd,
+                                       stage=False, pad=False)
+        _, stash = T.train_fwd_ref(fp, cfg, pts, dp, L)
+    body_w = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=cd,
+                                       stage=False, pad=False).body_w
+    dh = torch.randn((pts.shape[0], W), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    img = T.stage_bwd_weights(body_w)
+    before = T.bwd_group.launches
+    with pytest.raises(ValueError, match="staged"):
+        T.bwd_group(body_w, stash, dh, cfg, 0, 1, body_scale=scale)
+    for b0, cnt in ((1, 3), (0, nb)):
+        w0 = T.bwd_group_wide.launches
+        got = T.bwd_group(body_w, stash, dh, cfg, b0, cnt, body_scale=scale,
+                          staged=img)
+        again = T.bwd_group(body_w, stash, dh, cfg, b0, cnt, body_scale=scale,
+                            staged=img)
+        torch.cuda.synchronize()
+        assert T.bwd_group_wide.launches == w0 + 2
+        want = T.bwd_group_ref(body_w, stash, dh, cfg, b0, cnt,
+                               body_scale=scale)
+        for g, a, w, what in zip(got, again, want, ("dh", "dW", "db")):
+            assert torch.equal(g, a), f"{what} differs between two runs"
+            ok, err = _grad_close(g, w, kind.startswith("f32"))
+            assert ok, (what, b0, cnt, err)
+    assert T.bwd_group.launches == before
+
+
+def test_wide_bwd_group_repeats_over_ray_ranges(dev):
+    """At 25,000 rays K5's wide dW pass sums two ray ranges and adds them in
+    order: a whole walk run twice gives the same bits, within the f32
+    limit of the plain version."""
+    cfg, model, _, _, _, dp, L = _wide_train_case("w384", dev,
+                                                  torch.float32)
+    assert T.dw_splits(25_000) == 2
+    g = torch.Generator(device=dev).manual_seed(3)
+    stash = torch.relu(torch.randn((2 * cfg.num_blocks + 1, 25_000, 384),
+                                   generator=g, device=dev))
+    dh = torch.randn((25_000, 384), generator=g, device=dev)
+    body_w = F.prepare_fused_params_pe(model, cfg, dp, L,
+                                       weight_dtype=torch.float32,
+                                       stage=False, pad=False).body_w
+    img = T.stage_bwd_weights(body_w)
+    nb = cfg.num_blocks
+    runs = [T.bwd_group(body_w, stash, dh, cfg, 0, nb, staged=img)
+            for _ in range(2)]
+    want = T.bwd_group_ref(body_w, stash, dh, cfg, 0, nb)
+    for a, b, w in zip(*runs, want):
+        assert torch.equal(a, b)
+        ok, err = _grad_close(a, w, True)
+        assert ok, err
 
 
 # Teacher kernels (K6 f32/bf16, K7 int8): (D, W, skips, L_pts, L_views,
@@ -1634,7 +1775,9 @@ def _counters():
             NR.fused_nerf_render.launches_int8,
             F.fused_r2l_apply_pe_wide.launches,
             F.fused_r2l_apply_wide.launches,
-            F.fused_r2l_apply_int8_pe_wide.launches)
+            F.fused_r2l_apply_int8_pe_wide.launches,
+            T.train_fwd_wide.launches, T.train_fwd_int8_wide.launches,
+            T.train_fwd_int8_wide.launches_bf16, T.bwd_group_wide.launches)
 
 
 def _student(dev, depth=6, **kw):
@@ -1671,9 +1814,9 @@ def test_wrappers_refuse_shapes_before_launching(dev, kw):
              lambda: T.bwd_group(fp.body_w, stash, dh, cfg, 0, 1)]
     before = _counters()
     for i, call in enumerate(calls):
-        if i < 3 and not kw:   # the frame wrappers: W512 on the wide form,
+        if not kw:   # every wrapper takes W512 on its wide form, which has
             with pytest.raises(ValueError, match="image of the wide form"):
-                call()         # which has no image in an unstaged packing
+                call()         # no image in an unstaged packing
             continue
         with pytest.raises(NotImplementedError, match="64, 128, 256"):
             call()
@@ -1753,7 +1896,7 @@ def test_wide_student_that_jax_runs_on_its_kernel_runs_on_the_wide_form(
     torch.cuda.synchronize()
     assert got.shape == (40, 25, 3) and torch.isfinite(got).all()
     moved = [b - a for a, b in zip(before, _counters())]
-    assert moved == [0] * 9 + ([0, 0, 1] if quantize else [1, 0, 0])
+    assert moved == [0] * 9 + ([0, 0, 1] if quantize else [1, 0, 0]) + [0] * 4
     prepared, _, dp = TE._prepare_r2l(model, cfg, sampler, 10, False, True,
                                       quantize, calib_poses=poses)
     if quantize:
@@ -1771,9 +1914,11 @@ def test_wide_student_that_jax_runs_on_its_kernel_runs_on_the_wide_form(
                                      "inact": "lrelu"}],
                          ids=["w512", "lrelu"])
 def test_fused_step_off_the_training_kernels(dev, kw):
-    """--fused_train_vjp: W512 passes JAX's gate and the fused step raises
-    NotImplementedError up front; lrelu takes the plain step with the
-    gate's warning, and the fused step raises too; the plain step runs no
+    """--fused_train_vjp: W512 passes JAX's gate and its fused step runs on
+    the training kernels' wide form (one K3 launch and one K5 launch a
+    4-block group, none of the chain kernels; its loss within the fused
+    step's bound of the plain step's); lrelu takes the plain step with the
+    gate's warning, and the fused step raises; the plain step runs no
     kernel."""
     cfg, model, sampler, _, _ = _student(dev, **kw)
     dcfg = TR.DistillConfig(batch_size=1024)
@@ -1781,11 +1926,6 @@ def test_fused_step_off_the_training_kernels(dev, kw):
     assert TR.fused_vjp_gate(True, cfg, False, log=logs.append) == (
         "act" not in kw)
     assert len(logs) == ("act" in kw)
-    with pytest.raises(NotImplementedError):
-        TR.make_distill_step(cfg, dcfg, sampler, fused_vjp=True, device=dev)
-    before = _counters()
-    state = TR.init_train_state(model, dcfg, device=dev)
-    step = TR.make_distill_step(cfg, dcfg, sampler, device=dev)
     rng = np.random.default_rng(0)
     o = rng.normal(size=(1024, 3))
     o = 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
@@ -1793,11 +1933,33 @@ def test_fused_step_off_the_training_kernels(dev, kw):
     fresh = np.concatenate([o, dirs / np.linalg.norm(dirs, axis=1,
                                                      keepdims=True),
                             rng.uniform(size=(1024, 3))], 1)
-    state, m = step(state, fresh.astype(np.float32),
+    fresh = fresh.astype(np.float32)
+    if "act" in kw:
+        with pytest.raises(NotImplementedError):
+            TR.make_distill_step(cfg, dcfg, sampler, fused_vjp=True,
+                                 device=dev)
+    else:
+        before = _counters()
+        fused = TR.make_distill_step(cfg, dcfg, sampler, fused_vjp=True,
+                                     device=dev)
+        state = TR.clone_train_state(TR.init_train_state(model, dcfg,
+                                                         device=dev))
+        _, m_fused = fused(state, fresh,
+                           generator=torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        moved = [b - a for a, b in zip(before, _counters())]
+        assert moved == [0] * 12 + [1, 0, 0, -(-cfg.num_blocks // 4)]
+    before = _counters()
+    state = TR.init_train_state(model, dcfg, device=dev)
+    step = TR.make_distill_step(cfg, dcfg, sampler, device=dev)
+    state, m = step(state, fresh,
                     generator=torch.Generator(dev).manual_seed(0))
     assert np.isfinite(float(m["loss"]))
     torch.cuda.synchronize()
     assert _counters() == before
+    if "act" not in kw:
+        rel = abs(float(m_fused["loss"]) - float(m["loss"])) / float(m["loss"])
+        assert rel < 2e-2, rel
 
 
 def test_w64_teacher_runs_on_the_kernels(dev):

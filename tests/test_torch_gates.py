@@ -152,8 +152,8 @@ def _r2l(**kw) -> R2LConfig:
     (dict(netwidth=64, n_learnable=1), False, 10, True, False),
     (dict(netwidth=128, n_learnable=3), False, 10, True, False),
     (dict(netwidth=256, n_learnable=0), False, 10, False, False),
-    (dict(netwidth=512), False, 10, True, False),
-    (dict(netwidth=384), True, 10, True, False),
+    (dict(netwidth=512), False, 10, True, True),
+    (dict(netwidth=384), True, 10, True, True),
     (dict(netwidth=256, act="lrelu"), False, 10, False, False),
     (dict(netwidth=256, inact="lrelu"), False, 10, False, False),
     (dict(netwidth=256, outact="relu"), False, 10, False, False),
@@ -627,16 +627,25 @@ def test_fused_vjp_gate(kw, ok, warning):
     (dict(netwidth=64, input_dim=48 * 129), "int8", 64)])
 def test_fused_distill_step_refuses_up_front_on_the_card(kw, quantize, L):
     """``make_distill_step(fused_vjp=True)`` on the card at a shape the
-    training kernels do not take (for int8 with its L: 2L+1 <= 2W) raises
-    NotImplementedError before it builds anything (nothing here touches
-    the card)."""
+    training kernels do not take (W96, lrelu, and int8 at W64 with 2L+1 >
+    2W, which neither K4's head slice nor the wide form's multiples of 128
+    hold) raises NotImplementedError before it builds anything; W512 and
+    W384 int8, on the wide form, build (nothing here touches the card)."""
     cfg = _r2l(**kw)
     sampler = PointSampler(H=8, W=8, focal=8.0, n_sample=16, near=2.0,
                            far=6.0)
+    calib = torch.zeros((4, 48)) if quantize else None
+    def build():
+        return TR.make_distill_step(
+            cfg, TR.DistillConfig(batch_size=64, embed_L=L), sampler,
+            fused_vjp=True, fused_quantize=quantize, fused_calib_pts=calib,
+            device="cuda")
+    if cfg.netwidth in (384, 512):
+        assert T.wide_train_form(cfg.netwidth, bool(quantize), L)
+        assert callable(build())
+        return
     with pytest.raises(NotImplementedError, match="netwidth 64, 128, 256"):
-        TR.make_distill_step(cfg, TR.DistillConfig(batch_size=64, embed_L=L),
-                             sampler, fused_vjp=True, fused_quantize=quantize,
-                             device="cuda")
+        build()
 
 
 # ---------------------------------------------------------------------------
@@ -660,12 +669,12 @@ WRAPPERS = {
            lambda: [F.fused_r2l_apply_int8_pe,
                     F.fused_r2l_apply_int8_pe_wide]),
     "K3": (lambda cfg: T.train_fwd(None, cfg, _meta(8, 48), 48, 10),
-           lambda: [T.train_fwd]),
+           lambda: [T.train_fwd, T.train_fwd_wide]),
     "K4/K8": (lambda cfg: T.train_fwd_int8(None, cfg, _meta(8, 48), 48, 10),
-              lambda: [T.train_fwd_int8]),
+              lambda: [T.train_fwd_int8, T.train_fwd_int8_wide]),
     "K5": (lambda cfg: T.bwd_group(None, None, _meta(8, cfg.netwidth), cfg,
                                    0, 1),
-           lambda: [T.bwd_group]),
+           lambda: [T.bwd_group, T.bwd_group_wide]),
 }
 
 
@@ -679,13 +688,15 @@ def _counts(fns) -> list[int]:
     (k, NARROW) for k in ("K3", "K4/K8", "K5")],
     ids=lambda x: x if isinstance(x, str) else f"w{x.netwidth}_{x.act}")
 def test_student_wrappers_refuse_before_any_launch(kernel, cfg):
-    """lrelu: every wrapper; W512 and W96: the training kernels, which pad
-    nothing (the frame kernels take W96 at 128, and W512 on their wide
-    form: given no packing, it stops at its image before any launch)."""
+    """lrelu: every wrapper; W96: the training kernels, which pad nothing
+    (the frame kernels take W96 at 128). W512: every wrapper takes it on
+    its wide form, and given no packing stops at its image before any
+    launch."""
     call, fns = WRAPPERS[kernel]
     before = _counts(fns())
-    if cfg is WIDE and kernel in ("K1", "K9", "K2"):
+    if cfg is WIDE:
         assert F.fused_frame_supported(cfg, kernel == "K2")
+        assert T.fused_train_supported(cfg, kernel == "K4/K8")
         with pytest.raises(ValueError, match="image of the wide form"):
             call(cfg)
     else:
