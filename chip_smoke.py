@@ -12,7 +12,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), refuse without CUDA.
-2. Build: compile the eighteen CUDA libraries from ``r2l_tpu_torch/kernels/
+2. Build: compile the nineteen CUDA libraries from ``r2l_tpu_torch/kernels/
    csrc`` into ``build/`` in parallel and print the build time and the
    compiler's register report.
 3. Kernel vs plain version on the card, at the main path's shape (one
@@ -272,8 +272,9 @@ Phases, in order; any failure raises and exits non-zero:
    captured), launching no kernel. A W512/D6 student's frames, which the
    JAX package renders on its kernels, run on the frame kernels' wide form
    (one launch of K1's or K2's a frame); a W512 teacher's frame and
-   datagen pose, and the teacher wrapper called directly at W512, raise
-   NotImplementedError with no counter moved (the W512/D88
+   datagen pose, and the teacher wrapper called directly at W512, run on
+   the teacher kernels' wide form (one launch a pass: 10 a 400x400 frame or
+   pose; phase 23 holds it at full size; the W512/D88
    ``--fused_train_vjp`` step runs on the training kernels' wide form:
    phase 22). Then the canonical W256/D88 student's frames (pe,
    int8) and fused step and the README's teacher's datagen poses (f32,
@@ -315,6 +316,23 @@ Phases, in order; any failure raises and exits non-zero:
    wide train`` lines: ms/step, the wide kernels' ms for a step (the
    forward and the K5 walk), the plain versions' and the bound, peak
    memory, beside the card's name and power limit.
+
+23. Wide and deep teachers (ROADMAP C1, teacher side), at full size, with
+   the README's samples (64 + 128) and seeded weights with the density
+   floor: through the entry points a user calls, a W512/D8 teacher's
+   400x400 datagen pose in f32 and int8 (folded; ``generate_pseudo_data``)
+   and its bf16 frame (``make_nerf_frame_fn``), each 10 launches of the
+   teacher kernels' wide form (``csrc/nerf_wide.cu``) and none of K6/K7,
+   its rgb against the plain f32 render by PSNR; then on the first
+   32,768-ray chunk of a datagen pose (its coarse pass, S=64, and its fine
+   pass, S=192) each form against its plain version on the card at K6/K7's
+   limits (``TOL_TEACHER``; a ``[margin]`` line past half a limit): the
+   wide form at W512/D8 and W1024/D8 (mip-NeRF 360's NeRF-MLP width) in
+   f32, bf16 and int8, at W384/D8 and W300/D8 (packed at 384) in bf16, and
+   K6 (f32, bf16) and K7 on a D40/W256 teacher (skips 4 and 24: the skip
+   set as a flag a layer). ``[main] wide teacher`` lines: kernel and plain
+   ms (CUDA events), the bound and what sets it, max-abs, beside the
+   card's name and power limit.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -1723,10 +1741,8 @@ def kernel_registers(kind: str) -> tuple[int, int]:
 
 def phase_datagen(dev) -> dict:
     """``generate_pseudo_data`` per kind through its entry point."""
-    from r2l_tpu_torch.datagen import _pose_rays, generate_pseudo_data, \
-        pose_seed
+    from r2l_tpu_torch.datagen import generate_pseudo_data
     from r2l_tpu_torch.kernels import nerf_render as NR
-    from r2l_tpu_torch.render import render_frame_nerf
     vcfg = teacher_vcfg()
     res = {}
     for kind, n_timed in DATAGEN_POSES.items():
@@ -1775,30 +1791,8 @@ def phase_datagen(dev) -> dict:
                                  f"{names} {shapes} {recs.dtype}")
         # The first pose's records against the plain f32 render of the same
         # rays with the same generator's draws.
-        ro, rd = (a.reshape(-1, 3) for a in _pose_rays(
-            np.random.default_rng(gcfg.seed), gcfg, 4.0))
-        mine = recs[(recs[:, :3] == ro[0]).all(1)]
-        if mine.shape[0] != H * W:
-            raise AssertionError(f"datagen {kind}: pose 0 has "
-                                 f"{mine.shape[0]} records")
-        ref = render_frame_nerf(
-            mc, mf, dataclasses.replace(cfg, compute_dtype=torch.float32),
-            vcfg, torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev),
-            generator=torch.Generator(dev).manual_seed(
-                pose_seed(gcfg.seed, 0)))["rgb"].cpu().numpy()
-        want = np.concatenate([ro, rd, ref], 1)
-        mine = mine[np.lexsort(mine[:, 3:6].T)]
-        want = want[np.lexsort(want[:, 3:6].T)]
-        if not np.array_equal(mine[:, :6], want[:, :6]):
-            raise AssertionError(f"datagen {kind}: pose 0's rays differ")
-        p = psnr_db(torch.from_numpy(mine[:, 6:9]),
-                    torch.from_numpy(want[:, 6:9]))
-        print(f"[check] datagen {kind}: pose 0 rgb vs plain f32 render, "
-              f"PSNR {p:.2f} dB (min {MIN_PSNR_TEACHER[kind]})"
-              + (" ok" if p >= MIN_PSNR_TEACHER[kind] else " FAILED"),
-              flush=True)
-        if p < MIN_PSNR_TEACHER[kind]:
-            raise AssertionError(f"datagen {kind}: PSNR {p}")
+        p = pose_psnr_vs_plain(f"datagen {kind}", recs, gcfg, mc, mf, cfg,
+                               vcfg, dev)
         res[kind] = {"ms_per_pose": ms, "rays_per_s": H * W / ms * 1e3,
                      "launches": launches, "timed_poses": n_timed,
                      "shards": dict(zip(names, shapes)), "peak_mem_gb": peak,
@@ -4129,10 +4123,9 @@ def phase_exp(dev) -> dict:
 # size. A narrower student or teacher runs on the kernels at the next width,
 # its extra channels zero; a wider student's frame runs on the frame
 # kernels' wide form (phase 21), its training step on the training
-# kernels' (phase 22); a wider one, or other activations, renders plain
-# where the JAX package renders it plain, and raises NotImplementedError
-# where the JAX package runs a kernel that the port's kernels do not take
-# (the teacher kernels above W256).
+# kernels' (phase 22), a wider teacher on the teacher kernels' (phase 23);
+# a wider student, or other activations, renders plain where the JAX
+# package renders it plain.
 WIDE = 512                 # wider than every kernel width
 PADDED_WIDTH = 96          # a student width the frame kernels take at 128
 PADDED_TEACHER_W = 64      # a teacher width K6/K7 take at 128
@@ -4140,10 +4133,18 @@ PADDED_TEACHER_W = 64      # a teacher width K6/K7 take at 128
 
 def refused_counts() -> dict:
     """Every student and teacher kernel's launch counter (K1-K9, and the
-    frame and training kernels' wide forms)."""
+    frame, training and teacher kernels' wide forms)."""
     from r2l_tpu_torch.kernels import r2l_fused as F
     return {**exp_counts(), "K9": F.fused_r2l_apply.launches,
-            **wide_counts(), **wide_train_counts()}
+            **wide_counts(), **wide_train_counts(), **wide_teacher_counts()}
+
+
+def wide_teacher_counts() -> dict:
+    """The launch counters of the teacher kernels' wide form (K6's: f32
+    and bf16; K7's: int8)."""
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    return {"K6w": NR.fused_nerf_render.launches_wide,
+            "K7w": NR.fused_nerf_render.launches_wide_int8}
 
 
 def moved_since(start: dict) -> dict:
@@ -4256,11 +4257,11 @@ def expect_not_implemented(what: str, call) -> str:
 def wide_paths(sampler, poses, dev) -> dict:
     """A W512/D6 student's frames, which the JAX package renders on its
     kernels, run on the frame kernels' wide form (one launch a frame of
-    K1's or K2's, none of K1 or K2); what the JAX package runs on its
-    kernels and the port's kernels do not take raises before anything is
-    packed: a W512 teacher's frame and datagen pose (the W512/D88
-    ``--fused_train_vjp`` step runs on the training kernels' wide form:
-    phase 22). -> the frames' launches."""
+    K1's or K2's, none of K1 or K2); a W512 teacher's frame and datagen
+    pose on the teacher kernels' wide form (10 launches each, none of
+    K6/K7; the W512/D88 ``--fused_train_vjp`` step runs on the training
+    kernels' wide form: phase 22). -> the frames' and the pose's
+    launches."""
     from r2l_tpu_torch.datagen import generate_pseudo_data
     from r2l_tpu_torch.evaluate import make_nerf_frame_fn, make_r2l_frame_fn
     from r2l_tpu_torch.models import NeRFConfig, R2LConfig, init_nerf, init_r2l
@@ -4282,18 +4283,33 @@ def wide_paths(sampler, poses, dev) -> dict:
         if not ok:
             raise AssertionError(f"W{WIDE}/D6 frame: {fn.kind} {moved}")
         launched[kernel] = 1
-    tcfg = NeRFConfig(W=WIDE)
+    tcfg = NeRFConfig(W=WIDE, compute_dtype=torch.bfloat16)
     mc = init_nerf(tcfg, torch.Generator().manual_seed(SEED + 52), dev)
-    expect_not_implemented(
-        f"W{WIDE} teacher frame",
-        lambda: make_nerf_frame_fn(mc, mc, tcfg, teacher_vcfg(), sampler,
-                                   use_pallas=True, device=dev))
+    with torch.no_grad():
+        mc.alpha_linear.bias += DENSITY_FLOOR
+    c0 = refused_counts()
+    fn = make_nerf_frame_fn(mc, mc, tcfg, teacher_vcfg(), sampler,
+                            use_pallas=True, device=dev)
+    f = fn(poses[0])
+    torch.cuda.synchronize()
+    frame_moved = moved_since(c0)
+    c0 = refused_counts()
     with tempfile.TemporaryDirectory() as tmp:
-        expect_not_implemented(
-            f"W{WIDE} teacher datagen",
-            lambda: generate_pseudo_data(mc, mc, tcfg, teacher_vcfg(),
-                                         datagen_cfg("f32", 1), tmp,
-                                         device=dev))
+        n_rays = generate_pseudo_data(mc, mc, tcfg, teacher_vcfg(),
+                                      datagen_cfg("f32", 1), tmp, device=dev)
+        recs = np.load(os.path.join(tmp, "pseudo_000000.npy"))
+    pose_moved = moved_since(c0)
+    ok = (fn.kind == "fused" and frame_moved == {"K6w": 10}
+          and pose_moved == {"K6w": 10} and f.shape == (H, W, 3)
+          and bool(torch.isfinite(f).all()) and n_rays == H * W
+          and recs.shape == (H * W, 9) and np.isfinite(recs).all())
+    print(f"[check] W{WIDE} teacher frame and datagen pose: kind {fn.kind}, "
+          f"launched {frame_moved} and {pose_moved}, on the wide form"
+          + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise AssertionError(f"W{WIDE} teacher: {fn.kind} {frame_moved} "
+                             f"{pose_moved} {n_rays} {recs.shape}")
+    launched["K6w"] = 20
     return launched
 
 
@@ -4420,20 +4436,37 @@ def padded_teacher(poses, dev, res) -> dict:
     return launched
 
 
-def refused_wrappers(dev) -> None:
-    """The teacher wrapper called directly at W512 on CUDA tensors:
-    NotImplementedError, no counter moved (the frame wrappers take W512 on
-    their wide form, phase 21, and the training wrappers on theirs, phase
-    22)."""
+def refused_wrappers(dev) -> dict:
+    """The teacher wrapper called directly at W512 on CUDA tensors: one
+    launch of the wide form, none of K6/K7, its outputs finite (the frame
+    wrappers take W512 on their wide form, phase 21, the training wrappers
+    on theirs, phase 22); a teacher with a skip at its last layer, which
+    no model builds, raises NotImplementedError before any launch. -> the
+    call's launches."""
     from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.models import NeRFConfig, init_nerf
     n = 64 * 64
-    from r2l_tpu_torch.models import NeRFConfig
     tcfg = NeRFConfig(W=WIDE)
+    mc = init_nerf(tcfg, torch.Generator().manual_seed(SEED + 54), dev)
+    fp = NR.prepare_fused_nerf(mc, tcfg)
     z = torch.linspace(2.0, 6.0, T_SAMPLES, device=dev).expand(n, -1)
     ones = torch.ones((n, 3), device=dev)
+    c0 = refused_counts()
+    out = NR.fused_nerf_render(fp, tcfg, ones, ones, z.contiguous())
+    torch.cuda.synchronize()
+    moved = moved_since(c0)
+    ok = moved == {"K6w": 1} and all(bool(torch.isfinite(t).all())
+                                      for t in out)
+    print(f"[check] K6 at W{WIDE}, the wrapper called directly: launched "
+          f"{moved}, on the wide form" + (" ok" if ok else " FAILED"),
+          flush=True)
+    if not ok:
+        raise AssertionError(f"K6 at W{WIDE}: launched {moved}")
+    last = dataclasses.replace(tcfg, skips=(tcfg.D - 1,))
     expect_not_implemented(
-        f"K6 at W{WIDE}", lambda: NR.fused_nerf_render(
-            None, tcfg, ones, ones, z.contiguous()))
+        "K6 with a skip at the last layer", lambda: NR.fused_nerf_render(
+            fp, last, ones, ones, z.contiguous()))
+    return moved
 
 
 def canonical_paths(sampler, poses, dev) -> dict:
@@ -4498,8 +4531,8 @@ def phase_refused(smi: str, sampler, poses, dev) -> dict:
     """Phase 20: shapes off the kernels' native widths, at full size: the
     padded ones launch their kernels, the ones both packages render plain
     launch nothing, a W512/D6 student's frames run on the frame kernels'
-    wide form, the teacher shapes only the JAX package's kernels take
-    raise; the canonical paths launch as before."""
+    wide form, a W512 teacher on the teacher kernels'; the canonical paths
+    launch as before."""
     from r2l_tpu_torch.models import R2LConfig, init_r2l
     t_phase = time.perf_counter()
     res = {"device": smi}
@@ -4520,7 +4553,7 @@ def phase_refused(smi: str, sampler, poses, dev) -> dict:
     torch.cuda.empty_cache()
     wide = wide_paths(sampler, poses, dev)
     torch.cuda.empty_cache()
-    refused_wrappers(dev)
+    wide["K6w"] += refused_wrappers(dev)["K6w"]
     res["canonical_launches"] = canonical_paths(sampler, poses, dev)
     res["launches"] = {k: v + padded.get(k, 0)
                        for k, v in res["canonical_launches"].items()}
@@ -5136,6 +5169,261 @@ def phase_wide_train(smi: str, sampler, poses, dev) -> dict:
     return res
 
 
+# Phase 23: wide and deep teachers (ROADMAP C1, teacher side), at full size:
+# teachers the JAX package renders, benchmarks and generates pseudo data
+# with on its kernel, seeded weights with the density floor, the README's
+# samples (64 + 128). Through the entry points, a W512/D8 teacher; on one
+# datagen chunk, each form against its plain version at K6/K7's limits:
+# the wide form (csrc/nerf_wide.cu) at W512 and W1024 (mip-NeRF 360's
+# NeRF-MLP width, Barron et al. 2022) in f32, bf16 and int8, at W384 and
+# W300 (packed at 384) in bf16; K6 and K7 on a D40 teacher.
+WIDE_TEACHER = ("W512/D8", 512, 8, (4,))   # the entry points' teacher
+WIDE_TEACHER_CHUNKS = (   # (label, W, D, skips, kinds)
+    ("W512/D8", 512, 8, (4,), ("f32", "bf16", "int8")),
+    ("W1024/D8", 1024, 8, (4,), ("f32", "bf16", "int8")),
+    ("W384/D8", 384, 8, (4,), ("bf16",)),
+    ("W300/D8", 300, 8, (4,), ("bf16",)),
+    ("D40/W256", 256, 40, (4, 24), ("f32", "bf16", "int8")),
+)
+MARGIN_SHARE = 0.5   # a check past this share of a limit prints [margin]
+
+
+def wide_teacher_models(kind: str, W: int, D: int, skips: tuple, dev):
+    """(cfg, coarse, fine) teachers of ``kind``'s compute dtype at W/D,
+    viewdirs, L=10/4, random weights from seeded generators plus the
+    density floor."""
+    from r2l_tpu_torch.models import NeRFConfig, init_nerf
+    cfg = NeRFConfig(W=W, D=D, skips=skips,
+                     compute_dtype=torch.bfloat16 if kind == "bf16"
+                     else torch.float32)
+    models = []
+    for seed in (SEED + 80 + W + D, SEED + 81 + W + D):
+        m = init_nerf(cfg, torch.Generator().manual_seed(seed), dev)
+        with torch.no_grad():
+            m.alpha_linear.bias += DENSITY_FLOOR
+        models.append(m)
+    return (cfg, *models)
+
+
+def pose_psnr_vs_plain(label: str, recs: np.ndarray, gcfg, mc, mf, cfg,
+                       vcfg, dev, ref: dict | None = None) -> float:
+    """Pose 0's datagen records (rays and rgb) against the plain f32 render
+    (``render_frame_nerf``) of the same rays with the same generator's
+    draws: the rays equal, the rgb's PSNR, which must reach
+    ``MIN_PSNR_TEACHER`` of ``label``'s kind. ``ref`` caches the plain
+    render by pose seed."""
+    from r2l_tpu_torch.datagen import _pose_rays, pose_seed
+    from r2l_tpu_torch.render import render_frame_nerf
+    ro, rd = (a.reshape(-1, 3) for a in _pose_rays(
+        np.random.default_rng(gcfg.seed), gcfg, 4.0))
+    mine = recs[(recs[:, :3] == ro[0]).all(1)]
+    if mine.shape[0] != H * W:
+        raise AssertionError(f"{label}: pose 0 has {mine.shape[0]} records")
+    key = pose_seed(gcfg.seed, 0)
+    if ref is None or key not in ref:
+        rgb = render_frame_nerf(
+            mc, mf, dataclasses.replace(cfg, compute_dtype=torch.float32),
+            vcfg, torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev),
+            generator=torch.Generator(dev).manual_seed(key))[
+            "rgb"].cpu().numpy()
+        if ref is not None:
+            ref[key] = rgb
+    else:
+        rgb = ref[key]
+    want = np.concatenate([ro, rd, rgb], 1)
+    mine = mine[np.lexsort(mine[:, 3:6].T)]
+    want = want[np.lexsort(want[:, 3:6].T)]
+    if not np.array_equal(mine[:, :6], want[:, :6]):
+        raise AssertionError(f"{label}: pose 0's rays differ")
+    kind = label.split()[-1]
+    p = psnr_db(torch.from_numpy(mine[:, 6:9]), torch.from_numpy(want[:, 6:9]))
+    print(f"[check] {label}: pose 0 rgb vs plain f32 render, PSNR {p:.2f} "
+          f"dB (min {MIN_PSNR_TEACHER[kind]})"
+          + (" ok" if p >= MIN_PSNR_TEACHER[kind] else " FAILED"), flush=True)
+    if p < MIN_PSNR_TEACHER[kind]:
+        raise AssertionError(f"{label}: PSNR {p}")
+    return p
+
+
+def wide_teacher_paths(smi: str, poses, dev) -> dict:
+    """The W512/D8 teacher through its entry points: a datagen pose in f32
+    and int8 (folded), each 10 launches of the wide form's counter and
+    none of another, its rgb against the plain f32 render; its bf16 frame
+    (``make_nerf_frame_fn``, kind fused, 10 launches) against the plain
+    f32 frame. -> per path: ms (CUDA events, the packing and the int8
+    calibration included), launches, PSNR."""
+    from r2l_tpu_torch.datagen import generate_pseudo_data
+    from r2l_tpu_torch.evaluate import make_nerf_frame_fn
+    from r2l_tpu_torch.sampler import PointSampler
+    label, Wt, Dt, skips = WIDE_TEACHER
+    vcfg = teacher_vcfg()
+    out, ref = {}, {}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for kind, key in (("f32", "K6w"), ("int8", "K7w")):
+        cfg, mc, mf = wide_teacher_models(kind, Wt, Dt, skips, dev)
+        gcfg = datagen_cfg(kind, 1)
+        c0 = refused_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            start.record()
+            n_rays = generate_pseudo_data(mc, mf, cfg, vcfg, gcfg, tmp,
+                                          device=dev)
+            end.record()
+            torch.cuda.synchronize()
+            recs = np.load(os.path.join(tmp, "pseudo_000000.npy"))
+        moved = moved_since(c0)
+        if n_rays != H * W or recs.shape != (H * W, 9) \
+                or not np.isfinite(recs).all() or moved != {key: 10}:
+            raise AssertionError(f"{label} datagen {kind}: {n_rays} rays, "
+                                 f"{recs.shape}, launched {moved}")
+        p = pose_psnr_vs_plain(f"{label} datagen {kind}", recs, gcfg, mc,
+                               mf, cfg, vcfg, dev, ref)
+        ms = start.elapsed_time(end)
+        out[f"datagen_{kind}"] = {"ms_pose": ms, "launches": moved[key],
+                                  "psnr_vs_plain_f32": p}
+        print(f"[main] wide teacher {label} datagen {kind}: {ms:.3f} ms for "
+              f"the pose (packing included), launched {moved} ({smi})",
+              flush=True)
+        del mc, mf, recs
+        torch.cuda.empty_cache()
+    cfg, mc, mf = wide_teacher_models("bf16", Wt, Dt, skips, dev)
+    sampler = PointSampler(H=H, W=W, focal=FOCAL, n_sample=T_SAMPLES,
+                           near=2.0, far=6.0)
+    fn = make_nerf_frame_fn(mc, mf, cfg, vcfg, sampler, use_pallas=True,
+                            device=dev)
+    plain = make_nerf_frame_fn(
+        mc, mf, dataclasses.replace(cfg, compute_dtype=torch.float32), vcfg,
+        sampler, device=dev)
+    c0 = refused_counts()
+    start.record()
+    f = fn(poses[0])
+    end.record()
+    torch.cuda.synchronize()
+    moved = moved_since(c0)
+    p = psnr_db(f, plain(poses[0]))
+    ms = start.elapsed_time(end)
+    ok = (fn.kind == "fused" and moved == {"K6w": 10}
+          and f.shape == (H, W, 3) and bool(torch.isfinite(f).all())
+          and p >= MIN_PSNR_TEACHER["bf16"])
+    print(f"[check] {label} bf16 teacher frame: kind {fn.kind}, launched "
+          f"{moved}, PSNR {p:.2f} dB against the plain f32 frame (min "
+          f"{MIN_PSNR_TEACHER['bf16']})" + (" ok" if ok else " FAILED"),
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{label} frame: {fn.kind} {moved} {p}")
+    out["frame_bf16"] = {"ms_per_frame": ms, "launches": 10,
+                         "psnr_vs_plain_f32": p}
+    print(f"[main] wide teacher {label} frame bf16: {ms:.3f} ms/frame "
+          f"({smi})", flush=True)
+    return out
+
+
+def wide_teacher_row(smi: str, label: str, kind: str, cfg, mc, chunk,
+                     calib, vcfg) -> dict:
+    """One ``[main] wide teacher`` row: the kernel (the wide form, or K6/K7
+    at W <= 256) on the chunk's coarse and fine passes against its plain
+    version at ``TOL_TEACHER``, each pass timed once with CUDA events
+    (after a warm-up on 256 rays), and the bound of the work (f32: three
+    TF32 products a multiply-add)."""
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    int8 = kind == "int8"
+    fp = NR.prepare_fused_nerf(mc, cfg, vcfg.multires, vcfg.multires_views,
+                               calib=calib if int8 else None,
+                               weight_dtype=cfg.compute_dtype,
+                               fold_requant=True)
+    kw = dict(L_pts=vcfg.multires, L_views=vcfg.multires_views,
+              white_bkgd=True)
+    o, d, zc, zf = chunk
+    wide = NR.teacher_wide_form(cfg.W)
+    key = ("K7" if int8 else "K6") + ("w" if wide else "")
+    c0 = refused_counts()
+    NR.fused_nerf_render(fp, cfg, o[:256], d[:256], zc[:256], **kw)
+    (tol, tol_rms), (tol_d, tol_d_rms) = TOL_TEACHER[kind]
+    r = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "launches": 0,
+         "library_ms": None}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed(fn, z):
+        start.record()
+        res = fn(fp, cfg, o, d, z, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end)
+
+    for z in (zc, zf):
+        got, ms = timed(NR.fused_nerf_render, z)
+        want, plain_ms = timed(NR.fused_nerf_render_ref, z)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        S = z.shape[1]
+        for what, g, w in zip(("rgb", "acc", "depth", "weights"), got, want):
+            mx, rms = deltas(g, w)
+            lim = (tol_d, tol_d_rms) if what == "depth" else (tol, tol_rms)
+            name = f"{label} {kind} S={S} {what} vs plain"
+            check(name, mx, rms, *lim)
+            share = max(mx / lim[0], rms / lim[1])
+            if share > MARGIN_SHARE:
+                print(f"[margin] {name}: max-abs {mx:.3e} ({mx / lim[0]:.0%}"
+                      f" of {lim[0]:.0e}), RMS {rms:.3e} ({rms / lim[1]:.0%}"
+                      f" of {lim[1]:.0e})", flush=True)
+            r["max_abs_err"] = max(r["max_abs_err"], mx)
+        del got, want
+    moved = moved_since(c0)
+    if moved != {key: 3}:
+        raise AssertionError(f"{label} {kind}: launched {moved}, expected "
+                             f"{{{key!r}: 3}}")
+    n, S_all = o.shape[0], zc.shape[1] + zf.shape[1]
+    ops = 2.0 * n * S_all * point_macs(cfg)
+    moved_bytes = 4 * n * (6 + S_all + 2 * 5 + S_all) + fp.staged.numel()
+    r.update(bound(3 * ops if kind == "f32" else ops, moved_bytes,
+                   "tf32" if kind == "f32" else kind), kernel=key,
+             packed_width=int(fp.pts_b.shape[1]), rays=n,
+             samples=[zc.shape[1], zf.shape[1]])
+    print(f"[main] wide teacher {label} {kind} ({key}, packed at "
+          f"W{r['packed_width']}), one chunk of {n} rays, S={zc.shape[1]} + "
+          f"{zf.shape[1]}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
+          f" ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+          f"{ops / 1e12:.3f} T{'OP' if int8 else 'FLOP'}), max-abs "
+          f"{r['max_abs_err']:.3e} ({smi})", flush=True)
+    return r
+
+
+def wide_teacher_chunks(smi: str, dev) -> dict:
+    """Each WIDE_TEACHER_CHUNKS teacher and kind on the first 32,768-ray
+    chunk of a datagen pose (``frame_chunks``: its stratified coarse depths
+    and its fine pass's sorted ones), int8 calibrated on datagen's set."""
+    from r2l_tpu_torch.datagen import int8_calibration_set
+    vcfg = teacher_vcfg()
+    chunk = frame_chunks(vcfg, dev)[0][0]
+    calib = tuple(torch.from_numpy(a).to(dev) for a in int8_calibration_set(
+        datagen_cfg("int8", 1), vcfg))
+    out = {}
+    for label, Wt, Dt, skips, kinds in WIDE_TEACHER_CHUNKS:
+        for kind in kinds:
+            cfg, mc, _ = wide_teacher_models(kind, Wt, Dt, skips, dev)
+            out[f"{label} {kind}"] = wide_teacher_row(
+                smi, label, kind, cfg, mc, chunk, calib, vcfg)
+            del mc
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_teacher(smi: str, poses, dev) -> dict:
+    """Phase 23: wide and deep teachers at full size (WIDE_TEACHER,
+    WIDE_TEACHER_CHUNKS); the wide form's launches on the phase's entry
+    points."""
+    t_phase = time.perf_counter()
+    res = {"device": smi, "paths": wide_teacher_paths(smi, poses, dev)}
+    res["chunks"] = wide_teacher_chunks(smi, dev)
+    pa = res["paths"]
+    res["launches"] = {"f32": pa["datagen_f32"]["launches"],
+                       "bf16": pa["frame_bf16"]["launches"],
+                       "int8": pa["datagen_int8"]["launches"]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[main] phase 23 took {res['phase_s']:.1f} s, wide teacher "
+          f"launches {res['launches']} ({smi})", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5219,6 +5507,8 @@ def main() -> int:
     wide = phase_wide(smi, sampler, poses, dev)
     torch.cuda.empty_cache()
     wtrain = phase_wide_train(smi, sampler, poses, dev)
+    torch.cuda.empty_cache()
+    wteach = phase_wide_teacher(smi, poses, dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -5242,7 +5532,8 @@ def main() -> int:
         "bench_cuda": bench_line, "checkpoints": ck,
         "cli": {k: v for k, v in cli.items()},
         "llff_mesh": llff, "exp_drivers": exp, "refused_shapes": refused,
-        "wide_frames": wide, "wide_train": wtrain}}))
+        "wide_frames": wide, "wide_train": wtrain,
+        "wide_teacher": wteach}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5348,6 +5639,12 @@ def main() -> int:
                "K8w", "train_fwd_int8_wide_bf16"),
               ("bwd_group_wide", "r2l_wide_bwd.cu", ":356", "K5w",
                "bwd_group_wide_bf16"))),
+        *(entry(f"fused_nerf_render_wide_{kind}", "nerf_wide.cu",
+                "r2l_tpu/kernels/nerf_render_pallas.py:336",
+                wteach["launches"][kind]
+                + (p20["K6w"] if kind == "bf16" else 0),
+                wteach["chunks"][f"{WIDE_TEACHER[0]} {kind}"])
+          for kind in ("f32", "bf16", "int8")),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -247,16 +247,19 @@ def build_parser() -> argparse.ArgumentParser:
         help='use the fused inference kernels (K1/K2, K6/K7) when '
              'rendering: a student of any netwidth the JAX package renders '
              'on its kernels (up to 256 on K1/K2, wider on their wide '
-             'form at the next multiple of 128); one it renders plain, '
-             'plain with a warning')
+             'form at the next multiple of 128), one it renders plain, '
+             'plain with a warning; the NeRF teacher of any width and depth '
+             '(up to 256 on K6/K7, wider on their wide form at the next '
+             'multiple of 128)')
     add('--pallas_tile', type=int, default=800)
     add('--poses_per_batch', type=int, default=8,
         help='poses per device render in create_data --create_data rand')
     add('--quantize', type=str, default='', choices=['', 'int8'],
         help='int8: static-scale quantized inference kernel (K2, and '
-             'its wide form above netwidth 256; per-channel weight '
-             'scales, per-(layer, channel) activation scales calibrated '
-             'on sample rays at build time)')
+             'its wide form above netwidth 256; for the teacher in '
+             'create_data rand, K7 and its wide form above netwidth 256; '
+             'per-channel weight scales, per-(layer, channel) activation '
+             'scales calibrated on sample rays at build time)')
     add('--seed', type=int, default=0)
     add('--ckpt_format', type=str, default='native',
         choices=['native', 'torch'],

@@ -30,10 +30,12 @@ Every mode draws its poses, focals, neighbour offsets and shuffles with
 numpy in the JAX package's order, so the files have the same names, shapes
 and row order. Each render runs on the device, through the fused
 volumetric kernel (``render_frame_nerf_fused``: K6, or K7 for an int8
-teacher) when the device is CUDA, ``use_pallas`` is on, the sigma noise is
-off and the positional encoding is on (the JAX package's conditions), else
-through the plain path; on the fused path a teacher the kernels do not take
-raises before anything is packed (``check_teacher_supported``). The
+teacher, at any depth; above W256 their wide form) when the device is
+CUDA, ``use_pallas`` is on, the sigma noise is off and the positional
+encoding is on (the JAX package's conditions), else through the plain
+path. On the fused path a teacher with a skip at its last layer, which
+the JAX package's model cannot build, raises before anything is packed
+(``check_teacher_supported``). The
 int8 teacher is wired into ``rand`` only; the other modes warn and render
 at full precision, as the JAX package does.
 

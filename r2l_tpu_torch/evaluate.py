@@ -29,10 +29,11 @@ student of their own widths (canonical f32 runs on K1 f32).
 
 The teacher's frame (``make_nerf_frame_fn``, the ``--test_teacher`` path)
 and its benchmark (``make_nerf_bench_fn``) render through the fused
-volumetric kernel on the card, else through the plain volumetric path; a
-teacher the kernels do not take raises on the card
-(``check_teacher_supported``), as the JAX package renders every teacher
-fused on its chip.
+volumetric kernel on the card (K6/K7 at any depth, above W256 their wide
+form), as the JAX package renders every teacher fused on its chip, else
+through the plain volumetric path; a teacher with a skip at its last
+layer, which the JAX package's model cannot build, raises on the card
+(``check_teacher_supported``).
 
 ``render_path`` writes 8-bit RGB PNGs with a writer of its own
 (``write_png``: ``zlib`` and ``struct``), so evaluation needs no image
@@ -437,8 +438,9 @@ def make_nerf_frame_fn(model_c: NeRF, model_f: NeRF | None,
     volumetric teacher on ``device`` (the card unless told otherwise; the
     models must be there). ``ndc_params = (H, W, focal)`` turns on the LLFF
     NDC warp. With ``use_pallas`` on a CUDA device (and the positional
-    encoding on) each pass runs through the fused kernel, packed once here;
-    a teacher the kernels do not take raises NotImplementedError first
+    encoding on) each pass runs through the fused kernel (K6/K7, above
+    W256 their wide form), packed once here; a teacher with a skip at its
+    last layer raises NotImplementedError first
     (``kernels.nerf_render.check_teacher_supported``).
 
     ``perturb_test`` jitters the depths with the sigma noise off (the

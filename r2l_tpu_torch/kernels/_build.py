@@ -67,6 +67,9 @@ KERNELS = {
     "nerf_render_int8": ("nerf_render_int8_launch",
                          [_P] * 3 + [_I] * 2 + [_P] * 5 + [_I] * 3
                          + [_P] * 13 + [_I] * 5 + [_P] * 5),
+    "nerf_wide": ("nerf_wide_launch",
+                  [_P] * 3 + [_I] * 2 + [_P, ctypes.POINTER(_I)] + [_I] * 3
+                  + [_P] * 8 + [_I] * 4 + [_P] * 5 + [_LL, _I, _P]),
     # the tensor-core probes of r2l_tpu_torch/exp/
     "probe_chain": ("probe_chain_launch",
                     [_P, _I, _P, _P, _P, _I, _I, _I, _P]),

@@ -70,7 +70,9 @@ struct Args {
   const float* pts_b;   // [D, W]
   const float* pe_inv;  // [kp] (int8)
   const float* pts_inv; // [D, W]: row i, inverse scale of layer i's h input
-  int D, skips;         // skips: bit i set if layer i's output is concatenated
+  int D, n_skips;       // the point layers, and how many are concatenated
+  const int* skip;      // [D] in the staged image: skip[i] set if layer i's
+                        // output is concatenated (layer i + 1 reads [E | H])
   const float* alpha_m;
   const float* alpha_b;
   const float* feat_m;
@@ -94,6 +96,7 @@ struct Args {
   int kvw, kve;    // view-encoding width kv - W, and as staged
   int heads_off;   // byte offset of the head weights in the staged image
   int epi_off;     // int8: byte offset of its (m, b) pair table
+  int flags_off;   // byte offset of the skip flags
   int ldE, ldH, ldV;  // tile row bytes (f32: row stride in floats)
   int off_h, off_v, off_ring, off_out, off_ray, off_bar, slot_bytes, smem;
 };
@@ -108,16 +111,21 @@ __host__ __device__ constexpr int align128(int x) {
 }
 
 // Number of GEMM layers, and layer l's outputs and staged input width:
-// the D point layers, then (viewdirs) the feature and the view layer.
+// the D point layers, then (viewdirs) the feature and the view layer. The
+// skip flags are read from the staged image by a uniform load, so the
+// depth has no limit; the host's plan counts the concatenated layers.
 __host__ __device__ inline int n_layers(const Args& a) {
   return a.D + (a.viewdirs ? 2 : 0);
 }
 __host__ __device__ inline int layer_n(const Args& a, int W, int l) {
   return l == a.D + 1 ? W / 2 : W;
 }
-__host__ __device__ inline int layer_k(const Args& a, int W, int l) {
+__device__ inline bool skip_before(const Args& a, int l) {  // 0 < l < D
+  return __ldg(a.skip + l - 1) != 0;
+}
+__device__ inline int layer_k(const Args& a, int W, int l) {
   if (l == 0) return a.kpe;
-  if (l < a.D) return ((a.skips >> (l - 1)) & 1) ? a.kpe + W : W;
+  if (l < a.D) return skip_before(a, l) ? a.kpe + W : W;
   return l == a.D ? W : W + a.kve;
 }
 
@@ -134,12 +142,13 @@ inline void plan(Args& a, int W) {
   a.kpe = round_up(a.kp, K::kKS);
   a.kvw = a.viewdirs ? round_up(W + 3 + 6 * a.Lv, 64) - W : 0;
   a.kve = round_up(a.kvw, K::kKS);
-  int bytes = 0;
-  for (int l = 0; l < n_layers(a); ++l)
-    bytes += layer_n(a, W, l) * layer_k(a, W, l) * es * K::kParts;
+  int macs = W * a.kpe + (a.D - 1) * W * W + a.n_skips * W * a.kpe;
+  if (a.viewdirs) macs += W * W + (W / 2) * (W + a.kve);
+  const int bytes = macs * es * K::kParts;
   a.heads_off = bytes;
   const int heads = (a.viewdirs ? W + 3 * (W / 2) : 4 * W) * es;
   a.epi_off = round_up(bytes + heads, 16);
+  a.flags_off = a.epi_off + (es == 1 ? n_layers(a) * (W / 2) * 16 : 0);
   if (K::kRegA) {  // +4 floats: the A fragment loads hit 32 banks
     a.ldE = a.kp + 4;
     a.ldH = W + 4;
@@ -479,7 +488,7 @@ __global__ void __launch_bounds__(kWG * (Kind<T>::kWGs + 1), 1)
     Acc acc[W / 2];
     for (int li = 0; li < a.D; ++li) {
       tiles_ready();
-      const bool from_e = li == 0 || ((a.skips >> (li - 1)) & 1);
+      const bool from_e = li == 0 || skip_before(a, li);
       const int kin = layer_k(a, W, li);
       const int k0 = from_e ? (K::kRegA ? a.kp : a.kpe) : kin;
       product<T, W>(acc, from_e ? E : Hm, from_e ? a.ldE : a.ldH, k0, Hm,
@@ -571,6 +580,7 @@ cudaError_t launch_as(const Args& a, cudaStream_t stream) {
 template <typename T, int W>
 cudaError_t launch(Args a, cudaStream_t stream) {
   plan<T>(a, W);
+  a.skip = reinterpret_cast<const int*>(a.staged + a.flags_off);
   if constexpr (sizeof(T) == 1)
     if (a.fold) return launch_as<T, W, true>(a, stream);
   return launch_as<T, W, false>(a, stream);

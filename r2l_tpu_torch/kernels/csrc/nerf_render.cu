@@ -40,23 +40,24 @@
 // `staged` is the image of stage_weights (nerf_render.py). Returns a
 // cudaError_t: the launch's own error, cudaErrorLaunchOutOfResources for a
 // cluster that cannot be resident, or cudaErrorInvalidValue for a shape the
-// kernel does not take (W 128 or 256; skips before the last layer).
+// kernel does not take (W 128 or 256; D >= 1 with at most D - 1
+// concatenated layers, whose flags the staged image holds).
 extern "C" int nerf_render_launch(
     const float* rays_o, const float* rays_d, const float* z, int n, int S,
-    const void* staged, const float* pts_b, int D, int skips, int W,
+    const void* staged, const float* pts_b, int D, int n_skips, int W,
     const float* alpha_b, const float* feat_b, const float* views_b,
     const float* rgb_b, const float* out_b, int Lp, int Lv, int viewdirs,
     int white, int weight_is_f32, float* rgb, float* acc, float* depth,
     float* weights, void* stream) {
-  if (n <= 0 || S <= 0 || D < 1 || D > 31 || Lp < 1 || (viewdirs && Lv < 1) ||
-      (skips >> (D - 1)) != 0)
+  if (n <= 0 || S <= 0 || D < 1 || n_skips < 0 || n_skips > D - 1 || Lp < 1 ||
+      (viewdirs && Lv < 1))
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(staged) & 15)
     return cudaErrorMisalignedAddress;
   nerf::Args a = {};
   a.rays_o = rays_o; a.rays_d = rays_d; a.z = z; a.n = n; a.S = S;
   a.staged = static_cast<const unsigned char*>(staged);
-  a.pts_b = pts_b; a.D = D; a.skips = skips;
+  a.pts_b = pts_b; a.D = D; a.n_skips = n_skips;
   a.alpha_b = alpha_b; a.feat_b = feat_b; a.views_b = views_b;
   a.rgb_b = rgb_b; a.out_b = out_b;
   a.Lp = Lp; a.Lv = Lv; a.viewdirs = viewdirs; a.white = white;
@@ -77,10 +78,10 @@ extern "C" int nerf_render_launch(
 }
 
 // The dynamic shared memory a block of this launch shape takes, in bytes.
-extern "C" int nerf_render_smem(int W, int weight_is_f32, int D, int skips,
+extern "C" int nerf_render_smem(int W, int weight_is_f32, int D, int n_skips,
                                 int Lp, int Lv, int viewdirs) {
   nerf::Args a = {};
-  a.D = D; a.skips = skips; a.Lp = Lp; a.Lv = Lv; a.viewdirs = viewdirs;
+  a.D = D; a.n_skips = n_skips; a.Lp = Lp; a.Lv = Lv; a.viewdirs = viewdirs;
   if (weight_is_f32)
     nerf::plan<float>(a, W);
   else

@@ -35,19 +35,20 @@
 // `staged` is the image of stage_weights (nerf_render.py). Returns a
 // cudaError_t: the launch's own error, cudaErrorLaunchOutOfResources for a
 // cluster that cannot be resident, or cudaErrorInvalidValue for a shape the
-// kernel does not take (W 128 or 256; skips before the last layer).
+// kernel does not take (W 128 or 256; D >= 1 with at most D - 1
+// concatenated layers, whose flags the staged image holds).
 extern "C" int nerf_render_int8_launch(
     const float* rays_o, const float* rays_d, const float* z, int n, int S,
     const void* staged, const float* pts_m, const float* pts_b,
-    const float* pe_inv, const float* pts_inv, int D, int skips, int W,
+    const float* pe_inv, const float* pts_inv, int D, int n_skips, int W,
     const float* alpha_m, const float* alpha_b, const float* feat_m,
     const float* feat_b, const float* h_inv, const float* views_m,
     const float* views_b, const float* hv_inv, const float* rgb_m,
     const float* rgb_b, const float* hr_inv, const float* out_m,
     const float* out_b, int Lp, int Lv, int viewdirs, int white, int fold,
     float* rgb, float* acc, float* depth, float* weights, void* stream) {
-  if (n <= 0 || S <= 0 || D < 1 || D > 31 || Lp < 1 || (viewdirs && Lv < 1) ||
-      (skips >> (D - 1)) != 0)
+  if (n <= 0 || S <= 0 || D < 1 || n_skips < 0 || n_skips > D - 1 || Lp < 1 ||
+      (viewdirs && Lv < 1))
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(staged) & 15)
     return cudaErrorMisalignedAddress;
@@ -55,7 +56,7 @@ extern "C" int nerf_render_int8_launch(
   a.rays_o = rays_o; a.rays_d = rays_d; a.z = z; a.n = n; a.S = S;
   a.staged = static_cast<const unsigned char*>(staged);
   a.pts_m = pts_m; a.pts_b = pts_b; a.pe_inv = pe_inv; a.pts_inv = pts_inv;
-  a.D = D; a.skips = skips;
+  a.D = D; a.n_skips = n_skips;
   a.alpha_m = alpha_m; a.alpha_b = alpha_b;
   a.feat_m = feat_m; a.feat_b = feat_b; a.h_inv = h_inv;
   a.views_m = views_m; a.views_b = views_b; a.hv_inv = hv_inv;
@@ -72,10 +73,10 @@ extern "C" int nerf_render_int8_launch(
 }
 
 // The dynamic shared memory a block of this launch shape takes, in bytes.
-extern "C" int nerf_render_int8_smem(int W, int D, int skips, int Lp, int Lv,
+extern "C" int nerf_render_int8_smem(int W, int D, int n_skips, int Lp, int Lv,
                                      int viewdirs) {
   nerf::Args a = {};
-  a.D = D; a.skips = skips; a.Lp = Lp; a.Lv = Lv; a.viewdirs = viewdirs;
+  a.D = D; a.n_skips = n_skips; a.Lp = Lp; a.Lv = Lv; a.viewdirs = viewdirs;
   nerf::plan<int8_t>(a, W);
   return a.smem;
 }

@@ -1,0 +1,432 @@
+// The wide form of K6 and K7: the fused volumetric NeRF teacher pass for
+// every teacher wider than the chain kernels' widths (nerf_render.cu,
+// nerf_render_int8.cu: W 128 and 256), at any multiple of kWideChannels
+// (nerf_render.py sends every teacher wider than 256 here, padded with zero
+// channels to that multiple; the view layer's W/2 outputs to the next
+// multiple as well).
+//
+// Replaces, at those widths, the Pallas TPU kernel r2l_tpu/kernels/
+// nerf_render_pallas.py::fused_nerf_render_t (:336): f32 weights (3xTF32),
+// bf16, and int8 (folded and unfolded requantize), with the rounding points
+// of the plain version (nerf_render.py, _mlp_dense, _heads_dense,
+// _mlp_int8, fused_nerf_render_ref).
+//
+// Why another design: K6/K7 keep a 64-point tile's activations in shared
+// memory and a W-wide wgmma accumulator in registers (N <= 256). Here a
+// layer is one pass over the points' activations in device memory, on the
+// student's wide passes (r2l_wide.cuh: mma.sync, 128 points x 128 channels
+// a block, eight warps, the weights' 16 KB tiles and the activations
+// through a three-slot cp.async ring), with sources and epilogues of its
+// own:
+//   * sources: a pass's input row is [point encoding | h | view encoding],
+//     any of them empty. The encodings are made by the block itself in the
+//     ring slot of the stage that holds them: the point o + d*z (one FMA,
+//     volume.ray_points) and the view direction d / max(|d|, 1e-12), each
+//     encoded by the teacher's double-angle ladder in nerf_embed's order
+//     (nerf::encode, bit for bit the plain version's pe_ladder), cast to
+//     bf16, or quantized with pe_inv / hv_inv[W:] for int8; zeros past the
+//     used columns. The layer after a skip reads [encoding | h], the view
+//     layer [feature | view encoding], in one accumulation. Recomputing the
+//     encoding costs one ladder per (point, coordinate) and stage, against
+//     128 x 128 x 64 products a stage: cheaper than storing it and reading
+//     it back, and it needs no buffer.
+//   * epilogues: (m, b, inv) a channel from the image's table. f32/bf16:
+//     the bias added in f32, ReLU (not after the feature layer), rounded to
+//     the compute type. int8: acc*m + b in one FMA, ReLU, times the
+//     consumer's inverse scale (1 where folded), round-half-even, clip.
+//   * heads: sigma (W -> 1), rgb (W/2 -> 3) or output_linear (W -> 4) as
+//     the student's tail reduction (wide_tail, linear: an f32 dot of the
+//     rounded activations, or int8's exact int32 dot and one-FMA
+//     dequantize), sigma before the feature pass overwrites its input.
+//   * compositing: one thread a ray walks its S samples in order, the
+//     operations of volume.raw2outputs as K6 does them (nerf::composite).
+// f32 sums each k8 step's three TF32 products apart (kSplit), as training's
+// wide passes do. The wrapper cuts the rays into passes of whole rays to
+// bound the scratch (two activation buffers, sigma and the logits).
+//
+// What bounds it: the products. A point costs 2,300,928 multiply-adds at
+// W512 and 9,058,304 at W1024 with viewdirs (8 layers, a skip at 4), so a
+// 400x400 datagen pose of 64 + 192 samples is 188.5 and 742 TFLOP: 191 and
+// 750 ms at the card's 989 bf16 TFLOP/s. PERF.md has the measured times.
+#include <vector>
+
+#include "nerf_hopper.cuh"
+#include "r2l_wide.cuh"
+
+using namespace r2lw;
+
+namespace {
+
+// One pass: a GEMM layer's product and epilogue on `rows` points.
+struct Layer {
+  int rows;              // points of this pass (its rays x S)
+  int N;                 // output channels, a multiple of kWideChannels
+  int st_e, st_m, st_v;  // stages (128 bytes of K) of the point encoding,
+                         // of h from device memory, of the view encoding
+  const unsigned char* w;  // the layer's staged tiles
+  const void* a;         // [rows, st_m * 128 bytes]: the previous output
+  const float* rays_o;   // the pass's rays [rays, 3]
+  const float* rays_d;
+  const float* z;        // [rays * S]: point r's depth is z[r]
+  int S, Lp, Lv;
+  const float* pe_inv;   // int8: [kp]
+  const float* hv_inv;   // int8: the view encoding's [kvw] (hv_inv + W)
+  const float4* epi;     // [N] (m, b, inv, 0)
+  int relu;
+  void* out;             // [rows, N] of the compute type
+};
+
+// The block's 128 x 128 outputs of one layer.
+template <int T, bool kSplit>
+__global__ void __launch_bounds__(kThreads) teacher_layer(const Layer p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int es = elem_bytes(T);
+  constexpr int kCols = 128 / es;  // channels of a stage
+  uint32_t* sA = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* sB = sA + kStages * kBM * kLd;
+  const int ntn = p.N / kBN;
+  const int mt = blockIdx.x / ntn, nt = blockIdx.x - mt * ntn;
+  const int row0 = mt * kBM, col0 = nt * kBN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int KT = p.st_e + p.st_m + p.st_v;  // stages over K
+  const unsigned char* wt = p.w + (size_t)nt * KT * kTileBytes;
+
+  // Columns [c0, c0 + kCols) of the point (or view) encoding of the
+  // block's points into a slot: the used columns by the ladder, zeros past
+  // them (rows past the pass take its last point: read, never stored).
+  auto encode_stage = [&](unsigned char* slot, int c0, bool view) {
+    const int L = view ? p.Lv : p.Lp, used = 3 + 6 * L;
+    const float* inv = view ? p.hv_inv : p.pe_inv;
+    auto put = [&](int r, int c, float x) {
+      unsigned char* row = slot + r * kLd * 4;
+      if constexpr (T == kBF16)
+        reinterpret_cast<__nv_bfloat16*>(row)[c - c0] = __float2bfloat16_rn(x);
+      else if constexpr (T == kF32)
+        reinterpret_cast<float*>(row)[c - c0] = x;
+      else
+        reinterpret_cast<int8_t*>(row)[c - c0] = r2l::q8(__fmul_rn(x, inv[c]));
+    };
+    const int z0 = max(min(used - c0, kCols), 0), nz = kCols - z0;
+    for (int e = tid; e < kBM * nz * es; e += kThreads) {
+      const int r = e / (nz * es);
+      slot[r * kLd * 4 + z0 * es + (e - r * nz * es)] = 0;
+    }
+    if (z0 == 0) return;
+    for (int e = tid; e < kBM * 3; e += kThreads) {
+      const int r = e / 3, k = e - 3 * r;
+      const int g = min(row0 + r, p.rows - 1), ray = g / p.S;
+      const float* d = p.rays_d + 3 * ray;
+      float v;
+      if (view) {  // |d| with the sum of squares contracted, as K6
+        const float dn = sqrtf(__fmaf_rn(
+            d[2], d[2], __fmaf_rn(d[1], d[1], __fmul_rn(d[0], d[0]))));
+        v = d[k] / fmaxf(dn, 1e-12f);
+      } else {
+        v = __fmaf_rn(d[k], p.z[g], p.rays_o[3 * ray + k]);
+      }
+      nerf::encode(v, k, L, [&](int c, float x) {
+        if (c >= c0 && c < c0 + kCols) put(r, c, x);
+      });
+    }
+  };
+
+  auto load_stage = [&](int slot, int kt) {
+    const unsigned char* bs = wt + (size_t)kt * kTileBytes;
+    unsigned char* bd = reinterpret_cast<unsigned char*>(sB + slot * kBN * kLd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = tid + i * kThreads;
+      r2l::cp_async16(bd + (c >> 3) * kLd * 4 + (c & 7) * 16, bs + c * 16);
+    }
+    unsigned char* ad = reinterpret_cast<unsigned char*>(sA + slot * kBM * kLd);
+    if (kt < p.st_e) {
+      encode_stage(ad, kt * kCols, false);
+    } else if (kt < p.st_e + p.st_m) {
+      const unsigned char* a = static_cast<const unsigned char*>(p.a);
+      const size_t kb = (size_t)p.st_m * 128, k0 = (size_t)(kt - p.st_e) * 128;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = tid + i * kThreads, r = c >> 3;
+        const int g = min(row0 + r, p.rows - 1);  // rows past: read, unused
+        r2l::cp_async16(ad + r * kLd * 4 + (c & 7) * 16,
+                        a + (size_t)g * kb + k0 + (c & 7) * 16);
+      }
+    } else {
+      encode_stage(ad, (kt - p.st_e - p.st_m) * kCols, true);
+    }
+  };
+
+  Acc<T> acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    r2l::cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    r2l::cp_async_wait_prior();  // stage kt has landed (three slots)
+    __syncthreads();             // and every warp is done with kt - 1
+    const int nk = kt + kStages - 1;
+    if (nk < KT) load_stage(nk % kStages, nk);
+    r2l::cp_async_commit();
+    const uint32_t* A = sA + (kt % kStages) * kBM * kLd;
+    const uint32_t* B = sB + (kt % kStages) * kBN * kLd;
+#pragma unroll
+    for (int kw = 0; kw < kBKW; kw += 8)
+      mma_step<T, kSplit>(acc, A, kLd, B, kw, wm, wn, lane);
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wm * 64 + i * 16 + g + 8 * h;
+      if (row >= p.rows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + wn * 32 + j * 8 + 2 * t;
+        const size_t o = (size_t)row * p.N + col;
+        const float4 e[2] = {__ldg(p.epi + col), __ldg(p.epi + col + 1)};
+        if constexpr (T == kS8) {
+          int8_t q[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            float y = r2l::dequant(acc[i][j][2 * h + k], e[k].x, e[k].y);
+            if (p.relu) y = fmaxf(y, 0.f);
+            q[k] = r2l::q8(__fmul_rn(y, e[k].z));
+          }
+          *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) =
+              make_char2(q[0], q[1]);
+        } else {
+          float v[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            v[k] = __fadd_rn(acc[i][j][2 * h + k], e[k].y);
+            if (p.relu) v[k] = fmaxf(v[k], 0.f);
+          }
+          store2<T>(p.out, o, v);
+        }
+      }
+    }
+}
+
+// raw2outputs for the pass's rays, one thread a ray walking its S samples
+// in order (nerf::composite's operations): sigma of point r at sig[r * ss],
+// its rgb logits at lg[r * ls + k].
+__global__ void __launch_bounds__(128)
+    teacher_composite(const float* rays_d, const float* z, int rays, int S,
+                      const float* sig, int ss, const float* lg, int ls,
+                      int white, float* rgb, float* acc, float* depth,
+                      float* weights) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays) return;
+  const float* d = rays_d + 3 * i;
+  const float dn = sqrtf(
+      __fmaf_rn(d[2], d[2], __fmaf_rn(d[1], d[1], __fmul_rn(d[0], d[0]))));
+  float trans = 1.f, c[3] = {0.f, 0.f, 0.f}, a = 0.f, dep = 0.f;
+  const size_t r0 = (size_t)i * S;
+  for (int s = 0; s < S; ++s) {
+    const size_t r = r0 + s;
+    const float zs = z[r];
+    const float zn = s + 1 < S ? z[r + 1] : __fadd_rn(zs, 1e10f);
+    const float dist = __fmul_rn(__fsub_rn(zn, zs), dn);
+    const float alpha =
+        __fsub_rn(1.f, expf(__fmul_rn(-fmaxf(sig[r * ss], 0.f), dist)));
+    const float w = __fmul_rn(alpha, trans);
+    weights[r] = w;
+    for (int k = 0; k < 3; ++k)
+      c[k] = __fmaf_rn(w, r2l::sigmoid(lg[r * ls + k]), c[k]);
+    a = __fadd_rn(a, w);
+    dep = __fmaf_rn(w, zs, dep);
+    trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, alpha), 1e-10f));
+  }
+  for (int k = 0; k < 3; ++k)
+    rgb[3 * i + k] = white ? __fadd_rn(c[k], __fsub_rn(1.f, a)) : c[k];
+  acc[i] = a;
+  depth[i] = dep;
+}
+
+template <int T, bool kSplit>
+cudaError_t pass_layer(const Layer& p, cudaStream_t st) {
+  constexpr int smem = (kStages * kBM * kLd + kStages * kBN * kLd) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      teacher_layer<T, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((p.rows + kBM - 1) / kBM) * (p.N / kBN);
+  teacher_layer<T, kSplit><<<(unsigned)blocks, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// Everything a call needs (the C entry point's arguments).
+struct Call {
+  const float *rays_o, *rays_d, *z;
+  int n, S;
+  const unsigned char* image;  // stage_wide_teacher's
+  const int* skips;            // host [D]: layer i's output concatenated
+  int D, W;
+  const float *pe_inv, *hv_inv;
+  const float *alpha_m, *alpha_b, *rgb_m, *rgb_b, *out_m, *out_b;
+  int Lp, Lv, viewdirs, white;
+  float *rgb, *acc, *depth, *weights;
+  unsigned char* scratch;
+  long long scratch_bytes;
+  int rays;  // rays a pass
+};
+
+// The image's GEMM layers (nerf_render.py, wide_teacher_plan).
+struct Gemm {
+  int N, st_e, st_m, st_v;
+  size_t w_off, table_off;  // bytes; the table in float4 entries
+};
+
+// The scratch of passes of `rows` points (nerf_render.py,
+// teacher_wide_scratch_bytes): two activation buffers, sigma, the logits.
+long long scratch_bytes(long long rows, int W, int es) {
+  return 2 * aligned(rows * W * es) + aligned(4 * rows) + aligned(16 * rows);
+}
+
+template <int T>
+cudaError_t run(const Call& c, cudaStream_t st) {
+  constexpr int es = elem_bytes(T);
+  constexpr bool kSplit = T == kF32;
+  const int W = c.W, V = r2l::round_up(W / 2, kWideChannels);
+  const int kp = r2l::round_up(3 + 6 * c.Lp, 64);
+  const int kvw = r2l::round_up(W + 3 + 6 * c.Lv, 64) - W;
+  const int st_e = r2l::round_up(kp * es, 128) / 128;   // stages of each
+  const int st_v = r2l::round_up(kvw * es, 128) / 128;  // encoding
+  const int st_h = W * es / 128;
+  std::vector<Gemm> layers;
+  size_t w_off = 0, t_off = 0;
+  auto add = [&](int N, int e, int m, int v) {
+    layers.push_back({N, e, m, v, w_off, t_off});
+    w_off += (size_t)N * (e + m + v) * 128;
+    t_off += N;
+  };
+  add(W, st_e, 0, 0);
+  for (int l = 1; l < c.D; ++l) add(W, c.skips[l - 1] ? st_e : 0, st_h, 0);
+  if (c.viewdirs) {
+    add(W, 0, st_h, 0);
+    add(V, 0, st_h, st_v);
+  }
+  const unsigned char* heads = c.image + w_off;
+  const size_t heads_bytes = (c.viewdirs ? W + 3 * V : 4 * W) * es;
+  const float4* table = reinterpret_cast<const float4*>(heads + heads_bytes);
+
+  const int rays = c.rays > 0 && c.rays < c.n ? c.rays : c.n;
+  const long long rows_max = (long long)rays * c.S;
+  if (c.scratch_bytes < scratch_bytes(rows_max, W, es))
+    return cudaErrorInvalidValue;
+  unsigned char* s = c.scratch;
+  void* H[2];
+  for (int i = 0; i < 2; ++i, s += aligned(rows_max * W * es)) H[i] = s;
+  float* sig = reinterpret_cast<float*>(s);
+  float* lg = reinterpret_cast<float*>(s + aligned(4 * rows_max));
+
+  for (int r0 = 0; r0 < c.n; r0 += rays) {
+    const int nr = c.n - r0 < rays ? c.n - r0 : rays, rows = nr * c.S;
+    Layer p{};
+    p.rows = rows;
+    p.rays_o = c.rays_o + 3 * (size_t)r0;
+    p.rays_d = c.rays_d + 3 * (size_t)r0;
+    p.z = c.z + (size_t)r0 * c.S;
+    p.S = c.S;
+    p.Lp = c.Lp;
+    p.Lv = c.Lv;
+    p.pe_inv = c.pe_inv;
+    p.hv_inv = c.hv_inv ? c.hv_inv + W : nullptr;
+    int cur = 0;
+    auto layer = [&](int l, int relu) {
+      const Gemm& g = layers[l];
+      Layer lp = p;
+      lp.N = g.N;
+      lp.st_e = g.st_e;
+      lp.st_m = g.st_m;
+      lp.st_v = g.st_v;
+      lp.w = c.image + g.w_off;
+      lp.a = H[cur];
+      lp.epi = table + g.table_off;
+      lp.relu = relu;
+      lp.out = H[cur ^ 1];
+      cur ^= 1;
+      return pass_layer<T, kSplit>(lp, st);
+    };
+    auto head = [&](int K, const void* w, const float* m, const float* b,
+                    int out_dim, float* out) {
+      wide_tail<T><<<(rows + 7) / 8, 256, 0, st>>>(H[cur], rows, K, w, m, b,
+                                                   out_dim, 1, out);
+      return cudaGetLastError();
+    };
+    cur = 1;  // layer 0 writes H[0]
+    cudaError_t err = cudaSuccess;
+    for (int l = 0; l < c.D && err == cudaSuccess; ++l) err = layer(l, 1);
+    const float* sg;
+    int ss, ls;
+    if (c.viewdirs) {
+      if (err == cudaSuccess)
+        err = head(W, heads, c.alpha_m, c.alpha_b, 1, sig);
+      if (err == cudaSuccess) err = layer(c.D, 0);      // feature, no ReLU
+      if (err == cudaSuccess) err = layer(c.D + 1, 1);  // view layer
+      if (err == cudaSuccess)
+        err = head(V, heads + (size_t)W * es, c.rgb_m, c.rgb_b, 3, lg);
+      sg = sig, ss = 1, ls = 3;
+    } else {
+      if (err == cudaSuccess) err = head(W, heads, c.out_m, c.out_b, 4, lg);
+      sg = lg + 3, ss = 4, ls = 4;
+    }
+    if (err != cudaSuccess) return err;
+    teacher_composite<<<(nr + 127) / 128, 128, 0, st>>>(
+        p.rays_d, p.z, nr, c.S, sg, ss, lg, ls, c.white, c.rgb + 3 * (size_t)r0,
+        c.acc + r0, c.depth + r0, c.weights + (size_t)r0 * c.S);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// C entry point (loaded with ctypes by r2l_tpu_torch/kernels/_build.py).
+// image: stage_wide_teacher's (nerf_render.py); skips: a host array of D
+// flags (layer i's output concatenated with the encoding); dtype 0 bf16, 1
+// f32, 2 int8; pe_inv, hv_inv and the heads' m: int8's, else null; scratch:
+// teacher_wide_scratch_bytes(rays * S, W) bytes, 256-byte aligned; rays:
+// rays a pass (0: all n). Returns a cudaError_t: a launch's own error, or
+// cudaErrorInvalidValue for a shape the wide form does not take (W not a
+// multiple of 128, a skip at the last layer) or a scratch too small.
+extern "C" int nerf_wide_launch(
+    const float* rays_o, const float* rays_d, const float* z, int n, int S,
+    const unsigned char* image, const int* skips, int D, int W, int dtype,
+    const float* pe_inv, const float* hv_inv, const float* alpha_m,
+    const float* alpha_b, const float* rgb_m, const float* rgb_b,
+    const float* out_m, const float* out_b, int Lp, int Lv, int viewdirs,
+    int white, float* rgb, float* acc, float* depth, float* weights,
+    unsigned char* scratch, long long scratch_bytes, int rays, void* stream) {
+  if (n <= 0 || S <= 0 || D < 1 || W <= 0 || W % kWideChannels != 0 ||
+      Lp < 1 || (viewdirs && Lv < 1) || dtype < 0 || dtype > 2 ||
+      skips[D - 1] != 0)
+    return cudaErrorInvalidValue;
+  if (dtype == kS8 && (!pe_inv || (viewdirs && !hv_inv)))
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(image) & 15 ||
+      reinterpret_cast<uintptr_t>(scratch) & 255)
+    return cudaErrorMisalignedAddress;
+  Call c{rays_o, rays_d, z,     n,     S,     image, skips, D,
+         W,      pe_inv, hv_inv, alpha_m, alpha_b, rgb_m, rgb_b, out_m,
+         out_b,  Lp,     Lv,     viewdirs, white, rgb, acc, depth,
+         weights, scratch, scratch_bytes, rays};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kBF16: return run<kBF16>(c, s);
+    case kF32: return run<kF32>(c, s);
+    default: return run<kS8>(c, s);
+  }
+}

@@ -19,15 +19,23 @@ gives rgb [N, 3], acc [N], depth [N] and the weights [N, S]. Two kernels:
   next layer's inverse scale, or (``fold_requant``) by round+clip alone
   with the scales folded into the producer's m and b.
 
-``fused_nerf_render`` runs the plain version ``fused_nerf_render_ref`` for a
-tensor on the CPU only; for a CUDA tensor it launches K6 or K7, or raises.
-The kernels are built for the widths of ``NERF_KERNEL_WIDTHS``;
+Both take any depth: the skip set travels in the staged image as one flag
+a layer. They are built for the widths of ``NERF_KERNEL_WIDTHS``;
 ``prepare_fused_nerf`` pads a narrower teacher with zero channels to the
-next of them (``teacher_kernel_width``), so K6/K7 take every width up to
-the widest. A teacher they do not take (``fused_teacher_supported``: a
-wider one, D > ``NERF_KERNEL_MAX_D``, a skip after the last layer) raises
-NotImplementedError before any launch (``check_teacher_supported``, which
-the teacher's entry points call before they pack).
+next of them (``teacher_kernel_width``). A wider teacher
+(``teacher_wide_form``) runs on their wide form, ``csrc/nerf_wide.cu``: one
+``mma.sync`` pass a layer over activations in device memory (the student's
+wide passes, ``r2l_wide.cuh``), the point and view encodings made in the
+passes that read them, the heads as reductions and the compositing one
+thread a ray; the teacher packed at the next multiple of ``WIDE_CHANNELS``
+and staged as ``stage_wide_teacher``'s tiles. Every teacher the JAX
+package's model builds is taken (``fused_teacher_supported``: a skip
+before the last layer); ``check_teacher_supported`` raises
+NotImplementedError for the rest before anything is packed.
+
+``fused_nerf_render`` runs the plain version ``fused_nerf_render_ref`` for a
+tensor on the CPU only; for a CUDA tensor it launches K6, K7 or their wide
+form, or raises. The plain version is the wide form's too.
 
 Port layout (not the TPU's transposed ``[feature, ray]`` one): weights
 ``[out, in]``; the point encoding in ``nerf_embed``'s own order
@@ -37,13 +45,13 @@ of 64); the skip layer's input is
 encoding]`` zero-padded to ``kv``, a multiple of 64. In int8 the padding
 columns have scale 1, as the JAX package's.
 
-The kernels read the GEMM weights from a staged image (``stage_weights``,
+K6/K7 read the GEMM weights from a staged image (``stage_weights``,
 made once per model by ``prepare_fused_nerf``): each layer cut into stages
 of ``STAGE_K`` input channels for all its outputs, each stage laid out as
 Hopper's ``wgmma`` reads B from shared memory (K-major 8-row x 16-byte core
 matrices, no swizzle), so one bulk copy moves it; f32 weights as their TF32
 high and low parts (3xTF32); the head weights (alpha, rgb or output_linear)
-after the layers.
+after the layers, then (int8) the epilogue table and the skip flags.
 """
 from __future__ import annotations
 
@@ -56,8 +64,9 @@ import torch
 
 from ..models.nerf import NeRF, NeRFConfig
 from ..volume import fma, ray_points
-from .r2l_fused import (_act_scale, _check, _dequant, _mm_int, _ptr, _q8,
-                        _raise_on_error, pads)
+from .r2l_fused import (_WIDE_TYPES, WIDE_CHANNELS, WIDE_SCRATCH_BYTES,
+                        _act_scale, _aligned, _check, _dequant, _mm_int,
+                        _ptr, _q8, _raise_on_error, _tiles, _untiles, pads)
 from .staging import STAGE_K, stage_matrices, tf32_split  # noqa: F401
 
 K_STAGE = 64     # every packed weight's input axis is a multiple of this
@@ -66,13 +75,13 @@ ROWS = 1 << 18   # points per slice of the plain version's MLP
 # stages' input channels are staging.STAGE_K.
 BLOCK_POINTS = {torch.bfloat16: 128, torch.int8: 128, torch.float32: 64}
 SAMPLES_PER_GROUP = 8
-# The teacher shapes K6/K7 are built for: the ``case`` labels of the launch
-# switches in csrc/nerf_render.cu and csrc/nerf_render_int8.cu, and their
-# depth limit; any other returns cudaErrorInvalidValue. A narrower teacher
-# is packed at the next width (``teacher_kernel_width``).
-# tests/test_torch_gates.py reads them there.
+# The teacher widths K6/K7 are built for: the ``case`` labels of the launch
+# switches in csrc/nerf_render.cu and csrc/nerf_render_int8.cu; any other
+# returns cudaErrorInvalidValue. A narrower teacher is packed at the next
+# width, a wider one at the next multiple of WIDE_CHANNELS for the wide
+# form (``teacher_kernel_width``). tests/test_torch_gates.py reads them
+# there.
 NERF_KERNEL_WIDTHS = (128, 256)
-NERF_KERNEL_MAX_D = 31
 
 
 def _round_up(x: int, m: int) -> int:
@@ -134,20 +143,30 @@ def _pad_cols(w: torch.Tensor, cols: int, fill: float = 0.0) -> torch.Tensor:
     return out
 
 
-def teacher_kernel_width(W: int) -> int | None:
+def teacher_wide_form(W: int) -> bool:
+    """Whether a W-wide teacher runs on the wide form of K6/K7
+    (``csrc/nerf_wide.cu``): wider than the widest of
+    ``NERF_KERNEL_WIDTHS``."""
+    return W > NERF_KERNEL_WIDTHS[-1]
+
+
+def teacher_kernel_width(W: int) -> int:
     """The width K6/K7 run a W-wide teacher at: the narrowest of
-    ``NERF_KERNEL_WIDTHS`` that holds it, or None above the widest.
+    ``NERF_KERNEL_WIDTHS`` that holds it, or on the wide form
+    (``teacher_wide_form``) the next multiple of ``WIDE_CHANNELS``.
     ``prepare_fused_nerf`` pads the network with zero channels (the view
     layer to half that width), which ReLU keeps at zero and every later
     layer and head reads through zero weights, so the padded pass computes
     the W-wide teacher."""
-    return next((k for k in NERF_KERNEL_WIDTHS if k >= W), None)
+    if teacher_wide_form(W):
+        return _round_up(W, WIDE_CHANNELS)
+    return next(k for k in NERF_KERNEL_WIDTHS if k >= W)
 
 
 def teacher_kernel_cfg(cfg: NeRFConfig) -> NeRFConfig:
-    """``cfg`` at its kernel width (``cfg`` itself above the widest)."""
+    """``cfg`` at its kernel width."""
     Wk = teacher_kernel_width(cfg.W)
-    return cfg if Wk in (None, cfg.W) else dataclasses.replace(cfg, W=Wk)
+    return cfg if Wk == cfg.W else dataclasses.replace(cfg, W=Wk)
 
 
 @torch.no_grad()
@@ -253,8 +272,10 @@ def prepare_fused_nerf(model: NeRF, cfg: NeRFConfig, L_pts: int = 10,
     folded (it has no producer). The result records it, and the weights'
     dtype records int8, so the render takes neither as an argument. TF32
     is switched off for the calibration. ``pad`` (by default where the
-    model lies on the card) packs a teacher narrower than the kernels'
-    widths at its ``teacher_kernel_width``.
+    model lies on the card) packs the teacher at its
+    ``teacher_kernel_width``. The weight image is K6/K7's
+    (``stage_weights``), or above their widths the wide form's
+    (``stage_wide_teacher``).
     """
     model, cfg = _padded_teacher(model, cfg, pad)
     W, D = cfg.W, cfg.D
@@ -352,7 +373,8 @@ def prepare_fused_nerf(model: NeRF, cfg: NeRFConfig, L_pts: int = 10,
         c(hv_inv) if hv_inv is not None else empty, *map(c, rgb),
         c(hr_inv) if hr_inv is not None else empty, *map(c, out),
         fold_requant=bool(int8 and fold_requant))
-    return fp._replace(staged=stage_weights(fp, cfg, L_pts, L_views))
+    stage = stage_wide_teacher if teacher_wide_form(W) else stage_weights
+    return fp._replace(staged=stage(fp, cfg, L_pts, L_views))
 
 
 def stage_plan(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
@@ -362,7 +384,9 @@ def stage_plan(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
     the feature and the view layer); the point and view encodings' widths
     as staged ('kpe', 'kve', a multiple of ``STAGE_K``) and as packed
     ('kp', 'kvw' = kv - W); 'gemm_bytes', the layers' bytes (the heads
-    follow them)."""
+    follow them); 'epi_off', int8's epilogue table after them; 'flags_off',
+    the skip flags after that (int32, one a point layer: layer i + 1 reads
+    [encoding | h] where flag i is set)."""
     W = cfg.W
     kp, kv, ks = layout(cfg, L_pts, L_views)
     k = STAGE_K[dtype]
@@ -379,8 +403,10 @@ def stage_plan(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
     heads = (W + 3 * (W // 2) if cfg.use_viewdirs else 4 * W) * es
     epi = _round_up(gemm + heads, 16)
     table = len(layers) * (W // 2) * 16 if dtype == torch.int8 else 0
+    flags = epi + table
     return {"layers": layers, "kp": kp, "kpe": kpe, "kvw": kvw, "kve": kve,
-            "gemm_bytes": gemm, "epi_off": epi, "nbytes": epi + table}
+            "gemm_bytes": gemm, "epi_off": epi, "flags_off": flags,
+            "nbytes": flags + _round_up(4 * cfg.D, 16)}
 
 
 def _gemm_mats(fp: FusedNeRFParams, cfg: NeRFConfig, L_pts: int,
@@ -420,7 +446,7 @@ def stage_weights(fp: FusedNeRFParams, cfg: NeRFConfig, L_pts: int = 10,
     wgmma's core-matrix order (``staging.stage_matrices``; f32: the TF32
     high part's stage, then the low part's), then the head weights in the
     weights' dtype, whole; int8 then ``_epi_table`` from a 16-byte
-    boundary."""
+    boundary; then the skip flags (``stage_plan``)."""
     wd = fp.pts_w.dtype
     k = STAGE_K[wd]
     mats, heads = _gemm_mats(fp, cfg, L_pts, L_views)
@@ -430,7 +456,15 @@ def stage_weights(fp: FusedNeRFParams, cfg: NeRFConfig, L_pts: int = 10,
     out = torch.nn.functional.pad(out, (0, -out.numel() % 16))
     if wd == torch.int8:
         out = torch.cat([out, _bytes(_epi_table(fp, cfg)).reshape(-1)])
-    return out.contiguous()
+    flags = _pad_cols(_skip_flags(cfg, out.device), _round_up(cfg.D, 4))
+    return torch.cat([out, _bytes(flags)]).contiguous()
+
+
+def _skip_flags(cfg: NeRFConfig, device) -> torch.Tensor:
+    """int32 [D]: 1 where layer i's output is concatenated with the
+    encoding (layer i + 1 reads [encoding | h])."""
+    return torch.tensor([int(i in cfg.skips) for i in range(cfg.D)],
+                        dtype=torch.int32, device=device)
 
 
 def _epi_table(fp: FusedNeRFParams, cfg: NeRFConfig) -> torch.Tensor:
@@ -502,8 +536,8 @@ def unstage_weights(staged: torch.Tensor, cfg: NeRFConfig,
         nb = math.prod(shape) * es
         out[name] = take(nb).clone().view(dtype).reshape(shape)
     if dtype == torch.int8:   # the (m, b) column-pair table
-        t = staged[plan["epi_off"]:].clone().view(torch.float32).view(
-            len(plan["layers"]), W // 2, 4)
+        t = staged[plan["epi_off"]:plan["flags_off"]].clone().view(
+            torch.float32).view(len(plan["layers"]), W // 2, 4)
         m, b = (torch.stack([t[..., k], t[..., k + 2]], -1).reshape(
             len(plan["layers"]), W) for k in (0, 1))
         out["pts_m"], out["pts_b"] = m[:cfg.D], b[:cfg.D]
@@ -520,7 +554,7 @@ def kernel_smem(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
     takes at this shape, in bytes, from the kernel's own plan (builds the
     library)."""
     from . import _build
-    skips = sum(1 << s for s in cfg.skips)
+    skips = _n_skips(cfg)
     vd = int(cfg.use_viewdirs)
     if dtype == torch.int8:
         fn = _build.load("nerf_render_int8").nerf_render_int8_smem
@@ -696,26 +730,32 @@ def _packed_cfg(fp: FusedNeRFParams, cfg: NeRFConfig) -> NeRFConfig:
 
 
 def fused_teacher_supported(cfg: NeRFConfig) -> bool:
-    """Whether K6/K7 take the teacher network ``cfg``: a
-    ``teacher_kernel_width``, 1 <= D <= ``NERF_KERNEL_MAX_D`` and every
-    skip before the last layer (the skips travel as a D-1-bit mask)."""
-    return (teacher_kernel_width(cfg.W) is not None
-            and 1 <= cfg.D <= NERF_KERNEL_MAX_D
+    """Whether K6/K7 (or their wide form) take the teacher network
+    ``cfg``: any W >= 1 and D >= 1 with every skip before the last layer,
+    which is every teacher the JAX package's model builds (a skip at the
+    last layer would feed the heads W + input_ch channels where
+    ``init_nerf`` gives them W)."""
+    return (cfg.W >= 1 and cfg.D >= 1
             and all(0 <= s < cfg.D - 1 for s in cfg.skips))
+
+
+def _n_skips(cfg: NeRFConfig) -> int:
+    """The number of point layers whose output is concatenated."""
+    return len(set(cfg.skips))
 
 
 def check_teacher_supported(*cfgs: NeRFConfig | None) -> None:
     """Raise NotImplementedError, before anything is packed or launched,
-    where K6/K7 do not take one of the teacher networks ``cfgs`` (None
-    skipped: a teacher without a fine network)."""
+    where the kernels do not take one of the teacher networks ``cfgs``
+    (None skipped: a teacher without a fine network)."""
     for cfg in cfgs:
         if cfg is not None and not fused_teacher_supported(cfg):
             raise NotImplementedError(
-                f"the fused NeRF kernels (K6/K7) take W up to "
-                f"{NERF_KERNEL_WIDTHS[-1]} (run at "
-                f"{' or '.join(map(str, NERF_KERNEL_WIDTHS))} with zero "
-                f"channels), D <= {NERF_KERNEL_MAX_D} and skips before the "
-                f"last layer; got W={cfg.W} D={cfg.D} skips={cfg.skips}")
+                f"the fused NeRF kernels (K6/K7 up to W"
+                f"{NERF_KERNEL_WIDTHS[-1]}, their wide form above) take any "
+                f"W and D with every skip before the last layer (the JAX "
+                f"package's model builds no other); got W={cfg.W} "
+                f"D={cfg.D} skips={cfg.skips}")
 
 
 def _field_shapes(cfg: NeRFConfig, L_pts: int, L_views: int, int8: bool
@@ -742,6 +782,233 @@ def _field_shapes(cfg: NeRFConfig, L_pts: int, L_views: int, int8: bool
         "out_b": e if v else (4,)}
 
 
+# ---------------------------------------------------------------------------
+# The wide form of K6/K7 (csrc/nerf_wide.cu), above NERF_KERNEL_WIDTHS
+# ---------------------------------------------------------------------------
+
+def wide_teacher_plan(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
+                      L_views: int = 4) -> dict:
+    """The wide form's image of ``cfg`` in ``dtype``, every width at the
+    next multiple of ``WIDE_CHANNELS`` ('Wp'; the view layer's W/2 outputs
+    at 'Vp'): 'layers', each GEMM layer's (outputs, input channels) as
+    staged (the D point layers, then with viewdirs the feature and the view
+    layer); 'ke', 'kve' the point and view encodings' channels as staged
+    (their packed columns padded to 128 bytes); 'heads_off' (alpha [Wp] and
+    rgb [3, Vp], or output_linear [4, Wp], in ``dtype``), 'table_off' (each
+    layer's (m, b, inv, 0) f32 a channel) and 'nbytes'."""
+    W = cfg.W
+    kp, kv, _ = layout(cfg, L_pts, L_views)
+    es = torch.empty(0, dtype=dtype).element_size()
+    Wp, Vp = _round_up(W, WIDE_CHANNELS), _round_up(W // 2, WIDE_CHANNELS)
+    ke = _round_up(kp * es, 128) // es
+    kve = _round_up((kv - W) * es, 128) // es if cfg.use_viewdirs else 0
+    layers = [(Wp, ke)] + [(Wp, ke + Wp if (i - 1) in cfg.skips else Wp)
+                           for i in range(1, cfg.D)]
+    if cfg.use_viewdirs:
+        layers += [(Wp, Wp), (Vp, Wp + kve)]
+    heads_off = sum(n * k for n, k in layers) * es
+    heads = (Wp + 3 * Vp if cfg.use_viewdirs else 4 * Wp) * es
+    table_off = heads_off + heads
+    return {"layers": layers, "Wp": Wp, "Vp": Vp, "kp": kp, "ke": ke,
+            "kvw": kv - W if cfg.use_viewdirs else 0, "kve": kve,
+            "heads_off": heads_off, "table_off": table_off,
+            "nbytes": table_off + 16 * sum(n for n, _ in layers)}
+
+
+def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """w [r, c] zero-padded to [rows, cols]."""
+    return torch.nn.functional.pad(w, (0, cols - w.shape[1],
+                                       0, rows - w.shape[0]))
+
+
+def _wide_mats(fp: FusedNeRFParams, cfg: NeRFConfig, plan: dict) -> list:
+    """Each GEMM layer's weights [N, K] as the wide image stages them: the
+    encodings' columns padded to 'ke' / 'kve', the widths to 'Wp' / 'Vp'."""
+    W, Wp, Vp, kp = cfg.W, plan["Wp"], plan["Vp"], plan["kp"]
+    ke, kve = plan["ke"], plan["kve"]
+    mats, off = [], 0
+    for i, (_, K) in enumerate(plan["layers"][:cfg.D]):
+        k_in = kp if i == 0 else (kp + W if K != Wp else W)
+        w = fp.pts_w[off:off + W * k_in].view(W, k_in)
+        off += W * k_in
+        if i == 0:
+            w = _pad2(w, Wp, ke)
+        elif K != Wp:   # [encoding | h]
+            w = torch.cat([_pad2(w[:, :kp], Wp, ke),
+                           _pad2(w[:, kp:], Wp, Wp)], 1)
+        else:
+            w = _pad2(w, Wp, Wp)
+        mats.append(w)
+    if cfg.use_viewdirs:
+        vw = fp.views_w
+        mats += [_pad2(fp.feat_w, Wp, Wp),
+                 torch.cat([_pad2(vw[:, :W], Vp, Wp),
+                            _pad2(vw[:, W:], Vp, kve)], 1)]
+    return mats
+
+
+def _wide_table(fp: FusedNeRFParams, cfg: NeRFConfig, plan: dict
+                ) -> torch.Tensor:
+    """f32 [sum N, 4]: each GEMM layer's (m, b, inv, 0) a channel: int8's
+    dequantize multiplier and bias and the inverse scale its consumer's
+    requantize multiplies by (1 where folded, and for f32/bf16, whose
+    epilogue reads the bias alone); padded channels (0, 0, 1, 0)."""
+    W, D = cfg.W, cfg.D
+    int8 = fp.pts_w.dtype == torch.int8
+    unfolded = int8 and not fp.fold_requant
+    ms = ([fp.pts_m[i] for i in range(D)] + [fp.feat_m, fp.views_m]
+          if int8 else [])
+    bs = [fp.pts_b[i] for i in range(D)] + [fp.feat_b, fp.views_b]
+    invs = ([fp.pts_inv[i] for i in range(1, D)]
+            + [fp.h_inv, fp.hv_inv[:W], fp.hr_inv] if unfolded else [])
+    rows = []
+    for i, (n, _) in enumerate(plan["layers"]):
+        t = torch.zeros((n, 4), dtype=torch.float32, device=fp.pts_b.device)
+        t[:, 2] = 1.0
+        t[:bs[i].numel(), 1] = bs[i].float()
+        if ms:
+            t[:ms[i].numel(), 0] = ms[i].float()
+        if invs:
+            t[:invs[i].numel(), 2] = invs[i].float()
+        rows.append(t)
+    return torch.cat(rows)
+
+
+def stage_wide_teacher(fp: FusedNeRFParams, cfg: NeRFConfig,
+                       L_pts: int = 10, L_views: int = 4) -> torch.Tensor:
+    """The wide form's image (uint8, ``wide_teacher_plan``): each GEMM
+    layer's tiles (``r2l_fused._tiles``: 128 outputs x 128 bytes of input,
+    the weights in their own dtype, f32 whole), the head weights padded,
+    then the epilogue table (``_wide_table``)."""
+    plan = wide_teacher_plan(cfg, fp.pts_w.dtype, L_pts, L_views)
+    Wp, Vp = plan["Wp"], plan["Vp"]
+    parts = [_tiles(w) for w in _wide_mats(fp, cfg, plan)]
+    if cfg.use_viewdirs:
+        heads = [_pad2(fp.alpha_w[None], 1, Wp), _pad2(fp.rgb_w, 3, Vp)]
+    else:
+        heads = [_pad2(fp.out_w, 4, Wp)]
+    parts += [_bytes(h).reshape(-1) for h in heads]
+    parts.append(_bytes(_wide_table(fp, cfg, plan)).reshape(-1))
+    return torch.cat(parts).contiguous()
+
+
+def unstage_wide_teacher(staged: torch.Tensor, cfg: NeRFConfig,
+                         dtype: torch.dtype, L_pts: int = 10,
+                         L_views: int = 4) -> dict[str, torch.Tensor]:
+    """The packed fields back from a wide image: 'pts_w' (flat), 'feat_w',
+    'views_w' [W/2, kv], the heads ('alpha_w', 'rgb_w' or 'out_w') at the
+    packed shapes, with 'padding' the largest |value| of the image's
+    padded rows and columns; and 'table', the epilogue table [sum N, 4]."""
+    plan = wide_teacher_plan(cfg, dtype, L_pts, L_views)
+    W, Wp, Vp, kp, ke = cfg.W, plan["Wp"], plan["Vp"], plan["kp"], plan["ke"]
+    es = torch.empty(0, dtype=dtype).element_size()
+    pos, pad = 0, 0.0
+
+    def take(nbytes):
+        nonlocal pos
+        pos += nbytes
+        return staged[pos - nbytes:pos]
+
+    def cut(w, rows, cols):
+        """w's leading [rows, cols]; the rest is padding."""
+        nonlocal pad
+        rest = w.clone()
+        rest[:rows, :cols] = 0
+        pad = max(pad, float(rest.float().abs().max()) if rest.numel()
+                  else 0.0)
+        return w[:rows, :cols]
+
+    pts = []
+    mats = [_untiles(take(n * k * es), (n, k), dtype)
+            for n, k in plan["layers"]]
+    for i, w in enumerate(mats[:cfg.D]):
+        if i == 0:
+            pts.append(cut(w, W, kp))
+        elif w.shape[1] != Wp:
+            pts.append(torch.cat([cut(w[:, :ke], W, kp),
+                                  cut(w[:, ke:], W, W)], 1))
+        else:
+            pts.append(cut(w, W, W))
+    out = {"pts_w": torch.cat([w.reshape(-1) for w in pts])}
+    if cfg.use_viewdirs:
+        vw = mats[cfg.D + 1]
+        out["feat_w"] = cut(mats[cfg.D], W, W)
+        out["views_w"] = torch.cat([cut(vw[:, :Wp], W // 2, W),
+                                    cut(vw[:, Wp:], W // 2,
+                                        plan["kvw"])], 1)
+        out["alpha_w"] = cut(take(Wp * es).clone().view(dtype)[None], 1,
+                             W)[0]
+        out["rgb_w"] = cut(take(3 * Vp * es).clone().view(dtype).view(
+            3, Vp), 3, W // 2)
+    else:
+        out["out_w"] = cut(take(4 * Wp * es).clone().view(dtype).view(
+            4, Wp), 4, W)
+    out["table"] = take(plan["nbytes"] - plan["table_off"]).clone().view(
+        torch.float32).view(-1, 4)
+    out["padding"] = torch.tensor(pad)
+    return out
+
+
+def teacher_wide_scratch_bytes(rows: int, W: int, dtype: torch.dtype) -> int:
+    """The scratch one wide call needs for passes of ``rows`` points
+    (``csrc/nerf_wide.cu``, scratch_bytes): two activation buffers [rows,
+    Wp] of the compute type (int8: the codes), sigma [rows] and the rgb
+    logits [rows, 4] f32, each 256-byte aligned."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    Wp = _round_up(W, WIDE_CHANNELS)
+    return 2 * _aligned(rows * Wp * es) + _aligned(4 * rows) \
+        + _aligned(16 * rows)
+
+
+def teacher_wide_rays(n: int, S: int, W: int, dtype: torch.dtype) -> int:
+    """Rays a pass of a wide call on n rays of S samples: all of them, or
+    as many as keep the scratch within ``WIDE_SCRATCH_BYTES`` (a pass
+    holds whole rays, whose samples the compositing walks in order)."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    per_ray = S * (2 * _round_up(W, WIDE_CHANNELS) * es + 20)
+    return max(1, min(n, WIDE_SCRATCH_BYTES // per_ray))
+
+
+def _launch_teacher_wide(fp: FusedNeRFParams, cfg: NeRFConfig,
+                         rays_o: torch.Tensor, rays_d: torch.Tensor,
+                         z_vals: torch.Tensor, L_pts: int, L_views: int,
+                         white_bkgd: bool, outs: list) -> None:
+    """One call of the wide form (every layer a pass, the heads, the
+    compositing, over the rays in ``teacher_wide_rays`` passes), ``cfg`` at
+    its kernel width; counted in ``fused_nerf_render.launches_wide`` (f32,
+    bf16) or ``launches_wide_int8``."""
+    from . import _build
+    n, S = z_vals.shape
+    wd, dev = fp.pts_w.dtype, z_vals.device
+    int8 = wd == torch.int8
+    rays = teacher_wide_rays(n, S, cfg.W, wd)
+    scratch = torch.empty((teacher_wide_scratch_bytes(rays * S, cfg.W, wd),),
+                          dtype=torch.uint8, device=dev)
+    skips = (ctypes.c_int * cfg.D)(*[int(i in cfg.skips)
+                                     for i in range(cfg.D)])
+
+    def q(t):   # int8's scales and multipliers
+        return _ptr(t) if int8 and t.numel() else None
+
+    def b(t):
+        return _ptr(t) if t.numel() else None
+    lib = _build.load("nerf_wide")
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if int8:
+            fused_nerf_render.launches_wide_int8 += 1
+        else:
+            fused_nerf_render.launches_wide += 1
+        rc = lib.nerf_wide_launch(
+            _ptr(rays_o), _ptr(rays_d), _ptr(z_vals), n, S, _ptr(fp.staged),
+            skips, cfg.D, cfg.W, _WIDE_TYPES[wd], q(fp.pe_inv), q(fp.hv_inv),
+            q(fp.alpha_m), b(fp.alpha_b), q(fp.rgb_m), b(fp.rgb_b),
+            q(fp.out_m), b(fp.out_b), L_pts, L_views,
+            int(cfg.use_viewdirs), int(white_bkgd), *outs, _ptr(scratch),
+            scratch.numel(), rays, stream)
+    _raise_on_error(rc, "nerf_wide")
+
+
 def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
                       rays_o: torch.Tensor, rays_d: torch.Tensor,
                       z_vals: torch.Tensor, L_pts: int = 10,
@@ -750,12 +1017,16 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
     sorted -> (rgb [N, 3], acc [N], depth [N], weights [N, S]). ``fp`` comes
     from ``prepare_fused_nerf``, whose weights' dtype picks the mode and
     whose ``fold_requant`` the int8 requantize. CPU tensors take the plain
-    version; CUDA tensors launch K6 (f32/bf16 weights) or K7 (int8)."""
+    version; CUDA tensors launch K6 (f32/bf16 weights) or K7 (int8), or
+    above their widths (``teacher_wide_form``) their wide form."""
     if z_vals.device.type == "cpu":
         return fused_nerf_render_ref(fp, cfg, rays_o, rays_d, z_vals, L_pts,
                                      L_views, white_bkgd)
     from . import _build
     check_teacher_supported(cfg)
+    if getattr(fp, "staged", None) is None:
+        raise ValueError("fp has no staged weight image: pack it with "
+                         "prepare_fused_nerf")
     cfg, dev = teacher_kernel_cfg(cfg), z_vals.device
     n, S = z_vals.shape
     f32, wd = torch.float32, fp.pts_w.dtype
@@ -769,21 +1040,24 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
         t = getattr(fp, name)
         dt = wd if name.endswith("_w") and shape != (0,) else f32
         _check(t, name, dt, shape, dev)
-    if fp.staged is None:
-        raise ValueError("fp has no staged weight image: pack it with "
-                         "prepare_fused_nerf")
-    _check(fp.staged, "staged", torch.uint8,
-           (stage_plan(cfg, wd, L_pts, L_views)["nbytes"],), dev)
+    wide = teacher_wide_form(cfg.W)
+    plan = (wide_teacher_plan if wide else stage_plan)(cfg, wd, L_pts,
+                                                       L_views)
+    _check(fp.staged, "staged", torch.uint8, (plan["nbytes"],), dev)
     rgb = torch.empty((n, 3), dtype=f32, device=dev)
     acc = torch.empty((n,), dtype=f32, device=dev)
     depth = torch.empty((n,), dtype=f32, device=dev)
     weights = torch.empty((n, S), dtype=f32, device=dev)
     if n == 0 or S == 0:
         return rgb, acc, depth, weights
-    skips = sum(1 << s for s in cfg.skips)
     P = _ptr
     flags = [L_pts, L_views, int(cfg.use_viewdirs), int(white_bkgd)]
     outs = [P(rgb), P(acc), P(depth), P(weights)]
+    if wide:
+        _launch_teacher_wide(fp, cfg, rays_o, rays_d, z_vals, L_pts,
+                             L_views, white_bkgd, outs)
+        return rgb, acc, depth, weights
+    skips = _n_skips(cfg)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if int8:
@@ -812,3 +1086,5 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
 
 fused_nerf_render.launches = 0        # K6 launches
 fused_nerf_render.launches_int8 = 0   # K7 launches
+fused_nerf_render.launches_wide = 0        # K6's wide form (f32, bf16)
+fused_nerf_render.launches_wide_int8 = 0   # K7's wide form

@@ -870,6 +870,7 @@ NERF_CASES = {
     "w128_noview": (4, 128, (1,), 6, 3, False),
     "w128_skip0": (3, 128, (0,), 6, 3, True),
     "w64_padded": (4, 64, (2,), 6, 3, True),   # packed at 128
+    "d40": (40, 256, (4, 24), 10, 4, True),    # any depth: a flag a layer
 }
 # K6 f32: the same f32 chain, sums in another order (depth sums w*z over
 # up to 6). K6 bf16: a flipped bf16 rounding propagates, as K1 bf16. K7: as
@@ -878,12 +879,15 @@ TOL_NERF = {"f32": (1e-4, 1e-3), "bf16": (3e-2, 3e-2)}
 
 
 def _nerf_case(name, dev, kind, n=1003, S=64):
-    D, W, skips, Lp, Lv, vd = NERF_CASES[name]
+    D, W, skips, Lp, Lv, vd = {**NERF_CASES, **WIDE_NERF_CASES}[name]
     cd = torch.bfloat16 if kind == "bf16" else torch.float32
     cfg = NeRFConfig(D=D, W=W, skips=skips, input_ch=3 + 6 * Lp,
                      input_ch_views=3 + 6 * Lv if vd else 0,
                      use_viewdirs=vd, compute_dtype=cd)
     model = init_nerf(cfg, torch.Generator().manual_seed(0), dev)
+    if vd and name in WIDE_NERF_CASES:   # chip_smoke.py's density floor
+        with torch.no_grad():
+            model.alpha_linear.bias += 1.0
     g = torch.Generator(device=dev).manual_seed(1)
     o = torch.randn((n, 3), generator=g, device=dev)
     o = 4.0 * o / o.norm(dim=-1, keepdim=True)
@@ -969,14 +973,144 @@ def test_nerf_render_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         NR.fused_nerf_render(fp._replace(pts_b=fp.pts_b.cpu()), cfg, o, d,
                              z, **kw)
-    wide = dataclasses.replace(cfg, W=512)
-    with pytest.raises(NotImplementedError):   # a width K6 does not take
-        NR.fused_nerf_render(fp, wide, o, d, z, **kw)
+    last = dataclasses.replace(cfg, skips=(cfg.D - 1,))
+    with pytest.raises(NotImplementedError):   # a skip no model builds
+        NR.fused_nerf_render(fp, last, o, d, z, **kw)
+    with pytest.raises(ValueError):   # W512 (the wide form), packed at 128
+        NR.fused_nerf_render(fp, dataclasses.replace(cfg, W=512), o, d, z,
+                             **kw)
     with pytest.raises(ValueError):   # no staged image, or a stale one
         NR.fused_nerf_render(fp._replace(staged=None), cfg, o, d, z, **kw)
     with pytest.raises(ValueError):
         NR.fused_nerf_render(fp._replace(staged=fp.staged[:-16]), cfg, o,
                              d, z, **kw)
+
+
+# The teacher kernels' wide form (csrc/nerf_wide.cu): teachers wider than
+# 256, at the next multiple of 128 (W300 at 384; the W384 view layer's 192
+# outputs at 256). (D, W, skips, L_pts, L_views, viewdirs).
+WIDE_NERF_CASES = {
+    "w384": (4, 384, (2,), 10, 4, True),
+    "w384_noview": (4, 384, (1,), 6, 3, False),
+    "w300": (3, 300, (0,), 6, 3, True),
+    "w512": (8, 512, (4,), 10, 4, True),
+}
+# chip_smoke.py's TOL_TEACHER: K6 f32 (3xTF32), bf16, K7 (the same exact
+# sums and roundings as the plain version); ((max, RMS), depth's).
+TOL_WIDE_NERF = {"f32": ((1e-5, 1e-6), (1e-4, 1e-5)),
+                 "bf16": ((1e-4, 1e-5), (6e-4, 6e-5)),
+                 "int8": ((5e-7, 5e-8), (3e-6, 3e-7))}
+
+
+def _wide_nerf_counts():
+    f = NR.fused_nerf_render
+    return (f.launches, f.launches_int8, f.launches_wide,
+            f.launches_wide_int8)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_NERF_CASES))
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("S,n", [(13, 1003), (192, 517), (24, 1)])
+def test_wide_nerf_render_matches_plain(dev, name, kind, S, n):
+    """One launch of the wide form (none of K6/K7), every output within
+    K6/K7's limits of the plain version on the same packing."""
+    cfg, model, o, d, z, Lp, Lv, calib = _nerf_case(name, dev, kind, n=n,
+                                                     S=S)
+    int8 = kind == "int8"
+    fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv, calib=calib,
+                               weight_dtype=cfg.compute_dtype,
+                               fold_requant=int8)
+    assert NR.teacher_wide_form(cfg.W) and fp.pts_b.shape[1] % 128 == 0
+    kw = dict(L_pts=Lp, L_views=Lv, white_bkgd=True)
+    before = _wide_nerf_counts()
+    got = NR.fused_nerf_render(fp, cfg, o, d, z, **kw)
+    torch.cuda.synchronize()
+    moved = [b - a for a, b in zip(before, _wide_nerf_counts())]
+    assert moved == ([0, 0, 0, 1] if int8 else [0, 0, 1, 0])
+    want = NR.fused_nerf_render_ref(fp, cfg, o, d, z, **kw)
+    (tol, tol_rms), (tol_d, tol_d_rms) = TOL_WIDE_NERF[kind]
+    for what, g_, w_ in zip(("rgb", "acc", "depth", "weights"), got, want):
+        mx, rms = _deltas(g_, w_)
+        lim = (tol_d, tol_d_rms) if what == "depth" else (tol, tol_rms)
+        assert mx <= lim[0] and rms <= lim[1], (what, mx, rms)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_wide_nerf_render_int8_fold_and_unfolded(dev, fold):
+    """The wide form with and without the folded requantize, each within
+    K7's limits of its plain version."""
+    cfg, model, o, d, z, Lp, Lv, calib = _nerf_case("w384", dev, "int8",
+                                                     n=517, S=24)
+    fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv, calib=calib,
+                               fold_requant=fold)
+    assert fp.fold_requant == fold
+    kw = dict(L_pts=Lp, L_views=Lv, white_bkgd=False)
+    got = NR.fused_nerf_render(fp, cfg, o, d, z, **kw)
+    want = NR.fused_nerf_render_ref(fp, cfg, o, d, z, **kw)
+    (tol, tol_rms), (tol_d, tol_d_rms) = TOL_WIDE_NERF["int8"]
+    for what, g_, w_ in zip(("rgb", "acc", "depth", "weights"), got, want):
+        mx, rms = _deltas(g_, w_)
+        lim = (tol_d, tol_d_rms) if what == "depth" else (tol, tol_rms)
+        assert mx <= lim[0] and rms <= lim[1], (what, mx, rms)
+
+
+def test_wide_nerf_library_is_built_from_csrc(dev):
+    """The wide form is built from csrc/nerf_wide.cu into the build
+    directory at its first use, and its SASS holds mma.sync's tensor-core
+    products (HMMA for bf16 and TF32, IMMA for int8)."""
+    import subprocess
+    from r2l_tpu_torch.kernels import _build
+    _build.load("nerf_wide")
+    lib = _build._library_path("nerf_wide")
+    assert lib.is_file() and lib.parent == _build.BUILD_DIR
+    cmd = _build._compile_cmd("nerf_wide", lib)
+    assert cmd[-1] == str(_build.CSRC / "nerf_wide.cu")
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    assert "HMMA" in sass and "IMMA" in sass
+
+
+def test_wide_teacher_entry_points_run_on_the_wide_form(dev, tmp_path):
+    """A W384 teacher: the frame function renders it on the wide form
+    (kind 'fused', one launch a pass) within PSNR 100 dB of the plain f32
+    frame, and int8 datagen (``quantize='int8'``) writes its pose through
+    the int8 wide form, no launch of K6/K7."""
+    from r2l_tpu_torch import datagen
+    from r2l_tpu_torch.render import VolRenderConfig
+    cfg = NeRFConfig(D=4, W=384, skips=(2,))
+    mc, mf = (init_nerf(cfg, torch.Generator().manual_seed(s), dev)
+              for s in (0, 1))
+    with torch.no_grad():
+        for m in (mc, mf):
+            m.alpha_linear.bias += 1.0
+    vcfg = VolRenderConfig(n_coarse=16, n_fine=16, white_bkgd=True)
+    sampler = PointSampler(H=40, W=25, focal=30.0, n_sample=16, near=2.0,
+                           far=6.0)
+    pose = pose_spherical(30.0, -30.0, 4.0)[:3, :4]
+    fn = TE.make_nerf_frame_fn(mc, mf, cfg, vcfg, sampler, use_pallas=True,
+                               device=dev)
+    plain = TE.make_nerf_frame_fn(mc, mf, cfg, vcfg, sampler, device=dev)
+    assert fn.kind == "fused"
+    before = _wide_nerf_counts()
+    got = fn(pose)
+    torch.cuda.synchronize()
+    chunks = -(-40 * 25 // vcfg.ray_chunk)
+    moved = [b - a for a, b in zip(before, _wide_nerf_counts())]
+    assert moved == [0, 0, 2 * chunks, 0]
+    want = plain(pose)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    mse = float((got.double() - want.double()).pow(2).mean())
+    assert mse == 0 or -10.0 * np.log10(mse) >= 100.0, mse
+    gcfg = datagen.DataGenConfig(n_pose=1, H=8, W=8, focal=10.0,
+                                 save_every=1, quantize="int8")
+    before = _wide_nerf_counts()
+    n_rays = datagen.generate_pseudo_data(mc, mf, cfg, vcfg, gcfg,
+                                          str(tmp_path), device=dev)
+    moved = [b - a for a, b in zip(before, _wide_nerf_counts())]
+    assert n_rays == 64 and moved[:3] == [0, 0, 0] and moved[3] > 0
+    recs = np.load(tmp_path / "pseudo_000000.npy")
+    assert recs.shape == (64, 9) and np.isfinite(recs).all()
 
 
 # The exp/ probe kernels (r2l_tpu_torch/exp): chain modes, bigN, the int8
@@ -1773,6 +1907,8 @@ def _counters():
             T.train_fwd_int8.launches, T.train_fwd_int8.launches_bf16,
             T.bwd_group.launches, NR.fused_nerf_render.launches,
             NR.fused_nerf_render.launches_int8,
+            NR.fused_nerf_render.launches_wide,
+            NR.fused_nerf_render.launches_wide_int8,
             F.fused_r2l_apply_pe_wide.launches,
             F.fused_r2l_apply_wide.launches,
             F.fused_r2l_apply_int8_pe_wide.launches,
@@ -1825,10 +1961,12 @@ def test_wrappers_refuse_shapes_before_launching(dev, kw):
 
 
 def test_teacher_wrapper_refuses_w512_before_launching(dev):
+    """W512 runs on the wide form, whose wrapper refuses a packing of
+    another width (here K6's at 128) before any launch."""
     cfg, model, o, d, z, Lp, Lv, _ = _nerf_case("w128_noview", dev, "bf16")
     fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv)
     before = _counters()
-    with pytest.raises(NotImplementedError, match="W up to 256"):
+    with pytest.raises(ValueError, match="shape"):
         NR.fused_nerf_render(fp, dataclasses.replace(cfg, W=512), o, d, z,
                              L_pts=Lp, L_views=Lv)
     assert _counters() == before
@@ -1896,7 +2034,7 @@ def test_wide_student_that_jax_runs_on_its_kernel_runs_on_the_wide_form(
     torch.cuda.synchronize()
     assert got.shape == (40, 25, 3) and torch.isfinite(got).all()
     moved = [b - a for a, b in zip(before, _counters())]
-    assert moved == [0] * 9 + ([0, 0, 1] if quantize else [1, 0, 0]) + [0] * 4
+    assert moved == [0] * 11 + ([0, 0, 1] if quantize else [1, 0, 0]) + [0] * 4
     prepared, _, dp = TE._prepare_r2l(model, cfg, sampler, 10, False, True,
                                       quantize, calib_poses=poses)
     if quantize:
@@ -1948,7 +2086,7 @@ def test_fused_step_off_the_training_kernels(dev, kw):
                            generator=torch.Generator(dev).manual_seed(0))
         torch.cuda.synchronize()
         moved = [b - a for a, b in zip(before, _counters())]
-        assert moved == [0] * 12 + [1, 0, 0, -(-cfg.num_blocks // 4)]
+        assert moved == [0] * 14 + [1, 0, 0, -(-cfg.num_blocks // 4)]
     before = _counters()
     state = TR.init_train_state(model, dcfg, device=dev)
     step = TR.make_distill_step(cfg, dcfg, sampler, device=dev)
@@ -1968,8 +2106,8 @@ def test_w64_teacher_runs_on_the_kernels(dev):
     one of a chunk), within chip_smoke.py's bound of the plain frame (f32,
     PSNR >= 100 dB; the density floor of its teachers, without which a ray
     whose last sample has no density flips its last alpha at any rounding:
-    4.7e-4 on one value of this frame); datagen's gate takes it; a W512
-    teacher raises before packing."""
+    4.7e-4 on one value of this frame); datagen's gate takes it; a teacher
+    with a skip at its last layer raises before packing."""
     from r2l_tpu_torch import datagen
     from r2l_tpu_torch.render import VolRenderConfig
     cfg = NeRFConfig(D=4, W=64, skips=(2,))
@@ -1997,7 +2135,8 @@ def test_w64_teacher_runs_on_the_kernels(dev):
     assert mse == 0 or -10.0 * np.log10(mse) >= 100.0, mse
     gcfg = datagen.DataGenConfig(n_pose=1, H=4, W=4, focal=5.0)
     assert datagen._fused_refusal(gcfg, vcfg, dev) is None
-    wide = dataclasses.replace(cfg, W=512)
-    with pytest.raises(NotImplementedError, match="W up to 256"):
-        TE.make_nerf_frame_fn(mc, mf, wide, vcfg, sampler, use_pallas=True,
+    last = dataclasses.replace(cfg, skips=(cfg.D - 1,))
+    with pytest.raises(NotImplementedError,
+                       match="every skip before the last layer"):
+        TE.make_nerf_frame_fn(mc, mf, last, vcfg, sampler, use_pallas=True,
                               device=dev)

@@ -6,16 +6,16 @@ One predicate per kernel family (``r2l_fused.fused_frame_supported``,
 is held to the launch switches of ``csrc/``, and the frame kernels' wide
 form (``csrc/r2l_wide.cu``) to its limits. A student or teacher narrower
 than the kernels' widths is packed at the next of them with zero channels,
-and computes what the unpadded network does; a wider student runs on the
-frame kernels' wide form. The three gates above them
-(``evaluate._prepare_r2l``, ``evaluate.make_nerf_frame_fn`` with
-``datagen``, ``train.fused_vjp_gate``) take the JAX package's path: its
-kind and frame where its kernels and the port's agree, the plain path
-with a warning where neither takes the shape, and on the card an error
-where the JAX package runs a kernel that the port's do not take (the
-training and teacher kernels above W256). The wrappers refuse such a
-shape on a device tensor before any launch (a meta tensor stands in for
-the card's here)."""
+and computes what the unpadded network does; a wider student or teacher
+runs on its kernels' wide form, a deeper teacher on K6/K7 themselves. The
+three gates above them (``evaluate._prepare_r2l``,
+``evaluate.make_nerf_frame_fn`` with ``datagen``, ``train.fused_vjp_gate``)
+take the JAX package's path: its kind and frame where its kernels and the
+port's agree, the plain path with a warning where neither takes the shape,
+and on the card an error for a shape the port's kernels do not take (a
+teacher with a skip at its last layer, which the JAX package's model
+cannot build). The wrappers refuse such a shape on a device tensor before
+any launch (a meta tensor stands in for the card's here)."""
 import ast
 import dataclasses
 import functools
@@ -119,12 +119,15 @@ def test_predicate_widths_are_the_launch_switches(name, after, switches,
 
 @pytest.mark.parametrize("name", ["nerf_render.cu", "nerf_render_int8.cu"])
 def test_teacher_depth_limit_is_the_kernels(name):
-    """The entry point's ``D < 1 || D > N`` and its skip mask below the
-    last layer."""
+    """No depth limit: the entry point takes D >= 1 with at most D - 1
+    concatenated layers, and the kernels read the skip set from the staged
+    image, one flag a layer, not from a bit mask."""
     src = _source(name)
-    assert re.findall(r"D < 1 \|\| D > (\d+)", src) == [
-        str(NR.NERF_KERNEL_MAX_D)]
-    assert "(skips >> (D - 1)) != 0" in src
+    assert "D < 1 || n_skips < 0 || n_skips > D - 1" in src
+    assert not re.search(r"D > \d+", src) and "skips >>" not in src
+    hopper = _source("nerf_hopper.cuh")
+    assert "skips >>" not in hopper
+    assert "__ldg(a.skip + l - 1)" in hopper
 
 
 @pytest.mark.parametrize("name", ["r2l_int8_hopper.cu",
@@ -174,32 +177,37 @@ def test_student_predicates(kw, int8, L, frame, train):
     (200, 256), (256, 256), (257, 384), (512, 512)])
 def test_kernel_width_is_the_next_kernel(width, want):
     """The frame kernels' width (above 256 their wide form's, at the next
-    multiple of 128); the teacher kernels' (none above 256)."""
+    multiple of 128); the teacher kernels' (above 256 their wide form's
+    too)."""
     assert F.kernel_width(width) == want
     assert F.wide_form(width) == (width > 256)
     cfg = _r2l(netwidth=width)
     assert F.kernel_cfg(cfg).netwidth == want
     assert (F.kernel_cfg(cfg) is cfg) == (want == width)
-    t_want = None if width > 256 else max(want, 128)
+    t_want = want if width > 256 else max(want, 128)
     assert NR.teacher_kernel_width(width) == t_want
+    assert NR.teacher_wide_form(width) == (width > 256)
     tcfg = NeRFConfig(W=width)
-    assert NR.teacher_kernel_cfg(tcfg).W == (t_want or width)
+    assert NR.teacher_kernel_cfg(tcfg).W == t_want
 
 
 @pytest.mark.parametrize("kw,ok", [
     (dict(), True), (dict(W=128), True), (dict(W=64), True),
-    (dict(W=200), True), (dict(W=512), False),
-    (dict(D=31, skips=(29,)), True), (dict(D=32), False),
+    (dict(W=200), True), (dict(W=512), True),
+    (dict(D=31, skips=(29,)), True), (dict(D=32), True),
     (dict(D=4, skips=(3,)), False), (dict(D=4, skips=(2,)), True),
     (dict(D=1, skips=()), True), (dict(D=4, skips=(-1,)), False)])
 def test_teacher_predicate(kw, ok):
+    """Any width and depth (W512 on the wide form, D32 on K6/K7); a skip
+    at the last layer or before the first is refused."""
     cfg = NeRFConfig(**kw)
     assert NR.fused_teacher_supported(cfg) == ok
     for cfgs in ((cfg,), (NeRFConfig(), cfg), (cfg, None)):
         if ok:
             NR.check_teacher_supported(*cfgs)
         else:
-            with pytest.raises(NotImplementedError, match="W up to 256"):
+            with pytest.raises(NotImplementedError,
+                               match="every skip before the last layer"):
                 NR.check_teacher_supported(*cfgs)
 
 
@@ -503,14 +511,17 @@ def test_w64_teacher_frame_on_the_cpu_is_jaxs_frame():
 
 @pytest.mark.parametrize("width,fine,kind", [
     (64, None, "fused"), (128, None, "fused"), (128, 64, "fused"),
-    (512, None, "raises"), (128, 512, "raises")])
+    (512, None, "fused"), (128, 512, "fused"),
+    (128, dict(skips=(3,)), "raises")])
 def test_teacher_frame_gate_on_the_card(width, fine, kind, monkeypatch):
     """The frame function's gate as on the card (the device check passed
-    by a stand-in; the frame is not called): every teacher of the kernels'
-    widths or narrower is packed for them; a coarse or fine network wider
-    than them raises NotImplementedError before any packing."""
+    by a stand-in; the frame is not called): every teacher the JAX
+    package's model builds is packed for the kernels (a W512 coarse or fine
+    network for their wide form); a network with a skip at its last layer
+    raises NotImplementedError before any packing."""
     _, _, _, _, cfg, mc, mf, tv = _teacher(width)
-    cfg_f = dataclasses.replace(cfg, W=fine) if fine else None
+    cfg_f = (None if fine is None else dataclasses.replace(cfg, W=fine)
+             if isinstance(fine, int) else dataclasses.replace(cfg, **fine))
     packs = []
     monkeypatch.setattr(TE, "_model_device", lambda m: torch.device("cuda"))
     monkeypatch.setattr(TE, "prepare_fused_teacher",
@@ -519,7 +530,8 @@ def test_teacher_frame_gate_on_the_card(width, fine, kind, monkeypatch):
                              PointSampler(**SAMPLER), use_pallas=True,
                              ncfg_fine=cfg_f, device="cuda")
     if kind == "raises":
-        with pytest.raises(NotImplementedError, match="W up to 256"):
+        with pytest.raises(NotImplementedError,
+                           match="every skip before the last layer"):
             make()
     else:
         assert make().kind == kind
@@ -545,13 +557,22 @@ def test_datagen_gate_keeps_jaxs_conditions(vkw, gkw, device, reason):
 
 @pytest.mark.parametrize("fine", [None, 512])
 def test_wide_teacher_datagen_raises_on_the_card(fine, tmp_path):
-    """Datagen's fused path (the card) with a teacher wider than the
-    kernels raises NotImplementedError before it renders or packs
-    anything (the models stay on the CPU: nothing touches the card)."""
+    """Datagen's fused path (the card): a W512 coarse or fine network
+    passes its gate (the wide form takes it), and the same teacher with a
+    skip at its last layer raises NotImplementedError before it renders or
+    packs anything (the models stay on the CPU: nothing touches the
+    card)."""
     _, _, _, _, cfg, mc, mf, tv = _teacher(512 if fine is None else 64)
     cfg_f = dataclasses.replace(cfg, W=fine) if fine else None
+    NR.check_teacher_supported(cfg, cfg_f)
+    last = dict(skips=(cfg.D - 1,))
+    if fine:
+        cfg_f = dataclasses.replace(cfg_f, **last)
+    else:
+        cfg = dataclasses.replace(cfg, **last)
     gcfg = datagen.DataGenConfig(n_pose=1, H=4, W=4, focal=5.0)
-    with pytest.raises(NotImplementedError, match="W up to 256"):
+    with pytest.raises(NotImplementedError,
+                       match="every skip before the last layer"):
         datagen.generate_pseudo_data(mc, mf, cfg, tv, gcfg, str(tmp_path),
                                      ncfg_fine=cfg_f, device="cuda")
     assert not os.listdir(tmp_path)
@@ -708,9 +729,19 @@ def test_student_wrappers_refuse_before_any_launch(kernel, cfg):
 @pytest.mark.parametrize("kw", [dict(W=512), dict(D=32), dict(D=4,
                                                               skips=(3,))])
 def test_teacher_wrapper_refuses_before_any_launch(kw):
+    """W512 (the wide form) and D32 (K6/K7) are taken, and given no
+    packing stop at the image before any launch; a skip at the last layer
+    raises NotImplementedError first."""
     cfg = NeRFConfig(**kw)
     f = NR.fused_nerf_render
-    before = (f.launches, f.launches_int8)
-    with pytest.raises(NotImplementedError, match="W up to 256.*D <= 31"):
-        f(None, cfg, _meta(8, 3), _meta(8, 3), _meta(8, 16))
-    assert (f.launches, f.launches_int8) == before
+    before = (f.launches, f.launches_int8, f.launches_wide,
+              f.launches_wide_int8)
+    if NR.fused_teacher_supported(cfg):
+        with pytest.raises(ValueError, match="no staged weight image"):
+            f(None, cfg, _meta(8, 3), _meta(8, 3), _meta(8, 16))
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="every skip before the last layer"):
+            f(None, cfg, _meta(8, 3), _meta(8, 3), _meta(8, 16))
+    assert (f.launches, f.launches_int8, f.launches_wide,
+            f.launches_wide_int8) == before
