@@ -332,7 +332,12 @@ Phases, in order; any failure raises and exits non-zero:
    K6 (f32, bf16) and K7 on a D40/W256 teacher (skips 4 and 24: the skip
    set as a flag a layer). ``[main] wide teacher`` lines: kernel and plain
    ms (CUDA events), the bound and what sets it, max-abs, beside the
-   card's name and power limit.
+   card's name and power limit. The f32 and bf16 forms run each layer on
+   ``wgmma`` fed by TMA (``csrc/wide_hopper.cuh``); a ``[profile] wide
+   teacher`` line for the W1024/D8 f32 and bf16 chunks splits their kernel
+   time by name (the layer passes, the encodings, the heads, the
+   compositing) and fails if a layer ran on the int8 form's ``mma.sync``
+   pass.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -5176,7 +5181,8 @@ def phase_wide_train(smi: str, sampler, poses, dev) -> dict:
 # datagen chunk, each form against its plain version at K6/K7's limits:
 # the wide form (csrc/nerf_wide.cu) at W512 and W1024 (mip-NeRF 360's
 # NeRF-MLP width, Barron et al. 2022) in f32, bf16 and int8, at W384 and
-# W300 (packed at 384) in bf16; K6 and K7 on a D40 teacher.
+# W300 (packed at 384) in bf16; K6 and K7 on a D40 teacher. The W1024 f32
+# and bf16 chunks also print their kernel time by name (WIDE_TEACHER_SPLIT).
 WIDE_TEACHER = ("W512/D8", 512, 8, (4,))   # the entry points' teacher
 WIDE_TEACHER_CHUNKS = (   # (label, W, D, skips, kinds)
     ("W512/D8", 512, 8, (4,), ("f32", "bf16", "int8")),
@@ -5186,6 +5192,15 @@ WIDE_TEACHER_CHUNKS = (   # (label, W, D, skips, kinds)
     ("D40/W256", 256, 40, (4, 24), ("f32", "bf16", "int8")),
 )
 MARGIN_SHARE = 0.5   # a check past this share of a limit prints [margin]
+WIDE_TEACHER_SPLIT = (("W1024/D8", "f32"), ("W1024/D8", "bf16"))
+# The wide form's kernels by name, as the profiler gives them: f32 and bf16
+# the TMA/wgmma layer pass and the encodings (wide_hopper.cuh,
+# nerf_wide.cu); the heads and the compositing of every form; int8's
+# mma.sync layer pass, which the other two never launch.
+WIDE_TEACHER_KERNELS = (("layer passes", "wide_pass"),
+                        ("encodings", "wide_encode"), ("heads", "wide_tail"),
+                        ("compositing", "teacher_composite"),
+                        ("int8 mma.sync passes", "teacher_layer"))
 
 
 def wide_teacher_models(kind: str, W: int, D: int, skips: tuple, dev):
@@ -5371,6 +5386,11 @@ def wide_teacher_row(smi: str, label: str, kind: str, cfg, mc, chunk,
     if moved != {key: 3}:
         raise AssertionError(f"{label} {kind}: launched {moved}, expected "
                              f"{{{key!r}: 3}}")
+    if (label, kind) in WIDE_TEACHER_SPLIT:
+        r["split"] = wide_teacher_split(
+            smi, f"{label} {kind}",
+            lambda: [NR.fused_nerf_render(fp, cfg, o, d, z, **kw)
+                     for z in (zc, zf)])
     n, S_all = o.shape[0], zc.shape[1] + zf.shape[1]
     ops = 2.0 * n * S_all * point_macs(cfg)
     moved_bytes = 4 * n * (6 + S_all + 2 * 5 + S_all) + fp.staged.numel()
@@ -5385,6 +5405,31 @@ def wide_teacher_row(smi: str, label: str, kind: str, cfg, mc, chunk,
           f"{ops / 1e12:.3f} T{'OP' if int8 else 'FLOP'}), max-abs "
           f"{r['max_abs_err']:.3e} ({smi})", flush=True)
     return r
+
+
+def wide_teacher_split(smi: str, what: str, fn) -> dict:
+    """The kernel time of one call of ``fn`` (a chunk's two wide calls)
+    under torch.profiler, by WIDE_TEACHER_KERNELS group: ms, launches and
+    share of the kernel time. Fails unless the layers ran on the TMA/wgmma
+    pass and no mma.sync pass ran (f32 and bf16)."""
+    prof = profile_kernels(fn, top=40)
+    total = prof["kernel_ms"]
+    split = {group: {"ms": 0.0, "calls": 0} for group, _ in
+             WIDE_TEACHER_KERNELS + (("other", ""),)}
+    for row in prof["top"]:
+        group = next((g for g, key in WIDE_TEACHER_KERNELS
+                      if key in row["name"]), "other")
+        split[group]["ms"] += row["ms"]
+        split[group]["calls"] += row["calls"]
+    parts = ", ".join(f"{g} {v['ms']:.3f} ms ({v['ms'] / total:.1%}, "
+                      f"{v['calls']} launches)" for g, v in split.items()
+                      if v["calls"])
+    print(f"[profile] wide teacher {what}, one chunk: kernels {total:.3f} "
+          f"ms: {parts} ({smi})", flush=True)
+    if split["layer passes"]["calls"] == 0 \
+            or split["int8 mma.sync passes"]["calls"] != 0:
+        raise AssertionError(f"{what}: the layers ran on {split}")
+    return {"kernel_ms": total, **split}
 
 
 def wide_teacher_chunks(smi: str, dev) -> dict:

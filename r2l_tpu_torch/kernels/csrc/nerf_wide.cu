@@ -11,25 +11,29 @@
 // of the plain version (nerf_render.py, _mlp_dense, _heads_dense,
 // _mlp_int8, fused_nerf_render_ref).
 //
-// Why another design: K6/K7 keep a 64-point tile's activations in shared
-// memory and a W-wide wgmma accumulator in registers (N <= 256). Here a
-// layer is one pass over the points' activations in device memory, on the
-// student's wide passes (r2l_wide.cuh: mma.sync, 128 points x 128 channels
-// a block, eight warps, the weights' 16 KB tiles and the activations
-// through a three-slot cp.async ring), with sources and epilogues of its
-// own:
-//   * sources: a pass's input row is [point encoding | h | view encoding],
-//     any of them empty. The encodings are made by the block itself in the
-//     ring slot of the stage that holds them: the point o + d*z (one FMA,
-//     volume.ray_points) and the view direction d / max(|d|, 1e-12), each
-//     encoded by the teacher's double-angle ladder in nerf_embed's order
-//     (nerf::encode, bit for bit the plain version's pe_ladder), cast to
-//     bf16, or quantized with pe_inv / hv_inv[W:] for int8; zeros past the
-//     used columns. The layer after a skip reads [encoding | h], the view
-//     layer [feature | view encoding], in one accumulation. Recomputing the
-//     encoding costs one ladder per (point, coordinate) and stage, against
-//     128 x 128 x 64 products a stage: cheaper than storing it and reading
-//     it back, and it needs no buffer.
+// Why another design than K6/K7's: they keep a 64-point tile's activations
+// in shared memory and a W-wide wgmma accumulator in registers (N <= 256);
+// at W1024 a 64-point bf16 tile is 128 KB. Here a layer is one pass over
+// the points' activations in device memory:
+//   * f32 and bf16: the pass skeleton of wide_hopper.cuh (wgmma fed by TMA,
+//     a producer warpgroup and two consumer warpgroups, 128 points x 256
+//     outputs a tile in bf16, 128 x 128 in f32 as 3xTF32 with A split in
+//     registers, the epilogue staged in shared memory and stored by TMA).
+//     The point encoding (the point o + d*z, one FMA, volume.ray_points)
+//     and the view encoding (d / max(|d|, 1e-12)), each by the teacher's
+//     double-angle ladder in nerf_embed's order (nerf::encode, bit for bit
+//     the plain version's pe_ladder) and rounded to the compute type, are
+//     written once a pass of rays by a kernel of their own (wide_encode)
+//     into two buffers [rows, ke] and [rows, kve], zeros past the used
+//     columns. The layer after a skip reads [encoding | h], the view layer
+//     [feature | view encoding]: two k-ranges of TMA loads, one
+//     accumulation. The image holds each layer's weights [N, K] row-major
+//     (f32: its TF32 high parts, then its low parts).
+//   * int8: the student's wide passes (r2l_wide.cuh: mma.sync, 128 points x
+//     128 channels a block, eight warps, the weights' 16 KB tiles and the
+//     activations through a three-slot cp.async ring); the encodings are
+//     made by the block itself in the ring slot of the stage that holds
+//     them, quantized with pe_inv / hv_inv[W:].
 //   * epilogues: (m, b, inv) a channel from the image's table. f32/bf16:
 //     the bias added in f32, ReLU (not after the feature layer), rounded to
 //     the compute type. int8: acc*m + b in one FMA, ReLU, times the
@@ -40,24 +44,29 @@
 //     dequantize), sigma before the feature pass overwrites its input.
 //   * compositing: one thread a ray walks its S samples in order, the
 //     operations of volume.raw2outputs as K6 does them (nerf::composite).
-// f32 sums each k8 step's three TF32 products apart (kSplit), as training's
-// wide passes do. The wrapper cuts the rays into passes of whole rays to
-// bound the scratch (two activation buffers, sigma and the logits).
+// The wrapper cuts the rays into passes of whole rays to bound the scratch
+// (two activation buffers, sigma and the logits; f32/bf16 the encodings).
 //
 // What bounds it: the products. A point costs 2,300,928 multiply-adds at
 // W512 and 9,058,304 at W1024 with viewdirs (8 layers, a skip at 4), so a
 // 400x400 datagen pose of 64 + 192 samples is 188.5 and 742 TFLOP: 191 and
-// 750 ms at the card's 989 bf16 TFLOP/s. PERF.md has the measured times.
+// 750 ms at the card's 989 bf16 TFLOP/s; and each pass's round trip of the
+// activations, 4 W bytes a point in bf16 (at W512, more time than the
+// products). PERF.md has the measured times.
+#include <algorithm>
 #include <vector>
 
 #include "nerf_hopper.cuh"
 #include "r2l_wide.cuh"
+#include "wide_hopper.cuh"
 
 using namespace r2lw;
 
 namespace {
 
-// One pass: a GEMM layer's product and epilogue on `rows` points.
+// ---- int8: the mma.sync pass ---------------------------------------------
+
+// One int8 pass: a GEMM layer's product and epilogue on `rows` points.
 struct Layer {
   int rows;              // points of this pass (its rays x S)
   int N;                 // output channels, a multiple of kWideChannels
@@ -73,14 +82,13 @@ struct Layer {
   const float* hv_inv;   // int8: the view encoding's [kvw] (hv_inv + W)
   const float4* epi;     // [N] (m, b, inv, 0)
   int relu;
-  void* out;             // [rows, N] of the compute type
+  void* out;             // [rows, N] codes
 };
 
 // The block's 128 x 128 outputs of one layer.
-template <int T, bool kSplit>
 __global__ void __launch_bounds__(kThreads) teacher_layer(const Layer p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int es = elem_bytes(T);
+  constexpr int T = kS8, es = elem_bytes(T);
   constexpr int kCols = 128 / es;  // channels of a stage
   uint32_t* sA = reinterpret_cast<uint32_t*>(smem);
   uint32_t* sB = sA + kStages * kBM * kLd;
@@ -100,12 +108,7 @@ __global__ void __launch_bounds__(kThreads) teacher_layer(const Layer p) {
     const float* inv = view ? p.hv_inv : p.pe_inv;
     auto put = [&](int r, int c, float x) {
       unsigned char* row = slot + r * kLd * 4;
-      if constexpr (T == kBF16)
-        reinterpret_cast<__nv_bfloat16*>(row)[c - c0] = __float2bfloat16_rn(x);
-      else if constexpr (T == kF32)
-        reinterpret_cast<float*>(row)[c - c0] = x;
-      else
-        reinterpret_cast<int8_t*>(row)[c - c0] = r2l::q8(__fmul_rn(x, inv[c]));
+      reinterpret_cast<int8_t*>(row)[c - c0] = r2l::q8(__fmul_rn(x, inv[c]));
     };
     const int z0 = max(min(used - c0, kCols), 0), nz = kCols - z0;
     for (int e = tid; e < kBM * nz * es; e += kThreads) {
@@ -180,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) teacher_layer(const Layer p) {
     const uint32_t* B = sB + (kt % kStages) * kBN * kLd;
 #pragma unroll
     for (int kw = 0; kw < kBKW; kw += 8)
-      mma_step<T, kSplit>(acc, A, kLd, B, kw, wm, wn, lane);
+      mma_step<T>(acc, A, kLd, B, kw, wm, wn, lane);
   }
 
   const int g = lane >> 2, t = lane & 3;
@@ -195,25 +198,15 @@ __global__ void __launch_bounds__(kThreads) teacher_layer(const Layer p) {
         const int col = col0 + wn * 32 + j * 8 + 2 * t;
         const size_t o = (size_t)row * p.N + col;
         const float4 e[2] = {__ldg(p.epi + col), __ldg(p.epi + col + 1)};
-        if constexpr (T == kS8) {
-          int8_t q[2];
+        int8_t q[2];
 #pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            float y = r2l::dequant(acc[i][j][2 * h + k], e[k].x, e[k].y);
-            if (p.relu) y = fmaxf(y, 0.f);
-            q[k] = r2l::q8(__fmul_rn(y, e[k].z));
-          }
-          *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) =
-              make_char2(q[0], q[1]);
-        } else {
-          float v[2];
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            v[k] = __fadd_rn(acc[i][j][2 * h + k], e[k].y);
-            if (p.relu) v[k] = fmaxf(v[k], 0.f);
-          }
-          store2<T>(p.out, o, v);
+        for (int k = 0; k < 2; ++k) {
+          float y = r2l::dequant(acc[i][j][2 * h + k], e[k].x, e[k].y);
+          if (p.relu) y = fmaxf(y, 0.f);
+          q[k] = r2l::q8(__fmul_rn(y, e[k].z));
         }
+        *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) =
+            make_char2(q[0], q[1]);
       }
     }
 }
@@ -254,17 +247,86 @@ __global__ void __launch_bounds__(128)
   depth[i] = dep;
 }
 
-template <int T, bool kSplit>
 cudaError_t pass_layer(const Layer& p, cudaStream_t st) {
   constexpr int smem = (kStages * kBM * kLd + kStages * kBN * kLd) * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      teacher_layer<T, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      teacher_layer, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)((p.rows + kBM - 1) / kBM) * (p.N / kBN);
-  teacher_layer<T, kSplit><<<(unsigned)blocks, kThreads, smem, st>>>(p);
+  teacher_layer<<<(unsigned)blocks, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
+
+// ---- f32 and bf16: the encodings of a pass ------------------------------
+
+// The compute type of the f32 and bf16 forms.
+template <int T>
+using Compute =
+    typename std::conditional<T == kF32, float, __nv_bfloat16>::type;
+
+template <typename C> __device__ __forceinline__ C to(float x);
+template <> __device__ __forceinline__ float to<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 to<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The point encoding E [rows, ke] and the view encoding V [rows, kve] (V
+// null without viewdirs) of a pass's points, rounded to C, zeros past the
+// used columns: `er` rows a block, three threads a row (one a coordinate)
+// run the ladders into shared memory, then the block's rows, contiguous in
+// E and in V, are copied out in order.
+template <typename C>
+__global__ void wide_encode(const float* rays_o, const float* rays_d,
+                            const float* z, int rows, int S, int Lp, int Lv,
+                            int ke, int kve, int er, C* E, C* V) {
+  extern __shared__ float enc[];  // [er][ke + 1], then [er][kve + 1]
+  const int le = ke + 1, lv = kve + 1;
+  float* ev = enc + er * le;
+  const int row0 = blockIdx.x * er, nr = min(er, rows - row0);
+  for (int i = threadIdx.x; i < er * (le + (V ? lv : 0)); i += blockDim.x)
+    enc[i] = 0.f;
+  __syncthreads();
+  const int r = threadIdx.x / 3, k = threadIdx.x - 3 * r;
+  if (r < nr) {
+    const int g = row0 + r, ray = g / S;
+    const float* d = rays_d + 3 * ray;
+    nerf::encode(__fmaf_rn(d[k], z[g], rays_o[3 * ray + k]), k, Lp,
+                 [&](int c, float x) { enc[r * le + c] = x; });
+    if (V) {  // |d| with the sum of squares contracted, as K6
+      const float dn = sqrtf(__fmaf_rn(
+          d[2], d[2], __fmaf_rn(d[1], d[1], __fmul_rn(d[0], d[0]))));
+      nerf::encode(d[k] / fmaxf(dn, 1e-12f), k, Lv,
+                   [&](int c, float x) { ev[r * lv + c] = x; });
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nr * ke; i += blockDim.x)
+    E[(size_t)row0 * ke + i] = to<C>(enc[(i / ke) * le + i % ke]);
+  if (V)
+    for (int i = threadIdx.x; i < nr * kve; i += blockDim.x)
+      V[(size_t)row0 * kve + i] = to<C>(ev[(i / kve) * lv + i % kve]);
+}
+
+cudaError_t encode_pass(int T, const float* rays_o, const float* rays_d,
+                        const float* z, int rows, int S, int Lp, int Lv,
+                        int ke, int kve, void* E, void* V, cudaStream_t st) {
+  // rows a block: as many as keep the block's floats within 48 KB
+  const int per_row = 4 * (ke + 1 + (V ? kve + 1 : 0));
+  const int er = std::max(1, std::min(64, (48 << 10) / per_row));
+  const int grid = (rows + er - 1) / er, smem = er * per_row;
+  if (T == kF32)
+    wide_encode<float><<<grid, 3 * er, smem, st>>>(
+        rays_o, rays_d, z, rows, S, Lp, Lv, ke, kve, er,
+        static_cast<float*>(E), static_cast<float*>(V));
+  else
+    wide_encode<__nv_bfloat16><<<grid, 3 * er, smem, st>>>(
+        rays_o, rays_d, z, rows, S, Lp, Lv, ke, kve, er,
+        static_cast<__nv_bfloat16*>(E), static_cast<__nv_bfloat16*>(V));
+  return cudaGetLastError();
+}
+
+// ---- a call ----------------------------------------------------------------
 
 // Everything a call needs (the C entry point's arguments).
 struct Call {
@@ -282,22 +344,27 @@ struct Call {
   int rays;  // rays a pass
 };
 
-// The image's GEMM layers (nerf_render.py, wide_teacher_plan).
+// The image's GEMM layers (nerf_render.py, wide_teacher_plan): N outputs,
+// and the input's 128-byte stages from the point encoding, from h in
+// device memory and from the view encoding, in that order along K.
 struct Gemm {
   int N, st_e, st_m, st_v;
   size_t w_off, table_off;  // bytes; the table in float4 entries
 };
 
 // The scratch of passes of `rows` points (nerf_render.py,
-// teacher_wide_scratch_bytes): two activation buffers, sigma, the logits.
-long long scratch_bytes(long long rows, int W, int es) {
-  return 2 * aligned(rows * W * es) + aligned(4 * rows) + aligned(16 * rows);
+// teacher_wide_scratch_bytes): two activation buffers, sigma, the logits;
+// f32/bf16 also the point and view encodings (ke, kve columns).
+long long scratch_bytes(long long rows, int W, int es, int ke, int kve) {
+  return 2 * aligned(rows * W * es) + aligned(4 * rows) +
+         aligned(16 * rows) + aligned(rows * ke * es) +
+         aligned(rows * kve * es);
 }
 
 template <int T>
 cudaError_t run(const Call& c, cudaStream_t st) {
-  constexpr int es = elem_bytes(T);
-  constexpr bool kSplit = T == kF32;
+  constexpr int es = elem_bytes(T), parts = T == kF32 ? 2 : 1;
+  using C = Compute<T>;
   const int W = c.W, V = r2l::round_up(W / 2, kWideChannels);
   const int kp = r2l::round_up(3 + 6 * c.Lp, 64);
   const int kvw = r2l::round_up(W + 3 + 6 * c.Lv, 64) - W;
@@ -308,7 +375,7 @@ cudaError_t run(const Call& c, cudaStream_t st) {
   size_t w_off = 0, t_off = 0;
   auto add = [&](int N, int e, int m, int v) {
     layers.push_back({N, e, m, v, w_off, t_off});
-    w_off += (size_t)N * (e + m + v) * 128;
+    w_off += (size_t)N * (e + m + v) * 128 * parts;
     t_off += N;
   };
   add(W, st_e, 0, 0);
@@ -320,16 +387,31 @@ cudaError_t run(const Call& c, cudaStream_t st) {
   const unsigned char* heads = c.image + w_off;
   const size_t heads_bytes = (c.viewdirs ? W + 3 * V : 4 * W) * es;
   const float4* table = reinterpret_cast<const float4*>(heads + heads_bytes);
+  // f32/bf16: the encodings' columns, and each layer's weights as B
+  const int ke = T == kS8 ? 0 : st_e * 128 / es;
+  const int kve = T == kS8 || !c.viewdirs ? 0 : st_v * 128 / es;
+  std::vector<CUtensorMap> wmap(T == kS8 ? 0 : layers.size());
+  if constexpr (T != kS8)
+    for (size_t l = 0; l < layers.size(); ++l) {
+      const Gemm& g = layers[l];
+      const cudaError_t err = wideh::weight_map<C>(
+          &wmap[l], c.image + g.w_off, g.N,
+          (g.st_e + g.st_m + g.st_v) * 128 / es);
+      if (err != cudaSuccess) return err;
+    }
 
   const int rays = c.rays > 0 && c.rays < c.n ? c.rays : c.n;
   const long long rows_max = (long long)rays * c.S;
-  if (c.scratch_bytes < scratch_bytes(rows_max, W, es))
+  if (c.scratch_bytes < scratch_bytes(rows_max, W, es, ke, kve))
     return cudaErrorInvalidValue;
   unsigned char* s = c.scratch;
   void* H[2];
   for (int i = 0; i < 2; ++i, s += aligned(rows_max * W * es)) H[i] = s;
   float* sig = reinterpret_cast<float*>(s);
   float* lg = reinterpret_cast<float*>(s + aligned(4 * rows_max));
+  s += aligned(4 * rows_max) + aligned(16 * rows_max);
+  void* E = s;
+  void* Vb = kve ? s + aligned(rows_max * ke * es) : nullptr;
 
   for (int r0 = 0; r0 < c.n; r0 += rays) {
     const int nr = c.n - r0 < rays ? c.n - r0 : rays, rows = nr * c.S;
@@ -343,21 +425,50 @@ cudaError_t run(const Call& c, cudaStream_t st) {
     p.Lv = c.Lv;
     p.pe_inv = c.pe_inv;
     p.hv_inv = c.hv_inv ? c.hv_inv + W : nullptr;
+    cudaError_t err = cudaSuccess;
+    // f32/bf16: the pass's A sources, and the view layer's output [rows, V]
+    CUtensorMap mE, mV, mH[2], mHV[2];
+    if constexpr (T != kS8) {
+      err = encode_pass(T, p.rays_o, p.rays_d, p.z, rows, c.S, c.Lp, c.Lv,
+                        ke, kve, E, Vb, st);
+      if (err == cudaSuccess) err = wideh::act_map<C>(&mE, E, rows, ke);
+      if (err == cudaSuccess && kve)
+        err = wideh::act_map<C>(&mV, Vb, rows, kve);
+      for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+        err = wideh::act_map<C>(&mH[i], H[i], rows, W);
+        if (err == cudaSuccess && c.viewdirs)
+          err = wideh::act_map<C>(&mHV[i], H[i], rows, V);
+      }
+      if (err != cudaSuccess) return err;
+    }
     int cur = 0;
     auto layer = [&](int l, int relu) {
       const Gemm& g = layers[l];
-      Layer lp = p;
-      lp.N = g.N;
-      lp.st_e = g.st_e;
-      lp.st_m = g.st_m;
-      lp.st_v = g.st_v;
-      lp.w = c.image + g.w_off;
-      lp.a = H[cur];
-      lp.epi = table + g.table_off;
-      lp.relu = relu;
-      lp.out = H[cur ^ 1];
+      const int in = cur;
       cur ^= 1;
-      return pass_layer<T, kSplit>(lp, st);
+      if constexpr (T == kS8) {
+        Layer lp = p;
+        lp.N = g.N;
+        lp.st_e = g.st_e;
+        lp.st_m = g.st_m;
+        lp.st_v = g.st_v;
+        lp.w = c.image + g.w_off;
+        lp.a = H[in];
+        lp.epi = table + g.table_off;
+        lp.relu = relu;
+        lp.out = H[cur];
+        return pass_layer(lp, st);
+      } else {
+        // [encoding | h], [h], or [h | view encoding] (never all three)
+        const CUtensorMap& a0 = g.st_e ? mE : mH[in];
+        const CUtensorMap& a1 = g.st_e ? mH[in] : mV;
+        const wideh::Pass wp{rows, g.N, g.st_e ? g.st_e : g.st_m,
+                             g.st_e ? g.st_m : g.st_v, table + g.table_off,
+                             relu};
+        return wideh::launch_pass<C>(a0, g.st_e || g.st_v ? a1 : a0,
+                                     wmap[l], g.st_v ? mHV[cur] : mH[cur],
+                                     wp, st);
+      }
     };
     auto head = [&](int K, const void* w, const float* m, const float* b,
                     int out_dim, float* out) {
@@ -366,7 +477,6 @@ cudaError_t run(const Call& c, cudaStream_t st) {
       return cudaGetLastError();
     };
     cur = 1;  // layer 0 writes H[0]
-    cudaError_t err = cudaSuccess;
     for (int l = 0; l < c.D && err == cudaSuccess; ++l) err = layer(l, 1);
     const float* sg;
     int ss, ls;
@@ -398,10 +508,11 @@ cudaError_t run(const Call& c, cudaStream_t st) {
 // image: stage_wide_teacher's (nerf_render.py); skips: a host array of D
 // flags (layer i's output concatenated with the encoding); dtype 0 bf16, 1
 // f32, 2 int8; pe_inv, hv_inv and the heads' m: int8's, else null; scratch:
-// teacher_wide_scratch_bytes(rays * S, W) bytes, 256-byte aligned; rays:
-// rays a pass (0: all n). Returns a cudaError_t: a launch's own error, or
-// cudaErrorInvalidValue for a shape the wide form does not take (W not a
-// multiple of 128, a skip at the last layer) or a scratch too small.
+// teacher_wide_scratch_bytes(rays * S, W, dtype, ke, kve) bytes, 256-byte
+// aligned; rays: rays a pass (0: all n). Returns a cudaError_t: a launch's
+// own error, or cudaErrorInvalidValue for a shape the wide form does not
+// take (W not a multiple of 128, a skip at the last layer) or a scratch too
+// small.
 extern "C" int nerf_wide_launch(
     const float* rays_o, const float* rays_d, const float* z, int n, int S,
     const unsigned char* image, const int* skips, int D, int W, int dtype,

@@ -24,11 +24,14 @@ a layer. They are built for the widths of ``NERF_KERNEL_WIDTHS``;
 ``prepare_fused_nerf`` pads a narrower teacher with zero channels to the
 next of them (``teacher_kernel_width``). A wider teacher
 (``teacher_wide_form``) runs on their wide form, ``csrc/nerf_wide.cu``: one
-``mma.sync`` pass a layer over activations in device memory (the student's
-wide passes, ``r2l_wide.cuh``), the point and view encodings made in the
-passes that read them, the heads as reductions and the compositing one
-thread a ray; the teacher packed at the next multiple of ``WIDE_CHANNELS``
-and staged as ``stage_wide_teacher``'s tiles. Every teacher the JAX
+pass a layer over activations in device memory, the heads as reductions
+and the compositing one thread a ray; the teacher packed at the next
+multiple of ``WIDE_CHANNELS`` and staged by ``stage_wide_teacher``. f32 and
+bf16 run each layer on ``wgmma`` fed by TMA (``csrc/wide_hopper.cuh``), the
+point and view encodings written once a pass by a kernel of their own
+(``wide_encodings_ref`` is its plain twin); int8 on the student's
+``mma.sync`` passes (``r2l_wide.cuh``), the encodings made in the passes
+that read them. Every teacher the JAX
 package's model builds is taken (``fused_teacher_supported``: a skip
 before the last layer); ``check_teacher_supported`` raises
 NotImplementedError for the rest before anything is packed.
@@ -793,9 +796,11 @@ def wide_teacher_plan(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
     at 'Vp'): 'layers', each GEMM layer's (outputs, input channels) as
     staged (the D point layers, then with viewdirs the feature and the view
     layer); 'ke', 'kve' the point and view encodings' channels as staged
-    (their packed columns padded to 128 bytes); 'heads_off' (alpha [Wp] and
-    rgb [3, Vp], or output_linear [4, Wp], in ``dtype``), 'table_off' (each
-    layer's (m, b, inv, 0) f32 a channel) and 'nbytes'."""
+    (their packed columns padded to 128 bytes); 'parts', the weights'
+    parts (f32: the TF32 high and low parts, each a matrix of its own);
+    'heads_off' (alpha [Wp] and rgb [3, Vp], or output_linear [4, Wp], in
+    ``dtype``), 'table_off' (each layer's (m, b, inv, 0) f32 a channel)
+    and 'nbytes'."""
     W = cfg.W
     kp, kv, _ = layout(cfg, L_pts, L_views)
     es = torch.empty(0, dtype=dtype).element_size()
@@ -806,12 +811,13 @@ def wide_teacher_plan(cfg: NeRFConfig, dtype: torch.dtype, L_pts: int = 10,
                            for i in range(1, cfg.D)]
     if cfg.use_viewdirs:
         layers += [(Wp, Wp), (Vp, Wp + kve)]
-    heads_off = sum(n * k for n, k in layers) * es
+    parts = 2 if dtype == torch.float32 else 1
+    heads_off = sum(n * k for n, k in layers) * es * parts
     heads = (Wp + 3 * Vp if cfg.use_viewdirs else 4 * Wp) * es
     table_off = heads_off + heads
     return {"layers": layers, "Wp": Wp, "Vp": Vp, "kp": kp, "ke": ke,
             "kvw": kv - W if cfg.use_viewdirs else 0, "kve": kve,
-            "heads_off": heads_off, "table_off": table_off,
+            "parts": parts, "heads_off": heads_off, "table_off": table_off,
             "nbytes": table_off + 16 * sum(n for n, _ in layers)}
 
 
@@ -874,15 +880,27 @@ def _wide_table(fp: FusedNeRFParams, cfg: NeRFConfig, plan: dict
     return torch.cat(rows)
 
 
+def _wide_layer_bytes(w: torch.Tensor) -> torch.Tensor:
+    """A GEMM layer's weights [N, K] as the wide image holds them: int8 as
+    ``r2l_fused._tiles`` (128 outputs x 128 bytes of input, the mma.sync
+    pass's); bf16 row-major, which the TMA pass reads in boxes; f32 its
+    TF32 high parts [N, K], then its low parts (``tf32_split``)."""
+    if w.dtype == torch.int8:
+        return _tiles(w)
+    parts = tf32_split(w) if w.dtype == torch.float32 else (w,)
+    return torch.cat([p.contiguous().view(torch.uint8).reshape(-1)
+                      for p in parts])
+
+
 def stage_wide_teacher(fp: FusedNeRFParams, cfg: NeRFConfig,
                        L_pts: int = 10, L_views: int = 4) -> torch.Tensor:
     """The wide form's image (uint8, ``wide_teacher_plan``): each GEMM
-    layer's tiles (``r2l_fused._tiles``: 128 outputs x 128 bytes of input,
-    the weights in their own dtype, f32 whole), the head weights padded,
-    then the epilogue table (``_wide_table``)."""
+    layer's weights (``_wide_layer_bytes``), the head weights padded (in
+    their own dtype, f32 whole), then the epilogue table
+    (``_wide_table``)."""
     plan = wide_teacher_plan(cfg, fp.pts_w.dtype, L_pts, L_views)
     Wp, Vp = plan["Wp"], plan["Vp"]
-    parts = [_tiles(w) for w in _wide_mats(fp, cfg, plan)]
+    parts = [_wide_layer_bytes(w) for w in _wide_mats(fp, cfg, plan)]
     if cfg.use_viewdirs:
         heads = [_pad2(fp.alpha_w[None], 1, Wp), _pad2(fp.rgb_w, 3, Vp)]
     else:
@@ -898,7 +916,9 @@ def unstage_wide_teacher(staged: torch.Tensor, cfg: NeRFConfig,
     """The packed fields back from a wide image: 'pts_w' (flat), 'feat_w',
     'views_w' [W/2, kv], the heads ('alpha_w', 'rgb_w' or 'out_w') at the
     packed shapes, with 'padding' the largest |value| of the image's
-    padded rows and columns; and 'table', the epilogue table [sum N, 4]."""
+    padded rows and columns; and 'table', the epilogue table [sum N, 4].
+    f32: the GEMM fields are the weights' TF32 high parts, and 'pts_w_lo',
+    'feat_w_lo', 'views_w_lo' their low parts."""
     plan = wide_teacher_plan(cfg, dtype, L_pts, L_views)
     W, Wp, Vp, kp, ke = cfg.W, plan["Wp"], plan["Vp"], plan["kp"], plan["ke"]
     es = torch.empty(0, dtype=dtype).element_size()
@@ -918,24 +938,32 @@ def unstage_wide_teacher(staged: torch.Tensor, cfg: NeRFConfig,
                   else 0.0)
         return w[:rows, :cols]
 
-    pts = []
-    mats = [_untiles(take(n * k * es), (n, k), dtype)
-            for n, k in plan["layers"]]
-    for i, w in enumerate(mats[:cfg.D]):
-        if i == 0:
-            pts.append(cut(w, W, kp))
-        elif w.shape[1] != Wp:
-            pts.append(torch.cat([cut(w[:, :ke], W, kp),
-                                  cut(w[:, ke:], W, W)], 1))
-        else:
-            pts.append(cut(w, W, W))
-    out = {"pts_w": torch.cat([w.reshape(-1) for w in pts])}
+    def layer(n, k):   # _wide_layer_bytes' inverse: its parts
+        if dtype == torch.int8:
+            return [_untiles(take(n * k), (n, k), dtype)]
+        return list(take(n * k * es * plan["parts"]).clone().view(
+            dtype).view(plan["parts"], n, k))
+
+    out = {}
+    mats = [layer(n, k) for n, k in plan["layers"]]
+    for p, suffix in enumerate(["", "_lo"][:plan["parts"]]):
+        pts = []
+        for i, w in enumerate(m[p] for m in mats[:cfg.D]):
+            if i == 0:
+                pts.append(cut(w, W, kp))
+            elif w.shape[1] != Wp:
+                pts.append(torch.cat([cut(w[:, :ke], W, kp),
+                                      cut(w[:, ke:], W, W)], 1))
+            else:
+                pts.append(cut(w, W, W))
+        out["pts_w" + suffix] = torch.cat([w.reshape(-1) for w in pts])
+        if cfg.use_viewdirs:
+            vw = mats[cfg.D + 1][p]
+            out["feat_w" + suffix] = cut(mats[cfg.D][p], W, W)
+            out["views_w" + suffix] = torch.cat(
+                [cut(vw[:, :Wp], W // 2, W),
+                 cut(vw[:, Wp:], W // 2, plan["kvw"])], 1)
     if cfg.use_viewdirs:
-        vw = mats[cfg.D + 1]
-        out["feat_w"] = cut(mats[cfg.D], W, W)
-        out["views_w"] = torch.cat([cut(vw[:, :Wp], W // 2, W),
-                                    cut(vw[:, Wp:], W // 2,
-                                        plan["kvw"])], 1)
         out["alpha_w"] = cut(take(Wp * es).clone().view(dtype)[None], 1,
                              W)[0]
         out["rgb_w"] = cut(take(3 * Vp * es).clone().view(dtype).view(
@@ -949,24 +977,59 @@ def unstage_wide_teacher(staged: torch.Tensor, cfg: NeRFConfig,
     return out
 
 
-def teacher_wide_scratch_bytes(rows: int, W: int, dtype: torch.dtype) -> int:
+def teacher_wide_scratch_bytes(rows: int, W: int, dtype: torch.dtype,
+                               ke: int = 0, kve: int = 0) -> int:
     """The scratch one wide call needs for passes of ``rows`` points
     (``csrc/nerf_wide.cu``, scratch_bytes): two activation buffers [rows,
     Wp] of the compute type (int8: the codes), sigma [rows] and the rgb
-    logits [rows, 4] f32, each 256-byte aligned."""
+    logits [rows, 4] f32, then (f32, bf16) the point and view encodings
+    [rows, ke] and [rows, kve] (``wide_teacher_plan``'s), each 256-byte
+    aligned."""
     es = torch.empty(0, dtype=dtype).element_size()
     Wp = _round_up(W, WIDE_CHANNELS)
     return 2 * _aligned(rows * Wp * es) + _aligned(4 * rows) \
-        + _aligned(16 * rows)
+        + _aligned(16 * rows) + _aligned(rows * ke * es) \
+        + _aligned(rows * kve * es)
 
 
-def teacher_wide_rays(n: int, S: int, W: int, dtype: torch.dtype) -> int:
+def teacher_wide_rays(n: int, S: int, W: int, dtype: torch.dtype,
+                      ke: int = 0, kve: int = 0) -> int:
     """Rays a pass of a wide call on n rays of S samples: all of them, or
     as many as keep the scratch within ``WIDE_SCRATCH_BYTES`` (a pass
     holds whole rays, whose samples the compositing walks in order)."""
     es = torch.empty(0, dtype=dtype).element_size()
-    per_ray = S * (2 * _round_up(W, WIDE_CHANNELS) * es + 20)
+    per_ray = S * ((2 * _round_up(W, WIDE_CHANNELS) + ke + kve) * es + 20)
     return max(1, min(n, WIDE_SCRATCH_BYTES // per_ray))
+
+
+def wide_encodings_ref(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                       z_vals: torch.Tensor, L_pts: int, L_views: int,
+                       ke: int, kve: int, dtype: torch.dtype
+                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain twin of the wide form's encoding kernel (``csrc/nerf_wide.cu``,
+    wide_encode): for the n * S points of rays_o/d [n, 3], z_vals [n, S],
+    the point encoding E [n * S, ke] and (``kve`` > 0) the view encoding V
+    [n * S, kve], each row its ray's, in ``dtype``. Each coordinate runs
+    the kernel's ladder on its own (``nerf::encode``: the value, then sin,
+    cos of it and their double-angle steps into columns 3 + 6j + k and 6 +
+    6j + k), zeros past the used columns."""
+    def encode(v: torch.Tensor, L: int, width: int) -> torch.Tensor:
+        out = v.new_zeros((v.shape[0], width))
+        out[:, :3] = v
+        s, c = torch.sin(v), torch.cos(v)
+        for j in range(L):
+            out[:, 3 + 6 * j:6 + 6 * j] = s
+            out[:, 6 + 6 * j:9 + 6 * j] = c
+            s, c = (2.0 * s) * c, (c - s) * (c + s)
+        return out.to(dtype)
+    n, S = z_vals.shape
+    o, d = rays_o.float(), rays_d.float()
+    E = encode(fma(d[:, None], z_vals.float()[..., None],
+                   o[:, None]).reshape(n * S, 3), L_pts, ke)
+    if not kve:
+        return E, None
+    v = d / torch.clamp(_norm3(d), min=1e-12)[:, None]
+    return E, encode(v, L_views, kve).repeat_interleave(S, 0)
 
 
 def _launch_teacher_wide(fp: FusedNeRFParams, cfg: NeRFConfig,
@@ -981,9 +1044,12 @@ def _launch_teacher_wide(fp: FusedNeRFParams, cfg: NeRFConfig,
     n, S = z_vals.shape
     wd, dev = fp.pts_w.dtype, z_vals.device
     int8 = wd == torch.int8
-    rays = teacher_wide_rays(n, S, cfg.W, wd)
-    scratch = torch.empty((teacher_wide_scratch_bytes(rays * S, cfg.W, wd),),
-                          dtype=torch.uint8, device=dev)
+    plan = wide_teacher_plan(cfg, wd, L_pts, L_views)
+    enc = (0, 0) if int8 else (plan["ke"], plan["kve"])
+    rays = teacher_wide_rays(n, S, cfg.W, wd, *enc)
+    scratch = torch.empty(
+        (teacher_wide_scratch_bytes(rays * S, cfg.W, wd, *enc),),
+        dtype=torch.uint8, device=dev)
     skips = (ctypes.c_int * cfg.D)(*[int(i in cfg.skips)
                                      for i in range(cfg.D)])
 

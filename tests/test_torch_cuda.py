@@ -1056,8 +1056,9 @@ def test_wide_nerf_render_int8_fold_and_unfolded(dev, fold):
 
 def test_wide_nerf_library_is_built_from_csrc(dev):
     """The wide form is built from csrc/nerf_wide.cu into the build
-    directory at its first use, and its SASS holds mma.sync's tensor-core
-    products (HMMA for bf16 and TF32, IMMA for int8)."""
+    directory at its first use, and its SASS holds wgmma's tensor-core
+    products for bf16 and TF32 (HGMMA) and mma.sync's for int8 (IMMA), and
+    no mma.sync bf16 or TF32 product (HMMA)."""
     import subprocess
     from r2l_tpu_torch.kernels import _build
     _build.load("nerf_wide")
@@ -1068,7 +1069,7 @@ def test_wide_nerf_library_is_built_from_csrc(dev):
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
-    assert "HMMA" in sass and "IMMA" in sass
+    assert "HGMMA" in sass and "IMMA" in sass and "HMMA" not in sass
 
 
 def test_wide_teacher_entry_points_run_on_the_wide_form(dev, tmp_path):

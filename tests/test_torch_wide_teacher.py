@@ -9,8 +9,10 @@ wide image pads to 256), a W300 one packed at 384 and a D40 one with two
 skips, at the tolerances of ``tests/test_torch_nerf_kernel.py`` (f32 1e-5,
 depth 1e-4; int8 on JAX's own packed parameters 2e-7). Then the gate
 (every teacher the JAX package's model builds), the wide image (read back
-whole, the padding zero), its refusal before a launch, and a CPU
-emulation of the wide form's f32 sum order against K6 f32's limits. The
+whole over W 300-2200, f32 as both TF32 parts, the padding zero), its
+refusal before a launch, the encoding kernel's plain twin against the
+plain version's ``pe_ladder``, the scratch a call takes, and CPU
+emulations of the wide forms' f32 sum orders against K6 f32's limits. The
 card holds the kernels to the plain version (``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` phase 23)."""
 import dataclasses
@@ -219,26 +221,40 @@ def _teacher(W, D=4, skips=(2,), vd=True, wd=torch.bfloat16, fold=False,
     return NR.teacher_kernel_cfg(cfg) if pad else cfg, fp
 
 
-@pytest.mark.parametrize("W,vd", [(384, True), (384, False), (300, True)])
+@pytest.mark.parametrize("W,vd", [(384, True), (384, False), (300, True),
+                                  (640, False), (1024, True), (2200, True)])
 @pytest.mark.parametrize("wd,fold", [(torch.float32, False),
                                      (torch.bfloat16, False),
                                      (torch.int8, False), (torch.int8, True)])
 def test_wide_image_reads_back_its_weights(W, vd, wd, fold):
     """Every GEMM and head weight of the packed fields comes back bit for
-    bit, the padding (to 128 outputs: the W384 view layer's 192 to 256; the
-    encodings to 128 bytes) is zero, and the epilogue table holds each
-    layer's bias, int8's multipliers and, unfolded, the consumer's inverse
-    scales (1 where folded); its size is ``wide_teacher_plan``'s."""
+    bit (f32's GEMM weights as their TF32 high and low parts, which the
+    card's products read), the padding (to 128 outputs: the W384 view
+    layer's 192 to 256, W300 to 384; the encodings to 128 bytes) is zero,
+    and the epilogue table holds each layer's bias, int8's multipliers and,
+    unfolded, the consumer's inverse scales (1 where folded); its size is
+    ``wide_teacher_plan``'s."""
     cfg, fp = _teacher(W, vd=vd, wd=wd, fold=fold, pad=True)
     plan = NR.wide_teacher_plan(cfg, wd)
-    assert cfg.W == 384 and plan["Wp"] == 384 and plan["Vp"] == 256
+    Wp = NR._round_up(W, 128)
+    assert cfg.W == Wp == plan["Wp"] and plan["Vp"] == NR._round_up(Wp // 2,
+                                                                     128)
+    assert plan["parts"] == (2 if wd == torch.float32 else 1)
     assert fp.staged.dtype == torch.uint8
     assert fp.staged.numel() == plan["nbytes"] and plan["nbytes"] % 16 == 0
     got = NR.unstage_wide_teacher(fp.staged, cfg, wd)
     fields = (["pts_w", "feat_w", "views_w", "alpha_w", "rgb_w"] if vd
               else ["pts_w", "out_w"])
+    gemm = ("pts_w", "feat_w", "views_w")
     for name in fields:
         want = getattr(fp, name)
+        if wd == torch.float32 and name in gemm:
+            hi, lo = NR.tf32_split(want)
+            assert torch.equal(got[name + "_lo"].contiguous().view(
+                torch.uint8), lo.contiguous().view(torch.uint8)), name
+            want = hi
+        else:
+            assert name + "_lo" not in got
         assert got[name].shape == want.shape, name
         assert torch.equal(got[name].contiguous().view(torch.uint8),
                            want.contiguous().view(torch.uint8)), name
@@ -307,19 +323,28 @@ def test_wide_wrapper_refuses_a_foreign_or_stale_image(image):
 # The wide form's f32 sum order
 # ---------------------------------------------------------------------------
 
-def _mm_wide_3xtf32(x, w):
-    """The wide form's f32 product: for each step of 8 input channels, its
-    three TF32 products (a_lo w_hi, a_hi w_lo, a_hi w_hi) summed apart from
-    zero in f32, the step's sum then added to the running sum in f32."""
+def _mm_wide_3xtf32(x, w, route="one_sum"):
+    """The wide forms' f32 products, for each step of 8 input channels its
+    three TF32 products of 8 terms each. ``one_sum`` (the teacher's wide
+    form on wgmma, as K6 f32): a_hi w_lo, a_lo w_hi, a_hi w_hi, each added
+    in turn to the one running sum in f32. ``k8_apart`` (the student's and
+    the training's wide passes on mma.sync): a_lo w_hi, a_hi w_lo, a_hi
+    w_hi summed apart from zero in f32, the step's sum then added to the
+    running sum in f32."""
     xh, xl = NR.tf32_split(x.float())
     wh, wl = NR.tf32_split(w.float())
     acc = torch.zeros((x.shape[0], w.shape[0]), dtype=torch.float32)
     for k in range(0, x.shape[1], 8):
         s = slice(k, k + 8)
-        d = xl[:, s] @ wh[:, s].T
-        d = d + xh[:, s] @ wl[:, s].T
-        d = d + xh[:, s] @ wh[:, s].T
-        acc = acc + d
+        if route == "one_sum":
+            acc = acc + xh[:, s] @ wl[:, s].T
+            acc = acc + xl[:, s] @ wh[:, s].T
+            acc = acc + xh[:, s] @ wh[:, s].T
+        else:
+            d = xl[:, s] @ wh[:, s].T
+            d = d + xh[:, s] @ wl[:, s].T
+            d = d + xh[:, s] @ wh[:, s].T
+            acc = acc + d
     return acc
 
 
@@ -328,12 +353,15 @@ def _mm_wide_3xtf32(x, w):
 EMULATION_SHARE = 0.1
 
 
+@pytest.mark.parametrize("route", ["one_sum", "k8_apart"])
 @pytest.mark.parametrize("fine", [False, True])
-def test_wide_3xtf32_emulation_keeps_the_f32_limits(fine):
+def test_wide_3xtf32_emulation_keeps_the_f32_limits(fine, route):
     """A W384/D8 teacher (skip 4, viewdirs, L=10/4, the density floor) on
     24 rays of chip_smoke's seeded datagen pose, coarse (S=64) and fine
     (S=192, sample_pdf on the plain coarse weights): the plain version with
-    its GEMM layers in the wide form's order against the true-f32 plain
+    its GEMM layers in a wide form's order (``_mm_wide_3xtf32``: the
+    teacher's one running sum, and the k8 steps apart that the student's
+    and the training's wide passes keep) against the true-f32 plain
     version, every output within ``EMULATION_SHARE`` of K6 f32's limits
     (the card truncates its sums: chip_smoke.py holds the kernel itself to
     the whole limits)."""
@@ -360,16 +388,90 @@ def test_wide_3xtf32_emulation_keeps_the_f32_limits(fine):
                         vcfg.n_fine, u=dr.u_pdf)
         z = torch.sort(torch.cat([z, zf], -1), -1).values.contiguous()
     want = NR.fused_nerf_render_ref(fp, cfg, ro, rd, z, **kw)
-    got = NR.fused_nerf_render_ref(fp, cfg, ro, rd, z, mm=_mm_wide_3xtf32,
-                                   **kw)
+    got = NR.fused_nerf_render_ref(
+        fp, cfg, ro, rd, z, mm=functools.partial(_mm_wide_3xtf32,
+                                                 route=route), **kw)
     (tol, tol_rms), (tol_d, tol_d_rms) = cs.TOL_TEACHER["f32"]
     for what, g, w in zip(NAMES, got, want):
         d = g.double() - w.double()
         mx, rms = float(d.abs().max()), float(d.pow(2).mean().sqrt())
         lim = (tol_d, tol_d_rms) if what == "depth" else (tol, tol_rms)
-        print(f"wide 3xTF32 emulation S={z.shape[1]} {what}: max-abs "
+        print(f"wide 3xTF32 {route} emulation S={z.shape[1]} {what}: max-abs "
               f"{mx:.3e} ({mx / lim[0]:.1%} of {lim[0]:.0e}), RMS {rms:.3e} "
               f"({rms / lim[1]:.1%} of {lim[1]:.0e})")
         assert mx <= EMULATION_SHARE * lim[0], (what, mx)
         assert rms <= EMULATION_SHARE * lim[1], (what, rms)
         assert mx > 0, "the emulation changed nothing"
+
+
+# ---------------------------------------------------------------------------
+# The f32 and bf16 forms' encodings and scratch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,Lp,Lv,vd", [
+    (384, 10, 4, True), (1024, 10, 4, True), (300, 6, 3, True),
+    (512, 10, 4, False), (640, 16, 7, True)])
+def test_encoding_twin_equals_pe_ladder(wd, W, Lp, Lv, vd):
+    """The encoding kernel's plain twin (``wide_encodings_ref``: each
+    coordinate's ladder on its own, as ``nerf::encode``) gives, bit for
+    bit, the point and view encodings the plain version computes
+    (``pe_ladder`` of ``ray_points`` and of d / |d|), rounded to the
+    compute type and zero-padded to the image's 128-byte columns, each
+    point row holding its ray's view encoding; the columns are the ones
+    the wide image's first and view layers read."""
+    from r2l_tpu_torch.volume import ray_points
+    cfg = NeRFConfig(W=W, D=4, skips=(2,), use_viewdirs=vd,
+                     input_ch=3 + 6 * Lp, input_ch_views=3 + 6 * Lv)
+    plan = NR.wide_teacher_plan(cfg, wd, Lp, Lv)
+    ke, kve = plan["ke"], plan["kve"]
+    es = torch.empty(0, dtype=wd).element_size()
+    assert ke * es % 128 == 0 and ke >= plan["kp"] >= 3 + 6 * Lp
+    assert plan["layers"][0][1] == ke
+    assert (kve * es % 128 == 0 and kve >= plan["kvw"] >= 3 + 6 * Lv
+            and plan["layers"][-1][1] == plan["Wp"] + kve) if vd else kve == 0
+    g = np.random.default_rng(W + Lp)
+    n, S = 37, 11
+    o = torch.from_numpy(g.uniform(-4, 4, (n, 3)).astype(np.float32))
+    d = torch.from_numpy(g.normal(size=(n, 3)).astype(np.float32))
+    d[0] = 0.0   # |d| = 0 takes the 1e-12 floor
+    z = torch.from_numpy(np.sort(g.uniform(2, 6, (n, S)), 1).astype(
+        np.float32))
+    E, V = NR.wide_encodings_ref(o, d, z, Lp, Lv, ke, kve, wd)
+    want = NR.pe_ladder(ray_points(o, d, z), Lp, ke).reshape(n * S, ke)
+    assert E.dtype == wd and E.shape == (n * S, ke)
+    assert torch.equal(E.view(torch.uint8), want.to(wd).view(torch.uint8))
+    if not vd:
+        assert V is None
+        return
+    dn = NR._norm3(d)
+    vw = NR.pe_ladder(d / dn.clamp(min=1e-12)[:, None], Lv, kve)
+    assert V.dtype == wd and V.shape == (n * S, kve)
+    assert torch.equal(V.view(torch.uint8), vw.to(wd).repeat_interleave(
+        S, 0).view(torch.uint8))
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("W,S,n", [(384, 64, 32768), (1024, 192, 32768),
+                                   (2176, 192, 160000), (512, 24, 1)])
+def test_wide_scratch_holds_a_pass(wd, W, S, n):
+    """The rays of a pass (``teacher_wide_rays``) fit their scratch in
+    ``WIDE_SCRATCH_BYTES`` (a pass of one ray where that ray alone is
+    larger), the f32 and bf16 forms' scratch holds the encodings' buffers
+    [rows, ke] and [rows, kve] beside int8's, and int8's is as before."""
+    cfg = NeRFConfig(W=W, D=8, skips=(4,))
+    plan = NR.wide_teacher_plan(cfg, wd)
+    int8 = wd == torch.int8
+    enc = (0, 0) if int8 else (plan["ke"], plan["kve"])
+    rays = NR.teacher_wide_rays(n, S, W, wd, *enc)
+    assert 1 <= rays <= n
+    need = NR.teacher_wide_scratch_bytes(rays * S, W, wd, *enc)
+    assert need <= NR.WIDE_SCRATCH_BYTES or rays == 1
+    if rays < n:
+        assert NR.teacher_wide_scratch_bytes((rays + 1) * S, W, wd, *enc) \
+            > NR.WIDE_SCRATCH_BYTES - 2048
+    es = torch.empty(0, dtype=wd).element_size()
+    base = NR.teacher_wide_scratch_bytes(rays * S, W, wd)
+    assert need - base == (0 if int8 else
+                           NR._aligned(rays * S * plan["ke"] * es)
+                           + NR._aligned(rays * S * plan["kve"] * es))
