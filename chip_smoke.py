@@ -315,7 +315,11 @@ Phases, in order; any failure raises and exits non-zero:
    W1024/D6 and a W384/D44 fused step beside their xla step. ``[main]
    wide train`` lines: ms/step, the wide kernels' ms for a step (the
    forward and the K5 walk), the plain versions' and the bound, peak
-   memory, beside the card's name and power limit.
+   memory, beside the card's name and power limit. K5's wide form runs its
+   dh walk on ``wgmma`` fed by TMA (``csrc/wide_hopper.cuh``) and its dW
+   pass on ``wgmma``: its rows print the design's bytes beside the bound,
+   and a ``[profile] wide step`` line splits one ``fused`` step's kernel
+   time by name and fails if K5 ran a pass on ``mma.sync``.
 
 23. Wide and deep teachers (ROADMAP C1, teacher side), at full size, with
    the README's samples (64 + 128) and seeded weights with the density
@@ -332,12 +336,12 @@ Phases, in order; any failure raises and exits non-zero:
    K6 (f32, bf16) and K7 on a D40/W256 teacher (skips 4 and 24: the skip
    set as a flag a layer). ``[main] wide teacher`` lines: kernel and plain
    ms (CUDA events), the bound and what sets it, max-abs, beside the
-   card's name and power limit. The f32 and bf16 forms run each layer on
-   ``wgmma`` fed by TMA (``csrc/wide_hopper.cuh``); a ``[profile] wide
-   teacher`` line for the W1024/D8 f32 and bf16 chunks splits their kernel
-   time by name (the layer passes, the encodings, the heads, the
-   compositing) and fails if a layer ran on the int8 form's ``mma.sync``
-   pass.
+   card's name and power limit. Every form runs each layer on ``wgmma``
+   fed by TMA (``csrc/wide_hopper.cuh``; int8 s8 x s8 -> s32); a
+   ``[profile] wide teacher`` line for the W1024/D8 f32 and bf16 and the
+   W512/D8 int8 chunks splits their kernel time by name (the layer passes,
+   the encodings, the heads, the compositing) and fails if a layer ran on
+   a ``mma.sync`` pass or, for int8, off the skeleton's s8 instance.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -4845,7 +4849,16 @@ def wide_k5_row(kind: str, body_w, stash, dh, cfg, scale, img) -> dict:
     moved = (nbytes(dh, *got, body_w[2 * b0:]) + nbytes(stash[0]) * 2 * cnt
              + (nbytes(scale[2 * b0:]) if scale is not None else 0))
     ops = 4.0 * n * W * W * 2 * cnt
+    # the design's own bytes (csrc/r2l_wide_bwd.cu): a block's mask pass
+    # reads dt2 and t1 and writes dt1, its dh pass reads dt1 and dh and
+    # writes dh and dt2; the dW pass reads each layer's dt and stash row;
+    # the top dt2 reads dh and writes dt2
+    e, es, ss = n * W, body_w.element_size(), stash.element_size()
+    design = (cnt * (4 * e * es + e * ss + 8 * e)
+              + 2 * cnt * (e * es + e * ss) + 4 * e + e * es)
     return {**info, "walk_norm_rel_err": info_walk["norm_rel_err"],
+            "design_bytes": design,
+            "design_bytes_ms": design / HBM_BYTES_S * 1e3,
             "walk_vs_f64": info_walk.get("vs_f64"),
             "ms": time_ms(lambda: group(T.bwd_group)),
             "plain_ms": time_ms(lambda: group(T.bwd_group_ref)),
@@ -4968,17 +4981,21 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
         print(f"[time] wide {key}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}) at {n} rays; staging {r['stage_ms']:.3f} ms"
-              + (f"; whole walk {r['walk_ms']:.3f} ms" if "walk_ms" in r
+              + (f"; whole walk {r['walk_ms']:.3f} ms; the design's bytes "
+                 f"{r['design_bytes'] / 1e9:.3f} GB, "
+                 f"{r['design_bytes_ms']:.3f} ms" if "walk_ms" in r
                  else ""), flush=True)
     return res
 
 
 def wide_train_step(label: str, cfg, dcfg, sampler, kw: dict, batches,
-                    draws, dev, timed: int, repeat: int) -> dict:
+                    draws, dev, timed: int, repeat: int,
+                    split: str = "") -> dict:
     """``make_distill_step`` on ``cfg`` with ``kw``: the first step's loss
     and the wide forms' launches in it, ``repeat`` steps on two copies of
     the state after it (bit-identical), then ``timed`` steps (CUDA events);
-    the peak memory."""
+    the peak memory; with ``split`` (the line's label) one more step under
+    the profiler (``wide_step_split``)."""
     from r2l_tpu_torch.models import init_r2l
     from r2l_tpu_torch.train import (clone_train_state, init_train_state,
                                      make_distill_step)
@@ -5029,9 +5046,52 @@ def wide_train_step(label: str, cfg, dcfg, sampler, kw: dict, batches,
              peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
              launches_timed={k: v - c1[k]
                              for k, v in wide_train_counts().items()})
+    if split:
+        r["split"] = wide_step_split(split, cfg, lambda: step(
+            state, batches[1], draws=draws[1]))
     del state, step, model
     torch.cuda.empty_cache()
     return r
+
+
+# One wide step's kernels by name, as the profiler gives them: K5 wide's
+# dh walk on the pass skeleton (wide_hopper.cuh's wide_pass with its Mask
+# and Dh epilogues), its dW pass on wgmma (dw_bf16, dw_tf32) and its sums;
+# the forward's mma.sync passes (K3/K4/K8 wide, r2l_wide.cuh) and tail;
+# K5's mma.sync dW pass of earlier builds (wide_dw), which none launches.
+WIDE_STEP_KERNELS = (("K5 walk passes", ("wide_pass",)),
+                     ("K5 dW pass", ("dw_bf16", "dw_tf32")),
+                     ("K5 sums and top dt2", ("sum_splits", "scale_dh")),
+                     ("forward passes (mma.sync)", ("wide_layer",)),
+                     ("forward tail", ("wide_tail",)),
+                     ("K5 mma.sync dW pass", ("wide_dw",)))
+
+
+def wide_step_split(label: str, cfg, fn) -> dict:
+    """The kernel time of one wide training step (``fn``) under
+    torch.profiler by WIDE_STEP_KERNELS group: ms, launches and share.
+    Fails unless K5's walk ran on the skeleton (two passes a block; the
+    mma.sync passes a whole number of K3/K4/K8 forwards, one a layer, so
+    none of K5's) and its dW pass on wgmma."""
+    prof = profile_kernels(fn, top=400)
+    total = prof["kernel_ms"]
+    split = {g: {"ms": 0.0, "calls": 0} for g, _ in
+             WIDE_STEP_KERNELS + (("other", ()),)}
+    for row in prof["top"]:
+        g = next((g for g, keys in WIDE_STEP_KERNELS
+                  if any(k in row["name"] for k in keys)), "other")
+        split[g]["ms"] += row["ms"]
+        split[g]["calls"] += row["calls"]
+    print(f"[profile] wide step {label}: kernels {total:.3f} ms: " + ", ".join(
+        f"{g} {v['ms']:.3f} ms ({v['ms'] / total:.1%}, {v['calls']} "
+        "launches)" for g, v in split.items() if v["calls"]), flush=True)
+    layers = 2 * cfg.num_blocks
+    if (split["K5 walk passes"]["calls"] != layers
+            or split["forward passes (mma.sync)"]["calls"] % (layers + 1)
+            or split["K5 dW pass"]["calls"] == 0
+            or split["K5 mma.sync dW pass"]["calls"] != 0):
+        raise AssertionError(f"{label}: K5 wide's passes ran on {split}")
+    return {"kernel_ms": total, **split}
 
 
 def wide_train_steps(smi: str, cfg, sampler, poses, dev) -> dict:
@@ -5062,10 +5122,11 @@ def wide_train_steps(smi: str, cfg, sampler, poses, dev) -> dict:
         kcfg = cfg32 if kind == "fused_f32" else cfg
         if kw and not fused_vjp_gate(True, kcfg, False):
             raise AssertionError(f"{kind}: the fused gate refused W512/D88")
+        label = f"W{cfg.netwidth}/D{WIDE_TRAIN_DEPTH} {kind}"
         r = out[kind] = wide_train_step(
-            f"W{cfg.netwidth}/D{WIDE_TRAIN_DEPTH} {kind}", kcfg, dcfg,
-            sampler, kw, batches, draws, dev, WIDE_TRAIN_TIMED,
-            WIDE_TRAIN_REPEAT if kw else 0)
+            label, kcfg, dcfg, sampler, kw, batches, draws, dev,
+            WIDE_TRAIN_TIMED, WIDE_TRAIN_REPEAT if kw else 0,
+            f"{label} ({smi})" if kind == "fused" else "")
         want = ({k2: 0 for k2 in ("K3w", "K4w", "K8w", "K5w")} if not kw
                 else {**{k2: 0 for k2 in ("K3w", "K4w", "K8w")},
                       fwd[kind]: 1, "K5w": groups})
@@ -5192,11 +5253,12 @@ WIDE_TEACHER_CHUNKS = (   # (label, W, D, skips, kinds)
     ("D40/W256", 256, 40, (4, 24), ("f32", "bf16", "int8")),
 )
 MARGIN_SHARE = 0.5   # a check past this share of a limit prints [margin]
-WIDE_TEACHER_SPLIT = (("W1024/D8", "f32"), ("W1024/D8", "bf16"))
-# The wide form's kernels by name, as the profiler gives them: f32 and bf16
-# the TMA/wgmma layer pass and the encodings (wide_hopper.cuh,
-# nerf_wide.cu); the heads and the compositing of every form; int8's
-# mma.sync layer pass, which the other two never launch.
+WIDE_TEACHER_SPLIT = (("W1024/D8", "f32"), ("W1024/D8", "bf16"),
+                      ("W512/D8", "int8"))
+# The wide form's kernels by name, as the profiler gives them: the
+# TMA/wgmma layer pass and the encodings (wide_hopper.cuh, nerf_wide.cu);
+# the heads and the compositing; int8's mma.sync layer pass of earlier
+# builds (teacher_layer), which none launches now.
 WIDE_TEACHER_KERNELS = (("layer passes", "wide_pass"),
                         ("encodings", "wide_encode"), ("heads", "wide_tail"),
                         ("compositing", "teacher_composite"),
@@ -5398,11 +5460,21 @@ def wide_teacher_row(smi: str, label: str, kind: str, cfg, mc, chunk,
                    "tf32" if kind == "f32" else kind), kernel=key,
              packed_width=int(fp.pts_b.shape[1]), rays=n,
              samples=[zc.shape[1], zf.shape[1]])
+    design = ""
+    if wide:   # the design's bytes: each layer pass reads its input and
+        # writes its output, every point (csrc/nerf_wide.cu)
+        plan = NR.wide_teacher_plan(cfg, fp.pts_w.dtype)
+        es = fp.pts_w.element_size()
+        r["design_bytes"] = n * S_all * es * sum(
+            nn + k for nn, k in plan["layers"])
+        r["design_bytes_ms"] = r["design_bytes"] / HBM_BYTES_S * 1e3
+        design = (f"; the design's bytes {r['design_bytes'] / 1e9:.3f} GB, "
+                  f"{r['design_bytes_ms']:.3f} ms")
     print(f"[main] wide teacher {label} {kind} ({key}, packed at "
           f"W{r['packed_width']}), one chunk of {n} rays, S={zc.shape[1]} + "
           f"{zf.shape[1]}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
           f" ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
-          f"{ops / 1e12:.3f} T{'OP' if int8 else 'FLOP'}), max-abs "
+          f"{ops / 1e12:.3f} T{'OP' if int8 else 'FLOP'}){design}, max-abs "
           f"{r['max_abs_err']:.3e} ({smi})", flush=True)
     return r
 
@@ -5411,7 +5483,7 @@ def wide_teacher_split(smi: str, what: str, fn) -> dict:
     """The kernel time of one call of ``fn`` (a chunk's two wide calls)
     under torch.profiler, by WIDE_TEACHER_KERNELS group: ms, launches and
     share of the kernel time. Fails unless the layers ran on the TMA/wgmma
-    pass and no mma.sync pass ran (f32 and bf16)."""
+    pass (int8: its s8 instance) and no mma.sync pass ran."""
     prof = profile_kernels(fn, top=40)
     total = prof["kernel_ms"]
     split = {group: {"ms": 0.0, "calls": 0} for group, _ in
@@ -5426,8 +5498,10 @@ def wide_teacher_split(smi: str, what: str, fn) -> dict:
                       if v["calls"])
     print(f"[profile] wide teacher {what}, one chunk: kernels {total:.3f} "
           f"ms: {parts} ({smi})", flush=True)
+    s8 = any("wide_pass<signed char" in row["name"] for row in prof["top"])
     if split["layer passes"]["calls"] == 0 \
-            or split["int8 mma.sync passes"]["calls"] != 0:
+            or split["int8 mma.sync passes"]["calls"] != 0 \
+            or s8 != what.endswith("int8"):
         raise AssertionError(f"{what}: the layers ran on {split}")
     return {"kernel_ms": total, **split}
 

@@ -14,30 +14,29 @@
 // Why another design than K6/K7's: they keep a 64-point tile's activations
 // in shared memory and a W-wide wgmma accumulator in registers (N <= 256);
 // at W1024 a 64-point bf16 tile is 128 KB. Here a layer is one pass over
-// the points' activations in device memory:
-//   * f32 and bf16: the pass skeleton of wide_hopper.cuh (wgmma fed by TMA,
-//     a producer warpgroup and two consumer warpgroups, 128 points x 256
-//     outputs a tile in bf16, 128 x 128 in f32 as 3xTF32 with A split in
-//     registers, the epilogue staged in shared memory and stored by TMA).
-//     The point encoding (the point o + d*z, one FMA, volume.ray_points)
+// the points' activations in device memory, on the pass skeleton of
+// wide_hopper.cuh (wgmma fed by TMA, a producer warpgroup and two consumer
+// warpgroups, 128 points x 256 outputs a tile in bf16 and int8, 128 x 128
+// in f32 as 3xTF32 with A split in registers, the epilogue staged in
+// shared memory and stored by TMA):
+//   * the point encoding (the point o + d*z, one FMA, volume.ray_points)
 //     and the view encoding (d / max(|d|, 1e-12)), each by the teacher's
 //     double-angle ladder in nerf_embed's order (nerf::encode, bit for bit
-//     the plain version's pe_ladder) and rounded to the compute type, are
-//     written once a pass of rays by a kernel of their own (wide_encode)
-//     into two buffers [rows, ke] and [rows, kve], zeros past the used
-//     columns. The layer after a skip reads [encoding | h], the view layer
-//     [feature | view encoding]: two k-ranges of TMA loads, one
-//     accumulation. The image holds each layer's weights [N, K] row-major
-//     (f32: its TF32 high parts, then its low parts).
-//   * int8: the student's wide passes (r2l_wide.cuh: mma.sync, 128 points x
-//     128 channels a block, eight warps, the weights' 16 KB tiles and the
-//     activations through a three-slot cp.async ring); the encodings are
-//     made by the block itself in the ring slot of the stage that holds
-//     them, quantized with pe_inv / hv_inv[W:].
-//   * epilogues: (m, b, inv) a channel from the image's table. f32/bf16:
-//     the bias added in f32, ReLU (not after the feature layer), rounded to
-//     the compute type. int8: acc*m + b in one FMA, ReLU, times the
-//     consumer's inverse scale (1 where folded), round-half-even, clip.
+//     the plain version's pe_ladder), rounded to the compute type (int8:
+//     its codes, q8(x * pe_inv[c]) and q8(x * hv_inv[W + c])), are written
+//     once a pass of rays by a kernel of their own (wide_encode) into two
+//     buffers [rows, ke] and [rows, kve], zeros past the used columns. The
+//     layer after a skip reads [encoding | h], the view layer [feature |
+//     view encoding]: two k-ranges of TMA loads, one accumulation. The
+//     image holds each layer's weights [N, K] row-major (f32: its TF32 high
+//     parts, then its low parts; int8: the codes).
+//   * products: bf16 m64nNk16, int8 m64nNk32 s8 x s8 -> s32 (exact), f32
+//     as 3xTF32 on the tensor cores' one running sum, as K6 f32.
+//   * epilogues: (m, b, inv) a channel from the image's table. f32/bf16
+//     (BiasRelu): the bias added in f32, ReLU (not after the feature
+//     layer), rounded to the compute type. int8 (Requant): acc*m + b in one
+//     FMA, ReLU, times the consumer's inverse scale (1 where folded),
+//     round-half-even, clip, staged as s8 and stored by TMA.
 //   * heads: sigma (W -> 1), rgb (W/2 -> 3) or output_linear (W -> 4) as
 //     the student's tail reduction (wide_tail, linear: an f32 dot of the
 //     rounded activations, or int8's exact int32 dot and one-FMA
@@ -45,14 +44,15 @@
 //   * compositing: one thread a ray walks its S samples in order, the
 //     operations of volume.raw2outputs as K6 does them (nerf::composite).
 // The wrapper cuts the rays into passes of whole rays to bound the scratch
-// (two activation buffers, sigma and the logits; f32/bf16 the encodings).
+// (two activation buffers, sigma and the logits, the encodings).
 //
 // What bounds it: the products. A point costs 2,300,928 multiply-adds at
 // W512 and 9,058,304 at W1024 with viewdirs (8 layers, a skip at 4), so a
 // 400x400 datagen pose of 64 + 192 samples is 188.5 and 742 TFLOP: 191 and
 // 750 ms at the card's 989 bf16 TFLOP/s; and each pass's round trip of the
-// activations, 4 W bytes a point in bf16 (at W512, more time than the
-// products). PERF.md has the measured times.
+// activations, 4 W bytes a point in bf16 and 2 W in int8 (at W512, more
+// time than the products: int8's 25.6 ms a 32,768-ray datagen chunk
+// against its products' 19.5). PERF.md has the measured times.
 #include <algorithm>
 #include <vector>
 
@@ -63,153 +63,6 @@
 using namespace r2lw;
 
 namespace {
-
-// ---- int8: the mma.sync pass ---------------------------------------------
-
-// One int8 pass: a GEMM layer's product and epilogue on `rows` points.
-struct Layer {
-  int rows;              // points of this pass (its rays x S)
-  int N;                 // output channels, a multiple of kWideChannels
-  int st_e, st_m, st_v;  // stages (128 bytes of K) of the point encoding,
-                         // of h from device memory, of the view encoding
-  const unsigned char* w;  // the layer's staged tiles
-  const void* a;         // [rows, st_m * 128 bytes]: the previous output
-  const float* rays_o;   // the pass's rays [rays, 3]
-  const float* rays_d;
-  const float* z;        // [rays * S]: point r's depth is z[r]
-  int S, Lp, Lv;
-  const float* pe_inv;   // int8: [kp]
-  const float* hv_inv;   // int8: the view encoding's [kvw] (hv_inv + W)
-  const float4* epi;     // [N] (m, b, inv, 0)
-  int relu;
-  void* out;             // [rows, N] codes
-};
-
-// The block's 128 x 128 outputs of one layer.
-__global__ void __launch_bounds__(kThreads) teacher_layer(const Layer p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int T = kS8, es = elem_bytes(T);
-  constexpr int kCols = 128 / es;  // channels of a stage
-  uint32_t* sA = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* sB = sA + kStages * kBM * kLd;
-  const int ntn = p.N / kBN;
-  const int mt = blockIdx.x / ntn, nt = blockIdx.x - mt * ntn;
-  const int row0 = mt * kBM, col0 = nt * kBN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int KT = p.st_e + p.st_m + p.st_v;  // stages over K
-  const unsigned char* wt = p.w + (size_t)nt * KT * kTileBytes;
-
-  // Columns [c0, c0 + kCols) of the point (or view) encoding of the
-  // block's points into a slot: the used columns by the ladder, zeros past
-  // them (rows past the pass take its last point: read, never stored).
-  auto encode_stage = [&](unsigned char* slot, int c0, bool view) {
-    const int L = view ? p.Lv : p.Lp, used = 3 + 6 * L;
-    const float* inv = view ? p.hv_inv : p.pe_inv;
-    auto put = [&](int r, int c, float x) {
-      unsigned char* row = slot + r * kLd * 4;
-      reinterpret_cast<int8_t*>(row)[c - c0] = r2l::q8(__fmul_rn(x, inv[c]));
-    };
-    const int z0 = max(min(used - c0, kCols), 0), nz = kCols - z0;
-    for (int e = tid; e < kBM * nz * es; e += kThreads) {
-      const int r = e / (nz * es);
-      slot[r * kLd * 4 + z0 * es + (e - r * nz * es)] = 0;
-    }
-    if (z0 == 0) return;
-    for (int e = tid; e < kBM * 3; e += kThreads) {
-      const int r = e / 3, k = e - 3 * r;
-      const int g = min(row0 + r, p.rows - 1), ray = g / p.S;
-      const float* d = p.rays_d + 3 * ray;
-      float v;
-      if (view) {  // |d| with the sum of squares contracted, as K6
-        const float dn = sqrtf(__fmaf_rn(
-            d[2], d[2], __fmaf_rn(d[1], d[1], __fmul_rn(d[0], d[0]))));
-        v = d[k] / fmaxf(dn, 1e-12f);
-      } else {
-        v = __fmaf_rn(d[k], p.z[g], p.rays_o[3 * ray + k]);
-      }
-      nerf::encode(v, k, L, [&](int c, float x) {
-        if (c >= c0 && c < c0 + kCols) put(r, c, x);
-      });
-    }
-  };
-
-  auto load_stage = [&](int slot, int kt) {
-    const unsigned char* bs = wt + (size_t)kt * kTileBytes;
-    unsigned char* bd = reinterpret_cast<unsigned char*>(sB + slot * kBN * kLd);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = tid + i * kThreads;
-      r2l::cp_async16(bd + (c >> 3) * kLd * 4 + (c & 7) * 16, bs + c * 16);
-    }
-    unsigned char* ad = reinterpret_cast<unsigned char*>(sA + slot * kBM * kLd);
-    if (kt < p.st_e) {
-      encode_stage(ad, kt * kCols, false);
-    } else if (kt < p.st_e + p.st_m) {
-      const unsigned char* a = static_cast<const unsigned char*>(p.a);
-      const size_t kb = (size_t)p.st_m * 128, k0 = (size_t)(kt - p.st_e) * 128;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = tid + i * kThreads, r = c >> 3;
-        const int g = min(row0 + r, p.rows - 1);  // rows past: read, unused
-        r2l::cp_async16(ad + r * kLd * 4 + (c & 7) * 16,
-                        a + (size_t)g * kb + k0 + (c & 7) * 16);
-      }
-    } else {
-      encode_stage(ad, (kt - p.st_e - p.st_m) * kCols, true);
-    }
-  };
-
-  Acc<T> acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    r2l::cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    r2l::cp_async_wait_prior();  // stage kt has landed (three slots)
-    __syncthreads();             // and every warp is done with kt - 1
-    const int nk = kt + kStages - 1;
-    if (nk < KT) load_stage(nk % kStages, nk);
-    r2l::cp_async_commit();
-    const uint32_t* A = sA + (kt % kStages) * kBM * kLd;
-    const uint32_t* B = sB + (kt % kStages) * kBN * kLd;
-#pragma unroll
-    for (int kw = 0; kw < kBKW; kw += 8)
-      mma_step<T>(acc, A, kLd, B, kw, wm, wn, lane);
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wm * 64 + i * 16 + g + 8 * h;
-      if (row >= p.rows) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = col0 + wn * 32 + j * 8 + 2 * t;
-        const size_t o = (size_t)row * p.N + col;
-        const float4 e[2] = {__ldg(p.epi + col), __ldg(p.epi + col + 1)};
-        int8_t q[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          float y = r2l::dequant(acc[i][j][2 * h + k], e[k].x, e[k].y);
-          if (p.relu) y = fmaxf(y, 0.f);
-          q[k] = r2l::q8(__fmul_rn(y, e[k].z));
-        }
-        *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) =
-            make_char2(q[0], q[1]);
-      }
-    }
-}
 
 // raw2outputs for the pass's rays, one thread a ray walking its S samples
 // in order (nerf::composite's operations): sigma of point r at sig[r * ss],
@@ -247,39 +100,45 @@ __global__ void __launch_bounds__(128)
   depth[i] = dep;
 }
 
-cudaError_t pass_layer(const Layer& p, cudaStream_t st) {
-  constexpr int smem = (kStages * kBM * kLd + kStages * kBN * kLd) * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      teacher_layer, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const long long blocks = (long long)((p.rows + kBM - 1) / kBM) * (p.N / kBN);
-  teacher_layer<<<(unsigned)blocks, kThreads, smem, st>>>(p);
-  return cudaGetLastError();
-}
+// ---- the encodings of a pass ---------------------------------------------
 
-// ---- f32 and bf16: the encodings of a pass ------------------------------
-
-// The compute type of the f32 and bf16 forms.
+// The compute type of a form.
 template <int T>
-using Compute =
-    typename std::conditional<T == kF32, float, __nv_bfloat16>::type;
+using Compute = typename std::conditional<
+    T == kF32, float,
+    typename std::conditional<T == kBF16, __nv_bfloat16, int8_t>::type>::type;
 
-template <typename C> __device__ __forceinline__ C to(float x);
-template <> __device__ __forceinline__ float to<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 to<__nv_bfloat16>(
-    float x) {
+// Encoding column c's value x in C: f32 as it is, bf16 rounded, int8 its
+// code q8(x * inv[c]) (the form's requantize of the plain version's
+// _mlp_int8), 0 past the `used` columns.
+template <typename C>
+__device__ __forceinline__ C code(float x, const float* inv, int c, int used);
+template <> __device__ __forceinline__ float code<float>(float x,
+                                                         const float*, int,
+                                                         int) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 code<__nv_bfloat16>(
+    float x, const float*, int, int) {
   return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ int8_t code<int8_t>(float x,
+                                                           const float* inv,
+                                                           int c, int used) {
+  return c < used ? r2l::q8(__fmul_rn(x, inv[c])) : 0;
 }
 
 // The point encoding E [rows, ke] and the view encoding V [rows, kve] (V
-// null without viewdirs) of a pass's points, rounded to C, zeros past the
-// used columns: `er` rows a block, three threads a row (one a coordinate)
-// run the ladders into shared memory, then the block's rows, contiguous in
-// E and in V, are copied out in order.
+// null without viewdirs) of a pass's points in C (int8: quantized by
+// pe_inv and hv_inv, the view encoding's own inverse scales), zeros past
+// the used columns: `er` rows a block, three threads a row (one a
+// coordinate) run the ladders into shared memory, then the block's rows,
+// contiguous in E and in V, are copied out in order.
 template <typename C>
 __global__ void wide_encode(const float* rays_o, const float* rays_d,
                             const float* z, int rows, int S, int Lp, int Lv,
-                            int ke, int kve, int er, C* E, C* V) {
+                            int ke, int kve, int er, const float* pe_inv,
+                            const float* hv_inv, C* E, C* V) {
   extern __shared__ float enc[];  // [er][ke + 1], then [er][kve + 1]
   const int le = ke + 1, lv = kve + 1;
   float* ev = enc + er * le;
@@ -301,28 +160,29 @@ __global__ void wide_encode(const float* rays_o, const float* rays_d,
     }
   }
   __syncthreads();
+  const int ue = 3 + 6 * Lp, uv = 3 + 6 * Lv;
   for (int i = threadIdx.x; i < nr * ke; i += blockDim.x)
-    E[(size_t)row0 * ke + i] = to<C>(enc[(i / ke) * le + i % ke]);
+    E[(size_t)row0 * ke + i] =
+        code<C>(enc[(i / ke) * le + i % ke], pe_inv, i % ke, ue);
   if (V)
     for (int i = threadIdx.x; i < nr * kve; i += blockDim.x)
-      V[(size_t)row0 * kve + i] = to<C>(ev[(i / kve) * lv + i % kve]);
+      V[(size_t)row0 * kve + i] =
+          code<C>(ev[(i / kve) * lv + i % kve], hv_inv, i % kve, uv);
 }
 
-cudaError_t encode_pass(int T, const float* rays_o, const float* rays_d,
+template <typename C>
+cudaError_t encode_pass(const float* rays_o, const float* rays_d,
                         const float* z, int rows, int S, int Lp, int Lv,
-                        int ke, int kve, void* E, void* V, cudaStream_t st) {
+                        int ke, int kve, const float* pe_inv,
+                        const float* hv_inv, void* E, void* V,
+                        cudaStream_t st) {
   // rows a block: as many as keep the block's floats within 48 KB
   const int per_row = 4 * (ke + 1 + (V ? kve + 1 : 0));
   const int er = std::max(1, std::min(64, (48 << 10) / per_row));
   const int grid = (rows + er - 1) / er, smem = er * per_row;
-  if (T == kF32)
-    wide_encode<float><<<grid, 3 * er, smem, st>>>(
-        rays_o, rays_d, z, rows, S, Lp, Lv, ke, kve, er,
-        static_cast<float*>(E), static_cast<float*>(V));
-  else
-    wide_encode<__nv_bfloat16><<<grid, 3 * er, smem, st>>>(
-        rays_o, rays_d, z, rows, S, Lp, Lv, ke, kve, er,
-        static_cast<__nv_bfloat16*>(E), static_cast<__nv_bfloat16*>(V));
+  wide_encode<C><<<grid, 3 * er, smem, st>>>(
+      rays_o, rays_d, z, rows, S, Lp, Lv, ke, kve, er, pe_inv, hv_inv,
+      static_cast<C*>(E), static_cast<C*>(V));
   return cudaGetLastError();
 }
 
@@ -353,8 +213,8 @@ struct Gemm {
 };
 
 // The scratch of passes of `rows` points (nerf_render.py,
-// teacher_wide_scratch_bytes): two activation buffers, sigma, the logits;
-// f32/bf16 also the point and view encodings (ke, kve columns).
+// teacher_wide_scratch_bytes): two activation buffers, sigma, the logits,
+// the point and view encodings (ke, kve columns).
 long long scratch_bytes(long long rows, int W, int es, int ke, int kve) {
   return 2 * aligned(rows * W * es) + aligned(4 * rows) +
          aligned(16 * rows) + aligned(rows * ke * es) +
@@ -365,6 +225,8 @@ template <int T>
 cudaError_t run(const Call& c, cudaStream_t st) {
   constexpr int es = elem_bytes(T), parts = T == kF32 ? 2 : 1;
   using C = Compute<T>;
+  using Epi = typename std::conditional<T == kS8, wideh::Requant,
+                                        wideh::BiasRelu>::type;
   const int W = c.W, V = r2l::round_up(W / 2, kWideChannels);
   const int kp = r2l::round_up(3 + 6 * c.Lp, 64);
   const int kvw = r2l::round_up(W + 3 + 6 * c.Lv, 64) - W;
@@ -387,18 +249,16 @@ cudaError_t run(const Call& c, cudaStream_t st) {
   const unsigned char* heads = c.image + w_off;
   const size_t heads_bytes = (c.viewdirs ? W + 3 * V : 4 * W) * es;
   const float4* table = reinterpret_cast<const float4*>(heads + heads_bytes);
-  // f32/bf16: the encodings' columns, and each layer's weights as B
-  const int ke = T == kS8 ? 0 : st_e * 128 / es;
-  const int kve = T == kS8 || !c.viewdirs ? 0 : st_v * 128 / es;
-  std::vector<CUtensorMap> wmap(T == kS8 ? 0 : layers.size());
-  if constexpr (T != kS8)
-    for (size_t l = 0; l < layers.size(); ++l) {
-      const Gemm& g = layers[l];
-      const cudaError_t err = wideh::weight_map<C>(
-          &wmap[l], c.image + g.w_off, g.N,
-          (g.st_e + g.st_m + g.st_v) * 128 / es);
-      if (err != cudaSuccess) return err;
-    }
+  // the encodings' columns, and each layer's weights as B
+  const int ke = st_e * 128 / es, kve = c.viewdirs ? st_v * 128 / es : 0;
+  std::vector<CUtensorMap> wmap(layers.size());
+  for (size_t l = 0; l < layers.size(); ++l) {
+    const Gemm& g = layers[l];
+    const cudaError_t err = wideh::weight_map<C>(
+        &wmap[l], c.image + g.w_off, g.N,
+        (g.st_e + g.st_m + g.st_v) * 128 / es);
+    if (err != cudaSuccess) return err;
+  }
 
   const int rays = c.rays > 0 && c.rays < c.n ? c.rays : c.n;
   const long long rows_max = (long long)rays * c.S;
@@ -415,60 +275,36 @@ cudaError_t run(const Call& c, cudaStream_t st) {
 
   for (int r0 = 0; r0 < c.n; r0 += rays) {
     const int nr = c.n - r0 < rays ? c.n - r0 : rays, rows = nr * c.S;
-    Layer p{};
-    p.rows = rows;
-    p.rays_o = c.rays_o + 3 * (size_t)r0;
-    p.rays_d = c.rays_d + 3 * (size_t)r0;
-    p.z = c.z + (size_t)r0 * c.S;
-    p.S = c.S;
-    p.Lp = c.Lp;
-    p.Lv = c.Lv;
-    p.pe_inv = c.pe_inv;
-    p.hv_inv = c.hv_inv ? c.hv_inv + W : nullptr;
-    cudaError_t err = cudaSuccess;
-    // f32/bf16: the pass's A sources, and the view layer's output [rows, V]
+    const float* ro = c.rays_o + 3 * (size_t)r0;
+    const float* rd = c.rays_d + 3 * (size_t)r0;
+    const float* z = c.z + (size_t)r0 * c.S;
+    // the pass's A sources, and the view layer's output [rows, V]
     CUtensorMap mE, mV, mH[2], mHV[2];
-    if constexpr (T != kS8) {
-      err = encode_pass(T, p.rays_o, p.rays_d, p.z, rows, c.S, c.Lp, c.Lv,
-                        ke, kve, E, Vb, st);
-      if (err == cudaSuccess) err = wideh::act_map<C>(&mE, E, rows, ke);
-      if (err == cudaSuccess && kve)
-        err = wideh::act_map<C>(&mV, Vb, rows, kve);
-      for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
-        err = wideh::act_map<C>(&mH[i], H[i], rows, W);
-        if (err == cudaSuccess && c.viewdirs)
-          err = wideh::act_map<C>(&mHV[i], H[i], rows, V);
-      }
-      if (err != cudaSuccess) return err;
+    cudaError_t err = encode_pass<C>(ro, rd, z, rows, c.S, c.Lp, c.Lv, ke,
+                                     kve, c.pe_inv,
+                                     c.hv_inv ? c.hv_inv + W : nullptr, E,
+                                     Vb, st);
+    if (err == cudaSuccess) err = wideh::act_map<C>(&mE, E, rows, ke);
+    if (err == cudaSuccess && kve) err = wideh::act_map<C>(&mV, Vb, rows, kve);
+    for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+      err = wideh::act_map<C>(&mH[i], H[i], rows, W);
+      if (err == cudaSuccess && c.viewdirs)
+        err = wideh::act_map<C>(&mHV[i], H[i], rows, V);
     }
+    if (err != cudaSuccess) return err;
     int cur = 0;
     auto layer = [&](int l, int relu) {
       const Gemm& g = layers[l];
       const int in = cur;
       cur ^= 1;
-      if constexpr (T == kS8) {
-        Layer lp = p;
-        lp.N = g.N;
-        lp.st_e = g.st_e;
-        lp.st_m = g.st_m;
-        lp.st_v = g.st_v;
-        lp.w = c.image + g.w_off;
-        lp.a = H[in];
-        lp.epi = table + g.table_off;
-        lp.relu = relu;
-        lp.out = H[cur];
-        return pass_layer(lp, st);
-      } else {
-        // [encoding | h], [h], or [h | view encoding] (never all three)
-        const CUtensorMap& a0 = g.st_e ? mE : mH[in];
-        const CUtensorMap& a1 = g.st_e ? mH[in] : mV;
-        const wideh::Pass wp{rows, g.N, g.st_e ? g.st_e : g.st_m,
-                             g.st_e ? g.st_m : g.st_v, table + g.table_off,
-                             relu};
-        return wideh::launch_pass<C>(a0, g.st_e || g.st_v ? a1 : a0,
-                                     wmap[l], g.st_v ? mHV[cur] : mH[cur],
-                                     wp, st);
-      }
+      // [encoding | h], [h], or [h | view encoding] (never all three)
+      const CUtensorMap& a0 = g.st_e ? mE : mH[in];
+      const CUtensorMap& a1 = g.st_e ? mH[in] : mV;
+      const wideh::Pass wp{rows, g.N, g.st_e ? g.st_e : g.st_m,
+                           g.st_e ? g.st_m : g.st_v};
+      return wideh::launch_pass<C, Epi>(
+          a0, g.st_e || g.st_v ? a1 : a0, wmap[l], g.st_v ? mHV[cur] : mH[cur],
+          wp, {table + g.table_off, relu}, st);
     };
     auto head = [&](int K, const void* w, const float* m, const float* b,
                     int out_dim, float* out) {
@@ -494,7 +330,7 @@ cudaError_t run(const Call& c, cudaStream_t st) {
     }
     if (err != cudaSuccess) return err;
     teacher_composite<<<(nr + 127) / 128, 128, 0, st>>>(
-        p.rays_d, p.z, nr, c.S, sg, ss, lg, ls, c.white, c.rgb + 3 * (size_t)r0,
+        rd, z, nr, c.S, sg, ss, lg, ls, c.white, c.rgb + 3 * (size_t)r0,
         c.acc + r0, c.depth + r0, c.weights + (size_t)r0 * c.S);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;

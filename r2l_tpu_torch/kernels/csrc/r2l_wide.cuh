@@ -34,8 +34,8 @@
 // once a (ray, scalar) a slice up to the highest octave the slice holds;
 // K9 reads x [n, in_dim] f32 and rounds it to the compute type.
 //
-// The training kernels' wide form (r2l_wide_train.cu: K3, K4/K8; r2l_wide_bwd.cu:
-// K5) runs the same passes with epilogues of their own:
+// The training forward's wide form (r2l_wide_train.cu: K3, K4/K8) runs the
+// same passes with epilogues of their own:
 //   K3 (bf16/f32): each layer's output goes straight to its stash row (h_0
 //   to row 0, block b's inner t to row nb+1+b, its output h to row b+1);
 //   a block's end adds its t2 to h before rounding it (`train`, as
@@ -46,13 +46,11 @@
 //   tail's). K8 (kTrainB): the bf16 stream and bf16 rows to the stash, and
 //   the next product's codes made in the epilogue into one of two scratch
 //   buffers (the A loader stays the s8 one).
-//   K5: dt1 = (t1 > 0 ? dt2 W2^T : 0) rounded (kBwdMask, the mask read from
-//   the stash in its own type), dh += dt1 W1^T in f32 with the next block's
-//   dt2 = dh * res_scale rounded (kBwdDh), against the transposed weights.
-// Training's f32 passes sum each k8 step's three TF32 products apart, from
-// zero, and add that to the running sum in f32 (kSplit): the tensor cores
-// truncate every sum they add to, which over a long sum costs f32's last
-// bits (PERF.md, K3's and K5's margins).
+// (K5's wide form and the teacher's run on the Hopper pass skeleton,
+// wide_hopper.cuh.) Training's f32 passes sum each k8 step's three TF32
+// products apart, from zero, and add that to the running sum in f32
+// (kSplit): the tensor cores truncate every sum they add to, which over a
+// long sum costs f32's last bits (PERF.md, K3's margins).
 //
 // What bounds it: the products (2 W^2 operations a ray a layer) at the
 // card's tensor rate; a pass also reads its input and writes its output,
@@ -73,8 +71,8 @@ namespace r2lw {
 
 enum Type { kBF16 = 0, kF32 = 1, kS8 = 2 };
 enum Src { kBody = 0, kPE = 1, kX = 2 };   // where a pass's input comes from
-// a pass's layer: the forward's three, then the backward's two (K5)
-enum Kind { kHead = 0, kInner = 1, kBlockEnd = 2, kBwdMask = 3, kBwdDh = 4 };
+// a pass's layer
+enum Kind { kHead = 0, kInner = 1, kBlockEnd = 2 };
 // K2's forms (r2l_fused.py, EPILOGUES), then the int8 training forward's
 // (K4: q-value stash, K8: bf16 stash)
 enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2, kTrainQ = 3, kTrainB = 4 };
@@ -114,9 +112,6 @@ struct Params {
   void* h0;                // kHead: written; a final kBlockEnd: read
   const float* inv;        // int8: the next product's inverse scales
   int train;               // bf16/f32 kBlockEnd: t2 added unrounded (K3)
-  const void* mask;        // kBwdMask: the stash's t1 row [n, W]
-  const float* mask_scale; // its int8 dequant scales [W], or null
-  int mask_type;           // its Type
 };
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -396,42 +391,6 @@ __device__ __forceinline__ void epilogue_train_s8(const Params& p, int row,
   *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) = c;
 }
 
-// K5's epilogues (r2l_train.py, bwd_group_ref) of outputs (row, col),
-// (row, col + 1), the sums acc of a product against a transposed weight:
-// kBwdMask dt1 = (t1 > 0 ? acc : 0) rounded to T, t1 read from the stash
-// in its own type (int8: q * scale); kBwdDh dh = hin + acc in f32 to hout,
-// and (out given) the next block's dt2 = dh * res_scale rounded to T.
-template <int T>
-__device__ __forceinline__ void epilogue_bwd(const Params& p, int row,
-                                             int col, float a0, float a1) {
-  const size_t o = (size_t)row * p.W + col;
-  float v[2] = {a0, a1};
-  if (p.kind == kBwdMask) {
-    float m[2];
-    if (p.mask_type == kS8) {
-      const char2 q = *reinterpret_cast<const char2*>(
-          static_cast<const int8_t*>(p.mask) + o);
-      m[0] = __fmul_rn((float)q.x, p.mask_scale[col]);
-      m[1] = __fmul_rn((float)q.y, p.mask_scale[col + 1]);
-    } else if (p.mask_type == kBF16) {
-      load2<kBF16>(p.mask, o, m);
-    } else {
-      load2<kF32>(p.mask, o, m);
-    }
-    for (int k = 0; k < 2; ++k) v[k] = m[k] > 0.f ? rnd<T>(v[k]) : 0.f;
-    store2<T>(p.out, o, v);
-    return;
-  }
-  float d[2];
-  load2<kF32>(p.hin, o, d);
-  for (int k = 0; k < 2; ++k) d[k] = __fadd_rn(d[k], v[k]);
-  store2<kF32>(p.hout, o, d);
-  if (p.out) {
-    for (int k = 0; k < 2; ++k) v[k] = rnd<T>(__fmul_rn(d[k], p.res_scale));
-    store2<T>(p.out, o, v);
-  }
-}
-
 // One pass: the block's 128 rays x 128 output channels of one layer.
 template <int T, int S, bool kSplit = false>
 __global__ void __launch_bounds__(kThreads) wide_layer(const Params p) {
@@ -583,9 +542,6 @@ __global__ void __launch_bounds__(kThreads) wide_layer(const Params p) {
                               acc[i][j][2 * h + 1]);
           else
             epilogue_s8(p, row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        } else if (p.kind >= kBwdMask) {
-          epilogue_bwd<T>(p, row, col, acc[i][j][2 * h],
-                          acc[i][j][2 * h + 1]);
         } else {
           epilogue_float<T>(p, row, col, acc[i][j][2 * h],
                             acc[i][j][2 * h + 1]);

@@ -1,10 +1,11 @@
 // The Hopper pass skeleton of the wide forms: one layer of a network too
 // wide to keep on the chip, as a GEMM over activations in device memory,
 // out[rows, N] = epilogue(A[rows, K] W[N, K]^T), on wgmma fed by TMA in a
-// warp-specialised block. The teacher's wide form (nerf_wide.cu, f32 and
-// bf16) runs every GEMM layer on it; the student's and the training's wide
-// passes (r2l_wide.cuh, mma.sync) can move onto it with an epilogue of
-// their own (the Epi parameter).
+// warp-specialised block. The teacher's wide form (nerf_wide.cu: f32, bf16
+// and int8) runs every GEMM layer on it, and K5's wide form (r2l_wide_bwd.cu)
+// its dh walk, each with an epilogue of its own (the Epi parameter); the
+// student's and the training forward's wide passes (r2l_wide.cuh, mma.sync)
+// can move onto it the same way.
 //
 // Operands. A's K is the concatenation of two sources, st0 stages of
 // kKC channels from tensor map a0, then st1 from a1 (the teacher's
@@ -14,39 +15,52 @@
 // Every map reads boxes of 128 bytes of a row x rows in the 128-byte
 // swizzle, which is the layout wgmma reads K-major from shared memory.
 //
-// Block: 128 points x kBN outputs a tile (bf16 256, the last tile of a
-// layer whose N is 128 more than a multiple of 256 is 128 wide; f32 128),
-// two consumer warpgroups of 64 rows each and a producer warpgroup, whose
-// one thread issues every TMA load (its registers go to the consumers,
-// setmaxnreg) into a ring of kStages slots (A 16 KB, B 32 KB a slot; bf16
-// three, f32 four) with a full and an empty mbarrier each. The grid is one
-// block an SM; a block walks its tiles in row-tile-major order, so the
-// N-tiles of one row tile run side by side (A read from device memory
-// once, then from L2), and the producer fills the next tile's stages while
-// the consumers finish the last one's epilogue. Two-block clusters run
-// pairs of row tiles with the same outputs: each block loads half of every
-// B stage into both (.multicast::cluster), and a slot is refilled once the
-// consumers of both released it.
+// Block: 128 points x kBN outputs a tile (bf16 and int8 256, the last tile
+// of a layer whose N is 128 more than a multiple of 256 is 128 wide; f32
+// 128), two consumer warpgroups of 64 rows each and a producer warpgroup,
+// whose one thread issues every TMA load (its registers go to the
+// consumers, setmaxnreg) into a ring of kStages slots (A 16 KB, B 32 KB a
+// slot; bf16 three, f32 and int8 four) with a full and an empty mbarrier
+// each. The grid is one block an SM; a block walks its tiles in
+// row-tile-major order, so the N-tiles of one row tile run side by side (A
+// read from device memory once, then from L2), and the producer fills the
+// next tile's stages while the consumers finish the last one's epilogue.
+// Two-block clusters run pairs of row tiles with the same outputs: each
+// block loads half of every B stage into both (.multicast::cluster), and a
+// slot is refilled once the consumers of both released it.
 //
-// Products: bf16 wgmma m64nNk16, both operands in shared memory; f32 as
-// 3xTF32 on wgmma m64nNk8 tf32 with A from registers, split into high and
-// low parts by cvt.rna (a_hi w_lo, a_lo w_hi, a_hi w_hi, each k8 step in
-// that order into the tensor cores' one running sum, as K6 f32), each
-// stage's fragments loaded while the previous stage's products run.
+// Products: bf16 wgmma m64nNk16 and int8 m64nNk32 s8 x s8 -> s32 (exact),
+// both operands in shared memory; f32 as 3xTF32 on wgmma m64nNk8 tf32 with
+// A from registers, split into high and low parts by cvt.rna (a_hi w_lo,
+// a_lo w_hi, a_hi w_hi, each k8 step in that order), each stage's
+// fragments loaded while the previous stage's products run. The tensor
+// cores truncate every sum they add a product to, so the f32 sum has two
+// routes: one running sum over K (the teacher's, as K6 f32), or, with
+// kSplit, each stage's products summed apart from zero, in halves of the
+// tile's outputs (two buffers of 32 registers), each half's sum added to
+// the running sum in f32 while the next half's products run (K5's walk:
+// over K = 512 one sum reads past its limit; PERF.md).
 //
-// Epilogue: Epi::pair (BiasRelu: the bias in f32, then ReLU) on each
-// accumulator pair, rounded to the compute type, into a 64-row staging
-// tile of the warpgroup's own in the same swizzle (no bank conflicts),
-// then out by TMA stores of 128-byte boxes, in kRounds rounds of the
-// tile's columns; rows past the pass are neither read (TMA fills zeros)
-// nor written.
+// Epilogue: Epi::pair(args, row, col, acc0, acc1, v0, v1) on each
+// accumulator pair of the tile (args: the epilogue's own parameter struct,
+// Epi::Args; it may read side tensors at (row, col) and write side
+// outputs, and guards the rows past the pass itself), v0 and v1 rounded to
+// the output type (int8: round-half-even, clipped to +-127) into a 64-row
+// staging tile of the warpgroup's own in the same swizzle (no bank
+// conflicts), then out by TMA stores of 128-byte boxes, in kRounds rounds
+// of the tile's columns; rows past the pass are neither read by TMA (it
+// fills zeros) nor stored. Where Epi::stores(args) is false, nothing is
+// staged or stored (K5's last dh pass).
 //
 // What bounds a pass: the products (2 N K operations a row) at the card's
 // tensor rate, and its activations' bytes (rows (K + N) elements). PERF.md
 // has the measured times.
 #pragma once
 
+#include <type_traits>
+
 #include "hopper_ring.cuh"
+#include "r2l_common.cuh"
 
 namespace wideh {
 
@@ -66,6 +80,15 @@ template <> struct Tile<float> {
   static constexpr int kBN = 128, kKC = 32, kParts = 2;
   static constexpr int kStages = 4, kRounds = 2;
 };
+template <> struct Tile<int8_t> {
+  static constexpr int kBN = 256, kKC = 128, kParts = 1;
+  static constexpr int kStages = 4, kRounds = 1;
+};
+
+// The accumulator's type: s32 for int8, f32 otherwise.
+template <typename T>
+using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int,
+                                      float>::type;
 
 constexpr int kBM = 128;                // points a tile: two warpgroups
 constexpr int kC = 2;         // blocks a cluster, which share B's stages
@@ -93,23 +116,50 @@ struct Smem {
 // (a multiple of 128), K = (st0 + st1) * kKC.
 struct Pass {
   int rows, N, st0, st1;
-  const float4* epi;  // [N] (m, b, inv, 0) a channel: .y is the bias
-  int relu;
 };
 
-// The epilogue of the teacher's layers: the bias added in f32, then ReLU
-// where the layer has one (the rounding to the compute type follows).
+// The epilogue of the teacher's f32 and bf16 layers: the bias added in f32,
+// then ReLU where the layer has one (the rounding to the compute type
+// follows).
 struct BiasRelu {
-  template <typename P>
-  __device__ __forceinline__ static void pair(const P& p, int, int col,
-                                              float& v0, float& v1) {
-    const float* b = reinterpret_cast<const float*>(p.epi) + 4 * col + 1;
-    v0 = __fadd_rn(v0, __ldg(b));
-    v1 = __fadd_rn(v1, __ldg(b + 4));
-    if (p.relu) {
+  struct Args {
+    const float4* epi;  // [N] (m, b, inv, 0) a channel: .y is the bias
+    int relu;
+  };
+  __device__ __forceinline__ static bool stores(const Args&) { return true; }
+  __device__ __forceinline__ static void pair(const Args& e, int, int col,
+                                              float a0, float a1, float& v0,
+                                              float& v1) {
+    const float* b = reinterpret_cast<const float*>(e.epi) + 4 * col + 1;
+    v0 = __fadd_rn(a0, __ldg(b));
+    v1 = __fadd_rn(a1, __ldg(b + 4));
+    if (e.relu) {
       v0 = fmaxf(v0, 0.f);
       v1 = fmaxf(v1, 0.f);
     }
+  }
+};
+
+// The epilogue of the teacher's int8 layers: acc * m + b in one FMA, ReLU
+// where the layer has one, times the consumer's inverse scale (1 where
+// folded); the store rounds half to even and clips.
+struct Requant {
+  using Args = BiasRelu::Args;
+  __device__ __forceinline__ static bool stores(const Args&) { return true; }
+  __device__ __forceinline__ static void pair(const Args& e, int, int col,
+                                              int a0, int a1, float& v0,
+                                              float& v1) {
+    const float* t = reinterpret_cast<const float*>(e.epi) + 4 * col;
+    const float2 mb0 = __ldg(reinterpret_cast<const float2*>(t));
+    const float2 mb1 = __ldg(reinterpret_cast<const float2*>(t + 4));
+    v0 = r2l::dequant(a0, mb0.x, mb0.y);
+    v1 = r2l::dequant(a1, mb1.x, mb1.y);
+    if (e.relu) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+    }
+    v0 = __fmul_rn(v0, __ldg(t + 2));
+    v1 = __fmul_rn(v1, __ldg(t + 6));
   }
 };
 
@@ -191,9 +241,9 @@ __device__ __forceinline__ void release_slot(uint32_t bar) {
 }
 
 // The producer: every stage of every tile of the block, in the consumers'
-// order; A is the block's own, B's two boxes (bf16: outputs n0 and n0 +
-// 128; f32: the high and the low parts of n0) are each loaded by one block
-// of the cluster into all of them.
+// order; A is the block's own, B's two boxes (bf16, int8: outputs n0 and n0
+// + 128; f32: the high and the low parts of n0) are each loaded by one
+// block of the cluster into all of them.
 template <typename T>
 __device__ void produce(const CUtensorMap* a0, const CUtensorMap* a1,
                         const CUtensorMap* b, const Pass& p, uint32_t base,
@@ -225,15 +275,14 @@ __device__ void produce(const CUtensorMap* a0, const CUtensorMap* a1,
   }
 }
 
-// bf16: d = A B^T over the tile's stages, both operands in shared memory;
-// each stage's products one group, the previous stage's slot released once
-// its group completed.
-template <int NN>
-__device__ __forceinline__ void mainloop(float (&d)[NN / 2],
-                                         const unsigned char*, uint32_t base,
-                                         int KT, int wg, int wtid, int& it,
-                                         __nv_bfloat16*) {
-  using S = Smem<__nv_bfloat16>;
+// bf16 and int8: d = A B^T over the tile's stages, both operands in shared
+// memory, four k-steps of 32 bytes a stage; each stage's products one
+// group, the previous stage's slot released once its group completed.
+template <typename T, int NN>
+__device__ __forceinline__ void mainloop_ss(Acc<T> (&d)[NN / 2],
+                                            uint32_t base, int KT, int wg,
+                                            int wtid, int& it) {
+  using S = Smem<T>;
   const uint32_t full = base + S::kBar, empty = full + 8 * S::kStages;
   int prev = -1;
   fence_regs(d);
@@ -244,9 +293,14 @@ __device__ __forceinline__ void mainloop(float (&d)[NN / 2],
     bar_wait(full + 8 * slot, ph);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      Wgmma<NN>::bf16(d, desc_k128(sa + 32 * j), desc_k128(sb + 32 * j),
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (std::is_same<T, int8_t>::value)
+        Wgmma<NN>::s8(d, desc_k128(sa + 32 * j), desc_k128(sb + 32 * j),
                       kt > 0 || j > 0);
+      else
+        Wgmma<NN>::bf16(d, desc_k128(sa + 32 * j), desc_k128(sb + 32 * j),
+                        kt > 0 || j > 0);
+    }
     wgmma_commit();
     if (prev >= 0) {
       wgmma_wait<1>();
@@ -259,30 +313,15 @@ __device__ __forceinline__ void mainloop(float (&d)[NN / 2],
   if (wtid == 0) release_slot(empty + 8 * prev);
 }
 
-// f32 (3xTF32): one stage with the fragment registers (h, l) of its
-// parity. The warp's rows g and g + 8 (g = lane / 4) hold the k8 step j's
-// columns 8j + t and 8j + t + 4 at chunks 2j and 2j + 1 of the swizzled row.
-template <int NN>
-__device__ __forceinline__ void stage_tf32(float (&d)[NN / 2],
-                                           uint32_t (&h)[4][4],
-                                           uint32_t (&l)[4][4],
-                                           const unsigned char* smem,
-                                           uint32_t base, int kt, int wg,
-                                           int wtid, int& it, int& prev) {
-  using S = Smem<float>;
-  constexpr int kBN = Tile<float>::kBN;
-  const uint32_t full = base + S::kBar, empty = full + 8 * S::kStages;
-  const int slot = it % S::kStages, ph = (it / S::kStages) & 1;
-  const unsigned char* A = smem + slot * S::kSlot + wg * kBoxBytes;
-  const uint32_t sb = base + slot * S::kSlot + kABytes;
+// f32: the stage's A fragments (the warp's rows g and g + 8, g = lane / 4,
+// hold the k8 step j's columns 8j + t and 8j + t + 4 at chunks 2j and 2j +
+// 1 of the swizzled row), split into TF32 parts (h, l), once the stage has
+// landed in slot `slot`.
+__device__ __forceinline__ void load_tf32(uint32_t (&h)[4][4],
+                                          uint32_t (&l)[4][4],
+                                          const unsigned char* A, int wtid) {
   const int lane = wtid % 32, g = lane / 4, t = lane % 4;
   const int r0 = 16 * (wtid / 32) + g;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    fence_regs(h[j]);  // the products that read them have completed
-    fence_regs(l[j]);
-  }
-  bar_wait(full + 8 * slot, ph);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int c0 = sw128(0, 32 * j + 4 * t) ^ (g << 4);  // r0 & 7 == g
@@ -298,15 +337,47 @@ __device__ __forceinline__ void stage_tf32(float (&d)[NN / 2],
       l[j][q] = tf32_rna(__fsub_rn(x[q], __uint_as_float(h[j][q])));
     }
   }
-  wgmma_fence();
+}
+
+// The stage's twelve 3xTF32 products of outputs [n0, n0 + N) of the slot's
+// B (bh, bl: its high and low parts) into d; `acc` 0 starts d from zero.
+template <int N>
+__device__ __forceinline__ void products_tf32(float (&d)[N / 2],
+                                              const uint32_t (&h)[4][4],
+                                              const uint32_t (&l)[4][4],
+                                              uint32_t bh, uint32_t bl,
+                                              int acc) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const uint64_t bh = desc_k128(sb + 32 * j);
-    const uint64_t bl = desc_k128(sb + kBN * 128 + 32 * j);
-    Wgmma<NN>::tf32(d, h[j], bl, kt > 0 || j > 0);
-    Wgmma<NN>::tf32(d, l[j], bh, 1);
-    Wgmma<NN>::tf32(d, h[j], bh, 1);
+    Wgmma<N>::tf32(d, h[j], desc_k128(bl + 32 * j), acc || j > 0);
+    Wgmma<N>::tf32(d, l[j], desc_k128(bh + 32 * j), 1);
+    Wgmma<N>::tf32(d, h[j], desc_k128(bh + 32 * j), 1);
   }
+}
+
+// f32 (3xTF32), one running sum: one stage with the fragment registers (h,
+// l) of its parity.
+template <int NN>
+__device__ __forceinline__ void stage_tf32(float (&d)[NN / 2],
+                                           uint32_t (&h)[4][4],
+                                           uint32_t (&l)[4][4],
+                                           const unsigned char* smem,
+                                           uint32_t base, int kt, int wg,
+                                           int wtid, int& it, int& prev) {
+  using S = Smem<float>;
+  constexpr int kBN = Tile<float>::kBN;
+  const uint32_t full = base + S::kBar, empty = full + 8 * S::kStages;
+  const int slot = it % S::kStages, ph = (it / S::kStages) & 1;
+  const uint32_t sb = base + slot * S::kSlot + kABytes;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fence_regs(h[j]);  // the products that read them have completed
+    fence_regs(l[j]);
+  }
+  bar_wait(full + 8 * slot, ph);
+  load_tf32(h, l, smem + slot * S::kSlot + wg * kBoxBytes, wtid);
+  wgmma_fence();
+  products_tf32<NN>(d, h, l, sb, sb + kBN * 128, kt > 0);
   wgmma_commit();
   if (prev >= 0) {
     wgmma_wait<1>();
@@ -317,10 +388,10 @@ __device__ __forceinline__ void stage_tf32(float (&d)[NN / 2],
 }
 
 template <int NN>
-__device__ __forceinline__ void mainloop(float (&d)[NN / 2],
-                                         const unsigned char* smem,
-                                         uint32_t base, int KT, int wg,
-                                         int wtid, int& it, float*) {
+__device__ __forceinline__ void mainloop_tf32(float (&d)[NN / 2],
+                                              const unsigned char* smem,
+                                              uint32_t base, int KT, int wg,
+                                              int wtid, int& it) {
   using S = Smem<float>;
   const uint32_t empty = base + S::kBar + 8 * S::kStages;
   uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
@@ -336,62 +407,166 @@ __device__ __forceinline__ void mainloop(float (&d)[NN / 2],
   if (wtid == 0) release_slot(empty + 8 * prev);
 }
 
+// f32 with kSplit: one stage with the fragment registers (h, l) of its
+// parity, its products in two halves of the tile's NN outputs, each summed
+// apart from zero into p0 and p1; the half issued before each one is added
+// to d once it completed (pending: 0 none, 1 p0, 2 p1), and the previous
+// stage's slot released once its second half completed.
+template <int NN>
+__device__ __forceinline__ void stage_tf32_split(
+    float (&d)[NN / 2], float (&p0)[NN / 4], float (&p1)[NN / 4],
+    uint32_t (&h)[4][4], uint32_t (&l)[4][4], const unsigned char* smem,
+    uint32_t base, int wg, int wtid, int& it, int& prev, int& pending) {
+  using S = Smem<float>;
+  constexpr int kBN = Tile<float>::kBN, kH = NN / 2;
+  const uint32_t full = base + S::kBar, empty = full + 8 * S::kStages;
+  const int slot = it % S::kStages, ph = (it / S::kStages) & 1;
+  const uint32_t sb = base + slot * S::kSlot + kABytes;
+  // add the completed half's sums to d (its columns: the half's n-tiles)
+  auto add = [&](float(&p)[NN / 4], int half) {
+    fence_regs(p);
+#pragma unroll
+    for (int j = 0; j < kH / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        d[4 * (j + half * kH / 8) + q] =
+            __fadd_rn(d[4 * (j + half * kH / 8) + q], p[4 * j + q]);
+  };
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fence_regs(h[j]);  // the products that read them have completed
+    fence_regs(l[j]);
+  }
+  bar_wait(full + 8 * slot, ph);
+  load_tf32(h, l, smem + slot * S::kSlot + wg * kBoxBytes, wtid);
+  wgmma_fence();
+  products_tf32<kH>(p0, h, l, sb, sb + kBN * 128, 0);
+  wgmma_commit();
+  if (pending == 2) {  // the previous stage's second half
+    wgmma_wait<1>();
+    add(p1, 1);
+    if (wtid == 0) release_slot(empty + 8 * prev);
+  }
+  wgmma_fence();
+  products_tf32<kH>(p1, h, l, sb + kH * 128, sb + kBN * 128 + kH * 128, 0);
+  wgmma_commit();
+  wgmma_wait<1>();
+  add(p0, 0);
+  pending = 2;
+  prev = slot;
+  ++it;
+}
+
+template <int NN>
+__device__ __forceinline__ void mainloop_tf32_split(float (&d)[NN / 2],
+                                                    const unsigned char* smem,
+                                                    uint32_t base, int KT,
+                                                    int wg, int wtid,
+                                                    int& it) {
+  using S = Smem<float>;
+  const uint32_t empty = base + S::kBar + 8 * S::kStages;
+  uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+  float p0[NN / 4], p1[NN / 4];
+  int prev = -1, pending = 0;
+#pragma unroll
+  for (int i = 0; i < NN / 2; ++i) d[i] = 0.f;
+  for (int kt = 0; kt < KT; kt += 2) {
+    stage_tf32_split<NN>(d, p0, p1, h0, l0, smem, base, wg, wtid, it, prev,
+                         pending);
+    if (kt + 1 < KT)
+      stage_tf32_split<NN>(d, p0, p1, h1, l1, smem, base, wg, wtid, it, prev,
+                           pending);
+  }
+  wgmma_wait<0>();
+  fence_regs(p1);
+#pragma unroll
+  for (int j = 0; j < NN / 16; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      d[4 * (j + NN / 16) + q] = __fadd_rn(d[4 * (j + NN / 16) + q],
+                                           p1[4 * j + q]);
+  if (wtid == 0) release_slot(empty + 8 * prev);
+}
+
+// Two values rounded to T at dst (int8: round-half-even, clipped).
+template <typename T>
+__device__ __forceinline__ void put2(unsigned char* dst, float v0, float v1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+  else if constexpr (std::is_same<T, int8_t>::value)
+    *reinterpret_cast<char2*>(dst) = make_char2(r2l::q8(v0), r2l::q8(v1));
+  else
+    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+}
+
 // The epilogue of an NN-wide tile: each accumulator pair through Epi,
 // rounded to T into the warpgroup's staging tile, then TMA stores of its
-// 128-byte boxes once the previous tile's stores have read it.
+// 128-byte boxes once the previous tile's stores have read it (neither
+// where Epi stores nothing).
 template <typename T, typename Epi, int NN>
-__device__ __forceinline__ void epilogue(float (&d)[NN / 2],
+__device__ __forceinline__ void epilogue(Acc<T> (&d)[NN / 2],
                                          const CUtensorMap* out,
-                                         const Pass& p, unsigned char* stg,
-                                         Where w, int wg, int wtid) {
+                                         const typename Epi::Args& e,
+                                         unsigned char* stg, Where w, int wg,
+                                         int wtid) {
   constexpr int kCols = 128 / (int)sizeof(T);  // channels a box
   constexpr int kRounds = Tile<T>::kRounds;
   constexpr int kPer = Tile<T>::kBN / kCols / kRounds;  // boxes a round
+  const bool st = Epi::stores(e);
+  const int row0 = w.row0 + wg * kBoxRows;
 #pragma unroll
   for (int rd = 0; rd < kRounds && rd * kPer < NN / kCols; ++rd) {
-    if (wtid == 0) bulk_wait_read<0>();
-    wg_bar(1 + wg);
-    visit<NN>(d, wtid, [&](int, int r, int c, float v0, float v1) {
+    if (st) {
+      if (wtid == 0) bulk_wait_read<0>();
+      wg_bar(1 + wg);
+    }
+    visit<NN>(d, wtid, [&](int, int r, int c, Acc<T> a0, Acc<T> a1) {
       const int byte = c * (int)sizeof(T), bx = byte >> 7;
       if (bx / kPer != rd) return;
-      Epi::pair(p, w.row0 + wg * kBoxRows + r, w.n0 + c, v0, v1);
-      unsigned char* dst =
-          stg + (bx - rd * kPer) * kBoxBytes + sw128(r, byte & 127);
-      if constexpr (sizeof(T) == 2)
-        *reinterpret_cast<__nv_bfloat162*>(dst) =
-            __floats2bfloat162_rn(v0, v1);
-      else
-        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      float v0, v1;
+      Epi::pair(e, row0 + r, w.n0 + c, a0, a1, v0, v1);
+      if (st)
+        put2<T>(stg + (bx - rd * kPer) * kBoxBytes + sw128(r, byte & 127), v0,
+                v1);
     });
+    if (!st) continue;
     fence_async_smem();
     wg_bar(1 + wg);
     if (wtid == 0) {
 #pragma unroll
       for (int bx = rd * kPer; bx < (rd + 1) * kPer && bx < NN / kCols; ++bx)
         tma_store(out, smem_u32(stg) + (bx - rd * kPer) * kBoxBytes,
-                  w.n0 + bx * kCols, w.row0 + wg * kBoxRows);
+                  w.n0 + bx * kCols, row0);
       bulk_commit();
     }
   }
 }
 
 // One NN-wide tile of a consumer warpgroup.
-template <typename T, typename Epi, int NN>
+template <typename T, typename Epi, bool kSplit, int NN>
 __device__ __forceinline__ void tile_of(const CUtensorMap* out, const Pass& p,
+                                        const typename Epi::Args& e,
                                         const unsigned char* smem,
                                         uint32_t base, unsigned char* stg,
                                         Where w, int wg, int wtid, int& it) {
-  float d[NN / 2];
-  mainloop<NN>(d, smem, base, p.st0 + p.st1, wg, wtid, it, (T*)nullptr);
-  epilogue<T, Epi, NN>(d, out, p, stg, w, wg, wtid);
+  Acc<T> d[NN / 2];
+  const int KT = p.st0 + p.st1;
+  if constexpr (!std::is_same<T, float>::value)
+    mainloop_ss<T, NN>(d, base, KT, wg, wtid, it);
+  else if constexpr (kSplit)
+    mainloop_tf32_split<NN>(d, smem, base, KT, wg, wtid, it);
+  else
+    mainloop_tf32<NN>(d, smem, base, KT, wg, wtid, it);
+  epilogue<T, Epi, NN>(d, out, e, stg, w, wg, wtid);
 }
 
-template <typename T, typename Epi>
+template <typename T, typename Epi, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     wide_pass(const __grid_constant__ CUtensorMap a0,
               const __grid_constant__ CUtensorMap a1,
               const __grid_constant__ CUtensorMap b,
-              const __grid_constant__ CUtensorMap out, const Pass p) {
+              const __grid_constant__ CUtensorMap out, const Pass p,
+              const typename Epi::Args e) {
   using S = Smem<T>;
   constexpr int kBN = Tile<T>::kBN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -422,9 +597,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int gi = blockIdx.x / kC; gi < groups; gi += gridDim.x / kC) {
     const Where w = where<T>(gi, ntn, rank);
     if (kBN == 256 && p.N - w.n0 < kBN)
-      tile_of<T, Epi, 128>(&out, p, smem, base, stg, w, wg, wtid, it);
+      tile_of<T, Epi, kSplit, 128>(&out, p, e, smem, base, stg, w, wg, wtid,
+                                   it);
     else
-      tile_of<T, Epi, kBN>(&out, p, smem, base, stg, w, wg, wtid, it);
+      tile_of<T, Epi, kSplit, kBN>(&out, p, e, smem, base, stg, w, wg, wtid,
+                                   it);
   }
   if (wtid == 0) bulk_wait<0>();  // the stores have landed
   cluster_sync();  // no block leaves while another may copy or release
@@ -446,8 +623,9 @@ inline cudaError_t sw128_map(CUtensorMap* map, const void* base,
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(
       map,
-      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      sizeof(T) == 2   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+      : sizeof(T) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
       2, const_cast<void*>(base), dims, strides, box, step,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -472,11 +650,13 @@ struct Shape {
 };
 
 // One pass on one block an SM, kC-block clusters (at most one a group of
-// tiles): a1 is read only where p.st1 > 0.
-template <typename T, typename Epi = BiasRelu>
+// tiles): a1 is read only where p.st1 > 0; `out` only where
+// Epi::stores(e).
+template <typename T, typename Epi, bool kSplit = false>
 cudaError_t launch_pass(const CUtensorMap& a0, const CUtensorMap& a1,
                         const CUtensorMap& b, const CUtensorMap& out,
-                        const Pass& p, cudaStream_t stream) {
+                        const Pass& p, const typename Epi::Args& e,
+                        cudaStream_t stream) {
   constexpr int kBN = Tile<T>::kBN;
   if (p.rows <= 0) return cudaSuccess;
   if (p.N % 128 != 0 || p.st0 < 1 || p.st1 < 0)
@@ -490,8 +670,9 @@ cudaError_t launch_pass(const CUtensorMap& a0, const CUtensorMap& a1,
   const long long groups = (long long)((p.rows + kBM * kC - 1) / (kBM * kC)) *
                            ((p.N + kBN - 1) / kBN);
   const int clusters = (int)(groups < sms / kC ? groups : sms / kC);
-  return launch_cluster<T, kC, Shape>(wide_pass<T, Epi>, a0, kC * clusters,
-                                      Smem<T>::kBytes, stream, a1, b, out, p);
+  return launch_cluster<T, kC, Shape>(wide_pass<T, Epi, kSplit>, a0,
+                                      kC * clusters, Smem<T>::kBytes, stream,
+                                      a1, b, out, p, e);
 }
 
 }  // namespace wideh

@@ -26,12 +26,11 @@ next of them (``teacher_kernel_width``). A wider teacher
 (``teacher_wide_form``) runs on their wide form, ``csrc/nerf_wide.cu``: one
 pass a layer over activations in device memory, the heads as reductions
 and the compositing one thread a ray; the teacher packed at the next
-multiple of ``WIDE_CHANNELS`` and staged by ``stage_wide_teacher``. f32 and
-bf16 run each layer on ``wgmma`` fed by TMA (``csrc/wide_hopper.cuh``), the
-point and view encodings written once a pass by a kernel of their own
-(``wide_encodings_ref`` is its plain twin); int8 on the student's
-``mma.sync`` passes (``r2l_wide.cuh``), the encodings made in the passes
-that read them. Every teacher the JAX
+multiple of ``WIDE_CHANNELS`` and staged by ``stage_wide_teacher``. f32,
+bf16 and int8 run each layer on ``wgmma`` fed by TMA
+(``csrc/wide_hopper.cuh``; int8 s8 x s8 -> s32), the point and view
+encodings written once a pass by a kernel of their own, int8's as their
+codes (``wide_encodings_ref`` is its plain twin). Every teacher the JAX
 package's model builds is taken (``fused_teacher_supported``: a skip
 before the last layer); ``check_teacher_supported`` raises
 NotImplementedError for the rest before anything is packed.
@@ -69,7 +68,7 @@ from ..models.nerf import NeRF, NeRFConfig
 from ..volume import fma, ray_points
 from .r2l_fused import (_WIDE_TYPES, WIDE_CHANNELS, WIDE_SCRATCH_BYTES,
                         _act_scale, _aligned, _check, _dequant, _mm_int,
-                        _ptr, _q8, _raise_on_error, _tiles, _untiles, pads)
+                        _ptr, _q8, _raise_on_error, pads)
 from .staging import STAGE_K, stage_matrices, tf32_split  # noqa: F401
 
 K_STAGE = 64     # every packed weight's input axis is a multiple of this
@@ -881,12 +880,9 @@ def _wide_table(fp: FusedNeRFParams, cfg: NeRFConfig, plan: dict
 
 
 def _wide_layer_bytes(w: torch.Tensor) -> torch.Tensor:
-    """A GEMM layer's weights [N, K] as the wide image holds them: int8 as
-    ``r2l_fused._tiles`` (128 outputs x 128 bytes of input, the mma.sync
-    pass's); bf16 row-major, which the TMA pass reads in boxes; f32 its
-    TF32 high parts [N, K], then its low parts (``tf32_split``)."""
-    if w.dtype == torch.int8:
-        return _tiles(w)
+    """A GEMM layer's weights [N, K] as the wide image holds them: bf16 and
+    int8 row-major, which the TMA pass reads in boxes; f32 its TF32 high
+    parts [N, K], then its low parts (``tf32_split``)."""
     parts = tf32_split(w) if w.dtype == torch.float32 else (w,)
     return torch.cat([p.contiguous().view(torch.uint8).reshape(-1)
                       for p in parts])
@@ -939,8 +935,6 @@ def unstage_wide_teacher(staged: torch.Tensor, cfg: NeRFConfig,
         return w[:rows, :cols]
 
     def layer(n, k):   # _wide_layer_bytes' inverse: its parts
-        if dtype == torch.int8:
-            return [_untiles(take(n * k), (n, k), dtype)]
         return list(take(n * k * es * plan["parts"]).clone().view(
             dtype).view(plan["parts"], n, k))
 
@@ -982,8 +976,8 @@ def teacher_wide_scratch_bytes(rows: int, W: int, dtype: torch.dtype,
     """The scratch one wide call needs for passes of ``rows`` points
     (``csrc/nerf_wide.cu``, scratch_bytes): two activation buffers [rows,
     Wp] of the compute type (int8: the codes), sigma [rows] and the rgb
-    logits [rows, 4] f32, then (f32, bf16) the point and view encodings
-    [rows, ke] and [rows, kve] (``wide_teacher_plan``'s), each 256-byte
+    logits [rows, 4] f32, then the point and view encodings [rows, ke] and
+    [rows, kve] (``wide_teacher_plan``'s; int8: their codes), each 256-byte
     aligned."""
     es = torch.empty(0, dtype=dtype).element_size()
     Wp = _round_up(W, WIDE_CHANNELS)
@@ -1004,7 +998,9 @@ def teacher_wide_rays(n: int, S: int, W: int, dtype: torch.dtype,
 
 def wide_encodings_ref(rays_o: torch.Tensor, rays_d: torch.Tensor,
                        z_vals: torch.Tensor, L_pts: int, L_views: int,
-                       ke: int, kve: int, dtype: torch.dtype
+                       ke: int, kve: int, dtype: torch.dtype,
+                       pe_inv: torch.Tensor | None = None,
+                       hv_inv: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain twin of the wide form's encoding kernel (``csrc/nerf_wide.cu``,
     wide_encode): for the n * S points of rays_o/d [n, 3], z_vals [n, S],
@@ -1012,8 +1008,11 @@ def wide_encodings_ref(rays_o: torch.Tensor, rays_d: torch.Tensor,
     [n * S, kve], each row its ray's, in ``dtype``. Each coordinate runs
     the kernel's ladder on its own (``nerf::encode``: the value, then sin,
     cos of it and their double-angle steps into columns 3 + 6j + k and 6 +
-    6j + k), zeros past the used columns."""
-    def encode(v: torch.Tensor, L: int, width: int) -> torch.Tensor:
+    6j + k), zeros past the used columns. int8: the codes, round-half-even
+    of x * inv clipped to +-127, ``pe_inv`` the point encoding's inverse
+    scales and ``hv_inv`` the view encoding's (the int8 teacher's
+    ``hv_inv[W:]``)."""
+    def encode(v: torch.Tensor, L: int, width: int, inv) -> torch.Tensor:
         out = v.new_zeros((v.shape[0], width))
         out[:, :3] = v
         s, c = torch.sin(v), torch.cos(v)
@@ -1021,15 +1020,21 @@ def wide_encodings_ref(rays_o: torch.Tensor, rays_d: torch.Tensor,
             out[:, 3 + 6 * j:6 + 6 * j] = s
             out[:, 6 + 6 * j:9 + 6 * j] = c
             s, c = (2.0 * s) * c, (c - s) * (c + s)
-        return out.to(dtype)
+        if dtype != torch.int8:
+            return out.to(dtype)
+        used = 3 + 6 * L
+        q = torch.zeros((v.shape[0], width), dtype=torch.int8,
+                        device=v.device)
+        q[:, :used] = _q8(out[:, :used], inv[:used].float()).to(torch.int8)
+        return q
     n, S = z_vals.shape
     o, d = rays_o.float(), rays_d.float()
     E = encode(fma(d[:, None], z_vals.float()[..., None],
-                   o[:, None]).reshape(n * S, 3), L_pts, ke)
+                   o[:, None]).reshape(n * S, 3), L_pts, ke, pe_inv)
     if not kve:
         return E, None
     v = d / torch.clamp(_norm3(d), min=1e-12)[:, None]
-    return E, encode(v, L_views, kve).repeat_interleave(S, 0)
+    return E, encode(v, L_views, kve, hv_inv).repeat_interleave(S, 0)
 
 
 def _launch_teacher_wide(fp: FusedNeRFParams, cfg: NeRFConfig,
@@ -1045,7 +1050,7 @@ def _launch_teacher_wide(fp: FusedNeRFParams, cfg: NeRFConfig,
     wd, dev = fp.pts_w.dtype, z_vals.device
     int8 = wd == torch.int8
     plan = wide_teacher_plan(cfg, wd, L_pts, L_views)
-    enc = (0, 0) if int8 else (plan["ke"], plan["kve"])
+    enc = (plan["ke"], plan["kve"])
     rays = teacher_wide_rays(n, S, cfg.W, wd, *enc)
     scratch = torch.empty(
         (teacher_wide_scratch_bytes(rays * S, cfg.W, wd, *enc),),

@@ -26,13 +26,15 @@ Counterpart of ``r2l_tpu/kernels/r2l_train_pallas.py``. Three kernels:
 The chain kernels are built for the widths of ``R2L_KERNEL_WIDTHS``. Every
 other multiple of ``WIDE_CHANNELS`` (and an int8 student whose 2L+1
 encoding parts overflow K4's head slice) runs on the wide form of the same
-three (``wide_train_form``; ``csrc/r2l_wide_train.cu``, ``r2l_wide_bwd.cu``
-over the frame's wide passes, ``r2l_wide.cuh``): ``train_fwd_wide``,
-``train_fwd_int8_wide`` and ``bwd_group_wide``, each with its own launch
-counter, to which the three wrappers send such a student. They read the
-wide form's images: K3 ``stage_wide_chain``'s of the live weights (staged
-by the step's packing), K4/K8 the calibration's (``stage_int8_train``), K5
-the step's ``stage_bwd_weights`` in the wide form's tiles.
+three (``wide_train_form``; ``csrc/r2l_wide_train.cu`` over the frame's
+wide passes, ``r2l_wide.cuh``; ``csrc/r2l_wide_bwd.cu``, its dh walk on the
+pass skeleton ``wide_hopper.cuh`` and its dW pass on ``wgmma``):
+``train_fwd_wide``, ``train_fwd_int8_wide`` and ``bwd_group_wide``, each
+with its own launch counter, to which the three wrappers send such a
+student. They read the wide form's images: K3 ``stage_wide_chain``'s of
+the live weights (staged by the step's packing), K4/K8 the calibration's
+(``stage_int8_train``), K5 the step's ``stage_bwd_weights``, every layer
+[in, out] row-major.
 
 Each public wrapper runs its plain PyTorch version (``*_ref``, the Pallas
 kernel body written out) for tensors on the CPU only. For a CUDA tensor it
@@ -64,12 +66,12 @@ from .r2l_fused import (CHAIN_STAGE_K, INT8_BLOCK_RAYS, WIDE_CHANNELS,
                         _mm_int, _need_wide_image, _padded_in,
                         _pe_row_permutation_on,
                         _pe_sin_cos_ladder, _ptr, _q8, _raise_on_error,
-                        _CANONICAL, R2L_KERNEL_WIDTHS, _refuse, _tiles,
-                        _untiles, calibrate_r2l_int8_pe, chain_stage_plan,
+                        _CANONICAL, R2L_KERNEL_WIDTHS, _refuse,
+                        calibrate_r2l_int8_pe, chain_stage_plan,
                         fused_kernel_supported, int8_train_stage_plan,
                         prepare_fused_params_pe, stage_int8_train,
                         wide_stage_plan, wide_train_form)
-from .staging import stage_matrices, unstage_matrices
+from .staging import stage_matrices, tf32_split, unstage_matrices
 
 
 def fused_train_supported(cfg: R2LConfig, int8: bool = False,
@@ -382,27 +384,30 @@ def stage_bwd_weights(body_w: torch.Tensor) -> torch.Tensor:
     ``CHAIN_STAGE_K`` input channels as wgmma reads B
     (``staging.stage_matrices``; f32 as TF32 high and low parts), layer by
     layer, so that the dh walk's dt W^T is the chain's A B^T; on the wide
-    form (``wide_train_form``, a multiple of ``WIDE_CHANNELS``) the same
-    transposes in its tiles (``r2l_fused._tiles``, f32 as f32). Made once
-    per training step (the weights change every step) for all the
-    groups."""
+    form (``wide_train_form``, a multiple of ``WIDE_CHANNELS``) every
+    layer's transpose [in, out] row-major, the pass skeleton's B [N, K]
+    (``csrc/wide_hopper.cuh``; f32 its TF32 high parts [in, out], then its
+    low parts, a layer at a time). Made once per training step (the
+    weights change every step) for all the groups."""
     W = body_w.shape[-1]
+    wt = body_w.transpose(1, 2).contiguous()
     if wide_train_form(W) and W % WIDE_CHANNELS == 0:
-        return _tiles(body_w.transpose(1, 2).contiguous())
-    k = CHAIN_STAGE_K[body_w.dtype]
-    return stage_matrices(body_w.transpose(1, 2).contiguous(), k)
+        if wt.dtype == torch.float32:
+            wt = torch.stack(tf32_split(wt), 1)
+        return wt.contiguous().view(torch.uint8).reshape(-1)
+    return stage_matrices(wt, CHAIN_STAGE_K[body_w.dtype])
 
 
 def unstage_bwd_weights(staged: torch.Tensor, shape: tuple,
                         dtype: torch.dtype) -> list[torch.Tensor]:
     """``stage_bwd_weights``' inverse: [body_w] (f32: the TF32 high and low
-    parts; the wide form's f32 tiles: the weights themselves) of ``shape``
-    [L, W, W] ``[out, in]``."""
+    parts) of ``shape`` [L, W, W] ``[out, in]``."""
     L, W, _ = shape
     if wide_train_form(W) and W % WIDE_CHANNELS == 0:
-        return [_untiles(staged, (L, W, W), dtype).transpose(1, 2)
-                .contiguous()]
-    parts = unstage_matrices(staged, (L, W, W), CHAIN_STAGE_K[dtype], dtype)
+        parts = staged.view(dtype).view(L, -1, W, W).unbind(1)
+    else:
+        parts = unstage_matrices(staged, (L, W, W), CHAIN_STAGE_K[dtype],
+                                 dtype)
     return [p.transpose(1, 2).contiguous() for p in parts]
 
 
@@ -648,12 +653,14 @@ def bwd_group_wide(body_w: torch.Tensor, stash: torch.Tensor,
                    staged: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5's wide form: ``bwd_group``'s signature and contract (the same
-    inputs give bit-identical outputs), two passes a block for dh against
-    the transposed weights, then dW and db summed over ``dw_splits(n)``
-    ranges of rays and the ranges added in order. ``staged`` is
-    ``stage_bwd_weights(body_w)`` (the wide form's tiles); without it it
-    raises. ``bwd_group`` sends every ``wide_train_form`` student here.
-    CPU tensors take the plain version."""
+    inputs give bit-identical outputs), two passes a block for dh on the
+    pass skeleton (``csrc/wide_hopper.cuh``) against the transposed
+    weights, then dW and db summed over ``dw_splits(n)`` ranges of rays on
+    ``wgmma`` and the ranges added in order. ``staged`` is
+    ``stage_bwd_weights(body_w)`` (the wide form's image); without it it
+    raises, and where the card cannot take a call it raises as well.
+    ``bwd_group`` sends every ``wide_train_form`` student here. CPU tensors
+    take the plain version."""
     if dh.device.type == "cpu":
         return bwd_group_ref(body_w, stash, dh, cfg, b_start, b_count,
                              body_scale)
@@ -666,7 +673,7 @@ def bwd_group_wide(body_w: torch.Tensor, stash: torch.Tensor,
     dev, W, nb, n = dh.device, cfg.netwidth, cfg.num_blocks, dh.shape[0]
     cd, _ = _check_bwd(body_w, stash, dh, cfg, b_start, b_count, body_scale)
     quant, f32 = body_scale is not None, torch.float32
-    layer_bytes = W * W * body_w.element_size()
+    layer_bytes = W * W * body_w.element_size() * (2 if cd == f32 else 1)
     _check(staged, "staged", torch.uint8, (2 * nb * layer_bytes,), dev)
     lo, hi = 2 * b_start, 2 * (b_start + b_count)
     if quant:

@@ -583,10 +583,12 @@ def test_train_kernels_refuse_an_unstaged_image(dev, kind):
 
 
 @pytest.mark.parametrize("name,op", [("r2l_train_fwd", "HGMMA"),
-                                     ("r2l_train_fwd_int8", "IGMMA")])
+                                     ("r2l_train_fwd_int8", "IGMMA"),
+                                     ("r2l_wide_bwd", "HGMMA")])
 def test_train_kernels_run_on_wgmma(dev, name, op):
-    """The SASS of K3 (bf16, and f32 as TF32) holds HGMMA and K4/K8's
-    IGMMA: wgmma, not mma.sync's HMMA/IMMA."""
+    """The SASS of K3 (bf16, and f32 as TF32) and of K5's wide form (its dh
+    walk on the pass skeleton, its dW pass) holds HGMMA and K4/K8's IGMMA:
+    wgmma, not mma.sync's HMMA/IMMA."""
     import subprocess
     from r2l_tpu_torch.kernels import _build
     _build.load(name)
@@ -1057,8 +1059,8 @@ def test_wide_nerf_render_int8_fold_and_unfolded(dev, fold):
 def test_wide_nerf_library_is_built_from_csrc(dev):
     """The wide form is built from csrc/nerf_wide.cu into the build
     directory at its first use, and its SASS holds wgmma's tensor-core
-    products for bf16 and TF32 (HGMMA) and mma.sync's for int8 (IMMA), and
-    no mma.sync bf16 or TF32 product (HMMA)."""
+    products for bf16 and TF32 (HGMMA) and for int8 (IGMMA), and no
+    mma.sync product (HMMA, IMMA)."""
     import subprocess
     from r2l_tpu_torch.kernels import _build
     _build.load("nerf_wide")
@@ -1069,7 +1071,8 @@ def test_wide_nerf_library_is_built_from_csrc(dev):
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
-    assert "HGMMA" in sass and "IMMA" in sass and "HMMA" not in sass
+    assert "HGMMA" in sass and "IGMMA" in sass
+    assert "HMMA" not in sass and "IMMA" not in sass
 
 
 def test_wide_teacher_entry_points_run_on_the_wide_form(dev, tmp_path):

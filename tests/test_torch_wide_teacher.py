@@ -11,7 +11,8 @@ depth 1e-4; int8 on JAX's own packed parameters 2e-7). Then the gate
 (every teacher the JAX package's model builds), the wide image (read back
 whole over W 300-2200, f32 as both TF32 parts, the padding zero), its
 refusal before a launch, the encoding kernel's plain twin against the
-plain version's ``pe_ladder``, the scratch a call takes, and CPU
+plain version's ``pe_ladder`` (int8: against the plain int8 chain's
+codes), the scratch a call takes, and CPU
 emulations of the wide forms' f32 sum orders against K6 f32's limits. The
 card holds the kernels to the plain version (``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` phase 23)."""
@@ -405,7 +406,7 @@ def test_wide_3xtf32_emulation_keeps_the_f32_limits(fine, route):
 
 
 # ---------------------------------------------------------------------------
-# The f32 and bf16 forms' encodings and scratch
+# The encodings and the scratch
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
@@ -451,18 +452,52 @@ def test_encoding_twin_equals_pe_ladder(wd, W, Lp, Lv, vd):
         S, 0).view(torch.uint8))
 
 
+@pytest.mark.parametrize("W", [384, 1024])
+@pytest.mark.parametrize("fold", [False, True])
+def test_int8_encoding_twin_equals_the_plain_codes(W, fold):
+    """The encoding kernel's plain twin in int8 (``wide_encodings_ref``
+    with the teacher's ``pe_inv`` and ``hv_inv[W:]``) gives, bit for bit,
+    the codes the plain version's int8 chain quantizes (``_mlp_int8``:
+    ``_q8`` of the point encoding by ``pe_inv`` and of the view encoding
+    by ``hv_inv[W:]``), zero-padded to the image's 128-byte columns, each
+    point row holding its ray's view codes."""
+    from r2l_tpu_torch.volume import ray_points
+    cfg, fp = _teacher(W, wd=torch.int8, fold=fold, pad=True)
+    plan = NR.wide_teacher_plan(cfg, torch.int8)
+    kp, kv, _ = NR.layout(cfg, 10, 4)
+    ke, kve = plan["ke"], plan["kve"]
+    assert ke % 128 == 0 and kve % 128 == 0 and ke >= kp
+    g = np.random.default_rng(W)
+    n, S = 29, 7
+    o = torch.from_numpy(g.uniform(-2, 2, (n, 3)).astype(np.float32))
+    d = torch.from_numpy(g.normal(size=(n, 3)).astype(np.float32))
+    z = torch.from_numpy(np.sort(g.uniform(2, 6, (n, S)), 1).astype(
+        np.float32))
+    E, V = NR.wide_encodings_ref(o, d, z, 10, 4, ke, kve, torch.int8,
+                                 fp.pe_inv, fp.hv_inv[cfg.W:])
+    pe = NR.pe_ladder(ray_points(o, d, z), 10, kp).reshape(n * S, kp)
+    want = torch.zeros((n * S, ke), dtype=torch.int8)
+    want[:, :kp] = NR._q8(pe, fp.pe_inv).to(torch.int8)
+    assert E.dtype == torch.int8 and torch.equal(E, want)
+    assert int(E.abs().max()) > 0
+    vpe = NR.pe_ladder(d / NR._norm3(d).clamp(min=1e-12)[:, None], 4,
+                       kv - cfg.W)
+    vq = torch.zeros((n, kve), dtype=torch.int8)
+    vq[:, :kv - cfg.W] = NR._q8(vpe, fp.hv_inv[cfg.W:]).to(torch.int8)
+    assert torch.equal(V, vq.repeat_interleave(S, 0))
+
+
 @pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("W,S,n", [(384, 64, 32768), (1024, 192, 32768),
                                    (2176, 192, 160000), (512, 24, 1)])
 def test_wide_scratch_holds_a_pass(wd, W, S, n):
     """The rays of a pass (``teacher_wide_rays``) fit their scratch in
     ``WIDE_SCRATCH_BYTES`` (a pass of one ray where that ray alone is
-    larger), the f32 and bf16 forms' scratch holds the encodings' buffers
-    [rows, ke] and [rows, kve] beside int8's, and int8's is as before."""
+    larger), and every form's scratch holds the encodings' buffers [rows,
+    ke] and [rows, kve] (int8: their codes) beside the activations'."""
     cfg = NeRFConfig(W=W, D=8, skips=(4,))
     plan = NR.wide_teacher_plan(cfg, wd)
-    int8 = wd == torch.int8
-    enc = (0, 0) if int8 else (plan["ke"], plan["kve"])
+    enc = (plan["ke"], plan["kve"])
     rays = NR.teacher_wide_rays(n, S, W, wd, *enc)
     assert 1 <= rays <= n
     need = NR.teacher_wide_scratch_bytes(rays * S, W, wd, *enc)
@@ -472,6 +507,7 @@ def test_wide_scratch_holds_a_pass(wd, W, S, n):
             > NR.WIDE_SCRATCH_BYTES - 2048
     es = torch.empty(0, dtype=wd).element_size()
     base = NR.teacher_wide_scratch_bytes(rays * S, W, wd)
-    assert need - base == (0 if int8 else
-                           NR._aligned(rays * S * plan["ke"] * es)
+    assert need - base == (NR._aligned(rays * S * plan["ke"] * es)
                            + NR._aligned(rays * S * plan["kve"] * es))
+    if wd == torch.int8:   # the codes: 128 columns of each
+        assert plan["ke"] == plan["kve"] == 128

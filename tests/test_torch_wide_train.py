@@ -10,10 +10,13 @@ their plain versions: those, called through the wide wrappers at W384 and
 W512, against JAX's ``train_fwd``, ``train_fwd_int8`` (both stash kinds)
 and ``bwd_group`` in interpret mode at the tolerances of
 tests/test_torch_train_kernels.py; a plain emulation of the wide dW pass's
-order (ray ranges, 32-ray stages, each k8 step summed apart) against the
-plain version; the wide images' round trips; and a W384/D6 fused step
-against JAX's fused step on the same draws. tests/test_torch_cuda.py holds
-the CUDA kernels to the plain versions on the card.
+order (ray ranges, 32-ray stages summed apart) against the plain version;
+K5 wide's f32 sum routes at W512/D88 (the dh walk's 32-channel stages and
+the dW pass's 32-ray stages, each summed apart by emulated tensor cores,
+which truncate) within half of K5's f32 limit; the wide images' round
+trips; and a W384/D6 fused step against JAX's fused step on the same
+draws. tests/test_torch_cuda.py holds the CUDA kernels to the plain
+versions on the card.
 """
 import ast
 import functools
@@ -36,7 +39,8 @@ from r2l_tpu.sampler import PointSampler as JaxPointSampler
 from r2l_tpu_torch import train as TR
 from r2l_tpu_torch.kernels import r2l_fused as F
 from r2l_tpu_torch.kernels import r2l_train as T
-from r2l_tpu_torch.models import R2L, R2LConfig
+from r2l_tpu_torch.kernels.staging import tf32_split
+from r2l_tpu_torch.models import R2L, R2LConfig, init_r2l
 from r2l_tpu_torch.sampler import PointSampler
 from test_torch_train_kernels import (MAX_Q_SHARE, TOL_BF16, TOL_F32,
                                       TOL_INT8_MAX, TOL_INT8_RMS, _grad_ok)
@@ -199,40 +203,42 @@ def test_bwd_group_wide_matches_pallas(W, kind):
 
 
 # ---------------------------------------------------------------------------
-# The wide dW pass's order (csrc/r2l_wide_bwd.cu, wide_dw and sum_splits)
+# The wide dW pass's order (csrc/r2l_wide_bwd.cu, dw_tf32 and sum_splits)
 # ---------------------------------------------------------------------------
 
-# The wide dW pass's rays a stage (csrc/r2l_wide_bwd.cu, kDwRays).
-DW_RAYS = int(re.search(r"constexpr int kDwRays = (\d+);", open(os.path.join(
-    REPO, "r2l_tpu_torch", "kernels", "csrc", "r2l_wide_bwd.cu")).read())[1])
+_BWD_SRC = open(os.path.join(REPO, "r2l_tpu_torch", "kernels", "csrc",
+                             "r2l_wide_bwd.cu")).read()
+# The rays a range of the wide dW pass is a multiple of (kDwRays), and the
+# f32 pass's rays a stage (kTfRays), from csrc/r2l_wide_bwd.cu.
+DW_RAYS = int(re.search(r"constexpr int kDwRays = (\d+);", _BWD_SRC)[1])
+DW_STAGE = int(re.search(r"kTfRays = (\d+);", _BWD_SRC)[1])
 
 
 def _dw_ranges(nr: int) -> int:
     """Rays of each of the wide dW pass's ``dw_splits(nr)`` ranges, whole
-    stages of ``DW_RAYS`` (r2l_wide_bwd_launch's ``rays_per_split``)."""
+    multiples of ``DW_RAYS`` (r2l_wide_bwd_launch's ``rays_per_split``)."""
     per = -(-nr // T.dw_splits(nr))
     return -(-per // DW_RAYS) * DW_RAYS
 
 
 def _dw_in_kernel_order(g: torch.Tensor, a: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """dW = g^T a and db = sum g (f32 [n, W] each) as the wide dW pass sums
-    them: ``dw_splits(n)`` ranges (``_dw_ranges``), each in stages of
-    ``DW_RAYS`` rays of k8 steps whose products are summed apart (the tensor
-    cores' own sum of one step replaced by an f32 product) and added in
-    f32; db per column over the first and the second half of every stage,
-    the two halves then added; the ranges added in order."""
+    """dW = g^T a and db = sum g (f32 [n, W] each) as the wide f32 dW pass
+    sums them: ``dw_splits(n)`` ranges (``_dw_ranges``), each in stages of
+    ``DW_STAGE`` rays whose products are summed apart (the tensor cores'
+    own sum of one stage replaced by an f32 product) and added in f32; db
+    per column over the first and the second half of every stage, the two
+    halves then added; the ranges added in order."""
     nr, per = g.shape[0], _dw_ranges(g.shape[0])
     dws, dbs = [], []
     for r0 in range(0, nr, per):
         gg, aa = g[r0:r0 + per], a[r0:r0 + per]
         acc = torch.zeros((g.shape[1], a.shape[1]))
         half = [torch.zeros(g.shape[1]), torch.zeros(g.shape[1])]
-        for s in range(0, gg.shape[0], DW_RAYS):
-            for k in range(s, min(s + DW_RAYS, gg.shape[0]), 8):
-                acc = acc + gg[k:k + 8].T @ aa[k:k + 8]
-            for r in range(s, min(s + DW_RAYS, gg.shape[0])):
-                h = (r - s) // (DW_RAYS // 2)
+        for s in range(0, gg.shape[0], DW_STAGE):
+            acc = acc + gg[s:s + DW_STAGE].T @ aa[s:s + DW_STAGE]
+            for r in range(s, min(s + DW_STAGE, gg.shape[0])):
+                h = (r - s) // (DW_STAGE // 2)
                 half[h] = half[h] + gg[r]
         dws.append(acc)
         dbs.append(half[0] + half[1])
@@ -262,38 +268,159 @@ def test_wide_dw_order_keeps_the_f32_limit():
                                 200_001])
 def test_wide_dw_ranges_cover_the_rays(nr):
     """The entry point's ranges over ``dw_splits(nr)`` cover the rays in
-    whole stages, none of them empty, which it checks."""
+    whole stages of both dW passes, none of them empty, which it checks."""
     per, splits = _dw_ranges(nr), T.dw_splits(nr)
-    assert per % DW_RAYS == 0 and splits * per >= nr
-    assert (splits - 1) * per < nr
-    src = open(os.path.join(REPO, "r2l_tpu_torch", "kernels", "csrc",
-                            "r2l_wide_bwd.cu")).read()
-    assert "(long long)(splits - 1) * rays_per_split >= n" in src
+    assert per % DW_RAYS == 0 and DW_RAYS % DW_STAGE == 0
+    assert DW_RAYS % int(re.search(r"kBfRays = (\d+)", _BWD_SRC)[1]) == 0
+    assert splits * per >= nr and (splits - 1) * per < nr
+    assert "(long long)(splits - 1) * rays_per_split >= n" in _BWD_SRC
+
+
+# ---------------------------------------------------------------------------
+# K5 wide's f32 sum routes, with the tensor cores' truncating sums emulated
+# ---------------------------------------------------------------------------
+
+# The tensor cores add the products of a step and the sum they add to with
+# every term aligned to the largest one's exponent and cut to this many
+# bits below it, then truncate the result to f32 (ROADMAP C, "the tensor
+# cores truncate"). 21 bits calibrates the emulation on the card's
+# readings: it reads the narrow K5 W256 walk on one running sum at 77% of
+# the f32 limit (the card 84-86%, PERF.md) and the mma.sync wide walk with
+# each k8 step apart at 10% (the card 15%).
+TC_BITS = 21
+HALF = 0.5   # of K5's f32 limit: a route the emulation holds under it
+
+
+def _tc_add(acc: torch.Tensor, prods: torch.Tensor) -> torch.Tensor:
+    """One tensor-core step: acc (f32 [...]) plus the exact products
+    (f64 [..., k]), each term cut to ``TC_BITS`` below the largest, summed,
+    truncated to f32."""
+    m = torch.maximum(acc.double().abs(), prods.abs().amax(-1))
+    e = torch.floor(torch.log2(torch.where(m > 0, m, torch.ones_like(m))))
+    q = torch.exp2(e - TC_BITS)[..., None]
+    terms = torch.cat([acc.double()[..., None], prods], -1)
+    s = (torch.trunc(terms / q) * q).sum(-1)
+    f = s.float()
+    return torch.where(f.double().abs() > s.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mm_tc(a: torch.Tensor, b: torch.Tensor, group: int) -> torch.Tensor:
+    """a [m, K] @ b [K, n] (f32) as 3xTF32 wgmma products (per k8 step
+    a_hi b_lo, a_lo b_hi, a_hi b_hi, each one tensor-core step) summed from
+    zero over each ``group`` of K, the groups' sums added in f32."""
+    ah, al = tf32_split(a)
+    bh, bl = (x.T for x in tf32_split(b.T.contiguous()))
+    out = torch.zeros((a.shape[0], b.shape[1]))
+    for g0 in range(0, a.shape[1], group):
+        d = torch.zeros_like(out)
+        for k in range(g0, min(a.shape[1], g0 + group), 8):
+            s = slice(k, k + 8)
+            for x, y in ((ah, bl), (al, bh), (ah, bh)):
+                d = _tc_add(d, x[:, s].double()[:, None, :]
+                            * y[s].double().T[None])
+        out = out + d
+    return out
+
+
+def _w512_d88(rays: int):
+    """The W512/D88 f32 student of phase 22 (seeded), its K3 stash on
+    ``rays`` seeded points, the body weights and a seeded dh."""
+    W, D, dp, L_ = 512, 88, 48, 10
+    cfg = R2LConfig(input_dim=dp * (2 * L_ + 1), netdepth=D, netwidth=W,
+                    compute_dtype=torch.float32)
+    model = init_r2l(cfg, torch.Generator().manual_seed(0),
+                     torch.device("cpu"))
+    rng = np.random.default_rng(2)
+    pts = t(rng.uniform(-2, 2, (rays, dp)))
+    fp = F.prepare_fused_params_pe(model, cfg, dp, L_, stage=False,
+                                   weight_dtype=torch.float32, pad=False)
+    stash = T.train_fwd_ref(fp, cfg, pts, dp, L_)[1]
+    return cfg, fp.body_w, stash, t(rng.standard_normal((rays, W)))
+
+
+def _walk(cfg, body_w, stash, dh, mm):
+    """The whole body's dh walk of ``bwd_group_ref`` (f32) with its
+    products through ``mm``."""
+    nb, rs = cfg.num_blocks, cfg.res_scale
+    for b in range(nb - 1, -1, -1):
+        _, _, mask = T._group_inputs(stash, nb, b, torch.float32, None)
+        dt1 = torch.where(mask, mm(dh * rs, body_w[2 * b + 1]), 0.0)
+        dh = dh + mm(dt1, body_w[2 * b])
+    return dh
+
+
+def test_k5_wide_f32_walk_route_keeps_half_the_limit():
+    """K5 wide's f32 dh walk at W512/D88 (86 layers, K = 512 a product),
+    its products summed by emulated tensor cores in 32-channel stages
+    apart (the skeleton's kSplit), against the plain walk: norm-relative
+    within half of ``TOL_F32`` (one running sum, the teacher's route, reads
+    1.1e-5 in the same emulation: PERF.md)."""
+    cfg, body_w, stash, dh = _w512_d88(8)
+    plain = _walk(cfg, body_w, stash, dh, lambda a, w: a @ w)
+    got = _walk(cfg, body_w, stash, dh, lambda a, w: _mm_tc(a, w, 32))
+    rel = float((got - plain).double().norm() / plain.double().norm())
+    print(f"K5 wide f32 walk, 32-channel stages apart: {rel:.3e} "
+          f"({rel / TOL_F32:.1%} of {TOL_F32:.0e})")
+    assert 0 < rel <= HALF * TOL_F32, rel
+
+
+def test_k5_wide_f32_dw_route_keeps_half_the_limit():
+    """K5 wide's f32 dW pass at W512/D88 on the top block's two layers
+    (dt2 against t1, dt1 against h_in, as the plain version makes them),
+    64 of the outputs and 512 rays: its 3xTF32 products summed by emulated
+    tensor cores in stages of ``DW_STAGE`` rays apart, added in f32,
+    against the plain f32 product: norm-relative within half of
+    ``TOL_F32``."""
+    cfg, body_w, stash, dh = _w512_d88(512)
+    nb = cfg.num_blocks
+    h_in, t1r, mask = T._group_inputs(stash, nb, nb - 1, torch.float32,
+                                      None)
+    dt2 = dh * cfg.res_scale
+    dt1 = torch.where(mask, dt2 @ body_w[2 * nb - 1], 0.0)
+    worst = 0.0
+    for g, a in ((dt2, t1r), (dt1, h_in)):
+        g = g[:, :64].T.contiguous()
+        want = g @ a
+        got = _mm_tc(g, a, DW_STAGE)
+        rel = float((got - want).double().norm() / want.double().norm())
+        worst = max(worst, rel)
+    print(f"K5 wide f32 dW, {DW_STAGE}-ray stages apart: {worst:.3e} "
+          f"({worst / TOL_F32:.1%} of {TOL_F32:.0e})")
+    assert 0 < worst <= HALF * TOL_F32, worst
 
 
 # ---------------------------------------------------------------------------
 # The wide images
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("W", [384, 512])
+@pytest.mark.parametrize("W", [384, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bwd_image_round_trip(W, dtype):
-    """``stage_bwd_weights`` on the wide form: every layer's transpose in
-    the wide form's tiles (tile (o, k) of layer l at l * W * W * es + (o *
-    W * es / 128 + k) * 16 KB, its 128 rows in order), and back."""
+    """``stage_bwd_weights`` on the wide form: every layer's transpose [in,
+    out] row-major, the pass skeleton's B (layer l at l * W * W * es *
+    parts; f32 its TF32 high parts, then its low parts), and back (f32 as
+    the two parts, which sum to the weights within TF32's split)."""
     body_w = torch.randn((4, W, W), generator=torch.Generator().manual_seed(
         W)).to(dtype)
     img = T.stage_bwd_weights(body_w)
-    es = body_w.element_size()
-    assert img.dtype == torch.uint8 and img.numel() == 4 * W * W * es
-    (back,) = T.unstage_bwd_weights(img, (4, W, W), dtype)
-    assert torch.equal(back, body_w)
-    # layer 1, tile (o=1, k=0): output channels 128.. of W^T, i.e. input
-    # channels 128.. of body_w, its first 128 bytes of output channels
-    kt = W * es // 128
-    off = W * W * es + (1 * kt + 0) * 128 * 128
-    tile = img[off:off + 128 * 128].view(128, 128).contiguous().view(dtype)
-    assert torch.equal(tile, body_w[1].T[128:256, :128 // es].contiguous())
+    es, f32 = body_w.element_size(), dtype == torch.float32
+    parts = 2 if f32 else 1
+    assert img.dtype == torch.uint8 and img.numel() == 4 * W * W * es * parts
+    back = T.unstage_bwd_weights(img, (4, W, W), dtype)
+    want = list(tf32_split(body_w)) if f32 else [body_w]
+    assert len(back) == parts
+    for b, w in zip(back, want):
+        assert torch.equal(b.view(torch.uint8), w.view(torch.uint8))
+    if f32:
+        d = (back[0] + back[1] - body_w).abs() / body_w.abs().clamp(1e-30)
+        assert float(d.max()) <= 2.0 ** -21
+    # layer 1, row i = 130 of its [in, out] matrix: body_w[1][:, 130],
+    # high part first
+    off = W * W * es * parts + 130 * W * es
+    row = img[off:off + W * es].contiguous().view(dtype)
+    assert torch.equal(row.view(torch.uint8),
+                       want[0][1][:, 130].contiguous().view(torch.uint8))
 
 
 @pytest.mark.parametrize("W", [384, 512])
