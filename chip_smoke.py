@@ -315,11 +315,15 @@ Phases, in order; any failure raises and exits non-zero:
    W1024/D6 and a W384/D44 fused step beside their xla step. ``[main]
    wide train`` lines: ms/step, the wide kernels' ms for a step (the
    forward and the K5 walk), the plain versions' and the bound, peak
-   memory, beside the card's name and power limit. K5's wide form runs its
-   dh walk on ``wgmma`` fed by TMA (``csrc/wide_hopper.cuh``) and its dW
-   pass on ``wgmma``: its rows print the design's bytes beside the bound,
-   and a ``[profile] wide step`` line splits one ``fused`` step's kernel
-   time by name and fails if K5 ran a pass on ``mma.sync``.
+   memory, beside the card's name and power limit. K3/K4/K8's wide form
+   runs every layer and K5's its dh walk on ``wgmma`` fed by TMA
+   (``csrc/wide_hopper.cuh``), K5 its dW pass on ``wgmma``: their rows
+   print the design's bytes beside the bound and the image's staging (the
+   forwards' beside the frame's wide image, which they read before the
+   training image), and a ``[profile]
+   wide step`` line splits one ``fused`` and one ``fused_f32`` step's
+   kernel time by name and fails if a pass ran on ``mma.sync`` or the
+   forward's skeleton passes are not 2nb+1.
 
 23. Wide and deep teachers (ROADMAP C1, teacher side), at full size, with
    the README's samples (64 + 128) and seeded weights with the density
@@ -4790,9 +4794,10 @@ def phase_wide(smi: str, sampler, poses, dev) -> dict:
 # --fused_train_vjp gate admits and trains on its kernels, at the canonical
 # 81,920 rays a step, through make_distill_step in the four fused kinds and
 # xla, on the training kernels' wide form (csrc/r2l_wide_train.cu, K3 and
-# K4/K8; csrc/r2l_wide_bwd.cu, K5); each wide kernel against its plain
-# version on one step's points at the training kernels' tolerances; then a
-# W1024/D6 and a W384/D44 fused step.
+# K4/K8, and csrc/r2l_wide_bwd.cu, K5, each layer a pass of the skeleton
+# csrc/wide_hopper.cuh); each wide kernel against its plain version on one
+# step's points at the training kernels' tolerances; then a W1024/D6 and a
+# W384/D44 fused step.
 WIDE_TRAIN_DEPTH = 88
 WIDE_TRAIN_TIMED = 3         # timed steps a kind, after the first
 WIDE_TRAIN_REPEAT = 2        # steps each of the two copies runs
@@ -4868,12 +4873,34 @@ def wide_k5_row(kind: str, body_w, stash, dh, cfg, scale, img) -> dict:
             "library_ms": None}
 
 
+def wide_fwd_design_bytes(kind: str, n: int, W: int, in_dim: int, nb: int,
+                          use_residual: bool) -> int:
+    """The bytes the wide training forward's design moves
+    (csrc/r2l_wide_train.cu): the encoding written and read once; K3 (es
+    the weights' size) each pass reads its input row and writes its output
+    row, a block's end also reads h, the tail reads rows nb and 0; K4 the
+    codes' rows the same way, its f32 stream written by the head and read
+    and written at each block's end, h0 written and read once; K8 its codes
+    through the scratch, its bf16 t and h rows written, h read at each
+    block's end."""
+    kp, e = -(-in_dim // 128) * 128, n * W
+    h0 = 8 * e if use_residual else 0
+    if kind in ("bf16", "f32"):
+        es = 2 if kind == "bf16" else 4
+        return 2 * n * kp * es + e * es * (1 + 5 * nb + 2)
+    if kind == "int8":      # K4
+        return 2 * n * kp + e + 4 * e + h0 + nb * (2 * e + 2 * e + 8 * e) + e
+    return 2 * n * kp + 3 * e + h0 + nb * (2 * e + 2 * e + 2 * e + 4 * e) + e
+
+
 def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
     """Phase 22's kernels against their plain versions at one step's points
     (81,920 rays) of the W512/D88 student: K3's wide form (bf16, f32 with
     its ``[margin]`` lines over two seeds of the weights), K4's and K8's bit
     for bit, K5's on the five stash kinds of phase 5; each timed beside its
-    plain version and its bound, and each image's staging."""
+    plain version, its bound and (the forwards and K5) its design's bytes,
+    and each image's staging (the forwards' beside the frame's wide image,
+    which they read before the training image)."""
     from r2l_tpu_torch.exp._harness import chain_ops
     from r2l_tpu_torch.kernels import r2l_fused as F
     from r2l_tpu_torch.kernels import r2l_train as T
@@ -4885,8 +4912,9 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
     ops = chain_ops(cfg, n, cfg.input_dim)
     res, stashes = {}, {}
     for wd, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
-                                       pad=False)
+        fp = T.prepare_train_params(model, cfg, dp, L, wd)
+        if fp.staged_for != "wide_train":
+            raise AssertionError(f"K3 {kind}: staged for {fp.staged_for}")
         c0 = wide_train_counts()["K3w"]
         rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
         if wide_train_counts()["K3w"] != c0 + 1:
@@ -4902,12 +4930,17 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
         del stash_p
         moved = nbytes(pts, rgb, stash, fp.staged, fp.head_b, fp.body_b,
                        fp.tail_w, fp.tail_b)
+        design = wide_fwd_design_bytes(kind, n, width, cfg.input_dim, nb,
+                                       cfg.use_residual)
         r = res[f"train_fwd_wide_{kind}"] = {
             "max_abs_err": err, "stash_row_err": float(row.max()),
             "ms": time_ms(lambda: T.train_fwd(fp, cfg, pts, dp, L), reps=2),
             "plain_ms": time_ms(lambda: T.train_fwd_ref(fp, cfg, pts, dp, L),
                                 reps=1),
-            "stage_ms": time_ms(lambda: F.stage_wide_chain(fp)),
+            "design_bytes": design,
+            "design_bytes_ms": design / HBM_BYTES_S * 1e3,
+            "stage_ms": time_ms(lambda: F.stage_wide_train(fp)),
+            "frame_image_stage_ms": time_ms(lambda: F.stage_wide_chain(fp)),
             **bound(3 * ops if kind == "f32" else ops, moved,
                     "tf32" if kind == "f32" else "bf16"),
             "library_ms": None}
@@ -4915,8 +4948,7 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
             r["margin"] = {"seed 0": k3_margin_line(
                 f"wide W{width}/D{WIDE_TRAIN_DEPTH} (seed 0)", err, row, nb)}
             m1 = init_r2l(cfg, torch.Generator().manual_seed(SEED + 81), dev)
-            fp1 = F.prepare_fused_params_pe(m1, cfg, dp, L, weight_dtype=wd,
-                                            pad=False)
+            fp1 = T.prepare_train_params(m1, cfg, dp, L, wd)
             rgb1, st1 = T.train_fwd(fp1, cfg, pts, dp, L)
             rgb1p, st1p = T.train_fwd_ref(fp1, cfg, pts, dp, L)
             e1, row1 = deltas(rgb1, rgb1p)[0], k3_row_errs(st1, st1p, "f32")
@@ -4937,7 +4969,7 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
     for q, name in ((True, "train_fwd_int8_wide"),
                     (False, "train_fwd_int8_wide_bf16")):
         fpq = F.stage_int8_train(fp8, cfg, dp, L, q)
-        if fpq.staged_for != "wide":
+        if fpq.staged_for != "wide_train":
             raise AssertionError(f"{name}: staged for {fpq.staged_for}")
         label = "K4" if q else "K8"
         rgb, stash = T.train_fwd_int8(fpq, cfg, pts, dp, L, stash_q=q)
@@ -4949,14 +4981,20 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
         if bits["rgb_differ"] or bits["stash_bytes_differ"]:
             raise AssertionError(f"{label} wide: not bit for bit")
         del stash_p
+        design = wide_fwd_design_bytes("int8" if q else "int8_bf16", n,
+                                       width, cfg.input_dim, nb,
+                                       cfg.use_residual)
         res[name] = {
             "max_abs_err": deltas(rgb, rgb_p)[0], **bits,
             "ms": time_ms(lambda: T.train_fwd_int8(fpq, cfg, pts, dp, L,
                                                    stash_q=q), reps=2),
             "plain_ms": time_ms(lambda: T.train_fwd_int8_ref(
                 fp8, cfg, pts, dp, L, stash_q=q), reps=1),
+            "design_bytes": design,
+            "design_bytes_ms": design / HBM_BYTES_S * 1e3,
             "stage_ms": time_ms(lambda: F.stage_int8_train(fp8, cfg, dp, L,
                                                            q)),
+            "frame_image_stage_ms": time_ms(lambda: F.stage_wide_chain(fp8)),
             **bound(ops, nbytes(pts, rgb, stash, fpq.staged, fp8.head_inv,
                                 fp8.body_inv, fp8.tail_q, fp8.tail_m,
                                 fp8.tail_b, fp8.tail_inv), "int8"),
@@ -4978,13 +5016,16 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
         del body_w, stash, img
         torch.cuda.empty_cache()
     for key, r in res.items():
-        print(f"[time] wide {key}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}) at {n} rays; staging {r['stage_ms']:.3f} ms"
-              + (f"; whole walk {r['walk_ms']:.3f} ms; the design's bytes "
-                 f"{r['design_bytes'] / 1e9:.3f} GB, "
-                 f"{r['design_bytes_ms']:.3f} ms" if "walk_ms" in r
-                 else ""), flush=True)
+        print(f"[time] wide {key} (on wide_hopper.cuh): kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}) at {n} rays; staging "
+              f"{r['stage_ms']:.3f} ms"
+              + (f" (the frame's image {r['frame_image_stage_ms']:.3f} ms)"
+                 if "frame_image_stage_ms" in r else "")
+              + (f"; whole walk {r['walk_ms']:.3f} ms" if "walk_ms" in r
+                 else "")
+              + f"; the design's bytes {r['design_bytes'] / 1e9:.3f} GB, "
+              f"{r['design_bytes_ms']:.3f} ms", flush=True)
     return res
 
 
@@ -5054,25 +5095,29 @@ def wide_train_step(label: str, cfg, dcfg, sampler, kw: dict, batches,
     return r
 
 
-# One wide step's kernels by name, as the profiler gives them: K5 wide's
-# dh walk on the pass skeleton (wide_hopper.cuh's wide_pass with its Mask
-# and Dh epilogues), its dW pass on wgmma (dw_bf16, dw_tf32) and its sums;
-# the forward's mma.sync passes (K3/K4/K8 wide, r2l_wide.cuh) and tail;
-# K5's mma.sync dW pass of earlier builds (wide_dw), which none launches.
-WIDE_STEP_KERNELS = (("K5 walk passes", ("wide_pass",)),
+# One wide step's kernels by name, as the profiler gives them: the
+# forward's (K3/K4/K8 wide) skeleton passes, told from K5's by their
+# epilogues (wide_hopper.cuh's TrainK3, TrainK48), its encoding and its
+# tail; K5 wide's dh walk on the pass skeleton (wide_pass with its Mask and
+# Dh epilogues), its dW pass on wgmma (dw_bf16, dw_tf32) and its sums;
+# mma.sync passes of earlier builds (r2l_wide.cuh's wide_layer, K5's
+# wide_dw), which no training step launches now.
+WIDE_STEP_KERNELS = (("forward passes", ("TrainK3", "TrainK48")),
+                     ("forward encoding", ("train_encode",)),
+                     ("forward tail", ("wide_tail",)),
+                     ("K5 walk passes", ("wide_pass",)),
                      ("K5 dW pass", ("dw_bf16", "dw_tf32")),
                      ("K5 sums and top dt2", ("sum_splits", "scale_dh")),
-                     ("forward passes (mma.sync)", ("wide_layer",)),
-                     ("forward tail", ("wide_tail",)),
+                     ("mma.sync passes", ("wide_layer",)),
                      ("K5 mma.sync dW pass", ("wide_dw",)))
 
 
 def wide_step_split(label: str, cfg, fn) -> dict:
     """The kernel time of one wide training step (``fn``) under
     torch.profiler by WIDE_STEP_KERNELS group: ms, launches and share.
-    Fails unless K5's walk ran on the skeleton (two passes a block; the
-    mma.sync passes a whole number of K3/K4/K8 forwards, one a layer, so
-    none of K5's) and its dW pass on wgmma."""
+    Fails unless the forward ran on the skeleton (2nb+1 passes, one
+    encoding and one tail, no mma.sync pass), K5's walk too (two passes a
+    block) and its dW pass on wgmma."""
     prof = profile_kernels(fn, top=400)
     total = prof["kernel_ms"]
     split = {g: {"ms": 0.0, "calls": 0} for g, _ in
@@ -5087,10 +5132,14 @@ def wide_step_split(label: str, cfg, fn) -> dict:
         "launches)" for g, v in split.items() if v["calls"]), flush=True)
     layers = 2 * cfg.num_blocks
     if (split["K5 walk passes"]["calls"] != layers
-            or split["forward passes (mma.sync)"]["calls"] % (layers + 1)
+            or split["forward passes"]["calls"] != layers + 1
+            or split["forward encoding"]["calls"] != 1
+            or split["forward tail"]["calls"] != 1
+            or split["mma.sync passes"]["calls"] != 0
             or split["K5 dW pass"]["calls"] == 0
             or split["K5 mma.sync dW pass"]["calls"] != 0):
-        raise AssertionError(f"{label}: K5 wide's passes ran on {split}")
+        raise AssertionError(f"{label}: the wide step's passes ran on "
+                             f"{split}")
     return {"kernel_ms": total, **split}
 
 
@@ -5126,7 +5175,7 @@ def wide_train_steps(smi: str, cfg, sampler, poses, dev) -> dict:
         r = out[kind] = wide_train_step(
             label, kcfg, dcfg, sampler, kw, batches, draws, dev,
             WIDE_TRAIN_TIMED, WIDE_TRAIN_REPEAT if kw else 0,
-            f"{label} ({smi})" if kind == "fused" else "")
+            f"{label} ({smi})" if kind in ("fused", "fused_f32") else "")
         want = ({k2: 0 for k2 in ("K3w", "K4w", "K8w", "K5w")} if not kw
                 else {**{k2: 0 for k2 in ("K3w", "K4w", "K8w")},
                       fwd[kind]: 1, "K5w": groups})

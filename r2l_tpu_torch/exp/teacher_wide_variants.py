@@ -58,14 +58,15 @@ import torch
 from . import _harness
 
 HEADER = "wide_hopper.cuh"
-EPILOGUE = "  epilogue<T, Epi, NN>(d, out, e, stg, w, wg, wtid);"
+EPILOGUE = ("  epilogue<T, Epi, NN>(d, out, side_out, e, p, smem, base, stg, w, wg,"
+            " wtid);")
 MMA_SS = """      if constexpr (std::is_same<T, int8_t>::value)
         Wgmma<NN>::s8(d, desc_k128(sa + 32 * j), desc_k128(sb + 32 * j),
                       kt > 0 || j > 0);
       else
         Wgmma<NN>::bf16(d, desc_k128(sa + 32 * j), desc_k128(sb + 32 * j),
                         kt > 0 || j > 0);"""
-MMA_TF32 = """    Wgmma<N>::tf32(d, h[j], desc_k128(bl + 32 * j), acc || j > 0);
+MMA_TF32 = """    Wgmma<N>::tf32(d, h[j], desc_k128(bl + 32 * j), acc || j > j0);
     Wgmma<N>::tf32(d, l[j], desc_k128(bh + 32 * j), 1);
     Wgmma<N>::tf32(d, h[j], desc_k128(bh + 32 * j), 1);"""
 SINK = """  float s = 0.f;  // the accumulators, used: the products stay

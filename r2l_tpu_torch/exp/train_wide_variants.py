@@ -1,36 +1,46 @@
-"""K5's wide form (``kernels/csrc/r2l_wide_bwd.cu``: the dh walk on the pass
-skeleton ``kernels/csrc/wide_hopper.cuh``, the dW pass on ``wgmma``),
-measured on the card: what sets its pace, and this checkout's build
-against a parent's.
+"""The training kernels' wide forms on the pass skeleton
+``kernels/csrc/wide_hopper.cuh``, measured on the card: K5's
+(``kernels/csrc/r2l_wide_bwd.cu``: the dh walk on the skeleton, the dW pass
+on ``wgmma``) and the forward's (``kernels/csrc/r2l_wide_train.cu``:
+K3 bf16 and f32, K4, K8, every layer on the skeleton): what sets their
+pace, and this checkout's build against a parent's.
 
-Each row is one 4-block call of ``chip_smoke.py``'s phase 22: the W512/D88
-student (seeded weights) at a step's 81,920 rays, the top group (blocks
-39..42) of its body, on one of the five stash kinds: ``bf16`` and ``f32``
-(K3's wide stash under bf16 and f32 weights), ``int8`` (K4's q-value
-stash, bf16 weights), ``int8_bf16`` (K8's bf16 stash, bf16 weights) and
-``int8_bf16_f32w`` (K8's stash under f32 weights); dh seeded.
+Each K5 row is one 4-block call of ``chip_smoke.py``'s phase 22: the
+W512/D88 student (seeded weights) at a step's 81,920 rays, the top group
+(blocks 39..42) of its body, on one of the five stash kinds: ``bf16`` and
+``f32`` (K3's wide stash under bf16 and f32 weights), ``int8`` (K4's
+q-value stash, bf16 weights), ``int8_bf16`` (K8's bf16 stash, bf16
+weights) and ``int8_bf16_f32w`` (K8's stash under f32 weights); dh
+seeded. Each forward row (``FWD_KINDS``: ``k3_bf16``, ``k3_f32``, ``k4``,
+``k8``) is one whole forward of the same student on the same rays (the
+int8 kinds calibrated as phase 22 does), packed and staged by the module
+that runs it.
 
 A variant is a copy of ``kernels/csrc`` with a few source edits
 (``VARIANTS``), built with the repository's nvcc flags and swapped in for
-K5's wide library, timed against the build in turns base / variant /
-variant / base (``_harness.in_turns``), timing only:
+K5's wide library (K5 rows) or the forward's (forward rows), timed against
+the build in turns base / variant / variant / base
+(``_harness.in_turns``), timing only:
 
-* ``noepi``: the walk's passes without their epilogue (no mask, no dh, no
-  staging tile, no TMA store; the accumulators summed into a test that
-  never stores, so the products stay);
+* ``noepi``: the skeleton's passes without their epilogue (no mask, no
+  dh, no bias, no side tensor, no staging tile, no TMA store; the
+  accumulators summed into a test that never stores, so the products
+  stay);
 * ``nomma``: without the products as well (the loads and the barriers
   alone).
 
-The dW pass runs as built in both, so base minus variant is the walk's
-share.
+K5's dW pass, the forward's encoding and tail run as built in both, so
+base minus variant is the passes' share.
 
-``--parent TREE`` times instead this checkout's K5 wide against a parent
-checkout's (unpacked with ``git archive``), the parent's imported from the
-tree as a package of its own, its image and library its own: each row's
-dh, dW and db held to the parent's (f32 within K5's f32 limit, the other
-kinds within K5's bf16 limits, each record saying whether they were bit
-for bit), then timed in turns this checkout / parent / parent / this
-checkout.
+``--parent TREE`` times instead this checkout's wide forms against a
+parent checkout's (unpacked with ``git archive``), the parent's imported
+from the tree as a package of its own, its images and libraries its own:
+each K5 row's dh, dW and db held to the parent's (f32 within K5's f32
+limit, the other kinds within K5's bf16 limits), each forward row's rgb
+and stash (K3 f32 within ``TOL_TRAIN_F32`` on rgb and every stash row, K3
+bf16 within ``TOL_TRAIN_BF16`` relative to a row's largest, K4 and K8 bit
+for bit), each record saying whether they were bit for bit, then timed in
+turns this checkout / parent / parent / this checkout.
 
     python -m r2l_tpu_torch.exp.train_wide_variants [--variants noepi,...] \\
         [--out PATH]
@@ -53,12 +63,14 @@ from .teacher_wide_variants import EPILOGUE, HEADER, MMA_SS, MMA_TF32, SINK
 from .teacher_wide_variants import parent_package
 
 LIB = "r2l_wide_bwd"
+FWD_LIB = "r2l_wide_train"
 VARIANTS = {
     "noepi": ([(HEADER, EPILOGUE, SINK)], False),
     "nomma": ([(HEADER, EPILOGUE, "  fence_regs(d);"),
                (HEADER, MMA_SS, ""), (HEADER, MMA_TF32, "")], False),
 }
 KINDS = ("bf16", "f32", "int8", "int8_bf16", "int8_bf16_f32w")
+FWD_KINDS = ("k3_bf16", "k3_f32", "k4", "k8")
 GROUP = 4    # blocks a call, as the training step walks them
 REPS = 3
 
@@ -92,8 +104,7 @@ def _inputs(kind: str, cfg, model, pts, calib):
     body_w = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
                                        pad=False).body_w
     if kind in ("bf16", "f32"):
-        fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
-                                       pad=False)
+        fp = T.prepare_train_params(model, cfg, dp, L, wd)
         return body_w, T.train_fwd(fp, cfg, pts, dp, L)[1], None
     fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L, calib,
                                   fold_requant=False, stage=False, pad=False)
@@ -131,6 +142,68 @@ def _each_kind(dev, fn) -> None:
         torch.cuda.empty_cache()
 
 
+def _fwd_row(tr, kind: str, cfg, model, pts, calib):
+    """``run()``: one whole wide forward of ``kind`` through the module
+    ``tr`` (``kernels.r2l_train`` of a checkout), packed and staged by that
+    checkout's own functions (a parent without ``prepare_train_params``
+    packs K3 as its step did, ``prepare_fused_params_pe``)."""
+    import chip_smoke as cs
+    F = importlib.import_module(tr.__name__.rsplit(".", 1)[0] + ".r2l_fused")
+    dp, L = cs.N_SAMPLE * 3, cs.EMBED_L
+    if kind.startswith("k3"):
+        wd = torch.float32 if kind == "k3_f32" else torch.bfloat16
+        fp = (tr.prepare_train_params(model, cfg, dp, L, wd)
+              if hasattr(tr, "prepare_train_params") else
+              F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
+                                        pad=False))
+        return lambda: tr.train_fwd(fp, cfg, pts, dp, L)
+    q = kind == "k4"
+    fp8 = F.calibrate_r2l_int8_pe(model, cfg, dp, L, calib,
+                                  fold_requant=False, stage=False, pad=False)
+    fpq = F.stage_int8_train(fp8, cfg, dp, L, q)
+    return lambda: tr.train_fwd_int8(fpq, cfg, pts, dp, L, stash_q=q)
+
+
+def _fwd_ops(kind: str, cfg, n: int) -> tuple[float, str]:
+    """A forward's operations, times three for f32 (3xTF32), and the peak
+    that bounds them."""
+    from ._harness import chain_ops
+    ops = chain_ops(cfg, n, cfg.input_dim)
+    return {"k3_bf16": (ops, "bf16"), "k3_f32": (3 * ops, "tf32")}.get(
+        kind, (ops, "int8"))
+
+
+def _each_fwd(dev, fn) -> None:
+    """fn(kind, cfg, model, pts, calib, bound_ms) for every forward kind."""
+    cfg, model, pts, calib = _student(dev)
+    for kind in FWD_KINDS:
+        ops, peak = _fwd_ops(kind, cfg, pts.shape[0])
+        fn(kind, cfg, model, pts, calib, _harness.bound_ms(ops, peak))
+        torch.cuda.empty_cache()
+
+
+def _fwd_same(kind: str, got, want) -> dict:
+    """A forward row's two outputs (rgb, stash) held to each other: their
+    distance (K3 f32 max-abs, rgb and the worst stash row; K3 bf16 relative
+    to a row's largest) and whether bit for bit; AssertionError past the
+    kind's limit (K4, K8: bit for bit)."""
+    import chip_smoke as cs
+    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(got, want))
+    diff = float((got[0] - want[0]).abs().max())
+    for a, b in zip(got[1], want[1]):   # a row at a time: the stash is large
+        d = (a.float() - b.float()).abs().max()
+        if kind == "k3_bf16":
+            d = d / b.float().abs().max().clamp(min=1)
+        diff = max(diff, float(d))
+    lim = {"k3_f32": cs.TOL_TRAIN_F32, "k3_bf16": cs.TOL_TRAIN_BF16}.get(
+        kind, 0.0)
+    if not (same or diff <= lim):
+        raise AssertionError(f"{kind}: this checkout and the other build "
+                             f"differ by {diff:.3e}")
+    return {"max_diff": diff, "bit_for_bit": same}
+
+
 def _peak(kind: str, ops: float) -> float:
     f32 = kind in ("f32", "int8_bf16_f32w")
     return _harness.bound_ms(3 * ops if f32 else ops,
@@ -145,9 +218,23 @@ def time_variants(names, log, reps: int = REPS) -> None:
     dev = _harness.require_cuda("train_wide_variants")
     log(_harness.device_record())
     with tempfile.TemporaryDirectory() as tmp:
-        libs = _harness.build_variants(
-            {n: (VARIANTS[n][0], LIB) for n in names}, Path(tmp))
+        jobs = {n: (VARIANTS[n][0], LIB) for n in names}
+        jobs.update({f"{n}_fwd": (VARIANTS[n][0], FWD_LIB) for n in names})
+        libs = _harness.build_variants(jobs, Path(tmp))
         _build.load(LIB)
+        _build.load(FWD_LIB)
+
+        def fwd(kind, cfg, model, pts, calib, bound):
+            run = _fwd_row(T, kind, cfg, model, pts, calib)
+            for name in names:
+                base_ms, variant_ms, _ = _harness.in_turns(
+                    run, run,
+                    lambda lib=libs[f"{name}_fwd"][0]: _harness.loading(lib),
+                    reps)
+                log({"name": f"{name}_{kind}", "base_ms": base_ms,
+                     "variant_ms": variant_ms, "bound_ms": bound,
+                     "build": libs[f"{name}_fwd"][1][:12]})
+        _each_fwd(dev, fwd)
 
         def one(kind, cfg, body_w, stash, scale, dh, ops):
             run = _row(T, cfg, body_w, stash, scale, dh)
@@ -172,6 +259,18 @@ def compare_parent(tree: str, log, reps: int = REPS) -> None:
     log(_harness.device_record())
     PT = importlib.import_module(parent_package(tree).__name__
                                  + ".kernels.r2l_train")
+
+    def fwd(kind, cfg, model, pts, calib, bound):
+        new = _fwd_row(T, kind, cfg, model, pts, calib)
+        old = _fwd_row(PT, kind, cfg, model, pts, calib)
+        rec = _fwd_same(kind, new(), old())
+        torch.cuda.empty_cache()
+        base_ms, parent_ms, _ = _harness.in_turns(
+            new, old, contextlib.nullcontext, reps)
+        log({"name": f"parent_{kind}", "base_ms": base_ms,
+             "parent_ms": parent_ms, **rec, "bound_ms": bound,
+             "registers": _harness.registers(FWD_LIB)})
+    _each_fwd(dev, fwd)
 
     def one(kind, cfg, body_w, stash, scale, dh, ops):
         new = _row(T, cfg, body_w, stash, scale, dh)

@@ -34,23 +34,10 @@
 // once a (ray, scalar) a slice up to the highest octave the slice holds;
 // K9 reads x [n, in_dim] f32 and rounds it to the compute type.
 //
-// The training forward's wide form (r2l_wide_train.cu: K3, K4/K8) runs the
-// same passes with epilogues of their own:
-//   K3 (bf16/f32): each layer's output goes straight to its stash row (h_0
-//   to row 0, block b's inner t to row nb+1+b, its output h to row b+1);
-//   a block's end adds its t2 to h before rounding it (`train`, as
-//   train_fwd_ref, where the frame rounds t2 first); the tail reads rows nb
-//   and 0 and rounds their sum (wide_tail's h0).
-//   K4 (kTrainQ): an f32 residual stream in a buffer of its own, every code
-//   a product reads written to the stash (rows b and nb+1+b, and row nb the
-//   tail's). K8 (kTrainB): the bf16 stream and bf16 rows to the stash, and
-//   the next product's codes made in the epilogue into one of two scratch
-//   buffers (the A loader stays the s8 one).
-// (K5's wide form and the teacher's run on the Hopper pass skeleton,
-// wide_hopper.cuh.) Training's f32 passes sum each k8 step's three TF32
-// products apart, from zero, and add that to the running sum in f32
-// (kSplit): the tensor cores truncate every sum they add to, which over a
-// long sum costs f32's last bits (PERF.md, K3's margins).
+// The training forward's wide form (r2l_wide_train.cu), K5's and the
+// teacher's run their layers on the Hopper pass skeleton (wide_hopper.cuh);
+// r2l_wide_train.cu includes this header for wide_tail, nerf_wide.cu for
+// its types and helpers.
 //
 // What bounds it: the products (2 W^2 operations a ray a layer) at the
 // card's tensor rate; a pass also reads its input and writes its output,
@@ -73,9 +60,8 @@ enum Type { kBF16 = 0, kF32 = 1, kS8 = 2 };
 enum Src { kBody = 0, kPE = 1, kX = 2 };   // where a pass's input comes from
 // a pass's layer
 enum Kind { kHead = 0, kInner = 1, kBlockEnd = 2 };
-// K2's forms (r2l_fused.py, EPILOGUES), then the int8 training forward's
-// (K4: q-value stash, K8: bf16 stash)
-enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2, kTrainQ = 3, kTrainB = 4 };
+// K2's forms (r2l_fused.py, EPILOGUES)
+enum Epi { kDeployed = 0, kFold = 1, kUnfolded = 2 };
 
 // The widths the wide form runs at are multiples of this (its block's
 // output channels); r2l_fused.py's WIDE_CHANNELS.
@@ -111,7 +97,6 @@ struct Params {
   void* out;               // bf16/f32 kInner: t; int8: the next codes
   void* h0;                // kHead: written; a final kBlockEnd: read
   const float* inv;        // int8: the next product's inverse scales
-  int train;               // bf16/f32 kBlockEnd: t2 added unrounded (K3)
 };
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -168,9 +153,8 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint32_t* p) {
 // One 32-byte step of K for the warp's 64 x 32 outputs: A [rows][lda words]
 // from row 0 of the block, B [channels][kLd words]; fragment (g, t) holds
 // word t and t + 4 of its rows g and g + 8 (the m16n8 layouts of all three
-// types, in words), loaded by ldmatrix. kSplit (f32): the step's products
-// summed apart and added in f32.
-template <int T, bool kSplit = false>
+// types, in words), loaded by ldmatrix.
+template <int T>
 __device__ __forceinline__ void mma_step(Acc<T> (&acc)[4][4][4],
                                          const uint32_t* A, int lda,
                                          const uint32_t* B, int kw, int wm,
@@ -202,18 +186,9 @@ __device__ __forceinline__ void mma_step(Acc<T> (&acc)[4][4][4],
       for (int k = 0; k < 4; ++k) tf32_split(a[k], ah[k], al[k]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if constexpr (kSplit) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(d, al, bh[j]);
-          mma_tf32(d, ah, bl[j]);
-          mma_tf32(d, ah, bh[j]);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[i][j][k] = __fadd_rn(acc[i][j][k], d[k]);
-        } else {
-          mma_tf32(acc[i][j], al, bh[j]);
-          mma_tf32(acc[i][j], ah, bl[j]);
-          mma_tf32(acc[i][j], ah, bh[j]);
-        }
+        mma_tf32(acc[i][j], al, bh[j]);
+        mma_tf32(acc[i][j], ah, bl[j]);
+        mma_tf32(acc[i][j], ah, bh[j]);
       }
     }
   } else {
@@ -286,8 +261,7 @@ __device__ __forceinline__ void epilogue_float(const Params& p, int row,
     float h[2];
     load2<T>(p.hin, o, h);
     for (int k = 0; k < 2; ++k)
-      v[k] = rnd<T>(__fadd_rn(
-          __fmul_rn(p.train ? v[k] : rnd<T>(v[k]), p.res_scale), h[k]));
+      v[k] = rnd<T>(__fadd_rn(__fmul_rn(rnd<T>(v[k]), p.res_scale), h[k]));
     if (p.final_ && p.use_residual) load2<T>(p.h0, o, h0);
   }
   if (p.final_ && p.use_residual)
@@ -338,61 +312,8 @@ __device__ __forceinline__ void epilogue_s8(const Params& p, int row, int col,
   *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) = q;
 }
 
-// The int8 training forward's epilogue (r2l_train.py, train_fwd_int8_ref,
-// fold_requant=False) of outputs (row, col), (row, col + 1). K4 (kTrainQ):
-// the f32 residual stream h in its own buffer (hout, read back as hin at a
-// block's end), no bf16 rounding; K8 (kTrainB): the inner t and the stream
-// rounded to bf16 and written to their stash rows (hout). h0 is the head's
-// f32 output for the global residual; out takes the codes of the next
-// product or, at the last block's end, the tail's.
-__device__ __forceinline__ void epilogue_train_s8(const Params& p, int row,
-                                                  int col, int a0, int a1) {
-  const size_t o = (size_t)row * p.W + col;
-  const float4 mb = *reinterpret_cast<const float4*>(p.bias + 2 * col);
-  const float v[2] = {r2l::dequant(a0, mb.x, mb.y),
-                      r2l::dequant(a1, mb.z, mb.w)};
-  const bool q = p.epilogue == kTrainQ;
-  float x[2];  // what the next product quantizes, times its scale
-  if (p.kind == kInner) {
-    for (int k = 0; k < 2; ++k) {
-      x[k] = fmaxf(v[k], 0.f);
-      if (!q) x[k] = bf16r(x[k]);
-    }
-    if (!q) store2<kBF16>(p.hout, o, x);
-  } else {
-    float h[2], h0[2] = {0.f, 0.f};
-    if (p.kind == kHead) {
-      for (int k = 0; k < 2; ++k) {
-        h0[k] = fmaxf(v[k], 0.f);
-        h[k] = q ? h0[k] : bf16r(h0[k]);
-      }
-      if (p.use_residual) store2<kF32>(p.h0, o, h0);
-    } else {
-      float hin[2];
-      if (q)
-        load2<kF32>(p.hin, o, hin);
-      else
-        load2<kBF16>(p.hin, o, hin);
-      for (int k = 0; k < 2; ++k) {
-        h[k] = __fadd_rn(v[k], hin[k]);
-        if (!q) h[k] = bf16r(h[k]);
-      }
-      if (p.final_ && p.use_residual) load2<kF32>(p.h0, o, h0);
-    }
-    if (q)
-      store2<kF32>(p.hout, o, h);
-    else
-      store2<kBF16>(p.hout, o, h);
-    for (int k = 0; k < 2; ++k)
-      x[k] = p.final_ && p.use_residual ? __fadd_rn(h[k], h0[k]) : h[k];
-  }
-  const char2 c = make_char2(r2l::q8(__fmul_rn(x[0], p.inv[col])),
-                             r2l::q8(__fmul_rn(x[1], p.inv[col + 1])));
-  *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) = c;
-}
-
 // One pass: the block's 128 rays x 128 output channels of one layer.
-template <int T, int S, bool kSplit = false>
+template <int T, int S>
 __global__ void __launch_bounds__(kThreads) wide_layer(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int es = elem_bytes(T);
@@ -523,7 +444,7 @@ __global__ void __launch_bounds__(kThreads) wide_layer(const Params p) {
     const uint32_t* B = sB + (kt % kStages) * kBN * kLd;
 #pragma unroll
     for (int kw = 0; kw < kBKW; kw += 8)
-      mma_step<T, kSplit>(acc, A, lda, B, kw, wm, wn, lane);
+      mma_step<T>(acc, A, lda, B, kw, wm, wn, lane);
   }
 
   const int g = lane >> 2, t = lane & 3;
@@ -537,11 +458,7 @@ __global__ void __launch_bounds__(kThreads) wide_layer(const Params p) {
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + wn * 32 + j * 8 + 2 * t;
         if constexpr (T == kS8) {
-          if (p.epilogue >= kTrainQ)
-            epilogue_train_s8(p, row, col, acc[i][j][2 * h],
-                              acc[i][j][2 * h + 1]);
-          else
-            epilogue_s8(p, row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          epilogue_s8(p, row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         } else {
           epilogue_float<T>(p, row, col, acc[i][j][2 * h],
                             acc[i][j][2 * h + 1]);
@@ -674,17 +591,17 @@ long long scratch_bytes(long long rows, int W, int nl, int use_residual) {
   return bufs * aligned(e * elem_bytes(T));
 }
 
-template <int T, int S, bool kSplit = false>
+template <int T, int S>
 cudaError_t pass(const Params& p, cudaStream_t st) {
   constexpr int smem =
       ((S == kBody ? kStages * kBM * kLd : kBM * kLdSlice) +
        kStages * kBN * kLd) * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      wide_layer<T, S, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wide_layer<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)((p.n + kBM - 1) / kBM) * (p.W / kBN);
-  wide_layer<T, S, kSplit><<<(unsigned)blocks, kThreads, smem, st>>>(p);
+  wide_layer<T, S><<<(unsigned)blocks, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 

@@ -26,8 +26,8 @@
 // dt goes to a scratch [2cnt][n][W] of the compute type. bf16 products are
 // one running sum over K (the k16 order of the mma.sync pass before it);
 // f32 sums each 32-channel stage apart and adds it in f32 (the skeleton's
-// kSplit: the tensor cores truncate every sum they add to, and over K = 512
-// one running sum reads past K5's f32 limit; PERF.md).
+// kSplit = 32: the tensor cores truncate every sum they add to, and over K
+// = 512 one running sum reads past K5's f32 limit; PERF.md).
 //
 // Then dW = G^T A over `splits` ranges of rays, G the scratch's dt and A
 // the layer's input from the stash, both ray-major, as K5's narrow pass 2
@@ -585,6 +585,7 @@ cudaError_t run_bwd(const unsigned char* image, const Dw& d,
                     const float* dh_in, float* dh_out, int splits,
                     float res_scale, float* dw, float* db, cudaStream_t st) {
   constexpr bool kF = sizeof(T) == 4;
+  constexpr int kSplit = kF ? 32 : 0;  // f32: each stage summed apart
   const int W = d.W, cnt = d.cnt, n = d.n;
   const long long e = (long long)n * W;
   T* dts = static_cast<T*>(d.dts);
@@ -604,7 +605,7 @@ cudaError_t run_bwd(const unsigned char* image, const Dw& d,
         (err = wideh::weight_map<T>(&wb, image + (2 * k + 1) * layer_bytes,
                                     W, W)) != cudaSuccess)
       return err;
-    err = wideh::launch_pass<T, Mask<S>, kF>(
+    err = wideh::launch_pass<T, Mask<S>, kSplit>(
         a, a, wb, out, p,
         {stash_t + k * e, d.scale ? d.scale + (size_t)(2 * k + 1) * W
                                   : nullptr, n, W},
@@ -619,7 +620,7 @@ cudaError_t run_bwd(const unsigned char* image, const Dw& d,
     if ((err = wideh::weight_map<T>(&wb, image + 2 * k * layer_bytes, W,
                                     W)) != cudaSuccess)
       return err;
-    err = wideh::launch_pass<T, Dh, kF>(
+    err = wideh::launch_pass<T, Dh, kSplit>(
         a, a, wb, out, p,
         {k == cnt - 1 ? dh_in : dh_out, dh_out, n, W, res_scale, k > 0},
         st);

@@ -2,10 +2,11 @@
 // wide to keep on the chip, as a GEMM over activations in device memory,
 // out[rows, N] = epilogue(A[rows, K] W[N, K]^T), on wgmma fed by TMA in a
 // warp-specialised block. The teacher's wide form (nerf_wide.cu: f32, bf16
-// and int8) runs every GEMM layer on it, and K5's wide form (r2l_wide_bwd.cu)
-// its dh walk, each with an epilogue of its own (the Epi parameter); the
-// student's and the training forward's wide passes (r2l_wide.cuh, mma.sync)
-// can move onto it the same way.
+// and int8) runs every GEMM layer on it, K5's wide form (r2l_wide_bwd.cu)
+// its dh walk and the training forward's (r2l_wide_train.cu: K3, K4/K8)
+// every layer, each with an epilogue of its own (the Epi parameter); the
+// student frame's wide passes (r2l_wide.cuh, mma.sync) can move onto it the
+// same way.
 //
 // Operands. A's K is the concatenation of two sources, st0 stages of
 // kKC channels from tensor map a0, then st1 from a1 (the teacher's
@@ -17,7 +18,9 @@
 //
 // Block: 128 points x kBN outputs a tile (bf16 and int8 256, the last tile
 // of a layer whose N is 128 more than a multiple of 256 is 128 wide; f32
-// 128), two consumer warpgroups of 64 rows each and a producer warpgroup,
+// 128; an epilogue may ask for 128, Epi::kBN, as the int8 training ones do:
+// their side tensors need the registers of half a tile's accumulators), two
+// consumer warpgroups of 64 rows each and a producer warpgroup,
 // whose one thread issues every TMA load (its registers go to the
 // consumers, setmaxnreg) into a ring of kStages slots (A 16 KB, B 32 KB a
 // slot; bf16 three, f32 and int8 four) with a full and an empty mbarrier
@@ -34,17 +37,31 @@
 // A from registers, split into high and low parts by cvt.rna (a_hi w_lo,
 // a_lo w_hi, a_hi w_hi, each k8 step in that order), each stage's
 // fragments loaded while the previous stage's products run. The tensor
-// cores truncate every sum they add a product to, so the f32 sum has two
-// routes: one running sum over K (the teacher's, as K6 f32), or, with
-// kSplit, each stage's products summed apart from zero, in halves of the
-// tile's outputs (two buffers of 32 registers), each half's sum added to
-// the running sum in f32 while the next half's products run (K5's walk:
-// over K = 512 one sum reads past its limit; PERF.md).
+// cores truncate every sum they add a product to, so the f32 sum has routes
+// set by kSplit, the input channels a partial sum: 0, one running sum over
+// K (the teacher's, as K6 f32); 32, each stage's products summed apart from
+// zero (K5's walk: over K = 512 one sum reads past its limit); 8, each k8
+// step's three products summed apart (K3: its stash reads past the limit
+// with 32; PERF.md). A partial sum is taken in halves of the tile's outputs
+// (two buffers of 32 registers, wgmma m64n64k8): the products of one half
+// run while the other half's completed sum is added to the running sum in
+// f32 (32 adds a thread), so one group of three products is always in
+// flight behind the adds, and the two consumer warpgroups, which share the
+// tensor cores, fill each other's waits. At 8 that is eight groups, eight
+// waits and 256 adds a thread a stage (three products of 64 x 64 x 8 a
+// group); the registers stay those of the 32-channel route (64 for the
+// sum, 64 for the halves, 64 for two stages' fragments).
 //
 // Epilogue: Epi::pair(args, row, col, acc0, acc1, v0, v1) on each
 // accumulator pair of the tile (args: the epilogue's own parameter struct,
 // Epi::Args; it may read side tensors at (row, col) and write side
-// outputs, and guards the rows past the pass itself), v0 and v1 rounded to
+// outputs, and guards the rows past the pass itself; K5's and K3's do).
+// An epilogue may instead have a side tile (Epi::SideT, the int8 training
+// forward's): the producer loads its [128 x 128] by TMA into the ring's
+// room that a 128-wide tile leaves, the pairs read and overwrite it in
+// shared memory, and it is stored by TMA with the tile (HasSideTile; read
+// and written a pair at a time in device memory, these accesses' latency
+// set the int8 passes' pace: PERF.md). v0 and v1 rounded to
 // the output type (int8: round-half-even, clipped to +-127) into a 64-row
 // staging tile of the warpgroup's own in the same swizzle (no bank
 // conflicts), then out by TMA stores of 128-byte boxes, in kRounds rounds
@@ -85,6 +102,17 @@ template <> struct Tile<int8_t> {
   static constexpr int kStages = 4, kRounds = 1;
 };
 
+// The outputs of a pass's tiles: the type's kBN, or the epilogue's where
+// it sets one (128).
+template <typename T, typename Epi, typename = void>
+struct TileN {
+  static constexpr int value = Tile<T>::kBN;
+};
+template <typename T, typename Epi>
+struct TileN<T, Epi, std::void_t<decltype(Epi::kBN)>> {
+  static constexpr int value = Epi::kBN;
+};
+
 // The accumulator's type: s32 for int8, f32 otherwise.
 template <typename T>
 using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int,
@@ -109,13 +137,18 @@ struct Smem {
   static constexpr int kStages = Tile<T>::kStages;
   static constexpr int kStage = kStages * kSlot;
   static constexpr int kBar = kStage + 2 * kOut;
-  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;
+  // the ring's full and empty barriers, then the side tile's (below)
+  static constexpr int kSideBar = kBar + 2 * kStages * 8;
+  static constexpr int kBytes = kSideBar + 2 * 8 + 1024;
 };
 
 // One pass: `rows` points (A's rows and the output's), N output channels
-// (a multiple of 128), K = (st0 + st1) * kKC.
+// (a multiple of 128), K = (st0 + st1) * kKC; `side` (an epilogue with a
+// side tile, Epi::SideT): 0 none this pass, 1 written (stored to the side
+// output's map), 2 also read (loaded from the side input's map).
 struct Pass {
   int rows, N, st0, st1;
+  int side;
 };
 
 // The epilogue of the teacher's f32 and bf16 layers: the bias added in f32,
@@ -163,6 +196,143 @@ struct Requant {
   }
 };
 
+// Side tensors read and written a pair at a time, at (row, col) and (row,
+// col + 1) of a [rows, N] tensor: K3's h, and the int8 forms' h0 (two
+// passes of a call). Loads clamp the row to the pass's (rows past it are
+// computed, never stored: a guard in the skeleton costs more) and go
+// through the non-coherent path; stores leave the rows past the pass out.
+__device__ __forceinline__ float2 side2(const float* p, int row, int col,
+                                        int rows, int N) {
+  return __ldg(reinterpret_cast<const float2*>(
+      p + (size_t)min(row, rows - 1) * N + col));
+}
+__device__ __forceinline__ float2 side2(const __nv_bfloat16* p, int row,
+                                        int col, int rows, int N) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(
+      p + (size_t)min(row, rows - 1) * N + col)));
+}
+__device__ __forceinline__ void put_side(float* p, int row, int col,
+                                         int rows, int N, float2 v) {
+  if (row < rows)
+    *reinterpret_cast<float2*>(p + (size_t)row * N + col) = v;
+}
+
+// K3's layers (the training forward in bf16 or f32, r2l_train.py's
+// train_fwd_ref): the bias added in f32, then ReLU (the head and a block's
+// inner layer), or at a block's end t2 * res_scale + h with t2 = acc + b
+// unrounded and h the block's input, its stash row read at (row, col). The
+// skeleton rounds to T and stores the tile to the layer's own stash row.
+template <typename T>
+struct TrainK3 {
+  struct Args {
+    const float* bias;  // [N]
+    const T* h;         // a block's end: its input [rows, N]; else null
+    int rows, N;
+    float res_scale;
+  };
+  __device__ __forceinline__ static bool stores(const Args&) { return true; }
+  __device__ __forceinline__ static void pair(const Args& e, int row, int col,
+                                              float a0, float a1, float& v0,
+                                              float& v1) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(e.bias + col));
+    v0 = __fadd_rn(a0, b.x);
+    v1 = __fadd_rn(a1, b.y);
+    if (!e.h) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      return;
+    }
+    const float2 h = side2(e.h, row, col, e.rows, e.N);
+    v0 = __fadd_rn(__fmul_rn(v0, e.res_scale), h.x);
+    v1 = __fadd_rn(__fmul_rn(v1, e.res_scale), h.y);
+  }
+};
+
+// K4's (kQ) and K8's layers (the int8 training forward, train_fwd_int8_ref
+// with fold_requant=False): v = acc * m + b in one FMA; the head h0 =
+// ReLU(v), h = h0 (K4) or h0 rounded to bf16 (K8), h0 kept in f32 for the
+// global residual; an inner layer t = ReLU(v) (K8: rounded to bf16 and
+// written to its stash row); a block's end h = v + h_in (K8: rounded to
+// bf16). h_in, h and K8's t travel in the pass's side tile (SideT: K4's f32
+// stream, read and written in place; K8's bf16 stash rows), which the
+// producer loads and the skeleton stores by TMA; h0 a pair at a time. The
+// value handed to the skeleton is what the next product quantizes (after
+// the last block, h + h0: the tail's) times its inverse scale; the s8
+// store rounds half to even and clips: the codes (K4: to the stash rows;
+// K8: to one of two scratch buffers in turn).
+template <bool kQ>
+struct TrainK48 {
+  enum Kind { kHead = 0, kInner = 1, kEnd = 2 };
+  using SideT = typename std::conditional<kQ, float, __nv_bfloat16>::type;
+  static constexpr int kBN = 128;  // the side tile's room: see side_box
+  struct Args {
+    const float* mb;   // the layer's (m, b) a channel
+    const float* inv;  // the next product's inverse scales [N]
+    float* h0;         // with the global residual: kHead writes, a final
+                       // kEnd reads; else null
+    int kind, final_, rows, N;
+  };
+  __device__ __forceinline__ static bool stores(const Args&) { return true; }
+  // s: the pair's two values in the side tile (h_in in, h or t out); the
+  // pass has none where K4's inner layers run
+  __device__ __forceinline__ static void pair(const Args& e, int row, int col,
+                                              int a0, int a1,
+                                              unsigned char* s, float& v0,
+                                              float& v1) {
+    const float4 mb = __ldg(reinterpret_cast<const float4*>(e.mb + 2 * col));
+    float x0 = r2l::dequant(a0, mb.x, mb.y), x1 = r2l::dequant(a1, mb.z, mb.w);
+    if (e.kind == kInner) {
+      x0 = fmaxf(x0, 0.f);
+      x1 = fmaxf(x1, 0.f);
+      if constexpr (!kQ) {
+        x0 = rnd<__nv_bfloat16>(x0);
+        x1 = rnd<__nv_bfloat16>(x1);
+        put_pair(s, x0, x1);
+      }
+    } else {
+      float2 g = make_float2(0.f, 0.f);  // h0
+      if (e.kind == kHead) {
+        g = make_float2(fmaxf(x0, 0.f), fmaxf(x1, 0.f));
+        x0 = kQ ? g.x : rnd<__nv_bfloat16>(g.x);
+        x1 = kQ ? g.y : rnd<__nv_bfloat16>(g.y);
+        if (e.h0) put_side(e.h0, row, col, e.rows, e.N, g);
+      } else {
+        const float2 h = get_pair(s);
+        x0 = __fadd_rn(x0, h.x);
+        x1 = __fadd_rn(x1, h.y);
+        if constexpr (!kQ) {
+          x0 = rnd<__nv_bfloat16>(x0);
+          x1 = rnd<__nv_bfloat16>(x1);
+        }
+        if (e.final_ && e.h0) g = side2(e.h0, row, col, e.rows, e.N);
+      }
+      put_pair(s, x0, x1);
+      if (e.final_ && e.h0) {
+        x0 = __fadd_rn(x0, g.x);
+        x1 = __fadd_rn(x1, g.y);
+      }
+    }
+    const float2 inv = __ldg(reinterpret_cast<const float2*>(e.inv + col));
+    v0 = __fmul_rn(x0, inv.x);
+    v1 = __fmul_rn(x1, inv.y);
+  }
+
+ private:
+  __device__ __forceinline__ static float2 get_pair(const unsigned char* s) {
+    if constexpr (kQ)
+      return *reinterpret_cast<const float2*>(s);
+    else
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s));
+  }
+  __device__ __forceinline__ static void put_pair(unsigned char* s, float v0,
+                                                  float v1) {
+    if constexpr (kQ)
+      *reinterpret_cast<float2*>(s) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(s) = __floats2bfloat162_rn(v0, v1);
+  }
+};
+
 // ---- PTX ----------------------------------------------------------------
 
 // A K-major operand in the 128-byte swizzle: rows of 128 bytes, the next 8
@@ -200,16 +370,44 @@ __device__ __forceinline__ void arrive(uint32_t bar) {
 
 // ---- the block ------------------------------------------------------------
 
+// An epilogue with a side tile (Epi::SideT): [kBM rows x kBN] of SideT a
+// tile, which the producer loads from the side input's map (Pass::side 2)
+// once the previous tile's epilogue released it, the epilogue reads and
+// overwrites in place through a pointer to each pair, and the epilogue's
+// first thread stores to the side output's map with the tile's output.
+// It lies in the ring's unused room: a 128-wide tile reads half of a slot's
+// B, so the other half of each slot holds two of the tile's 64-row x
+// 128-byte boxes (the 128-byte swizzle), the warpgroup's own SideBoxes
+// boxes from box wg * SideBoxes on (f32: eight boxes in four slots).
+template <typename Epi, typename = void>
+struct HasSideTile : std::false_type {};
+template <typename Epi>
+struct HasSideTile<Epi, std::void_t<typename Epi::SideT>> : std::true_type {};
+template <typename Epi, bool = HasSideTile<Epi>::value>
+struct SideBoxes {  // a warpgroup's boxes
+  static constexpr int value = 0;
+};
+template <typename Epi>
+struct SideBoxes<Epi, true> {
+  static constexpr int value =
+      kBRows * (int)sizeof(typename Epi::SideT) / 128;
+};
+template <typename T>
+__device__ __forceinline__ uint32_t side_box(uint32_t base, int i) {
+  return base + (i / 2) * Smem<T>::kSlot + kABytes + kBRows * 128 +
+         (i % 2) * kBoxBytes;
+}
+
 // Where a tile is: its first row and output channel. The kC blocks of a
 // cluster take the kC row tiles of a group with the same outputs (block
 // `rank` the rank-th), so the weights' stages are theirs in common.
 struct Where {
   int row0, n0;
 };
-template <typename T>
+template <int kBN>
 __device__ __forceinline__ Where where(int group, int ntn, int rank) {
   const int mg = group / ntn;
-  return {(mg * kC + rank) * kBM, (group - mg * ntn) * Tile<T>::kBN};
+  return {(mg * kC + rank) * kBM, (group - mg * ntn) * kBN};
 }
 
 // One B box into the same slot of every block of the cluster, completing
@@ -241,36 +439,55 @@ __device__ __forceinline__ void release_slot(uint32_t bar) {
 }
 
 // The producer: every stage of every tile of the block, in the consumers'
-// order; A is the block's own, B's two boxes (bf16, int8: outputs n0 and n0
-// + 128; f32: the high and the low parts of n0) are each loaded by one
-// block of the cluster into all of them.
-template <typename T>
+// order; A is the block's own, B's boxes (bf16, int8: outputs n0 and, in a
+// 256-wide tile, n0 + 128; f32: the high and the low parts of n0) are each
+// loaded by one block of the cluster into all of them.
+template <typename T, typename Epi, int kBN>
 __device__ void produce(const CUtensorMap* a0, const CUtensorMap* a1,
-                        const CUtensorMap* b, const Pass& p, uint32_t base,
-                        int groups, int ntn, int rank) {
+                        const CUtensorMap* b, const CUtensorMap* side_in,
+                        const Pass& p, uint32_t base, int groups, int ntn,
+                        int rank) {
   using S = Smem<T>;
   constexpr int kKC = Tile<T>::kKC;
+  constexpr int kBoxes = Tile<T>::kParts == 2 ? 2 : kBN / kBRows;
   const uint32_t full = base + S::kBar, empty = full + 8 * S::kStages;
   const int KT = p.st0 + p.st1;
-  int it = 0;
+  int it = 0, sit = 0;
   for (int gi = blockIdx.x / kC; gi < groups; gi += gridDim.x / kC) {
-    const Where w = where<T>(gi, ntn, rank);
+    const Where w = where<kBN>(gi, ntn, rank);
     for (int kt = 0; kt < KT; ++kt, ++it) {
       const int slot = it % S::kStages, ph = (it / S::kStages) & 1;
       const uint32_t fb = full + 8 * slot, sa = base + slot * S::kSlot;
       const uint32_t sb = sa + kABytes;
       bar_wait(empty + 8 * slot, ph ^ 1);
-      bar_expect_tx(fb, S::kSlot);
+      bar_expect_tx(fb, kABytes + kBoxes * kBRows * 128);
       const bool first = kt < p.st0;
       const CUtensorMap* am = first ? a0 : a1;
       const int k = (first ? kt : kt - p.st0) * kKC;
       tma_load(sa, am, k, w.row0, fb);
       tma_load(sa + kBoxBytes, am, k, w.row0 + kBoxRows, fb);
-      for (int i = rank; i < 2; i += kC)
+      for (int i = rank; i < kBoxes; i += kC)
         tma_load_all(sb + i * kBRows * 128, b, kt * kKC,
                      Tile<T>::kParts == 2 ? i * p.N + w.n0
                                           : w.n0 + i * kBRows,
                      fb);
+    }
+    if constexpr (HasSideTile<Epi>::value) {
+      // the tile's side tile, once the previous tile's epilogue is done
+      // with it (after this tile's stages: those run ahead of it)
+      if (p.side) {
+        using SideT = typename Epi::SideT;
+        constexpr int kSB = SideBoxes<Epi>::value;
+        const uint32_t sfull = base + S::kSideBar, sempty = sfull + 8;
+        bar_wait(sempty, (sit & 1) ^ 1);
+        bar_expect_tx(sfull, p.side == 2 ? 2 * kSB * kBoxBytes : 0);
+        if (p.side == 2)
+          for (int i = 0; i < 2 * kSB; ++i)
+            tma_load(side_box<T>(base, i), side_in,
+                     w.n0 + (i % kSB) * (128 / (int)sizeof(SideT)),
+                     w.row0 + (i / kSB) * kBoxRows, sfull);
+        ++sit;
+      }
     }
   }
 }
@@ -339,17 +556,19 @@ __device__ __forceinline__ void load_tf32(uint32_t (&h)[4][4],
   }
 }
 
-// The stage's twelve 3xTF32 products of outputs [n0, n0 + N) of the slot's
-// B (bh, bl: its high and low parts) into d; `acc` 0 starts d from zero.
+// The stage's 3xTF32 products of k8 steps [j0, j1) and outputs [n0, n0 +
+// N) of the slot's B (bh, bl: its high and low parts) into d, each step
+// a_hi w_lo, a_lo w_hi, a_hi w_hi; `acc` 0 starts d from zero.
 template <int N>
 __device__ __forceinline__ void products_tf32(float (&d)[N / 2],
                                               const uint32_t (&h)[4][4],
                                               const uint32_t (&l)[4][4],
                                               uint32_t bh, uint32_t bl,
-                                              int acc) {
+                                              int acc, int j0 = 0,
+                                              int j1 = 4) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    Wgmma<N>::tf32(d, h[j], desc_k128(bl + 32 * j), acc || j > 0);
+  for (int j = j0; j < j1; ++j) {
+    Wgmma<N>::tf32(d, h[j], desc_k128(bl + 32 * j), acc || j > j0);
     Wgmma<N>::tf32(d, l[j], desc_k128(bh + 32 * j), 1);
     Wgmma<N>::tf32(d, h[j], desc_k128(bh + 32 * j), 1);
   }
@@ -407,31 +626,38 @@ __device__ __forceinline__ void mainloop_tf32(float (&d)[NN / 2],
   if (wtid == 0) release_slot(empty + 8 * prev);
 }
 
-// f32 with kSplit: one stage with the fragment registers (h, l) of its
-// parity, its products in two halves of the tile's NN outputs, each summed
-// apart from zero into p0 and p1; the half issued before each one is added
-// to d once it completed (pending: 0 none, 1 p0, 2 p1), and the previous
-// stage's slot released once its second half completed.
+// Half `half` of the tile's NN outputs (its n-tiles), summed apart in p,
+// added to d in f32 once its products completed.
 template <int NN>
+__device__ __forceinline__ void add_half(float (&d)[NN / 2],
+                                         float (&p)[NN / 4], int half) {
+  constexpr int kH = NN / 2;
+  fence_regs(p);
+#pragma unroll
+  for (int j = 0; j < kH / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      d[4 * (j + half * kH / 8) + q] =
+          __fadd_rn(d[4 * (j + half * kH / 8) + q], p[4 * j + q]);
+}
+
+// f32 with kSplit input channels a partial sum: one stage with the
+// fragment registers (h, l) of its parity, its k8 steps in groups of
+// kSplit / 8, each group's products in two halves of the tile's NN outputs
+// summed apart from zero into p0 and p1. After each half is issued, the
+// half issued before it is added to d once it completed (`pending`: p1
+// holds a sum not yet added), and the previous stage's slot is released
+// once the last group that read it (its second half) completed.
+template <int NN, int kSplit>
 __device__ __forceinline__ void stage_tf32_split(
     float (&d)[NN / 2], float (&p0)[NN / 4], float (&p1)[NN / 4],
     uint32_t (&h)[4][4], uint32_t (&l)[4][4], const unsigned char* smem,
-    uint32_t base, int wg, int wtid, int& it, int& prev, int& pending) {
+    uint32_t base, int wg, int wtid, int& it, int& prev, bool& pending) {
   using S = Smem<float>;
-  constexpr int kBN = Tile<float>::kBN, kH = NN / 2;
+  constexpr int kBN = Tile<float>::kBN, kH = NN / 2, kG = kSplit / 8;
   const uint32_t full = base + S::kBar, empty = full + 8 * S::kStages;
   const int slot = it % S::kStages, ph = (it / S::kStages) & 1;
   const uint32_t sb = base + slot * S::kSlot + kABytes;
-  // add the completed half's sums to d (its columns: the half's n-tiles)
-  auto add = [&](float(&p)[NN / 4], int half) {
-    fence_regs(p);
-#pragma unroll
-    for (int j = 0; j < kH / 8; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        d[4 * (j + half * kH / 8) + q] =
-            __fadd_rn(d[4 * (j + half * kH / 8) + q], p[4 * j + q]);
-  };
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     fence_regs(h[j]);  // the products that read them have completed
@@ -439,52 +665,53 @@ __device__ __forceinline__ void stage_tf32_split(
   }
   bar_wait(full + 8 * slot, ph);
   load_tf32(h, l, smem + slot * S::kSlot + wg * kBoxBytes, wtid);
-  wgmma_fence();
-  products_tf32<kH>(p0, h, l, sb, sb + kBN * 128, 0);
-  wgmma_commit();
-  if (pending == 2) {  // the previous stage's second half
+#pragma unroll
+  for (int j0 = 0; j0 < 4; j0 += kG) {
+    wgmma_fence();
+    products_tf32<kH>(p0, h, l, sb, sb + kBN * 128, 0, j0, j0 + kG);
+    wgmma_commit();
+    if (pending) {  // the previous group's second half
+      wgmma_wait<1>();
+      add_half<NN>(d, p1, 1);
+      if (j0 == 0 && wtid == 0) release_slot(empty + 8 * prev);
+    }
+    wgmma_fence();
+    products_tf32<kH>(p1, h, l, sb + kH * 128, sb + kBN * 128 + kH * 128, 0,
+                      j0, j0 + kG);
+    wgmma_commit();
     wgmma_wait<1>();
-    add(p1, 1);
-    if (wtid == 0) release_slot(empty + 8 * prev);
+    add_half<NN>(d, p0, 0);
+    pending = true;
   }
-  wgmma_fence();
-  products_tf32<kH>(p1, h, l, sb + kH * 128, sb + kBN * 128 + kH * 128, 0);
-  wgmma_commit();
-  wgmma_wait<1>();
-  add(p0, 0);
-  pending = 2;
   prev = slot;
   ++it;
 }
 
-template <int NN>
+template <int NN, int kSplit>
 __device__ __forceinline__ void mainloop_tf32_split(float (&d)[NN / 2],
                                                     const unsigned char* smem,
                                                     uint32_t base, int KT,
                                                     int wg, int wtid,
                                                     int& it) {
+  static_assert(kSplit == 8 || kSplit == 16 || kSplit == 32,
+                "a partial sum is a whole number of k8 steps of a stage");
   using S = Smem<float>;
   const uint32_t empty = base + S::kBar + 8 * S::kStages;
   uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
   float p0[NN / 4], p1[NN / 4];
-  int prev = -1, pending = 0;
+  int prev = -1;
+  bool pending = false;
 #pragma unroll
   for (int i = 0; i < NN / 2; ++i) d[i] = 0.f;
   for (int kt = 0; kt < KT; kt += 2) {
-    stage_tf32_split<NN>(d, p0, p1, h0, l0, smem, base, wg, wtid, it, prev,
-                         pending);
+    stage_tf32_split<NN, kSplit>(d, p0, p1, h0, l0, smem, base, wg, wtid, it,
+                                 prev, pending);
     if (kt + 1 < KT)
-      stage_tf32_split<NN>(d, p0, p1, h1, l1, smem, base, wg, wtid, it, prev,
-                           pending);
+      stage_tf32_split<NN, kSplit>(d, p0, p1, h1, l1, smem, base, wg, wtid,
+                                   it, prev, pending);
   }
   wgmma_wait<0>();
-  fence_regs(p1);
-#pragma unroll
-  for (int j = 0; j < NN / 16; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      d[4 * (j + NN / 16) + q] = __fadd_rn(d[4 * (j + NN / 16) + q],
-                                           p1[4 * j + q]);
+  add_half<NN>(d, p1, 1);
   if (wtid == 0) release_slot(empty + 8 * prev);
 }
 
@@ -502,18 +729,27 @@ __device__ __forceinline__ void put2(unsigned char* dst, float v0, float v1) {
 // The epilogue of an NN-wide tile: each accumulator pair through Epi,
 // rounded to T into the warpgroup's staging tile, then TMA stores of its
 // 128-byte boxes once the previous tile's stores have read it (neither
-// where Epi stores nothing).
+// where Epi stores nothing). With a side tile (HasSideTile, its loads
+// landed): each pair reads and writes its side values there, and the
+// warpgroup's side boxes go out with its first round.
 template <typename T, typename Epi, int NN>
 __device__ __forceinline__ void epilogue(Acc<T> (&d)[NN / 2],
                                          const CUtensorMap* out,
+                                         const CUtensorMap* side_out,
                                          const typename Epi::Args& e,
-                                         unsigned char* stg, Where w, int wg,
-                                         int wtid) {
+                                         const Pass& p, unsigned char* smem,
+                                         uint32_t base, unsigned char* stg,
+                                         Where w, int wg, int wtid) {
   constexpr int kCols = 128 / (int)sizeof(T);  // channels a box
   constexpr int kRounds = Tile<T>::kRounds;
   constexpr int kPer = Tile<T>::kBN / kCols / kRounds;  // boxes a round
+  constexpr bool kSide = HasSideTile<Epi>::value;
   const bool st = Epi::stores(e);
   const int row0 = w.row0 + wg * kBoxRows;
+  static_assert(!kSide || (NN == kBRows && Tile<T>::kParts == 1 &&
+                          Smem<T>::kStages >= SideBoxes<Epi>::value),
+                "a side tile lies in the unused halves of 128-wide tiles' B "
+                "stages");
 #pragma unroll
   for (int rd = 0; rd < kRounds && rd * kPer < NN / kCols; ++rd) {
     if (st) {
@@ -524,7 +760,19 @@ __device__ __forceinline__ void epilogue(Acc<T> (&d)[NN / 2],
       const int byte = c * (int)sizeof(T), bx = byte >> 7;
       if (bx / kPer != rd) return;
       float v0, v1;
-      Epi::pair(e, row0 + r, w.n0 + c, a0, a1, v0, v1);
+      if constexpr (kSide) {
+        const int sb = c * (int)sizeof(typename Epi::SideT);
+        unsigned char* sp =
+            p.side ? smem +
+                         (side_box<T>(base, wg * SideBoxes<Epi>::value +
+                                                (sb >> 7)) -
+                          base) +
+                         sw128(r, sb & 127)
+                   : nullptr;
+        Epi::pair(e, row0 + r, w.n0 + c, a0, a1, sp, v0, v1);
+      } else {
+        Epi::pair(e, row0 + r, w.n0 + c, a0, a1, v0, v1);
+      }
       if (st)
         put2<T>(stg + (bx - rd * kPer) * kBoxBytes + sw128(r, byte & 127), v0,
                 v1);
@@ -537,38 +785,61 @@ __device__ __forceinline__ void epilogue(Acc<T> (&d)[NN / 2],
       for (int bx = rd * kPer; bx < (rd + 1) * kPer && bx < NN / kCols; ++bx)
         tma_store(out, smem_u32(stg) + (bx - rd * kPer) * kBoxBytes,
                   w.n0 + bx * kCols, row0);
+      if constexpr (kSide)
+        if (p.side && rd == 0)  // the side tile: one round (int8)
+          for (int i = 0; i < SideBoxes<Epi>::value; ++i)
+            tma_store(side_out,
+                      side_box<T>(base, wg * SideBoxes<Epi>::value + i),
+                      w.n0 + i * (128 / (int)sizeof(typename Epi::SideT)),
+                      row0);
       bulk_commit();
     }
   }
 }
 
-// One NN-wide tile of a consumer warpgroup.
-template <typename T, typename Epi, bool kSplit, int NN>
-__device__ __forceinline__ void tile_of(const CUtensorMap* out, const Pass& p,
+// One NN-wide tile of a consumer warpgroup; with a side tile, the
+// epilogue waits for its loads (the producer's), and once the epilogue's
+// stores have read it the tile is the producer's again (`sit`: the side
+// tiles the warpgroup has had).
+template <typename T, typename Epi, int kSplit, int NN>
+__device__ __forceinline__ void tile_of(const CUtensorMap* out,
+                                        const CUtensorMap* side_out,
+                                        const Pass& p,
                                         const typename Epi::Args& e,
-                                        const unsigned char* smem,
-                                        uint32_t base, unsigned char* stg,
-                                        Where w, int wg, int wtid, int& it) {
+                                        unsigned char* smem, uint32_t base,
+                                        unsigned char* stg, Where w, int wg,
+                                        int wtid, int& it, int& sit) {
   Acc<T> d[NN / 2];
   const int KT = p.st0 + p.st1;
   if constexpr (!std::is_same<T, float>::value)
     mainloop_ss<T, NN>(d, base, KT, wg, wtid, it);
-  else if constexpr (kSplit)
-    mainloop_tf32_split<NN>(d, smem, base, KT, wg, wtid, it);
+  else if constexpr (kSplit > 0)
+    mainloop_tf32_split<NN, kSplit>(d, smem, base, KT, wg, wtid, it);
   else
     mainloop_tf32<NN>(d, smem, base, KT, wg, wtid, it);
-  epilogue<T, Epi, NN>(d, out, e, stg, w, wg, wtid);
+  const uint32_t sfull = base + Smem<T>::kSideBar;
+  if (HasSideTile<Epi>::value && p.side) bar_wait(sfull, sit & 1);
+  epilogue<T, Epi, NN>(d, out, side_out, e, p, smem, base, stg, w, wg, wtid);
+  if (HasSideTile<Epi>::value && p.side) {
+    if (wtid == 0) {
+      bulk_wait_read<0>();
+      arrive(sfull + 8);
+    }
+    ++sit;
+  }
 }
 
-template <typename T, typename Epi, bool kSplit>
+template <typename T, typename Epi, int kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     wide_pass(const __grid_constant__ CUtensorMap a0,
               const __grid_constant__ CUtensorMap a1,
               const __grid_constant__ CUtensorMap b,
-              const __grid_constant__ CUtensorMap out, const Pass p,
+              const __grid_constant__ CUtensorMap out,
+              const __grid_constant__ CUtensorMap side_in,
+              const __grid_constant__ CUtensorMap side_out, const Pass p,
               const typename Epi::Args e) {
   using S = Smem<T>;
-  constexpr int kBN = Tile<T>::kBN;
+  constexpr int kBN = TileN<T, Epi>::value;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
@@ -580,6 +851,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       bar_init(base + S::kBar + 8 * s, 1);
       bar_init(base + S::kBar + 8 * (S::kStages + s), 2 * kC);
     }
+    bar_init(base + S::kSideBar, 1);      // the side tile's loads landed
+    bar_init(base + S::kSideBar + 8, 2);  // both warpgroups are done with it
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -587,21 +860,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = threadIdx.x / kWG, wtid = threadIdx.x % kWG;
   if (wg == 2) {  // the producer: its registers go to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (wtid == 0) produce<T>(&a0, &a1, &b, p, base, groups, ntn, rank);
+    if (wtid == 0)
+      produce<T, Epi, kBN>(&a0, &a1, &b, &side_in, p, base, groups, ntn,
+                           rank);
     cluster_sync();
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   unsigned char* stg = smem + S::kStage + wg * S::kOut;
-  int it = 0;
+  int it = 0, sit = 0;
   for (int gi = blockIdx.x / kC; gi < groups; gi += gridDim.x / kC) {
-    const Where w = where<T>(gi, ntn, rank);
+    const Where w = where<kBN>(gi, ntn, rank);
     if (kBN == 256 && p.N - w.n0 < kBN)
-      tile_of<T, Epi, kSplit, 128>(&out, p, e, smem, base, stg, w, wg, wtid,
-                                   it);
+      tile_of<T, Epi, kSplit, 128>(&out, &side_out, p, e, smem, base, stg, w,
+                                   wg, wtid, it, sit);
     else
-      tile_of<T, Epi, kSplit, kBN>(&out, p, e, smem, base, stg, w, wg, wtid,
-                                   it);
+      tile_of<T, Epi, kSplit, kBN>(&out, &side_out, p, e, smem, base, stg, w,
+                                   wg, wtid, it, sit);
   }
   if (wtid == 0) bulk_wait<0>();  // the stores have landed
   cluster_sync();  // no block leaves while another may copy or release
@@ -651,15 +926,19 @@ struct Shape {
 
 // One pass on one block an SM, kC-block clusters (at most one a group of
 // tiles): a1 is read only where p.st1 > 0; `out` only where
-// Epi::stores(e).
-template <typename T, typename Epi, bool kSplit = false>
+// Epi::stores(e); with a side tile (p.side) side_in where p.side is 2 and
+// side_out. kSplit (f32): the input channels a partial sum, 0 one running
+// sum.
+template <typename T, typename Epi, int kSplit = 0>
 cudaError_t launch_pass(const CUtensorMap& a0, const CUtensorMap& a1,
                         const CUtensorMap& b, const CUtensorMap& out,
-                        const Pass& p, const typename Epi::Args& e,
-                        cudaStream_t stream) {
-  constexpr int kBN = Tile<T>::kBN;
+                        const CUtensorMap& side_in,
+                        const CUtensorMap& side_out, const Pass& p,
+                        const typename Epi::Args& e, cudaStream_t stream) {
+  constexpr int kBN = TileN<T, Epi>::value;
   if (p.rows <= 0) return cudaSuccess;
-  if (p.N % 128 != 0 || p.st0 < 1 || p.st1 < 0)
+  if (p.N % 128 != 0 || p.st0 < 1 || p.st1 < 0 || p.side < 0 ||
+      p.side > 2 || (p.side && !HasSideTile<Epi>::value))
     return cudaErrorInvalidValue;
   cudaError_t err;
   int dev = 0, sms = 0;
@@ -672,7 +951,15 @@ cudaError_t launch_pass(const CUtensorMap& a0, const CUtensorMap& a1,
   const int clusters = (int)(groups < sms / kC ? groups : sms / kC);
   return launch_cluster<T, kC, Shape>(wide_pass<T, Epi, kSplit>, a0,
                                       kC * clusters, Smem<T>::kBytes, stream,
-                                      a1, b, out, p, e);
+                                      a1, b, out, side_in, side_out, p, e);
+}
+// A pass without a side tile.
+template <typename T, typename Epi, int kSplit = 0>
+cudaError_t launch_pass(const CUtensorMap& a0, const CUtensorMap& a1,
+                        const CUtensorMap& b, const CUtensorMap& out,
+                        const Pass& p, const typename Epi::Args& e,
+                        cudaStream_t stream) {
+  return launch_pass<T, Epi, kSplit>(a0, a1, b, out, out, out, p, e, stream);
 }
 
 }  // namespace wideh

@@ -47,7 +47,10 @@ frame entry points: ``prepare_fused_params``, and
 packs and stages every step for K3): each layer in stages laid
 out as Hopper's ``wgmma`` reads them (``staging.stage_matrices``), f32 as
 TF32 high and low parts; K3, the training forward on K1's chain, reads the
-same image, staged every training step (the weights change). K2 reads
+same image, staged every training step (the weights change); on the
+training kernels' wide form K3, K4 and K8 read the training image
+(``stage_wide_train``: each layer [out, in] row-major, the pass
+skeleton's B). K2 reads
 ``head_q`` and ``body_q`` from an s8 image staged the same way
 (``stage_int8_chain``, by ``calibrate_r2l_int8_pe`` unless
 ``stage=False``); K4/K8 from their own (``stage_int8_train``: their stage
@@ -67,7 +70,7 @@ import numpy as np
 import torch
 
 from ..models.r2l import R2L, R2LConfig
-from .staging import stage_matrices, unstage_matrices
+from .staging import stage_matrices, tf32_split, unstage_matrices
 
 K_ALIGN = 128  # head input columns are padded to a multiple of this
 # K1/K9/K3's shape by weight dtype (csrc/r2l_hopper.cuh, Chain): input
@@ -102,15 +105,21 @@ class FusedParams(_ChainFields):
     ``r2l_embed``'s order from ``prepare_fused_params``, freq-major from
     ``prepare_fused_params_pe``); the fields are the JAX package's.
 
-    Beside them, not among them, ``staged``: K1/K9's weight image
-    (``stage_chain_weights``), or None where the packing did not stage.
-    ``_replace`` keeps it unless given ``staged=``."""
+    Beside them, not among them, ``staged``: a weight image, or None where
+    the packing did not stage; and ``staged_for``, the kernels it was
+    staged for: "K1" (K1/K9/K3, ``stage_chain_weights``), "wide" (the
+    frame's wide form, ``stage_wide_chain``) or "wide_train" (the training
+    forward's wide form, ``stage_wide_train``). ``_replace`` keeps both
+    unless given ``staged=`` (and ``staged_for=``)."""
     staged: torch.Tensor | None = None
+    staged_for: str | None = None
 
     def _replace(self, **kw) -> "FusedParams":
         staged = kw.pop("staged", self.staged)
+        staged_for = kw.pop("staged_for", self.staged_for
+                            if staged is self.staged else None)
         out = super()._replace(**kw)
-        out.staged = staged
+        out.staged, out.staged_for = staged, staged_for
         return out
 
 
@@ -137,7 +146,8 @@ class FusedParamsInt8PE(_Int8Fields):
     epilogue table, or None where the calibration did not stage; and
     ``staged_for``, the kernel it was staged for: "K2" (the frame,
     ``stage_int8_chain``), "wide" (K2's wide form, ``stage_wide_chain``),
-    "K4" or "K8" (the training forward, ``stage_int8_train``).
+    "K4" or "K8" (the training forward, ``stage_int8_train``), or
+    "wide_train" (K4/K8's wide form, ``stage_wide_train``).
     ``_replace`` keeps both unless given ``staged=`` (and
     ``staged_for=``)."""
     staged: torch.Tensor | None = None
@@ -356,9 +366,9 @@ def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
     if stage:
         W = fp.body_b.shape[-1]
         if not wide_form(W):
-            fp.staged = stage_chain_weights(fp)
+            fp.staged, fp.staged_for = stage_chain_weights(fp), "K1"
         elif W % WIDE_CHANNELS == 0:
-            fp.staged = stage_wide_chain(fp)
+            fp.staged, fp.staged_for = stage_wide_chain(fp), "wide"
     return fp
 
 
@@ -826,11 +836,12 @@ def stage_int8_train(fp: FusedParamsInt8PE, cfg: R2LConfig, dim_pts: int,
     W] f32, the inverse input scale of every body layer. Made after each
     calibration (the int8 training kinds: every step). A student on the
     training kernels' wide form (``wide_train_form``, at a multiple of
-    ``WIDE_CHANNELS``) gets the wide form's image instead
-    (``stage_wide_chain``, staged for "wide"; both kinds read it)."""
+    ``WIDE_CHANNELS``) gets the training image instead
+    (``stage_wide_train``, staged for "wide_train"; both kinds read it)."""
     W = cfg.netwidth
     if wide_train_form(W, True, L) and W % WIDE_CHANNELS == 0:
-        return fp._replace(staged=stage_wide_chain(fp), staged_for="wide")
+        return fp._replace(staged=stage_wide_train(fp),
+                           staged_for="wide_train")
     k = int8_train_stage_k(W, stash_q)
     img = torch.cat([stage_int8_chain(fp, cfg, dim_pts, L, k),
                      fp.body_inv.float().contiguous().view(torch.uint8)
@@ -1202,6 +1213,73 @@ def unstage_wide_chain(staged: torch.Tensor, cfg: R2LConfig,
             "body_m": mb[1:, :, 0], "body_b": mb[1:, :, 1]}
 
 
+def wide_train_stage_plan(cfg: R2LConfig, dtype: torch.dtype,
+                          in_dim: int | None = None) -> dict:
+    """The training image (``stage_wide_train``) of ``cfg`` in ``dtype``
+    (bf16, f32 or int8): ``wide_stage_plan``'s keys, f32 twice the bytes
+    (its TF32 high and low parts), and 'parts'."""
+    plan = wide_stage_plan(cfg, dtype, in_dim)
+    parts = 2 if dtype == torch.float32 else 1
+    for k in ("head_bytes", "layer_bytes", "weights_bytes"):
+        plan[k] *= parts
+    plan["nbytes"] = plan["weights_bytes"] + plan["table_bytes"]
+    plan["parts"] = parts
+    return plan
+
+
+def _layer_bytes(w: torch.Tensor) -> torch.Tensor:
+    """Weights [..., N, K] as the pass skeleton reads B, matrix by matrix:
+    bf16 and int8 row-major; f32 each matrix's TF32 high parts [N, K], then
+    its low parts (``staging.tf32_split``)."""
+    w = w.contiguous()
+    if w.dtype != torch.float32:
+        return w.view(torch.uint8).reshape(-1)
+    hi, lo = tf32_split(w)
+    return torch.stack([hi, lo], -3).contiguous().view(torch.uint8).reshape(
+        -1)
+
+
+def stage_wide_train(fp: FusedParams | FusedParamsInt8PE) -> torch.Tensor:
+    """The training forward's wide image (uint8, ``wide_train_stage_plan``;
+    ``csrc/r2l_wide_train.cu``): the head's weights (``head_w`` or
+    ``head_q`` [W, in_pad], freq-major), then each body layer's, each [out,
+    in] row-major as the pass skeleton (``csrc/wide_hopper.cuh``) reads B
+    (``_layer_bytes``: f32 its TF32 high parts, then its low parts, a layer
+    at a time); for int8 then the epilogue table, (m, b) interleaved a
+    channel, the head's row first."""
+    if isinstance(fp, FusedParamsInt8PE):
+        table = torch.cat([
+            torch.stack([fp.head_m, fp.head_b], -1).reshape(-1),
+            torch.stack([fp.body_m, fp.body_b], -1).reshape(-1)])
+        return torch.cat([_layer_bytes(fp.head_q), _layer_bytes(fp.body_q),
+                          table.float().contiguous().view(torch.uint8)])
+    return torch.cat([_layer_bytes(fp.head_w), _layer_bytes(fp.body_w)])
+
+
+def unstage_wide_train(staged: torch.Tensor, cfg: R2LConfig,
+                       dtype: torch.dtype, in_dim: int | None = None
+                       ) -> dict[str, torch.Tensor]:
+    """The fields back from a training image: 'head_w' [W, kpad] and
+    'body_w' [nb*nl, W, W] (f32: the TF32 high parts, and 'head_w_lo',
+    'body_w_lo' the low parts), or for int8 'head_q', 'body_q' and 'head_m',
+    'head_b' [W], 'body_m', 'body_b' [nb*nl, W]."""
+    plan = wide_train_stage_plan(cfg, dtype, in_dim)
+    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
+    parts, cut, end = plan["parts"], plan["head_bytes"], plan["weights_bytes"]
+    head = staged[:cut].clone().view(dtype).view(parts, W, plan["kpad"])
+    body = staged[cut:end].clone().view(dtype).view(nbl, parts, W, W)
+    if dtype == torch.float32:
+        return {"head_w": head[0], "head_w_lo": head[1],
+                "body_w": body[:, 0], "body_w_lo": body[:, 1]}
+    if dtype != torch.int8:
+        return {"head_w": head[0], "body_w": body[:, 0]}
+    mb = staged[end:end + plan["table_bytes"]].clone().view(
+        torch.float32).view(1 + nbl, W, 2)
+    return {"head_q": head[0], "body_q": body[:, 0],
+            "head_m": mb[0, :, 0], "head_b": mb[0, :, 1],
+            "body_m": mb[1:, :, 0], "body_b": mb[1:, :, 1]}
+
+
 def _aligned(nbytes: int) -> int:
     return -(-nbytes // 256) * 256
 
@@ -1220,14 +1298,19 @@ def wide_scratch_bytes(rows: int, W: int, dtype: torch.dtype, nl: int,
     return (2 + min(nl - 1, 2) + int(use_residual)) * _aligned(e * es)
 
 
-def _need_wide_image(fp, int8: bool) -> None:
-    """Raise ValueError where ``fp`` carries no image of the wide form."""
-    if getattr(fp, "staged", None) is None or (
-            int8 and fp.staged_for != "wide"):
+def _need_wide_image(fp, form: str = "wide") -> None:
+    """Raise ValueError where ``fp`` carries no image staged for ``form``:
+    "wide" the frame's wide form (``stage_wide_chain``), "wide_train" the
+    training forward's (``stage_wide_train``)."""
+    if getattr(fp, "staged", None) is None or fp.staged_for != form:
         raise ValueError(
-            "fp has no staged image of the wide form: pack it with "
-            "prepare_fused_params, prepare_fused_params_pe or "
-            "calibrate_r2l_int8_pe (stage=True) at its kernel width")
+            "fp has no staged image of the wide form"
+            + (": pack it with prepare_fused_params, prepare_fused_params_pe"
+               " or calibrate_r2l_int8_pe (stage=True) at its kernel width"
+               if form == "wide" else
+               " for training (stage_wide_train): stage it with "
+               "r2l_train.prepare_train_params (bf16, f32) or "
+               "stage_int8_train (int8)"))
 
 
 def wide_rows(n: int, W: int, dtype: torch.dtype, nl: int,
@@ -1293,7 +1376,7 @@ def fused_r2l_apply_pe_wide(fp: FusedParams, cfg: R2LConfig,
     if pts.device.type == "cpu":
         return fused_r2l_apply_pe_ref(fp, cfg, pts, dim_pts, L)
     _refuse_frame(cfg, "K1's wide form (fused_r2l_apply_pe_wide)", L=L)
-    _need_wide_image(fp, False)
+    _need_wide_image(fp)
     cfg, dev, in_dim = kernel_cfg(cfg), pts.device, dim_pts * (2 * L + 1)
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     _check_chain_params(fp, cfg, in_dim, dev)
@@ -1314,7 +1397,7 @@ def fused_r2l_apply_wide(fp: FusedParams, cfg: R2LConfig,
     if x.device.type == "cpu":
         return fused_r2l_apply_ref(fp, cfg, x)
     _refuse_frame(cfg, "K9's wide form (fused_r2l_apply_wide)")
-    _need_wide_image(fp, False)
+    _need_wide_image(fp)
     cfg = kernel_cfg(cfg)
     dev, n, in_dim = x.device, x.shape[0], cfg.input_dim
     if not x.is_floating_point():
@@ -1343,7 +1426,7 @@ def fused_r2l_apply_int8_pe_wide(fp: FusedParamsInt8PE, cfg: R2LConfig,
                                            fold_requant, nobf16_inner)
     _refuse_frame(cfg, "K2's wide form (fused_r2l_apply_int8_pe_wide)",
                   int8=True, L=L)
-    _need_wide_image(fp, True)
+    _need_wide_image(fp)
     cfg, dev = kernel_cfg(cfg, int8=True, L=L), pts.device
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     _check_int8_params(fp, cfg, dim_pts, L, dev)

@@ -26,15 +26,19 @@ Counterpart of ``r2l_tpu/kernels/r2l_train_pallas.py``. Three kernels:
 The chain kernels are built for the widths of ``R2L_KERNEL_WIDTHS``. Every
 other multiple of ``WIDE_CHANNELS`` (and an int8 student whose 2L+1
 encoding parts overflow K4's head slice) runs on the wide form of the same
-three (``wide_train_form``; ``csrc/r2l_wide_train.cu`` over the frame's
-wide passes, ``r2l_wide.cuh``; ``csrc/r2l_wide_bwd.cu``, its dh walk on the
-pass skeleton ``wide_hopper.cuh`` and its dW pass on ``wgmma``):
-``train_fwd_wide``, ``train_fwd_int8_wide`` and ``bwd_group_wide``, each
-with its own launch counter, to which the three wrappers send such a
-student. They read the wide form's images: K3 ``stage_wide_chain``'s of
-the live weights (staged by the step's packing), K4/K8 the calibration's
-(``stage_int8_train``), K5 the step's ``stage_bwd_weights``, every layer
-[in, out] row-major.
+three (``wide_train_form``), every layer a pass of the Hopper pass
+skeleton ``csrc/wide_hopper.cuh`` (``wgmma`` fed by TMA):
+``csrc/r2l_wide_train.cu`` (the head's input encoded once by a kernel of
+its own, ``train_encoding_ref`` its plain twin, then a pass a layer, then
+the tail's reduction) and ``csrc/r2l_wide_bwd.cu`` (its dh walk on the
+skeleton, its dW pass on ``wgmma``): ``train_fwd_wide``,
+``train_fwd_int8_wide`` and ``bwd_group_wide``, each with its own launch
+counter, to which the three wrappers send such a student. They read the
+wide form's images: K3 ``stage_wide_train``'s of the live weights (staged
+every step by ``prepare_train_params``), K4/K8 the calibration's
+(``stage_int8_train``, the same layout in int8 with its epilogue table),
+every layer [out, in] row-major; K5 the step's ``stage_bwd_weights``,
+every layer [in, out] row-major.
 
 Each public wrapper runs its plain PyTorch version (``*_ref``, the Pallas
 kernel body written out) for tensors on the CPU only. For a CUDA tensor it
@@ -70,7 +74,8 @@ from .r2l_fused import (CHAIN_STAGE_K, INT8_BLOCK_RAYS, WIDE_CHANNELS,
                         calibrate_r2l_int8_pe, chain_stage_plan,
                         fused_kernel_supported, int8_train_stage_plan,
                         prepare_fused_params_pe, stage_int8_train,
-                        wide_stage_plan, wide_train_form)
+                        stage_wide_train, wide_train_form,
+                        wide_train_stage_plan)
 from .staging import stage_matrices, tf32_split, unstage_matrices
 
 
@@ -539,17 +544,57 @@ def _refuse_wide(cfg: R2LConfig, kernel: str, int8: bool = False,
             "layers per block and L >= 1", cfg, L)
 
 
-def wide_train_scratch_bytes(n: int, W: int, int8: bool, stash_q: bool,
-                             use_residual: bool) -> int:
+def wide_train_scratch_bytes(n: int, W: int, dtype: torch.dtype,
+                             in_dim: int, stash_q: bool = False,
+                             use_residual: bool = True) -> int:
     """The scratch one wide training forward on n rays needs
-    (``csrc/r2l_wide_train.cu``, k48_scratch): none for K3; K4 an f32
-    residual stream, K8 two code buffers, and with the global residual an
-    f32 h0; each [n, W], 256-byte aligned."""
-    if not int8:
-        return 0
+    (``csrc/r2l_wide_train.cu``, train_scratch): the head's input [n,
+    in_dim padded to 128] in ``dtype`` (bf16, f32; int8 its codes); for
+    int8 then K4's f32 residual stream or K8's two code buffers, and with
+    the global residual an f32 h0, each [n, W]; each 256-byte aligned."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    enc = _aligned(n * _padded_in(in_dim) * es)
+    if dtype != torch.int8:
+        return enc
     e = n * W
-    return ((_aligned(4 * e) if stash_q else 2 * _aligned(e))
+    return (enc + (_aligned(4 * e) if stash_q else 2 * _aligned(e))
             + (_aligned(4 * e) if use_residual else 0))
+
+
+def train_encoding_ref(pts: torch.Tensor, dim_pts: int, L: int,
+                       dtype: torch.dtype,
+                       head_inv: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of the wide forward's encoding kernel
+    (``csrc/r2l_wide_train.cu``, train_encode): pts [n, dim_pts] -> the
+    head's input [n, in_dim padded to 128] in the head's freq-major column
+    order (``_pe_sin_cos_ladder``'s sines by octave, then its cosines, then
+    the points), zero-padded; in ``dtype`` (bf16, f32), or for int8 (with
+    ``head_inv`` [in_dim]) the codes round-half-even(x * inv) clipped to
+    +-127. Bit for bit ``train_fwd_ref``'s and ``train_fwd_int8_ref``'s
+    head input."""
+    p = pts.float()
+    sins, coss = _pe_sin_cos_ladder(p, L)
+    x = torch.cat(sins + coss + [p], dim=1)
+    x = (_q8(x, head_inv) if dtype == torch.int8 else x).to(dtype)
+    return torch.nn.functional.pad(x, (0, _padded_in(x.shape[1])
+                                       - x.shape[1]))
+
+
+def prepare_train_params(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
+                         weight_dtype: torch.dtype) -> FusedParams:
+    """K3's packing of the live weights (``prepare_fused_params_pe``,
+    unpadded: the gradients are the model's), staged for the kernel the
+    step runs: K1's chain image, or on the wide form
+    (``wide_train_form``, at a multiple of ``WIDE_CHANNELS``) the training
+    image (``stage_wide_train``, staged for "wide_train")."""
+    W = cfg.netwidth
+    wide = wide_train_form(W)
+    fp = prepare_fused_params_pe(model, cfg, dim_pts, L,
+                                 weight_dtype=weight_dtype, stage=not wide,
+                                 pad=False)
+    if wide and W % WIDE_CHANNELS == 0:
+        fp = fp._replace(staged=stage_wide_train(fp), staged_for="wide_train")
+    return fp
 
 
 def _launch_train_wide(wrapper, fp, cfg: R2LConfig, pts: torch.Tensor,
@@ -571,8 +616,8 @@ def _launch_train_wide(wrapper, fp, cfg: R2LConfig, pts: torch.Tensor,
     if n == 0:
         return out, stash
     scratch = torch.empty((wide_train_scratch_bytes(
-        n, W, int8, stash_q, cfg.use_residual),), dtype=torch.uint8,
-        device=dev)
+        n, W, wd, dim_pts * (2 * L + 1), stash_q, cfg.use_residual),),
+        dtype=torch.uint8, device=dev)
 
     def field(name, use):
         return _ptr(getattr(fp, name)) if use else None
@@ -596,20 +641,22 @@ def train_fwd_wide(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
                    dim_pts: int, L: int = 10
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """K3's wide form: pts [N, dim_pts] -> (rgb [N, out_dim] f32, stash
-    [2nb+1, N, W] in the weights' dtype), one pass a layer, each writing
-    its output to its stash row. ``fp`` from ``prepare_fused_params_pe(...,
-    pad=False)``, staged (the wide form's image, ``stage_wide_chain``);
-    without the image it raises. ``train_fwd`` sends every
-    ``wide_train_form`` student here. CPU tensors take the plain version."""
+    [2nb+1, N, W] in the weights' dtype): the head's input encoded once,
+    then a pass of the pass skeleton a layer (f32: each k8 step's products
+    summed apart), each storing its output to its stash row, then the
+    tail. ``fp`` from ``prepare_train_params`` (the training image,
+    ``stage_wide_train``); with another image or none it raises.
+    ``train_fwd`` sends every ``wide_train_form`` student here. CPU tensors
+    take the plain version."""
     if pts.device.type == "cpu":
         return train_fwd_ref(fp, cfg, pts, dim_pts, L)
     _refuse_wide(cfg, "K3's wide form (train_fwd_wide)", L=L)
-    _need_wide_image(fp, False)
+    _need_wide_image(fp, "wide_train")
     dev, in_dim = pts.device, dim_pts * (2 * L + 1)
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     wd = _check_chain_params(fp, cfg, in_dim, dev)
     _check(fp.staged, "staged", torch.uint8,
-           (wide_stage_plan(cfg, wd, in_dim)["nbytes"],), dev)
+           (wide_train_stage_plan(cfg, wd, in_dim)["nbytes"],), dev)
     return _launch_train_wide(train_fwd_wide, fp, cfg, pts, dim_pts, L,
                               False)
 
@@ -622,21 +669,22 @@ def train_fwd_int8_wide(fp: FusedParamsInt8PE, cfg: R2LConfig,
                         stash_q: bool = False
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4's (``stash_q``) and K8's wide form: ``train_fwd_int8``'s contract
-    and its plain version's roundings bit for bit, one pass a layer (K4:
-    the codes written to the stash rows and an f32 residual stream in a
-    scratch; K8: the bf16 rows to the stash, the codes to a scratch).
-    ``fp`` from ``calibrate_r2l_int8_pe(..., fold_requant=False)`` with the
-    wide form's image (``stage_int8_train``, staged for "wide"); without it
-    it raises. ``train_fwd_int8`` sends every ``wide_train_form`` student
-    here. CPU tensors take the plain version."""
+    and its plain version's roundings bit for bit, the head's codes encoded
+    once, then a pass of the pass skeleton a layer (K4: the codes stored
+    to the stash rows and an f32 residual stream in a scratch; K8: the
+    bf16 rows to the stash, the codes to a scratch). ``fp`` from
+    ``calibrate_r2l_int8_pe(..., fold_requant=False)`` with the training
+    image (``stage_int8_train``, staged for "wide_train"); with another or
+    none it raises. ``train_fwd_int8`` sends every ``wide_train_form``
+    student here. CPU tensors take the plain version."""
     if pts.device.type == "cpu":
         return train_fwd_int8_ref(fp, cfg, pts, dim_pts, L, stash_q)
     _refuse_wide(cfg, "K4/K8's wide form (train_fwd_int8_wide)", True, L)
-    _need_wide_image(fp, True)
+    _need_wide_image(fp, "wide_train")
     dev = pts.device
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     _check_int8_params(fp, cfg, dim_pts, L, dev)
-    _check(fp.staged, "staged", torch.uint8, (wide_stage_plan(
+    _check(fp.staged, "staged", torch.uint8, (wide_train_stage_plan(
         cfg, torch.int8, dim_pts * (2 * L + 1))["nbytes"],), dev)
     return _launch_train_wide(train_fwd_int8_wide, fp, cfg, pts, dim_pts, L,
                               stash_q,
@@ -738,8 +786,7 @@ def _run_fwd(spec: _Spec, model: R2L, fp, pts: torch.Tensor):
                   else None)
         return rgb, stash, body_w, scales
     # K3's image of the live weights, once per step
-    fp = prepare_fused_params_pe(model, cfg, spec.dim_pts, spec.L,
-                                 weight_dtype=spec.cd, pad=False)
+    fp = prepare_train_params(model, cfg, spec.dim_pts, spec.L, spec.cd)
     rgb, stash = train_fwd(fp, cfg, pts, spec.dim_pts, spec.L)
     return rgb, stash, fp.body_w, None
 
@@ -843,7 +890,8 @@ def make_fused_train_apply(cfg: R2LConfig, dim_pts: int, L: int = 10,
     instead: ``apply_fp(model, pts, fp)`` takes a calibration made by
     ``calibrate(model)``, so that the caller decides how often to
     recalibrate. Each calibration stages the kind's image for K4/K8
-    (``stage_int8_train``); the bf16/f32 kind stages K3's every step.
+    (``stage_int8_train``); the bf16/f32 kind stages K3's every step
+    (``prepare_train_params``).
     """
     _refuse(fused_kernel_supported(cfg) and cfg.n_learnable == 2,
             "the fused training step", f"{_CANONICAL} of two layers per "

@@ -584,11 +584,14 @@ def test_train_kernels_refuse_an_unstaged_image(dev, kind):
 
 @pytest.mark.parametrize("name,op", [("r2l_train_fwd", "HGMMA"),
                                      ("r2l_train_fwd_int8", "IGMMA"),
-                                     ("r2l_wide_bwd", "HGMMA")])
+                                     ("r2l_wide_bwd", "HGMMA"),
+                                     ("r2l_wide_train", "HGMMA"),
+                                     ("r2l_wide_train", "IGMMA")])
 def test_train_kernels_run_on_wgmma(dev, name, op):
-    """The SASS of K3 (bf16, and f32 as TF32) and of K5's wide form (its dh
-    walk on the pass skeleton, its dW pass) holds HGMMA and K4/K8's IGMMA:
-    wgmma, not mma.sync's HMMA/IMMA."""
+    """The SASS of K3 (bf16, and f32 as TF32), of K5's wide form (its dh
+    walk on the pass skeleton, its dW pass) and of K3's wide form holds
+    HGMMA, and K4/K8's (and their wide form's) IGMMA: wgmma, not
+    mma.sync's HMMA/IMMA."""
     import subprocess
     from r2l_tpu_torch.kernels import _build
     _build.load(name)
@@ -741,8 +744,8 @@ def _wide_train_case(name, dev, compute_dtype=torch.bfloat16):
 @pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
 def test_wide_train_fwd_kernel_matches_plain(dev, name, wd):
     cfg, model, _, _, pts, dp, L = _wide_train_case(name, dev)
-    fp = F.prepare_fused_params_pe(model, cfg, dp, L, weight_dtype=wd,
-                                   pad=False)
+    fp = T.prepare_train_params(model, cfg, dp, L, wd)
+    assert fp.staged_for == "wide_train"
     before = (T.train_fwd.launches, T.train_fwd_wide.launches)
     rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
     torch.cuda.synchronize()
@@ -778,7 +781,7 @@ def test_wide_train_fwd_int8_bit_for_bit(dev, name, stash_q):
     fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L, pts[:500],
                                  fold_requant=False, stage=False, pad=False)
     fp = F.stage_int8_train(fp, cfg, dp, L, stash_q)
-    assert fp.staged_for == "wide"
+    assert fp.staged_for == "wide_train"
     before = (T.train_fwd_int8_wide.launches,
               T.train_fwd_int8_wide.launches_bf16)
     rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L, stash_q=stash_q)

@@ -1,8 +1,9 @@
-"""K5 wide's design run (``r2l_tpu_torch/exp/train_wide_variants.py``), on
-the CPU: every variant's source edits still apply to the kernel as built
-(each text once), the copies differ from the sources only there, and the
-command line refuses what it cannot do here. Its timing runs on a GPU
-only."""
+"""The wide training forms' design run
+(``r2l_tpu_torch/exp/train_wide_variants.py``: K5's wide form and the
+forward's), on the CPU: every variant's source edits still apply
+to the kernels as built (each text once) and reach both libraries, the
+copies differ from the sources only there, and the command line refuses
+what it cannot do here. Its timing runs on a GPU only."""
 import pytest
 import torch
 
@@ -26,12 +27,29 @@ def test_variant_edits_apply_once(name, tmp_path):
             assert (tmp_path / name / f.name).read_bytes() == f.read_bytes()
 
 
-def test_variants_edit_what_the_library_builds():
-    """The edited header is one K5's wide library includes."""
-    src = (_build.CSRC / f"{V.LIB}.cu").read_text()
-    assert V.LIB in _build.KERNELS
-    assert all(f'#include "{f}"' in src for name in V.VARIANTS
-               for f, _, _ in V.VARIANTS[name][0])
+@pytest.mark.parametrize("lib", ["LIB", "FWD_LIB"])
+def test_variants_edit_what_the_library_builds(lib):
+    """The edited header is one that K5's wide library and the forward's
+    (the forward rows' variant builds) include."""
+    name = getattr(V, lib)
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    assert name in _build.KERNELS
+    assert all(f'#include "{f}"' in src for n in V.VARIANTS
+               for f, _, _ in V.VARIANTS[n][0])
+
+
+def test_forward_rows_run_every_layer_through_the_edited_passes():
+    """The forward's every layer is a pass of the skeleton
+    (``wideh::launch_pass``, whose epilogue and products the edits replace:
+    bf16 and int8 through the shared-memory products, f32 through the TF32
+    ones of both sum routes) and none is the frame's mma.sync pass; the
+    rows cover K3 bf16, K3 f32, K4 and K8."""
+    src = (_build.CSRC / f"{V.FWD_LIB}.cu").read_text()
+    head = (_build.CSRC / "wide_hopper.cuh").read_text()
+    assert "wideh::launch_pass<C, Epi, kSplit>" in src
+    assert "r2lw::pass<" not in src and "wide_layer" not in src
+    assert head.count("products_tf32<") >= 3   # one sum and the split route
+    assert V.FWD_KINDS == ("k3_bf16", "k3_f32", "k4", "k8")
 
 
 def test_timing_needs_a_card():

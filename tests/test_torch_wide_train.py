@@ -13,9 +13,11 @@ tests/test_torch_train_kernels.py; a plain emulation of the wide dW pass's
 order (ray ranges, 32-ray stages summed apart) against the plain version;
 K5 wide's f32 sum routes at W512/D88 (the dh walk's 32-channel stages and
 the dW pass's 32-ray stages, each summed apart by emulated tensor cores,
-which truncate) within half of K5's f32 limit; the wide images' round
-trips; and a W384/D6 fused step against JAX's fused step on the same
-draws. tests/test_torch_cuda.py holds the CUDA kernels to the plain
+which truncate) within half of K5's f32 limit, and K3 wide's (each k8
+step apart) on every stash row; the wide forward's encoding kernel's
+plain twin bit for bit the plain versions' head input; the wide images'
+round trips; the scratch a call takes; and a W384/D6 fused step against
+JAX's fused step on the same draws. tests/test_torch_cuda.py holds the CUDA kernels to the plain
 versions on the card.
 """
 import ast
@@ -390,9 +392,151 @@ def test_k5_wide_f32_dw_route_keeps_half_the_limit():
     assert 0 < worst <= HALF * TOL_F32, worst
 
 
+def _k3_rows(cfg, fp, pts, mm):
+    """K3's forward (``train_fwd_ref``, f32) with the head's and the body's
+    products through ``mm(a [n, K], w [K, W])``: (rgb, stash)."""
+    return T.train_fwd_ref(fp, cfg, pts, 48, 10,
+                           mm=lambda a, w: mm(a.float(),
+                                              w[:, :a.shape[1]].T.float()))
+
+
+def test_k3_wide_f32_route_keeps_the_limit():
+    """K3 wide's f32 forward at W512/D88 (89 products, K = 1008 at the
+    head and 512 in the body) on 8 seeded rays, its products summed by
+    emulated tensor cores with each k8 step apart (the skeleton's kSplit =
+    8), against the plain f32 forward: every stash row within half of
+    ``TOL_F32`` (the card reads higher than the emulation: PERF.md). The
+    32-channel route (kSplit = 32, K5's), printed beside it, reads more: it
+    is why K3 takes the k8 route."""
+    W, D, dp, L_ = 512, 88, 48, 10
+    cfg = R2LConfig(input_dim=dp * (2 * L_ + 1), netdepth=D, netwidth=W,
+                    compute_dtype=torch.float32)
+    model = init_r2l(cfg, torch.Generator().manual_seed(0),
+                     torch.device("cpu"))
+    pts = t(np.random.default_rng(0).uniform(-2, 2, (8, dp)))
+    fp = F.prepare_fused_params_pe(model, cfg, dp, L_, stage=False,
+                                   weight_dtype=torch.float32, pad=False)
+    rgb_p, plain = T.train_fwd_ref(fp, cfg, pts, dp, L_)
+    worst = {}
+    for group in (8, 32):
+        rgb, stash = _k3_rows(cfg, fp, pts,
+                              lambda a, b, g=group: _mm_tc(a, b, g))
+        rows = (stash - plain).abs().amax(dim=(1, 2))
+        worst[group] = max(float(rows.max()), float((rgb - rgb_p).abs()
+                                                    .max()))
+        print(f"K3 wide f32, {group}-channel sums apart: worst stash row "
+              f"{int(rows.argmax())} {float(rows.max()):.3e} "
+              f"({worst[group] / TOL_F32:.1%} of {TOL_F32:.0e})")
+    assert 0 < worst[8] <= HALF * TOL_F32, worst
+    assert worst[32] > worst[8], worst
+
+
+# ---------------------------------------------------------------------------
+# The wide forward's encoding (csrc/r2l_wide_train.cu, train_encode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L_", [4, 10])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_train_encoding_twin_is_the_head_input(L_, dtype, monkeypatch):
+    """``train_encoding_ref`` is bit for bit the head input of
+    ``train_fwd_ref`` (bf16, f32: the first product's input) and of
+    ``train_fwd_int8_ref`` (its codes), zero-padded to 128 columns, in
+    JAX's ``_pe_sin_cos_ladder`` order (freq-major: sines by octave, then
+    cosines, then the points)."""
+    W, nr, in_dim = 384, 64, DIM * (2 * L_ + 1)
+    cfg = R2LConfig(input_dim=in_dim, netdepth=4, netwidth=W,
+                    compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(L_),
+                     torch.device("cpu"))
+    pts = t(np.random.default_rng(L_).uniform(-2, 2, (nr, DIM)))
+    seen = []
+    if dtype == torch.int8:
+        fp = F.calibrate_r2l_int8_pe(model, cfg, DIM, L_, pts,
+                                     fold_requant=False, stage=False,
+                                     pad=False)
+        mm_int = T._mm_int
+        monkeypatch.setattr(T, "_mm_int", lambda q, w: (
+            seen.append(q), mm_int(q, w))[1])
+        T.train_fwd_int8_ref(fp, cfg, pts, DIM, L_, stash_q=True)
+        enc = T.train_encoding_ref(pts, DIM, L_, dtype, fp.head_inv)
+        want = seen[0].to(torch.int8)
+    else:
+        fp = F.prepare_fused_params_pe(model, cfg, DIM, L_, stage=False,
+                                       weight_dtype=dtype, pad=False)
+        T.train_fwd_ref(fp, cfg, pts, DIM, L_, mm=lambda a, w: (
+            seen.append(a), F._mm_f32(a, w))[1])
+        enc = T.train_encoding_ref(pts, DIM, L_, dtype)
+        want = seen[0]
+    assert enc.dtype == dtype and enc.shape == (nr, F._padded_in(in_dim))
+    assert torch.equal(enc[:, :in_dim].view(torch.uint8),
+                       want.contiguous().view(torch.uint8))
+    assert not enc[:, in_dim:].float().any()
+    sins, coss = JP._pe_sin_cos_ladder(jnp.asarray(n(pts)), L_)
+    jax_x = np.concatenate(sins + coss + [n(pts)], axis=1)
+    got = n(T.train_encoding_ref(pts, DIM, L_, torch.float32))[:, :in_dim]
+    np.testing.assert_allclose(got, jax_x, rtol=0, atol=2.0 ** L_ * 1e-6)
+
+
 # ---------------------------------------------------------------------------
 # The wide images
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("W", [384, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_wide_train_image_round_trip(W, dtype):
+    """``stage_wide_train``: the head's weights [W, kpad] then each body
+    layer's [W, W], row-major (the pass skeleton's B; f32 a layer's TF32
+    high parts, then its low parts), then for int8 the (m, b) table; and
+    back (``unstage_wide_train``), f32 as the two parts, which sum to the
+    weights within TF32's split."""
+    in_dim = DIM * (2 * L + 1)
+    cfg = R2LConfig(input_dim=in_dim, netdepth=6, netwidth=W,
+                    compute_dtype=torch.bfloat16)
+    model = init_r2l(cfg, torch.Generator().manual_seed(W),
+                     torch.device("cpu"))
+    if dtype == torch.int8:
+        pts = t(np.random.default_rng(W).uniform(-2, 2, (64, DIM)))
+        fp = F.calibrate_r2l_int8_pe(model, cfg, DIM, L, pts,
+                                     fold_requant=False, stage=False,
+                                     pad=False)
+        head, body = fp.head_q, fp.body_q
+    else:
+        fp = F.prepare_fused_params_pe(model, cfg, DIM, L, stage=False,
+                                       weight_dtype=dtype, pad=False)
+        head, body = fp.head_w, fp.body_w
+    img = F.stage_wide_train(fp)
+    plan = F.wide_train_stage_plan(cfg, dtype)
+    es = head.element_size()
+    parts = 2 if dtype == torch.float32 else 1
+    assert img.dtype == torch.uint8 and img.numel() == plan["nbytes"]
+    assert plan["head_bytes"] == W * plan["kpad"] * es * parts
+    assert plan["layer_bytes"] == W * W * es * parts
+    back = F.unstage_wide_train(img, cfg, dtype)
+    key = "head_q" if dtype == torch.int8 else "head_w"
+    bkey = "body_q" if dtype == torch.int8 else "body_w"
+    if dtype == torch.float32:
+        for name, w in (("head_w", head), ("body_w", body)):
+            hi, lo = tf32_split(w)
+            assert torch.equal(back[name], hi)
+            assert torch.equal(back[name + "_lo"], lo)
+            d = (back[name] + back[name + "_lo"] - w).abs()
+            assert float((d / w.abs().clamp(1e-30)).max()) <= 2.0 ** -21
+        # layer 1's row 130: its high part at the layer's start, then its
+        # low part W rows on
+        off = plan["head_bytes"] + plan["layer_bytes"] + 130 * W * 4
+        row = img[off:off + W * 4].clone().view(torch.float32)
+        assert torch.equal(row, tf32_split(body[1])[0][130])
+    else:
+        assert torch.equal(back[key], head)
+        assert torch.equal(back[bkey], body)
+        off = plan["head_bytes"] + plan["layer_bytes"] + 130 * W * es
+        row = img[off:off + W * es].clone().view(dtype)
+        assert torch.equal(row, body[1][130])
+    if dtype == torch.int8:
+        for name in ("head_m", "head_b", "body_m", "body_b"):
+            assert torch.equal(back[name], getattr(fp, name)), name
 
 @pytest.mark.parametrize("W", [384, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -425,22 +569,30 @@ def test_bwd_image_round_trip(W, dtype):
 
 @pytest.mark.parametrize("W", [384, 512])
 def test_training_images_are_the_wide_forms(W):
-    """K3's image (the step's packing, ``pad=False``) and K4/K8's
-    (``stage_int8_train``) on the wide form are ``stage_wide_chain``'s, and
-    give the fields back; both int8 kinds read the same one."""
+    """K3's image (the step's packing, ``prepare_train_params``) and
+    K4/K8's (``stage_int8_train``) on the wide form are the training
+    image (``stage_wide_train``, staged for "wide_train", not the frame's
+    ``stage_wide_chain``), and give the fields back; both int8 kinds read
+    the same one; the frame's packing keeps the frame's image."""
     jcfg, params, cfg, model, pts = _case(W, jnp.bfloat16)
-    fp = F.prepare_fused_params_pe(model, cfg, DIM, L, pad=False)
-    assert fp.staged.numel() == F.wide_stage_plan(cfg, torch.bfloat16)[
-        "nbytes"]
-    back = F.unstage_wide_chain(fp.staged, cfg, torch.bfloat16)
-    assert torch.equal(back["head_w"], fp.head_w)
-    assert torch.equal(back["body_w"], fp.body_w)
+    for wd in (torch.bfloat16, torch.float32):
+        fp = T.prepare_train_params(model, cfg, DIM, L, wd)
+        assert fp.staged_for == "wide_train"
+        assert fp.staged.numel() == F.wide_train_stage_plan(cfg, wd)[
+            "nbytes"]
+        back = F.unstage_wide_train(fp.staged, cfg, wd)
+        want = tf32_split(fp.body_w)[0] if wd == torch.float32 else fp.body_w
+        assert torch.equal(back["body_w"], want)
+        assert back["head_w"].shape == fp.head_w.shape
+    frame = F.prepare_fused_params_pe(model, cfg, DIM, L, pad=False)
+    assert frame.staged_for == "wide"
+    assert torch.equal(frame.staged, F.stage_wide_chain(frame))
     fp8 = F.calibrate_r2l_int8_pe(model, cfg, DIM, L, t(pts),
                                   fold_requant=False, stage=False, pad=False)
     imgs = [F.stage_int8_train(fp8, cfg, DIM, L, q) for q in (True, False)]
-    assert all(f.staged_for == "wide" for f in imgs)
+    assert all(f.staged_for == "wide_train" for f in imgs)
     assert torch.equal(imgs[0].staged, imgs[1].staged)
-    back = F.unstage_wide_chain(imgs[0].staged, cfg, torch.int8)
+    back = F.unstage_wide_train(imgs[0].staged, cfg, torch.int8)
     for name in ("head_q", "body_q", "head_m", "head_b", "body_m", "body_b"):
         assert torch.equal(back[name], getattr(fp8, name)), name
 
@@ -452,7 +604,7 @@ def test_int8_head_slice_overflow_goes_wide():
     assert not T.wide_train_form(128, True, 127)
     assert T.wide_train_form(128, True, 128)
     assert not T.wide_train_form(128, False, 128)
-    for Lx, form in ((127, "K4"), (128, "wide")):
+    for Lx, form in ((127, "K4"), (128, "wide_train")):
         cfg = R2LConfig(input_dim=DIM * (2 * Lx + 1), netdepth=4,
                         netwidth=128)
         model = R2L(cfg, device="cpu")
@@ -466,11 +618,48 @@ def test_int8_head_slice_overflow_goes_wide():
 @pytest.mark.parametrize("stash_q,res", [(True, True), (True, False),
                                          (False, True), (False, False)])
 def test_wide_train_scratch(stash_q, res):
-    nr, W = 1000, 384
-    e = nr * W
-    want = (4 * e if stash_q else 2 * e) + (4 * e if res else 0)
-    assert T.wide_train_scratch_bytes(nr, W, True, stash_q, res) == want
-    assert T.wide_train_scratch_bytes(nr, W, False, stash_q, res) == 0
+    """The int8 forms' scratch: the head's codes [n, kpad], then K4's f32
+    stream or K8's two code buffers, and with the global residual an f32
+    h0; K3's the head's input alone, whatever the int8 switches."""
+    nr, W, in_dim = 1000, 384, 48 * 21
+    e, kp = nr * W, 1024
+    want = nr * kp + (4 * e if stash_q else 2 * e) + (4 * e if res else 0)
+    assert T.wide_train_scratch_bytes(nr, W, torch.int8, in_dim, stash_q,
+                                      res) == want
+    for wd, es in ((torch.bfloat16, 2), (torch.float32, 4)):
+        assert T.wide_train_scratch_bytes(nr, W, wd, in_dim, stash_q,
+                                          res) == nr * kp * es
+
+
+_TRAIN_SRC = open(os.path.join(REPO, "r2l_tpu_torch", "kernels", "csrc",
+                               "r2l_wide_train.cu")).read()
+
+
+@pytest.mark.parametrize("nr", [1, 127, 128, 81_920])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_wide_train_scratch_bytes(nr, dtype):
+    """The scratch of a W512/D88 call at L=10 (in_dim 1008, the head's
+    input padded to 1024 columns) for each of the three types, every
+    buffer 256-byte aligned, as the entry point's train_scratch counts it
+    (its formula read from the source) and checks it."""
+    W, in_dim, kp = 512, 48 * 21, 1024
+    es = {torch.bfloat16: 2, torch.float32: 4, torch.int8: 1}[dtype]
+
+    def al(b):
+        return -(-b // 256) * 256
+    for stash_q in (True, False):
+        for res in (True, False):
+            want = al(nr * kp * es)
+            if dtype == torch.int8:
+                want += (al(4 * nr * W) if stash_q else 2 * al(nr * W)) + (
+                    al(4 * nr * W) if res else 0)
+            assert T.wide_train_scratch_bytes(nr, W, dtype, in_dim, stash_q,
+                                              res) == want
+    assert "aligned(n * kp * r2lw::elem_bytes(dtype))" in _TRAIN_SRC
+    assert ("(stash_q ? aligned(4 * e) : 2 * aligned(e)) +\n"
+            "         (use_residual ? aligned(4 * e) : 0)") in _TRAIN_SRC
+    assert "scratch_bytes < train_scratch(" in _TRAIN_SRC
 
 
 # ---------------------------------------------------------------------------
