@@ -287,15 +287,17 @@ Phases, in order; any failure raises and exits non-zero:
    deepest student the JAX package renders on a kernel there: W512/D24
    bf16, W512/D50 int8, W512/D12 f32, W384/D44 bf16, W1024/D6 bf16,
    W1024/D12 int8, each through ``make_r2l_frame_fn`` (``--quantize int8``
-   for int8) on the frame kernels' wide form (``csrc/r2l_wide.cu``; one
-   launch of K1's or K2's a frame, none of K1 or K2), then on the frame's
-   points against its plain version on the card: K1 bf16 3e-2, f32 1e-4,
+   for int8) on the frame kernels' wide form (``csrc/r2l_wide.cu``, every
+   layer a pass of ``csrc/wide_hopper.cuh``; one launch of K1's or K2's a
+   frame, none of K1 or K2), then on the frame's points against its plain
+   version on the card: K1 bf16 3e-2, f32 1e-4 (its ``[margin]`` line),
    K2's three forms bit for bit and within 2.5e-2 / 2.5e-3. At W512/D24
    the kernel API (``r2l_embed`` + ``fused_r2l_apply``, bf16 and f32
    weights, K9's wide form, 3e-2 / 1e-4), ``make_r2l_bench_fn`` (int8) and
    ``make_r2l_givenrays_frame_fn``, each on its wide form. ``[main] wide``
    lines: ms/frame, kernel and plain ms (CUDA events), the bound and what
-   sets it, max-abs, beside the card's name and power limit.
+   sets it, the design's bytes and their time at the memory rate, max-abs,
+   beside the card's name and power limit.
 
 22. Wide training steps (ROADMAP C1, training side), at full size: the
    W512/D88 student (43 blocks), which JAX's ``--fused_train_vjp`` gate
@@ -4580,8 +4582,10 @@ def phase_refused(smi: str, sampler, poses, dev) -> dict:
 # each width the deepest student the JAX package renders on a kernel there
 # (its _pe_kernel_tile_fit at L=10; tests/test_torch_wide.py), seeded
 # weights, through the entry points a user calls, on the frame kernels'
-# wide form (csrc/r2l_wide.cu), each held against its plain version on the
-# card at K1's, K9's and K2's tolerances.
+# wide form (csrc/r2l_wide.cu: every layer a pass of the skeleton
+# csrc/wide_hopper.cuh), each held against its plain version on the card at
+# K1's, K9's and K2's tolerances, f32 with its [margin] line, each timed
+# beside its operations bound and its design's bytes.
 WIDE_FRAMES = (   # (label, width, depth, compute dtype, kind)
     ("W512/D24 bf16", 512, 24, torch.bfloat16, "pe"),
     ("W512/D50 int8", 512, 50, torch.bfloat16, "int8"),
@@ -4608,31 +4612,62 @@ def wide_student(width: int, depth: int, dtype, dev):
         SEED + width + depth), dev)
 
 
+def wide_frame_design_bytes(kind: str, es: int, n: int, W: int, in_dim: int,
+                            nb: int, nl: int, use_residual: bool) -> int:
+    """The bytes the frame's wide design moves (csrc/r2l_wide.cu), ``kind``
+    "pe" (K1), "K9" or "int8" (K2), ``es`` the compute type's size: the
+    head's input written and read once (K9 also reads x first; K9 f32 with
+    in_dim a multiple of 4 reads x itself, and writes none); K1/K9 the head
+    writes h0, each body layer reads its input row and writes its output
+    row, a block's end also reads h, the tail reads h and h0; K2 the codes
+    the same way, its bf16 stream written by the head and read and written
+    at each block's end, h0 written and read once, the tail the last
+    codes."""
+    kp, e = -(-in_dim // 128) * 128, n * W
+    if kind == "int8":
+        h0 = 4 * e if use_residual else 0
+        return 2 * n * kp + 3 * e + 2 * h0 + nb * (2 * nl * e + 4 * e) + e
+    enc = 2 * n * kp * es
+    if kind == "K9":
+        enc = 4 * n * in_dim + (0 if es == 4 and in_dim % 4 == 0 else enc)
+    return enc + e * es * (2 + nb * (2 * nl + 1) + int(use_residual))
+
+
 def wide_row(smi: str, label: str, kind: str, cfg, fp, pts, dp: int,
-             run, plain, tol: tuple, ops_kind: str, frame_ms=None,
-             launches: int = 0) -> dict:
+             run, plain, tol: tuple, ops_kind: str, design: int,
+             frame_ms=None, launches: int = 0) -> dict:
     """One ``[main] wide`` row: ``run()`` (the kernel on the frame's points,
     or for K9 ``pts`` its encoded rays) against ``plain()`` (its plain
-    version) within ``tol``, both timed, and the bound of the work (f32:
-    three TF32 products a multiply-add)."""
+    version) within ``tol``, both timed, the bound of the work (f32: three
+    TF32 products a multiply-add) and its design's bytes (``design``,
+    ``wide_frame_design_bytes``); f32 with a ``[margin]`` line, its error's
+    share of its limit."""
     from r2l_tpu_torch.exp._harness import chain_ops
     got, want = run(), plain()
     mx, rms = deltas(got, want)
     check(f"{label} {kind} wide vs plain", mx, rms, *tol)
+    if ops_kind == "tf32":
+        print(f"[margin] wide {label} {kind}: rgb max-abs {mx:.3e}, "
+              f"{mx / tol[0]:.1%} of {tol[0]:.0e} ({smi})", flush=True)
     ops = chain_ops(cfg, pts.shape[0], dp * (2 * EMBED_L + 1))
     r = {"max_abs_err": mx, "rms_err": rms, "ms": time_ms(run),
          "plain_ms": time_ms(plain, reps=1),
          **bound(3 * ops if ops_kind == "tf32" else ops,
                  nbytes(pts, got, fp.staged), ops_kind),
+         "design_bytes": design,
+         "design_bytes_ms": design / HBM_BYTES_S * 1e3,
          "library_ms": None, "launches": launches}
+    if ops_kind == "tf32":
+        r["margin"] = mx / tol[0]
     if frame_ms is not None:
         r["ms_per_frame"] = frame_ms
     print(f"[main] wide {label} {kind}: "
           + (f"{frame_ms:.3f} ms/frame, " if frame_ms is not None else "")
           + f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
           f"{r['bound_ms']:.3f} ms ({r['bound_by']}, {ops / 1e12:.3f} "
-          f"T{'OP' if ops_kind == 'int8' else 'FLOP'}), max-abs {mx:.3e} "
-          f"({smi})", flush=True)
+          f"T{'OP' if ops_kind == 'int8' else 'FLOP'}), the design's bytes "
+          f"{design / 1e9:.3f} GB, {r['design_bytes_ms']:.3f} ms, max-abs "
+          f"{mx:.3e} ({smi})", flush=True)
     return r
 
 
@@ -4668,15 +4703,19 @@ def wide_frames(smi: str, sampler, poses, dev) -> dict:
         prepared, _, dp = _prepare_r2l(model, cfg, sampler, EMBED_L, False,
                                        True, quantize, calib_poses=poses)
         pts = sampler.sample_test(torch.as_tensor(poses[0], device=dev))
+        kcfg = F.kernel_cfg(cfg, int8=kind == "int8", L=EMBED_L)
+        f32 = dtype == torch.float32
+        design = wide_frame_design_bytes(
+            kind, 4 if f32 else 2, pts.shape[0], kcfg.netwidth,
+            cfg.input_dim, cfg.num_blocks, cfg.n_learnable, cfg.use_residual)
         if kind == "pe":
-            f32 = dtype == torch.float32
             out[label] = wide_row(
                 smi, label, kind, cfg, prepared, pts, dp,
                 lambda: F.fused_r2l_apply_pe(prepared, cfg, pts, dp, EMBED_L),
                 lambda: F.fused_r2l_apply_pe_ref(prepared, cfg, pts, dp,
                                                  EMBED_L),
                 (TOL_PE_F32 if f32 else TOL_PE_BF16, None),
-                "tf32" if f32 else "bf16", frame_ms, launches=4)
+                "tf32" if f32 else "bf16", design, frame_ms, launches=4)
         else:
             unfolded = F.calibrate_r2l_int8_pe(
                 model, cfg, dp, EMBED_L,
@@ -4691,7 +4730,7 @@ def wide_frames(smi: str, sampler, poses, dev) -> dict:
                     smi, label, f"int8 {form}", cfg, fp, pts, dp,
                     lambda: F.fused_r2l_apply_int8_pe(*args),
                     lambda: F.fused_r2l_apply_int8_pe_ref(*args),
-                    (TOL_INT8_MAX, TOL_INT8_RMS), "int8",
+                    (TOL_INT8_MAX, TOL_INT8_RMS), "int8", design,
                     frame_ms if form == "deployed" else None,
                     launches=4 if form == "deployed" else 0)
                 check_equal(f"{label} int8 {form} wide vs plain",
@@ -4731,11 +4770,14 @@ def wide_api_and_paths(smi: str, sampler, poses, dev) -> dict:
         if moved_since(c0) != {"K9w": 1}:
             raise AssertionError(f"K9 {kind} at {label}: launched "
                                  f"{moved_since(c0)}")
+        design = wide_frame_design_bytes(
+            "K9", 4 if kind == "f32" else 2, x.shape[0], width,
+            cfg.input_dim, cfg.num_blocks, cfg.n_learnable, cfg.use_residual)
         out[f"api_{kind}"] = wide_row(   # x: the encoded rays read
             smi, label, f"K9 {kind}", cfg, fp, x, dp,
             lambda: F.fused_r2l_apply(fp, cfg, x),
             lambda: F.fused_r2l_apply_ref(fp, cfg, x), (tol, None),
-            ops_kind, launches=1)
+            ops_kind, design, launches=1)
         del fp, x
     c0 = refused_counts()
     bench = make_r2l_bench_fn(model, cfg, sampler, embed_L=EMBED_L,
@@ -4899,8 +4941,8 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
     its ``[margin]`` lines over two seeds of the weights), K4's and K8's bit
     for bit, K5's on the five stash kinds of phase 5; each timed beside its
     plain version, its bound and (the forwards and K5) its design's bytes,
-    and each image's staging (the forwards' beside the frame's wide image,
-    which they read before the training image)."""
+    and each image's staging (the forwards' the wide forms' one image, the
+    frame's too)."""
     from r2l_tpu_torch.exp._harness import chain_ops
     from r2l_tpu_torch.kernels import r2l_fused as F
     from r2l_tpu_torch.kernels import r2l_train as T
@@ -4913,7 +4955,7 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
     res, stashes = {}, {}
     for wd, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         fp = T.prepare_train_params(model, cfg, dp, L, wd)
-        if fp.staged_for != "wide_train":
+        if fp.staged_for != "wide":
             raise AssertionError(f"K3 {kind}: staged for {fp.staged_for}")
         c0 = wide_train_counts()["K3w"]
         rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
@@ -4940,7 +4982,6 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
             "design_bytes": design,
             "design_bytes_ms": design / HBM_BYTES_S * 1e3,
             "stage_ms": time_ms(lambda: F.stage_wide_train(fp)),
-            "frame_image_stage_ms": time_ms(lambda: F.stage_wide_chain(fp)),
             **bound(3 * ops if kind == "f32" else ops, moved,
                     "tf32" if kind == "f32" else "bf16"),
             "library_ms": None}
@@ -4969,7 +5010,7 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
     for q, name in ((True, "train_fwd_int8_wide"),
                     (False, "train_fwd_int8_wide_bf16")):
         fpq = F.stage_int8_train(fp8, cfg, dp, L, q)
-        if fpq.staged_for != "wide_train":
+        if fpq.staged_for != "wide":
             raise AssertionError(f"{name}: staged for {fpq.staged_for}")
         label = "K4" if q else "K8"
         rgb, stash = T.train_fwd_int8(fpq, cfg, pts, dp, L, stash_q=q)
@@ -4994,7 +5035,6 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
             "design_bytes_ms": design / HBM_BYTES_S * 1e3,
             "stage_ms": time_ms(lambda: F.stage_int8_train(fp8, cfg, dp, L,
                                                            q)),
-            "frame_image_stage_ms": time_ms(lambda: F.stage_wide_chain(fp8)),
             **bound(ops, nbytes(pts, rgb, stash, fpq.staged, fp8.head_inv,
                                 fp8.body_inv, fp8.tail_q, fp8.tail_m,
                                 fp8.tail_b, fp8.tail_inv), "int8"),
@@ -5020,8 +5060,6 @@ def wide_train_kernels(cfg, model, sampler, poses, dev) -> dict:
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']}) at {n} rays; staging "
               f"{r['stage_ms']:.3f} ms"
-              + (f" (the frame's image {r['frame_image_stage_ms']:.3f} ms)"
-                 if "frame_image_stage_ms" in r else "")
               + (f"; whole walk {r['walk_ms']:.3f} ms" if "walk_ms" in r
                  else "")
               + f"; the design's bytes {r['design_bytes'] / 1e9:.3f} GB, "
@@ -5099,25 +5137,21 @@ def wide_train_step(label: str, cfg, dcfg, sampler, kw: dict, batches,
 # forward's (K3/K4/K8 wide) skeleton passes, told from K5's by their
 # epilogues (wide_hopper.cuh's TrainK3, TrainK48), its encoding and its
 # tail; K5 wide's dh walk on the pass skeleton (wide_pass with its Mask and
-# Dh epilogues), its dW pass on wgmma (dw_bf16, dw_tf32) and its sums;
-# mma.sync passes of earlier builds (r2l_wide.cuh's wide_layer, K5's
-# wide_dw), which no training step launches now.
+# Dh epilogues), its dW pass on wgmma (dw_bf16, dw_tf32) and its sums.
 WIDE_STEP_KERNELS = (("forward passes", ("TrainK3", "TrainK48")),
                      ("forward encoding", ("train_encode",)),
                      ("forward tail", ("wide_tail",)),
                      ("K5 walk passes", ("wide_pass",)),
                      ("K5 dW pass", ("dw_bf16", "dw_tf32")),
-                     ("K5 sums and top dt2", ("sum_splits", "scale_dh")),
-                     ("mma.sync passes", ("wide_layer",)),
-                     ("K5 mma.sync dW pass", ("wide_dw",)))
+                     ("K5 sums and top dt2", ("sum_splits", "scale_dh")))
 
 
 def wide_step_split(label: str, cfg, fn) -> dict:
     """The kernel time of one wide training step (``fn``) under
     torch.profiler by WIDE_STEP_KERNELS group: ms, launches and share.
     Fails unless the forward ran on the skeleton (2nb+1 passes, one
-    encoding and one tail, no mma.sync pass), K5's walk too (two passes a
-    block) and its dW pass on wgmma."""
+    encoding and one tail), K5's walk too (two passes a block) and its dW
+    pass on wgmma."""
     prof = profile_kernels(fn, top=400)
     total = prof["kernel_ms"]
     split = {g: {"ms": 0.0, "calls": 0} for g, _ in
@@ -5135,9 +5169,7 @@ def wide_step_split(label: str, cfg, fn) -> dict:
             or split["forward passes"]["calls"] != layers + 1
             or split["forward encoding"]["calls"] != 1
             or split["forward tail"]["calls"] != 1
-            or split["mma.sync passes"]["calls"] != 0
-            or split["K5 dW pass"]["calls"] == 0
-            or split["K5 mma.sync dW pass"]["calls"] != 0):
+            or split["K5 dW pass"]["calls"] == 0):
         raise AssertionError(f"{label}: the wide step's passes ran on "
                              f"{split}")
     return {"kernel_ms": total, **split}

@@ -14,9 +14,10 @@
 // in a scratch are the stash [2nb+1, n, W] itself: h_0 in row 0, block b's
 // inner t in row nb+1+b and its output in row b+1 (K4: the codes the
 // products read, row nb the tail's). A call:
-//   1. train_encode writes the head's input once, pts [n, dp] encoded by
-//      the double-angle ladder into [n, kp] (kp = in_dim rounded up to
-//      128) in the head's freq-major column order, in the compute type or,
+//   1. train_encode (r2l_wide.cuh) writes the head's input once, pts
+//      [n, dp] encoded by the double-angle ladder into [n, kp] (kp = in_dim
+//      rounded up to 128) in the head's freq-major column order, in the
+//      compute type or,
 //      for K4/K8, as the head's codes; the skeleton reads A only through
 //      tensor maps.
 //   2. 2nb+1 skeleton passes, the head then two a block, against the
@@ -74,66 +75,6 @@ struct Train {
   int use_residual, linear_tail, stash_q;
 };
 
-// ---- the head's input -------------------------------------------------------
-
-// Encoding column c's value x in C: f32 as it is, bf16 rounded, int8 the
-// code q8(x * inv[c]); past in_dim (inv null) zero.
-template <typename C>
-__device__ __forceinline__ C code(float x, const float* inv, int c);
-template <>
-__device__ __forceinline__ float code<float>(float x, const float*, int) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 code<__nv_bfloat16>(float x,
-                                                            const float*,
-                                                            int) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ int8_t code<int8_t>(float x, const float* inv,
-                                               int c) {
-  return inv ? r2l::q8(__fmul_rn(x, __ldg(inv + c))) : int8_t(0);
-}
-
-// E [n, kp] of C: one thread a (ray, scalar s) runs the ladder
-// (r2l::pe_ladder, bit for bit the plain version's values) and writes
-// column part * dp + s of its ray for each of the 2L+1 parts (sin octave
-// part, cos octave part - L, the identity at 2L), then its share of the
-// zero columns past in_dim. A warp's 32 threads write neighbouring columns.
-template <typename C>
-__global__ void __launch_bounds__(256)
-    train_encode(const float* __restrict__ pts, long long n, int dp, int L,
-                 int kp, const float* inv, C* __restrict__ E) {
-  const int in_dim = dp * (2 * L + 1);
-  const long long total = n * dp;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / dp;
-    const int s = (int)(i - r * dp);
-    const float v = __ldg(pts + i);
-    C* row = E + r * kp;
-    r2l::pe_ladder(v, L, [&](int j, float sn, float cs) {
-      row[j * dp + s] = code<C>(sn, inv, j * dp + s);
-      row[(L + j) * dp + s] = code<C>(cs, inv, (L + j) * dp + s);
-    });
-    row[2 * L * dp + s] = code<C>(v, inv, 2 * L * dp + s);
-    for (int c = in_dim + s; c < kp; c += dp)
-      row[c] = code<C>(0.f, nullptr, c);
-  }
-}
-
-template <typename C>
-cudaError_t encode(const Train& c, int kp, const float* inv, void* E,
-                   cudaStream_t st) {
-  const long long total = (long long)c.n * c.dp;
-  const long long blocks = (total + 255) / 256;
-  train_encode<C><<<(unsigned)(blocks < (1 << 20) ? blocks : (1 << 20)), 256,
-                    0, st>>>(c.pts, c.n, c.dp, c.L, kp, inv,
-                             static_cast<C*>(E));
-  return cudaGetLastError();
-}
-
 // ---- the passes --------------------------------------------------------------
 
 // The scratch of a call (r2l_train.py, wide_train_scratch_bytes): the
@@ -149,36 +90,6 @@ long long train_scratch(long long n, int W, int kp, int dtype, int stash_q,
          (use_residual ? aligned(4 * e) : 0);
 }
 
-// One skeleton pass of `rows` x N outputs from K = st0 stages of the map
-// `a` against the weights at w ([N, K], f32 two parts); with side_out (an
-// epilogue with a side tile, [rows, N] of its SideT), the side tile stored
-// there and, with side_in, loaded from there first.
-template <typename C, typename Epi, int kSplit = 0>
-cudaError_t pass(const CUtensorMap& a, const unsigned char* w, int rows,
-                 int N, int K, const void* out,
-                 const typename Epi::Args& e, cudaStream_t st,
-                 const void* side_in = nullptr,
-                 const void* side_out = nullptr) {
-  CUtensorMap wm, om, si, so;
-  cudaError_t err = wideh::weight_map<C>(&wm, w, N, K);
-  if (err == cudaSuccess) err = wideh::act_map<C>(&om, out, rows, N);
-  int side = 0;
-  if constexpr (wideh::HasSideTile<Epi>::value) {
-    using S = typename Epi::SideT;
-    if (side_out) {
-      side = side_in ? 2 : 1;
-      if (err == cudaSuccess)
-        err = wideh::act_map<S>(&so, side_out, rows, N);
-      if (err == cudaSuccess)
-        err = wideh::act_map<S>(&si, side_in ? side_in : side_out, rows, N);
-    }
-  }
-  if (err != cudaSuccess) return err;
-  const wideh::Pass p{rows, N, K * (int)sizeof(C) / 128, 0, side};
-  if (!side) return wideh::launch_pass<C, Epi, kSplit>(a, a, wm, om, p, e, st);
-  return wideh::launch_pass<C, Epi, kSplit>(a, a, wm, om, si, so, p, e, st);
-}
-
 // K3: the encoding, the head, two passes a block, the tail; every pass's
 // output a stash row.
 template <typename C>
@@ -192,18 +103,20 @@ cudaError_t run_k3(const Train& c, cudaStream_t st) {
   auto row = [&](int r) { return c.stash + (size_t)r * rowb; };
   const size_t head_bytes = (size_t)W * kp * es * parts;
   const size_t layer_bytes = (size_t)W * W * es * parts;
-  cudaError_t err = encode<C>(c, kp, nullptr, c.scratch, st);
+  cudaError_t err =
+      r2lw::encode<C>(c.pts, n, c.dp, c.L, kp, nullptr, c.scratch, st);
   CUtensorMap a;
   if (err == cudaSuccess) err = wideh::act_map<C>(&a, c.scratch, n, kp);
   if (err == cudaSuccess)
-    err = pass<C, Epi, kSplit>(a, c.image, n, W, kp, row(0),
-                               {c.head_b, nullptr, n, W, c.res_scale}, st);
+    err = wideh::layer_pass<C, Epi, kSplit>(
+        a, c.image, n, W, kp, row(0), {c.head_b, nullptr, n, W, c.res_scale},
+        st);
   for (int b = 0; b < c.nb && err == cudaSuccess; ++b)
     for (int j = 0; j < 2 && err == cudaSuccess; ++j) {
       const int in = j ? c.nb + 1 + b : b, out = j ? b + 1 : c.nb + 1 + b;
       err = wideh::act_map<C>(&a, row(in), n, W);
       if (err == cudaSuccess)
-        err = pass<C, Epi, kSplit>(
+        err = wideh::layer_pass<C, Epi, kSplit>(
             a, c.image + head_bytes + (2 * b + j) * layer_bytes, n, W, W,
             row(out),
             {c.body_b + (size_t)(2 * b + j) * W,
@@ -250,11 +163,12 @@ cudaError_t run_k48(const Train& c, cudaStream_t st) {
   auto hrow = [&](int r) -> void* {
     return kQ ? static_cast<void*>(hs) : static_cast<void*>(row(r));
   };
-  cudaError_t err = encode<int8_t>(c, kp, c.head_inv, enc, st);
+  cudaError_t err =
+      r2lw::encode<int8_t>(c.pts, n, c.dp, c.L, kp, c.head_inv, enc, st);
   CUtensorMap a;
   if (err == cudaSuccess) err = wideh::act_map<int8_t>(&a, enc, n, kp);
   if (err == cudaSuccess)
-    err = pass<int8_t, Epi>(
+    err = wideh::layer_pass<int8_t, Epi>(
         a, c.image, n, W, kp, kQ ? row(0) : X[0],
         {table, nb > 0 ? c.body_inv : c.tail_inv, h0, Epi::kHead, nb == 0, n,
          W},
@@ -275,7 +189,7 @@ cudaError_t run_k48(const Train& c, cudaStream_t st) {
       const void* s_in = j ? hrow(b) : nullptr;
       const void* s_out = j ? hrow(b + 1) : kQ ? nullptr : hrow(nb + 1 + b);
       if (err == cudaSuccess)
-        err = pass<int8_t, Epi>(
+        err = wideh::layer_pass<int8_t, Epi>(
             a, c.image + head_bytes + idx * layer_bytes, n, W, W,
             kQ ? static_cast<void*>(row(j ? b + 1 : nb + 1 + b)) : X[q ^ 1],
             lp, st, s_in, s_out);

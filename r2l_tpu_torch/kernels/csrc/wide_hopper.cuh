@@ -4,9 +4,8 @@
 // warp-specialised block. The teacher's wide form (nerf_wide.cu: f32, bf16
 // and int8) runs every GEMM layer on it, K5's wide form (r2l_wide_bwd.cu)
 // its dh walk and the training forward's (r2l_wide_train.cu: K3, K4/K8)
-// every layer, each with an epilogue of its own (the Epi parameter); the
-// student frame's wide passes (r2l_wide.cuh, mma.sync) can move onto it the
-// same way.
+// every layer and the student frame's (r2l_wide.cu: K1, K9, K2) every
+// layer, each with an epilogue of its own (the Epi parameter).
 //
 // Operands. A's K is the concatenation of two sources, st0 stages of
 // kKC channels from tensor map a0, then st1 from a1 (the teacher's
@@ -222,7 +221,10 @@ __device__ __forceinline__ void put_side(float* p, int row, int col,
 // inner layer), or at a block's end t2 * res_scale + h with t2 = acc + b
 // unrounded and h the block's input, its stash row read at (row, col). The
 // skeleton rounds to T and stores the tile to the layer's own stash row.
-template <typename T>
+// kFrame: K1's and K9's layers (the student frame, r2l_fused.py's
+// _chain_ref), where t2 is rounded to T before the residual; each layer's
+// output goes to a scratch buffer.
+template <typename T, bool kFrame = false>
 struct TrainK3 {
   struct Args {
     const float* bias;  // [N]
@@ -243,6 +245,10 @@ struct TrainK3 {
       return;
     }
     const float2 h = side2(e.h, row, col, e.rows, e.N);
+    if constexpr (kFrame) {
+      v0 = rnd<T>(v0);
+      v1 = rnd<T>(v1);
+    }
     v0 = __fadd_rn(__fmul_rn(v0, e.res_scale), h.x);
     v1 = __fadd_rn(__fmul_rn(v1, e.res_scale), h.y);
   }
@@ -330,6 +336,73 @@ struct TrainK48 {
       *reinterpret_cast<float2*>(s) = make_float2(v0, v1);
     else
       *reinterpret_cast<__nv_bfloat162*>(s) = __floats2bfloat162_rn(v0, v1);
+  }
+};
+
+// K2's layers (the student frame in static-scale int8, r2l_fused.py's
+// int8_pe_chain_ref in one of its forms, Form: r2l_fused.py's EPILOGUES):
+// v = acc * m + b in one FMA; the head h0 = ReLU(v) in f32, h = h0 rounded
+// to bf16; an inner layer t = ReLU(v), deployed in f32, fold and unfolded
+// rounded to bf16, unfolded also times the next product's inverse scale (the
+// folded forms have it in m and b); a block's end h = v rounded to bf16
+// plus h_in, rounded to bf16. h travels in the pass's bf16 side tile (one
+// residual stream, read and written in place: the producer loads h_in by
+// TMA a tile ahead, the skeleton stores h); h0 a pair at a time. The value
+// handed to the skeleton is what the next product quantizes (after the
+// last block, h + h0: the tail's) times its inverse scale, except the
+// folded inner layers'; the s8 store rounds half to even and clips.
+struct FrameK2 {
+  enum Kind { kHead = 0, kInner = 1, kEnd = 2 };
+  enum Form { kDeployed = 0, kFold = 1, kUnfolded = 2 };
+  using SideT = __nv_bfloat16;
+  static constexpr int kBN = 128;  // the side tile's room: see side_box
+  struct Args {
+    const float* mb;   // the layer's (m, b) a channel
+    const float* inv;  // the next product's inverse scales [N]
+    float* h0;         // with the global residual: kHead writes, a final
+                       // kEnd reads; else null
+    int kind, final_, rows, N, form;
+  };
+  __device__ __forceinline__ static bool stores(const Args&) { return true; }
+  // s: the pair's two values of h in the side tile; none in an inner pass
+  __device__ __forceinline__ static void pair(const Args& e, int row, int col,
+                                              int a0, int a1,
+                                              unsigned char* s, float& v0,
+                                              float& v1) {
+    const float4 mb = __ldg(reinterpret_cast<const float4*>(e.mb + 2 * col));
+    float x0 = r2l::dequant(a0, mb.x, mb.y), x1 = r2l::dequant(a1, mb.z, mb.w);
+    const float2 inv = __ldg(reinterpret_cast<const float2*>(e.inv + col));
+    if (e.kind == kInner) {
+      x0 = fmaxf(x0, 0.f);
+      x1 = fmaxf(x1, 0.f);
+      if (e.form != kDeployed) {
+        x0 = rnd<__nv_bfloat16>(x0);
+        x1 = rnd<__nv_bfloat16>(x1);
+      }
+      v0 = e.form == kUnfolded ? __fmul_rn(x0, inv.x) : x0;
+      v1 = e.form == kUnfolded ? __fmul_rn(x1, inv.y) : x1;
+      return;
+    }
+    float2 g = make_float2(0.f, 0.f);  // h0
+    if (e.kind == kHead) {
+      g = make_float2(fmaxf(x0, 0.f), fmaxf(x1, 0.f));
+      x0 = rnd<__nv_bfloat16>(g.x);
+      x1 = rnd<__nv_bfloat16>(g.y);
+      if (e.h0) put_side(e.h0, row, col, e.rows, e.N, g);
+    } else {
+      const float2 h = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(s));
+      x0 = rnd<__nv_bfloat16>(__fadd_rn(rnd<__nv_bfloat16>(x0), h.x));
+      x1 = rnd<__nv_bfloat16>(__fadd_rn(rnd<__nv_bfloat16>(x1), h.y));
+      if (e.final_ && e.h0) g = side2(e.h0, row, col, e.rows, e.N);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(s) = __floats2bfloat162_rn(x0, x1);
+    if (e.final_ && e.h0) {
+      x0 = __fadd_rn(x0, g.x);
+      x1 = __fadd_rn(x1, g.y);
+    }
+    v0 = __fmul_rn(x0, inv.x);
+    v1 = __fmul_rn(x1, inv.y);
   }
 };
 
@@ -960,6 +1033,36 @@ cudaError_t launch_pass(const CUtensorMap& a0, const CUtensorMap& a1,
                         const Pass& p, const typename Epi::Args& e,
                         cudaStream_t stream) {
   return launch_pass<T, Epi, kSplit>(a0, a1, b, out, out, out, p, e, stream);
+}
+
+// One layer's pass of `rows` x N outputs from the K input channels of the
+// map `a` against the weights at w ([N, K] of T, f32 two parts) into out
+// [rows, N]; with side_out (an epilogue with a side tile, [rows, N] of its
+// SideT), the side tile stored there and, with side_in, loaded from there
+// first. The training forward's and the frame's layers (r2l_wide_train.cu,
+// r2l_wide.cu).
+template <typename T, typename Epi, int kSplit = 0>
+cudaError_t layer_pass(const CUtensorMap& a, const void* w, int rows, int N,
+                       int K, const void* out, const typename Epi::Args& e,
+                       cudaStream_t stream, const void* side_in = nullptr,
+                       const void* side_out = nullptr) {
+  CUtensorMap wm, om, si, so;
+  cudaError_t err = weight_map<T>(&wm, w, N, K);
+  if (err == cudaSuccess) err = act_map<T>(&om, out, rows, N);
+  int side = 0;
+  if constexpr (HasSideTile<Epi>::value) {
+    using S = typename Epi::SideT;
+    if (side_out) {
+      side = side_in ? 2 : 1;
+      if (err == cudaSuccess) err = act_map<S>(&so, side_out, rows, N);
+      if (err == cudaSuccess)
+        err = act_map<S>(&si, side_in ? side_in : side_out, rows, N);
+    }
+  }
+  if (err != cudaSuccess) return err;
+  const Pass p{rows, N, K * (int)sizeof(T) / 128, 0, side};
+  if (!side) return launch_pass<T, Epi, kSplit>(a, a, wm, om, p, e, stream);
+  return launch_pass<T, Epi, kSplit>(a, a, wm, om, si, so, p, e, stream);
 }
 
 }  // namespace wideh

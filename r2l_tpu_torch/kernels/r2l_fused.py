@@ -26,10 +26,11 @@ only. For a CUDA tensor it launches the kernel or raises. The kernels are
 built for the widths of ``R2L_KERNEL_WIDTHS``; the frame packers pad a
 narrower student with zero channels to the next of them
 (``kernel_width``). A wider student runs on the wide form of the same
-three kernels (``csrc/r2l_wide.cu``: one pass a layer over activations in
-device memory, ``fused_r2l_apply_pe_wide``, ``fused_r2l_apply_wide``,
+three kernels (``csrc/r2l_wide.cu``: one pass of the Hopper pass skeleton
+``csrc/wide_hopper.cuh`` a layer over activations in device memory,
+``fused_r2l_apply_pe_wide``, ``fused_r2l_apply_wide``,
 ``fused_r2l_apply_int8_pe_wide``), packed at the next multiple of
-``WIDE_CHANNELS`` and staged by ``stage_wide_chain``; so does an int8
+``WIDE_CHANNELS`` and staged by ``stage_wide_train``; so does an int8
 student whose 2L+1 encoding parts overflow the head slice of every K2
 width (K2 takes a narrower one at the first width whose slice holds
 them). A shape they do not take (``fused_frame_supported``: other
@@ -48,9 +49,8 @@ packs and stages every step for K3): each layer in stages laid
 out as Hopper's ``wgmma`` reads them (``staging.stage_matrices``), f32 as
 TF32 high and low parts; K3, the training forward on K1's chain, reads the
 same image, staged every training step (the weights change); on the
-training kernels' wide form K3, K4 and K8 read the training image
-(``stage_wide_train``: each layer [out, in] row-major, the pass
-skeleton's B). K2 reads
+wide forms K1, K9, K2, K3, K4 and K8 read one image (``stage_wide_train``:
+each layer [out, in] row-major, the pass skeleton's B). K2 reads
 ``head_q`` and ``body_q`` from an s8 image staged the same way
 (``stage_int8_chain``, by ``calibrate_r2l_int8_pe`` unless
 ``stage=False``); K4/K8 from their own (``stage_int8_train``: their stage
@@ -107,9 +107,9 @@ class FusedParams(_ChainFields):
 
     Beside them, not among them, ``staged``: a weight image, or None where
     the packing did not stage; and ``staged_for``, the kernels it was
-    staged for: "K1" (K1/K9/K3, ``stage_chain_weights``), "wide" (the
-    frame's wide form, ``stage_wide_chain``) or "wide_train" (the training
-    forward's wide form, ``stage_wide_train``). ``_replace`` keeps both
+    staged for: "K1" (K1/K9/K3, ``stage_chain_weights``) or "wide" (the
+    wide forms of the frame and of the training forward,
+    ``stage_wide_train``). ``_replace`` keeps both
     unless given ``staged=`` (and ``staged_for=``)."""
     staged: torch.Tensor | None = None
     staged_for: str | None = None
@@ -145,9 +145,9 @@ class FusedParamsInt8PE(_Int8Fields):
     Beside them, not among them, ``staged``: an s8 weight image with its
     epilogue table, or None where the calibration did not stage; and
     ``staged_for``, the kernel it was staged for: "K2" (the frame,
-    ``stage_int8_chain``), "wide" (K2's wide form, ``stage_wide_chain``),
-    "K4" or "K8" (the training forward, ``stage_int8_train``), or
-    "wide_train" (K4/K8's wide form, ``stage_wide_train``).
+    ``stage_int8_chain``), "K4" or "K8" (the training forward,
+    ``stage_int8_train``), or "wide" (the wide forms of K2 and of K4/K8,
+    ``stage_wide_train``).
     ``_replace`` keeps both unless given ``staged=`` (and
     ``staged_for=``)."""
     staged: torch.Tensor | None = None
@@ -349,7 +349,7 @@ def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
     ``K_ALIGN``, a no-op on the product: the kernels pad their input with
     zeros; with ``pad`` (``pads``), the width zero-padded to
     ``kernel_width``; with ``stage``, K1/K9's weight image beside them, or
-    the wide form's (``stage_wide_chain``) for a student wider than their
+    the wide form's (``stage_wide_train``) for a student wider than their
     widths, at a width it takes."""
     _refuse(fused_kernel_supported(cfg), "the fused kernels' packing",
             _CANONICAL, cfg)
@@ -368,7 +368,7 @@ def _prepare(model: R2L, cfg: R2LConfig, weight_dtype: torch.dtype,
         if not wide_form(W):
             fp.staged, fp.staged_for = stage_chain_weights(fp), "K1"
         elif W % WIDE_CHANNELS == 0:
-            fp.staged, fp.staged_for = stage_wide_chain(fp), "wide"
+            fp.staged, fp.staged_for = stage_wide_train(fp), "wide"
     return fp
 
 
@@ -688,7 +688,7 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     bias, so the kernel's inner requantize is round+clip only. With
     ``stage``, K2's s8 image is staged beside the fields (the int8 training
     kinds pass ``stage=False`` and stage K4/K8's own, ``stage_int8_train``);
-    on the wide form (``wide_form``) the image is ``stage_wide_chain``'s.
+    on the wide form (``wide_form``) the image is ``stage_wide_train``'s.
     ``pad`` packs at the ``kernel_width`` (a zero channel's scales are the
     floor's, its codes 0), as ``prepare_fused_params_pe``. TF32 is switched
     off for the duration: it would move every scale.
@@ -713,7 +713,7 @@ def calibrate_r2l_int8_pe(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     if not wide_form(width, True, L):
         fp.staged, fp.staged_for = stage_int8_chain(fp, cfg, dim_pts, L), "K2"
     elif width % WIDE_CHANNELS == 0:
-        fp.staged, fp.staged_for = stage_wide_chain(fp), "wide"
+        fp.staged, fp.staged_for = stage_wide_train(fp), "wide"
     return fp
 
 
@@ -836,12 +836,11 @@ def stage_int8_train(fp: FusedParamsInt8PE, cfg: R2LConfig, dim_pts: int,
     W] f32, the inverse input scale of every body layer. Made after each
     calibration (the int8 training kinds: every step). A student on the
     training kernels' wide form (``wide_train_form``, at a multiple of
-    ``WIDE_CHANNELS``) gets the training image instead
-    (``stage_wide_train``, staged for "wide_train"; both kinds read it)."""
+    ``WIDE_CHANNELS``) gets the wide forms' image instead
+    (``stage_wide_train``, staged for "wide"; both kinds read it)."""
     W = cfg.netwidth
     if wide_train_form(W, True, L) and W % WIDE_CHANNELS == 0:
-        return fp._replace(staged=stage_wide_train(fp),
-                           staged_for="wide_train")
+        return fp._replace(staged=stage_wide_train(fp), staged_for="wide")
     k = int8_train_stage_k(W, stash_q)
     img = torch.cat([stage_int8_chain(fp, cfg, dim_pts, L, k),
                      fp.body_inv.float().contiguous().view(torch.uint8)
@@ -1129,7 +1128,6 @@ fused_r2l_apply_int8_pe.launches = 0
 # The wide form of K1, K9 and K2 (csrc/r2l_wide.cu)
 # ---------------------------------------------------------------------------
 
-WIDE_TILE = 128  # a staged tile: 128 output channels x 128 bytes of input
 _WIDE_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 # The most scratch one wide call takes: more rays than fit run in passes
 # (a 400x400 frame is one pass up to W2304 in int8, W1024 in f32).
@@ -1138,93 +1136,23 @@ WIDE_SCRATCH_BYTES = 4 << 30
 
 def wide_stage_plan(cfg: R2LConfig, dtype: torch.dtype,
                     in_dim: int | None = None) -> dict:
-    """The wide form's image of ``cfg`` (at its width) in ``dtype`` (bf16,
-    f32 or int8) for a head of ``in_dim`` inputs (``cfg.input_dim`` by
-    default): 'kpad' (the head's input as staged, ``K_ALIGN``-padded),
-    'head_bytes', 'layer_bytes' (a body layer's), 'weights_bytes', then
-    for int8 the epilogue table's 'table_bytes' (the head's and each body
+    """The wide forms' image (``stage_wide_train``) of ``cfg`` (at its
+    width) in ``dtype`` (bf16, f32 or int8) for a head of ``in_dim`` inputs
+    (``cfg.input_dim`` by default): 'kpad' (the head's input as staged,
+    ``K_ALIGN``-padded), 'parts' (f32 2: its TF32 high and low parts),
+    'head_bytes', 'layer_bytes' (a body layer's), 'weights_bytes', then for
+    int8 the epilogue table's 'table_bytes' (the head's and each body
     layer's (m, b) a channel, f32), and 'nbytes'."""
     W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
     kpad = _padded_in(cfg.input_dim if in_dim is None else in_dim)
     es = torch.empty(0, dtype=dtype).element_size()
-    head, layer = W * kpad * es, W * W * es
+    parts = 2 if dtype == torch.float32 else 1
+    head, layer = W * kpad * es * parts, W * W * es * parts
     table = (1 + nbl) * W * 8 if dtype == torch.int8 else 0
     weights = head + nbl * layer
-    return {"kpad": kpad, "head_bytes": head, "layer_bytes": layer,
-            "weights_bytes": weights, "table_bytes": table,
-            "nbytes": weights + table}
-
-
-def _tiles(w: torch.Tensor) -> torch.Tensor:
-    """[..., N, K] of any dtype -> its uint8 tiles, matrix by matrix: tile
-    (o, k) (outputs [128 o, 128 o + 128), bytes [128 k, 128 k + 128) of
-    each row) at o * (K bytes / 128) + k, its 128 rows in order."""
-    b = w.contiguous().view(torch.uint8)
-    *lead, n, kb = b.shape
-    t = b.reshape(*lead, n // WIDE_TILE, WIDE_TILE, kb // WIDE_TILE,
-                  WIDE_TILE)
-    return t.transpose(-3, -2).reshape(-1)
-
-
-def _untiles(img: torch.Tensor, shape: tuple, dtype: torch.dtype
-             ) -> torch.Tensor:
-    """``_tiles``' inverse: matrices of ``shape`` [..., N, K] in ``dtype``."""
-    *lead, n, k = shape
-    kb = k * torch.empty(0, dtype=dtype).element_size()
-    t = img.reshape(*lead, n // WIDE_TILE, kb // WIDE_TILE, WIDE_TILE,
-                    WIDE_TILE)
-    return t.transpose(-3, -2).reshape(*lead, n, kb).contiguous().view(dtype)
-
-
-def stage_wide_chain(fp: FusedParams | FusedParamsInt8PE) -> torch.Tensor:
-    """The wide form's image (uint8): the head's tiles (``head_w`` or
-    ``head_q`` [W, in_pad], its columns in the fields' order: freq-major
-    from ``prepare_fused_params_pe`` and ``calibrate_r2l_int8_pe``,
-    ``r2l_embed``'s from ``prepare_fused_params``), then each body layer's,
-    each in ``_tiles`` order; for int8 then the epilogue table, (m, b)
-    interleaved a channel, the head's row first (K2's). W must be a
-    multiple of ``WIDE_CHANNELS``."""
-    if isinstance(fp, FusedParamsInt8PE):
-        table = torch.cat([
-            torch.stack([fp.head_m, fp.head_b], -1).reshape(-1),
-            torch.stack([fp.body_m, fp.body_b], -1).reshape(-1)])
-        return torch.cat([_tiles(fp.head_q), _tiles(fp.body_q),
-                          table.float().contiguous().view(torch.uint8)])
-    return torch.cat([_tiles(fp.head_w), _tiles(fp.body_w)])
-
-
-def unstage_wide_chain(staged: torch.Tensor, cfg: R2LConfig,
-                       dtype: torch.dtype, in_dim: int | None = None
-                       ) -> dict[str, torch.Tensor]:
-    """The fields back from a wide image: 'head_w' [W, kpad] and 'body_w'
-    [nb*nl, W, W] in ``dtype``, or for int8 'head_q', 'body_q' and
-    'head_m', 'head_b' [W], 'body_m', 'body_b' [nb*nl, W]."""
-    plan = wide_stage_plan(cfg, dtype, in_dim)
-    W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
-    cut, end = plan["head_bytes"], plan["weights_bytes"]
-    head = _untiles(staged[:cut], (W, plan["kpad"]), dtype)
-    body = _untiles(staged[cut:end], (nbl, W, W), dtype)
-    if dtype != torch.int8:
-        return {"head_w": head, "body_w": body}
-    mb = staged[end:end + plan["table_bytes"]].clone().view(
-        torch.float32).view(1 + nbl, W, 2)
-    return {"head_q": head, "body_q": body,
-            "head_m": mb[0, :, 0], "head_b": mb[0, :, 1],
-            "body_m": mb[1:, :, 0], "body_b": mb[1:, :, 1]}
-
-
-def wide_train_stage_plan(cfg: R2LConfig, dtype: torch.dtype,
-                          in_dim: int | None = None) -> dict:
-    """The training image (``stage_wide_train``) of ``cfg`` in ``dtype``
-    (bf16, f32 or int8): ``wide_stage_plan``'s keys, f32 twice the bytes
-    (its TF32 high and low parts), and 'parts'."""
-    plan = wide_stage_plan(cfg, dtype, in_dim)
-    parts = 2 if dtype == torch.float32 else 1
-    for k in ("head_bytes", "layer_bytes", "weights_bytes"):
-        plan[k] *= parts
-    plan["nbytes"] = plan["weights_bytes"] + plan["table_bytes"]
-    plan["parts"] = parts
-    return plan
+    return {"kpad": kpad, "parts": parts, "head_bytes": head,
+            "layer_bytes": layer, "weights_bytes": weights,
+            "table_bytes": table, "nbytes": weights + table}
 
 
 def _layer_bytes(w: torch.Tensor) -> torch.Tensor:
@@ -1240,10 +1168,14 @@ def _layer_bytes(w: torch.Tensor) -> torch.Tensor:
 
 
 def stage_wide_train(fp: FusedParams | FusedParamsInt8PE) -> torch.Tensor:
-    """The training forward's wide image (uint8, ``wide_train_stage_plan``;
-    ``csrc/r2l_wide_train.cu``): the head's weights (``head_w`` or
-    ``head_q`` [W, in_pad], freq-major), then each body layer's, each [out,
-    in] row-major as the pass skeleton (``csrc/wide_hopper.cuh``) reads B
+    """The wide forms' image (uint8, ``wide_stage_plan``), which the
+    frame's (``csrc/r2l_wide.cu``: K1, K9, K2) and the training forward's
+    (``csrc/r2l_wide_train.cu``: K3, K4/K8) read alike: the head's weights
+    (``head_w`` or ``head_q`` [W, in_pad], its columns in the fields' order:
+    freq-major from ``prepare_fused_params_pe`` and
+    ``calibrate_r2l_int8_pe``, ``r2l_embed``'s from
+    ``prepare_fused_params``), then each body layer's, each [out, in]
+    row-major as the pass skeleton (``csrc/wide_hopper.cuh``) reads B
     (``_layer_bytes``: f32 its TF32 high parts, then its low parts, a layer
     at a time); for int8 then the epilogue table, (m, b) interleaved a
     channel, the head's row first."""
@@ -1259,11 +1191,11 @@ def stage_wide_train(fp: FusedParams | FusedParamsInt8PE) -> torch.Tensor:
 def unstage_wide_train(staged: torch.Tensor, cfg: R2LConfig,
                        dtype: torch.dtype, in_dim: int | None = None
                        ) -> dict[str, torch.Tensor]:
-    """The fields back from a training image: 'head_w' [W, kpad] and
-    'body_w' [nb*nl, W, W] (f32: the TF32 high parts, and 'head_w_lo',
-    'body_w_lo' the low parts), or for int8 'head_q', 'body_q' and 'head_m',
-    'head_b' [W], 'body_m', 'body_b' [nb*nl, W]."""
-    plan = wide_train_stage_plan(cfg, dtype, in_dim)
+    """The fields back from a wide image: 'head_w' [W, kpad] and 'body_w'
+    [nb*nl, W, W] (f32: the TF32 high parts, and 'head_w_lo', 'body_w_lo'
+    the low parts), or for int8 'head_q', 'body_q' and 'head_m', 'head_b'
+    [W], 'body_m', 'body_b' [nb*nl, W]."""
+    plan = wide_stage_plan(cfg, dtype, in_dim)
     W, nbl = cfg.netwidth, cfg.num_blocks * cfg.n_learnable
     parts, cut, end = plan["parts"], plan["head_bytes"], plan["weights_bytes"]
     head = staged[:cut].clone().view(dtype).view(parts, W, plan["kpad"])
@@ -1284,51 +1216,71 @@ def _aligned(nbytes: int) -> int:
     return -(-nbytes // 256) * 256
 
 
+def wide_maps_x(dtype: torch.dtype, pe: bool, in_dim: int) -> bool:
+    """Whether the frame's wide head reads its input as it is
+    (``csrc/r2l_wide.cu``, maps_x): K9 f32 whose rows are a multiple of 16
+    bytes, by TMA, which fills the columns past ``in_dim`` with zeros;
+    every other head reads an encoding written first."""
+    return not pe and dtype == torch.float32 and in_dim % 4 == 0
+
+
 def wide_scratch_bytes(rows: int, W: int, dtype: torch.dtype, nl: int,
-                       use_residual: bool) -> int:
+                       use_residual: bool, kp: int) -> int:
     """The scratch one wide call needs for passes of ``rows`` rays
-    (``csrc/r2l_wide.cuh``, scratch_bytes): bf16/f32 two h, min(nl-1, 2) t
-    and (with the global residual) h0 of the compute type; int8 two code
-    buffers, two bf16 h and an f32 h0; each [rows, W], 256-byte aligned."""
+    (``csrc/r2l_wide.cu``, frame_scratch): the head's input [rows, kp] of
+    the compute type (int8: its codes; ``kp`` 0 where the head maps x,
+    ``wide_maps_x``); bf16/f32 then h0 (with the global residual), two h
+    and min(nl-1, 2) t of the compute type; int8 two code buffers, the bf16
+    residual stream and an f32 h0 (with the global residual); each
+    [rows, W], 256-byte aligned."""
     e = rows * W
+    es = torch.empty(0, dtype=dtype).element_size()
+    enc = _aligned(rows * kp * es)
     if dtype == torch.int8:
-        return (2 * _aligned(e) + 2 * _aligned(2 * e)
+        return (enc + 2 * _aligned(e) + _aligned(2 * e)
                 + (_aligned(4 * e) if use_residual else 0))
-    es = 4 if dtype == torch.float32 else 2
-    return (2 + min(nl - 1, 2) + int(use_residual)) * _aligned(e * es)
+    return enc + (2 + min(nl - 1, 2) + int(use_residual)) * _aligned(e * es)
 
 
-def _need_wide_image(fp, form: str = "wide") -> None:
-    """Raise ValueError where ``fp`` carries no image staged for ``form``:
-    "wide" the frame's wide form (``stage_wide_chain``), "wide_train" the
-    training forward's (``stage_wide_train``)."""
-    if getattr(fp, "staged", None) is None or fp.staged_for != form:
+def _need_wide_image(fp) -> None:
+    """Raise ValueError where ``fp`` carries no image staged for the wide
+    forms (``stage_wide_train``), which the frame's and the training
+    forward's read alike."""
+    if getattr(fp, "staged", None) is None or fp.staged_for != "wide":
         raise ValueError(
-            "fp has no staged image of the wide form"
-            + (": pack it with prepare_fused_params, prepare_fused_params_pe"
-               " or calibrate_r2l_int8_pe (stage=True) at its kernel width"
-               if form == "wide" else
-               " for training (stage_wide_train): stage it with "
-               "r2l_train.prepare_train_params (bf16, f32) or "
-               "stage_int8_train (int8)"))
+            "fp has no staged image of the wide forms (stage_wide_train): "
+            "pack it with prepare_fused_params, prepare_fused_params_pe or "
+            "calibrate_r2l_int8_pe (stage=True) at its kernel width for the "
+            "frame, with r2l_train.prepare_train_params (bf16, f32) or "
+            "stage_int8_train (int8) for training")
 
 
 def wide_rows(n: int, W: int, dtype: torch.dtype, nl: int,
-              use_residual: bool) -> int:
+              use_residual: bool, kp: int) -> int:
     """Rays a pass of a wide call on n rays: all of them, or as many as
-    keep the scratch within ``WIDE_SCRATCH_BYTES``."""
-    per_4096 = wide_scratch_bytes(4096, W, dtype, nl, use_residual)
+    keep the scratch (``wide_scratch_bytes``) within
+    ``WIDE_SCRATCH_BYTES``."""
+    per_4096 = wide_scratch_bytes(4096, W, dtype, nl, use_residual, kp)
     return min(n, max(WIDE_CHANNELS, WIDE_SCRATCH_BYTES * 4096 // per_4096))
+
+
+def wide_cast_ref(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Plain twin of K9's wide head input (``csrc/r2l_wide.cu``, cast_x):
+    x [n, in_dim] f32 rounded to ``dtype`` (bf16, f32), zero-padded to
+    [n, in_dim padded to 128]: ``fused_r2l_apply_ref``'s head input."""
+    return torch.nn.functional.pad(x.to(dtype),
+                                   (0, _padded_in(x.shape[1]) - x.shape[1]))
 
 
 def _launch_wide(wrapper, fp: FusedParams | FusedParamsInt8PE,
                  cfg: R2LConfig, inp: torch.Tensor, dim_pts: int, L: int,
                  in_dim: int, epilogue: int) -> torch.Tensor:
-    """One call of the wide form (``csrc/r2l_wide.cu``: the head, each body
-    layer and the tail, a pass each, over the rays in ``wide_rows``
-    passes) on the CUDA tensor ``inp`` (points with ``dim_pts``, else
-    encoded rays), ``cfg`` at its width, the image checked here and a
-    fresh scratch; counted in ``wrapper.launches``."""
+    """One call of the wide form (``csrc/r2l_wide.cu``: over the rays in
+    ``wide_rows`` passes, the head's input, then the head and each body
+    layer a pass of the pass skeleton, then the tail) on the CUDA tensor
+    ``inp`` (points with ``dim_pts``, else encoded rays), ``cfg`` at its
+    width, the image checked here and a fresh scratch; counted in
+    ``wrapper.launches``."""
     from . import _build
     int8 = isinstance(fp, FusedParamsInt8PE)
     wd = fp.head_q.dtype if int8 else fp.head_w.dtype
@@ -1339,9 +1291,13 @@ def _launch_wide(wrapper, fp: FusedParams | FusedParamsInt8PE,
     out = torch.empty((n, tail_w.shape[0]), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    rows = wide_rows(n, W, wd, cfg.n_learnable, cfg.use_residual)
+    maps_x = wide_maps_x(wd, dim_pts > 0, in_dim)
+    if maps_x and inp.data_ptr() % 16:   # TMA reads x from 16-byte bases
+        inp = inp.clone()
+    kp = 0 if maps_x else _padded_in(in_dim)
+    rows = wide_rows(n, W, wd, cfg.n_learnable, cfg.use_residual, kp)
     scratch = torch.empty((wide_scratch_bytes(
-        rows, W, wd, cfg.n_learnable, cfg.use_residual),),
+        rows, W, wd, cfg.n_learnable, cfg.use_residual, kp),),
         dtype=torch.uint8, device=dev)
     def q8(name):    # int8's scales
         return _ptr(getattr(fp, name)) if int8 else None
@@ -1369,8 +1325,8 @@ def fused_r2l_apply_pe_wide(fp: FusedParams, cfg: R2LConfig,
                             pts: torch.Tensor, dim_pts: int,
                             L: int = 10) -> torch.Tensor:
     """K1's wide form: pts [N, dim_pts] -> RGB [N, out_dim] f32, the
-    encoding in the head's pass (``fp`` from ``prepare_fused_params_pe`` at
-    its ``kernel_width``, staged). ``fused_r2l_apply_pe`` sends every
+    encoding written once, then a pass of the pass skeleton a layer (``fp``
+    from ``prepare_fused_params_pe`` at its ``kernel_width``, staged). ``fused_r2l_apply_pe`` sends every
     student wider than ``R2L_KERNEL_WIDTHS`` here. CPU tensors take the
     plain version."""
     if pts.device.type == "cpu":
@@ -1390,8 +1346,9 @@ fused_r2l_apply_pe_wide.launches = 0
 def fused_r2l_apply_wide(fp: FusedParams, cfg: R2LConfig,
                          x: torch.Tensor) -> torch.Tensor:
     """K9's wide form: x [N, input_dim] (encoded rays, any float dtype,
-    rounded once to the compute dtype) -> RGB [N, out_dim] f32 (``fp`` from
-    ``prepare_fused_params`` at its ``kernel_width``); ``fused_r2l_apply``
+    rounded once to the compute dtype, by the kernel as ``wide_cast_ref``
+    does) -> RGB [N, out_dim] f32 (``fp`` from ``prepare_fused_params`` at
+    its ``kernel_width``); ``fused_r2l_apply``
     sends every student wider than ``R2L_KERNEL_WIDTHS`` here. CPU tensors
     take the plain version."""
     if x.device.type == "cpu":

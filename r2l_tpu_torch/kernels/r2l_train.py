@@ -74,8 +74,8 @@ from .r2l_fused import (CHAIN_STAGE_K, INT8_BLOCK_RAYS, WIDE_CHANNELS,
                         calibrate_r2l_int8_pe, chain_stage_plan,
                         fused_kernel_supported, int8_train_stage_plan,
                         prepare_fused_params_pe, stage_int8_train,
-                        stage_wide_train, wide_train_form,
-                        wide_train_stage_plan)
+                        stage_wide_train, wide_stage_plan,
+                        wide_train_form)
 from .staging import stage_matrices, tf32_split, unstage_matrices
 
 
@@ -586,14 +586,15 @@ def prepare_train_params(model: R2L, cfg: R2LConfig, dim_pts: int, L: int,
     unpadded: the gradients are the model's), staged for the kernel the
     step runs: K1's chain image, or on the wide form
     (``wide_train_form``, at a multiple of ``WIDE_CHANNELS``) the training
-    image (``stage_wide_train``, staged for "wide_train")."""
+    image (``stage_wide_train``, staged for "wide", the frame's wide form's
+    too)."""
     W = cfg.netwidth
     wide = wide_train_form(W)
     fp = prepare_fused_params_pe(model, cfg, dim_pts, L,
                                  weight_dtype=weight_dtype, stage=not wide,
                                  pad=False)
     if wide and W % WIDE_CHANNELS == 0:
-        fp = fp._replace(staged=stage_wide_train(fp), staged_for="wide_train")
+        fp = fp._replace(staged=stage_wide_train(fp), staged_for="wide")
     return fp
 
 
@@ -651,12 +652,12 @@ def train_fwd_wide(fp: FusedParams, cfg: R2LConfig, pts: torch.Tensor,
     if pts.device.type == "cpu":
         return train_fwd_ref(fp, cfg, pts, dim_pts, L)
     _refuse_wide(cfg, "K3's wide form (train_fwd_wide)", L=L)
-    _need_wide_image(fp, "wide_train")
+    _need_wide_image(fp)
     dev, in_dim = pts.device, dim_pts * (2 * L + 1)
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     wd = _check_chain_params(fp, cfg, in_dim, dev)
     _check(fp.staged, "staged", torch.uint8,
-           (wide_train_stage_plan(cfg, wd, in_dim)["nbytes"],), dev)
+           (wide_stage_plan(cfg, wd, in_dim)["nbytes"],), dev)
     return _launch_train_wide(train_fwd_wide, fp, cfg, pts, dim_pts, L,
                               False)
 
@@ -674,17 +675,17 @@ def train_fwd_int8_wide(fp: FusedParamsInt8PE, cfg: R2LConfig,
     to the stash rows and an f32 residual stream in a scratch; K8: the
     bf16 rows to the stash, the codes to a scratch). ``fp`` from
     ``calibrate_r2l_int8_pe(..., fold_requant=False)`` with the training
-    image (``stage_int8_train``, staged for "wide_train"); with another or
+    image (``stage_int8_train``, staged for "wide"); with another or
     none it raises. ``train_fwd_int8`` sends every ``wide_train_form``
     student here. CPU tensors take the plain version."""
     if pts.device.type == "cpu":
         return train_fwd_int8_ref(fp, cfg, pts, dim_pts, L, stash_q)
     _refuse_wide(cfg, "K4/K8's wide form (train_fwd_int8_wide)", True, L)
-    _need_wide_image(fp, "wide_train")
+    _need_wide_image(fp)
     dev = pts.device
     _check(pts, "pts", torch.float32, (pts.shape[0], dim_pts), dev)
     _check_int8_params(fp, cfg, dim_pts, L, dev)
-    _check(fp.staged, "staged", torch.uint8, (wide_train_stage_plan(
+    _check(fp.staged, "staged", torch.uint8, (wide_stage_plan(
         cfg, torch.int8, dim_pts * (2 * L + 1))["nbytes"],), dev)
     return _launch_train_wide(train_fwd_int8_wide, fp, cfg, pts, dim_pts, L,
                               stash_q,

@@ -202,7 +202,8 @@ def test_wide_pe_kernel_matches_plain(dev, name, wd, monkeypatch):
     assert mx < (TOL_F32 if wd == torch.float32 else TOL_BF16), mx
     monkeypatch.setattr(F, "WIDE_SCRATCH_BYTES", 1)
     assert F.wide_rows(pts.shape[0], F.kernel_width(cfg.netwidth), wd,
-                       cfg.n_learnable, cfg.use_residual) == 128
+                       cfg.n_learnable, cfg.use_residual,
+                       F._padded_in(dp * (2 * L + 1))) == 128
     assert torch.equal(got, F.fused_r2l_apply_pe(fp, cfg, pts, dp, L))
 
 
@@ -745,7 +746,7 @@ def _wide_train_case(name, dev, compute_dtype=torch.bfloat16):
 def test_wide_train_fwd_kernel_matches_plain(dev, name, wd):
     cfg, model, _, _, pts, dp, L = _wide_train_case(name, dev)
     fp = T.prepare_train_params(model, cfg, dp, L, wd)
-    assert fp.staged_for == "wide_train"
+    assert fp.staged_for == "wide"
     before = (T.train_fwd.launches, T.train_fwd_wide.launches)
     rgb, stash = T.train_fwd(fp, cfg, pts, dp, L)
     torch.cuda.synchronize()
@@ -781,7 +782,7 @@ def test_wide_train_fwd_int8_bit_for_bit(dev, name, stash_q):
     fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L, pts[:500],
                                  fold_requant=False, stage=False, pad=False)
     fp = F.stage_int8_train(fp, cfg, dp, L, stash_q)
-    assert fp.staged_for == "wide_train"
+    assert fp.staged_for == "wide"
     before = (T.train_fwd_int8_wide.launches,
               T.train_fwd_int8_wide.launches_bf16)
     rgb, stash = T.train_fwd_int8(fp, cfg, pts, dp, L, stash_q=stash_q)

@@ -106,12 +106,13 @@ def test_predicate_widths_are_the_launch_switches(name, after, switches,
     got = _switch_widths(_source(name), after)
     assert got == [tuple(want)] * switches
     # above them the frame kernels' wide form: any multiple of its
-    # channels, one layer a block or more, up to 8 outputs
+    # channels (every pass of the skeleton takes any multiple of 128
+    # outputs), one layer a block or more, up to 8 outputs
     wide = _source("r2l_wide.cuh")
     assert re.findall(r"constexpr int kWideChannels = (\d+);", wide) == [
         str(F.WIDE_CHANNELS)]
-    assert re.findall(r"\bkBN = (\w+)", wide) == [
-        "kWideChannels"]
+    assert re.findall(r"p\.N % (\d+) != 0", _source("wide_hopper.cuh")) == [
+        str(F.WIDE_CHANNELS)]
     entry = _source("r2l_wide.cu")
     for limit in ("W % kWideChannels != 0", "nl < 1", "out_dim > kMaxOut"):
         assert limit in entry, limit

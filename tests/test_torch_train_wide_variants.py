@@ -40,13 +40,16 @@ def test_variants_edit_what_the_library_builds(lib):
 
 def test_forward_rows_run_every_layer_through_the_edited_passes():
     """The forward's every layer is a pass of the skeleton
-    (``wideh::launch_pass``, whose epilogue and products the edits replace:
-    bf16 and int8 through the shared-memory products, f32 through the TF32
-    ones of both sum routes) and none is the frame's mma.sync pass; the
-    rows cover K3 bf16, K3 f32, K4 and K8."""
+    (``wideh::layer_pass``, which launches ``launch_pass``, whose epilogue
+    and products the edits replace: bf16 and int8 through the
+    shared-memory products, f32 through the TF32 ones of both sum routes)
+    and none is the frame's retired mma.sync pass; the rows cover K3 bf16,
+    K3 f32, K4 and K8."""
     src = (_build.CSRC / f"{V.FWD_LIB}.cu").read_text()
     head = (_build.CSRC / "wide_hopper.cuh").read_text()
-    assert "wideh::launch_pass<C, Epi, kSplit>" in src
+    assert "wideh::layer_pass<C, Epi, kSplit>(" in src
+    assert "return launch_pass<T, Epi, kSplit>(a, a, wm, om, p, e, stream);" \
+        in head
     assert "r2lw::pass<" not in src and "wide_layer" not in src
     assert head.count("products_tf32<") >= 3   # one sum and the split route
     assert V.FWD_KINDS == ("k3_bf16", "k3_f32", "k4", "k8")

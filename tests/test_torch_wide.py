@@ -8,9 +8,12 @@ port's frame kernels take, and the port's copy of that rule
 picks JAX's kind and packs for the wide form (the model's device read as
 CUDA, nothing launched). On the CPU the wrappers run their plain versions:
 those, on the wide packing, against JAX's kernels in interpret mode; a W300
-student packed at 384 against its unpadded packing; the wide image's round
-trip. tests/test_torch_cuda.py holds the CUDA kernels to the plain versions
-on the card.
+student packed at 384 against its unpadded packing; the wide forms' one
+image (``stage_wide_train``): its round trip, and each head's columns in
+its input's order (K1 the encoding twin's, K9 the cast twin's); the cast
+twin; the scratch a call takes and the passes a frame runs in.
+tests/test_torch_cuda.py holds the CUDA kernels to the plain versions on
+the card.
 """
 import functools
 
@@ -25,7 +28,10 @@ from r2l_tpu.kernels import r2l_pallas as JP
 from r2l_tpu.models import R2LConfig as JaxR2LConfig
 from r2l_tpu_torch import evaluate as TE
 from r2l_tpu_torch.encoding import r2l_embed
+from r2l_tpu_torch.kernels import _build
 from r2l_tpu_torch.kernels import r2l_fused as F
+from r2l_tpu_torch.kernels import r2l_train as T
+from r2l_tpu_torch.kernels.staging import tf32_split
 from r2l_tpu_torch.models import R2L, R2LConfig
 from r2l_tpu_torch.sampler import PointSampler
 from test_torch_gates import TOL_KERNEL
@@ -283,23 +289,30 @@ def test_w300_packed_at_384_computes_the_network(kernel):
     np.testing.assert_allclose(n(outs[1]), n(outs[0]), rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
-                                   torch.int8])
-def test_wide_staging_round_trip(dtype):
-    """``stage_wide_chain`` then ``unstage_wide_chain`` gives the fields
-    back; the image is the plan's size, and byte (o, b) of a layer (output
-    o, byte b of its row of K bytes) lies in tile (o // 128, b // 128) at
-    row o % 128, byte b % 128."""
-    W, D, L = 384, 6, 4
+def _wide_model(W: int = 384, D: int = 6, L: int = 4, seed: int = 1):
+    """A seeded W-wide student of 12 scalars a ray and 64 seeded points."""
     cfg = R2LConfig(input_dim=12 * (2 * L + 1), netdepth=D, netwidth=W,
                     compute_dtype=torch.bfloat16)
     model = R2L(cfg, device="cpu")
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     with torch.no_grad():
         for p in model.parameters():
             p.copy_(torch.from_numpy(rng.normal(size=p.shape).astype(
                 np.float32)))
     pts = torch.from_numpy(rng.uniform(-1, 1, (64, 12)).astype(np.float32))
+    return cfg, model, pts
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_wide_staging_round_trip(dtype):
+    """The frame's packing stages the wide forms' one image
+    (``stage_wide_train``, staged for "wide"), which gives the fields back
+    (f32 as its TF32 high and low parts); the image is the plan's size, and
+    byte b of output o of a layer's row (K bytes) lies at the layer's start
+    + o * K + b (f32: the high parts' rows, then the low parts')."""
+    L = 4
+    cfg, model, pts = _wide_model(L=L)
     if dtype == torch.int8:
         fp = F.calibrate_r2l_int8_pe(model, cfg, 12, L, pts, pad=True)
         names = ("head_q", "body_q", "head_m", "head_b", "body_m", "body_b")
@@ -308,49 +321,158 @@ def test_wide_staging_round_trip(dtype):
                                        pad=True)
         names = ("head_w", "body_w")
     plan = F.wide_stage_plan(cfg, dtype)
-    assert fp.staged.dtype == torch.uint8
+    assert fp.staged.dtype == torch.uint8 and fp.staged_for == "wide"
     assert fp.staged.numel() == plan["nbytes"]
-    back = F.unstage_wide_chain(fp.staged, cfg, dtype)
-    assert sorted(back) == sorted(names)
+    back = F.unstage_wide_train(fp.staged, cfg, dtype)
     for name in names:
-        assert torch.equal(back[name], getattr(fp, name)), name
+        want = getattr(fp, name)
+        if dtype == torch.float32:
+            hi, lo = tf32_split(want)
+            assert torch.equal(back[name + "_lo"], lo), name
+            want = hi
+        assert torch.equal(back[name], want), name
     # one layer's byte placement, by the formula
     w = (fp.body_q if dtype == torch.int8 else fp.body_w)[1]
-    b = w.contiguous().view(torch.uint8)
-    kb = b.shape[1]
+    parts = tf32_split(w) if dtype == torch.float32 else (w,)
+    kb = w.shape[1] * w.element_size()
     start = plan["head_bytes"] + plan["layer_bytes"]
-    for o, c in ((0, 0), (5, 130), (200, kb - 1), (383, 257 % kb)):
-        at = ((o // 128) * (kb // 128) + c // 128) * 128 * 128 \
-            + (o % 128) * 128 + c % 128
-        assert fp.staged[start + at] == b[o, c]
+    for i, part in enumerate(parts):
+        b = part.contiguous().view(torch.uint8)
+        for o, c in ((0, 0), (5, 130), (200, kb - 1), (383, 257 % kb)):
+            assert fp.staged[start + (i * 384 + o) * kb + c] == b[o, c]
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K9"])
+def test_wide_head_reads_its_input_in_the_fields_order(kernel):
+    """The chain on the image's weights (its round trip) and on the head's
+    input as the wide form writes it (K1: the encoding twin
+    ``train_encoding_ref``, freq-major; K9: the cast twin ``wide_cast_ref``
+    of ``r2l_embed``'s rays), its first in_dim columns (the rest zero), is
+    the plain version's frame bit for bit: each head's columns lie in its
+    input's order."""
+    L = 4
+    cfg, model, pts = _wide_model(L=L)
+    in_dim, kp = cfg.input_dim, F._padded_in(cfg.input_dim)
+    cd = torch.bfloat16
+    if kernel == "K1":
+        fp = F.prepare_fused_params_pe(model, cfg, 12, L, weight_dtype=cd,
+                                       pad=True)
+        inp = T.train_encoding_ref(pts, 12, L, cd)
+        want = F.fused_r2l_apply_pe_ref(fp, cfg, pts, 12, L)
+        other = F.prepare_fused_params(model, cfg, cd, pad=True)
+    else:
+        fp = F.prepare_fused_params(model, cfg, cd, pad=True)
+        x = r2l_embed(pts, L)
+        inp = F.wide_cast_ref(x, cd)
+        want = F.fused_r2l_apply_ref(fp, cfg, x)
+        other = F.prepare_fused_params_pe(model, cfg, 12, L, weight_dtype=cd,
+                                          pad=True)
+    assert inp.shape == (64, kp) and not inp[:, in_dim:].any()
+    back = F.unstage_wide_train(fp.staged, cfg, cd)
+    got = F._chain_ref(fp._replace(**back), cfg, inp[:, :in_dim], cd)
+    assert torch.equal(got, want)
+    # the other head's image on this input is another network
+    wrong = F.unstage_wide_train(other.staged, cfg, cd)
+    assert not torch.equal(F._chain_ref(fp._replace(**wrong), cfg,
+                                        inp[:, :in_dim], cd), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k9_cast_twin_is_the_head_input(dtype):
+    """K9's wide head input (``wide_cast_ref``, the twin of the kernel's
+    cast) is ``fused_r2l_apply_ref``'s rounding of x to the compute dtype,
+    bit for bit, zero-padded to 128 columns; and in f32 at L=10 (in_dim
+    1008, rows of 4032 bytes) the kernel maps x itself
+    (``wide_maps_x``), whose columns past in_dim TMA reads as zeros."""
+    x = r2l_embed(t(np.random.default_rng(5).uniform(-2, 2, (33, DIM_PTS))),
+                  10)
+    in_dim = x.shape[1]
+    got = F.wide_cast_ref(x, dtype)
+    assert got.dtype == dtype and got.shape == (33, 1024)
+    assert torch.equal(got[:, :in_dim].view(torch.uint8),
+                       x.to(dtype).view(torch.uint8))
+    assert not got[:, in_dim:].any()
+    assert F.wide_maps_x(dtype, False, in_dim) == (dtype == torch.float32)
+    assert not F.wide_maps_x(torch.float32, False, 63)
+    assert not F.wide_maps_x(torch.float32, True, in_dim)
 
 
 def test_wide_scratch_is_the_kernels():
-    """The scratch the wrapper allocates: bf16/f32 two h, min(nl-1, 2) t
-    and h0; int8 two code buffers, two bf16 h and an f32 h0; 256-byte
-    aligned, as csrc/r2l_wide.cuh's scratch_bytes."""
-    e = 1000 * 384
-    assert F.wide_scratch_bytes(1000, 384, torch.bfloat16, 2, True) == \
-        4 * e * 2
-    assert F.wide_scratch_bytes(1000, 384, torch.float32, 3, False) == \
-        4 * e * 4
-    assert F.wide_scratch_bytes(1000, 384, torch.float32, 1, True) == \
+    """The scratch the wrapper allocates: the head's input [rows, kp] of
+    the compute type (int8 its codes; none where K9 f32 maps x); bf16/f32
+    then h0, two h and min(nl-1, 2) t; int8 two code buffers, the bf16
+    residual stream and an f32 h0; 256-byte aligned, as
+    csrc/r2l_wide.cu's frame_scratch."""
+    e, kp = 1000 * 384, 1024
+    assert F.wide_scratch_bytes(1000, 384, torch.bfloat16, 2, True, kp) == \
+        1000 * kp * 2 + 4 * e * 2
+    assert F.wide_scratch_bytes(1000, 384, torch.float32, 3, False, kp) == \
+        1000 * kp * 4 + 4 * e * 4
+    assert F.wide_scratch_bytes(1000, 384, torch.float32, 1, True, 0) == \
         3 * e * 4
-    assert F.wide_scratch_bytes(1000, 384, torch.int8, 2, True) == \
-        2 * e + 2 * 2 * e + 4 * e
-    assert F.wide_scratch_bytes(3, 128, torch.int8, 2, False) == \
-        2 * 512 + 2 * 768
+    assert F.wide_scratch_bytes(1000, 384, torch.int8, 2, True, kp) == \
+        1000 * kp + 2 * e + 2 * e + 4 * e
+    assert F.wide_scratch_bytes(3, 128, torch.int8, 2, False, 128) == \
+        512 + 2 * 512 + 768
+
+
+_WIDE_SRC = (_build.CSRC / "r2l_wide.cu").read_text()
+
+
+@pytest.mark.parametrize("rows", [1, 127, 160_000])
+@pytest.mark.parametrize("dtype,pe", [(torch.bfloat16, True),
+                                      (torch.float32, True),
+                                      (torch.bfloat16, False),
+                                      (torch.float32, False),
+                                      (torch.int8, True)])
+def test_wide_scratch_layout_is_the_entry_points(rows, dtype, pe):
+    """The scratch of W512 at L=10 (in_dim 1008, the head's input padded to
+    1024 columns; none where K9 f32 maps x), one to three layers a block,
+    with and without the global residual, every buffer 256-byte aligned,
+    as the entry point's frame_scratch counts it (its formula read from
+    the source) and checks it; and as run_float and run_k2 cut it."""
+    W, in_dim = 512, DIM_PTS * 21
+    es = {torch.bfloat16: 2, torch.float32: 4, torch.int8: 1}[dtype]
+    maps_x = F.wide_maps_x(dtype, pe, in_dim)
+    assert maps_x == (dtype == torch.float32 and not pe)
+    kp = 0 if maps_x else 1024
+
+    def al(b):
+        return -(-b // 256) * 256
+    e = rows * W
+    for nl in (1, 2, 3):
+        for res in (True, False):
+            want = al(rows * kp * es)
+            if dtype == torch.int8:
+                want += 2 * al(e) + al(2 * e) + (al(4 * e) if res else 0)
+            else:
+                want += (2 + min(nl - 1, 2) + int(res)) * al(e * es)
+            assert F.wide_scratch_bytes(rows, W, dtype, nl, res, kp) == \
+                want, (nl, res)
+    for text in (
+            "aligned(rows * r2l::round_up(in_dim, r2l::kKAlign) * es)",
+            "return enc + 2 * aligned(e) + aligned(2 * e) +\n"
+            "           (use_residual ? aligned(4 * e) : 0);",
+            "const int bufs = 2 + (nl - 1 < 2 ? nl - 1 : 2) + "
+            "(use_residual ? 1 : 0);",
+            "return enc + bufs * aligned(e * es);",
+            "return !pe && dtype == kF32 && in_dim % 4 == 0;",
+            "if (!direct) s += aligned((long long)rows * kp * es);",
+            "for (int i = 0; i < 2; ++i, s += aligned(e)) X[i] = s;",
+            "frame_scratch(rows, W, in_dim, dtype, pe, nl, use_residual)"):
+        assert text in _WIDE_SRC, text
 
 
 @pytest.mark.parametrize("W,dtype,passes", [
     (512, torch.bfloat16, 1), (2304, torch.int8, 1), (1024, torch.float32, 1),
     (2304, torch.float32, 2)])
 def test_a_frame_is_one_wide_pass(W, dtype, passes):
-    """A 400x400 frame (160,000 rays) runs in one pass of the wide form up
-    to W2304 in int8 and W1024 in f32; a wider f32 one in passes whose
-    scratch stays within ``WIDE_SCRATCH_BYTES``."""
-    n = 160_000
-    rows = F.wide_rows(n, W, dtype, 2, True)
+    """A 400x400 frame (160,000 rays) at L=10 runs in one pass of the wide
+    form up to W2304 in int8 and W1024 in f32, the head's input written
+    once (kp 1024) beside the layers' buffers; a wider f32 one in passes
+    whose scratch stays within ``WIDE_SCRATCH_BYTES``."""
+    n, kp = 160_000, F._padded_in(DIM_PTS * 21)
+    rows = F.wide_rows(n, W, dtype, 2, True, kp)
     assert -(-n // rows) == passes
-    assert F.wide_scratch_bytes(rows, W, dtype, 2, True) <= \
+    assert F.wide_scratch_bytes(rows, W, dtype, 2, True, kp) <= \
         F.WIDE_SCRATCH_BYTES

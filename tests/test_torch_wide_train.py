@@ -14,10 +14,12 @@ order (ray ranges, 32-ray stages summed apart) against the plain version;
 K5 wide's f32 sum routes at W512/D88 (the dh walk's 32-channel stages and
 the dW pass's 32-ray stages, each summed apart by emulated tensor cores,
 which truncate) within half of K5's f32 limit, and K3 wide's (each k8
-step apart) on every stash row; the wide forward's encoding kernel's
-plain twin bit for bit the plain versions' head input; the wide images'
-round trips; the scratch a call takes; and a W384/D6 fused step against
-JAX's fused step on the same draws. tests/test_torch_cuda.py holds the CUDA kernels to the plain
+step apart) on every stash row; the frame's wide f32 route (K1 at
+W512/D12, K9 at W512/D24, one running sum) within a quarter of its limit
+on rgb; the wide forward's encoding kernel's plain twin bit for bit the
+plain versions' head input; the wide images' round trips; the scratch a
+call takes; and a W384/D6 fused step against JAX's fused step on the same
+draws. tests/test_torch_cuda.py holds the CUDA kernels to the plain
 versions on the card.
 """
 import ast
@@ -39,6 +41,7 @@ from r2l_tpu.kernels import r2l_train_pallas as JT
 from r2l_tpu.models import R2LConfig as JaxR2LConfig
 from r2l_tpu.sampler import PointSampler as JaxPointSampler
 from r2l_tpu_torch import train as TR
+from r2l_tpu_torch.encoding import r2l_embed
 from r2l_tpu_torch.kernels import r2l_fused as F
 from r2l_tpu_torch.kernels import r2l_train as T
 from r2l_tpu_torch.kernels.staging import tf32_split
@@ -431,6 +434,59 @@ def test_k3_wide_f32_route_keeps_the_limit():
     assert worst[32] > worst[8], worst
 
 
+# K1's and K9's f32 limit on rgb (chip_smoke.py, TOL_PE_F32), and the share
+# of it a route may read in the emulation: the card has read up to twice
+# the emulation (K3 f32: 34.6% in it, 61-67% on the card; PERF.md).
+TOL_FRAME_F32 = 1e-4
+QUARTER = 0.25
+# the sum routes by kSplit (wide_hopper.cuh), cheapest first: one running
+# sum over K, each 32-channel stage apart, each k8 step apart
+ROUTES = {0: 1 << 30, 32: 32, 8: 8}
+
+
+@pytest.mark.parametrize("kernel,depth", [("K1", 12), ("K9", 24)])
+def test_frame_wide_f32_route_keeps_a_quarter_of_the_limit(kernel, depth):
+    """The frame's wide f32 rgb (phase 21's W512/D12 K1 and W512/D24 K9
+    students, their seeded weights; 32 seeded rays, L=10), the head's and
+    the body's products summed by emulated tensor cores on each route
+    (printed side by side), against the plain f32 frame: the frame's route
+    (``csrc/r2l_wide.cu``, kF32Split: one running sum, the cheapest) within
+    a quarter of the f32 limit."""
+    W, dp, L_ = 512, 48, 10
+    cfg = R2LConfig(input_dim=dp * (2 * L_ + 1), netdepth=depth, netwidth=W,
+                    compute_dtype=torch.float32)
+    model = init_r2l(cfg, torch.Generator().manual_seed(W + depth),
+                     torch.device("cpu"))
+    pts = t(np.random.default_rng(3).uniform(-2, 2, (32, dp)))
+    if kernel == "K1":
+        fp = F.prepare_fused_params_pe(model, cfg, dp, L_, stage=False,
+                                       weight_dtype=torch.float32, pad=False)
+
+        def frame(mm):
+            return F.fused_r2l_apply_pe_ref(fp, cfg, pts, dp, L_, mm=mm)
+    else:
+        fp = F.prepare_fused_params(model, cfg, torch.float32, pad=False)
+        x = r2l_embed(pts, L_)
+
+        def frame(mm):
+            return F._chain_ref(fp, cfg, x, torch.float32, mm)
+    plain = frame(F._mm_f32)
+    worst = {}
+    for split, group in ROUTES.items():
+        rgb = frame(lambda a, w, g=group: _mm_tc(
+            a.float(), w[:, :a.shape[1]].T.float(), g))
+        worst[split] = float((rgb - plain).abs().max())
+    print(f"{kernel} wide f32 W{W}/D{depth} rgb: " + ", ".join(
+        f"kSplit {k} {v:.3e} ({v / TOL_FRAME_F32:.1%})"
+        for k, v in worst.items()) + f" of {TOL_FRAME_F32:.0e}")
+    src = open(os.path.join(REPO, "r2l_tpu_torch", "kernels", "csrc",
+                            "r2l_wide.cu")).read()
+    route = int(re.search(r"constexpr int kF32Split = (\d+);", src)[1])
+    assert route == next(k for k in ROUTES
+                         if worst[k] <= QUARTER * TOL_FRAME_F32), worst
+    assert 0 < worst[route], worst
+
+
 # ---------------------------------------------------------------------------
 # The wide forward's encoding (csrc/r2l_wide_train.cu, train_encode)
 # ---------------------------------------------------------------------------
@@ -507,7 +563,7 @@ def test_wide_train_image_round_trip(W, dtype):
                                        weight_dtype=dtype, pad=False)
         head, body = fp.head_w, fp.body_w
     img = F.stage_wide_train(fp)
-    plan = F.wide_train_stage_plan(cfg, dtype)
+    plan = F.wide_stage_plan(cfg, dtype)
     es = head.element_size()
     parts = 2 if dtype == torch.float32 else 1
     assert img.dtype == torch.uint8 and img.numel() == plan["nbytes"]
@@ -570,27 +626,27 @@ def test_bwd_image_round_trip(W, dtype):
 @pytest.mark.parametrize("W", [384, 512])
 def test_training_images_are_the_wide_forms(W):
     """K3's image (the step's packing, ``prepare_train_params``) and
-    K4/K8's (``stage_int8_train``) on the wide form are the training
-    image (``stage_wide_train``, staged for "wide_train", not the frame's
-    ``stage_wide_chain``), and give the fields back; both int8 kinds read
-    the same one; the frame's packing keeps the frame's image."""
+    K4/K8's (``stage_int8_train``) on the wide form are the wide forms'
+    one image (``stage_wide_train``, staged for "wide"), and give the
+    fields back; both int8 kinds read the same one; the frame's packing
+    stages the same layout, and on the same weights the same bytes."""
     jcfg, params, cfg, model, pts = _case(W, jnp.bfloat16)
     for wd in (torch.bfloat16, torch.float32):
         fp = T.prepare_train_params(model, cfg, DIM, L, wd)
-        assert fp.staged_for == "wide_train"
-        assert fp.staged.numel() == F.wide_train_stage_plan(cfg, wd)[
-            "nbytes"]
+        assert fp.staged_for == "wide"
+        assert fp.staged.numel() == F.wide_stage_plan(cfg, wd)["nbytes"]
         back = F.unstage_wide_train(fp.staged, cfg, wd)
         want = tf32_split(fp.body_w)[0] if wd == torch.float32 else fp.body_w
         assert torch.equal(back["body_w"], want)
         assert back["head_w"].shape == fp.head_w.shape
-    frame = F.prepare_fused_params_pe(model, cfg, DIM, L, pad=False)
-    assert frame.staged_for == "wide"
-    assert torch.equal(frame.staged, F.stage_wide_chain(frame))
+        frame = F.prepare_fused_params_pe(model, cfg, DIM, L,
+                                          weight_dtype=wd, pad=False)
+        assert frame.staged_for == "wide"
+        assert torch.equal(frame.staged, fp.staged)
     fp8 = F.calibrate_r2l_int8_pe(model, cfg, DIM, L, t(pts),
                                   fold_requant=False, stage=False, pad=False)
     imgs = [F.stage_int8_train(fp8, cfg, DIM, L, q) for q in (True, False)]
-    assert all(f.staged_for == "wide_train" for f in imgs)
+    assert all(f.staged_for == "wide" for f in imgs)
     assert torch.equal(imgs[0].staged, imgs[1].staged)
     back = F.unstage_wide_train(imgs[0].staged, cfg, torch.int8)
     for name in ("head_q", "body_q", "head_m", "head_b", "body_m", "body_b"):
@@ -604,7 +660,7 @@ def test_int8_head_slice_overflow_goes_wide():
     assert not T.wide_train_form(128, True, 127)
     assert T.wide_train_form(128, True, 128)
     assert not T.wide_train_form(128, False, 128)
-    for Lx, form in ((127, "K4"), (128, "wide_train")):
+    for Lx, form in ((127, "K4"), (128, "wide")):
         cfg = R2LConfig(input_dim=DIM * (2 * Lx + 1), netdepth=4,
                         netwidth=128)
         model = R2L(cfg, device="cpu")
