@@ -247,8 +247,10 @@ Phases, in order; any failure raises and exits non-zero:
    process at the JAX drivers' full shapes (only frames or steps per call
    and timed calls cut, by the drivers' own options): the int8 student
    frame decomposed, end to end, batched over 16 frames and in K2's three
-   epilogues; the teacher frame in K6 bf16 / K7 / plain, K7 folded, its
-   decomposition (coarse, pdf, fine, residual) and two ray chunks; the
+   epilogues and its bf16 global residual (``probe_epi2``'s four rows and
+   ``probe_epi3``'s); the teacher frame in K6 bf16 / K7 / plain, K7
+   folded, its decomposition (coarse, pdf, fine, residual), two ray chunks
+   and K7's dequantize in f32 or bf16 (``probe_teacher_bf16rq``); the
    distillation step by kind and group size, in int8, decomposed, by
    calibration cadence, by hard-sample mode; the step's pieces outside the
    kernels; the teacher's training step; ``dbg_int8_engage`` on a teacher
@@ -257,8 +259,10 @@ Phases, in order; any failure raises and exits non-zero:
    ``build/exp_records.jsonl``, the drivers' checks (``probe_batch``'s
    batched rgb against the frames', K7 against K6 and folded against
    unfolded at K7's datagen PSNR bound, K2's epilogue forms against their
-   plain versions, the training losses falling) and K2-K8's launches in
-   the phase, each > 0.
+   plain versions, K7's bf16_requant chunk against its plain version at
+   K7's limit and apart from the f32 dequantize, the training losses
+   falling) and K2-K8's launches in the phase, each > 0, K2's bf16_resid
+   and K7's bf16_requant among them.
 
 20. Shapes off the kernels' native widths (ROADMAP C1), through the entry
    points a user calls, at full size: a W96/D88 student's frames on K1/K2
@@ -348,6 +352,21 @@ Phases, in order; any failure raises and exits non-zero:
    W512/D8 int8 chunks splits their kernel time by name (the layer passes,
    the encodings, the heads, the compositing) and fails if a layer ran on
    a ``mma.sync`` pass or, for int8, off the skeleton's s8 instance.
+
+24. The kernels' number-changing forms (the Pallas flags ``bf16_resid``,
+   ``pe_ladder=False``, ``bf16_requant``), through the entry points
+   (``fused_r2l_apply_int8_pe``, ``fused_nerf_render``) at full size, each
+   driven with the counters read around it (one launch of the kernel and
+   of the form's counter a call): K2's bf16_resid in its three forms on a
+   400x400 frame of the canonical W256/D88 student and of phase 21's
+   W512/D50 (the wide form), bit for bit its plain version and apart from
+   the parent form; K6 f32, K6 bf16 and K7 with pe_ladder=False and K7 with
+   bf16_requant (folded and unfolded) on a datagen chunk's coarse and fine
+   pass of the canonical W256/D8 teacher and of a W512/D8 one (the wide
+   form), within TOL_TEACHER of the plain version, the differing values
+   counted. ``[main] forms`` lines: each form's kernel ms beside its parent
+   form's in the same run, the plain version's and the bound, beside the
+   card's name and power limit.
 
 Prints a JSON line of details, a JSON line of per-kernel results
 (``{"kernels": [...]}``: launches on the main path, max-abs error against
@@ -3947,6 +3966,7 @@ EXP_DRIVERS = (
     ("probe_teacher_fold", ["--reps", "2"]),
     ("probe_teacher_decomp", ["--reps", "2"]),
     ("probe_teacher_chunk", ["--reps", "2"]),
+    ("probe_teacher_bf16rq", ["--frames", "1", "--rounds", "2"]),
     ("probe_train", ["--steps", "10", "--reps", "3"]),
     ("probe_train_int8", ["--steps", "10", "--reps", "3"]),
     ("probe_train_decomp", ["--steps", "10", "--reps", "3"]),
@@ -3954,7 +3974,8 @@ EXP_DRIVERS = (
     ("probe_strat", ["--steps", "10", "--reps", "3"]),
     ("probe_mine", []),
     ("probe_teacher_step", ["--steps", "16", "--reps", "2"]))
-EXP_KERNELS = ("K2", "K3", "K4", "K5", "K6", "K7", "K8")
+EXP_KERNELS = ("K2", "K3", "K4", "K5", "K6", "K7", "K8", "K2 bf16_resid",
+               "K7 bf16_requant")
 # The drivers' own checks: probe_batch's batched rgb against the frames'
 # (K2's frame bounds; the same rays in another batch, so bit for bit is
 # expected) and its two checksums (K2's RMS bound summed over the values);
@@ -3971,9 +3992,14 @@ MIN_PSNR_EXP_K7 = MIN_PSNR_TEACHER["int8"]
 
 
 def exp_counts() -> dict:
-    """K2-K8's launch counters (K6: bf16 and f32; phase 19 runs bf16)."""
+    """K2-K8's launch counters (K6: bf16 and f32; phase 19 runs bf16), and
+    of them K2's bf16_resid and K7's bf16_requant launches."""
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.kernels import r2l_fused as F
     from r2l_tpu_torch.kernels import r2l_train as T
-    return {**cli_counts(), "K8": T.train_fwd_int8.launches_bf16}
+    return {**cli_counts(), "K8": T.train_fwd_int8.launches_bf16,
+            "K2 bf16_resid": F.fused_r2l_apply_int8_pe.launches_bf16_resid,
+            "K7 bf16_requant": NR.fused_nerf_render.launches_bf16_requant}
 
 
 def exp_line(driver: str, rec: dict) -> None:
@@ -4035,6 +4061,35 @@ def exp_checks(recs: dict) -> None:
           f"{rerun['bit_for_bit_vs_ctrl']}", flush=True)
     if not rerun["bit_for_bit_vs_ctrl"]:
         raise AssertionError("probe_teacher_fold: the rerun differs")
+    from r2l_tpu_torch.exp import probe_epi2
+    rows = [r["variant"] for r in recs["probe_epi2"]
+            if "max_abs_err_vs_plain" in r]
+    best = next(r["variant"] for r in recs["probe_epi2"]
+                if r.get("name") == "best")
+    print(f"[check] exp probe_epi2 rows {rows}, the best of JAX's four "
+          f"{best}", flush=True)
+    if rows != [f[0] for f in probe_epi2.FORMS] or best not in [
+            f[0] for f in probe_epi2.EPI2_FORMS]:
+        raise AssertionError(f"probe_epi2 rows {rows}, best {best}")
+    for r in recs["probe_teacher_bf16rq"]:
+        if r.get("name") == "r5_bf16rq_rgb_rms_delta":
+            ok = np.isfinite(r["rms"]) and 0 < r["rms"] <= r["max"]
+            print(f"[check] exp probe_teacher_bf16rq rgb of a chunk, bf16 "
+                  f"against f32 dequantize: RMS {r['rms']:.3e}, max "
+                  f"{r['max']:.3e} (finite, engaged)"
+                  + (" ok" if ok else " FAILED"), flush=True)
+        elif "max_abs_err_vs_plain" in r:
+            ok = r["max_abs_err_vs_plain"] <= TOL_TEACHER["int8"][0][0]
+            print(f"[check] exp probe_teacher_bf16rq {r['name']} vs its "
+                  f"plain version, a chunk: max-abs "
+                  f"{r['max_abs_err_vs_plain']:.3e} (K7's "
+                  f"{TOL_TEACHER['int8'][0][0]}), bit for bit "
+                  f"{r['bit_for_bit']}" + (" ok" if ok else " FAILED"),
+                  flush=True)
+        else:
+            continue
+        if not ok:
+            raise AssertionError(f"probe_teacher_bf16rq {r['name']}")
     for r in recs["probe_epi2"]:
         if "max_abs_err_vs_plain" not in r:
             continue
@@ -5624,6 +5679,217 @@ def phase_wide_teacher(smi: str, poses, dev) -> dict:
     return res
 
 
+# Phase 24: the kernels' number-changing forms (the Pallas flags that change
+# the function, each a form of the port's kernels): K2's bf16_resid
+# in each of its three forms, narrow (W256/D88, the canonical student on a
+# 400x400 frame) and wide (phase 21's W512/D50); K6/K7's pe_ladder=False
+# (f32, bf16, int8) and K7's bf16_requant (folded and unfolded), narrow (the
+# canonical W256/D8 teacher) and wide (W512/D8), on a datagen chunk's coarse
+# and fine passes. K2's forms hold their plain versions bit for bit (exact
+# int32 sums, the same roundings); the teacher's forms K6's and K7's limits
+# (TOL_TEACHER), every differing value counted.
+FORM_STUDENTS = (("W256/D88", 256, 88), ("W512/D50", 512, 50))
+FORM_TEACHERS = (("W256/D8", 256), ("W512/D8", 512))
+K2_FORMS = (("deployed", True, True), ("fold", True, False),
+            ("unfolded", False, False))
+# the teacher's forms: (label, kind, pe_ladder, bf16_requant, fold_requant)
+TEACHER_FORMS = (("pe_sin", "f32", False, False, True),
+                 ("pe_sin", "bf16", False, False, True),
+                 ("pe_sin", "int8", False, False, True),
+                 ("bf16_requant", "int8", True, True, True),
+                 ("bf16_requant unfolded", "int8", True, True, False))
+
+
+def form_counts() -> dict:
+    """Every kernel's launch counter, and the forms' own: K2's bf16_resid
+    launches (exp_counts), its wide form's, the teacher kernels'
+    pe_ladder=False launches and K7's bf16_requant launches (exp_counts;
+    narrow or wide)."""
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    return {**refused_counts(),
+            "K2w bf16_resid":
+                F.fused_r2l_apply_int8_pe_wide.launches_bf16_resid,
+            "pe_sin": NR.fused_nerf_render.launches_pe_sin}
+
+
+def forms_moved(start: dict) -> dict:
+    return {k: v - start[k] for k, v in form_counts().items()
+            if v != start[k]}
+
+
+def events_ms(fn) -> tuple:
+    """(fn(), its ms by CUDA events, one call)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def k2_resid_rows(smi: str, sampler, poses, dev) -> dict:
+    """K2's bf16_resid in its three forms at FORM_STUDENTS through the
+    entry point (``fused_r2l_apply_int8_pe(..., bf16_resid=True)``) on a
+    400x400 frame's points: one launch of K2 (of its wide form at W512) and
+    of the form each, bit for bit its plain version, apart from the parent
+    form's output, timed beside the parent form."""
+    from r2l_tpu_torch.evaluate import _calibration_points
+    from r2l_tpu_torch.exp._harness import chain_ops
+    from r2l_tpu_torch.kernels import r2l_fused as F
+    from r2l_tpu_torch.models import R2LConfig, init_r2l
+    pts = sampler.sample_test(torch.as_tensor(poses[3], device=dev))
+    calib = _calibration_points(sampler, poses, dev)
+    dp = pts.shape[1]
+    out = {}
+    for label, width, depth in FORM_STUDENTS:
+        if width > 256:
+            cfg, model = wide_student(width, depth, torch.bfloat16, dev)
+        else:   # phase 3's student
+            cfg = R2LConfig(netdepth=depth, netwidth=width,
+                            compute_dtype=torch.bfloat16)
+            model = init_r2l(cfg, torch.Generator().manual_seed(SEED), dev)
+        wide = F.wide_form(cfg.netwidth, True, EMBED_L)
+        key = "K2w" if wide else "K2"
+        fps = {fold: F.calibrate_r2l_int8_pe(model, cfg, dp, EMBED_L, calib,
+                                             fold_requant=fold)
+               for fold in (True, False)}
+        for form, fold, nob in K2_FORMS:
+            args = (fps[fold], cfg, pts, dp, EMBED_L, fold, nob)
+            c0 = form_counts()
+            got = F.fused_r2l_apply_int8_pe(*args, bf16_resid=True)
+            torch.cuda.synchronize()
+            moved = forms_moved(c0)
+            if moved != {key: 1, f"{key} bf16_resid": 1}:
+                raise AssertionError(f"K2 bf16_resid {label} {form}: "
+                                     f"launched {moved}")
+            want, plain_ms = events_ms(
+                lambda: F.fused_r2l_apply_int8_pe_ref(*args, bf16_resid=True))
+            name = f"K2 {form} bf16_resid {label}"
+            mx, rms = deltas(got, want)
+            check(f"{name} vs plain", mx, rms, TOL_INT8_MAX, TOL_INT8_RMS)
+            check_equal(f"{name} vs plain", got, want)
+            parent = F.fused_r2l_apply_int8_pe(*args)
+            differ = int((parent != got).sum())
+            if differ == 0:
+                raise AssertionError(f"{name}: equal to the parent form")
+            ms = time_ms(lambda: F.fused_r2l_apply_int8_pe(
+                *args, bf16_resid=True))
+            parent_ms = time_ms(lambda: F.fused_r2l_apply_int8_pe(*args))
+            r = out[f"{label} {form}"] = {
+                "max_abs_err": mx, "ms": ms, "parent_ms": parent_ms,
+                "plain_ms": plain_ms, "launches": 1,
+                "differ_from_parent": differ,
+                **bound(chain_ops(cfg, pts.shape[0], cfg.input_dim),
+                        nbytes(pts, got, fps[fold].staged), "int8"),
+                "library_ms": None}
+            print(f"[main] forms {name}: kernel {ms:.3f} ms beside the "
+                  f"parent form's {parent_ms:.3f} ms, plain {plain_ms:.3f} "
+                  f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+                  f"{differ} of {got.numel()} outputs apart from the parent "
+                  f"form ({smi})", flush=True)
+            del got, want, parent
+        del model, fps
+        torch.cuda.empty_cache()
+    return out
+
+
+def teacher_form_rows(smi: str, dev) -> dict:
+    """The teacher's TEACHER_FORMS at FORM_TEACHERS through the entry point
+    (``fused_nerf_render(..., pe_ladder=, bf16_requant=)``) on the first
+    32,768-ray chunk of a datagen pose, its coarse (S=64) and fine (S=192)
+    pass: two launches of K6/K7 (of their wide form at W512) and of the
+    form each, every output within TOL_TEACHER of the plain version, the
+    values that differ counted, timed beside the parent form (the ladder,
+    the f32 dequantize)."""
+    from r2l_tpu_torch.datagen import int8_calibration_set
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    vcfg = teacher_vcfg()
+    o, d, zc, zf = frame_chunks(vcfg, dev)[0][0]
+    calib = tuple(torch.from_numpy(a).to(dev) for a in int8_calibration_set(
+        datagen_cfg("int8", 1), vcfg))
+    kw = dict(L_pts=vcfg.multires, L_views=vcfg.multires_views,
+              white_bkgd=True)
+    n, S_all = o.shape[0], zc.shape[1] + zf.shape[1]
+    out = {}
+    for label, Wt in FORM_TEACHERS:
+        models = {}
+        for form, kind, ladder, brq, fold in TEACHER_FORMS:
+            if kind not in models:
+                models[kind] = (teacher_models(kind, dev)[:2] if Wt == 256
+                                else wide_teacher_models(kind, Wt, 8, (4,),
+                                                         dev)[:2])
+            cfg, mc = models[kind]
+            int8 = kind == "int8"
+            fp = NR.prepare_fused_nerf(
+                mc, cfg, vcfg.multires, vcfg.multires_views,
+                calib=calib if int8 else None,
+                weight_dtype=cfg.compute_dtype, fold_requant=fold)
+            fkw = dict(kw, pe_ladder=ladder, bf16_requant=brq)
+            key = ("K7" if int8 else "K6") + (
+                "w" if NR.teacher_wide_form(cfg.W) else "")
+            what = "K7 bf16_requant" if brq else "pe_sin"
+
+            def run(fn, **k):
+                return [fn(fp, cfg, o, d, z, **k) for z in (zc, zf)]
+            run(NR.fused_nerf_render, **fkw)   # the warm-up (and build)
+            run(NR.fused_nerf_render, **kw)
+            c0 = form_counts()
+            got, ms = events_ms(lambda: run(NR.fused_nerf_render, **fkw))
+            moved = forms_moved(c0)
+            if moved != {key: 2, what: 2}:
+                raise AssertionError(f"{label} {kind} {form}: launched "
+                                     f"{moved}")
+            want, plain_ms = events_ms(
+                lambda: run(NR.fused_nerf_render_ref, **fkw))
+            parent, parent_ms = events_ms(
+                lambda: run(NR.fused_nerf_render, **kw))
+            (tol, tol_rms), (tol_d, tol_d_rms) = TOL_TEACHER[kind]
+            r = {"max_abs_err": 0.0, "differ": 0, "differ_from_parent": 0}
+            for g3, w3, p3, z in zip(got, want, parent, (zc, zf)):
+                for what_, g, w, p in zip(("rgb", "acc", "depth", "weights"),
+                                          g3, w3, p3):
+                    mx, rms = deltas(g, w)
+                    check(f"{label} {kind} {form} S={z.shape[1]} {what_} "
+                          "vs plain", mx, rms,
+                          *((tol_d, tol_d_rms) if what_ == "depth"
+                            else (tol, tol_rms)))
+                    r["max_abs_err"] = max(r["max_abs_err"], mx)
+                    r["differ"] += int((g != w).sum())
+                    r["differ_from_parent"] += int((g != p).sum())
+            ops = 2.0 * n * S_all * point_macs(cfg)
+            moved_bytes = 4 * n * (6 + S_all + 2 * 5 + S_all) \
+                + fp.staged.numel()
+            r.update(ms=ms, parent_ms=parent_ms, plain_ms=plain_ms,
+                     launches=2, kernel=key, library_ms=None,
+                     **bound(3 * ops if kind == "f32" else ops, moved_bytes,
+                             "tf32" if kind == "f32" else kind))
+            out[f"{label} {kind} {form}"] = r
+            print(f"[main] forms teacher {label} {kind} {form} ({key}), one "
+                  f"chunk of {n} rays, S={zc.shape[1]} + {zf.shape[1]}: "
+                  f"kernel {ms:.3f} ms beside the parent form's "
+                  f"{parent_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}); {r['differ']} "
+                  f"values apart from the plain version (max-abs "
+                  f"{r['max_abs_err']:.3e}), {r['differ_from_parent']} from "
+                  f"the parent form ({smi})", flush=True)
+            del fp, got, want, parent
+        del models
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_forms(smi: str, sampler, poses, dev) -> dict:
+    """Phase 24: the number-changing forms, narrow and wide
+    (``k2_resid_rows``, ``teacher_form_rows``)."""
+    t_phase = time.perf_counter()
+    res = {"device": smi, "k2": k2_resid_rows(smi, sampler, poses, dev),
+           "teacher": teacher_form_rows(smi, dev)}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[main] phase 24 took {res['phase_s']:.1f} s ({smi})", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5709,6 +5975,8 @@ def main() -> int:
     wtrain = phase_wide_train(smi, sampler, poses, dev)
     torch.cuda.empty_cache()
     wteach = phase_wide_teacher(smi, poses, dev)
+    torch.cuda.empty_cache()
+    forms = phase_forms(smi, sampler, poses, dev)
 
     print(json.dumps({"details": {
         "device": smi, "frame": f"{H}x{W}",
@@ -5733,7 +6001,7 @@ def main() -> int:
         "cli": {k: v for k, v in cli.items()},
         "llff_mesh": llff, "exp_drivers": exp, "refused_shapes": refused,
         "wide_frames": wide, "wide_train": wtrain,
-        "wide_teacher": wteach}}))
+        "wide_teacher": wteach, "forms": forms}}))
     src = "r2l_tpu_torch/kernels/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5744,7 +6012,20 @@ def main() -> int:
                 **{k: r[k] for k in keys}}
 
     tr = "r2l_tpu/kernels/r2l_train_pallas.py"
+    nr = "r2l_tpu/kernels/nerf_render_pallas.py:336"
     p20 = refused["launches"]
+
+    def form_entry(name, source, replaces, launches, rows, shown):
+        """A number-changing form's entry (phase 24): ``shown``'s times and
+        bound, the largest error of ``rows``, their launches and
+        ``launches`` more (phase 19's)."""
+        r = dict(rows[shown], max_abs_err=max(
+            x["max_abs_err"] for x in rows.values()))
+        return entry(name, source, replaces, launches + sum(
+            x["launches"] for x in rows.values()), r)
+
+    def pick(res, prefix):
+        return {k: v for k, v in res.items() if k.startswith(prefix)}
     wl, wf = wide["launches"], wide["frames"]
     print(json.dumps({"kernels": [
         entry("fused_r2l_apply_pe", "r2l_pe_fused.cu",
@@ -5845,6 +6126,26 @@ def main() -> int:
                 + (p20["K6w"] if kind == "bf16" else 0),
                 wteach["chunks"][f"{WIDE_TEACHER[0]} {kind}"])
           for kind in ("f32", "bf16", "int8")),
+        form_entry("fused_r2l_apply_int8_pe_bf16resid", "r2l_int8_hopper.cu",
+                   "r2l_tpu/kernels/r2l_pallas.py:571",
+                   exp["launches"]["K2 bf16_resid"],
+                   pick(forms["k2"], "W256/D88"), "W256/D88 deployed"),
+        form_entry("fused_r2l_apply_int8_pe_wide_bf16resid", "r2l_wide.cu",
+                   "r2l_tpu/kernels/r2l_pallas.py:571", 0,
+                   pick(forms["k2"], "W512/D50"), "W512/D50 deployed"),
+        *(form_entry(f"fused_nerf_render{sfx}_{kind}_pe_sin",
+                     "nerf_wide.cu" if sfx else "nerf_render_int8.cu"
+                     if kind == "int8" else "nerf_render.cu", nr, 0,
+                     pick(forms["teacher"], f"{label} {kind} pe_sin"),
+                     f"{label} {kind} pe_sin")
+          for label, sfx in (("W256/D8", ""), ("W512/D8", "_wide"))
+          for kind in ("f32", "bf16", "int8")),
+        *(form_entry(f"fused_nerf_render{sfx}_int8_bf16requant",
+                     "nerf_wide.cu" if sfx else "nerf_render_int8.cu", nr,
+                     0 if sfx else exp["launches"]["K7 bf16_requant"],
+                     pick(forms["teacher"], f"{label} int8 bf16_requant"),
+                     f"{label} int8 bf16_requant")
+          for label, sfx in (("W256/D8", ""), ("W512/D8", "_wide"))),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,8 @@
 // encoding], each as two k-ranges of one accumulation.
 //
 // Epilogues run on the accumulator registers: bias (int8: the one-FMA
-// dequantize), ReLU, the cast or requantize, stored for the next product.
+// dequantize, or with bf16_requant the bf16 one), ReLU, the cast or
+// requantize, stored for the next product.
 // The heads (sigma W->1, rgb W/2->3, output_linear W->4) are dot products of
 // the values just stored with the head weights: each thread's partial sum
 // over its columns, then two quad shuffles (an accumulator row's columns
@@ -87,6 +88,9 @@ struct Args {
   const float* out_m;
   const float* out_b;
   int Lp, Lv, viewdirs, white, fold;
+  int ladder;           // the encodings by the double-angle ladder, else
+                        // one sinf a value (Pallas pe_ladder=False)
+  int brq;              // int8: the inner dequantize in bf16 (bf16_requant)
   float* rgb;           // [n, 3]
   float* acc;           // [n]
   float* depth;         // [n]
@@ -186,15 +190,33 @@ __device__ __forceinline__ void ladder(float p, int L, Emit emit) {
   }
 }
 
+// The encoding without the ladder (nerf_render_pallas.py:476-486,
+// pe_ladder=False; the plain version's pe_sin): for j in [0, L), sin(y) and
+// sin(y + b) of y = 2^j p (exact), b = pi/2 rounded to f32, the sum rounded
+// once; sinf with its full range reduction, one call a value.
+template <typename Emit>
+__device__ __forceinline__ void sin_rows(float p, int L, Emit emit) {
+  constexpr float kHalfPi = 1.57079637f;  // float32(pi / 2)
+  for (int j = 0; j < L; ++j) {
+    const float y = __fmul_rn(p, ldexpf(1.f, j));
+    emit(j, sinf(y), sinf(__fadd_rn(y, kHalfPi)));
+  }
+}
+
 // Encode value v into columns [k, 3+6j+k (sin), 6+6j+k (cos)] of a row
-// through store(col, value).
+// through store(col, value): by the ladder, or (use_ladder false) sin_rows.
 template <typename Store>
-__device__ __forceinline__ void encode(float v, int k, int L, Store store) {
+__device__ __forceinline__ void encode(float v, int k, int L, bool use_ladder,
+                                       Store store) {
   store(k, v);
-  ladder(v, L, [&](int j, float s, float c) {
+  auto put = [&](int j, float s, float c) {
     store(3 + 6 * j + k, s);
     store(6 + 6 * j + k, c);
-  });
+  };
+  if (use_ladder)
+    ladder(v, L, put);
+  else
+    sin_rows(v, L, put);
 }
 
 // The warpgroup's 8 rays (ray t of the warpgroup is ray ray0 + t), by its
@@ -227,7 +249,7 @@ __device__ void encode_views(const Args& a, const Ray* ray, int width,
   for (int e = wtid; e < kG * 3; e += kWG) {
     const int t = e / 3, k = e % 3;
     const float v = ray[t].d[k] / fmaxf(ray[t].dn, 1e-12f);
-    encode(v, k, a.Lv, [&](int c, float x) {
+    encode(v, k, a.Lv, a.ladder, [&](int c, float x) {
       for (int u = 0; u < kG; ++u) store(t * kG + u, c, x);
     });
   }
@@ -248,7 +270,7 @@ __device__ void encode_points(const Args& a, const Ray* ray, int ray0, int g0,
     const bool ok = ray0 + t < a.n && s < a.S;
     const float z = ok ? a.z[(size_t)(ray0 + t) * a.S + s] : 0.f;
     const float p = __fmaf_rn(ray[t].d[k], z, ray[t].o[k]);
-    encode(p, k, a.Lp, [&](int c, float x) { store(r, c, x); });
+    encode(p, k, a.Lp, a.ladder, [&](int c, float x) { store(r, c, x); });
   }
   const int used = 3 + 6 * a.Lp, pad = width - used;
   for (int e = wtid; e < 64 * pad; e += kWG)
@@ -339,13 +361,21 @@ __device__ __forceinline__ int q8i(float y) {
 
 // The epilogue of columns c, c+1 (c even): dense, x = relu?(v + b), which
 // the tile store and the heads round to T; int8, x = q8(relu?(v m + b)
-// [* inv]), the one-FMA dequantize.
-template <typename T, bool kFold, bool kRelu, typename Acc, typename Out>
+// [* inv]), the one-FMA dequantize, or (kBrq, bf16_requant) dequant_bf16.
+template <typename T, bool kFold, bool kRelu, bool kBrq = false,
+          typename Acc, typename Out>
 __device__ __forceinline__ void epi2(const EpiConsts& e, int c, Acc v0,
                                      Acc v1, Out& x0, Out& x1) {
   if constexpr (sizeof(T) == 1) {
     const float4 p = __ldg(e.mb + c / 2);
-    float y0 = dequant(v0, p.x, p.y), y1 = dequant(v1, p.z, p.w);
+    float y0, y1;
+    if constexpr (kBrq) {
+      y0 = r2l::dequant_bf16(v0, p.x, p.y);
+      y1 = r2l::dequant_bf16(v1, p.z, p.w);
+    } else {
+      y0 = dequant(v0, p.x, p.y);
+      y1 = dequant(v1, p.z, p.w);
+    }
     if (kRelu) {
       y0 = fmaxf(y0, 0.f);
       y1 = fmaxf(y1, 0.f);
@@ -371,7 +401,7 @@ __device__ __forceinline__ void epi2(const EpiConsts& e, int c, Acc v0,
 
 // ---- the kernel ----------------------------------------------------------
 
-template <typename T, int W, bool kFold>
+template <typename T, int W, bool kFold, bool kBrq>
 __global__ void __launch_bounds__(kWG * (Kind<T>::kWGs + 1), 1)
     nerf_hopper_kernel(const Args a) {
   using K = Kind<T>;
@@ -499,7 +529,7 @@ __global__ void __launch_bounds__(kWG * (Kind<T>::kWGs + 1), 1)
       if (!last) {
         visit<W>(acc, wtid, [&](int, int r, int c, Acc v0, Acc v1) {
           Out x0, x1;
-          epi2<T, kFold, true>(ec, c, v0, v1, x0, x1);
+          epi2<T, kFold, true, kBrq>(ec, c, v0, v1, x0, x1);
           put2(r, c, x0, x1);
         });
         continue;
@@ -510,7 +540,7 @@ __global__ void __launch_bounds__(kWG * (Kind<T>::kWGs + 1), 1)
       Acc p[2][4] = {};
       visit<W>(acc, wtid, [&](int h, int r, int c, Acc v0, Acc v1) {
         Out x0, x1;
-        epi2<T, kFold, true>(ec, c, v0, v1, x0, x1);
+        epi2<T, kFold, true, kBrq>(ec, c, v0, v1, x0, x1);
         if (a.viewdirs) put2(r, c, x0, x1);
 #pragma unroll
         for (int o = 0; o < 4; ++o) {
@@ -536,7 +566,7 @@ __global__ void __launch_bounds__(kWG * (Kind<T>::kWGs + 1), 1)
       const EpiConsts ef{a.feat_b, mb + a.D * (W / 2), a.hv_inv};
       visit<W>(acc, wtid, [&](int, int r, int c, Acc v0, Acc v1) {
         Out x0, x1;
-        epi2<T, kFold, false>(ef, c, v0, v1, x0, x1);
+        epi2<T, kFold, false, kBrq>(ef, c, v0, v1, x0, x1);
         put2(r, c, x0, x1);
       });
       // the view layer on [feature | view encoding], then the rgb head
@@ -549,7 +579,7 @@ __global__ void __launch_bounds__(kWG * (Kind<T>::kWGs + 1), 1)
       Acc p[2][4] = {};
       visit<W / 2>(accv, wtid, [&](int h, int, int c, Acc v0, Acc v1) {
         Out x0, x1;
-        epi2<T, kFold, true>(ev, c, v0, v1, x0, x1);
+        epi2<T, kFold, true, kBrq>(ev, c, v0, v1, x0, x1);
 #pragma unroll
         for (int o = 0; o < 3; ++o)
           dot2(p[h][o], hx(x0), hx(x1), head2(rw + o * (W / 2) + c));
@@ -570,10 +600,10 @@ __global__ void __launch_bounds__(kWG * (Kind<T>::kWGs + 1), 1)
 }
 
 // Launch over ceil(n / R) blocks, padded to whole 2-block clusters.
-template <typename T, int W, bool kFold>
+template <typename T, int W, bool kFold, bool kBrq = false>
 cudaError_t launch_as(const Args& a, cudaStream_t stream) {
   constexpr int kR = 64 * Kind<T>::kWGs / kG;
-  return launch_cluster<T, 2>(nerf_hopper_kernel<T, W, kFold>, a,
+  return launch_cluster<T, 2>(nerf_hopper_kernel<T, W, kFold, kBrq>, a,
                               (a.n + kR - 1) / kR, a.smem, stream);
 }
 
@@ -581,8 +611,12 @@ template <typename T, int W>
 cudaError_t launch(Args a, cudaStream_t stream) {
   plan<T>(a, W);
   a.skip = reinterpret_cast<const int*>(a.staged + a.flags_off);
-  if constexpr (sizeof(T) == 1)
+  if constexpr (sizeof(T) == 1) {
+    if (a.brq)
+      return a.fold ? launch_as<T, W, true, true>(a, stream)
+                    : launch_as<T, W, false, true>(a, stream);
     if (a.fold) return launch_as<T, W, true>(a, stream);
+  }
   return launch_as<T, W, false>(a, stream);
 }
 

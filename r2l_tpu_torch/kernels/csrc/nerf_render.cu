@@ -12,7 +12,8 @@
 // layer is an f32 dot plus the f32 bias, ReLU, cast to bf16; sigma and the
 // rgb logits stay f32. f32: each product as 3xTF32 (a_hi w_lo + a_lo w_hi +
 // a_hi w_hi, about 21 mantissa bits, as the TPU kernel's multi-pass bf16
-// keeps more than one bf16 pass), the rest in f32.
+// keeps more than one bf16 pass), the rest in f32. With pe_ladder=False
+// (ladder 0) the encodings are one sinf a value (nerf_hopper.cuh, sin_rows).
 //
 // Design (nerf_hopper.cuh): 128 points per block in bf16 (two consumer
 // warpgroups on wgmma m64nNk16), 64 in f32 (one, on wgmma m64nNk8 tf32 with
@@ -41,14 +42,15 @@
 // cudaError_t: the launch's own error, cudaErrorLaunchOutOfResources for a
 // cluster that cannot be resident, or cudaErrorInvalidValue for a shape the
 // kernel does not take (W 128 or 256; D >= 1 with at most D - 1
-// concatenated layers, whose flags the staged image holds).
+// concatenated layers, whose flags the staged image holds). ladder: 1 the
+// double-angle ladder (pe_ladder=True), 0 one sinf a value.
 extern "C" int nerf_render_launch(
     const float* rays_o, const float* rays_d, const float* z, int n, int S,
     const void* staged, const float* pts_b, int D, int n_skips, int W,
     const float* alpha_b, const float* feat_b, const float* views_b,
     const float* rgb_b, const float* out_b, int Lp, int Lv, int viewdirs,
-    int white, int weight_is_f32, float* rgb, float* acc, float* depth,
-    float* weights, void* stream) {
+    int white, int ladder, int weight_is_f32, float* rgb, float* acc,
+    float* depth, float* weights, void* stream) {
   if (n <= 0 || S <= 0 || D < 1 || n_skips < 0 || n_skips > D - 1 || Lp < 1 ||
       (viewdirs && Lv < 1))
     return cudaErrorInvalidValue;
@@ -61,6 +63,7 @@ extern "C" int nerf_render_launch(
   a.alpha_b = alpha_b; a.feat_b = feat_b; a.views_b = views_b;
   a.rgb_b = rgb_b; a.out_b = out_b;
   a.Lp = Lp; a.Lv = Lv; a.viewdirs = viewdirs; a.white = white;
+  a.ladder = ladder;
   a.rgb = rgb; a.acc = acc; a.depth = depth; a.weights = weights;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (weight_is_f32) {

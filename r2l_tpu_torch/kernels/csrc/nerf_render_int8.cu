@@ -13,7 +13,10 @@
 //     the requantize is round+clip alone;
 //   * the layer after a skip takes [quantized encoding | requantized h];
 //   * sigma and the rgb logits are acc*m + b in f32, their dots exact.
-// The compositing is K6's.
+// The compositing is K6's. Two forms that change the numbers, as the Pallas
+// flags: bf16_requant (brq 1) dequantizes every layer but the heads in bf16
+// (r2l_common.cuh, dequant_bf16), and pe_ladder=False (ladder 0) encodes
+// with one sinf a value (nerf_hopper.cuh, sin_rows).
 //
 // Design: K6's skeleton (nerf_hopper.cuh) with int8 tiles: 128 points per
 // block, two consumer warpgroups on wgmma m64nNk32 s8 (exact s32 sums), a
@@ -36,7 +39,9 @@
 // cudaError_t: the launch's own error, cudaErrorLaunchOutOfResources for a
 // cluster that cannot be resident, or cudaErrorInvalidValue for a shape the
 // kernel does not take (W 128 or 256; D >= 1 with at most D - 1
-// concatenated layers, whose flags the staged image holds).
+// concatenated layers, whose flags the staged image holds). ladder: 1 the
+// double-angle ladder (pe_ladder=True), 0 one sinf a value; brq: 1 the
+// bf16 dequantize (bf16_requant).
 extern "C" int nerf_render_int8_launch(
     const float* rays_o, const float* rays_d, const float* z, int n, int S,
     const void* staged, const float* pts_m, const float* pts_b,
@@ -46,7 +51,8 @@ extern "C" int nerf_render_int8_launch(
     const float* views_b, const float* hv_inv, const float* rgb_m,
     const float* rgb_b, const float* hr_inv, const float* out_m,
     const float* out_b, int Lp, int Lv, int viewdirs, int white, int fold,
-    float* rgb, float* acc, float* depth, float* weights, void* stream) {
+    int ladder, int brq, float* rgb, float* acc, float* depth,
+    float* weights, void* stream) {
   if (n <= 0 || S <= 0 || D < 1 || n_skips < 0 || n_skips > D - 1 || Lp < 1 ||
       (viewdirs && Lv < 1))
     return cudaErrorInvalidValue;
@@ -63,6 +69,7 @@ extern "C" int nerf_render_int8_launch(
   a.rgb_m = rgb_m; a.rgb_b = rgb_b; a.hr_inv = hr_inv;
   a.out_m = out_m; a.out_b = out_b;
   a.Lp = Lp; a.Lv = Lv; a.viewdirs = viewdirs; a.white = white; a.fold = fold;
+  a.ladder = ladder; a.brq = brq;
   a.rgb = rgb; a.acc = acc; a.depth = depth; a.weights = weights;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {

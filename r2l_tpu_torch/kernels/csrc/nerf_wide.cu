@@ -36,7 +36,10 @@
 //     (BiasRelu): the bias added in f32, ReLU (not after the feature
 //     layer), rounded to the compute type. int8 (Requant): acc*m + b in one
 //     FMA, ReLU, times the consumer's inverse scale (1 where folded),
-//     round-half-even, clip, staged as s8 and stored by TMA.
+//     round-half-even, clip, staged as s8 and stored by TMA; with
+//     bf16_requant (RequantT<true>) acc*m + b in bf16, two roundings.
+//   * pe_ladder=False (ladder 0): the encodings one sinf a value
+//     (nerf::sin_rows) in place of the ladder, the same columns.
 //   * heads: sigma (W -> 1), rgb (W/2 -> 3) or output_linear (W -> 4) as
 //     the student's tail reduction (wide_tail, linear: an f32 dot of the
 //     rounded activations, or int8's exact int32 dot and one-FMA
@@ -137,8 +140,9 @@ template <> __device__ __forceinline__ int8_t code<int8_t>(float x,
 template <typename C>
 __global__ void wide_encode(const float* rays_o, const float* rays_d,
                             const float* z, int rows, int S, int Lp, int Lv,
-                            int ke, int kve, int er, const float* pe_inv,
-                            const float* hv_inv, C* E, C* V) {
+                            int ladder, int ke, int kve, int er,
+                            const float* pe_inv, const float* hv_inv, C* E,
+                            C* V) {
   extern __shared__ float enc[];  // [er][ke + 1], then [er][kve + 1]
   const int le = ke + 1, lv = kve + 1;
   float* ev = enc + er * le;
@@ -150,12 +154,12 @@ __global__ void wide_encode(const float* rays_o, const float* rays_d,
   if (r < nr) {
     const int g = row0 + r, ray = g / S;
     const float* d = rays_d + 3 * ray;
-    nerf::encode(__fmaf_rn(d[k], z[g], rays_o[3 * ray + k]), k, Lp,
+    nerf::encode(__fmaf_rn(d[k], z[g], rays_o[3 * ray + k]), k, Lp, ladder,
                  [&](int c, float x) { enc[r * le + c] = x; });
     if (V) {  // |d| with the sum of squares contracted, as K6
       const float dn = sqrtf(__fmaf_rn(
           d[2], d[2], __fmaf_rn(d[1], d[1], __fmul_rn(d[0], d[0]))));
-      nerf::encode(d[k] / fmaxf(dn, 1e-12f), k, Lv,
+      nerf::encode(d[k] / fmaxf(dn, 1e-12f), k, Lv, ladder,
                    [&](int c, float x) { ev[r * lv + c] = x; });
     }
   }
@@ -173,7 +177,7 @@ __global__ void wide_encode(const float* rays_o, const float* rays_d,
 template <typename C>
 cudaError_t encode_pass(const float* rays_o, const float* rays_d,
                         const float* z, int rows, int S, int Lp, int Lv,
-                        int ke, int kve, const float* pe_inv,
+                        int ladder, int ke, int kve, const float* pe_inv,
                         const float* hv_inv, void* E, void* V,
                         cudaStream_t st) {
   // rows a block: as many as keep the block's floats within 48 KB
@@ -181,8 +185,8 @@ cudaError_t encode_pass(const float* rays_o, const float* rays_d,
   const int er = std::max(1, std::min(64, (48 << 10) / per_row));
   const int grid = (rows + er - 1) / er, smem = er * per_row;
   wide_encode<C><<<grid, 3 * er, smem, st>>>(
-      rays_o, rays_d, z, rows, S, Lp, Lv, ke, kve, er, pe_inv, hv_inv,
-      static_cast<C*>(E), static_cast<C*>(V));
+      rays_o, rays_d, z, rows, S, Lp, Lv, ladder, ke, kve, er, pe_inv,
+      hv_inv, static_cast<C*>(E), static_cast<C*>(V));
   return cudaGetLastError();
 }
 
@@ -197,7 +201,7 @@ struct Call {
   int D, W;
   const float *pe_inv, *hv_inv;
   const float *alpha_m, *alpha_b, *rgb_m, *rgb_b, *out_m, *out_b;
-  int Lp, Lv, viewdirs, white;
+  int Lp, Lv, viewdirs, white, ladder;
   float *rgb, *acc, *depth, *weights;
   unsigned char* scratch;
   long long scratch_bytes;
@@ -221,11 +225,11 @@ long long scratch_bytes(long long rows, int W, int es, int ke, int kve) {
          aligned(rows * kve * es);
 }
 
-template <int T>
+template <int T, bool kBrq = false>
 cudaError_t run(const Call& c, cudaStream_t st) {
   constexpr int es = elem_bytes(T), parts = T == kF32 ? 2 : 1;
   using C = Compute<T>;
-  using Epi = typename std::conditional<T == kS8, wideh::Requant,
+  using Epi = typename std::conditional<T == kS8, wideh::RequantT<kBrq>,
                                         wideh::BiasRelu>::type;
   const int W = c.W, V = r2l::round_up(W / 2, kWideChannels);
   const int kp = r2l::round_up(3 + 6 * c.Lp, 64);
@@ -280,8 +284,8 @@ cudaError_t run(const Call& c, cudaStream_t st) {
     const float* z = c.z + (size_t)r0 * c.S;
     // the pass's A sources, and the view layer's output [rows, V]
     CUtensorMap mE, mV, mH[2], mHV[2];
-    cudaError_t err = encode_pass<C>(ro, rd, z, rows, c.S, c.Lp, c.Lv, ke,
-                                     kve, c.pe_inv,
+    cudaError_t err = encode_pass<C>(ro, rd, z, rows, c.S, c.Lp, c.Lv,
+                                     c.ladder, ke, kve, c.pe_inv,
                                      c.hv_inv ? c.hv_inv + W : nullptr, E,
                                      Vb, st);
     if (err == cudaSuccess) err = wideh::act_map<C>(&mE, E, rows, ke);
@@ -345,7 +349,9 @@ cudaError_t run(const Call& c, cudaStream_t st) {
 // flags (layer i's output concatenated with the encoding); dtype 0 bf16, 1
 // f32, 2 int8; pe_inv, hv_inv and the heads' m: int8's, else null; scratch:
 // teacher_wide_scratch_bytes(rays * S, W, dtype, ke, kve) bytes, 256-byte
-// aligned; rays: rays a pass (0: all n). Returns a cudaError_t: a launch's
+// aligned; rays: rays a pass (0: all n); ladder: 1 the double-angle ladder
+// (pe_ladder=True), 0 one sinf a value; brq: int8's bf16 dequantize
+// (bf16_requant), ignored for f32 and bf16. Returns a cudaError_t: a launch's
 // own error, or cudaErrorInvalidValue for a shape the wide form does not
 // take (W not a multiple of 128, a skip at the last layer) or a scratch too
 // small.
@@ -355,8 +361,9 @@ extern "C" int nerf_wide_launch(
     const float* pe_inv, const float* hv_inv, const float* alpha_m,
     const float* alpha_b, const float* rgb_m, const float* rgb_b,
     const float* out_m, const float* out_b, int Lp, int Lv, int viewdirs,
-    int white, float* rgb, float* acc, float* depth, float* weights,
-    unsigned char* scratch, long long scratch_bytes, int rays, void* stream) {
+    int white, int ladder, int brq, float* rgb, float* acc, float* depth,
+    float* weights, unsigned char* scratch, long long scratch_bytes, int rays,
+    void* stream) {
   if (n <= 0 || S <= 0 || D < 1 || W <= 0 || W % kWideChannels != 0 ||
       Lp < 1 || (viewdirs && Lv < 1) || dtype < 0 || dtype > 2 ||
       skips[D - 1] != 0)
@@ -368,12 +375,12 @@ extern "C" int nerf_wide_launch(
     return cudaErrorMisalignedAddress;
   Call c{rays_o, rays_d, z,     n,     S,     image, skips, D,
          W,      pe_inv, hv_inv, alpha_m, alpha_b, rgb_m, rgb_b, out_m,
-         out_b,  Lp,     Lv,     viewdirs, white, rgb, acc, depth,
+         out_b,  Lp,     Lv,     viewdirs, white, ladder, rgb, acc, depth,
          weights, scratch, scratch_bytes, rays};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kBF16: return run<kBF16>(c, s);
     case kF32: return run<kF32>(c, s);
-    default: return run<kS8>(c, s);
+    default: return brq ? run<kS8, true>(c, s) : run<kS8>(c, s);
   }
 }

@@ -66,4 +66,17 @@ __device__ __forceinline__ float dequant(int acc, float m, float b) {
   return __fmaf_rn(__int2float_rn(acc), m, b);
 }
 
+// x rounded to bf16, as f32.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The teacher's dequantize in bf16 (Pallas fused_nerf_render_t's
+// bf16_requant): acc to f32, then bf16; m and b rounded to bf16; the
+// product rounded to bf16, then the sum: two roundings, never one FMA.
+__device__ __forceinline__ float dequant_bf16(int acc, float m, float b) {
+  const float p = bf16r(__fmul_rn(bf16r(__int2float_rn(acc)), bf16r(m)));
+  return bf16r(__fadd_rn(p, bf16r(b)));
+}
+
 }  // namespace r2l

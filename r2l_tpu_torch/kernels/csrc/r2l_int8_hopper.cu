@@ -8,9 +8,10 @@
 // effect), exp/probe_epi.py::apply_variant (v1 and v2 at width 256; its
 // v0 is K2's fold_requant=False), and exp/probe_pipe_lib.py::
 // apply_int8_pe_streams (S = 1 and 4 at width 256; its S = 2 is K2's
-// deployed form). The kernels, their design and their bound are in
-// r2l_int8_hopper.cuh: this file instantiates their forms, each compiled
-// once.
+// deployed form). Each of K2's three forms also with bf16_resid (the
+// global residual in bf16, kBf16Resid). The kernels, their design and
+// their bound are in r2l_int8_hopper.cuh: this file instantiates their
+// forms, each compiled once.
 #include "r2l_int8_hopper.cuh"
 
 using namespace r2l8h;
@@ -20,7 +21,8 @@ using namespace r2l8h;
 // and the body's (m, b) epilogue table; h0: a scratch of
 // h0_elems floats ([blocks * 128 * W], blocks padded to whole 2-block
 // clusters; none without the global residual); epilogue: r2l_int8_hopper.
-// cuh's Epi, K2's three forms at widths 64, 128 and 256, the epilogue
+// cuh's Epi, K2's three forms at widths 64, 128 and 256 (each also plus
+// kBf16Resid, the form with bf16_resid), the epilogue
 // probe's kEpiV1 and kEpiV2 and the stream probe's kStreams1 and kStreams4
 // at 256 (kStreams4 needs the h0 scratch, [blocks * 256 * W], with or
 // without the global residual). Returns a cudaError_t: the launch's own
@@ -63,6 +65,12 @@ extern "C" int r2l_int8_hopper_launch(
     case kDeployed: return launch_width<kDeployed>(a, W, h0_elems, s);
     case kFold: return launch_width<kFold>(a, W, h0_elems, s);
     case kUnfolded: return launch_width<kUnfolded>(a, W, h0_elems, s);
+    case kDeployed | kBf16Resid:
+      return launch_width<kDeployed | kBf16Resid>(a, W, h0_elems, s);
+    case kFold | kBf16Resid:
+      return launch_width<kFold | kBf16Resid>(a, W, h0_elems, s);
+    case kUnfolded | kBf16Resid:
+      return launch_width<kUnfolded | kBf16Resid>(a, W, h0_elems, s);
   }
   if (W == 256 && epilogue == kEpiV1)
     return launch_as<256, kEpiV1>(a, h0_elems, s);

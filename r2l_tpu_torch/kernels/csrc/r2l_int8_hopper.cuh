@@ -19,7 +19,9 @@
 //     q8(bf16(relu(t))), kUnfolded q8(bf16(relu(t)) * inv);
 //   * the block tail is cast to bf16 and added to the bf16 residual stream
 //     in f32, rounded; h0 stays f32 for the global residual; the tail is an
-//     int8 dot, dequantized, then sigmoid.
+//     int8 dot, dequantized, then sigmoid;
+//   * with bf16_resid (each form plus kBf16Resid) h0 is rounded to bf16 and
+//     the tail's input h + h0 is rounded to bf16 before it is quantized.
 //
 // Design (the student's Hopper skeleton, r2l_hopper.cuh, on hopper_ring.cuh
 // and hopper_wgmma.cuh): a block owns 128 rays, two consumer warpgroups of
@@ -155,9 +157,19 @@ enum Epi {
   kEpiV1 = 5, kEpiV2 = 6, kStreams1 = 7, kStreams4 = 8
 };
 
-// the epilogue arithmetic of a form: the stream probe's is K2's deployed one
+// K2's three forms with the global residual in bf16 (Pallas bf16_resid):
+// this flag added to kDeployed, kFold or kUnfolded (r2l_fused.py's
+// BF16_RESID). h0 is the head's output rounded to bf16, and the tail's input
+// h + h0 is rounded to bf16 before it is quantized.
+constexpr int kBf16Resid = 16;
+__host__ __device__ constexpr bool bf16_resid(int epi) {
+  return (epi & kBf16Resid) != 0;
+}
+
+// the epilogue arithmetic of a form: the stream probe's is K2's deployed
+// one, a bf16_resid form's its own form's
 __host__ __device__ constexpr int arith(int epi) {
-  return epi == kStreams1 || epi == kStreams4 ? kDeployed : epi;
+  return epi == kStreams1 || epi == kStreams4 ? kDeployed : epi & ~kBf16Resid;
 }
 
 // the forms that read each body layer's inverse scale from the image
@@ -418,6 +430,7 @@ __global__ void __launch_bounds__(kWG * 3, 1)
   using K = Chain8<W, kEpi>;
   constexpr bool kQ = kEpi == kTrainQ;  // K4: f32 h, int8 stash
   constexpr int kA = arith(kEpi);       // the epilogue's arithmetic
+  constexpr bool kBR = bf16_resid(kEpi);  // h0 and the tail's input bf16
   constexpr bool kLockstep = kEpi == kStreams1;
   constexpr int kC = K::kC;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -532,18 +545,22 @@ __global__ void __launch_bounds__(kWG * 3, 1)
       stashq(a.nb, r0 + 8 * h, c, q.x, q.y);
     });
   };
-  // the tail's input of h (+ h0): q8((h [+ h0]) * tail_inv)
+  // the tail's input of h (+ h0): q8((h [+ h0]) * tail_inv); bf16_resid:
+  // h + h0 of two bf16 values rounded to bf16 (the bf16 add)
   auto tail_in = [&](float2 hv, int h, int c) -> int2 {
     if (res) {
       const float2 z = h0s[at(h, c)];
       hv.x = __fadd_rn(hv.x, z.x);
       hv.y = __fadd_rn(hv.y, z.y);
+      if constexpr (kBR)
+        hv = __bfloat1622float2(__floats2bfloat162_rn(hv.x, hv.y));
     }
     const float2 inv = ldg2(a.tail_inv + c);
     return make_int2(q8(__fmul_rn(hv.x, inv.x)), q8(__fmul_rn(hv.y, inv.y)));
   };
 
-  // ---- the head's epilogue: h0 (f32), H = bf16(h0), and the input of
+  // ---- the head's epilogue: h0 (f32; bf16_resid: bf16(h0), parked as
+  // f32), H = bf16(h0), and the input of
   // block 0's first layer. H's accumulator order crosses the rows of the
   // slice it held, which other warps' products may still read: a barrier
   // first. ----
@@ -557,7 +574,8 @@ __global__ void __launch_bounds__(kWG * 3, 1)
       const float x0 = fmaxf(dequant(acc[4 * j + 2 * h], p.x, p.y), 0.f);
       const float x1 = fmaxf(dequant(acc[4 * j + 2 * h + 1], p.z, p.w), 0.f);
       const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
-      if (res) h0s[at(h, c)] = make_float2(x0, x1);
+      if (res)
+        h0s[at(h, c)] = kBR ? __bfloat1622float2(hb) : make_float2(x0, x1);
       // K4 runs on the f32 h0, K2 and K8 on its bf16 rounding
       const float2 hv = kQ ? make_float2(x0, x1) : __bfloat1622float2(hb);
       if constexpr (kQ)

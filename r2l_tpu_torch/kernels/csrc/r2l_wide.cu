@@ -6,7 +6,8 @@
 // Replaces, at those widths, the Pallas TPU kernels r2l_tpu/kernels/
 // r2l_pallas.py::fused_r2l_apply_pe (:164; bf16 and f32 weights),
 // fused_r2l_apply (:270; an encoded input, bf16 and f32) and
-// fused_r2l_apply_int8_pe (:571; in _int8_pe_chain's three forms).
+// fused_r2l_apply_int8_pe (:571; in _int8_pe_chain's three forms, each
+// also with bf16_resid).
 //
 // Every layer is a pass of the Hopper pass skeleton (wide_hopper.cuh:
 // wgmma fed by TMA, a producer warpgroup, two consumer warpgroups,
@@ -265,8 +266,9 @@ cudaError_t run_k2(const Frame& c, cudaStream_t st) {
 // in: pe ? pts [n, dp] (in_dim = dp * (2L + 1)) : x [n, in_dim], f32 (K9
 // f32 with in_dim a multiple of 4: 16-byte aligned). dtype: 0 bf16, 1 f32
 // (weights and compute), 2 int8 (pe only; epilogue one of K2's forms,
-// FrameK2::Form). image: stage_wide_train's weights of the head ([W, in_dim
-// padded to 128] in the fields' column order) and of every body layer,
+// FrameK2::Form, plus FrameK2::kBf16Resid for bf16_resid). image:
+// stage_wide_train's weights of the head ([W, in_dim padded to 128] in the
+// fields' column order) and of every body layer,
 // [W, K] row-major each (f32: its TF32 high parts, then its low parts), then
 // for int8 the (m, b) table of the head and the body. scratch:
 // wide_scratch_bytes(rows, ...) bytes, 256-byte aligned; rows: rays a pass
@@ -285,7 +287,8 @@ extern "C" int r2l_wide_launch(
     int linear_tail, int epilogue, void* stream) {
   if (n <= 0 || W <= 0 || W % kWideChannels != 0 || nb < 0 || nl < 1 ||
       out_dim < 1 || out_dim > kMaxOut || in_dim <= 0 || dtype < 0 ||
-      dtype > 2 || epilogue < 0 || epilogue > 2)
+      dtype > 2 || epilogue < 0 ||
+      (epilogue & ~wideh::FrameK2::kBf16Resid) > 2)
     return cudaErrorInvalidValue;
   if (pe && (dp <= 0 || L <= 0 || in_dim != dp * (2 * L + 1)))
     return cudaErrorInvalidValue;

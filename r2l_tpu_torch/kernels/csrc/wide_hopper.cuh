@@ -172,10 +172,12 @@ struct BiasRelu {
   }
 };
 
-// The epilogue of the teacher's int8 layers: acc * m + b in one FMA, ReLU
-// where the layer has one, times the consumer's inverse scale (1 where
-// folded); the store rounds half to even and clips.
-struct Requant {
+// The epilogue of the teacher's int8 layers: acc * m + b in one FMA (kBrq,
+// Pallas bf16_requant: in bf16, r2l::dequant_bf16), ReLU where the layer
+// has one, times the consumer's inverse scale (1 where folded); the store
+// rounds half to even and clips.
+template <bool kBrq>
+struct RequantT {
   using Args = BiasRelu::Args;
   __device__ __forceinline__ static bool stores(const Args&) { return true; }
   __device__ __forceinline__ static void pair(const Args& e, int, int col,
@@ -184,8 +186,13 @@ struct Requant {
     const float* t = reinterpret_cast<const float*>(e.epi) + 4 * col;
     const float2 mb0 = __ldg(reinterpret_cast<const float2*>(t));
     const float2 mb1 = __ldg(reinterpret_cast<const float2*>(t + 4));
-    v0 = r2l::dequant(a0, mb0.x, mb0.y);
-    v1 = r2l::dequant(a1, mb1.x, mb1.y);
+    if constexpr (kBrq) {
+      v0 = r2l::dequant_bf16(a0, mb0.x, mb0.y);
+      v1 = r2l::dequant_bf16(a1, mb1.x, mb1.y);
+    } else {
+      v0 = r2l::dequant(a0, mb0.x, mb0.y);
+      v1 = r2l::dequant(a1, mb1.x, mb1.y);
+    }
     if (e.relu) {
       v0 = fmaxf(v0, 0.f);
       v1 = fmaxf(v1, 0.f);
@@ -194,6 +201,7 @@ struct Requant {
     v1 = __fmul_rn(v1, __ldg(t + 6));
   }
 };
+using Requant = RequantT<false>;
 
 // Side tensors read and written a pair at a time, at (row, col) and (row,
 // col + 1) of a [rows, N] tensor: K3's h, and the int8 forms' h0 (two
@@ -350,10 +358,12 @@ struct TrainK48 {
 // TMA a tile ahead, the skeleton stores h); h0 a pair at a time. The value
 // handed to the skeleton is what the next product quantizes (after the
 // last block, h + h0: the tail's) times its inverse scale, except the
-// folded inner layers'; the s8 store rounds half to even and clips.
+// folded inner layers'; the s8 store rounds half to even and clips. A form
+// plus kBf16Resid (Pallas bf16_resid): h0 is h, the head's output rounded
+// to bf16, and the tail's h + h0 is rounded to bf16.
 struct FrameK2 {
   enum Kind { kHead = 0, kInner = 1, kEnd = 2 };
-  enum Form { kDeployed = 0, kFold = 1, kUnfolded = 2 };
+  enum Form { kDeployed = 0, kFold = 1, kUnfolded = 2, kBf16Resid = 16 };
   using SideT = __nv_bfloat16;
   static constexpr int kBN = 128;  // the side tile's room: see side_box
   struct Args {
@@ -372,15 +382,17 @@ struct FrameK2 {
     const float4 mb = __ldg(reinterpret_cast<const float4*>(e.mb + 2 * col));
     float x0 = r2l::dequant(a0, mb.x, mb.y), x1 = r2l::dequant(a1, mb.z, mb.w);
     const float2 inv = __ldg(reinterpret_cast<const float2*>(e.inv + col));
+    const int form = e.form & ~kBf16Resid;
+    const bool br = (e.form & kBf16Resid) != 0;
     if (e.kind == kInner) {
       x0 = fmaxf(x0, 0.f);
       x1 = fmaxf(x1, 0.f);
-      if (e.form != kDeployed) {
+      if (form != kDeployed) {
         x0 = rnd<__nv_bfloat16>(x0);
         x1 = rnd<__nv_bfloat16>(x1);
       }
-      v0 = e.form == kUnfolded ? __fmul_rn(x0, inv.x) : x0;
-      v1 = e.form == kUnfolded ? __fmul_rn(x1, inv.y) : x1;
+      v0 = form == kUnfolded ? __fmul_rn(x0, inv.x) : x0;
+      v1 = form == kUnfolded ? __fmul_rn(x1, inv.y) : x1;
       return;
     }
     float2 g = make_float2(0.f, 0.f);  // h0
@@ -388,6 +400,7 @@ struct FrameK2 {
       g = make_float2(fmaxf(x0, 0.f), fmaxf(x1, 0.f));
       x0 = rnd<__nv_bfloat16>(g.x);
       x1 = rnd<__nv_bfloat16>(g.y);
+      if (br) g = make_float2(x0, x1);
       if (e.h0) put_side(e.h0, row, col, e.rows, e.N, g);
     } else {
       const float2 h = __bfloat1622float2(
@@ -400,6 +413,10 @@ struct FrameK2 {
     if (e.final_ && e.h0) {
       x0 = __fadd_rn(x0, g.x);
       x1 = __fadd_rn(x1, g.y);
+      if (br) {
+        x0 = rnd<__nv_bfloat16>(x0);
+        x1 = rnd<__nv_bfloat16>(x1);
+      }
     }
     v0 = __fmul_rn(x0, inv.x);
     v1 = __fmul_rn(x1, inv.y);

@@ -19,6 +19,12 @@ gives rgb [N, 3], acc [N], depth [N] and the weights [N, S]. Two kernels:
   next layer's inverse scale, or (``fold_requant``) by round+clip alone
   with the scales folded into the producer's m and b.
 
+Two flags of the Pallas kernel change its numbers and are forms of both
+kernels and of their wide form: ``pe_ladder=False`` encodes with one sin a
+value (``pe_sin``: sin(2^j p) and sin(2^j p + pi/2)) in place of the ladder,
+and ``bf16_requant`` (int8) dequantizes every layer but the heads in bf16
+(``dequant_bf16``: the product rounded to bf16, then the sum).
+
 Both take any depth: the skip set travels in the staged image as one flag
 a layer. They are built for the widths of ``NERF_KERNEL_WIDTHS``;
 ``prepare_fused_nerf`` pads a narrower teacher with zero channels to the
@@ -581,6 +587,11 @@ def staged_l2_bytes(cfg: NeRFConfig, dtype: torch.dtype, n: int, S: int,
                                           L_views)["gemm_bytes"]
 
 
+# cos(x) as sin(x + b): Pallas _pe_matrix's bias on the cos rows, pi/2
+# rounded to f32.
+HALF_PI_F32 = 1.5707963705062866
+
+
 def pe_ladder(p: torch.Tensor, L: int, width: int) -> torch.Tensor:
     """[..., 3] -> [..., width]: [p, sin f0 p, cos f0 p, sin f1 p, ...] by
     the teacher kernel's double-angle ladder (sin 2x = (2 sin x) cos x,
@@ -594,6 +605,26 @@ def pe_ladder(p: torch.Tensor, L: int, width: int) -> torch.Tensor:
             s, c = 2.0 * s * c, (c - s) * (c + s)
     x = torch.cat(parts, -1)
     return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def pe_sin(p: torch.Tensor, L: int, width: int) -> torch.Tensor:
+    """``pe_ladder``'s layout without the ladder (Pallas
+    ``fused_nerf_render_t(pe_ladder=False)``, ``_pe_matrix``): for each
+    octave j, sin(y) and sin(y + ``HALF_PI_F32``) of y = 2^j p (exact), the
+    sum rounded once in f32, each sin of its own value."""
+    parts = [p]
+    for j in range(L):
+        y = p * float(2 ** j)
+        parts += [torch.sin(y), torch.sin(y + HALF_PI_F32)]
+    x = torch.cat(parts, -1)
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def pe_encoding(p: torch.Tensor, L: int, width: int,
+                ladder: bool = True) -> torch.Tensor:
+    """The teacher's encoding of p [..., 3]: ``pe_ladder`` (the default,
+    Pallas ``pe_ladder=True``) or ``pe_sin``."""
+    return (pe_ladder if ladder else pe_sin)(p, L, width)
 
 
 def _norm3(d: torch.Tensor) -> torch.Tensor:
@@ -641,12 +672,31 @@ def _mlp_dense(fp: FusedNeRFParams, cfg: NeRFConfig, pe: torch.Tensor,
     return _heads_dense(fp, cfg, h, vpe, cd, mm)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16, as f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def dequant_bf16(acc: torch.Tensor, m: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Pallas ``fused_nerf_render_t``'s ``bf16_requant`` dequantize, as XLA
+    computes it without excess precision: the exact int32 sum acc (f32) to
+    bf16, m and b rounded to bf16, the product rounded to bf16, then the
+    sum: two roundings, never one fused multiply-add (the bf16 product of
+    two bf16 values is exact in f32)."""
+    return _bf16(_bf16(_bf16(acc) * _bf16(m)) + _bf16(b))
+
+
 def _mlp_int8(fp: FusedNeRFParams, cfg: NeRFConfig, pe: torch.Tensor,
-              vpe: torch.Tensor | None, ks: list[int]):
-    """The int8 chain (exact float64 integer dots, one-FMA dequantize)."""
+              vpe: torch.Tensor | None, ks: list[int],
+              bf16_requant: bool = False):
+    """The int8 chain (exact float64 integer dots, one-FMA dequantize; with
+    ``bf16_requant`` every dequantize but the heads' in bf16,
+    ``dequant_bf16``)."""
     W, D = cfg.W, cfg.D
     xq = _q8(pe, fp.pe_inv)
     off, hq = 0, None
+    inner = dequant_bf16 if bf16_requant else _dequant
 
     def requant(v, inv):
         return _q8(v) if fp.fold_requant else _q8(v, inv)
@@ -656,17 +706,16 @@ def _mlp_int8(fp: FusedNeRFParams, cfg: NeRFConfig, pe: torch.Tensor,
         off += W * K
         inp = xq if i == 0 else (torch.cat([xq, hq], -1)
                                  if (i - 1) in cfg.skips else hq)
-        v = torch.relu(_dequant(_mm_int(inp, w), fp.pts_m[i], fp.pts_b[i]))
+        v = torch.relu(inner(_mm_int(inp, w), fp.pts_m[i], fp.pts_b[i]))
         hq = requant(v, fp.pts_inv[i + 1] if i + 1 < D else fp.h_inv)
     if cfg.use_viewdirs:
         sigma = _dequant(_mm_int(hq, fp.alpha_w[None]), fp.alpha_m,
                          fp.alpha_b)[:, 0]
-        feat = _dequant(_mm_int(hq, fp.feat_w), fp.feat_m, fp.feat_b)
+        feat = inner(_mm_int(hq, fp.feat_w), fp.feat_m, fp.feat_b)
         fq = requant(feat, fp.hv_inv[:W])
         vq = _q8(vpe, fp.hv_inv[W:])
-        hv = torch.relu(_dequant(_mm_int(torch.cat([fq, vq], -1),
-                                         fp.views_w), fp.views_m,
-                                 fp.views_b))
+        hv = torch.relu(inner(_mm_int(torch.cat([fq, vq], -1),
+                                      fp.views_w), fp.views_m, fp.views_b))
         hvq = requant(hv, fp.hr_inv)
         return sigma, _dequant(_mm_int(hvq, fp.rgb_w), fp.rgb_m, fp.rgb_b)
     out = _dequant(_mm_int(hq, fp.out_w), fp.out_m, fp.out_b)
@@ -677,30 +726,34 @@ def fused_nerf_render_ref(fp: FusedNeRFParams, cfg: NeRFConfig,
                           rays_o: torch.Tensor, rays_d: torch.Tensor,
                           z_vals: torch.Tensor, L_pts: int = 10,
                           L_views: int = 4, white_bkgd: bool = False,
-                          mm=_mm_f32):
+                          mm=_mm_f32, pe_ladder: bool = True,
+                          bf16_requant: bool = False):
     """Plain version of the fused pass (the arithmetic of K6/K7 step for
     step): rays_o/d [N, 3], z_vals [N, S] sorted -> (rgb [N, 3], acc [N],
     depth [N], weights [N, S]), all f32. ``mm(x, w)``: the f32/bf16 GEMM
     layers' product x w^T (f32 by default; a test passes an emulation of
-    K6 f32's 3xTF32)."""
+    K6 f32's 3xTF32). ``pe_ladder`` and ``bf16_requant`` are Pallas
+    ``fused_nerf_render_t``'s: the encodings by the ladder or ``pe_sin``;
+    int8's inner dequantize in bf16 (ignored for f32 and bf16 weights)."""
     cfg = _packed_cfg(fp, cfg)
     int8 = fp.pts_w.dtype == torch.int8
     n, S = z_vals.shape
     kp, kv, ks = layout(cfg, L_pts, L_views)
     o, d, z = rays_o.float(), rays_d.float(), z_vals.float()
     dn = _norm3(d)
-    pe = pe_ladder(ray_points(o, d, z), L_pts, kp).reshape(n * S, kp)
+    pe = pe_encoding(ray_points(o, d, z), L_pts, kp,
+                     pe_ladder).reshape(n * S, kp)
     vpe = None
     if cfg.use_viewdirs:
-        vpe = pe_ladder(d / dn.clamp(min=1e-12)[:, None], L_views,
-                        kv - cfg.W)
+        vpe = pe_encoding(d / dn.clamp(min=1e-12)[:, None], L_views,
+                          kv - cfg.W, pe_ladder)
     sig, raw = [], []
     for r0 in range(0, n * S, ROWS):
         rows = slice(r0, min(r0 + ROWS, n * S))
         v = (vpe[torch.arange(rows.start, rows.stop, device=z.device) // S]
              if vpe is not None else None)
-        s_, r_ = (_mlp_int8(fp, cfg, pe[rows], v, ks) if int8
-                  else _mlp_dense(fp, cfg, pe[rows], v, ks, mm))
+        s_, r_ = (_mlp_int8(fp, cfg, pe[rows], v, ks, bf16_requant)
+                  if int8 else _mlp_dense(fp, cfg, pe[rows], v, ks, mm))
         sig.append(s_)
         raw.append(r_)
     sig = torch.cat(sig).view(n, S)
@@ -1000,7 +1053,8 @@ def wide_encodings_ref(rays_o: torch.Tensor, rays_d: torch.Tensor,
                        z_vals: torch.Tensor, L_pts: int, L_views: int,
                        ke: int, kve: int, dtype: torch.dtype,
                        pe_inv: torch.Tensor | None = None,
-                       hv_inv: torch.Tensor | None = None
+                       hv_inv: torch.Tensor | None = None,
+                       pe_ladder: bool = True
                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain twin of the wide form's encoding kernel (``csrc/nerf_wide.cu``,
     wide_encode): for the n * S points of rays_o/d [n, 3], z_vals [n, S],
@@ -1008,18 +1062,13 @@ def wide_encodings_ref(rays_o: torch.Tensor, rays_d: torch.Tensor,
     [n * S, kve], each row its ray's, in ``dtype``. Each coordinate runs
     the kernel's ladder on its own (``nerf::encode``: the value, then sin,
     cos of it and their double-angle steps into columns 3 + 6j + k and 6 +
-    6j + k), zeros past the used columns. int8: the codes, round-half-even
-    of x * inv clipped to +-127, ``pe_inv`` the point encoding's inverse
-    scales and ``hv_inv`` the view encoding's (the int8 teacher's
-    ``hv_inv[W:]``)."""
+    6j + k: ``pe_ladder``'s columns), zeros past the used columns; without
+    ``pe_ladder`` ``pe_sin``'s (the kernel's nerf::sin_rows). int8: the
+    codes, round-half-even of x * inv clipped to +-127, ``pe_inv`` the
+    point encoding's inverse scales and ``hv_inv`` the view encoding's (the
+    int8 teacher's ``hv_inv[W:]``)."""
     def encode(v: torch.Tensor, L: int, width: int, inv) -> torch.Tensor:
-        out = v.new_zeros((v.shape[0], width))
-        out[:, :3] = v
-        s, c = torch.sin(v), torch.cos(v)
-        for j in range(L):
-            out[:, 3 + 6 * j:6 + 6 * j] = s
-            out[:, 6 + 6 * j:9 + 6 * j] = c
-            s, c = (2.0 * s) * c, (c - s) * (c + s)
+        out = pe_encoding(v, L, width, pe_ladder)
         if dtype != torch.int8:
             return out.to(dtype)
         used = 3 + 6 * L
@@ -1040,11 +1089,12 @@ def wide_encodings_ref(rays_o: torch.Tensor, rays_d: torch.Tensor,
 def _launch_teacher_wide(fp: FusedNeRFParams, cfg: NeRFConfig,
                          rays_o: torch.Tensor, rays_d: torch.Tensor,
                          z_vals: torch.Tensor, L_pts: int, L_views: int,
-                         white_bkgd: bool, outs: list) -> None:
+                         white_bkgd: bool, outs: list, forms: list) -> None:
     """One call of the wide form (every layer a pass, the heads, the
     compositing, over the rays in ``teacher_wide_rays`` passes), ``cfg`` at
-    its kernel width; counted in ``fused_nerf_render.launches_wide`` (f32,
-    bf16) or ``launches_wide_int8``."""
+    its kernel width, ``forms`` the entry point's [ladder, brq]; counted in
+    ``fused_nerf_render.launches_wide`` (f32, bf16) or
+    ``launches_wide_int8`` (and ``_count_forms``)."""
     from . import _build
     n, S = z_vals.shape
     wd, dev = fp.pts_w.dtype, z_vals.device
@@ -1070,29 +1120,44 @@ def _launch_teacher_wide(fp: FusedNeRFParams, cfg: NeRFConfig,
             fused_nerf_render.launches_wide_int8 += 1
         else:
             fused_nerf_render.launches_wide += 1
+        _count_forms(*forms)
         rc = lib.nerf_wide_launch(
             _ptr(rays_o), _ptr(rays_d), _ptr(z_vals), n, S, _ptr(fp.staged),
             skips, cfg.D, cfg.W, _WIDE_TYPES[wd], q(fp.pe_inv), q(fp.hv_inv),
             q(fp.alpha_m), b(fp.alpha_b), q(fp.rgb_m), b(fp.rgb_b),
             q(fp.out_m), b(fp.out_b), L_pts, L_views,
-            int(cfg.use_viewdirs), int(white_bkgd), *outs, _ptr(scratch),
-            scratch.numel(), rays, stream)
+            int(cfg.use_viewdirs), int(white_bkgd), *forms, *outs,
+            _ptr(scratch), scratch.numel(), rays, stream)
     _raise_on_error(rc, "nerf_wide")
+
+
+def _count_forms(ladder: int, brq: int) -> None:
+    """Count a launch's number-changing forms: ``launches_pe_sin``
+    (``pe_ladder=False``), ``launches_bf16_requant``."""
+    fused_nerf_render.launches_pe_sin += 1 - ladder
+    fused_nerf_render.launches_bf16_requant += brq
 
 
 def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
                       rays_o: torch.Tensor, rays_d: torch.Tensor,
                       z_vals: torch.Tensor, L_pts: int = 10,
-                      L_views: int = 4, white_bkgd: bool = False):
+                      L_views: int = 4, white_bkgd: bool = False,
+                      pe_ladder: bool = True, bf16_requant: bool = False):
     """The fused volumetric pass: rays_o/d [N, 3] f32, z_vals [N, S] f32
     sorted -> (rgb [N, 3], acc [N], depth [N], weights [N, S]). ``fp`` comes
     from ``prepare_fused_nerf``, whose weights' dtype picks the mode and
-    whose ``fold_requant`` the int8 requantize. CPU tensors take the plain
-    version; CUDA tensors launch K6 (f32/bf16 weights) or K7 (int8), or
-    above their widths (``teacher_wide_form``) their wide form."""
+    whose ``fold_requant`` the int8 requantize. ``pe_ladder`` and
+    ``bf16_requant`` are Pallas ``fused_nerf_render_t``'s, with its
+    defaults: the encodings by the double-angle ladder, or one sin a value
+    (``pe_sin``); int8's inner dequantize in bf16 (``dequant_bf16``;
+    ignored for f32 and bf16 weights). CPU tensors take the plain version;
+    CUDA tensors launch K6 (f32/bf16 weights) or K7 (int8), or above their
+    widths (``teacher_wide_form``) their wide form."""
     if z_vals.device.type == "cpu":
         return fused_nerf_render_ref(fp, cfg, rays_o, rays_d, z_vals, L_pts,
-                                     L_views, white_bkgd)
+                                     L_views, white_bkgd,
+                                     pe_ladder=pe_ladder,
+                                     bf16_requant=bf16_requant)
     from . import _build
     check_teacher_supported(cfg)
     if getattr(fp, "staged", None) is None:
@@ -1124,9 +1189,10 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
     P = _ptr
     flags = [L_pts, L_views, int(cfg.use_viewdirs), int(white_bkgd)]
     outs = [P(rgb), P(acc), P(depth), P(weights)]
+    forms = [int(pe_ladder), int(int8 and bf16_requant)]
     if wide:
         _launch_teacher_wide(fp, cfg, rays_o, rays_d, z_vals, L_pts,
-                             L_views, white_bkgd, outs)
+                             L_views, white_bkgd, outs, forms)
         return rgb, acc, depth, weights
     skips = _n_skips(cfg)
     with torch.cuda.device(dev):
@@ -1134,6 +1200,7 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
         if int8:
             lib = _build.load("nerf_render_int8")
             fused_nerf_render.launches_int8 += 1
+            _count_forms(*forms)
             rc = lib.nerf_render_int8_launch(
                 P(rays_o), P(rays_d), P(z_vals), n, S,
                 P(fp.staged), P(fp.pts_m), P(fp.pts_b), P(fp.pe_inv),
@@ -1141,16 +1208,19 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
                 P(fp.alpha_m), P(fp.alpha_b), P(fp.feat_m), P(fp.feat_b),
                 P(fp.h_inv), P(fp.views_m), P(fp.views_b), P(fp.hv_inv),
                 P(fp.rgb_m), P(fp.rgb_b), P(fp.hr_inv), P(fp.out_m),
-                P(fp.out_b), *flags, int(fp.fold_requant), *outs, stream)
+                P(fp.out_b), *flags, int(fp.fold_requant), *forms, *outs,
+                stream)
             _raise_on_error(rc, "nerf_render_int8")
         else:
             lib = _build.load("nerf_render")
             fused_nerf_render.launches += 1
+            _count_forms(*forms)
             rc = lib.nerf_render_launch(
                 P(rays_o), P(rays_d), P(z_vals), n, S,
                 P(fp.staged), P(fp.pts_b), cfg.D, skips, cfg.W,
                 P(fp.alpha_b), P(fp.feat_b), P(fp.views_b), P(fp.rgb_b),
-                P(fp.out_b), *flags, int(wd == f32), *outs, stream)
+                P(fp.out_b), *flags, forms[0], int(wd == f32), *outs,
+                stream)
             _raise_on_error(rc, "nerf_render")
     return rgb, acc, depth, weights
 
@@ -1159,3 +1229,7 @@ fused_nerf_render.launches = 0        # K6 launches
 fused_nerf_render.launches_int8 = 0   # K7 launches
 fused_nerf_render.launches_wide = 0        # K6's wide form (f32, bf16)
 fused_nerf_render.launches_wide_int8 = 0   # K7's wide form
+# of all of those, the launches with pe_ladder=False, and K7's (and its
+# wide form's) with bf16_requant
+fused_nerf_render.launches_pe_sin = 0
+fused_nerf_render.launches_bf16_requant = 0

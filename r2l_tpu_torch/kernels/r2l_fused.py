@@ -12,7 +12,8 @@ student frame, and a third is the JAX package's exported kernel API:
 * ``fused_r2l_apply_int8_pe`` (``csrc/r2l_int8_hopper.cu``): the same
   chain in static-scale int8 on wgmma s8, in ``_int8_pe_chain``'s three
   forms (``fold_requant``, ``nobf16_inner``; by default the deployed
-  ``True, True``), with parameters from ``calibrate_r2l_int8_pe``. The
+  ``True, True``), each also with ``bf16_resid`` (the global residual in
+  bf16), with parameters from ``calibrate_r2l_int8_pe``. The
   training forward K4/K8 (``r2l_train.train_fwd_int8``), the epilogue
   probe (``exp/probe_epi.py``) and the stream probe
   (``exp/probe_pipe_lib.py``) run on its template.
@@ -955,6 +956,17 @@ def _dequant(acc: torch.Tensor, m: torch.Tensor,
 # code in csrc/r2l_int8_hopper.cuh's Epi (which also holds the epilogue and
 # stream probes' forms, exp/probe_epi.py, exp/probe_pipe_lib.py).
 EPILOGUES = {"deployed": 0, "fold": 1, "unfolded": 2}
+# The flag added to an epilogue's code for ``bf16_resid`` (the global
+# residual in bf16), in K2 and in its wide form alike.
+BF16_RESID = 16
+
+
+def int8_form_code(fold_requant: bool, nobf16_inner: bool,
+                   bf16_resid: bool) -> int:
+    """K2's form as its kernels take it: the epilogue's code, plus
+    ``BF16_RESID`` with ``bf16_resid``."""
+    return (EPILOGUES[int8_epilogue(fold_requant, nobf16_inner)]
+            + (BF16_RESID if bf16_resid else 0))
 
 
 def int8_epilogue(fold_requant: bool, nobf16_inner: bool) -> str:
@@ -968,9 +980,16 @@ def int8_epilogue(fold_requant: bool, nobf16_inner: bool) -> str:
 def int8_pe_chain_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
                       pts: torch.Tensor, dim_pts: int, L: int = 10,
                       epilogue: str = "deployed",
-                      quantize=None) -> torch.Tensor:
+                      quantize=None, bf16_resid: bool = False
+                      ) -> torch.Tensor:
     """Plain version of the int8 chain (Pallas ``_int8_pe_chain``) with one
     of the ``EPILOGUES``: pts [N, dim_pts] -> [N, out_dim] f32.
+
+    ``bf16_resid`` (any epilogue): the global residual's copy h0 is the
+    head's output rounded to bf16, and the tail's input is h + h0 added in
+    bf16 (rounded once) where it was the bf16 h plus the f32 h0 in f32. A
+    block's add is the same bf16 add either way: the sum of two bf16 values
+    rounded once to bf16.
 
     ``quantize(t, inv, j) -> q`` (a probe's hook) replaces how layer j of a
     block quantizes its input: t is that input in bf16 before any inner
@@ -992,6 +1011,8 @@ def int8_pe_chain_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
                     for k, f in enumerate(feats)], dim=1)
     h0 = torch.relu(_dequant(_mm_int(xq, fp.head_q), fp.head_m, fp.head_b))
     h = h0.to(torch.bfloat16)
+    if bf16_resid:
+        h0 = h.float()
     for i in range(nb):
         t = h
         for j in range(nl):
@@ -1012,6 +1033,8 @@ def int8_pe_chain_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
     hf = h.float()
     if cfg.use_residual:
         hf = hf + h0
+        if bf16_resid:
+            hf = hf.to(torch.bfloat16).float()
     out = _dequant(_mm_int(_q8(hf, fp.tail_inv), fp.tail_q), fp.tail_m,
                    fp.tail_b)
     return out if cfg.linear_tail else torch.sigmoid(out)
@@ -1020,12 +1043,14 @@ def int8_pe_chain_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
 def fused_r2l_apply_int8_pe_ref(fp: FusedParamsInt8PE, cfg: R2LConfig,
                                 pts: torch.Tensor, dim_pts: int,
                                 L: int = 10, fold_requant: bool = True,
-                                nobf16_inner: bool = True) -> torch.Tensor:
+                                nobf16_inner: bool = True,
+                                bf16_resid: bool = False) -> torch.Tensor:
     """Plain version of ``fused_r2l_apply_int8_pe`` (Pallas
     ``_int8_pe_chain`` with the same flags): pts [N, dim_pts] ->
     [N, out_dim] f32."""
     return int8_pe_chain_ref(fp, cfg, pts, dim_pts, L,
-                             int8_epilogue(fold_requant, nobf16_inner))
+                             int8_epilogue(fold_requant, nobf16_inner),
+                             bf16_resid=bf16_resid)
 
 
 def _check_int8_params(fp: FusedParamsInt8PE, cfg: R2LConfig,
@@ -1054,9 +1079,10 @@ def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
                         pts: torch.Tensor, dim_pts: int, L: int,
                         epilogue: int, wrapper=None) -> torch.Tensor:
     """One launch of K2 (``csrc/r2l_int8_hopper.cu``) on CUDA tensors in
-    the form ``epilogue`` (its Epi code), checked here, with a fresh f32
-    h0 scratch; counted in ``wrapper.launches``
-    (``fused_r2l_apply_int8_pe`` by default)."""
+    the form ``epilogue`` (its Epi code, plus ``BF16_RESID`` for that
+    form), checked here, with a fresh f32 h0 scratch; counted in
+    ``wrapper.launches`` (``fused_r2l_apply_int8_pe`` by default), a
+    ``bf16_resid`` form also in ``launches_bf16_resid``."""
     wrapper = wrapper or fused_r2l_apply_int8_pe
     from . import _build
     _refuse_frame(cfg, "K2 (fused_r2l_apply_int8_pe)", int8=True, L=L)
@@ -1086,6 +1112,8 @@ def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         wrapper.launches += 1
+        if epilogue & BF16_RESID:
+            wrapper.launches_bf16_resid += 1
         rc = lib.r2l_int8_hopper_launch(
             _ptr(pts), n, dim_pts, L, _ptr(fp.staged), _ptr(fp.head_inv),
             _ptr(fp.body_inv), _ptr(fp.tail_q), _ptr(fp.tail_m),
@@ -1100,10 +1128,12 @@ def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
 def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
                             pts: torch.Tensor, dim_pts: int,
                             L: int = 10, fold_requant: bool = True,
-                            nobf16_inner: bool = True) -> torch.Tensor:
+                            nobf16_inner: bool = True,
+                            bf16_resid: bool = False) -> torch.Tensor:
     """pts [N, dim_pts] raw sample points -> RGB [N, out_dim] f32 through
-    the static-scale int8 kernel. The flags are Pallas ``_int8_pe_chain``'s;
-    the default is the deployed form, with ``fp`` from
+    the static-scale int8 kernel. The flags are Pallas ``_int8_pe_chain``'s
+    (``bf16_resid``: the global residual in bf16, in any of the three
+    forms); the default is the deployed form, with ``fp`` from
     ``calibrate_r2l_int8_pe(..., fold_requant=True)`` (``fold_requant``
     here must match the calibration's; the calibration stages K2's s8
     image, without which the kernel raises). The wide form
@@ -1112,16 +1142,19 @@ def fused_r2l_apply_int8_pe(fp: FusedParamsInt8PE, cfg: R2LConfig,
     width's head slice (``wide_form``). CPU tensors take the plain version."""
     if pts.device.type == "cpu":
         return fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dim_pts, L,
-                                           fold_requant, nobf16_inner)
+                                           fold_requant, nobf16_inner,
+                                           bf16_resid)
     if wide_form(cfg.netwidth, True, L):
         return fused_r2l_apply_int8_pe_wide(fp, cfg, pts, dim_pts, L,
-                                            fold_requant, nobf16_inner)
+                                            fold_requant, nobf16_inner,
+                                            bf16_resid)
     return _launch_int8_hopper(
         fp, cfg, pts, dim_pts, L,
-        EPILOGUES[int8_epilogue(fold_requant, nobf16_inner)])
+        int8_form_code(fold_requant, nobf16_inner, bf16_resid))
 
 
 fused_r2l_apply_int8_pe.launches = 0
+fused_r2l_apply_int8_pe.launches_bf16_resid = 0   # of them, bf16_resid
 
 
 # ---------------------------------------------------------------------------
@@ -1280,7 +1313,8 @@ def _launch_wide(wrapper, fp: FusedParams | FusedParamsInt8PE,
     layer a pass of the pass skeleton, then the tail) on the CUDA tensor
     ``inp`` (points with ``dim_pts``, else encoded rays), ``cfg`` at its
     width, the image checked here and a fresh scratch; counted in
-    ``wrapper.launches``."""
+    ``wrapper.launches``, K2's ``bf16_resid`` forms also in
+    ``wrapper.launches_bf16_resid``."""
     from . import _build
     int8 = isinstance(fp, FusedParamsInt8PE)
     wd = fp.head_q.dtype if int8 else fp.head_w.dtype
@@ -1308,6 +1342,8 @@ def _launch_wide(wrapper, fp: FusedParams | FusedParamsInt8PE,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         wrapper.launches += 1
+        if int8 and epilogue & BF16_RESID:
+            wrapper.launches_bf16_resid += 1
         rc = lib.r2l_wide_launch(
             _ptr(inp), n, dim_pts, L, in_dim, int(dim_pts > 0),
             _WIDE_TYPES[wd], _ptr(fp.staged), bias("head_b"),
@@ -1372,15 +1408,18 @@ fused_r2l_apply_wide.launches = 0
 def fused_r2l_apply_int8_pe_wide(fp: FusedParamsInt8PE, cfg: R2LConfig,
                                  pts: torch.Tensor, dim_pts: int,
                                  L: int = 10, fold_requant: bool = True,
-                                 nobf16_inner: bool = True) -> torch.Tensor:
-    """K2's wide form in ``_int8_pe_chain``'s three forms (the flags as in
-    ``fused_r2l_apply_int8_pe``, ``fp`` from ``calibrate_r2l_int8_pe`` at
-    its ``kernel_width``, staged): the plain version's codes, sums and
-    epilogues, bit for bit. ``fused_r2l_apply_int8_pe`` sends every
-    ``wide_form`` student here. CPU tensors take the plain version."""
+                                 nobf16_inner: bool = True,
+                                 bf16_resid: bool = False) -> torch.Tensor:
+    """K2's wide form in ``_int8_pe_chain``'s three forms, each also with
+    ``bf16_resid`` (the flags as in ``fused_r2l_apply_int8_pe``, ``fp``
+    from ``calibrate_r2l_int8_pe`` at its ``kernel_width``, staged): the
+    plain version's codes, sums and epilogues, bit for bit.
+    ``fused_r2l_apply_int8_pe`` sends every ``wide_form`` student here. CPU
+    tensors take the plain version."""
     if pts.device.type == "cpu":
         return fused_r2l_apply_int8_pe_ref(fp, cfg, pts, dim_pts, L,
-                                           fold_requant, nobf16_inner)
+                                           fold_requant, nobf16_inner,
+                                           bf16_resid)
     _refuse_frame(cfg, "K2's wide form (fused_r2l_apply_int8_pe_wide)",
                   int8=True, L=L)
     _need_wide_image(fp)
@@ -1390,7 +1429,8 @@ def fused_r2l_apply_int8_pe_wide(fp: FusedParamsInt8PE, cfg: R2LConfig,
     return _launch_wide(
         fused_r2l_apply_int8_pe_wide, fp, cfg, pts, dim_pts, L,
         dim_pts * (2 * L + 1),
-        EPILOGUES[int8_epilogue(fold_requant, nobf16_inner)])
+        int8_form_code(fold_requant, nobf16_inner, bf16_resid))
 
 
 fused_r2l_apply_int8_pe_wide.launches = 0
+fused_r2l_apply_int8_pe_wide.launches_bf16_resid = 0   # of them, bf16_resid

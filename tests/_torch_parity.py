@@ -172,6 +172,64 @@ def int8_params_from_jax(jfp, like):
         for name in like._fields))
 
 
+def nerf_int8_params_from_jax(fpj, jcfg, like, Lp: int, Lv: int):
+    """JAX's transposed, 8/128-padded, row-remapped int8 teacher parameters
+    (``prepare_fused_nerf_t(..., calib=)``, encodings at ``Lp``/``Lv``) in
+    the port's layout (``FusedNeRFParams``, the shapes of ``like``)."""
+    from r2l_tpu.kernels.nerf_render_pallas import _pe_row_map
+    from r2l_tpu_torch.kernels import nerf_render as NR
+    W, D = jcfg.W, jcfg.D
+    k_pts = fpj.pts_inv[0].shape[0]
+    rm_p, rm_v = _pe_row_map(Lp), _pe_row_map(Lv)
+    kp, kv, ks = NR.layout(jcfg, Lp, Lv)
+
+    def a(x):
+        return np.asarray(x)
+
+    ws, invs = [], [np.ones(W, np.float32)]
+    for i in range(D):
+        w = a(fpj.pts_w[i])
+        if i == 0 or (i - 1) in jcfg.skips:
+            pe = np.zeros((W, kp), w.dtype)
+            pe[:, :len(rm_p)] = w[:, rm_p]
+            w = np.concatenate([pe, w[:, k_pts:]], 1)
+        ws.append(w.reshape(-1))
+        if i > 0:
+            inv = a(fpj.pts_inv[i])[:, 0]
+            invs.append(inv[k_pts:] if (i - 1) in jcfg.skips else inv)
+    pe_inv = np.ones(kp, np.float32)
+    pe_inv[:len(rm_p)] = a(fpj.pts_inv[0])[rm_p, 0]
+    f = dict(pts_w=np.concatenate(ws),
+             pts_m=np.stack([a(m)[:, 0] for m in fpj.pts_m]),
+             pts_b=np.stack([a(b)[:, 0] for b in fpj.pts_b]),
+             pe_inv=pe_inv, pts_inv=np.stack(invs), h_inv=a(fpj.h_inv)[:, 0])
+    if jcfg.use_viewdirs:
+        vw = a(fpj.views_w)[:W // 2]
+        views_w = np.zeros((W // 2, kv), vw.dtype)
+        views_w[:, :W] = vw[:, :W]
+        views_w[:, W:W + len(rm_v)] = vw[:, W + rm_v]
+        hv = a(fpj.hv_inv)[:, 0]
+        hv_inv = np.ones(kv, np.float32)
+        hv_inv[:W] = hv[:W]
+        hv_inv[W:W + len(rm_v)] = hv[W + rm_v]
+        f.update(alpha_w=a(fpj.alpha_w)[0], alpha_m=a(fpj.alpha_m)[:1, 0],
+                 alpha_b=a(fpj.alpha_b)[:1, 0], feat_w=a(fpj.feat_w),
+                 feat_m=a(fpj.feat_m)[:, 0], feat_b=a(fpj.feat_b)[:, 0],
+                 views_w=views_w, views_m=a(fpj.views_m)[:W // 2, 0],
+                 views_b=a(fpj.views_b)[:W // 2, 0], hv_inv=hv_inv,
+                 rgb_w=a(fpj.rgb_w)[:3, :W // 2],
+                 rgb_m=a(fpj.rgb_m)[:3, 0], rgb_b=a(fpj.rgb_b)[:3, 0],
+                 hr_inv=a(fpj.hr_inv)[:W // 2, 0])
+    else:
+        f.update(out_w=a(fpj.out_w)[:4], out_m=a(fpj.out_m)[:4, 0],
+                 out_b=a(fpj.out_b)[:4, 0])
+    out = like._asdict()
+    for k, v in f.items():
+        assert v.shape == tuple(out[k].shape), (k, v.shape, out[k].shape)
+        out[k] = torch.from_numpy(np.array(v))
+    return NR.FusedNeRFParams(**out)
+
+
 def int8_case(dim_pts, L, W, D, side, seed=0, n_calib_poses=3, **cfg_kw):
     """A small R2L case for the int8 chain's tests: (JAX cfg, JAX params,
     port cfg, port model, calibration points, one pose's sample points), the

@@ -2148,3 +2148,87 @@ def test_w64_teacher_runs_on_the_kernels(dev):
                        match="every skip before the last layer"):
         TE.make_nerf_frame_fn(mc, mf, last, vcfg, sampler, use_pallas=True,
                               device=dev)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' number-changing forms (the Pallas flags bf16_resid,
+# pe_ladder=False and bf16_requant), narrow and wide
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(WIDE_CASES))
+@pytest.mark.parametrize("fold_requant,nobf16_inner",
+                         [(True, True), (True, False), (False, False)])
+def test_int8_bf16_resid_forms_bit_for_bit(dev, name, fold_requant,
+                                           nobf16_inner):
+    """K2 and its wide form with bf16_resid, in each of the three forms:
+    one launch of the kernel and of the form's count, bit for bit the plain
+    version on 1,000 rays and on a ragged 129; apart from the parent form
+    where the global residual is on."""
+    cases = {**CASES, **WIDE_CASES}
+    cfg, model, sampler, poses, pts, dp, L = _case(name, dev, cases=cases)
+    fp = F.calibrate_r2l_int8_pe(model, cfg, dp, L,
+                                 _calibration_points(sampler, poses, dev),
+                                 fold_requant=fold_requant)
+    kw = dict(fold_requant=fold_requant, nobf16_inner=nobf16_inner)
+    wrapper = (F.fused_r2l_apply_int8_pe_wide if name in WIDE_CASES
+               else F.fused_r2l_apply_int8_pe)
+    for q in (pts, pts[:129].contiguous()):
+        before = (wrapper.launches, wrapper.launches_bf16_resid)
+        got = F.fused_r2l_apply_int8_pe(fp, cfg, q, dp, L, bf16_resid=True,
+                                        **kw)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.launches_bf16_resid) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got, F.fused_r2l_apply_int8_pe_ref(
+            fp, cfg, q, dp, L, bf16_resid=True, **kw))
+    got = F.fused_r2l_apply_int8_pe(fp, cfg, pts, dp, L, bf16_resid=True,
+                                    **kw)
+    parent = F.fused_r2l_apply_int8_pe(fp, cfg, pts, dp, L, **kw)
+    assert torch.equal(got, parent) != cfg.use_residual
+
+
+# (label, kind, pe_ladder, bf16_requant, fold_requant)
+NERF_FORMS = (("pe_sin", "f32", False, False, False),
+              ("pe_sin", "bf16", False, False, False),
+              ("pe_sin", "int8", False, False, True),
+              ("bf16_requant", "int8", True, True, True),
+              ("bf16_requant_unfolded", "int8", True, True, False))
+
+
+@pytest.mark.parametrize("name", ["canonical", "w128_noview", "w384",
+                                  "w384_noview"])
+@pytest.mark.parametrize("form", NERF_FORMS,
+                         ids=[f"{f[0]}_{f[1]}" for f in NERF_FORMS])
+def test_nerf_render_forms_match_plain(dev, name, form):
+    """K6/K7 and their wide form with pe_ladder=False, and K7's with
+    bf16_requant: one launch of the kernel and of the form's count, every
+    output within the teacher kernels' limits (TOL_WIDE_NERF) of the plain
+    version on the same packing; K7's bf16_requant apart from the f32
+    dequantize."""
+    _, kind, ladder, brq, fold = form
+    cfg, model, o, d, z, Lp, Lv, calib = _nerf_case(name, dev, kind, n=517,
+                                                     S=64)
+    fp = NR.prepare_fused_nerf(model, cfg, Lp, Lv, calib=calib,
+                               weight_dtype=cfg.compute_dtype,
+                               fold_requant=fold)
+    kw = dict(L_pts=Lp, L_views=Lv, white_bkgd=True, pe_ladder=ladder,
+              bf16_requant=brq)
+    f = NR.fused_nerf_render
+    counts = ("launches_pe_sin", "launches_bf16_requant")
+    before = [getattr(f, c) for c in counts] + list(_wide_nerf_counts())
+    got = f(fp, cfg, o, d, z, **kw)
+    torch.cuda.synchronize()
+    moved = [b - a for a, b in zip(before, [getattr(f, c) for c in counts]
+                                   + list(_wide_nerf_counts()))]
+    slot = 2 + (2 if NR.teacher_wide_form(cfg.W) else 0) + (kind == "int8")
+    assert moved == [int(not ladder), int(brq)] + [
+        int(i == slot) for i in range(2, 6)]
+    want = NR.fused_nerf_render_ref(fp, cfg, o, d, z, **kw)
+    (tol, tol_rms), (tol_d, tol_d_rms) = TOL_WIDE_NERF[kind]
+    for what, g_, w_ in zip(("rgb", "acc", "depth", "weights"), got, want):
+        mx, rms = _deltas(g_, w_)
+        lim = (tol_d, tol_d_rms) if what == "depth" else (tol, tol_rms)
+        assert mx <= lim[0] and rms <= lim[1], (what, mx, rms)
+    if brq:
+        parent = f(fp, cfg, o, d, z, L_pts=Lp, L_views=Lv, white_bkgd=True)
+        assert not torch.equal(got[0], parent[0])

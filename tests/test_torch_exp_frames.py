@@ -58,10 +58,11 @@ def _setup(mod, cfg, **kw):
                      hw=HW, focal=FOCAL, **kw)
 
 
-def _k2(jfp, jcfg, pts, fold=True, nobf16=True):
+def _k2(jfp, jcfg, pts, fold=True, nobf16=True, bf16_resid=False):
     return JP.fused_r2l_apply_int8_pe(jfp, jcfg, pts, 48, L, tile=512,
                                       interpret=True, fold_requant=fold,
-                                      nobf16_inner=nobf16)
+                                      nobf16_inner=nobf16,
+                                      bf16_resid=bf16_resid)
 
 
 def _bounds(got, want):
@@ -100,11 +101,16 @@ def test_epi2_constants_match_the_jax_drivers():
         sub = exp_calls(name, "PointSampler")[1]
         assert sub["H"] == sub["W"] == XE2.CALIB_HW
         assert exp_calls(name, "bench")[0].get("reps", 5) == XE2.REPS
-    # epi2's base / fold_requant forms (:77-82) and epi3's fold+nobf16
-    # (:62), each with its packing's fold
-    assert XE2.FORMS == (("base", False, False), ("fold_requant", True,
-                                                  False),
-                         ("fold+nobf16", True, True))
+    # epi2's four rows (:70-74: base, bf16_resid, fold_requant, both; the
+    # folded rows on the folded packing, nobf16_inner at JAX's default)
+    # and epi3's fold+nobf16 (:62), each with its packing's fold
+    assert [f[0] for f in XE2.EPI2_FORMS] == [
+        "base", "bf16_resid", "fold_requant", "both"]
+    assert XE2.FORMS == (("base", False, False, False),
+                         ("bf16_resid", False, False, True),
+                         ("fold_requant", True, False, False),
+                         ("both", True, False, True),
+                         ("fold+nobf16", True, True, False))
 
 
 def test_decomp_variants_match_jax(monkeypatch):
@@ -179,8 +185,10 @@ def test_epi2_forms_match_jax(monkeypatch, form):
     """Each form on its packing (exp/probe_epi2.py:32-36, 48-52; probe_epi3
     .py:29-30, 43-45), calibrated on every other pose's sample_test at
     CALIB_HW (focal / 8): on pose 0 within K2's bounds of JAX's kernel in
-    that form on JAX's packing of the same points."""
-    name, fold, nobf16 = form
+    that form on JAX's packing of the same points (the bf16_resid rows too:
+    here XLA's excess precision drops some of their bf16 roundings, which
+    tests/test_torch_bf16_forms.py holds bit for bit without it)."""
+    name, fold, nobf16, bf16_resid = form
     params, jcfg, cfg, js, poses = _case(monkeypatch, XE2, seed=3)
     cfg, fps, sampler, tposes = _setup(XE2, cfg, calib_hw=8)
     sub = JaxSampler(H=8, W=8, focal=FOCAL / 8, n_sample=16, near=2.0,
@@ -189,9 +197,10 @@ def test_epi2_forms_match_jax(monkeypatch, form):
                              for i in range(0, K, 2)])
     jfp = JP.calibrate_r2l_int8_pe(params, jcfg, XE2.DIM, L,
                                    calib_pts=calib, fold_requant=fold)
-    want = _k2(jfp, jcfg, js.sample_test(poses[0]), fold, nobf16)
-    _bounds(XE2.form(fps, cfg, sampler.sample_test(tposes[0]), fold, nobf16),
-            want)
+    want = _k2(jfp, jcfg, js.sample_test(poses[0]), fold, nobf16,
+               bf16_resid)
+    _bounds(XE2.form(fps, cfg, sampler.sample_test(tposes[0]), fold, nobf16,
+                     bf16_resid), want)
 
 
 @pytest.mark.parametrize("mod", [XD, XE, XB, XE2],

@@ -1,7 +1,7 @@
 """Port parity of the teacher-frame exp drivers (r2l_tpu_torch/exp/
 _teacher.py, probe_teacher_int8.py, probe_teacher_fold.py,
-probe_teacher_decomp.py, probe_teacher_chunk.py, dbg_int8_engage.py)
-against the JAX drivers of the same names.
+probe_teacher_decomp.py, probe_teacher_chunk.py, probe_teacher_bf16rq.py,
+dbg_int8_engage.py) against the JAX drivers of the same names.
 
 Each driver's constants are read from the JAX file (through
 load_exp_probe where it has a main() guard, from its source where it runs
@@ -47,6 +47,7 @@ from r2l_tpu_torch.exp import probe_teacher_chunk as XC
 from r2l_tpu_torch.exp import probe_teacher_decomp as XTD
 from r2l_tpu_torch.exp import probe_teacher_fold as XF
 from r2l_tpu_torch.exp import probe_teacher_int8 as XI
+from r2l_tpu_torch.exp import probe_teacher_bf16rq as XBQ
 from r2l_tpu_torch.sampler import even_z_vals
 from r2l_tpu_torch.train import TeacherTrainConfig, init_teacher_state
 
@@ -391,9 +392,10 @@ def test_dbg_int8_engage_matches_the_jax_script(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("mod,argv", [
-    (XI, []), (XF, []), (XTD, []), (XC, []), (XG, ["--ckpt", "t.msgpack"])],
+    (XI, []), (XF, []), (XTD, []), (XC, []), (XG, ["--ckpt", "t.msgpack"]),
+    (XBQ, [])],
     ids=["probe_teacher_int8", "probe_teacher_fold", "probe_teacher_decomp",
-         "probe_teacher_chunk", "dbg_int8_engage"])
+         "probe_teacher_chunk", "dbg_int8_engage", "probe_teacher_bf16rq"])
 def test_driver_needs_a_gpu(mod, argv, capsys):
     """Without CUDA the driver exits 1 and prints no record."""
     if torch.cuda.is_available():
@@ -402,3 +404,97 @@ def test_driver_needs_a_gpu(mod, argv, capsys):
         mod.main(argv)
     assert e.value.code == 1
     assert capsys.readouterr().out == ""
+
+
+def test_bf16rq_constants_match_the_jax_driver():
+    """exp/probe_teacher_bf16rq.py runs at import: its frame (400x400),
+    chunk, samples, K and interleaved rounds from the source, its teacher
+    (8x256, skip 4, view directions, L 10/4, bf16) and render (64 + 128,
+    deterministic, white, near 2, far 6) as ``_teacher``'s; its rows one
+    per distinct function (the tiles and sample_pairs are not ported)."""
+    a = exp_assigned("probe_teacher_bf16rq")
+    assert (a["H"], a["W"]) == (_teacher.H, _teacher.W)
+    assert a["CHUNK"] == _teacher.CHUNK and XBQ.K == a["K"] == _teacher.K
+    assert (a["S_C"], a["S_F"]) == (_teacher.N_COARSE, _teacher.N_FINE)
+    assert XBQ.ROUNDS == a["ROUNDS"]
+    nc = exp_calls("probe_teacher_bf16rq", "NeRFConfig")[0]
+    assert (nc["D"], nc["W"], nc["skips"], nc["use_viewdirs"],
+            nc["input_ch"], nc["input_ch_views"], nc["output_ch"]) == (
+        _teacher.D, _teacher.WIDTH, _teacher.SKIPS, True, 63, 27, 5)
+    vc = exp_calls("probe_teacher_bf16rq", "VolRenderConfig")[0]
+    v = _teacher.vol_cfg()
+    for k in ("perturb", "use_viewdirs", "white_bkgd", "near", "far",
+              "multires", "multires_views"):
+        assert getattr(v, k) == vc[k], k
+    run_k = exp_calls("probe_teacher_bf16rq", "partial")[0]
+    assert (run_k["int8"], run_k["fold_requant"], run_k["white_bkgd"]) == (
+        True, True, True)
+    assert [v[1] for v in XBQ.VARIANTS] == [False, True]
+
+
+def test_bf16rq_chunk_matches_jax(monkeypatch):
+    """The driver's chunk (exp/probe_teacher_bf16rq.py:81-93's chunk_full:
+    coarse, sample_pdf, fine) with the f32 and the bf16 dequantize, each
+    side calibrating on the same points: K2's int8 bounds of JAX's in
+    interpret mode (here under XLA's default flags, which drop some of
+    bf16_requant's roundings; tests/test_torch_teacher_forms.py holds the
+    kernel bit for bit without them)."""
+    jcfg, (pc, pf), ncfg, vcfg, nets, ro, rd = _setup(monkeypatch, SEED)
+    calib = _teacher.calibration(ro, rd, EVERY)
+    packed = XBQ.prepare_fused_teacher(*nets, ncfg, vcfg, int8_calib=calib,
+                                       fold_requant=True)
+    jcal = _jax_calib(ro, rd)
+    jpacks = tuple(prepare_fused_nerf_t(p, jcfg, 10, 4, calib=jcal,
+                                        fold_requant=True) for p in (pc, pf))
+    o, d = ro[0, :CHUNK], rd[0, :CHUNK]
+    jo, jd = jnp.asarray(n(o)), jnp.asarray(n(d))
+    for brq in (False, True):
+        run = dict(L_pts=10, L_views=4, white_bkgd=True, tile=32, int8=True,
+                   fold_requant=True, interpret=True, bf16_requant=brq)
+        z = jrender._coarse_z(_jv(vcfg), CHUNK, None)
+        w = fused_nerf_render_t(jpacks[0], jcfg, jo, jd, z, **run)[3]
+        z_samp = jax_sample_pdf(None, 0.5 * (z[:, 1:] + z[:, :-1]),
+                                w[:, 1:-1], vcfg.n_fine, det=True)
+        z_all = jnp.sort(jnp.concatenate([z, z_samp], axis=-1), axis=-1)
+        want = fused_nerf_render_t(jpacks[1], jcfg, jo, jd, z_all, **run)[0]
+        _int8_bounds(XBQ.chunk_rgb(packed, ncfg, vcfg, o, d, brq), want)
+
+
+def test_bf16rq_records_have_the_jax_fields(monkeypatch):
+    """The driver's main on the CPU at a small size (its GPU parts, the
+    card's record and CUDA-event timing, replaced by the host's): JAX's
+    rows and fields (``r5_bf16rq_rgb_rms_delta`` with ``rms`` and
+    ``max``; each timed row's ``ms_per_frame``, with ``warmup_s`` for JAX's
+    ``compile_s``), bf16_requant engaged, each row's chunk equal to its
+    plain version (which the CPU runs)."""
+    import time
+
+    def host_calls(fn, reps, per=1, warm=True):
+        out = fn() if warm else None
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = fn()
+            times.append((time.perf_counter() - t0) * 1e3 / per)
+            out = got if out is None else out
+        return {"ms": min(times), "all_ms": times, "warmup_s": 0.0}, out
+
+    jcfg, jnets, ncfg, vcfg, nets, ro, rd = _setup(monkeypatch, SEED)
+    monkeypatch.setattr(_harness, "require_cuda", lambda prog: "cpu")
+    monkeypatch.setattr(_harness, "device_record",
+                        lambda: {"name": "device"})
+    monkeypatch.setattr(_harness, "time_calls", host_calls)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(XBQ, "setup", lambda dev, g, k: (
+        ncfg, vcfg, nets, ro[:k], rd[:k],
+        _teacher.calibration(ro[:k], rd[:k], EVERY)))
+    recs = XBQ.main(["--frames", "2", "--rounds", "1"])
+    assert [r["name"] for r in recs] == [
+        "device", "r5_bf16rq_rgb_rms_delta", "r5_f32rq", "r5_bf16rq",
+        "done"]
+    delta = recs[1]
+    assert delta["rms"] > 0 and delta["max"] >= delta["rms"]
+    for r in recs[2:4]:
+        assert r["ms_per_frame"] > 0 and r["warmup_s"] >= 0
+        assert r["bit_for_bit"] and r["max_abs_err_vs_plain"] == 0.0
+    assert [r["bf16_requant"] for r in recs[2:4]] == [False, True]

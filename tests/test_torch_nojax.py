@@ -4,13 +4,15 @@ each kind and through the kernel API, takes a distillation step of each
 kind, saves the state through the port's own msgpack codec and resumes it,
 exports the student to ONNX, takes a step in the images data mode, renders
 a teacher frame, generates one pose of pseudo data (plain and int8-packed
-fused render on the CPU), takes a teacher step of each mode on images and
+fused render on the CPU; the int8 pass also with pe_ladder=False and
+bf16_requant), takes a teacher step of each mode on images and
 their ray records, runs each exp probe's plain version (the chain and shape
 probes, and K2's body, wall, streams and epilogue probes, and the int8-dL/dx
 walk), runs the bodies of the exp drivers that reach no kernel of their
 own (the int8 frame, its batched call against the frames, K2's epilogue
-forms, the teacher frame's decomposition, a hard-sampling draw, the
-training pieces, dbg_int8_engage on a saved teacher), renders an int8
+forms and bf16 residual, the teacher frame's decomposition, a
+hard-sampling draw, the training pieces, dbg_int8_engage on a saved
+teacher), renders an int8
 given-rays frame and its bench checksum, computes
 SSIM, FLIP and LPIPS, imports ``bench_cuda.py``'s function, parses the
 command line and maps it to a student config, runs each datagen mode other
@@ -107,6 +109,12 @@ calib = (torch.randn(40, 3, generator=gen), torch.randn(40, 3, generator=gen))
 out = render_frame_nerf_fused(mc, mf, ncfg, vcfg, ro, rd, int8_calib=calib,
                               fold_requant=True)
 assert out["rgb"].shape == (6, 3)
+from r2l_tpu_torch.kernels.nerf_render import (fused_nerf_render,
+                                               prepare_fused_nerf)
+fpn = prepare_fused_nerf(mc, ncfg, 4, 2, calib=calib)
+zn = torch.linspace(2.0, 6.0, 5).expand(6, 5).contiguous()
+assert fused_nerf_render(fpn, ncfg, ro, rd, zn, 4, 2, pe_ladder=False,
+                         bf16_requant=True)[0].shape == (6, 3)
 with tempfile.TemporaryDirectory() as tmp:
     gcfg = DataGenConfig(n_pose=1, H=4, W=4, focal=5.0, save_every=1)
     assert generate_pseudo_data(mc, mf, ncfg, vcfg, gcfg, tmp,
@@ -243,8 +251,9 @@ assert bool(torch.isfinite(XD.full(fpx, cx, dpx, smx, psx)))
 assert XB.compare(fpx, cx, dpx, smx, psx)["max_abs_err_vs_frames"] < 2.5e-2
 cx, fps, smx, psx = XE.setup("cpu", torch.Generator().manual_seed(1), 2,
                              cfgx, hw=4, focal=5.0, calib_hw=4)
-for _, fold, nb in XE.FORMS:
-    assert XE.form(fps, cx, smx.sample_test(psx[0]), fold, nb).shape == (16, 3)
+for _, fold, nb, br in XE.FORMS:
+    assert XE.form(fps, cx, smx.sample_test(psx[0]), fold, nb,
+                   br).shape == (16, 3)
 ncx = XT.nerf_cfg(D=3, W=32, skips=(1,))
 ncx, vcx, packs, rox, rdx = XTD.setup("cpu", torch.Generator().manual_seed(2),
                                       ncx, hw=4, focal=5.0, chunk=8,
