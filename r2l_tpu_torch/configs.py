@@ -278,7 +278,14 @@ def build_parser() -> argparse.ArgumentParser:
         help='path to a torch lpips state_dict (.pt/.pth) to enable the '
              'LPIPS metric during eval (weights are not bundled)')
     add('--profile_dir', type=str, default='',
-        help='write a torch.profiler trace here during training/render')
+        help='write a torch.profiler trace here during training/render; '
+             "it carries the port's r2l.* ranges: r2l.frame (one student "
+             'frame) with r2l.frame.sample (its rays and points), '
+             'r2l.frame.net (the network) and r2l.frame.out (the image), '
+             "and r2l.kernel.launch (a kernel launch's host part); while "
+             'it records, the spans keep up to 65,536 records in memory '
+             "and each frame counts its syncs under torch's sync debug "
+             'mode')
     add('--fused_train_vjp', type=_bool, nargs='?', const=True,
         default=False,
         help='route distillation forward+backward through the fused '

@@ -58,6 +58,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import trace
 from .data.rayshards import shuffle_rays, write_ray_shards
 from .kernels.nerf_render import check_teacher_supported
 from .models.nerf import NeRF, NeRFConfig
@@ -95,17 +96,25 @@ def pose_seed(seed: int, i: int) -> int:
     return seed * 100003 + i
 
 
-def _pose_rays(rng: np.random.Generator, gcfg: DataGenConfig, radius: float,
-               pose_fn=None) -> tuple[np.ndarray, np.ndarray]:
-    """One random pose -> host [H, W, 3] ray origins and directions: a
-    random spherical pose (or ``pose_fn(rng)``), a random focal x [1, 2)
-    unless disabled, rays in numpy. Shared by the main loop and the int8
-    calibration, which must see the same distribution."""
+def _pose_cam(rng: np.random.Generator, gcfg: DataGenConfig, radius: float,
+              pose_fn=None) -> tuple[np.ndarray, float]:
+    """One random camera: a random spherical pose (or ``pose_fn(rng)``) and
+    a random focal x [1, 2) unless disabled."""
     c2w = np.asarray(pose_fn(rng) if pose_fn is not None
                      else get_rand_pose(rng, radius=radius))
     focal = gcfg.focal
     if gcfg.use_rand_focal:
         focal = gcfg.focal * rng.uniform(1.0, 2.0)
+    return c2w, focal
+
+
+def _pose_rays(rng: np.random.Generator, gcfg: DataGenConfig, radius: float,
+               pose_fn=None, cam: tuple[np.ndarray, float] | None = None
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """One random camera (``_pose_cam``, or ``cam`` drawn by it already) ->
+    host [H, W, 3] ray origins and directions in numpy. Shared by the main
+    loop and the int8 calibration, which must see the same distribution."""
+    c2w, focal = cam or _pose_cam(rng, gcfg, radius, pose_fn)
     return get_rays_np(gcfg.H, gcfg.W, focal, c2w)
 
 
@@ -149,9 +158,10 @@ def _writer(datadir: str, gcfg: DataGenConfig, q: queue.Queue,
             item = q.get()
             if item is None:
                 return
-            rays = shuffle_rays(rng, item)
-            write_ray_shards(datadir, rays, prefix="pseudo",
-                             shard_size=gcfg.shard_size, shuffle=False)
+            with trace.span("datagen.write"):
+                rays = shuffle_rays(rng, item)
+                write_ray_shards(datadir, rays, prefix="pseudo",
+                                 shard_size=gcfg.shard_size, shuffle=False)
             total["rays"] += rays.shape[0]
     except Exception as e:  # surface IO failures to the main loop
         errors.append(e)
@@ -192,13 +202,15 @@ def _renderer(model_c: NeRF, model_f: NeRF | None, ncfg: NeRFConfig,
     H, W = gcfg.H, gcfg.W
 
     def render(ro: np.ndarray, rd: np.ndarray, i: int):
-        rays_o = torch.from_numpy(np.ascontiguousarray(ro)).to(device)
-        rays_d = torch.from_numpy(np.ascontiguousarray(rd)).to(device)
+        with trace.span("datagen.upload"):
+            rays_o = torch.from_numpy(np.ascontiguousarray(ro)).to(device)
+            rays_d = torch.from_numpy(np.ascontiguousarray(rd)).to(device)
         if ndc:
             rays_o, rays_d = ndc_rays(H, W, gcfg.focal, 1.0, rays_o, rays_d)
         draws = gen = None
         if draws_fn is not None:
-            draws = draws_fn(i, rays_o, rays_d)
+            with trace.span("datagen.draws"):
+                draws = draws_fn(i, rays_o, rays_d)
         elif vcfg.perturb:
             gen = torch.Generator(device).manual_seed(pose_seed(gcfg.seed, i))
         kw = dict(draws=draws, generator=gen, ncfg_fine=ncfg_fine)
@@ -290,7 +302,8 @@ def generate_pseudo_data(model_c: NeRF, model_f: NeRF | None,
 
     def flush(rays: np.ndarray) -> None:
         if writes:
-            writer_q.put(rays)
+            with trace.span("datagen.flush"):
+                writer_q.put(rays)
         else:       # a rank that writes nothing counts the rays
             total["rays"] += rays.shape[0]
     buf: list[np.ndarray] = []
@@ -300,30 +313,48 @@ def generate_pseudo_data(model_c: NeRF, model_f: NeRF | None,
             if errors:
                 raise RuntimeError("pseudo-data writer failed") from errors[0]
             k = min(ppb, gcfg.n_pose - done)
-            rays = [_pose_rays(rng, gcfg, radius, pose_fn) for _ in range(k)]
-            ro = np.concatenate([r[0].reshape(-1, 3) for r in rays])
-            rd = np.concatenate([r[1].reshape(-1, 3) for r in rays])
-            rgb, depth = render(ro, rd, done)
-            cols = [ro, rd, rgb.cpu().numpy()]
-            if ld == "surface":   # the surface point o + d*depth
-                cols.append(ro + rd * depth.cpu().numpy()[:, None])
-            elif ld == "depth":
-                cols.append(depth.cpu().numpy()[:, None])
-            rec = np.concatenate(cols, axis=1).astype(np.float32)
-            assert rec.shape[1] == record_dim, (rec.shape, record_dim)
-            buf.append(rec)
+            # the batch's cameras are drawn before its spans open: a
+            # caller's pose_fn may begin the profiler session that turns
+            # tracing on, and a span records only if it opens inside one
+            cams = [_pose_cam(rng, gcfg, radius, pose_fn) for _ in range(k)]
+            trace.unit(done)
+            with trace.span("datagen.batch"):
+                with trace.span("datagen.rays"):
+                    rays = [_pose_rays(rng, gcfg, radius, cam=c)
+                            for c in cams]
+                    ro = np.concatenate([r[0].reshape(-1, 3) for r in rays])
+                    rd = np.concatenate([r[1].reshape(-1, 3) for r in rays])
+                with trace.span("datagen.render"):
+                    rgb, depth = render(ro, rd, done)
+                with trace.span("datagen.readback"):
+                    rgb = rgb.cpu().numpy()
+                    depth = depth.cpu().numpy() if ld else None
+                with trace.span("datagen.records"):
+                    cols = [ro, rd, rgb]
+                    if ld == "surface":   # the surface point o + d*depth
+                        cols.append(ro + rd * depth[:, None])
+                    elif ld == "depth":
+                        cols.append(depth[:, None])
+                    rec = np.concatenate(cols, axis=1).astype(np.float32)
+                    assert rec.shape[1] == record_dim, (rec.shape,
+                                                        record_dim)
+                    buf.append(rec)
+                    full = None
+                    if sum(b.shape[0] for b in buf) >= gcfg.save_every * H * W:
+                        full, buf = np.concatenate(buf, axis=0), []
+            # the caller's progress is outside the batch's span
             done += k
             if progress is not None:
                 progress(done, gcfg.n_pose)
-            if sum(b.shape[0] for b in buf) >= gcfg.save_every * H * W:
-                flush(np.concatenate(buf, axis=0))
-                buf = []
+            if full is not None:
+                flush(full)
         if buf:
             flush(np.concatenate(buf, axis=0))
     finally:
         if writes:
-            writer_q.put(None)
-            wt.join()
+            with trace.span("datagen.join"):
+                writer_q.put(None)
+                wt.join()
     if errors:
         raise RuntimeError("pseudo-data writer failed") from errors[0]
     return total["rays"]

@@ -42,6 +42,7 @@ package; ``write_video`` uses ``imageio`` where it is installed.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import struct
 import sys
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from . import metrics as M
+from . import trace
 from .encoding import r2l_embed
 from .flip import flip as flip_metric
 from .kernels.nerf_render import check_teacher_supported
@@ -269,11 +271,14 @@ def _shard_rays(mesh: Mesh | None, fn: Callable, arrays: tuple,
 
 def _frame(net: Callable, prepared, sampler: PointSampler, plucker: bool,
            c2w: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
-    pts = (sampler.sample_test_plucker(c2w) if plucker
-           else sampler.sample_test(c2w))
+    with trace.span("frame.sample"):
+        pts = (sampler.sample_test_plucker(c2w) if plucker
+               else sampler.sample_test(c2w))
+    with trace.span("frame.net"):
+        rgb = _shard_rays(mesh, lambda p: net(prepared, p), (pts,), (0.0,))
     # learn_depth models emit 4 channels; frames keep RGB
-    rgb = _shard_rays(mesh, lambda p: net(prepared, p), (pts,), (0.0,))
-    return rgb[:, :3].reshape(sampler.H, sampler.W, 3)
+    with trace.span("frame.out"):
+        return rgb[:, :3].reshape(sampler.H, sampler.W, 3)
 
 
 def make_r2l_frame_fn(model: R2L, cfg: R2LConfig, sampler: PointSampler,
@@ -290,11 +295,14 @@ def make_r2l_frame_fn(model: R2L, cfg: R2LConfig, sampler: PointSampler,
         calib_poses=calib_poses)
     net = _r2l_net_fn(cfg, embed_L, kind, dim_pts)
     device = _model_device(model)
+    frames = itertools.count()
 
     @torch.no_grad()
     def frame_fn(c2w) -> torch.Tensor:
-        return _frame(net, prepared, sampler, plucker, _as_f32(c2w, device),
-                      mesh)
+        trace.unit(next(frames))
+        with trace.span("frame", syncs=device):
+            return _frame(net, prepared, sampler, plucker,
+                          _as_f32(c2w, device), mesh)
 
     frame_fn.kind = kind
     return frame_fn

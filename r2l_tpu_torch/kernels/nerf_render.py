@@ -70,6 +70,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..models.nerf import NeRF, NeRFConfig
 from ..volume import fma, ray_points
 from .r2l_fused import (_WIDE_TYPES, WIDE_CHANNELS, WIDE_SCRATCH_BYTES,
@@ -1158,6 +1159,18 @@ def fused_nerf_render(fp: FusedNeRFParams, cfg: NeRFConfig,
                                      L_views, white_bkgd,
                                      pe_ladder=pe_ladder,
                                      bf16_requant=bf16_requant)
+    return _launch_teacher(fp, cfg, rays_o, rays_d, z_vals, L_pts, L_views,
+                           white_bkgd, pe_ladder, bf16_requant)
+
+
+@trace.spanned("kernel.launch")
+def _launch_teacher(fp: FusedNeRFParams, cfg: NeRFConfig,
+                    rays_o: torch.Tensor, rays_d: torch.Tensor,
+                    z_vals: torch.Tensor, L_pts: int, L_views: int,
+                    white_bkgd: bool, pe_ladder: bool, bf16_requant: bool):
+    """``fused_nerf_render`` on CUDA tensors: checked here, one launch of
+    K6, K7 or their wide form; counted in ``fused_nerf_render``'s
+    counters."""
     from . import _build
     check_teacher_supported(cfg)
     if getattr(fp, "staged", None) is None:

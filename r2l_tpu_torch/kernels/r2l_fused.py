@@ -70,6 +70,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..models.r2l import R2L, R2LConfig
 from .staging import stage_matrices, tf32_split, unstage_matrices
 
@@ -543,6 +544,7 @@ def _raise_on_error(rc: int, kernel: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
+@trace.spanned("kernel.launch")
 def _launch_chain(wrapper, lib_name: str, fp: FusedParams, cfg: R2LConfig,
                   inp: torch.Tensor, front: tuple, wd: torch.dtype
                   ) -> torch.Tensor:
@@ -1075,6 +1077,7 @@ def _check_int8_params(fp: FusedParamsInt8PE, cfg: R2LConfig,
         _check(t, name, dt, shape, dev)
 
 
+@trace.spanned("kernel.launch")
 def _launch_int8_hopper(fp: FusedParamsInt8PE, cfg: R2LConfig,
                         pts: torch.Tensor, dim_pts: int, L: int,
                         epilogue: int, wrapper=None) -> torch.Tensor:
@@ -1305,6 +1308,7 @@ def wide_cast_ref(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                                    (0, _padded_in(x.shape[1]) - x.shape[1]))
 
 
+@trace.spanned("kernel.launch")
 def _launch_wide(wrapper, fp: FusedParams | FusedParamsInt8PE,
                  cfg: R2LConfig, inp: torch.Tensor, dim_pts: int, L: int,
                  in_dim: int, epilogue: int) -> torch.Tensor:
